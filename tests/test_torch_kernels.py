@@ -1,0 +1,108 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+version, on the card. These tests need a CUDA device and skip without
+one; the file imports no JAX, so on a machine with a card and no JAX it
+runs on its own:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_operator_torch.kernels import flash_fwd
+from tpu_operator_torch.workloads.flashattention import _collapse_heads
+
+F32_TOL = 1e-4
+BF16_TOL = 2e-2
+LSE_TOL = 1e-3
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, sq, h, d, dtype, h_kv=None, sk=None):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, sq, h, d), (b, sk or sq, h_kv or h, d), (b, sk or sq, h_kv or h, d))
+    return _collapse_heads(*(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                             .to("cuda", dtype) for s in shapes))
+
+
+def _err(a, b):
+    a, b = a.float(), b.float()
+    assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+    inf = torch.isneginf(a)
+    return float((torch.where(inf, 0.0, a) - torch.where(inf, 0.0, b)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_triangle_kernel_matches_plain(cuda, d, dtype):
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for s, h, h_kv in ((100, 2, 2), (128, 4, 2), (1, 1, 1)):
+        qb, kb, vb, h_, hk = _qkv(11, 2, s, h, d, DTYPES[dtype], h_kv=h_kv)
+        before = flash_fwd.flash_fwd_tri.launches
+        out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h_, hk)
+        want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h_, hk, causal=True)
+        torch.cuda.synchronize()
+        assert flash_fwd.flash_fwd_tri.launches == before + 1
+        assert out.dtype == qb.dtype and lse.dtype == torch.float32
+        assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_general_kernel_matches_plain(cuda, d, dtype):
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    seg = torch.tensor([[0] * 37 + [1] * 63, [0] * 70 + [1] * 30], dtype=torch.int32, device="cuda")
+    cases = [
+        dict(sq=100, sk=100, causal=False),
+        dict(sq=100, sk=100, causal=True, window=33),
+        dict(sq=100, sk=100, causal=True, seg=seg),
+        dict(sq=100, sk=100, causal=False, seg=seg),
+        dict(sq=100, sk=100, causal=True, window=7, seg=seg),
+        dict(sq=8, sk=64, causal=True, q_start=16),
+        dict(sq=8, sk=64, causal=True, q_start=56),
+        dict(sq=24, sk=80, causal=True, k_start=10),
+        dict(sq=70, sk=130, causal=True, q_start=60),
+    ]
+    for case in cases:
+        qb, kb, vb, h, hk = _qkv(12, 2, case["sq"], 4, d, DTYPES[dtype], h_kv=2, sk=case["sk"])
+        args = (case["causal"], case.get("q_start", 0), case.get("k_start", 0),
+                case.get("window"), case.get("seg"))
+        before = flash_fwd.flash_fwd_rect.launches
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, *args)
+        want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h, hk, *args)
+        torch.cuda.synchronize()
+        assert flash_fwd.flash_fwd_rect.launches == before + 1
+        assert _err(want, out) <= tol, case
+        assert _err(want_lse, lse) <= LSE_TOL, case
+
+
+@pytest.mark.cuda
+def test_fully_masked_rows_are_zero_with_lse_minus_inf(cuda):
+    qb, kb, vb, h, hk = _qkv(13, 1, 64, 2, 32, torch.bfloat16)
+    out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, True, k_start=40)
+    torch.cuda.synchronize()
+    assert torch.all(out[:, :40] == 0) and torch.all(torch.isneginf(lse[:, :40]))
+    assert torch.all(torch.isfinite(lse[:, 40:]))
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda):
+    qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 8, torch.float32)
+    with pytest.raises(ValueError):
+        flash_fwd.flash_fwd_tri(qb, kb, vb, h, hk)          # head_dim 8
+    qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float16)
+    with pytest.raises(ValueError):
+        flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, False)  # float16
+    qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float32)
+    with pytest.raises(ValueError):
+        flash_fwd.flash_fwd_tri(qb, kb[:, :8].contiguous(), vb[:, :8].contiguous(), h, hk)

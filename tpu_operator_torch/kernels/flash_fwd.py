@@ -1,0 +1,177 @@
+"""Wrappers of the two flash-attention forward kernels (``flash_fwd.cu``)
+and their plain PyTorch version.
+
+Layout is the JAX package's collapsed one: q (B·H, Sq, D), k/v
+(B·H_kv, Sk, D); outputs O (B·H, Sq, D) in q's dtype and the natural-log
+logsumexp (B·H, Sq) in float32. A q row i reads kv row
+``(i // H) * H_kv + (i % H) // (H // H_kv)`` (grouped-query attention).
+
+The device of the tensors chooses the code: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs :func:`attention_plain`. Each
+wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from tpu_operator_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+LOG2E = 1.4426950408889634
+
+
+def kv_row(i, heads: int, kv_heads: int):
+    """Collapsed-row mapping for grouped-query attention: q row i (of
+    B·heads) reads kv row (of B·kv_heads) — query heads share KV heads in
+    groups of heads // kv_heads. The kernels compute the same map."""
+    group = heads // kv_heads
+    return (i // heads) * kv_heads + (i % heads) // group
+
+
+def keep_mask(bh: int, sq: int, sk: int, heads: int, causal: bool,
+              q_start: int = 0, k_start: int = 0, window: Optional[int] = None,
+              seg: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
+    """The (q, k) pairs the kernels attend, as a bool (1 or bh, sq, sk)
+    mask: causal on global positions (``q_start + i >= k_start + j``),
+    the window ``0 <= q - k < window`` (causal only), and segment ids
+    ``seg`` (B, S) shared by a batch's heads."""
+    keep = torch.ones((1, sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        dist = (q_start + torch.arange(sq, device=device))[:, None] - (
+            k_start + torch.arange(sk, device=device))[None, :]
+        keep = (dist >= 0)[None]
+        if window is not None:
+            keep = keep & (dist < window)[None]
+    if seg is not None:
+        sb = seg[torch.arange(bh, device=device) // heads]  # (bh, S)
+        keep = keep & (sb[:, :, None] == sb[:, None, :])
+    return keep
+
+
+def attention_plain(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
+                    q_start: int = 0, k_start: int = 0,
+                    window: Optional[int] = None,
+                    seg: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense masked float32 softmax attention with the kernels' masking
+    (:func:`keep_mask`), GQA, and fully masked rows giving O = 0 and
+    lse = -inf. Returns (O in q's dtype, lse float32)."""
+    bh, sq, d = qb.shape
+    sk = kb.shape[1]
+    kv = kv_row(torch.arange(bh, device=qb.device), heads, kv_heads)
+    k = kb.float()[kv]
+    v = vb.float()[kv]
+    s = torch.einsum("bqd,bkd->bqk", qb.float(), k) * (1.0 / math.sqrt(d))
+    keep = keep_mask(bh, sq, sk, heads, causal, q_start, k_start, window, seg, qb.device)
+    s = s.masked_fill(~keep, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None], 0.0)), 0.0)
+    out = torch.einsum("bqk,bkd->bqd", p, v)
+    return out.to(qb.dtype), lse
+
+
+def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
+    for name, t in (("q", qb), ("k", kb), ("v", vb)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor for the kernel, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be (rows, seq, head_dim), got {tuple(t.shape)}")
+    if qb.dtype not in _DTYPES or kb.dtype != qb.dtype or vb.dtype != qb.dtype:
+        raise ValueError(f"q/k/v must share a dtype in {list(_DTYPES)}: "
+                         f"{qb.dtype}, {kb.dtype}, {vb.dtype}")
+    d = qb.shape[2]
+    if d not in HEAD_DIMS or kb.shape[2] != d or vb.shape != kb.shape:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS} and match across q/k/v: "
+                         f"{tuple(qb.shape)}, {tuple(kb.shape)}, {tuple(vb.shape)}")
+    if heads % kv_heads or qb.shape[0] // heads * kv_heads != kb.shape[0]:
+        raise ValueError(f"rows {qb.shape[0]} / {kb.shape[0]} do not fit heads {heads} / {kv_heads}")
+    if qb.shape[0] > 65535:
+        raise ValueError(f"at most 65535 (batch·head) rows, got {qb.shape[0]}")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures declared (built on first call)."""
+    lib = build.load("flash_fwd")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_tri.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
+    lib.flash_fwd_tri.restype = i32
+    lib.flash_fwd_rect.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                   i32, i32, i32, i32, i32, i32, f32, ptr]
+    lib.flash_fwd_rect.restype = i32
+    return lib
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code == -1:
+        raise ValueError(f"{name}: shape or dtype not supported by the kernel")
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int):
+    """Plain-causal forward (sq == sk, no offsets, window or segments):
+    the port of ``_flash_fwd_tri_kernel``."""
+    if not qb.is_cuda:
+        return attention_plain(qb, kb, vb, heads, kv_heads, causal=True)
+    _check(qb, kb, vb, heads, kv_heads)
+    bh, s, d = qb.shape
+    if kb.shape[1] != s:
+        raise ValueError(f"the triangle kernel needs sq == sk, got {s} and {kb.shape[1]}")
+    out = torch.empty_like(qb)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=qb.device)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _lib().flash_fwd_tri(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, LOG2E / math.sqrt(d), stream,
+        )
+    _raise_on(code, "flash_fwd_tri")
+    flash_fwd_tri.launches += 1
+    return out, lse
+
+
+def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
+                   q_start: int = 0, k_start: int = 0,
+                   window: Optional[int] = None, seg: Optional[torch.Tensor] = None):
+    """General forward — causal or full, window, segment ids (B, S) int32,
+    global offsets, sq != sk: the port of ``_flash_fwd_kernel``."""
+    if not qb.is_cuda:
+        return attention_plain(qb, kb, vb, heads, kv_heads, causal, q_start, k_start,
+                               window, seg)
+    _check(qb, kb, vb, heads, kv_heads)
+    bh, sq, d = qb.shape
+    sk = kb.shape[1]
+    if seg is not None:
+        if sq != sk or seg.shape != (bh // heads, sk) or seg.dtype != torch.int32:
+            raise ValueError(f"segment ids must be int32 (batch, seq) with sq == sk, got "
+                             f"{seg.dtype} {tuple(seg.shape)} for sq={sq}, sk={sk}")
+        if not (seg.is_cuda and seg.is_contiguous()):
+            raise ValueError("segment ids must be a contiguous CUDA tensor")
+    out = torch.empty_like(qb)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=qb.device)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _lib().flash_fwd_rect(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+            None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPES[qb.dtype], bh, sq, sk, d, heads, kv_heads, int(causal),
+            int(q_start), int(k_start), 0 if window is None else int(window),
+            LOG2E / math.sqrt(d), stream,
+        )
+    _raise_on(code, "flash_fwd_rect")
+    flash_fwd_rect.launches += 1
+    return out, lse
+
+
+flash_fwd_tri.launches = 0
+flash_fwd_rect.launches = 0

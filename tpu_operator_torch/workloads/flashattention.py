@@ -1,0 +1,220 @@
+"""Flash attention, forward (port of ``tpu_operator/workloads/flashattention.py``).
+
+Same public functions, layout (B, S, H, D) and errors as the reference.
+The attention itself runs in the two hand-written CUDA kernels of
+``kernels/flash_fwd.cu`` for CUDA tensors, and in their plain PyTorch
+version for CPU tensors (``kernels/flash_fwd.py``):
+
+- plain causal attention with sq == sk and no offsets, window or segments
+  takes the triangle kernel (the reference's ``_flash_fwd_tri_kernel``);
+- everything else — full attention, a sliding window, segment ids,
+  global ``q_start``/``k_start`` offsets, sq != sk — takes the general
+  kernel (``_flash_fwd_kernel``).
+
+``block_q``/``block_k`` keep only their role in the divisibility checks:
+the kernels choose their own tiles. Forward only for now: the backward
+kernels come with the training slice, and differentiating
+:func:`flash_attention` raises ``NotImplementedError`` until then.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from tpu_operator_torch.kernels.flash_fwd import flash_fwd_rect, flash_fwd_tri
+from tpu_operator_torch.kernels.flash_fwd import kv_row as _kv_row  # noqa: F401  (reference name)
+
+
+def _collapse_heads(q, k, v):
+    """Validate the GQA head layout and collapse (B, S, H, D) tensors to
+    contiguous (B·H, S, D) rows; returns (qb, kb, vb, h, h_kv)."""
+    b, _, h, d = q.shape
+    h_kv = k.shape[2]
+    if h % h_kv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
+    if v.shape != k.shape:
+        raise ValueError(f"k and v shapes must match: {tuple(k.shape)} vs {tuple(v.shape)}")
+
+    def bh(x):
+        return x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d).contiguous()
+
+    return bh(q), bh(k), bh(v), h, h_kv
+
+
+def _causal_triangle_tables(nq: int, nk_total: int, block_q: int, block_k: int):
+    """Row-major (q block, k block) walk of the causal lower triangle —
+    the pairs the triangle kernel visits, one q block per CTA walking its
+    k tiles up to the diagonal."""
+    tab_qi, tab_kj = [], []
+    for qi in range(nq):
+        for kj in range(min(nk_total - 1, ((qi + 1) * block_q - 1) // block_k) + 1):
+            tab_qi.append(qi)
+            tab_kj.append(kj)
+    return torch.tensor(tab_qi, dtype=torch.int32), torch.tensor(tab_kj, dtype=torch.int32)
+
+
+def _flash_forward(qb, kb, vb, causal: bool, block_q: int, block_k: int,
+                   q_start: int = 0, k_start: int = 0, heads: Optional[int] = None,
+                   kv_heads: Optional[int] = None, window: Optional[int] = None,
+                   seg=None):
+    """(out (B·H, Sq, D), lse (B·H, Sq) natural log) over collapsed rows;
+    ``seg`` is (B, S) int32. Chooses the triangle or the general kernel
+    exactly as the reference does."""
+    s = qb.shape[1]
+    sk = kb.shape[1]
+    if window is not None and not (q_start == 0 and k_start == 0):
+        # the band walk uses local block indices; global offsets would
+        # silently drop in-window keys outside the walked band
+        raise ValueError("window does not compose with q_start/k_start offsets")
+    heads = heads or 1
+    kv_heads = kv_heads or heads
+    plain_causal = (
+        causal and window is None and seg is None and sk == s
+        and q_start == 0 and k_start == 0
+    )
+    if plain_causal:
+        return flash_fwd_tri(qb, kb, vb, heads, kv_heads)
+    return flash_fwd_rect(qb, kb, vb, heads, kv_heads, causal, q_start, k_start, window, seg)
+
+
+class _FlashCore(torch.autograd.Function):
+    """Forward through the kernels; the backward (the reference's
+    FlashAttention-2 dQ and dK/dV kernels) is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, qb, kb, vb, seg, causal, block_q, block_k, heads, kv_heads, window):
+        out, _ = _flash_forward(qb, kb, vb, causal, block_q, block_k, heads=heads,
+                                kv_heads=kv_heads, window=window, seg=seg)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "flash_attention backward is not ported yet (the dQ and dK/dV kernels "
+            "come with the training slice)"
+        )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """q: (B, S, H, D); k/v: (B, S, H_kv, D) with H_kv dividing H
+    (grouped-query attention when H_kv < H). ``window`` keeps only the
+    last ``window`` positions (causal only); ``segment_ids`` (B, S) int
+    restricts attention to same-segment pairs. Unset blocks resolve
+    through the published autotune winners (``tuned_flash_blocks``)."""
+    b, s, h, d = q.shape
+    if block_q is None or block_k is None:
+        from tpu_operator_torch.workloads.autotune import tuned_flash_blocks
+
+        tuned_q, tuned_k = tuned_flash_blocks(s, heads=h, head_dim=d)
+        block_q = block_q or tuned_q
+        block_k = block_k or tuned_k
+    block_q = min(block_q, s)
+    block_k = min(block_k, s)
+    if s % block_q or s % block_k:
+        raise ValueError(f"seq_len {s} must divide by blocks ({block_q}, {block_k})")
+    if window is not None and (not causal or window < 1):
+        raise ValueError("window requires causal attention and window >= 1")
+    if k.shape[1] != s:
+        raise ValueError(f"k/v seq_len {k.shape[1]} must equal q's ({s})")
+    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v)
+    seg = None
+    if segment_ids is not None:
+        if tuple(segment_ids.shape) != (b, s):
+            raise ValueError(
+                f"segment_ids must be (batch, seq) = {(b, s)}, got {tuple(segment_ids.shape)}"
+            )
+        if segment_ids.is_floating_point() or segment_ids.is_complex() or segment_ids.dtype == torch.bool:
+            raise ValueError(f"segment_ids must be integral, got {segment_ids.dtype}")
+        seg = segment_ids.to(torch.int32).contiguous()
+    out = _FlashCore.apply(qb, kb, vb, seg, causal, block_q, block_k, h, h_kv, window)
+    return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    block_q: int = 256,
+    block_k: int = 256,
+    q_start: int = 0,
+    k_start: int = 0,
+):
+    """Forward-only variant returning ``(out, lse)`` with GLOBAL sequence
+    offsets for the causal mask (the ring and chunked-prefill building
+    block). q may be shorter than k/v. lse is (B, Sq, H), natural log;
+    a row with no visible key gets out 0 and lse -inf."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(
+            f"seq lens ({sq}, {sk}) must divide by blocks ({block_q}, {block_k})"
+        )
+    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v)
+    out, lse = _flash_forward(
+        qb, kb, vb, causal, block_q, block_k, q_start, k_start, heads=h, kv_heads=h_kv,
+    )
+    out = out.reshape(b, h, sq, d).transpose(1, 2)
+    lse = lse.reshape(b, h, sq).transpose(1, 2)  # (B, S, H)
+    return out, lse
+
+
+def run_flash_attention_check(
+    seq_len: int = 512,
+    batch: int = 1,
+    heads: int = 2,
+    head_dim: int = 128,
+    block_q: int = 128,
+    block_k: int = 128,
+    causal: bool = True,
+    device=None,
+) -> dict:
+    """Validator payload: the kernel must match dense attention to bf16
+    accumulation noise on the plain and the packed-sequence paths."""
+    from tpu_operator_torch.device import resolve_device
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    shape = (batch, seq_len, heads, head_dim)
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+    want = dense_attention(q, k, v, causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    if not math.isfinite(err) or err > 2e-2:
+        raise RuntimeError(f"flash attention diverges from dense: max_abs_err={err}")
+    # packed sequences: two segments with the boundary mid-block
+    cut = seq_len // 2 + seq_len // 8
+    seg = (torch.arange(seq_len, device=dev) >= cut).to(torch.int32).expand(batch, seq_len)
+    got_seg = flash_attention(
+        q, k, v, causal=causal, block_q=block_q, block_k=block_k, segment_ids=seg
+    )
+    want_seg = dense_attention(q, k, v, causal=causal, segment_ids=seg)
+    seg_err = float((got_seg.float() - want_seg.float()).abs().max())
+    if not math.isfinite(seg_err) or seg_err > 2e-2:
+        raise RuntimeError(
+            f"packed-sequence flash diverges from dense: max_abs_err={seg_err}"
+        )
+    return {
+        "seq_len": seq_len,
+        "block_q": block_q,
+        "block_k": block_k,
+        "causal": causal,
+        "max_abs_err": err,
+        "segment_max_abs_err": seg_err,
+        "ok": True,
+    }

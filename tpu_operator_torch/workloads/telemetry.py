@@ -1,0 +1,131 @@
+"""Workload step-time telemetry (port of ``tpu_operator/workloads/telemetry.py``).
+
+A copy of the recorder the serving engine and burn-in use: per-step wall
+time with the first (warm-up) step split off, and p50/p99/max over the
+executed steps. The caller forces its own result inside the step (a CUDA
+launch returns before the device finishes; reading a value back to the
+host waits for it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+
+def _percentile(sorted_values: List[float], q: float) -> float:
+    """Nearest-rank percentile over an already-sorted sample."""
+    if not sorted_values:
+        return 0.0
+    idx = min(len(sorted_values) - 1, max(0, int(round(q * (len(sorted_values) - 1)))))
+    return sorted_values[idx]
+
+
+@dataclasses.dataclass
+class StepTimeReport:
+    steps: int
+    compile_s: float  # first (warm-up) call, separated from the steps
+    step_p50_s: float
+    step_p99_s: float
+    step_max_s: float
+    step_mean_s: float
+    total_s: float
+    tflops: Optional[float] = None  # achieved, when flops_per_step known
+    host: str = ""
+
+    def to_dict(self) -> dict:
+        out = {
+            "steps": self.steps,
+            "compile_s": round(self.compile_s, 6),
+            "step_p50_s": round(self.step_p50_s, 6),
+            "step_p99_s": round(self.step_p99_s, 6),
+            "step_max_s": round(self.step_max_s, 6),
+            "step_mean_s": round(self.step_mean_s, 6),
+            "total_s": round(self.total_s, 6),
+        }
+        if self.tflops is not None:
+            out["tflops"] = round(self.tflops, 2)
+        if self.host:
+            out["host"] = self.host
+        return out
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "StepTimeReport":
+        return cls(
+            steps=int(data.get("steps", 0)),
+            compile_s=float(data.get("compile_s", 0.0)),
+            step_p50_s=float(data.get("step_p50_s", 0.0)),
+            step_p99_s=float(data.get("step_p99_s", 0.0)),
+            step_max_s=float(data.get("step_max_s", 0.0)),
+            step_mean_s=float(data.get("step_mean_s", 0.0)),
+            total_s=float(data.get("total_s", 0.0)),
+            tflops=float(data["tflops"]) if data.get("tflops") is not None else None,
+            host=str(data.get("host", "")),
+        )
+
+
+class StepTimeRecorder:
+    """Records one stepped run. Either drive it explicitly::
+
+        rec = StepTimeRecorder(flops_per_step=f)
+        with rec.step():           # first step = warm-up + execute
+            out = step(batch)
+
+    or hand it the whole loop via :meth:`run`. The first recorded step
+    is booked as warm-up time; percentiles cover only the executed steps.
+    """
+
+    def __init__(self, flops_per_step: Optional[float] = None, host: str = ""):
+        self.flops_per_step = flops_per_step
+        self.host = host
+        self._durations: List[float] = []
+        self._t0: Optional[float] = None
+
+    class _StepCtx:
+        def __init__(self, rec: "StepTimeRecorder"):
+            self._rec = rec
+
+        def __enter__(self):
+            self._start = time.perf_counter()
+            return self
+
+        def __exit__(self, exc_type, exc, tb):
+            if exc is None:
+                self._rec._durations.append(time.perf_counter() - self._start)
+            return False
+
+    def step(self) -> "StepTimeRecorder._StepCtx":
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        return self._StepCtx(self)
+
+    def run(self, step_fn: Callable[[], None], steps: int) -> StepTimeReport:
+        """Time ``steps`` calls of ``step_fn`` (which must force its own
+        result — an unforced asynchronous launch would time the enqueue)."""
+        for _ in range(steps):
+            with self.step():
+                step_fn()
+        return self.report()
+
+    def report(self) -> StepTimeReport:
+        if not self._durations:
+            raise RuntimeError("no steps recorded")
+        compile_s = self._durations[0]
+        executed = self._durations[1:] or self._durations[:1]
+        ordered = sorted(executed)
+        mean = sum(executed) / len(executed)
+        tflops = None
+        if self.flops_per_step and mean > 0:
+            tflops = self.flops_per_step / mean / 1e12
+        return StepTimeReport(
+            steps=len(self._durations),
+            compile_s=compile_s,
+            step_p50_s=_percentile(ordered, 0.50),
+            step_p99_s=_percentile(ordered, 0.99),
+            step_max_s=ordered[-1],
+            step_mean_s=mean,
+            total_s=sum(self._durations),
+            tflops=tflops,
+            host=self.host,
+        )
