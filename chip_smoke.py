@@ -8,33 +8,52 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure (a non-zero exit, and no result line):
 
 1. device — CUDA must be present; prints the card's name and power limit;
-2. build — compiles the CUDA kernels from the repository's sources;
+2. build — compiles both CUDA sources (``flash_fwd.cu``, ``flash_bwd.cu``)
+   from the repository, one ``nvcc`` each, started together;
 3. kernels — each hand-written kernel against its plain PyTorch version
-   at the shapes the main paths give it (and at the validator and timing
-   shapes), with per-launch times of the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   — device time from CUDA-graph replay, and eager time as a caller sees
-   it — and the least time the card could take (bytes or FLOPs at peak);
-   then the validator payload ``run_flash_attention_check()``;
+   at the shapes the main paths give it (and at validator and timing
+   shapes): the forward kernels against ``attention_plain``, the backward
+   pairs (dQ and dK/dV) against ``attention_bwd_plain``. Per launch: the
+   kernel's device time (CUDA-graph replay) and eager time (as a caller
+   sees it), the plain version's, a PyTorch call on the same work as a
+   yardstick the port never calls (``F.scaled_dot_product_attention``;
+   for the backward pairs its backward, timed as fwd+bwd less fwd), and
+   the least time the card could take (bytes or FLOPs at peak); then the
+   validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
 5. serving — the default-geometry ``DecodeEngine`` with flash prefill
    answers 16 requests through the general kernel, with the same greedy
-   tokens as dense prefill.
+   tokens as dense prefill;
+6. train — ``run_burnin(steps=3)`` at ``entry()`` widths with flash
+   attention: plain causal (the triangle pairs, 2 launches of each kernel
+   per step), ``kv_heads=2`` (a GQA group inside the dK/dV kernel) and
+   ``packed_segments=2`` (the general pairs). Each loss curve must fall
+   and stay within bf16 tolerance of the dense path's from the same
+   params (the packed one of the same run on the CPU, where attention
+   takes the plain versions: the dense path has no segment ids); an f32
+   gradient check of ``flash_attention`` against autograd through dense
+   attention; the train step's eager and device ms; and
+   ``flash_attention_bench()`` (fwd and fwd+bwd at 4096 tokens against
+   dense and checkpointed dense attention).
 
 Launch counts are zeroed just before each main path and read just after.
-The line before last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--json PATH`` also writes the full
-results (every shape's timings, the compiler's register report) there.
+The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
+table); the last line is ``{"ok": true, "device": {...}}``. ``--json
+PATH`` also writes the full results (every shape's timings, the
+compiler's register report) there.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
+import importlib
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -47,13 +66,35 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # f32 outside the tensor cores
 BF16_TOL, F32_TOL, LSE_TOL = 2e-2, 1e-4, 1e-3
-SOURCE = "tpu_operator_torch/kernels/flash_fwd.cu"
-REPLACES = {"flash_fwd_tri": "tpu_operator/workloads/flashattention.py:301",
-            "flash_fwd_rect": "tpu_operator/workloads/flashattention.py:341"}
+REFERENCE = "tpu_operator/workloads/flashattention.py"
+# wrapper (and kernel) name: (its module and CUDA source under
+# tpu_operator_torch/kernels/, the line of the Pallas kernel it replaces)
+KERNELS = {
+    "flash_fwd_tri": ("flash_fwd", 301),
+    "flash_fwd_rect": ("flash_fwd", 341),
+    "flash_bwd_dq_tri": ("flash_bwd", 599),
+    "flash_bwd_dkv_tri": ("flash_bwd", 657),
+    "flash_bwd_dq_rect": ("flash_bwd", 434),
+    "flash_bwd_dkv_rect": ("flash_bwd", 496),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def wrappers() -> dict:
+    return {name: getattr(importlib.import_module(f"tpu_operator_torch.kernels.{module}"), name)
+            for name, (module, _) in KERNELS.items()}
+
+
+def zero_launches() -> None:
+    for wrapper in wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in wrappers().items()}
 
 
 def _event_ms(run, calls: int, reps: int) -> float:
@@ -127,16 +168,21 @@ def phase_device() -> str:
 def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
+    sources = sorted({module for module, _ in KERNELS.values()})
     start = time.perf_counter()
-    built = build.build(["flash_fwd"])
+    built = build.build(sources)
     seconds = time.perf_counter() - start
-    lib, _ = built["flash_fwd"]
-    report = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    log(f"build: flash_fwd.cu for sm_90a in {seconds:.1f} s")
-    return {"seconds": seconds, "ptxas": report}
+    reports = {}
+    for name in sources:
+        lib, _ = built[name]
+        report = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", report)]
+        log(f"  ptxas {name}.cu: {len(regs)} kernels, registers max {max(regs, default=0)}, "
+            f"spill stores max {max(spills, default=0)} bytes")
+        reports[name] = report
+    log(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a in {seconds:.1f} s (in parallel)")
+    return {"seconds": seconds, "ptxas": reports}
 
 
 def _case_inputs(case, gen):
@@ -149,6 +195,10 @@ def _case_inputs(case, gen):
     seg = None
     if case.get("cut") is not None:
         seg = (torch.arange(sk, device="cuda") >= case["cut"]).to(torch.int32).expand(b, sk).contiguous()
+    if case.get("packed"):
+        from tpu_operator_torch.workloads.burnin import _packed_ids
+
+        seg = _packed_ids(b, sk, case["packed"], "cuda")
     return q, k, v, seg
 
 
@@ -168,21 +218,71 @@ def _bound(case, live_pairs: int, d: int) -> tuple:
     return (t_flops, "operations") if t_flops >= t_bytes else (t_bytes, "bytes")
 
 
-def _library_call(case, q, k, v, seg):
-    """One F.scaled_dot_product_attention call on the same work, as a
-    yardstick (never on the port's path)."""
+def _sdpa_kwargs(case, seg, tri: bool) -> dict:
+    """Arguments of F.scaled_dot_product_attention for the case's masking."""
     from tpu_operator_torch.kernels.flash_fwd import keep_mask
 
     b, sq, h, d = case["q"]
     sk, h_kv = case.get("sk", sq), case.get("h_kv", h)
-    qs, ks, vs = (x.reshape(b, -1, x.shape[1], d) for x in (q, k, v))
-    gqa = {"enable_gqa": True} if h_kv != h else {}
-    if case["kernel"] == "flash_fwd_tri":
-        return lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, **gqa)
+    kwargs = {"enable_gqa": True} if h_kv != h else {}
+    if tri:
+        return dict(kwargs, is_causal=True)
     mask = keep_mask(b * h, sq, sk, h, case["causal"], case.get("q_start", 0),
                      case.get("k_start", 0), case.get("window"), seg, "cuda")
     mask = mask.reshape(b, -1, sq, sk) if mask.shape[0] > 1 else mask.reshape(1, 1, sq, sk)
-    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, **gqa)
+    return dict(kwargs, attn_mask=mask)
+
+
+def _heads_layout(case, *tensors):
+    """(B·H, S, D) rows as (B, H, S, D) views, SDPA's layout."""
+    b, d = case["q"][0], case["q"][3]
+    return [x.reshape(b, -1, x.shape[1], d) for x in tensors]
+
+
+def _library_call(case, q, k, v, seg):
+    """One F.scaled_dot_product_attention call on the same work, as a
+    yardstick (never on the port's path)."""
+    qs, ks, vs = _heads_layout(case, q, k, v)
+    kwargs = _sdpa_kwargs(case, seg, case["kernel"] == "flash_fwd_tri")
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, **kwargs)
+
+
+def _library_backward_ms(case, q, k, v, seg, dout, inner: int) -> tuple:
+    """(device ms, eager ms) of F.scaled_dot_product_attention's backward
+    on the same work (a yardstick, never on the port's path), as fwd+bwd
+    less fwd: autograd runs a backward on its forward's stream, so the
+    backward alone cannot be captured in a graph of its own."""
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in _heads_layout(case, q, k, v))
+    (g,) = _heads_layout(case, dout)
+    kwargs = _sdpa_kwargs(case, seg, case["pair"] == "tri")
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, **kwargs)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qs, ks, vs), g)
+
+    return (device_ms(fwd_bwd, inner) - device_ms(fwd, inner),
+            cuda_ms(fwd_bwd, inner) - cuda_ms(fwd, inner))
+
+
+def _bwd_bound(case, live_pairs: int, d: int, dq: bool) -> tuple:
+    """(bound ms, what bounds it) of one backward launch: the inputs read
+    once (q, dO, k, v, lse, delta, segment ids) and the outputs written once
+    (dq, or dk and dv) over HBM bandwidth, against 6·D FLOPs per live (q, k)
+    pair for dQ (S, dP, dQ) or 8·D for dK/dV (S, dP, dV, dK), every q head
+    of a GQA group counted, at the dtype's peak."""
+    b, s, h, _ = case["q"]
+    h_kv = case.get("h_kv", h)
+    item = torch.tensor([], dtype=case["dtype"]).element_size()
+    q_side, kv_side = b * h * s * d, b * h_kv * s * d
+    nbytes = item * (3 * q_side + 2 * kv_side if dq else 2 * q_side + 4 * kv_side) + 8 * b * h * s
+    if case.get("cut") is not None or case.get("packed"):
+        nbytes += 4 * b * s
+    flops = (6.0 if dq else 8.0) * d * live_pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
+    return (t_flops, "operations") if t_flops >= t_bytes else (t_bytes, "bytes")
 
 
 KERNEL_CASES = [
@@ -209,6 +309,111 @@ KERNEL_CASES = [
         ("fully masked rows (k_start 256)", dict(causal=True, k_start=256)),
     )
 ]
+
+
+BWD_CASES = [
+    # the triangle pair: the burn-in train step (main path) and its GQA
+    # config, f32, GQA at the validator width, long context
+    dict(pair="tri", label="burnin bf16 (8,128,4,64)", q=(8, 128, 4, 64),
+         dtype=torch.bfloat16, main=True),
+    dict(pair="tri", label="burnin gqa bf16 (8,128,4,64) h_kv 2", q=(8, 128, 4, 64), h_kv=2,
+         dtype=torch.bfloat16),
+    dict(pair="tri", label="f32 (2,128,4,64)", q=(2, 128, 4, 64), dtype=torch.float32),
+    dict(pair="tri", label="gqa bf16 (1,512,4,128) h_kv 2", q=(1, 512, 4, 128), h_kv=2,
+         dtype=torch.bfloat16),
+    dict(pair="tri", label="timing bf16 (1,4096,8,128)", q=(1, 4096, 8, 128),
+         dtype=torch.bfloat16, inner=2),
+] + [
+    # the general pair: the packed burn-in train step (main path), a
+    # segment boundary inside a tile, full attention, the window band
+    dict(pair="rect", label="burnin packed bf16 (8,128,4,64) 2 segments", q=(8, 128, 4, 64),
+         dtype=torch.bfloat16, causal=True, packed=2, main=True),
+    dict(pair="rect", label="bf16 (8,128,4,64) segments cut 88", q=(8, 128, 4, 64),
+         dtype=torch.bfloat16, causal=True, cut=88),
+    dict(pair="rect", label="f32 (2,128,4,64) full", q=(2, 128, 4, 64), dtype=torch.float32,
+         causal=False),
+] + [
+    dict(pair="rect", label=f"bf16 (1,512,4,128) {name}", q=(1, 512, 4, 128),
+         dtype=torch.bfloat16, **extra)
+    for name, extra in (
+        ("full", dict(causal=False)),
+        ("window 128", dict(causal=True, window=128)),
+        ("gqa h_kv 2, window 128, segments cut 288", dict(causal=True, h_kv=2, window=128,
+                                                          cut=288)),
+    )
+]
+
+
+def _backward_rows(gen) -> list:
+    """Each backward pair against attention_bwd_plain on the forward
+    kernel's out and lse, with times; one row per kernel and case."""
+    from tpu_operator_torch.kernels import flash_bwd, flash_fwd
+    from tpu_operator_torch.kernels.flash_fwd import keep_mask
+
+    rows = []
+    for case in BWD_CASES:
+        q, k, v, seg = _case_inputs(case, gen)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(case["dtype"])
+        b, s, h, d = case["q"]
+        h_kv = case.get("h_kv", h)
+        tri = case["pair"] == "tri"
+        causal, window = case.get("causal", True), case.get("window")
+        if tri:
+            out, lse = flash_fwd.flash_fwd_tri(q, k, v, h, h_kv)
+        else:
+            out, lse = flash_fwd.flash_fwd_rect(q, k, v, h, h_kv, causal, window=window, seg=seg)
+        delta = (dout.float() * out.float()).sum(-1)
+        extra = () if tri else (causal, window, seg)
+        dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{case['pair']}")
+        dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{case['pair']}")
+
+        def dq():
+            return dq_fn(q, k, v, out, dout, lse, delta, h, h_kv, *extra)
+
+        def dkv():
+            return dkv_fn(q, k, v, out, dout, lse, delta, h, h_kv, *extra)
+
+        def plain():
+            return flash_bwd.attention_bwd_plain(q, k, v, out, lse, dout, h, h_kv, causal,
+                                                 window, seg)
+
+        want = plain()
+        got = (dq(), *dkv())
+        torch.cuda.synchronize()
+        errs = [err(w, g) for w, g in zip(want, got)]
+        scale = max(float(w.float().abs().max()) for w in want)
+        ok = (max(errs) <= F32_TOL if case["dtype"] == torch.float32
+              else max(errs) <= BF16_TOL * scale)
+        if not ok:
+            raise RuntimeError(f"backward pair [{case['label']}] disagrees with "
+                               f"attention_bwd_plain: dq/dk/dv err {errs}, max |grad| {scale}")
+        mask = keep_mask(b * h, s, s, h, causal, window=window, seg=seg, device="cuda")
+        live = int(mask.sum()) * (b * h // mask.shape[0])
+        inner = case.get("inner", 20)
+        plain_ms = device_ms(plain, inner)
+        library_ms, eager_library_ms = _library_backward_ms(case, q, k, v, seg, dout, inner)
+        pair = []
+        for fn, kernel_errs, is_dq in ((dq, errs[:1], True), (dkv, errs[1:], False)):
+            bound_ms, bound_by = _bwd_bound(case, live, d, is_dq)
+            pair.append({
+                "kernel": (dq_fn if is_dq else dkv_fn).__name__, "label": case["label"],
+                "main_path": bool(case.get("main")), "max_abs_err": max(kernel_errs),
+                "rel_err": max(kernel_errs) / scale, "ms": device_ms(fn, inner),
+                "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": cuda_ms(fn, inner),
+                "eager_library_ms": eager_library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "live_pairs": live,
+            })
+        pair_ms = pair[0]["ms"] + pair[1]["ms"]
+        for row in pair:
+            row["pair_ms"] = pair_ms
+        rows += pair
+        log(f"backward {case['pair']} [{case['label']}]: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
+            f"{errs[2]:.3g} (max |grad| {scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
+            f"{pair[0]['bound_ms']:.5f} by {pair[0]['bound_by']}), dkv {pair[1]['ms']:.5f} (bound "
+            f"{pair[1]['bound_ms']:.5f} by {pair[1]['bound_by']}), pair {pair_ms:.5f}, plain "
+            f"{plain_ms:.5f}, sdpa backward {library_ms:.5f}; eager ms: dq {pair[0]['eager_ms']:.4f}, "
+            f"dkv {pair[1]['eager_ms']:.4f}, sdpa backward {eager_library_ms:.4f}")
+    return rows
 
 
 def phase_kernels() -> list:
@@ -265,6 +470,7 @@ def phase_kernels() -> list:
             f"sdpa {row['library_ms']:.5f}, bound {bound_ms:.5f} by {bound_by}; eager ms: kernel "
             f"{row['eager_ms']:.4f}, plain {row['eager_plain_ms']:.4f}, "
             f"sdpa {row['eager_library_ms']:.4f}")
+    results += _backward_rows(gen)
     from tpu_operator_torch.workloads.flashattention import run_flash_attention_check
 
     check = run_flash_attention_check(device="cuda")
@@ -275,16 +481,14 @@ def phase_kernels() -> list:
 
 def phase_burnin() -> dict:
     from tpu_operator_torch.entry import entry
-    from tpu_operator_torch.kernels import flash_fwd
 
     fn, (params, x) = entry(use_flash_attention=True)
     dense_fn, (dense_params, dense_x) = entry(use_flash_attention=False)
     want = dense_fn(dense_params, dense_x)
-    flash_fwd.flash_fwd_tri.launches = flash_fwd.flash_fwd_rect.launches = 0
+    zero_launches()
     got = fn(params, x)
     torch.cuda.synchronize()
-    launches = {"flash_fwd_tri": flash_fwd.flash_fwd_tri.launches,
-                "flash_fwd_rect": flash_fwd.flash_fwd_rect.launches}
+    launches = read_launches()
     if launches["flash_fwd_tri"] == 0:
         raise RuntimeError(f"burn-in forward never launched the triangle kernel: {launches}")
     if not bool(torch.isfinite(got).all()) or got.shape != x.shape:
@@ -319,7 +523,6 @@ def _int8_check() -> None:
 
 
 def phase_serving() -> dict:
-    from tpu_operator_torch.kernels import flash_fwd
     from tpu_operator_torch.workloads.serving import DecodeEngine, ServingModelConfig, make_requests
 
     _int8_check()
@@ -329,15 +532,14 @@ def phase_serving() -> dict:
         engine = DecodeEngine(ServingModelConfig(use_flash_prefill=flash))
         engine.warmup(24)
         batch = copy.deepcopy(requests)
-        flash_fwd.flash_fwd_tri.launches = flash_fwd.flash_fwd_rect.launches = 0
+        zero_launches()
         for r in batch:
             engine.submit(r)
         engine.run_until_drained()
         torch.cuda.synchronize()
         runs[flash] = {
             "tokens": {r.rid: list(r.output) for r in engine.completed},
-            "launches": {"flash_fwd_tri": flash_fwd.flash_fwd_tri.launches,
-                         "flash_fwd_rect": flash_fwd.flash_fwd_rect.launches},
+            "launches": read_launches(),
             "report": engine.report(),
         }
     flash, dense = runs[True], runs[False]
@@ -355,22 +557,107 @@ def phase_serving() -> dict:
     return {"launches": flash["launches"], "report": rep, "dense_report": dense["report"]}
 
 
-def kernels_line(rows: list, burnin: dict, serving: dict) -> dict:
-    launches = {"flash_fwd_tri": burnin["launches"]["flash_fwd_tri"],
-                "flash_fwd_rect": serving["launches"]["flash_fwd_rect"]}
+TRAIN_CONFIGS = {"plain": {}, "gqa": {"kv_heads": 2}, "packed": {"packed_segments": 2}}
+
+
+def _flash_grad_check() -> float:
+    """autograd through flash_attention against autograd through dense
+    attention, f32, (1, 256, 2, 64): the reference's gradient test."""
+    from tpu_operator_torch.workloads.flashattention import flash_attention
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, w = (torch.randn((1, 256, 2, 64), generator=gen, device="cuda") for _ in range(4))
+    grads = {}
+    for name, attn in (("flash", flash_attention), ("dense", dense_attention)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        grads[name] = torch.autograd.grad((attn(*leaves, causal=True) * w).sum(), leaves)
+    worst = max(float((f - d).abs().max()) for f, d in zip(grads["flash"], grads["dense"]))
+    if not worst <= F32_TOL:
+        raise RuntimeError(f"f32 flash gradients differ from dense by {worst} (tol {F32_TOL})")
+    return worst
+
+
+def phase_train() -> dict:
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+    from tpu_operator_torch.workloads.flashattention import flash_attention_bench
+
+    out = {"paths": {}, "configs": {}}
+    for name, over in TRAIN_CONFIGS.items():
+        cfg = dataclasses.replace(ENTRY_CONFIG, use_flash_attention=True, **over)
+        steps = 3
+        zero_launches()
+        got = run_burnin(steps=steps, cfg=cfg, record_telemetry=True, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_launches()
+        pair = "rect" if cfg.packed_segments else "tri"
+        on_path = {f"flash_fwd_{pair}", f"flash_bwd_dq_{pair}", f"flash_bwd_dkv_{pair}"}
+        # each kernel of the pair once per layer and step, no other kernel
+        expected = {k: cfg.n_layers * steps if k in on_path else 0 for k in counts}
+        if counts != expected:
+            raise RuntimeError(f"train {name}: launches {counts}, expected {expected}")
+        if cfg.packed_segments:
+            ref_name, ref = "CPU plain versions", run_burnin(steps=steps, cfg=cfg, device="cpu")
+        else:
+            ref_name = "dense path"
+            ref = run_burnin(steps=steps, cfg=dataclasses.replace(cfg, use_flash_attention=False),
+                             device="cuda")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+        if not rel <= BF16_TOL:
+            raise RuntimeError(f"train {name}: losses {got['losses']} differ from the {ref_name}'s "
+                               f"{ref['losses']} by {rel} (relative, tol {BF16_TOL})")
+        step, params, batch = build_train_step(cfg, "cuda")
+        times = {"step_ms": cuda_ms(lambda: step(params, batch), inner=10),
+                 "step_device_ms": device_ms(lambda: step(params, batch), inner=10)}
+        if name == "plain":
+            dense_step, dense_params, dense_batch = build_train_step(
+                dataclasses.replace(cfg, use_flash_attention=False), "cuda")
+            times["dense_step_ms"] = cuda_ms(lambda: dense_step(dense_params, dense_batch), inner=10)
+            times["dense_step_device_ms"] = device_ms(
+                lambda: dense_step(dense_params, dense_batch), inner=10)
+        out["paths"][f"train {name}"] = counts
+        out["configs"][name] = {"losses": got["losses"], "reference": ref_name,
+                                "reference_losses": ref["losses"], "rel_err": rel,
+                                "telemetry": got["telemetry"], **times}
+        per_step = {k: v / steps for k, v in counts.items() if v}
+        log(f"train {name}: run_burnin(steps={steps}) losses {[round(x, 5) for x in got['losses']]}, "
+            f"{ref_name} {[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); launches per "
+            f"step {per_step}; step ms eager {times['step_ms']:.4f}, device "
+            f"{times['step_device_ms']:.4f}"
+            + (f" (dense path: eager {times['dense_step_ms']:.4f}, device "
+               f"{times['dense_step_device_ms']:.4f})" if name == "plain" else ""))
+    out["grad_check_max_abs_err"] = _flash_grad_check()
+    log(f"train: f32 flash_attention gradients vs dense, max abs err "
+        f"{out['grad_check_max_abs_err']:.3g}")
+    bench = flash_attention_bench(device="cuda")
+    out["flash_attention_bench"] = bench
+    log("train: flash_attention_bench() " + ", ".join(
+        f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}" for k, v in bench.items()))
+    return out
+
+
+def kernels_line(rows: list, paths: dict) -> dict:
+    """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
+    over the main-path runs (``paths``: run name -> counts)."""
+    keys = ("label", "max_abs_err", "rel_err", "ms", "pair_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "eager_ms")
     out = []
-    for name in ("flash_fwd_tri", "flash_fwd_rect"):
+    for name, (module, line) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         main = next(r for r in mine if r["main_path"])
+        by_path = {path: counts[name] for path, counts in paths.items() if counts[name]}
+        if not by_path:
+            raise RuntimeError(f"{name} was never launched on a main path: {paths}")
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"tpu_operator_torch/kernels/{module}.cu",
+            "replaces": f"{REFERENCE}:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "eager_ms": main["eager_ms"],
-            "shapes": [{k: r[k] for k in ("label", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "eager_ms")} for r in mine],
+            "shapes": [{k: r[k] for k in keys if k in r} for r in mine],
         })
     return {"kernels": out}
 
@@ -385,7 +672,10 @@ def main(argv=None) -> int:
     results["kernels"] = phase_kernels()
     results["burnin"] = phase_burnin()
     results["serving"] = phase_serving()
-    line = kernels_line(results["kernels"], results["burnin"], results["serving"])
+    results["train"] = phase_train()
+    paths = {"burnin forward": results["burnin"]["launches"],
+             "serving": results["serving"]["launches"], **results["train"]["paths"]}
+    line = kernels_line(results["kernels"], paths)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

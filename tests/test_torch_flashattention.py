@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from tpu_operator.workloads import flashattention as jfa
-from tpu_operator_torch.kernels import flash_fwd
+from tpu_operator_torch.kernels import flash_bwd, flash_fwd
 from tpu_operator_torch.workloads import flashattention as tfa
 
 F32_TOL = 1e-4
@@ -214,11 +214,22 @@ def test_run_flash_attention_check_on_cpu():
 
 
 def test_cpu_tensors_take_the_plain_version_and_backward_is_not_ported():
+    """CPU tensors reach no kernel: the forward and the backward (both
+    pairs) run their plain versions, and no launch is counted."""
     _, (tq, tk, tv) = _both(_qkv(10, 1, 16, 2, 16))
-    before = (flash_fwd.flash_fwd_tri.launches, flash_fwd.flash_fwd_rect.launches)
-    tq.requires_grad_(True)
-    out = tfa.flash_attention(tq, tk, tv, block_q=16, block_k=16)
-    tfa.flash_attention(tq, tk, tv, causal=False, block_q=16, block_k=16)
-    assert (flash_fwd.flash_fwd_tri.launches, flash_fwd.flash_fwd_rect.launches) == before
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    wrappers = [flash_fwd.flash_fwd_tri, flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_tri,
+                flash_bwd.flash_bwd_dkv_tri, flash_bwd.flash_bwd_dq_rect,
+                flash_bwd.flash_bwd_dkv_rect]
+    before = [w.launches for w in wrappers]
+    for x in (tq, tk, tv):
+        x.requires_grad_(True)
+    for causal in (True, False):
+        out = tfa.flash_attention(tq, tk, tv, causal=causal, block_q=16, block_k=16)
+        grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
+        qb, kb, vb, h, h_kv = tfa._collapse_heads(tq.detach(), tk.detach(), tv.detach())
+        o, lse = flash_fwd.attention_plain(qb, kb, vb, h, h_kv, causal)
+        want = flash_bwd.attention_bwd_plain(qb, kb, vb, o, lse, torch.ones_like(o), h, h_kv,
+                                             causal)
+        for g, w in zip(grads, want):
+            assert torch.equal(tfa._collapse_heads(g, g, g)[0], w)
+    assert [w.launches for w in wrappers] == before

@@ -4,14 +4,21 @@ one; the file imports no JAX, so on a machine with a card and no JAX it
 runs on its own:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
+
+Gradients are compared in the working dtype: f32 within 1e-4 absolute,
+bf16 within 2e-2 of the largest |gradient| of dq, dk and dv (bf16 keeps
+8 bits, and P and dS are rounded to it before each product, in the
+kernels and the plain version alike, so a rounding that falls the other
+way moves a gradient by about one bf16 step of its operands).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_operator_torch.kernels import flash_fwd
-from tpu_operator_torch.workloads.flashattention import _collapse_heads
+from tpu_operator_torch.kernels import flash_bwd, flash_fwd
+from tpu_operator_torch.workloads.flashattention import _collapse_heads, flash_attention
+from tpu_operator_torch.workloads.ringattention import dense_attention
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -106,3 +113,105 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float32)
     with pytest.raises(ValueError):
         flash_fwd.flash_fwd_tri(qb, kb[:, :8].contiguous(), vb[:, :8].contiguous(), h, hk)
+
+
+def _bwd_inputs(seed, b, s, h, d, dtype, h_kv, causal=True, window=None, seg=None, tri=False):
+    """(qb, kb, vb, out, dout, lse, delta, h, h_kv): the forward kernel's
+    out and lse on random inputs, and a random output cotangent."""
+    qb, kb, vb, h, hk = _qkv(seed, b, s, h, d, dtype, h_kv=h_kv)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.standard_normal(qb.shape).astype(np.float32)).to("cuda", dtype)
+    if tri:
+        out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h, hk)
+    else:
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, causal, window=window, seg=seg)
+    delta = (dout.float() * out.float()).sum(-1)
+    return qb, kb, vb, out, dout, lse, delta, h, hk
+
+
+def _check_grads(want, got, dtype, case):
+    """f32: absolute error; bf16: error over the largest |gradient| of the
+    three (one gradient may be exactly zero, e.g. dq with a single key)."""
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    scale = 1.0 if dtype == "float32" else max(float(w.float().abs().max()) for w in want)
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, case)
+        err = float((w.float() - g.float()).abs().max()) / scale
+        assert err <= tol, (name, case, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_triangle_kernels_match_plain(cuda, d, dtype):
+    for s, h, h_kv in ((100, 2, 2), (128, 4, 2), (200, 4, 1), (1, 1, 1)):
+        qb, kb, vb, out, dout, lse, delta, h_, hk = _bwd_inputs(
+            15, 2, s, h, d, DTYPES[dtype], h_kv, tri=True)
+        before = (flash_bwd.flash_bwd_dq_tri.launches, flash_bwd.flash_bwd_dkv_tri.launches)
+        dq = flash_bwd.flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, h_, hk)
+        dk, dv = flash_bwd.flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, h_, hk)
+        want = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h_, hk, True)
+        torch.cuda.synchronize()
+        assert (flash_bwd.flash_bwd_dq_tri.launches,
+                flash_bwd.flash_bwd_dkv_tri.launches) == (before[0] + 1, before[1] + 1)
+        _check_grads(want, (dq, dk, dv), dtype, (s, h, h_kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_general_kernels_match_plain(cuda, d, dtype):
+    seg = torch.tensor([[0] * 37 + [1] * 93, [0] * 70 + [1] * 60], dtype=torch.int32, device="cuda")
+    cases = [
+        dict(causal=False),
+        dict(causal=True),
+        dict(causal=True, window=33),
+        dict(causal=True, window=200),
+        dict(causal=True, seg=seg),
+        dict(causal=False, seg=seg),
+        dict(causal=True, window=7, seg=seg),
+    ]
+    for case in cases:
+        qb, kb, vb, out, dout, lse, delta, h, hk = _bwd_inputs(
+            16, 2, 130, 4, d, DTYPES[dtype], 2, **case)
+        args = (case["causal"], case.get("window"), case.get("seg"))
+        before = (flash_bwd.flash_bwd_dq_rect.launches, flash_bwd.flash_bwd_dkv_rect.launches)
+        dq = flash_bwd.flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, h, hk, *args)
+        dk, dv = flash_bwd.flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, h, hk, *args)
+        want = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h, hk, *args)
+        torch.cuda.synchronize()
+        assert (flash_bwd.flash_bwd_dq_rect.launches,
+                flash_bwd.flash_bwd_dkv_rect.launches) == (before[0] + 1, before[1] + 1)
+        _check_grads(want, (dq, dk, dv), dtype, {k: v for k, v in case.items() if k != "seg"})
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_match_dense(cuda):
+    """autograd through flash_attention (forward and backward kernels)
+    against autograd through dense attention, f32, as the reference's own
+    gradient test does."""
+    rng = np.random.default_rng(7)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal((1, 256, 2, 64)).astype(np.float32))
+                  .to("cuda") for _ in range(4))
+    grads = {}
+    for name, attn in (("flash", flash_attention), ("dense", dense_attention)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (attn(*leaves, causal=True) * w).sum().backward()
+        grads[name] = [x.grad for x in leaves]
+    for got, want in zip(grads["flash"], grads["dense"]):
+        assert float((got - want).abs().max()) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    qb, kb, vb, out, dout, lse, delta, h, hk = _bwd_inputs(17, 1, 16, 2, 16, torch.float32, 2)
+    with pytest.raises(ValueError):  # lse in the wrong dtype
+        flash_bwd.flash_bwd_dq_tri(qb, kb, vb, out, dout, lse.double(), delta, h, hk)
+    with pytest.raises(ValueError):  # dout not like q
+        flash_bwd.flash_bwd_dkv_tri(qb, kb, vb, out, dout[:, :8].contiguous(), lse, delta, h, hk)
+    with pytest.raises(ValueError):  # sq != sk
+        flash_bwd.flash_bwd_dq_rect(qb, kb[:, :8].contiguous(), vb[:, :8].contiguous(), out,
+                                    dout, lse, delta, h, hk, False)
+    with pytest.raises(ValueError):  # segment ids not int32
+        flash_bwd.flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, h, hk, True,
+                                     seg=torch.zeros((1, 16), dtype=torch.int64, device="cuda"))

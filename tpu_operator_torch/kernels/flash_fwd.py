@@ -98,6 +98,16 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
         raise ValueError(f"at most 65535 (batch·head) rows, got {qb.shape[0]}")
 
 
+def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
+    """Segment ids must be a contiguous int32 CUDA (batch, seq) tensor, and
+    only come with sq == sk."""
+    if sq != sk or seg.shape != (batch, sk) or seg.dtype != torch.int32:
+        raise ValueError(f"segment ids must be int32 (batch, seq) with sq == sk, got "
+                         f"{seg.dtype} {tuple(seg.shape)} for sq={sq}, sk={sk}")
+    if not (seg.is_cuda and seg.is_contiguous()):
+        raise ValueError("segment ids must be a contiguous CUDA tensor")
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first call)."""
@@ -152,11 +162,7 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
     bh, sq, d = qb.shape
     sk = kb.shape[1]
     if seg is not None:
-        if sq != sk or seg.shape != (bh // heads, sk) or seg.dtype != torch.int32:
-            raise ValueError(f"segment ids must be int32 (batch, seq) with sq == sk, got "
-                             f"{seg.dtype} {tuple(seg.shape)} for sq={sq}, sk={sk}")
-        if not (seg.is_cuda and seg.is_contiguous()):
-            raise ValueError("segment ids must be a contiguous CUDA tensor")
+        _check_seg(seg, bh // heads, sq, sk)
     out = torch.empty_like(qb)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qb.device)
     with torch.cuda.device(qb.device):

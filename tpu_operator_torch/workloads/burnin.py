@@ -1,21 +1,28 @@
-"""Slice burn-in transformer, forward (port of ``tpu_operator/workloads/burnin.py``).
+"""Slice burn-in transformer and its train step (port of
+``tpu_operator/workloads/burnin.py``).
 
 The flagship workload: a small pre-norm transformer, float32 master
-weights cast to the compute dtype at use. Attention runs either dense
-(O(S^2), the reference's baseline) or through the flash kernels
+weights cast to the compute dtype at use, trained by plain SGD
+(:func:`build_train_step`, :func:`run_burnin`). Attention runs either
+dense (O(S^2), the reference's baseline) or through the flash kernels
 (``use_flash_attention``), which on the card are the hand-written CUDA
-forward kernels. One device, no mesh: the sharded train step, the ring
-(``sequence_parallel``) and the mixture of experts come with later slices.
+forward and FlashAttention-2 backward kernels. One device, no mesh: the
+sharded step, the ring (``sequence_parallel``) and the mixture of experts
+come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpu_operator_torch.device import DeviceLike, resolve_device
+from tpu_operator_torch.weights import burnin_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -162,3 +169,94 @@ def loss_fn(params, batch, cfg: BurninConfig):
     x, target = batch
     out = forward(params, x, cfg)
     return (out.float() - target.float()).square().mean()
+
+
+def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = None,
+                     params: Optional[Mapping[str, np.ndarray]] = None,
+                     batch: Optional[Sequence[np.ndarray]] = None):
+    """Returns (step, params, batch): the SGD train step on one device and
+    ready-to-run inputs. ``step(params, batch)`` returns (new params, the
+    loss before the update). ``params`` may be the reference's weights as
+    numpy arrays and ``batch`` its (x, target) arrays; otherwise both come
+    from fixed seeds (the reference's distributions, not its bits)."""
+    cfg = cfg or BurninConfig()
+    if cfg.kv_heads and cfg.n_heads % cfg.kv_heads:
+        raise ValueError(
+            f"n_heads ({cfg.n_heads}) must be a multiple of kv_heads ({cfg.kv_heads})"
+        )
+    if cfg.packed_segments and not cfg.use_flash_attention:
+        raise ValueError(
+            "packed_segments needs a segment-aware attention path — set "
+            "use_flash_attention (within-chip kernel) or sequence_parallel "
+            "(ids circulate the ring)"
+        )
+    if cfg.packed_segments and cfg.packed_segments > cfg.seq_len:
+        raise ValueError(
+            f"packed_segments ({cfg.packed_segments}) exceeds seq_len ({cfg.seq_len})"
+        )
+    dev = resolve_device(device)
+    if params is None:
+        weights = init_params(torch.Generator().manual_seed(0), cfg, dev)
+    else:
+        weights = burnin_params(params, cfg, dev)
+    shape = (cfg.batch, cfg.seq_len, cfg.d_model)
+    if batch is None:
+        x, target = (torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+                     for seed in (1, 2))
+    else:
+        x, target = (torch.from_numpy(np.array(a, dtype=np.float32)) for a in batch)
+        if x.shape != shape or target.shape != shape:
+            raise ValueError(f"batch arrays must be {shape}, got {tuple(x.shape)}, "
+                             f"{tuple(target.shape)}")
+    data = (x.to(dev, cfg.tdtype), target.to(dev, cfg.tdtype))
+
+    def step(params, batch):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, batch, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        new_params = {
+            k: (p - cfg.learning_rate * g.to(p.dtype)).detach()
+            for (k, p), g in zip(leaves.items(), grads)
+        }
+        return new_params, loss.detach()
+
+    return step, weights, data
+
+
+def run_burnin(steps: int = 3, cfg: Optional[BurninConfig] = None,
+               record_telemetry: bool = False, telemetry_host: str = "",
+               device: DeviceLike = None) -> dict:
+    """Run a few train steps; the loss must be finite and decreasing.
+    ``record_telemetry`` attaches a per-step timing report (warm-up vs
+    steady split, jitter percentiles, achieved TFLOP/s)."""
+    cfg = cfg or BurninConfig()
+    dev = resolve_device(device)
+    step, params, batch = build_train_step(cfg, dev)
+    recorder = None
+    if record_telemetry:
+        from tpu_operator_torch.workloads.telemetry import (
+            StepTimeRecorder,
+            burnin_flops_per_step,
+        )
+
+        recorder = StepTimeRecorder(
+            flops_per_step=burnin_flops_per_step(cfg), host=telemetry_host
+        )
+    losses = []
+    for _ in range(steps):
+        if recorder is not None:
+            with recorder.step():
+                params, loss = step(params, batch)
+                loss = float(loss)  # force inside the timed region
+        else:
+            params, loss = step(params, batch)
+            loss = float(loss)
+        losses.append(loss)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss during burn-in: {losses}")
+    if steps >= 2 and not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss failed to decrease: {losses}")
+    result = {"device": str(dev), "losses": losses, "ok": True}
+    if recorder is not None:
+        result["telemetry"] = recorder.report().to_dict()
+    return result

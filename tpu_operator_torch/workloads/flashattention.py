@@ -1,20 +1,23 @@
-"""Flash attention, forward (port of ``tpu_operator/workloads/flashattention.py``).
+"""Flash attention (port of ``tpu_operator/workloads/flashattention.py``).
 
 Same public functions, layout (B, S, H, D) and errors as the reference.
-The attention itself runs in the two hand-written CUDA kernels of
-``kernels/flash_fwd.cu`` for CUDA tensors, and in their plain PyTorch
-version for CPU tensors (``kernels/flash_fwd.py``):
+The attention itself runs in hand-written CUDA kernels for CUDA tensors
+(``kernels/flash_fwd.cu``, ``kernels/flash_bwd.cu``), and in their plain
+PyTorch versions for CPU tensors (``kernels/flash_fwd.py``,
+``kernels/flash_bwd.py``):
 
 - plain causal attention with sq == sk and no offsets, window or segments
-  takes the triangle kernel (the reference's ``_flash_fwd_tri_kernel``);
+  takes the triangle kernels: the forward ``_flash_fwd_tri_kernel`` and
+  the backward pair ``_flash_dq_tri_kernel``/``_flash_dkv_tri_kernel``;
 - everything else — full attention, a sliding window, segment ids,
   global ``q_start``/``k_start`` offsets, sq != sk — takes the general
-  kernel (``_flash_fwd_kernel``).
+  kernels (``_flash_fwd_kernel``, ``_flash_dq_kernel``,
+  ``_flash_dkv_kernel``).
 
-``block_q``/``block_k`` keep only their role in the divisibility checks:
-the kernels choose their own tiles. Forward only for now: the backward
-kernels come with the training slice, and differentiating
-:func:`flash_attention` raises ``NotImplementedError`` until then.
+:func:`flash_attention` is differentiable: the forward saves (out, lse)
+and the FlashAttention-2 backward recomputes P from lse. ``block_q``/
+``block_k`` keep only their role in the divisibility checks: the kernels
+choose their own tiles, forward and backward alike.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ from typing import Optional
 
 import torch
 
+from tpu_operator_torch.kernels.flash_bwd import (
+    flash_bwd_dkv_rect,
+    flash_bwd_dkv_tri,
+    flash_bwd_dq_rect,
+    flash_bwd_dq_tri,
+)
 from tpu_operator_torch.kernels.flash_fwd import flash_fwd_rect, flash_fwd_tri
 from tpu_operator_torch.kernels.flash_fwd import kv_row as _kv_row  # noqa: F401  (reference name)
 
@@ -80,22 +89,55 @@ def _flash_forward(qb, kb, vb, causal: bool, block_q: int, block_k: int,
     return flash_fwd_rect(qb, kb, vb, heads, kv_heads, causal, q_start, k_start, window, seg)
 
 
+def _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads: int, kv_heads: int):
+    """dQ over the causal triangle (the port of ``_flash_dq_tri_kernel``)."""
+    return flash_bwd_dq_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads)
+
+
+def _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads: int, kv_heads: int):
+    """(dK, dV) over the causal triangle, each k tile walking every GQA
+    group member's q tiles from the diagonal down (the port of
+    ``_flash_dkv_tri_kernel``)."""
+    return flash_bwd_dkv_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads)
+
+
+def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads: int,
+                    window: Optional[int] = None, seg=None):
+    """(dq, dk, dv) over collapsed rows: the triangle pair for plain causal
+    attention, the general pair otherwise — the reference's choice."""
+    # D_i = rowsum(dO ∘ O) in f32: plain tensor ops, as the reference
+    # leaves it to XLA
+    delta = (g.float() * out.float()).sum(-1)
+    if causal and window is None and seg is None and kb.shape[1] == qb.shape[1]:
+        dq = _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads)
+        dk, dv = _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads)
+        return dq, dk, dv
+    dq = flash_bwd_dq_rect(qb, kb, vb, out, g, lse, delta, heads, kv_heads, causal, window, seg)
+    dk, dv = flash_bwd_dkv_rect(qb, kb, vb, out, g, lse, delta, heads, kv_heads, causal,
+                                window, seg)
+    return dq, dk, dv
+
+
 class _FlashCore(torch.autograd.Function):
-    """Forward through the kernels; the backward (the reference's
-    FlashAttention-2 dQ and dK/dV kernels) is not ported yet."""
+    """Forward through the forward kernels, saving (q, k, v, out, lse) and
+    the segment ids; backward through the FlashAttention-2 dQ and dK/dV
+    kernels. Segment ids and the static arguments get no gradient."""
 
     @staticmethod
     def forward(ctx, qb, kb, vb, seg, causal, block_q, block_k, heads, kv_heads, window):
-        out, _ = _flash_forward(qb, kb, vb, causal, block_q, block_k, heads=heads,
-                                kv_heads=kv_heads, window=window, seg=seg)
+        out, lse = _flash_forward(qb, kb, vb, causal, block_q, block_k, heads=heads,
+                                  kv_heads=kv_heads, window=window, seg=seg)
+        ctx.save_for_backward(qb, kb, vb, out, lse, seg)
+        ctx.static = (causal, heads, kv_heads, window)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash_attention backward is not ported yet (the dQ and dK/dV kernels "
-            "come with the training slice)"
-        )
+        qb, kb, vb, out, lse, seg = ctx.saved_tensors
+        causal, heads, kv_heads, window = ctx.static
+        dq, dk, dv = _flash_bwd_impl(qb, kb, vb, out, lse, grad.contiguous(), causal, heads,
+                                     kv_heads, window, seg)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -218,3 +260,78 @@ def run_flash_attention_check(
         "segment_max_abs_err": seg_err,
         "ok": True,
     }
+
+
+def flash_attention_bench(
+    seq_len: int = 4096,
+    heads: int = 8,
+    head_dim: int = 128,
+    iters: int = 8,
+    reps: int = 4,
+    window: Optional[int] = None,
+    device=None,
+) -> dict:
+    """Flash kernels vs dense attention at long context: per-call time of
+    the forward and of fwd+bwd for each (two-point timing), and achieved
+    attention FLOP/s. Dense is skipped above 8k — its O(S²) scores stop
+    fitting. Dense fwd+bwd is timed twice: plain autograd, and under
+    ``torch.utils.checkpoint`` (recomputing the scores in the backward, the
+    best dense alternative for training). ``window`` also times the banded
+    sliding-window forward."""
+    from torch.utils.checkpoint import checkpoint
+
+    from tpu_operator_torch.device import resolve_device
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+    from tpu_operator_torch.workloads.timing import attention_grad_chain, two_point_min_timing
+
+    dev = resolve_device(device)
+    shape = (1, seq_len, heads, head_dim)
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+
+    def timed(fn):
+        def chain(s, n):
+            out = q * s
+            for _ in range(n):
+                out = fn(out, k, v).to(q.dtype)
+            return float(out.float().sum())
+
+        timing = two_point_min_timing(chain, iters, 4 * iters, reps)
+        return timing.per_iter_s or timing.inclusive_per_iter_s
+
+    def timed_grad(fn):
+        # attention_grad_chain consumes ALL cotangents (see its docstring)
+        chain = attention_grad_chain(fn, q, k, v)
+        timing = two_point_min_timing(lambda s, n: chain(q, k, v, s, n), iters, 4 * iters, reps)
+        return timing.per_iter_s or timing.inclusive_per_iter_s
+
+    flash_s = timed(lambda a, kk, vv: flash_attention(a, kk, vv, causal=True))
+    flash_train_s = timed_grad(lambda a, kk, vv: flash_attention(a, kk, vv, causal=True))
+    report = {
+        "seq_len": seq_len,
+        "heads": heads,
+        "device": str(dev),
+        # causal attention: 2 matmuls x 2·S²/2·D MACs per head
+        "flash_time_ms": flash_s * 1e3,
+        "flash_tflops": 2 * 2 * heads * seq_len**2 * head_dim / 2 / flash_s / 1e12,
+        "flash_fwd_bwd_ms": flash_train_s * 1e3,
+    }
+    if window is not None:
+        window_s = timed(
+            lambda a, kk, vv: flash_attention(a, kk, vv, causal=True, window=window)
+        )
+        report["window"] = window
+        report["flash_window_time_ms"] = window_s * 1e3
+    if seq_len <= 8192:
+        dense_s = timed(lambda a, kk, vv: dense_attention(a, kk, vv, causal=True))
+        report["dense_time_ms"] = dense_s * 1e3
+        report["speedup_vs_dense"] = dense_s / flash_s
+        dense_train_s = timed_grad(lambda a, kk, vv: dense_attention(a, kk, vv, causal=True))
+        report["dense_fwd_bwd_ms"] = dense_train_s * 1e3
+        report["train_step_speedup_vs_dense"] = dense_train_s / flash_train_s
+        remat_train_s = timed_grad(
+            lambda a, kk, vv: checkpoint(dense_attention, a, kk, vv, True, use_reentrant=False)
+        )
+        report["dense_remat_fwd_bwd_ms"] = remat_train_s * 1e3
+        report["train_step_speedup_vs_remat_dense"] = remat_train_s / flash_train_s
+    return report

@@ -4,7 +4,8 @@ A copy of the recorder the serving engine and burn-in use: per-step wall
 time with the first (warm-up) step split off, and p50/p99/max over the
 executed steps. The caller forces its own result inside the step (a CUDA
 launch returns before the device finishes; reading a value back to the
-host waits for it).
+host waits for it). ``burnin_flops_per_step`` is the reference's FLOP
+estimate of one burn-in train step, for the achieved-rate field.
 """
 
 from __future__ import annotations
@@ -129,3 +130,23 @@ class StepTimeRecorder:
             tflops=tflops,
             host=self.host,
         )
+
+
+def burnin_flops_per_step(cfg) -> float:
+    """Approximate FLOPs of one burn-in train step: 6 x params x tokens
+    (fwd 2, bwd 4 — the standard dense-transformer estimate), attention
+    quadratic term included. Good to ~10%, which is all an achieved-rate
+    gauge needs."""
+    d, f, s, b = cfg.d_model, cfg.d_ff, cfg.seq_len, cfg.batch
+    head = d // cfg.n_heads
+    # qkv + proj + FFN; top-1 MoE routing runs ONE expert's FFN per
+    # token, so the per-token compute matches the dense FFN's
+    per_layer_params = d * cfg.qkv_width + d * d + 2 * d * f
+    params = cfg.n_layers * per_layer_params
+    tokens = b * s
+    dense = 6.0 * params * tokens
+    # attention scores + context: 2 x (2 b s^2 h d_head) fwd, x3 with
+    # bwd — per QUERY head (every query head attends the full sequence;
+    # GQA shrinks the KV projections above, not the attention math)
+    attn = cfg.n_layers * 6.0 * 2.0 * b * s * s * cfg.n_heads * head
+    return dense + attn
