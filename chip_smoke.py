@@ -8,16 +8,19 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure (a non-zero exit, and no result line):
 
 1. device — CUDA must be present; prints the card's name and power limit;
-2. build — compiles both CUDA sources (``flash_fwd.cu``, ``flash_bwd.cu``)
-   from the repository, one ``nvcc`` each, started together;
+2. build — compiles every CUDA source of the ``KERNELS`` table
+   (``flash_fwd.cu``, ``flash_bwd.cu``, ``triad.cu``) from the repository,
+   one ``nvcc`` each, started together;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
-   pairs (dQ and dK/dV) against ``attention_bwd_plain``. Per launch: the
-   kernel's device time (CUDA-graph replay) and eager time (as a caller
-   sees it), the plain version's, a PyTorch call on the same work as a
-   yardstick the port never calls (``F.scaled_dot_product_attention``;
-   for the backward pairs its backward, timed as fwd+bwd less fwd), and
+   pairs (dQ and dK/dV) against ``attention_bwd_plain``, the triad against
+   ``triad_plain`` bit for bit (at the HBM probe's two sizes, in place and
+   not). Per launch: the kernel's device time (CUDA-graph replay) and
+   eager time (as a caller sees it), the plain version's, a PyTorch call on
+   the same work as a yardstick the port never calls
+   (``F.scaled_dot_product_attention``; for the backward pairs its
+   backward, timed as fwd+bwd less fwd; ``torch.add`` for the triad), and
    the least time the card could take (bytes or FLOPs at peak); then the
    validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
@@ -35,7 +38,17 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    gradient check of ``flash_attention`` against autograd through dense
    attention; the train step's eager and device ms; and
    ``flash_attention_bench()`` (fwd and fwd+bwd at 4096 tokens against
-   dense and checkpointed dense attention).
+   dense and checkpointed dense attention);
+7. self-test — the node's single-card self-test: the metrics exporter's
+   ``hbm_bandwidth_probe(size_mb=64, iters=25)`` (exactly 1226 triad
+   launches: 1 check, 2 warm-up chains, 6 timed pairs of 25 and 150) and
+   the probe at its defaults (2451), ``run_smoke(size=512)``, the bf16 and
+   int8 matmul rates at 8192 against the data-sheet peaks of the card's
+   generation, the validator's ``smoke`` component with a floor every
+   working card passes, and ``python -m
+   tpu_operator_torch.validator.workload_entry`` in a process of its own.
+   A reading above 105% of its data-sheet peak, or an unstable timing,
+   fails the phase.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -57,6 +70,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -66,17 +80,23 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # f32 outside the tensor cores
 BF16_TOL, F32_TOL, LSE_TOL = 2e-2, 1e-4, 1e-3
-REFERENCE = "tpu_operator/workloads/flashattention.py"
+FLASH_REFERENCE = "tpu_operator/workloads/flashattention.py"
 # wrapper (and kernel) name: (its module and CUDA source under
-# tpu_operator_torch/kernels/, the line of the Pallas kernel it replaces)
+# tpu_operator_torch/kernels/, the file and line of the Pallas kernel it
+# replaces)
 KERNELS = {
-    "flash_fwd_tri": ("flash_fwd", 301),
-    "flash_fwd_rect": ("flash_fwd", 341),
-    "flash_bwd_dq_tri": ("flash_bwd", 599),
-    "flash_bwd_dkv_tri": ("flash_bwd", 657),
-    "flash_bwd_dq_rect": ("flash_bwd", 434),
-    "flash_bwd_dkv_rect": ("flash_bwd", 496),
+    "flash_fwd_tri": ("flash_fwd", FLASH_REFERENCE, 301),
+    "flash_fwd_rect": ("flash_fwd", FLASH_REFERENCE, 341),
+    "flash_bwd_dq_tri": ("flash_bwd", FLASH_REFERENCE, 599),
+    "flash_bwd_dkv_tri": ("flash_bwd", FLASH_REFERENCE, 657),
+    "flash_bwd_dq_rect": ("flash_bwd", FLASH_REFERENCE, 434),
+    "flash_bwd_dkv_rect": ("flash_bwd", FLASH_REFERENCE, 496),
+    "triad_kernel": ("triad", "tpu_operator/workloads/kernels.py", 29),
 }
+# data-sheet HBM rate per generation key of matmul_bench.chip_generation()
+# (NVIDIA H100 Tensor Core GPU data sheet), GB/s
+HBM_GBPS = {"h100-sxm": 3350.0, "h100-nvl": 3900.0, "h100-pcie": 2000.0}
+PEAK_MARGIN = 1.05  # a reading above peak by more than this is a timing fault
 
 
 def log(msg: str) -> None:
@@ -85,7 +105,7 @@ def log(msg: str) -> None:
 
 def wrappers() -> dict:
     return {name: getattr(importlib.import_module(f"tpu_operator_torch.kernels.{module}"), name)
-            for name, (module, _) in KERNELS.items()}
+            for name, (module, _, _) in KERNELS.items()}
 
 
 def zero_launches() -> None:
@@ -168,7 +188,7 @@ def phase_device() -> str:
 def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
-    sources = sorted({module for module, _ in KERNELS.values()})
+    sources = sorted({module for module, _, _ in KERNELS.values()})
     start = time.perf_counter()
     built = build.build(sources)
     seconds = time.perf_counter() - start
@@ -416,6 +436,62 @@ def _backward_rows(gen) -> list:
     return rows
 
 
+TRIAD_ALPHA = 0.3  # not a power of two, so every product rounds
+TRIAD_CASES = [
+    # the metrics exporter's probe (main path), the probe's default size
+    dict(label="exporter probe f32 (16384, 1024) in place", shape=(16384, 1024), inplace=True,
+         main=True),
+    dict(label="default probe f32 (32768, 1024) in place", shape=(32768, 1024), inplace=True),
+    dict(label="default probe f32 (32768, 1024) non-aliased", shape=(32768, 1024), inplace=False),
+]
+
+
+def _triad_rows(gen) -> list:
+    """The triad kernel against triad_plain, bit for bit, with times; the
+    bound is its three streams (x and y read, out written) over HBM."""
+    from tpu_operator_torch.kernels.triad import triad_kernel, triad_plain
+
+    rows = []
+    for case in TRIAD_CASES:
+        x = torch.randn(case["shape"], generator=gen, device="cuda")
+        y = torch.randn(case["shape"], generator=gen, device="cuda")
+        want = triad_plain(x, y, TRIAD_ALPHA)
+        dst = x.clone() if case["inplace"] else torch.empty_like(x)
+        got = triad_kernel(dst if case["inplace"] else x, y, TRIAD_ALPHA, dst)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if differ:
+            raise RuntimeError(f"triad_kernel [{case['label']}] differs from triad_plain in "
+                               f"{differ} elements (max abs {err(got, want)})")
+        out = x if case["inplace"] else torch.empty_like(x)
+
+        def kern():
+            return triad_kernel(x, y, TRIAD_ALPHA, out)
+
+        def plain():
+            return triad_plain(x, y, TRIAD_ALPHA, out)
+
+        def library():
+            return torch.add(y, x, alpha=TRIAD_ALPHA, out=out)
+
+        nbytes = 3 * 4 * x.numel()
+        row = {
+            "kernel": "triad_kernel", "label": case["label"], "main_path": bool(case.get("main")),
+            "max_abs_err": 0.0, "bitwise_equal": True,
+            "ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 20),
+            "library_ms": device_ms(library, 20), "eager_ms": cuda_ms(kern, 20),
+            "eager_library_ms": cuda_ms(library, 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes,
+        }
+        row["gbps"] = nbytes / row["ms"] / 1e6
+        rows.append(row)
+        log(f"kernel triad_kernel [{case['label']}]: bitwise equal to triad_plain; device ms: "
+            f"kernel {row['ms']:.5f} ({row['gbps']:.1f} GB/s), plain {row['plain_ms']:.5f}, "
+            f"torch.add {row['library_ms']:.5f}, bound {row['bound_ms']:.5f} by bytes; eager ms: "
+            f"kernel {row['eager_ms']:.5f}, torch.add {row['eager_library_ms']:.5f}")
+    return rows
+
+
 def phase_kernels() -> list:
     from tpu_operator_torch.kernels import flash_fwd
     from tpu_operator_torch.kernels.flash_fwd import attention_plain, keep_mask
@@ -471,6 +547,7 @@ def phase_kernels() -> list:
             f"{row['eager_ms']:.4f}, plain {row['eager_plain_ms']:.4f}, "
             f"sdpa {row['eager_library_ms']:.4f}")
     results += _backward_rows(gen)
+    results += _triad_rows(gen)
     from tpu_operator_torch.workloads.flashattention import run_flash_attention_check
 
     check = run_flash_attention_check(device="cuda")
@@ -637,13 +714,111 @@ def phase_train() -> dict:
     return out
 
 
+def _hold_to_peak(report: dict, keys: tuple, peak: float, what: str) -> None:
+    """A rate above PEAK_MARGIN of its data-sheet peak, or a timing whose
+    median slope was not positive, is a timing fault."""
+    if report.get("unstable_timing"):
+        raise RuntimeError(f"{what}: unstable timing: {report}")
+    for key in keys:
+        if not 0 < report[key] <= PEAK_MARGIN * peak:
+            raise RuntimeError(f"{what}: {key} {report[key]} outside (0, {PEAK_MARGIN} x the "
+                               f"data-sheet peak {peak}]: {report}")
+
+
+def _int_mm_layouts(size: int) -> dict:
+    """Device ms of one torch._int_mm (size³, int8) with its second operand
+    row-major and column-major: the int8 chain keeps it column-major."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a, b = (torch.randint(-4, 5, (size, size), generator=gen, device="cuda", dtype=torch.int8)
+            for _ in range(2))
+    col = b.t().contiguous().t()
+    if not torch.equal(torch._int_mm(a, b), torch._int_mm(a, col)):
+        raise RuntimeError("torch._int_mm differs between the layouts of its second operand")
+    return {"row-major": device_ms(lambda: torch._int_mm(a, b), 5),
+            "column-major": device_ms(lambda: torch._int_mm(a, col), 5)}
+
+
+PROBES = {
+    # path name: (hbm_bandwidth_probe arguments, triad launches: the check,
+    # then a warm-up chain of each length and `reps` timed pairs)
+    "self-test exporter probe": (dict(size_mb=64, iters=25), 1 + 7 * (25 + 150)),
+    "self-test default probe": ({}, 1 + 7 * (50 + 300)),
+}
+
+
+def phase_selftest() -> dict:
+    from tpu_operator_torch.validator.main import Context, run_component
+    from tpu_operator_torch.workloads import matmul_bench
+    from tpu_operator_torch.workloads.kernels import hbm_bandwidth_probe
+    from tpu_operator_torch.workloads.smoke import run_smoke
+
+    gen = matmul_bench.chip_generation()
+    if not gen:
+        raise RuntimeError(f"{torch.cuda.get_device_name()} is not a card with data-sheet peaks "
+                           f"here ({sorted(HBM_GBPS)})")
+    out = {"generation": gen, "paths": {}}
+    for path, (kwargs, launches) in PROBES.items():
+        zero_launches()
+        report = hbm_bandwidth_probe(**kwargs)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        expected = {k: launches if k == "triad_kernel" else 0 for k in counts}
+        if counts != expected:
+            raise RuntimeError(f"{path}: launches {counts}, expected {expected}")
+        _hold_to_peak(report, ("bandwidth_gbps", "inclusive_gbps"), HBM_GBPS[gen], path)
+        out["paths"][path] = counts
+        out[path] = report
+        log(f"{path}: hbm_bandwidth_probe({', '.join(f'{k}={v}' for k, v in kwargs.items())}) "
+            f"{report['kernel']} {report['size_mb']} MiB: {report['bandwidth_gbps']:.1f} GB/s "
+            f"({100 * report['bandwidth_gbps'] / HBM_GBPS[gen]:.1f}% of {HBM_GBPS[gen]}), "
+            f"inclusive {report['inclusive_gbps']:.1f}, {report['time_ms']:.5f} ms per triad, "
+            f"overhead per call {report['dispatch_overhead_ms_est']:.3f} ms; launches {launches}")
+
+    smoke = run_smoke(size=512)
+    if not smoke["ok"] or smoke["device_count"] != torch.cuda.device_count():
+        raise RuntimeError(f"run_smoke: {smoke}")
+    out["smoke"] = smoke
+    mm = matmul_bench.matmul_tflops(size=8192, iters=16)
+    _hold_to_peak(mm, ("tflops", "inclusive_tflops"), matmul_bench.PEAK_TFLOPS[gen], "bf16 matmul")
+    i8 = matmul_bench.int8_matmul_tops(size=8192, iters=16)
+    _hold_to_peak(i8, ("tops", "inclusive_tops"), matmul_bench.PEAK_INT8_TOPS[gen], "int8 matmul")
+    out["matmul_tflops"], out["int8_matmul_tops"] = mm, i8
+    out["int_mm_layout_ms"] = _int_mm_layouts(8192)
+    log(f"self-test: run_smoke(size=512) on {smoke['devices']}; {gen}: bf16 matmul 8192 "
+        f"{mm['tflops']:.1f} TFLOP/s ({100 * mm['tflops'] / matmul_bench.PEAK_TFLOPS[gen]:.1f}% "
+        f"of {matmul_bench.PEAK_TFLOPS[gen]}), int8 {i8['tops']:.1f} TOP/s "
+        f"({100 * i8['tops'] / matmul_bench.PEAK_INT8_TOPS[gen]:.1f}% of "
+        f"{matmul_bench.PEAK_INT8_TOPS[gen]}); one torch._int_mm at 8192 with its second "
+        f"operand row-major {out['int_mm_layout_ms']['row-major']:.4f} ms, column-major "
+        f"{out['int_mm_layout_ms']['column-major']:.4f} ms")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        component = run_component("smoke", Context(min_tflops=1.0, validation_dir=tmp),
+                                  max_attempts=1)
+    _hold_to_peak(component, ("matmul_bf16_tflops",), matmul_bench.PEAK_TFLOPS[gen],
+                  "validator smoke")
+    out["validator_smoke"] = component
+    entry = subprocess.run([sys.executable, "-m", "tpu_operator_torch.validator.workload_entry"],
+                           cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+                           text=True, timeout=300)
+    lines = entry.stdout.strip().splitlines()
+    if entry.returncode != 0 or not lines or json.loads(lines[-1]).get("ok") is not True:
+        raise RuntimeError(f"workload_entry exited {entry.returncode}: {entry.stdout[-2000:]}"
+                           f"{entry.stderr[-2000:]}")
+    out["workload_entry"] = json.loads(lines[-1])
+    log(f"self-test: validator smoke component {component['matmul_bf16_tflops']} TFLOP/s "
+        f"(floor 1.0) per card {component['matmul_bf16_tflops_per_chip']}; workload_entry "
+        f"{lines[-1]}")
+    return out
+
+
 def kernels_line(rows: list, paths: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts)."""
     keys = ("label", "max_abs_err", "rel_err", "ms", "pair_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "eager_ms")
     out = []
-    for name, (module, line) in KERNELS.items():
+    for name, (module, reference, line) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         main = next(r for r in mine if r["main_path"])
         by_path = {path: counts[name] for path, counts in paths.items() if counts[name]}
@@ -651,7 +826,7 @@ def kernels_line(rows: list, paths: dict) -> dict:
             raise RuntimeError(f"{name} was never launched on a main path: {paths}")
         out.append({
             "name": name, "route": "cuda", "source": f"tpu_operator_torch/kernels/{module}.cu",
-            "replaces": f"{REFERENCE}:{line}", "launches": sum(by_path.values()),
+            "replaces": f"{reference}:{line}", "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -673,8 +848,10 @@ def main(argv=None) -> int:
     results["burnin"] = phase_burnin()
     results["serving"] = phase_serving()
     results["train"] = phase_train()
+    results["selftest"] = phase_selftest()
     paths = {"burnin forward": results["burnin"]["launches"],
-             "serving": results["serving"]["launches"], **results["train"]["paths"]}
+             "serving": results["serving"]["launches"], **results["train"]["paths"],
+             **results["selftest"]["paths"]}
     line = kernels_line(results["kernels"], paths)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -96,6 +96,17 @@ def test_unset_device_raises_without_cuda(monkeypatch):
         entry(device="cuda")
 
 
+
+def test_self_test_payloads_raise_without_cuda(monkeypatch):
+    from tpu_operator_torch.workloads.kernels import hbm_bandwidth_probe
+    from tpu_operator_torch.workloads.smoke import run_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_smoke()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hbm_bandwidth_probe()
+
 def _run_smoke(cwd, extra_env=None):
     env = dict(os.environ, **(extra_env or {}))
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

@@ -5,6 +5,9 @@ runs on its own:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
+The triad rounds once in the kernel and in its plain version alike (a
+fused multiply-add), so the two are compared bit for bit.
+
 Gradients are compared in the working dtype: f32 within 1e-4 absolute,
 bf16 within 2e-2 of the largest |gradient| of dq, dk and dv (bf16 keeps
 8 bits, and P and dS are rounded to it before each product, in the
@@ -12,11 +15,13 @@ kernels and the plain version alike, so a rounding that falls the other
 way moves a gradient by about one bf16 step of its operands).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from tpu_operator_torch.kernels import flash_bwd, flash_fwd
+from tpu_operator_torch.kernels import flash_bwd, flash_fwd, triad
 from tpu_operator_torch.workloads.flashattention import _collapse_heads, flash_attention
 from tpu_operator_torch.workloads.ringattention import dense_attention
 
@@ -215,3 +220,82 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # segment ids not int32
         flash_bwd.flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, h, hk, True,
                                      seg=torch.zeros((1, 16), dtype=torch.int64, device="cuda"))
+
+
+# name -> (shape, element offsets of x, y and out from their allocations):
+# an offset shared by all three takes a scalar head, the float4 body and a
+# scalar tail; offsets that differ take the scalar loop throughout
+TRIAD_CASES = {
+    "exporter (16384, 1024)": ((16384, 1024), (0, 0, 0)),
+    "1000003, all offset by one": ((1_000_003,), (1, 1, 1)),
+    "999999, x offset by one": ((999_999,), (1, 0, 0)),
+    "7, all offset by three": ((7,), (3, 3, 3)),
+    "4, all offset by three (no whole float4)": ((4,), (3, 3, 3)),
+}
+
+
+def _floats(seed, shape, offset):
+    n = math.prod(shape)
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.standard_normal(n + offset).astype(np.float32)).to("cuda")
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("case", sorted(TRIAD_CASES))
+def test_triad_kernel_matches_plain_bitwise(cuda, case, inplace):
+    shape, offsets = TRIAD_CASES[case]
+    x, y, out = (_floats(seed, shape, off) for seed, off in zip((21, 22, 23), offsets))
+    want = triad.triad_plain(x, y, 0.3)
+    if inplace:
+        out = x
+    before = triad.triad_kernel.launches
+    got = triad.triad_kernel(x, y, 0.3, out)
+    torch.cuda.synchronize()
+    assert got is out and triad.triad_kernel.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_triad_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.ones((64, 128), device="cuda")
+    b = x.to(torch.bfloat16)
+    flat = torch.ones(1000, device="cuda")
+    for args in (
+        (b, b, 2.0, b),                                                  # bfloat16
+        (x.t(), x.t(), 2.0, torch.empty((128, 64), device="cuda")),       # not contiguous
+        (x, x[:32], 2.0, x),                                             # shapes differ
+        (flat[:999], torch.ones(999, device="cuda"), 2.0, flat[1:]),     # out overlaps x
+        (x, x, 2.0, torch.empty((64, 128))),                             # out on the CPU
+    ):
+        with pytest.raises(ValueError):
+            triad.triad_kernel(*args)
+
+
+@pytest.mark.cuda
+def test_probe_and_payloads_run_through_the_card(cuda):
+    from tpu_operator_torch.workloads.kernels import hbm_bandwidth_probe
+    from tpu_operator_torch.workloads.matmul_bench import int8_matmul_tops, matmul_tflops
+    from tpu_operator_torch.workloads.smoke import run_smoke
+
+    before = triad.triad_kernel.launches
+    report = hbm_bandwidth_probe(size_mb=8, iters=4, reps=2)
+    assert triad.triad_kernel.launches == before + 1 + 3 * (4 + 24)
+    assert (report["platform"], report["kernel"]) == ("cuda", "triad_inplace")
+    assert run_smoke(size=128)["ok"]
+    assert matmul_tflops(size=1024, iters=2, reps=2)["platform"] == "cuda"
+    assert int8_matmul_tops(size=1024, iters=2, reps=2)["platform"] == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(64, 64, 64), (8, 40, 24)])
+def test_int8_product_is_exact_with_either_layout(cuda, m, k, n):
+    from tpu_operator_torch.workloads.serving import _int_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    want = a.cpu().to(torch.int32) @ b.cpu().to(torch.int32)
+    for operand in (b, b.t().contiguous().t()):
+        assert torch.equal(_int_matmul(a, operand).cpu(), want)

@@ -7,7 +7,7 @@ the CPU. The CPU is used only when a caller names it (the tests do).
 
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Union
 
 import torch
 
@@ -27,4 +27,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def local_devices(device: DeviceLike = None) -> List[torch.device]:
+    """Every device a per-device check covers: all CUDA devices for
+    ``None`` or ``"cuda"`` (the counterpart of ``jax.local_devices()``),
+    else the one device named."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
 

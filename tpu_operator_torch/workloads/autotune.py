@@ -14,7 +14,7 @@ import json
 import os
 from typing import Optional, Tuple
 
-import torch
+from tpu_operator_torch.workloads.matmul_bench import chip_generation
 
 AUTOTUNE_ENV = "TPU_AUTOTUNE_JSON"
 DEFAULT_FLASH_BLOCK_Q = 1024
@@ -47,18 +47,14 @@ _gen_cache: Tuple[Optional[str], str] = (None, "")
 
 
 def _local_generation() -> str:
-    """``TPU_GENERATION`` when set, else the CUDA device's name ("" with
-    no card)."""
+    """``TPU_GENERATION`` when set, else the card's generation key from
+    ``matmul_bench.chip_generation()`` ("" with no card or an unrecognised
+    one), the key the floors and the winners share."""
     global _gen_cache
     env = os.environ.get("TPU_GENERATION", "")
     if env == _gen_cache[0]:
         return _gen_cache[1]
-    if env:
-        gen = env
-    elif torch.cuda.is_available():
-        gen = torch.cuda.get_device_name(0)
-    else:
-        gen = ""
+    gen = env or chip_generation()
     _gen_cache = (env, gen)
     return gen
 
