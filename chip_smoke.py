@@ -10,7 +10,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 1. device — CUDA must be present; prints the card's name and power limit;
 2. build — compiles every CUDA source of the ``KERNELS`` table
    (``flash_fwd.cu``, ``flash_bwd.cu``, ``triad.cu``) from the repository,
-   one ``nvcc`` each, started together;
+   one ``nvcc`` each, started together; prints each library's ptxas
+   report (registers, spills) and, from ``cuobjdump --dump-sass``, the
+   ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
+   the triangle forward, failing when one has none;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -21,8 +24,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    the same work as a yardstick the port never calls
    (``F.scaled_dot_product_attention``; for the backward pairs its
    backward, timed as fwd+bwd less fwd; ``torch.add`` for the triad), and
-   the least time the card could take (bytes or FLOPs at peak); then the
-   validator payload ``run_flash_attention_check()``;
+   the least time the card could take (bytes or FLOPs at peak); for the
+   triangle forward also its TFLOP/s (live pairs) and its ratio to SDPA;
+   then the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
 5. serving — the default-geometry ``DecodeEngine`` with flash prefill
@@ -185,6 +189,40 @@ def phase_device() -> str:
     return smi
 
 
+def hgmma_counts(sass: str) -> dict:
+    """HGMMA (wgmma) instructions per function of a ``cuobjdump
+    --dump-sass`` listing, keyed by the function's mangled name."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        header = re.search(r"Function : (\S+)", line)
+        if header:
+            name = header.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHGMMA\.", line):
+            counts[name] += 1
+    return counts
+
+
+def tri_bf16_label(mangled: str):
+    """``d<D>_wg<WG>`` for a bf16 instantiation of the triangle forward
+    (``flash_fwd_tri_kernel<__nv_bfloat16, D, WG>``), else None."""
+    found = re.search(r"flash_fwd_tri_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
+    return f"d{found.group(1)}_wg{found.group(2)}" if found else None
+
+
+def ptxas_by_function(report: str) -> dict:
+    """Registers and spill bytes per kernel from an ``-Xptxas=-v`` report."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None}
+    return out
+
+
 def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
@@ -200,9 +238,28 @@ def phase_build() -> dict:
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", report)]
         log(f"  ptxas {name}.cu: {len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
+        for line in report.splitlines():
+            if "wgmma" in line.lower() or "setmaxnreg" in line:
+                log(f"  ptxas {name}.cu: {line.strip()}")
         reports[name] = report
     log(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a in {seconds:.1f} s (in parallel)")
-    return {"seconds": seconds, "ptxas": reports}
+    # the bf16 triangle must run on the tensor cores: HGMMA in every instantiation
+    cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built["flash_fwd"][0])],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    per_function = ptxas_by_function(reports["flash_fwd"])
+    hgmma, tri_ptxas = {}, {}
+    for mangled, count in hgmma_counts(sass).items():
+        label = tri_bf16_label(mangled)
+        if label is not None:
+            hgmma[label] = count
+            tri_ptxas[label] = per_function.get(mangled, {})
+    log(f"  flash_fwd_tri bf16 HGMMA per instantiation {hgmma}; ptxas {tri_ptxas}")
+    if len(hgmma) != 8 or not all(hgmma.values()):
+        raise RuntimeError(f"the bf16 triangle forward is not on the tensor cores: HGMMA {hgmma} "
+                           f"(expected 8 instantiations, d 16/32/64/128 x 1/2 warpgroups)")
+    return {"seconds": seconds, "ptxas": reports, "tri_bf16_hgmma": hgmma,
+            "tri_bf16_ptxas": tri_ptxas}
 
 
 def _case_inputs(case, gen):
@@ -306,13 +363,20 @@ def _bwd_bound(case, live_pairs: int, d: int, dq: bool) -> tuple:
 
 
 KERNEL_CASES = [
-    # the triangle: burn-in forward shape (main path), validator, timing
+    # the triangle: burn-in forward shape (main path) and its GQA config,
+    # validator, a ragged length, timing, and the f32 CUDA-core kernel
     dict(kernel="flash_fwd_tri", label="burnin bf16 (8,128,4,64)", q=(8, 128, 4, 64),
          dtype=torch.bfloat16, main=True),
+    dict(kernel="flash_fwd_tri", label="burnin gqa bf16 (8,128,4,64) h_kv 2", q=(8, 128, 4, 64),
+         h_kv=2, dtype=torch.bfloat16),
     dict(kernel="flash_fwd_tri", label="validator bf16 (1,512,2,128)", q=(1, 512, 2, 128),
+         dtype=torch.bfloat16),
+    dict(kernel="flash_fwd_tri", label="ragged bf16 (2,1000,4,128)", q=(2, 1000, 4, 128),
          dtype=torch.bfloat16),
     dict(kernel="flash_fwd_tri", label="timing bf16 (1,4096,8,128)", q=(1, 4096, 8, 128),
          dtype=torch.bfloat16, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,64)", q=(2, 128, 4, 64),
+         dtype=torch.float32),
 ] + [
     # the general kernel: serving chunked prefill (main path), f32
     dict(kernel="flash_fwd_rect", label=f"serving f32 q(1,8,2,16) kv 64 q_start={qs}",
@@ -492,6 +556,37 @@ def _triad_rows(gen) -> list:
     return rows
 
 
+def _other_tile_height(q, k, v, h: int, h_kv: int, want, inner: int) -> dict:
+    """The bf16 triangle launched with the q-tile height its plan did not
+    pick (a plan for a card with 1 SM takes 128 rows, one with very many
+    takes 64), straight through the library (no launch is counted), held
+    to the same tolerance, and timed: what the plan's choice is worth."""
+    from tpu_operator_torch.kernels import flash_fwd
+
+    bh, s, d = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    picked = flash_fwd.tri_plan(q.dtype, bh, s, d, sms).block_m
+    plan = flash_fwd.tri_plan(q.dtype, bh, s, d, sms=1 if picked == 64 else 10**9)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device="cuda")
+
+    def run():
+        code = flash_fwd._lib().flash_fwd_tri(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, bh, s, d,
+            h, h_kv, flash_fwd.LOG2E / math.sqrt(d), plan.block_m,
+            plan.smem_bytes, plan.swizzle, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"flash_fwd_tri at block_m {plan.block_m}: error {code}")
+
+    run()
+    torch.cuda.synchronize()
+    o_err = err(out, want)
+    if not o_err <= BF16_TOL:
+        raise RuntimeError(f"flash_fwd_tri at block_m {plan.block_m} disagrees: O err {o_err}")
+    return {"block_m": picked, "other_block_m": plan.block_m, "other_ms": device_ms(run, inner),
+            "other_max_abs_err": o_err}
+
+
 def phase_kernels() -> list:
     from tpu_operator_torch.kernels import flash_fwd
     from tpu_operator_torch.kernels.flash_fwd import attention_plain, keep_mask
@@ -540,11 +635,20 @@ def phase_kernels() -> list:
             "eager_library_ms": cuda_ms(library, inner),
             "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live,
         }
+        rate = ""
+        if case["kernel"] == "flash_fwd_tri":
+            row["tflops"] = 4.0 * d * live / row["ms"] / 1e9
+            row["ratio_to_library"] = row["ms"] / row["library_ms"]
+            rate = f", {row['tflops']:.1f} TFLOP/s, {row['ratio_to_library']:.2f}x sdpa"
+            if case["dtype"] == torch.bfloat16:
+                row.update(_other_tile_height(q, k, v, h, h_kv, want, inner))
+                rate += (f", {row['block_m']}-row q tiles (at {row['other_block_m']} rows: "
+                         f"{row['other_ms']:.5f} ms)")
         results.append(row)
         log(f"kernel {row['kernel']} [{row['label']}]: O err {o_err:.3g}, lse err {lse_err:.3g}; "
             f"device ms: kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
-            f"sdpa {row['library_ms']:.5f}, bound {bound_ms:.5f} by {bound_by}; eager ms: kernel "
-            f"{row['eager_ms']:.4f}, plain {row['eager_plain_ms']:.4f}, "
+            f"sdpa {row['library_ms']:.5f}, bound {bound_ms:.5f} by {bound_by}{rate}; eager ms: "
+            f"kernel {row['eager_ms']:.4f}, plain {row['eager_plain_ms']:.4f}, "
             f"sdpa {row['eager_library_ms']:.4f}")
     results += _backward_rows(gen)
     results += _triad_rows(gen)
@@ -812,11 +916,13 @@ def phase_selftest() -> dict:
     return out
 
 
-def kernels_line(rows: list, paths: dict) -> dict:
+def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
-    over the main-path runs (``paths``: run name -> counts)."""
+    over the main-path runs (``paths``: run name -> counts); ``extra``
+    adds keys to a kernel's entry (kernel name -> dict)."""
     keys = ("label", "max_abs_err", "rel_err", "ms", "pair_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "eager_ms")
+            "bound_by", "library_ms", "eager_ms", "tflops", "ratio_to_library", "block_m",
+            "other_block_m", "other_ms")
     out = []
     for name, (module, reference, line) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -833,6 +939,7 @@ def kernels_line(rows: list, paths: dict) -> dict:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "eager_ms": main["eager_ms"],
             "shapes": [{k: r[k] for k in keys if k in r} for r in mine],
+            **extra.get(name, {}),
         })
     return {"kernels": out}
 
@@ -852,7 +959,8 @@ def main(argv=None) -> int:
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"]}
-    line = kernels_line(results["kernels"], paths)
+    line = kernels_line(results["kernels"], paths,
+                        {"flash_fwd_tri": {"hgmma": results["build"]["tri_bf16_hgmma"]}})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

@@ -68,6 +68,57 @@ def test_triangle_kernel_matches_plain(cuda, d, dtype):
         assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL
 
 
+# sequence lengths for the bf16 triangle on the tensor cores: one token,
+# ragged last tiles, several tiles
+TC_LENGTHS = (1, 100, 200, 1000)
+
+
+def _tc_check(seed, b, s, h, d, h_kv):
+    qb, kb, vb, h_, hk = _qkv(seed, b, s, h, d, torch.bfloat16, h_kv=h_kv)
+    before = flash_fwd.flash_fwd_tri.launches
+    out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h_, hk)
+    want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h_, hk, causal=True)
+    torch.cuda.synchronize()
+    assert flash_fwd.flash_fwd_tri.launches == before + 1
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _err(want, out) <= BF16_TOL and _err(want_lse, lse) <= LSE_TOL, (b, s, h, d, h_kv)
+    return flash_fwd.tri_plan(torch.bfloat16, b * h, s, d,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("s", TC_LENGTHS)
+def test_tensor_core_triangle_matches_plain(cuda, d, s):
+    assert _tc_check(21, 2, s, 4, d, 2).block_m == 64
+    # 256 (batch, head) rows: 128-row tiles in several waves of CTAs
+    assert _tc_check(22, 16, s, 16, d, 4).block_m == 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_tensor_core_triangle_at_the_burnin_shape(cuda, h_kv):
+    assert _tc_check(23, 8, 128, 4, 64, h_kv).block_m == 64  # GQA: the kv_heads=2 train config
+
+
+@pytest.mark.cuda
+def test_tensor_core_triangle_at_long_context(cuda):
+    assert _tc_check(24, 1, 4096, 8, 128, 8).block_m == 128
+
+
+@pytest.mark.cuda
+def test_tensor_core_triangle_rejects_a_misaligned_base(cuda):
+    qb, kb, vb, h, hk = _qkv(25, 1, 64, 2, 64, torch.bfloat16)
+    for which in range(3):
+        args = [qb, kb, vb]
+        flat = torch.empty(args[which].numel() + 1, dtype=torch.bfloat16, device="cuda")
+        args[which] = flat[1:].view(args[which].shape).copy_(args[which])  # 2 bytes off
+        before = flash_fwd.flash_fwd_tri.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_fwd.flash_fwd_tri(*args, h, hk)
+        assert flash_fwd.flash_fwd_tri.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

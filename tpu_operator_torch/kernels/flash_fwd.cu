@@ -6,33 +6,60 @@
 //   flash_fwd_rect_kernel <- tpu_operator/workloads/flashattention.py::_flash_fwd_kernel
 //                            (causal or full, sliding window, segment ids, global
 //                            q_start/k_start offsets, sq != sk)
-// Both run a base-2 online softmax on q pre-scaled by log2(e)/sqrt(d) and write
-// O in the input dtype and the natural-log logsumexp per row (f32); a row with
-// no valid key gets O = 0 and lse = -inf.
+// Both run a base-2 online softmax on scores scaled by log2(e)/sqrt(d) and
+// write O in the input dtype and the natural-log logsumexp per row (f32); a
+// row with no valid key gets O = 0 and lse = -inf.
 //
-// Design. One CTA of 256 threads (16 x 16) per (bh row, 64-row q tile). The
-// k loop walks 64-key tiles and visits only the tiles some row of the q tile
-// can see: up to the diagonal for causal attention, the band for a window.
-// K and V tiles are staged through shared memory as f32; each thread owns a
-// 4 x 4 block of the score tile (rows ty + 16 i, keys tx + 16 j), keeps the
-// online-softmax state (m, l) of its 4 rows in registers, and owns the
-// matching 4 x D/16 block of the output accumulator, so the per-row rescale
-// never leaves registers. Row max and row sum reduce over the 16 lanes of a
-// half-warp with shuffles. P goes through shared memory (rounded to the
-// input dtype first, as the reference rounds P to v's dtype before P.V).
+// Two designs, chosen by dtype:
 //
-// Bound on this card: by the roofline the main path's calls are bytes-bound
-// (at most a few MB moved: serving prefill is 8 x 64 scores per head, the
-// burn-in 128 x 128 per head), but at those sizes a launch is latency-bound
-// (few CTAs, one or two tiles each). At long context the work turns
-// operations-bound (O(S^2 D) FLOPs over O(S D) bytes), and this first design,
-// f32 FMA on the CUDA cores, sits far below the tensor cores' rate there; its
-// f32 path must stay off TF32 anyway. mma/wgmma, TMA and warp specialisation
-// are later work.
+// bf16 triangle (flash_fwd_tri_kernel<__nv_bfloat16, D, WG>): the tensor-core
+// design. At long context the triangle is operations-bound (O(S^2 D) FLOPs
+// over O(S D) bytes), so both products run on wgmma in bf16 with f32
+// accumulators. A CTA owns BM = 64 * WG q rows (WG consumer warpgroups, one
+// per 64 rows) and one producer warp. The producer loads Q once and feeds K
+// and V tiles (BN = BM keys) through a two-stage ring with TMA (3-D tensor
+// maps (D, S, rows), so a tile past S zero-fills instead of reading the next
+// head), each stage guarded by a "full" mbarrier (TMA bytes) and an "empty"
+// one (one arrival per consumer warp). Per k tile a consumer warpgroup runs
+// S = Q.K^T (A and B from shared memory, both K-major), masks only the
+// diagonal tile, runs the online softmax on the accumulator fragment, packs
+// P to bf16 in registers and runs O += P.V with P as the register A operand
+// (the f32 accumulator layout of S is the bf16 A layout of P) and V as an
+// MN-major B operand (the transpose flag), so P never touches shared memory.
+// Scores are raw q.k scaled in f32 after the product, as the backward
+// kernels recompute them; P is rounded to bf16 before P.V and the row sum
+// is taken from the unrounded P. Swizzle per D matches the TMA box to the
+// wgmma descriptor: 32B at D 16, 64B at D 32, 128B at D 64 and 128B over
+// two 64-column boxes at D 128. q tiles launch heaviest first (blockIdx.y
+// reversed, (batch, head) rows on x). The tile height, grid, shared-memory
+// bytes and swizzle come from the caller's plan (flash_fwd.py::tri_plan),
+// which this file checks against its own layout. No setmaxnreg: with one
+// producer warp beside at most two warpgroups the register cap (224 a
+// thread at WG = 2) holds the O and S accumulators.
+//
+// f32 triangle and the general kernel (attend<T, D, TRI>): one CTA of 256
+// threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores. The k
+// loop visits only the tiles some row of the q tile can see. K and V tiles
+// are staged through shared memory as f32; each thread owns a 4 x 4 block
+// of the score tile and the matching 4 x D/16 block of the output
+// accumulator, so the per-row rescale never leaves registers. P goes
+// through shared memory (rounded to the input dtype first, as the reference
+// rounds P to v's dtype before P.V). The f32 triangle stays here because
+// f32 must not round through TF32; the general kernel is later work.
+//
+// Bound on this card: at the main path's shapes (burn-in 128 x 128 scores
+// per head, serving prefill 8 x 64) every kernel is latency-bound (a few
+// MB moved, few CTAs of one or two tiles each); at long context the
+// triangle turns operations-bound, where the bf16 design's wgmma counts.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +70,7 @@ constexpr int kRM = kBM / 16;   // score/output rows per thread
 constexpr int kRN = kBN / 16;   // score columns per thread
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kUnsupported = -1;
+constexpr int kNoTensorMap = -2;  // cuTensorMapEncodeTiled missing or refused the map
 
 struct Params {
   const void* q;      // (bh, sq, D)
@@ -53,7 +81,8 @@ struct Params {
   float* lse;         // (bh, sq)
   int sq, sk, heads, kv_heads;
   int causal, q_start, k_start, window;  // window <= 0: no window
-  float qscale;       // softmax scale * log2(e), folded into q
+  float qscale;       // softmax scale * log2(e): folded into q (CUDA cores), or
+                      // applied to q.k after the product (tensor cores)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -69,10 +98,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes(int d) {
   // q tile, k tile, v tile ([rows][D + 1]), p tile ([kBM][kBN + 1]), k segment ids
-  return sizeof(float) * ((kBM + 2 * kBN) * (D + 1) + kBM * (kBN + 1)) + sizeof(int) * kBN;
+  return sizeof(float) * ((kBM + 2 * kBN) * (d + 1) + kBM * (kBN + 1)) + sizeof(int) * kBN;
 }
 
 template <typename T, int D, bool TRI>
@@ -257,6 +285,503 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_rect_kernel(Params p) {
   attend<T, D, false>(p);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 triangle on the tensor cores: wgmma + TMA (see the note on top).
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;        // K/V ring depth
+constexpr int kSmemAlign = 1024;  // the 128B swizzle atom (8 rows x 128 bytes)
+
+// Tile geometry for head dim D: a [rows][D] bf16 tile is stored as kBoxes
+// column boxes of [rows][kCols], each row kRowBytes long and swizzled over
+// that span, exactly as one TMA box lands.
+template <int D>
+struct Geo {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span
+  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, else 1
+  static constexpr uint32_t kAtom = 8 * kRowBytes;  // bytes of one 8-row swizzle atom
+  // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+};
+
+template <int D, int WG>
+constexpr int tc_smem_bytes() {
+  // alignment slack, Q tile, kStages K and V tiles, full/empty/Q barriers
+  return kSmemAlign + (64 * WG + 2 * kStages * 64 * WG) * D * 2 + 8 * (2 * kStages + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed. A ring
+// that never fills (a lost TMA, a wrong byte count) traps after ~10 s of
+// clock instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(const void* tile, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an in-flight wgmma reads or writes: the compiler may
+// neither move their uses across this point nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d[0..32) += A(smem, K-major) . B(smem, K-major), m64n64k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[0..64) += A(smem, K-major) . B(smem, K-major), m64n128k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[0..8) += A(registers) . B(smem, MN-major), m64n16k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..16) += A(registers) . B(smem, MN-major), m64n32k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..32) += A(registers) . B(smem, MN-major), m64n64k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..64) += A(registers) . B(smem, MN-major), m64n128k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_scores(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// The bf16 triangle forward on the tensor cores. blockIdx.x: (batch, head)
+// row; blockIdx.y: q tile, reversed so the heaviest tiles launch first.
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1)
+    flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core triangle is bf16");
+  using G = Geo<D>;
+  constexpr int BM = 64 * WG;
+  constexpr int BN = BM;  // square tiles: only the diagonal tile needs the mask
+  constexpr uint32_t kQBytes = BM * D * 2;
+  constexpr uint32_t kKVBytes = BN * D * 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
+  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int n_tiles = (min(p.sq, q0 + BM) + BN - 1) / BN;  // the tile on the diagonal is last
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], WG * 4);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {
+    // producer warp: Q once, then K and V tile by tile through the ring
+    if (lane == 0) {
+      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+      for (int b = 0; b < G::kBoxes; ++b) {
+        tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kKVBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
+                      b * G::kCols, t * BN, kv_row);
+          tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
+                      b * G::kCols, t * BN, kv_row);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread holds
+  // rows r0 and r0 + 8 of its warp's 16, at columns 8 j + 2 tq (+1)
+  const int wg = warp / 4;
+  const int tq = lane % 4;
+  const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const float qscale = p.qscale;
+  float o[D / 2], s[BN / 2];
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
+  float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    const unsigned char* ks = k_s + st * kKVBytes;
+    const unsigned char* vs = v_s + st * kKVBytes;
+
+    // S = Q.K^T: both K-major; a k16 step advances 32 bytes inside a box
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
+      const uint64_t da = make_desc(q_s + box * BM * G::kRowBytes + wg * 64 * G::kRowBytes + off,
+                                    16, G::kAtom, G::kLayout);
+      const uint64_t db = make_desc(ks + box * BN * G::kRowBytes + off, 16, G::kAtom, G::kLayout);
+      mma_scores<BN>(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+
+    if (t == n_tiles - 1) {  // the diagonal tile: drop keys after the row
+      const int k0 = t * BN;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + 8 * j + 2 * tq + c;
+          if (key > r0) s[4 * j + c] = -CUDART_INF_F;
+          if (key > r0 + 8) s[4 * j + 2 + c] = -CUDART_INF_F;
+        }
+      }
+    }
+
+    // online softmax in base 2; every row sees key 0 in its first tile and
+    // key k0 in its diagonal one, so the running max is finite from tile 0
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * kk + h;
+        const float p00 = exp2f(fmaf(s[4 * j], qscale, -mn0));
+        const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -mn0));
+        const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -mn1));
+        const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -mn1));
+        rs0 += p00 + p01;
+        rs1 += p10 + p11;
+        // the accumulator layout of S is wgmma's register layout of A
+        pa[kk][2 * h] = pack_bf16(p00, p01);
+        pa[kk][2 * h + 1] = pack_bf16(p10, p11);
+      }
+    }
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+
+    // O += P.V: P from registers, V MN-major (transposed); a k16 step is
+    // 16 keys, two 8-row atoms; the second 64-column box (D = 128) is LBO away
+    hold(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t db = make_desc(vs + kk * 16 * G::kRowBytes, BN * G::kRowBytes, G::kAtom,
+                                    G::kLayout);
+      mma_pv<D>(o, pa[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(o);
+    hold(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= p.sq) continue;
+    const float l = half ? l1 : l0;
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      orow[4 * j + tq] = __floats2bfloat162_rn(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+    }
+    if (tq == 0) p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reach it through the
+// runtime, so the library links nothing beyond cudart.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous (rows, s, D) bf16 tensor: boxes of
+// [box_rows][kCols] with the swizzle of Geo<D>; rows past s read as zero.
+template <int D>
+bool encode_map(CUtensorMap* map, const void* base, int s, int rows, int box_rows) {
+  using G = Geo<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(G::kCols), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int WG>
+int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
+  constexpr int BM = 64 * WG;
+  const int q_tiles = (p.sq + BM - 1) / BM;
+  if (smem != tc_smem_bytes<D, WG>() || q_tiles > 65535) return kUnsupported;
+  CUtensorMap qmap, kmap, vmap;
+  const int bh_kv = bh / p.heads * p.kv_heads;
+  if (!encode_map<D>(&qmap, p.q, p.sq, bh, BM) || !encode_map<D>(&kmap, p.k, p.sk, bh_kv, BM) ||
+      !encode_map<D>(&vmap, p.v, p.sk, bh_kv, BM)) {
+    return kNoTensorMap;
+  }
+  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap) =
+      flash_fwd_tri_kernel<__nv_bfloat16, D, WG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(bh, q_tiles), WG * 128 + 32, smem, stream>>>(p, qmap, kmap, vmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cudaStream_t stream) {
+  if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
+  for (const void* ptr : {p.q, p.k, p.v, static_cast<const void*>(p.o)}) {
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return kUnsupported;  // TMA needs 16-byte bases
+  }
+  if (block_m == 64) return launch_tc<D, 1>(p, bh, smem, stream);
+  if (block_m == 128) return launch_tc<D, 2>(p, bh, smem, stream);
+  return kUnsupported;
+}
+
 template <typename T, int D, bool TRI>
 int launch(const Params& p, int bh, cudaStream_t stream) {
   void (*kernel)(Params);
@@ -265,7 +790,7 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
   } else {
     kernel = flash_fwd_rect_kernel<T, D>;
   }
-  const int smem = static_cast<int>(smem_bytes<D>());
+  const int smem = static_cast<int>(smem_bytes(D));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq + kBM - 1) / kBM, bh);
@@ -284,28 +809,40 @@ int dispatch_dim(const Params& p, int bh, int d, cudaStream_t stream) {
   }
 }
 
-template <bool TRI>
-int dispatch(const Params& p, int dtype, int bh, int d, void* stream) {
-  if (bh <= 0 || bh > 65535 || p.sq <= 0 || p.sk <= 0 || p.heads <= 0 || p.kv_heads <= 0 ||
-      p.heads % p.kv_heads != 0) {
-    return kUnsupported;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dim<float, TRI>(p, bh, d, s);
-  if (dtype == 1) return dispatch_dim<__nv_bfloat16, TRI>(p, bh, d, s);
-  return kUnsupported;
+bool valid(const Params& p, int bh) {
+  return bh > 0 && bh <= 65535 && p.sq > 0 && p.sk > 0 && p.heads > 0 && p.kv_heads > 0 &&
+         p.heads % p.kv_heads == 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns 0 on a launched kernel, a CUDA
-// error code when the launch was refused, -1 for a shape or dtype these
-// kernels do not take.
+// error code when the launch was refused, -1 for a shape, dtype, plan or
+// alignment these kernels do not take, -2 when no TMA tensor map could be
+// made. block_m, smem (bytes) and swizzle (bytes) are the caller's launch plan
+// (flash_fwd.py::tri_plan): bf16 runs the tensor-core kernel at block_m 64
+// or 128; f32 runs the CUDA-core kernel, whose plan is fixed (64, its shared
+// memory, no swizzle).
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
-                             float qscale, void* stream) {
+                             float qscale, int block_m, int smem, int swizzle,
+                             void* stream) {
   Params p{q, k, v, nullptr, o, lse, s, s, heads, kv_heads, 1, 0, 0, 0, qscale};
-  return dispatch<true>(p, dtype, bh, d, stream);
+  if (!valid(p, bh)) return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return dispatch_tc<16>(p, bh, block_m, smem, swizzle, st);
+      case 32: return dispatch_tc<32>(p, bh, block_m, smem, swizzle, st);
+      case 64: return dispatch_tc<64>(p, bh, block_m, smem, swizzle, st);
+      case 128: return dispatch_tc<128>(p, bh, block_m, smem, swizzle, st);
+      default: return kUnsupported;
+    }
+  }
+  if (dtype != 0 || block_m != kBM || swizzle != 0 || smem != static_cast<int>(smem_bytes(d))) {
+    return kUnsupported;
+  }
+  return dispatch_dim<float, true>(p, bh, d, st);
 }
 
 extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const int* seg,
@@ -314,5 +851,9 @@ extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const
                               int window, float qscale, void* stream) {
   if (seg != nullptr && sq != sk) return kUnsupported;
   Params p{q, k, v, seg, o, lse, sq, sk, heads, kv_heads, causal, q_start, k_start, window, qscale};
-  return dispatch<false>(p, dtype, bh, d, stream);
+  if (!valid(p, bh)) return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_dim<float, false>(p, bh, d, st);
+  if (dtype == 1) return dispatch_dim<__nv_bfloat16, false>(p, bh, d, st);
+  return kUnsupported;
 }

@@ -14,6 +14,7 @@ wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional, Tuple
@@ -25,6 +26,7 @@ from tpu_operator_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
+TMA_ALIGN = 16  # bytes: base alignment a TMA tensor map needs
 
 
 def kv_row(i, heads: int, kv_heads: int):
@@ -77,6 +79,56 @@ def attention_plain(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
     return out.to(qb.dtype), lse
 
 
+@dataclasses.dataclass(frozen=True)
+class TriPlan:
+    """Launch plan of the triangle kernel: ``block_m`` q rows per CTA and
+    as many keys per k tile, ``threads`` per CTA, ``grid`` (x, y), dynamic
+    shared memory in bytes, and the TMA/wgmma swizzle span in bytes (0:
+    the f32 CUDA-core kernel, which uses no TMA)."""
+
+    block_m: int
+    threads: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    swizzle: int
+
+    def cta(self, x: int, y: int) -> Tuple[int, int]:
+        """The (bh row, q tile) that block (x, y) computes, as the kernel
+        maps it."""
+        if self.swizzle:
+            return x, self.grid[1] - 1 - y  # heaviest q tiles first
+        return y, x
+
+
+TRI_STAGES = 2  # K/V ring depth of the bf16 kernel (kStages in flash_fwd.cu)
+
+
+def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int) -> TriPlan:
+    """How ``flash_fwd_tri`` launches for (bh rows, s tokens, head dim d).
+
+    bf16 runs the tensor-core kernel: q tiles of 128 rows (two consumer
+    warpgroups) once they fill one wave of CTAs on the card's ``sms``
+    streaming multiprocessors, else 64 rows (one warpgroup), so that small
+    grids keep more CTAs; plus one producer warp; grid (bh, q tiles) with
+    the q tiles walked heaviest first; shared memory for the Q tile and
+    ``TRI_STAGES`` K and V tiles, 1 KiB of alignment slack and five
+    mbarriers; the swizzle span of a row of one TMA box (32 B at d 16, 64 B
+    at d 32, 128 B at d 64 and 128). f32 keeps the CUDA-core kernel's fixed
+    plan. The kernel checks the plan against its own layout and refuses
+    one that differs."""
+    if dtype == torch.float32:
+        smem = 4 * ((64 + 2 * 64) * (d + 1) + 64 * (64 + 1)) + 4 * 64
+        return TriPlan(64, 256, (-(-s // 64), bh), smem, 0)
+    block = 128 if bh * -(-s // 128) >= sms else 64
+    smem = 1024 + (block + 2 * TRI_STAGES * block) * d * 2 + 8 * (2 * TRI_STAGES + 1)
+    return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if not t.is_cuda:
@@ -113,7 +165,8 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first call)."""
     lib = build.load("flash_fwd")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd_tri.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
+    lib.flash_fwd_tri.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32,
+                                  i32, i32, i32, ptr]
     lib.flash_fwd_tri.restype = i32
     lib.flash_fwd_rect.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                    i32, i32, i32, i32, i32, i32, f32, ptr]
@@ -123,14 +176,18 @@ def _lib() -> ctypes.CDLL:
 
 def _raise_on(code: int, name: str) -> None:
     if code == -1:
-        raise ValueError(f"{name}: shape or dtype not supported by the kernel")
+        raise ValueError(f"{name}: shape, dtype, plan or alignment not supported by the kernel")
+    if code == -2:
+        raise RuntimeError(f"{name}: no TMA tensor map (cuTensorMapEncodeTiled missing or refused)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
 
 def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int):
     """Plain-causal forward (sq == sk, no offsets, window or segments):
-    the port of ``_flash_fwd_tri_kernel``."""
+    the port of ``_flash_fwd_tri_kernel``. bf16 runs on the tensor cores
+    (wgmma, TMA: q, k, v need 16-byte-aligned bases), f32 on the CUDA
+    cores; the launch follows :func:`tri_plan`."""
     if not qb.is_cuda:
         return attention_plain(qb, kb, vb, heads, kv_heads, causal=True)
     _check(qb, kb, vb, heads, kv_heads)
@@ -139,11 +196,18 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int):
         raise ValueError(f"the triangle kernel needs sq == sk, got {s} and {kb.shape[1]}")
     out = torch.empty_like(qb)
     lse = torch.empty((bh, s), dtype=torch.float32, device=qb.device)
+    if qb.dtype == torch.bfloat16:
+        for name, t in (("q", qb), ("k", kb), ("v", vb), ("out", out)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
+                                 f"got address {t.data_ptr():#x}")
+    plan = tri_plan(qb.dtype, bh, s, d, _sm_count(qb.device.index))
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _lib().flash_fwd_tri(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, LOG2E / math.sqrt(d), stream,
+            _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, LOG2E / math.sqrt(d),
+            plan.block_m, plan.smem_bytes, plan.swizzle, stream,
         )
     _raise_on(code, "flash_fwd_tri")
     flash_fwd_tri.launches += 1
