@@ -13,7 +13,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    one ``nvcc`` each, started together; prints each library's ptxas
    report (registers, spills) and, from ``cuobjdump --dump-sass``, the
    ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
-   the triangle forward, failing when one has none;
+   the triangle forward and of the triangle backward pair, failing when
+   one has none or spills registers;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -25,8 +26,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (``F.scaled_dot_product_attention``; for the backward pairs its
    backward, timed as fwd+bwd less fwd; ``torch.add`` for the triad), and
    the least time the card could take (bytes or FLOPs at peak); for the
-   triangle forward also its TFLOP/s (live pairs) and its ratio to SDPA;
-   then the validator payload ``run_flash_attention_check()``;
+   triangle forward and the triangle backward pair also TFLOP/s (live
+   pairs) and the ratio to SDPA, and for their bf16 rows the time at the
+   tile height the launch plan did not pick; then the validator payload
+   ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
 5. serving — the default-geometry ``DecodeEngine`` with flash prefill
@@ -40,9 +43,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    params (the packed one of the same run on the CPU, where attention
    takes the plain versions: the dense path has no segment ids); an f32
    gradient check of ``flash_attention`` against autograd through dense
-   attention; the train step's eager and device ms; and
+   attention; the train step's eager and device ms;
    ``flash_attention_bench()`` (fwd and fwd+bwd at 4096 tokens against
-   dense and checkpointed dense attention);
+   dense and checkpointed dense attention); and one ``flash_attention``
+   fwd+bwd at (1,4096,8,128) bf16, device (CUDA graph) and eager ms;
 7. self-test — the node's single-card self-test: the metrics exporter's
    ``hbm_bandwidth_probe(size_mb=64, iters=25)`` (exactly 1226 triad
    launches: 1 check, 2 warm-up chains, 6 timed pairs of 25 and 150) and
@@ -210,6 +214,21 @@ def tri_bf16_label(mangled: str):
     return f"d{found.group(1)}_wg{found.group(2)}" if found else None
 
 
+def tri_bwd_bf16_label(mangled: str):
+    """``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for a bf16 instantiation
+    of the triangle backward pair (``flash_bwd_{dq,dkv}_tri_kernel<
+    __nv_bfloat16, D, WG>``), else None."""
+    found = re.search(r"flash_bwd_(dq|dkv)_tri_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
+    return f"{found.group(1)}_d{found.group(2)}_wg{found.group(3)}" if found else None
+
+
+# library: (label of a tensor-core instantiation, how many it must have)
+TENSOR_CORE_KERNELS = {
+    "flash_fwd": (tri_bf16_label, 8),       # d 16/32/64/128 x 1/2 warpgroups
+    "flash_bwd": (tri_bwd_bf16_label, 16),  # dq and dkv, the same 8 each
+}
+
+
 def ptxas_by_function(report: str) -> dict:
     """Registers and spill bytes per kernel from an ``-Xptxas=-v`` report."""
     out = {}
@@ -243,23 +262,37 @@ def phase_build() -> dict:
                 log(f"  ptxas {name}.cu: {line.strip()}")
         reports[name] = report
     log(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a in {seconds:.1f} s (in parallel)")
-    # the bf16 triangle must run on the tensor cores: HGMMA in every instantiation
+    # the bf16 triangle kernels must run on the tensor cores: HGMMA in every
+    # instantiation, and no register spills
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built["flash_fwd"][0])],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    per_function = ptxas_by_function(reports["flash_fwd"])
-    hgmma, tri_ptxas = {}, {}
-    for mangled, count in hgmma_counts(sass).items():
-        label = tri_bf16_label(mangled)
-        if label is not None:
-            hgmma[label] = count
-            tri_ptxas[label] = per_function.get(mangled, {})
-    log(f"  flash_fwd_tri bf16 HGMMA per instantiation {hgmma}; ptxas {tri_ptxas}")
-    if len(hgmma) != 8 or not all(hgmma.values()):
-        raise RuntimeError(f"the bf16 triangle forward is not on the tensor cores: HGMMA {hgmma} "
-                           f"(expected 8 instantiations, d 16/32/64/128 x 1/2 warpgroups)")
-    return {"seconds": seconds, "ptxas": reports, "tri_bf16_hgmma": hgmma,
-            "tri_bf16_ptxas": tri_ptxas}
+    out = {"seconds": seconds, "ptxas": reports}
+    for name, (label_of, expected) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        per_function = ptxas_by_function(reports[name])
+        hgmma, ptxas = {}, {}
+        for mangled, count in hgmma_counts(sass).items():
+            label = label_of(mangled)
+            if label is not None:
+                hgmma[label] = count
+                ptxas[label] = per_function.get(mangled, {})
+        log(f"  {name}.cu bf16 triangle HGMMA per instantiation {hgmma}; ptxas {ptxas}")
+        if len(hgmma) != expected or not all(hgmma.values()):
+            raise RuntimeError(f"{name}.cu: a bf16 triangle kernel is not on the tensor cores: "
+                               f"HGMMA {hgmma} (expected {expected} instantiations)")
+        spilled = {k: v for k, v in ptxas.items() if v.get("spill_stores") or v.get("spill_loads")}
+        if spilled:
+            raise RuntimeError(f"{name}.cu: bf16 triangle instantiations spill registers: {spilled}")
+        # ptxas serializes wgmma when registers run short, and ignores a
+        # setmaxnreg it cannot place: either undoes the design
+        labelled = [m for m in per_function if label_of(m)]
+        faults = [line.strip() for line in reports[name].splitlines()
+                  if "setmaxnreg ignored" in line
+                  or ("serialized" in line and any(m in line for m in labelled))]
+        if faults:
+            raise RuntimeError(f"{name}.cu: ptxas undid the tensor-core design: {faults}")
+        out[f"{name}_hgmma"], out[f"{name}_tc_ptxas"] = hgmma, ptxas
+    return out
 
 
 def _case_inputs(case, gen):
@@ -397,13 +430,15 @@ KERNEL_CASES = [
 
 BWD_CASES = [
     # the triangle pair: the burn-in train step (main path) and its GQA
-    # config, f32, GQA at the validator width, long context
+    # config, f32, GQA at the validator width, a ragged length, long context
     dict(pair="tri", label="burnin bf16 (8,128,4,64)", q=(8, 128, 4, 64),
          dtype=torch.bfloat16, main=True),
     dict(pair="tri", label="burnin gqa bf16 (8,128,4,64) h_kv 2", q=(8, 128, 4, 64), h_kv=2,
          dtype=torch.bfloat16),
     dict(pair="tri", label="f32 (2,128,4,64)", q=(2, 128, 4, 64), dtype=torch.float32),
     dict(pair="tri", label="gqa bf16 (1,512,4,128) h_kv 2", q=(1, 512, 4, 128), h_kv=2,
+         dtype=torch.bfloat16),
+    dict(pair="tri", label="ragged bf16 (2,1000,4,128)", q=(2, 1000, 4, 128),
          dtype=torch.bfloat16),
     dict(pair="tri", label="timing bf16 (1,4096,8,128)", q=(1, 4096, 8, 128),
          dtype=torch.bfloat16, inner=2),
@@ -488,6 +523,20 @@ def _backward_rows(gen) -> list:
                 "bound_by": bound_by, "live_pairs": live,
             })
         pair_ms = pair[0]["ms"] + pair[1]["ms"]
+        rate = ""
+        if tri:
+            # 14·D FLOPs per live pair: S, dP, dQ (6·D) and S, dP, dV, dK (8·D)
+            stats = {"pair_tflops": 14.0 * d * live / pair_ms / 1e9,
+                     "pair_ratio_to_library": pair_ms / library_ms}
+            rate = (f", {stats['pair_tflops']:.1f} TFLOP/s, {stats['pair_ratio_to_library']:.2f}x "
+                    f"sdpa backward")
+            if case["dtype"] == torch.bfloat16:
+                stats.update(_other_bwd_plans(q, k, v, dout, lse, delta, h, h_kv, want, scale,
+                                              inner))
+                rate += (f", dq/dkv blocks {stats['blocks']} (at {stats['other_blocks']}: dq "
+                         f"{stats['other_dq_ms']:.5f}, dkv {stats['other_dkv_ms']:.5f} ms)")
+            for row in pair:
+                row.update(stats)
         for row in pair:
             row["pair_ms"] = pair_ms
         rows += pair
@@ -495,9 +544,59 @@ def _backward_rows(gen) -> list:
             f"{errs[2]:.3g} (max |grad| {scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
             f"{pair[0]['bound_ms']:.5f} by {pair[0]['bound_by']}), dkv {pair[1]['ms']:.5f} (bound "
             f"{pair[1]['bound_ms']:.5f} by {pair[1]['bound_by']}), pair {pair_ms:.5f}, plain "
-            f"{plain_ms:.5f}, sdpa backward {library_ms:.5f}; eager ms: dq {pair[0]['eager_ms']:.4f}, "
-            f"dkv {pair[1]['eager_ms']:.4f}, sdpa backward {eager_library_ms:.4f}")
+            f"{plain_ms:.5f}, sdpa backward {library_ms:.5f}{rate}; eager ms: dq "
+            f"{pair[0]['eager_ms']:.4f}, dkv {pair[1]['eager_ms']:.4f}, sdpa backward "
+            f"{eager_library_ms:.4f}")
     return rows
+
+
+def _other_bwd_plans(q, k, v, dout, lse, delta, h: int, h_kv: int, want, scale: float,
+                     inner: int) -> dict:
+    """The bf16 triangle pair launched with the tile heights its plan did
+    not pick (a plan for a card with 1 SM takes 128, one with very many
+    takes 64), straight through the library (no launch is counted), held
+    to the same tolerance, and timed: what the plan's choice is worth."""
+    from tpu_operator_torch.kernels import flash_bwd
+
+    bh, s, d = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    picked = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms)
+    other = [flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d,
+                                    sms=1 if mine.block == 64 else 10**9)[i]
+             for i, mine in enumerate(picked)]
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = flash_bwd._lib()
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+              delta.data_ptr())
+    scales = (flash_bwd.LOG2E / math.sqrt(d), 1.0 / math.sqrt(d))
+
+    def run_dq():  # on the current stream, which a graph capture switches
+        plan = other[0]
+        code = lib.flash_bwd_dq_tri(*common, dq.data_ptr(), 1, bh, s, d, h, h_kv, *scales,
+                                    plan.block, plan.smem_bytes, plan.swizzle,
+                                    torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"flash_bwd_dq_tri at block {plan.block}: error {code}")
+
+    def run_dkv():
+        plan = other[1]
+        code = lib.flash_bwd_dkv_tri(*common, dk.data_ptr(), dv.data_ptr(), 1, k.shape[0], s, d,
+                                     h, h_kv, *scales, plan.block, plan.smem_bytes, plan.swizzle,
+                                     torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"flash_bwd_dkv_tri at block {plan.block}: error {code}")
+
+    run_dq()
+    run_dkv()
+    torch.cuda.synchronize()
+    errs = [err(w, g) for w, g in zip(want, (dq, dk, dv))]
+    if not max(errs) <= BF16_TOL * scale:
+        raise RuntimeError(f"the bf16 triangle pair at blocks {[p.block for p in other]} "
+                           f"disagrees: dq/dk/dv err {errs}, max |grad| {scale}")
+    return {"blocks": [p.block for p in picked], "other_blocks": [p.block for p in other],
+            "other_dq_ms": device_ms(run_dq, inner), "other_dkv_ms": device_ms(run_dkv, inner),
+            "other_max_abs_err": max(errs)}
 
 
 TRIAD_ALPHA = 0.3  # not a power of two, so every product rounds
@@ -815,7 +914,30 @@ def phase_train() -> dict:
     out["flash_attention_bench"] = bench
     log("train: flash_attention_bench() " + ", ".join(
         f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}" for k, v in bench.items()))
+    out["flash_fwd_bwd_4096"] = _flash_fwd_bwd_ms()
+    log(f"train: one flash_attention fwd+bwd at (1,4096,8,128) bf16: device ms "
+        f"{out['flash_fwd_bwd_4096']['device_ms']:.5f}, eager ms "
+        f"{out['flash_fwd_bwd_4096']['eager_ms']:.5f}")
     return out
+
+
+def _flash_fwd_bwd_ms() -> dict:
+    """Device and eager ms of one autograd fwd+bwd through flash_attention
+    at the bench's shape, (1,4096,8,128) bf16: the kernels, the head
+    collapse copies and delta, without the host's launch overhead (device)
+    and with it (eager). The forward is captured with the backward: autograd
+    runs a backward on its forward's stream."""
+    from tpu_operator_torch.workloads.flashattention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn((1, 4096, 8, 128), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+
+    def fwd_bwd():
+        return torch.autograd.grad(flash_attention(q, k, v, causal=True), (q, k, v), g)
+
+    return {"device_ms": device_ms(fwd_bwd, 5), "eager_ms": cuda_ms(fwd_bwd, 5)}
 
 
 def _hold_to_peak(report: dict, keys: tuple, peak: float, what: str) -> None:
@@ -922,7 +1044,8 @@ def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     adds keys to a kernel's entry (kernel name -> dict)."""
     keys = ("label", "max_abs_err", "rel_err", "ms", "pair_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "eager_ms", "tflops", "ratio_to_library", "block_m",
-            "other_block_m", "other_ms")
+            "other_block_m", "other_ms", "pair_tflops", "pair_ratio_to_library", "blocks",
+            "other_blocks", "other_dq_ms", "other_dkv_ms")
     out = []
     for name, (module, reference, line) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -959,8 +1082,11 @@ def main(argv=None) -> int:
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"]}
-    line = kernels_line(results["kernels"], paths,
-                        {"flash_fwd_tri": {"hgmma": results["build"]["tri_bf16_hgmma"]}})
+    hgmma = {"flash_fwd_tri": results["build"]["flash_fwd_hgmma"]}
+    for kind in ("dq", "dkv"):
+        hgmma[f"flash_bwd_{kind}_tri"] = {k: v for k, v in results["build"]["flash_bwd_hgmma"].items()
+                                          if k.startswith(f"{kind}_")}
+    line = kernels_line(results["kernels"], paths, {k: {"hgmma": v} for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

@@ -109,8 +109,10 @@ def test_f32_keeps_the_cuda_core_plan(d, smem):
 def test_plan_constants_match_the_cuda_source():
     src = CU_SOURCE.read_text()
     assert int(re.search(r"constexpr int kStages = (\d+);", src).group(1)) == flash_fwd.TRI_STAGES
-    assert "constexpr int kSmemAlign = 1024;" in src
-    assert "kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span" in src
+    assert '#include "hopper.cuh"' in src
+    header = CU_SOURCE.with_name("hopper.cuh").read_text()  # the shared Hopper helpers
+    assert "constexpr int kSmemAlign = 1024;" in header
+    assert "kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span" in header
 
 
 def test_cpu_tensors_never_touch_the_plan_or_the_library():

@@ -6,7 +6,10 @@ runs on its own:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 The triad rounds once in the kernel and in its plain version alike (a
-fused multiply-add), so the two are compared bit for bit.
+fused multiply-add), so the two are compared bit for bit. The bf16
+triangle forward and backward pair run on the tensor cores at one and two
+warpgroups a CTA (64- and 128-row tiles), ragged lengths, GQA groups and
+the burn-in and long-context shapes.
 
 Gradients are compared in the working dtype: f32 within 1e-4 absolute,
 bf16 within 2e-2 of the largest |gradient| of dq, dk and dv (bf16 keeps
@@ -211,6 +214,93 @@ def test_backward_triangle_kernels_match_plain(cuda, d, dtype):
         assert (flash_bwd.flash_bwd_dq_tri.launches,
                 flash_bwd.flash_bwd_dkv_tri.launches) == (before[0] + 1, before[1] + 1)
         _check_grads(want, (dq, dk, dv), dtype, (s, h, h_kv))
+
+
+def _tc_pair_check(seed, b, s, h, d, h_kv):
+    """The bf16 triangle pair against attention_bwd_plain, one launch of
+    each kernel; returns the (dq, dkv) launch plans it ran with."""
+    qb, kb, vb, out, dout, lse, delta, h_, hk = _bwd_inputs(
+        seed, b, s, h, d, torch.bfloat16, h_kv, tri=True)
+    before = (flash_bwd.flash_bwd_dq_tri.launches, flash_bwd.flash_bwd_dkv_tri.launches)
+    dq = flash_bwd.flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, h_, hk)
+    dk, dv = flash_bwd.flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, h_, hk)
+    want = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h_, hk, True)
+    torch.cuda.synchronize()
+    assert (flash_bwd.flash_bwd_dq_tri.launches,
+            flash_bwd.flash_bwd_dkv_tri.launches) == (before[0] + 1, before[1] + 1)
+    _check_grads(want, (dq, dk, dv), "bfloat16", (b, s, h, d, h_kv))
+    return flash_bwd.tri_bwd_plan(torch.bfloat16, b * h, b * h_kv, s, d,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("s", TC_LENGTHS)
+def test_tensor_core_backward_pair_matches_plain(cuda, d, s):
+    dq_plan, dkv_plan = _tc_pair_check(31, 2, s, 4, d, 2)
+    assert (dq_plan.block, dkv_plan.block) == (64, 64)
+    # 256 (batch, head) rows and as many kv rows: 128-row tiles in several waves
+    dq_plan, dkv_plan = _tc_pair_check(32, 16, s, 16, d, 16)
+    assert (dq_plan.block, dkv_plan.block) == (128, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_kv", [4, 2])  # GQA groups of 2 and 4 summed inside a dK/dV CTA
+def test_tensor_core_backward_pair_sums_gqa_groups(cuda, h_kv):
+    _tc_pair_check(33, 2, 200, 8, 64, h_kv)
+    _tc_pair_check(34, 1, 1000, 8, 128, h_kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_tensor_core_backward_pair_at_the_burnin_shape(cuda, h_kv):
+    dq_plan, dkv_plan = _tc_pair_check(35, 8, 128, 4, 64, h_kv)  # the train step's shape
+    assert (dq_plan.block, dkv_plan.block) == (64, 64)
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_pair_at_long_context(cuda):
+    dq_plan, dkv_plan = _tc_pair_check(36, 1, 4096, 8, 128, 8)
+    assert (dq_plan.block, dkv_plan.block) == (128, 128)
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_pair_rejects_a_misaligned_base(cuda):
+    args = list(_bwd_inputs(37, 1, 64, 2, 64, torch.bfloat16, 2, tri=True))
+    for which in (0, 1, 2, 4):  # q, k, v, dout
+        moved = list(args)
+        flat = torch.empty(args[which].numel() + 1, dtype=torch.bfloat16, device="cuda")
+        moved[which] = flat[1:].view(args[which].shape).copy_(args[which])  # 2 bytes off
+        for fn in (flash_bwd.flash_bwd_dq_tri, flash_bwd.flash_bwd_dkv_tri):
+            before = fn.launches
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(*moved)
+            assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_core_aligns_an_offset_cotangent(cuda):
+    """_FlashCore's backward handed a dO that is a contiguous view 2 bytes
+    off its allocation still runs both tensor-core kernels, with the right
+    gradients."""
+    from tpu_operator_torch.workloads.flashattention import _FlashCore
+
+    qb, kb, vb, h, hk = _qkv(38, 2, 200, 4, 64, torch.bfloat16, h_kv=2)
+    rng = np.random.default_rng(39)
+    g = torch.from_numpy(rng.standard_normal(qb.shape).astype(np.float32)).to("cuda", qb.dtype)
+    flat = torch.empty(g.numel() + 1, dtype=g.dtype, device="cuda")
+    g_off = flat[1:].view(g.shape).copy_(g)
+    assert g_off.is_contiguous() and g_off.data_ptr() % 16 == 2
+    leaves = [x.clone().requires_grad_(True) for x in (qb, kb, vb)]
+    before = (flash_bwd.flash_bwd_dq_tri.launches, flash_bwd.flash_bwd_dkv_tri.launches)
+    out = _FlashCore.apply(*leaves, None, True, 200, 200, h, hk, None)
+    got = torch.autograd.grad(out, leaves, g_off)
+    torch.cuda.synchronize()
+    assert (flash_bwd.flash_bwd_dq_tri.launches,
+            flash_bwd.flash_bwd_dkv_tri.launches) == (before[0] + 1, before[1] + 1)
+    _, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h, hk)
+    want = flash_bwd.attention_bwd_plain(qb, kb, vb, out.detach(), lse, g, h, hk, True)
+    _check_grads(want, got, "bfloat16", "offset cotangent")
 
 
 @pytest.mark.cuda

@@ -4,8 +4,10 @@ Each ``<name>.cu`` beside this file compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which the
 wrappers load with ``ctypes``. No PyTorch header is included, so a build
 takes seconds, not minutes. Libraries go to ``_build/`` (ignored by git),
-named by a hash of the source and flags, so an unchanged source is never
-rebuilt. Several sources build in parallel, one ``nvcc`` each.
+named by a hash of the source, every header (``*.cuh``) beside it and the
+flags, so an unchanged source is never rebuilt and a changed header
+rebuilds every library. Several sources build in parallel, one ``nvcc``
+each.
 
 A failed build or load raises; nothing falls back to the plain versions.
 """
@@ -47,9 +49,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = KERNEL_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library of ``<name>.cu`` lives: named by a hash of the
+    source, each header in ``KERNEL_DIR`` (a source may include any) and
+    the flags."""
+    digest = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:

@@ -10,41 +10,94 @@
 //                                (causal or full, sliding window, segment ids)
 //   flash_bwd_dkv_rect_kernel <- tpu_operator/workloads/flashattention.py::_flash_dkv_kernel
 // Inputs are the forward's q, k, v, its natural-log lse, the output cotangent
-// dO and delta = rowsum(dO * O); sq == sk. P is recomputed tile by tile:
-// the score is built exactly as the forward built it (q * log2(e)/sqrt(d) in
-// f32, then an f32 FMA chain over d in the same order), so P = exp2(s -
-// lse * log2(e)) is the forward's softmax and its rows sum to 1. Then
-// dS = P * (dP - delta) / sqrt(d) with dP = dO . V^T, and
+// dO and delta = rowsum(dO * O); sq == sk. P is recomputed tile by tile from
+// the score the forward built, so P = exp2(s - lse * log2(e)) is the
+// forward's softmax and its rows sum to 1. Then dS = P * (dP - delta) /
+// sqrt(d) with dP = dO . V^T, and
 //   dQ = dS . K,  dK = dS^T . Q,  dV = P^T . dO.
 // As the reference does, P is rounded to dO's dtype before dV, and dS to
-// the input dtype before dQ and dK; every sum is f32.
+// the input dtype before dQ and dK; every sum is f32. Both kernels of a pair
+// are deterministic: no atomics, every gradient element is written once by
+// one thread, and a GQA group's q heads sum inside one CTA.
 //
-// Design. The TPU kernels carry their accumulators across a sequential grid
-// axis; here that axis is a loop inside one CTA of 256 threads (16 x 16):
-//   dQ:   one CTA per (bh row, 64-row q tile); it walks the 64-key tiles its
-//         rows can see (up to the diagonal, the window band, or all) and keeps
-//         dQ for its rows in registers.
-//   dK/dV: one CTA per (kv row, 64-key tile); it walks every (GQA group
-//         member, q tile) that can see its keys (from the diagonal down, the
-//         band, or all), so a group's q heads sum inside the CTA.
-// Each thread owns a 4 x 4 block of the score tile and a 4 x D/16 block of
-// each accumulator; P and dS go through shared memory between the two. No
-// atomics: every gradient element is written once by one thread, so the
-// result is deterministic.
+// Two designs, chosen by dtype:
+//
+// bf16 triangle pair (flash_bwd_{dq,dkv}_tri_kernel<__nv_bfloat16, D, WG>):
+// the tensor-core design, on the forward's machinery (hopper.cuh). At long
+// context the pair is operations-bound (14 D FLOPs per live (q, k) pair over
+// O(S D) bytes), so every product runs on wgmma in bf16 with f32
+// accumulators, and the scores are the forward's: the raw bf16 q.k on the
+// tensor cores, P = exp2(fma(S, log2(e)/sqrt(d), -lse * log2(e))). Each CTA
+// has a producer warp that TMA-loads its own side's tiles once and feeds
+// the other side's 64-row tiles through a two-stage ring ("full" mbarriers
+// count TMA bytes, "empty" ones one arrival per consumer warp), and WG
+// consumer warpgroups of 64 rows each.
+//   dQ: a CTA owns 64 WG q rows of one (batch, head) row (q tiles launch
+//       heaviest first) and walks the 64-key K/V tiles from key 0 to its
+//       diagonal. Per tile a warpgroup runs S = Q.K^T and dP = dO.V^T (A and
+//       B from shared memory, both K-major), masks keys after its rows on the
+//       tiles that cross the diagonal, forms P and dS in registers with its
+//       rows' lse and delta held in registers, and runs dQ += dS.K with dS
+//       packed to bf16 as the register A operand (the f32 accumulator layout
+//       of S is wgmma's register layout of A) and the same K tile as an
+//       MN-major B operand (the transpose flag). dS never touches shared
+//       memory.
+//   dK/dV: a CTA owns 64 WG keys of one kv row (the first keys, whose walk
+//       is longest, launch first) and walks, for every GQA group member, the
+//       64-row Q/dO tiles from its diagonal down. Per tile a warpgroup runs
+//       S^T = K.Q^T and dP^T = V.dO^T (K/V as A, Q/dO as B, all K-major),
+//       drops rows before its keys and rows past s (their lse reads as +inf,
+//       so a zero-filled q row gives P = 0, not exp2(-lse)), and runs
+//       dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
+//       operands and dO and Q as MN-major B operands from the same stage.
+//       lse and delta are per column here: the producer warp stages each
+//       tile's 64 values (lse pre-scaled to base 2) beside its Q and dO with
+//       plain loads (a TMA global stride must be a multiple of 16 bytes,
+//       which a (rows, s) f32 row is not for every s), and each producer lane
+//       arrives on the stage's full barrier after its stores.
+// A warpgroup skips a tile it cannot see (past the diagonal, or all rows or
+// keys past s) and still releases the stage. 3-D tensor maps (D, s, rows)
+// zero-fill past s. The tile height (64 or 128), grid, shared-memory bytes
+// and swizzle come from the caller's plan (flash_bwd.py::tri_bwd_plan),
+// which this file checks against its own layout. Registers: a consumer of
+// dK/dV at D = 128 holds dK and dV (64 + 64 f32), S^T and dP^T (32 + 32)
+// and the packed P^T/dS^T fragments (16 + 16). ptxas budgets a CTA of
+// 2 x 128 + 32 threads as one of 384, 168 registers a thread, and spilled
+// there; so the dK/dV producer warp sits in a warpgroup of its own (three
+// idle warps) and, at WG = 2, setmaxnreg moves registers from that
+// warpgroup (40 a thread) to the consumers (232). dQ (S, dP and dQ:
+// 32 + 32 + 64) fits beside a lone producer warp, as the forward does.
+//
+// f32 triangle and the general pair (dq_body / dkv_body<T, D, TRI>): one CTA
+// of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
+// row, 64-key tile) for dK/dV, on the CUDA cores; the TPU kernels' sequential
+// grid axis is a loop inside the CTA (up to the diagonal, the window band, or
+// all; dK/dV over every GQA group member). Tiles are staged through shared
+// memory as f32, the score is built as the CUDA-core forward builds it (q *
+// log2(e)/sqrt(d) in f32, then an f32 FMA chain over d), each thread owns a
+// 4 x 4 block of the score tile and a 4 x D/16 block of each accumulator, and
+// P and dS go through shared memory between the two. The f32 triangle stays
+// here because f32 must not round through TF32; the general pair is later
+// work.
 //
 // Bound on this card: at the burn-in shape (S 128, D 64) each launch moves
 // about 2 MB and runs a few tens of MFLOP, so by the roofline it is
-// bytes-bound, and in practice latency-bound (64-128 CTAs, one to two tiles
-// each). At long context the work is O(S^2 D) over O(S D) bytes and turns
-// operations-bound; like the forward, this first design does f32 FMA on CUDA
-// cores (the f32 path must not run TF32) and sits far below the tensor cores'
-// rate there. mma/wgmma, TMA and warp specialisation are later work.
+// bytes-bound, and in practice latency-bound (32-64 CTAs of one to two
+// tiles). At long context the work is O(S^2 D) over O(S D) bytes and turns
+// operations-bound, where the bf16 pair's wgmma counts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, the tensor-map encoder
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kTile = 64;       // q rows and keys per tile
 constexpr int kThreads = 256;   // 16 x 16
@@ -52,6 +105,7 @@ constexpr int kR = kTile / 16;  // tile rows (and columns) per thread
 constexpr int kLP = kTile + 1;  // odd stride of the P / dS tiles
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kUnsupported = -1;
+constexpr int kNoTensorMap = -2;  // cuTensorMapEncodeTiled missing or refused the map
 
 struct Params {
   const void* q;       // (bh, s, D)
@@ -66,7 +120,8 @@ struct Params {
   void* dv;            // (bh_kv, s, D)
   int s, heads, kv_heads;
   int causal, window;  // window <= 0: no window
-  float qscale;        // log2(e)/sqrt(d), folded into q as the forward does
+  float qscale;        // log2(e)/sqrt(d): folded into q (CUDA cores) or applied to
+                       // q.k after the product (tensor cores), as the forward does
   float scale;         // 1/sqrt(d)
 };
 
@@ -106,16 +161,14 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int s, f
   }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // q (pre-scaled), dO, k, v tiles ([kTile][D + 1]), dS tile, key segment ids
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kLP) + sizeof(int) * kTile;
+constexpr size_t dq_smem_bytes(int d) {
+  // q (pre-scaled), dO, k, v tiles ([kTile][d + 1]), dS tile, key segment ids
+  return sizeof(float) * (4 * kTile * (d + 1) + kTile * kLP) + sizeof(int) * kTile;
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
+constexpr size_t dkv_smem_bytes(int d) {
   // k, v, q, dO tiles, P and dS tiles, per-row lse*log2e, delta, segment ids
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kLP + 2 * kTile) + sizeof(int) * kTile;
+  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * kLP + 2 * kTile) + sizeof(int) * kTile;
 }
 
 template <typename T, int D, bool TRI>
@@ -410,7 +463,434 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_rect_kernel(Params p) 
   dkv_body<T, D, false>(p);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 triangle pair on the tensor cores: wgmma + TMA (see the note on top).
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;  // depth of the ring of 64-row tiles
+// dK/dV at two consumer warpgroups: registers a thread after setmaxnreg
+// (2 x 128 x 232 + 128 x 40 <= 65,536)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+template <int D, int WG>
+constexpr int dq_tc_smem_bytes() {
+  // alignment slack, Q and dO tiles (64 WG rows), kStages K and V tiles
+  // (64 keys), full/empty/Q barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 8 * (2 * kStages + 1);
+}
+
+template <int D, int WG>
+constexpr int dkv_tc_smem_bytes() {
+  // alignment slack, K and V tiles (64 WG keys), kStages Q and dO tiles
+  // (64 rows) with their rows' lse and delta (f32), full/empty/KV barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 2 * kStages * kTile * 4 +
+         8 * (2 * kStages + 1);
+}
+
+// acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
+//     . B(smem, K-major: a [64][D] tile)^T, contracted over all of D
+template <int D>
+__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigned char* a_tile,
+                                                 int a_rows, int row, const unsigned char* b_tile) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes
+    const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
+    const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
+                                  16, G::kAtom, G::kLayout);
+    const uint64_t db = make_desc(b_tile + box * kTile * G::kRowBytes + off, 16, G::kAtom,
+                                  G::kLayout);
+    wgmma_ss_n64(acc, da, db, kk > 0);
+  }
+}
+
+// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: a [64][D]
+// tile contracted over its rows)
+template <int D>
+__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 const unsigned char* b_tile) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    // a k16 step is 16 rows, two 8-row atoms; the second 64-column box (D = 128) is LBO away
+    const uint64_t db = make_desc(b_tile + kk * 16 * G::kRowBytes, kTile * G::kRowBytes, G::kAtom,
+                                  G::kLayout);
+    mma_pv<D>(acc, a[kk], db);
+  }
+}
+
+// The bf16 triangle dQ on the tensor cores. blockIdx.x: (batch, head) row;
+// blockIdx.y: q tile of 64 WG rows, reversed so the heaviest tiles launch first.
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1)
+    flash_bwd_dq_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap domap) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  using G = Geo<D>;
+  constexpr int BM = 64 * WG;
+  constexpr uint32_t kQBytes = BM * D * 2;
+  constexpr uint32_t kKVBytes = kTile * D * 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* q_s = base;
+  unsigned char* do_s = q_s + kQBytes;
+  unsigned char* k_s = do_s + kQBytes;            // stage st at k_s + st * kKVBytes
+  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int n_tiles = (min(p.s, q0 + BM) + kTile - 1) / kTile;  // key 0 up to the diagonal
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], WG * 4);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {
+    // producer warp: Q and dO once, then K and V tile by tile through the ring
+    if (lane == 0) {
+      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+      for (int b = 0; b < G::kBoxes; ++b) {
+        tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+        tma_load_3d(do_s + b * BM * G::kRowBytes, &domap, q_full, b * G::kCols, q0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kKVBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(k_s + st * kKVBytes + b * kTile * G::kRowBytes, &kmap, &full[st],
+                      b * G::kCols, t * kTile, kv_row);
+          tma_load_3d(v_s + st * kKVBytes + b * kTile * G::kRowBytes, &vmap, &full[st],
+                      b * G::kCols, t * kTile, kv_row);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows w0 .. w0 + 63; this thread holds
+  // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
+  const int wg = warp / 4;
+  const int tq = lane % 4;
+  const int w0 = q0 + wg * 64;
+  const int r0 = w0 + (warp % 4) * 16 + lane / 4;
+  const float qscale = p.qscale, scale = p.scale;
+  float l2[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8; +inf keeps P = 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * p.s + row;
+    const float lse = row < p.s ? p.lse[at] : -CUDART_INF_F;
+    l2[h] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+    dl[h] = row < p.s ? p.delta[at] : 0.f;
+  }
+  float dq[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int k0 = t * kTile;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    if (w0 < p.s && k0 <= w0 + 63) {  // some key of the tile is at or before some row
+      const unsigned char* ks = k_s + st * kKVBytes;
+      const unsigned char* vs = v_s + st * kKVBytes;
+      wgmma_fence();
+      mma_rows_by_rows<D>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
+      mma_rows_by_rows<D>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(s);
+      hold(dp);
+
+      const bool diagonal = k0 + kTile - 1 > w0;  // some key is after some row
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * (e / 2);
+          const int key = k0 + 8 * j + 2 * tq + e % 2;
+          float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
+          if (diagonal && key > row) pe = 0.f;
+          ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+        }
+        // the accumulator layout of dS is wgmma's register layout of A
+        dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      hold(dsa);
+      wgmma_fence();
+      mma_frag_by_tile<D>(dq, dsa, ks);  // dQ += dS.K, K MN-major
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(dq);
+      hold(dsa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+  T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= p.s) continue;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dqg + static_cast<size_t>(row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      out[4 * j + tq] = __floats2bfloat162_rn(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// The bf16 triangle dK/dV on the tensor cores. blockIdx.x: kv row;
+// blockIdx.y: key tile of 64 WG keys, in order, so the first keys (the
+// longest walks) launch first.
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__((WG + 1) * 128, 1)
+    flash_bwd_dkv_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  using G = Geo<D>;
+  constexpr int BN = 64 * WG;
+  constexpr uint32_t kKVBytes = BN * D * 2;
+  constexpr uint32_t kQBytes = kTile * D * 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* k_s = base;
+  unsigned char* v_s = k_s + kKVBytes;
+  unsigned char* q_s = v_s + kKVBytes;             // stage st at q_s + st * kQBytes
+  unsigned char* do_s = q_s + kStages * kQBytes;   // likewise
+  float* lse_s = reinterpret_cast<float*>(do_s + kStages * kQBytes);  // [kStages][kTile]
+  float* dl_s = lse_s + kStages * kTile;                              // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + kStages * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int kv_row = blockIdx.x;
+  const int k0 = blockIdx.y * BN;
+  const int group = p.heads / p.kv_heads;
+  // the q head of group member m is q_row0 + m (flashattention.py q_index)
+  const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
+  const int t0 = k0 / kTile;                               // the diagonal q tile
+  const int per_member = (p.s + kTile - 1) / kTile - t0;   // q tiles from it down
+  const int n_steps = group * per_member;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's lse/delta
+      mbar_init(&empty[st], WG * 4);
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {
+    // the producer warpgroup: at WG = 2 it hands registers to the consumers
+    // (dK and dV at D = 128 need more than the 168 a thread of 384 gets);
+    // its first warp loads K and V once, then per (member, q tile) Q and dO
+    // by TMA and the tile's lse (base 2; +inf past s) and delta by plain loads
+    if constexpr (WG == 2) reg_dealloc<kProducerRegs>();
+    if (warp == WG * 4) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * kKVBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(k_s + b * BN * G::kRowBytes, &kmap, kv_full, b * G::kCols, k0, kv_row);
+          tma_load_3d(v_s + b * BN * G::kRowBytes, &vmap, kv_full, b * G::kCols, k0, kv_row);
+        }
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % kStages;
+        const int q_row = q_row0 + i / per_member;
+        const int q0 = (t0 + i % per_member) * kTile;
+        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * kQBytes);
+#pragma unroll
+          for (int b = 0; b < G::kBoxes; ++b) {
+            tma_load_3d(q_s + st * kQBytes + b * kTile * G::kRowBytes, &qmap, &full[st],
+                        b * G::kCols, q0, q_row);
+            tma_load_3d(do_s + st * kQBytes + b * kTile * G::kRowBytes, &domap, &full[st],
+                        b * G::kCols, q0, q_row);
+          }
+        }
+        for (int c = lane; c < kTile; c += 32) {
+          const int q = q0 + c;
+          const size_t at = static_cast<size_t>(q_row) * p.s + q;
+          const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
+          lse_s[st * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+          dl_s[st * kTile + c] = q < p.s ? p.delta[at] : 0.f;
+        }
+        mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
+      }
+    }
+  } else {
+    if constexpr (WG == 2) reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns keys w0 .. w0 + 63; this thread holds keys
+    // key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
+    const int wg = warp / 4;
+    const int tq = lane % 4;
+    const int w0 = k0 + wg * 64;
+    const int key = w0 + (warp % 4) * 16 + lane / 4;
+    const float qscale = p.qscale, scale = p.scale;
+    float dk[D / 2], dv[D / 2], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % kStages;
+      const int q0 = (t0 + i % per_member) * kTile;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      if (w0 < p.s && q0 + kTile - 1 >= w0) {  // some row of the tile is at or after some key
+        const unsigned char* qs = q_s + st * kQBytes;
+        const unsigned char* dos = do_s + st * kQBytes;
+        const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * kTile);
+        const float2* dl = reinterpret_cast<const float2*>(dl_s + st * kTile);
+        wgmma_fence();
+        mma_rows_by_rows<D>(s, k_s, BN, wg * 64, qs);    // S^T = K.Q^T
+        mma_rows_by_rows<D>(dp, v_s, BN, wg * 64, dos);  // dP^T = V.dO^T
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(s);
+        hold(dp);
+
+        const bool diagonal = q0 < w0 + 63;  // some row is before some key
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j) {
+          const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
+          float pe[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * tq + e % 2;
+            const float lse2 = e % 2 ? lj.y : lj.x;
+            float v = exp2f(fmaf(s[4 * j + e], qscale, -lse2));
+            if (diagonal && q < key + 8 * (e / 2)) v = 0.f;
+            pe[e] = v;
+            ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+          }
+          // the accumulator layout of P^T and dS^T is wgmma's register layout of A
+          pa[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
+          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
+          dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        hold(pa);
+        hold(dsa);
+        wgmma_fence();
+        mma_frag_by_tile<D>(dv, pa, dos);  // dV += P^T.dO, dO MN-major
+        mma_frag_by_tile<D>(dk, dsa, qs);  // dK += dS^T.Q, Q MN-major
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(dv);
+        hold(dk);
+        hold(pa);
+        hold(dsa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+
+    const size_t kvoff = static_cast<size_t>(kv_row) * p.s * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = key + 8 * h;
+      if (kj >= p.s) continue;
+      const size_t at = kvoff + static_cast<size_t>(kj) * D;
+      __nv_bfloat162* dkr = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(p.dk) + at);
+      __nv_bfloat162* dvr = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(p.dv) + at);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        dkr[4 * j + tq] = __floats2bfloat162_rn(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+        dvr[4 * j + tq] = __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 enum Kind { kDqTri, kDqRect, kDkvTri, kDkvRect };
+
+// rows: the grid's row count, bh for dQ and bh_kv for dK/dV.
+template <int D, int WG, Kind K>
+int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
+  constexpr bool kDq = K == kDqTri;
+  constexpr int B = 64 * WG;  // the CTA's own side: q rows (dQ) or keys (dK/dV)
+  const int tiles = (p.s + B - 1) / B;
+  if (smem != (kDq ? dq_tc_smem_bytes<D, WG>() : dkv_tc_smem_bytes<D, WG>()) || tiles > 65535) {
+    return kUnsupported;
+  }
+  const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
+  const int bh_kv = kDq ? rows / p.heads * p.kv_heads : rows;
+  // the CTA's own side comes in boxes of B rows, the ring's side in 64
+  const int q_box = kDq ? B : kTile, kv_box = kDq ? kTile : B;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!encode_map<D>(&qmap, p.q, p.s, bh, q_box) || !encode_map<D>(&domap, p.dout, p.s, bh, q_box) ||
+      !encode_map<D>(&kmap, p.k, p.s, bh_kv, kv_box) ||
+      !encode_map<D>(&vmap, p.v, p.s, bh_kv, kv_box)) {
+    return kNoTensorMap;
+  }
+  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
+  if constexpr (kDq) {
+    kernel = flash_bwd_dq_tri_kernel<__nv_bfloat16, D, WG>;
+  } else {
+    kernel = flash_bwd_dkv_tri_kernel<__nv_bfloat16, D, WG>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dQ: one producer warp; dK/dV: a producer warpgroup (setmaxnreg at WG = 2)
+  const int threads = kDq ? WG * 128 + 32 : (WG + 1) * 128;
+  kernel<<<dim3(rows, tiles), threads, smem, stream>>>(p, qmap, kmap, vmap, domap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, Kind K>
+int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cudaStream_t stream) {
+  if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
+  if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
+  if (block == 64) return launch_tc<D, 1, K>(p, rows, smem, stream);
+  if (block == 128) return launch_tc<D, 2, K>(p, rows, smem, stream);
+  return kUnsupported;
+}
 
 template <typename T, int D, Kind K>
 int launch(const Params& p, int rows, cudaStream_t stream) {
@@ -426,9 +906,9 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
     kernel = flash_bwd_dkv_rect_kernel<T, D>;
   }
   if constexpr (K == kDqTri || K == kDqRect) {
-    smem = dq_smem_bytes<D>();
+    smem = dq_smem_bytes(D);
   } else {
-    smem = dkv_smem_bytes<D>();
+    smem = dkv_smem_bytes(D);
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -449,40 +929,68 @@ int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
   }
 }
 
-// rows: the grid's row count, bh for dQ and bh_kv for dK/dV.
+bool valid(const Params& p, int rows) {
+  return rows > 0 && rows <= 65535 && p.s > 0 && p.heads > 0 && p.kv_heads > 0 &&
+         p.heads % p.kv_heads == 0;
+}
+
+// The triangle pair: bf16 on the tensor cores with the caller's plan, f32
+// on the CUDA cores, whose plan is fixed (64, its shared memory, no swizzle).
 template <Kind K>
-int dispatch(const Params& p, int dtype, int rows, int d, void* stream) {
-  if (rows <= 0 || rows > 65535 || p.s <= 0 || p.heads <= 0 || p.kv_heads <= 0 ||
-      p.heads % p.kv_heads != 0) {
+int dispatch_tri(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
+                 void* stream) {
+  if (!valid(p, rows)) return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, st);
+      case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
+      case 64: return dispatch_tc<64, K>(p, rows, block, smem, swizzle, st);
+      case 128: return dispatch_tc<128, K>(p, rows, block, smem, swizzle, st);
+      default: return kUnsupported;
+    }
+  }
+  const size_t fixed = K == kDqTri ? dq_smem_bytes(d) : dkv_smem_bytes(d);
+  if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed)) {
     return kUnsupported;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dim<float, K>(p, rows, d, s);
-  if (dtype == 1) return dispatch_dim<__nv_bfloat16, K>(p, rows, d, s);
+  return dispatch_dim<float, K>(p, rows, d, st);
+}
+
+template <Kind K>
+int dispatch_rect(const Params& p, int dtype, int rows, int d, void* stream) {
+  if (!valid(p, rows)) return kUnsupported;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_dim<float, K>(p, rows, d, st);
+  if (dtype == 1) return dispatch_dim<__nv_bfloat16, K>(p, rows, d, st);
   return kUnsupported;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns 0 on a launched kernel, a
-// CUDA error code when the launch was refused, -1 for a shape or dtype these
-// kernels do not take. bh counts q rows (batch x heads), bh_kv kv rows.
+// CUDA error code when the launch was refused, -1 for a shape, dtype, plan or
+// alignment these kernels do not take, -2 when no TMA tensor map could be
+// made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
+// and swizzle (bytes) of the triangle pair are the caller's launch plan
+// (flash_bwd.py::tri_bwd_plan).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,
-                                void* stream) {
+                                int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr,
            s, heads, kv_heads, 1, 0, qscale, scale};
-  return dispatch<kDqTri>(p, dtype, bh, d, stream);
+  return dispatch_tri<kDqTri>(p, dtype, bh, d, block, smem, swizzle, stream);
 }
 
 extern "C" int flash_bwd_dkv_tri(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dk, void* dv,
                                  int dtype, int bh_kv, int s, int d, int heads, int kv_heads,
-                                 float qscale, float scale, void* stream) {
+                                 float qscale, float scale, int block, int smem, int swizzle,
+                                 void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
            s, heads, kv_heads, 1, 0, qscale, scale};
-  return dispatch<kDkvTri>(p, dtype, bh_kv, d, stream);
+  return dispatch_tri<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }
 
 extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, const void* dout,
@@ -492,7 +1000,7 @@ extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, co
                                  void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr,
            s, heads, kv_heads, causal, window, qscale, scale};
-  return dispatch<kDqRect>(p, dtype, bh, d, stream);
+  return dispatch_rect<kDqRect>(p, dtype, bh, d, stream);
 }
 
 extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, const void* dout,
@@ -502,5 +1010,5 @@ extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, c
                                   void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
            s, heads, kv_heads, causal, window, qscale, scale};
-  return dispatch<kDkvRect>(p, dtype, bh_kv, d, stream);
+  return dispatch_rect<kDkvRect>(p, dtype, bh_kv, d, stream);
 }

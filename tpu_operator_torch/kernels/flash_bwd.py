@@ -11,14 +11,18 @@ The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_bwd_plain`, which
 computes all three gradients from ``out``; each wrapper returns its part.
 Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
+The bf16 triangle pair runs on the tensor cores (wgmma, TMA: q, k, v and
+dO need 16-byte-aligned bases) with the launch plan of
+:func:`tri_bwd_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,12 +30,17 @@ from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
     LOG2E,
+    TMA_ALIGN,
     _check,
     _check_seg,
     _raise_on,
+    _sm_count,
     keep_mask,
     kv_row,
 )
+
+TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTile)
+TRI_BWD_STAGES = 2  # ring depth of the bf16 pair (kStages in flash_bwd.cu)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -73,6 +82,87 @@ def attention_bwd_plain(qb, kb, vb, out, lse, dout, heads: int, kv_heads: int, c
     return dq.to(qb.dtype), per_kv_head(dk).to(kb.dtype), per_kv_head(dv).to(vb.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class TriBwdPlan:
+    """Launch plan of one kernel of the triangle backward pair: ``kernel``
+    is "dq" or "dkv"; a CTA owns ``block`` q rows (dq) or keys (dkv) of one
+    (batch, head) or kv row, with ``threads`` per CTA, ``grid`` (x, y),
+    dynamic shared memory in bytes and the TMA/wgmma swizzle span in bytes
+    (0: the f32 CUDA-core kernel, which uses no TMA)."""
+
+    kernel: str
+    block: int
+    threads: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    swizzle: int
+
+    def cta(self, x: int, y: int) -> Tuple[int, int]:
+        """The (row, tile) that block (x, y) computes, as the kernel maps
+        it: bf16 dq walks its q tiles heaviest (last) first, bf16 dkv its
+        key tiles in order (the first keys see the most rows)."""
+        if not self.swizzle:
+            return y, x
+        return (x, self.grid[1] - 1 - y) if self.kernel == "dq" else (x, y)
+
+    def visits(self, x: int, y: int, s: int, group: int) -> List[Tuple[int, int, int]]:
+        """The (GQA member, 64-row q tile, 64-key tile) products block
+        (x, y) computes for s tokens, in the kernel's order: a 64-row (or
+        64-key) slice of the CTA skips a tile it cannot see (past the
+        diagonal, or all its rows or keys past s). dq has one member, 0."""
+        tiles = -(-s // TILE)
+        first = self.cta(x, y)[1] * self.block // TILE
+        slices = range(first, first + self.block // TILE)
+        out = []
+        if self.kernel == "dq":  # keys from 0 to the CTA's diagonal
+            for k in range(min(tiles, slices.stop)):
+                out += [(0, q, k) for q in slices if q < tiles and k <= q]
+            return out
+        for m in range(group):  # rows from the CTA's diagonal down
+            for q in range(first, tiles):
+                out += [(m, q, k) for k in slices if k < tiles and k <= q]
+        return out
+
+
+def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
+                 sms: int) -> Tuple[TriBwdPlan, TriBwdPlan]:
+    """How ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri`` launch for bh q
+    rows, bh_kv kv rows, s tokens and head dim d: (dq plan, dkv plan).
+
+    bf16 runs the tensor-core pair. A dq CTA owns 64 or 128 q rows (one or
+    two consumer warpgroups) of one (batch, head) row and walks 64-key
+    tiles; a dkv CTA owns 64 or 128 keys of one kv row and walks 64-row q
+    tiles of every GQA member. Each takes 128 once its grid fills one wave
+    of CTAs on the card's ``sms`` streaming multiprocessors, else 64, so
+    that small grids keep more CTAs; plus a producer warp (dq) or
+    warpgroup (dkv). Shared memory: its own side's two tiles (Q and dO, or
+    K and V), ``TRI_BWD_STAGES`` pairs of the ring's 64-row tiles (dkv:
+    with their f32 lse and delta), 1 KiB of alignment slack and five
+    mbarriers. Swizzle: the span of a row of one TMA box (32 B at d 16,
+    64 B at d 32, 128 B at d 64 and 128). f32 keeps the CUDA-core kernels'
+    fixed plans. The kernels check the plan against their own layout and
+    refuse one that differs."""
+    if dtype == torch.float32:
+        tiles = -(-s // TILE)
+        dq = TriBwdPlan("dq", TILE, 256, (tiles, bh),
+                        4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0)
+        dkv = TriBwdPlan("dkv", TILE, 256, (tiles, bh_kv),
+                         4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0)
+        return dq, dkv
+
+    def plan(kernel: str, rows: int) -> TriBwdPlan:
+        block = 128 if rows * -(-s // 128) >= sms else 64
+        smem = 1024 + (2 * block + 2 * TRI_BWD_STAGES * TILE) * d * 2 + 8 * (2 * TRI_BWD_STAGES + 1)
+        if kernel == "dkv":
+            smem += 2 * TRI_BWD_STAGES * TILE * 4
+        # consumer warpgroups of 64 rows, and the producer: one warp for dq,
+        # a whole warpgroup for dkv (setmaxnreg hands its registers over)
+        threads = 2 * block + (32 if kernel == "dq" else 128)
+        return TriBwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64))
+
+    return plan("dq", bh), plan("dkv", bh_kv)
+
+
 def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None) -> None:
     _check(qb, kb, vb, heads, kv_heads)
     if kb.shape[1] != qb.shape[1]:
@@ -95,8 +185,9 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tensors = [ptr] * 6  # q, k, v, dout, lse, delta
     shape = [i32] * 6    # dtype, rows, s, d, heads, kv_heads
-    lib.flash_bwd_dq_tri.argtypes = tensors + [ptr] + shape + [f32, f32, ptr]
-    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + [f32, f32, ptr]
+    plan = [i32] * 3     # block, smem bytes, swizzle
+    lib.flash_bwd_dq_tri.argtypes = tensors + [ptr] + shape + [f32, f32] + plan + [ptr]
+    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + [f32, f32] + plan + [ptr]
     lib.flash_bwd_dq_rect.argtypes = tensors + [ptr, ptr] + shape + [i32, i32, f32, f32, ptr]
     lib.flash_bwd_dkv_rect.argtypes = tensors + [ptr, ptr, ptr] + shape + [i32, i32, f32, f32, ptr]
     for fn in (lib.flash_bwd_dq_tri, lib.flash_bwd_dkv_tri, lib.flash_bwd_dq_rect,
@@ -106,28 +197,43 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: int,
-            kv_heads: int, *extra) -> None:
+            kv_heads: int, extra=(), plan: Optional[TriBwdPlan] = None) -> None:
     """Launch ``name`` on the current stream; ``extra`` sits between the
-    shape arguments and the two scales (the rect kernels' causal/window)."""
+    shape arguments and the two scales (the rect kernels' causal/window),
+    the triangle kernels' ``plan`` after the scales."""
     _, s, d = qb.shape
+    planned = () if plan is None else (plan.block, plan.smem_bytes, plan.swizzle)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(_lib(), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
-            *extra, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), stream,
+            *extra, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), *planned, stream,
         )
     _raise_on(code, name)
+
+
+def _tri_plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int):
+    """Checks of the triangle pair's inputs (bf16: TMA's 16-byte bases) and
+    its (dq, dkv) launch plans on this card."""
+    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+    if qb.dtype == torch.bfloat16:
+        for name, t in (("q", qb), ("k", kb), ("v", vb), ("dout", dout)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
+                                 f"got address {t.data_ptr():#x}")
+    bh, s, d = qb.shape
+    return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, _sm_count(qb.device.index))
 
 
 def flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int):
     """Plain-causal dQ: the port of ``_flash_dq_tri_kernel``."""
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[0]
-    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+    plan, _ = _tri_plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_tri", qb, kb, vb, dout, lse, delta, (dq.data_ptr(),),
-            qb.shape[0], heads, kv_heads)
+            qb.shape[0], heads, kv_heads, plan=plan)
     flash_bwd_dq_tri.launches += 1
     return dq
 
@@ -137,10 +243,10 @@ def flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     ``_flash_dkv_tri_kernel``."""
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[1:]
-    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+    _, plan = _tri_plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_tri", qb, kb, vb, dout, lse, delta, (dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads)
+            kb.shape[0], heads, kv_heads, plan=plan)
     flash_bwd_dkv_tri.launches += 1
     return dk, dv
 
@@ -157,7 +263,7 @@ def flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dq.data_ptr()), qb.shape[0], heads,
-            kv_heads, int(causal), 0 if window is None else int(window))
+            kv_heads, (int(causal), 0 if window is None else int(window)))
     flash_bwd_dq_rect.launches += 1
     return dq
 
@@ -174,7 +280,7 @@ def flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: 
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads, int(causal), 0 if window is None else int(window))
+            kb.shape[0], heads, kv_heads, (int(causal), 0 if window is None else int(window)))
     flash_bwd_dkv_rect.launches += 1
     return dk, dv
 

@@ -33,7 +33,7 @@ from tpu_operator_torch.kernels.flash_bwd import (
     flash_bwd_dq_rect,
     flash_bwd_dq_tri,
 )
-from tpu_operator_torch.kernels.flash_fwd import flash_fwd_rect, flash_fwd_tri
+from tpu_operator_torch.kernels.flash_fwd import TMA_ALIGN, flash_fwd_rect, flash_fwd_tri
 from tpu_operator_torch.kernels.flash_fwd import kv_row as _kv_row  # noqa: F401  (reference name)
 
 
@@ -118,6 +118,13 @@ def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads:
     return dq, dk, dv
 
 
+def _tma_aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself when it starts on a TMA_ALIGN-byte boundary, else a copy
+    in a fresh (aligned) allocation: the bf16 triangle pair reads dO by
+    TMA, and a contiguous cotangent may be a view at any offset."""
+    return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
+
+
 class _FlashCore(torch.autograd.Function):
     """Forward through the forward kernels, saving (q, k, v, out, lse) and
     the segment ids; backward through the FlashAttention-2 dQ and dK/dV
@@ -135,8 +142,8 @@ class _FlashCore(torch.autograd.Function):
     def backward(ctx, grad):
         qb, kb, vb, out, lse, seg = ctx.saved_tensors
         causal, heads, kv_heads, window = ctx.static
-        dq, dk, dv = _flash_bwd_impl(qb, kb, vb, out, lse, grad.contiguous(), causal, heads,
-                                     kv_heads, window, seg)
+        dq, dk, dv = _flash_bwd_impl(qb, kb, vb, out, lse, _tma_aligned(grad.contiguous()),
+                                     causal, heads, kv_heads, window, seg)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
