@@ -13,8 +13,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    one ``nvcc`` each, started together; prints each library's ptxas
    report (registers, spills) and, from ``cuobjdump --dump-sass``, the
    ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
-   the triangle forward and of the triangle backward pair, failing when
-   one has none or spills registers;
+   the triangle forward (8) and of both backward pairs (32), failing when
+   one has none, spills registers, or ptxas serialized its ``wgmma`` or
+   ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -26,9 +27,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (``F.scaled_dot_product_attention``; for the backward pairs its
    backward, timed as fwd+bwd less fwd; ``torch.add`` for the triad), and
    the least time the card could take (bytes or FLOPs at peak); for the
-   triangle forward and the triangle backward pair also TFLOP/s (live
-   pairs) and the ratio to SDPA, and for their bf16 rows the time at the
-   tile height the launch plan did not pick; then the validator payload
+   triangle forward and both backward pairs also TFLOP/s (live pairs) and
+   the ratio to SDPA, and for their bf16 rows the time at the tile height
+   the launch plan did not pick; then the validator payload
    ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -215,17 +216,23 @@ def tri_bf16_label(mangled: str):
 
 
 def tri_bwd_bf16_label(mangled: str):
-    """``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for a bf16 instantiation
-    of the triangle backward pair (``flash_bwd_{dq,dkv}_tri_kernel<
-    __nv_bfloat16, D, WG>``), else None."""
-    found = re.search(r"flash_bwd_(dq|dkv)_tri_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
-    return f"{found.group(1)}_d{found.group(2)}_wg{found.group(3)}" if found else None
+    """A label for a bf16 tensor-core instantiation of a backward pair:
+    ``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for the triangle pair
+    (``flash_bwd_{dq,dkv}_tri_kernel<__nv_bfloat16, D, WG>``),
+    ``dq_rect_d<D>_wg<WG>`` or ``dkv_rect_d<D>_wg<WG>`` for the general
+    pair (``flash_bwd_{dq,dkv}_rect_kernel<...>``); else None."""
+    found = re.search(r"flash_bwd_(dq|dkv)_(tri|rect)_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E",
+                      mangled)
+    if not found:
+        return None
+    kind, pair, d, wg = found.groups()
+    return f"{kind}{'_rect' if pair == 'rect' else ''}_d{d}_wg{wg}"
 
 
 # library: (label of a tensor-core instantiation, how many it must have)
 TENSOR_CORE_KERNELS = {
     "flash_fwd": (tri_bf16_label, 8),       # d 16/32/64/128 x 1/2 warpgroups
-    "flash_bwd": (tri_bwd_bf16_label, 16),  # dq and dkv, the same 8 each
+    "flash_bwd": (tri_bwd_bf16_label, 32),  # dq and dkv of both pairs, the same 8 each
 }
 
 
@@ -262,8 +269,8 @@ def phase_build() -> dict:
                 log(f"  ptxas {name}.cu: {line.strip()}")
         reports[name] = report
     log(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a in {seconds:.1f} s (in parallel)")
-    # the bf16 triangle kernels must run on the tensor cores: HGMMA in every
-    # instantiation, and no register spills
+    # the bf16 tensor-core kernels must run on the tensor cores: HGMMA in
+    # every instantiation, and no register spills
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     out = {"seconds": seconds, "ptxas": reports}
     for name, (label_of, expected) in TENSOR_CORE_KERNELS.items():
@@ -276,13 +283,14 @@ def phase_build() -> dict:
             if label is not None:
                 hgmma[label] = count
                 ptxas[label] = per_function.get(mangled, {})
-        log(f"  {name}.cu bf16 triangle HGMMA per instantiation {hgmma}; ptxas {ptxas}")
+        log(f"  {name}.cu bf16 tensor-core HGMMA per instantiation {hgmma}; ptxas {ptxas}")
         if len(hgmma) != expected or not all(hgmma.values()):
-            raise RuntimeError(f"{name}.cu: a bf16 triangle kernel is not on the tensor cores: "
+            raise RuntimeError(f"{name}.cu: a bf16 kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
         spilled = {k: v for k, v in ptxas.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
-            raise RuntimeError(f"{name}.cu: bf16 triangle instantiations spill registers: {spilled}")
+            raise RuntimeError(f"{name}.cu: bf16 tensor-core instantiations spill registers: "
+                               f"{spilled}")
         # ptxas serializes wgmma when registers run short, and ignores a
         # setmaxnreg it cannot place: either undoes the design
         labelled = [m for m in per_function if label_of(m)]
@@ -329,14 +337,23 @@ def _bound(case, live_pairs: int, d: int) -> tuple:
 
 
 def _sdpa_kwargs(case, seg, tri: bool) -> dict:
-    """Arguments of F.scaled_dot_product_attention for the case's masking."""
+    """Arguments of F.scaled_dot_product_attention for the case's masking:
+    is_causal for the triangle's work (the triangle, or plain causal
+    attention with no window, segment ids or offsets), no mask for full
+    attention without segment ids (an explicit mask, all-true or causal,
+    would send SDPA to a slower masked backend), else the kernels'
+    keep_mask."""
     from tpu_operator_torch.kernels.flash_fwd import keep_mask
 
     b, sq, h, d = case["q"]
     sk, h_kv = case.get("sk", sq), case.get("h_kv", h)
     kwargs = {"enable_gqa": True} if h_kv != h else {}
-    if tri:
+    plain = seg is None and case.get("window") is None and sq == sk and not (
+        case.get("q_start") or case.get("k_start"))
+    if tri or (plain and case["causal"]):
         return dict(kwargs, is_causal=True)
+    if plain:
+        return kwargs
     mask = keep_mask(b * h, sq, sk, h, case["causal"], case.get("q_start", 0),
                      case.get("k_start", 0), case.get("window"), seg, "cuda")
     mask = mask.reshape(b, -1, sq, sk) if mask.shape[0] > 1 else mask.reshape(1, 1, sq, sk)
@@ -460,6 +477,14 @@ BWD_CASES = [
         ("gqa h_kv 2, window 128, segments cut 288", dict(causal=True, h_kv=2, window=128,
                                                           cut=288)),
     )
+] + [
+    # long context: full attention, and the triangle's own work through the
+    # general pair (its time beside the triangle pair's shows what the
+    # general masks cost)
+    dict(pair="rect", label="timing bf16 (1,4096,8,128) full", q=(1, 4096, 8, 128),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(pair="rect", label="timing bf16 (1,4096,8,128) causal", q=(1, 4096, 8, 128),
+         dtype=torch.bfloat16, causal=True, inner=2),
 ]
 
 
@@ -523,22 +548,18 @@ def _backward_rows(gen) -> list:
                 "bound_by": bound_by, "live_pairs": live,
             })
         pair_ms = pair[0]["ms"] + pair[1]["ms"]
-        rate = ""
-        if tri:
-            # 14·D FLOPs per live pair: S, dP, dQ (6·D) and S, dP, dV, dK (8·D)
-            stats = {"pair_tflops": 14.0 * d * live / pair_ms / 1e9,
-                     "pair_ratio_to_library": pair_ms / library_ms}
-            rate = (f", {stats['pair_tflops']:.1f} TFLOP/s, {stats['pair_ratio_to_library']:.2f}x "
-                    f"sdpa backward")
-            if case["dtype"] == torch.bfloat16:
-                stats.update(_other_bwd_plans(q, k, v, dout, lse, delta, h, h_kv, want, scale,
-                                              inner))
-                rate += (f", dq/dkv blocks {stats['blocks']} (at {stats['other_blocks']}: dq "
-                         f"{stats['other_dq_ms']:.5f}, dkv {stats['other_dkv_ms']:.5f} ms)")
-            for row in pair:
-                row.update(stats)
+        # 14·D FLOPs per live pair: S, dP, dQ (6·D) and S, dP, dV, dK (8·D)
+        stats = {"pair_tflops": 14.0 * d * live / pair_ms / 1e9,
+                 "pair_ratio_to_library": pair_ms / library_ms}
+        rate = (f", {stats['pair_tflops']:.1f} TFLOP/s, {stats['pair_ratio_to_library']:.2f}x "
+                f"sdpa backward")
+        if case["dtype"] == torch.bfloat16:
+            stats.update(_other_bwd_plans(case["pair"], q, k, v, dout, lse, delta, h, h_kv,
+                                          extra, want, scale, inner))
+            rate += (f", dq/dkv blocks {stats['blocks']} (at {stats['other_blocks']}: dq "
+                     f"{stats['other_dq_ms']:.5f}, dkv {stats['other_dkv_ms']:.5f} ms)")
         for row in pair:
-            row["pair_ms"] = pair_ms
+            row.update(stats, pair_ms=pair_ms)
         rows += pair
         log(f"backward {case['pair']} [{case['label']}]: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
             f"{errs[2]:.3g} (max |grad| {scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
@@ -550,49 +571,54 @@ def _backward_rows(gen) -> list:
     return rows
 
 
-def _other_bwd_plans(q, k, v, dout, lse, delta, h: int, h_kv: int, want, scale: float,
-                     inner: int) -> dict:
-    """The bf16 triangle pair launched with the tile heights its plan did
-    not pick (a plan for a card with 1 SM takes 128, one with very many
-    takes 64), straight through the library (no launch is counted), held
-    to the same tolerance, and timed: what the plan's choice is worth."""
+def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
+                     want, scale: float, inner: int) -> dict:
+    """A bf16 pair ("tri" or "rect", whose masks ``extra`` = (causal,
+    window, seg) holds) launched with the tile heights its plan did not
+    pick (a plan for a card with 1 SM takes 128, one with very many takes
+    64), straight through the library (no launch is counted), held to the
+    same tolerance, and timed: what the plan's choice is worth."""
     from tpu_operator_torch.kernels import flash_bwd
 
     bh, s, d = q.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    picked = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms)
-    other = [flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d,
-                                    sms=1 if mine.block == 64 else 10**9)[i]
-             for i, mine in enumerate(picked)]
+
+    def plans(sms):
+        if pair == "tri":
+            return flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms)
+        return flash_bwd.rect_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, *extra[:2])
+
+    picked = plans(sms)
+    other = [plans(1 if mine.block == 64 else 10**9)[i] for i, mine in enumerate(picked)]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = flash_bwd._lib()
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
               delta.data_ptr())
+    seg = () if pair == "tri" else (None if extra[2] is None else extra[2].data_ptr(),)
+    masks = () if pair == "tri" else (int(extra[0]), 0 if extra[1] is None else int(extra[1]))
     scales = (flash_bwd.LOG2E / math.sqrt(d), 1.0 / math.sqrt(d))
 
-    def run_dq():  # on the current stream, which a graph capture switches
-        plan = other[0]
-        code = lib.flash_bwd_dq_tri(*common, dq.data_ptr(), 1, bh, s, d, h, h_kv, *scales,
-                                    plan.block, plan.smem_bytes, plan.swizzle,
-                                    torch.cuda.current_stream().cuda_stream)
+    def run(kernel: str, outputs, rows: int, plan):
+        # on the current stream, which a graph capture switches
+        code = getattr(lib, f"flash_bwd_{kernel}_{pair}")(
+            *common, *seg, *outputs, 1, rows, s, d, h, h_kv, *masks, *scales, plan.block,
+            plan.smem_bytes, plan.swizzle, torch.cuda.current_stream().cuda_stream)
         if code != 0:
-            raise RuntimeError(f"flash_bwd_dq_tri at block {plan.block}: error {code}")
+            raise RuntimeError(f"flash_bwd_{kernel}_{pair} at block {plan.block}: error {code}")
+
+    def run_dq():
+        run("dq", (dq.data_ptr(),), bh, other[0])
 
     def run_dkv():
-        plan = other[1]
-        code = lib.flash_bwd_dkv_tri(*common, dk.data_ptr(), dv.data_ptr(), 1, k.shape[0], s, d,
-                                     h, h_kv, *scales, plan.block, plan.smem_bytes, plan.swizzle,
-                                     torch.cuda.current_stream().cuda_stream)
-        if code != 0:
-            raise RuntimeError(f"flash_bwd_dkv_tri at block {plan.block}: error {code}")
+        run("dkv", (dk.data_ptr(), dv.data_ptr()), k.shape[0], other[1])
 
     run_dq()
     run_dkv()
     torch.cuda.synchronize()
     errs = [err(w, g) for w, g in zip(want, (dq, dk, dv))]
     if not max(errs) <= BF16_TOL * scale:
-        raise RuntimeError(f"the bf16 triangle pair at blocks {[p.block for p in other]} "
+        raise RuntimeError(f"the bf16 {pair} pair at blocks {[p.block for p in other]} "
                            f"disagrees: dq/dk/dv err {errs}, max |grad| {scale}")
     return {"blocks": [p.block for p in picked], "other_blocks": [p.block for p in other],
             "other_dq_ms": device_ms(run_dq, inner), "other_dkv_ms": device_ms(run_dkv, inner),
@@ -1084,8 +1110,9 @@ def main(argv=None) -> int:
              **results["selftest"]["paths"]}
     hgmma = {"flash_fwd_tri": results["build"]["flash_fwd_hgmma"]}
     for kind in ("dq", "dkv"):
-        hgmma[f"flash_bwd_{kind}_tri"] = {k: v for k, v in results["build"]["flash_bwd_hgmma"].items()
-                                          if k.startswith(f"{kind}_")}
+        for pair, prefix in (("tri", f"{kind}_d"), ("rect", f"{kind}_rect_d")):
+            hgmma[f"flash_bwd_{kind}_{pair}"] = {
+                k: v for k, v in results["build"]["flash_bwd_hgmma"].items() if k.startswith(prefix)}
     line = kernels_line(results["kernels"], paths, {k: {"hgmma": v} for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

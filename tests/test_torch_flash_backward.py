@@ -60,6 +60,9 @@ CASES = {
     "window_straddling_a_block_edge": (2, (1, 64, 2, 8, None),
                                        dict(block_q=16, block_k=16, window=20), None),
     "segments_boundary_mid_block": (3, (2, 64, 2, 16, None), dict(block_q=32, block_k=32), [40]),
+    # two documents on a block edge: each block's ids are uniform, so the
+    # reference takes its unmasked fast path (and skips cross-document blocks)
+    "segments_block_aligned": (11, (2, 64, 2, 16, None), dict(block_q=32, block_k=32), [32]),
     "gqa_4_2": (4, (2, 32, 4, 8, 2), dict(block_q=16, block_k=16), None),
     "gqa_segments_window": (5, (2, 64, 4, 8, 2), dict(block_q=16, block_k=16, window=24),
                             [24, 50]),
@@ -96,7 +99,8 @@ def test_f32_gradients_match_reference(case):
         assert float(np.max(np.abs(w - g))) <= F32_TOL, f"d{name}"
 
 
-@pytest.mark.parametrize("case", ["triangle", "segments_boundary_mid_block", "gqa_4_2"])
+@pytest.mark.parametrize("case", ["triangle", "segments_boundary_mid_block", "segments_block_aligned",
+                                  "gqa_4_2"])
 def test_bf16_gradients_match_reference(case):
     want, got = _grads(case, "bfloat16")
     scale = max(float(np.max(np.abs(w))) for w in want)

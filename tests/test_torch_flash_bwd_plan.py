@@ -209,13 +209,21 @@ def test_hgmma_counter_on_a_backward_excerpt():
     ("_ZN12_GLOBAL__N_124flash_bwd_dkv_tri_kernelIfLi128EEEvNS_6ParamsE", None),
     ("_ZN12_GLOBAL__N_125flash_bwd_dkv_rect_kernelI13__nv_bfloat16Li64EEEvNS_6ParamsE", None),
     ("_ZN12_GLOBAL__N_120flash_fwd_tri_kernelI13__nv_bfloat16Li64ELi2EEEvNS_6ParamsE", None),
+    # the general pair on the tensor cores, and its f32 kernels
+    ("_ZN12_GLOBAL__N_124flash_bwd_dq_rect_kernelI13__nv_bfloat16Li128ELi1EEEvNS_6ParamsE",
+     "dq_rect_d128_wg1"),
+    ("_ZN12_GLOBAL__N_125flash_bwd_dkv_rect_kernelI13__nv_bfloat16Li16ELi2EEEvNS_6ParamsE",
+     "dkv_rect_d16_wg2"),
+    ("_ZN12_GLOBAL__N_124flash_bwd_dq_rect_kernelIfLi64EEEvNS_6ParamsE", None),
+    ("_ZN12_GLOBAL__N_125flash_bwd_dkv_rect_kernelIfLi128EEEvNS_6ParamsE", None),
 ])
 def test_tri_bwd_bf16_label_reads_only_the_bf16_backward_pair(mangled, label):
     assert chip_smoke.tri_bwd_bf16_label(mangled) == label
 
 
 def test_every_library_is_checked_for_its_tensor_core_instantiations():
-    assert chip_smoke.TENSOR_CORE_KERNELS["flash_bwd"] == (chip_smoke.tri_bwd_bf16_label, 16)
+    # d 16/32/64/128 x 1/2 warpgroups x dq/dkv x the triangle and the general pair
+    assert chip_smoke.TENSOR_CORE_KERNELS["flash_bwd"] == (chip_smoke.tri_bwd_bf16_label, 32)
     assert chip_smoke.TENSOR_CORE_KERNELS["flash_fwd"] == (chip_smoke.tri_bf16_label, 8)
 
 

@@ -7,9 +7,11 @@ runs on its own:
 
 The triad rounds once in the kernel and in its plain version alike (a
 fused multiply-add), so the two are compared bit for bit. The bf16
-triangle forward and backward pair run on the tensor cores at one and two
-warpgroups a CTA (64- and 128-row tiles), ragged lengths, GQA groups and
-the burn-in and long-context shapes.
+triangle forward and both backward pairs run on the tensor cores at one
+and two warpgroups a CTA (64- and 128-row tiles), ragged lengths, GQA
+groups and the burn-in and long-context shapes; the general pair also
+under full attention, window bands and segment ids (random, and whole
+64-token documents, whose cross-document tiles take no products).
 
 Gradients are compared in the working dtype: f32 within 1e-4 absolute,
 bf16 within 2e-2 of the largest |gradient| of dq, dk and dv (bf16 keeps
@@ -329,6 +331,102 @@ def test_backward_general_kernels_match_plain(cuda, d, dtype):
         assert (flash_bwd.flash_bwd_dq_rect.launches,
                 flash_bwd.flash_bwd_dkv_rect.launches) == (before[0] + 1, before[1] + 1)
         _check_grads(want, (dq, dk, dv), dtype, {k: v for k, v in case.items() if k != "seg"})
+
+
+# the general pair's masks: name -> (causal, window, segment ids: None,
+# "random" ids 0-2 at every position, or "docs", 64-token documents whose
+# tiles are uniform, so that tiles of two documents are dead)
+RECT_MASKS = {
+    "full": (False, None, None),
+    "causal": (True, None, None),
+    "window 7": (True, 7, None),
+    "window 33": (True, 33, None),
+    "window 200": (True, 200, None),
+    "causal, random segments": (True, None, "random"),
+    "full, random segments": (False, None, "random"),
+    "causal, 64-token documents": (True, None, "docs"),
+    "window 33, 64-token documents": (True, 33, "docs"),
+    "full, 64-token documents": (False, None, "docs"),
+}
+
+
+def _seg_ids(kind, seed, b, s):
+    if kind is None:
+        return None
+    if kind == "docs":
+        ids = np.broadcast_to(np.arange(s) // 64, (b, s))
+    else:
+        ids = np.random.default_rng(seed).integers(0, 3, (b, s))
+    return torch.from_numpy(np.ascontiguousarray(ids).astype(np.int32)).to("cuda")
+
+
+def _rect_pair_check(seed, b, s, h, d, h_kv, causal, window, seg, dtype=torch.bfloat16):
+    """The general pair against attention_bwd_plain, one launch of each
+    kernel; returns the (dq, dkv) launch plans it ran with."""
+    qb, kb, vb, out, dout, lse, delta, h_, hk = _bwd_inputs(
+        seed, b, s, h, d, dtype, h_kv, causal=causal, window=window, seg=seg)
+    args = (causal, window, seg)
+    before = (flash_bwd.flash_bwd_dq_rect.launches, flash_bwd.flash_bwd_dkv_rect.launches)
+    dq = flash_bwd.flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, h_, hk, *args)
+    dk, dv = flash_bwd.flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, h_, hk, *args)
+    want = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h_, hk, *args)
+    torch.cuda.synchronize()
+    assert (flash_bwd.flash_bwd_dq_rect.launches,
+            flash_bwd.flash_bwd_dkv_rect.launches) == (before[0] + 1, before[1] + 1)
+    _check_grads(want, (dq, dk, dv), "float32" if dtype == torch.float32 else "bfloat16",
+                 (b, s, h, d, h_kv, causal, window, seg is not None))
+    return flash_bwd.rect_bwd_plan(dtype, b * h, b * h_kv, s, d, flash_bwd._sm_count(0), causal,
+                                   window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+@pytest.mark.parametrize("s", (1, 100, 130, 1000))
+def test_tensor_core_general_pair_matches_plain(cuda, monkeypatch, d, s):
+    """bf16 on the tensor cores at both tile heights (a card of very many
+    SMs takes 64-row tiles, one of a single SM 128), every mask, GQA groups
+    of 1, 2 and 4."""
+    for block, sms in ((64, 10**9), (128, 1)):
+        monkeypatch.setattr(flash_bwd, "_sm_count", lambda index, sms=sms: sms)
+        for name, (causal, window, kind) in RECT_MASKS.items():
+            for h_kv in (4, 2, 1):
+                plans = _rect_pair_check(41, 2, s, 4, d, h_kv, causal, window,
+                                         _seg_ids(kind, 42, 2, s))
+                assert [p.block for p in plans] == [block, block], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_tensor_core_general_pair_at_the_packed_burnin_shape(cuda, h_kv):
+    from tpu_operator_torch.workloads.burnin import _packed_ids
+
+    seg = _packed_ids(8, 128, 2, "cuda")  # the packed train step: two 64-token documents
+    dq_plan, dkv_plan = _rect_pair_check(43, 8, 128, 4, 64, h_kv, True, None, seg)
+    assert (dq_plan.block, dkv_plan.block) == (64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", (100, 1000))
+def test_f32_general_pair_stays_on_the_cuda_cores(cuda, s):
+    for name, (causal, window, kind) in RECT_MASKS.items():
+        plans = _rect_pair_check(44, 2, s, 4, 64, 2, causal, window, _seg_ids(kind, 45, 2, s),
+                                 dtype=torch.float32)
+        assert [(p.block, p.swizzle) for p in plans] == [(64, 0), (64, 0)], name
+
+
+@pytest.mark.cuda
+def test_tensor_core_general_pair_rejects_a_misaligned_base(cuda):
+    seg = _seg_ids("docs", 0, 1, 128)
+    args = list(_bwd_inputs(46, 1, 128, 2, 64, torch.bfloat16, 2, causal=True, seg=seg))
+    for which in (0, 1, 2, 4):  # q, k, v, dout
+        moved = list(args)
+        flat = torch.empty(args[which].numel() + 1, dtype=torch.bfloat16, device="cuda")
+        moved[which] = flat[1:].view(args[which].shape).copy_(args[which])  # 2 bytes off
+        for fn in (flash_bwd.flash_bwd_dq_rect, flash_bwd.flash_bwd_dkv_rect):
+            before = fn.launches
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(*moved, True, None, seg)
+            assert fn.launches == before
 
 
 @pytest.mark.cuda

@@ -22,8 +22,10 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16 triangle pair (flash_bwd_{dq,dkv}_tri_kernel<__nv_bfloat16, D, WG>):
-// the tensor-core design, on the forward's machinery (hopper.cuh). At long
+// bf16 (flash_bwd_{dq,dkv}_{tri,rect}_kernel<__nv_bfloat16, D, WG>): the
+// tensor-core design, on the forward's machinery (hopper.cuh), one body per
+// kernel (dq_tc_body / dkv_tc_body<D, WG, TRI>) for the triangle and the
+// general masks. At long
 // context the pair is operations-bound (14 D FLOPs per live (q, k) pair over
 // O(S D) bytes), so every product runs on wgmma in bf16 with f32
 // accumulators, and the scores are the forward's: the raw bf16 q.k on the
@@ -57,9 +59,31 @@
 //       arrives on the stage's full barrier after its stores.
 // A warpgroup skips a tile it cannot see (past the diagonal, or all rows or
 // keys past s) and still releases the stage. 3-D tensor maps (D, s, rows)
-// zero-fill past s. The tile height (64 or 128), grid, shared-memory bytes
-// and swizzle come from the caller's plan (flash_bwd.py::tri_bwd_plan),
-// which this file checks against its own layout. Registers: a consumer of
+// zero-fill past s.
+// The general pair (rect) walks what its masks leave: full attention walks
+// every tile (dK/dV: of every group member) and launches in natural order,
+// as does a window band (dQ from key max(0, q0 - window + 1) to its
+// diagonal, dK/dV from its diagonal to row k_end - 1 + window); plain causal
+// walks and orders as the triangle does. Segment ids (B, s) cannot come by
+// TMA either (the same 16-byte stride rule): the producer warp stages the
+// ring tile's 64 ids and their min and max (warp reductions) beside the
+// tile, each staging lane arriving on the full barrier (dQ: lanes 1-31,
+// while lane 0 only issues TMA, so that no id load delays a tile; dK/dV:
+// every lane, the ids loaded beside lse and delta); each consumer holds its
+// own rows' (or keys') ids and its warpgroup's id range in registers. A
+// tile then takes one of three paths, as the reference's _dispatch_block
+// does: no live pair (both sides one document each, different ones: no
+// products, the stage still released), fast (inside the band's interior,
+// inside s, and both sides in the same single document), or masked (per
+// element: key < s for dQ, the causal/window band, equal ids). P and dS
+// come from one body instantiated with and without the element mask, so a
+// fast tile issues no mask instruction (a runtime test per element cost the
+// general pair about half its speed at 64-row tiles). Keys past s matter
+// only in dQ, where a zero-filled key would score exp2(-lse); rows past s
+// read lse = +inf, and keys past s are never written.
+// The tile height (64 or 128), grid, shared-memory bytes and swizzle come
+// from the caller's plan (flash_bwd.py::tri_bwd_plan, rect_bwd_plan), which
+// this file checks against its own layout. Registers: a consumer of
 // dK/dV at D = 128 holds dK and dV (64 + 64 f32), S^T and dP^T (32 + 32)
 // and the packed P^T/dS^T fragments (16 + 16). ptxas budgets a CTA of
 // 2 x 128 + 32 threads as one of 384, 168 registers a thread, and spilled
@@ -68,7 +92,7 @@
 // warpgroup (40 a thread) to the consumers (232). dQ (S, dP and dQ:
 // 32 + 32 + 64) fits beside a lone producer warp, as the forward does.
 //
-// f32 triangle and the general pair (dq_body / dkv_body<T, D, TRI>): one CTA
+// f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
 // row, 64-key tile) for dK/dV, on the CUDA cores; the TPU kernels' sequential
 // grid axis is a loop inside the CTA (up to the diagonal, the window band, or
@@ -76,9 +100,8 @@
 // memory as f32, the score is built as the CUDA-core forward builds it (q *
 // log2(e)/sqrt(d) in f32, then an f32 FMA chain over d), each thread owns a
 // 4 x 4 block of the score tile and a 4 x D/16 block of each accumulator, and
-// P and dS go through shared memory between the two. The f32 triangle stays
-// here because f32 must not round through TF32; the general pair is later
-// work.
+// P and dS go through shared memory between the two. f32 stays here because
+// it must not round through TF32.
 //
 // Bound on this card: at the burn-in shape (S 128, D 64) each launch moves
 // about 2 MB and runs a few tens of MFLOP, so by the roofline it is
@@ -90,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -125,14 +149,12 @@ struct Params {
   float scale;         // 1/sqrt(d)
 };
 
+// The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
+// conversions are identities; they keep the bodies' rounding points visible.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast rounds
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -464,7 +486,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_rect_kernel(Params p) 
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 triangle pair on the tensor cores: wgmma + TMA (see the note on top).
+// The bf16 pairs on the tensor cores: wgmma + TMA (see the note on top).
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;  // depth of the ring of 64-row tiles
@@ -472,20 +494,25 @@ constexpr int kStages = 2;  // depth of the ring of 64-row tiles
 // (2 x 128 x 232 + 128 x 40 <= 65,536)
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+// the general pair's staged segment ids: kStages x (the ring tile's 64 ids,
+// then their min and max), int32
+constexpr int kSegBytes = kStages * (kTile + 2) * 4;
 
-template <int D, int WG>
+template <int D, int WG, bool TRI>
 constexpr int dq_tc_smem_bytes() {
   // alignment slack, Q and dO tiles (64 WG rows), kStages K and V tiles
-  // (64 keys), full/empty/Q barriers
-  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 8 * (2 * kStages + 1);
+  // (64 keys), the keys' segment ids (general pair), full/empty/Q barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + (TRI ? 0 : kSegBytes) +
+         8 * (2 * kStages + 1);
 }
 
-template <int D, int WG>
+template <int D, int WG, bool TRI>
 constexpr int dkv_tc_smem_bytes() {
   // alignment slack, K and V tiles (64 WG keys), kStages Q and dO tiles
-  // (64 rows) with their rows' lse and delta (f32), full/empty/KV barriers
+  // (64 rows) with their rows' lse and delta (f32) and segment ids (general
+  // pair), full/empty/KV barriers
   return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 2 * kStages * kTile * 4 +
-         8 * (2 * kStages + 1);
+         (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
 }
 
 // acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
@@ -521,15 +548,39 @@ __device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 2], const uint
   }
 }
 
-// The bf16 triangle dQ on the tensor cores. blockIdx.x: (batch, head) row;
-// blockIdx.y: q tile of 64 WG rows, reversed so the heaviest tiles launch first.
-template <typename T, int D, int WG>
-__global__ void __launch_bounds__(WG * 128 + 32, 1)
-    flash_bwd_dq_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
-                            const __grid_constant__ CUtensorMap kmap,
-                            const __grid_constant__ CUtensorMap vmap,
-                            const __grid_constant__ CUtensorMap domap) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+// The min and max of the segment ids that the lanes of `mask` hold in lo
+// and hi, for every one of those lanes.
+__device__ __forceinline__ int2 warp_range(unsigned mask, int lo, int hi) {
+  return make_int2(__reduce_min_sync(mask, lo), __reduce_max_sync(mask, hi));
+}
+
+// The min and max segment id of the 64 positions from t0 that lie inside s
+// (INT_MAX and INT_MIN when none does), read by the n lanes of `mask`, lane
+// index idx (0 .. n - 1) taking positions idx, idx + n, ...; ids, when
+// given, receives all 64 ids (0 past s).
+__device__ __forceinline__ int2 id_range(const int* seg, int t0, int s, int idx, int n,
+                                         unsigned mask, int* ids) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int c = idx; c < kTile; c += n) {
+    const int pos = t0 + c;
+    const int id = pos < s ? seg[pos] : 0;
+    if (ids != nullptr) ids[c] = id;
+    if (pos < s) {
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+  }
+  return warp_range(mask, lo, hi);
+}
+
+// dQ on the tensor cores. blockIdx.x: (batch, head) row; blockIdx.y: q tile
+// of 64 WG rows, reversed under a plain causal mask so that the heaviest
+// tiles launch first (with a window or none, every tile walks about as far).
+// TRI: the triangle; else the general masks of Params.
+template <int D, int WG, bool TRI>
+__device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* qmap,
+                                           const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                           const CUtensorMap* domap) {
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr uint32_t kQBytes = BM * D * 2;
@@ -542,20 +593,33 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   unsigned char* do_s = q_s + kQBytes;
   unsigned char* k_s = do_s + kQBytes;            // stage st at k_s + st * kKVBytes
   unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  int* kid_s = reinterpret_cast<int*>(v_s + kStages * kKVBytes);  // general: [kStages][kTile]
+  int* krange_s = kid_s + kStages * kTile;                        // general: [kStages][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(kid_s)
+                                                   : reinterpret_cast<unsigned char*>(
+                                                         krange_s + 2 * kStages));
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
+  const bool causal = TRI || p.causal;
+  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const bool segments = !TRI && p.seg != nullptr;
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int n_tiles = (min(p.s, q0 + BM) + kTile - 1) / kTile;  // key 0 up to the diagonal
+  const int q0 = (causal && window == 0 ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  // the key tiles some row of the CTA can see: all of them, or up to the
+  // diagonal, from the window's first key on
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+  const int t_hi = ((causal ? min(p.s, q0 + BM) : p.s) + kTile - 1) / kTile;
+  const int n_tiles = t_hi - t_lo;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);
+      // the TMA bytes, then (segment ids) each id-staging lane's stores
+      mbar_init(&full[st], segments ? 1 + 31 : 1);
       mbar_init(&empty[st], WG * 4);
     }
     mbar_init(q_full, 1);
@@ -564,26 +628,41 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   __syncthreads();
 
   if (warp == WG * 4) {
-    // producer warp: Q and dO once, then K and V tile by tile through the ring
+    // producer warp: lane 0 loads Q and dO once, then K and V tile by tile
+    // through the ring; with segment ids, lanes 1-31 stage each tile's key
+    // ids and their range beside it, so that no id load delays a TMA
     if (lane == 0) {
       const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
       mbar_expect_tx(q_full, 2 * kQBytes);
 #pragma unroll
       for (int b = 0; b < G::kBoxes; ++b) {
-        tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
-        tma_load_3d(do_s + b * BM * G::kRowBytes, &domap, q_full, b * G::kCols, q0, bh);
+        tma_load_3d(q_s + b * BM * G::kRowBytes, qmap, q_full, b * G::kCols, q0, bh);
+        tma_load_3d(do_s + b * BM * G::kRowBytes, domap, q_full, b * G::kCols, q0, bh);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
+        const int k0 = (t_lo + t) * kTile;
         if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(k_s + st * kKVBytes + b * kTile * G::kRowBytes, &kmap, &full[st],
-                      b * G::kCols, t * kTile, kv_row);
-          tma_load_3d(v_s + st * kKVBytes + b * kTile * G::kRowBytes, &vmap, &full[st],
-                      b * G::kCols, t * kTile, kv_row);
+          tma_load_3d(k_s + st * kKVBytes + b * kTile * G::kRowBytes, kmap, &full[st],
+                      b * G::kCols, k0, kv_row);
+          tma_load_3d(v_s + st * kKVBytes + b * kTile * G::kRowBytes, vmap, &full[st],
+                      b * G::kCols, k0, kv_row);
         }
+      }
+    } else if (segments) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int2 range = id_range(seg, (t_lo + t) * kTile, p.s, lane - 1, 31, 0xfffffffeu,
+                                    kid_s + st * kTile);
+        if (lane == 1) {
+          krange_s[2 * st] = range.x;
+          krange_s[2 * st + 1] = range.y;
+        }
+        mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
       }
     }
     return;
@@ -596,7 +675,9 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   const int w0 = q0 + wg * 64;
   const int r0 = w0 + (warp % 4) * 16 + lane / 4;
   const float qscale = p.qscale, scale = p.scale;
+  const int win = window > 0 ? window : INT_MAX;
   float l2[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8; +inf keeps P = 0
+  int qid[2] = {0, 0};  // their segment ids
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
@@ -604,7 +685,11 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     const float lse = row < p.s ? p.lse[at] : -CUDART_INF_F;
     l2[h] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
     dl[h] = row < p.s ? p.delta[at] : 0.f;
+    if (segments && row < p.s) qid[h] = seg[row];
   }
+  // the segment ids of the warpgroup's rows: one id throughout when x == y
+  const int2 qrange =
+      segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
   float dq[D / 2], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
@@ -614,11 +699,31 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
-    const int k0 = t * kTile;
+    const int k0 = (t_lo + t) * kTile;
     mbar_wait(&full[st], (t / kStages) & 1);
-    if (w0 < p.s && k0 <= w0 + 63) {  // some key of the tile is at or before some row
+    // whether some key of the tile is at or before some row and inside the
+    // window, and whether some pair needs the element mask: a key after a
+    // row, outside the window or past s
+    bool sees = w0 < p.s;
+    bool masked = causal && k0 + kTile - 1 > w0;
+    if (causal) sees = sees && k0 <= w0 + 63;
+    if (window > 0) {
+      sees = sees && w0 - (k0 + kTile - 1) < window;
+      masked = masked || w0 + 63 - k0 >= window;
+    }
+    if (!TRI) masked = masked || k0 + kTile > p.s;
+    if (segments) {
+      // both sides one document each: the fast path when it is the same
+      // one, no live pair (and no products) when it is not
+      const int kmin = krange_s[2 * st], kmax = krange_s[2 * st + 1];
+      const bool uniform = qrange.x == qrange.y && kmin == kmax;
+      sees = sees && !(uniform && qrange.x != kmin);
+      masked = masked || !uniform;
+    }
+    if (sees) {
       const unsigned char* ks = k_s + st * kKVBytes;
       const unsigned char* vs = v_s + st * kKVBytes;
+      const int2* kid = reinterpret_cast<const int2*>(kid_s + st * kTile);
       wgmma_fence();
       mma_rows_by_rows<D>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
       mma_rows_by_rows<D>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
@@ -627,22 +732,43 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       hold(s);
       hold(dp);
 
-      const bool diagonal = k0 + kTile - 1 > w0;  // some key is after some row
       uint32_t dsa[4][4];
+      // dS from S and dP, with the element mask or (a fast tile) without:
+      // two instantiations, as the reference's _dispatch_block emits two
+      // branches, so that a fast tile issues no mask instruction
+      auto form_ds = [&](auto mask) {
+        constexpr bool kMask = decltype(mask)::value;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        float ds[4];
+        for (int j = 0; j < kTile / 8; ++j) {
+          int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
+          if (kMask && segments) kj = kid[4 * j + tq];
+          float ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = r0 + 8 * (e / 2);
-          const int key = k0 + 8 * j + 2 * tq + e % 2;
-          float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
-          if (diagonal && key > row) pe = 0.f;
-          ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * (e / 2);
+            const int key = k0 + 8 * j + 2 * tq + e % 2;
+            float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
+            if constexpr (kMask) {
+              bool live;
+              if constexpr (TRI) {
+                live = key <= row;
+              } else {
+                live = key < p.s && (!causal || (key <= row && row - key < win));
+                if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+              }
+              if (!live) pe = 0.f;
+            }
+            ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+          }
+          // the accumulator layout of dS is wgmma's register layout of A
+          dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
         }
-        // the accumulator layout of dS is wgmma's register layout of A
-        dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
-        dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+      };
+      if (masked) {
+        form_ds(std::true_type{});
+      } else {
+        form_ds(std::false_type{});
       }
 
       hold(dsa);
@@ -657,7 +783,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
   }
 
-  T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * D;
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + static_cast<size_t>(bh) * p.s * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
@@ -670,16 +796,13 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   }
 }
 
-// The bf16 triangle dK/dV on the tensor cores. blockIdx.x: kv row;
-// blockIdx.y: key tile of 64 WG keys, in order, so the first keys (the
-// longest walks) launch first.
-template <typename T, int D, int WG>
-__global__ void __launch_bounds__((WG + 1) * 128, 1)
-    flash_bwd_dkv_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
-                             const __grid_constant__ CUtensorMap kmap,
-                             const __grid_constant__ CUtensorMap vmap,
-                             const __grid_constant__ CUtensorMap domap) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+// dK/dV on the tensor cores. blockIdx.x: kv row; blockIdx.y: key tile of 64
+// WG keys, in order (under a causal mask the first keys, the longest walks,
+// launch first). TRI: the triangle; else the general masks of Params.
+template <int D, int WG, bool TRI>
+__device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* qmap,
+                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                            const CUtensorMap* domap) {
   using G = Geo<D>;
   constexpr int BN = 64 * WG;
   constexpr uint32_t kKVBytes = BN * D * 2;
@@ -694,25 +817,36 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
   unsigned char* do_s = q_s + kStages * kQBytes;   // likewise
   float* lse_s = reinterpret_cast<float*>(do_s + kStages * kQBytes);  // [kStages][kTile]
   float* dl_s = lse_s + kStages * kTile;                              // likewise
-  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + kStages * kTile);
+  int* qid_s = reinterpret_cast<int*>(dl_s + kStages * kTile);  // general: [kStages][kTile]
+  int* qrange_s = qid_s + kStages * kTile;                      // general: [kStages][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(qid_s)
+                                                   : reinterpret_cast<unsigned char*>(
+                                                         qrange_s + 2 * kStages));
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
 
+  const bool causal = TRI || p.causal;
+  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const bool segments = !TRI && p.seg != nullptr;
   const int kv_row = blockIdx.x;
   const int k0 = blockIdx.y * BN;
   const int group = p.heads / p.kv_heads;
   // the q head of group member m is q_row0 + m (flashattention.py q_index)
   const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
-  const int t0 = k0 / kTile;                               // the diagonal q tile
-  const int per_member = (p.s + kTile - 1) / kTile - t0;   // q tiles from it down
+  // the q tiles that can see some key of the CTA: all of them, or from the
+  // diagonal down, to the last row inside the window of the last key
+  const int t_lo = causal ? k0 / kTile : 0;
+  const int q_end = window > 0 ? min(p.s, min(k0 + BN, p.s) - 1 + window) : p.s;
+  const int per_member = (q_end + kTile - 1) / kTile - t_lo;
   const int n_steps = group * per_member;
+  const int* seg = segments ? p.seg + static_cast<size_t>(kv_row / p.kv_heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's lse/delta
+      mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's staged values
       mbar_init(&empty[st], WG * 4);
     }
     mbar_init(kv_full, 1);
@@ -724,51 +858,77 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
     // the producer warpgroup: at WG = 2 it hands registers to the consumers
     // (dK and dV at D = 128 need more than the 168 a thread of 384 gets);
     // its first warp loads K and V once, then per (member, q tile) Q and dO
-    // by TMA and the tile's lse (base 2; +inf past s) and delta by plain loads
+    // by TMA and the tile's lse (base 2; +inf past s), delta and segment
+    // ids by plain loads
     if constexpr (WG == 2) reg_dealloc<kProducerRegs>();
     if (warp == WG * 4) {
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(k_s + b * BN * G::kRowBytes, &kmap, kv_full, b * G::kCols, k0, kv_row);
-          tma_load_3d(v_s + b * BN * G::kRowBytes, &vmap, kv_full, b * G::kCols, k0, kv_row);
+          tma_load_3d(k_s + b * BN * G::kRowBytes, kmap, kv_full, b * G::kCols, k0, kv_row);
+          tma_load_3d(v_s + b * BN * G::kRowBytes, vmap, kv_full, b * G::kCols, k0, kv_row);
         }
       }
       for (int i = 0; i < n_steps; ++i) {
         const int st = i % kStages;
         const int q_row = q_row0 + i / per_member;
-        const int q0 = (t0 + i % per_member) * kTile;
+        const int q0 = (t_lo + i % per_member) * kTile;
         if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
         if (lane == 0) {
           mbar_expect_tx(&full[st], 2 * kQBytes);
 #pragma unroll
           for (int b = 0; b < G::kBoxes; ++b) {
-            tma_load_3d(q_s + st * kQBytes + b * kTile * G::kRowBytes, &qmap, &full[st],
+            tma_load_3d(q_s + st * kQBytes + b * kTile * G::kRowBytes, qmap, &full[st],
                         b * G::kCols, q0, q_row);
-            tma_load_3d(do_s + st * kQBytes + b * kTile * G::kRowBytes, &domap, &full[st],
+            tma_load_3d(do_s + st * kQBytes + b * kTile * G::kRowBytes, domap, &full[st],
                         b * G::kCols, q0, q_row);
           }
         }
+        int lo = INT_MAX, hi = INT_MIN;  // (segment ids) the rows' range inside s
         for (int c = lane; c < kTile; c += 32) {
           const int q = q0 + c;
           const size_t at = static_cast<size_t>(q_row) * p.s + q;
           const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
+          const int id = segments && q < p.s ? seg[q] : 0;  // loaded beside lse and delta
           lse_s[st * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
           dl_s[st * kTile + c] = q < p.s ? p.delta[at] : 0.f;
+          if (segments) {
+            qid_s[st * kTile + c] = id;
+            if (q < p.s) {
+              lo = min(lo, id);
+              hi = max(hi, id);
+            }
+          }
+        }
+        if (segments) {
+          const int2 range = warp_range(~0u, lo, hi);
+          if (lane == 0) {
+            qrange_s[2 * st] = range.x;
+            qrange_s[2 * st + 1] = range.y;
+          }
         }
         mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
       }
     }
   } else {
     if constexpr (WG == 2) reg_alloc<kConsumerRegs>();
-    // consumers: warpgroup wg owns keys w0 .. w0 + 63; this thread holds keys
-    // key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
+    // consumers: warpgroup wg owns keys w0 .. w0 + 63; this thread holds
+    // keys key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
     const int wg = warp / 4;
     const int tq = lane % 4;
     const int w0 = k0 + wg * 64;
     const int key = w0 + (warp % 4) * 16 + lane / 4;
     const float qscale = p.qscale, scale = p.scale;
+    const int win = window > 0 ? window : INT_MAX;
+    int kid[2] = {0, 0};  // the segment ids of keys key and key + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (segments && key + 8 * h < p.s) kid[h] = seg[key + 8 * h];
+    }
+    // the segment ids of the warpgroup's keys: one id throughout when x == y
+    const int2 krange =
+        segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
     float dk[D / 2], dv[D / 2], s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -778,13 +938,33 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
     mbar_wait(kv_full, 0);
     for (int i = 0; i < n_steps; ++i) {
       const int st = i % kStages;
-      const int q0 = (t0 + i % per_member) * kTile;
+      const int q0 = (t_lo + i % per_member) * kTile;
       mbar_wait(&full[st], (i / kStages) & 1);
-      if (w0 < p.s && q0 + kTile - 1 >= w0) {  // some row of the tile is at or after some key
+      // whether some row of the tile is at or after some key and inside the
+      // window, and whether some pair needs the element mask: a row before a
+      // key or outside the window (rows past s have P = 0 from their lse,
+      // and keys past s are never written)
+      bool sees = w0 < p.s;
+      bool masked = causal && q0 < w0 + 63;
+      if (causal) sees = sees && q0 + kTile - 1 >= w0;
+      if (window > 0) {
+        sees = sees && q0 - (w0 + 63) < window;
+        masked = masked || q0 + kTile - 1 - w0 >= window;
+      }
+      if (segments) {
+        // both sides one document each: the fast path when it is the same
+        // one, no live pair (and no products) when it is not
+        const int qmin = qrange_s[2 * st], qmax = qrange_s[2 * st + 1];
+        const bool uniform = krange.x == krange.y && qmin == qmax;
+        sees = sees && !(uniform && krange.x != qmin);
+        masked = masked || !uniform;
+      }
+      if (sees) {
         const unsigned char* qs = q_s + st * kQBytes;
         const unsigned char* dos = do_s + st * kQBytes;
         const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * kTile);
         const float2* dl = reinterpret_cast<const float2*>(dl_s + st * kTile);
+        const int2* qid = reinterpret_cast<const int2*>(qid_s + st * kTile);
         wgmma_fence();
         mma_rows_by_rows<D>(s, k_s, BN, wg * 64, qs);    // S^T = K.Q^T
         mma_rows_by_rows<D>(dp, v_s, BN, wg * 64, dos);  // dP^T = V.dO^T
@@ -793,26 +973,46 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
         hold(s);
         hold(dp);
 
-        const bool diagonal = q0 < w0 + 63;  // some row is before some key
         uint32_t pa[4][4], dsa[4][4];
+        // P^T and dS^T, with the element mask or (a fast tile) without, as in dQ
+        auto form_p_ds = [&](auto mask) {
+          constexpr bool kMask = decltype(mask)::value;
 #pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
-          const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
-          float pe[4], ds[4];
+          for (int j = 0; j < kTile / 8; ++j) {
+            const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
+            int2 qj = make_int2(0, 0);                              // and their segment ids
+            if (kMask && segments) qj = qid[4 * j + tq];
+            float pe[4], ds[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q = q0 + 8 * j + 2 * tq + e % 2;
-            const float lse2 = e % 2 ? lj.y : lj.x;
-            float v = exp2f(fmaf(s[4 * j + e], qscale, -lse2));
-            if (diagonal && q < key + 8 * (e / 2)) v = 0.f;
-            pe[e] = v;
-            ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+            for (int e = 0; e < 4; ++e) {
+              const int q = q0 + 8 * j + 2 * tq + e % 2;
+              const int kk = key + 8 * (e / 2);
+              const float lse2 = e % 2 ? lj.y : lj.x;
+              float v = exp2f(fmaf(s[4 * j + e], qscale, -lse2));
+              if constexpr (kMask) {
+                bool live;
+                if constexpr (TRI) {
+                  live = q >= kk;
+                } else {
+                  live = !causal || (q >= kk && q - kk < win);
+                  if (segments) live = live && (e % 2 ? qj.y : qj.x) == kid[e / 2];
+                }
+                if (!live) v = 0.f;
+              }
+              pe[e] = v;
+              ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+            }
+            // the accumulator layout of P^T and dS^T is wgmma's register layout of A
+            pa[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
+            pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
+            dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+            dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
           }
-          // the accumulator layout of P^T and dS^T is wgmma's register layout of A
-          pa[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
-          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
-          dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
-          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+        };
+        if (masked) {
+          form_p_ds(std::true_type{});
+        } else {
+          form_p_ds(std::false_type{});
         }
 
         hold(pa);
@@ -837,8 +1037,8 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
       const int kj = key + 8 * h;
       if (kj >= p.s) continue;
       const size_t at = kvoff + static_cast<size_t>(kj) * D;
-      __nv_bfloat162* dkr = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(p.dk) + at);
-      __nv_bfloat162* dvr = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(p.dv) + at);
+      auto* dkr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + at);
+      auto* dvr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + at);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         dkr[4 * j + tq] = __floats2bfloat162_rn(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
@@ -848,15 +1048,51 @@ __global__ void __launch_bounds__((WG + 1) * 128, 1)
   }
 }
 
+// The four tensor-core kernels: T is bf16; D the head dim; WG the consumer
+// warpgroups, 64 rows (dQ) or keys (dK/dV) each.
+#define TC_MAPS                                                                       \
+  const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap, \
+      const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap
+
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_tri_kernel(Params p, TC_MAPS) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  dq_tc_body<D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_rect_kernel(Params p, TC_MAPS) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  dq_tc_body<D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__((WG + 1) * 128, 1) flash_bwd_dkv_tri_kernel(Params p, TC_MAPS) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  dkv_tc_body<D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__((WG + 1) * 128, 1) flash_bwd_dkv_rect_kernel(Params p, TC_MAPS) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
+  dkv_tc_body<D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+}
+
+#undef TC_MAPS
+
 enum Kind { kDqTri, kDqRect, kDkvTri, kDkvRect };
+
+constexpr bool is_dq(Kind k) { return k == kDqTri || k == kDqRect; }
+constexpr bool is_tri(Kind k) { return k == kDqTri || k == kDkvTri; }
 
 // rows: the grid's row count, bh for dQ and bh_kv for dK/dV.
 template <int D, int WG, Kind K>
 int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
-  constexpr bool kDq = K == kDqTri;
+  constexpr bool kDq = is_dq(K), kTri = is_tri(K);
   constexpr int B = 64 * WG;  // the CTA's own side: q rows (dQ) or keys (dK/dV)
   const int tiles = (p.s + B - 1) / B;
-  if (smem != (kDq ? dq_tc_smem_bytes<D, WG>() : dkv_tc_smem_bytes<D, WG>()) || tiles > 65535) {
+  if (smem != (kDq ? dq_tc_smem_bytes<D, WG, kTri>() : dkv_tc_smem_bytes<D, WG, kTri>()) ||
+      tiles > 65535) {
     return kUnsupported;
   }
   const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
@@ -870,10 +1106,14 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
     return kNoTensorMap;
   }
   void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
-  if constexpr (kDq) {
+  if constexpr (K == kDqTri) {
     kernel = flash_bwd_dq_tri_kernel<__nv_bfloat16, D, WG>;
-  } else {
+  } else if constexpr (K == kDqRect) {
+    kernel = flash_bwd_dq_rect_kernel<__nv_bfloat16, D, WG>;
+  } else if constexpr (K == kDkvTri) {
     kernel = flash_bwd_dkv_tri_kernel<__nv_bfloat16, D, WG>;
+  } else {
+    kernel = flash_bwd_dkv_rect_kernel<__nv_bfloat16, D, WG>;
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -895,7 +1135,6 @@ int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cud
 template <typename T, int D, Kind K>
 int launch(const Params& p, int rows, cudaStream_t stream) {
   void (*kernel)(Params);
-  size_t smem;
   if constexpr (K == kDqTri) {
     kernel = flash_bwd_dq_tri_kernel<T, D>;
   } else if constexpr (K == kDqRect) {
@@ -905,11 +1144,7 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
   } else {
     kernel = flash_bwd_dkv_rect_kernel<T, D>;
   }
-  if constexpr (K == kDqTri || K == kDqRect) {
-    smem = dq_smem_bytes(D);
-  } else {
-    smem = dkv_smem_bytes(D);
-  }
+  const size_t smem = is_dq(K) ? dq_smem_bytes(D) : dkv_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -934,11 +1169,11 @@ bool valid(const Params& p, int rows) {
          p.heads % p.kv_heads == 0;
 }
 
-// The triangle pair: bf16 on the tensor cores with the caller's plan, f32
-// on the CUDA cores, whose plan is fixed (64, its shared memory, no swizzle).
+// bf16 on the tensor cores with the caller's plan; f32 on the CUDA cores,
+// whose plan is fixed (64, its shared memory, no swizzle).
 template <Kind K>
-int dispatch_tri(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
-                 void* stream) {
+int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
+             void* stream) {
   if (!valid(p, rows)) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -950,21 +1185,16 @@ int dispatch_tri(const Params& p, int dtype, int rows, int d, int block, int sme
       default: return kUnsupported;
     }
   }
-  const size_t fixed = K == kDqTri ? dq_smem_bytes(d) : dkv_smem_bytes(d);
+  const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
   if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed)) {
     return kUnsupported;
   }
   return dispatch_dim<float, K>(p, rows, d, st);
 }
 
-template <Kind K>
-int dispatch_rect(const Params& p, int dtype, int rows, int d, void* stream) {
-  if (!valid(p, rows)) return kUnsupported;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dim<float, K>(p, rows, d, st);
-  if (dtype == 1) return dispatch_dim<__nv_bfloat16, K>(p, rows, d, st);
-  return kUnsupported;
-}
+// A window is a band of causal attention only, and one of s or more keys
+// is no band at all: both become 0 (none), as the launch plan reads them.
+int band(int causal, int window, int s) { return causal && window > 0 && window < s ? window : 0; }
 
 }  // namespace
 
@@ -972,15 +1202,15 @@ int dispatch_rect(const Params& p, int dtype, int rows, int d, void* stream) {
 // CUDA error code when the launch was refused, -1 for a shape, dtype, plan or
 // alignment these kernels do not take, -2 when no TMA tensor map could be
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
-// and swizzle (bytes) of the triangle pair are the caller's launch plan
-// (flash_bwd.py::tri_bwd_plan).
+// and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
+// tri_bwd_plan and rect_bwd_plan).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,
                                 int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr,
            s, heads, kv_heads, 1, 0, qscale, scale};
-  return dispatch_tri<kDqTri>(p, dtype, bh, d, block, smem, swizzle, stream);
+  return dispatch<kDqTri>(p, dtype, bh, d, block, smem, swizzle, stream);
 }
 
 extern "C" int flash_bwd_dkv_tri(const void* q, const void* k, const void* v, const void* dout,
@@ -990,25 +1220,25 @@ extern "C" int flash_bwd_dkv_tri(const void* q, const void* k, const void* v, co
                                  void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
            s, heads, kv_heads, 1, 0, qscale, scale};
-  return dispatch_tri<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
+  return dispatch<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }
 
 extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, const int* seg, void* dq,
                                  int dtype, int bh, int s, int d, int heads, int kv_heads,
-                                 int causal, int window, float qscale, float scale,
-                                 void* stream) {
+                                 int causal, int window, float qscale, float scale, int block,
+                                 int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr,
-           s, heads, kv_heads, causal, window, qscale, scale};
-  return dispatch_rect<kDqRect>(p, dtype, bh, d, stream);
+           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale};
+  return dispatch<kDqRect>(p, dtype, bh, d, block, smem, swizzle, stream);
 }
 
 extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, const void* dout,
                                   const float* lse, const float* delta, const int* seg, void* dk,
                                   void* dv, int dtype, int bh_kv, int s, int d, int heads,
                                   int kv_heads, int causal, int window, float qscale, float scale,
-                                  void* stream) {
+                                  int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
-           s, heads, kv_heads, causal, window, qscale, scale};
-  return dispatch_rect<kDkvRect>(p, dtype, bh_kv, d, stream);
+           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale};
+  return dispatch<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }

@@ -11,9 +11,9 @@ The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_bwd_plain`, which
 computes all three gradients from ``out``; each wrapper returns its part.
 Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
-The bf16 triangle pair runs on the tensor cores (wgmma, TMA: q, k, v and
-dO need 16-byte-aligned bases) with the launch plan of
-:func:`tri_bwd_plan`.
+In bf16 both pairs run on the tensor cores (wgmma, TMA: q, k, v and dO
+need 16-byte-aligned bases) with the launch plans of :func:`tri_bwd_plan`
+and :func:`rect_bwd_plan`; f32 runs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -40,7 +40,10 @@ from tpu_operator_torch.kernels.flash_fwd import (
 )
 
 TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTile)
-TRI_BWD_STAGES = 2  # ring depth of the bf16 pair (kStages in flash_bwd.cu)
+TRI_BWD_STAGES = 2  # ring depth of the bf16 pairs (kStages in flash_bwd.cu)
+# the bf16 general pair's staged segment ids: per stage 64 int32 and their
+# min and max (kSegBytes in flash_bwd.cu)
+SEG_BYTES = TRI_BWD_STAGES * (TILE + 2) * 4
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -83,12 +86,14 @@ def attention_bwd_plain(qb, kb, vb, out, lse, dout, heads: int, kv_heads: int, c
 
 
 @dataclasses.dataclass(frozen=True)
-class TriBwdPlan:
-    """Launch plan of one kernel of the triangle backward pair: ``kernel``
-    is "dq" or "dkv"; a CTA owns ``block`` q rows (dq) or keys (dkv) of one
-    (batch, head) or kv row, with ``threads`` per CTA, ``grid`` (x, y),
-    dynamic shared memory in bytes and the TMA/wgmma swizzle span in bytes
-    (0: the f32 CUDA-core kernel, which uses no TMA)."""
+class BwdPlan:
+    """Launch plan of one kernel of a backward pair: ``kernel`` is "dq" or
+    "dkv"; a CTA owns ``block`` q rows (dq) or keys (dkv) of one (batch,
+    head) or kv row, with ``threads`` per CTA, ``grid`` (x, y), dynamic
+    shared memory in bytes and the TMA/wgmma swizzle span in bytes (0: the
+    f32 CUDA-core kernel, which uses no TMA). ``causal`` and ``window``
+    (None: no band) are the masks the walk follows; the triangle pair's
+    plan is causal with no window."""
 
     kernel: str
     block: int
@@ -96,36 +101,91 @@ class TriBwdPlan:
     grid: Tuple[int, int]
     smem_bytes: int
     swizzle: int
+    causal: bool = True
+    window: Optional[int] = None
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (row, tile) that block (x, y) computes, as the kernel maps
-        it: bf16 dq walks its q tiles heaviest (last) first, bf16 dkv its
-        key tiles in order (the first keys see the most rows)."""
+        it: bf16 dq walks its q tiles heaviest (last) first under a plain
+        causal mask and in order otherwise (every tile walks about as far),
+        bf16 dkv its key tiles in order (under a causal mask the first keys
+        see the most rows)."""
         if not self.swizzle:
             return y, x
-        return (x, self.grid[1] - 1 - y) if self.kernel == "dq" else (x, y)
+        heaviest_last = self.kernel == "dq" and self.causal and self.window is None
+        return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
+
+    def sees(self, q: int, k: int) -> bool:
+        """Whether some key of 64-key tile k is inside the masks' band for
+        some row of 64-row q tile q (both tiles inside s)."""
+        if not self.causal:
+            return True
+        q0, k0 = q * TILE, k * TILE
+        return k0 <= q0 + TILE - 1 and (self.window is None or q0 - (k0 + TILE - 1) < self.window)
+
+    def walk(self, first: int, s: int) -> range:
+        """The 64-row tiles of the ring's side (dq: keys, dkv: q rows) that
+        the CTA whose own side starts at 64-row tile ``first`` walks."""
+        tiles = -(-s // TILE)
+        start = first * TILE
+        if self.kernel == "dq":
+            hi = min(s, start + self.block) if self.causal else s
+            lo = max(0, start - self.window + 1) if self.window is not None else 0
+            return range(lo // TILE, -(-hi // TILE))
+        if self.window is None:
+            return range(first if self.causal else 0, tiles)
+        return range(first, -(-min(s, min(start + self.block, s) - 1 + self.window) // TILE))
 
     def visits(self, x: int, y: int, s: int, group: int) -> List[Tuple[int, int, int]]:
         """The (GQA member, 64-row q tile, 64-key tile) products block
         (x, y) computes for s tokens, in the kernel's order: a 64-row (or
-        64-key) slice of the CTA skips a tile it cannot see (past the
-        diagonal, or all its rows or keys past s). dq has one member, 0."""
+        64-key) slice of the CTA skips a tile it cannot see (outside the
+        band, or all its rows or keys past s). dq has one member, 0.
+        Segment ids can skip more tiles."""
         tiles = -(-s // TILE)
         first = self.cta(x, y)[1] * self.block // TILE
-        slices = range(first, first + self.block // TILE)
+        slices = [t for t in range(first, first + self.block // TILE) if t < tiles]
         out = []
-        if self.kernel == "dq":  # keys from 0 to the CTA's diagonal
-            for k in range(min(tiles, slices.stop)):
-                out += [(0, q, k) for q in slices if q < tiles and k <= q]
+        if self.kernel == "dq":
+            for k in self.walk(first, s):
+                out += [(0, q, k) for q in slices if self.sees(q, k)]
             return out
-        for m in range(group):  # rows from the CTA's diagonal down
-            for q in range(first, tiles):
-                out += [(m, q, k) for k in slices if k < tiles and k <= q]
+        for m in range(group):
+            for q in self.walk(first, s):
+                out += [(m, q, k) for k in slices if self.sees(q, k)]
         return out
 
 
+def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
+               causal: bool, window: Optional[int], ids: int) -> Tuple[BwdPlan, BwdPlan]:
+    """The (dq, dkv) plans of either pair; ``ids``: bytes of the general
+    pair's staged segment ids (0 for the triangle)."""
+    if dtype == torch.float32:
+        tiles = -(-s // TILE)
+        dq = BwdPlan("dq", TILE, 256, (tiles, bh),
+                     4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0, causal, window)
+        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
+                      4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0,
+                      causal, window)
+        return dq, dkv
+
+    def plan(kernel: str, rows: int) -> BwdPlan:
+        block = 128 if rows * -(-s // 128) >= sms else 64
+        smem = (1024 + (2 * block + 2 * TRI_BWD_STAGES * TILE) * d * 2 + ids
+                + 8 * (2 * TRI_BWD_STAGES + 1))
+        if kernel == "dkv":
+            smem += 2 * TRI_BWD_STAGES * TILE * 4
+        # consumer warpgroups of 64 rows, and the producer: one warp for dq,
+        # a whole warpgroup for dkv (setmaxnreg hands its registers over)
+        threads = 2 * block + (32 if kernel == "dq" else 128)
+        return BwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64),
+                       causal, window)
+
+    return plan("dq", bh), plan("dkv", bh_kv)
+
+
 def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
-                 sms: int) -> Tuple[TriBwdPlan, TriBwdPlan]:
+                 sms: int) -> Tuple[BwdPlan, BwdPlan]:
     """How ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri`` launch for bh q
     rows, bh_kv kv rows, s tokens and head dim d: (dq plan, dkv plan).
 
@@ -142,25 +202,26 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     64 B at d 32, 128 B at d 64 and 128). f32 keeps the CUDA-core kernels'
     fixed plans. The kernels check the plan against their own layout and
     refuse one that differs."""
-    if dtype == torch.float32:
-        tiles = -(-s // TILE)
-        dq = TriBwdPlan("dq", TILE, 256, (tiles, bh),
-                        4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0)
-        dkv = TriBwdPlan("dkv", TILE, 256, (tiles, bh_kv),
-                         4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0)
-        return dq, dkv
+    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, 0)
 
-    def plan(kernel: str, rows: int) -> TriBwdPlan:
-        block = 128 if rows * -(-s // 128) >= sms else 64
-        smem = 1024 + (2 * block + 2 * TRI_BWD_STAGES * TILE) * d * 2 + 8 * (2 * TRI_BWD_STAGES + 1)
-        if kernel == "dkv":
-            smem += 2 * TRI_BWD_STAGES * TILE * 4
-        # consumer warpgroups of 64 rows, and the producer: one warp for dq,
-        # a whole warpgroup for dkv (setmaxnreg hands its registers over)
-        threads = 2 * block + (32 if kernel == "dq" else 128)
-        return TriBwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64))
 
-    return plan("dq", bh), plan("dkv", bh_kv)
+def band(causal: bool, window: Optional[int], s: int) -> Optional[int]:
+    """The window as the kernels read it: a band of causal attention only,
+    and one of s or more keys is no band at all (None)."""
+    return window if causal and window is not None and 0 < window < s else None
+
+
+def rect_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
+                  causal: bool, window: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
+    """How ``flash_bwd_dq_rect`` and ``flash_bwd_dkv_rect`` launch: the
+    triangle pair's tile heights, threads, grids and swizzle
+    (:func:`tri_bwd_plan`), and shared memory for the ring tiles' segment
+    ids besides (``TRI_BWD_STAGES`` x 64 int32 and each stage's min and
+    max id), whether or not the call has ids. The walks follow the masks:
+    full attention walks every tile, a window (:func:`band`) its band, plain
+    causal the triangle; only plain-causal dq launches heaviest first."""
+    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, causal, band(causal, window, s),
+                      SEG_BYTES)
 
 
 def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None) -> None:
@@ -186,10 +247,12 @@ def _lib() -> ctypes.CDLL:
     tensors = [ptr] * 6  # q, k, v, dout, lse, delta
     shape = [i32] * 6    # dtype, rows, s, d, heads, kv_heads
     plan = [i32] * 3     # block, smem bytes, swizzle
-    lib.flash_bwd_dq_tri.argtypes = tensors + [ptr] + shape + [f32, f32] + plan + [ptr]
-    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + [f32, f32] + plan + [ptr]
-    lib.flash_bwd_dq_rect.argtypes = tensors + [ptr, ptr] + shape + [i32, i32, f32, f32, ptr]
-    lib.flash_bwd_dkv_rect.argtypes = tensors + [ptr, ptr, ptr] + shape + [i32, i32, f32, f32, ptr]
+    masks = [i32, i32]   # causal, window
+    scales = [f32, f32]  # qscale, scale
+    lib.flash_bwd_dq_tri.argtypes = tensors + [ptr] + shape + scales + plan + [ptr]
+    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + scales + plan + [ptr]
+    lib.flash_bwd_dq_rect.argtypes = tensors + [ptr, ptr] + shape + masks + scales + plan + [ptr]
+    lib.flash_bwd_dkv_rect.argtypes = tensors + [ptr] * 3 + shape + masks + scales + plan + [ptr]
     for fn in (lib.flash_bwd_dq_tri, lib.flash_bwd_dkv_tri, lib.flash_bwd_dq_rect,
                lib.flash_bwd_dkv_rect):
         fn.restype = i32
@@ -197,43 +260,47 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: int,
-            kv_heads: int, extra=(), plan: Optional[TriBwdPlan] = None) -> None:
-    """Launch ``name`` on the current stream; ``extra`` sits between the
-    shape arguments and the two scales (the rect kernels' causal/window),
-    the triangle kernels' ``plan`` after the scales."""
+            kv_heads: int, plan: BwdPlan, extra=()) -> None:
+    """Launch ``name`` with ``plan`` on the current stream; ``extra`` sits
+    between the shape arguments and the two scales (the rect kernels'
+    causal/window)."""
     _, s, d = qb.shape
-    planned = () if plan is None else (plan.block, plan.smem_bytes, plan.swizzle)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(_lib(), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
-            *extra, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), *planned, stream,
+            *extra, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), plan.block, plan.smem_bytes,
+            plan.swizzle, stream,
         )
     _raise_on(code, name)
 
 
-def _tri_plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int):
-    """Checks of the triangle pair's inputs (bf16: TMA's 16-byte bases) and
-    its (dq, dkv) launch plans on this card."""
-    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None):
+    """Checks of a pair's inputs (bf16: TMA's 16-byte bases) and its (dq,
+    dkv) launch plans on this card: the triangle pair's, or with ``rect``
+    = (causal, window, seg) the general pair's."""
+    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
     if qb.dtype == torch.bfloat16:
         for name, t in (("q", qb), ("k", kb), ("v", vb), ("dout", dout)):
             if t.data_ptr() % TMA_ALIGN:
                 raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
                                  f"got address {t.data_ptr():#x}")
     bh, s, d = qb.shape
-    return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, _sm_count(qb.device.index))
+    sms = _sm_count(qb.device.index)
+    if rect is None:
+        return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms)
+    return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1])
 
 
 def flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int):
     """Plain-causal dQ: the port of ``_flash_dq_tri_kernel``."""
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[0]
-    plan, _ = _tri_plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+    plan, _ = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_tri", qb, kb, vb, dout, lse, delta, (dq.data_ptr(),),
-            qb.shape[0], heads, kv_heads, plan=plan)
+            qb.shape[0], heads, kv_heads, plan)
     flash_bwd_dq_tri.launches += 1
     return dq
 
@@ -243,10 +310,10 @@ def flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     ``_flash_dkv_tri_kernel``."""
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[1:]
-    _, plan = _tri_plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
+    _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_tri", qb, kb, vb, dout, lse, delta, (dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads, plan=plan)
+            kb.shape[0], heads, kv_heads, plan)
     flash_bwd_dkv_tri.launches += 1
     return dk, dv
 
@@ -259,11 +326,11 @@ def flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, causal,
                                    window, seg)[0]
-    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, seg)
+    plan, _ = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, (causal, window, seg))
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dq.data_ptr()), qb.shape[0], heads,
-            kv_heads, (int(causal), 0 if window is None else int(window)))
+            kv_heads, plan, (int(causal), 0 if window is None else int(window)))
     flash_bwd_dq_rect.launches += 1
     return dq
 
@@ -276,11 +343,11 @@ def flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: 
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, causal,
                                    window, seg)[1:]
-    _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, seg)
+    _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, (causal, window, seg))
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads, (int(causal), 0 if window is None else int(window)))
+            kb.shape[0], heads, kv_heads, plan, (int(causal), 0 if window is None else int(window)))
     flash_bwd_dkv_rect.launches += 1
     return dk, dv
 
