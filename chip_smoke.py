@@ -13,9 +13,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    one ``nvcc`` each, started together; prints each library's ptxas
    report (registers, spills) and, from ``cuobjdump --dump-sass``, the
    ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
-   the triangle forward (8) and of both backward pairs (32), failing when
-   one has none, spills registers, or ptxas serialized its ``wgmma`` or
-   ignored its ``setmaxnreg``;
+   both forward kernels (16: the triangle's 8 and the general kernel's 8)
+   and of both backward pairs (32), failing when one has none, spills
+   registers, or ptxas serialized its ``wgmma`` or ignored its
+   ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -26,10 +27,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    the same work as a yardstick the port never calls
    (``F.scaled_dot_product_attention``; for the backward pairs its
    backward, timed as fwd+bwd less fwd; ``torch.add`` for the triad), and
-   the least time the card could take (bytes or FLOPs at peak); for the
-   triangle forward and both backward pairs also TFLOP/s (live pairs) and
+   the least time the card could take (bytes or FLOPs at peak); for both
+   forward kernels and both backward pairs also TFLOP/s (live pairs) and
    the ratio to SDPA, and for their bf16 rows the time at the tile height
-   the launch plan did not pick; then the validator payload
+   the launch plan did not pick; the general forward also at the packed
+   train step's and the validator's packed shapes, a ring hop and a
+   chunked prefill (global offsets, sq != sk); then the validator payload
    ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -208,11 +211,23 @@ def hgmma_counts(sass: str) -> dict:
     return counts
 
 
+def fwd_bf16_label(mangled: str):
+    """A label for a bf16 tensor-core instantiation of a forward kernel:
+    ``d<D>_wg<WG>`` for the triangle (``flash_fwd_tri_kernel<__nv_bfloat16,
+    D, WG>``), ``rect_d<D>_wg<WG>`` for the general kernel
+    (``flash_fwd_rect_kernel<...>``); else None."""
+    found = re.search(r"flash_fwd_(tri|rect)_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
+    if not found:
+        return None
+    kind, d, wg = found.groups()
+    return f"{'rect_' if kind == 'rect' else ''}d{d}_wg{wg}"
+
+
 def tri_bf16_label(mangled: str):
     """``d<D>_wg<WG>`` for a bf16 instantiation of the triangle forward
     (``flash_fwd_tri_kernel<__nv_bfloat16, D, WG>``), else None."""
-    found = re.search(r"flash_fwd_tri_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
-    return f"d{found.group(1)}_wg{found.group(2)}" if found else None
+    label = fwd_bf16_label(mangled)
+    return None if label is None or label.startswith("rect_") else label
 
 
 def tri_bwd_bf16_label(mangled: str):
@@ -231,7 +246,7 @@ def tri_bwd_bf16_label(mangled: str):
 
 # library: (label of a tensor-core instantiation, how many it must have)
 TENSOR_CORE_KERNELS = {
-    "flash_fwd": (tri_bf16_label, 8),       # d 16/32/64/128 x 1/2 warpgroups
+    "flash_fwd": (fwd_bf16_label, 16),      # both kernels: d 16/32/64/128 x 1/2 warpgroups
     "flash_bwd": (tri_bwd_bf16_label, 32),  # dq and dkv of both pairs, the same 8 each
 }
 
@@ -328,7 +343,7 @@ def _bound(case, live_pairs: int, d: int) -> tuple:
     sk, h_kv = case.get("sk", sq), case.get("h_kv", h)
     item = torch.tensor([], dtype=case["dtype"]).element_size()
     nbytes = item * (2 * b * h * sq * d + 2 * b * h_kv * sk * d) + 4 * b * h * sq
-    if case.get("cut") is not None:
+    if case.get("cut") is not None or case.get("packed"):
         nbytes += 4 * b * sk
     flops = 4.0 * d * live_pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -336,11 +351,12 @@ def _bound(case, live_pairs: int, d: int) -> tuple:
     return (t_flops, "operations") if t_flops >= t_bytes else (t_bytes, "bytes")
 
 
-def _sdpa_kwargs(case, seg, tri: bool) -> dict:
+def _sdpa_kwargs(case, seg, tri: bool, device="cuda") -> dict:
     """Arguments of F.scaled_dot_product_attention for the case's masking:
     is_causal for the triangle's work (the triangle, or plain causal
-    attention with no window, segment ids or offsets), no mask for full
-    attention without segment ids (an explicit mask, all-true or causal,
+    attention with no window, segment ids or offsets), no mask where every
+    pair is live (full attention without segment ids, or a ring hop whose
+    keys all lie before its rows: an explicit mask, all-true or causal,
     would send SDPA to a slower masked backend), else the kernels'
     keep_mask."""
     from tpu_operator_torch.kernels.flash_fwd import keep_mask
@@ -355,7 +371,9 @@ def _sdpa_kwargs(case, seg, tri: bool) -> dict:
     if plain:
         return kwargs
     mask = keep_mask(b * h, sq, sk, h, case["causal"], case.get("q_start", 0),
-                     case.get("k_start", 0), case.get("window"), seg, "cuda")
+                     case.get("k_start", 0), case.get("window"), seg, device)
+    if bool(mask.all()):
+        return kwargs
     mask = mask.reshape(b, -1, sq, sk) if mask.shape[0] > 1 else mask.reshape(1, 1, sq, sk)
     return dict(kwargs, attn_mask=mask)
 
@@ -433,6 +451,13 @@ KERNEL_CASES = [
          q=(1, 8, 2, 16), sk=64, dtype=torch.float32, causal=True, q_start=qs, main=qs == 16)
     for qs in (0, 8, 16, 56)
 ] + [
+    # bf16 on the tensor cores: the packed train step (main path), the
+    # validator's packed check, then the general masks at (1,512,4,128)
+    dict(kernel="flash_fwd_rect", label="burnin packed bf16 (8,128,4,64) 2 segments",
+         q=(8, 128, 4, 64), dtype=torch.bfloat16, causal=True, packed=2, main=True),
+    dict(kernel="flash_fwd_rect", label="validator packed bf16 (1,512,2,128) cut 320",
+         q=(1, 512, 2, 128), dtype=torch.bfloat16, causal=True, cut=320),
+] + [
     dict(kernel="flash_fwd_rect", label=f"bf16 (1,512,4,128) {name}", q=(1, 512, 4, 128),
          dtype=torch.bfloat16, **extra)
     for name, extra in (
@@ -442,6 +467,16 @@ KERNEL_CASES = [
         ("gqa h_kv 2", dict(causal=True, h_kv=2)),
         ("fully masked rows (k_start 256)", dict(causal=True, k_start=256)),
     )
+] + [
+    # long context (operations-bound); a ring hop (q_start = k_start + S:
+    # every key lies before every row, so every tile is fast); a chunked
+    # prefill (sq != sk, the causal edge on the last key tile)
+    dict(kernel="flash_fwd_rect", label="timing bf16 (1,4096,8,128) full", q=(1, 4096, 8, 128),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_rect", label="ring hop bf16 (1,512,4,128) q_start 512",
+         q=(1, 512, 4, 128), dtype=torch.bfloat16, causal=True, q_start=512),
+    dict(kernel="flash_fwd_rect", label="chunked prefill bf16 q(1,128,4,128) kv 1024 q_start 896",
+         q=(1, 128, 4, 128), sk=1024, dtype=torch.bfloat16, causal=True, q_start=896),
 ]
 
 
@@ -681,33 +716,56 @@ def _triad_rows(gen) -> list:
     return rows
 
 
-def _other_tile_height(q, k, v, h: int, h_kv: int, want, inner: int) -> dict:
-    """The bf16 triangle launched with the q-tile height its plan did not
-    pick (a plan for a card with 1 SM takes 128 rows, one with very many
-    takes 64), straight through the library (no launch is counted), held
-    to the same tolerance, and timed: what the plan's choice is worth."""
+def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want_lse,
+                       inner: int) -> dict:
+    """A bf16 forward kernel (``case["kernel"]``; the general one with the
+    ``masks`` of attention_plain) launched with the q-tile height its plan
+    did not pick (a plan for a card with 1 SM takes 128 rows, one with very
+    many takes 64), straight through the library (no launch is counted),
+    held to the same tolerances, and timed: what the plan's choice is
+    worth."""
     from tpu_operator_torch.kernels import flash_fwd
 
-    bh, s, d = q.shape
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    picked = flash_fwd.tri_plan(q.dtype, bh, s, d, sms).block_m
-    plan = flash_fwd.tri_plan(q.dtype, bh, s, d, sms=1 if picked == 64 else 10**9)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    tri = case["kernel"] == "flash_fwd_tri"
+
+    def plan_for(sms):
+        if tri:
+            return flash_fwd.tri_plan(q.dtype, bh, sq, d, sms)
+        return flash_fwd.rect_plan(q.dtype, bh, sq, sk, d, sms, masks["causal"],
+                                   masks["window"], masks["q_start"], masks["k_start"])
+
+    picked = plan_for(torch.cuda.get_device_properties(0).multi_processor_count).block_m
+    plan = plan_for(1 if picked == 64 else 10**9)
     out = torch.empty_like(q)
-    lse = torch.empty((bh, s), dtype=torch.float32, device="cuda")
+    lse = torch.empty((bh, sq), dtype=torch.float32, device="cuda")
+    lib = flash_fwd._lib()
+    qscale = flash_fwd.LOG2E / math.sqrt(d)
+    seg = None if tri or masks["seg"] is None else masks["seg"].data_ptr()
 
     def run():
-        code = flash_fwd._lib().flash_fwd_tri(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, bh, s, d,
-            h, h_kv, flash_fwd.LOG2E / math.sqrt(d), plan.block_m,
-            plan.smem_bytes, plan.swizzle, torch.cuda.current_stream().cuda_stream)
+        # on the current stream, which a graph capture switches
+        stream = torch.cuda.current_stream().cuda_stream
+        if tri:
+            code = lib.flash_fwd_tri(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     lse.data_ptr(), 1, bh, sq, d, h, h_kv, qscale, plan.block_m,
+                                     plan.smem_bytes, plan.swizzle, stream)
+        else:
+            code = lib.flash_fwd_rect(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, out.data_ptr(), lse.data_ptr(), 1,
+                bh, sq, sk, d, h, h_kv, int(masks["causal"]), masks["q_start"],
+                masks["k_start"], masks["window"] or 0, qscale, plan.block_m, plan.smem_bytes,
+                plan.swizzle, stream)
         if code != 0:
-            raise RuntimeError(f"flash_fwd_tri at block_m {plan.block_m}: error {code}")
+            raise RuntimeError(f"{case['kernel']} at block_m {plan.block_m}: error {code}")
 
     run()
     torch.cuda.synchronize()
-    o_err = err(out, want)
-    if not o_err <= BF16_TOL:
-        raise RuntimeError(f"flash_fwd_tri at block_m {plan.block_m} disagrees: O err {o_err}")
+    o_err, lse_err = err(out, want), err(lse, want_lse)
+    if not (o_err <= BF16_TOL and lse_err <= LSE_TOL):
+        raise RuntimeError(f"{case['kernel']} [{case['label']}] at block_m {plan.block_m} "
+                           f"disagrees: O err {o_err}, lse err {lse_err}")
     return {"block_m": picked, "other_block_m": plan.block_m, "other_ms": device_ms(run, inner),
             "other_max_abs_err": o_err}
 
@@ -725,7 +783,7 @@ def phase_kernels() -> list:
         if case["kernel"] == "flash_fwd_tri":
             def kern():
                 return flash_fwd.flash_fwd_tri(q, k, v, h, h_kv)
-            plain_args = dict(causal=True)
+            plain_args = dict(causal=True, q_start=0, k_start=0, window=None, seg=None)
         else:
             plain_args = dict(causal=case["causal"], q_start=case.get("q_start", 0),
                               k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
@@ -744,9 +802,7 @@ def phase_kernels() -> list:
         if not (o_err <= o_tol and lse_err <= LSE_TOL):
             raise RuntimeError(f"{case['kernel']} [{case['label']}] disagrees with its plain "
                                f"version: O err {o_err} (tol {o_tol}), lse err {lse_err}")
-        mask = keep_mask(b * h, sq, case.get("sk", sq), h, plain_args["causal"],
-                         plain_args.get("q_start", 0), plain_args.get("k_start", 0),
-                         plain_args.get("window"), plain_args.get("seg"), "cuda")
+        mask = keep_mask(b * h, sq, case.get("sk", sq), h, **plain_args, device="cuda")
         live = int(mask.sum()) * (b * h // mask.shape[0])
         bound_ms, bound_by = _bound(case, live, d)
         inner = case.get("inner", 20)
@@ -760,15 +816,14 @@ def phase_kernels() -> list:
             "eager_library_ms": cuda_ms(library, inner),
             "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live,
         }
-        rate = ""
-        if case["kernel"] == "flash_fwd_tri":
-            row["tflops"] = 4.0 * d * live / row["ms"] / 1e9
-            row["ratio_to_library"] = row["ms"] / row["library_ms"]
-            rate = f", {row['tflops']:.1f} TFLOP/s, {row['ratio_to_library']:.2f}x sdpa"
-            if case["dtype"] == torch.bfloat16:
-                row.update(_other_tile_height(q, k, v, h, h_kv, want, inner))
-                rate += (f", {row['block_m']}-row q tiles (at {row['other_block_m']} rows: "
-                         f"{row['other_ms']:.5f} ms)")
+        row["tflops"] = 4.0 * d * live / row["ms"] / 1e9
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        rate = f", {row['tflops']:.1f} TFLOP/s, {row['ratio_to_library']:.2f}x sdpa"
+        if case["dtype"] == torch.bfloat16:
+            row.update(_other_tile_height(case, q, k, v, h, h_kv, plain_args, want, want_lse,
+                                          inner))
+            rate += (f", {row['block_m']}-row q tiles (at {row['other_block_m']} rows: "
+                     f"{row['other_ms']:.5f} ms)")
         results.append(row)
         log(f"kernel {row['kernel']} [{row['label']}]: O err {o_err:.3g}, lse err {lse_err:.3g}; "
             f"device ms: kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
@@ -1066,12 +1121,14 @@ def phase_selftest() -> dict:
 
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
-    over the main-path runs (``paths``: run name -> counts); ``extra``
-    adds keys to a kernel's entry (kernel name -> dict)."""
+    over the main-path runs (``paths``: run name -> counts); the timings
+    are the kernel's first main-path row's (``main_shapes`` has them all);
+    ``extra`` adds keys to a kernel's entry (kernel name -> dict)."""
     keys = ("label", "max_abs_err", "rel_err", "ms", "pair_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "eager_ms", "tflops", "ratio_to_library", "block_m",
             "other_block_m", "other_ms", "pair_tflops", "pair_ratio_to_library", "blocks",
             "other_blocks", "other_dq_ms", "other_dkv_ms")
+    headline = ("label", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms")
     out = []
     for name, (module, reference, line) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1087,6 +1144,8 @@ def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "eager_ms": main["eager_ms"],
+            # every main-path shape (the general forward has two: f32 serving, bf16 training)
+            "main_shapes": [{k: r[k] for k in headline} for r in mine if r["main_path"]],
             "shapes": [{k: r[k] for k in keys if k in r} for r in mine],
             **extra.get(name, {}),
         })
@@ -1108,7 +1167,9 @@ def main(argv=None) -> int:
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"]}
-    hgmma = {"flash_fwd_tri": results["build"]["flash_fwd_hgmma"]}
+    fwd = results["build"]["flash_fwd_hgmma"]
+    hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
+             "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}
     for kind in ("dq", "dkv"):
         for pair, prefix in (("tri", f"{kind}_d"), ("rect", f"{kind}_rect_d")):
             hgmma[f"flash_bwd_{kind}_{pair}"] = {

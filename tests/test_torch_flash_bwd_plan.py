@@ -224,7 +224,8 @@ def test_tri_bwd_bf16_label_reads_only_the_bf16_backward_pair(mangled, label):
 def test_every_library_is_checked_for_its_tensor_core_instantiations():
     # d 16/32/64/128 x 1/2 warpgroups x dq/dkv x the triangle and the general pair
     assert chip_smoke.TENSOR_CORE_KERNELS["flash_bwd"] == (chip_smoke.tri_bwd_bf16_label, 32)
-    assert chip_smoke.TENSOR_CORE_KERNELS["flash_fwd"] == (chip_smoke.tri_bf16_label, 8)
+    # d 16/32/64/128 x 1/2 warpgroups x the triangle and the general forward
+    assert chip_smoke.TENSOR_CORE_KERNELS["flash_fwd"] == (chip_smoke.fwd_bf16_label, 16)
 
 
 def test_library_path_changes_with_a_header(tmp_path, monkeypatch):

@@ -7,11 +7,13 @@ runs on its own:
 
 The triad rounds once in the kernel and in its plain version alike (a
 fused multiply-add), so the two are compared bit for bit. The bf16
-triangle forward and both backward pairs run on the tensor cores at one
+forward kernels and both backward pairs run on the tensor cores at one
 and two warpgroups a CTA (64- and 128-row tiles), ragged lengths, GQA
-groups and the burn-in and long-context shapes; the general pair also
+groups and the burn-in and long-context shapes; the general kernels also
 under full attention, window bands and segment ids (random, and whole
-64-token documents, whose cross-document tiles take no products).
+64-token documents, whose cross-document tiles take no products), and
+the general forward at global offsets with sq != sk (a ring hop, a
+chunked prefill, rows that see no key).
 
 Gradients are compared in the working dtype: f32 within 1e-4 absolute,
 bf16 within 2e-2 of the largest |gradient| of dq, dk and dv (bf16 keeps
@@ -161,6 +163,115 @@ def test_fully_masked_rows_are_zero_with_lse_minus_inf(cuda):
     torch.cuda.synchronize()
     assert torch.all(out[:, :40] == 0) and torch.all(torch.isneginf(lse[:, :40]))
     assert torch.all(torch.isfinite(lse[:, 40:]))
+
+
+def _rect_fwd_check(seed, b, sq, h, d, h_kv, causal, q_start=0, k_start=0, window=None,
+                    seg=None, sk=None, dtype=torch.bfloat16):
+    """The general forward against attention_plain, one launch; returns
+    the launch plan it ran with."""
+    qb, kb, vb, h_, hk = _qkv(seed, b, sq, h, d, dtype, h_kv=h_kv, sk=sk)
+    args = (causal, q_start, k_start, window, seg)
+    before = flash_fwd.flash_fwd_rect.launches
+    out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h_, hk, *args)
+    want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h_, hk, *args)
+    torch.cuda.synchronize()
+    assert flash_fwd.flash_fwd_rect.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    case = (b, sq, sk, h, d, h_kv, causal, q_start, k_start, window, seg is not None)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL, case
+    return flash_fwd.rect_plan(dtype, b * h, sq, kb.shape[1], d, flash_fwd._sm_count(0), causal,
+                               window, q_start, k_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_fwd.HEAD_DIMS)
+def test_tensor_core_general_kernel_matches_plain(cuda, monkeypatch, d):
+    """bf16 on the tensor cores at both tile heights (a card of very many
+    SMs takes 64-row tiles, one of a single SM 128), at the cases of
+    test_general_kernel_matches_plain and the masks of the general pair,
+    GQA groups of 1, 2 and 4."""
+    ids = {s: {kind: _seg_ids(kind, 51, 2, s) for kind in (None, "random", "docs")}
+           for s in (1, 100, 130, 300)}
+    for block, sms in ((64, 10**9), (128, 1)):
+        monkeypatch.setattr(flash_fwd, "_sm_count", lambda index, sms=sms: sms)
+        for s in ids:
+            for name, (causal, window, kind) in RECT_MASKS.items():
+                for h_kv in (4, 2, 1):
+                    plan = _rect_fwd_check(52, 2, s, 4, d, h_kv, causal, window=window,
+                                           seg=ids[s][kind])
+                    assert (plan.block_m, plan.swizzle) == (block, 2 * min(d, 64)), name
+        for sq, sk, q_start, k_start in ((8, 64, 16, 0), (8, 64, 56, 0), (24, 80, 0, 10),
+                                         (70, 130, 60, 0), (130, 100, 0, 0), (100, 300, 200, 0)):
+            for causal in (True, False):
+                _rect_fwd_check(53, 2, sq, 4, d, 2, causal, q_start, k_start, sk=sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_tensor_core_general_kernel_at_the_packed_burnin_shape(cuda, h_kv):
+    from tpu_operator_torch.workloads.burnin import _packed_ids
+
+    seg = _packed_ids(8, 128, 2, "cuda")  # the packed train step: two 64-token documents
+    assert _rect_fwd_check(54, 8, 128, 4, 64, h_kv, True, seg=seg).block_m == 64
+
+
+@pytest.mark.cuda
+def test_tensor_core_general_kernel_at_long_context(cuda):
+    assert _rect_fwd_check(55, 1, 4096, 8, 128, 8, False).block_m == 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq, sk, q_start, k_start", [
+    (512, 512, 512, 0),      # a past ring hop: every key before every row, every tile fast
+    (512, 512, 1024, 512),   # the same hop further along the ring
+    (512, 512, 0, 512),      # a future hop: no row sees a key
+    (128, 1024, 896, 0),     # a chunked prefill: the causal edge on the last key tile
+    (100, 1000, 900, 0),     # a ragged chunk
+])
+def test_tensor_core_general_kernel_at_global_offsets(cuda, sq, sk, q_start, k_start):
+    for h_kv in (4, 1):
+        _rect_fwd_check(56, 1, sq, 4, 128, h_kv, True, q_start, k_start, sk=sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_start", [40, 100, 200])
+def test_tensor_core_general_kernel_rows_that_see_no_key(cuda, monkeypatch, k_start):
+    """Rows before k_start see no key: O = 0 and lse = -inf, whether their
+    q tile walks no key tile at all (no TMA is issued) or walks tiles that
+    only its later rows see."""
+    for sms in (10**9, 1):
+        monkeypatch.setattr(flash_fwd, "_sm_count", lambda index, sms=sms: sms)
+        qb, kb, vb, h, hk = _qkv(57, 1, 200, 2, 64, torch.bfloat16)
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, True, k_start=k_start)
+        torch.cuda.synchronize()
+        dead = min(k_start, 200)
+        assert torch.all(out[:, :dead] == 0) and torch.all(torch.isneginf(lse[:, :dead]))
+        assert torch.all(torch.isfinite(lse[:, dead:]))
+        want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h, hk, True, k_start=k_start)
+        assert _err(want, out) <= BF16_TOL and _err(want_lse, lse) <= LSE_TOL
+
+
+@pytest.mark.cuda
+def test_tensor_core_general_kernel_rejects_a_misaligned_base(cuda):
+    qb, kb, vb, h, hk = _qkv(58, 1, 64, 2, 64, torch.bfloat16, sk=128)
+    for which in range(3):
+        args = [qb, kb, vb]
+        flat = torch.empty(args[which].numel() + 1, dtype=torch.bfloat16, device="cuda")
+        args[which] = flat[1:].view(args[which].shape).copy_(args[which])  # 2 bytes off
+        before = flash_fwd.flash_fwd_rect.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_fwd.flash_fwd_rect(*args, h, hk, True, q_start=64)
+        assert flash_fwd.flash_fwd_rect.launches == before
+
+
+@pytest.mark.cuda
+def test_f32_general_kernel_stays_on_the_cuda_cores(cuda):
+    for causal, window, q_start, sq, sk in ((False, None, 0, 100, 100), (True, 33, 0, 100, 100),
+                                            (True, None, 16, 8, 64)):
+        plan = _rect_fwd_check(59, 2, sq, 4, 64, 2, causal, q_start, window=window, sk=sk,
+                               dtype=torch.float32)
+        assert (plan.block_m, plan.threads, plan.swizzle) == (64, 256, 0)
 
 
 @pytest.mark.cuda

@@ -124,6 +124,7 @@ namespace {
 using namespace hopper;
 
 constexpr int kTile = 64;       // q rows and keys per tile
+static_assert(kTile == kRingRows, "the tensor-core tiles are the ring's (hopper.cuh)");
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kR = kTile / 16;  // tile rows (and columns) per thread
 constexpr int kLP = kTile + 1;  // odd stride of the P / dS tiles
@@ -513,64 +514,6 @@ constexpr int dkv_tc_smem_bytes() {
   // pair), full/empty/KV barriers
   return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 2 * kStages * kTile * 4 +
          (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
-}
-
-// acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
-//     . B(smem, K-major: a [64][D] tile)^T, contracted over all of D
-template <int D>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigned char* a_tile,
-                                                 int a_rows, int row, const unsigned char* b_tile) {
-  using G = Geo<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes
-    const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
-    const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
-                                  16, G::kAtom, G::kLayout);
-    const uint64_t db = make_desc(b_tile + box * kTile * G::kRowBytes + off, 16, G::kAtom,
-                                  G::kLayout);
-    wgmma_ss_n64(acc, da, db, kk > 0);
-  }
-}
-
-// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: a [64][D]
-// tile contracted over its rows)
-template <int D>
-__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                                 const unsigned char* b_tile) {
-  using G = Geo<D>;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    // a k16 step is 16 rows, two 8-row atoms; the second 64-column box (D = 128) is LBO away
-    const uint64_t db = make_desc(b_tile + kk * 16 * G::kRowBytes, kTile * G::kRowBytes, G::kAtom,
-                                  G::kLayout);
-    mma_pv<D>(acc, a[kk], db);
-  }
-}
-
-// The min and max of the segment ids that the lanes of `mask` hold in lo
-// and hi, for every one of those lanes.
-__device__ __forceinline__ int2 warp_range(unsigned mask, int lo, int hi) {
-  return make_int2(__reduce_min_sync(mask, lo), __reduce_max_sync(mask, hi));
-}
-
-// The min and max segment id of the 64 positions from t0 that lie inside s
-// (INT_MAX and INT_MIN when none does), read by the n lanes of `mask`, lane
-// index idx (0 .. n - 1) taking positions idx, idx + n, ...; ids, when
-// given, receives all 64 ids (0 past s).
-__device__ __forceinline__ int2 id_range(const int* seg, int t0, int s, int idx, int n,
-                                         unsigned mask, int* ids) {
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int c = idx; c < kTile; c += n) {
-    const int pos = t0 + c;
-    const int id = pos < s ? seg[pos] : 0;
-    if (ids != nullptr) ids[c] = id;
-    if (pos < s) {
-      lo = min(lo, id);
-      hi = max(hi, id);
-    }
-  }
-  return warp_range(mask, lo, hi);
 }
 
 // dQ on the tensor cores. blockIdx.x: (batch, head) row; blockIdx.y: q tile

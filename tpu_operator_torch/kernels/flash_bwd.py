@@ -30,9 +30,9 @@ from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
     LOG2E,
-    TMA_ALIGN,
     _check,
     _check_seg,
+    _check_tma_bases,
     _raise_on,
     _sm_count,
     keep_mask,
@@ -282,10 +282,7 @@ def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None):
     = (causal, window, seg) the general pair's."""
     _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
     if qb.dtype == torch.bfloat16:
-        for name, t in (("q", qb), ("k", kb), ("v", vb), ("dout", dout)):
-            if t.data_ptr() % TMA_ALIGN:
-                raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
-                                 f"got address {t.data_ptr():#x}")
+        _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
     bh, s, d = qb.shape
     sms = _sm_count(qb.device.index)
     if rect is None:

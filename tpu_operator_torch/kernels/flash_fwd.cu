@@ -12,54 +12,76 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16 triangle (flash_fwd_tri_kernel<__nv_bfloat16, D, WG>): the tensor-core
-// design. At long context the triangle is operations-bound (O(S^2 D) FLOPs
+// bf16 (flash_fwd_{tri,rect}_kernel<__nv_bfloat16, D, WG>): the tensor-core
+// design. At long context attention is operations-bound (O(S^2 D) FLOPs
 // over O(S D) bytes), so both products run on wgmma in bf16 with f32
 // accumulators. A CTA owns BM = 64 * WG q rows (WG consumer warpgroups, one
 // per 64 rows) and one producer warp. The producer loads Q once and feeds K
-// and V tiles (BN = BM keys) through a two-stage ring with TMA (3-D tensor
-// maps (D, S, rows), so a tile past S zero-fills instead of reading the next
-// head), each stage guarded by a "full" mbarrier (TMA bytes) and an "empty"
-// one (one arrival per consumer warp). Per k tile a consumer warpgroup runs
-// S = Q.K^T (A and B from shared memory, both K-major), masks only the
-// diagonal tile, runs the online softmax on the accumulator fragment, packs
-// P to bf16 in registers and runs O += P.V with P as the register A operand
-// (the f32 accumulator layout of S is the bf16 A layout of P) and V as an
-// MN-major B operand (the transpose flag), so P never touches shared memory.
-// Scores are raw q.k scaled in f32 after the product, as the backward
-// kernels recompute them; P is rounded to bf16 before P.V and the row sum
-// is taken from the unrounded P. Swizzle per D matches the TMA box to the
-// wgmma descriptor: 32B at D 16, 64B at D 32, 128B at D 64 and 128B over
-// two 64-column boxes at D 128. q tiles launch heaviest first (blockIdx.y
-// reversed, (batch, head) rows on x). The tile height, grid, shared-memory
-// bytes and swizzle come from the caller's plan (flash_fwd.py::tri_plan),
-// which this file checks against its own layout. No setmaxnreg: with one
-// producer warp beside at most two warpgroups the register cap (224 a
-// thread at WG = 2) holds the O and S accumulators.
+// and V tiles through a two-stage ring with TMA (3-D tensor maps (D, S,
+// rows), so a tile past S zero-fills instead of reading the next head),
+// each stage guarded by a "full" mbarrier (TMA bytes) and an "empty" one
+// (one arrival per consumer warp). Per k tile a consumer warpgroup runs
+// S = Q.K^T (A and B from shared memory, both K-major), masks, runs the
+// online softmax on the accumulator fragment, packs P to bf16 in registers
+// and runs O += P.V with P as the register A operand (the f32 accumulator
+// layout of S is the bf16 A layout of P) and V as an MN-major B operand
+// (the transpose flag), so P never touches shared memory. Scores are raw
+// q.k scaled in f32 after the product, as the backward kernels recompute
+// them; P is rounded to bf16 before P.V and the row sum is taken from the
+// unrounded P. Swizzle per D matches the TMA box to the wgmma descriptor:
+// 32B at D 16, 64B at D 32, 128B at D 64 and 128B over two 64-column boxes
+// at D 128. The tile height, grid, shared-memory bytes and swizzle come
+// from the caller's plan (flash_fwd.py::tri_plan, rect_plan), which this
+// file checks against its own layout. No setmaxnreg: with one producer warp
+// beside at most two warpgroups the register cap (224 a thread at WG = 2)
+// holds the O and S accumulators.
+//   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
+//     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
+//     head) rows on x); every row sees key 0, so its running max is finite
+//     from the first tile.
+//   general: K/V ring tiles of 64 keys (kRingRows, as the backward pairs'),
+//     q tiles in natural order. A CTA walks the key tiles some row can see
+//     by global position: all of them, or up to its last row's diagonal
+//     (q_start + q_end - k_start), from its first row's window on; a walk
+//     may be empty (no TMA is then issued, and the rows get O = 0, lse =
+//     -inf). Each warpgroup treats each tile as the reference's
+//     _dispatch_block does: dead (no live pair: outside its rows' band, or
+//     both sides one document each and different ones; no products, the
+//     stage still released), fast (every pair live: inside the band's
+//     interior, every key < sk, one shared document; the softmax body
+//     instantiated without the mask) or masked (the body instantiated with a
+//     per-element test of key < sk, the band and equal ids). A row may see
+//     no key in a masked tile, or none at all, so the running max is
+//     guarded against -inf. Segment ids (B, s) cannot come by TMA (a
+//     (B, s) int32 row breaks its 16-byte stride rule): lanes 1-31 of the
+//     producer warp stage each ring tile's 64 ids and their min and max
+//     beside it, each arriving on the stage's full barrier, while lane 0
+//     only issues TMA; consumers hold their own rows' ids and their
+//     warpgroup's id range in registers.
 //
-// f32 triangle and the general kernel (attend<T, D, TRI>): one CTA of 256
-// threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores. The k
-// loop visits only the tiles some row of the q tile can see. K and V tiles
-// are staged through shared memory as f32; each thread owns a 4 x 4 block
-// of the score tile and the matching 4 x D/16 block of the output
+// f32 (attend<float, D, TRI>, the triangle and the general masks): one CTA
+// of 256 threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores.
+// The k loop visits only the tiles some row of the q tile can see. K and V
+// tiles are staged through shared memory as f32; each thread owns a 4 x 4
+// block of the score tile and the matching 4 x D/16 block of the output
 // accumulator, so the per-row rescale never leaves registers. P goes
-// through shared memory (rounded to the input dtype first, as the reference
-// rounds P to v's dtype before P.V). The f32 triangle stays here because
-// f32 must not round through TF32; the general kernel is later work.
+// through shared memory. f32 stays here because it must not round through
+// TF32 (serving prefill holds its greedy tokens to the reference's).
 //
 // Bound on this card: at the main path's shapes (burn-in 128 x 128 scores
 // per head, serving prefill 8 x 64) every kernel is latency-bound (a few
-// MB moved, few CTAs of one or two tiles each); at long context the
-// triangle turns operations-bound, where the bf16 design's wgmma counts.
+// MB moved, few CTAs of one or two tiles each); at long context attention
+// turns operations-bound, where the bf16 design's wgmma counts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
-#include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, the tensor-map encoder
+#include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, id ranges, the tensor-map encoder
 
 namespace {
 
@@ -82,19 +104,17 @@ struct Params {
   void* o;            // (bh, sq, D)
   float* lse;         // (bh, sq)
   int sq, sk, heads, kv_heads;
-  int causal, q_start, k_start, window;  // window <= 0: no window
+  int causal, q_start, k_start, window;  // window <= 0: no window (a causal band only)
   float qscale;       // softmax scale * log2(e): folded into q (CUDA cores), or
                       // applied to q.k after the product (tensor cores)
 };
 
+// The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
+// conversions are identities; they keep the body's rounding points visible.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast rounds
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -134,9 +154,8 @@ __device__ __forceinline__ void attend(const Params& p) {
     const int r = i / D, c = i % D;
     float x = 0.f;
     if (q0 + r < p.sq) {
-      // pre-scaled q stays f32: the reference's triangle path rounds it back
-      // to the input dtype (flashattention.py:750); keeping f32 is closer
-      // to exact and costs nothing here, since tiles are f32 in shared memory
+      // q pre-scaled in f32, as the reference's triangle path scales it
+      // (flashattention.py:750)
       x = to_f(qg[static_cast<size_t>(q0 + r) * D + c]) * p.qscale;
     }
     qs[r * LD + c] = x;
@@ -292,11 +311,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_rect_kernel(Params p) {
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;        // K/V ring depth
+// the general kernel's staged segment ids: kStages x (the ring tile's 64
+// ids, then their min and max), int32
+constexpr int kSegBytes = kStages * (kRingRows + 2) * 4;
 
-template <int D, int WG>
+template <int D, int WG, bool TRI>
 constexpr int tc_smem_bytes() {
-  // alignment slack, Q tile, kStages K and V tiles, full/empty/Q barriers
-  return kSmemAlign + (64 * WG + 2 * kStages * 64 * WG) * D * 2 + 8 * (2 * kStages + 1);
+  // alignment slack, Q tile (64 WG rows), kStages K and V tiles (the
+  // triangle's 64 WG keys, the general kernel's 64) with (general) their
+  // keys' segment ids, full/empty/Q barriers
+  return kSmemAlign + (64 * WG + 2 * kStages * (TRI ? 64 * WG : kRingRows)) * D * 2 +
+         (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
 }
 
 // The bf16 triangle forward on the tensor cores. blockIdx.x: (batch, head)
@@ -496,42 +521,324 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   }
 }
 
+// The bf16 general forward on the tensor cores (see the note on top).
+// blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order.
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1)
+    flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core general forward is bf16");
+  using G = Geo<D>;
+  constexpr int BM = 64 * WG;
+  constexpr int BN = kRingRows;
+  constexpr uint32_t kQBytes = BM * D * 2;
+  constexpr uint32_t kKVBytes = BN * D * 2;
 
-template <int D, int WG>
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
+  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
+  int* kid_s = reinterpret_cast<int*>(v_s + kStages * kKVBytes);  // [kStages][BN]
+  int* krange_s = kid_s + kStages * BN;                           // [kStages][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(krange_s + 2 * kStages);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const bool causal = p.causal != 0;
+  const int window = p.window;  // > 0 only under a causal mask (the entry drops it otherwise)
+  const bool segments = p.seg != nullptr;
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BM;
+  // the keys some row of the CTA can see, by global position: all of them,
+  // or up to the last row's diagonal, from the first row's window on
+  const int q_end = min(p.sq, q0 + BM);
+  const int k_hi = causal ? max(0, min(p.sk, p.q_start + q_end - p.k_start)) : p.sk;
+  const int k_lo = window > 0 ? max(0, p.q_start + q0 - window + 1 - p.k_start) : 0;
+  const int t_lo = k_lo / BN;
+  const int n_tiles = k_lo < k_hi ? (k_hi + BN - 1) / BN - t_lo : 0;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      // the TMA bytes, then (segment ids) each id-staging lane's stores
+      mbar_init(&full[st], segments ? 1 + 31 : 1);
+      mbar_init(&empty[st], WG * 4);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {
+    // producer warp: lane 0 loads Q once (none for an empty walk, so that
+    // no TMA is in flight when the CTA exits), then K and V tile by tile
+    // through the ring; with segment ids, lanes 1-31 stage each tile's key
+    // ids and their range beside it
+    if (lane == 0) {
+      if (n_tiles > 0) {
+        mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+        }
+      }
+      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kKVBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
+                      b * G::kCols, (t_lo + t) * BN, kv_row);
+          tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
+                      b * G::kCols, (t_lo + t) * BN, kv_row);
+        }
+      }
+    } else if (segments) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
+                                    kid_s + st * BN);
+        if (lane == 1) {
+          krange_s[2 * st] = range.x;
+          krange_s[2 * st + 1] = range.y;
+        }
+        mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows w0 .. w0 + 63; this thread holds
+  // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
+  const int wg = warp / 4;
+  const int tq = lane % 4;
+  const int w0 = q0 + wg * 64;
+  const int r0 = w0 + (warp % 4) * 16 + lane / 4;
+  const float qscale = p.qscale;
+  const int win = window > 0 ? window : INT_MAX;
+  // the global positions of the warpgroup's first row and its last inside sq
+  const int qg0 = p.q_start + w0, qg1 = p.q_start + min(w0 + 63, p.sq - 1);
+  int qk[2];            // rows r0, r0 + 8 as (global position - k_start): key j is
+                        // qk - j positions before the row
+  int qid[2] = {0, 0};  // their segment ids
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    qk[h] = p.q_start + row - p.k_start;
+    if (segments && row < p.sq) qid[h] = seg[row];
+  }
+  // the segment ids of the warpgroup's rows: one id throughout when x == y
+  const int2 qrange =
+      segments ? id_range(seg, w0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  float o[D / 2], s[BN / 2];
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
+  float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int k0 = (t_lo + t) * BN;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    // global positions of the tile's first key and its last inside sk; some
+    // pair is live when the rows' distances to the keys, which run from
+    // qg0 - kg1 to qg1 - kg0, meet the band [0, window), and every pair is
+    // when they lie inside it and every key is inside sk
+    const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
+    bool sees = w0 < p.sq;
+    bool masked = k0 + BN > p.sk;  // a zero-filled key past sk would score
+    if (causal) {
+      sees = sees && qg1 >= kg0;
+      masked = masked || qg0 < kg1;
+    }
+    if (window > 0) {
+      sees = sees && qg0 - kg1 < window;
+      masked = masked || qg1 - kg0 >= window;
+    }
+    if (segments) {
+      // both sides one document each: the fast path when it is the same
+      // one, no live pair (and no products) when it is not
+      const int kmin = krange_s[2 * st], kmax = krange_s[2 * st + 1];
+      const bool uniform = qrange.x == qrange.y && kmin == kmax;
+      sees = sees && !(uniform && qrange.x != kmin);
+      masked = masked || !uniform;
+    }
+    if (sees) {
+      const unsigned char* ks = k_s + st * kKVBytes;
+      const unsigned char* vs = v_s + st * kKVBytes;
+      const int2* kid = reinterpret_cast<const int2*>(kid_s + st * BN);
+      wgmma_fence();
+      mma_rows_by_rows<D>(s, q_s, BM, wg * 64, ks);  // S = Q.K^T
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(s);
+
+      // the online softmax in base 2 and P, with the element mask or (a fast
+      // tile) without: two instantiations, as the reference's
+      // _dispatch_block emits two branches, so that a fast tile issues no
+      // mask instruction. A row may see no key yet (a later document, a
+      // band edge, or none at all): its max stays -inf, and `safe` keeps
+      // exp2 at 0 for its masked scores and its rescale
+      auto softmax = [&](auto mask) {
+        constexpr bool kMask = decltype(mask)::value;
+        if constexpr (kMask) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
+            if (segments) kj = kid[4 * j + tq];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * j + 2 * tq + e % 2;
+              const int dist = qk[e / 2] - key;
+              bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
+              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+              if (!live) s[4 * j + e] = -CUDART_INF_F;
+            }
+          }
+        }
+        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+        const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
+        const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
+        const float c0 = exp2f(m0 - safe0), c1 = exp2f(m1 - safe1);
+        m0 = mn0;
+        m1 = mn1;
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * kk + h;
+            const float p00 = exp2f(fmaf(s[4 * j], qscale, -safe0));
+            const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
+            const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
+            const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
+            rs0 += p00 + p01;
+            rs1 += p10 + p11;
+            // the accumulator layout of S is wgmma's register layout of A
+            pa[kk][2 * h] = pack_bf16(p00, p01);
+            pa[kk][2 * h + 1] = pack_bf16(p10, p11);
+          }
+        }
+        l0 = l0 * c0 + rs0;
+        l1 = l1 * c1 + rs1;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= c0;
+          o[4 * j + 1] *= c0;
+          o[4 * j + 2] *= c1;
+          o[4 * j + 3] *= c1;
+        }
+      };
+      if (masked) {
+        softmax(std::true_type{});
+      } else {
+        softmax(std::false_type{});
+      }
+
+      hold(pa);
+      wgmma_fence();
+      mma_frag_by_tile<D>(o, pa, vs);  // O += P.V, V MN-major
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(o);
+      hold(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= p.sq) continue;
+    // a row that saw no key: O = 0 (nothing was added) and lse = -inf
+    const float l = half ? l1 : l0;
+    const float denom = l > 0.f ? l : 1.f;
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      orow[4 * j + tq] =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+    }
+    if (tq == 0) {
+      p.lse[static_cast<size_t>(bh) * p.sq + row] =
+          l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
+    }
+  }
+}
+
+// TRI: the triangle (K/V tiles as tall as the q tile); else the general
+// kernel (64-key ring tiles).
+template <int D, int WG, bool TRI>
 int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
   constexpr int BM = 64 * WG;
   const int q_tiles = (p.sq + BM - 1) / BM;
-  if (smem != tc_smem_bytes<D, WG>() || q_tiles > 65535) return kUnsupported;
+  if (smem != tc_smem_bytes<D, WG, TRI>() || q_tiles > 65535) return kUnsupported;
   CUtensorMap qmap, kmap, vmap;
   const int bh_kv = bh / p.heads * p.kv_heads;
-  if (!encode_map<D>(&qmap, p.q, p.sq, bh, BM) || !encode_map<D>(&kmap, p.k, p.sk, bh_kv, BM) ||
-      !encode_map<D>(&vmap, p.v, p.sk, bh_kv, BM)) {
+  const int kv_box = TRI ? BM : kRingRows;
+  if (!encode_map<D>(&qmap, p.q, p.sq, bh, BM) || !encode_map<D>(&kmap, p.k, p.sk, bh_kv, kv_box) ||
+      !encode_map<D>(&vmap, p.v, p.sk, bh_kv, kv_box)) {
     return kNoTensorMap;
   }
-  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap) =
-      flash_fwd_tri_kernel<__nv_bfloat16, D, WG>;
+  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap);
+  if constexpr (TRI) {
+    kernel = flash_fwd_tri_kernel<__nv_bfloat16, D, WG>;
+  } else {
+    kernel = flash_fwd_rect_kernel<__nv_bfloat16, D, WG>;
+  }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(bh, q_tiles), WG * 128 + 32, smem, stream>>>(p, qmap, kmap, vmap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool TRI>
 int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cudaStream_t stream) {
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
-  if (block_m == 64) return launch_tc<D, 1>(p, bh, smem, stream);
-  if (block_m == 128) return launch_tc<D, 2>(p, bh, smem, stream);
+  if (block_m == 64) return launch_tc<D, 1, TRI>(p, bh, smem, stream);
+  if (block_m == 128) return launch_tc<D, 2, TRI>(p, bh, smem, stream);
   return kUnsupported;
 }
 
-template <typename T, int D, bool TRI>
+template <int D, bool TRI>
 int launch(const Params& p, int bh, cudaStream_t stream) {
   void (*kernel)(Params);
   if constexpr (TRI) {
-    kernel = flash_fwd_tri_kernel<T, D>;
+    kernel = flash_fwd_tri_kernel<float, D>;
   } else {
-    kernel = flash_fwd_rect_kernel<T, D>;
+    kernel = flash_fwd_rect_kernel<float, D>;
   }
   const int smem = static_cast<int>(smem_bytes(D));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -541,62 +848,63 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TRI>
-int dispatch_dim(const Params& p, int bh, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16, TRI>(p, bh, stream);
-    case 32: return launch<T, 32, TRI>(p, bh, stream);
-    case 64: return launch<T, 64, TRI>(p, bh, stream);
-    case 128: return launch<T, 128, TRI>(p, bh, stream);
-    default: return kUnsupported;
+// bf16 on the tensor cores with the caller's plan; f32 on the CUDA cores,
+// whose plan is fixed (64, its shared memory, no swizzle).
+template <bool TRI>
+int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
+             void* stream) {
+  if (!(bh > 0 && bh <= 65535 && p.sq > 0 && p.sk > 0 && p.heads > 0 && p.kv_heads > 0 &&
+        p.heads % p.kv_heads == 0)) {
+    return kUnsupported;
   }
-}
-
-bool valid(const Params& p, int bh) {
-  return bh > 0 && bh <= 65535 && p.sq > 0 && p.sk > 0 && p.heads > 0 && p.kv_heads > 0 &&
-         p.heads % p.kv_heads == 0;
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on a launched kernel, a CUDA
-// error code when the launch was refused, -1 for a shape, dtype, plan or
-// alignment these kernels do not take, -2 when no TMA tensor map could be
-// made. block_m, smem (bytes) and swizzle (bytes) are the caller's launch plan
-// (flash_fwd.py::tri_plan): bf16 runs the tensor-core kernel at block_m 64
-// or 128; f32 runs the CUDA-core kernel, whose plan is fixed (64, its shared
-// memory, no swizzle).
-extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int dtype, int bh, int s, int d, int heads, int kv_heads,
-                             float qscale, int block_m, int smem, int swizzle,
-                             void* stream) {
-  Params p{q, k, v, nullptr, o, lse, s, s, heads, kv_heads, 1, 0, 0, 0, qscale};
-  if (!valid(p, bh)) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (d) {
-      case 16: return dispatch_tc<16>(p, bh, block_m, smem, swizzle, st);
-      case 32: return dispatch_tc<32>(p, bh, block_m, smem, swizzle, st);
-      case 64: return dispatch_tc<64>(p, bh, block_m, smem, swizzle, st);
-      case 128: return dispatch_tc<128>(p, bh, block_m, smem, swizzle, st);
+      case 16: return dispatch_tc<16, TRI>(p, bh, block_m, smem, swizzle, st);
+      case 32: return dispatch_tc<32, TRI>(p, bh, block_m, smem, swizzle, st);
+      case 64: return dispatch_tc<64, TRI>(p, bh, block_m, smem, swizzle, st);
+      case 128: return dispatch_tc<128, TRI>(p, bh, block_m, smem, swizzle, st);
       default: return kUnsupported;
     }
   }
   if (dtype != 0 || block_m != kBM || swizzle != 0 || smem != static_cast<int>(smem_bytes(d))) {
     return kUnsupported;
   }
-  return dispatch_dim<float, true>(p, bh, d, st);
+  switch (d) {
+    case 16: return launch<16, TRI>(p, bh, st);
+    case 32: return launch<32, TRI>(p, bh, st);
+    case 64: return launch<64, TRI>(p, bh, st);
+    case 128: return launch<128, TRI>(p, bh, st);
+    default: return kUnsupported;
+  }
 }
 
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on a launched kernel, a
+// CUDA error code when the launch was refused, -1 for a shape, dtype, plan
+// or alignment these kernels do not take, -2 when no TMA tensor map could be
+// made. block_m, smem (bytes) and swizzle (bytes) are the caller's launch
+// plan (flash_fwd.py::tri_plan, rect_plan): bf16 runs the tensor-core kernel
+// at block_m 64 or 128; f32 runs the CUDA-core kernel, whose plan is fixed
+// (64, its shared memory, no swizzle).
+extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int dtype, int bh, int s, int d, int heads, int kv_heads,
+                             float qscale, int block_m, int smem, int swizzle,
+                             void* stream) {
+  Params p{q, k, v, nullptr, o, lse, s, s, heads, kv_heads, 1, 0, 0, 0, qscale};
+  return dispatch<true>(p, dtype, bh, d, block_m, smem, swizzle, stream);
+}
+
+// Segment ids (B, sk) come only with sq == sk. A window is a band of causal
+// attention only: without a causal mask it becomes 0 (none).
 extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const int* seg,
                               void* o, float* lse, int dtype, int bh, int sq, int sk, int d,
                               int heads, int kv_heads, int causal, int q_start, int k_start,
-                              int window, float qscale, void* stream) {
+                              int window, float qscale, int block_m, int smem, int swizzle,
+                              void* stream) {
   if (seg != nullptr && sq != sk) return kUnsupported;
-  Params p{q, k, v, seg, o, lse, sq, sk, heads, kv_heads, causal, q_start, k_start, window, qscale};
-  if (!valid(p, bh)) return kUnsupported;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dim<float, false>(p, bh, d, st);
-  if (dtype == 1) return dispatch_dim<__nv_bfloat16, false>(p, bh, d, st);
-  return kUnsupported;
+  Params p{q, k, v, seg, o, lse, sq, sk, heads, kv_heads, causal, q_start, k_start,
+           causal && window > 0 ? window : 0, qscale};
+  return dispatch<false>(p, dtype, bh, d, block_m, smem, swizzle, stream);
 }

@@ -9,6 +9,9 @@ logsumexp (B·H, Sq) in float32. A q row i reads kv row
 The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_plain`. Each
 wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
+In bf16 both kernels run on the tensor cores (wgmma, TMA: q, k, v and
+out need 16-byte-aligned bases) with the launch plans of
+:func:`tri_plan` and :func:`rect_plan`; f32 runs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -124,6 +127,117 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int) -> TriPlan:
     return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64))
 
 
+RECT_TILE = 64  # keys of a ring tile of the bf16 general kernel (kRingRows in hopper.cuh)
+# the bf16 general kernel's staged segment ids: per stage 64 int32 and their
+# min and max (kSegBytes in flash_fwd.cu)
+SEG_BYTES = TRI_STAGES * (RECT_TILE + 2) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RectPlan:
+    """Launch plan of the general kernel (fields as :class:`TriPlan`'s),
+    with the masks its walk and its tile rule read: sq q rows at global
+    offset ``q_start`` against sk keys at ``k_start``, ``causal``, and
+    ``window`` (None: no band; a band of causal attention only)."""
+
+    block_m: int
+    threads: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    swizzle: int
+    sq: int
+    sk: int
+    causal: bool
+    window: Optional[int]
+    q_start: int
+    k_start: int
+
+    def cta(self, x: int, y: int) -> Tuple[int, int]:
+        """The (bh row, q tile) that block (x, y) computes, as the kernel
+        maps it: natural order, bh rows on x for the tensor-core kernel."""
+        return (x, y) if self.swizzle else (y, x)
+
+    def walk(self, tile: int) -> range:
+        """The 64-key tiles the CTA of q tile ``tile`` walks: the keys some
+        of its rows can see by global position — all of them, or up to its
+        last row's diagonal, from its first row's window on. Empty when no
+        key is in reach (the rows then get O = 0 and lse = -inf)."""
+        q0 = tile * self.block_m
+        q_end = min(self.sq, q0 + self.block_m)
+        hi = (max(0, min(self.sk, self.q_start + q_end - self.k_start)) if self.causal
+              else self.sk)
+        lo = max(0, self.q_start + q0 - self.window + 1 - self.k_start) if self.window else 0
+        return range(lo // RECT_TILE, -(-hi // RECT_TILE)) if lo < hi else range(0)
+
+    def kind(self, w0: int, k0: int, seg: Optional[torch.Tensor] = None) -> str:
+        """How the bf16 kernel's warpgroup of the 64 q rows from ``w0``
+        treats the 64-key tile from ``k0`` (both local), after the
+        reference's ``_dispatch_block``: "dead" — no live pair (outside its
+        rows' band, or both sides one document each and different ones), no
+        products; "fast" — every pair of a row inside sq is live (inside the
+        band, every key inside sk, one shared document), no element mask;
+        "masked" — the element mask. ``seg`` is one batch row's (sk,)
+        segment ids."""
+        qg0 = self.q_start + w0
+        qg1 = self.q_start + min(w0 + 63, self.sq - 1)
+        kg0 = self.k_start + k0
+        kg1 = self.k_start + min(k0 + RECT_TILE - 1, self.sk - 1)
+        sees = w0 < self.sq
+        masked = k0 + RECT_TILE > self.sk  # a zero-filled key past sk would score
+        if self.causal:
+            sees = sees and qg1 >= kg0
+            masked = masked or qg0 < kg1
+        if self.window:
+            sees = sees and qg0 - kg1 < self.window
+            masked = masked or qg1 - kg0 >= self.window
+        if seg is not None and sees:
+            qs = seg[w0:min(w0 + 64, self.sq)]
+            ks = seg[k0:min(k0 + RECT_TILE, self.sk)]
+            uniform = bool(qs.min() == qs.max()) and bool(ks.min() == ks.max())
+            sees = sees and not (uniform and bool(qs[0] != ks[0]))
+            masked = masked or not uniform
+        return "dead" if not sees else "masked" if masked else "fast"
+
+    def visits(self, x: int, y: int,
+               seg: Optional[torch.Tensor] = None) -> List[Tuple[int, int, str]]:
+        """(64-row q slice, 64-key tile, kind) of every product block (x,
+        y) of the bf16 kernel computes, in its order: each warpgroup's slice
+        skips a dead tile."""
+        tile = self.cta(x, y)[1]
+        slices = [tile * self.block_m // 64 + w for w in range(self.block_m // 64)]
+        out = []
+        for k in self.walk(tile):
+            for q in slices:
+                kind = self.kind(q * 64, k * RECT_TILE, seg)
+                if kind != "dead":
+                    out.append((q, k, kind))
+        return out
+
+
+def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, causal: bool,
+              window: Optional[int] = None, q_start: int = 0, k_start: int = 0) -> RectPlan:
+    """How ``flash_fwd_rect`` launches for bh rows of sq q rows against sk
+    keys, head dim d, and the masks.
+
+    bf16 runs the tensor-core kernel: the triangle's one-wave rule for the
+    q-tile height (:func:`tri_plan`: 128 rows once the grid fills one wave
+    of CTAs on the card's ``sms`` streaming multiprocessors, else 64), one
+    producer warp, grid (bh, q tiles) in natural order, K and V in 64-key
+    ring tiles; shared memory for the Q tile, ``TRI_STAGES`` K and V ring
+    tiles, their staged segment ids (whether or not the call has ids, as
+    ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
+    triangle's swizzle. f32 keeps the CUDA-core kernel's fixed plan, the
+    triangle's. The kernel checks the plan against its own layout and
+    refuses one that differs."""
+    masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
+    tri = tri_plan(dtype, bh, sq, d, sms)
+    smem = tri.smem_bytes
+    if dtype != torch.float32:
+        smem = (1024 + (tri.block_m + 2 * TRI_STAGES * RECT_TILE) * d * 2 + SEG_BYTES
+                + 8 * (2 * TRI_STAGES + 1))
+    return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks)
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -150,6 +264,15 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
         raise ValueError(f"at most 65535 (batch·head) rows, got {qb.shape[0]}")
 
 
+def _check_tma_bases(**tensors) -> None:
+    """Raise unless each named tensor starts on a TMA_ALIGN-byte boundary,
+    as a TMA tensor map's base must."""
+    for name, t in tensors.items():
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
+                             f"got address {t.data_ptr():#x}")
+
+
 def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
     """Segment ids must be a contiguous int32 CUDA (batch, seq) tensor, and
     only come with sq == sk."""
@@ -169,7 +292,7 @@ def _lib() -> ctypes.CDLL:
                                   i32, i32, i32, ptr]
     lib.flash_fwd_tri.restype = i32
     lib.flash_fwd_rect.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                   i32, i32, i32, i32, i32, i32, f32, ptr]
+                                   i32, i32, i32, i32, i32, i32, f32, i32, i32, i32, ptr]
     lib.flash_fwd_rect.restype = i32
     return lib
 
@@ -197,10 +320,7 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int):
     out = torch.empty_like(qb)
     lse = torch.empty((bh, s), dtype=torch.float32, device=qb.device)
     if qb.dtype == torch.bfloat16:
-        for name, t in (("q", qb), ("k", kb), ("v", vb), ("out", out)):
-            if t.data_ptr() % TMA_ALIGN:
-                raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
-                                 f"got address {t.data_ptr():#x}")
+        _check_tma_bases(q=qb, k=kb, v=vb, out=out)
     plan = tri_plan(qb.dtype, bh, s, d, _sm_count(qb.device.index))
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -218,7 +338,9 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
                    q_start: int = 0, k_start: int = 0,
                    window: Optional[int] = None, seg: Optional[torch.Tensor] = None):
     """General forward — causal or full, window, segment ids (B, S) int32,
-    global offsets, sq != sk: the port of ``_flash_fwd_kernel``."""
+    global offsets, sq != sk: the port of ``_flash_fwd_kernel``. bf16 runs
+    on the tensor cores (wgmma, TMA: q, k, v need 16-byte-aligned bases),
+    f32 on the CUDA cores; the launch follows :func:`rect_plan`."""
     if not qb.is_cuda:
         return attention_plain(qb, kb, vb, heads, kv_heads, causal, q_start, k_start,
                                window, seg)
@@ -229,6 +351,10 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
         _check_seg(seg, bh // heads, sq, sk)
     out = torch.empty_like(qb)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qb.device)
+    if qb.dtype == torch.bfloat16:
+        _check_tma_bases(q=qb, k=kb, v=vb, out=out)
+    plan = rect_plan(qb.dtype, bh, sq, sk, d, _sm_count(qb.device.index), causal, window,
+                     q_start, k_start)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _lib().flash_fwd_rect(
@@ -236,7 +362,7 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
             None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, sq, sk, d, heads, kv_heads, int(causal),
             int(q_start), int(k_start), 0 if window is None else int(window),
-            LOG2E / math.sqrt(d), stream,
+            LOG2E / math.sqrt(d), plan.block_m, plan.smem_bytes, plan.swizzle, stream,
         )
     _raise_on(code, "flash_fwd_rect")
     flash_fwd_rect.launches += 1

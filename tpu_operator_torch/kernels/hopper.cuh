@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, wgmma shared-
-// memory descriptors and products, and the host-side tensor-map encoder.
+// memory descriptors and products, the segment-id ranges of a tile, and the
+// host-side tensor-map encoder.
 //
 // Tile convention: a [rows][D] bf16 tile lives in shared memory as
 // Geo<D>::kBoxes column boxes of [rows][kCols], each row kRowBytes long and
@@ -19,12 +20,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <initializer_list>
 
 namespace hopper {
 
 constexpr int kSmemAlign = 1024;  // the 128B swizzle atom (8 rows x 128 bytes)
+// rows of a ring tile: the 64 keys (or q rows) a producer feeds per stage
+// to the general forward and to both backward pairs
+constexpr int kRingRows = 64;
 
 // Tile geometry for head dim D: a [rows][D] bf16 tile is stored as kBoxes
 // column boxes of [rows][kCols], each row kRowBytes long and swizzled over
@@ -246,6 +251,65 @@ __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4]
   else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
   else wgmma_rs_n128(d, a, b);
+}
+
+// acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
+//     . B(smem, K-major: a [kRingRows][D] ring tile)^T, contracted over all of D
+template <int D>
+__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigned char* a_tile,
+                                                 int a_rows, int row, const unsigned char* b_tile) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes
+    const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
+    const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
+                                  16, G::kAtom, G::kLayout);
+    const uint64_t db = make_desc(b_tile + box * kRingRows * G::kRowBytes + off, 16, G::kAtom,
+                                  G::kLayout);
+    wgmma_ss_n64(acc, da, db, kk > 0);
+  }
+}
+
+// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: a
+// [kRingRows][D] ring tile contracted over its rows)
+template <int D>
+__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 const unsigned char* b_tile) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < kRingRows / 16; ++kk) {
+    // a k16 step is 16 rows, two 8-row atoms; the second 64-column box (D = 128) is LBO away
+    const uint64_t db = make_desc(b_tile + kk * 16 * G::kRowBytes, kRingRows * G::kRowBytes,
+                                  G::kAtom, G::kLayout);
+    mma_pv<D>(acc, a[kk], db);
+  }
+}
+
+// The min and max of the segment ids that the lanes of `mask` hold in lo
+// and hi, for every one of those lanes.
+__device__ __forceinline__ int2 warp_range(unsigned mask, int lo, int hi) {
+  return make_int2(__reduce_min_sync(mask, lo), __reduce_max_sync(mask, hi));
+}
+
+// The min and max segment id of the kRingRows positions from t0 that lie
+// inside s (INT_MAX and INT_MIN when none does), read by the n lanes of
+// `mask`, lane index idx (0 .. n - 1) taking positions idx, idx + n, ...;
+// ids, when given, receives all kRingRows ids (0 past s). Segment ids never
+// come by TMA: a (B, s) int32 row breaks its 16-byte stride rule for most s.
+__device__ __forceinline__ int2 id_range(const int* seg, int t0, int s, int idx, int n,
+                                         unsigned mask, int* ids) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int c = idx; c < kRingRows; c += n) {
+    const int pos = t0 + c;
+    const int id = pos < s ? seg[pos] : 0;
+    if (ids != nullptr) ids[c] = id;
+    if (pos < s) {
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+  }
+  return warp_range(mask, lo, hi);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
