@@ -60,7 +60,24 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    working card passes, and ``python -m
    tpu_operator_torch.validator.workload_entry`` in a process of its own.
    A reading above 105% of its data-sheet peak, or an unstable timing,
-   fails the phase.
+   fails the phase;
+8. sharded — (a) the mixture of experts on the card at ``entry()``
+   widths (``moe_experts=4``, flash attention): ``run_burnin(steps=3)``
+   plain, ``kv_heads=2`` and ``packed_segments=2``, each curve falling
+   and within bf16 tolerance of the CPU plain versions' curve from the
+   same params; the forward output and every parameter's first update
+   held to the CPU's (``STEP_OUT_TOL``, ``STEP_UPDATE_TOL``); 2 launches
+   per step of each kernel on the path, the step's eager and device ms;
+   (b) a one-rank NCCL world (``distributed.init_local_world``, a
+   1x1x1x1 ``make_mesh_4d``, where every group has one rank and no
+   collective runs): the MoE + GQA + packed step through the sharded
+   code must give the no-mesh step's 3 losses within 1e-6 relative and
+   its output and first update the CPU's, as in (a); a
+   ``sequence_parallel`` step (the dense ring body, sp = 1) held the same
+   way; ``run_ring_attention_check(seq_len=256)``
+   with the dense and the flash body, causal and full; (c)
+   ``dryrun_multichip(8, device="cpu")`` in a process of its own: eight
+   gloo ranks on the CPU, since the machine has one card.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -77,6 +94,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -1119,6 +1137,197 @@ def phase_selftest() -> dict:
     return out
 
 
+MOE_CONFIGS = {"plain": {}, "gqa": {"kv_heads": 2}, "packed": {"packed_segments": 2}}
+MESH_REL_TOL = 1e-6  # the sharded code on a one-rank mesh adds no arithmetic
+# the card's step against the CPU's plain versions from the same seeded
+# params and batch, bf16: the forward output and every parameter's first
+# SGD update, each as the norm of the difference over the norm of the
+# CPU's. The loss of this RMS-normalised output against an N(0, 1) target
+# is ~2.0 for any output, so the losses alone cannot tell a wrong path
+# from a right one. Norms, not largest errors: a token whose top two
+# gates nearly tie may pick another expert on the card. The bars stand
+# ~2.5x above the gaps measured on the H100 and well below those of a
+# broken step (PERF.md section 2).
+STEP_OUT_TOL, STEP_UPDATE_TOL = 0.05, 0.25
+
+
+def _expected_launches(counts: dict, cfg, steps: int) -> dict:
+    """Each kernel of the step's flash pair once per layer and step, no other."""
+    pair = "rect" if cfg.packed_segments else "tri"
+    on_path = {f"flash_fwd_{pair}", f"flash_bwd_dq_{pair}", f"flash_bwd_dkv_{pair}"}
+    return {k: cfg.n_layers * steps if k in on_path else 0 for k in counts}
+
+
+def _curve_rel(got: list, ref: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+
+def _step_losses(step, params, batch, steps: int) -> list:
+    losses = []
+    for _ in range(steps):
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+    return losses
+
+
+def _first_step(cfg, device: str, mesh=None) -> tuple:
+    """The seeded step's forward output and each parameter's first SGD
+    update, float32 on the CPU."""
+    from tpu_operator_torch.workloads.burnin import build_train_step, forward
+
+    step, params, batch = build_train_step(cfg, device, mesh=mesh)
+    with torch.no_grad():
+        out = forward(params, batch[0], cfg, mesh)
+    new, _ = step(params, batch)
+    return out.float().cpu(), {k: (new[k] - params[k]).float().cpu() for k in params}
+
+
+def _step_gaps(name: str, got: tuple, ref: tuple) -> dict:
+    """Holds ``got`` (a ``_first_step``) to ``ref`` within STEP_OUT_TOL and
+    STEP_UPDATE_TOL; returns the gaps."""
+    (out, upd), (ref_out, ref_upd) = got, ref
+    out_rel = float((out - ref_out).norm() / ref_out.norm())
+    upd_rel = {k: float((upd[k] - ref_upd[k]).norm() / ref_upd[k].norm()) for k in ref_upd}
+    worst = max(upd_rel, key=upd_rel.get)
+    if not (out_rel <= STEP_OUT_TOL and upd_rel[worst] <= STEP_UPDATE_TOL):
+        raise RuntimeError(f"{name}: output {out_rel} (tol {STEP_OUT_TOL}), update of {worst} "
+                           f"{upd_rel[worst]} (tol {STEP_UPDATE_TOL}) from the CPU's; every "
+                           f"update: {upd_rel}")
+    return {"out_rel": out_rel, "update_rel": upd_rel[worst], "update_rel_worst": worst,
+            "update_rel_by_param": upd_rel}
+
+
+def _moe_on_one_card(out: dict) -> None:
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+
+    steps = 3
+    for name, over in MOE_CONFIGS.items():
+        cfg = dataclasses.replace(ENTRY_CONFIG, use_flash_attention=True, moe_experts=4, **over)
+        zero_launches()
+        got = run_burnin(steps=steps, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_launches()
+        expected = _expected_launches(counts, cfg, steps)
+        if counts != expected:
+            raise RuntimeError(f"moe {name}: launches {counts}, expected {expected}")
+        ref = run_burnin(steps=steps, cfg=cfg, device="cpu")
+        rel = _curve_rel(got["losses"], ref["losses"])
+        if not rel <= BF16_TOL:
+            raise RuntimeError(f"moe {name}: losses {got['losses']} differ from the CPU plain "
+                               f"versions' {ref['losses']} by {rel} (relative, tol {BF16_TOL})")
+        reference = _first_step(cfg, "cpu")
+        gaps = _step_gaps(f"moe {name}", _first_step(cfg, "cuda"), reference)
+        step, params, batch = build_train_step(cfg, "cuda")
+        times = {"step_ms": cuda_ms(lambda: step(params, batch), inner=10),
+                 "step_device_ms": device_ms(lambda: step(params, batch), inner=10)}
+        out["paths"][f"moe {name}"] = counts
+        out["moe"][name] = {"losses": got["losses"], "reference": "CPU plain versions",
+                            "reference_losses": ref["losses"], "rel_err": rel, **gaps, **times}
+        log(f"sharded: moe {name} run_burnin(steps={steps}) losses "
+            f"{[round(x, 5) for x in got['losses']]}, CPU plain versions "
+            f"{[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); output {gaps['out_rel']:.3g}"
+            f", worst update {gaps['update_rel']:.3g} ({gaps['update_rel_worst']}) from the CPU's; "
+            f"launches per step {({k: v / steps for k, v in counts.items() if v})}; step ms eager "
+            f"{times['step_ms']:.4f}, device {times['step_device_ms']:.4f}")
+
+
+def _one_rank_world(out: dict) -> None:
+    import torch.distributed as dist
+
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.workloads.burnin import build_train_step, make_mesh_4d
+    from tpu_operator_torch.workloads.distributed import init_local_world
+    from tpu_operator_torch.workloads.ringattention import run_ring_attention_check
+
+    steps = 3
+    # the packed MoE configuration of _moe_on_one_card, with GQA
+    cfg = dataclasses.replace(ENTRY_CONFIG, use_flash_attention=True, moe_experts=4, kv_heads=2,
+                              packed_segments=2)
+    reference = _first_step(cfg, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_local_world(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            mesh = make_mesh_4d(data=1, sp=1, model=1, ep=1)
+            plain_step, plain_params, plain_batch = build_train_step(cfg, "cuda")
+            step, params, batch = build_train_step(cfg, "cuda", mesh=mesh)
+            zero_launches()
+            sharded = _step_losses(step, params, batch, steps)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            expected = _expected_launches(counts, cfg, steps)
+            if counts != expected:
+                raise RuntimeError(f"one-rank mesh: launches {counts}, expected {expected}")
+            plain = _step_losses(plain_step, plain_params, plain_batch, steps)
+            rel = _curve_rel(sharded, plain)
+            if not rel <= MESH_REL_TOL:
+                raise RuntimeError(f"one-rank mesh: losses {sharded} differ from the no-mesh "
+                                   f"step's {plain} by {rel} (relative, tol {MESH_REL_TOL})")
+            mesh_gaps = _step_gaps("one-rank mesh", _first_step(cfg, "cuda", mesh), reference)
+            mesh_ms = cuda_ms(lambda: step(params, batch), inner=10)
+            ring_cfg = dataclasses.replace(cfg, use_flash_attention=False, sequence_parallel=True)
+            ring = _step_losses(*build_train_step(ring_cfg, "cuda", mesh=mesh), steps)
+            ring_rel = _curve_rel(ring, plain)
+            if not (ring_rel <= BF16_TOL and ring[-1] < ring[0]):
+                raise RuntimeError(f"one-rank ring step: losses {ring} against the flash step's "
+                                   f"{plain} (rel {ring_rel}, tol {BF16_TOL})")
+            ring_gaps = _step_gaps("one-rank ring step", _first_step(ring_cfg, "cuda", mesh),
+                                   reference)
+            checks = {}
+            for impl in ("dense", "flash"):
+                zero_launches()
+                for causal in (True, False):
+                    checks[f"{impl} {'causal' if causal else 'full'}"] = run_ring_attention_check(
+                        seq_len=256, causal=causal, local_impl=impl)
+                torch.cuda.synchronize()
+                if impl == "flash":
+                    out["paths"]["ring check flash"] = read_launches()
+            flash_counts = out["paths"]["ring check flash"]
+            if not (flash_counts["flash_fwd_tri"] == 1 and flash_counts["flash_fwd_rect"] == 1):
+                raise RuntimeError(f"ring flash check launches {flash_counts}: expected the "
+                                   f"triangle (causal) and the general kernel (full) once each")
+        finally:
+            dist.destroy_process_group()
+    out["paths"]["one-rank mesh moe gqa packed"] = counts
+    out["one_rank"] = {"losses": sharded, "no_mesh_losses": plain, "rel_err": rel,
+                       "step_ms": mesh_ms, "gaps": mesh_gaps, "ring_losses": ring,
+                       "ring_rel_err": ring_rel, "ring_gaps": ring_gaps, "ring_checks": checks}
+    log(f"sharded: one-rank NCCL mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} (no "
+        f"collective runs on one rank): MoE + GQA + packed losses {sharded} vs no mesh {plain} "
+        f"(rel {rel:.3g}); output {mesh_gaps['out_rel']:.3g}, worst update "
+        f"{mesh_gaps['update_rel']:.3g} ({mesh_gaps['update_rel_worst']}) from the CPU's; launches "
+        f"{counts}, eager step ms {mesh_ms:.4f}; ring step (sp=1) {[round(x, 5) for x in ring]} "
+        f"(rel {ring_rel:.3g}; output {ring_gaps['out_rel']:.3g}, worst update "
+        f"{ring_gaps['update_rel']:.3g} ({ring_gaps['update_rel_worst']})); ring checks "
+        + ", ".join(
+            f"{k} {v['max_abs_err']:.3g}" for k, v in checks.items()))
+
+
+def _dryrun_on_cpu(out: dict) -> None:
+    code = "from tpu_operator_torch.entry import dryrun_multichip as d; d(8, device='cpu')"
+    start = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=pathlib.Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.monotonic() - start
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip: ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"dryrun_multichip(8, device='cpu') exited {proc.returncode}: "
+                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    if "mesh={'data': 1, 'sp': 2, 'model': 2, 'ep': 2}" not in lines[-1] or "pp=8" not in lines[-1]:
+        raise RuntimeError(f"dryrun_multichip(8) line: {lines[-1]}")
+    out["dryrun_cpu"] = {"line": lines[-1], "seconds": seconds}
+    log(f"sharded: (8 gloo ranks on the CPU, one card here, {seconds:.1f} s with the "
+        f"interpreter's start) {lines[-1]}")
+
+
+def phase_sharded() -> dict:
+    out = {"paths": {}, "moe": {}}
+    _moe_on_one_card(out)
+    _one_rank_world(out)
+    _dryrun_on_cpu(out)
+    return out
+
+
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts); the timings
@@ -1164,9 +1373,10 @@ def main(argv=None) -> int:
     results["serving"] = phase_serving()
     results["train"] = phase_train()
     results["selftest"] = phase_selftest()
+    results["sharded"] = phase_sharded()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
-             **results["selftest"]["paths"]}
+             **results["selftest"]["paths"], **results["sharded"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}

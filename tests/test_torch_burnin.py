@@ -105,10 +105,17 @@ def test_init_params_follows_reference_shapes_and_scales():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        tb.BurninConfig(sequence_parallel=True)
-    with pytest.raises(NotImplementedError):
-        tb.BurninConfig(moe_experts=4)
+    """The ring and the experts, once refused when the config was built,
+    now construct; without a mesh the one-device step refuses the ring
+    with the reference's words for a mesh that has no 'sp' axis."""
+    assert tb.BurninConfig(sequence_parallel=True).sequence_parallel
+    assert tb.BurninConfig(moe_experts=4).moe_experts == 4
+    kw = dict(SMALL, seq_len=32, sequence_parallel=True)
+    with pytest.raises(ValueError) as want:
+        jb.build_train_step(jb.make_mesh(jax.devices("cpu")[:1]), jb.BurninConfig(**kw))
+    with pytest.raises(ValueError) as got:
+        tb.build_train_step(tb.BurninConfig(**kw), "cpu")
+    assert str(got.value) == str(want.value) and "'sp'" in str(got.value)
 
 
 @pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])

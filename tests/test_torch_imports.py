@@ -5,7 +5,8 @@
   jax loaded, so ``sys.modules`` proves nothing).
 - Importing the port builds nothing and needs neither nvcc nor triton.
 - Entry points given no device raise without CUDA instead of running on
-  the CPU, and ``chip_smoke.py`` fails without a card.
+  the CPU (the multichip dry run and the process-group bootstrap too), and
+  ``chip_smoke.py`` fails without a card.
 """
 
 import ast
@@ -95,6 +96,21 @@ def test_unset_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(device="cuda")
 
+
+
+def test_multichip_entry_and_bootstrap_raise_without_cuda(monkeypatch):
+    from tpu_operator_torch.entry import dryrun_multichip
+    from tpu_operator_torch.workloads.distributed import initialize, spawn_world
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize({"TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "a,b"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spawn_world(2, print)
 
 
 def test_self_test_payloads_raise_without_cuda(monkeypatch):

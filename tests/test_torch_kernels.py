@@ -649,3 +649,50 @@ def test_int8_product_is_exact_with_either_layout(cuda, m, k, n):
     want = a.cpu().to(torch.int32) @ b.cpu().to(torch.int32)
     for operand in (b, b.t().contiguous().t()):
         assert torch.equal(_int_matmul(a, operand).cpu(), want)
+
+
+@pytest.fixture()
+def one_rank_world(cuda, tmp_path):
+    """A one-rank NCCL world on the card (the machine has one card)."""
+    import torch.distributed as dist
+
+    from tpu_operator_torch.workloads.distributed import init_local_world
+
+    init_local_world(0, 1, str(tmp_path / "store"), "cuda")
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_one_rank_sharded_step_equals_the_no_mesh_step(one_rank_world):
+    """The sharded code on a 1x1x1x1 mesh adds no arithmetic: the MoE +
+    GQA + packed step (the general pair on the card) gives the no-mesh
+    step's losses within 1e-6."""
+    from tpu_operator_torch.workloads.burnin import BurninConfig, build_train_step, make_mesh_4d
+
+    cfg = BurninConfig(d_model=64, n_heads=4, d_ff=128, seq_len=128, batch=2, n_layers=2,
+                       use_flash_attention=True, moe_experts=4, kv_heads=2, packed_segments=2)
+    mesh = make_mesh_4d(data=1, sp=1, model=1, ep=1)
+    curves = []
+    before = flash_fwd.flash_fwd_rect.launches
+    for kwargs in (dict(), dict(mesh=mesh)):
+        step, params, batch = build_train_step(cfg, "cuda", **kwargs)
+        losses = []
+        for _ in range(3):
+            params, loss = step(params, batch)
+            losses.append(float(loss))
+        curves.append(losses)
+    assert flash_fwd.flash_fwd_rect.launches == before + 2 * 2 * 3
+    assert curves[1][-1] < curves[1][0]
+    assert max(abs(a - b) / abs(b) for a, b in zip(curves[1], curves[0])) <= 1e-6, curves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal, kernel", [(True, "flash_fwd_tri"), (False, "flash_fwd_rect")])
+def test_ring_flash_check_on_the_card(one_rank_world, causal, kernel):
+    from tpu_operator_torch.workloads.ringattention import run_ring_attention_check
+
+    before = getattr(flash_fwd, kernel).launches
+    report = run_ring_attention_check(seq_len=256, causal=causal, local_impl="flash")
+    assert report["ok"] and report["max_abs_err"] < 2e-4
+    assert getattr(flash_fwd, kernel).launches == before + 1

@@ -31,20 +31,26 @@ def _load(arrays: Mapping[str, np.ndarray], shapes: Dict[str, tuple],
     return out
 
 
-def burnin_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, torch.Tensor]:
-    """The burn-in dict (``l{i}/qkv``, ``proj``, ``w1``, ``w2``,
-    ``ln_scale``, ``out_norm``) for a ``workloads.burnin.BurninConfig``."""
+def _burnin_shapes(cfg) -> Dict[str, tuple]:
     d, f = cfg.d_model, cfg.d_ff
     shapes = {"out_norm": (d,)}
     for layer in range(cfg.n_layers):
-        shapes.update({
-            f"l{layer}/qkv": (d, cfg.qkv_width),
-            f"l{layer}/proj": (d, d),
-            f"l{layer}/w1": (d, f),
-            f"l{layer}/w2": (f, d),
-            f"l{layer}/ln_scale": (d,),
-        })
-    return _load(arrays, shapes, device)
+        shapes.update({f"l{layer}/qkv": (d, cfg.qkv_width), f"l{layer}/proj": (d, d)})
+        if cfg.moe_experts:
+            e = cfg.moe_experts
+            shapes.update({f"l{layer}/router": (d, e), f"l{layer}/moe_w1": (e, d, f),
+                           f"l{layer}/moe_w2": (e, f, d)})
+        else:
+            shapes.update({f"l{layer}/w1": (d, f), f"l{layer}/w2": (f, d)})
+        shapes[f"l{layer}/ln_scale"] = (d,)
+    return shapes
+
+
+def burnin_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, torch.Tensor]:
+    """The burn-in dict (``l{i}/qkv``, ``proj``, ``w1``, ``w2`` or, with
+    experts, ``router``, ``moe_w1``, ``moe_w2``; ``ln_scale``,
+    ``out_norm``) for a ``workloads.burnin.BurninConfig``."""
+    return _load(arrays, _burnin_shapes(cfg), device)
 
 
 def serving_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, torch.Tensor]:
