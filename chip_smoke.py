@@ -32,7 +32,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    the ratio to SDPA, and for their bf16 rows the time at the tile height
    the launch plan did not pick; the general forward also at the packed
    train step's and the validator's packed shapes, a ring hop and a
-   chunked prefill (global offsets, sq != sk); then the validator payload
+   chunked prefill (global offsets, sq != sk), and the slice component's
+   shapes (phase 9); then the validator payload
    ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -77,7 +78,20 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    way; ``run_ring_attention_check(seq_len=256)``
    with the dense and the flash body, causal and full; (c)
    ``dryrun_multichip(8, device="cpu")`` in a process of its own: eight
-   gloo ranks on the CPU, since the machine has one card.
+   gloo ranks on the CPU, since the machine has one card;
+9. slice — (a) the validator's ``slice`` component in this process
+   (``run_component("slice")``, a one-rank NCCL world it builds and
+   leaves): ``slice-ready`` written, the all-reduce at 1, 4, 16 and 64 MiB
+   (``correctness_only``: one rank copies locally, so no rate is held to
+   the link), the collectives within 1e-5, the rings within 2e-4, the
+   flash check within 2e-2, the pipeline ok, and exactly
+   ``SLICE_LAUNCHES``; ``run_fabric_probe("1x1x1")`` (numerics, no
+   edges); (b) ``COMPONENT=slice python -m
+   tpu_operator_torch.validator.main`` in a process of its own, under a
+   timeout (the component retries forever); (c) the gang check: one
+   worker on the card (TCP rendezvous, NCCL), then 2 workers x 2 ranks
+   and 2 slices x 1 host x 2 ranks on gloo (one card cannot hold two
+   NCCL ranks).
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -495,6 +509,16 @@ KERNEL_CASES = [
          q=(1, 512, 4, 128), dtype=torch.bfloat16, causal=True, q_start=512),
     dict(kernel="flash_fwd_rect", label="chunked prefill bf16 q(1,128,4,128) kv 1024 q_start 896",
          q=(1, 128, 4, 128), sk=1024, dtype=torch.bfloat16, causal=True, q_start=896),
+] + [
+    # the validator's slice component on one card (phase 9): the flash
+    # check at seq 256 (plain and packed, cut 160) and the flash ring's
+    # one hop (f32, seq 128)
+    dict(kernel="flash_fwd_tri", label="slice flash check bf16 (1,256,2,128)",
+         q=(1, 256, 2, 128), dtype=torch.bfloat16),
+    dict(kernel="flash_fwd_tri", label="slice flash ring f32 (2,128,2,32)", q=(2, 128, 2, 32),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_rect", label="slice flash check packed bf16 (1,256,2,128) cut 160",
+         q=(1, 256, 2, 128), dtype=torch.bfloat16, causal=True, cut=160),
 ]
 
 
@@ -1328,6 +1352,129 @@ def phase_sharded() -> dict:
     return out
 
 
+# the validator's slice component on one card (a world of one rank): the
+# flash check's plain causal pass (the triangle, bf16) and packed pass
+# (the general kernel, bf16), and the flash ring's one hop (the triangle,
+# f32: q_start = k_start = 0 at one rank); the dense ring, the pipeline
+# and the collectives launch no kernel of the table
+SLICE_LAUNCHES = {"flash_fwd_tri": 2, "flash_fwd_rect": 1}
+SLICE_BARS = {"collectives": 1e-5, "ring_attention": 2e-4, "ring_flash_attention": 2e-4,
+              "flash_attention": BF16_TOL}
+
+
+def _check_slice_report(report: dict) -> None:
+    sizes = [r["size_mb"] for r in report["results"]]
+    if sizes != [1, 4, 16, 64] or report["correctness_only"] is not True or not report["ok"]:
+        raise RuntimeError(f"slice allreduce: sizes {sizes}, correctness_only "
+                           f"{report['correctness_only']}, ok {report['ok']}")
+    errors = {"collectives": max(report["collectives"]["errors"].values()),
+              "ring_attention": report["ring_attention"]["max_abs_err"],
+              "ring_flash_attention": report["ring_flash_attention"]["max_abs_err"],
+              "flash_attention": max(report["flash_attention"]["max_abs_err"],
+                                     report["flash_attention"]["segment_max_abs_err"])}
+    over = {k: v for k, v in errors.items() if not v <= SLICE_BARS[k]}
+    if over or not report["pipeline"]["ok"]:
+        raise RuntimeError(f"slice checks over their bars {SLICE_BARS}: {errors}, pipeline "
+                           f"{report['pipeline']}")
+
+
+def _slice_in_process(out: dict) -> None:
+    from tpu_operator_torch.validator import status as status_files
+    from tpu_operator_torch.validator.main import Context, run_component
+    from tpu_operator_torch.workloads.distributed import gang_world
+    from tpu_operator_torch.workloads.fabric import run_fabric_probe
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        start = time.monotonic()
+        report = run_component("slice", Context(validation_dir=tmp), max_attempts=1)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - start
+        counts = read_launches()
+        written = status_files.read_status("slice-ready", tmp)
+    if written != report:
+        raise RuntimeError(f"slice-ready holds {written}, the component returned {report}")
+    expected = {k: SLICE_LAUNCHES.get(k, 0) for k in counts}
+    if counts != expected:
+        raise RuntimeError(f"validator slice: launches {counts}, expected {expected}")
+    _check_slice_report(report)
+    with gang_world():
+        probe = run_fabric_probe("1x1x1")
+    if not (probe["ok"] and probe["edges"] == {} and probe["axis_allreduce_us"] == {}):
+        raise RuntimeError(f"run_fabric_probe('1x1x1'): {probe}")
+    out["paths"]["validator slice"] = counts
+    out["component"], out["component_s"], out["fabric_1x1x1"] = report, seconds, probe
+    log(f"slice: run_component('slice') in process, one-rank NCCL world, {seconds:.1f} s: "
+        f"slice-ready written; allreduce (a local copy, no link) " + ", ".join(
+            f"{r['size_mb']} MiB {r['time_ms']:.4f} ms {r['busbw_gbps']:.1f} GB/s"
+            for r in report["results"])
+        + f"; collectives {report['collectives']['errors']}; rings "
+        f"{report['ring_attention']['max_abs_err']:.3g} / "
+        f"{report['ring_flash_attention']['max_abs_err']:.3g} (flash); flash check "
+        f"{report['flash_attention']['max_abs_err']:.3g} / "
+        f"{report['flash_attention']['segment_max_abs_err']:.3g} (packed); pipeline losses "
+        f"{report['pipeline']['losses']}; launches {counts}; fabric 1x1x1 numerics ok, no edges")
+
+
+def _slice_from_a_shell(out: dict) -> None:
+    from tpu_operator_torch.validator import status as status_files
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, COMPONENT="slice", VALIDATION_DIR=tmp)
+        start = time.monotonic()
+        # the component retries forever: the timeout counts as a failure
+        proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.validator.main"],
+                              cwd=pathlib.Path(__file__).resolve().parent, env=env,
+                              capture_output=True, text=True, timeout=300)
+        seconds = time.monotonic() - start
+        written = status_files.read_status("slice-ready", tmp)
+    if proc.returncode != 0 or written is None:
+        raise RuntimeError(f"COMPONENT=slice exited {proc.returncode}, slice-ready {written}: "
+                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    _check_slice_report(written)
+    out["shell"] = {"seconds": seconds, "report": written}
+    log(f"slice: COMPONENT=slice python -m tpu_operator_torch.validator.main exited 0 in "
+        f"{seconds:.1f} s (the interpreter's start included), slice-ready written")
+
+
+def _gang_checks(out: dict) -> None:
+    from tpu_operator_torch.workloads.multiproc import run_multiprocess_check, run_multislice_check
+
+    runs = {
+        "1 worker x 1 card, NCCL": lambda: run_multiprocess_check(
+            num_workers=1, devices_per_worker=1, timeout=300),
+        "2 workers x 2 ranks, gloo": lambda: run_multiprocess_check(
+            num_workers=2, devices_per_worker=2, timeout=300, device="cpu"),
+        "2 slices x 1 host x 2 ranks, gloo": lambda: run_multislice_check(
+            num_slices=2, hosts_per_slice=1, devices_per_worker=2, timeout=300, device="cpu"),
+    }
+    out["gang"] = {}
+    for name, run in runs.items():
+        start = time.monotonic()
+        report = run()
+        seconds = time.monotonic() - start
+        platforms = {w["platform"] for w in report["workers"]}
+        want = {"cuda"} if "NCCL" in name else {"cpu"}
+        if not (report["ok"] and report["psum_ok"] and platforms == want
+                and report["ring_attention_max_err"] < 1e-4):
+            raise RuntimeError(f"gang check {name}: {report}")
+        out["gang"][name] = dict(report, seconds=seconds)
+        log(f"slice: gang check {name}: {report['global_devices']} ranks, psum ok, chain "
+            f"{report['psum_chain_ms']:.4f} ms per all-reduce, ring err "
+            f"{report['ring_attention_max_err']:.3g}, {seconds:.1f} s with the workers' start")
+
+
+def phase_slice() -> dict:
+    out = {"paths": {}}
+    start = time.monotonic()
+    _slice_in_process(out)
+    _slice_from_a_shell(out)
+    _gang_checks(out)
+    out["seconds"] = time.monotonic() - start
+    log(f"slice: phase 9 in {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts); the timings
@@ -1374,9 +1521,11 @@ def main(argv=None) -> int:
     results["train"] = phase_train()
     results["selftest"] = phase_selftest()
     results["sharded"] = phase_sharded()
+    results["slice"] = phase_slice()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
-             **results["selftest"]["paths"], **results["sharded"]["paths"]}
+             **results["selftest"]["paths"], **results["sharded"]["paths"],
+             **results["slice"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}

@@ -1,10 +1,13 @@
 """The port's bring-up (``workloads/distributed.py``): the gang env
 contract against the JAX package's ``config_from_env`` (the twins of its
-``TestDistributed``), and the local launcher ``spawn_world`` — results in
+``TestDistributed``), the gang world of hosts × local ranks (a host's
+local ranks follow it; hosts that disagree on their count fail before
+the world forms), and the local launcher ``spawn_world`` — results in
 rank order, a rank's exception raised with its traceback, and a world
 that does not finish failing within its deadline instead of hanging.
 """
 
+import dataclasses
 import time
 
 import pytest
@@ -104,6 +107,40 @@ def test_spawn_world_deadline_stops_a_hung_world():
     with pytest.raises((TimeoutError, RuntimeError)):
         td.spawn_world(2, _hang_on_rank_one, device="cpu", timeout=10)
     assert time.monotonic() - start < 40
+
+
+# rank: (host, local rank, the host's local rank count): host 0 starts one
+# rank, host 1 two, so the hosts disagree
+MISMATCHED = {0: (0, 0, 1), 1: (1, 0, 2), 2: (1, 1, 2)}
+
+
+def _host_with_local_ranks(rank, port):
+    host, local_rank, local_size = MISMATCHED[rank]
+    env = {"TPU_WORKER_HOSTNAMES": "127.0.0.1,127.0.0.1", "TPU_WORKER_ID": str(host)}
+    try:
+        td.initialize(env, coordinator_port=port, device="cpu", timeout=60,
+                      local_rank=local_rank, local_size=local_size)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def test_hosts_with_different_local_rank_counts_fail_before_the_world_forms():
+    from tpu_operator_torch.workloads.multiproc import _free_port
+
+    start = time.monotonic()
+    got = td.spawn_ranks(3, _host_with_local_ranks, (_free_port(),), device="cpu", timeout=120)
+    assert got == ["hosts start different numbers of local ranks (process id: local ranks) "
+                   "{'0': 1, '1': 2}; every host must start the same number"] * 3
+    assert time.monotonic() - start < 60
+
+
+def test_gang_config_places_local_ranks_after_their_host():
+    cfg = td.config_from_env(ENVS["multi_host_gang"])
+    placed = [dataclasses.replace(cfg, local_rank=r, local_size=2) for r in range(2)]
+    assert [(c.rank, c.world_size, c.needed) for c in placed] == [(6, 8, True), (7, 8, True)]
+    with pytest.raises(ValueError, match=r"local rank 2 outside \[0, 2\)"):
+        td.initialize({}, device="cpu", local_rank=2, local_size=2)
 
 
 def test_spawn_world_needs_a_card_per_rank(monkeypatch):

@@ -46,6 +46,7 @@ TIMED = {
     "timing bf16 (1,4096,8,128) full": (128, 256),            # 8 rows x 32 tiles of 128
     "ring hop bf16 (1,512,4,128) q_start 512": (64, 32),
     "chunked prefill bf16 q(1,128,4,128) kv 1024 q_start 896": (64, 8),  # 4 rows x 2 tiles
+    "slice flash check packed bf16 (1,256,2,128) cut 160": (64, 8),  # 2 rows x 4 tiles
 }
 
 # (causal, window) of the walks: full, plain causal, and window bands

@@ -5,8 +5,8 @@
   jax loaded, so ``sys.modules`` proves nothing).
 - Importing the port builds nothing and needs neither nvcc nor triton.
 - Entry points given no device raise without CUDA instead of running on
-  the CPU (the multichip dry run and the process-group bootstrap too), and
-  ``chip_smoke.py`` fails without a card.
+  the CPU (the multichip dry run, the process-group bootstrap and the
+  slice's payloads too), and ``chip_smoke.py`` fails without a card.
 """
 
 import ast
@@ -111,6 +111,22 @@ def test_multichip_entry_and_bootstrap_raise_without_cuda(monkeypatch):
         initialize({"TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "a,b"})
     with pytest.raises(RuntimeError, match="CUDA"):
         spawn_world(2, print)
+
+
+def test_slice_payloads_raise_without_cuda(monkeypatch):
+    from tpu_operator_torch.validator.main import Context, validate_slice
+    from tpu_operator_torch.workloads.allreduce import run_allreduce
+    from tpu_operator_torch.workloads.collectives import run_collectives_check
+    from tpu_operator_torch.workloads.distributed import gang_world
+    from tpu_operator_torch.workloads.fabric import run_fabric_probe
+    from tpu_operator_torch.workloads.multiproc import run_multiprocess_check, run_multislice_check
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (run_allreduce, run_collectives_check, lambda: run_fabric_probe("1x1x1"),
+                 run_multiprocess_check, run_multislice_check, lambda: validate_slice(Context()),
+                 lambda: gang_world().__enter__()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_self_test_payloads_raise_without_cuda(monkeypatch):

@@ -696,3 +696,27 @@ def test_ring_flash_check_on_the_card(one_rank_world, causal, kernel):
     report = run_ring_attention_check(seq_len=256, causal=causal, local_impl="flash")
     assert report["ok"] and report["max_abs_err"] < 2e-4
     assert getattr(flash_fwd, kernel).launches == before + 1
+
+
+@pytest.mark.cuda
+def test_allreduce_on_a_one_rank_nccl_world(one_rank_world):
+    """The one-rank all-reduce still calls NCCL (a local copy, so no rate
+    is held to the link's peak)."""
+    from tpu_operator_torch.workloads.allreduce import run_allreduce
+
+    report = run_allreduce(sizes_mb=(1, 4), iters=4)
+    assert report["ok"] and report["devices"] == 1 and report["platform"] == "cuda"
+    assert report["correctness_only"]
+    assert all(r["algbw_gbps"] == r["busbw_gbps"] > 0 for r in report["results"])
+
+
+@pytest.mark.cuda
+def test_collectives_and_fabric_on_a_one_rank_nccl_world(one_rank_world):
+    from tpu_operator_torch.workloads.collectives import run_collectives_check
+    from tpu_operator_torch.workloads.fabric import run_fabric_probe
+
+    report = run_collectives_check()
+    assert report["ok"] and report["devices"] == 1
+    assert max(report["errors"].values()) <= 1e-5
+    probe = run_fabric_probe("1x1x1")
+    assert probe["ok"] and probe["edges"] == {} and probe["platform"] == "cuda"

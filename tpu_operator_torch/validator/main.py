@@ -1,13 +1,21 @@
-"""tpu-validator's in-pod component on the card (port of
+"""tpu-validator's in-pod components on the card (port of
 ``tpu_operator/validator/main.py``).
 
-One component is ported: ``smoke``, the payload of the workload pod (the
-``vectorAdd`` analog): the device smoke on every local card, then, with a
-``minTflops`` floor configured, the bf16 matmul rate of every card, the
-slowest held to the floor. The dispatch on ``COMPONENT``, the retry loop
-and the status files are the reference's. Its other components do no
-accelerator work (``libtpu``, ``plugin``, ``workload``) or wait for the
-port's ring attention and distributed bring-up (``slice``).
+Two components are ported, the two that do accelerator work:
+
+    smoke   the payload of the workload pod (the ``vectorAdd`` analog):
+            the device smoke on every local card, then, with a
+            ``minTflops`` floor configured, the bf16 matmul rate of every
+            card, the slowest held to the floor;
+    slice   the multi-host check: the gang's world from its env (one rank
+            per local card), the all-reduce in GB/s per card (held to
+            ``minPsumGbpsPerChip`` on more than one card), the ring
+            attention, pipeline and flash checks and the collective
+            primitives; writes ``slice-ready``.
+
+The dispatch on ``COMPONENT``, the retry loop and the status files are
+the reference's. Its other components (``libtpu``, ``plugin``,
+``workload``) do no accelerator work.
 """
 
 from __future__ import annotations
@@ -139,9 +147,74 @@ def validate_smoke(ctx: Context) -> dict:
     return report
 
 
+def _validate_slice_rank(local_rank: int, ctx: Context, local_size: int) -> dict:
+    """One rank's slice check in the gang's world (the reference's order
+    and sizes)."""
+    import torch.distributed as dist
+
+    from tpu_operator_torch.workloads import (
+        allreduce,
+        collectives,
+        distributed,
+        flashattention,
+        pipeline,
+        ringattention,
+    )
+
+    with distributed.gang_world(local_rank=local_rank, local_size=local_size,
+                                device=ctx.device) as gang:
+        report = allreduce.run_allreduce(device=ctx.device)
+        report["hosts"] = gang.num_processes
+        report["process_id"] = gang.process_id
+        if report.get("devices", 0) > 1:
+            # the bandwidth floor only means something on a real
+            # multi-card ring; one card measures a local copy, not a link
+            enforce_floor(
+                "psum bus GB/s/chip",
+                report.get("peak_busbw_gbps_per_chip", 0.0),
+                ctx.min_psum_gbps_per_chip,
+            )
+        n = dist.get_world_size()
+        report["ring_attention"] = ringattention.run_ring_attention_check(
+            seq_len=max(128, 32 * n)
+        )
+        report["pipeline"] = pipeline.run_pipeline_check()
+        # the within-card half of the long-context story: the flash
+        # kernels must agree with dense attention on this node's card
+        report["flash_attention"] = flashattention.run_flash_attention_check(
+            seq_len=256, block_q=128, block_k=128, device=ctx.device
+        )
+        # and the two levels composed: flash as the ring's local attention
+        report["ring_flash_attention"] = ringattention.run_ring_attention_check(
+            seq_len=max(128, 32 * n), local_impl="flash"
+        )
+        # the full collective-primitive set; max(n, ...) keeps the payload
+        # nonzero on worlds wider than 2048
+        report["collectives"] = collectives.run_collectives_check(
+            per_device=max(n, (2048 // n) * n), device=ctx.device
+        )
+    return report
+
+
+def validate_slice(ctx: Context) -> dict:
+    """Multi-host check: every local card is one rank of the gang's world
+    (``distributed.gang_world`` from the gang env), which runs the
+    all-reduce (GB/s per card), the ring attention over the whole world,
+    the pipeline over it, the flash check on each card, the flash ring
+    and the collective primitives. One card runs in this process; K cards
+    start K ranks, and local rank 0's report is the pod's."""
+    from tpu_operator_torch.workloads.distributed import spawn_ranks
+
+    local = len(local_devices(ctx.device))
+    if local == 1:
+        return _validate_slice_rank(0, ctx, 1)
+    return spawn_ranks(local, _validate_slice_rank, (ctx, local), device=ctx.device)[0]
+
+
 COMPONENTS: Dict[str, tuple] = {
     # name -> (fn, status file)
     "smoke": (validate_smoke, None),
+    "slice": (validate_slice, "slice-ready"),
 }
 
 

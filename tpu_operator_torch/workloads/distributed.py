@@ -3,21 +3,29 @@
 
 The slice manager renders a gang's identity as environment variables
 (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES`` and, across slices,
-``MEGASCALE_*``). :func:`config_from_env` turns them into a world exactly
-as the reference does, and :func:`initialize` hands that world to
-``torch.distributed.init_process_group``: ``tcp://<coordinator>``, rank =
-process id, world size = process count, NCCL on CUDA and gloo only when
-the caller names the CPU.
+``MEGASCALE_*``). :func:`config_from_env` turns them into the hosts'
+world exactly as the reference does. A JAX process drives every chip of
+its host; here one process drives one card, so a host starts one rank
+per local card (torchrun's layout): :func:`initialize` joins rank
+``process_id × local_size + local_rank`` of a world of ``num_processes ×
+local_size`` ranks through a TCP store at the coordinator, NCCL on CUDA
+(rank r of a host on card ``local_rank``) and gloo only when the caller
+names the CPU. :func:`gang_world` does the same for the length of a
+``with`` block, and builds a world of one rank where the gang is one
+process on one card.
 
 :func:`spawn_world` starts a world of ``n`` local processes (the ``spawn``
 start method, one rendezvous file in a temporary directory) and returns
-what each rank's function returned. Every world has a deadline: the
-process group's collectives time out, and the launcher kills every rank
-and raises when the world has not finished in time or a rank failed.
+what each rank's function returned; :func:`spawn_ranks` starts the
+processes and leaves joining a world to the function. Every world has a
+deadline: the process group's collectives time out, and the launcher
+kills every rank and raises when the world has not finished in time or a
+rank failed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -41,10 +49,21 @@ class DistributedConfig:
     coordinator_address: Optional[str]
     num_processes: int
     process_id: int
+    # this process's card among its host's (one rank per local card)
+    local_rank: int = 0
+    local_size: int = 1
+
+    @property
+    def rank(self) -> int:
+        return self.process_id * self.local_size + self.local_rank
+
+    @property
+    def world_size(self) -> int:
+        return self.num_processes * self.local_size
 
     @property
     def needed(self) -> bool:
-        return self.num_processes > 1
+        return self.world_size > 1
 
 
 def config_from_env(env: Optional[Mapping[str, str]] = None,
@@ -104,23 +123,73 @@ def _backend(dev: torch.device) -> str:
 
 def initialize(env: Optional[Mapping[str, str]] = None, coordinator_port: int = 8476,
                backend: Optional[str] = None, device: DeviceLike = None,
-               timeout: float = DEFAULT_TIMEOUT_S) -> DistributedConfig:
-    """Join the gang's process group when the env describes more than one
-    process; a single host is a no-op. The device is resolved first, so
-    with no device and no CUDA this raises instead of joining a CPU world."""
+               timeout: float = DEFAULT_TIMEOUT_S, local_rank: int = 0,
+               local_size: int = 1) -> DistributedConfig:
+    """Join the gang's process group as local rank ``local_rank`` of
+    ``local_size`` on this host when the world has more than one rank; a
+    single process on a single card is a no-op. Every host must start the
+    same number of local ranks: a mismatch raises ``ValueError`` on every
+    rank before the process group forms (it would deadlock there). The
+    device is resolved first, so with no device and no CUDA this raises
+    instead of joining a CPU world."""
     dev = resolve_device(device)
-    cfg = config_from_env(env, coordinator_port)
+    if not 0 <= local_rank < local_size:
+        raise ValueError(f"local rank {local_rank} outside [0, {local_size})")
+    cfg = dataclasses.replace(config_from_env(env, coordinator_port), local_rank=local_rank,
+                              local_size=local_size)
     if cfg.needed:
-        if dev.type == "cuda":
-            torch.cuda.set_device(cfg.process_id % torch.cuda.device_count())
-        dist.init_process_group(
-            backend or _backend(dev),
-            init_method=f"tcp://{cfg.coordinator_address}",
-            rank=cfg.process_id,
-            world_size=cfg.num_processes,
-            timeout=datetime.timedelta(seconds=timeout),
-        )
+        _join(cfg, backend or _backend(dev), dev, timeout, coordinator_port)
     return cfg
+
+
+def _join(cfg: DistributedConfig, backend: str, dev: torch.device, timeout: float,
+          coordinator_port: int) -> None:
+    """init_process_group over a TCP store at the coordinator (on a single
+    host with no hostnames, the loopback at ``coordinator_port``; port 0
+    picks a free one, which only a world of one rank can use)."""
+    if dev.type == "cuda":
+        torch.cuda.set_device(cfg.local_rank)
+    host, _, port = (cfg.coordinator_address or f"127.0.0.1:{coordinator_port}").rpartition(":")
+    span = datetime.timedelta(seconds=timeout)
+    store = dist.TCPStore(host.strip("[]"), int(port), is_master=cfg.rank == 0, timeout=span,
+                          wait_for_workers=False)
+    sizes = dist.PrefixStore("local_size", store)
+    if cfg.local_rank == 0:
+        sizes.set(str(cfg.process_id), str(cfg.local_size))
+    hosts = [str(p) for p in range(cfg.num_processes)]
+    sizes.wait(hosts)
+    declared = {p: int(sizes.get(p)) for p in hosts}
+    sizes.add("read", 1)
+    if set(declared.values()) != {cfg.local_size}:
+        if cfg.rank == 0:
+            # the store lives in this process: every rank reads before it goes
+            end = time.monotonic() + timeout
+            while sizes.add("read", 0) < sum(declared.values()) and time.monotonic() < end:
+                time.sleep(0.05)
+        raise ValueError(f"hosts start different numbers of local ranks (process id: local "
+                         f"ranks) {declared}; every host must start the same number")
+    dist.init_process_group(backend, store=store, rank=cfg.rank, world_size=cfg.world_size,
+                            timeout=span)
+
+
+@contextlib.contextmanager
+def gang_world(coordinator_port: int = 8476, local_rank: int = 0, local_size: int = 1,
+               device: DeviceLike = None):
+    """The world of the gang this process's env describes, for the body
+    of a ``with`` block (yields the :class:`DistributedConfig`):
+    :func:`initialize`, or, where the gang is one process on one card, a
+    world of this rank alone, so that its collectives still run (one rank
+    still builds and calls an NCCL communicator). The process group is
+    destroyed on the way out."""
+    dev = resolve_device(device)
+    cfg = initialize(coordinator_port=coordinator_port, device=dev, local_rank=local_rank,
+                     local_size=local_size)
+    if not cfg.needed:
+        _join(cfg, _backend(dev), dev, DEFAULT_TIMEOUT_S, coordinator_port=0)
+    try:
+        yield cfg
+    finally:
+        dist.destroy_process_group()
 
 
 def init_local_world(rank: int, world_size: int, store_path: str, device: DeviceLike = None,
@@ -141,18 +210,22 @@ def init_local_world(rank: int, world_size: int, store_path: str, device: Device
     return dev
 
 
-def _rank_main(rank: int, world_size: int, store_path: str, device: str, timeout: float,
-               call_path: str, results) -> None:
+def _in_local_world(rank: int, world_size: int, store_path: str, device: str, timeout: float,
+                    fn: Callable, args: Sequence) -> Any:
+    init_local_world(rank, world_size, store_path, device, timeout)
+    result = fn(*args)
+    dist.destroy_process_group()
+    return result
+
+
+def _rank_main(rank: int, call_path: str, results) -> None:
     torch.set_num_threads(1)
     try:
         with open(call_path, "rb") as f:
-            fn, args = pickle.load(f)  # written by spawn_world for this world
-        init_local_world(rank, world_size, store_path, device, timeout)
-        results.put((rank, True, fn(*args)))
+            fn, args = pickle.load(f)  # written by spawn_ranks for this launch
+        results.put((rank, True, fn(rank, *args)))
     except BaseException:  # reported to the launcher, which raises it
         results.put((rank, False, traceback.format_exc()))
-        return  # the launcher stops the other ranks
-    dist.destroy_process_group()
 
 
 def _failures(n: int, failed: dict, results, grace_s: float = 2.0) -> str:
@@ -188,6 +261,18 @@ def spawn_world(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = 
     gloo world. A rank's exception, a rank that dies, or a world that has
     not finished within ``timeout`` seconds stops every rank and raises."""
     dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        return spawn_ranks(n, _in_local_world, (n, os.path.join(tmp, "store"), dev.type, timeout,
+                                                fn, tuple(args)), dev, timeout)
+
+
+def spawn_ranks(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = None,
+                timeout: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+    """Run ``fn(rank, *args)`` in ``n`` local processes, rank 0 to n - 1,
+    each of which joins its world itself (``initialize``, ``gang_world``),
+    and return the results in rank order; needs ``n`` cards on CUDA. The
+    deadline and the failure reports are :func:`spawn_world`'s."""
+    dev = resolve_device(device)
     if dev.type == "cuda" and torch.cuda.device_count() < n:
         raise RuntimeError(f"a world of {n} ranks needs {n} CUDA devices, "
                            f"have {torch.cuda.device_count()}")
@@ -195,14 +280,12 @@ def spawn_world(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = 
     results = ctx.Queue()
     deadline = time.monotonic() + timeout
     with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
         # the call goes by file: a start's pipe holds 64 KiB, and a larger
         # payload would wait for each rank's interpreter to start in turn
         call = os.path.join(tmp, "call.pkl")
         with open(call, "wb") as f:
             pickle.dump((fn, tuple(args)), f)
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, n, store, dev.type, timeout, call, results))
+        procs = [ctx.Process(target=_rank_main, daemon=True, args=(r, call, results))
                  for r in range(n)]
         try:
             for p in procs:

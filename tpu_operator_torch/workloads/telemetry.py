@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 
 def _percentile(sorted_values: List[float], q: float) -> float:
@@ -150,3 +150,71 @@ def burnin_flops_per_step(cfg) -> float:
     # GQA shrinks the KV projections above, not the attention math)
     attn = cfg.n_layers * 6.0 * 2.0 * b * s * s * cfg.n_heads * head
     return dense + attn
+
+
+def merge_gang_reports(
+    reports: Dict[str, dict],
+    expected_hosts: Optional[List[str]] = None,
+) -> dict:
+    """Merge per-host step reports into the gang artifact the slice
+    manager publishes. ``reports`` maps host name -> report dict
+    (``StepTimeReport.to_dict`` shape). The straggler ratio is the
+    slowest host's median step over the gang median of host medians —
+    1.0 for a uniform gang (including the single-host gang, which has
+    nobody to straggle behind), >1 when one host drags the collective
+    (in a gang every host's step time is gated by the slowest member's,
+    so the artifact keys off each host's OWN median, which the per-host
+    recorders measured before the collectives coupled them, or which a
+    post-mortem merge reads from their independent runs).
+
+    Degenerate inputs are part of the contract: a report whose run
+    recorded zero executed steps carries a 0.0 median and is excluded
+    from the ratio (an unmeasured host must not read as infinitely
+    fast), and when ``expected_hosts`` names the full gang, members
+    that never reported are listed in ``missing_hosts`` — a silently
+    absent report is itself a finding, not a smaller gang."""
+    if not reports:
+        raise ValueError("no per-host reports to merge")
+    medians = {
+        host: float(r.get("step_p50_s", 0.0))
+        for host, r in reports.items()
+        if float(r.get("step_p50_s", 0.0)) > 0.0
+    }
+    if not medians:
+        # every report is empty: publish a shape-correct artifact that
+        # cannot fake a ratio (nothing was measured)
+        artifact = {
+            "hosts": len(reports),
+            "gang_step_p50_s": 0.0,
+            "gang_step_max_s": 0.0,
+            "straggler_ratio": 1.0,
+            "slowest_host": "",
+            "per_host_step_p50_s": {},
+        }
+        if expected_hosts is not None:
+            artifact["missing_hosts"] = sorted(set(expected_hosts) - set(reports))
+        return artifact
+    ordered = sorted(medians.values())
+    gang_median = _percentile(ordered, 0.50)
+    slowest_host = max(medians, key=lambda h: medians[h])
+    straggler_ratio = (
+        medians[slowest_host] / gang_median if gang_median > 0 else 1.0
+    )
+    tflops = [
+        float(r["tflops"]) for r in reports.values() if r.get("tflops") is not None
+    ]
+    artifact = {
+        "hosts": len(reports),
+        "gang_step_p50_s": round(gang_median, 6),
+        "gang_step_max_s": round(ordered[-1], 6),
+        "straggler_ratio": round(straggler_ratio, 3),
+        "slowest_host": slowest_host,
+        "per_host_step_p50_s": {h: round(m, 6) for h, m in sorted(medians.items())},
+    }
+    if tflops:
+        artifact["gang_tflops"] = round(sum(tflops), 2)
+    if expected_hosts is not None:
+        missing = sorted(set(expected_hosts) - set(reports))
+        if missing:
+            artifact["missing_hosts"] = missing
+    return artifact
