@@ -91,7 +91,21 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    timeout (the component retries forever); (c) the gang check: one
    worker on the card (TCP rendezvous, NCCL), then 2 workers x 2 ranks
    and 2 slices x 1 host x 2 ranks on gloo (one card cannot hold two
-   NCCL ranks).
+   NCCL ranks);
+10. trainer — (a) the elastic trainer (``ResumableTrainer``) at
+   ``entry()`` widths with flash attention, bf16, in a temporary store:
+   24 steps, a checkpoint every 5, an injected fault at 13, a resume to
+   10, then to the end. ``verify_continuity`` must hold with one rewind
+   and 2 lost steps, the re-executed steps must give their first run's
+   losses bit for bit, and the first 3 losses stay within bf16 tolerance
+   of the dense path's from the same params; with the newest checkpoint
+   torn, a new trainer resumes at 20 and finishes. (b) ``JobWorkerMain``
+   under ``_DictClient`` (a TPUJob of 12 steps, its slice Scheduled on
+   one node): a ``grow-`` barrier acked with a checkpoint, a
+   ``defrag-`` barrier that holds the generation, and a fresh main of
+   the next generation that resumes there and reaches ``complete``.
+   Every run launches each triangle kernel exactly twice per executed
+   step (once per layer) and nothing else.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -117,6 +131,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1475,6 +1490,305 @@ def phase_slice() -> dict:
     return out
 
 
+# phase 10: the elastic trainer at the flagship's widths, bf16, flash
+TRAINER_OVERRIDES = {"d_model": 256, "n_heads": 4, "d_ff": 1024, "seq_len": 128, "batch": 8,
+                     "n_layers": 2, "use_flash_attention": True}
+TRAINER_RUN = {"total_steps": 24, "checkpoint_every": 5, "fail_at_steps": (13,)}
+# The trainer against another path from the same seeded start (here a
+# plain loop of the step, in scripts/multicard_check.py a one-card run):
+# its losses, relative, and its final params, as the norm of the
+# difference over the norm of the other path's change from the start. A
+# loss of ~2.0 moves only ~1.6e-2 over 24 steps, so the losses alone
+# cannot tell a trainer that never updates (its params read 1 here).
+TRAINER_LOSS_TOL, TRAINER_PARAMS_TOL = 1e-3, 2e-2
+
+
+def host_arrays(params: dict) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+
+
+def params_gap(got: dict, ref: dict, start: dict) -> float:
+    """||got - ref|| / ||ref - start|| over every parameter."""
+    diff = sum(float(np.sum(np.square(got[k].astype(np.float64) - ref[k]))) for k in ref)
+    moved = sum(float(np.sum(np.square(ref[k].astype(np.float64) - start[k]))) for k in ref)
+    return math.sqrt(diff / moved)
+
+
+def _trainer_launches(counts: dict, cfg, steps: int, what: str) -> None:
+    """Each triangle kernel once per layer and executed step, no other."""
+    expected = _expected_launches(counts, cfg, steps)
+    if counts != expected:
+        raise RuntimeError(f"{what}: launches {counts}, expected {expected} for {steps} steps")
+
+
+def _timed_checkpoints(trainer) -> list:
+    """Wall seconds of each of the trainer's checkpoint() calls (gather,
+    serialize, hash, write), appended to the returned list."""
+    seconds, checkpoint = [], trainer.checkpoint
+
+    def timed():
+        start = time.perf_counter()
+        epoch = checkpoint()
+        seconds.append(time.perf_counter() - start)
+        return epoch
+    trainer.checkpoint = timed
+    return seconds
+
+
+def _trainer_on_the_card(out: dict, device: str) -> None:
+    from tpu_operator_torch.workloads.burnin import build_train_step
+    from tpu_operator_torch.workloads.checkpoint import CheckpointStore
+    from tpu_operator_torch.workloads.training import (
+        ResumableTrainer,
+        TrainerError,
+        trainer_config,
+        verify_continuity,
+    )
+
+    cfg = trainer_config(TRAINER_OVERRIDES)
+    total = TRAINER_RUN["total_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp)
+        trainer = ResumableTrainer(store, cfg, device=device, **TRAINER_RUN)
+        saves = _timed_checkpoints(trainer)
+        zero_launches()
+        trainer.resume(1)
+        try:
+            trainer.run(total)
+            raise RuntimeError("trainer: the injected fault at step 13 did not fire")
+        except TrainerError as e:
+            log(f"trainer: {e} (at step {trainer.step}, checkpoint {trainer.checkpoint_step})")
+        trainer.resume(1)
+        trainer.run(total)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = read_launches()
+        executed = len(trainer.history)
+        _trainer_launches(counts, cfg, executed, "trainer")
+        report = verify_continuity(trainer.history, trainer.checkpoints, total)
+        if not (trainer.done and report["ok"] and report["rewinds"] == 1
+                and report["max_lost_steps"] == 2):
+            raise RuntimeError(f"trainer: continuity {report}")
+        first = {}
+        reruns = {}
+        for h in trainer.history:
+            if h["step"] in first:
+                reruns[h["step"]] = (first[h["step"]], h["loss"])
+            else:
+                first[h["step"]] = h["loss"]
+        if sorted(reruns) != [11, 12] or any(a != b for a, b in reruns.values()):
+            raise RuntimeError(f"trainer: re-executed losses differ from their first run: {reruns}")
+        dense_cfg = dataclasses.replace(cfg, use_flash_attention=False)
+        dense = _step_losses(*build_train_step(dense_cfg, device), 3)
+        head = [first[s] for s in (1, 2, 3)]
+        rel = _curve_rel(head, dense)
+        if not (rel <= TRAINER_LOSS_TOL and first[total] < first[1]):
+            raise RuntimeError(f"trainer: first losses {head} differ from the dense path's {dense} "
+                               f"by {rel} (relative, tol {TRAINER_LOSS_TOL}), or the curve "
+                               f"{first[1]} -> {first[total]} does not fall")
+        # the trainer's params at the end against the same step looped plainly
+        step, params, batch = build_train_step(cfg, device)
+        start = host_arrays(params)
+        for _ in range(total):
+            params, _ = step(params, batch)
+        plain = host_arrays(params)
+        gap = params_gap(store.latest_good().arrays, plain, start)
+        if not gap <= TRAINER_PARAMS_TOL:
+            raise RuntimeError(f"trainer: params at step {total} differ from a plain loop's by "
+                               f"{gap} of its change (tol {TRAINER_PARAMS_TOL})")
+        # tear the newest blob (step 24): a new trainer falls back to step 20
+        newest = store.manifest()[-1]
+        path = os.path.join(tmp, newest["file"])
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        zero_launches()
+        second = ResumableTrainer(store, cfg, device=device, total_steps=total,
+                                  checkpoint_every=TRAINER_RUN["checkpoint_every"])
+        torn = second.resume(1)
+        second.run(total)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        torn_counts = read_launches()
+        _trainer_launches(torn_counts, cfg, len(second.history), "trainer torn-blob resume")
+        torn_gap = max(abs(h["loss"] - first[h["step"]]) for h in second.history)
+        torn_params = params_gap(store.latest_good().arrays, plain, start)
+        if not (newest["step"] == total and torn.step == 20 and second.done
+                and [h["step"] for h in second.history] == [21, 22, 23, 24]
+                and torn_gap <= 1e-3 * (1 + abs(first[21]))
+                and torn_params <= TRAINER_PARAMS_TOL):
+            raise RuntimeError(f"trainer: torn-blob resume {torn}, history {second.history}, "
+                               f"params {torn_params} of the plain loop's change")
+    step_s = trainer.step_times[1][1:]
+    out["paths"]["trainer"] = counts
+    out["paths"]["trainer torn-blob resume"] = torn_counts
+    out["trainer"] = {
+        "config": dataclasses.asdict(cfg), **{k: list(v) if isinstance(v, tuple) else v
+                                              for k, v in TRAINER_RUN.items()},
+        "executed_steps": executed, "continuity": report, "losses": trainer.history,
+        "reruns": reruns, "dense_losses": dense, "head_rel_err": rel, "params_gap": gap,
+        "step_ms_median": 1e3 * statistics.median(step_s), "step_ms_min": 1e3 * min(step_s),
+        "resume_ms": [1e3 * r.latency_s for r in trainer.resumes],
+        "checkpoint_ms": [1e3 * s for s in saves],
+        "torn_blob_resume": {"newest_torn": newest["file"], "resumed_at": torn.step,
+                             "resume_ms": 1e3 * torn.latency_s, "max_loss_gap": torn_gap,
+                             "params_gap": torn_params},
+    }
+    log(f"trainer: {executed} executed steps of {total} (fault at 13, resumed at "
+        f"{trainer.resumes[1].step}), continuity ok, rewinds {report['rewinds']}, lost "
+        f"{report['max_lost_steps']}; re-executed losses equal {reruns}; first losses {head} vs "
+        f"dense {dense} (rel {rel:.3g}); params at step {total} {gap:.3g} of a plain loop's "
+        f"change; launches {counts}; step ms median "
+        f"{out['trainer']['step_ms_median']:.4f} (min {out['trainer']['step_ms_min']:.4f}); resume "
+        f"ms {[round(x, 3) for x in out['trainer']['resume_ms']]}; checkpoint ms "
+        f"{[round(x, 3) for x in out['trainer']['checkpoint_ms']]}")
+    log(f"trainer: torn {newest['file']} (step {total}) -> resumed at step {torn.step} in "
+        f"{1e3 * torn.latency_s:.3f} ms, finished, largest loss gap to the first run "
+        f"{torn_gap:.3g}, params {torn_params:.3g} of a plain loop's change; launches "
+        f"{torn_counts}")
+
+
+class NotFound(Exception):
+    """An apiserver's 404 (the port matches a client's errors by class name)."""
+
+
+class AlreadyExists(Exception):
+    """An apiserver's 409 on create."""
+
+
+class _DictClient:
+    """The smallest apiserver client the job worker needs: objects as
+    dicts, ``get_or_none``, a merge ``patch`` and ``create``."""
+
+    def __init__(self):
+        self.objects = {}
+
+    @staticmethod
+    def _key(api_version, kind, name, namespace):
+        return api_version, kind, namespace or "", name
+
+    def create(self, obj):
+        md = obj["metadata"]
+        key = self._key(obj["apiVersion"], obj["kind"], md["name"], md.get("namespace"))
+        if key in self.objects:
+            raise AlreadyExists(key)
+        self.objects[key] = copy.deepcopy(obj)
+        return copy.deepcopy(obj)
+
+    def get_or_none(self, api_version, kind, name, namespace=None):
+        obj = self.objects.get(self._key(api_version, kind, name, namespace))
+        return copy.deepcopy(obj) if obj is not None else None
+
+    def patch(self, api_version, kind, name, patch, namespace=None):
+        key = self._key(api_version, kind, name, namespace)
+        if key not in self.objects:
+            raise NotFound(key)
+
+        def merge(into, update):
+            for k, v in update.items():
+                if isinstance(v, dict) and isinstance(into.get(k), dict):
+                    merge(into[k], v)
+                elif v is None:
+                    into.pop(k, None)
+                else:
+                    into[k] = copy.deepcopy(v)
+        merge(self.objects[key], patch)
+        return copy.deepcopy(self.objects[key])
+
+
+def _job_worker(out: dict, device: str) -> None:
+    """JobWorkerMain beating under _DictClient: a checkpoint barrier acked,
+    a defrag barrier that holds this generation, and a fresh main of the
+    next generation resuming from the shared store to the end."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.dataplane.worker import JobWorkerMain
+    from tpu_operator_torch.workloads.training import trainer_config, verify_continuity
+
+    ns, job, steps = "smoke", "smoke-job", 12
+    progress_name = job + consts.JOB_PROGRESS_SUFFIX
+    client = _DictClient()
+    client.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": "h100-0"}})
+    with tempfile.TemporaryDirectory() as tmp:
+        client.create({"apiVersion": consts.TPU_JOB_API_VERSION, "kind": consts.TPU_JOB_KIND,
+                       "metadata": {"name": job},
+                       "spec": {"workload": {"steps": steps, "config": TRAINER_OVERRIDES},
+                                "checkpoint": {"everySteps": 4, "dir": tmp}}})
+        client.create({"apiVersion": consts.TPU_SLICE_API_VERSION, "kind": consts.TPU_SLICE_KIND,
+                       "metadata": {"name": job + consts.JOB_SLICE_SUFFIX},
+                       "status": {"placement": {"phase": "Scheduled", "nodes": ["h100-0"]}}})
+
+        def env(gang_hash):
+            return {consts.WORKER_ENV_JOB_NAME: job, consts.WORKER_ENV_GANG_HASH: gang_hash,
+                    consts.WORKER_ENV_CHECKPOINT_DIR: tmp, consts.WORKER_ENV_STEPS_PER_SYNC: "2"}
+
+        def progress():
+            return client.get_or_none("v1", "ConfigMap", progress_name, ns)["data"]
+
+        def request(token):
+            client.patch("v1", "ConfigMap", progress_name,
+                         {"data": {consts.JOB_CHECKPOINT_REQUEST: token}}, ns)
+
+        def beat_to(main, step):
+            for _ in range(20):
+                if main.trainer is not None and main.trainer.step >= step:
+                    return
+                main.step()
+            raise RuntimeError(f"job worker: no step {step} in 20 beats: {progress()}")
+
+        zero_launches()
+        first = JobWorkerMain(client, ns, env("g1"), device=device)
+        beat_to(first, 2)
+        request("grow-1")  # a barrier off the cadence (4): a checkpoint at step 2
+        first.step()
+        acked = progress().get(consts.JOB_PROGRESS_CHECKPOINT_ACK)
+        beat_to(first, 6)
+        request("defrag-1-0")
+        first.step()
+        held_at = first.trainer.step
+        for _ in range(3):
+            first.step()
+        data = progress()
+        if not (acked == "grow-1" and first.trainer.checkpoints[0]["step"] == 2
+                and data[consts.JOB_PROGRESS_CHECKPOINT_ACK] == "defrag-1-0"
+                and first.trainer.step == held_at and first.trainer.checkpoint_step == held_at):
+            raise RuntimeError(f"job worker: barrier ack {acked}, hold at {held_at}, trainer at "
+                               f"{first.trainer.step}, progress {data}")
+        request("")  # the controller clears the barrier for the next generation
+        second = JobWorkerMain(client, ns, env("g2"), device=device)
+        for _ in range(20):
+            if second.step():
+                break
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = read_launches()
+        data = progress()
+    trainers = [first.trainer, second.trainer]
+    history = [h for t in trainers for h in t.history]
+    report = verify_continuity(history, [c for t in trainers for c in t.checkpoints], steps)
+    if not (second.trainer.done and data[consts.JOB_PROGRESS_STATUS] == consts.JOB_PROGRESS_COMPLETE
+            and data[consts.JOB_PROGRESS_STEP] == str(steps) and report["ok"]
+            and report["max_lost_steps"] == 0 and second.trainer.resumes[0].step == held_at):
+        raise RuntimeError(f"job worker: progress {data}, continuity {report}")
+    _trainer_launches(counts, trainer_config(TRAINER_OVERRIDES), len(history), "job worker")
+    out["paths"]["job worker"] = counts
+    out["job_worker"] = {"progress": data, "continuity": report, "held_at": held_at,
+                         "executed_steps": len(history),
+                         "resume_ms": [1e3 * r.latency_s for t in trainers for r in t.resumes]}
+    log(f"trainer: JobWorkerMain to {data[consts.JOB_PROGRESS_STATUS]} at step "
+        f"{data[consts.JOB_PROGRESS_STEP]}: barrier 'grow-1' acked, 'defrag-1-0' held generation "
+        f"g1 at step {held_at}, generation g2 resumed there; continuity ok, lost "
+        f"{report['max_lost_steps']}; launches {counts}")
+
+
+def phase_trainer(device: str = "cuda") -> dict:
+    out = {"paths": {}}
+    start = time.monotonic()
+    _trainer_on_the_card(out, device)
+    _job_worker(out, device)
+    out["seconds"] = time.monotonic() - start
+    log(f"trainer: phase 10 in {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts); the timings
@@ -1522,10 +1836,11 @@ def main(argv=None) -> int:
     results["selftest"] = phase_selftest()
     results["sharded"] = phase_sharded()
     results["slice"] = phase_slice()
+    results["trainer"] = phase_trainer()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
-             **results["slice"]["paths"]}
+             **results["slice"]["paths"], **results["trainer"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}

@@ -10,13 +10,24 @@ joined by NVLink), where ``chip_smoke.py`` has one card:
 2. ``COMPONENT=slice python -m tpu_operator_torch.validator.main``: one
    pod whose local cards are all of the machine's (``--ranks`` local ranks);
 3. ``run_multiprocess_check(num_workers=2, devices_per_worker=ranks // 2)``
-   on NCCL: two loopback workers, each with its own half of the cards.
+   on NCCL: two loopback workers, each with its own half of the cards;
+4. the elastic trainer (``workloads/training.py``) at the flagship's
+   widths with flash attention, bf16: ``resume(4)``, a shrink
+   ``resume(2)`` and a grow ``resume(4)``, each past a checkpoint so that
+   steps are lost and re-executed, against one run on one card from the
+   same seeded params: continuity (re-executed steps within 1e-3 of their
+   first run), every loss within ``chip_smoke.TRAINER_LOSS_TOL`` of the
+   one-card run's, a falling curve, and the params at the last step
+   within ``chip_smoke.TRAINER_PARAMS_TOL`` of the one-card run's (the
+   norm of the difference over the norm of the one-card run's change).
+   Prints the losses, each resume's latency and the step ms of each world.
+   ``--trainer-only`` runs this step alone.
 
 Every rate (all-reduce busbw per size, each edge's GB/s) is held to at
 most 105% of NVLink 4's 450 GB/s per direction (H100 SXM data sheet: 900
 GB/s both ways); a higher reading is a timing fault. Prints each card's
 name and power limit, one line per measurement, and last a JSON line.
-``--device cpu`` rehearses steps 1 and 3 on gloo ranks (no rate bar;
+``--device cpu`` rehearses steps 1, 3 and 4 on gloo ranks (no rate bar;
 step 2 needs the cards).
 """
 
@@ -27,6 +38,7 @@ import json
 import os
 import pathlib
 import subprocess
+import statistics
 import sys
 import tempfile
 import time
@@ -60,11 +72,94 @@ def _rates(out: dict) -> dict:
     return rates
 
 
+# step 4: the schedule of worlds (hosts to resume at, steps to run) and the run
+TRAINER_TOTAL, TRAINER_EVERY = 24, 5
+TRAINER_WORLDS = ((4, 7), (2, 7), (4, TRAINER_TOTAL))  # lose 6-7, then 11-12
+
+
+def _trainer(device: str, ranks: int, card: str) -> dict:
+    """The elastic trainer on ``ranks`` cards: shrink and grow against a
+    one-card run."""
+    from chip_smoke import (
+        TRAINER_LOSS_TOL,
+        TRAINER_OVERRIDES,
+        TRAINER_PARAMS_TOL,
+        host_arrays,
+        params_gap,
+    )
+    from tpu_operator_torch.workloads.burnin import build_train_step
+    from tpu_operator_torch.workloads.checkpoint import CheckpointStore
+    from tpu_operator_torch.workloads.training import (
+        ResumableTrainer,
+        trainer_config,
+        verify_continuity,
+    )
+
+    cfg = trainer_config(TRAINER_OVERRIDES)
+    start = host_arrays(build_train_step(cfg, "cpu")[1])  # both trainers' seeded params
+    with tempfile.TemporaryDirectory() as tmp:
+        one_store = CheckpointStore(os.path.join(tmp, "one"))
+        one = ResumableTrainer(one_store, cfg, total_steps=TRAINER_TOTAL,
+                               checkpoint_every=TRAINER_EVERY, device=device)
+        one.resume(1)
+        one.run(TRAINER_TOTAL)
+        one.close()
+        elastic_store = CheckpointStore(os.path.join(tmp, "elastic"))
+        elastic = ResumableTrainer(elastic_store, cfg, total_steps=TRAINER_TOTAL,
+                                   checkpoint_every=TRAINER_EVERY, device=device,
+                                   cpu_ranks=ranks)
+        segments = []
+        try:
+            for hosts, steps in TRAINER_WORLDS:
+                info = elastic.resume(hosts)
+                done_before = len(elastic.history)
+                elastic.run(steps)
+                times = elastic.step_times[info.world][-(len(elastic.history) - done_before):]
+                segments.append({"world": info.world, "resumed_at": info.step,
+                                 "resume_s": info.latency_s, "steps": len(times),
+                                 # the first step of a world warms its kernels and caches
+                                 "step_ms_median": 1e3 * statistics.median(times[1:]),
+                                 "step_ms_min": 1e3 * min(times[1:])})
+        finally:
+            elastic.close()
+        gap = params_gap(elastic_store.latest_good().arrays, one_store.latest_good().arrays,
+                         start)
+    report = verify_continuity(elastic.history, elastic.checkpoints, TRAINER_TOTAL)
+    want = {h["step"]: h["loss"] for h in one.history}
+    rel = max(abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]]) for h in elastic.history)
+    out = {"card": card, "segments": segments, "continuity": report, "rel_to_one_card": rel,
+           "params_gap_to_one_card": gap, "losses": elastic.history,
+           "one_card_losses": one.history}
+    for s in segments:
+        print(f"trainer world {s['world']}: resumed at step {s['resumed_at']} in "
+              f"{s['resume_s']:.3f} s, {s['steps']} steps, step ms median "
+              f"{s['step_ms_median']:.4f} (min {s['step_ms_min']:.4f}) ({card})", flush=True)
+    print(f"trainer losses {[(h['step'], h['world'], round(h['loss'], 6)) for h in elastic.history]}"
+          f"; one card {[round(h['loss'], 6) for h in one.history]}; largest gap {rel:.3g} "
+          f"relative (tol {TRAINER_LOSS_TOL}); params at step {TRAINER_TOTAL} {gap:.3g} of the "
+          f"one-card run's change (tol {TRAINER_PARAMS_TOL}); continuity {report} ({card})",
+          flush=True)
+    curve = {h["step"]: h["loss"] for h in elastic.history}
+    if not (elastic.done and report["ok"] and report["rewinds"] == 2
+            and [s["world"] for s in segments] == [4, 2, 4] and rel <= TRAINER_LOSS_TOL
+            and curve[TRAINER_TOTAL] < curve[1] and gap <= TRAINER_PARAMS_TOL):
+        raise SystemExit(f"trainer: {out}")
+    return out
+
+
+def _write(path, out: dict) -> None:
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out, indent=1, default=str))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, default=4)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--json", type=pathlib.Path, default=None)
+    parser.add_argument("--trainer-only", action="store_true",
+                        help="run step 4 (the elastic trainer) alone")
     args = parser.parse_args(argv)
     import torch
 
@@ -82,6 +177,15 @@ def main(argv=None) -> int:
         for line in cards:
             print(line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    card = out["cards"][0].split(", ", 1)[1] if args.device == "cuda" else "CPU, gloo"
+    out["trainer"] = _trainer(args.device, args.ranks, card)
+    if args.trainer_only:
+        _write(args.json, out)
+        print(json.dumps({"ok": True, "ranks": args.ranks, "trainer": {
+            "continuity": out["trainer"]["continuity"]["ok"],
+            "rel_to_one_card": out["trainer"]["rel_to_one_card"],
+            "params_gap_to_one_card": out["trainer"]["params_gap_to_one_card"]}}), flush=True)
+        return 0
 
     start = time.monotonic()
     out["world"] = spawn_world(args.ranks, _world_payloads, (args.device,), device=args.device,
@@ -142,9 +246,7 @@ def main(argv=None) -> int:
     over = {k: v for k, v in rates.items() if v > bar}
     if args.device == "cuda" and over:
         raise SystemExit(f"rates above {bar} GB/s (105% of NVLink's {NVLINK_GBPS}): {over}")
-    if args.json is not None:
-        args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps(out, indent=1))
+    _write(args.json, out)
     print(json.dumps({"ok": True, "ranks": args.ranks, "rates_gbps": rates}), flush=True)
     return 0
 

@@ -129,6 +129,23 @@ def test_slice_payloads_raise_without_cuda(monkeypatch):
             call()
 
 
+def test_elastic_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    from tpu_operator_torch.dataplane.worker import JobWorkerMain
+    from tpu_operator_torch.workloads.checkpoint import CheckpointStore
+    from tpu_operator_torch.workloads.distributed import RankPool
+    from tpu_operator_torch.workloads.training import InProcessJobRunner, ResumableTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = CheckpointStore(str(tmp_path))
+    trainer = ResumableTrainer(store)
+    for call in (lambda: trainer.resume(1), lambda: RankPool(2, print),
+                 lambda: InProcessJobRunner(None, "ns", "job", store),
+                 lambda: JobWorkerMain(None, "ns", {"TPU_JOB_NAME": "job"})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not trainer.ready and trainer.resumes == []
+
+
 def test_self_test_payloads_raise_without_cuda(monkeypatch):
     from tpu_operator_torch.workloads.kernels import hbm_bandwidth_probe
     from tpu_operator_torch.workloads.smoke import run_smoke

@@ -720,3 +720,82 @@ def test_collectives_and_fabric_on_a_one_rank_nccl_world(one_rank_world):
     assert max(report["errors"].values()) <= 1e-5
     probe = run_fabric_probe("1x1x1")
     assert probe["ok"] and probe["edges"] == {} and probe["platform"] == "cuda"
+
+
+TRIANGLE_KERNELS = (flash_fwd.flash_fwd_tri, flash_bwd.flash_bwd_dq_tri,
+                    flash_bwd.flash_bwd_dkv_tri)
+OTHER_KERNELS = (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
+                 flash_bwd.flash_bwd_dkv_rect, triad.triad_kernel)
+TRAINER_CONFIG = {"d_model": 64, "n_heads": 2, "d_ff": 128, "seq_len": 128, "batch": 2,
+                  "n_layers": 2, "use_flash_attention": True}
+
+
+def _launches():
+    return [k.launches for k in TRIANGLE_KERNELS + OTHER_KERNELS]
+
+
+def _assert_trainer_launches(before, steps):
+    """Each triangle kernel once per layer (2) and executed step, no other."""
+    torch.cuda.synchronize()
+    got = [a - b for a, b in zip(_launches(), before)]
+    assert got == [2 * steps] * len(TRIANGLE_KERNELS) + [0] * len(OTHER_KERNELS), got
+
+
+@pytest.mark.cuda
+def test_trainer_fault_and_resume_on_the_card(cuda, tmp_path):
+    """The elastic trainer on the card (one rank, in process, no device
+    named): an injected fault, a resume to the checkpoint, re-executed
+    steps with the losses of their first run."""
+    from tpu_operator_torch.workloads.checkpoint import CheckpointStore
+    from tpu_operator_torch.workloads.training import (
+        ResumableTrainer,
+        TrainerError,
+        trainer_config,
+        verify_continuity,
+    )
+
+    trainer = ResumableTrainer(CheckpointStore(str(tmp_path)), trainer_config(TRAINER_CONFIG),
+                               total_steps=8, checkpoint_every=3, fail_at_steps=(6,))
+    before = _launches()
+    assert trainer.resume(1).world == 1
+    with pytest.raises(TrainerError, match="step 6"):
+        trainer.run(8)
+    assert (trainer.step, trainer.checkpoint_step) == (5, 3)
+    assert trainer.resume(1).step == 3
+    trainer.run(8)
+    assert trainer.done
+    _assert_trainer_launches(before, len(trainer.history))
+    report = verify_continuity(trainer.history, trainer.checkpoints, 8)
+    assert report["ok"] and report["rewinds"] == 1 and report["max_lost_steps"] == 2, report
+    first = {h["step"]: h["loss"] for h in trainer.history[:5]}
+    assert all(h["loss"] == first[h["step"]] for h in trainer.history[5:7])
+
+
+@pytest.mark.cuda
+def test_job_worker_on_the_card(cuda, tmp_path):
+    """JobWorkerMain (no device named) under a stub apiserver client: one
+    gang member on one card trains the job to complete."""
+    from chip_smoke import _DictClient
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.dataplane.worker import JobWorkerMain
+
+    client = _DictClient()
+    client.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": "n0"}})
+    client.create({"apiVersion": consts.TPU_JOB_API_VERSION, "kind": consts.TPU_JOB_KIND,
+                   "metadata": {"name": "job"},
+                   "spec": {"workload": {"steps": 6, "config": TRAINER_CONFIG},
+                            "checkpoint": {"everySteps": 3}}})
+    client.create({"apiVersion": consts.TPU_SLICE_API_VERSION, "kind": consts.TPU_SLICE_KIND,
+                   "metadata": {"name": "job" + consts.JOB_SLICE_SUFFIX},
+                   "status": {"placement": {"phase": "Scheduled", "nodes": ["n0"]}}})
+    main = JobWorkerMain(client, "ns", {consts.WORKER_ENV_JOB_NAME: "job",
+                                        consts.WORKER_ENV_CHECKPOINT_DIR: str(tmp_path)})
+    before = _launches()
+    for _ in range(10):
+        if main.step():
+            break
+    assert main.trainer.done and len(main.trainer.history) == 6
+    _assert_trainer_launches(before, 6)
+    data = client.get_or_none("v1", "ConfigMap", "job" + consts.JOB_PROGRESS_SUFFIX, "ns")["data"]
+    assert data[consts.JOB_PROGRESS_STATUS] == consts.JOB_PROGRESS_COMPLETE
+    assert data[consts.JOB_PROGRESS_STEP] == "6" and data[consts.JOB_PROGRESS_EPOCH] == "2"

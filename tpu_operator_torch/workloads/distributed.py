@@ -14,9 +14,11 @@ names the CPU. :func:`gang_world` does the same for the length of a
 ``with`` block, and builds a world of one rank where the gang is one
 process on one card.
 
-:func:`spawn_world` starts a world of ``n`` local processes (the ``spawn``
-start method, one rendezvous file in a temporary directory) and returns
-what each rank's function returned; :func:`spawn_ranks` starts the
+A :class:`RankPool` starts a world of ``n`` local processes (the
+``spawn`` start method, one rendezvous file in a temporary directory),
+keeps what each rank's first function returned, and runs one command
+after another on the world until it is closed; :func:`spawn_world` is a
+pool closed after its first function. :func:`spawn_ranks` starts the
 processes and leaves joining a world to the function. Every world has a
 deadline: the process group's collectives time out, and the launcher
 kills every rank and raises when the world has not finished in time or a
@@ -210,14 +212,6 @@ def init_local_world(rank: int, world_size: int, store_path: str, device: Device
     return dev
 
 
-def _in_local_world(rank: int, world_size: int, store_path: str, device: str, timeout: float,
-                    fn: Callable, args: Sequence) -> Any:
-    init_local_world(rank, world_size, store_path, device, timeout)
-    result = fn(*args)
-    dist.destroy_process_group()
-    return result
-
-
 def _rank_main(rank: int, call_path: str, results) -> None:
     torch.set_num_threads(1)
     try:
@@ -252,18 +246,61 @@ def _stop(procs) -> None:
         p.join(10)
 
 
+def _collect(procs, results, deadline: float, timeout: float) -> dict:
+    """{rank: result} once every rank of ``procs`` has reported; raises
+    when a rank reports a failure, exits without reporting, or the
+    deadline passes first."""
+    n = len(procs)
+    got = {}
+    while len(got) < n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise TimeoutError(f"a world of {n} ranks did not finish within {timeout} s "
+                               f"(ranks {sorted(set(range(n)) - set(got))} missing)")
+        try:
+            rank, ok, value = results.get(timeout=min(1.0, left))
+        except queue.Empty:
+            dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode not in (None, 0)]
+            if dead:
+                raise RuntimeError(f"rank {dead[0]} of {n} exited with code "
+                                   f"{procs[dead[0]].exitcode} before reporting")
+            continue
+        if not ok:
+            raise RuntimeError(_failures(n, {rank: value}, results))
+        got[rank] = value
+    return got
+
+
+def _cards_for(n: int, device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"a world of {n} ranks needs {n} CUDA devices, "
+                           f"have {torch.cuda.device_count()}")
+    return dev
+
+
+def _write_call(tmp: str, fn: Callable, args: Sequence) -> str:
+    """The ranks' call, pickled into ``tmp``: it goes by file, since a
+    start's pipe holds 64 KiB, and a larger payload would wait for each
+    rank's interpreter to start in turn."""
+    call = os.path.join(tmp, "call.pkl")
+    with open(call, "wb") as f:
+        pickle.dump((fn, tuple(args)), f)
+    return call
+
+
 def spawn_world(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = None,
                 timeout: float = DEFAULT_TIMEOUT_S) -> List[Any]:
     """Run ``fn(*args)`` on every rank of a new world of ``n`` local
-    processes and return the results in rank order. ``fn`` must be
+    processes and return the results in rank order: a :class:`RankPool`
+    closed once its first function has returned. ``fn`` must be
     importable by name (the ranks start from a fresh interpreter). On CUDA
     rank r takes card r and the world needs ``n`` cards; the CPU runs a
     gloo world. A rank's exception, a rank that dies, or a world that has
     not finished within ``timeout`` seconds stops every rank and raises."""
-    dev = resolve_device(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        return spawn_ranks(n, _in_local_world, (n, os.path.join(tmp, "store"), dev.type, timeout,
-                                                fn, tuple(args)), dev, timeout)
+    pool = RankPool(n, fn, args, device, timeout)
+    pool.close()
+    return pool.first
 
 
 def spawn_ranks(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = None,
@@ -272,45 +309,114 @@ def spawn_ranks(n: int, fn: Callable, args: Sequence = (), device: DeviceLike = 
     each of which joins its world itself (``initialize``, ``gang_world``),
     and return the results in rank order; needs ``n`` cards on CUDA. The
     deadline and the failure reports are :func:`spawn_world`'s."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < n:
-        raise RuntimeError(f"a world of {n} ranks needs {n} CUDA devices, "
-                           f"have {torch.cuda.device_count()}")
+    dev = _cards_for(n, device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    deadline = time.monotonic() + timeout
     with tempfile.TemporaryDirectory() as tmp:
-        # the call goes by file: a start's pipe holds 64 KiB, and a larger
-        # payload would wait for each rank's interpreter to start in turn
-        call = os.path.join(tmp, "call.pkl")
-        with open(call, "wb") as f:
-            pickle.dump((fn, tuple(args)), f)
+        call = _write_call(tmp, fn, args)
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(r, call, results))
                  for r in range(n)]
         try:
             for p in procs:
                 p.start()
-            got = {}
-            while len(got) < n:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise TimeoutError(f"a world of {n} ranks did not finish within {timeout} s "
-                                       f"(ranks {sorted(set(range(n)) - set(got))} missing)")
-                try:
-                    rank, ok, value = results.get(timeout=min(1.0, left))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode not in (None, 0)]
-                    if dead:
-                        raise RuntimeError(f"rank {dead[0]} of {n} exited with code "
-                                           f"{procs[dead[0]].exitcode} before reporting")
-                    continue
-                if not ok:
-                    raise RuntimeError(_failures(n, {rank: value}, results))
-                got[rank] = value
+            got = _collect(procs, results, time.monotonic() + timeout, timeout)
             for p in procs:
                 p.join(30)
         finally:
             _stop(procs)
             results.close()
     return [got[r] for r in range(n)]
+
+
+def _pool_rank_main(rank: int, n: int, store_path: str, device: str, timeout: float,
+                    call_path: str, commands, results) -> None:
+    torch.set_num_threads(1)
+    try:
+        init_local_world(rank, n, store_path, device, timeout)
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)  # written by RankPool for this pool
+        results.put((rank, True, fn(*args)))
+        for fn, args in iter(commands.get, None):
+            results.put((rank, True, fn(*args)))
+    except BaseException:  # reported to the controller, which raises it
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class RankPool:
+    """A world of ``n`` local processes that stays up between calls, for a
+    controller that drives one SPMD program step by step (the elastic
+    trainer). Each rank joins the world (rank r on card r under NCCL, gloo
+    when the caller names the CPU) and runs ``fn(*args)``; :attr:`first`
+    holds what each rank returned, in rank order. :meth:`call` then runs
+    another function on every rank and returns its results. A rank is a
+    process of its own, so what one call leaves in its module's globals
+    the next call on that rank finds. The functions must be importable by
+    name. A rank that raises or dies, or a start or call that misses
+    ``timeout`` seconds, stops every rank and raises; the pool is then
+    closed. :meth:`close` stops the ranks."""
+
+    def __init__(self, n: int, fn: Callable, args: Sequence = (), device: DeviceLike = None,
+                 timeout: float = DEFAULT_TIMEOUT_S):
+        dev = _cards_for(n, device)
+        self.n, self.timeout = n, timeout
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._tmp = tempfile.TemporaryDirectory()
+        call = _write_call(self._tmp.name, fn, args)
+        store = os.path.join(self._tmp.name, "store")
+        self._results = ctx.Queue()
+        self._commands = [ctx.Queue() for _ in range(n)]
+        self._procs = [
+            ctx.Process(target=_pool_rank_main, daemon=True,
+                        args=(r, n, store, dev.type, timeout, call, self._commands[r],
+                              self._results))
+            for r in range(n)
+        ]
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self.close(grace=0.0)
+            raise
+        self.first = self._wait()
+
+    @property
+    def closed(self) -> bool:
+        return self._procs is None
+
+    def _wait(self) -> list:
+        try:
+            got = _collect(self._procs, self._results, time.monotonic() + self.timeout,
+                           self.timeout)
+        except BaseException:
+            self.close(grace=0.0)  # a rank is dead, hung or failed: no one waits for it
+            raise
+        return [got[r] for r in range(self.n)]
+
+    def call(self, fn: Callable, *args) -> list:
+        """``fn(*args)`` on every rank; the results in rank order."""
+        if self.closed:
+            raise RuntimeError("the rank pool is closed")
+        for commands in self._commands:
+            commands.put((fn, args))
+        return self._wait()
+
+    def close(self, grace: float = 10.0) -> None:
+        """Stop every rank: asked to, then killed after ``grace`` seconds."""
+        if self.closed:
+            return
+        procs = [p for p in self._procs if p.pid is not None]  # the started ones
+        self._procs = None
+        for commands in self._commands:
+            commands.put(None)
+        end = time.monotonic() + grace
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        _stop(procs)
+        for q in self._commands:
+            q.cancel_join_thread()  # a dead rank never reads its stop
+            q.close()
+        self._results.close()
+        self._tmp.cleanup()
