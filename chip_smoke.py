@@ -125,7 +125,33 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    best stable rate, the triangle kernels launched at both heights and no
    other kernel; the winners published through ``TPU_AUTOTUNE_JSON`` and
    run by an untuned ``flash_attention`` at (1,8192,8,128), within 2e-2 of
-   ``attention_plain``; the variable unset again.
+   ``attention_plain``; the variable unset again;
+13. agents — the node agents on node "h100-0" (GPU feature discovery's
+   product and count labels, the card resource allocatable) under
+   ``_DictClient``, every probe in ``on`` mode: (a) the autotune agent,
+   elected, sweeps ("swept": the "cuda" profile, phase 12's bars, an entry
+   under ``h100-sxm.json`` that ``entry_valid`` takes, the triangle kernels
+   at both heights and no other), then "cache-hit" with 0 writes; (b)
+   ``merge_winner_floors`` folds its matmul and int8 winners at 0.7 into
+   the floors ConfigMap; (c) the metrics exporter held to those floors:
+   one card, the HBM limit within 1% of the card's memory and some in use,
+   ``probe_bandwidth`` through exactly 1226 triad launches within 105% of
+   the data sheet, ``probe_utilization`` likewise and its share of the
+   peak, no interconnect series on one card, no perf label at the folded
+   floor; then a floor of twice the peak hot-reloaded flips
+   ``tpu_exporter_perf_degraded`` and the node's perf label after 3
+   samples, the folded floor back clears it on the next; 0 collect
+   errors; the exposition on one line; (d) one health pass over the real
+   ``/dev`` ("healthy", the matmul burst, the verdicts file, label,
+   annotations and condition); (e) the compile-cache agent in a fresh
+   process over an empty cache directory ("prewarmed" the default serving
+   config, a record of the measured warm-up, an ack), again ("cache-hit",
+   0 writes), and a default-config ``ServingWorkerMain`` over the record
+   ("hit"); (f) the validator's ``plugin`` component (``nvidia.com/gpu``,
+   ``plugin-ready``) and ``workload`` component, whose pod's container a
+   kubelet thread runs as a child process with exactly the spec's command
+   and env (exit 0, the smoke report), the pod's phase following the exit
+   (``workload-ready``, no pod left).
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -149,6 +175,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1695,32 +1722,40 @@ class AlreadyExists(Exception):
 
 
 class _DictClient:
-    """The smallest apiserver client the job worker needs: objects as
-    dicts, ``get_or_none``, a merge ``patch`` and ``create``."""
+    """The smallest apiserver client the data plane and the node agents
+    need: objects as dicts, ``get_or_none``, a merge ``patch``, ``create``,
+    ``update``, ``update_status`` and ``delete``; ``writes`` counts the
+    writes. A lock keeps it whole under a kubelet thread."""
 
     def __init__(self):
         self.objects = {}
+        self.writes = 0
+        self._lock = threading.Lock()
 
     @staticmethod
     def _key(api_version, kind, name, namespace):
         return api_version, kind, namespace or "", name
 
-    def create(self, obj):
+    def _obj_key(self, obj):
         md = obj["metadata"]
-        key = self._key(obj["apiVersion"], obj["kind"], md["name"], md.get("namespace"))
-        if key in self.objects:
-            raise AlreadyExists(key)
-        self.objects[key] = copy.deepcopy(obj)
-        return copy.deepcopy(obj)
+        return self._key(obj["apiVersion"], obj["kind"], md["name"], md.get("namespace"))
+
+    def create(self, obj):
+        key = self._obj_key(obj)
+        with self._lock:
+            self.writes += 1
+            if key in self.objects:
+                raise AlreadyExists(key)
+            self.objects[key] = copy.deepcopy(obj)
+            return copy.deepcopy(obj)
 
     def get_or_none(self, api_version, kind, name, namespace=None):
-        obj = self.objects.get(self._key(api_version, kind, name, namespace))
-        return copy.deepcopy(obj) if obj is not None else None
+        with self._lock:
+            obj = self.objects.get(self._key(api_version, kind, name, namespace))
+            return copy.deepcopy(obj) if obj is not None else None
 
     def patch(self, api_version, kind, name, patch, namespace=None):
         key = self._key(api_version, kind, name, namespace)
-        if key not in self.objects:
-            raise NotFound(key)
 
         def merge(into, update):
             for k, v in update.items():
@@ -1730,8 +1765,36 @@ class _DictClient:
                     into.pop(k, None)
                 else:
                     into[k] = copy.deepcopy(v)
-        merge(self.objects[key], patch)
-        return copy.deepcopy(self.objects[key])
+        with self._lock:
+            self.writes += 1
+            if key not in self.objects:
+                raise NotFound(key)
+            merge(self.objects[key], patch)
+            return copy.deepcopy(self.objects[key])
+
+    def update(self, obj):
+        key = self._obj_key(obj)
+        with self._lock:
+            self.writes += 1
+            if key not in self.objects:
+                raise NotFound(key)
+            self.objects[key] = copy.deepcopy(obj)
+            return copy.deepcopy(obj)
+
+    def update_status(self, obj):
+        key = self._obj_key(obj)
+        with self._lock:
+            self.writes += 1
+            if key not in self.objects:
+                raise NotFound(key)
+            self.objects[key]["status"] = copy.deepcopy(obj.get("status") or {})
+            return copy.deepcopy(self.objects[key])
+
+    def delete(self, api_version, kind, name, namespace=None):
+        with self._lock:
+            self.writes += 1
+            if self.objects.pop(self._key(api_version, kind, name, namespace), None) is None:
+                raise NotFound(name)
 
 
 def _job_worker(out: dict, device: str) -> None:
@@ -1893,19 +1956,26 @@ def replica_warm_start(spec_path: str) -> None:
     }))
 
 
-def _replica_process(cache: str, cm_data: dict, spec: pathlib.Path) -> dict:
+def _child_process(entry: str, cache: str, spec: pathlib.Path, payload: dict) -> dict:
+    """Run ``chip_smoke.<entry>(spec)`` in a process of its own over the
+    compile cache directory ``cache``, ``payload`` in the spec file; returns
+    what it wrote back there and the process's seconds."""
     from tpu_operator_torch import consts
 
-    spec.write_text(json.dumps({"cm_data": cm_data}))
+    spec.write_text(json.dumps(payload))
     start = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.replica_warm_start(sys.argv[1])",
+        [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{entry}(sys.argv[1])",
          str(spec)], cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
         env=dict(os.environ, **{consts.COMPILE_CACHE_DIR_ENV: cache}), timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"replica warm start exited {proc.returncode}: {proc.stdout[-2000:]}"
+        raise RuntimeError(f"{entry} exited {proc.returncode}: {proc.stdout[-2000:]}"
                            f"{proc.stderr[-3000:]}")
     return dict(json.loads(spec.read_text()), process_seconds=time.perf_counter() - start)
+
+
+def _replica_process(cache: str, cm_data: dict, spec: pathlib.Path) -> dict:
+    return _child_process("replica_warm_start", cache, spec, {"cm_data": cm_data})
 
 
 def _cold_and_warm(tmp: str) -> tuple:
@@ -2047,6 +2117,34 @@ def _spy_block_m(seen: dict) -> dict:
     return originals
 
 
+def _check_sweep_entry(entry: dict, what: str) -> None:
+    """Every config of a generation sweep measured without error and within
+    PEAK_MARGIN of its family's data-sheet peak, the winner the best stable
+    rate; logs each family's configs."""
+    from tpu_operator_torch.workloads import matmul_bench
+
+    gen = entry["generation"]
+    peaks = {"flash_fwd": PEAK_FLOPS[torch.bfloat16] / 1e12,
+             "flash_fwd_bwd": PEAK_FLOPS[torch.bfloat16] / 1e12,
+             "matmul": matmul_bench.PEAK_TFLOPS[gen], "int8": matmul_bench.PEAK_INT8_TOPS[gen]}
+    for family, classes in entry["results"].items():
+        for shape_class, packed in classes.items():
+            configs, winner = packed["configs"], packed["winner"]
+            bad = [c for c in configs
+                   if "error" in c or not 0 < c["rate"] <= PEAK_MARGIN * peaks[family]]
+            measured = [c for c in configs if not c.get("pruned")]
+            best = max(c["rate"] for c in ([c for c in measured if c["stable"]] or measured))
+            if bad or winner is None or winner["rate"] != best:
+                raise RuntimeError(f"{what} {family} {shape_class}: configs {configs} "
+                                   f"(peak {peaks[family]}), winner {winner}")
+            log(f"{what}: {family} {shape_class}: " + "; ".join(
+                f"{ {k: v for k, v in c.items() if k in ('block_m', 'unroll')} } "
+                f"{c['time_ms']} ms {c['rate']} {'TOP/s' if family == 'int8' else 'TFLOP/s'}"
+                f"{' pruned' if c.get('pruned') else '' if c['stable'] else ' unstable'}"
+                for c in configs)
+                + f"; winner {winner}")
+
+
 def phase_autotune(device: str = "cuda") -> dict:
     """Phase 12: the generation sweep at the "cuda" profile, every rate held
     to the data sheet, the winners published through TPU_AUTOTUNE_JSON and
@@ -2056,9 +2154,6 @@ def phase_autotune(device: str = "cuda") -> dict:
     from tpu_operator_torch.workloads import autotune, flashattention, matmul_bench
 
     gen = matmul_bench.chip_generation()
-    peaks = {"flash_fwd": PEAK_FLOPS[torch.bfloat16] / 1e12,
-             "flash_fwd_bwd": PEAK_FLOPS[torch.bfloat16] / 1e12,
-             "matmul": matmul_bench.PEAK_TFLOPS[gen], "int8": matmul_bench.PEAK_INT8_TOPS[gen]}
     seen: dict = {}
     originals = _spy_block_m(seen)
     start = time.monotonic()
@@ -2076,22 +2171,7 @@ def phase_autotune(device: str = "cuda") -> dict:
                 and all(seen.get(k) == {64, 128} for k in tri)):
             raise RuntimeError(f"autotune: platform {entry['platform']}, launches {counts}, "
                                f"heights asked {seen}")
-        for family, classes in entry["results"].items():
-            for shape_class, packed in classes.items():
-                configs, winner = packed["configs"], packed["winner"]
-                bad = [c for c in configs
-                       if "error" in c or not 0 < c["rate"] <= PEAK_MARGIN * peaks[family]]
-                measured = [c for c in configs if not c.get("pruned")]
-                best = max(c["rate"] for c in ([c for c in measured if c["stable"]] or measured))
-                if bad or winner is None or winner["rate"] != best:
-                    raise RuntimeError(f"autotune {family} {shape_class}: configs {configs} "
-                                       f"(peak {peaks[family]}), winner {winner}")
-                log(f"autotune: {family} {shape_class}: " + "; ".join(
-                    f"{ {k: v for k, v in c.items() if k in ('block_m', 'unroll')} } "
-                    f"{c['time_ms']} ms {c['rate']} {'TOP/s' if family == 'int8' else 'TFLOP/s'}"
-                    f"{' pruned' if c.get('pruned') else '' if c['stable'] else ' unstable'}"
-                    for c in configs)
-                    + f"; winner {winner}")
+        _check_sweep_entry(entry, "autotune")
         shape = autotune.SWEEP_PROFILES["cuda"]["flash"]
         s, h, d = shape["seq_len"], shape["heads"], shape["head_dim"]
         want_tile = entry["results"]["flash_fwd"][autotune.flash_shape_class(s, h, d)]["winner"]
@@ -2123,6 +2203,413 @@ def phase_autotune(device: str = "cuda") -> dict:
     log(f"autotune: run_generation_sweep({gen!r}) in {sweep_s:.1f} s, launches {counts}; "
         f"tuned_flash_tile({s}, {h}, {d}) = {tile}, the untuned flash_attention at (1,{s},{h},{d}) "
         f"bf16 ran it, err {got_err:.3g} from attention_plain; phase 12 in {out['seconds']:.1f} s")
+    return out
+
+
+# phase 13: the node agents, on a node "h100-0" labelled as GPU feature
+# discovery labels it, under _DictClient
+AGENT_NS, AGENT_NODE = "smoke", "h100-0"
+# the exporter's probe_bandwidth: hbm_bandwidth_probe(size_mb=64, iters=25)
+EXPORTER_TRIAD_LAUNCHES = PROBES["self-test exporter probe"][1]
+
+
+def _agent_node(labels: dict) -> dict:
+    """Node h100-0: GFD's product (the CUDA device name, spaces as dashes)
+    and count labels, the card resource allocatable, and ``labels``."""
+    from tpu_operator_torch import consts
+
+    count = str(torch.cuda.device_count())
+    return {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": AGENT_NODE, "labels": {
+                consts.GFD_PRODUCT_LABEL: torch.cuda.get_device_name(0).replace(" ", "-"),
+                consts.GFD_COUNT_LABEL: count, "kubernetes.io/hostname": AGENT_NODE, **labels}},
+            "status": {"allocatable": {consts.GPU_RESOURCE_NAME: count}}}
+
+
+def _autotune_agent(out: dict) -> tuple:
+    """(a) the elected node's sweep through the agent, (b) its fold into
+    perf floors; returns (client, generation, floors)."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents.autotune_agent import AutotuneAgent
+    from tpu_operator_torch.workloads import autotune, matmul_bench
+    from tpu_operator_torch.workloads import flashattention as fa
+
+    gen = matmul_bench.chip_generation()
+    client = _DictClient()
+    client.create(_agent_node({consts.AUTOTUNE_ELECTED_LABEL: consts.AUTOTUNE_ELECTED}))
+    agent = AutotuneAgent(client, AGENT_NODE, AGENT_NS)
+    seen: dict = {}
+    originals = _spy_block_m(seen)
+    try:
+        zero_launches()
+        start = time.monotonic()
+        outcome = agent.reconcile_once()
+        torch.cuda.synchronize()
+        sweep_s = time.monotonic() - start
+        counts = read_launches()
+    finally:
+        for name, fn in originals.items():
+            setattr(fa, name, fn)
+    cm = client.get_or_none("v1", "ConfigMap", consts.AUTOTUNE_RESULTS_CONFIGMAP, AGENT_NS)
+    entry = autotune.parse_entry(cm["data"].get(autotune.entry_key(gen)))
+    tri = ("flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
+    if not (outcome == "swept" and set(cm["data"]) == {autotune.entry_key(gen)}
+            and entry["platform"] == "cuda" and entry["swept_by"] == AGENT_NODE
+            and autotune.entry_valid(entry, autotune.runtime_fingerprint())
+            and all(counts[k] > 0 for k in tri)
+            and all(v == 0 for k, v in counts.items() if k not in tri)
+            and all(seen.get(k) == {64, 128} for k in tri)):
+        raise RuntimeError(f"autotune agent: outcome {outcome}, keys {sorted(cm['data'])}, "
+                           f"platform {entry and entry['platform']}, launches {counts}, "
+                           f"heights asked {seen}")
+    _check_sweep_entry(entry, "autotune agent")
+    writes = client.writes
+    again = agent.reconcile_once()
+    if again != "cache-hit" or client.writes != writes:
+        raise RuntimeError(f"autotune agent: second pass {again}, {client.writes - writes} writes")
+    out["paths"]["autotune agent"] = counts
+    out["autotune"] = {"outcomes": [outcome, again], "sweep_seconds": sweep_s,
+                       "entry_sweep_seconds": entry["sweep_seconds"], "entry": entry}
+    log(f"agents: (a) autotune agent on {AGENT_NODE} ({gen}): 'swept' in {sweep_s:.2f} s, "
+        f"{autotune.entry_key(gen)} platform cuda, launches {counts}, both heights of the "
+        f"triangle kernels; second pass 'cache-hit' with 0 writes")
+
+    start = time.perf_counter()
+    floors = autotune.merge_winner_floors({gen: entry})[gen]
+    fold_s = time.perf_counter() - start
+    roofs = {"matmul_tflops": entry["results"]["matmul"], "int8_tops": entry["results"]["int8"]}
+    want = {probe: round(next(iter(classes.values()))["winner"]["rate"] * 0.7, 1)
+            for probe, classes in roofs.items()}
+    if not (floors == want and all(v > 0 for v in floors.values())):
+        raise RuntimeError(f"fold: floors {floors}, want 0.7 x the winners {want}")
+    client.create({"apiVersion": "v1", "kind": "ConfigMap",
+                   "metadata": {"name": consts.PERF_FLOORS_CONFIGMAP, "namespace": AGENT_NS},
+                   "data": {consts.PERF_FLOORS_KEY: json.dumps({gen: floors})}})
+    out["floors"], out["fold_ms"] = floors, 1e3 * fold_s
+    log(f"agents: (b) merge_winner_floors -> {gen} floors {floors} (0.7 x the sweep's winners) "
+        f"in {1e3 * fold_s:.3f} ms, published as {consts.PERF_FLOORS_CONFIGMAP}")
+    return client, gen, floors
+
+
+def _set_floors(client, gen: str, floors: dict) -> None:
+    from tpu_operator_torch import consts
+
+    client.patch("v1", "ConfigMap", consts.PERF_FLOORS_CONFIGMAP,
+                 {"data": {consts.PERF_FLOORS_KEY: json.dumps({gen: floors})}}, AGENT_NS)
+
+
+def _exporter(out: dict, client, gen: str, floors: dict) -> None:
+    """(c) the exporter on the card, its probes held to the folded floors,
+    and the grey-failure drill."""
+    import prometheus_client
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents.metrics_exporter_agent import MetricsExporterAgent
+    from tpu_operator_torch.perf import floors_for
+    from tpu_operator_torch.workloads import matmul_bench
+
+    registry = prometheus_client.CollectorRegistry()
+    blob = client.get_or_none("v1", "ConfigMap", consts.PERF_FLOORS_CONFIGMAP,
+                              AGENT_NS)["data"][consts.PERF_FLOORS_KEY]
+    exp = MetricsExporterAgent(AGENT_NODE, registry=registry, client=client, namespace=AGENT_NS,
+                               generation=gen, floors=floors_for(gen, blob), active_probes="on")
+
+    def value(name, **labels):
+        return registry.get_sample_value(name, dict(node=AGENT_NODE, **labels))
+
+    def perf_label():
+        labels = client.get_or_none("v1", "Node", AGENT_NODE)["metadata"]["labels"]
+        return labels.get(consts.TPU_PERF_LABEL)
+
+    exp.collect_device_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    chips, limit, used = (value("tpu_exporter_chips"), value("tpu_exporter_hbm_limit_bytes", chip="0"),
+                          value("tpu_exporter_hbm_used_bytes", chip="0"))
+    if not (chips == 1 and abs(limit - total) <= 0.01 * total and used > 0):
+        raise RuntimeError(f"exporter: chips {chips}, hbm limit {limit} (card {total}), used {used}")
+
+    zero_launches()
+    start = time.perf_counter()
+    exp.probe_bandwidth()
+    torch.cuda.synchronize()
+    bandwidth_s = time.perf_counter() - start
+    counts = read_launches()
+    gbps = value("tpu_exporter_hbm_bandwidth_gbps")
+    expected = {k: EXPORTER_TRIAD_LAUNCHES if k == "triad_kernel" else 0 for k in counts}
+    if counts != expected or not 0 < gbps <= PEAK_MARGIN * HBM_GBPS[gen]:
+        raise RuntimeError(f"exporter probe_bandwidth: launches {counts} (expected {expected}), "
+                           f"{gbps} GB/s (data sheet {HBM_GBPS[gen]})")
+    out["paths"]["exporter probe"] = counts
+
+    peak = matmul_bench.PEAK_TFLOPS[gen]
+    start = time.perf_counter()
+    exp.probe_utilization()
+    utilization_s = time.perf_counter() - start
+    tflops, util = value("tpu_exporter_matmul_tflops"), value("tpu_exporter_mxu_utilization_pct")
+    if not (0 < tflops <= PEAK_MARGIN * peak and util is not None
+            and math.isclose(util, 100.0 * tflops / peak, rel_tol=1e-9)):
+        raise RuntimeError(f"exporter probe_utilization: {tflops} TFLOP/s (peak {peak}), "
+                           f"utilization {util}%")
+    exp.probe_ici()
+    ici = value("tpu_exporter_ici_bandwidth_gbps")
+    label_at_floor = perf_label()
+    if ici is not None or label_at_floor is not None:
+        raise RuntimeError(f"exporter: ici series {ici} on one card, perf label {label_at_floor} "
+                           f"at the folded floor {floors}")
+    out["exporter"] = {"chips": chips, "hbm_limit_bytes": limit, "hbm_used_bytes": used,
+                       "card_total_memory": total, "hbm_bandwidth_gbps": gbps,
+                       "bandwidth_probe_s": bandwidth_s, "matmul_tflops": tflops,
+                       "utilization_pct": util, "utilization_probe_s": utilization_s}
+    log(f"agents: (c) exporter: {chips:.0f} card, hbm limit {limit:.0f} B (card {total}), used "
+        f"{used:.0f} B device-wide; probe_bandwidth {gbps:.1f} GB/s "
+        f"({100 * gbps / HBM_GBPS[gen]:.1f}% of {HBM_GBPS[gen]}) in {bandwidth_s:.2f} s, "
+        f"launches {counts}; probe_utilization {tflops:.1f} TFLOP/s = {util:.2f}% of {peak} in "
+        f"{utilization_s:.2f} s; probe_ici: no series on one card; perf label unset at the "
+        f"folded floor")
+
+    # the grey-failure drill: a floor no card reaches, then the folded one
+    _set_floors(client, gen, dict(floors, matmul_tflops=2 * peak))
+    reloaded = exp.refresh_floors()
+    labels_seen = []
+    for _ in range(consts.PERF_BREACH_SAMPLES):
+        labels_seen.append(perf_label())
+        exp.probe_utilization()
+    degraded = value("tpu_exporter_perf_degraded", probe="matmul_tflops")
+    label = perf_label()
+    _set_floors(client, gen, floors)
+    restored = exp.refresh_floors()
+    exp.probe_utilization()
+    cleared = (perf_label(), value("tpu_exporter_perf_degraded", probe="matmul_tflops"))
+    # the counter's series exists from its first failure on: absent is 0
+    errors = value("tpu_exporter_collect_errors_total") or 0.0
+    if not (reloaded and restored and labels_seen == [None] * consts.PERF_BREACH_SAMPLES
+            and degraded == 1 and label == consts.PERF_DEGRADED and cleared == (None, 0)
+            and errors == 0):
+        raise RuntimeError(f"exporter drill: reloads {reloaded}/{restored}, labels before the "
+                           f"breach {labels_seen}, degraded {degraded}, label {label}, after the "
+                           f"floor came back {cleared}, collect errors {errors}")
+    text = prometheus_client.generate_latest(registry).decode()
+    out["exporter"].update({"breach_label": label, "cleared": list(cleared),
+                            "collect_errors": errors, "exposition": text})
+    log(f"agents: (c) grey failure: floor {2 * peak} TFLOP/s hot-reloaded, after "
+        f"{consts.PERF_BREACH_SAMPLES} samples perf_degraded 1 and {consts.TPU_PERF_LABEL}="
+        f"{label} on {AGENT_NODE}; the folded floor back: label cleared on the next sample; "
+        f"collect errors {errors:.0f}")
+    log(f"agents: exposition {json.dumps(text)}")
+
+
+def _health(out: dict) -> None:
+    """(d) one health pass over the real /dev, the marker and the socket
+    files in a temporary directory, the matmul burst on the card."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents.health_monitor_agent import PLUGIN_SOCKET_NAME, HealthMonitorAgent
+
+    client = _DictClient()
+    client.create(_agent_node({}))
+    with tempfile.TemporaryDirectory() as tmp:
+        install, sockets = pathlib.Path(tmp, "install"), pathlib.Path(tmp, "sockets")
+        install.mkdir()
+        sockets.mkdir()
+        (install / consts.LIBTPU_CTR_READY_FILE).touch()
+        (sockets / PLUGIN_SOCKET_NAME).touch()
+        agent = HealthMonitorAgent(client, AGENT_NODE, install_dir=str(install),
+                                   socket_dir=str(sockets), health_dir=str(pathlib.Path(tmp, "h")),
+                                   active_probes="on", expected_chips=torch.cuda.device_count())
+        matmul = agent.probe_matmul()
+        start = time.perf_counter()
+        changed = agent.apply_once()
+        apply_s = time.perf_counter() - start
+        verdicts = json.loads(pathlib.Path(tmp, "h", consts.HEALTH_VERDICTS_FILE).read_text())
+    node = client.get_or_none("v1", "Node", AGENT_NODE)
+    md = node["metadata"]
+    cond = [c for c in node["status"].get("conditions", [])
+            if c["type"] == consts.TPU_HEALTH_CONDITION]
+    chips = json.loads(md["annotations"][consts.TPU_HEALTH_CHIPS_ANNOTATION])
+    if not (matmul is True and changed and md["labels"][consts.TPU_HEALTH_LABEL]
+            == consts.HEALTH_HEALTHY and verdicts["verdict"] == consts.HEALTH_HEALTHY
+            and chips == verdicts["chips"] and len(chips) == torch.cuda.device_count()
+            and set(chips.values()) == {"Healthy"} and len(cond) == 1
+            and cond[0]["status"] == "True" and consts.TPU_HEALTH_SINCE_ANNOTATION in md["annotations"]):
+        raise RuntimeError(f"health: matmul {matmul}, changed {changed}, node {md}, "
+                           f"conditions {cond}, verdicts {verdicts}")
+    out["health"] = {"verdicts": verdicts, "apply_s": apply_s, "probe_matmul": matmul}
+    log(f"agents: (d) health monitor: apply_once {apply_s:.3f} s -> {verdicts['verdict']}, "
+        f"cards {chips} (expected {torch.cuda.device_count()}), probe_matmul {matmul}, verdicts "
+        f"file, label, annotations and condition {cond[0]['status']} on {AGENT_NODE}")
+
+
+def agent_prewarm(spec_path: str) -> None:
+    """Phase 13's child process: one compile-cache agent pass (``mode``
+    "agent") or one default-config ServingWorkerMain (``mode`` "replica") on
+    the card, over the ConfigMap data in ``spec_path`` and the directory
+    ``TPU_COMPILE_CACHE_DIR`` names; writes its outcome back there."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents import compilecache_agent
+    from tpu_operator_torch.dataplane.worker import ServingWorkerMain
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    client = _cache_client(spec["cm_data"])
+    client.create(_agent_node({consts.COMPILE_CACHE_ELECTED_LABEL: consts.COMPILE_CACHE_ELECTED}))
+    writes = client.writes
+    cache = os.environ[consts.COMPILE_CACHE_DIR_ENV]
+    before = _files(cache)
+    warmed = []
+    if spec["mode"] == "agent":
+        def warm_fn(request, version):
+            warmed.append(compilecache_agent.default_warm_fn(request, version))
+            return warmed[-1]
+
+        outcome = compilecache_agent.CompileCacheAgent(
+            client, AGENT_NODE, REPLICA_NS, warm_fn=warm_fn).reconcile_once()
+    else:
+        main = ServingWorkerMain(client, REPLICA_NS, _replica_env(f"{REPLICA_SERVING}-replica-9"))
+        outcome, warmed = main.compile_outcome, [main.warmup_seconds]
+    cm = client.get_or_none("v1", "ConfigMap", consts.COMPILE_CACHE_CONFIGMAP, REPLICA_NS)
+    pathlib.Path(spec_path).write_text(json.dumps({
+        "outcome": outcome, "warmup_seconds": warmed, "writes": client.writes - writes,
+        "before": before, "after": _files(cache), "cm_data": (cm or {}).get("data") or {}}))
+
+
+def _compile_cache_agent(out: dict, gen: str) -> None:
+    """(e) the prewarm handshake in fresh processes over one empty cache
+    directory: the agent prewarms, a second agent hits with no write, and
+    a default-config replica resolves the record."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.workloads import compilecache
+
+    model = compilecache.model_descriptor_hash()
+    rid = compilecache.request_id(gen, REPLICA_TOPOLOGY, model)
+    requests = {consts.COMPILE_PREWARM_REQUEST_KEY: json.dumps({"requests": {rid: {
+        "generation": gen, "topology": REPLICA_TOPOLOGY, "model": model,
+        "serving": REPLICA_SERVING}}})}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "compile-cache")
+        os.makedirs(cache)
+        first = _child_process("agent_prewarm", cache, pathlib.Path(tmp, "a.json"),
+                               {"mode": "agent", "cm_data": requests})
+        data = first["cm_data"]
+        record = compilecache.cache_record(
+            compilecache.parse_entry(data.get(compilecache.entry_key(gen))), REPLICA_TOPOLOGY,
+            model, compilecache.runtime_fingerprint())
+        acks = json.loads(data.get(consts.COMPILE_PREWARM_ACK_KEY, "{}")).get("acks", {})
+        warmed = first["warmup_seconds"]
+        if not (first["outcome"] == "prewarmed" and len(warmed) == 1 and record is not None
+                and record["seconds"] == round(warmed[0], 4) and record["source"] == "prewarm"
+                and acks.get(rid, {}).get("outcome") == "prewarmed"):
+            raise RuntimeError(f"compile-cache agent: {first}, record {record}, acks {acks}")
+        second = _child_process("agent_prewarm", cache, pathlib.Path(tmp, "b.json"),
+                                {"mode": "agent", "cm_data": data})
+        if not (second["outcome"] == "cache-hit" and second["writes"] == 0
+                and second["cm_data"] == data):
+            raise RuntimeError(f"compile-cache agent rerun: {second}")
+        replica = _child_process("agent_prewarm", cache, pathlib.Path(tmp, "c.json"),
+                                 {"mode": "replica", "cm_data": data})
+        if replica["outcome"] != "hit" or replica["after"] != replica["before"]:
+            raise RuntimeError(f"default-config replica over the prewarmed record: {replica}")
+    out["compile_cache"] = {"prewarm": first, "rerun": second, "replica": replica,
+                            "record": record}
+    log(f"agents: (e) compile-cache agent (fresh processes, empty cache): 'prewarmed' "
+        f"({gen}, {REPLICA_TOPOLOGY}, {model[:12]}...) warm-up {warmed[0]:.4f} s, record "
+        f"{record['seconds']} s, acked, cache files {sorted(first['after'])}, process "
+        f"{first['process_seconds']:.1f} s; rerun 'cache-hit' with 0 writes "
+        f"({second['process_seconds']:.1f} s); default-config replica '{replica['outcome']}', "
+        f"warm-up {replica['warmup_seconds'][0]:.4f} s ({replica['process_seconds']:.1f} s)")
+
+
+class _Kubelet(threading.Thread):
+    """Runs the workload pod's container once it exists in ``client``: its
+    command and env exactly, in a process of its own; the pod's phase then
+    follows the exit code."""
+
+    def __init__(self, client, name: str):
+        super().__init__(daemon=True)
+        self.client, self.name = client, name
+        self.proc = None
+        self.error = None
+        self.done = threading.Event()
+
+    def run(self):
+        try:
+            while not self.done.is_set():
+                pod = self.client.get_or_none("v1", "Pod", self.name, AGENT_NS)
+                if pod is not None:
+                    break
+                time.sleep(0.05)
+            else:
+                return
+            container = pod["spec"]["containers"][0]
+            env = dict(os.environ, **{e["name"]: e["value"] for e in container["env"]})
+            self.proc = subprocess.run(container["command"], env=env, capture_output=True,
+                                       text=True, timeout=300,
+                                       cwd=pathlib.Path(__file__).resolve().parent)
+            phase = "Succeeded" if self.proc.returncode == 0 else "Failed"
+            self.client.patch("v1", "Pod", self.name, {"status": {"phase": phase}}, AGENT_NS)
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.error = e
+
+
+def _validator(out: dict) -> None:
+    """(f) the plugin and workload components under _DictClient, the pod's
+    container run by a kubelet thread."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.validator import main as vmain
+    from tpu_operator_torch.validator import status as status_files
+
+    client = _DictClient()
+    client.create(_agent_node({}))
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = vmain.Context(client=client, node_name=AGENT_NODE, namespace=AGENT_NS,
+                            validation_dir=tmp, retry_interval=0.25, resource_poll_retries=4,
+                            pod_wait_retries=1200)
+        start = time.perf_counter()
+        plugin = vmain.run_component("plugin", ctx, max_attempts=1)
+        plugin_s = time.perf_counter() - start
+        plugin_ready = status_files.read_status(consts.PLUGIN_READY_FILE, tmp)
+        pod = vmain.workload_pod(ctx)
+        kubelet = _Kubelet(client, pod["metadata"]["name"])
+        kubelet.start()
+        start = time.perf_counter()
+        try:
+            workload = vmain.run_component("workload", ctx, max_attempts=1)
+        finally:
+            kubelet.done.set()
+            kubelet.join(330)
+        workload_s = time.perf_counter() - start
+        workload_ready = status_files.read_status(consts.WORKLOAD_READY_FILE, tmp)
+    proc = kubelet.proc
+    lines = proc.stdout.strip().splitlines() if proc else []
+    report = json.loads(lines[-1]) if lines else {}
+    left = client.get_or_none("v1", "Pod", pod["metadata"]["name"], AGENT_NS)
+    container = pod["spec"]["containers"][0]
+    if not (plugin == {"resource": consts.GPU_RESOURCE_NAME, "chips": torch.cuda.device_count()}
+            and plugin_ready == plugin and kubelet.error is None and proc.returncode == 0
+            and report.get("ok") is True and workload["phase"] == "Succeeded"
+            and workload_ready == workload and left is None
+            and container["resources"]["limits"] == {consts.GPU_RESOURCE_NAME: "1"}):
+        raise RuntimeError(f"validator: plugin {plugin} ({plugin_ready}), kubelet error "
+                           f"{kubelet.error}, container exit {proc and proc.returncode} "
+                           f"{proc and proc.stderr[-2000:]}, report {report}, workload "
+                           f"{workload} ({workload_ready}), pod left {left}")
+    out["validator"] = {"plugin": plugin, "plugin_s": plugin_s, "workload": workload,
+                        "workload_s": workload_s, "smoke_report": report,
+                        "command": container["command"]}
+    log(f"agents: (f) validator: plugin {plugin} in {plugin_s:.3f} s, plugin-ready written; "
+        f"workload pod {container['command']} under {container['resources']['limits']} exited 0: "
+        f"{lines[-1]}; validate_workload {workload['phase']} in {workload_s:.1f} s, "
+        f"workload-ready written, pod deleted")
+
+
+def phase_agents() -> dict:
+    """Phase 13: the node agents on the card (see the module docstring)."""
+    out = {"paths": {}}
+    start = time.monotonic()
+    client, gen, floors = _autotune_agent(out)
+    _exporter(out, client, gen, floors)
+    _health(out)
+    _compile_cache_agent(out, gen)
+    _validator(out)
+    out["seconds"] = time.monotonic() - start
+    log(f"agents: phase 13 in {out['seconds']:.1f} s")
     return out
 
 
@@ -2176,11 +2663,13 @@ def main(argv=None) -> int:
     results["trainer"] = phase_trainer()
     results["replicas"] = phase_replicas(results["serving"]["tokens"])
     results["autotune"] = phase_autotune()
+    results["agents"] = phase_agents()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
              **results["slice"]["paths"], **results["trainer"]["paths"],
-             **results["replicas"]["paths"], **results["autotune"]["paths"]}
+             **results["replicas"]["paths"], **results["autotune"]["paths"],
+             **results["agents"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}

@@ -21,7 +21,12 @@ joined by NVLink), where ``chip_smoke.py`` has one card:
    within ``chip_smoke.TRAINER_PARAMS_TOL`` of the one-card run's (the
    norm of the difference over the norm of the one-card run's change).
    Prints the losses, each resume's latency and the step ms of each world.
-   ``--trainer-only`` runs this step alone.
+   ``--trainer-only`` runs this step alone;
+5. the metrics exporter's ``probe_ici`` (``agents/metrics_exporter_agent.py``:
+   the all-reduce at 16 MiB over every card, one rank per card, rank 0's
+   bus rate) ``ICI_RUNS`` times in turn, each reading of
+   ``tpu_exporter_ici_bandwidth_gbps`` printed. ``--ici-only`` runs this
+   step alone.
 
 Every rate (all-reduce busbw per size, each edge's GB/s) is held to at
 most 105% of NVLink 4's 450 GB/s per direction (H100 SXM data sheet: 900
@@ -70,6 +75,37 @@ def _rates(out: dict) -> dict:
     for probe in ("fabric 2x2x1", "fabric 4x1x1 wrap"):
         rates.update({f"{probe} edge {k}": v["bw_gbps"] for k, v in out[probe]["edges"].items()})
     return rates
+
+
+# step 5: how many worlds the exporter's probe_ici runs in turn
+ICI_RUNS = 5
+
+
+def _ici(device: str, ranks: int) -> dict:
+    """Step 5: one exporter's ``probe_ici`` ``ICI_RUNS`` times in turn;
+    each run starts its own world of one rank per card."""
+    import prometheus_client
+
+    from tpu_operator_torch.agents.metrics_exporter_agent import MetricsExporterAgent
+
+    registry = prometheus_client.CollectorRegistry()
+    exp = MetricsExporterAgent("multicard", registry=registry, active_probes="on",
+                               device=device, cpu_ranks=ranks)
+    readings, seconds = [], []
+    for _ in range(ICI_RUNS):
+        start = time.monotonic()
+        exp.probe_ici()
+        seconds.append(time.monotonic() - start)
+        value = registry.get_sample_value("tpu_exporter_ici_bandwidth_gbps", {"node": "multicard"})
+        errors = registry.get_sample_value("tpu_exporter_collect_errors_total",
+                                           {"node": "multicard"})
+        if value is None or errors:
+            raise SystemExit(f"probe_ici: reading {value}, collect errors {errors}")
+        readings.append(value)
+        print(f"exporter probe_ici over {ranks} ranks: tpu_exporter_ici_bandwidth_gbps "
+              f"{value:.2f} (16 MiB) in {seconds[-1]:.1f} s with the ranks' start", flush=True)
+    return {"readings_gbps": readings, "seconds": seconds,
+            "median_gbps": statistics.median(readings)}
 
 
 # step 4: the schedule of worlds (hosts to resume at, steps to run) and the run
@@ -160,11 +196,10 @@ def main(argv=None) -> int:
     parser.add_argument("--json", type=pathlib.Path, default=None)
     parser.add_argument("--trainer-only", action="store_true",
                         help="run step 4 (the elastic trainer) alone")
+    parser.add_argument("--ici-only", action="store_true",
+                        help="run step 5 (the exporter's probe_ici) alone")
     args = parser.parse_args(argv)
     import torch
-
-    from tpu_operator_torch.workloads.distributed import spawn_world
-    from tpu_operator_torch.workloads.multiproc import run_multiprocess_check
 
     out = {"ranks": args.ranks, "device": args.device}
     if args.device == "cuda":
@@ -178,6 +213,33 @@ def main(argv=None) -> int:
             print(line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     card = out["cards"][0].split(", ", 1)[1] if args.device == "cuda" else "CPU, gloo"
+    if not args.ici_only:
+        _steps_1_to_4(args, out, card)
+        if args.trainer_only:
+            return 0
+
+    out["ici"] = _ici(args.device, args.ranks)
+    rates = _rates(out["world"]) if "world" in out else {}
+    if "slice" in out:
+        rates.update({f"slice allreduce {r['size_mb']} MiB busbw": r["busbw_gbps"]
+                      for r in out["slice"]["results"]})
+    rates.update({f"probe_ici run {i}": v for i, v in enumerate(out["ici"]["readings_gbps"])})
+    out["rates"] = rates
+    bar = PEAK_MARGIN * NVLINK_GBPS
+    over = {k: v for k, v in rates.items() if v > bar}
+    if args.device == "cuda" and over:
+        raise SystemExit(f"rates above {bar} GB/s (105% of NVLink's {NVLINK_GBPS}): {over}")
+    _write(args.json, out)
+    print(json.dumps({"ok": True, "ranks": args.ranks, "rates_gbps": rates}), flush=True)
+    return 0
+
+
+def _steps_1_to_4(args, out: dict, card: str) -> None:
+    """Step 4 (the elastic trainer) then steps 1-3, into ``out``; with
+    ``--trainer-only`` step 4 alone, its result line printed."""
+    from tpu_operator_torch.workloads.distributed import spawn_world
+    from tpu_operator_torch.workloads.multiproc import run_multiprocess_check
+
     out["trainer"] = _trainer(args.device, args.ranks, card)
     if args.trainer_only:
         _write(args.json, out)
@@ -185,7 +247,7 @@ def main(argv=None) -> int:
             "continuity": out["trainer"]["continuity"]["ok"],
             "rel_to_one_card": out["trainer"]["rel_to_one_card"],
             "params_gap_to_one_card": out["trainer"]["params_gap_to_one_card"]}}), flush=True)
-        return 0
+        return
 
     start = time.monotonic()
     out["world"] = spawn_world(args.ranks, _world_payloads, (args.device,), device=args.device,
@@ -236,19 +298,6 @@ def main(argv=None) -> int:
           f"{sorted({w['platform'] for w in gang['workers']})}, chain "
           f"{gang['psum_chain_ms']:.4f} ms per all-reduce, ring err "
           f"{gang['ring_attention_max_err']:.3g}, {out['gang']['seconds']:.1f} s", flush=True)
-
-    rates = _rates(world)
-    if "slice" in out:
-        rates.update({f"slice allreduce {r['size_mb']} MiB busbw": r["busbw_gbps"]
-                      for r in out["slice"]["results"]})
-    out["rates"] = rates
-    bar = PEAK_MARGIN * NVLINK_GBPS
-    over = {k: v for k, v in rates.items() if v > bar}
-    if args.device == "cuda" and over:
-        raise SystemExit(f"rates above {bar} GB/s (105% of NVLink's {NVLINK_GBPS}): {over}")
-    _write(args.json, out)
-    print(json.dumps({"ok": True, "ranks": args.ranks, "rates_gbps": rates}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

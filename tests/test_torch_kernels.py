@@ -840,3 +840,62 @@ def test_kernels_at_a_forced_tile_height_match_plain(cuda, d, pair, block_m):
             [c + 1 for c in counts]
         assert _err(want, out) <= BF16_TOL and _err(want_lse, lse) <= LSE_TOL, (s, block_m)
         _check_grads(grads, (dq, dk, dv), "bfloat16", (pair, s, d, block_m))
+
+
+@pytest.mark.cuda
+def test_exporter_probes_on_the_card(cuda):
+    """The metrics exporter's probes on the card: device-wide memory per
+    card, the triad probe (1 check and 7 chains of 25 and 150: exactly
+    1226 launches), the bf16 rate and its share of the data-sheet peak,
+    and no interconnect series on one card."""
+    import prometheus_client
+
+    from tpu_operator_torch.agents.metrics_exporter_agent import MetricsExporterAgent
+    from tpu_operator_torch.workloads import matmul_bench
+
+    registry = prometheus_client.CollectorRegistry()
+    exp = MetricsExporterAgent("card-0", registry=registry, active_probes="on")
+
+    def value(name, **labels):
+        return registry.get_sample_value(name, dict(node="card-0", **labels))
+
+    exp.collect_device_stats()
+    cards = torch.cuda.device_count()
+    assert value("tpu_exporter_chips") == cards
+    for i in range(cards):
+        total = torch.cuda.get_device_properties(i).total_memory
+        assert abs(value("tpu_exporter_hbm_limit_bytes", chip=str(i)) - total) <= 0.01 * total
+        assert 0 < value("tpu_exporter_hbm_used_bytes", chip=str(i)) < total
+    before = triad.triad_kernel.launches
+    exp.probe_bandwidth()
+    assert triad.triad_kernel.launches == before + 1 + 7 * (25 + 150)
+    assert value("tpu_exporter_hbm_bandwidth_gbps") > 0
+    exp.probe_utilization()
+    tflops = value("tpu_exporter_matmul_tflops")
+    gen = matmul_bench.chip_generation()
+    assert 0 < tflops <= 1.05 * matmul_bench.PEAK_TFLOPS[gen]
+    assert value("tpu_exporter_mxu_utilization_pct") == pytest.approx(
+        100.0 * tflops / matmul_bench.PEAK_TFLOPS[gen])
+    if cards == 1:
+        exp.probe_ici()
+        assert value("tpu_exporter_ici_bandwidth_gbps") is None
+    assert value("tpu_exporter_collect_errors_total") is None
+
+
+@pytest.mark.cuda
+def test_health_monitor_reads_the_real_device_nodes(cuda):
+    """probe_chips over the real /dev: exactly the cards this process
+    sees, each by its /dev/nvidia<N>, none of the driver's control nodes
+    and none of another container's cards, all present; the matmul burst
+    runs on the card."""
+    import re
+
+    from tpu_operator_torch.agents.health_monitor_agent import HealthMonitorAgent
+
+    agent = HealthMonitorAgent(None, "card-0", active_probes="on",
+                               expected_chips=torch.cuda.device_count())
+    chips = agent.probe_chips()
+    assert len(chips) == torch.cuda.device_count()
+    assert all(re.fullmatch(r"nvidia\d+", name) for name in chips)
+    assert set(chips.values()) == {"Healthy"}
+    assert agent.probe_matmul() is True

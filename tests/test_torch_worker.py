@@ -380,8 +380,12 @@ def test_copied_constants_equal_the_reference():
         "TPU_SLICE_API_VERSION": tpuslice.TPU_SLICE_API_VERSION,
         "TPU_SLICE_KIND": tpuslice.TPU_SLICE_KIND, "TERMINAL_PHASES": tpujob.TERMINAL_PHASES,
     }
+    # the card's own keys have no control-plane counterpart: NVIDIA's names
+    sources.update({"GPU_RESOURCE_NAME": "nvidia.com/gpu",
+                    "GFD_PRODUCT_LABEL": "nvidia.com/gpu.product",
+                    "GFD_COUNT_LABEL": "nvidia.com/gpu.count"})
     names = [n for n in vars(consts) if n.isupper()]
-    assert len(names) == 49
+    assert len(names) == 76
     for name in names:
         want = sources[name] if name in sources else getattr(ref_consts, name)
         assert getattr(consts, name) == want, name

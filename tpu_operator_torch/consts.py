@@ -4,8 +4,12 @@
 The trainer and the job worker meet the control plane at the job's
 progress ConfigMap and read the TPUJob, its TPUSlice and the Nodes; a
 serving replica reads its env and the compile cache's ConfigMap; the
-autotune sweep's entries go to the results ConfigMap. The values must
-stay equal to the control plane's; a test holds them so.
+autotune sweep's entries go to the results ConfigMap; the node agents
+read their Node's labels and elections, publish health and perf verdicts
+on it and read the perf floors; the validator polls the node's
+allocatable and runs the workload pod. The values must stay equal to the
+control plane's; a test holds them so. The keys under "the card's own"
+at the end have no counterpart there: they are NVIDIA's.
 """
 
 TPU_JOB_API_VERSION = "tpu.google.com/v1alpha1"
@@ -80,3 +84,52 @@ HEALTH_DEGRADED = "degraded"
 TPU_PERF_LABEL = "tpu.google.com/perf"  # degraded while below floor
 PERF_DEGRADED = "degraded"
 REPAIR_STATE_LABEL = "tpu.google.com/tpu.repair-state"
+
+# the node labels the reference's controllers identify a TPU node by: the
+# platform's (GKE) and the operator's node-discovery labels
+GKE_TPU_ACCELERATOR_LABEL = "cloud.google.com/gke-tpu-accelerator"
+GKE_TPU_TOPOLOGY_LABEL = "cloud.google.com/gke-tpu-topology"
+TFD_ACCELERATOR_TYPE_LABEL = "tpu.google.com/accelerator-type"
+TFD_TOPOLOGY_LABEL = "tpu.google.com/topology"
+TFD_CHIPS_PER_NODE_LABEL = "tpu.google.com/chips-per-node"
+
+# the one node per generation the autotune and compile-cache controllers
+# elect to sweep or prewarm (the agents' DaemonSets select on it)
+AUTOTUNE_ELECTED_LABEL = "tpu.google.com/autotune"
+AUTOTUNE_ELECTED = "elected"
+COMPILE_CACHE_ELECTED_LABEL = "tpu.google.com/compile-cache"
+COMPILE_CACHE_ELECTED = "elected"
+
+# the per-generation perf floors the exporter holds its probes to, and
+# the consecutive samples below a floor that make a sustained breach
+PERF_FLOORS_CONFIGMAP = "tpu-perf-floors"
+PERF_FLOORS_KEY = "floors.json"
+PERF_BREACH_SAMPLES = 3
+
+# the health monitor's verdict: the summary label (TPU_HEALTH_LABEL
+# above), the per-chip verdict map, the time of the last flip, the node
+# condition, and the verdicts file on the host path the device plugin
+# reads
+HEALTH_HEALTHY = "healthy"
+TPU_HEALTH_CHIPS_ANNOTATION = "tpu.google.com/tpu.health.chips"
+TPU_HEALTH_SINCE_ANNOTATION = "tpu.google.com/tpu.health.since"
+TPU_HEALTH_CONDITION = "TPUHealthy"
+HEALTH_DIR = "/run/tpu/health"
+HEALTH_VERDICTS_FILE = "verdicts.json"
+
+# validation status files (the barrier other operands wait on) and the
+# installer's ready marker on the host install path
+PLUGIN_READY_FILE = "plugin-ready"
+WORKLOAD_READY_FILE = "workload-ready"
+LIBTPU_INSTALL_DIR = "/home/kubernetes/bin/tpu"
+LIBTPU_CTR_READY_FILE = ".libtpu-ctr-ready"
+
+OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
+DEFAULT_OPERATOR_NAMESPACE = "tpu-operator"
+
+# the card's own: the extended resource NVIDIA's device plugin advertises
+# (the reference's is google.com/tpu), and the GPU feature discovery
+# labels for the card's product name and count on the node
+GPU_RESOURCE_NAME = "nvidia.com/gpu"
+GFD_PRODUCT_LABEL = "nvidia.com/gpu.product"
+GFD_COUNT_LABEL = "nvidia.com/gpu.count"

@@ -1,33 +1,45 @@
-"""tpu-validator's in-pod components on the card (port of
+"""tpu-validator's components on the card (port of
 ``tpu_operator/validator/main.py``).
 
-Two components are ported, the two that do accelerator work:
-
-    smoke   the payload of the workload pod (the ``vectorAdd`` analog):
-            the device smoke on every local card, then, with a
-            ``minTflops`` floor configured, the bf16 matmul rate of every
-            card, the slowest held to the floor;
-    slice   the multi-host check: the gang's world from its env (one rank
-            per local card), the all-reduce in GB/s per card (held to
-            ``minPsumGbpsPerChip`` on more than one card), the ring
-            attention, pipeline and flash checks and the collective
-            primitives; writes ``slice-ready``.
+    plugin    the device plugin advertises the card: polls the node's
+              allocatable ``nvidia.com/gpu`` until it is positive; writes
+              ``plugin-ready``;
+    workload  schedules the workload pod (``workload_pod``: the smoke
+              under a ``nvidia.com/gpu`` limit, through the scheduler) and
+              waits for it to succeed; writes ``workload-ready``;
+    smoke     the payload of the workload pod (the ``vectorAdd`` analog):
+              the device smoke on every local card, then, with a
+              ``minTflops`` floor configured, the bf16 matmul rate of every
+              card, the slowest held to the floor;
+    slice     the multi-host check: the gang's world from its env (one rank
+              per local card), the all-reduce in GB/s per card (held to
+              ``minPsumGbpsPerChip`` on more than one card), the ring
+              attention, pipeline and flash checks and the collective
+              primitives; writes ``slice-ready``.
 
 The dispatch on ``COMPONENT``, the retry loop and the status files are
-the reference's. Its other components (``libtpu``, ``plugin``,
-``workload``) do no accelerator work.
+the reference's. Its ``libtpu`` component checks the TPU runtime's
+install, which a card does not have (its counterpart, a driver check, is
+not ported), and ``metrics`` is not ported.
+
+    COMPONENT=workload python -m tpu_operator_torch.validator.main
+
+runs one component in a cluster (``NODE_NAME``, ``OPERATOR_NAMESPACE``,
+``VALIDATOR_IMAGE``, ``EXPECTED_CHIPS`` and the floors from the env).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import logging
 import os
 import time
 from typing import Dict, Optional
 
+from tpu_operator_torch import consts
 from tpu_operator_torch.device import DeviceLike, local_devices
+from tpu_operator_torch.kube import is_api_error, new_object
+from tpu_operator_torch.perf import floors_for
 from tpu_operator_torch.validator import status as status_files
 
 log = logging.getLogger(__name__)
@@ -35,9 +47,15 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class Context:
+    # an apiserver client (the plugin and workload components need one)
+    client: object = None
     node_name: str = ""
+    namespace: str = consts.DEFAULT_OPERATOR_NAMESPACE
     validation_dir: str = status_files.VALIDATION_DIR
+    validator_image: str = ""
     retry_interval: float = 5.0
+    resource_poll_retries: int = 30
+    pod_wait_retries: int = 60
     expected_chips: Optional[int] = None
     # performance floors (spec.validator.minTflops / minPsumGbpsPerChip):
     # below one, validation fails and the status file is withheld
@@ -47,10 +65,14 @@ class Context:
     device: DeviceLike = None
 
     @classmethod
-    def from_env(cls) -> "Context":
+    def from_env(cls, client=None) -> "Context":
         return cls(
+            client=client,
             node_name=os.environ.get("NODE_NAME", ""),
+            namespace=os.environ.get(consts.OPERATOR_NAMESPACE_ENV,
+                                     consts.DEFAULT_OPERATOR_NAMESPACE),
             validation_dir=os.environ.get("VALIDATION_DIR", status_files.VALIDATION_DIR),
+            validator_image=os.environ.get("VALIDATOR_IMAGE", ""),
             expected_chips=int(os.environ["EXPECTED_CHIPS"]) if os.environ.get("EXPECTED_CHIPS") else None,
             # `is None`, not `or`: an explicit MIN_TFLOPS=0 means "floor
             # disabled" and must not fall through to the published table
@@ -72,28 +94,6 @@ def _float_env(name: str) -> Optional[float]:
     except ValueError:
         log.warning("invalid %s %r; floor disabled", name, raw)
         return None
-
-
-def floors_for(generation: str, floors_blob: Optional[str]) -> Dict[str, float]:
-    """The floor map for one generation from a floors.json blob; {} when
-    the generation is absent or the blob is malformed. (Copy of
-    ``tpu_operator/perf.py::floors_for`` without its built-in table: that
-    table holds TPU generations only, and a card never takes their
-    floors.)"""
-    try:
-        table = json.loads(floors_blob) if floors_blob else {}
-    except (ValueError, TypeError):
-        return {}
-    entry = table.get(generation) if isinstance(table, dict) else None
-    if not isinstance(entry, dict):
-        return {}
-    out: Dict[str, float] = {}
-    for probe, value in entry.items():
-        try:
-            out[str(probe)] = float(value)
-        except (TypeError, ValueError):
-            continue
-    return out
 
 
 def _floor_tflops_from_env() -> Optional[float]:
@@ -119,6 +119,106 @@ def enforce_floor(what: str, measured: float, floor: Optional[float]) -> None:
         raise RuntimeError(
             f"{what} {measured:.2f} below configured floor {floor:.2f}"
         )
+
+
+def validate_plugin(ctx: Context) -> dict:
+    """The device plugin advertises the card: poll this node's allocatable
+    for ``nvidia.com/gpu``."""
+    if ctx.client is None or not ctx.node_name:
+        raise RuntimeError("plugin validation requires a kube client and NODE_NAME")
+    for _ in range(ctx.resource_poll_retries):
+        node = ctx.client.get_or_none("v1", "Node", ctx.node_name)
+        if node is not None:
+            allocatable = node.get("status", {}).get("allocatable", {}) or {}
+            chips = int(allocatable.get(consts.GPU_RESOURCE_NAME, "0") or "0")
+            if chips > 0:
+                return {"resource": consts.GPU_RESOURCE_NAME, "chips": chips}
+        time.sleep(ctx.retry_interval)
+    raise RuntimeError(
+        f"{consts.GPU_RESOURCE_NAME} never became allocatable on {ctx.node_name}"
+    )
+
+
+def workload_pod(ctx: Context) -> dict:
+    """The workload pod: the smoke (``workload_entry``) under a
+    ``nvidia.com/gpu`` limit, restartPolicy Never."""
+    return new_object(
+        "v1",
+        "Pod",
+        f"tpu-workload-validation-{ctx.node_name or 'node'}",
+        ctx.namespace,
+        labels={"app": "tpu-workload-validation"},
+        spec={
+            "restartPolicy": "Never",
+            # scheduled through the scheduler (hostname selector and the
+            # card limit below), so the pod exercises the same resource
+            # accounting plugin validation just proved
+            "nodeSelector": (
+                {"kubernetes.io/hostname": ctx.node_name} if ctx.node_name else None
+            ),
+            "tolerations": [
+                {"key": consts.GPU_RESOURCE_NAME, "operator": "Exists", "effect": "NoSchedule"},
+                # validation runs while the upgrade FSM still has the node
+                # cordoned, so the pod must tolerate the cordon taint
+                {
+                    "key": "node.kubernetes.io/unschedulable",
+                    "operator": "Exists",
+                    "effect": "NoSchedule",
+                },
+            ],
+            "containers": [
+                {
+                    "name": "tpu-smoke",
+                    "image": ctx.validator_image or "tpu-operator-validator",
+                    "command": ["python", "-m", "tpu_operator_torch.validator.workload_entry"],
+                    "env": [
+                        {"name": "COMPONENT", "value": "smoke"},
+                        *(
+                            [{"name": "EXPECTED_CHIPS", "value": str(ctx.expected_chips)}]
+                            if ctx.expected_chips
+                            else []
+                        ),
+                        *(
+                            [{"name": "MIN_TFLOPS", "value": str(ctx.min_tflops)}]
+                            if ctx.min_tflops is not None
+                            else []
+                        ),
+                    ],
+                    "resources": {
+                        "limits": {consts.GPU_RESOURCE_NAME: str(ctx.expected_chips or 1)}
+                    },
+                }
+            ],
+        },
+    )
+
+
+def validate_workload(ctx: Context) -> dict:
+    """Schedule the workload pod, wait for Succeeded (raise on Failed),
+    and delete it whatever the outcome."""
+    if ctx.client is None:
+        raise RuntimeError("workload validation requires a kube client")
+    pod = workload_pod(ctx)
+    name, ns = pod["metadata"]["name"], ctx.namespace
+    if ctx.client.get_or_none("v1", "Pod", name, ns) is not None:
+        ctx.client.delete("v1", "Pod", name, ns)  # stale from a previous attempt
+    ctx.client.create(pod)
+    try:
+        for _ in range(ctx.pod_wait_retries):
+            live = ctx.client.get_or_none("v1", "Pod", name, ns)
+            phase = (live or {}).get("status", {}).get("phase")
+            if phase == "Succeeded":
+                return {"pod": name, "phase": phase}
+            if phase == "Failed":
+                raise RuntimeError(f"workload pod {name} failed")
+            time.sleep(ctx.retry_interval)
+        raise RuntimeError(f"workload pod {name} did not succeed in time")
+    finally:
+        try:
+            ctx.client.delete("v1", "Pod", name, ns)
+        except Exception as e:  # noqa: BLE001 — matched by name, else re-raised
+            if not is_api_error(e, "ApiError"):
+                raise
 
 
 def validate_smoke(ctx: Context) -> dict:
@@ -213,8 +313,10 @@ def validate_slice(ctx: Context) -> dict:
 
 COMPONENTS: Dict[str, tuple] = {
     # name -> (fn, status file)
-    "smoke": (validate_smoke, None),
+    "plugin": (validate_plugin, consts.PLUGIN_READY_FILE),
+    "workload": (validate_workload, consts.WORKLOAD_READY_FILE),
     "slice": (validate_slice, "slice-ready"),
+    "smoke": (validate_smoke, None),
 }
 
 
@@ -251,7 +353,14 @@ def main() -> int:
     if component not in COMPONENTS:
         log.error("unknown COMPONENT %r (valid: %s)", component, ", ".join(COMPONENTS))
         return 1
-    run_component(component, Context.from_env())
+    client = None
+    if os.environ.get("KUBERNETES_SERVICE_HOST"):
+        # the plugin and workload components talk to the apiserver; inside
+        # a pod the in-cluster config is always present
+        from tpu_operator_torch.kube import Client
+
+        client = Client.in_cluster()
+    run_component(component, Context.from_env(client=client))
     return 0
 
 

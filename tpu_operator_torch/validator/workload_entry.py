@@ -7,6 +7,8 @@ JSON line; exit 0 marks the node's stack usable end to end:
     python -m tpu_operator_torch.validator.workload_entry
 
 ``EXPECTED_CHIPS`` (optional) is the least number of cards it must see.
+The pod's ``MIN_TFLOPS`` is not read here, as in the reference: the rate
+floor is the ``smoke`` component's (``main.validate_smoke``).
 """
 
 import json

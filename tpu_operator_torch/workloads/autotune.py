@@ -43,6 +43,7 @@ import torch
 from tpu_operator_torch import consts
 from tpu_operator_torch.device import DeviceLike, resolve_device
 from tpu_operator_torch.kernels.build import KERNEL_DIR, kernel_digest
+from tpu_operator_torch.perf import FLOOR_FRACTION
 from tpu_operator_torch.workloads.matmul_bench import chip_generation
 
 # the kernel families one generation entry must cover to be complete
@@ -64,8 +65,6 @@ MATMUL_GRID: Tuple[Dict[str, int], ...] = ({"unroll": 1},)
 # the winner keys the winners blob keeps (the reference's, and the port's knob)
 _CONFIG_KEYS = ("block_q", "block_k", "unroll", "block_m")
 
-# copied from tpu_operator/perf.py: a floor is this fraction of the measured roof
-FLOOR_FRACTION = 0.7
 
 
 def runtime_fingerprint() -> str:

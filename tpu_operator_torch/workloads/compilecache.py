@@ -36,8 +36,9 @@ import torch
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.kernels import build
+from tpu_operator_torch.kube import is_api_error
 from tpu_operator_torch.workloads.autotune import runtime_fingerprint
-from tpu_operator_torch.workloads.training import _is_api_error, publish_configmap
+from tpu_operator_torch.workloads.training import publish_configmap
 
 # a hit still pays loading the libraries and the first launches, a tenth
 # of the cold build it skips by the reference's estimate: the planning
@@ -223,7 +224,7 @@ class CompileCacheStore:
                 "v1", "ConfigMap", consts.COMPILE_CACHE_CONFIGMAP, self.namespace
             )
         except Exception as e:  # noqa: BLE001 — matched by name, else re-raised
-            if _is_api_error(e, "ApiError"):
+            if is_api_error(e, "ApiError"):
                 return None
             raise
         return (cm or {}).get("data") or {}
@@ -337,6 +338,6 @@ class CompileCacheStore:
                     source="worker", serving=serving, node=node,
                 )
             except Exception as e:  # noqa: BLE001 — best-effort; the build happened
-                if not _is_api_error(e, "ApiError"):
+                if not is_api_error(e, "ApiError"):
                     raise
         return "miss", seconds

@@ -18,6 +18,7 @@ from typing import Callable, List, Optional
 import torch
 
 from tpu_operator_torch.device import DeviceLike, resolve_device
+from tpu_operator_torch.nodeinfo import device_generation
 from tpu_operator_torch.workloads.serving import _int_matmul
 from tpu_operator_torch.workloads.timing import two_point_min_timing
 
@@ -26,27 +27,15 @@ from tpu_operator_torch.workloads.timing import two_point_min_timing
 PEAK_TFLOPS = {"h100-sxm": 989.5, "h100-nvl": 835.5, "h100-pcie": 756.5}
 PEAK_INT8_TOPS = {"h100-sxm": 1979.0, "h100-nvl": 1670.5, "h100-pcie": 1513.0}
 
-# generation -> substrings its CUDA device name must all contain (lower
-# case); the SXM part reports itself as "NVIDIA H100 80GB HBM3"
-_DEVICE_NAME_GENERATIONS = (
-    ("h100-nvl", ("h100", "nvl")),
-    ("h100-pcie", ("h100", "pcie")),
-    ("h100-sxm", ("h100", "sxm")),
-    ("h100-sxm", ("h100", "hbm3")),
-)
-
 
 def chip_generation() -> str:
     """The card's generation key (``"h100-sxm"``, ``"h100-pcie"``,
-    ``"h100-nvl"``) from the current CUDA device's name; ``""`` for an
-    unrecognised card or no card: the floor never guesses."""
+    ``"h100-nvl"``) from the current CUDA device's name
+    (``nodeinfo.device_generation``); ``""`` for an unrecognised card or
+    no card: the floor never guesses."""
     if not torch.cuda.is_available():
         return ""
-    name = torch.cuda.get_device_name().lower()
-    for gen, needles in _DEVICE_NAME_GENERATIONS:
-        if all(needle in name for needle in needles):
-            return gen
-    return ""
+    return device_generation(torch.cuda.get_device_name())
 
 
 def matmul_chain(z: torch.Tensor, y: torch.Tensor, s: float, n: int) -> torch.Tensor:

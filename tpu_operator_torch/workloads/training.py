@@ -44,6 +44,7 @@ import torch
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.device import DeviceLike, resolve_device
+from tpu_operator_torch.kube import is_api_error
 from tpu_operator_torch.workloads.burnin import (
     BurninConfig,
     build_train_step,
@@ -404,13 +405,6 @@ def node_unavailable(node: dict) -> bool:
     return labels_unavailable(node["metadata"].get("labels") or {})
 
 
-def _is_api_error(exc: Exception, *names: str) -> bool:
-    """Whether ``exc`` is one of the apiserver errors ``names``. Matched by
-    class name, not class: the port imports nothing of the control plane
-    that defines them, and a client of any apiserver names them so."""
-    return any(cls.__name__ in names for cls in type(exc).__mro__)
-
-
 def publish_configmap(client, name: str, namespace: str, data: Dict[str, str]) -> None:
     """Create-or-patch ``data`` into a ConfigMap (merge-patch semantics:
     keys not in ``data`` are never touched). A create that loses a race
@@ -420,13 +414,13 @@ def publish_configmap(client, name: str, namespace: str, data: Dict[str, str]) -
         client.patch("v1", "ConfigMap", name, patch, namespace)
         return
     except Exception as e:
-        if not _is_api_error(e, "NotFound"):
+        if not is_api_error(e, "NotFound"):
             raise
     try:
         client.create({"apiVersion": "v1", "kind": "ConfigMap",
                        "metadata": {"name": name, "namespace": namespace}, "data": data})
     except Exception as e:
-        if not _is_api_error(e, "AlreadyExists"):
+        if not is_api_error(e, "AlreadyExists"):
             raise
         client.patch("v1", "ConfigMap", name, patch, namespace)
 
