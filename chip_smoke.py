@@ -151,7 +151,33 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``plugin-ready``) and ``workload`` component, whose pod's container a
    kubelet thread runs as a child process with exactly the spec's command
    and env (exit 0, the smoke report), the pod's phase following the exit
-   (``workload-ready``, no pod left).
+   (``workload-ready``, no pod left);
+14. device layer — the node's device layer on node "h100-0", first
+   unlabelled, under ``_DictClient`` and temporary host paths: (a) the card
+   probe (``native/gpuinfo``, built with ``g++``) answers natively, the
+   Python scan of the same paths equals it, and it finds exactly the
+   cards CUDA sees, with their UUIDs and models and ``nvidia-smi``'s driver
+   version; (b) the driver installer copies the loader's ``libcuda.so.1``
+   into a temporary install dir (the versioned file, the symlink, the
+   version file, the ready marker), and a rerun changes nothing; (c) the
+   validator's ``driver`` component: the installed library, loaded in a
+   process of its own, counts the probe's cards and ``driver-ready`` is
+   written; without the marker the component fails and clears it; (d)
+   node discovery then feature discovery stamp NFD's presence, GFD's count
+   and product, so ``node_generation`` is ``"h100-sxm"`` and
+   ``expected_cards`` the card count; (e) the device plugin serves, registers
+   ``nvidia.com/gpu`` with a kubelet stand-in (the Registration service on a
+   unix socket), whose ``ListAndWatch`` follower writes the node's
+   allocatable: every card Healthy, then the validator's ``plugin``
+   component writes ``plugin-ready`` with nothing written by hand; a
+   verdicts file marking the cards Unhealthy, then cleared, is published
+   both ways; ``Allocate`` of one card gives a child process, run under
+   exactly the response's env, one card with the allocated UUID, the
+   installed driver library and a passing ``run_smoke``; the health monitor
+   over the plugin's socket and the installer's dir reads "healthy" with no
+   reasons; (f) ``NodeMetrics``: the ready files of (c) and (e), the card
+   gauge at the card count, one successful revalidation, then without the
+   marker a failed one that clears ``driver-ready``.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -2613,6 +2639,403 @@ def phase_agents() -> dict:
     return out
 
 
+# -- phase 14: the node's device layer ----------------------------------------
+
+
+def allocated_child() -> None:
+    """Phase 14's child: the container the device plugin's ``Allocate``
+    describes, run under exactly its env. Prints its card count, its card's
+    UUID, the driver library it loaded and ``run_smoke``'s report."""
+    from tpu_operator_torch.workloads.smoke import run_smoke
+
+    report = run_smoke()
+    with open("/proc/self/maps") as maps:
+        loaded = sorted({line.split()[-1] for line in maps if "libcuda.so" in line})
+    print(json.dumps({"count": torch.cuda.device_count(),
+                      "uuid": f"GPU-{torch.cuda.get_device_properties(0).uuid}",
+                      "libcuda": loaded, "smoke": report}), flush=True)
+
+
+class _KubeletStandIn:
+    """The kubelet's half of the device plugin API: the Registration service
+    on ``kubelet.sock`` in ``socket_dir``; on ``Register`` it dials the
+    plugin's endpoint and follows its ``ListAndWatch`` stream, writing the
+    node's capacity (every device) and allocatable (the Healthy ones) from
+    each response, as the kubelet does."""
+
+    def __init__(self, client, socket_dir: str):
+        from concurrent import futures
+
+        import grpc
+
+        from tpu_operator_torch.agents.dpapi import deviceplugin_pb2 as pb
+
+        self.grpc, self.pb = grpc, pb
+        self.client, self.socket_dir = client, socket_dir
+        self.socket = os.path.join(socket_dir, "kubelet.sock")
+        self.requests, self.responses = [], []  # responses: (perf_counter, [(id, health)])
+        self.changed = threading.Condition()
+        self.channel = self.watch = None
+        self.pool = futures.ThreadPoolExecutor(max_workers=2)
+        self.server = grpc.server(thread_pool=self.pool)
+        self.server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+            "v1beta1.Registration", {"Register": grpc.unary_unary_rpc_method_handler(
+                self._register, request_deserializer=pb.RegisterRequest.FromString,
+                response_serializer=lambda m: m.SerializeToString())}),))
+        self.server.add_insecure_port(f"unix://{self.socket}")
+        self.server.start()
+
+    def _register(self, request, context):
+        self.requests.append(request)
+        self.channel = self.grpc.insecure_channel(
+            f"unix://{os.path.join(self.socket_dir, request.endpoint)}")
+        stream = self.channel.unary_stream(
+            "/v1beta1.DevicePlugin/ListAndWatch",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=self.pb.ListAndWatchResponse.FromString)(self.pb.Empty())
+        self.watch = threading.Thread(target=self._follow, args=(stream, request.resource_name),
+                                      daemon=True)
+        self.watch.start()
+        return self.pb.Empty()
+
+    def _follow(self, stream, resource: str) -> None:
+        try:
+            for response in stream:
+                devices = [(d.ID, d.health) for d in response.devices]
+                healthy = sum(health == "Healthy" for _, health in devices)
+                self.client.patch("v1", "Node", AGENT_NODE, {"status": {
+                    "capacity": {resource: str(len(devices))},
+                    "allocatable": {resource: str(healthy)}}})
+                with self.changed:
+                    self.responses.append((time.perf_counter(), devices))
+                    self.changed.notify_all()
+        except self.grpc.RpcError:
+            pass  # the stream ends when the plugin stops
+
+    def wait_for(self, count: int, timeout: float = 15.0) -> list:
+        """The ``count``-th ListAndWatch response's devices."""
+        with self.changed:
+            if not self.changed.wait_for(lambda: len(self.responses) >= count, timeout):
+                raise RuntimeError(f"kubelet stand-in: {len(self.responses)} ListAndWatch "
+                                   f"responses after {timeout} s, waited for {count}")
+            return self.responses[count - 1][1]
+
+    def allocate(self, ids: list):
+        call = self.channel.unary_unary(
+            "/v1beta1.DevicePlugin/Allocate", request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=self.pb.AllocateResponse.FromString)
+        return call(self.pb.AllocateRequest(container_requests=[
+            self.pb.ContainerAllocateRequest(devicesIDs=ids)]), timeout=30)
+
+    def stop(self) -> None:
+        if self.channel is not None:
+            self.channel.close()
+        self.server.stop(0).wait(5)
+        self.pool.shutdown(wait=False)
+        if self.watch is not None:
+            self.watch.join(5)
+
+
+def _card_probe(out: dict) -> dict:
+    """(a) the native probe against the card's own view."""
+    from tpu_operator_torch.native import gpuinfo
+
+    start = time.perf_counter()
+    inventory = gpuinfo.probe()
+    probe_ms = 1e3 * (time.perf_counter() - start)
+    dev, driver = gpuinfo.scan_dirs()
+    native, plain = gpuinfo.native_scan(dev, driver), gpuinfo.python_scan(dev, driver)
+    count = torch.cuda.device_count()
+    uuids = {f"GPU-{torch.cuda.get_device_properties(i).uuid}" for i in range(count)}
+    models = {torch.cuda.get_device_name(i) for i in range(count)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.split()
+    cards = inventory["cards"]
+    if not (inventory["source"] == "native" and native == plain
+            and inventory["chip_count"] == len(cards) == count
+            and {c["uuid"] for c in cards} == uuids and {c["model"] for c in cards} == models
+            and set(smi) == {inventory["driver_version"]}):
+        raise RuntimeError(f"card probe: {inventory}; native scan {native}, python scan {plain}; "
+                           f"torch {count} card(s) {uuids} {models}; nvidia-smi driver {smi}")
+    out["probe"] = {"inventory": inventory, "probe_ms": probe_ms, "scan": native}
+    log(f"device layer: (a) card probe (native, {gpuinfo.library_path().name}) in "
+        f"{probe_ms:.3f} ms: {count} card(s) {[(c['device'], c['model'], c['uuid'], c['bus_id'], c['memory_mib']) for c in cards]}, "
+        f"refused {inventory['refused']}, driver {inventory['driver_version']} (nvidia-smi "
+        f"{smi[0]}); UUIDs and models equal torch's; the Python scan equals the native one "
+        f"({native})")
+    return inventory
+
+
+def _driver(out: dict, tmp: str, client, inventory: dict) -> tuple:
+    """(b) the installer into a temporary install dir, (c) the driver check
+    and its negative case."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents import driver_installer
+    from tpu_operator_torch.validator import main as vmain
+    from tpu_operator_torch.validator import status as status_files
+
+    install = os.path.join(tmp, "install")
+    source = driver_installer.find_driver_library()
+    version = driver_installer.driver_version()
+    start = time.perf_counter()
+    first = driver_installer.install(source, install, version)
+    install_s = time.perf_counter() - start
+    start = time.perf_counter()
+    again = driver_installer.install(source, install, version)
+    rerun_s = time.perf_counter() - start
+    link = os.path.join(install, consts.DRIVER_LIBRARY)
+    with open(os.path.join(install, "version")) as f:
+        version_file = f.read().strip()
+    if not (first["changed"] and not again["changed"] and version == inventory["driver_version"]
+            and os.readlink(link) == f"{consts.DRIVER_LIBRARY}-{version}"
+            and version_file == version
+            and os.path.exists(os.path.join(install, consts.LIBTPU_CTR_READY_FILE))):
+        raise RuntimeError(f"driver installer: {first}, rerun {again}, link {os.readlink(link)}, "
+                           f"version file {version_file!r}, probed {inventory['driver_version']}")
+    out["installer"] = {"source": source, "report": first, "rerun": again,
+                        "install_s": install_s, "rerun_s": rerun_s,
+                        "bytes": os.path.getsize(source)}
+    log(f"device layer: (b) driver installer: {source} ({os.path.getsize(source)} B) -> "
+        f"{link} -> {os.readlink(link)} in {install_s:.3f} s, version file {version_file}, "
+        f"marker written; rerun changed {again['changed']} in {rerun_s:.3f} s")
+
+    validation = os.path.join(tmp, "validations")
+    ctx = vmain.Context(client=client, node_name=AGENT_NODE, namespace=AGENT_NS,
+                        validation_dir=validation, install_dir=install, retry_interval=0.25,
+                        resource_poll_retries=40)
+    start = time.perf_counter()
+    payload = vmain.run_component("driver", ctx, max_attempts=1)
+    check_s = time.perf_counter() - start
+    ready = status_files.read_status(consts.DRIVER_READY_FILE, validation)
+    marker = os.path.join(install, consts.LIBTPU_CTR_READY_FILE)
+    os.rename(marker, marker + ".away")
+    try:
+        vmain.run_component("driver", ctx, max_attempts=1)
+        negative = "passed"
+    except RuntimeError as e:
+        negative = str(e)
+        cleared = status_files.read_status(consts.DRIVER_READY_FILE, validation)
+    finally:
+        os.rename(marker + ".away", marker)
+    restored = vmain.run_component("driver", ctx, max_attempts=1)
+    if not (payload["cards"] == inventory["chip_count"] == torch.cuda.device_count()
+            and payload["driver_version"] == version and ready == payload
+            and "marker missing" in negative and cleared is None and restored == payload
+            and status_files.read_status(consts.DRIVER_READY_FILE, validation) == payload):
+        raise RuntimeError(f"driver check: {payload} (ready file {ready}); without the marker: "
+                           f"{negative}, ready file then {cleared}; the marker back: {restored}")
+    out["driver_check"] = {"payload": payload, "seconds": check_s, "without_marker": negative}
+    log(f"device layer: (c) driver check: the installed library answered {payload['cards']} "
+        f"card(s) = the probe's, in {check_s:.3f} s, driver-ready written; without the marker: "
+        f"'{negative}', driver-ready cleared; the marker back, it passes again")
+    return install, ctx
+
+
+def _discovery(out: dict, client) -> None:
+    """(d) discovery then feature discovery on an unlabelled node."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents.node_discovery_agent import NodeDiscoveryAgent
+    from tpu_operator_torch.agents.tfd_agent import TFDAgent
+    from tpu_operator_torch.nodeinfo import expected_cards, is_gpu_node, node_generation
+    from tpu_operator_torch.workloads import matmul_bench
+
+    changed = [NodeDiscoveryAgent(client, AGENT_NODE).apply_once(),
+               TFDAgent(client, AGENT_NODE).apply_once()]
+    node = client.get_or_none("v1", "Node", AGENT_NODE)
+    labels = node["metadata"]["labels"]
+    count = torch.cuda.device_count()
+    again = [NodeDiscoveryAgent(client, AGENT_NODE).apply_once(),
+             TFDAgent(client, AGENT_NODE).apply_once()]
+    if not (changed == [True, True] and again == [False, False] and is_gpu_node(node)
+            and labels[consts.NFD_PRESENT_LABEL] == "true"
+            and labels[consts.GFD_COUNT_LABEL] == str(count)
+            and labels[consts.GFD_PRODUCT_LABEL] == torch.cuda.get_device_name(0).replace(" ", "-")
+            and node_generation(node) == matmul_bench.chip_generation() == "h100-sxm"
+            and expected_cards(node) == count):
+        raise RuntimeError(f"discovery: passes {changed} then {again}, labels {labels}, "
+                           f"generation {node_generation(node)!r}")
+    out["discovery"] = {"labels": labels}
+    log(f"device layer: (d) discovery and feature discovery on an unlabelled {AGENT_NODE}: "
+        f"{labels}; node_generation {node_generation(node)}, expected_cards "
+        f"{expected_cards(node)}; a second pass changes nothing")
+
+
+def _device_plugin(out: dict, tmp: str, client, install: str, ctx, inventory: dict) -> None:
+    """(e) the device plugin through the kubelet stand-in, its health
+    updates, an allocated card's child process, and the health monitor over
+    the plugin's socket and the installer's dir."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.agents.device_plugin_agent import GPUDevicePlugin
+    from tpu_operator_torch.agents.health_monitor_agent import HealthMonitorAgent
+    from tpu_operator_torch.validator import main as vmain
+    from tpu_operator_torch.validator import status as status_files
+
+    sockets, health = os.path.join(tmp, "dp"), os.path.join(tmp, "health")
+    os.makedirs(sockets)
+    if len(os.path.join(sockets, consts.PLUGIN_SOCKET_NAME)) > 100:
+        raise RuntimeError(f"socket directory {sockets} too long for a unix socket")
+    count = torch.cuda.device_count()
+    ids = [os.path.basename(c["device"]) for c in inventory["cards"]]
+    uuid = {os.path.basename(c["device"]): c["uuid"] for c in inventory["cards"]}
+    plugin = GPUDevicePlugin(socket_dir=sockets, install_dir=install, health_dir=health)
+    kubelet = _KubeletStandIn(client, sockets)
+
+    def allocatable():
+        node = client.get_or_none("v1", "Node", AGENT_NODE)
+        return node["status"]["allocatable"][consts.GPU_RESOURCE_NAME]
+
+    try:
+        plugin._last_health = plugin.current_health()  # as run_forever starts
+        plugin.serve()
+        start = time.perf_counter()
+        plugin.register(kubelet.socket)
+        first = kubelet.wait_for(1)
+        register_ms = 1e3 * (kubelet.responses[0][0] - start)
+        after_first = allocatable()
+        plugin_payload = vmain.run_component("plugin", ctx, max_attempts=1)
+        plugin_ready = status_files.read_status(consts.PLUGIN_READY_FILE, ctx.validation_dir)
+
+        os.makedirs(health, exist_ok=True)
+        verdicts = os.path.join(health, consts.HEALTH_VERDICTS_FILE)
+        with open(verdicts, "w") as f:
+            json.dump({"verdict": consts.HEALTH_DEGRADED,
+                       "chips": {i: "Unhealthy" for i in ids}, "reasons": ["drill"]}, f)
+        marked = plugin.health_tick()
+        unhealthy = kubelet.wait_for(2)
+        while_unhealthy = allocatable()
+        os.remove(verdicts)
+        cleared = plugin.health_tick()
+        healthy = kubelet.wait_for(3)
+        after_clear = allocatable()
+
+        response = kubelet.allocate(ids[:1]).container_responses[0]
+        start = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.allocated_child()"],
+            cwd=pathlib.Path(__file__).resolve().parent, env=dict(os.environ, **dict(response.envs)),
+            capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - start
+        monitor = HealthMonitorAgent(client, AGENT_NODE, install_dir=install, socket_dir=sockets,
+                                     health_dir=os.path.join(tmp, "monitor"), active_probes="on")
+        verdict = monitor.probe(client.get_or_none("v1", "Node", AGENT_NODE))
+    finally:
+        plugin.stop()
+        kubelet.stop()
+    request = kubelet.requests[0]
+    lines = child.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if child.returncode == 0 and lines else {}
+    paths = [d.host_path for d in response.devices]
+    if not (request.resource_name == consts.GPU_RESOURCE_NAME
+            and request.endpoint == consts.PLUGIN_SOCKET_NAME and len(kubelet.requests) == 1
+            and first == [(i, "Healthy") for i in ids] and len(first) == count
+            and after_first == str(count)
+            and plugin_payload == {"resource": consts.GPU_RESOURCE_NAME, "chips": count}
+            and plugin_ready == plugin_payload
+            and marked and unhealthy == [(i, "Unhealthy") for i in ids] and while_unhealthy == "0"
+            and cleared and healthy == first and after_clear == str(count)):
+        raise RuntimeError(f"device plugin: register {request}, ListAndWatch {kubelet.responses}, "
+                           f"allocatable {after_first}/{while_unhealthy}/{after_clear}, plugin "
+                           f"component {plugin_payload} ({plugin_ready}), ticks {marked}/{cleared}")
+    if not (dict(response.envs) == {"CUDA_VISIBLE_DEVICES": uuid[ids[0]],
+                                    "NVIDIA_VISIBLE_DEVICES": uuid[ids[0]],
+                                    "LD_LIBRARY_PATH": install}
+            and paths == [f"/dev/{ids[0]}", "/dev/nvidiactl", "/dev/nvidia-uvm"]
+            and all(os.path.exists(p) for p in paths)
+            and [(m.host_path, m.read_only) for m in response.mounts] == [(install, True)]
+            and child.returncode == 0 and report.get("count") == 1
+            and report.get("uuid") == uuid[ids[0]] and report["smoke"].get("ok") is True
+            and report["libcuda"] and all(p.startswith(os.path.realpath(install))
+                                          for p in report["libcuda"])):
+        raise RuntimeError(f"Allocate: {response}; child exit {child.returncode}: "
+                           f"{child.stdout[-2000:]} {child.stderr[-3000:]}")
+
+    if not (verdict["verdict"] == consts.HEALTH_HEALTHY and verdict["reasons"] == []
+            and verdict["chips"] == {i: "Healthy" for i in ids}):
+        raise RuntimeError(f"health monitor over the plugin's socket and the installer's dir: "
+                           f"{verdict}")
+    out["device_plugin"] = {"register_to_first_list_ms": register_ms, "child_s": child_s,
+                            "child": report, "envs": dict(response.envs), "devices": paths,
+                            "list_and_watch": [d for _, d in kubelet.responses],
+                            "health_monitor": verdict}
+    log(f"device layer: (e) device plugin: registered {request.resource_name} at "
+        f"{request.endpoint}; register -> first ListAndWatch {register_ms:.3f} ms: {first}, "
+        f"allocatable {after_first}; the plugin component wrote plugin-ready ({plugin_payload}); "
+        f"verdicts Unhealthy -> {unhealthy} (allocatable {while_unhealthy}), cleared -> "
+        f"{healthy} (allocatable {after_clear})")
+    log(f"device layer: (e) Allocate {ids[:1]} -> devices {paths}, envs {dict(response.envs)}, "
+        f"install dir read-only; the child under that env in {child_s:.2f} s saw "
+        f"{report['count']} card {report['uuid']}, loaded {report['libcuda']}, run_smoke ok; "
+        f"the health monitor over the plugin's socket and the installer's dir: "
+        f"{verdict['verdict']}, reasons {verdict['reasons']}")
+
+
+def _node_metrics(out: dict, ctx) -> None:
+    """(f) the exporter over (c)'s and (e)'s status files, the probe's
+    count and the driver revalidation, then a failed revalidation."""
+    import prometheus_client
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.validator import status as status_files
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    metrics = NodeMetrics(ctx)
+    start = time.perf_counter()
+    metrics.collect_status_files()
+    metrics.collect_device_count()
+    metrics.revalidate_driver()
+    pass_s = time.perf_counter() - start
+    node = {"node": AGENT_NODE}
+
+    def value(name, **labels):
+        return metrics.registry.get_sample_value(name, dict(node, **labels))
+
+    text = prometheus_client.generate_latest(metrics.registry).decode()
+    samples = [line for line in text.splitlines() if line and not line.startswith("#")]
+    ready = {c: value("tpu_operator_node_component_ready", component=c)
+             for c in (consts.DRIVER_READY_FILE, consts.PLUGIN_READY_FILE)}
+    counted = (value("tpu_operator_node_gpus"),
+               value("tpu_operator_node_driver_revalidations_total", result="success"))
+    marker = os.path.join(ctx.install_dir, consts.LIBTPU_CTR_READY_FILE)
+    os.rename(marker, marker + ".away")
+    try:
+        metrics.revalidate_driver()
+    finally:
+        os.rename(marker + ".away", marker)
+    failed = (value("tpu_operator_node_driver_revalidations_total", result="failure"),
+              status_files.read_status(consts.DRIVER_READY_FILE, ctx.validation_dir))
+    if not (ready == {consts.DRIVER_READY_FILE: 1, consts.PLUGIN_READY_FILE: 1}
+            and counted == (torch.cuda.device_count(), 1) and failed == (1, None)):
+        raise RuntimeError(f"node metrics: ready {ready}, cards and revalidations {counted}, "
+                           f"after a failed revalidation {failed}")
+    out["node_metrics"] = {"series": len(samples), "pass_s": pass_s, "exposition": text}
+    log(f"device layer: (f) node metrics: {len(samples)} series in one pass of {pass_s:.3f} s; "
+        f"ready {ready}, tpu_operator_node_gpus {counted[0]:.0f}, driver revalidations "
+        f"{counted[1]:.0f}; without the marker the next revalidation counts a failure and "
+        f"clears driver-ready")
+    log(f"device layer: exposition {json.dumps(text)}")
+
+
+def phase_device_layer() -> dict:
+    """Phase 14: the node's device layer on the card (see the module docstring)."""
+    out = {}
+    start = time.monotonic()
+    zero_launches()
+    client = _DictClient()
+    client.create({"apiVersion": "v1", "kind": "Node", "metadata": {
+        "name": AGENT_NODE, "labels": {"kubernetes.io/hostname": AGENT_NODE}}, "status": {}})
+    inventory = _card_probe(out)
+    with tempfile.TemporaryDirectory(prefix="dl-") as tmp:
+        install, ctx = _driver(out, tmp, client, inventory)
+        _discovery(out, client)
+        _device_plugin(out, tmp, client, install, ctx, inventory)
+        _node_metrics(out, ctx)
+    out["launches"] = read_launches()
+    out["seconds"] = time.monotonic() - start
+    log(f"device layer: phase 14 in {out['seconds']:.1f} s (kernel launches in this process "
+        f"{out['launches']})")
+    return out
+
+
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts); the timings
@@ -2664,6 +3087,7 @@ def main(argv=None) -> int:
     results["replicas"] = phase_replicas(results["serving"]["tokens"])
     results["autotune"] = phase_autotune()
     results["agents"] = phase_agents()
+    results["device_layer"] = phase_device_layer()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],

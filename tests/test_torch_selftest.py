@@ -340,7 +340,14 @@ def test_workload_entry_prints_the_report(capsys, monkeypatch):
 
 
 def test_validator_main_rejects_unported_components(monkeypatch):
-    for component in ("", "libtpu", "metrics"):
+    for component in ("", "libtpu"):
         monkeypatch.setenv("COMPONENT", component)
         assert vmain.main() == 1
-    assert sorted(vmain.COMPONENTS) == ["plugin", "slice", "smoke", "workload"]
+    assert sorted(vmain.COMPONENTS) == ["driver", "plugin", "slice", "smoke", "workload"]
+    # the node-status exporter is ported: it serves (here: returns at once)
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    served = []
+    monkeypatch.setattr(NodeMetrics, "run_forever", lambda self: served.append(self))
+    monkeypatch.setenv("COMPONENT", "metrics")
+    assert vmain.main() == 0 and len(served) == 1

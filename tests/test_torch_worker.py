@@ -380,12 +380,25 @@ def test_copied_constants_equal_the_reference():
         "TPU_SLICE_API_VERSION": tpuslice.TPU_SLICE_API_VERSION,
         "TPU_SLICE_KIND": tpuslice.TPU_SLICE_KIND, "TERMINAL_PHASES": tpujob.TERMINAL_PHASES,
     }
-    # the card's own keys have no control-plane counterpart: NVIDIA's names
-    sources.update({"GPU_RESOURCE_NAME": "nvidia.com/gpu",
-                    "GFD_PRODUCT_LABEL": "nvidia.com/gpu.product",
-                    "GFD_COUNT_LABEL": "nvidia.com/gpu.count"})
+    # the device plugin's socket keeps the reference plugin's names
+    from tpu_operator.agents import device_plugin_agent as ref_dp
+
+    sources.update({"KUBELET_SOCKET_DIR": ref_dp.KUBELET_SOCKET_DIR,
+                    "PLUGIN_SOCKET_NAME": ref_dp.PLUGIN_SOCKET_NAME})
+    # the card's own keys have no control-plane counterpart: NVIDIA's and
+    # Kubernetes' names
+    gfd = {"GFD_PRODUCT_LABEL": "nvidia.com/gpu.product",
+           "GFD_COUNT_LABEL": "nvidia.com/gpu.count",
+           "GFD_MEMORY_LABEL": "nvidia.com/gpu.memory",
+           "GFD_DRIVER_MAJOR_LABEL": "nvidia.com/cuda.driver.major",
+           "GFD_DRIVER_MINOR_LABEL": "nvidia.com/cuda.driver.minor",
+           "GFD_DRIVER_REV_LABEL": "nvidia.com/cuda.driver.rev"}
+    sources.update(gfd, GFD_LABELS=tuple(gfd.values()), GPU_RESOURCE_NAME="nvidia.com/gpu",
+                   NFD_PRESENT_LABEL="feature.node.kubernetes.io/pci-10de.present",
+                   GKE_GPU_ACCELERATOR_LABEL="cloud.google.com/gke-accelerator",
+                   DRIVER_READY_FILE="driver-ready", DRIVER_LIBRARY="libcuda.so.1")
     names = [n for n in vars(consts) if n.isupper()]
-    assert len(names) == 76
+    assert len(names) == 87
     for name in names:
         want = sources[name] if name in sources else getattr(ref_consts, name)
         assert getattr(consts, name) == want, name

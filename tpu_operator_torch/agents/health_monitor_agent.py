@@ -3,20 +3,20 @@
 
 Every tick the agent probes what it can observe directly:
 
-    chips    the ``/dev/nvidia<N>`` device nodes under ``dev_root`` that
-             this container may open, against the card count the node
+    chips    the node's cards from the one card probe
+             (``native/gpuinfo.probe``), against the card count the node
              advertises (a yanked card or a dead driver loses its device
-             node); per-card verdicts. The driver's control nodes
-             (``nvidiactl``, ``nvidia-uvm``, ...) are not cards, nor are
-             the nodes of other containers' cards
-    libtpu   the installer's ready marker under ``install_dir``
+             node); per-card verdicts keyed by the card's node name
+             (``nvidia<minor>``, as the device plugin's device ids)
+    libtpu   the driver installer's ready marker under ``install_dir``
     plugin   the device plugin's socket under ``socket_dir``
     matmul   a cheap matmul burst on the agent's device, gated like the
              exporter's probes: ``auto`` skips quietly when a tenant holds
              the card, ``on`` counts a failure, ``off`` never runs it
 
-The marker and the socket keep the reference's names; their directories
-are parameters.
+The marker and the socket keep the reference's names (``consts``), which the
+port's driver installer and device plugin write; their directories are
+parameters.
 
 The verdict goes out three ways: an atomically written JSON file under
 ``health_dir`` (the device plugin reads it), the ``tpu.google.com/tpu.health``
@@ -36,24 +36,21 @@ from __future__ import annotations
 import json
 import logging
 import os
-import re
 import tempfile
 import time
 from typing import Dict, List, Optional
 
 from tpu_operator_torch import consts
+from tpu_operator_torch.consts import PLUGIN_SOCKET_NAME
 from tpu_operator_torch.device import DeviceLike
 from tpu_operator_torch.kube import is_api_error
+from tpu_operator_torch.native import gpuinfo
 from tpu_operator_torch.nodeinfo import expected_cards
 
 log = logging.getLogger(__name__)
 
 HEALTHY = "Healthy"
 UNHEALTHY = "Unhealthy"
-# the reference device plugin's socket name (agents/device_plugin_agent.py)
-PLUGIN_SOCKET_NAME = "tpu-device-plugin.sock"
-# a card's device node: /dev/nvidia<minor>, nothing else of the driver's
-_CARD_NODE = re.compile(r"nvidia(\d+)")
 
 
 class HealthMonitorAgent:
@@ -62,13 +59,13 @@ class HealthMonitorAgent:
         client,
         node_name: str,
         install_dir: str = consts.LIBTPU_INSTALL_DIR,
-        socket_dir: str = "/var/lib/kubelet/device-plugins",
+        socket_dir: str = consts.KUBELET_SOCKET_DIR,
         health_dir: str = consts.HEALTH_DIR,
         interval: float = 30.0,
         active_probes: str = "auto",
         expected_chips: Optional[int] = None,
         recorder=None,
-        dev_root: str = "/dev",
+        dev_root: Optional[str] = None,
         device: DeviceLike = None,
     ):
         if active_probes not in ("auto", "on", "off"):
@@ -84,6 +81,7 @@ class HealthMonitorAgent:
         # Events on verdict flips go through it (anything with the
         # reference's ``event(obj, type, reason, message)``); None: none
         self.recorder = recorder
+        # the device directory the probe scans; None: its scan root's /dev
         self.dev_root = dev_root
         self.device = device
         self._last_verdict: Optional[str] = None
@@ -107,29 +105,21 @@ class HealthMonitorAgent:
         return expected_cards(node)
 
     def probe_chips(self, node: Optional[dict] = None) -> Optional[Dict[str, str]]:
-        """Per-card verdicts from the card nodes this container may open.
-        A container can see another container's card nodes, which its
-        device cgroup refuses to open (EPERM): those are skipped. A node
-        that opens is Healthy; one that fails to open otherwise is a card
-        of this container gone bad, Unhealthy. When fewer cards are found
-        than expected, the shortfall is named Unhealthy by the lowest
-        indices with no node at all (a container sees the host's device
-        minors, which need not start at 0). None when the directory
-        cannot be read (indeterminate)."""
+        """Per-card verdicts from the card probe: a card node this container
+        may open is Healthy, one of its own that fails to open is
+        Unhealthy, and other containers' nodes are not its cards. When fewer
+        cards are found than expected, the shortfall is named Unhealthy by
+        the lowest indices with no node at all (a container sees the host's
+        device minors, which need not start at 0). None when the probe
+        fails (indeterminate)."""
         try:
-            names = sorted(n for n in os.listdir(self.dev_root) if _CARD_NODE.fullmatch(n))
-        except OSError:
+            inventory = gpuinfo.probe(self.dev_root)
+        except (OSError, RuntimeError) as e:
+            log.warning("health: card probe failed: %s", e)
             return None
-        verdicts: Dict[str, str] = {}
-        for name in names:
-            try:
-                os.close(os.open(os.path.join(self.dev_root, name), os.O_RDWR))
-            except PermissionError:
-                continue
-            except OSError:
-                verdicts[name] = UNHEALTHY
-            else:
-                verdicts[name] = HEALTHY
+        verdicts = {os.path.basename(d): HEALTHY for d in inventory["devices"]}
+        verdicts.update({os.path.basename(d): UNHEALTHY for d in inventory["failed"]})
+        names = set(verdicts) | {os.path.basename(d) for d in inventory["refused"]}
         missing = (self.expected_chips(node) or 0) - len(verdicts)
         i = 0
         while missing > 0:
@@ -318,7 +308,7 @@ def main() -> int:
         Client.in_cluster(),
         node_name,
         install_dir=os.environ.get("LIBTPU_INSTALL_DIR", consts.LIBTPU_INSTALL_DIR),
-        socket_dir=os.environ.get("KUBELET_SOCKET_DIR", "/var/lib/kubelet/device-plugins"),
+        socket_dir=os.environ.get("KUBELET_SOCKET_DIR", consts.KUBELET_SOCKET_DIR),
         health_dir=os.environ.get("HEALTH_DIR", consts.HEALTH_DIR),
         interval=interval,
         active_probes=active,

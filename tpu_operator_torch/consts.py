@@ -118,11 +118,17 @@ HEALTH_DIR = "/run/tpu/health"
 HEALTH_VERDICTS_FILE = "verdicts.json"
 
 # validation status files (the barrier other operands wait on) and the
-# installer's ready marker on the host install path
+# installer's ready marker on the host install path. The driver installer
+# writes the marker, the device plugin serves on the socket under the
+# kubelet's device-plugin directory, and the health monitor checks both:
+# they keep the reference's names, so the control plane's manifests and
+# probes name the same files
 PLUGIN_READY_FILE = "plugin-ready"
 WORKLOAD_READY_FILE = "workload-ready"
 LIBTPU_INSTALL_DIR = "/home/kubernetes/bin/tpu"
 LIBTPU_CTR_READY_FILE = ".libtpu-ctr-ready"
+KUBELET_SOCKET_DIR = "/var/lib/kubelet/device-plugins"
+PLUGIN_SOCKET_NAME = "tpu-device-plugin.sock"
 
 OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
 DEFAULT_OPERATOR_NAMESPACE = "tpu-operator"
@@ -133,3 +139,22 @@ DEFAULT_OPERATOR_NAMESPACE = "tpu-operator"
 GPU_RESOURCE_NAME = "nvidia.com/gpu"
 GFD_PRODUCT_LABEL = "nvidia.com/gpu.product"
 GFD_COUNT_LABEL = "nvidia.com/gpu.count"
+# GFD's memory (MiB) and driver version labels
+GFD_MEMORY_LABEL = "nvidia.com/gpu.memory"
+GFD_DRIVER_MAJOR_LABEL = "nvidia.com/cuda.driver.major"
+GFD_DRIVER_MINOR_LABEL = "nvidia.com/cuda.driver.minor"
+GFD_DRIVER_REV_LABEL = "nvidia.com/cuda.driver.rev"
+# every label feature discovery publishes (and strips when the cards go)
+GFD_LABELS = (GFD_PRODUCT_LABEL, GFD_COUNT_LABEL, GFD_MEMORY_LABEL, GFD_DRIVER_MAJOR_LABEL,
+              GFD_DRIVER_MINOR_LABEL, GFD_DRIVER_REV_LABEL)
+# Node Feature Discovery's PCI label for a device of NVIDIA's vendor id
+# (0x10de): node discovery stamps it where the probe finds cards
+NFD_PRESENT_LABEL = "feature.node.kubernetes.io/pci-10de.present"
+# the platform's accelerator label on a GKE node with cards: where it is
+# set, the platform owns the node's identity (discovery never strips)
+GKE_GPU_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
+# the driver check's status file (NVIDIA's validator writes the same name)
+DRIVER_READY_FILE = "driver-ready"
+# the driver library the installer copies into the install dir (its
+# soname: the link every workload's loader resolves)
+DRIVER_LIBRARY = "libcuda.so.1"

@@ -13,6 +13,12 @@ Two label sets name a node's accelerator:
    ``nvidia.com/gpu.count``, through the one table of H100 variants that
    ``workloads/matmul_bench.chip_generation`` also reads.
 
+The port's own discovery agents publish the second set: ``gfd_labels``
+(the counterpart of the reference's ``tfd_labels``) from the card probe's
+inventory, and Node Feature Discovery's ``pci-10de.present``, which with the
+platform's accelerator label makes ``is_gpu_node`` (the counterpart of
+``is_tpu_node``).
+
 Pure Python: importing it touches no device.
 """
 
@@ -112,3 +118,38 @@ def expected_cards(node: Optional[dict]) -> Optional[int]:
         dims = []
     in_slice = math.prod(dims) if dims and all(d > 0 for d in dims) else 0
     return min(in_slice, per_host) if in_slice else per_host
+
+
+# every card label the port's discovery agents publish: each strips them
+# all when a successful probe finds no card (the reference's TFD_LABELS)
+CARD_LABELS = (consts.NFD_PRESENT_LABEL, *consts.GFD_LABELS)
+
+
+def is_gpu_node(node: Optional[dict]) -> bool:
+    """Whether the node has cards by its labels: Node Feature Discovery's
+    ``pci-10de.present`` (the port's node discovery stamps it), or the
+    platform's accelerator label naming an NVIDIA card (GKE's
+    ``cloud.google.com/gke-accelerator: nvidia-...``)."""
+    labels = _labels(node)
+    return (labels.get(consts.NFD_PRESENT_LABEL) == "true"
+            or labels.get(consts.GKE_GPU_ACCELERATOR_LABEL, "").startswith("nvidia-"))
+
+
+def gfd_labels(inventory: dict) -> Dict[str, str]:
+    """The labels feature discovery publishes from the card probe's
+    inventory (``native/gpuinfo.probe``): GFD's product (the first named
+    card's model, spaces as dashes), count, memory in MiB and driver
+    version parts, each only where the probe knows it."""
+    cards = inventory["cards"]
+    labels = {consts.GFD_COUNT_LABEL: str(inventory["chip_count"])}
+    model = next((c["model"] for c in cards if c.get("model")), "")
+    if model:
+        labels[consts.GFD_PRODUCT_LABEL] = model.replace(" ", "-")
+    memory = next((c["memory_mib"] for c in cards if c.get("memory_mib")), 0)
+    if memory:
+        labels[consts.GFD_MEMORY_LABEL] = str(memory)
+    parts = inventory["driver_version"].split(".")
+    for key, part in zip((consts.GFD_DRIVER_MAJOR_LABEL, consts.GFD_DRIVER_MINOR_LABEL,
+                          consts.GFD_DRIVER_REV_LABEL), parts if len(parts) > 1 else ()):
+        labels[key] = part
+    return labels

@@ -1,6 +1,12 @@
 """tpu-validator's components on the card (port of
 ``tpu_operator/validator/main.py``).
 
+    driver    the driver-validation analog (the reference's ``libtpu``): the
+              install dir carries the driver library (``libcuda.so.1``) and
+              the installer's ready marker; on a card the installed library
+              must also answer: loaded in a process of its own, ``cuInit``
+              succeeds and ``cuDeviceGetCount`` equals the card probe's
+              count; writes ``driver-ready``;
     plugin    the device plugin advertises the card: polls the node's
               allocatable ``nvidia.com/gpu`` until it is positive; writes
               ``plugin-ready``;
@@ -18,14 +24,14 @@
               primitives; writes ``slice-ready``.
 
 The dispatch on ``COMPONENT``, the retry loop and the status files are
-the reference's. Its ``libtpu`` component checks the TPU runtime's
-install, which a card does not have (its counterpart, a driver check, is
-not ported), and ``metrics`` is not ported.
+the reference's; the node-status exporter (the reference's ``metrics``) is
+``validator/metrics.py``.
 
     COMPONENT=workload python -m tpu_operator_torch.validator.main
 
 runs one component in a cluster (``NODE_NAME``, ``OPERATOR_NAMESPACE``,
-``VALIDATOR_IMAGE``, ``EXPECTED_CHIPS`` and the floors from the env).
+``LIBTPU_INSTALL_DIR``, ``VALIDATOR_IMAGE``, ``EXPECTED_CHIPS`` and the
+floors from the env).
 """
 
 from __future__ import annotations
@@ -33,11 +39,13 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import subprocess
+import sys
 import time
 from typing import Dict, Optional
 
 from tpu_operator_torch import consts
-from tpu_operator_torch.device import DeviceLike, local_devices
+from tpu_operator_torch.device import DeviceLike, local_devices, resolve_device
 from tpu_operator_torch.kube import is_api_error, new_object
 from tpu_operator_torch.perf import floors_for
 from tpu_operator_torch.validator import status as status_files
@@ -52,6 +60,7 @@ class Context:
     node_name: str = ""
     namespace: str = consts.DEFAULT_OPERATOR_NAMESPACE
     validation_dir: str = status_files.VALIDATION_DIR
+    install_dir: str = consts.LIBTPU_INSTALL_DIR
     validator_image: str = ""
     retry_interval: float = 5.0
     resource_poll_retries: int = 30
@@ -72,6 +81,7 @@ class Context:
             namespace=os.environ.get(consts.OPERATOR_NAMESPACE_ENV,
                                      consts.DEFAULT_OPERATOR_NAMESPACE),
             validation_dir=os.environ.get("VALIDATION_DIR", status_files.VALIDATION_DIR),
+            install_dir=os.environ.get("LIBTPU_INSTALL_DIR", consts.LIBTPU_INSTALL_DIR),
             validator_image=os.environ.get("VALIDATOR_IMAGE", ""),
             expected_chips=int(os.environ["EXPECTED_CHIPS"]) if os.environ.get("EXPECTED_CHIPS") else None,
             # `is None`, not `or`: an explicit MIN_TFLOPS=0 means "floor
@@ -119,6 +129,57 @@ def enforce_floor(what: str, measured: float, floor: Optional[float]) -> None:
         raise RuntimeError(
             f"{what} {measured:.2f} below configured floor {floor:.2f}"
         )
+
+
+# loads the library named by argv[1] and prints "<CUresult> <device count>"
+_DRIVER_COUNT = (
+    "import ctypes, sys\n"
+    "lib = ctypes.CDLL(sys.argv[1])\n"
+    "count = ctypes.c_int()\n"
+    "rc = lib.cuInit(0) or lib.cuDeviceGetCount(ctypes.byref(count))\n"
+    "print(rc, count.value)\n"
+)
+
+
+def driver_card_count(library: str) -> int:
+    """The cards the driver library at ``library`` reports (``cuInit``, then
+    ``cuDeviceGetCount``), asked in a process of its own: a second copy of
+    the driver library in a process that already holds one is not loaded
+    beside it. Every card of the node counts (``CUDA_VISIBLE_DEVICES`` is
+    dropped). Raises when the driver does not answer."""
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    proc = subprocess.run([sys.executable, "-c", _DRIVER_COUNT, library], env=env,
+                          capture_output=True, text=True, timeout=120)
+    fields = proc.stdout.split()
+    if proc.returncode != 0 or len(fields) != 2 or fields[0] != "0":
+        raise RuntimeError(f"driver library {library} did not answer (exit {proc.returncode}, "
+                           f"output {proc.stdout.strip()!r}): {proc.stderr[-1000:]}")
+    return int(fields[1])
+
+
+def validate_driver(ctx: Context) -> dict:
+    """The driver is ready when the install dir carries the driver library
+    and the installer's ready marker (the reference's ``validate_libtpu``).
+    On a card (``ctx.device`` not the CPU) the installed library must also
+    report as many cards as the card probe finds."""
+    lib = os.path.join(ctx.install_dir, consts.DRIVER_LIBRARY)
+    marker = os.path.join(ctx.install_dir, consts.LIBTPU_CTR_READY_FILE)
+    if not os.path.exists(lib):
+        raise RuntimeError(f"{consts.DRIVER_LIBRARY} not found at {lib}")
+    if not os.path.exists(marker):
+        raise RuntimeError(f"installer ready marker missing: {marker}")
+    payload = {"library": lib, "size": os.path.getsize(lib)}
+    if resolve_device(ctx.device).type == "cpu":
+        return payload
+    from tpu_operator_torch.native import gpuinfo
+
+    cards = driver_card_count(lib)
+    inventory = gpuinfo.probe()
+    if cards != inventory["chip_count"]:
+        raise RuntimeError(f"the driver reports {cards} card(s), the probe finds "
+                           f"{inventory['chip_count']}")
+    payload.update(cards=cards, driver_version=inventory["driver_version"])
+    return payload
 
 
 def validate_plugin(ctx: Context) -> dict:
@@ -313,6 +374,7 @@ def validate_slice(ctx: Context) -> dict:
 
 COMPONENTS: Dict[str, tuple] = {
     # name -> (fn, status file)
+    "driver": (validate_driver, consts.DRIVER_READY_FILE),
     "plugin": (validate_plugin, consts.PLUGIN_READY_FILE),
     "workload": (validate_workload, consts.WORKLOAD_READY_FILE),
     "slice": (validate_slice, "slice-ready"),
@@ -350,6 +412,11 @@ def run_component(
 def main() -> int:
     logging.basicConfig(level=logging.INFO)
     component = os.environ.get("COMPONENT", "")
+    if component == "metrics":
+        from tpu_operator_torch.validator.metrics import NodeMetrics
+
+        NodeMetrics.from_env().run_forever()
+        return 0
     if component not in COMPONENTS:
         log.error("unknown COMPONENT %r (valid: %s)", component, ", ".join(COMPONENTS))
         return 1
