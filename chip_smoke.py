@@ -38,8 +38,11 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
 5. serving — the default-geometry ``DecodeEngine`` with flash prefill
-   answers 16 requests through the general kernel, with the same greedy
-   tokens as dense prefill;
+   answers 16 requests through the general kernel, its decode and each
+   prefill offset as CUDA graph replays, with the same greedy tokens as
+   dense prefill and as the same engine run op by op (``eager_engine``),
+   and as many launches; one decode's and one prefill's eager, replayed
+   and device ms and device operations (``graph_nodes``);
 6. train — ``run_burnin(steps=3)`` at ``entry()`` widths with flash
    attention: plain causal (the triangle pairs, 2 launches of each kernel
    per step), ``kv_heads=2`` (a GQA group inside the dK/dV kernel) and
@@ -48,7 +51,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    params (the packed one of the same run on the CPU, where attention
    takes the plain versions: the dense path has no segment ids); an f32
    gradient check of ``flash_attention`` against autograd through dense
-   attention; the train step's eager and device ms;
+   attention; ``GRAPH_STEPS`` calls of the train step (a CUDA graph replay:
+   the first call eager, then captured) against its eager step from the
+   same params, within ``GRAPH_REL_TOL``; the step's eager, replayed and
+   device ms and device operations;
    ``flash_attention_bench()`` (fwd and fwd+bwd at 4096 tokens against
    dense and checkpointed dense attention); and one ``flash_attention``
    fwd+bwd at (1,4096,8,128) bf16, device (CUDA graph) and eager ms;
@@ -274,6 +280,14 @@ def cuda_ms(fn, inner: int, reps: int = 7) -> float:
     return _event_ms(run, inner, reps)
 
 
+def capture(graph):
+    """The port's capture guard (``kernels/graph.capture``): no graph that a
+    dead reference cycle holds is destroyed during the capture."""
+    from tpu_operator_torch.kernels.graph import capture as guarded
+
+    return guarded(graph)
+
+
 def device_ms(fn, inner: int, reps: int = 7) -> float:
     """Median device time per call in ms: ``inner`` calls captured in one
     CUDA graph and replayed between CUDA events, so the host's overhead
@@ -284,7 +298,7 @@ def device_ms(fn, inner: int, reps: int = 7) -> float:
         fn()  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         for _ in range(inner):
             fn()
     graph.replay()
@@ -292,6 +306,30 @@ def device_ms(fn, inner: int, reps: int = 7) -> float:
     ms = _event_ms(graph.replay, inner, reps)
     del graph
     return ms
+
+
+def graph_nodes(fn) -> int:
+    """The device operations (kernels, copies, memsets) of one call of
+    ``fn``: the nodes of a CUDA graph that captures it, from the driver's
+    ``cuGraphGetNodes``: what one replay launches, and an eager call
+    launches one by one."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with capture(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if code:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {code}")
+    del graph
+    return count.value
 
 
 def err(a, b) -> float:
@@ -1019,14 +1057,58 @@ def _int8_check() -> None:
             raise RuntimeError(f"int8 matmul on the card is not exact at {(m, kdim, n)}")
 
 
+def eager_engine(*args, **kwargs):
+    """A ``DecodeEngine`` whose decode and prefill run op by op on the card,
+    as the engine ran before its CUDA graphs: the reference the graphed
+    engine's tokens are held to."""
+    from tpu_operator_torch.workloads.serving import DecodeEngine
+
+    class EagerEngine(DecodeEngine):
+        def _compiled(self, body, *inputs):
+            device = self.device
+            return lambda *a: body(*(t.to(device) for t in a))
+
+    return EagerEngine(*args, **kwargs)
+
+
+def _engine_times(engine) -> dict:
+    """Eager, replayed and device ms of one decode and one prefill at offset
+    0 (flash or dense as the engine's config says), every lane masked so
+    that every write lands on the scratch page, and the device operations
+    of each (``graph_nodes``)."""
+    import functools
+
+    from tpu_operator_torch.workloads.serving import _decode_step, _prefill_step
+
+    c = engine.cfg
+    table = torch.full((c.max_batch, c.pages_per_slot), c.max_pages, dtype=torch.int32,
+                       device="cuda")
+    zeros = torch.zeros((c.max_batch,), dtype=torch.int64, device="cuda")
+    masked = torch.zeros((c.max_batch,), dtype=torch.bool, device="cuda")
+    chunk = torch.zeros((c.prefill_chunk,), dtype=torch.int64, device="cuda")
+    valid = torch.tensor([c.prefill_chunk], device="cuda")
+    steps = {"decode": (functools.partial(_decode_step, engine._state), engine._decode,
+                        (table, zeros, masked, zeros)),
+             "prefill": (functools.partial(_prefill_step, engine._state, 0), engine._prefill_fn(0),
+                         (table[0], chunk, valid))}
+    out = {}
+    for name, (body, compiled, args) in steps.items():
+        out[name] = {"eager_ms": cuda_ms(lambda: body(*args), 20),
+                     "replay_ms": cuda_ms(lambda: compiled(*args), 20),
+                     "device_ms": device_ms(lambda: body(*args), 20),
+                     "graph_nodes": graph_nodes(lambda: body(*args))}
+    return out
+
+
 def phase_serving() -> dict:
     from tpu_operator_torch.workloads.serving import DecodeEngine, ServingModelConfig, make_requests
 
     _int8_check()
     requests = make_requests(16, seed=20260818, prompt_len=24, decode_max=32)
     runs = {}
-    for flash in (False, True):
-        engine = DecodeEngine(ServingModelConfig(use_flash_prefill=flash))
+    for name, flash, make in (("dense", False, DecodeEngine), ("flash", True, DecodeEngine),
+                              ("flash eager", True, eager_engine)):
+        engine = make(ServingModelConfig(use_flash_prefill=flash))
         engine.warmup(24)
         batch = copy.deepcopy(requests)
         zero_launches()
@@ -1034,28 +1116,71 @@ def phase_serving() -> dict:
             engine.submit(r)
         engine.run_until_drained()
         torch.cuda.synchronize()
-        runs[flash] = {
+        runs[name] = {
             "tokens": {r.rid: list(r.output) for r in engine.completed},
             "launches": read_launches(),
             "report": engine.report(),
         }
-    flash, dense = runs[True], runs[False]
+        if name == "flash":
+            times = _engine_times(engine)
+    flash, dense, eager = runs["flash"], runs["dense"], runs["flash eager"]
     if len(flash["tokens"]) != 16 or any(not t for t in flash["tokens"].values()):
         raise RuntimeError(f"serving answered {len(flash['tokens'])} of 16 requests")
     if flash["tokens"] != dense["tokens"]:
         raise RuntimeError("flash-prefill greedy tokens differ from dense prefill")
-    if flash["launches"]["flash_fwd_rect"] == 0:
-        raise RuntimeError(f"serving prefill never launched the general kernel: {flash['launches']}")
+    if flash["tokens"] != eager["tokens"]:
+        raise RuntimeError("the graphed engine's greedy tokens differ from the eager engine's")
+    if flash["launches"]["flash_fwd_rect"] == 0 or flash["launches"] != eager["launches"]:
+        raise RuntimeError(f"serving prefill launches {flash['launches']} (the eager engine: "
+                           f"{eager['launches']}): expected the general kernel, as often as eager")
     rep = flash["report"]
-    log(f"serving: 16 requests, tokens identical to dense prefill, launches {flash['launches']}, "
-        f"{rep['tokens_per_s']} tok/s, ttft p50 {rep['ttft_p50_s']} s p99 {rep['ttft_p99_s']} s, "
-        f"step p50 {rep.get('step_p50_s')} s p99 {rep.get('step_p99_s')} s "
-        f"(dense prefill: {dense['report']['tokens_per_s']} tok/s)")
+    log(f"serving: 16 requests, tokens identical to dense prefill and to the eager engine, "
+        f"launches {flash['launches']}, {rep['tokens_per_s']} tok/s, ttft p50 "
+        f"{rep['ttft_p50_s']} s p99 {rep['ttft_p99_s']} s, step p50 {rep.get('step_p50_s')} s "
+        f"p99 {rep.get('step_p99_s')} s (dense prefill: {dense['report']['tokens_per_s']} tok/s; "
+        f"eager engine: {eager['report']['tokens_per_s']} tok/s, step p50 "
+        f"{eager['report'].get('step_p50_s')} s)")
+    log("serving: " + "; ".join(
+        f"{name} ms eager {t['eager_ms']:.5f}, replay {t['replay_ms']:.5f}, device "
+        f"{t['device_ms']:.5f}, {t['graph_nodes']} device operations" for name, t in times.items()))
     return {"launches": flash["launches"], "report": rep, "dense_report": dense["report"],
-            "tokens": flash["tokens"]}
+            "eager_report": eager["report"], "graph_times": times, "tokens": flash["tokens"]}
 
 
 TRAIN_CONFIGS = {"plain": {}, "gqa": {"kv_heads": 2}, "packed": {"packed_segments": 2}}
+# the graphed step's calls held to the eager step's: the first runs eagerly
+# (the warm-up), the next three replay the graph
+GRAPH_STEPS = 4
+# the same kernels on the same inputs in the same order: expected bit for
+# bit; the bar leaves room for a library that picks another algorithm
+# under capture
+GRAPH_REL_TOL = 1e-6
+
+
+def _replays_vs_eager(step, params, batch) -> dict:
+    """GRAPH_STEPS calls of a graphed train step against as many of its
+    eager step from the same params."""
+    graphed = _step_losses(step, params, batch, GRAPH_STEPS)
+    eager = _step_losses(step.eager, params, batch, GRAPH_STEPS)
+    rel = _curve_rel(graphed, eager)
+    if not rel <= GRAPH_REL_TOL:
+        raise RuntimeError(f"graphed step losses {graphed} differ from the eager step's {eager} "
+                           f"by {rel} (relative, tol {GRAPH_REL_TOL})")
+    return {"graphed_losses": graphed, "eager_losses": eager, "rel_err": rel,
+            "bitwise": graphed == eager}
+
+
+def _step_times(step, params, batch) -> dict:
+    """A graphed train step's ms: eager (``step.eager`` as a caller pays
+    it), replayed (the graphed step on its own params, as a loop calls it)
+    and device (the eager step captured: no host between launches); and
+    the device operations of one step."""
+    static, _ = step(params, batch)
+    static, _ = step(static, batch)  # captured by now
+    return {"step_ms": cuda_ms(lambda: step.eager(params, batch), inner=10),
+            "step_replay_ms": cuda_ms(lambda: step(static, batch), inner=10),
+            "step_device_ms": device_ms(lambda: step.eager(params, batch), inner=10),
+            "step_graph_nodes": graph_nodes(lambda: step.eager(params, batch))}
 
 
 def _flash_grad_check() -> float:
@@ -1106,25 +1231,25 @@ def phase_train() -> dict:
             raise RuntimeError(f"train {name}: losses {got['losses']} differ from the {ref_name}'s "
                                f"{ref['losses']} by {rel} (relative, tol {BF16_TOL})")
         step, params, batch = build_train_step(cfg, "cuda")
-        times = {"step_ms": cuda_ms(lambda: step(params, batch), inner=10),
-                 "step_device_ms": device_ms(lambda: step(params, batch), inner=10)}
+        replays = _replays_vs_eager(step, params, batch)
+        times = _step_times(step, params, batch)
         if name == "plain":
-            dense_step, dense_params, dense_batch = build_train_step(
-                dataclasses.replace(cfg, use_flash_attention=False), "cuda")
-            times["dense_step_ms"] = cuda_ms(lambda: dense_step(dense_params, dense_batch), inner=10)
-            times["dense_step_device_ms"] = device_ms(
-                lambda: dense_step(dense_params, dense_batch), inner=10)
+            dense = build_train_step(dataclasses.replace(cfg, use_flash_attention=False), "cuda")
+            times.update({f"dense_{k}": v for k, v in _step_times(*dense).items()})
         out["paths"][f"train {name}"] = counts
         out["configs"][name] = {"losses": got["losses"], "reference": ref_name,
                                 "reference_losses": ref["losses"], "rel_err": rel,
-                                "telemetry": got["telemetry"], **times}
+                                "replays": replays, "telemetry": got["telemetry"], **times}
         per_step = {k: v / steps for k, v in counts.items() if v}
         log(f"train {name}: run_burnin(steps={steps}) losses {[round(x, 5) for x in got['losses']]}, "
             f"{ref_name} {[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); launches per "
-            f"step {per_step}; step ms eager {times['step_ms']:.4f}, device "
-            f"{times['step_device_ms']:.4f}"
-            + (f" (dense path: eager {times['dense_step_ms']:.4f}, device "
-               f"{times['dense_step_device_ms']:.4f})" if name == "plain" else ""))
+            f"step {per_step}; {GRAPH_STEPS} graphed steps vs eager: rel {replays['rel_err']:.3g}"
+            f"{' (bit for bit)' if replays['bitwise'] else ''}; step ms eager "
+            f"{times['step_ms']:.4f}, replay {times['step_replay_ms']:.4f}, device "
+            f"{times['step_device_ms']:.4f}, {times['step_graph_nodes']} device operations"
+            + (f" (dense path: eager {times['dense_step_ms']:.4f}, replay "
+               f"{times['dense_step_replay_ms']:.4f}, device {times['dense_step_device_ms']:.4f}, "
+               f"{times['dense_step_graph_nodes']} operations)" if name == "plain" else ""))
     out["grad_check_max_abs_err"] = _flash_grad_check()
     log(f"train: f32 flash_attention gradients vs dense, max abs err "
         f"{out['grad_check_max_abs_err']:.3g}")
@@ -1337,9 +1462,7 @@ def _moe_on_one_card(out: dict) -> None:
                                f"versions' {ref['losses']} by {rel} (relative, tol {BF16_TOL})")
         reference = _first_step(cfg, "cpu")
         gaps = _step_gaps(f"moe {name}", _first_step(cfg, "cuda"), reference)
-        step, params, batch = build_train_step(cfg, "cuda")
-        times = {"step_ms": cuda_ms(lambda: step(params, batch), inner=10),
-                 "step_device_ms": device_ms(lambda: step(params, batch), inner=10)}
+        times = _step_times(*build_train_step(cfg, "cuda"))
         out["paths"][f"moe {name}"] = counts
         out["moe"][name] = {"losses": got["losses"], "reference": "CPU plain versions",
                             "reference_losses": ref["losses"], "rel_err": rel, **gaps, **times}
@@ -1348,7 +1471,8 @@ def _moe_on_one_card(out: dict) -> None:
             f"{[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); output {gaps['out_rel']:.3g}"
             f", worst update {gaps['update_rel']:.3g} ({gaps['update_rel_worst']}) from the CPU's; "
             f"launches per step {({k: v / steps for k, v in counts.items() if v})}; step ms eager "
-            f"{times['step_ms']:.4f}, device {times['step_device_ms']:.4f}")
+            f"{times['step_ms']:.4f}, replay {times['step_replay_ms']:.4f}, device "
+            f"{times['step_device_ms']:.4f}")
 
 
 def _one_rank_world(out: dict) -> None:

@@ -722,6 +722,99 @@ def test_collectives_and_fabric_on_a_one_rank_nccl_world(one_rank_world):
     assert probe["ok"] and probe["edges"] == {} and probe["platform"] == "cuda"
 
 
+# a graph replays the eager step's kernels on the same inputs in the same
+# order: expected bit for bit, held within chip_smoke.py's GRAPH_REL_TOL
+GRAPH_REL_TOL = 1e-6
+GRAPH_CONFIGS = {"flash": dict(use_flash_attention=True),
+                 "flash packed": dict(use_flash_attention=True, packed_segments=2),
+                 "moe gqa": dict(use_flash_attention=True, moe_experts=4, kv_heads=2),
+                 "dense f32": dict(dtype="float32")}
+
+
+def _graph_losses(step, params, batch, steps):
+    losses = []
+    for _ in range(steps):
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+    return params, losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(GRAPH_CONFIGS))
+def test_graphed_train_step_matches_the_eager_step(cuda, config):
+    """The mesh-free step on the card is a CUDA graph replay from its second
+    call: four calls (one eager, three replays) against four of its eager
+    step from the same params, each replay launching the flash pair once
+    per layer, as the eager step does."""
+    from tpu_operator_torch.workloads.burnin import BurninConfig, _GraphedStep, build_train_step
+
+    cfg = BurninConfig(d_model=64, n_heads=4, d_ff=128, seq_len=128, batch=2, n_layers=2,
+                       **GRAPH_CONFIGS[config])
+    step, params, batch = build_train_step(cfg, "cuda")
+    assert isinstance(step, _GraphedStep)
+    pair = "rect" if cfg.packed_segments else "tri"
+    kernels = (getattr(flash_fwd, f"flash_fwd_{pair}"), getattr(flash_bwd, f"flash_bwd_dq_{pair}"),
+               getattr(flash_bwd, f"flash_bwd_dkv_{pair}"))
+    before = [k.launches for k in kernels]
+    _, graphed = _graph_losses(step, params, batch, 4)
+    torch.cuda.synchronize()
+    per_call = 2 if cfg.use_flash_attention else 0
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4 * per_call] * 3
+    assert step._call.graph is not None
+    _, eager = _graph_losses(step.eager, params, batch, 4)
+    assert max(abs(a - b) / abs(b) for a, b in zip(graphed, eager)) <= GRAPH_REL_TOL, (graphed,
+                                                                                       eager)
+    assert eager[-1] < eager[0]
+
+
+@pytest.mark.cuda
+def test_restore_then_replay_continues_the_eager_trajectory(cuda):
+    """Parameters copied into the graphed step's static tensors (a
+    checkpoint restore) are what the next replays read: from the eager
+    trajectory's step-2 params, three replays give its steps 3 to 5."""
+    from tpu_operator_torch.workloads.burnin import BurninConfig, build_train_step
+
+    cfg = BurninConfig(d_model=64, n_heads=4, d_ff=128, seq_len=128, batch=2, n_layers=2,
+                       use_flash_attention=True)
+    step, params, batch = build_train_step(cfg, "cuda")
+    mid, _ = _graph_losses(step.eager, params, batch, 2)
+    _, want = _graph_losses(step.eager, mid, batch, 3)
+    static, _ = _graph_losses(step, params, batch, 4)  # captured, and moved on
+    with torch.no_grad():
+        for k, t in static.items():
+            t.copy_(mid[k])
+    _, got = _graph_losses(step, static, batch, 3)
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= GRAPH_REL_TOL, (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flash", [False, True], ids=["dense_prefill", "flash_prefill"])
+def test_graphed_engine_gives_the_eager_engines_tokens(cuda, flash):
+    """The engine's decode and prefill graphs answer a request mix with the
+    tokens of the same engine run op by op, through as many general-kernel
+    launches; each of them is captured."""
+    import copy
+
+    from chip_smoke import eager_engine
+    from tpu_operator_torch.workloads.serving import DecodeEngine, ServingModelConfig, make_requests
+
+    requests = make_requests(12, seed=5, prompt_len=20, decode_max=24)
+    runs = []
+    for make in (DecodeEngine, eager_engine):
+        engine = make(ServingModelConfig(use_flash_prefill=flash))
+        engine.warmup(8)
+        before = flash_fwd.flash_fwd_rect.launches
+        for r in copy.deepcopy(requests):
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        runs.append(({r.rid: list(r.output) for r in engine.completed},
+                     flash_fwd.flash_fwd_rect.launches - before))
+    (graphed, launches), (eager, eager_launches) = runs
+    assert graphed == eager and len(graphed) == 12 and all(graphed.values())
+    assert launches == eager_launches == (12 * 3 if flash else 0)
+
+
 TRIANGLE_KERNELS = (flash_fwd.flash_fwd_tri, flash_bwd.flash_bwd_dq_tri,
                     flash_bwd.flash_bwd_dkv_tri)
 OTHER_KERNELS = (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,

@@ -10,7 +10,9 @@ FlashAttention-2 backward kernels), or as ring attention over a
 sequence-parallel mesh axis (``sequence_parallel``). ``moe_experts`` > 0
 replaces the dense FFN with a top-1 routed mixture of experts.
 
-With ``mesh=None`` the step runs on one device. On a mesh
+With ``mesh=None`` the step runs on one device; on a card it is one CUDA
+graph replay (``_GraphedStep``), as the reference runs it under
+``jax.jit``, and on the CPU the eager step. On a mesh
 (:func:`make_mesh`, :func:`make_mesh_3d`, :func:`make_mesh_4d`: a
 ``DeviceMesh`` over the current process group) every rank holds only its
 shard and runs the same program on it:
@@ -32,6 +34,7 @@ backward, gradients are summed over the ranks that hold other tokens
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -240,6 +243,13 @@ def init_params(generator: torch.Generator, cfg: BurninConfig,
         params[f"l{layer}/ln_scale"] = torch.ones((d,), dtype=torch.float32, device=device)
     params["out_norm"] = torch.ones((d,), dtype=torch.float32, device=device)
     return params
+
+
+def seeded_params(cfg: BurninConfig) -> Dict[str, np.ndarray]:
+    """The default start of :func:`build_train_step`: :func:`init_params`
+    from seed 0, as float32 numpy arrays in the global layout."""
+    return {k: v.numpy() for k, v in
+            init_params(torch.Generator().manual_seed(0), cfg, "cpu").items()}
 
 
 def _rmsnorm(x, scale):
@@ -511,7 +521,8 @@ def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = No
                      batch: Optional[Sequence[np.ndarray]] = None, *, mesh=None):
     """Returns (step, params, batch): the SGD train step and ready-to-run
     inputs. ``step(params, batch)`` returns (new params, the loss before
-    the update). ``params`` may be the reference's weights as numpy
+    the update); on a card and with no mesh, a CUDA graph replay
+    (``_GraphedStep``). ``params`` may be the reference's weights as numpy
     arrays and ``batch`` its (x, target) arrays, in the global layout;
     otherwise both come from fixed seeds (the reference's distributions,
     not its bits). On a ``mesh`` every rank builds the same global
@@ -523,8 +534,7 @@ def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = No
     if mesh is not None and mesh.device_type != dev.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot run on {dev}")
     if params is None:
-        params = {k: v.numpy() for k, v in
-                  init_params(torch.Generator().manual_seed(0), cfg, "cpu").items()}
+        params = seeded_params(cfg)
     weights = (burnin_params(params, cfg, dev) if mesh is None
                else shard_burnin_params(params, cfg, mesh, dev))
     shape = (cfg.batch, cfg.seq_len, cfg.d_model)
@@ -556,7 +566,61 @@ def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = No
         }
         return new_params, loss.detach()
 
+    if dev.type == "cuda" and mesh is None:
+        return _GraphedStep(step, cfg, weights, data), weights, data
     return step, weights, data
+
+
+def _load(static, given) -> None:
+    """Copy ``given`` into the static tensors, skipping those it already is."""
+    for dst, src in zip(static, given):
+        if src is not dst:
+            dst.copy_(src)
+
+
+def _sgd_update(params: Dict[str, torch.Tensor], batch, cfg: BurninConfig) -> torch.Tensor:
+    """One SGD step on ``params`` in place (``p -= lr * g``, the eager
+    step's arithmetic); returns the loss before the update."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves, batch, cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        for p, g in zip(params.values(), grads):
+            p.sub_(cfg.learning_rate * g.reshape(p.shape).to(p.dtype))
+    return loss.detach()
+
+
+class _GraphedStep:
+    """The mesh-free train step on a card as one CUDA graph replay: the
+    counterpart of the reference's ``jax.jit(step)``. Its call signature is
+    the eager step's (``eager``, kept for comparison and timing).
+
+    The graph reads static parameter and batch tensors and updates the
+    parameters in place (``p -= lr * g``, the eager step's arithmetic), so
+    a call copies ``params`` and ``batch`` in only where they are not those
+    tensors: ``params, loss = step(params, batch)`` in a loop copies
+    nothing. The returned params ARE the static tensors, which the next call
+    rewrites, as a jitted step's donated buffers; to restore a checkpoint,
+    ``copy_`` into them. The first call runs eagerly (``GraphedCall``'s
+    warm-up), the second captures; the attention path and its tile height
+    are fixed at the capture, as a trace fixes them."""
+
+    def __init__(self, eager, cfg: BurninConfig, weights, batch):
+        from tpu_operator_torch.kernels.graph import GraphedCall
+
+        self.eager = eager
+        self.params = {k: torch.empty_like(v) for k, v in weights.items()}
+        self.batch = batch
+        # the graph's function holds the tensors, not this step: a graph in
+        # a reference cycle would be destroyed by the collector at any
+        # moment, even during another capture, which that breaks
+        self._call = GraphedCall(functools.partial(_sgd_update, self.params, batch, cfg))
+
+    def __call__(self, params, batch):
+        _load(self.params.values(), (params[k] for k in self.params))
+        _load(self.batch, batch)
+        loss = self._call()
+        return dict(self.params), loss.clone()  # the loss outlives the next replay
 
 
 def run_burnin(steps: int = 3, cfg: Optional[BurninConfig] = None,

@@ -5,8 +5,10 @@ single-layer transformer decode loop over a paged KV pool, with
 continuous batching, chunked prefill interleaved with decode, session
 retention, a page-aligned prefix cache and paged-KV export/import for
 disaggregated prefill. The bookkeeping (:class:`PagedKVPool`, admission,
-eviction) is the reference's, line for line; the device work runs
-eagerly on the engine's device.
+eviction) is the reference's, line for line. The device steps are the
+reference's compiled ones: on the card the decode and each prefill offset
+run as one CUDA graph replay each (``kernels/graph.GraphedCall``), as the
+reference runs them under ``jax.jit``; on the CPU they run eagerly.
 
 Kernels: chunked prefill attention runs the flash forward
 (``flash_attention_with_lse`` with the global offset ``q_start``), which
@@ -16,14 +18,16 @@ int32 accumulation (``torch._int_mm`` on the card, an exact integer
 matmul on the CPU).
 
 Unlike the reference's functional updates, the KV pools are written in
-place. Writes of inactive lanes and padded prefill rows land on the
-scratch page, which no live position ever reads unmasked, so the warm-up
-writes there too.
+place (the graphs hold their addresses, so they are never reallocated).
+Writes of inactive lanes and padded prefill rows land on the scratch page,
+which no live position ever reads unmasked, so the warm-up writes there
+too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Dict, List, Optional, Tuple
@@ -232,6 +236,116 @@ def _mlp(cfg: ServingModelConfig, params, x):
     return hidden @ params["w2"]
 
 
+@dataclasses.dataclass(frozen=True)
+class StepState:
+    """What the engine's device steps read and write: the config, the
+    weights, the paged KV pools (written in place) and the flash blocks.
+    The steps take it rather than the engine, so that a graph holding a
+    step holds no engine (a graph in a reference cycle would be destroyed
+    by the collector at any moment, even during another capture)."""
+
+    cfg: ServingModelConfig
+    params: Dict[str, torch.Tensor]
+    pool_k: torch.Tensor
+    pool_v: torch.Tensor
+    flash_blocks: Tuple[int, int]
+
+
+def _decode_step(st: StepState, table, lengths, active, tokens):
+    """One token for every lane, padded to max_batch; writes this
+    token's K/V at position ``length`` of each active lane's paged
+    context (inactive lanes write the scratch page). Returns the next
+    token of every lane."""
+    cfg = st.cfg
+    P, T = cfg.page_tokens, cfg.max_seq
+    params = st.params
+    x = params["embed"][tokens]                          # (B, d)
+    q = (x @ params["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(-1, cfg.n_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(-1, cfg.n_heads, cfg.head_dim)
+    page = table.gather(1, (lengths // P)[:, None])[:, 0]
+    page = torch.where(active, page, cfg.max_pages).long()
+    off = (lengths % P).long()
+    st.pool_k[page, off] = k
+    st.pool_v[page, off] = v
+    ctx_k = st.pool_k[table.long()].reshape(-1, T, cfg.n_heads, cfg.head_dim)
+    ctx_v = st.pool_v[table.long()].reshape(-1, T, cfg.n_heads, cfg.head_dim)
+    pos = torch.arange(T, device=st.pool_k.device)[None, :]
+    mask = pos <= lengths[:, None]                       # incl. this token
+    scores = torch.einsum("bhd,bthd->bht", q, ctx_k) / math.sqrt(cfg.head_dim)
+    scores = torch.where(mask[:, None, :], scores, -1e30)
+    attn = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bht,bthd->bhd", attn, ctx_v).reshape(
+        -1, cfg.n_heads * cfg.head_dim
+    )
+    y = x + ctx @ params["wo"]
+    y = y + _mlp(cfg, params, y)
+    logits = y @ params["embed"].T
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _prefill_step(st: StepState, prefix: int, table_row, tokens, valid):
+    """The chunked-prefill step at prompt offset ``prefix``: ingest up
+    to ``prefill_chunk`` prompt tokens (K/V into the lane's pages) and
+    return the argmax token of the chunk's last real row — the first
+    decoded token when the chunk completes the prompt. ``valid`` (1,)
+    is how many rows are real, a tensor so that a graph reads it."""
+    cfg = st.cfg
+    C, P, T = cfg.prefill_chunk, cfg.page_tokens, cfg.max_seq
+    params = st.params
+    x = params["embed"][tokens]                          # (C, d)
+    q = (x @ params["wq"]).reshape(C, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(C, cfg.n_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(C, cfg.n_heads, cfg.head_dim)
+    idx = torch.arange(C, device=st.pool_k.device)
+    pos = prefix + idx
+    # padded rows past the table's end go to scratch (the reference's
+    # gather clamps the index; torch indexing would fault on it)
+    row_page = table_row[torch.clamp(pos // P, max=cfg.pages_per_slot - 1)]
+    page = torch.where(idx < valid, row_page, cfg.max_pages).long()
+    st.pool_k[page, pos % P] = k
+    st.pool_v[page, pos % P] = v
+    ctx_k = st.pool_k[table_row.long()].reshape(T, cfg.n_heads, cfg.head_dim)
+    ctx_v = st.pool_v[table_row.long()].reshape(T, cfg.n_heads, cfg.head_dim)
+    if cfg.use_flash_prefill:
+        # causal masking against the global offset q_start covers both
+        # the real prefix and the padded tail
+        from tpu_operator_torch.workloads.flashattention import flash_attention_with_lse
+
+        block_q, block_k = st.flash_blocks
+        out, _ = flash_attention_with_lse(
+            q[None], ctx_k[None], ctx_v[None], causal=True,
+            block_q=block_q, block_k=block_k, q_start=prefix,
+        )
+        ctx = out[0]                                     # (C, h, hd)
+    else:
+        kpos = torch.arange(T, device=st.pool_k.device)[None, :]
+        mask = kpos <= pos[:, None]
+        scores = torch.einsum("chd,thd->cht", q, ctx_k) / math.sqrt(cfg.head_dim)
+        scores = torch.where(mask[:, None, :], scores, -1e30)
+        attn = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("cht,thd->chd", attn, ctx_v)
+    last = valid - 1
+    y = x.index_select(0, last)[0] + ctx.reshape(C, -1).index_select(0, last)[0] @ params["wo"]
+    y = y + _mlp(cfg, params, y)
+    logits = y @ params["embed"].T
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def over_static_inputs(body, inputs, device, wrap):
+    """``body`` over static input tensors of the given (shape, dtype)s:
+    ``wrap`` of a call of it on them (on the card a ``GraphedCall``), run
+    after each call has copied its arguments into them."""
+    static = [torch.zeros(shape, dtype=dtype, device=device) for shape, dtype in inputs]
+    run = wrap(lambda: body(*static))
+
+    def call(*args):
+        for buf, arg in zip(static, args):
+            buf.copy_(arg)
+        return run()
+    return call
+
+
 class DecodeEngine:
     """The continuous-batching decode loop (or, with ``static_batch=True``,
     the drain-before-refill baseline). Drive it with :meth:`submit` +
@@ -298,90 +412,58 @@ class DecodeEngine:
 
         self.flash_blocks = tuned_flash_blocks(c.max_seq, heads=c.n_heads,
                                                head_dim=c.head_dim)
+        self._state = StepState(c, self.params, self._pool_k, self._pool_v, self.flash_blocks)
+        self._decode_fn = None
+        self._prefill_fns: Dict[int, object] = {}  # static prefix -> its step
         self._chips = 1  # the one device the engine runs on
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(array).to(self.device)
 
-    # -- device steps --------------------------------------------------------
+    # -- compiled steps ------------------------------------------------------
+
+    def _compiled(self, body, *inputs: Tuple[tuple, torch.dtype]):
+        """``body`` as the engine runs it: on the card one CUDA graph over
+        static inputs of the given (shape, dtype) (``GraphedCall``: the
+        first call eager, then captured and replayed), whose output is valid
+        until its next call; on the CPU ``body`` itself, eager on the
+        arguments."""
+        if self.device.type != "cuda":
+            return body
+        from tpu_operator_torch.kernels.graph import GraphedCall
+
+        return over_static_inputs(body, inputs, self.device, GraphedCall)
 
     def _decode(self, table, lengths, active, tokens):
-        """One token for every lane, padded to max_batch; writes this
-        token's K/V at position ``length`` of each active lane's paged
-        context (inactive lanes write the scratch page). Returns the next
-        token of every lane."""
-        cfg = self.cfg
-        P, T = cfg.page_tokens, cfg.max_seq
-        params = self.params
-        x = params["embed"][tokens]                          # (B, d)
-        q = (x @ params["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        k = (x @ params["wk"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        v = (x @ params["wv"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        page = table.gather(1, (lengths // P)[:, None])[:, 0]
-        page = torch.where(active, page, cfg.max_pages).long()
-        off = (lengths % P).long()
-        self._pool_k[page, off] = k
-        self._pool_v[page, off] = v
-        ctx_k = self._pool_k[table.long()].reshape(-1, T, cfg.n_heads, cfg.head_dim)
-        ctx_v = self._pool_v[table.long()].reshape(-1, T, cfg.n_heads, cfg.head_dim)
-        pos = torch.arange(T, device=self.device)[None, :]
-        mask = pos <= lengths[:, None]                       # incl. this token
-        scores = torch.einsum("bhd,bthd->bht", q, ctx_k) / math.sqrt(cfg.head_dim)
-        scores = torch.where(mask[:, None, :], scores, -1e30)
-        attn = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bht,bthd->bhd", attn, ctx_v).reshape(
-            -1, cfg.n_heads * cfg.head_dim
-        )
-        y = x + ctx @ params["wo"]
-        y = y + _mlp(cfg, params, y)
-        logits = y @ params["embed"].T
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        """One token for every lane (``_decode_step``), compiled once per
+        engine at its lane count and page-table width. The arguments may be
+        host tensors."""
+        if self._decode_fn is None:
+            b = self.cfg.max_batch
+            self._decode_fn = self._compiled(
+                functools.partial(_decode_step, self._state),
+                ((b, self.cfg.pages_per_slot), torch.int32),
+                ((b,), torch.int64), ((b,), torch.bool), ((b,), torch.int64))
+        return self._decode_fn(table, lengths, active, tokens)
+
+    def _prefill_fn(self, prefix: int):
+        """The chunked-prefill step at the static prompt offset ``prefix``
+        (``_prefill_step``), compiled once per prefix as the reference
+        jits one function per prefix (bounded by max_seq / prefill_chunk)."""
+        fn = self._prefill_fns.get(prefix)
+        if fn is None:
+            c = self.cfg
+            fn = self._compiled(functools.partial(_prefill_step, self._state, prefix),
+                                ((c.pages_per_slot,), torch.int32),
+                                ((c.prefill_chunk,), torch.int64), ((1,), torch.int64))
+            self._prefill_fns[prefix] = fn
+        return fn
 
     def _prefill(self, prefix: int, table_row, tokens, valid: int):
-        """The chunked-prefill step at prompt offset ``prefix``: ingest up
-        to ``prefill_chunk`` prompt tokens (K/V into the lane's pages) and
-        return the argmax token of the chunk's last real row — the first
-        decoded token when the chunk completes the prompt."""
-        cfg = self.cfg
-        C, P, T = cfg.prefill_chunk, cfg.page_tokens, cfg.max_seq
-        params = self.params
-        x = params["embed"][tokens]                          # (C, d)
-        q = (x @ params["wq"]).reshape(C, cfg.n_heads, cfg.head_dim)
-        k = (x @ params["wk"]).reshape(C, cfg.n_heads, cfg.head_dim)
-        v = (x @ params["wv"]).reshape(C, cfg.n_heads, cfg.head_dim)
-        idx = torch.arange(C, device=self.device)
-        pos = prefix + idx
-        # padded rows past the table's end go to scratch (the reference's
-        # gather clamps the index; torch indexing would fault on it)
-        row_page = table_row[torch.clamp(pos // P, max=cfg.pages_per_slot - 1)]
-        page = torch.where(idx < valid, row_page, cfg.max_pages).long()
-        self._pool_k[page, pos % P] = k
-        self._pool_v[page, pos % P] = v
-        ctx_k = self._pool_k[table_row.long()].reshape(T, cfg.n_heads, cfg.head_dim)
-        ctx_v = self._pool_v[table_row.long()].reshape(T, cfg.n_heads, cfg.head_dim)
-        if cfg.use_flash_prefill:
-            # causal masking against the global offset q_start covers both
-            # the real prefix and the padded tail
-            from tpu_operator_torch.workloads.flashattention import flash_attention_with_lse
-
-            block_q, block_k = self.flash_blocks
-            out, _ = flash_attention_with_lse(
-                q[None], ctx_k[None], ctx_v[None], causal=True,
-                block_q=block_q, block_k=block_k, q_start=prefix,
-            )
-            ctx = out[0]                                     # (C, h, hd)
-        else:
-            kpos = torch.arange(T, device=self.device)[None, :]
-            mask = kpos <= pos[:, None]
-            scores = torch.einsum("chd,thd->cht", q, ctx_k) / math.sqrt(cfg.head_dim)
-            scores = torch.where(mask[:, None, :], scores, -1e30)
-            attn = torch.softmax(scores, dim=-1)
-            ctx = torch.einsum("cht,thd->chd", attn, ctx_v)
-        last = valid - 1
-        y = x[last] + ctx.reshape(C, -1)[last] @ params["wo"]
-        y = y + _mlp(cfg, params, y)
-        logits = y @ params["embed"].T
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        """Ingest up to ``prefill_chunk`` prompt tokens at offset ``prefix``,
+        ``valid`` of them real; returns the argmax token of the chunk's last
+        real row. The arguments may be host tensors."""
+        return self._prefill_fn(prefix)(table_row, tokens, torch.tensor([valid]))
 
     # -- admission -----------------------------------------------------------
 
@@ -506,8 +588,8 @@ class DecodeEngine:
                 state.prefilled:state.prefilled + take
             ]
             first = self._prefill(
-                state.prefilled, self._tensor(self.pool.table[state.slot]),
-                self._tensor(chunk), take,
+                state.prefilled, torch.from_numpy(self.pool.table[state.slot]),
+                torch.from_numpy(chunk), take,
             )
             state.prefilled += take
             state.length += take
@@ -551,8 +633,8 @@ class DecodeEngine:
                 lengths[state.slot] = state.length
                 active[state.slot] = True
             nxt = self._decode(
-                self._tensor(self.pool.table), self._tensor(lengths),
-                self._tensor(active), self._tensor(tokens),
+                torch.from_numpy(self.pool.table), torch.from_numpy(lengths),
+                torch.from_numpy(active), torch.from_numpy(tokens),
             ).cpu().numpy()
             for state in ready:
                 state.length += 1
@@ -727,9 +809,10 @@ class DecodeEngine:
     # -- warmup --------------------------------------------------------------
 
     def warmup(self, prompt_len: int) -> None:
-        """Run the decode and every prefill offset once outside the timed
-        loop, all lanes masked (every write lands on the scratch page):
-        builds the CUDA kernels and warms the library handles. Recorded on
+        """Run the decode and every prefill offset outside the timed loop,
+        all lanes masked (every write lands on the scratch page): builds
+        the CUDA kernels and warms the library handles, and on the card runs
+        each twice, so that its graph is captured here. Recorded on
         ``warmup_recorder``."""
         with self.warmup_recorder.step():
             self._warmup_body(prompt_len)
@@ -737,14 +820,15 @@ class DecodeEngine:
     def _warmup_body(self, prompt_len: int) -> None:
         c = self.cfg
         zeros = torch.zeros((c.max_batch,), dtype=torch.int64, device=self.device)
-        out = self._decode(self._tensor(self.pool.table), zeros,
-                           torch.zeros((c.max_batch,), dtype=torch.bool, device=self.device),
-                           zeros)
         row = torch.full((c.pages_per_slot,), c.max_pages, dtype=torch.int64, device=self.device)
         chunk = torch.zeros((c.prefill_chunk,), dtype=torch.int64, device=self.device)
-        for prefix in range(0, min(prompt_len, c.max_seq), c.prefill_chunk):
-            take = min(c.prefill_chunk, prompt_len - prefix)
-            out = self._prefill(prefix, row, chunk, take)
+        for _ in range(2 if self.device.type == "cuda" else 1):
+            out = self._decode(self._tensor(self.pool.table), zeros,
+                               torch.zeros((c.max_batch,), dtype=torch.bool, device=self.device),
+                               zeros)
+            for prefix in range(0, min(prompt_len, c.max_seq), c.prefill_chunk):
+                take = min(c.prefill_chunk, prompt_len - prefix)
+                out = self._prefill(prefix, row, chunk, take)
         out.cpu()  # wait for the device
 
     @property

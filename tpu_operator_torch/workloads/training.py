@@ -16,7 +16,9 @@ needs:
   loss-curve continuity provable across a shrink (modulo reduction-order
   float noise).
 
-A world of one rank steps in the trainer's own process. A larger world
+A world of one rank steps in the trainer's own process, through one
+step built once (on a card, a CUDA graph replay: a resume restores the
+checkpoint into its parameter tensors in place). A larger world
 is a :class:`~tpu_operator_torch.workloads.distributed.RankPool`: the
 sharded step runs SPMD on ``world`` rank processes over
 ``torch.distributed`` (NCCL, rank r on card r; gloo when the caller names
@@ -45,12 +47,14 @@ import torch
 from tpu_operator_torch import consts
 from tpu_operator_torch.device import DeviceLike, resolve_device
 from tpu_operator_torch.kube import is_api_error
+from tpu_operator_torch.weights import burnin_params
 from tpu_operator_torch.workloads.burnin import (
     BurninConfig,
     build_train_step,
     gather_burnin_params,
     make_mesh,
     param_shardings,
+    seeded_params,
 )
 from tpu_operator_torch.workloads.checkpoint import CheckpointStore
 from tpu_operator_torch.workloads.distributed import RankPool
@@ -220,7 +224,7 @@ class ResumableTrainer:
         that is the resume guarantee's cost, bounded by the cadence."""
         dev = resolve_device(self.device)
         t0 = time.perf_counter()
-        self.close()
+        self._close_pool()
         ranks = torch.cuda.device_count() if dev.type == "cuda" else self.cpu_ranks
         world = derive_world(hosts, self.cfg.batch, ranks)
         arrays = self._init_params
@@ -232,10 +236,13 @@ class ResumableTrainer:
             self.checkpoint_step = ckpt.step
         else:
             self.step = 0
-        if world == 1:
+        if world == 1 and self._step_fn is not None:
+            self._restore(arrays)
+        elif world == 1:
             self._step_fn, self._params, self._batch = build_train_step(
                 self.cfg, dev, params=arrays, batch=self._init_batch)
         else:
+            self._drop_local()
             self._pool = RankPool(world, _rank_setup,
                                   (self.cfg, dev.type, arrays, self._init_batch,
                                    *mesh_shape(self.cfg, world)), device=dev)
@@ -250,15 +257,32 @@ class ResumableTrainer:
         self.resumes.append(info)
         return info
 
-    def close(self) -> None:
-        """Stop the world: the rank pool, or the in-process state. The
-        trainer must :meth:`resume` before it runs again."""
+    def _restore(self, arrays: Optional[Mapping[str, np.ndarray]]) -> None:
+        """Write ``arrays`` (None: the seeded start) into the one-rank
+        step's parameter tensors in place: on a card the step's graph reads
+        exactly those tensors, so rebinding them would leave it reading
+        stale ones."""
+        new = burnin_params(seeded_params(self.cfg) if arrays is None else arrays,
+                            self.cfg, "cpu")
+        with torch.no_grad():
+            for name, param in self._params.items():
+                param.copy_(new[name])
+
+    def _close_pool(self) -> None:
         if self._pool is not None:
             self._pool.close()
             self._pool = None
+
+    def _drop_local(self) -> None:
         self._step_fn = self._params = self._batch = None
         if torch.cuda.is_initialized():
             torch.cuda.empty_cache()  # a pool's rank 0 shares card 0
+
+    def close(self) -> None:
+        """Stop the world: the rank pool, or the in-process state. The
+        trainer must :meth:`resume` before it runs again."""
+        self._close_pool()
+        self._drop_local()
 
     # -- stepping ------------------------------------------------------------
 
