@@ -308,11 +308,17 @@ def device_ms(fn, inner: int, reps: int = 7) -> float:
     return ms
 
 
-def graph_nodes(fn) -> int:
-    """The device operations (kernels, copies, memsets) of one call of
-    ``fn``: the nodes of a CUDA graph that captures it, from the driver's
-    ``cuGraphGetNodes``: what one replay launches, and an eager call
-    launches one by one."""
+# libcuda's CUgraphNodeType values, in order
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "child graph", "empty", "event wait",
+                    "event record", "semaphore signal", "semaphore wait", "alloc", "free",
+                    "batch memop", "conditional")
+
+
+def graph_node_types(fn) -> dict:
+    """The device operations (kernels, copies, memsets, ...) of one call of
+    ``fn`` by kind: the nodes of a CUDA graph that captures it, from
+    libcuda's ``cuGraphGetNodes``: what one replay launches, and an eager
+    call launches one by one."""
     import ctypes
 
     side = torch.cuda.Stream()
@@ -323,13 +329,30 @@ def graph_nodes(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with capture(graph):
         fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
-    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    code = cuda.cuGraphGetNodes(raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if not code:
+        code = cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        code = code or cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        name = (GRAPH_NODE_TYPES[kind.value] if 0 <= kind.value < len(GRAPH_NODE_TYPES)
+                else f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
     if code:
-        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {code}")
+        raise RuntimeError(f"cuGraphGetNodes/cuGraphNodeGetType failed with CUresult {code}")
     del graph
-    return count.value
+    return kinds
+
+
+def graph_nodes(fn) -> int:
+    """The number of device operations of one call of ``fn``
+    (:func:`graph_node_types`)."""
+    return sum(graph_node_types(fn).values())
 
 
 def err(a, b) -> float:
@@ -1479,7 +1502,7 @@ def _one_rank_world(out: dict) -> None:
     import torch.distributed as dist
 
     from tpu_operator_torch.entry import ENTRY_CONFIG
-    from tpu_operator_torch.workloads.burnin import build_train_step, make_mesh_4d
+    from tpu_operator_torch.workloads.burnin import _GraphedStep, build_train_step, make_mesh_4d
     from tpu_operator_torch.workloads.distributed import init_local_world
     from tpu_operator_torch.workloads.ringattention import run_ring_attention_check
 
@@ -1494,8 +1517,11 @@ def _one_rank_world(out: dict) -> None:
             mesh = make_mesh_4d(data=1, sp=1, model=1, ep=1)
             plain_step, plain_params, plain_batch = build_train_step(cfg, "cuda")
             step, params, batch = build_train_step(cfg, "cuda", mesh=mesh)
+            if not isinstance(step, _GraphedStep):
+                raise RuntimeError(f"one-rank mesh: build_train_step returned {step}, not a "
+                                   f"graphed step")
             zero_launches()
-            sharded = _step_losses(step, params, batch, steps)
+            sharded = _step_losses(step, params, batch, steps)  # eager, captured, replayed
             torch.cuda.synchronize()
             counts = read_launches()
             expected = _expected_launches(counts, cfg, steps)
@@ -1506,8 +1532,16 @@ def _one_rank_world(out: dict) -> None:
             if not rel <= MESH_REL_TOL:
                 raise RuntimeError(f"one-rank mesh: losses {sharded} differ from the no-mesh "
                                    f"step's {plain} by {rel} (relative, tol {MESH_REL_TOL})")
+            replays = _replays_vs_eager(step, params, batch)
+            zero_launches()
+            step(params, batch)  # one replay
+            torch.cuda.synchronize()
+            replay_counts = read_launches()
+            if replay_counts != _expected_launches(replay_counts, cfg, 1):
+                raise RuntimeError(f"one-rank mesh: one replay launched {replay_counts}, expected "
+                                   f"{_expected_launches(replay_counts, cfg, 1)}")
+            times = _step_times(step, params, batch)
             mesh_gaps = _step_gaps("one-rank mesh", _first_step(cfg, "cuda", mesh), reference)
-            mesh_ms = cuda_ms(lambda: step(params, batch), inner=10)
             ring_cfg = dataclasses.replace(cfg, use_flash_attention=False, sequence_parallel=True)
             ring = _step_losses(*build_train_step(ring_cfg, "cuda", mesh=mesh), steps)
             ring_rel = _curve_rel(ring, plain)
@@ -1533,13 +1567,19 @@ def _one_rank_world(out: dict) -> None:
             dist.destroy_process_group()
     out["paths"]["one-rank mesh moe gqa packed"] = counts
     out["one_rank"] = {"losses": sharded, "no_mesh_losses": plain, "rel_err": rel,
-                       "step_ms": mesh_ms, "gaps": mesh_gaps, "ring_losses": ring,
+                       "replays": replays, "replay_launches": replay_counts, **times,
+                       "gaps": mesh_gaps, "ring_losses": ring,
                        "ring_rel_err": ring_rel, "ring_gaps": ring_gaps, "ring_checks": checks}
     log(f"sharded: one-rank NCCL mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} (no "
         f"collective runs on one rank): MoE + GQA + packed losses {sharded} vs no mesh {plain} "
         f"(rel {rel:.3g}); output {mesh_gaps['out_rel']:.3g}, worst update "
         f"{mesh_gaps['update_rel']:.3g} ({mesh_gaps['update_rel_worst']}) from the CPU's; launches "
-        f"{counts}, eager step ms {mesh_ms:.4f}; ring step (sp=1) {[round(x, 5) for x in ring]} "
+        f"{counts}; {GRAPH_STEPS} graphed steps vs eager: rel {replays['rel_err']:.3g}"
+        f"{' (bit for bit)' if replays['bitwise'] else ''}; one replay launches "
+        f"{({k: v for k, v in replay_counts.items() if v})}; step ms eager {times['step_ms']:.4f}, "
+        f"replay {times['step_replay_ms']:.4f}, device {times['step_device_ms']:.4f}, "
+        f"{times['step_graph_nodes']} device operations; ring step (sp=1) "
+        f"{[round(x, 5) for x in ring]} "
         f"(rel {ring_rel:.3g}; output {ring_gaps['out_rel']:.3g}, worst update "
         f"{ring_gaps['update_rel']:.3g} ({ring_gaps['update_rel_worst']})); ring checks "
         + ", ".join(
@@ -1579,6 +1619,10 @@ def phase_sharded() -> dict:
 SLICE_LAUNCHES = {"flash_fwd_tri": 2, "flash_fwd_rect": 1}
 SLICE_BARS = {"collectives": 1e-5, "ring_attention": 2e-4, "ring_flash_attention": 2e-4,
               "flash_attention": BF16_TOL}
+# the slice's all-reduce chains (run_allreduce's defaults): one warm-up and
+# one timed _chain_seconds per size, each a captured chain of ITERS
+# all-reduces and one timed replay
+SLICE_CHAIN_CALLS, SLICE_CHAIN_ITERS = 2 * 4, 10
 
 
 def _check_slice_report(report: dict) -> None:
@@ -1600,29 +1644,41 @@ def _check_slice_report(report: dict) -> None:
 def _slice_in_process(out: dict) -> None:
     from tpu_operator_torch.validator import status as status_files
     from tpu_operator_torch.validator.main import Context, run_component
+    from tpu_operator_torch.workloads import allreduce
     from tpu_operator_torch.workloads.distributed import gang_world
     from tpu_operator_torch.workloads.fabric import run_fabric_probe
 
     with tempfile.TemporaryDirectory() as tmp:
         zero_launches()
+        allreduce.chain_counts.update(captured_all_reduces=0, timed_replays=0)
         start = time.monotonic()
         report = run_component("slice", Context(validation_dir=tmp), max_attempts=1)
         torch.cuda.synchronize()
         seconds = time.monotonic() - start
         counts = read_launches()
+        chains = dict(allreduce.chain_counts)
         written = status_files.read_status("slice-ready", tmp)
     if written != report:
         raise RuntimeError(f"slice-ready holds {written}, the component returned {report}")
     expected = {k: SLICE_LAUNCHES.get(k, 0) for k in counts}
     if counts != expected:
         raise RuntimeError(f"validator slice: launches {counts}, expected {expected}")
+    want_chains = {"captured_all_reduces": SLICE_CHAIN_CALLS * SLICE_CHAIN_ITERS,
+                   "timed_replays": SLICE_CHAIN_CALLS}
+    if chains != want_chains:
+        raise RuntimeError(f"validator slice: all-reduce chains {chains}, expected {want_chains}: "
+                           f"each timed chain is one replay of {SLICE_CHAIN_ITERS} captured "
+                           f"all-reduces")
     _check_slice_report(report)
     with gang_world():
         probe = run_fabric_probe("1x1x1")
+        x = torch.ones(1 << 18, device="cuda")
+        chain_nodes = graph_node_types(lambda: allreduce._chain(x, 1, SLICE_CHAIN_ITERS))
     if not (probe["ok"] and probe["edges"] == {} and probe["axis_allreduce_us"] == {}):
         raise RuntimeError(f"run_fabric_probe('1x1x1'): {probe}")
     out["paths"]["validator slice"] = counts
     out["component"], out["component_s"], out["fabric_1x1x1"] = report, seconds, probe
+    out["chains"], out["chain_graph_nodes"] = chains, chain_nodes
     log(f"slice: run_component('slice') in process, one-rank NCCL world, {seconds:.1f} s: "
         f"slice-ready written; allreduce (a local copy, no link) " + ", ".join(
             f"{r['size_mb']} MiB {r['time_ms']:.4f} ms {r['busbw_gbps']:.1f} GB/s"
@@ -1632,7 +1688,9 @@ def _slice_in_process(out: dict) -> None:
         f"{report['ring_flash_attention']['max_abs_err']:.3g} (flash); flash check "
         f"{report['flash_attention']['max_abs_err']:.3g} / "
         f"{report['flash_attention']['segment_max_abs_err']:.3g} (packed); pipeline losses "
-        f"{report['pipeline']['losses']}; launches {counts}; fabric 1x1x1 numerics ok, no edges")
+        f"{report['pipeline']['losses']}; launches {counts}; all-reduce chains {chains} (each "
+        f"timed chain one graph replay; a {SLICE_CHAIN_ITERS}-all-reduce chain's graph holds "
+        f"{chain_nodes} on one rank); fabric 1x1x1 numerics ok, no edges")
 
 
 def _slice_from_a_shell(out: dict) -> None:

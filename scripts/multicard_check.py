@@ -4,8 +4,21 @@ joined by NVLink), where ``chip_smoke.py`` has one card:
 
     python3 scripts/multicard_check.py [--ranks 4] [--json PATH]
 
+0. the sharded burn-in step at the flagship's widths, bf16, as each rank's
+   CUDA graph replay with the NCCL collectives captured inside it, against
+   the same step run op by op (``step.eager``), ``GRAPH_STEPS`` calls each
+   from the same params, on a (data 2, model 2) mesh with flash attention,
+   a (data 1, sp 2, model 2) mesh with the ring over ``sp`` (its
+   point-to-point transfers), packed documents and GQA, and a (model 2, ep
+   2) mixture of experts with flash attention: losses within
+   ``chip_smoke.GRAPH_REL_TOL`` relative (bit for bit is reported), the
+   flash kernels launched as ``chip_smoke._expected_launches`` says, and
+   the step's eager, replayed and device ms and device operations.
+   ``--graphs-only`` runs this step alone;
 1. a world of ``--ranks`` ranks, one per card (NCCL), runs
-   ``run_allreduce()`` at the reference's sizes, ``run_collectives_check()``,
+   ``run_allreduce()`` at the reference's sizes (each timed chain a graph
+   replay; the same chains run op by op, ``allreduce._loop_seconds``,
+   printed beside them), ``run_collectives_check()``,
    ``run_fabric_probe("2x2x1")`` and ``run_fabric_probe("4x1x1", wrap=True)``;
 2. ``COMPONENT=slice python -m tpu_operator_torch.validator.main``: one
    pod whose local cards are all of the machine's (``--ranks`` local ranks);
@@ -28,18 +41,20 @@ joined by NVLink), where ``chip_smoke.py`` has one card:
    ``tpu_exporter_ici_bandwidth_gbps`` printed. ``--ici-only`` runs this
    step alone.
 
-Every rate (all-reduce busbw per size, each edge's GB/s) is held to at
-most 105% of NVLink 4's 450 GB/s per direction (H100 SXM data sheet: 900
-GB/s both ways); a higher reading is a timing fault. Prints each card's
-name and power limit, one line per measurement, and last a JSON line.
-``--device cpu`` rehearses steps 1, 3 and 4 on gloo ranks (no rate bar;
-step 2 needs the cards).
+Every rate (all-reduce busbw per size, replayed and op by op, each edge's
+GB/s) is held to at most 105% of NVLink 4's 450 GB/s per direction (H100
+SXM data sheet: 900 GB/s both ways); a higher reading is a timing fault.
+Prints each card's name and power limit, one line per measurement, and
+last a JSON line. ``--device cpu`` rehearses steps 0, 1, 3 and 4 on gloo
+ranks (no rate bar, no graph: the CPU runs the eager code; step 2 needs
+the cards).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -55,23 +70,115 @@ NVLINK_GBPS = 450.0  # NVLink 4 per direction, H100 SXM (NVIDIA data sheet)
 PEAK_MARGIN = 1.05
 
 
+# step 0: (mesh axes, config over the flagship's) of the graphed sharded steps
+GRAPH_CONFIGS = {
+    "flash data2 model2": (dict(data=2, model=2), dict(use_flash_attention=True)),
+    "ring packed gqa sp2 model2": (dict(data=1, sp=2, model=2), dict(
+        sequence_parallel=True, packed_segments=2, kv_heads=2)),
+    "moe flash model2 ep2": (dict(data=1, sp=1, model=2, ep=2), dict(
+        use_flash_attention=True, moe_experts=4)),
+}
+
+
+def _graphed_steps(device: str) -> dict:
+    """Step 0 on one rank: each config's graphed step against its eager
+    step (every rank gets the same losses)."""
+    import dataclasses
+
+    import torch
+
+    from chip_smoke import (
+        GRAPH_REL_TOL,
+        GRAPH_STEPS,
+        _curve_rel,
+        _expected_launches,
+        _step_losses,
+        _step_times,
+        read_launches,
+        zero_launches,
+    )
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.workloads.burnin import build_train_step
+    from tpu_operator_torch.workloads.spmd import named_mesh
+
+    out = {}
+    for name, (axes, over) in GRAPH_CONFIGS.items():
+        cfg = dataclasses.replace(ENTRY_CONFIG, **over)
+        step, params, batch = build_train_step(cfg, device, mesh=named_mesh(**axes))
+        eager = getattr(step, "eager", step)  # the CPU's step is the eager one
+        zero_launches()
+        graphed = _step_losses(step, params, batch, GRAPH_STEPS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = read_launches()
+        # the CPU runs the kernels' plain versions, which launch nothing
+        expected = (_expected_launches(counts, cfg, GRAPH_STEPS)
+                    if cfg.use_flash_attention and device == "cuda" else {k: 0 for k in counts})
+        losses = _step_losses(eager, params, batch, GRAPH_STEPS)
+        rel = _curve_rel(graphed, losses)
+        out[name] = {"graphed_losses": graphed, "eager_losses": losses, "rel_err": rel,
+                     "bitwise": graphed == losses, "launches": counts,
+                     "graphed": eager is not step}
+        if device == "cuda":
+            out[name].update(_step_times(step, params, batch))
+        if not (rel <= GRAPH_REL_TOL and counts == expected and all(map(math.isfinite, graphed))
+                and (device != "cuda" or out[name]["graphed"])):
+            raise RuntimeError(f"graphed sharded step {name}: {out[name]}, launches expected "
+                               f"{expected} (tol {GRAPH_REL_TOL})")
+    return out
+
+
+def _eager_allreduce(device: str, iters: int = 10) -> list:
+    """``run_allreduce``'s sizes with each chain run op by op
+    (``allreduce._loop_seconds``): the slowest rank's busbw per size."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_operator_torch.workloads.allreduce import _loop_seconds, _slowest
+
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+           else torch.device(device))
+    n = dist.get_world_size()
+    results = []
+    for size_mb in (1, 4, 16, 64):
+        per_chip = size_mb * 1024 * 1024 // 4
+        _loop_seconds(torch.ones(per_chip, device=dev), n, iters)  # warm-up
+        x = torch.full((per_chip,), 1.5, device=dev)
+        dt = _slowest(_loop_seconds(x, n, iters), dev) / iters
+        algbw = per_chip * 4 / dt / 1e9
+        results.append({"size_mb": size_mb, "time_ms": dt * 1e3,
+                        "busbw_gbps": algbw * 2 * (n - 1) / n})
+    return results
+
+
 def _world_payloads(device: str) -> dict:
     """One rank's reports (every rank gets the same)."""
-    from tpu_operator_torch.workloads.allreduce import run_allreduce
+    import torch
+
+    from chip_smoke import graph_node_types
+    from tpu_operator_torch.workloads.allreduce import _chain, run_allreduce
     from tpu_operator_torch.workloads.collectives import run_collectives_check
     from tpu_operator_torch.workloads.fabric import run_fabric_probe
 
-    return {
+    out = {
         "allreduce": run_allreduce(device=device),
+        "allreduce eager loop": _eager_allreduce(device),
         "collectives": run_collectives_check(device=device),
         "fabric 2x2x1": run_fabric_probe("2x2x1", device=device),
         "fabric 4x1x1 wrap": run_fabric_probe("4x1x1", wrap=True, device=device),
     }
+    if device == "cuda":
+        n = torch.distributed.get_world_size()
+        x = torch.ones(1 << 18, device="cuda")
+        out["chain graph nodes"] = graph_node_types(lambda: _chain(x, n, 10))
+    return out
 
 
 def _rates(out: dict) -> dict:
     rates = {f"allreduce {r['size_mb']} MiB busbw": r["busbw_gbps"]
              for r in out["allreduce"]["results"]}
+    rates.update({f"allreduce eager loop {r['size_mb']} MiB busbw": r["busbw_gbps"]
+                  for r in out["allreduce eager loop"]})
     for probe in ("fabric 2x2x1", "fabric 4x1x1 wrap"):
         rates.update({f"{probe} edge {k}": v["bw_gbps"] for k, v in out[probe]["edges"].items()})
     return rates
@@ -198,6 +305,8 @@ def main(argv=None) -> int:
                         help="run step 4 (the elastic trainer) alone")
     parser.add_argument("--ici-only", action="store_true",
                         help="run step 5 (the exporter's probe_ici) alone")
+    parser.add_argument("--graphs-only", action="store_true",
+                        help="run step 0 (the graphed sharded steps) alone")
     args = parser.parse_args(argv)
     import torch
 
@@ -213,6 +322,14 @@ def main(argv=None) -> int:
             print(line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     card = out["cards"][0].split(", ", 1)[1] if args.device == "cuda" else "CPU, gloo"
+    if not (args.ici_only or args.trainer_only):
+        out["graphs"] = _step_0(args, card)
+        if args.graphs_only:
+            _write(args.json, out)
+            print(json.dumps({"ok": True, "ranks": args.ranks, "graphs": {
+                k: {"rel_err": v["rel_err"], "bitwise": v["bitwise"]}
+                for k, v in out["graphs"].items()}}), flush=True)
+            return 0
     if not args.ici_only:
         _steps_1_to_4(args, out, card)
         if args.trainer_only:
@@ -232,6 +349,27 @@ def main(argv=None) -> int:
     _write(args.json, out)
     print(json.dumps({"ok": True, "ranks": args.ranks, "rates_gbps": rates}), flush=True)
     return 0
+
+
+def _step_0(args, card: str) -> dict:
+    """The graphed sharded steps in one world of ``--ranks`` ranks."""
+    from tpu_operator_torch.workloads.distributed import spawn_world
+
+    start = time.monotonic()
+    got = spawn_world(args.ranks, _graphed_steps, (args.device,), device=args.device,
+                      timeout=600)[0]
+    for name, r in got.items():
+        times = (f"; step ms eager {r['step_ms']:.4f}, replay {r['step_replay_ms']:.4f}, "
+                 f"device {r['step_device_ms']:.4f}, {r['step_graph_nodes']} device operations"
+                 if "step_ms" in r else "")
+        print(f"graphed sharded step {name} over {args.ranks} ranks: {len(r['graphed_losses'])} graphed "
+              f"calls {[round(x, 6) for x in r['graphed_losses']]} vs eager "
+              f"{[round(x, 6) for x in r['eager_losses']]}, rel {r['rel_err']:.3g}"
+              f"{' (bit for bit)' if r['bitwise'] else ''}; launches "
+              f"{({k: v for k, v in r['launches'].items() if v})}{times} ({card})", flush=True)
+    print(f"graphed sharded steps in {time.monotonic() - start:.1f} s with the ranks' start",
+          flush=True)
+    return got
 
 
 def _steps_1_to_4(args, out: dict, card: str) -> None:
@@ -254,10 +392,15 @@ def _steps_1_to_4(args, out: dict, card: str) -> None:
                                timeout=600)[0]
     out["world_s"] = time.monotonic() - start
     world = out["world"]
-    for r in world["allreduce"]["results"]:
+    how = "as a graph replay" if args.device == "cuda" else "(the CPU runs no graph)"
+    for r, e in zip(world["allreduce"]["results"], world["allreduce eager loop"]):
         print(f"allreduce {r['size_mb']} MiB over {world['allreduce']['devices']} ranks: "
               f"{r['time_ms']:.5f} ms, algbw {r['algbw_gbps']:.2f} GB/s, busbw "
-              f"{r['busbw_gbps']:.2f} GB/s", flush=True)
+              f"{r['busbw_gbps']:.2f} GB/s {how}; op by op {e['time_ms']:.5f} ms, "
+              f"busbw {e['busbw_gbps']:.2f} GB/s ({card})", flush=True)
+    if "chain graph nodes" in world:
+        print(f"a 10-all-reduce chain's graph over {args.ranks} ranks: "
+              f"{world['chain graph nodes']}", flush=True)
     print(f"collectives {world['collectives']['errors']}", flush=True)
     for probe in ("fabric 2x2x1", "fabric 4x1x1 wrap"):
         print(f"{probe}: edges " + ", ".join(f"{k} {v['bw_gbps']} GB/s"

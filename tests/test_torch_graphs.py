@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.test_torch_graphs_mesh import FakeGraphAPI
 from tpu_operator.workloads import burnin as jb
 from tpu_operator.workloads import serving as js
 from tpu_operator_torch.kernels import graph
@@ -225,56 +226,12 @@ def test_graph_holders_are_freed_without_the_cycle_collector():
             gc.enable()
 
 
-class _FakeGraphAPI:
-    """Stands in for ``torch.cuda``'s graph API on the CPU: streams that
-    record whether work ran on the side stream, a capture that runs the
-    function (a real one only records it) and a replay that runs nothing."""
-
-    def __init__(self):
-        self.side = 0
-        self.captures = 0
-        self.replays = 0
-
-    def install(self, monkeypatch):
-        api = self
-
-        class Stream:
-            def wait_stream(self, other):
-                pass
-
-        class Ctx:
-            def __init__(self, on_enter):
-                self.on_enter = on_enter
-
-            def __enter__(self):
-                self.on_enter()
-
-            def __exit__(self, *exc):
-                return False
-
-        class CUDAGraph:
-            def replay(self):
-                api.replays += 1
-
-        monkeypatch.setattr(torch.cuda, "Stream", Stream)
-        monkeypatch.setattr(torch.cuda, "current_stream", Stream)
-        monkeypatch.setattr(torch.cuda, "stream", lambda s: Ctx(self._on_side))
-        monkeypatch.setattr(torch.cuda, "CUDAGraph", CUDAGraph)
-        monkeypatch.setattr(torch.cuda, "graph", lambda g: Ctx(self._on_capture))
-
-    def _on_side(self):
-        self.side += 1
-
-    def _on_capture(self):
-        self.captures += 1
-
-
 def test_graphed_call_counts_the_launches_its_replays_make(monkeypatch):
     """The first call runs on a side stream and counts its launches; the
     capture's launches are taken back (a capture runs nothing); each replay
     adds the launches the graph holds; a capture that fails leaves the
     counts as they were and raises."""
-    api = _FakeGraphAPI()
+    api = FakeGraphAPI()
     api.install(monkeypatch)
 
     def kernel():

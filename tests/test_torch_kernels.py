@@ -722,6 +722,20 @@ def test_collectives_and_fabric_on_a_one_rank_nccl_world(one_rank_world):
     assert probe["ok"] and probe["edges"] == {} and probe["platform"] == "cuda"
 
 
+@pytest.mark.cuda
+def test_allreduce_chain_is_one_replay_of_captured_all_reduces(one_rank_world):
+    """On the card a timed chain is one graph replay of ``iters`` captured
+    all-reduces, and leaves the tensor where the chain run op by op does."""
+    from tpu_operator_torch.workloads import allreduce
+
+    allreduce.chain_counts.update(captured_all_reduces=0, timed_replays=0)
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    want = x.clone()
+    seconds = allreduce._chain_seconds(x, 1, 5)
+    assert seconds > 0 and torch.equal(x, want)
+    assert allreduce.chain_counts == {"captured_all_reduces": 5, "timed_replays": 1}
+
+
 # a graph replays the eager step's kernels on the same inputs in the same
 # order: expected bit for bit, held within chip_smoke.py's GRAPH_REL_TOL
 GRAPH_REL_TOL = 1e-6
@@ -785,6 +799,39 @@ def test_restore_then_replay_continues_the_eager_trajectory(cuda):
             t.copy_(mid[k])
     _, got = _graph_losses(step, static, batch, 3)
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= GRAPH_REL_TOL, (got, want)
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_step_and_pipeline_step_are_graph_replays(one_rank_world):
+    """A mesh step on the card is a graph replay from its second call, four
+    calls equal to four of its eager step; the GPipe step's graph replays
+    the losses of its body run op by op."""
+    from tpu_operator_torch.workloads import pipeline
+    from tpu_operator_torch.workloads.burnin import (
+        BurninConfig,
+        _GraphedStep,
+        build_train_step,
+        make_mesh_4d,
+    )
+
+    cfg = BurninConfig(d_model=64, n_heads=4, d_ff=128, seq_len=128, batch=2, n_layers=2,
+                       use_flash_attention=True, moe_experts=4, kv_heads=2)
+    step, params, batch = build_train_step(cfg, "cuda", mesh=make_mesh_4d(1, 1, 1, 1))
+    assert isinstance(step, _GraphedStep)
+    _, graphed = _graph_losses(step, params, batch, 4)
+    assert step._call.graph is not None
+    _, eager = _graph_losses(step.eager, params, batch, 4)
+    assert max(abs(a - b) / abs(b) for a, b in zip(graphed, eager)) <= GRAPH_REL_TOL, (graphed,
+                                                                                       eager)
+    mesh = pipeline.make_pp_mesh()
+    gen = torch.Generator().manual_seed(0)
+    stacked = {"w": torch.randn((1, 32, 32), generator=gen).cuda() / 32 ** 0.5,
+               "b": torch.zeros((1, 32), device="cuda")}
+    x, target = (torch.randn((2, 2, 32), generator=gen).cuda() for _ in range(2))
+    replayed = pipeline._pipeline_losses(stacked, x, target, mesh, 3, 0.1)
+    params = {k: v.clone() for k, v in stacked.items()}
+    op_by_op = [float(pipeline._sgd_update(params, x, target, mesh, 0.1)) for _ in range(3)]
+    assert replayed == op_by_op and replayed[-1] < replayed[0]
 
 
 @pytest.mark.cuda

@@ -311,3 +311,23 @@ def test_non_finite_loss_is_a_trainer_error(tmp_path):
         trainer.run(6)
     assert 1 <= trainer.step < 6
     assert len(trainer.history) == trainer.step
+
+
+def test_a_pool_drops_its_ranks_steps_before_it_stops(tmp_path, monkeypatch):
+    """A world is torn down (at a resume and at close) only after every rank
+    dropped its step: on a card the step's graph holds the world's NCCL
+    communicators."""
+    order = []
+    call, close = port.RankPool.call, port.RankPool.close
+    monkeypatch.setattr(port.RankPool, "call",
+                        lambda self, fn, *args: order.append(fn.__name__) or call(self, fn, *args))
+    monkeypatch.setattr(port.RankPool, "close",
+                        lambda self, grace=10.0: order.append("close") or close(self, grace))
+    trainer = _trainer(tmp_path, "g", total_steps=4, checkpoint_every=4)
+    try:
+        trainer.resume(hosts=2)
+        trainer.run(1)
+        trainer.resume(hosts=2)
+    finally:
+        trainer.close()
+    assert order == ["_rank_run", "_rank_release", "close", "_rank_release", "close"]

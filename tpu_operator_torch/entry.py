@@ -6,9 +6,10 @@ unless ``device="cpu"`` is passed. ``params`` may carry the reference's
 weights as a dict of numpy arrays; otherwise they are drawn from a fixed
 seed (the same distributions, not the same bits as ``jax.random``).
 
-``dryrun_multichip(n)`` runs one step of the full sharded train step on
-a world of n ranks (one per card; ``device="cpu"`` for n gloo ranks on
-the CPU), then the GPipe pipeline check over all n. From a shell:
+``dryrun_multichip(n)`` runs three calls of the full sharded train step
+on a world of n ranks (one per card, where the second call captures the
+step's graph and the third replays it; ``device="cpu"`` for n gloo ranks
+on the CPU), then the GPipe pipeline check over all n. From a shell:
 
     python -c "from tpu_operator_torch.entry import dryrun_multichip as d; d(8, device='cpu')"
 """
@@ -80,24 +81,28 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
         kv_heads=2 if sequence_parallel else 0,
     )
     step, params, batch = build_train_step(cfg, device, mesh=mesh)
-    params, loss = step(params, batch)
-    loss_val = float(loss)
-    if not math.isfinite(loss_val):
-        raise RuntimeError(f"non-finite loss in multichip dryrun: {loss_val}")
+    losses = []
+    for _ in range(3):  # on cards: eager, captured, replayed
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite loss in multichip dryrun: {losses}")
     pp = run_pipeline_check(mesh=make_pp_mesh(), n_micro=2, batch=2, d_model=32, steps=2)
     return {
         "mesh": mesh_axes(mesh),
-        "loss": loss_val,
+        "loss": losses[0],
+        "third_loss": losses[2],
         "pipeline": pp,
-        "line": (f"dryrun_multichip: mesh={mesh_axes(mesh)}, loss={loss_val:.5f}, "
-                 f"pp={pp['stages']} stages "
+        "line": (f"dryrun_multichip: mesh={mesh_axes(mesh)}, loss={losses[0]:.5f}, "
+                 f"third call's loss={losses[2]:.5f}, pp={pp['stages']} stages "
                  f"(err_vs_sequential={pp['max_abs_err_vs_sequential']:.2e})"),
     }
 
 
 def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> dict:
-    """The full sharded train step over an n-rank mesh, one step at tiny
-    widths. Multiples of 8 get the 4-D (data, sp, model, ep) mesh — data
+    """The full sharded train step over an n-rank mesh, three calls at
+    tiny widths (the first call's loss and the third's are reported).
+    Multiples of 8 get the 4-D (data, sp, model, ep) mesh — data
     x sequence parallel (the ring over 'sp', packed documents spanning
     ranks, GQA) x tensor x expert parallel (the MoE over 'ep'); other
     counts the default (data, model) mesh. Then the GPipe pipeline check

@@ -1,6 +1,7 @@
 """CUDA-graph capture and replay of the port's compiled paths: the
 counterpart of the reference's ``jax.jit`` executables (the burn-in train
-step, the decode engine's decode and prefill).
+step with or without a mesh, the decode engine's decode and prefill, the
+GPipe step, the all-reduce chain).
 
 A :class:`GraphedCall` runs a function of tensors it holds (static inputs,
 state updated in place) as one graph replay. The kernel wrappers count a
@@ -57,7 +58,14 @@ class GraphedCall:
     A replay returns the tensor the capture produced, which the next replay
     rewrites. ``fn`` must neither sync the host nor branch on device values,
     and what it reads or writes in place must outlive the graph. A failed
-    capture raises: nothing falls back to eager."""
+    capture raises: nothing falls back to eager.
+
+    ``fn`` may call NCCL collectives (on a mesh, one graph per rank): the
+    warm-up, on a side stream as the capture's, opens every communicator
+    they use, which a capture may not create, and every rank must issue
+    the same collectives in the same order. A graph that holds them must
+    be freed before its process group is destroyed. No capture mode is
+    needed (the default, global, on torch 2.11 with NCCL 2.28)."""
 
     def __init__(self, fn: Callable[[], torch.Tensor]):
         self.fn = fn

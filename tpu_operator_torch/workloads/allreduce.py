@@ -10,10 +10,16 @@ Bus bandwidth follows nccl-tests: an n-way ring all-reduce moves
 A one-rank world still calls ``all_reduce``: the one-rank call is what
 builds and exercises the NCCL communicator, though its time measures a
 local copy, not a link.
+
+The timed chain is the reference's one compiled program of back-to-back
+all-reduces: on the card, one CUDA graph replay with the NCCL calls
+captured inside it (:func:`_chain_seconds`), so no host dispatch sits
+between the collectives; the CPU runs it op by op (:func:`_loop_seconds`).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -33,27 +39,70 @@ def _barrier(device: torch.device, group=None) -> None:
         torch.cuda.synchronize(device)
 
 
-def _chain_seconds(x: torch.Tensor, n: int, iters: int, group=None) -> float:
-    """This rank's seconds for ``iters`` back-to-back all-reduces of ``x``
-    in place over ``group`` of ``n`` ranks, each followed by ``div_(n)``
-    so the chain stays bounded. The ranks start together; the card's time
-    comes from CUDA events, the CPU's from the wall clock (gloo returns
-    when the reduction is done)."""
-    _barrier(x.device, group)
-    if x.is_cuda:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            dist.all_reduce(x, group=group)
-            x.div_(n)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
+# what the card's chains did, read by a caller that shows a chain ran as a
+# replay: all-reduces issued while a chain was being captured, and chain
+# replays timed
+chain_counts = {"captured_all_reduces": 0, "timed_replays": 0}
+
+
+def _chain(x: torch.Tensor, n: int, iters: int, group=None) -> torch.Tensor:
+    """``iters`` all-reduces of ``x`` in place over ``group`` of ``n``
+    ranks, each followed by ``div_(n)`` so the chain stays bounded;
+    returns ``x``."""
     for _ in range(iters):
         dist.all_reduce(x, group=group)
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            chain_counts["captured_all_reduces"] += 1
         x.div_(n)
-    return time.perf_counter() - t0
+    return x
+
+
+def _timed(run, device: torch.device) -> float:
+    """Seconds of ``run()``: CUDA events on the card, the wall clock on the
+    CPU (gloo returns when the reduction is done)."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _loop_seconds(x: torch.Tensor, n: int, iters: int, group=None) -> float:
+    """This rank's seconds for the chain (:func:`_chain` on ``x``) run op
+    by op, each collective dispatched from the host; the ranks start
+    together."""
+    _barrier(x.device, group)
+    return _timed(lambda: _chain(x, n, iters, group), x.device)
+
+
+def _chain_seconds(x: torch.Tensor, n: int, iters: int, group=None) -> float:
+    """This rank's seconds for ``iters`` back-to-back all-reduces of ``x``
+    in place over ``group`` of ``n`` ranks (:func:`_chain`), the ranks
+    starting together. On the card the chain is one CUDA graph over a
+    static tensor (``kernels/graph.GraphedCall``: an eager warm-up that
+    opens the communicator, the capture, a first replay), ``x`` is copied
+    into that tensor before the timed window, and the window holds the one
+    replay and no host dispatch; the graph does not outlive the call, so
+    none outlives its communicator. The CPU times :func:`_loop_seconds`."""
+    if not x.is_cuda:
+        return _loop_seconds(x, n, iters, group)
+    from tpu_operator_torch.kernels.graph import GraphedCall
+
+    static = x.clone()
+    chain = GraphedCall(functools.partial(_chain, static, n, iters, group))
+    chain()  # the warm-up, eager
+    chain()  # the capture and a first replay
+    static.copy_(x)  # fresh data, before the window
+    _barrier(x.device, group)
+    seconds = _timed(chain, x.device)
+    chain_counts["timed_replays"] += 1
+    x.copy_(static)
+    return seconds
 
 
 def _slowest(seconds: float, device: torch.device, group=None) -> float:

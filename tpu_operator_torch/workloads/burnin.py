@@ -10,9 +10,9 @@ FlashAttention-2 backward kernels), or as ring attention over a
 sequence-parallel mesh axis (``sequence_parallel``). ``moe_experts`` > 0
 replaces the dense FFN with a top-1 routed mixture of experts.
 
-With ``mesh=None`` the step runs on one device; on a card it is one CUDA
-graph replay (``_GraphedStep``), as the reference runs it under
-``jax.jit``, and on the CPU the eager step. On a mesh
+On a card the step is one CUDA graph replay (``_GraphedStep``), as the
+reference runs it under ``jax.jit``, and on the CPU the eager step. With
+``mesh=None`` it runs on one device; on a mesh
 (:func:`make_mesh`, :func:`make_mesh_3d`, :func:`make_mesh_4d`: a
 ``DeviceMesh`` over the current process group) every rank holds only its
 shard and runs the same program on it:
@@ -521,8 +521,8 @@ def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = No
                      batch: Optional[Sequence[np.ndarray]] = None, *, mesh=None):
     """Returns (step, params, batch): the SGD train step and ready-to-run
     inputs. ``step(params, batch)`` returns (new params, the loss before
-    the update); on a card and with no mesh, a CUDA graph replay
-    (``_GraphedStep``). ``params`` may be the reference's weights as numpy
+    the update); on a card a CUDA graph replay (``_GraphedStep``),
+    over a mesh too. ``params`` may be the reference's weights as numpy
     arrays and ``batch`` its (x, target) arrays, in the global layout;
     otherwise both come from fixed seeds (the reference's distributions,
     not its bits). On a ``mesh`` every rank builds the same global
@@ -548,26 +548,17 @@ def build_train_step(cfg: Optional[BurninConfig] = None, device: DeviceLike = No
     if mesh is not None:
         x, target = (_local_rows(a, cfg, mesh) for a in (x, target))
     data = (x.to(dev, cfg.tdtype), target.to(dev, cfg.tdtype))
-    tokens = axes_group(mesh, *_token_axes(cfg))  # the ranks that hold other tokens
 
     def step(params, batch):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(leaves, batch, cfg, mesh)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        if mesh is not None:
-            # one flat sum over the token axes: the gradients and the loss
-            flat = torch.cat([g.float().reshape(-1) for g in grads] + [loss.detach().reshape(1)])
-            flat = all_reduce_sum(flat, tokens)
-            loss = flat[-1]
-            grads = torch.split(flat[:-1], [g.numel() for g in grads])
+        loss, grads = _loss_and_grads(params, batch, cfg, mesh)
         new_params = {
             k: (p - cfg.learning_rate * g.reshape(p.shape).to(p.dtype)).detach()
-            for (k, p), g in zip(leaves.items(), grads)
+            for (k, p), g in zip(params.items(), grads)
         }
-        return new_params, loss.detach()
+        return new_params, loss
 
-    if dev.type == "cuda" and mesh is None:
-        return _GraphedStep(step, cfg, weights, data), weights, data
+    if dev.type == "cuda":
+        return _GraphedStep(step, cfg, weights, data, mesh), weights, data
     return step, weights, data
 
 
@@ -578,22 +569,39 @@ def _load(static, given) -> None:
             dst.copy_(src)
 
 
-def _sgd_update(params: Dict[str, torch.Tensor], batch, cfg: BurninConfig) -> torch.Tensor:
+def _loss_and_grads(params: Mapping[str, torch.Tensor], batch, cfg: BurninConfig,
+                    mesh=None) -> tuple:
+    """The loss and one gradient per parameter, in order. On a mesh both
+    are summed over the ranks that hold other tokens, in one flat
+    all-reduce, so every rank gets the global loss and gradients."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves, batch, cfg, mesh)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    if mesh is not None:
+        flat = torch.cat([g.float().reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        flat = all_reduce_sum(flat, axes_group(mesh, *_token_axes(cfg)))
+        loss = flat[-1]
+        grads = torch.split(flat[:-1], [g.numel() for g in grads])
+    return loss.detach(), grads
+
+
+def _sgd_update(params: Dict[str, torch.Tensor], batch, cfg: BurninConfig,
+                mesh=None) -> torch.Tensor:
     """One SGD step on ``params`` in place (``p -= lr * g``, the eager
     step's arithmetic); returns the loss before the update."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = loss_fn(leaves, batch, cfg)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    loss, grads = _loss_and_grads(params, batch, cfg, mesh)
     with torch.no_grad():
         for p, g in zip(params.values(), grads):
             p.sub_(cfg.learning_rate * g.reshape(p.shape).to(p.dtype))
-    return loss.detach()
+    return loss
 
 
 class _GraphedStep:
-    """The mesh-free train step on a card as one CUDA graph replay: the
-    counterpart of the reference's ``jax.jit(step)``. Its call signature is
-    the eager step's (``eager``, kept for comparison and timing).
+    """The train step on a card as one CUDA graph replay: the counterpart
+    of the reference's ``jax.jit(step)``. Its call signature is the eager
+    step's (``eager``, kept for comparison and timing). On a ``mesh`` each
+    rank replays its own graph over its shards, with the step's NCCL
+    collectives captured inside it in the same order on every rank.
 
     The graph reads static parameter and batch tensors and updates the
     parameters in place (``p -= lr * g``, the eager step's arithmetic), so
@@ -605,7 +613,7 @@ class _GraphedStep:
     warm-up), the second captures; the attention path and its tile height
     are fixed at the capture, as a trace fixes them."""
 
-    def __init__(self, eager, cfg: BurninConfig, weights, batch):
+    def __init__(self, eager, cfg: BurninConfig, weights, batch, mesh=None):
         from tpu_operator_torch.kernels.graph import GraphedCall
 
         self.eager = eager
@@ -614,7 +622,8 @@ class _GraphedStep:
         # the graph's function holds the tensors, not this step: a graph in
         # a reference cycle would be destroyed by the collector at any
         # moment, even during another capture, which that breaks
-        self._call = GraphedCall(functools.partial(_sgd_update, self.params, batch, cfg))
+        self._call = GraphedCall(functools.partial(_sgd_update, self.params, batch, cfg,
+                                                   mesh=mesh))
 
     def __call__(self, params, batch):
         _load(self.params.values(), (params[k] for k in self.params))

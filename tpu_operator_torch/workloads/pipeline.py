@@ -11,10 +11,15 @@ last stage's outputs leave replicated through ``spmd.reduce_from``.
 Every rank builds the same autograd graph (each stage selects its input
 with ``torch.where`` and keeps every tick's output, masked at the end):
 the backward's point-to-point transfers then pair up on every rank.
+
+On a card the pipelined SGD step is one CUDA graph replay per rank, its
+transfers and sums captured inside it, as the reference runs it under
+``jax.jit``; the CPU runs it op by op.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -61,7 +66,8 @@ def pipeline_apply(stacked_params: Dict[str, torch.Tensor], microbatches: torch.
                 "would shard silently and drop layers)"
             )
     local = {k: v[stage] for k, v in stacked_params.items()}
-    first = torch.tensor(stage == 0, device=microbatches.device)
+    # made on the device: a host-to-device copy cannot be captured
+    first = torch.full((), stage == 0, device=microbatches.device)
     buf = torch.zeros_like(microbatches[0])
     outs = []
     ticks = n_micro + n_stages - 1
@@ -83,22 +89,48 @@ def _stage_fn(p, x):
     return F.gelu(x @ p["w"] + p["b"], approximate="tanh")
 
 
+def _loss_and_grads(params: Dict[str, torch.Tensor], x, target, mesh) -> tuple:
+    """The pipelined mean squared error and its gradients; each rank's
+    gradient holds only its stage's slice, so the stacks' gradients are
+    summed over the stages."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    out = pipeline_apply(leaves, x, stage_fn=_stage_fn, mesh=mesh)
+    loss = (out - target).square().mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    group = mesh.get_group("pp")
+    return loss.detach(), [all_reduce_sum(g, group) for g in grads]
+
+
+def _sgd_update(params: Dict[str, torch.Tensor], x, target, mesh,
+                learning_rate: float) -> torch.Tensor:
+    """One pipelined SGD step on ``params`` in place (the eager step's
+    arithmetic); returns the loss before the update: the graph's body."""
+    loss, grads = _loss_and_grads(params, x, target, mesh)
+    with torch.no_grad():
+        for p, g in zip(params.values(), grads):
+            p.sub_(learning_rate * g)
+    return loss
+
+
 def _pipeline_losses(stacked: Dict[str, torch.Tensor], x, target, mesh, steps: int,
                      learning_rate: float) -> list:
-    """SGD on the pipelined mean squared error; each rank's gradient holds
-    only its stage's slice, so the stacks' gradients are summed over the
-    stages before the update."""
-    group = mesh.get_group("pp")
+    """``steps`` steps of SGD on the pipelined mean squared error from
+    ``stacked``; the loss before each update. On the card each step is a
+    replay of one graph over copies of ``stacked`` (``GraphedCall``: the
+    first step eager, the second captured), its loss read after it."""
+    if x.is_cuda:
+        from tpu_operator_torch.kernels.graph import GraphedCall
+
+        params = {k: v.clone() for k, v in stacked.items()}
+        step = GraphedCall(functools.partial(_sgd_update, params, x, target, mesh,
+                                             learning_rate))
+        return [float(step()) for _ in range(steps)]
     losses = []
     params = stacked
     for _ in range(steps):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        out = pipeline_apply(leaves, x, stage_fn=_stage_fn, mesh=mesh)
-        loss = (out - target).square().mean()
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        losses.append(float(loss.detach()))
-        params = {k: p.detach() - learning_rate * all_reduce_sum(g, group)
-                  for (k, p), g in zip(leaves.items(), grads)}
+        loss, grads = _loss_and_grads(params, x, target, mesh)
+        losses.append(float(loss))
+        params = {k: p - learning_rate * g for (k, p), g in zip(params.items(), grads)}
     return losses
 
 

@@ -151,6 +151,15 @@ def _rank_run(count: int):
     return done if torch.distributed.get_rank() == 0 else None
 
 
+def _rank_release() -> None:
+    """Drops the rank's step and shards before its world is torn down: on a
+    card the step's graph holds the world's NCCL communicators, and a rank
+    that destroys its process group with the graph alive does not exit
+    within the pool's grace (on four H100s every resume took the grace's
+    10 s longer)."""
+    _RANK.clear()
+
+
 def _rank_gather():
     """The global params (a collective); rank 0 returns them."""
     arrays = gather_burnin_params(_RANK["params"], _RANK["cfg"], _RANK["mesh"])
@@ -270,6 +279,8 @@ class ResumableTrainer:
 
     def _close_pool(self) -> None:
         if self._pool is not None:
+            if not self._pool.closed:
+                self._pool.call(_rank_release)
             self._pool.close()
             self._pool = None
 
