@@ -41,8 +41,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    answers 16 requests through the general kernel, its decode and each
    prefill offset as CUDA graph replays, with the same greedy tokens as
    dense prefill and as the same engine run op by op (``eager_engine``),
-   and as many launches; one decode's and one prefill's eager, replayed
-   and device ms and device operations (``graph_nodes``);
+   and as many launches, and as the same engine with its int8 MLP weights
+   row-major (``row_major_engine``; the engine lays them out
+   column-major); one decode's and one prefill's eager, replayed and
+   device ms and device operations (``graph_nodes``), with both layouts;
 6. train — ``run_burnin(steps=3)`` at ``entry()`` widths with flash
    attention: plain causal (the triangle pairs, 2 launches of each kernel
    per step), ``kv_heads=2`` (a GQA group inside the dK/dV kernel) and
@@ -67,7 +69,17 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    working card passes, and ``python -m
    tpu_operator_torch.validator.workload_entry`` in a process of its own.
    A reading above 105% of its data-sheet peak, or an unstable timing,
-   fails the phase;
+   fails the phase. Each timed chain is a graph replay per timed call
+   (``kernels/graph.GraphedChain``): every probe's captures (one per
+   chain length) and timed replays are counted and held to its timing's
+   pattern. Then every timed chain of the port (``chain_rows``: the triad
+   at 64 and 128 MiB, bf16 at 8192, 4096 and 256, int8 at 8192,
+   ``flash_attention_bench()``'s flash forward and fwd+bwd, the sweep's
+   flash forward at (1,8192,8,128), the gang's telemetry chain) runs in
+   turns as the eager
+   loop (``eager_chains``: the chain function called in a Python loop) and
+   as graph replays, with each run's rates, captures and replays and peak
+   memory;
 8. sharded — (a) the mixture of experts on the card at ``entry()``
    widths (``moe_experts=4``, flash attention): ``run_burnin(steps=3)``
    plain, ``kv_heads=2`` and ``packed_segments=2``, each curve falling
@@ -95,9 +107,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    edges); (b) ``COMPONENT=slice python -m
    tpu_operator_torch.validator.main`` in a process of its own, under a
    timeout (the component retries forever); (c) the gang check: one
-   worker on the card (TCP rendezvous, NCCL), then 2 workers x 2 ranks
-   and 2 slices x 1 host x 2 ranks on gloo (one card cannot hold two
-   NCCL ranks);
+   worker on the card (TCP rendezvous, NCCL), its telemetry chain three
+   timed replays, then 2 workers x 2 ranks and 2 slices x 1 host x 2
+   ranks on gloo (one card cannot hold two NCCL ranks), their telemetry
+   chains eager;
 10. trainer — (a) the elastic trainer (``ResumableTrainer``) at
    ``entry()`` widths with flash attention, bf16, in a temporary store:
    24 steps, a checkpoint every 5, an injected fault at 13, a resume to
@@ -195,6 +208,7 @@ compiler's register report) there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import importlib
@@ -1094,6 +1108,18 @@ def eager_engine(*args, **kwargs):
     return EagerEngine(*args, **kwargs)
 
 
+def row_major_engine(*args, **kwargs):
+    """A graphed ``DecodeEngine`` whose int8 MLP weights are row-major, as
+    the engine built them before ``serving.int8_weight`` laid them out
+    column-major; its tokens must be the same."""
+    from tpu_operator_torch.workloads.serving import DecodeEngine
+
+    engine = DecodeEngine(*args, **kwargs)
+    for name in ("w1_q", "w2_q"):  # the step state holds this dict
+        engine.params[name] = engine.params[name].contiguous()
+    return engine
+
+
 def _engine_times(engine) -> dict:
     """Eager, replayed and device ms of one decode and one prefill at offset
     0 (flash or dense as the engine's config says), every lane masked so
@@ -1130,7 +1156,8 @@ def phase_serving() -> dict:
     requests = make_requests(16, seed=20260818, prompt_len=24, decode_max=32)
     runs = {}
     for name, flash, make in (("dense", False, DecodeEngine), ("flash", True, DecodeEngine),
-                              ("flash eager", True, eager_engine)):
+                              ("flash eager", True, eager_engine),
+                              ("flash row-major int8", True, row_major_engine)):
         engine = make(ServingModelConfig(use_flash_prefill=flash))
         engine.warmup(24)
         batch = copy.deepcopy(requests)
@@ -1146,7 +1173,11 @@ def phase_serving() -> dict:
         }
         if name == "flash":
             times = _engine_times(engine)
+        if name == "flash row-major int8":
+            row_major_times = _engine_times(engine)
     flash, dense, eager = runs["flash"], runs["dense"], runs["flash eager"]
+    if flash["tokens"] != runs["flash row-major int8"]["tokens"]:
+        raise RuntimeError("the column-major int8 weights change the greedy tokens")
     if len(flash["tokens"]) != 16 or any(not t for t in flash["tokens"].values()):
         raise RuntimeError(f"serving answered {len(flash['tokens'])} of 16 requests")
     if flash["tokens"] != dense["tokens"]:
@@ -1166,8 +1197,14 @@ def phase_serving() -> dict:
     log("serving: " + "; ".join(
         f"{name} ms eager {t['eager_ms']:.5f}, replay {t['replay_ms']:.5f}, device "
         f"{t['device_ms']:.5f}, {t['graph_nodes']} device operations" for name, t in times.items()))
+    log("serving: the int8 MLP's weights row-major, as before they were laid out column-major: "
+        "the same tokens; " + "; ".join(
+            f"{name} ms replay {t['replay_ms']:.5f}, device {t['device_ms']:.5f} (column-major "
+            f"{times[name]['replay_ms']:.5f}, {times[name]['device_ms']:.5f})"
+            for name, t in row_major_times.items()))
     return {"launches": flash["launches"], "report": rep, "dense_report": dense["report"],
-            "eager_report": eager["report"], "graph_times": times, "tokens": flash["tokens"]}
+            "eager_report": eager["report"], "graph_times": times,
+            "row_major_int8_graph_times": row_major_times, "tokens": flash["tokens"]}
 
 
 TRAIN_CONFIGS = {"plain": {}, "gqa": {"kv_heads": 2}, "packed": {"packed_segments": 2}}
@@ -1276,10 +1313,12 @@ def phase_train() -> dict:
     out["grad_check_max_abs_err"] = _flash_grad_check()
     log(f"train: f32 flash_attention gradients vs dense, max abs err "
         f"{out['grad_check_max_abs_err']:.3g}")
-    bench = flash_attention_bench(device="cuda")
-    out["flash_attention_bench"] = bench
+    run = _run_row(lambda: flash_attention_bench(device="cuda"))
+    bench = out["flash_attention_bench"] = run["rates"]
+    out["flash_attention_bench_peak_mib"] = run["peak_mib"]
     log("train: flash_attention_bench() " + ", ".join(
-        f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}" for k, v in bench.items()))
+        f"{k} {v:.5g}" if isinstance(v, float) else f"{k} {v}" for k, v in bench.items())
+        + f"; peak memory {run['peak_mib']:.1f} MiB above its start (graph replays)")
     out["flash_fwd_bwd_4096"] = _flash_fwd_bwd_ms()
     log(f"train: one flash_attention fwd+bwd at (1,4096,8,128) bf16: device ms "
         f"{out['flash_fwd_bwd_4096']['device_ms']:.5f}, eager ms "
@@ -1338,6 +1377,200 @@ PROBES = {
 }
 
 
+def chain_counts() -> dict:
+    """A copy of ``kernels/graph.chain_counts``: captures and replays by
+    timed chain."""
+    from tpu_operator_torch.kernels import graph
+
+    return {name: dict(c) for name, c in graph.chain_counts.items()}
+
+
+def counts_since(before: dict) -> dict:
+    """The captures and replays of each timed chain since ``before``."""
+    return {name: {k: v - before.get(name, {}).get(k, 0) for k, v in c.items()}
+            for name, c in chain_counts().items()
+            if c != before.get(name, {"captures": 0, "replays": 0})}
+
+
+def _two_point_counts(name: str, reps: int) -> dict:
+    """What one two-point timing of a graphed chain does: each of its two
+    lengths captured once, each of ``reps`` pairs two replays."""
+    return {name: {"captures": 2, "replays": 2 * reps}}
+
+
+@contextlib.contextmanager
+def eager_chains():
+    """Every timed chain made inside runs eagerly, as the port's chains ran
+    before they were graphed: the chain function called in a Python loop,
+    every launch from the host, the seed a Python float."""
+    from tpu_operator_torch.kernels import graph
+
+    replays_on = graph.replays_on
+    graph.replays_on = lambda device: False
+    try:
+        yield
+    finally:
+        graph.replays_on = replays_on
+
+
+def _sweep_rates(fwd_bwd: bool) -> dict:
+    """The generation sweep's flash family at its "cuda" shape: each
+    height's ms a step, whether pass 1 pruned it, the winner's height."""
+    from tpu_operator_torch.workloads import autotune
+
+    f = autotune.SWEEP_PROFILES["cuda"]["flash"]
+    records, winner = autotune.sweep_flash(seq_len=f["seq_len"], heads=f["heads"],
+                                           head_dim=f["head_dim"], iters=f["iters"],
+                                           reps=f["reps"], fwd_bwd=fwd_bwd, device="cuda")
+    out = {f"block_m {r.config['block_m']} ms": r.time_ms for r in records}
+    out.update({f"block_m {r.config['block_m']} pruned": r.pruned for r in records})
+    out["winner"] = winner.config["block_m"]
+    return out
+
+
+def _sweep_counts(name: str, rates: dict, reps: int) -> dict:
+    """A sweep's chains: per height a capture and a replay in pass 1; an
+    unpruned height then captures its long chain and replays the short one
+    once more and every timed pair."""
+    heights = [k.split()[1] for k in rates if k.endswith(" ms")]
+    pruned = sum(rates[f"block_m {h} pruned"] for h in heights)
+    full = len(heights) - pruned
+    return {name: {"captures": len(heights) + full, "replays": len(heights) + full * (1 + 2 * reps)}}
+
+
+def chain_rows() -> dict:
+    """Phase 7's table: each timed chain the port runs, as its caller calls
+    it: row name -> (a function returning its rates, the unit, what one
+    call does to ``chain_counts`` when graphed)."""
+    from tpu_operator_torch.workloads import matmul_bench
+    from tpu_operator_torch.workloads.flashattention import (
+        bench_forward_s,
+        bench_fwd_bwd_s,
+        flash_attention,
+    )
+    from tpu_operator_torch.workloads.kernels import hbm_bandwidth_probe
+    from tpu_operator_torch.workloads.multiproc import step_telemetry
+
+    def probe(**kw):
+        r = hbm_bandwidth_probe(**kw)
+        return {"GB/s": r["bandwidth_gbps"], "inclusive GB/s": r["inclusive_gbps"],
+                "overhead ms": r.get("dispatch_overhead_ms_est"),
+                "unstable": bool(r.get("unstable_timing"))}
+
+    def matmul(fn, key, size, iters):
+        r = fn(size=size, iters=iters)
+        return {key: r[key], f"inclusive {key}": r[f"inclusive_{key}"],
+                "overhead ms": r.get("dispatch_overhead_ms_est"),
+                "unstable": bool(r.get("unstable_timing"))}
+
+    gen = torch.Generator().manual_seed(1)  # flash_attention_bench()'s inputs
+    q, k, v = (torch.randn((1, 4096, 8, 128), generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(3))
+
+    def flash(a, kk, vv):
+        return flash_attention(a, kk, vv, causal=True)
+
+    def bench():
+        return {"fwd ms": bench_forward_s(flash, q, k, v) * 1e3,
+                "fwd+bwd ms": bench_fwd_bwd_s(flash, q, k, v) * 1e3}
+
+    def telemetry():
+        report, _ = step_telemetry("h100-0", torch.device("cuda"))
+        return {"step p50 ms": report.step_p50_s * 1e3, "step max ms": report.step_max_s * 1e3}
+
+    bench_counts = {"bench forward": {"captures": 2, "replays": 8},
+                    "bench fwd+bwd": {"captures": 2, "replays": 8}}
+    return {
+        "triad 64 MiB": (lambda: probe(size_mb=64, iters=25), "GB/s", _two_point_counts("triad", 6)),
+        "triad 128 MiB": (lambda: probe(), "GB/s", _two_point_counts("triad", 6)),
+        "bf16 8192": (lambda: matmul(matmul_bench.matmul_tflops, "tflops", 8192, 16), "TFLOP/s",
+                      _two_point_counts("matmul", 5)),
+        "int8 8192": (lambda: matmul(matmul_bench.int8_matmul_tops, "tops", 8192, 16), "TOP/s",
+                      _two_point_counts("int8", 5)),
+        "bf16 4096": (lambda: matmul(matmul_bench.matmul_tflops, "tflops", 4096, 8), "TFLOP/s",
+                      _two_point_counts("matmul", 5)),
+        "bf16 256": (lambda: matmul(matmul_bench.matmul_tflops, "tflops", 256, 2), "TFLOP/s",
+                     _two_point_counts("matmul", 5)),
+        "flash bench (1,4096,8,128)": (bench, "ms", bench_counts),
+        "sweep forward (1,8192,8,128)": (lambda: _sweep_rates(False), "ms", "sweep forward"),
+        "telemetry 32 x 256²": (telemetry, "ms", {"telemetry": {"captures": 1, "replays": 3}}),
+    }
+
+
+def _run_row(fn) -> dict:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    rates = fn()
+    torch.cuda.synchronize()
+    return {"rates": rates, "seconds": time.perf_counter() - start,
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
+
+
+def eager_against_replayed() -> dict:
+    """Each timed chain run in turns on this card: the eager loop, the
+    graph replays, the replays again, the eager loop again. Holds every
+    graphed run's captures and replays to what its timing makes (one
+    capture per length, one replay per timed call) and the eager runs to
+    none; records the rates and each run's peak memory above what was
+    allocated before it."""
+    out = {}
+    for row, (fn, unit, counts) in chain_rows().items():
+        runs = []
+        for graphed in (False, True, True, False):
+            before = chain_counts()
+            with contextlib.nullcontext() if graphed else eager_chains():
+                run = _run_row(fn)
+            did = counts_since(before)
+            want = {}
+            if graphed:
+                want = _sweep_counts(counts, run["rates"], 4) if isinstance(counts, str) else counts
+            if did != want:
+                raise RuntimeError(f"chains {row} ({'graphed' if graphed else 'eager'}): "
+                                   f"captures and replays {did}, expected {want}")
+            runs.append(dict(run, graphed=graphed, chain_counts=did))
+        out[row] = {"unit": unit, "runs": runs}
+
+        def both(key, runs=runs):
+            def fmt(v):
+                return f"{v:.5g}" if isinstance(v, float) else str(v)
+            eager = " / ".join(fmt(r.get(key)) for r in runs if not r["graphed"])
+            replay = " / ".join(fmt(r.get(key)) for r in runs if r["graphed"])
+            return f"eager {eager}, replayed {replay}"
+
+        for r in runs:
+            r.update({k: v for k, v in r["rates"].items() if isinstance(v, float)})
+        keys = [k for k, v in runs[0]["rates"].items() if isinstance(v, float)]
+        log(f"chains: {row}: " + "; ".join(f"{k} {both(k)}" for k in keys)
+            + f"; peak MiB {both('peak_mib')}; a graphed run {runs[1]['chain_counts']}"
+            + "".join(f"; {k} {[r['rates'][k] for r in runs]}"
+                      for k, v in runs[0]["rates"].items() if not isinstance(v, float)))
+    return out
+
+
+def _seed_rounding() -> dict:
+    """A graphed chain's seed is a 0-dim f32 tensor on the card; bf16 times
+    it as ``timing.seeded`` takes it must equal bf16 times the Python
+    float, the eager chain's product, at the timing's seed and at one that
+    bf16 cannot hold (1.3, which bf16 rounds to 1.296875). Also records
+    whether the plain product ``x * s`` rounds the seed to bf16 first."""
+    from tpu_operator_torch.workloads.timing import seeded
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((256, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for seed in (1.001, 1.3):
+        s = torch.tensor(seed, device="cuda")
+        rounded = float(torch.tensor(seed).to(torch.bfloat16))
+        out[seed] = {"seeded_equals_float_seed": torch.equal(seeded(x, s), x * seed),
+                     "plain_product_equals_float_seed": torch.equal(x * s, x * seed),
+                     "plain_product_equals_bf16_seed": torch.equal(x * s, x * rounded)}
+    if not all(v["seeded_equals_float_seed"] for v in out.values()):
+        raise RuntimeError(f"a tensor seed rounds otherwise than a float seed: {out}")
+    return out
+
+
 def phase_selftest() -> dict:
     from tpu_operator_torch.validator.main import Context, run_component
     from tpu_operator_torch.workloads import matmul_bench
@@ -1350,6 +1583,7 @@ def phase_selftest() -> dict:
                            f"here ({sorted(HBM_GBPS)})")
     out = {"generation": gen, "paths": {}}
     for path, (kwargs, launches) in PROBES.items():
+        before = chain_counts()
         zero_launches()
         report = hbm_bandwidth_probe(**kwargs)
         torch.cuda.synchronize()
@@ -1357,6 +1591,10 @@ def phase_selftest() -> dict:
         expected = {k: launches if k == "triad_kernel" else 0 for k in counts}
         if counts != expected:
             raise RuntimeError(f"{path}: launches {counts}, expected {expected}")
+        replays = counts_since(before)
+        if replays != _two_point_counts("triad", 6):
+            raise RuntimeError(f"{path}: chain captures and replays {replays}, expected "
+                               f"{_two_point_counts('triad', 6)}")
         _hold_to_peak(report, ("bandwidth_gbps", "inclusive_gbps"), HBM_GBPS[gen], path)
         out["paths"][path] = counts
         out[path] = report
@@ -1364,16 +1602,23 @@ def phase_selftest() -> dict:
             f"{report['kernel']} {report['size_mb']} MiB: {report['bandwidth_gbps']:.1f} GB/s "
             f"({100 * report['bandwidth_gbps'] / HBM_GBPS[gen]:.1f}% of {HBM_GBPS[gen]}), "
             f"inclusive {report['inclusive_gbps']:.1f}, {report['time_ms']:.5f} ms per triad, "
-            f"overhead per call {report['dispatch_overhead_ms_est']:.3f} ms; launches {launches}")
+            f"overhead per call {report['dispatch_overhead_ms_est']:.3f} ms; launches {launches} "
+            f"through {replays['triad']['replays']} timed replays of {replays['triad']['captures']} "
+            f"captured chains")
 
     smoke = run_smoke(size=512)
     if not smoke["ok"] or smoke["device_count"] != torch.cuda.device_count():
         raise RuntimeError(f"run_smoke: {smoke}")
     out["smoke"] = smoke
+    before = chain_counts()
     mm = matmul_bench.matmul_tflops(size=8192, iters=16)
     _hold_to_peak(mm, ("tflops", "inclusive_tflops"), matmul_bench.PEAK_TFLOPS[gen], "bf16 matmul")
     i8 = matmul_bench.int8_matmul_tops(size=8192, iters=16)
     _hold_to_peak(i8, ("tops", "inclusive_tops"), matmul_bench.PEAK_INT8_TOPS[gen], "int8 matmul")
+    want = {**_two_point_counts("matmul", 5), **_two_point_counts("int8", 5)}
+    if counts_since(before) != want:
+        raise RuntimeError(f"matmul chains: captures and replays {counts_since(before)}, "
+                           f"expected {want}")
     out["matmul_tflops"], out["int8_matmul_tops"] = mm, i8
     out["int_mm_layout_ms"] = _int_mm_layouts(8192)
     log(f"self-test: run_smoke(size=512) on {smoke['devices']}; {gen}: bf16 matmul 8192 "
@@ -1401,6 +1646,11 @@ def phase_selftest() -> dict:
     log(f"self-test: validator smoke component {component['matmul_bf16_tflops']} TFLOP/s "
         f"(floor 1.0) per card {component['matmul_bf16_tflops_per_chip']}; workload_entry "
         f"{lines[-1]}")
+    out["seed_rounding"] = _seed_rounding()
+    log(f"self-test: the graphed chains' seed on the card {out['seed_rounding']}")
+    start = time.monotonic()
+    out["chains"] = eager_against_replayed()
+    log(f"self-test: eager against replayed chains in {time.monotonic() - start:.1f} s")
     return out
 
 
@@ -1732,13 +1982,18 @@ def _gang_checks(out: dict) -> None:
         seconds = time.monotonic() - start
         platforms = {w["platform"] for w in report["workers"]}
         want = {"cuda"} if "NCCL" in name else {"cpu"}
+        # the telemetry chain: 4 steps, the first captures, 3 replay (on the card)
+        replays = [w["step_telemetry_replays"] for w in report["workers"]]
         if not (report["ok"] and report["psum_ok"] and platforms == want
-                and report["ring_attention_max_err"] < 1e-4):
+                and report["ring_attention_max_err"] < 1e-4
+                and replays == [3 if "NCCL" in name else 0] * len(replays)):
             raise RuntimeError(f"gang check {name}: {report}")
         out["gang"][name] = dict(report, seconds=seconds)
         log(f"slice: gang check {name}: {report['global_devices']} ranks, psum ok, chain "
             f"{report['psum_chain_ms']:.4f} ms per all-reduce, ring err "
-            f"{report['ring_attention_max_err']:.3g}, {seconds:.1f} s with the workers' start")
+            f"{report['ring_attention_max_err']:.3g}, telemetry step p50 "
+            f"{[w['step_telemetry']['step_p50_s'] for w in report['workers']]} s through "
+            f"{replays} timed replays, {seconds:.1f} s with the workers' start")
 
 
 def phase_slice() -> dict:
@@ -2367,9 +2622,13 @@ def phase_autotune(device: str = "cuda") -> dict:
     start = time.monotonic()
     try:
         zero_launches()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         entry = autotune.run_generation_sweep(gen, profile="cuda", device=device)
         if device == "cuda":
             torch.cuda.synchronize()
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         counts = read_launches()
         sweep_s = time.monotonic() - start
         tri = ("flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
@@ -2406,9 +2665,11 @@ def phase_autotune(device: str = "cuda") -> dict:
         for name, fn in originals.items():
             setattr(fa, name, fn)
     out = {"paths": {"autotune sweep": counts}, "entry": entry, "sweep_seconds": sweep_s,
+           "sweep_peak_mib": peak_mib if device == "cuda" else None,
            "tuned_tile": tile, "tuned_call_max_abs_err": got_err,
            "seconds": time.monotonic() - start}
-    log(f"autotune: run_generation_sweep({gen!r}) in {sweep_s:.1f} s, launches {counts}; "
+    log(f"autotune: run_generation_sweep({gen!r}) in {sweep_s:.1f} s, peak memory "
+        f"{out['sweep_peak_mib']} MiB above its start, launches {counts}; "
         f"tuned_flash_tile({s}, {h}, {d}) = {tile}, the untuned flash_attention at (1,{s},{h},{d}) "
         f"bf16 ran it, err {got_err:.3g} from attention_plain; phase 12 in {out['seconds']:.1f} s")
     return out

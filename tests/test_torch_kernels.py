@@ -1039,3 +1039,99 @@ def test_health_monitor_reads_the_real_device_nodes(cuda):
     assert all(re.fullmatch(r"nvidia\d+", name) for name in chips)
     assert set(chips.values()) == {"Healthy"}
     assert agent.probe_matmul() is True
+
+
+def _chain_bodies():
+    """Each timed chain's body (``kernels/graph.GraphedChain``) at a small
+    size, with its bar against the same body run eagerly with the seed a
+    Python float: 0 (bit for bit) for the triad and int8 chains, else a
+    relative bar for the bf16 chains (a library may pick another algorithm
+    under capture)."""
+    from tpu_operator_torch.workloads import matmul_bench
+    from tpu_operator_torch.workloads.kernels import triad as triad_op
+    from tpu_operator_torch.workloads.timing import attention_grad_steps, seeded
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    xf = torch.ones((1024, 1024), device="cuda")
+    yf = torch.rand((1024, 1024), generator=gen, device="cuda")
+    xb = torch.randn((512, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    yb = (torch.randn((512, 512), generator=gen, device="cuda") / 512 ** 0.5).to(torch.bfloat16)
+    xi, yi = (torch.randint(-4, 5, (512, 512), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    yi = yi.t().contiguous().t()
+    q, k, v = (torch.randn((1, 512, 4, 128), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    steps = attention_grad_steps(lambda a, kk, vv: flash_attention(a, kk, vv, causal=True),
+                                 q, k, v)
+
+    def triad_body(s, n):
+        acc = xf * s
+        for _ in range(n):
+            acc = triad_op(acc, yf, 0.5, 512, inplace=True)
+        return acc[0, 0] + acc[-1, -1]
+
+    def forward(s, n):
+        out = seeded(q, s)
+        with torch.no_grad():
+            for _ in range(n):
+                out = flash_attention(out, k, v, causal=True).to(q.dtype)
+        return out.float().sum()
+
+    return {
+        "triad": (triad_body, 0.0),
+        "matmul": (lambda s, n: matmul_bench.matmul_chain(xb, yb, s, n).float().sum(), 1e-6),
+        "int8": (lambda s, n: matmul_bench.int8_matmul_chain(xi, yi, s, n)
+                 .to(torch.int32).sum(), 0.0),
+        "fwd+bwd": (lambda s, n: steps(q, k, v, s, n), 1e-6),
+        "forward": (forward, 1e-6),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["triad", "matmul", "int8", "fwd+bwd", "forward"])
+def test_graphed_chain_matches_its_eager_chain(cuda, name):
+    """A chain's warm-up and its replays against the body run eagerly with
+    the seed a Python float, at the first step alone and at 3 steps, and at
+    the sweep's seeds (0.5: ``int`` truncates to 0) and the timing's
+    (1.001): the seed tensor written before each replay gives each call its
+    own inputs; the int8 and triad chains bit for bit."""
+    from tpu_operator_torch.kernels.graph import GraphedChain
+
+    body, tol = _chain_bodies()[name]
+    with GraphedChain(body, cuda, f"test {name}") as chain:
+        for n in (1, 3):
+            for seed in (0.5, 1.001, 1.002, 0.501):
+                got, want = chain(seed, n).clone(), body(seed, n)
+                if tol == 0.0:
+                    assert torch.equal(got, want), (n, seed)
+                else:
+                    assert abs(float(got) - float(want)) <= tol * abs(float(want)), (n, seed)
+        assert sorted(chain.graphs) == [1, 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n", [(32, 64), (64, 32), (20, 36), (36, 20)])
+def test_int8_product_is_exact_with_the_laid_out_weight(cuda, k, n):
+    """``_int_matmul`` with an ``int8_weight`` (column-major, its storage
+    padded to multiples of 8): exact at the decode, prefill and ragged
+    widths, the weight's storage read as it lies."""
+    from tpu_operator_torch.workloads.serving import _int_matmul, int8_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(k * n)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    laid = int8_weight(w)
+    assert laid.stride() == (1, -(-k // 8) * 8) and torch.equal(laid, w)
+    for m in (1, 8, 24, 40):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        want = a.cpu().to(torch.int32) @ w.cpu().to(torch.int32)
+        assert torch.equal(_int_matmul(a, laid).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gang_telemetry_steps_replay_on_the_card(cuda):
+    """The gang's telemetry chain on the card: the first step warms and
+    captures, the other three replay one graph each."""
+    from tpu_operator_torch.workloads.multiproc import step_telemetry
+
+    report, replays = step_telemetry("worker-0", cuda)
+    assert (report.steps, replays) == (4, 3) and report.step_p50_s > 0

@@ -1,10 +1,13 @@
 """CUDA-graph capture and replay of the port's compiled paths: the
 counterpart of the reference's ``jax.jit`` executables (the burn-in train
 step with or without a mesh, the decode engine's decode and prefill, the
-GPipe step, the all-reduce chain).
+GPipe step, the all-reduce chain, the timed chains of the self-test, the
+benches and the sweep).
 
 A :class:`GraphedCall` runs a function of tensors it holds (static inputs,
-state updated in place) as one graph replay. The kernel wrappers count a
+state updated in place) as one graph replay. A :class:`GraphedChain` runs
+a timed chain of ``n`` steps as one replay per chain length, the seed
+written into a device scalar before each. The kernel wrappers count a
 launch where they launch their kernel; under capture nothing runs, so the
 launches a capture recorded are taken back from the counts and added again
 at every replay, which launches them.
@@ -14,9 +17,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+# what the timed chains did, by chain name: lengths captured and replays,
+# read by a caller that shows a chain was timed as replays
+chain_counts: Dict[str, Dict[str, int]] = {}
 
 
 def launch_counters() -> tuple:
@@ -42,6 +49,44 @@ def capture(graph: "torch.cuda.CUDAGraph"):
     finally:
         if enabled:
             gc.enable()
+
+
+def _side_stream_call(fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``fn()`` run eagerly on a side stream (a warm-up: it builds the
+    kernels' libraries and creates the library handles and workspaces a
+    capture may not create), its result handed back to the main stream."""
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    out.record_stream(main)  # the caller reads it on the main stream
+    return out
+
+
+def _captured(fn: Callable[[], torch.Tensor]) -> Tuple["torch.cuda.CUDAGraph", torch.Tensor,
+                                                         Dict[Callable, int]]:
+    """``fn`` captured into a new graph: (graph, the tensor it returns, the
+    launches one replay makes by wrapper). A capture runs nothing, so the
+    launches it counted are taken back, also when it fails."""
+    before = {w: w.launches for w in launch_counters()}
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with capture(graph):
+            output = fn()
+    finally:
+        recorded = {w: w.launches - n for w, n in before.items()}
+        for wrapper, n in recorded.items():
+            wrapper.launches -= n  # recorded, not launched
+    return graph, output, {w: n for w, n in recorded.items() if n}
+
+
+def _replayed(graph, output: torch.Tensor, held: Dict[Callable, int]) -> torch.Tensor:
+    graph.replay()
+    for wrapper, n in held.items():
+        wrapper.launches += n
+    return output
 
 
 class GraphedCall:
@@ -77,34 +122,74 @@ class GraphedCall:
     def __call__(self) -> torch.Tensor:
         if self.graph is None:
             if not self._warm:
-                out = self._warm_up()
+                out = _side_stream_call(self.fn)
                 self._warm = True
                 return out
-            self._capture()
-        self.graph.replay()
-        for wrapper, n in self.held.items():
-            wrapper.launches += n
-        return self.output
+            self.graph, self.output, self.held = _captured(self.fn)
+        return _replayed(self.graph, self.output, self.held)
 
-    def _warm_up(self) -> torch.Tensor:
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.fn()
-        main.wait_stream(side)
-        out.record_stream(main)  # the caller reads it on the main stream
-        return out
 
-    def _capture(self) -> None:
-        before = {w: w.launches for w in launch_counters()}
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with capture(graph):
-                output = self.fn()
-        finally:
-            recorded = {w: w.launches - n for w, n in before.items()}
-            for wrapper, n in recorded.items():
-                wrapper.launches -= n  # recorded, not launched
-        self.graph, self.output = graph, output
-        self.held = {w: n for w, n in recorded.items() if n}
+def replays_on(device: torch.device) -> bool:
+    """Whether a :class:`GraphedChain` on ``device`` runs as graph replays:
+    on the card; the CPU runs its chains eagerly."""
+    return device.type == "cuda"
+
+
+class GraphedChain:
+    """A timed chain ``body(seed, n) -> scalar tensor`` (``n`` steps from
+    inputs the seed folds into, reduced to a 0-dim tensor), run on the card
+    as one CUDA graph per chain length ``n``, the reference's one jitted
+    program per static ``n``. ``chain(seed, n)`` returns the scalar; the
+    caller reads it back, outside the graph, and that read waits for the
+    chain:
+
+    - the first call at a length runs ``body`` eagerly on a side stream
+      (the warm-up; its launches count once), then captures it (a capture
+      runs nothing: its launches are taken back) and returns the warm-up's
+      scalar. So no capture falls inside a later timed call;
+    - every later call at that length writes the seed into the chain's
+      device scalar in place (``fill_``, no host sync), replays the graph,
+      adds the graph's launches to the counts and returns the captured
+      scalar, which the next replay rewrites.
+
+    ``body`` gets the seed as a 0-dim f32 tensor on the card, written
+    before every replay (a Python float would be baked into the capture),
+    and as the Python float itself where the chain runs eagerly (the CPU,
+    :func:`replays_on`); a seed of None writes nothing (a chain with no
+    seed). ``close()``, or leaving a ``with`` block, frees every graph and
+    its memory pool; a probe frees its chain before it returns. A failed
+    capture raises: nothing falls back to the eager loop. ``name`` keys
+    :data:`chain_counts`."""
+
+    def __init__(self, body: Callable[[object, int], torch.Tensor], device, name: str):
+        self.body = body
+        self.device = torch.device(device)
+        self.graphed = replays_on(self.device)
+        self.seed = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.graphs: Dict[int, tuple] = {}  # n -> (graph, scalar, launches a replay makes)
+        self.counts = chain_counts.setdefault(name, {"captures": 0, "replays": 0})
+
+    def __call__(self, seed: Optional[float], n: int) -> torch.Tensor:
+        if not self.graphed:
+            return self.body(seed, n)
+        on_card = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            if seed is not None:
+                self.seed.fill_(seed)
+            if n in self.graphs:
+                out = _replayed(*self.graphs[n])
+                self.counts["replays"] += 1
+                return out
+            out = _side_stream_call(lambda: self.body(self.seed, n))
+            self.graphs[n] = _captured(lambda: self.body(self.seed, n))
+            self.counts["captures"] += 1
+            return out
+
+    def close(self) -> None:
+        self.graphs.clear()
+
+    def __enter__(self) -> "GraphedChain":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -56,7 +56,10 @@ def burnin_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, to
 def serving_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, torch.Tensor]:
     """The serving dict (``embed``, ``wq``, ``wk``, ``wv``, ``wo`` and
     ``w1_q``/``w2_q``/``w1_s``/``w2_s`` or ``w1``/``w2``) for a
-    ``workloads.serving.ServingModelConfig``."""
+    ``workloads.serving.ServingModelConfig``; the int8 weights laid out as
+    the engine builds them (``serving.int8_weight``: column-major)."""
+    from tpu_operator_torch.workloads.serving import int8_weights
+
     d, hd, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
     shapes = {
         "embed": (cfg.vocab, d), "wq": (d, hd), "wk": (d, hd), "wv": (d, hd), "wo": (hd, d),
@@ -65,4 +68,4 @@ def serving_params(arrays: Mapping[str, np.ndarray], cfg, device) -> Dict[str, t
         shapes.update({"w1_q": (d, f), "w2_q": (f, d), "w1_s": (), "w2_s": ()})
     else:
         shapes.update({"w1": (d, f), "w2": (f, d)})
-    return _load(arrays, shapes, device)
+    return int8_weights(_load(arrays, shapes, device))

@@ -12,8 +12,8 @@ read-back side.
   reference's ``(block_q, block_k)`` have no counterpart on the card (the
   port's blocks only gate divisibility). The matmul and int8 families
   sweep a one-point grid, ``{"unroll": 1}``: the port's chains
-  (``matmul_bench``) are eager, one launch per product, and take no
-  ``unroll`` — cuBLAS owns the tiling — so the families still publish a
+  (``matmul_bench``) take no ``unroll`` — a captured chain is fully
+  unrolled, and cuBLAS owns the tiling — so the families still publish a
   measured winner and rate for the floors, and ``tuned_matmul_unroll`` has
   no port.
 - The cache vocabulary: entries are keyed by generation in the
@@ -60,7 +60,7 @@ DEFAULT_FLASH_BLOCK_K = 1024
 
 # the flash tile-height grid: the two heights the bf16 plans launch
 FLASH_TILE_GRID: Tuple[Dict[str, int], ...] = ({"block_m": 64}, {"block_m": 128})
-# the matmul/int8 grid: the eager chains' fixed one launch per product
+# the matmul/int8 grid: one launch per product, captured whole on the card
 MATMUL_GRID: Tuple[Dict[str, int], ...] = ({"unroll": 1},)
 # the winner keys the winners blob keeps (the reference's, and the port's knob)
 _CONFIG_KEYS = ("block_q", "block_k", "unroll", "block_m")
@@ -183,11 +183,14 @@ def _flash_runner(seq_len: int, heads: int, head_dim: int, fwd_bwd: bool,
                   device: DeviceLike = None):
     """Runner factory over ``flash_attention`` at (1, seq_len, heads,
     head_dim) bf16, causal: the forward chain (each output feeds the next
-    call's q), or with ``fwd_bwd`` ``timing.attention_grad_chain``. Each
-    run reads a scalar back, so its time holds the kernels'."""
+    call's q), or with ``fwd_bwd`` ``timing.attention_grad_steps``. Each
+    run reads a scalar back, so its time holds the kernels'; on the card
+    it is one graph replay (``kernels/graph.GraphedChain``), the graphs
+    freed with the runner."""
     from tpu_operator_torch.kernels.flash_fwd import check_block_m
+    from tpu_operator_torch.kernels.graph import GraphedChain
     from tpu_operator_torch.workloads.flashattention import flash_attention
-    from tpu_operator_torch.workloads.timing import attention_grad_chain
+    from tpu_operator_torch.workloads.timing import attention_grad_steps, seeded
 
     dev = resolve_device(device)
     shape = (1, seq_len, heads, head_dim)
@@ -202,18 +205,19 @@ def _flash_runner(seq_len: int, heads: int, head_dim: int, fwd_bwd: bool,
             return flash_attention(a, kk, vv, causal=True, block_m=block_m)
 
         if fwd_bwd:
-            chain = attention_grad_chain(fn, q, k, v)
-
-            def run(seed, n):
-                chain(q, k, v, seed, n)  # reads the result back
-            return run
+            steps = attention_grad_steps(fn, q, k, v)
+            chain = GraphedChain(lambda s, n: steps(q, k, v, s, n), dev, "sweep fwd+bwd")
+        else:
+            def forward(s, n):
+                out = seeded(q, s)
+                with torch.no_grad():
+                    for _ in range(n):
+                        out = fn(out, k, v).to(q.dtype)
+                return out.float().sum()
+            chain = GraphedChain(forward, dev, "sweep forward")
 
         def run(seed, n):
-            out = q * seed
-            with torch.no_grad():
-                for _ in range(n):
-                    out = fn(out, k, v).to(q.dtype)
-            float(out.float().sum())  # the read-back waits for the chain
+            float(chain(seed, n))  # the read-back waits for the chain
         return run
 
     # causal attention: 2 matmuls x 2·S²/2·D MACs per head (the backward

@@ -308,6 +308,43 @@ def run_flash_attention_check(
     }
 
 
+def _step_seconds(body, device, name: str, iters: int, reps: int) -> float:
+    """Seconds a step of the chain ``body(seed, n)``: two-point timing over
+    ``iters`` and ``4 * iters`` steps, one CUDA-graph replay per timed call
+    on the card (``kernels/graph.GraphedChain``), freed when the timing
+    ends."""
+    from tpu_operator_torch.kernels.graph import GraphedChain
+    from tpu_operator_torch.workloads.timing import two_point_min_timing
+
+    with GraphedChain(body, device, name) as chain:
+        timing = two_point_min_timing(lambda s, n: float(chain(s, n)), iters, 4 * iters, reps)
+    return timing.per_iter_s or timing.inclusive_per_iter_s
+
+
+def bench_forward_s(fn, q, k, v, iters: int = 8, reps: int = 4) -> float:
+    """Seconds a forward of the attention ``fn(q, k, v)``, timed as the
+    bench's chain: each output, cast to q's dtype, is the next call's q."""
+    from tpu_operator_torch.workloads.timing import seeded
+
+    def body(s, n):
+        out = seeded(q, s)
+        for _ in range(n):
+            out = fn(out, k, v).to(q.dtype)
+        return out.float().sum()
+
+    return _step_seconds(body, q.device, "bench forward", iters, reps)
+
+
+def bench_fwd_bwd_s(fn, q, k, v, iters: int = 8, reps: int = 4) -> float:
+    """Seconds a fwd+bwd of the attention ``fn(q, k, v)``, timed as
+    ``timing.attention_grad_chain``, which folds ALL cotangents back."""
+    from tpu_operator_torch.workloads.timing import attention_grad_steps
+
+    steps = attention_grad_steps(fn, q, k, v)
+    return _step_seconds(lambda s, n: steps(q, k, v, s, n), q.device, "bench fwd+bwd", iters,
+                         reps)
+
+
 def flash_attention_bench(
     seq_len: int = 4096,
     heads: int = 8,
@@ -323,12 +360,12 @@ def flash_attention_bench(
     fitting. Dense fwd+bwd is timed twice: plain autograd, and under
     ``torch.utils.checkpoint`` (recomputing the scores in the backward, the
     best dense alternative for training). ``window`` also times the banded
-    sliding-window forward."""
+    sliding-window forward. On the card every chain is one CUDA-graph
+    replay per timed call (:func:`bench_forward_s`, :func:`bench_fwd_bwd_s`)."""
     from torch.utils.checkpoint import checkpoint
 
     from tpu_operator_torch.device import resolve_device
     from tpu_operator_torch.workloads.ringattention import dense_attention
-    from tpu_operator_torch.workloads.timing import attention_grad_chain, two_point_min_timing
 
     dev = resolve_device(device)
     shape = (1, seq_len, heads, head_dim)
@@ -336,20 +373,10 @@ def flash_attention_bench(
     q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
 
     def timed(fn):
-        def chain(s, n):
-            out = q * s
-            for _ in range(n):
-                out = fn(out, k, v).to(q.dtype)
-            return float(out.float().sum())
-
-        timing = two_point_min_timing(chain, iters, 4 * iters, reps)
-        return timing.per_iter_s or timing.inclusive_per_iter_s
+        return bench_forward_s(fn, q, k, v, iters, reps)
 
     def timed_grad(fn):
-        # attention_grad_chain consumes ALL cotangents (see its docstring)
-        chain = attention_grad_chain(fn, q, k, v)
-        timing = two_point_min_timing(lambda s, n: chain(q, k, v, s, n), iters, 4 * iters, reps)
-        return timing.per_iter_s or timing.inclusive_per_iter_s
+        return bench_fwd_bwd_s(fn, q, k, v, iters, reps)
 
     flash_s = timed(lambda a, kk, vv: flash_attention(a, kk, vv, causal=True))
     flash_train_s = timed_grad(lambda a, kk, vv: flash_attention(a, kk, vv, causal=True))
@@ -376,7 +403,11 @@ def flash_attention_bench(
         report["dense_fwd_bwd_ms"] = dense_train_s * 1e3
         report["train_step_speedup_vs_dense"] = dense_train_s / flash_train_s
         remat_train_s = timed_grad(
-            lambda a, kk, vv: checkpoint(dense_attention, a, kk, vv, True, use_reentrant=False)
+            # dense attention draws no random numbers (nor does the
+            # reference's jax.checkpoint), and a capture may not read the
+            # RNG state
+            lambda a, kk, vv: checkpoint(dense_attention, a, kk, vv, True, use_reentrant=False,
+                                         preserve_rng_state=False)
         )
         report["dense_remat_fwd_bwd_ms"] = remat_train_s * 1e3
         report["train_step_speedup_vs_remat_dense"] = remat_train_s / flash_train_s

@@ -16,6 +16,7 @@ import time
 import torch
 
 from tpu_operator_torch.device import DeviceLike, resolve_device
+from tpu_operator_torch.kernels.graph import GraphedChain
 from tpu_operator_torch.kernels.triad import triad_kernel
 from tpu_operator_torch.workloads.timing import two_point_min_timing
 
@@ -42,12 +43,14 @@ def hbm_bandwidth_probe(size_mb: int = 128, iters: int = 50, reps: int = 6,
                         device: DeviceLike = None) -> dict:
     """Measured triad bandwidth in GB/s (3 streams: 2 reads + 1 write).
 
-    On the card the probe chains the in-place triad ``n`` times per call
-    (each call one eager launch per iteration, then a scalar read back
-    that waits for them) and times two chain lengths (``iters`` and
+    On the card the probe chains the in-place triad ``n`` times per call,
+    one CUDA-graph replay per call (``kernels/graph.GraphedChain``: a
+    length is captured at its first, untimed call), then a scalar read
+    back that waits for it, and times two chain lengths (``iters`` and
     ``6*iters``) as back-to-back pairs; the median of the per-pair slopes
-    cancels the fixed cost of a call (workloads/timing.py). With
-    ``device="cpu"`` it times one chain once."""
+    cancels the fixed cost of a call (workloads/timing.py). The graphs are
+    freed before the probe returns. With ``device="cpu"`` it times one
+    eager chain once."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     n_elems = size_mb * 1024 * 1024 // 4
@@ -69,11 +72,11 @@ def hbm_bandwidth_probe(size_mb: int = 128, iters: int = 50, reps: int = 6,
     # alpha=0.5 keeps the iterate bounded (fixed point 2y) over any chain
     # length; the traffic does not depend on alpha. Reading two elements
     # back waits for every launch of the chain.
-    def chain(s: float, n: int) -> float:
-        acc = x * s
+    def body(s, n: int) -> torch.Tensor:
+        acc = x * s  # f32 times the seed, a float or an f32 scalar alike
         for _ in range(n):
             acc = triad(acc, y, 0.5, block_rows, inplace)
-        return float(acc[0, 0] + acc[-1, -1])
+        return acc[0, 0] + acc[-1, -1]
 
     moved = 3 * rows * cols * 4  # bytes per chain iteration
     report = {
@@ -81,17 +84,17 @@ def hbm_bandwidth_probe(size_mb: int = 128, iters: int = 50, reps: int = 6,
         "platform": dev.type,
         "kernel": "triad_inplace" if inplace else "triad",
     }
-    if not on_card:
-        # the plain version on the CPU: one cheap timing, not a device
-        # bandwidth
-        chain(1.0, iters)
-        t0 = time.perf_counter()
-        chain(1.001, iters)
-        dt = (time.perf_counter() - t0) / iters
-        report.update({"time_ms": dt * 1e3, "bandwidth_gbps": moved / dt / 1e9})
-        return report
-
-    timing = two_point_min_timing(chain, iters, 6 * iters, reps)
+    with GraphedChain(body, dev, "triad") as chain:
+        if not on_card:
+            # the plain version on the CPU: one cheap timing, not a device
+            # bandwidth
+            float(chain(1.0, iters))
+            t0 = time.perf_counter()
+            float(chain(1.001, iters))
+            dt = (time.perf_counter() - t0) / iters
+            report.update({"time_ms": dt * 1e3, "bandwidth_gbps": moved / dt / 1e9})
+            return report
+        timing = two_point_min_timing(lambda s, n: float(chain(s, n)), iters, 6 * iters, reps)
     report["inclusive_gbps"] = moved / timing.inclusive_per_iter_s / 1e9
     report.update(timing.report_fields())
     per_iter = timing.per_iter_s or timing.inclusive_per_iter_s

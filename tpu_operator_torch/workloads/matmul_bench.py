@@ -4,10 +4,12 @@
 The headline per-card compute numbers for validation: a chain of large
 matmuls, each step feeding the next, timed by the two-point slope
 (workloads/timing.py), and compared against the card's data-sheet peak.
-The products are ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8);
-the chain is eager, one launch per step, and the final read-back of a
-scalar waits for all of them. Runs on the card unless ``device="cpu"``
-is passed.
+The products are ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8).
+On the card a chain of ``n`` products is one CUDA-graph replay per timed
+call (``kernels/graph.GraphedChain``), the reference's one jitted program,
+so no host dispatch sits between the products; the final read-back of a
+scalar waits for the replay. The CPU runs the chain eagerly. Runs on the
+card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Callable, List, Optional
 import torch
 
 from tpu_operator_torch.device import DeviceLike, resolve_device
+from tpu_operator_torch.kernels.graph import GraphedChain
 from tpu_operator_torch.nodeinfo import device_generation
 from tpu_operator_torch.workloads.serving import _int_matmul
-from tpu_operator_torch.workloads.timing import two_point_min_timing
+from tpu_operator_torch.workloads.timing import seeded, two_point_min_timing
 
 # Dense peaks per H100 variant (NVIDIA H100 Tensor Core GPU data sheet; its
 # figures are with sparsity, halved here): bf16 TFLOP/s and int8 TOP/s.
@@ -38,9 +41,10 @@ def chip_generation() -> str:
     return device_generation(torch.cuda.get_device_name())
 
 
-def matmul_chain(z: torch.Tensor, y: torch.Tensor, s: float, n: int) -> torch.Tensor:
-    """``(z * s) @ y @ y ...`` (``n`` products)."""
-    out = z * s
+def matmul_chain(z: torch.Tensor, y: torch.Tensor, s, n: int) -> torch.Tensor:
+    """``(z * s) @ y @ y ...`` (``n`` products); the seed ``s`` is a Python
+    float or a graphed chain's 0-dim f32 tensor (``timing.seeded``)."""
+    out = seeded(z, s)
     for _ in range(n):
         out = out @ y
     return out
@@ -49,17 +53,20 @@ def matmul_chain(z: torch.Tensor, y: torch.Tensor, s: float, n: int) -> torch.Te
 def matmul_chain_runner(size: int, device: DeviceLike = None,
                         fetched: Optional[List[float]] = None) -> Callable[[float, int], None]:
     """The bf16 matmul chain as a ``run(seed, n)`` runner for
-    ``two_point_min_timing``. Appends each fetched scalar to ``fetched``
-    when given (the finiteness check)."""
+    ``two_point_min_timing``: on the card one graph replay per call, its
+    graphs freed with the runner. Appends each fetched scalar to
+    ``fetched`` when given (the finiteness check)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((size, size), generator=gen, device=dev).to(torch.bfloat16)
     # scaled so the chain neither explodes nor vanishes
     y = (torch.randn((size, size), generator=gen, device=dev) / size ** 0.5).to(torch.bfloat16)
 
+    chain = GraphedChain(lambda s, n: matmul_chain(x, y, s, n).float().sum(), dev, "matmul")
+
     def run(seed: float, n: int) -> None:
         # reduced to a scalar and read back: that is what waits for the chain
-        value = float(matmul_chain(x, y, seed, n).float().sum())
+        value = float(chain(seed, n))
         if fetched is not None:
             fetched.append(value)
 
@@ -89,11 +96,12 @@ def matmul_tflops(size: int = 8192, iters: int = 16, reps: int = 5,
     return report
 
 
-def int8_matmul_chain(z: torch.Tensor, y: torch.Tensor, s: float, n: int) -> torch.Tensor:
+def int8_matmul_chain(z: torch.Tensor, y: torch.Tensor, s, n: int) -> torch.Tensor:
     """``z + int(s)``, then ``n`` steps of int8 x int8 -> int32, shifted
     right by 7 and cast back to int8 (wrapping), the requantization that
-    keeps magnitudes in range for the next product."""
-    out = z + int(s)
+    keeps magnitudes in range for the next product. The seed is a Python
+    float or a graphed chain's 0-dim f32 tensor, truncated alike."""
+    out = z + (s.to(torch.int8) if isinstance(s, torch.Tensor) else int(s))
     for _ in range(n):
         out = (_int_matmul(out, y) >> 7).to(torch.int8)
     return out
@@ -101,7 +109,7 @@ def int8_matmul_chain(z: torch.Tensor, y: torch.Tensor, s: float, n: int) -> tor
 
 def int8_chain_runner(size: int, device: DeviceLike = None) -> Callable[[float, int], None]:
     """The int8 chain as a ``run(seed, n)`` runner (like
-    ``matmul_chain_runner``)."""
+    ``matmul_chain_runner``: one graph replay per call on the card)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randint(-4, 5, (size, size), generator=gen, device=dev, dtype=torch.int8)
@@ -109,8 +117,11 @@ def int8_chain_runner(size: int, device: DeviceLike = None) -> Callable[[float, 
     # column-major: torch._int_mm's fast layout for its second operand
     y = y.t().contiguous().t()
 
+    chain = GraphedChain(lambda s, n: int8_matmul_chain(x, y, s, n).to(torch.int32).sum(),
+                         dev, "int8")
+
     def run(seed: float, n: int) -> None:
-        int(int8_matmul_chain(x, y, seed, n).to(torch.int32).sum())  # the read-back waits
+        int(chain(seed, n))  # the read-back waits
 
     return run
 

@@ -47,6 +47,35 @@ LOCAL_RANK_ENV, LOCAL_SIZE_ENV, DEVICE_ENV = "LOCAL_RANK", "LOCAL_WORLD_SIZE", "
 _GRACE_S = 5.0  # how long the other workers get to report once one has failed
 
 
+def step_telemetry(host: str, dev: torch.device, steps: int = 4, n: int = 32) -> tuple:
+    """This host's step-time telemetry over local compute only: ``steps``
+    timed steps of a chain of ``n`` products of a 256² f32 matrix (the
+    reference's jitted ``local_chain``), each read back. On the card a
+    step is one CUDA-graph replay (``kernels/graph.GraphedChain``: the
+    first step warms and captures, as the reference's first compiles);
+    the graph is freed before this returns, so before the gang's world is
+    destroyed. Returns (the ``StepTimeReport``, the replays timed)."""
+    from tpu_operator_torch.kernels.graph import GraphedChain
+    from tpu_operator_torch.workloads.telemetry import StepTimeRecorder
+
+    a = torch.ones((256, 256), device=dev)
+
+    def local_chain(seed, n: int) -> torch.Tensor:  # no seed, as the reference has none
+        acc = a
+        for _ in range(n):
+            acc = acc @ a / 256.0
+        return acc.sum()
+
+    recorder = StepTimeRecorder(host=host)
+    with GraphedChain(local_chain, dev, "telemetry") as chain:
+        before = chain.counts["replays"]
+        for _ in range(steps):
+            with recorder.step():
+                float(chain(None, n))
+        replays = chain.counts["replays"] - before
+    return recorder.report(), replays
+
+
 def _checks(cfg, dev: torch.device) -> dict:
     """The worker's checks inside the gang's world."""
     import numpy as np
@@ -54,7 +83,6 @@ def _checks(cfg, dev: torch.device) -> dict:
 
     from tpu_operator_torch.workloads.allreduce import _chain_seconds, _slowest
     from tpu_operator_torch.workloads.ringattention import _ring_attention_local, dense_attention
-    from tpu_operator_torch.workloads.telemetry import StepTimeRecorder
 
     local = cfg.local_size
     total = dist.get_world_size()
@@ -84,19 +112,7 @@ def _checks(cfg, dev: torch.device) -> dict:
     # cross-process collective completes for every host when the slowest
     # finishes, so a local matmul chain keeps each report the host's OWN
     # speed, which is what merge_gang_reports needs
-    a = torch.ones((256, 256), device=dev)
-
-    def local_chain(n: int = 32) -> float:
-        acc = a
-        for _ in range(n):
-            acc = acc @ a / 256.0
-        return float(acc.sum())
-
-    recorder = StepTimeRecorder(host=f"worker-{cfg.process_id}")
-    for _ in range(4):
-        with recorder.step():
-            local_chain()
-    telemetry = recorder.report()
+    telemetry, replays = step_telemetry(f"worker-{cfg.process_id}", dev)
 
     # --- ring attention with the ring spanning processes -----------------
     b, s_local, h, d = 1, 8, 2, 8
@@ -127,6 +143,7 @@ def _checks(cfg, dev: torch.device) -> dict:
         "psum_ok": psum_ok,
         "psum_chain_ms": psum_chain_ms,
         "step_telemetry": telemetry.to_dict(),
+        "step_telemetry_replays": replays,
         "ring_attention_max_err": ring_err,
         "ok": bool(psum_ok and ring_err < 1e-4),
     }

@@ -168,7 +168,8 @@ class _SlotState:
 def _build_params(cfg: ServingModelConfig, seed: int, device) -> Dict[str, torch.Tensor]:
     """Seeded model weights, drawn with the reference's numpy generator so
     they are bit-identical to its weights; the MLP mats ship pre-quantized
-    to int8 with per-tensor scales when ``int8_mlp``."""
+    to int8 with per-tensor scales when ``int8_mlp``, laid out once as
+    ``torch._int_mm``'s second operand (:func:`int8_weight`)."""
     rng = np.random.default_rng(seed)
     d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
 
@@ -194,26 +195,66 @@ def _build_params(cfg: ServingModelConfig, seed: int, device) -> Dict[str, torch
     else:
         arrays["w1"] = w1
         arrays["w2"] = w2
-    return {name: torch.as_tensor(arr).to(device) for name, arr in arrays.items()}
+    params = {name: torch.as_tensor(arr).to(device) for name, arr in arrays.items()}
+    return int8_weights(params)
+
+
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_weight(w: torch.Tensor) -> torch.Tensor:
+    """An int8 (K, N) weight laid out as ``torch._int_mm``'s fast second
+    operand: column-major, in storage zero-padded to (K, N) rounded up to
+    multiples of 8 (padded only where a dimension is not one), returned as
+    the (K, N) view of it, so the logical shape is kept and
+    :func:`_int_matmul` pads only its first operand."""
+    k, n = w.shape
+    store = torch.zeros((_up8(n), _up8(k)), dtype=torch.int8, device=w.device)
+    store[:n, :k] = w.t()
+    return store.t()[:k, :n]
+
+
+def int8_weights(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params`` with the int8 MLP weights (``w1_q``, ``w2_q``), where
+    present, laid out by :func:`int8_weight`."""
+    return {name: int8_weight(t) if name in ("w1_q", "w2_q") else t
+            for name, t in params.items()}
+
+
+def _int_mm_operand(b: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """``b`` (K, N) as ``torch._int_mm``'s second operand of (kp, np_): a
+    column-major ``b`` whose storage already holds (kp, np_) at its stride
+    (an :func:`int8_weight`) is viewed at that size with no copy; any
+    other is zero-padded where it needs it and passed column-major if it
+    lies so, else contiguous. What the
+    storage holds past b's logical shape meets only the zero padding of
+    the first operand or output columns that are sliced off, so the
+    product stays exact whatever it is."""
+    k, n = b.shape
+    if b.stride() == (1, kp) and b.storage_offset() + kp * np_ <= b.untyped_storage().nbytes():
+        return b.as_strided((kp, np_), (1, kp))
+    if (kp, np_) != (k, n):
+        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    return b if b.t().is_contiguous() else b.contiguous()
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 (M, K) x int8 (K, N) -> int32 (M, N), exact. On the card
-    ``torch._int_mm``, which takes M > 16 and K, N multiples of 8: the
-    operands are zero-padded up to that and the product sliced back. A
-    column-major ``b`` is passed as it is: ``_int_mm`` is several times
-    faster with it than with a row-major one (``chip_smoke.py`` phase 7
-    times both)."""
+    ``torch._int_mm``, which takes M > 16 and K, N multiples of 8: ``a``
+    is zero-padded up to that, ``b`` too unless it is an
+    :func:`int8_weight` (:func:`_int_mm_operand`), and the product sliced
+    back. A column-major ``b`` is passed as it is: ``_int_mm`` is several
+    times faster with it than with a row-major one (``chip_smoke.py``
+    phase 7 times both)."""
     if not a.is_cuda:
         return a.to(torch.int32) @ b.to(torch.int32)
     m, k = a.shape
     n = b.shape[1]
-    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    mp, kp, np_ = max(32, _up8(m)), _up8(k), _up8(n)
     if (mp, kp) != (m, k):
         a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
-    if (kp, np_) != (k, n):
-        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
-    return torch._int_mm(a.contiguous(), b if b.t().is_contiguous() else b.contiguous())[:m, :n]
+    return torch._int_mm(a.contiguous(), _int_mm_operand(b, kp, np_))[:m, :n]
 
 
 def _int8_matmul(x, w_q, w_scale):

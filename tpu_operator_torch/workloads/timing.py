@@ -9,7 +9,9 @@ them. Each timed call gets a distinct seed scalar, folded into its inputs.
 
 :class:`TwoPointTiming` and :func:`two_point_min_timing` are
 framework-free copies; :func:`attention_grad_chain` is the PyTorch
-version of the fwd+bwd chain.
+version of the fwd+bwd chain. On the card each chain is timed as one
+CUDA-graph replay per call (``kernels/graph.GraphedChain``), the seed
+then a 0-dim device tensor (:func:`seeded`).
 """
 
 from __future__ import annotations
@@ -64,17 +66,26 @@ class TwoPointTiming:
         return fields
 
 
-def attention_grad_chain(fn, q, k, v):
-    """fwd+bwd timing chain for an attention ``fn(q, k, v)``: each step
-    folds ALL THREE cotangents back into the next step's inputs, so the
-    dK/dV work is on the chain's critical path and cannot be skipped (a
-    dq-only chain measures less than fwd+bwd). Returns
-    ``chain(q, k, v, seed_scalar, n)``, which runs ``n`` steps and reads the
-    result back to the host (so a timed call includes the device's work)."""
+def seeded(z: torch.Tensor, s) -> torch.Tensor:
+    """``z * s`` for a seed ``s`` that is a Python float or a 0-dim f32
+    tensor on z's device (a graphed chain's), rounded alike: the product is
+    taken in f32 and rounded once to z's dtype, as ``z * float`` is (on
+    the card a bf16 tensor times an f32 tensor rounds the seed to bf16
+    first: 1.3 acts as 1.296875)."""
+    if isinstance(s, torch.Tensor):
+        return (z.to(s.dtype) * s).to(z.dtype)
+    return z * s
 
-    def chain(q, k, v, s, n):
+
+def attention_grad_steps(fn, q, k, v):
+    """The steps of :func:`attention_grad_chain` without the read-back:
+    ``steps(q, k, v, seed, n)`` returns the chain's final sum as a 0-dim
+    f32 tensor (the body a graphed chain captures); the seed is a Python
+    float or a 0-dim f32 tensor (:func:`seeded`)."""
+
+    def steps(q, k, v, s, n):
         eps = 0.001
-        a, kc, vc = q * s, k, v
+        a, kc, vc = seeded(q, s), k, v
         for _ in range(n):
             a, kc, vc = (x.detach().requires_grad_(True) for x in (a, kc, vc))
             loss = fn(a, kc, vc).float().sum()
@@ -82,7 +93,22 @@ def attention_grad_chain(fn, q, k, v):
             a = a + dq.to(q.dtype) * eps
             kc = kc + dk.to(k.dtype) * eps
             vc = vc + dv.to(v.dtype) * eps
-        return float(a.detach().float().sum())
+        return a.detach().float().sum()
+
+    return steps
+
+
+def attention_grad_chain(fn, q, k, v):
+    """fwd+bwd timing chain for an attention ``fn(q, k, v)``: each step
+    folds ALL THREE cotangents back into the next step's inputs, so the
+    dK/dV work is on the chain's critical path and cannot be skipped (a
+    dq-only chain measures less than fwd+bwd). Returns
+    ``chain(q, k, v, seed_scalar, n)``, which runs ``n`` steps and reads the
+    result back to the host (so a timed call includes the device's work)."""
+    steps = attention_grad_steps(fn, q, k, v)
+
+    def chain(q, k, v, s, n):
+        return float(steps(q, k, v, s, n))
 
     return chain
 
