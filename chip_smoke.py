@@ -13,10 +13,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    one ``nvcc`` each, started together; prints each library's ptxas
    report (registers, spills) and, from ``cuobjdump --dump-sass``, the
    ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
-   both forward kernels (16: the triangle's 8 and the general kernel's 8)
-   and of both backward pairs (32), failing when one has none, spills
-   registers, or ptxas serialized its ``wgmma`` or ignored its
-   ``setmaxnreg``;
+   both forward kernels (18: the triangle's 9 and the general kernel's 9,
+   head dims 16-128 at one and two warpgroups and 256 at one) and of both
+   backward pairs (36), failing when one has none, spills registers, or
+   ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -33,7 +33,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    the launch plan did not pick; the general forward also at the packed
    train step's and the validator's packed shapes, a ring hop and a
    chunked prefill (global offsets, sq != sk), and the slice component's
-   shapes (phase 9); then the validator payload
+   shapes (phase 9); at head dim 256 (Gemma-2B's (1,8192,8,256) with one kv
+   head, plain causal and packed, the forwards and both pairs; full
+   attention at (1,4096,8,256); f32 (2,128,4,256) and serving's f32 prefill
+   chunk) and on the zero-padded route (Phi-3-mini's (1,4096,32,96), and
+   head dims 80 and 112, each run at 128 with its own scale and held to the
+   plain version at its own head dim); bf16 rows at head dim 256 have one
+   tile height only, so they time no other; then the validator payload
    ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -196,7 +202,32 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    over the plugin's socket and the installer's dir reads "healthy" with no
    reasons; (f) ``NodeMetrics``: the ready files of (c) and (e), the card
    gauge at the card count, one successful revalidation, then without the
-   marker a failed one that clears ``driver-ready``.
+   marker a failed one that clears ``driver-ready``;
+15. head dims — what a head dim other than 16-128 runs through: (a)
+   Gemma-2B's widths as a TPUJob's ``spec.workload.config``
+   (``GEMMA_2B``: d_model 2048, 8 heads, 1 kv head, head dim 256, d_ff
+   16384, seq 8192, batch 1; depth cut 18 -> 2) through
+   ``training.trainer_config``: ``run_burnin(steps=3)`` with flash
+   attention (2 launches per step of each triangle kernel) held to the
+   dense path from the same params within 2e-2 relative, falling, and the
+   seeded forward output to the dense path's within ``FORWARD_GAP_TOL``
+   (as are (d)'s and the packed run's, whose loss curves cannot tell a
+   wrong attention from a right one);
+   ``GRAPH_STEPS`` graphed steps against the eager step within
+   ``GRAPH_REL_TOL``, the step's eager, replayed and device ms; the
+   elastic trainer for 6 steps, a checkpoint every 3, a fault at 5 and a
+   resume (``verify_continuity`` ok, step 4 re-executed bit for bit, the
+   first losses run_burnin's); the same config with ``packed_segments=2``
+   (the general pairs, not cut) held to the dense path under the
+   documents' mask on the card; (b) f32 ``flash_attention`` gradients at
+   (1,256,2,256) against autograd through dense attention within 1e-4,
+   plain causal and with a window and two segments; (c) serving at head
+   dim 256 (``ServingModelConfig(head_dim=256, use_flash_prefill=True)``,
+   f32): phase 5's 16 requests with dense prefill's greedy tokens, 48
+   ``flash_fwd_rect`` launches; (d) Phi-3-mini's widths (``PHI3_MINI``:
+   d_model 3072, 32 heads, head dim 96, d_ff 8192, seq 4096; depth cut 32
+   -> 1), the zero-padded route, ``run_burnin(steps=3)`` against the dense
+   path with (a)'s bars and exact launches.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -211,6 +242,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -444,6 +476,8 @@ TENSOR_CORE_KERNELS = {
     "flash_fwd": (fwd_bf16_label, 16),      # both kernels: d 16/32/64/128 x 1/2 warpgroups
     "flash_bwd": (tri_bwd_bf16_label, 32),  # dq and dkv of both pairs, the same 8 each
 }
+# and at head dim 256, one warpgroup only: per library, how many more
+HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
 
 
 def ptxas_by_function(report: str) -> dict:
@@ -484,6 +518,7 @@ def phase_build() -> dict:
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     out = {"seconds": seconds, "ptxas": reports}
     for name, (label_of, expected) in TENSOR_CORE_KERNELS.items():
+        expected += HEAD_DIM_256_INSTANTIATIONS[name]
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         per_function = ptxas_by_function(reports[name])
@@ -511,6 +546,19 @@ def phase_build() -> dict:
             raise RuntimeError(f"{name}.cu: ptxas undid the tensor-core design: {faults}")
         out[f"{name}_hgmma"], out[f"{name}_tc_ptxas"] = hgmma, ptxas
     return out
+
+
+def _padded(case, *tensors):
+    """The kernels' inputs of a case: its tensors zero-padded from the
+    case's head dim to ``padded_head_dim`` (the same tensors at a native
+    head dim), and the softmax scale to pass (None: the kernels' 1/√D)."""
+    from tpu_operator_torch.kernels.flash_fwd import padded_head_dim
+
+    d = case["q"][3]
+    width = padded_head_dim(d)
+    if width == d:
+        return tensors, None
+    return tuple(F.pad(x, (0, width - d)) for x in tensors), 1.0 / math.sqrt(d)
 
 
 def _case_inputs(case, gen):
@@ -686,6 +734,34 @@ KERNEL_CASES = [
     dict(kernel="flash_fwd_rect", label="slice flash check packed bf16 (1,256,2,128) cut 160",
          q=(1, 256, 2, 128), dtype=torch.bfloat16, causal=True, cut=160),
 ]
+# phase 3's forward rows at the head dims of phase 15, after KERNEL_CASES
+HEAD_DIM_KERNEL_CASES = [
+    # head dim 256 (phase 15): Gemma-2B's attention at its context, plain
+    # causal (the triangle) and packed (the general kernel), GQA group 8;
+    # full attention; f32 on the CUDA cores; serving's f32 prefill chunk
+    dict(kernel="flash_fwd_tri", label="gemma-2b bf16 (1,8192,8,256) h_kv 1",
+         q=(1, 8192, 8, 256), h_kv=1, dtype=torch.bfloat16, inner=2, main=True),
+    dict(kernel="flash_fwd_rect", label="gemma-2b packed bf16 (1,8192,8,256) h_kv 1 2 segments",
+         q=(1, 8192, 8, 256), h_kv=1, dtype=torch.bfloat16, causal=True, packed=2, inner=2,
+         main=True),
+    dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,256) full", q=(1, 4096, 8, 256),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,256)", q=(2, 128, 4, 256),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,256) full", q=(2, 128, 4, 256),
+         dtype=torch.float32, causal=False),
+    dict(kernel="flash_fwd_rect", label="serving d256 f32 q(1,8,2,256) kv 64 q_start=16",
+         q=(1, 8, 2, 256), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+] + [
+    # the zero-padded route: Phi-3-mini's attention at its context (96 ->
+    # 128), and head dims 80 and 112 (-> 128)
+    dict(kernel="flash_fwd_tri", label="phi-3-mini bf16 (1,4096,32,96) padded to 128",
+         q=(1, 4096, 32, 96), dtype=torch.bfloat16, inner=2, main=True),
+    dict(kernel="flash_fwd_tri", label="bf16 (1,512,4,80) padded to 128", q=(1, 512, 4, 80),
+         dtype=torch.bfloat16),
+    dict(kernel="flash_fwd_rect", label="bf16 (1,512,4,112) full, padded to 128",
+         q=(1, 512, 4, 112), dtype=torch.bfloat16, causal=False),
+]
 
 
 BWD_CASES = [
@@ -731,6 +807,30 @@ BWD_CASES = [
     dict(pair="rect", label="timing bf16 (1,4096,8,128) causal", q=(1, 4096, 8, 128),
          dtype=torch.bfloat16, causal=True, inner=2),
 ]
+# phase 3's backward rows at the head dims of phase 15, after BWD_CASES
+HEAD_DIM_BWD_CASES = [
+    # head dim 256 (phase 15): Gemma-2B's train step at its context, plain
+    # causal and packed, GQA group 8 (dK/dV: two warpgroups on the two
+    # halves of the head dim); full attention; f32 (32-row tiles)
+    dict(pair="tri", label="gemma-2b bf16 (1,8192,8,256) h_kv 1", q=(1, 8192, 8, 256),
+         h_kv=1, dtype=torch.bfloat16, inner=1, main=True),
+    dict(pair="rect", label="gemma-2b packed bf16 (1,8192,8,256) h_kv 1 2 segments",
+         q=(1, 8192, 8, 256), h_kv=1, dtype=torch.bfloat16, causal=True, packed=2, inner=1,
+         main=True),
+    dict(pair="rect", label="bf16 (1,4096,8,256) full", q=(1, 4096, 8, 256),
+         dtype=torch.bfloat16, causal=False, inner=1),
+    dict(pair="tri", label="f32 (2,128,4,256)", q=(2, 128, 4, 256), dtype=torch.float32),
+    dict(pair="rect", label="f32 (2,128,4,256) window 33, segments cut 88", q=(2, 128, 4, 256),
+         dtype=torch.float32, causal=True, window=33, cut=88),
+] + [
+    # the zero-padded route: Phi-3-mini's train step (96 -> 128), 80 and 112
+    dict(pair="tri", label="phi-3-mini bf16 (1,4096,32,96) padded to 128",
+         q=(1, 4096, 32, 96), dtype=torch.bfloat16, inner=1, main=True),
+    dict(pair="tri", label="bf16 (1,512,4,80) padded to 128", q=(1, 512, 4, 80),
+         dtype=torch.bfloat16),
+    dict(pair="rect", label="bf16 (1,512,4,112) full, padded to 128", q=(1, 512, 4, 112),
+         dtype=torch.bfloat16, causal=False),
+]
 
 
 def _backward_rows(gen) -> list:
@@ -740,42 +840,47 @@ def _backward_rows(gen) -> list:
     from tpu_operator_torch.kernels.flash_fwd import keep_mask
 
     rows = []
-    for case in BWD_CASES:
+    for case in BWD_CASES + HEAD_DIM_BWD_CASES:
         q, k, v, seg = _case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda").to(case["dtype"])
         b, s, h, d = case["q"]
         h_kv = case.get("h_kv", h)
         tri = case["pair"] == "tri"
         causal, window = case.get("causal", True), case.get("window")
+        # a head dim the kernels do not take runs zero-padded, at its own scale
+        (qp, kp, vp, doutp), scale = _padded(case, q, k, v, dout)
         if tri:
-            out, lse = flash_fwd.flash_fwd_tri(q, k, v, h, h_kv)
+            outp, lse = flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
         else:
-            out, lse = flash_fwd.flash_fwd_rect(q, k, v, h, h_kv, causal, window=window, seg=seg)
+            outp, lse = flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, causal, window=window,
+                                                 seg=seg, sm_scale=scale)
+        out = outp[..., :d]
         delta = (dout.float() * out.float()).sum(-1)
         extra = () if tri else (causal, window, seg)
         dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{case['pair']}")
         dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{case['pair']}")
 
         def dq():
-            return dq_fn(q, k, v, out, dout, lse, delta, h, h_kv, *extra)
+            return dq_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra, sm_scale=scale)
 
         def dkv():
-            return dkv_fn(q, k, v, out, dout, lse, delta, h, h_kv, *extra)
+            return dkv_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra, sm_scale=scale)
 
         def plain():
             return flash_bwd.attention_bwd_plain(q, k, v, out, lse, dout, h, h_kv, causal,
                                                  window, seg)
 
         want = plain()
-        got = (dq(), *dkv())
+        got = [x[..., :d] for x in (dq(), *dkv())]
         torch.cuda.synchronize()
         errs = [err(w, g) for w, g in zip(want, got)]
-        scale = max(float(w.float().abs().max()) for w in want)
+        grad_scale = max(float(w.float().abs().max()) for w in want)
         ok = (max(errs) <= F32_TOL if case["dtype"] == torch.float32
-              else max(errs) <= BF16_TOL * scale)
+              else max(errs) <= BF16_TOL * grad_scale)
         if not ok:
             raise RuntimeError(f"backward pair [{case['label']}] disagrees with "
-                               f"attention_bwd_plain: dq/dk/dv err {errs}, max |grad| {scale}")
+                               f"attention_bwd_plain: dq/dk/dv err {errs}, max |grad| "
+                               f"{grad_scale}")
         mask = keep_mask(b * h, s, s, h, causal, window=window, seg=seg, device="cuda")
         live = int(mask.sum()) * (b * h // mask.shape[0])
         inner = case.get("inner", 20)
@@ -787,7 +892,7 @@ def _backward_rows(gen) -> list:
             pair.append({
                 "kernel": (dq_fn if is_dq else dkv_fn).__name__, "label": case["label"],
                 "main_path": bool(case.get("main")), "max_abs_err": max(kernel_errs),
-                "rel_err": max(kernel_errs) / scale, "ms": device_ms(fn, inner),
+                "rel_err": max(kernel_errs) / grad_scale, "ms": device_ms(fn, inner),
                 "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": cuda_ms(fn, inner),
                 "eager_library_ms": eager_library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "live_pairs": live,
@@ -799,15 +904,17 @@ def _backward_rows(gen) -> list:
         rate = (f", {stats['pair_tflops']:.1f} TFLOP/s, {stats['pair_ratio_to_library']:.2f}x "
                 f"sdpa backward")
         if case["dtype"] == torch.bfloat16:
-            stats.update(_other_bwd_plans(case["pair"], q, k, v, dout, lse, delta, h, h_kv,
-                                          extra, want, scale, inner))
-            rate += (f", dq/dkv blocks {stats['blocks']} (at {stats['other_blocks']}: dq "
-                     f"{stats['other_dq_ms']:.5f}, dkv {stats['other_dkv_ms']:.5f} ms)")
+            stats.update(_other_bwd_plans(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
+                                          extra, want, grad_scale, inner, d, scale))
+            rate += f", dq/dkv blocks {stats['blocks']}" + (
+                f" (at {stats['other_blocks']}: dq {stats['other_dq_ms']:.5f}, dkv "
+                f"{stats['other_dkv_ms']:.5f} ms)" if "other_blocks" in stats else
+                " (no other tile height at this head dim)")
         for row in pair:
             row.update(stats, pair_ms=pair_ms)
         rows += pair
         log(f"backward {case['pair']} [{case['label']}]: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
-            f"{errs[2]:.3g} (max |grad| {scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
+            f"{errs[2]:.3g} (max |grad| {grad_scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
             f"{pair[0]['bound_ms']:.5f} by {pair[0]['bound_by']}), dkv {pair[1]['ms']:.5f} (bound "
             f"{pair[1]['bound_ms']:.5f} by {pair[1]['bound_by']}), pair {pair_ms:.5f}, plain "
             f"{plain_ms:.5f}, sdpa backward {library_ms:.5f}{rate}; eager ms: dq "
@@ -817,13 +924,17 @@ def _backward_rows(gen) -> list:
 
 
 def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
-                     want, scale: float, inner: int) -> dict:
+                     want, scale: float, inner: int, d_true: int,
+                     sm_scale: float = None) -> dict:
     """A bf16 pair ("tri" or "rect", whose masks ``extra`` = (causal,
     window, seg) holds) launched with the tile heights its plan did not
     pick (the plans' ``block_m`` knob), straight through the library (no
     launch is counted), held to the same tolerance, and timed: what the
-    plan's choice is worth."""
-    from tpu_operator_torch.kernels import flash_bwd
+    plan's choice is worth. ``q`` ... ``dout`` are the kernels' (padded)
+    inputs, ``d_true`` the head dim ``want`` has, ``sm_scale`` the softmax
+    scale (None: 1/√D). A head dim with one tile height (256) has no other
+    plan: only the picked heights come back."""
+    from tpu_operator_torch.kernels import flash_bwd, flash_fwd
 
     bh, s, d = q.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -835,6 +946,8 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
                                        block_m=block_m)
 
     picked = plans()
+    if len(flash_fwd.tile_heights(q.dtype, d)) < 2:
+        return {"blocks": [p.block for p in picked]}
     other = [plans(192 - mine.block)[i] for i, mine in enumerate(picked)]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -843,7 +956,8 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
               delta.data_ptr())
     seg = () if pair == "tri" else (None if extra[2] is None else extra[2].data_ptr(),)
     masks = () if pair == "tri" else (int(extra[0]), 0 if extra[1] is None else int(extra[1]))
-    scales = (flash_bwd.LOG2E / math.sqrt(d), 1.0 / math.sqrt(d))
+    softmax = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    scales = (flash_fwd.LOG2E * softmax, softmax)
 
     def run(kernel: str, outputs, rows: int, plan):
         # on the current stream, which a graph capture switches
@@ -862,7 +976,7 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     run_dq()
     run_dkv()
     torch.cuda.synchronize()
-    errs = [err(w, g) for w, g in zip(want, (dq, dk, dv))]
+    errs = [err(w, g[..., :d_true]) for w, g in zip(want, (dq, dk, dv))]
     if not max(errs) <= BF16_TOL * scale:
         raise RuntimeError(f"the bf16 {pair} pair at blocks {[p.block for p in other]} "
                            f"disagrees: dq/dk/dv err {errs}, max |grad| {scale}")
@@ -928,12 +1042,15 @@ def _triad_rows(gen) -> list:
 
 
 def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want_lse,
-                       inner: int) -> dict:
+                       inner: int, sm_scale: float = None) -> dict:
     """A bf16 forward kernel (``case["kernel"]``; the general one with the
     ``masks`` of attention_plain) launched with the q-tile height its plan
     did not pick (the plans' ``block_m`` knob), straight through the
     library (no launch is counted), held to the same tolerances, and timed:
-    what the plan's choice is worth."""
+    what the plan's choice is worth. ``q``, ``k``, ``v`` are the kernel's
+    (padded) inputs, ``sm_scale`` the softmax scale (None: 1/√D). A head
+    dim with one tile height (256) has no other plan: only the picked
+    height comes back."""
     from tpu_operator_torch.kernels import flash_fwd
 
     bh, sq, d = q.shape
@@ -948,11 +1065,13 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
                                    masks["window"], masks["q_start"], masks["k_start"], block_m)
 
     picked = plan_for().block_m
+    if len(flash_fwd.tile_heights(q.dtype, d)) < 2:
+        return {"block_m": picked}
     plan = plan_for(192 - picked)  # the other of 64 and 128
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device="cuda")
     lib = flash_fwd._lib()
-    qscale = flash_fwd.LOG2E / math.sqrt(d)
+    qscale = flash_fwd._qscale(d, sm_scale)
     seg = None if tri or masks["seg"] is None else masks["seg"].data_ptr()
 
     def run():
@@ -973,7 +1092,7 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
 
     run()
     torch.cuda.synchronize()
-    o_err, lse_err = err(out, want), err(lse, want_lse)
+    o_err, lse_err = err(out[..., :want.shape[-1]], want), err(lse, want_lse)
     if not (o_err <= BF16_TOL and lse_err <= LSE_TOL):
         raise RuntimeError(f"{case['kernel']} [{case['label']}] at block_m {plan.block_m} "
                            f"disagrees: O err {o_err}, lse err {lse_err}")
@@ -987,25 +1106,28 @@ def phase_kernels() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     results = []
-    for case in KERNEL_CASES:
+    for case in KERNEL_CASES + HEAD_DIM_KERNEL_CASES:
         q, k, v, seg = _case_inputs(case, gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
+        # a head dim the kernels do not take runs zero-padded, at its own scale
+        (qp, kp, vp), scale = _padded(case, q, k, v)
         if case["kernel"] == "flash_fwd_tri":
             def kern():
-                return flash_fwd.flash_fwd_tri(q, k, v, h, h_kv)
+                return flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
             plain_args = dict(causal=True, q_start=0, k_start=0, window=None, seg=None)
         else:
             plain_args = dict(causal=case["causal"], q_start=case.get("q_start", 0),
                               k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
 
             def kern():
-                return flash_fwd.flash_fwd_rect(q, k, v, h, h_kv, **plain_args)
+                return flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, **plain_args, sm_scale=scale)
 
         def plain():
             return attention_plain(q, k, v, h, h_kv, **plain_args)
 
         out, lse = kern()
+        out = out[..., :d]
         want, want_lse = plain()
         torch.cuda.synchronize()
         o_err, lse_err = err(out, want), err(lse, want_lse)
@@ -1031,10 +1153,11 @@ def phase_kernels() -> list:
         row["ratio_to_library"] = row["ms"] / row["library_ms"]
         rate = f", {row['tflops']:.1f} TFLOP/s, {row['ratio_to_library']:.2f}x sdpa"
         if case["dtype"] == torch.bfloat16:
-            row.update(_other_tile_height(case, q, k, v, h, h_kv, plain_args, want, want_lse,
-                                          inner))
-            rate += (f", {row['block_m']}-row q tiles (at {row['other_block_m']} rows: "
-                     f"{row['other_ms']:.5f} ms)")
+            row.update(_other_tile_height(case, qp, kp, vp, h, h_kv, plain_args, want, want_lse,
+                                          inner, scale))
+            rate += f", {row['block_m']}-row q tiles" + (
+                f" (at {row['other_block_m']} rows: {row['other_ms']:.5f} ms)"
+                if "other_block_m" in row else " (no other tile height at this head dim)")
         results.append(row)
         log(f"kernel {row['kernel']} [{row['label']}]: O err {o_err:.3g}, lse err {lse_err:.3g}; "
             f"device ms: kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
@@ -2565,17 +2688,17 @@ def phase_replicas(want_tokens: dict) -> dict:
 
 def _spy_block_m(seen: dict) -> dict:
     """Wrap the triangle wrappers as flash_attention calls them, recording
-    the tile height each call asks for (its last positional argument);
-    returns the originals to put back."""
+    the tile height each call asks for (its last positional argument; the
+    softmax scale comes by keyword); returns the originals to put back."""
     from tpu_operator_torch.workloads import flashattention
 
     originals = {}
     for name in ("flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"):
         fn = originals[name] = getattr(flashattention, name)
 
-        def spy(*args, _fn=fn, _name=name):
+        def spy(*args, _fn=fn, _name=name, **kwargs):
             seen.setdefault(_name, set()).add(args[-1])
-            return _fn(*args)
+            return _fn(*args, **kwargs)
         setattr(flashattention, name, spy)
     return originals
 
@@ -3479,6 +3602,309 @@ def phase_device_layer() -> dict:
     return out
 
 
+# -- phase 15: every head dim the reference's flash attention takes -----------
+
+# Gemma-2B's widths (huggingface.co/google/gemma-2b config.json: hidden 2048,
+# 8 heads, 1 KV head, head dim 256, intermediate 16384, 8192 context) as a
+# TPUJob's spec.workload.config, the burn-in's own block, depth cut 18 -> 2
+GEMMA_2B = {"d_model": 2048, "n_heads": 8, "kv_heads": 1, "d_ff": 16384, "seq_len": 8192,
+            "batch": 1, "n_layers": 2, "use_flash_attention": True}
+# Phi-3-mini's (huggingface.co/microsoft/Phi-3-mini-4k-instruct config.json:
+# hidden 3072, 32 heads, head dim 96, intermediate 8192, 4096 context), depth
+# cut 32 -> 1: the zero-padded route (96 -> 128)
+PHI3_MINI = {"d_model": 3072, "n_heads": 32, "d_ff": 8192, "seq_len": 4096, "batch": 1,
+             "n_layers": 1, "use_flash_attention": True}
+# the elastic trainer at Gemma-2B's widths: a checkpoint every 3 steps, a
+# fault at 5 (step 4 is lost and run again)
+HEAD_DIM_TRAINER_RUN = {"total_steps": 6, "checkpoint_every": 3, "fail_at_steps": (5,)}
+# a flash forward output against its reference's, as the norm of the
+# difference over the reference's norm: ~2.5x the readings on the H100
+# (0.00259-0.00407) and ~3x below the padded route with the padded width's
+# scale in place of the true head dim's (0.034, on the CPU at Phi-3-mini's
+# head dim and small widths), which moves the 3-step losses by only 3e-4
+FORWARD_GAP_TOL = 1e-2
+
+
+def _free_card() -> None:
+    """Drop what the last sub-phase left (graphs, their pools, params)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _dense_packed_attention():
+    """The burn-in's flash attention swapped for dense attention under the
+    packed documents' mask (``ringattention.dense_attention``, plain
+    PyTorch autograd, GQA by repeated kv heads): the reference of a packed
+    run where the dense path takes no segment ids."""
+    from tpu_operator_torch.workloads import burnin
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+
+    def ctx(q, k, v, packed=0):
+        group = q.shape[2] // k.shape[2]
+        k, v = (x.repeat_interleave(group, dim=2) for x in (k, v))
+        seg = burnin._packed_ids(q.shape[0], q.shape[1], packed, q.device) if packed else None
+        return dense_attention(q, k, v, causal=True, segment_ids=seg)
+
+    real = burnin._flash_ctx
+    burnin._flash_ctx = ctx
+    try:
+        yield
+    finally:
+        burnin._flash_ctx = real
+
+
+def _curve_against(name: str, cfg, ref_name: str, reference) -> dict:
+    """run_burnin(steps=3) of ``cfg`` on the card (flash) with its exact
+    launches, held to ``reference()``'s curve within BF16_TOL relative."""
+    from tpu_operator_torch.workloads.burnin import run_burnin
+
+    steps = 3
+    zero_launches()
+    got = run_burnin(steps=steps, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    expected = _expected_launches(counts, cfg, steps)
+    if counts != expected:
+        raise RuntimeError(f"{name}: launches {counts}, expected {expected}")
+    _free_card()
+    ref = reference()
+    rel = _curve_rel(got["losses"], ref["losses"])
+    if not rel <= BF16_TOL:
+        raise RuntimeError(f"{name}: losses {got['losses']} differ from the {ref_name}'s "
+                           f"{ref['losses']} by {rel} (relative, tol {BF16_TOL})")
+    _free_card()
+    log(f"head dims {name}: run_burnin(steps={steps}) losses "
+        f"{[round(x, 5) for x in got['losses']]}, {ref_name} "
+        f"{[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); launches per step "
+        f"{ {k: v / steps for k, v in counts.items() if v} }")
+    return {"losses": got["losses"], "reference": ref_name, "reference_losses": ref["losses"],
+            "rel_err": rel, "launches": counts}
+
+
+def _forward_gap(cfg, reference_cfg, reference_ctx=contextlib.nullcontext) -> float:
+    """The seeded model's forward output with ``cfg`` (flash) against
+    ``reference_cfg``'s under ``reference_ctx``, as the norm of the
+    difference over the reference's norm: the losses of an RMS-normalised
+    output against an N(0, 1) target read ~2.0 for any output, so this is
+    what tells a wrong attention from a right one."""
+    from tpu_operator_torch.weights import burnin_params
+    from tpu_operator_torch.workloads.burnin import _seeded_batch, forward, seeded_params
+
+    params = burnin_params(seeded_params(cfg), cfg, "cuda")
+    x = _seeded_batch(cfg)[0].to("cuda", cfg.tdtype)
+    with torch.no_grad():
+        got = forward(params, x, cfg).float()
+        with reference_ctx():
+            want = forward(params, x, reference_cfg).float()
+    gap = float((got - want).norm() / want.norm())
+    if not gap <= FORWARD_GAP_TOL:
+        raise RuntimeError(f"head dims: the forward output differs from the reference's by {gap} "
+                           f"(tol {FORWARD_GAP_TOL})")
+    return gap
+
+
+def _gemma_trainer(out: dict, cfg, flash_losses: list) -> None:
+    """ResumableTrainer at Gemma-2B's widths: a fault, a resume, continuity,
+    re-executed losses bit for bit, the first losses the flash run's."""
+    from tpu_operator_torch.workloads.checkpoint import CheckpointStore
+    from tpu_operator_torch.workloads.training import (
+        ResumableTrainer,
+        TrainerError,
+        verify_continuity,
+    )
+
+    total = HEAD_DIM_TRAINER_RUN["total_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = ResumableTrainer(CheckpointStore(tmp), cfg, device="cuda",
+                                   **HEAD_DIM_TRAINER_RUN)
+        saves = _timed_checkpoints(trainer)
+        zero_launches()
+        trainer.resume(1)
+        try:
+            trainer.run(total)
+            raise RuntimeError("gemma-2b trainer: the injected fault at step 5 did not fire")
+        except TrainerError as e:
+            log(f"head dims gemma-2b trainer: {e} (at step {trainer.step}, checkpoint "
+                f"{trainer.checkpoint_step})")
+        trainer.resume(1)
+        trainer.run(total)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        _trainer_launches(counts, cfg, len(trainer.history), "gemma-2b trainer")
+        report = verify_continuity(trainer.history, trainer.checkpoints, total)
+        if not (trainer.done and report["ok"] and report["rewinds"] == 1
+                and report["max_lost_steps"] == 1):
+            raise RuntimeError(f"gemma-2b trainer: continuity {report}")
+        first, reruns = {}, {}
+        for h in trainer.history:
+            if h["step"] in first:
+                reruns[h["step"]] = (first[h["step"]], h["loss"])
+            else:
+                first[h["step"]] = h["loss"]
+        if sorted(reruns) != [4] or any(a != b for a, b in reruns.values()):
+            raise RuntimeError(f"gemma-2b trainer: re-executed losses differ: {reruns}")
+        head = [first[s] for s in (1, 2, 3)]
+        rel = _curve_rel(head, flash_losses)
+        if not (rel <= GRAPH_REL_TOL and first[total] < first[1]):
+            raise RuntimeError(f"gemma-2b trainer: first losses {head} differ from run_burnin's "
+                               f"{flash_losses} by {rel} (tol {GRAPH_REL_TOL}), or the curve "
+                               f"{first[1]} -> {first[total]} does not fall")
+        step_s = trainer.step_times[1][1:]
+        out["paths"]["head dims gemma-2b trainer"] = counts
+        out["gemma_trainer"] = {
+            **{k: list(v) if isinstance(v, tuple) else v for k, v in HEAD_DIM_TRAINER_RUN.items()},
+            "executed_steps": len(trainer.history), "continuity": report,
+            "losses": trainer.history, "reruns": reruns, "head_rel_err": rel,
+            "step_ms_median": 1e3 * statistics.median(step_s),
+            "resume_ms": [1e3 * r.latency_s for r in trainer.resumes],
+            "checkpoint_ms": [1e3 * s for s in saves]}
+    log(f"head dims gemma-2b trainer: {len(trainer.history)} executed steps of {total} (fault "
+        f"at 5, resumed at {trainer.resumes[1].step}), continuity ok, lost "
+        f"{report['max_lost_steps']}; re-executed losses equal {reruns}; first losses equal to "
+        f"run_burnin's (rel {rel:.3g}); launches {counts}; step ms median "
+        f"{out['gemma_trainer']['step_ms_median']:.3f}; checkpoint ms "
+        f"{[round(x, 1) for x in out['gemma_trainer']['checkpoint_ms']]}")
+
+
+def _masked_dense(q, k, v, causal: bool, window=None, seg=None):
+    """Dense softmax attention in (B, S, H, D) under the kernels' masks
+    (``keep_mask``): autograd's reference for the f32 gradient checks."""
+    from tpu_operator_torch.kernels.flash_fwd import keep_mask
+
+    b, s, h, d = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    keep = keep_mask(b * h, s, s, h, causal, window=window, seg=seg, device=q.device)
+    scores = scores.masked_fill(~keep.expand(b * h, s, s).reshape(b, h, s, s), -math.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+
+def _f32_grads_at_256(device: str = "cuda") -> dict:
+    """autograd through flash_attention against autograd through dense
+    attention, f32, (1, 256, 2, 256): the triangle pair, and the general
+    pair under a window and two segments."""
+    from tpu_operator_torch.workloads.flashattention import flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    q, k, v, w = (torch.randn((1, 256, 2, 256), generator=gen, device=device) for _ in range(4))
+    seg = (torch.arange(256, device=device) >= 100).to(torch.int32)[None]
+    out = {}
+    for name, kwargs in (("triangle", {}), ("window 40, segments", {"window": 40, "seg": seg})):
+        grads = {}
+        for impl in ("flash", "dense"):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            if impl == "flash":
+                got = flash_attention(*leaves, causal=True, window=kwargs.get("window"),
+                                      segment_ids=kwargs.get("seg"))
+            else:
+                got = _masked_dense(*leaves, True, **kwargs)
+            grads[impl] = torch.autograd.grad((got * w).sum(), leaves)
+        worst = max(float((f - d).abs().max()) for f, d in zip(grads["flash"], grads["dense"]))
+        if not worst <= F32_TOL:
+            raise RuntimeError(f"f32 flash gradients at head dim 256 ({name}) differ from dense "
+                               f"by {worst} (tol {F32_TOL})")
+        out[name] = worst
+    return out
+
+
+def _serving_at_256(out: dict) -> None:
+    """The default serving geometry at head dim 256 (f32): flash prefill
+    (the general kernel) against dense prefill, phase 5's 16 requests."""
+    from tpu_operator_torch.workloads.serving import DecodeEngine, ServingModelConfig, make_requests
+
+    requests = make_requests(16, seed=20260818, prompt_len=24, decode_max=32)
+    runs = {}
+    for name, flash in (("dense", False), ("flash", True)):
+        engine = DecodeEngine(ServingModelConfig(head_dim=256, use_flash_prefill=flash))
+        engine.warmup(24)
+        batch = copy.deepcopy(requests)
+        zero_launches()
+        for r in batch:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        runs[name] = {"tokens": {r.rid: list(r.output) for r in engine.completed},
+                      "launches": read_launches(), "report": engine.report()}
+    flash, dense = runs["flash"], runs["dense"]
+    if len(flash["tokens"]) != 16 or flash["tokens"] != dense["tokens"]:
+        raise RuntimeError("serving at head dim 256: flash-prefill greedy tokens differ from "
+                           "dense prefill")
+    expected = {k: REPLICA_LAUNCHES if k == "flash_fwd_rect" else 0 for k in flash["launches"]}
+    if flash["launches"] != expected:
+        raise RuntimeError(f"serving at head dim 256: launches {flash['launches']}, expected "
+                           f"{expected}")
+    out["paths"]["head dims serving d256"] = flash["launches"]
+    out["serving"] = {"report": flash["report"], "dense_report": dense["report"]}
+    log(f"head dims serving d256: 16 requests, tokens identical to dense prefill, launches "
+        f"{flash['launches']}, {flash['report']['tokens_per_s']} tok/s")
+
+
+def phase_head_dims() -> dict:
+    """Phase 15 (see the module's docstring)."""
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    start = time.perf_counter()
+    out = {"paths": {}}
+    gemma = trainer_config(GEMMA_2B)
+    if gemma.d_model // gemma.n_heads != 256:
+        raise RuntimeError(f"gemma-2b config: head dim {gemma.d_model // gemma.n_heads}")
+    # (a) Gemma-2B's widths: flash against dense, the graphed step, the trainer
+    dense = dataclasses.replace(gemma, use_flash_attention=False)
+    out["gemma"] = _curve_against("gemma-2b", gemma, "dense path",
+                                  lambda: run_burnin(steps=3, cfg=dense, device="cuda"))
+    out["paths"]["head dims gemma-2b"] = out["gemma"].pop("launches")
+    out["gemma"]["forward_gap"] = _forward_gap(gemma, dense)
+    _free_card()
+    step, params, batch = build_train_step(gemma, "cuda")
+    out["gemma"]["replays"] = _replays_vs_eager(step, params, batch)
+    out["gemma"].update(_step_times(step, params, batch))
+    del step, params, batch
+    _free_card()
+    g = out["gemma"]
+    log(f"head dims gemma-2b: {GRAPH_STEPS} graphed steps vs eager: rel "
+        f"{g['replays']['rel_err']:.3g}{' (bit for bit)' if g['replays']['bitwise'] else ''}; "
+        f"step ms eager {g['step_ms']:.3f}, replay {g['step_replay_ms']:.3f}, device "
+        f"{g['step_device_ms']:.3f}, {g['step_graph_nodes']} device operations; forward output "
+        f"{g['forward_gap']:.3g} from the dense path's (norm of the difference over its norm)")
+    _gemma_trainer(out, gemma, out["gemma"]["losses"])
+    _free_card()
+    packed = dataclasses.replace(gemma, packed_segments=2)
+
+    def packed_reference():
+        with _dense_packed_attention():
+            return run_burnin(steps=3, cfg=packed, device="cuda")
+
+    out["gemma_packed"] = _curve_against("gemma-2b packed", packed,
+                                         "dense path under the documents' mask",
+                                         packed_reference)
+    out["paths"]["head dims gemma-2b packed"] = out["gemma_packed"].pop("launches")
+    out["gemma_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
+    _free_card()
+    # (b) f32 gradients at head dim 256
+    out["f32_grads_256"] = _f32_grads_at_256()
+    log(f"head dims f32 (1,256,2,256) flash_attention gradients vs dense, max abs err "
+        f"{out['f32_grads_256']}")
+    # (c) serving at head dim 256
+    _serving_at_256(out)
+    _free_card()
+    # (d) the zero-padded route at Phi-3-mini's widths
+    phi = trainer_config(PHI3_MINI)
+    phi_dense = dataclasses.replace(phi, use_flash_attention=False)
+    out["phi3"] = _curve_against("phi-3-mini (head dim 96, padded to 128)", phi, "dense path",
+                                 lambda: run_burnin(steps=3, cfg=phi_dense, device="cuda"))
+    out["paths"]["head dims phi-3-mini"] = out["phi3"].pop("launches")
+    out["phi3"]["forward_gap"] = _forward_gap(phi, phi_dense)
+    _free_card()
+    log(f"head dims: forward output against the reference's (norm of the difference over its "
+        f"norm): gemma-2b packed {out['gemma_packed']['forward_gap']:.3g}, phi-3-mini "
+        f"{out['phi3']['forward_gap']:.3g}")
+    out["seconds"] = time.perf_counter() - start
+    log(f"head dims: phase 15 in {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
     """One entry per kernel of ``KERNELS``; ``launches`` sums its launches
     over the main-path runs (``paths``: run name -> counts); the timings
@@ -3531,12 +3957,13 @@ def main(argv=None) -> int:
     results["autotune"] = phase_autotune()
     results["agents"] = phase_agents()
     results["device_layer"] = phase_device_layer()
+    results["head_dims"] = phase_head_dims()
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
              **results["slice"]["paths"], **results["trainer"]["paths"],
              **results["replicas"]["paths"], **results["autotune"]["paths"],
-             **results["agents"]["paths"]}
+             **results["agents"]["paths"], **results["head_dims"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}

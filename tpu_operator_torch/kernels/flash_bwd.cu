@@ -91,15 +91,30 @@
 // idle warps) and, at WG = 2, setmaxnreg moves registers from that
 // warpgroup (40 a thread) to the consumers (232). dQ (S, dP and dQ:
 // 32 + 32 + 64) fits beside a lone producer warp, as the forward does.
+// D = 256 (64-row tiles only: a 128-row CTA's own two tiles and the ring
+// would pass the 232,448 bytes of shared memory a block may use): dQ holds
+// 128 + 32 + 32 f32 and 16 packed registers beside its producer warp, under
+// the 255 of a one-warpgroup CTA, with one m64n256k16 wgmma per 16 keys for
+// dQ += dS.K. dK and dV alone would be 256 f32 a thread, so two consumer
+// warpgroups share a CTA's 64 keys and split the head dim (kv_split): each
+// forms S^T and dP^T over all 256 columns (the same products twice, so the
+// CTA runs six products a tile where one warpgroup would run four: 50% more
+// tensor-core work, and no exchange through shared memory, which has 33 KB
+// left) and accumulates dK and dV for its 128 columns (m64n128k16 from the
+// Q and dO tiles' column boxes 0-1 or 2-3), 224 registers a thread inside
+// setmaxnreg's 232, as at D = 128 and WG = 2.
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
-// row, 64-key tile) for dK/dV, on the CUDA cores; the TPU kernels' sequential
-// grid axis is a loop inside the CTA (up to the diagonal, the window band, or
-// all; dK/dV over every GQA group member). Tiles are staged through shared
-// memory as f32, the score is built as the CUDA-core forward builds it (q *
-// log2(e)/sqrt(d) in f32, then an f32 FMA chain over d), each thread owns a
-// 4 x 4 block of the score tile and a 4 x D/16 block of each accumulator, and
+// row, 64-key tile) for dK/dV (32-row tiles at D = 256: f32_tile), tiles on
+// the grid's x and rows on y and z (kMaxGridY a z slice), on the CUDA
+// cores; the TPU kernels' sequential grid axis is a loop inside the CTA (up
+// to the diagonal, the window band, or all; dK/dV over every GQA group
+// member). Tiles are staged through shared memory as f32, the score is
+// built as the CUDA-core forward builds it (q * scale * log2(e) in f32,
+// then an f32 FMA chain over d), each thread owns a 4 x 4 (2 x 2 at 32
+// rows) block of the score tile and the matching rows of D/16 columns of
+// each accumulator, and
 // P and dS go through shared memory between the two. f32 stays here because
 // it must not round through TF32.
 //
@@ -123,14 +138,13 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kTile = 64;       // q rows and keys per tile
+constexpr int kTile = 64;       // q rows and keys per tile (the f32 kernels: f32_tile)
 static_assert(kTile == kRingRows, "the tensor-core tiles are the ring's (hopper.cuh)");
 constexpr int kThreads = 256;   // 16 x 16
-constexpr int kR = kTile / 16;  // tile rows (and columns) per thread
-constexpr int kLP = kTile + 1;  // odd stride of the P / dS tiles
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kUnsupported = -1;
 constexpr int kNoTensorMap = -2;  // cuTensorMapEncodeTiled missing or refused the map
+constexpr int kMaxGridY = 65535;  // the CUDA-core kernels' rows per z slice of the grid
 
 struct Params {
   const void* q;       // (bh, s, D)
@@ -147,7 +161,8 @@ struct Params {
   int causal, window;  // window <= 0: no window
   float qscale;        // log2(e)/sqrt(d): folded into q (CUDA cores) or applied to
                        // q.k after the product (tensor cores), as the forward does
-  float scale;         // 1/sqrt(d)
+  float scale;         // the softmax scale, 1/sqrt(d) of the unpadded head dim
+  int rows;            // the grid's rows: bh (dQ) or bh_kv (dK/dV)
 };
 
 // The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
@@ -173,11 +188,15 @@ __device__ __forceinline__ bool attends(const Params& p, int qi, int kj, bool se
   return !segments || qseg == kseg;
 }
 
-// Rows [r0, r0 + kTile) of a (s, D) matrix into a [kTile][D + 1] f32 tile,
-// times mul; rows past s are zero.
-template <typename T, int D>
+// The CUDA-core kernels' tile: 64 q rows and keys, 32 at D = 256, where the
+// four [64][D + 1] f32 tiles alone would pass the 227 KB a block may use.
+__host__ __device__ constexpr int f32_tile(int d) { return d > 128 ? 32 : 64; }
+
+// Rows [r0, r0 + TT) of a (s, D) matrix into a [TT][D + 1] f32 tile, times
+// mul; rows past s are zero.
+template <typename T, int D, int TT>
 __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int s, float mul) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < TT * D; i += kThreads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
         (r0 + r < s) ? to_f(src[static_cast<size_t>(r0 + r) * D + c]) * mul : 0.f;
@@ -185,45 +204,51 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int s, f
 }
 
 constexpr size_t dq_smem_bytes(int d) {
-  // q (pre-scaled), dO, k, v tiles ([kTile][d + 1]), dS tile, key segment ids
-  return sizeof(float) * (4 * kTile * (d + 1) + kTile * kLP) + sizeof(int) * kTile;
+  // q (pre-scaled), dO, k, v tiles ([t][d + 1]), dS tile ([t][t + 1]), key
+  // segment ids, at the tile t = f32_tile(d)
+  return sizeof(float) * (4 * f32_tile(d) * (d + 1) + f32_tile(d) * (f32_tile(d) + 1)) +
+         sizeof(int) * f32_tile(d);
 }
 
 constexpr size_t dkv_smem_bytes(int d) {
   // k, v, q, dO tiles, P and dS tiles, per-row lse*log2e, delta, segment ids
-  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * kLP + 2 * kTile) + sizeof(int) * kTile;
+  return sizeof(float) * (4 * f32_tile(d) * (d + 1) + 2 * f32_tile(d) * (f32_tile(d) + 1) +
+                          2 * f32_tile(d)) +
+         sizeof(int) * f32_tile(d);
 }
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dq_body(const Params& p) {
+  constexpr int TT = f32_tile(D), R = TT / 16, LP = TT + 1;  // tile, per thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dQ columns per thread
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + kTile * LD;
-  float* ks = dos + kTile * LD;
-  float* vs = ks + kTile * LD;
-  float* dss = vs + kTile * LD;
-  int* kseg = reinterpret_cast<int*>(dss + kTile * kLP);
+  float* dos = qs + TT * LD;
+  float* ks = dos + TT * LD;
+  float* vs = ks + TT * LD;
+  float* dss = vs + TT * LD;
+  int* kseg = reinterpret_cast<int*>(dss + TT * LP);
 
+  const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (bh >= p.rows) return;  // past the last row in the last z slice
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * TT;
   const int b = bh / p.heads;
   const int kv_row = b * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
   const size_t qoff = static_cast<size_t>(bh) * p.s * D;
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * D;
   const bool segments = !TRI && p.seg != nullptr;
 
-  stage<T, D>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, p.qscale);
-  stage<T, D>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
+  stage<T, D, TT>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, p.qscale);
+  stage<T, D, TT>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
 
-  float lse2[kR], dlt[kR], acc[kR][CN];
-  int qseg[kR];
+  float lse2[R], dlt[R], acc[R][CN];
+  int qseg[R];
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     const bool in = qi < p.s;
     lse2[i] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
@@ -234,71 +259,71 @@ __device__ __forceinline__ void dq_body(const Params& p) {
   }
 
   // the keys any row of this q tile can see
-  const int q_end = min(q0 + kTile, p.s);
+  const int q_end = min(q0 + TT, p.s);
   int k_lo = 0, k_hi = p.s;
   if (TRI || p.causal) k_hi = q_end;
   if (!TRI && p.causal && p.window > 0) k_lo = max(0, q0 - p.window + 1);
 
-  for (int t = k_lo / kTile; t < (k_hi + kTile - 1) / kTile; ++t) {
-    const int k0 = t * kTile;
+  for (int t = k_lo / TT; t < (k_hi + TT - 1) / TT; ++t) {
+    const int k0 = t * TT;
     __syncthreads();  // the previous tile's k/dS reads are done
-    stage<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
-    stage<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
-    if (segments && tid < kTile) {
+    stage<T, D, TT>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
+    stage<T, D, TT>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
+    if (segments && tid < TT) {
       kseg[tid] = (k0 + tid < p.s) ? p.seg[static_cast<size_t>(b) * p.s + k0 + tid] : 0;
     }
     __syncthreads();
 
-    float sc[kR][kR], dp[kR][kR];
+    float sc[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < kR; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[kR], dov[kR], kv[kR], vv[kR];
+      float qv[R], dov[R], kv[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < kR; ++i) {
+      for (int i = 0; i < R; ++i) {
         qv[i] = qs[(ty + 16 * i) * LD + d];
         dov[i] = dos[(ty + 16 * i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < kR; ++j) {
+      for (int j = 0; j < R; ++j) {
         kv[j] = ks[(tx + 16 * j) * LD + d];
         vv[j] = vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < kR; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < kR; ++j) {
+        for (int j = 0; j < R; ++j) {
           sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < kR; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int qi = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < kR; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int kj = k0 + tx + 16 * j;
         const bool live = qi < p.s && kj < p.s && lse2[i] != -CUDART_INF_F &&
                           attends<TRI>(p, qi, kj, segments, qseg[i], kseg[tx + 16 * j]);
         const float pij = live ? exp2f(sc[i][j] - lse2[i]) : 0.f;
-        dss[(ty + 16 * i) * kLP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] - dlt[i]) * p.scale);
+        dss[(ty + 16 * i) * LP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] - dlt[i]) * p.scale);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[kR], kv[CN];
+    for (int kk = 0; kk < TT; ++kk) {
+      float dsv[R], kv[CN];
 #pragma unroll
-      for (int i = 0; i < kR; ++i) dsv[i] = dss[(ty + 16 * i) * kLP + kk];
+      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * LP + kk];
 #pragma unroll
       for (int c = 0; c < CN; ++c) kv[c] = ks[kk * LD + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < kR; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
     }
@@ -306,7 +331,7 @@ __device__ __forceinline__ void dq_body(const Params& p) {
 
   T* dqg = static_cast<T*>(p.dq) + qoff;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.s) continue;
 #pragma unroll
@@ -316,64 +341,66 @@ __device__ __forceinline__ void dq_body(const Params& p) {
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dkv_body(const Params& p) {
+  constexpr int TT = f32_tile(D), R = TT / 16, LP = TT + 1;  // tile, per thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dK/dV columns per thread
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + kTile * LD;
-  float* qs = vs + kTile * LD;
-  float* dos = qs + kTile * LD;
-  float* ps = dos + kTile * LD;
-  float* dss = ps + kTile * kLP;
-  float* lse2 = dss + kTile * kLP;
-  float* dlt = lse2 + kTile;
-  int* qseg = reinterpret_cast<int*>(dlt + kTile);
+  float* vs = ks + TT * LD;
+  float* qs = vs + TT * LD;
+  float* dos = qs + TT * LD;
+  float* ps = dos + TT * LD;
+  float* dss = ps + TT * LP;
+  float* lse2 = dss + TT * LP;
+  float* dlt = lse2 + TT;
+  int* qseg = reinterpret_cast<int*>(dlt + TT);
 
+  const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (kv_row >= p.rows) return;  // past the last row in the last z slice
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int kv_row = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * TT;
   const int b = kv_row / p.kv_heads;
   const int group = p.heads / p.kv_heads;
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * D;
   const bool segments = !TRI && p.seg != nullptr;
 
-  stage<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
-  stage<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
+  stage<T, D, TT>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
+  stage<T, D, TT>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
 
   // score columns of this thread: keys k0 + tx + 16 j
-  int kseg[kR];
+  int kseg[R];
 #pragma unroll
-  for (int j = 0; j < kR; ++j) {
+  for (int j = 0; j < R; ++j) {
     const int kj = k0 + tx + 16 * j;
     kseg[j] = (segments && kj < p.s) ? p.seg[static_cast<size_t>(b) * p.s + kj] : 0;
   }
   // accumulator rows of this thread: keys k0 + ty + 16 i
-  float dk[kR][CN], dv[kR][CN];
+  float dk[R][CN], dv[R][CN];
 #pragma unroll
-  for (int i = 0; i < kR; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CN; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   // the queries that can see any key of this tile
-  const int k_end = min(k0 + kTile, p.s);
+  const int k_end = min(k0 + TT, p.s);
   int q_lo = 0, q_hi = p.s;
   if (TRI || p.causal) q_lo = k0;
   if (!TRI && p.causal && p.window > 0) q_hi = min(p.s, k_end - 1 + p.window);
-  const int t_lo = q_lo / kTile;
-  const int t_hi = (q_hi + kTile - 1) / kTile;
+  const int t_lo = q_lo / TT;
+  const int t_hi = (q_hi + TT - 1) / TT;
 
   for (int m = 0; m < group; ++m) {
     // the q head of group member m (flashattention.py q_index)
     const int q_row = b * p.heads + (kv_row % p.kv_heads) * group + m;
     const size_t qoff = static_cast<size_t>(q_row) * p.s * D;
     for (int t = t_lo; t < t_hi; ++t) {
-      const int q0 = t * kTile;
+      const int q0 = t * TT;
       __syncthreads();  // the previous tile's q/dO/P/dS reads are done
-      stage<T, D>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, 1.f);
-      stage<T, D>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
-      if (tid < kTile) {
+      stage<T, D, TT>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, 1.f);
+      stage<T, D, TT>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
+      if (tid < TT) {
         const int qi = q0 + tid;
         const bool in = qi < p.s;
         lse2[tid] = in ? p.lse[static_cast<size_t>(q_row) * p.s + qi] * kLog2e : -CUDART_INF_F;
@@ -382,58 +409,58 @@ __device__ __forceinline__ void dkv_body(const Params& p) {
       }
       __syncthreads();
 
-      float sc[kR][kR], dp[kR][kR];
+      float sc[R][R], dp[R][R];
 #pragma unroll
-      for (int i = 0; i < kR; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < kR; ++j) sc[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float qv[kR], dov[kR], kv[kR], vv[kR];
+        float qv[R], dov[R], kv[R], vv[R];
 #pragma unroll
-        for (int i = 0; i < kR; ++i) {
+        for (int i = 0; i < R; ++i) {
           // the same f32 product the forward folds into q
           qv[i] = qs[(ty + 16 * i) * LD + d] * p.qscale;
           dov[i] = dos[(ty + 16 * i) * LD + d];
         }
 #pragma unroll
-        for (int j = 0; j < kR; ++j) {
+        for (int j = 0; j < R; ++j) {
           kv[j] = ks[(tx + 16 * j) * LD + d];
           vv[j] = vs[(tx + 16 * j) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < kR; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < kR; ++j) {
+          for (int j = 0; j < R; ++j) {
             sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
             dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
           }
       }
 
 #pragma unroll
-      for (int i = 0; i < kR; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int r = ty + 16 * i;
         const int qi = q0 + r;
         const float l2 = lse2[r];
 #pragma unroll
-        for (int j = 0; j < kR; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int kj = k0 + tx + 16 * j;
           const bool live = qi < p.s && kj < p.s && l2 != -CUDART_INF_F &&
                             attends<TRI>(p, qi, kj, segments, qseg[r], kseg[j]);
           const float pij = live ? exp2f(sc[i][j] - l2) : 0.f;
-          ps[r * kLP + tx + 16 * j] = round_to<T>(pij);
-          dss[r * kLP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] - dlt[r]) * p.scale);
+          ps[r * LP + tx + 16 * j] = round_to<T>(pij);
+          dss[r * LP + tx + 16 * j] = round_to<T>(pij * (dp[i][j] - dlt[r]) * p.scale);
         }
       }
       __syncthreads();
 
 #pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pv[kR], dsv[kR], dov[CN], qv[CN];
+      for (int r = 0; r < TT; ++r) {
+        float pv[R], dsv[R], dov[CN], qv[CN];
 #pragma unroll
-        for (int i = 0; i < kR; ++i) {
-          pv[i] = ps[r * kLP + ty + 16 * i];
-          dsv[i] = dss[r * kLP + ty + 16 * i];
+        for (int i = 0; i < R; ++i) {
+          pv[i] = ps[r * LP + ty + 16 * i];
+          dsv[i] = dss[r * LP + ty + 16 * i];
         }
 #pragma unroll
         for (int c = 0; c < CN; ++c) {
@@ -441,7 +468,7 @@ __device__ __forceinline__ void dkv_body(const Params& p) {
           qv[c] = qs[r * LD + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < kR; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < CN; ++c) {
             dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
@@ -454,7 +481,7 @@ __device__ __forceinline__ void dkv_body(const Params& p) {
   T* dkg = static_cast<T*>(p.dk) + kvoff;
   T* dvg = static_cast<T*>(p.dv) + kvoff;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= p.s) continue;
 #pragma unroll
@@ -495,6 +522,11 @@ constexpr int kStages = 2;  // depth of the ring of 64-row tiles
 // (2 x 128 x 232 + 128 x 40 <= 65,536)
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+// dK/dV consumer warpgroups per 64 keys: at D = 256 dK and dV alone are 256
+// f32 a thread, past the 255 a thread may hold, so two warpgroups share the
+// keys and each accumulates dK and dV for its half of the head dim
+template <int D>
+__host__ __device__ constexpr int kv_split() { return D > 128 ? 2 : 1; }
 // the general pair's staged segment ids: kStages x (the ring tile's 64 ids,
 // then their min and max), int32
 constexpr int kSegBytes = kStages * (kTile + 2) * 4;
@@ -748,6 +780,9 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
                                             const CUtensorMap* domap) {
   using G = Geo<D>;
   constexpr int BN = 64 * WG;
+  constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on D / CS columns
+  constexpr int NC = WG * CS;        // consumer warpgroups
+  constexpr int DC = D / CS;         // a consumer's dK and dV columns
   constexpr uint32_t kKVBytes = BN * D * 2;
   constexpr uint32_t kQBytes = kTile * D * 2;
 
@@ -790,21 +825,22 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's staged values
-      mbar_init(&empty[st], WG * 4);
+      mbar_init(&empty[st], NC * 4);
     }
     mbar_init(kv_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= WG * 4) {
-    // the producer warpgroup: at WG = 2 it hands registers to the consumers
-    // (dK and dV at D = 128 need more than the 168 a thread of 384 gets);
-    // its first warp loads K and V once, then per (member, q tile) Q and dO
-    // by TMA and the tile's lse (base 2; +inf past s), delta and segment
-    // ids by plain loads
-    if constexpr (WG == 2) reg_dealloc<kProducerRegs>();
-    if (warp == WG * 4) {
+  if (warp >= NC * 4) {
+    // the producer warpgroup: beside two consumer warpgroups it hands
+    // registers to them (dK and dV at D = 128 need more than the 168 a
+    // thread of 384 gets, and at D = 256 each consumer's half does); its
+    // first warp loads K and V once, then per (member, q tile) Q and dO by
+    // TMA and the tile's lse (base 2; +inf past s), delta and segment ids
+    // by plain loads
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs>();
+    if (warp == NC * 4) {
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * kKVBytes);
 #pragma unroll
@@ -855,12 +891,16 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
       }
     }
   } else {
-    if constexpr (WG == 2) reg_alloc<kConsumerRegs>();
-    // consumers: warpgroup wg owns keys w0 .. w0 + 63; this thread holds
-    // keys key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns keys w0 .. w0 + 63 and dK/dV columns c0 ..
+    // c0 + DC - 1 (all of them but at D = 256); this thread holds keys key
+    // and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
     const int wg = warp / 4;
+    const int kw = wg / CS;            // the 64-key slice
+    const int c0 = (wg % CS) * DC;     // the first column
+    const int box = c0 / G::kCols;     // ... as a column box of the Q and dO tiles
     const int tq = lane % 4;
-    const int w0 = k0 + wg * 64;
+    const int w0 = k0 + kw * 64;
     const int key = w0 + (warp % 4) * 16 + lane / 4;
     const float qscale = p.qscale, scale = p.scale;
     const int win = window > 0 ? window : INT_MAX;
@@ -872,9 +912,9 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
     // the segment ids of the warpgroup's keys: one id throughout when x == y
     const int2 krange =
         segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-    float dk[D / 2], dv[D / 2], s[32], dp[32];
+    float dk[DC / 2], dv[DC / 2], s[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
@@ -908,9 +948,11 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * kTile);
         const float2* dl = reinterpret_cast<const float2*>(dl_s + st * kTile);
         const int2* qid = reinterpret_cast<const int2*>(qid_s + st * kTile);
+        // S^T and dP^T over all of D: at D = 256 both warpgroups of a key
+        // slice form them, each for its own half of dK and dV
         wgmma_fence();
-        mma_rows_by_rows<D>(s, k_s, BN, wg * 64, qs);    // S^T = K.Q^T
-        mma_rows_by_rows<D>(dp, v_s, BN, wg * 64, dos);  // dP^T = V.dO^T
+        mma_rows_by_rows<D>(s, k_s, BN, kw * 64, qs);    // S^T = K.Q^T
+        mma_rows_by_rows<D>(dp, v_s, BN, kw * 64, dos);  // dP^T = V.dO^T
         wgmma_commit();
         wgmma_wait_all();
         hold(s);
@@ -961,8 +1003,8 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         hold(pa);
         hold(dsa);
         wgmma_fence();
-        mma_frag_by_tile<D>(dv, pa, dos);  // dV += P^T.dO, dO MN-major
-        mma_frag_by_tile<D>(dk, dsa, qs);  // dK += dS^T.Q, Q MN-major
+        mma_frag_by_tile<D, DC>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
+        mma_frag_by_tile<D, DC>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
         wgmma_commit();
         wgmma_wait_all();
         hold(dv);
@@ -979,11 +1021,11 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
     for (int h = 0; h < 2; ++h) {
       const int kj = key + 8 * h;
       if (kj >= p.s) continue;
-      const size_t at = kvoff + static_cast<size_t>(kj) * D;
+      const size_t at = kvoff + static_cast<size_t>(kj) * D + c0;
       auto* dkr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + at);
       auto* dvr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + at);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DC / 8; ++j) {
         dkr[4 * j + tq] = __floats2bfloat162_rn(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
         dvr[4 * j + tq] = __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
       }
@@ -1010,13 +1052,15 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_rect_kernel(Par
 }
 
 template <typename T, int D, int WG>
-__global__ void __launch_bounds__((WG + 1) * 128, 1) flash_bwd_dkv_tri_kernel(Params p, TC_MAPS) {
+__global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
+    flash_bwd_dkv_tri_kernel(Params p, TC_MAPS) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
   dkv_tc_body<D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T, int D, int WG>
-__global__ void __launch_bounds__((WG + 1) * 128, 1) flash_bwd_dkv_rect_kernel(Params p, TC_MAPS) {
+__global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
+    flash_bwd_dkv_rect_kernel(Params p, TC_MAPS) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
   dkv_tc_body<D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
 }
@@ -1060,8 +1104,9 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dQ: one producer warp; dK/dV: a producer warpgroup (setmaxnreg at WG = 2)
-  const int threads = kDq ? WG * 128 + 32 : (WG + 1) * 128;
+  // dQ: one producer warp; dK/dV: a producer warpgroup (setmaxnreg beside
+  // two consumer warpgroups)
+  const int threads = kDq ? WG * 128 + 32 : (WG * kv_split<D>() + 1) * 128;
   kernel<<<dim3(rows, tiles), threads, smem, stream>>>(p, qmap, kmap, vmap, domap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1071,7 +1116,9 @@ int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
   if (block == 64) return launch_tc<D, 1, K>(p, rows, smem, stream);
-  if (block == 128) return launch_tc<D, 2, K>(p, rows, smem, stream);
+  if constexpr (D <= 128) {  // D 256: 64-row tiles only (see the note on top)
+    if (block == 128) return launch_tc<D, 2, K>(p, rows, smem, stream);
+  }
   return kUnsupported;
 }
 
@@ -1091,7 +1138,9 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.s + kTile - 1) / kTile, rows);
+  constexpr int tile = f32_tile(D);
+  const dim3 grid((p.s + tile - 1) / tile, rows < kMaxGridY ? rows : kMaxGridY,
+                  (rows + kMaxGridY - 1) / kMaxGridY);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1103,12 +1152,13 @@ int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
     case 32: return launch<T, 32, K>(p, rows, stream);
     case 64: return launch<T, 64, K>(p, rows, stream);
     case 128: return launch<T, 128, K>(p, rows, stream);
+    case 256: return launch<T, 256, K>(p, rows, stream);
     default: return kUnsupported;
   }
 }
 
 bool valid(const Params& p, int rows) {
-  return rows > 0 && rows <= 65535 && p.s > 0 && p.heads > 0 && p.kv_heads > 0 &&
+  return rows > 0 && p.s > 0 && p.heads > 0 && p.kv_heads > 0 &&
          p.heads % p.kv_heads == 0;
 }
 
@@ -1125,11 +1175,12 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
       case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
       case 64: return dispatch_tc<64, K>(p, rows, block, smem, swizzle, st);
       case 128: return dispatch_tc<128, K>(p, rows, block, smem, swizzle, st);
+      case 256: return dispatch_tc<256, K>(p, rows, block, smem, swizzle, st);
       default: return kUnsupported;
     }
   }
   const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
-  if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed)) {
+  if (dtype != 0 || block != f32_tile(d) || swizzle != 0 || smem != static_cast<int>(fixed)) {
     return kUnsupported;
   }
   return dispatch_dim<float, K>(p, rows, d, st);
@@ -1152,7 +1203,7 @@ extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, con
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,
                                 int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr,
-           s, heads, kv_heads, 1, 0, qscale, scale};
+           s, heads, kv_heads, 1, 0, qscale, scale, bh};
   return dispatch<kDqTri>(p, dtype, bh, d, block, smem, swizzle, stream);
 }
 
@@ -1162,7 +1213,7 @@ extern "C" int flash_bwd_dkv_tri(const void* q, const void* k, const void* v, co
                                  float qscale, float scale, int block, int smem, int swizzle,
                                  void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
-           s, heads, kv_heads, 1, 0, qscale, scale};
+           s, heads, kv_heads, 1, 0, qscale, scale, bh_kv};
   return dispatch<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }
 
@@ -1172,7 +1223,7 @@ extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, co
                                  int causal, int window, float qscale, float scale, int block,
                                  int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr,
-           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale};
+           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale, bh};
   return dispatch<kDqRect>(p, dtype, bh, d, block, smem, swizzle, stream);
 }
 
@@ -1182,6 +1233,6 @@ extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, c
                                   int kv_heads, int causal, int window, float qscale, float scale,
                                   int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
-           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale};
+           s, heads, kv_heads, causal, band(causal, window, s), qscale, scale, bh_kv};
   return dispatch<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }

@@ -29,19 +29,34 @@ import torch
 from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
-    LOG2E,
     _check,
     _check_seg,
     _check_tma_bases,
+    _qscale,
     _raise_on,
     _sm_count,
     _tile_height,
     check_block_m,
     keep_mask,
     kv_row,
+    tile_heights,
 )
 
 TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTile)
+
+
+def f32_tile(d: int) -> int:
+    """The f32 CUDA-core pair's tile (q rows and keys): 64, or 32 at d 256,
+    where four [64][d + 1] f32 tiles alone would pass a block's shared
+    memory (f32_tile in flash_bwd.cu)."""
+    return 32 if d > 128 else TILE
+
+
+def kv_split(d: int) -> int:
+    """Consumer warpgroups of the bf16 dK/dV kernel per 64 keys: 2 at d 256,
+    each accumulating dK and dV for half the head dim (kv_split in
+    flash_bwd.cu), else 1."""
+    return 2 if d > 128 else 1
 TRI_BWD_STAGES = 2  # ring depth of the bf16 pairs (kStages in flash_bwd.cu)
 # the bf16 general pair's staged segment ids: per stage 64 int32 and their
 # min and max (kSegBytes in flash_bwd.cu)
@@ -55,17 +70,19 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def attention_bwd_plain(qb, kb, vb, out, lse, dout, heads: int, kv_heads: int, causal: bool,
                         window: Optional[int] = None,
-                        seg: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                        seg: Optional[torch.Tensor] = None,
+                        sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
     """Dense masked float32 FlashAttention-2 backward with the kernels'
     masking (:func:`keep_mask`) and rounding points: P is recomputed from
     lse with the reference's guards (masked pairs and rows with lse = -inf
-    give 0), dS = P∘(dP − Δ)/√d with Δ = rowsum(dO∘O), P is rounded to dO's
-    dtype before dV = Pᵀ·dO and dS to the input dtype before dQ = dS·K and
-    dK = dSᵀ·Q. A GQA group's q heads sum into their kv head. Returns
-    (dq, dk, dv) in the inputs' dtypes."""
+    give 0), dS = P∘(dP − Δ)·c with Δ = rowsum(dO∘O) and c the softmax
+    scale ``sm_scale`` (default 1/√d), P is rounded to dO's dtype before
+    dV = Pᵀ·dO and dS to the input dtype before dQ = dS·K and dK = dSᵀ·Q. A
+    GQA group's q heads sum into their kv head. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
     bh, s, d = qb.shape
     group = heads // kv_heads
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     rows = kv_row(torch.arange(bh, device=qb.device), heads, kv_heads)
     q, do = qb.float(), dout.float()
     k, v = kb.float()[rows], vb.float()[rows]
@@ -164,25 +181,27 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
     """The (dq, dkv) plans of either pair; ``ids``: bytes of the general
     pair's staged segment ids (0 for the triangle); ``block_m`` forces both
     kernels' tile height (checked against ``dtype``)."""
-    check_block_m(dtype, block_m)
+    check_block_m(dtype, block_m, d)
     if dtype == torch.float32:
-        tiles = -(-s // TILE)
-        dq = BwdPlan("dq", TILE, 256, (tiles, bh),
-                     4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0, causal, window)
-        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
-                      4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0,
-                      causal, window)
+        t = f32_tile(d)
+        tiles = -(-s // t)
+        dq = BwdPlan("dq", t, 256, (tiles, bh),
+                     4 * (4 * t * (d + 1) + t * (t + 1)) + 4 * t, 0, causal, window)
+        dkv = BwdPlan("dkv", t, 256, (tiles, bh_kv),
+                      4 * (4 * t * (d + 1) + 2 * t * (t + 1) + 2 * t) + 4 * t, 0, causal, window)
         return dq, dkv
 
     def plan(kernel: str, rows: int) -> BwdPlan:
-        block = _tile_height(rows, s, sms, block_m)
+        block = _tile_height(rows, s, sms, block_m, tile_heights(dtype, d))
         smem = (1024 + (2 * block + 2 * TRI_BWD_STAGES * TILE) * d * 2 + ids
                 + 8 * (2 * TRI_BWD_STAGES + 1))
         if kernel == "dkv":
             smem += 2 * TRI_BWD_STAGES * TILE * 4
-        # consumer warpgroups of 64 rows, and the producer: one warp for dq,
-        # a whole warpgroup for dkv (setmaxnreg hands its registers over)
-        threads = 2 * block + (32 if kernel == "dq" else 128)
+        # consumer warpgroups of 64 rows (dkv at d 256: two per 64 keys,
+        # kv_split), and the producer: one warp for dq, a whole warpgroup
+        # for dkv (setmaxnreg hands its registers over)
+        split = 1 if kernel == "dq" else kv_split(d)
+        threads = 2 * block * split + (32 if kernel == "dq" else 128)
         return BwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64),
                        causal, window)
 
@@ -206,10 +225,14 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     K and V), ``TRI_BWD_STAGES`` pairs of the ring's 64-row tiles (dkv:
     with their f32 lse and delta), 1 KiB of alignment slack and five
     mbarriers. Swizzle: the span of a row of one TMA box (32 B at d 16,
-    64 B at d 32, 128 B at d 64 and 128). f32 keeps the CUDA-core kernels'
-    fixed plans (``block_m`` 64 only); any other ``block_m`` raises
-    ``ValueError``. The kernels check the plan against their own layout and
-    refuse one that differs."""
+    64 B at d 32, 128 B at d 64, 128 and 256). At d 256 both take 64-row
+    tiles (``TILE_HEIGHTS``), and a dkv CTA has two consumer warpgroups,
+    each on half the head dim (:func:`kv_split`). f32 keeps the CUDA-core
+    kernels' fixed plans (``block_m`` 64 only; 32-row tiles at d 256,
+    :func:`f32_tile`; rows on the grid's y, which the kernels split into z
+    slices of 65,535); any other ``block_m`` raises ``ValueError``. The
+    kernels check the plan against their own layout and refuse one that
+    differs."""
     return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, 0, block_m)
 
 
@@ -269,17 +292,18 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: int,
-            kv_heads: int, plan: BwdPlan, extra=()) -> None:
+            kv_heads: int, plan: BwdPlan, extra=(), sm_scale: Optional[float] = None) -> None:
     """Launch ``name`` with ``plan`` on the current stream; ``extra`` sits
     between the shape arguments and the two scales (the rect kernels'
-    causal/window)."""
+    causal/window); ``sm_scale`` is the softmax scale (default 1/√d)."""
     _, s, d = qb.shape
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(_lib(), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
-            *extra, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), plan.block, plan.smem_bytes,
+            *extra, _qscale(d, scale), scale, plan.block, plan.smem_bytes,
             plan.swizzle, stream,
         )
     _raise_on(code, name)
@@ -302,70 +326,79 @@ def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
 
 
 def flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,
-                     block_m: Optional[int] = None):
+                     block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """Plain-causal dQ: the port of ``_flash_dq_tri_kernel``. ``block_m``
     forces the tile height (checked on the CPU too, where it changes
-    nothing)."""
-    check_block_m(qb.dtype, block_m)
+    nothing); ``sm_scale`` is the softmax scale (default 1/√d; a padded
+    head passes its true head dim's)."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
-        return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[0]
+        return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True,
+                                   sm_scale=sm_scale)[0]
     plan, _ = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, block_m=block_m)
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_tri", qb, kb, vb, dout, lse, delta, (dq.data_ptr(),),
-            qb.shape[0], heads, kv_heads, plan)
+            qb.shape[0], heads, kv_heads, plan, sm_scale=sm_scale)
     flash_bwd_dq_tri.launches += 1
     return dq
 
 
 def flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,
-                      block_m: Optional[int] = None):
+                      block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """Plain-causal (dK, dV), a GQA group summed per kv head: the port of
-    ``_flash_dkv_tri_kernel``; ``block_m`` as :func:`flash_bwd_dq_tri`'s."""
-    check_block_m(qb.dtype, block_m)
+    ``_flash_dkv_tri_kernel``; ``block_m`` and ``sm_scale`` as
+    :func:`flash_bwd_dq_tri`'s."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
-        return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True)[1:]
+        return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True,
+                                   sm_scale=sm_scale)[1:]
     _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, block_m=block_m)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_tri", qb, kb, vb, dout, lse, delta, (dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads, plan)
+            kb.shape[0], heads, kv_heads, plan, sm_scale=sm_scale)
     flash_bwd_dkv_tri.launches += 1
     return dk, dv
 
 
 def flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,
                       causal: bool, window: Optional[int] = None,
-                      seg: Optional[torch.Tensor] = None, block_m: Optional[int] = None):
+                      seg: Optional[torch.Tensor] = None, block_m: Optional[int] = None,
+                      sm_scale: Optional[float] = None):
     """dQ for causal or full attention, a window, segment ids (B, S) int32:
-    the port of ``_flash_dq_kernel``; ``block_m`` as :func:`flash_bwd_dq_tri`'s."""
-    check_block_m(qb.dtype, block_m)
+    the port of ``_flash_dq_kernel``; ``block_m`` and ``sm_scale`` as
+    :func:`flash_bwd_dq_tri`'s."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, causal,
-                                   window, seg)[0]
+                                   window, seg, sm_scale)[0]
     plan, _ = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, (causal, window, seg),
                      block_m)
     dq = torch.empty_like(qb)
     _launch("flash_bwd_dq_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dq.data_ptr()), qb.shape[0], heads,
-            kv_heads, plan, (int(causal), 0 if window is None else int(window)))
+            kv_heads, plan, (int(causal), 0 if window is None else int(window)), sm_scale)
     flash_bwd_dq_rect.launches += 1
     return dq
 
 
 def flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,
                        causal: bool, window: Optional[int] = None,
-                       seg: Optional[torch.Tensor] = None, block_m: Optional[int] = None):
+                       seg: Optional[torch.Tensor] = None, block_m: Optional[int] = None,
+                       sm_scale: Optional[float] = None):
     """(dK, dV) for causal or full attention, a window, segment ids, GQA:
-    the port of ``_flash_dkv_kernel``; ``block_m`` as :func:`flash_bwd_dq_tri`'s."""
-    check_block_m(qb.dtype, block_m)
+    the port of ``_flash_dkv_kernel``; ``block_m`` and ``sm_scale`` as
+    :func:`flash_bwd_dq_tri`'s."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, causal,
-                                   window, seg)[1:]
+                                   window, seg, sm_scale)[1:]
     _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, (causal, window, seg),
                      block_m)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            kb.shape[0], heads, kv_heads, plan, (int(causal), 0 if window is None else int(window)))
+            kb.shape[0], heads, kv_heads, plan, (int(causal), 0 if window is None else int(window)),
+            sm_scale)
     flash_bwd_dkv_rect.launches += 1
     return dk, dv
 

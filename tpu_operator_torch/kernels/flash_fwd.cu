@@ -30,11 +30,15 @@
 // them; P is rounded to bf16 before P.V and the row sum is taken from the
 // unrounded P. Swizzle per D matches the TMA box to the wgmma descriptor:
 // 32B at D 16, 64B at D 32, 128B at D 64 and 128B over two 64-column boxes
-// at D 128. The tile height, grid, shared-memory bytes and swizzle come
-// from the caller's plan (flash_fwd.py::tri_plan, rect_plan), which this
-// file checks against its own layout. No setmaxnreg: with one producer warp
-// beside at most two warpgroups the register cap (224 a thread at WG = 2)
-// holds the O and S accumulators.
+// at D 128, four at D 256. The tile height, grid, shared-memory bytes and
+// swizzle come from the caller's plan (flash_fwd.py::tri_plan, rect_plan),
+// which this file checks against its own layout. No setmaxnreg: with one
+// producer warp beside at most two warpgroups the register cap (168 a
+// thread at WG = 2, 255 at WG = 1) holds the O and S accumulators. At D 256
+// only WG = 1 is built: O (128 f32), S (32) and P (16) are 176 registers a
+// thread, past WG = 2's cap, and the triangle's two-stage ring of 128-key
+// K and V tiles would need 328,744 bytes of shared memory; P.V is one
+// m64n256k16 wgmma per 16 keys.
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -60,7 +64,9 @@
 //     warpgroup's id range in registers.
 //
 // f32 (attend<float, D, TRI>, the triangle and the general masks): one CTA
-// of 256 threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores.
+// of 256 threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores,
+// q tiles on the grid's x and bh rows on y and z (kMaxGridY rows a z slice,
+// so any number of rows launches at once).
 // The k loop visits only the tiles some row of the q tile can see. K and V
 // tiles are staged through shared memory as f32; each thread owns a 4 x 4
 // block of the score tile and the matching 4 x D/16 block of the output
@@ -95,6 +101,7 @@ constexpr int kRN = kBN / 16;   // score columns per thread
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kUnsupported = -1;
 constexpr int kNoTensorMap = -2;  // cuTensorMapEncodeTiled missing or refused the map
+constexpr int kMaxGridY = 65535;  // the CUDA-core kernels' bh rows per z slice of the grid
 
 struct Params {
   const void* q;      // (bh, sq, D)
@@ -107,6 +114,7 @@ struct Params {
   int causal, q_start, k_start, window;  // window <= 0: no window (a causal band only)
   float qscale;       // softmax scale * log2(e): folded into q (CUDA cores), or
                       // applied to q.k after the product (tensor cores)
+  int rows;           // bh
 };
 
 // The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
@@ -137,10 +145,11 @@ __device__ __forceinline__ void attend(const Params& p) {
   float* ps = vs + kBN * LD;
   int* kseg = reinterpret_cast<int*>(ps + kBM * LP);
 
+  const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (bh >= p.rows) return;  // past the last row in the last z slice
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
   const int b = bh / p.heads;
   // grouped-query attention: q heads share kv heads in groups (_kv_row)
@@ -828,7 +837,9 @@ int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
   if (block_m == 64) return launch_tc<D, 1, TRI>(p, bh, smem, stream);
-  if (block_m == 128) return launch_tc<D, 2, TRI>(p, bh, smem, stream);
+  if constexpr (D <= 128) {  // D 256: one warpgroup only (see the note on top)
+    if (block_m == 128) return launch_tc<D, 2, TRI>(p, bh, smem, stream);
+  }
   return kUnsupported;
 }
 
@@ -843,7 +854,8 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
   const int smem = static_cast<int>(smem_bytes(D));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + kBM - 1) / kBM, bh);
+  const dim3 grid((p.sq + kBM - 1) / kBM, bh < kMaxGridY ? bh : kMaxGridY,
+                  (bh + kMaxGridY - 1) / kMaxGridY);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -853,7 +865,7 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
 template <bool TRI>
 int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
              void* stream) {
-  if (!(bh > 0 && bh <= 65535 && p.sq > 0 && p.sk > 0 && p.heads > 0 && p.kv_heads > 0 &&
+  if (!(bh > 0 && p.sq > 0 && p.sk > 0 && p.heads > 0 && p.kv_heads > 0 &&
         p.heads % p.kv_heads == 0)) {
     return kUnsupported;
   }
@@ -864,6 +876,7 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
       case 32: return dispatch_tc<32, TRI>(p, bh, block_m, smem, swizzle, st);
       case 64: return dispatch_tc<64, TRI>(p, bh, block_m, smem, swizzle, st);
       case 128: return dispatch_tc<128, TRI>(p, bh, block_m, smem, swizzle, st);
+      case 256: return dispatch_tc<256, TRI>(p, bh, block_m, smem, swizzle, st);
       default: return kUnsupported;
     }
   }
@@ -875,6 +888,7 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
     case 32: return launch<32, TRI>(p, bh, st);
     case 64: return launch<64, TRI>(p, bh, st);
     case 128: return launch<128, TRI>(p, bh, st);
+    case 256: return launch<256, TRI>(p, bh, st);
     default: return kUnsupported;
   }
 }
@@ -892,7 +906,7 @@ extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* 
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,
                              void* stream) {
-  Params p{q, k, v, nullptr, o, lse, s, s, heads, kv_heads, 1, 0, 0, 0, qscale};
+  Params p{q, k, v, nullptr, o, lse, s, s, heads, kv_heads, 1, 0, 0, 0, qscale, bh};
   return dispatch<true>(p, dtype, bh, d, block_m, smem, swizzle, stream);
 }
 
@@ -905,6 +919,6 @@ extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const
                               void* stream) {
   if (seg != nullptr && sq != sk) return kUnsupported;
   Params p{q, k, v, seg, o, lse, sq, sk, heads, kv_heads, causal, q_start, k_start,
-           causal && window > 0 ? window : 0, qscale};
+           causal && window > 0 ? window : 0, qscale, bh};
   return dispatch<false>(p, dtype, bh, d, block_m, smem, swizzle, stream);
 }

@@ -12,6 +12,11 @@ wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
 In bf16 both kernels run on the tensor cores (wgmma, TMA: q, k, v and
 out need 16-byte-aligned bases) with the launch plans of
 :func:`tri_plan` and :func:`rect_plan`; f32 runs on the CUDA cores.
+
+The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 256); a caller
+with another head dim up to 256 zero-pads the head to
+:func:`padded_head_dim` and passes the true head dim's softmax scale as
+``sm_scale`` (``workloads/flashattention.py`` does both).
 """
 
 from __future__ import annotations
@@ -27,9 +32,25 @@ import torch
 from tpu_operator_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims whose bf16 kernels take both tile heights (64 and 128 rows)
 HEAD_DIMS = (16, 32, 64, 128)
+# every head dim the kernels take: D 256 in 64-row tiles only (its 128-row
+# tiles would not fit a block's shared memory or a thread's registers)
+NATIVE_HEAD_DIMS = HEAD_DIMS + (256,)
+MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
 LOG2E = 1.4426950408889634
 TMA_ALIGN = 16  # bytes: base alignment a TMA tensor map needs
+
+
+def padded_head_dim(d: int) -> int:
+    """The smallest head dim in ``NATIVE_HEAD_DIMS`` that holds ``d``: a
+    head of d columns runs zero-padded to it, which changes neither q·k,
+    nor lse, nor rowsum(dO∘O). Raises ``ValueError`` above
+    ``MAX_HEAD_DIM``: wgmma's N stops at 256 (ROADMAP.md item 21)."""
+    if isinstance(d, bool) or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be 1 to {MAX_HEAD_DIM}, got {d!r}: head dims above "
+                         f"{MAX_HEAD_DIM} are ROADMAP.md item 21")
+    return next(n for n in NATIVE_HEAD_DIMS if n >= d)
 
 
 def kv_row(i, heads: int, kv_heads: int):
@@ -63,16 +84,19 @@ def keep_mask(bh: int, sq: int, sk: int, heads: int, causal: bool,
 def attention_plain(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
                     q_start: int = 0, k_start: int = 0,
                     window: Optional[int] = None,
-                    seg: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    seg: Optional[torch.Tensor] = None,
+                    sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense masked float32 softmax attention with the kernels' masking
     (:func:`keep_mask`), GQA, and fully masked rows giving O = 0 and
-    lse = -inf. Returns (O in q's dtype, lse float32)."""
+    lse = -inf; scores scaled by ``sm_scale`` (default 1/√d). Returns (O in
+    q's dtype, lse float32)."""
     bh, sq, d = qb.shape
     sk = kb.shape[1]
     kv = kv_row(torch.arange(bh, device=qb.device), heads, kv_heads)
     k = kb.float()[kv]
     v = vb.float()[kv]
-    s = torch.einsum("bqd,bkd->bqk", qb.float(), k) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    s = torch.einsum("bqd,bkd->bqk", qb.float(), k) * scale
     keep = keep_mask(bh, sq, sk, heads, causal, q_start, k_start, window, seg, qb.device)
     s = s.masked_fill(~keep, -math.inf)
     lse = torch.logsumexp(s, dim=-1)
@@ -104,25 +128,46 @@ class TriPlan:
 
 
 TRI_STAGES = 2  # K/V ring depth of the bf16 kernel (kStages in flash_fwd.cu)
-# the q-tile heights (rows) a plan may take: bf16 one or two consumer
-# warpgroups, f32 its CUDA-core kernel's fixed 64
-TILE_HEIGHTS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
+# the q-tile heights (rows) a plan may take per (dtype, native head dim):
+# bf16 one or two consumer warpgroups, one only at D 256; f32 its CUDA-core
+# kernels' fixed 64 (the knob of the forward; the f32 backward at D 256
+# runs its fixed 32-row plan, flash_bwd.f32_tile)
+TILE_HEIGHTS = {
+    **{(torch.bfloat16, d): (64, 128) for d in HEAD_DIMS},
+    (torch.bfloat16, 256): (64,),
+    **{(torch.float32, d): (64,) for d in NATIVE_HEAD_DIMS},
+}
 
 
-def check_block_m(dtype: torch.dtype, block_m: Optional[int]) -> None:
+def tile_heights(dtype: torch.dtype, d: Optional[int] = None) -> Tuple[int, ...]:
+    """The tile heights the kernels of ``dtype`` take at head dim ``d``
+    (padded to a native one); with no ``d``, at any head dim. A dtype no
+    kernel takes answers as bf16 does, so that its error is the dtype's."""
+    if dtype not in _DTYPES:
+        dtype = torch.bfloat16
+    if d is None:
+        return tuple(sorted({h for (t, _), hs in TILE_HEIGHTS.items() if t == dtype for h in hs}))
+    return TILE_HEIGHTS[dtype, padded_head_dim(d)]
+
+
+def check_block_m(dtype: torch.dtype, block_m: Optional[int], d: Optional[int] = None) -> None:
     """Raise ``ValueError`` unless ``block_m`` is None (the plan chooses) or
-    a tile height the kernels of ``dtype`` take (``TILE_HEIGHTS``)."""
-    allowed = TILE_HEIGHTS.get(dtype, TILE_HEIGHTS[torch.bfloat16])
+    a tile height the kernels of ``dtype`` take at head dim ``d``
+    (:func:`tile_heights`; any head dim when ``d`` is None)."""
+    allowed = tile_heights(dtype, d)
     if block_m is not None and (isinstance(block_m, bool) or block_m not in allowed):
-        raise ValueError(f"block_m must be one of {allowed} for {dtype}, got {block_m!r}")
+        at = "" if d is None else f" at head_dim {d}"
+        raise ValueError(f"block_m must be one of {allowed} for {dtype}{at}, got {block_m!r}")
 
 
-def _tile_height(rows: int, s: int, sms: int, block_m: Optional[int]) -> int:
-    """``block_m`` when forced, else 128 once ``rows`` x 128-row tiles of s
-    fill one wave of CTAs on ``sms`` streaming multiprocessors, else 64."""
+def _tile_height(rows: int, s: int, sms: int, block_m: Optional[int],
+                 heights: Tuple[int, ...]) -> int:
+    """``block_m`` when forced, else 128 (when ``heights`` has it) once
+    ``rows`` x 128-row tiles of s fill one wave of CTAs on ``sms`` streaming
+    multiprocessors, else 64."""
     if block_m is not None:
         return int(block_m)
-    return 128 if rows * -(-s // 128) >= sms else 64
+    return 128 if 128 in heights and rows * -(-s // 128) >= sms else 64
 
 
 def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
@@ -137,15 +182,17 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     the q tiles walked heaviest first; shared memory for the Q tile and
     ``TRI_STAGES`` K and V tiles, 1 KiB of alignment slack and five
     mbarriers; the swizzle span of a row of one TMA box (32 B at d 16, 64 B
-    at d 32, 128 B at d 64 and 128). f32 keeps the CUDA-core kernel's fixed
-    plan (``block_m`` 64 only). Any other ``block_m`` raises ``ValueError``.
-    The kernel checks the plan against its own layout and refuses one that
-    differs."""
-    check_block_m(dtype, block_m)
+    at d 32, 128 B at d 64, 128 and 256). At d 256 the tile is 64 rows
+    (``TILE_HEIGHTS``). f32 keeps the CUDA-core kernel's fixed plan
+    (``block_m`` 64 only; its grid's y runs over the bh rows, which the
+    kernel splits into z slices of 65,535). Any other ``block_m`` raises
+    ``ValueError``. The kernel checks the plan against its own layout and
+    refuses one that differs."""
+    check_block_m(dtype, block_m, d)
     if dtype == torch.float32:
         smem = 4 * ((64 + 2 * 64) * (d + 1) + 64 * (64 + 1)) + 4 * 64
         return TriPlan(64, 256, (-(-s // 64), bh), smem, 0)
-    block = _tile_height(bh, s, sms, block_m)
+    block = _tile_height(bh, s, sms, block_m, tile_heights(dtype, d))
     smem = 1024 + (block + 2 * TRI_STAGES * block) * d * 2 + 8 * (2 * TRI_STAGES + 1)
     return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64))
 
@@ -269,6 +316,9 @@ def _sm_count(index: int) -> int:
 
 
 def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
+    """The kernels' inputs: contiguous CUDA (rows, seq, D) tensors of one
+    dtype the kernels take, a native D shared by q, k and v, and as many
+    rows as the heads give. Any number of rows launches at once."""
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor for the kernel, got {t.device}")
@@ -280,13 +330,12 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
         raise ValueError(f"q/k/v must share a dtype in {list(_DTYPES)}: "
                          f"{qb.dtype}, {kb.dtype}, {vb.dtype}")
     d = qb.shape[2]
-    if d not in HEAD_DIMS or kb.shape[2] != d or vb.shape != kb.shape:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS} and match across q/k/v: "
+    if d not in NATIVE_HEAD_DIMS or kb.shape[2] != d or vb.shape != kb.shape:
+        raise ValueError(f"head_dim must be one of {NATIVE_HEAD_DIMS} (pad others with "
+                         f"padded_head_dim) and match across q/k/v: "
                          f"{tuple(qb.shape)}, {tuple(kb.shape)}, {tuple(vb.shape)}")
     if heads % kv_heads or qb.shape[0] // heads * kv_heads != kb.shape[0]:
         raise ValueError(f"rows {qb.shape[0]} / {kb.shape[0]} do not fit heads {heads} / {kv_heads}")
-    if qb.shape[0] > 65535:
-        raise ValueError(f"at most 65535 (batch·head) rows, got {qb.shape[0]}")
 
 
 def _check_tma_bases(**tensors) -> None:
@@ -331,16 +380,24 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
 
-def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] = None):
+def _qscale(d: int, sm_scale: Optional[float]) -> float:
+    """The kernels' score scale: the softmax scale (default 1/√d) times
+    log2(e), for their base-2 softmax."""
+    return LOG2E * (1.0 / math.sqrt(d) if sm_scale is None else sm_scale)
+
+
+def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] = None,
+                  sm_scale: Optional[float] = None):
     """Plain-causal forward (sq == sk, no offsets, window or segments):
     the port of ``_flash_fwd_tri_kernel``. bf16 runs on the tensor cores
     (wgmma, TMA: q, k, v need 16-byte-aligned bases), f32 on the CUDA
     cores; the launch follows :func:`tri_plan`, at the tile height
     ``block_m`` when given (checked on the CPU too, where it changes
-    nothing)."""
-    check_block_m(qb.dtype, block_m)
+    nothing). ``sm_scale`` is the softmax scale (default 1/√d; a padded
+    head passes its true head dim's)."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
-        return attention_plain(qb, kb, vb, heads, kv_heads, causal=True)
+        return attention_plain(qb, kb, vb, heads, kv_heads, causal=True, sm_scale=sm_scale)
     _check(qb, kb, vb, heads, kv_heads)
     bh, s, d = qb.shape
     if kb.shape[1] != s:
@@ -354,7 +411,7 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
         stream = torch.cuda.current_stream().cuda_stream
         code = _lib().flash_fwd_tri(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, LOG2E / math.sqrt(d),
+            _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, _qscale(d, sm_scale),
             plan.block_m, plan.smem_bytes, plan.swizzle, stream,
         )
     _raise_on(code, "flash_fwd_tri")
@@ -365,16 +422,17 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
 def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
                    q_start: int = 0, k_start: int = 0,
                    window: Optional[int] = None, seg: Optional[torch.Tensor] = None,
-                   block_m: Optional[int] = None):
+                   block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """General forward — causal or full, window, segment ids (B, S) int32,
     global offsets, sq != sk: the port of ``_flash_fwd_kernel``. bf16 runs
     on the tensor cores (wgmma, TMA: q, k, v need 16-byte-aligned bases),
     f32 on the CUDA cores; the launch follows :func:`rect_plan`, at the
-    tile height ``block_m`` when given."""
-    check_block_m(qb.dtype, block_m)
+    tile height ``block_m`` when given; ``sm_scale`` as
+    :func:`flash_fwd_tri`'s."""
+    check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
         return attention_plain(qb, kb, vb, heads, kv_heads, causal, q_start, k_start,
-                               window, seg)
+                               window, seg, sm_scale)
     _check(qb, kb, vb, heads, kv_heads)
     bh, sq, d = qb.shape
     sk = kb.shape[1]
@@ -393,7 +451,7 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
             None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, sq, sk, d, heads, kv_heads, int(causal),
             int(q_start), int(k_start), 0 if window is None else int(window),
-            LOG2E / math.sqrt(d), plan.block_m, plan.smem_bytes, plan.swizzle, stream,
+            _qscale(d, sm_scale), plan.block_m, plan.smem_bytes, plan.swizzle, stream,
         )
     _raise_on(code, "flash_fwd_rect")
     flash_fwd_rect.launches += 1

@@ -8,8 +8,9 @@
 // swizzled over that span, exactly as one TMA box of encode_map<D> lands. A
 // K-major wgmma operand (contracting over D) steps 32 bytes inside a box per
 // k16 step; an MN-major B operand (contracting over rows, the transpose
-// flag) steps 16 rows per k16 step and reaches the second 64-column box at
-// D = 128 through the descriptor's leading byte offset.
+// flag) steps 16 rows per k16 step and reaches the next 64-column boxes
+// (D = 128: one more, D = 256: three more) through the descriptor's leading
+// byte offset, the boxes lying evenly apart.
 //
 // kernels/build.py hashes every .cuh here with each source, so a change to
 // this file rebuilds both libraries.
@@ -38,7 +39,7 @@ template <int D>
 struct Geo {
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span
-  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, else 1
+  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, 4 at D = 256, else 1
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // bytes of one 8-row swizzle atom
   // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
@@ -239,6 +240,39 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0..128) += A(registers) . B(smem, MN-major), m64n256k16, bf16 in, f32 out
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void mma_scores(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
   if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
@@ -250,7 +284,8 @@ __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4]
   if constexpr (N == 16) wgmma_rs_n16(d, a, b);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else wgmma_rs_n256(d, a, b);
 }
 
 // acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
@@ -261,7 +296,7 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigne
   using G = Geo<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes
+    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes, 256 four
     const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
     const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
                                   16, G::kAtom, G::kLayout);
@@ -271,18 +306,20 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigne
   }
 }
 
-// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: a
-// [kRingRows][D] ring tile contracted over its rows)
-template <int D>
-__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                                 const unsigned char* b_tile) {
+// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: N columns
+// of a [kRingRows][D] ring tile, from column box `box` on, contracted over
+// its rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128.
+template <int D, int N = D>
+__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+                                                 const unsigned char* b_tile, int box = 0) {
   using G = Geo<D>;
+  const unsigned char* b = b_tile + box * kRingRows * G::kRowBytes;
 #pragma unroll
   for (int kk = 0; kk < kRingRows / 16; ++kk) {
-    // a k16 step is 16 rows, two 8-row atoms; the second 64-column box (D = 128) is LBO away
-    const uint64_t db = make_desc(b_tile + kk * 16 * G::kRowBytes, kRingRows * G::kRowBytes,
+    // a k16 step is 16 rows, two 8-row atoms; the next 64-column boxes are LBO apart
+    const uint64_t db = make_desc(b + kk * 16 * G::kRowBytes, kRingRows * G::kRowBytes,
                                   G::kAtom, G::kLayout);
-    mma_pv<D>(acc, a[kk], db);
+    mma_pv<N>(acc, a[kk], db);
   }
 }
 

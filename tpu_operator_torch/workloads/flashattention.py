@@ -22,6 +22,17 @@ in bf16, 64 in f32), forward and backward alike: unset, it is the
 published autotune winner's (``autotune.tuned_flash_tile``), else the
 launch plans choose. The plain versions on the CPU have no tiles: there
 the value is checked and changes nothing.
+
+Head dims: the kernels take 16, 32, 64, 128 and 256
+(``flash_fwd.NATIVE_HEAD_DIMS``); any other head dim up to 256 runs
+zero-padded to the next of those (:func:`_collapse_heads` writes the
+collapsed copy it makes anyway into a zero buffer that wide), with the
+true head dim's softmax scale passed down; the output and the gradients
+leave as views of their first D columns. Zero columns change neither
+q·k, nor lse, nor Δ = rowsum(dO∘O), and the padded output columns are
+zero, so the result is the unpadded one. The padded products are wasted
+work: 33% at 96 → 128, 14% at 112 → 128, 60% at 80 → 128 (native 80,
+96 and 112 are ROADMAP.md item 20). Above 256 raises (item 21).
 """
 
 from __future__ import annotations
@@ -38,29 +49,43 @@ from tpu_operator_torch.kernels.flash_bwd import (
     flash_bwd_dq_tri,
 )
 from tpu_operator_torch.kernels.flash_fwd import (
-    TILE_HEIGHTS,
+    _DTYPES,
     TMA_ALIGN,
     check_block_m,
     flash_fwd_rect,
     flash_fwd_tri,
+    padded_head_dim,
+    tile_heights,
 )
 from tpu_operator_torch.kernels.flash_fwd import kv_row as _kv_row  # noqa: F401  (reference name)
 
 
-def _collapse_heads(q, k, v):
+def _collapse_heads(q, k, v, width: Optional[int] = None):
     """Validate the GQA head layout and collapse (B, S, H, D) tensors to
-    contiguous (B·H, S, D) rows; returns (qb, kb, vb, h, h_kv)."""
+    contiguous (B·H, S, width) rows, the head zero-padded from D to
+    ``width`` (default D) in the same copy; returns (qb, kb, vb, h, h_kv)."""
     b, _, h, d = q.shape
     h_kv = k.shape[2]
     if h % h_kv:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
     if v.shape != k.shape:
         raise ValueError(f"k and v shapes must match: {tuple(k.shape)} vs {tuple(v.shape)}")
+    width = d if width is None else width
 
     def bh(x):
-        return x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d).contiguous()
+        x = x.transpose(1, 2)
+        if width != d:  # one copy either way: the pad's
+            x = torch.nn.functional.pad(x, (0, width - d))
+        return x.reshape(b * x.shape[1], x.shape[2], width).contiguous()
 
     return bh(q), bh(k), bh(v), h, h_kv
+
+
+def _head_dims(d: int):
+    """(the head dim the kernels run, the softmax scale): ``d`` padded to a
+    native head dim, and None (the kernels' own 1/√d) unless it was."""
+    width = padded_head_dim(d)
+    return width, (None if width == d else 1.0 / math.sqrt(d))
 
 
 def _causal_triangle_tables(nq: int, nk_total: int, block_q: int, block_k: int):
@@ -78,10 +103,11 @@ def _causal_triangle_tables(nq: int, nk_total: int, block_q: int, block_k: int):
 def _flash_forward(qb, kb, vb, causal: bool, block_q: int, block_k: int,
                    q_start: int = 0, k_start: int = 0, heads: Optional[int] = None,
                    kv_heads: Optional[int] = None, window: Optional[int] = None,
-                   seg=None, block_m: Optional[int] = None):
+                   seg=None, block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """(out (B·H, Sq, D), lse (B·H, Sq) natural log) over collapsed rows;
     ``seg`` is (B, S) int32. Chooses the triangle or the general kernel
-    exactly as the reference does, at the tile height ``block_m``."""
+    exactly as the reference does, at the tile height ``block_m``, with the
+    softmax scale ``sm_scale`` (None: 1/√D)."""
     s = qb.shape[1]
     sk = kb.shape[1]
     if window is not None and not (q_start == 0 and k_start == 0):
@@ -95,41 +121,46 @@ def _flash_forward(qb, kb, vb, causal: bool, block_q: int, block_k: int,
         and q_start == 0 and k_start == 0
     )
     if plain_causal:
-        return flash_fwd_tri(qb, kb, vb, heads, kv_heads, block_m)
+        return flash_fwd_tri(qb, kb, vb, heads, kv_heads, block_m, sm_scale=sm_scale)
     return flash_fwd_rect(qb, kb, vb, heads, kv_heads, causal, q_start, k_start, window, seg,
-                          block_m)
+                          block_m, sm_scale=sm_scale)
 
 
 def _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads: int, kv_heads: int,
-                       block_m: Optional[int] = None):
+                       block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """dQ over the causal triangle (the port of ``_flash_dq_tri_kernel``)."""
-    return flash_bwd_dq_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m)
+    return flash_bwd_dq_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
+                            sm_scale=sm_scale)
 
 
 def _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads: int, kv_heads: int,
-                        block_m: Optional[int] = None):
+                        block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """(dK, dV) over the causal triangle, each k tile walking every GQA
     group member's q tiles from the diagonal down (the port of
     ``_flash_dkv_tri_kernel``)."""
-    return flash_bwd_dkv_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m)
+    return flash_bwd_dkv_tri(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
+                             sm_scale=sm_scale)
 
 
 def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads: int,
-                    window: Optional[int] = None, seg=None, block_m: Optional[int] = None):
+                    window: Optional[int] = None, seg=None, block_m: Optional[int] = None,
+                    sm_scale: Optional[float] = None):
     """(dq, dk, dv) over collapsed rows: the triangle pair for plain causal
     attention, the general pair otherwise — the reference's choice — at
-    the tile height ``block_m``."""
+    the tile height ``block_m`` and the softmax scale ``sm_scale``."""
     # D_i = rowsum(dO ∘ O) in f32: plain tensor ops, as the reference
     # leaves it to XLA
     delta = (g.float() * out.float()).sum(-1)
     if causal and window is None and seg is None and kb.shape[1] == qb.shape[1]:
-        dq = _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m)
-        dk, dv = _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m)
+        dq = _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
+                                sm_scale=sm_scale)
+        dk, dv = _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
+                                     sm_scale=sm_scale)
         return dq, dk, dv
     dq = flash_bwd_dq_rect(qb, kb, vb, out, g, lse, delta, heads, kv_heads, causal, window, seg,
-                           block_m)
+                           block_m, sm_scale=sm_scale)
     dk, dv = flash_bwd_dkv_rect(qb, kb, vb, out, g, lse, delta, heads, kv_heads, causal,
-                                window, seg, block_m)
+                                window, seg, block_m, sm_scale=sm_scale)
     return dq, dk, dv
 
 
@@ -143,39 +174,43 @@ def _tma_aligned(x: torch.Tensor) -> torch.Tensor:
 class _FlashCore(torch.autograd.Function):
     """Forward through the forward kernels, saving (q, k, v, out, lse) and
     the segment ids; backward through the FlashAttention-2 dQ and dK/dV
-    kernels, both at the tile height ``block_m``. Segment ids and the
-    static arguments get no gradient."""
+    kernels, both at the tile height ``block_m`` and the softmax scale
+    ``sm_scale`` (None: 1/√D). Segment ids and the static arguments get no
+    gradient. A padded head's output cotangent comes zero-padded through
+    the slice the caller takes."""
 
     @staticmethod
     def forward(ctx, qb, kb, vb, seg, causal, block_q, block_k, heads, kv_heads, window,
-                block_m=None):
+                block_m=None, sm_scale=None):
         out, lse = _flash_forward(qb, kb, vb, causal, block_q, block_k, heads=heads,
-                                  kv_heads=kv_heads, window=window, seg=seg, block_m=block_m)
+                                  kv_heads=kv_heads, window=window, seg=seg, block_m=block_m,
+                                  sm_scale=sm_scale)
         ctx.save_for_backward(qb, kb, vb, out, lse, seg)
-        ctx.static = (causal, heads, kv_heads, window, block_m)
+        ctx.static = (causal, heads, kv_heads, window, block_m, sm_scale)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         qb, kb, vb, out, lse, seg = ctx.saved_tensors
-        causal, heads, kv_heads, window, block_m = ctx.static
+        causal, heads, kv_heads, window, block_m, sm_scale = ctx.static
         dq, dk, dv = _flash_bwd_impl(qb, kb, vb, out, lse, _tma_aligned(grad.contiguous()),
-                                     causal, heads, kv_heads, window, seg, block_m)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+                                     causal, heads, kv_heads, window, seg, block_m, sm_scale)
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 def _resolve_block_m(block_m: Optional[int], dtype: torch.dtype, seq_len: int, heads: int,
                      head_dim: int, fwd_bwd: bool) -> Optional[int]:
-    """An explicit ``block_m``, checked against ``dtype``; unset, the
-    published winner's for the shape class (the fwd+bwd family's when a
-    gradient will flow), when ``dtype``'s kernels take it; else None."""
+    """An explicit ``block_m``, checked against ``dtype`` at ``head_dim``;
+    unset, the published winner's for the shape class (the fwd+bwd family's
+    when a gradient will flow), when ``dtype``'s kernels take it at
+    ``head_dim`` (D 256 has no 128-row plan); else None."""
     if block_m is not None:
-        check_block_m(dtype, block_m)
+        check_block_m(dtype, block_m, head_dim)
         return block_m
     from tpu_operator_torch.workloads.autotune import tuned_flash_tile
 
     tuned = tuned_flash_tile(seq_len, heads=heads, head_dim=head_dim, fwd_bwd=fwd_bwd)
-    return tuned if tuned in TILE_HEIGHTS.get(dtype, ()) else None
+    return tuned if dtype in _DTYPES and tuned in tile_heights(dtype, head_dim) else None
 
 
 def flash_attention(
@@ -194,8 +229,10 @@ def flash_attention(
     last ``window`` positions (causal only); ``segment_ids`` (B, S) int
     restricts attention to same-segment pairs. Unset blocks resolve
     through the published autotune winners (``tuned_flash_blocks``), an
-    unset ``block_m`` through ``tuned_flash_tile``."""
+    unset ``block_m`` through ``tuned_flash_tile``. Any head dim up to 256
+    runs (zero-padded to the kernels' next native one); above 256 raises."""
     b, s, h, d = q.shape
+    width, sm_scale = _head_dims(d)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     block_m = _resolve_block_m(block_m, q.dtype, s, h, d, fwd_bwd=grad)
     if block_q is None or block_k is None:
@@ -212,7 +249,7 @@ def flash_attention(
         raise ValueError("window requires causal attention and window >= 1")
     if k.shape[1] != s:
         raise ValueError(f"k/v seq_len {k.shape[1]} must equal q's ({s})")
-    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v)
+    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v, width)
     seg = None
     if segment_ids is not None:
         if tuple(segment_ids.shape) != (b, s):
@@ -222,8 +259,9 @@ def flash_attention(
         if segment_ids.is_floating_point() or segment_ids.is_complex() or segment_ids.dtype == torch.bool:
             raise ValueError(f"segment_ids must be integral, got {segment_ids.dtype}")
         seg = segment_ids.to(torch.int32).contiguous()
-    out = _FlashCore.apply(qb, kb, vb, seg, causal, block_q, block_k, h, h_kv, window, block_m)
-    return out.reshape(b, h, s, d).transpose(1, 2)
+    out = _FlashCore.apply(qb, kb, vb, seg, causal, block_q, block_k, h, h_kv, window, block_m,
+                           sm_scale)
+    return out[..., :d].reshape(b, h, s, d).transpose(1, 2)
 
 
 def flash_attention_with_lse(
@@ -241,9 +279,11 @@ def flash_attention_with_lse(
     offsets for the causal mask (the ring and chunked-prefill building
     block). q may be shorter than k/v. lse is (B, Sq, H), natural log;
     a row with no visible key gets out 0 and lse -inf. ``block_m`` as
-    :func:`flash_attention`'s (the forward family's winner)."""
+    :func:`flash_attention`'s (the forward family's winner); head dims as
+    :func:`flash_attention`'s."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    width, sm_scale = _head_dims(d)
     block_m = _resolve_block_m(block_m, q.dtype, sq, h, d, fwd_bwd=False)
     block_q = min(block_q, sq)
     block_k = min(block_k, sk)
@@ -251,12 +291,12 @@ def flash_attention_with_lse(
         raise ValueError(
             f"seq lens ({sq}, {sk}) must divide by blocks ({block_q}, {block_k})"
         )
-    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v)
+    qb, kb, vb, h, h_kv = _collapse_heads(q, k, v, width)
     out, lse = _flash_forward(
         qb, kb, vb, causal, block_q, block_k, q_start, k_start, heads=h, kv_heads=h_kv,
-        block_m=block_m,
+        block_m=block_m, sm_scale=sm_scale,
     )
-    out = out.reshape(b, h, sq, d).transpose(1, 2)
+    out = out[..., :d].reshape(b, h, sq, d).transpose(1, 2)
     lse = lse.reshape(b, h, sq).transpose(1, 2)  # (B, S, H)
     return out, lse
 
