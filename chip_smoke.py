@@ -10,13 +10,16 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 1. device — CUDA must be present; prints the card's name and power limit;
 2. build — compiles every CUDA source of the ``KERNELS`` table
    (``flash_fwd.cu``, ``flash_bwd.cu``, ``triad.cu``) from the repository,
-   one ``nvcc`` each, started together; prints each library's ptxas
-   report (registers, spills) and, from ``cuobjdump --dump-sass``, the
-   ``HGMMA`` (tensor-core) instructions of every bf16 instantiation of
-   both forward kernels (18: the triangle's 9 and the general kernel's 9,
-   head dims 16-128 at one and two warpgroups and 256 at one) and of both
-   backward pairs (36), failing when one has none, spills registers, or
-   ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
+   and the two flash sources again for fp16 (``build.VARIANTS``:
+   ``flash_fwd_f16``, ``flash_bwd_f16``), one ``nvcc`` each, all five
+   started together; prints each library's ptxas report (registers,
+   spills) and, from ``cuobjdump --dump-sass``, the ``HGMMA`` (tensor-core)
+   instructions of every bf16 instantiation of both forward kernels (18:
+   the triangle's 9 and the general kernel's 9, head dims 16-128 at one and
+   two warpgroups and 256 at one) and of both backward pairs (36), and of
+   the same 18 + 36 in fp16 (54), failing when one has none, spills
+   registers, or ptxas serialized its ``wgmma`` or ignored its
+   ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -39,8 +42,16 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    chunk) and on the zero-padded route (Phi-3-mini's (1,4096,32,96), and
    head dims 80 and 112, each run at 128 with its own scale and held to the
    plain version at its own head dim); bf16 rows at head dim 256 have one
-   tile height only, so they time no other; then the validator payload
-   ``run_flash_attention_check()``;
+   tile height only, so they time no other; fp16 rows of all six flash
+   kernels (``FLOAT16_KERNEL_CASES``, ``FLOAT16_BWD_CASES``) at the burn-in's
+   (8,128,4,64) plain and packed, (1,4096,8,128), Phi-3-mini's padded
+   (1,4096,32,96) plain and packed and Gemma-2B's (1,8192,8,256) with one kv
+   head, SDPA timed in fp16, each also run in bf16 on its inputs rounded to
+   bf16, whose error it must stay below, and one backward row whose dO is
+   scaled by 2^-22 (Phi-3-mini's full-width cotangent, fp16 subnormals),
+   held to the plain version within 2e-2 of max |grad| or the subnormal
+   steps a differently rounded dS can move (``FP16_SUBNORMAL_STEP``); then
+   the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
 5. serving — the default-geometry ``DecodeEngine`` with flash prefill
@@ -138,9 +149,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 11. replicas — serving replicas (``ServingWorkerMain``, flash prefill)
    warm-started through the fleet compile cache: (a) a process of its own
    over an empty ``TPU_COMPILE_CACHE_DIR`` misses, builds ``flash_fwd``
-   into it and publishes its measured warm-up; (b) a second process over
-   that directory and ConfigMap hits and creates or rewrites no file
-   there; (c) an aggregated replica and (d) a prefill-pool and a
+   (and no fp16 library) into it and publishes its measured warm-up; (b)
+   a second process over that directory and ConfigMap hits and creates or
+   rewrites no file there; (c) an aggregated replica and (d) a prefill-pool and a
    decode-pool replica with the router's hand-off loop answer phase 5's
    16 requests with phase 5's greedy tokens (48 ``flash_fwd_rect``
    launches each, nothing else); tok/s and TTFT of both;
@@ -227,7 +238,23 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``flash_fwd_rect`` launches; (d) Phi-3-mini's widths (``PHI3_MINI``:
    d_model 3072, 32 heads, head dim 96, d_ff 8192, seq 4096; depth cut 32
    -> 1), the zero-padded route, ``run_burnin(steps=3)`` against the dense
-   path with (a)'s bars and exact launches.
+   path with (a)'s bars and exact launches;
+16. float16 — a TPUJob config that asks for ``dtype: float16``: (a) at
+   ``entry()`` widths with flash attention, ``run_burnin(steps=3)`` plain,
+   ``kv_heads=2``, ``packed_segments=2`` and ``moe_experts=4``, each with
+   its exact launches (every launch of this phase is an fp16 one), held to
+   the fp16 dense path within 2e-2 relative (packed: the CPU plain
+   versions), ``GRAPH_STEPS`` graphed steps against the eager step within
+   ``GRAPH_REL_TOL``, the step's eager, replayed and device ms; (b)
+   Phi-3-mini's widths (``PHI3_MINI_F16``, depth cut 32 -> 1) through
+   ``training.trainer_config``: phase 15 (a)'s bars (flash against dense,
+   the seeded forward output within ``FORWARD_GAP_TOL``, the graphed steps,
+   the elastic trainer for 6 steps with a fault at 5 and a resume, the
+   packed run against the dense path under the documents' mask); and at
+   both widths the cotangent that reaches attention's backward (its share
+   of exact zeros and of subnormals, rms and max) beside the magnitude the
+   loss reckons, 2·√loss/N; the card's name and power limit on every
+   line of numbers.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -262,6 +289,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
+              torch.float16: 989e12,            # dense tensor-core fp16
               torch.float32: 67e12}             # f32 outside the tensor cores
 BF16_TOL, F32_TOL, LSE_TOL = 2e-2, 1e-4, 1e-3
 FLASH_REFERENCE = "tpu_operator/workloads/flashattention.py"
@@ -438,16 +466,30 @@ def hgmma_counts(sass: str) -> dict:
     return counts
 
 
+# the tensor-core kernels' element types as the mangled names spell them
+BF16_MANGLED, F16_MANGLED = "13__nv_bfloat16", "6__half"
+
+
+def _fwd_label(mangled: str, elem: str):
+    found = re.search(rf"flash_fwd_(tri|rect)_kernelI{elem}Li(\d+)ELi(\d+)E", mangled)
+    if not found:
+        return None
+    kind, d, wg = found.groups()
+    return f"{'rect_' if kind == 'rect' else ''}d{d}_wg{wg}"
+
+
 def fwd_bf16_label(mangled: str):
     """A label for a bf16 tensor-core instantiation of a forward kernel:
     ``d<D>_wg<WG>`` for the triangle (``flash_fwd_tri_kernel<__nv_bfloat16,
     D, WG>``), ``rect_d<D>_wg<WG>`` for the general kernel
     (``flash_fwd_rect_kernel<...>``); else None."""
-    found = re.search(r"flash_fwd_(tri|rect)_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", mangled)
-    if not found:
-        return None
-    kind, d, wg = found.groups()
-    return f"{'rect_' if kind == 'rect' else ''}d{d}_wg{wg}"
+    return _fwd_label(mangled, BF16_MANGLED)
+
+
+def fwd_f16_label(mangled: str):
+    """:func:`fwd_bf16_label` for the fp16 instantiations
+    (``flash_fwd_{tri,rect}_kernel<__half, D, WG>``)."""
+    return _fwd_label(mangled, F16_MANGLED)
 
 
 def tri_bf16_label(mangled: str):
@@ -457,18 +499,27 @@ def tri_bf16_label(mangled: str):
     return None if label is None or label.startswith("rect_") else label
 
 
+def _bwd_label(mangled: str, elem: str):
+    found = re.search(rf"flash_bwd_(dq|dkv)_(tri|rect)_kernelI{elem}Li(\d+)ELi(\d+)E", mangled)
+    if not found:
+        return None
+    kind, pair, d, wg = found.groups()
+    return f"{kind}{'_rect' if pair == 'rect' else ''}_d{d}_wg{wg}"
+
+
 def tri_bwd_bf16_label(mangled: str):
     """A label for a bf16 tensor-core instantiation of a backward pair:
     ``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for the triangle pair
     (``flash_bwd_{dq,dkv}_tri_kernel<__nv_bfloat16, D, WG>``),
     ``dq_rect_d<D>_wg<WG>`` or ``dkv_rect_d<D>_wg<WG>`` for the general
     pair (``flash_bwd_{dq,dkv}_rect_kernel<...>``); else None."""
-    found = re.search(r"flash_bwd_(dq|dkv)_(tri|rect)_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E",
-                      mangled)
-    if not found:
-        return None
-    kind, pair, d, wg = found.groups()
-    return f"{kind}{'_rect' if pair == 'rect' else ''}_d{d}_wg{wg}"
+    return _bwd_label(mangled, BF16_MANGLED)
+
+
+def bwd_f16_label(mangled: str):
+    """:func:`tri_bwd_bf16_label` for the fp16 instantiations
+    (``flash_bwd_{dq,dkv}_{tri,rect}_kernel<__half, D, WG>``)."""
+    return _bwd_label(mangled, F16_MANGLED)
 
 
 # library: (label of a tensor-core instantiation, how many it must have)
@@ -478,6 +529,12 @@ TENSOR_CORE_KERNELS = {
 }
 # and at head dim 256, one warpgroup only: per library, how many more
 HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
+# the fp16 libraries (kernels/build.py VARIANTS: the same sources built with
+# -DFLASH_ELEM_F16) hold the same instantiations in fp16, and no other
+FLOAT16_TENSOR_CORE_KERNELS = {
+    "flash_fwd_f16": (fwd_f16_label, 16 + 2),
+    "flash_bwd_f16": (bwd_f16_label, 32 + 4),
+}
 
 
 def ptxas_by_function(report: str) -> dict:
@@ -497,28 +554,34 @@ def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
     sources = sorted({module for module, _, _ in KERNELS.values()})
+    libraries = sources + sorted(FLOAT16_TENSOR_CORE_KERNELS)  # the fp16 builds too
     start = time.perf_counter()
-    built = build.build(sources)
+    built = build.build(libraries)
     seconds = time.perf_counter() - start
     reports = {}
-    for name in sources:
+    for name in libraries:
         lib, _ = built[name]
         report = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", report)]
-        log(f"  ptxas {name}.cu: {len(regs)} kernels, registers max {max(regs, default=0)}, "
+        log(f"  ptxas {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
         for line in report.splitlines():
             if "wgmma" in line.lower() or "setmaxnreg" in line:
-                log(f"  ptxas {name}.cu: {line.strip()}")
+                log(f"  ptxas {name}: {line.strip()}")
         reports[name] = report
-    log(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a in {seconds:.1f} s (in parallel)")
-    # the bf16 tensor-core kernels must run on the tensor cores: HGMMA in
-    # every instantiation, and no register spills
+    nvcc = {name: round(built[name][1], 2) for name in libraries}
+    log(f"build: {', '.join(libraries)} for sm_90a in {seconds:.1f} s (one nvcc each, in "
+        f"parallel: {nvcc} s)")
+    # the 16-bit kernels must run on the tensor cores: HGMMA in every
+    # instantiation, and no register spills
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    out = {"seconds": seconds, "ptxas": reports}
-    for name, (label_of, expected) in TENSOR_CORE_KERNELS.items():
-        expected += HEAD_DIM_256_INSTANTIATIONS[name]
+    out = {"seconds": seconds, "nvcc_seconds": nvcc, "ptxas": reports}
+    tables = {name: (label_of, expected + HEAD_DIM_256_INSTANTIATIONS[name], "bf16")
+              for name, (label_of, expected) in TENSOR_CORE_KERNELS.items()}
+    tables.update({name: (label_of, expected, "fp16")
+                   for name, (label_of, expected) in FLOAT16_TENSOR_CORE_KERNELS.items()})
+    for name, (label_of, expected, dtype) in tables.items():
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         per_function = ptxas_by_function(reports[name])
@@ -528,13 +591,13 @@ def phase_build() -> dict:
             if label is not None:
                 hgmma[label] = count
                 ptxas[label] = per_function.get(mangled, {})
-        log(f"  {name}.cu bf16 tensor-core HGMMA per instantiation {hgmma}; ptxas {ptxas}")
+        log(f"  {name} {dtype} tensor-core HGMMA per instantiation {hgmma}; ptxas {ptxas}")
         if len(hgmma) != expected or not all(hgmma.values()):
-            raise RuntimeError(f"{name}.cu: a bf16 kernel is not on the tensor cores: "
+            raise RuntimeError(f"{name}: a {dtype} kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
         spilled = {k: v for k, v in ptxas.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
-            raise RuntimeError(f"{name}.cu: bf16 tensor-core instantiations spill registers: "
+            raise RuntimeError(f"{name}: {dtype} tensor-core instantiations spill registers: "
                                f"{spilled}")
         # ptxas serializes wgmma when registers run short, and ignores a
         # setmaxnreg it cannot place: either undoes the design
@@ -543,7 +606,7 @@ def phase_build() -> dict:
                   if "setmaxnreg ignored" in line
                   or ("serialized" in line and any(m in line for m in labelled))]
         if faults:
-            raise RuntimeError(f"{name}.cu: ptxas undid the tensor-core design: {faults}")
+            raise RuntimeError(f"{name}: ptxas undid the tensor-core design: {faults}")
         out[f"{name}_hgmma"], out[f"{name}_tc_ptxas"] = hgmma, ptxas
     return out
 
@@ -833,69 +896,160 @@ HEAD_DIM_BWD_CASES = [
 ]
 
 
+# phase 3's fp16 rows, after the head-dim rows: the shapes phase 16 trains
+# at (the burn-in's plain and packed, Phi-3-mini's padded head and its
+# packed run) and the long-context ones (D 128 at 4096, Gemma-2B's D 256),
+# each also run in bf16 on the same inputs rounded to bf16, whose error it
+# must stay below (an fp16 path that rounded through bf16 would not)
+FLOAT16_KERNEL_CASES = [
+    dict(kernel="flash_fwd_tri", label="burnin fp16 (8,128,4,64)", q=(8, 128, 4, 64),
+         dtype=torch.float16, main=True),
+    dict(kernel="flash_fwd_rect", label="burnin packed fp16 (8,128,4,64) 2 segments",
+         q=(8, 128, 4, 64), dtype=torch.float16, causal=True, packed=2, main=True),
+    dict(kernel="flash_fwd_tri", label="timing fp16 (1,4096,8,128)", q=(1, 4096, 8, 128),
+         dtype=torch.float16, inner=2),
+    dict(kernel="flash_fwd_tri", label="phi-3-mini fp16 (1,4096,32,96) padded to 128",
+         q=(1, 4096, 32, 96), dtype=torch.float16, inner=2, main=True),
+    dict(kernel="flash_fwd_rect", label="phi-3-mini packed fp16 (1,4096,32,96) 2 segments, "
+         "padded to 128", q=(1, 4096, 32, 96), dtype=torch.float16, causal=True, packed=2,
+         inner=2, main=True),
+    dict(kernel="flash_fwd_tri", label="gemma-2b fp16 (1,8192,8,256) h_kv 1",
+         q=(1, 8192, 8, 256), h_kv=1, dtype=torch.float16, inner=2),
+]
+# fp16's smallest subnormal, the spacing of every fp16 value below 2^-14
+FP16_SUBNORMAL_STEP = 2.0 ** -24
+# the output cotangent at Phi-3-mini's full width: the reference's loss
+# gradient 2·(out − t)/N with N = 4096·3072 is ~2.2e-7 a value, which fp16
+# holds as a subnormal with about 2 bits (PERF.md §6)
+SUBNORMAL_DOUT_SCALE = 2.0 ** -22
+FLOAT16_BWD_CASES = [
+    dict(pair="tri", label="burnin fp16 (8,128,4,64)", q=(8, 128, 4, 64), dtype=torch.float16,
+         main=True),
+    dict(pair="rect", label="burnin packed fp16 (8,128,4,64) 2 segments", q=(8, 128, 4, 64),
+         dtype=torch.float16, causal=True, packed=2, main=True),
+    dict(pair="tri", label="timing fp16 (1,4096,8,128)", q=(1, 4096, 8, 128),
+         dtype=torch.float16, inner=2),
+    dict(pair="tri", label="phi-3-mini fp16 (1,4096,32,96) padded to 128", q=(1, 4096, 32, 96),
+         dtype=torch.float16, inner=1, main=True),
+    dict(pair="rect", label="phi-3-mini packed fp16 (1,4096,32,96) 2 segments, padded to 128",
+         q=(1, 4096, 32, 96), dtype=torch.float16, causal=True, packed=2, inner=1, main=True),
+    dict(pair="tri", label="gemma-2b fp16 (1,8192,8,256) h_kv 1", q=(1, 8192, 8, 256), h_kv=1,
+         dtype=torch.float16, inner=1),
+    # Phi-3-mini's full-width cotangent: subnormal dO, and dS and dQ/dK that
+    # round mostly to 0 (kernels and plain version alike)
+    dict(pair="tri", label="phi-3-mini fp16 (1,4096,32,96) padded to 128, dO x 2^-22 "
+         "(subnormal)", q=(1, 4096, 32, 96), dtype=torch.float16, inner=1,
+         dout_scale=SUBNORMAL_DOUT_SCALE),
+]
+
+
+def _bwd_setup(case, q, k, v, seg, dout) -> dict:
+    """A backward case's launches on (q, k, v, dout) in their dtype: the
+    forward kernel's out and lse on the kernels' (padded) inputs, delta,
+    and closures ``dq``, ``dkv`` (the pair) and ``plain``
+    (attention_bwd_plain at the case's own head dim)."""
+    from tpu_operator_torch.kernels import flash_bwd, flash_fwd
+
+    h = case["q"][2]
+    d = case["q"][3]
+    h_kv = case.get("h_kv", h)
+    tri = case["pair"] == "tri"
+    causal, window = case.get("causal", True), case.get("window")
+    # a head dim the kernels do not take runs zero-padded, at its own scale
+    (qp, kp, vp, doutp), scale = _padded(case, q, k, v, dout)
+    if tri:
+        outp, lse = flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
+    else:
+        outp, lse = flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, causal, window=window,
+                                             seg=seg, sm_scale=scale)
+    out = outp[..., :d]
+    delta = (dout.float() * out.float()).sum(-1)
+    extra = () if tri else (causal, window, seg)
+    dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{case['pair']}")
+    dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{case['pair']}")
+    return {
+        "kernels": (qp, kp, vp, doutp, lse, delta, extra, scale), "dq_fn": dq_fn,
+        "dkv_fn": dkv_fn,
+        "dq": lambda: dq_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra,
+                            sm_scale=scale),
+        "dkv": lambda: dkv_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra,
+                              sm_scale=scale),
+        "plain": lambda: flash_bwd.attention_bwd_plain(q, k, v, out, lse, dout, h, h_kv, causal,
+                                                       window, seg),
+    }
+
+
+def _bwd_errors(run: dict, d: int) -> tuple:
+    """(want, dq/dk/dv errors of the pair against the plain version, max
+    |grad|) of a ``_bwd_setup``."""
+    want = run["plain"]()
+    got = [x[..., :d] for x in (run["dq"](), *run["dkv"]())]
+    torch.cuda.synchronize()
+    return want, [err(w, g) for w, g in zip(want, got)], max(
+        float(w.float().abs().max()) for w in want)
+
+
 def _backward_rows(gen) -> list:
     """Each backward pair against attention_bwd_plain on the forward
-    kernel's out and lse, with times; one row per kernel and case."""
-    from tpu_operator_torch.kernels import flash_bwd, flash_fwd
-    from tpu_operator_torch.kernels.flash_fwd import keep_mask
+    kernel's out and lse, with times; one row per kernel and case. An fp16
+    case is also run in bf16 (its inputs rounded to bf16), and its relative
+    error must stay below that twin's; not so where the gradients are fp16
+    subnormals (``dout_scale``): there fp16 keeps fewer bits than bf16."""
+    from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     rows = []
-    for case in BWD_CASES + HEAD_DIM_BWD_CASES:
+    for case in BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES:
         q, k, v, seg = _case_inputs(case, gen)
-        dout = torch.randn(q.shape, generator=gen, device="cuda").to(case["dtype"])
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
         b, s, h, d = case["q"]
         h_kv = case.get("h_kv", h)
-        tri = case["pair"] == "tri"
         causal, window = case.get("causal", True), case.get("window")
-        # a head dim the kernels do not take runs zero-padded, at its own scale
-        (qp, kp, vp, doutp), scale = _padded(case, q, k, v, dout)
-        if tri:
-            outp, lse = flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
+        run = _bwd_setup(case, q, k, v, seg, dout)
+        want, errs, grad_scale = _bwd_errors(run, d)
+        if case["dtype"] == torch.float32:
+            tol = F32_TOL
         else:
-            outp, lse = flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, causal, window=window,
-                                                 seg=seg, sm_scale=scale)
-        out = outp[..., :d]
-        delta = (dout.float() * out.float()).sum(-1)
-        extra = () if tri else (causal, window, seg)
-        dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{case['pair']}")
-        dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{case['pair']}")
-
-        def dq():
-            return dq_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra, sm_scale=scale)
-
-        def dkv():
-            return dkv_fn(qp, kp, vp, outp, doutp, lse, delta, h, h_kv, *extra, sm_scale=scale)
-
-        def plain():
-            return flash_bwd.attention_bwd_plain(q, k, v, out, lse, dout, h, h_kv, causal,
-                                                 window, seg)
-
-        want = plain()
-        got = [x[..., :d] for x in (dq(), *dkv())]
-        torch.cuda.synchronize()
-        errs = [err(w, g) for w, g in zip(want, got)]
-        grad_scale = max(float(w.float().abs().max()) for w in want)
-        ok = (max(errs) <= F32_TOL if case["dtype"] == torch.float32
-              else max(errs) <= BF16_TOL * grad_scale)
-        if not ok:
+            # two fp16 results that round the same sum differently differ by
+            # one step of its grid, 2^-24 below 2^-14; a dS that rounds to
+            # the other subnormal moves dQ (dK) by a step times |K| (|Q|)
+            tol = BF16_TOL * grad_scale
+            if case["dtype"] == torch.float16:
+                tol = max(tol, FP16_SUBNORMAL_STEP * (1.0 + max(
+                    float(x.float().abs().max()) for x in (q, k))))
+        if not max(errs) <= tol:
             raise RuntimeError(f"backward pair [{case['label']}] disagrees with "
                                f"attention_bwd_plain: dq/dk/dv err {errs}, max |grad| "
-                               f"{grad_scale}")
+                               f"{grad_scale}, tol {tol}")
+        twin = {}
+        if case["dtype"] == torch.float16:
+            twin_run = _bwd_setup(case, *(x.to(torch.bfloat16) for x in (q, k, v)), seg,
+                                  dout.to(torch.bfloat16))
+            _, twin_errs, twin_scale = _bwd_errors(twin_run, d)
+            del twin_run
+            twin = {"bf16_twin_rel_err": max(twin_errs) / twin_scale,
+                    "grad_zero_share": [float((w == 0).float().mean()) for w in want],
+                    "err_in_subnormal_steps": max(errs) / FP16_SUBNORMAL_STEP}
+            if "dout_scale" not in case and not max(errs) / grad_scale < twin["bf16_twin_rel_err"]:
+                raise RuntimeError(f"fp16 backward pair [{case['label']}]: relative error "
+                                   f"{max(errs) / grad_scale} not below bf16's "
+                                   f"{twin['bf16_twin_rel_err']} on the same inputs")
         mask = keep_mask(b * h, s, s, h, causal, window=window, seg=seg, device="cuda")
         live = int(mask.sum()) * (b * h // mask.shape[0])
         inner = case.get("inner", 20)
-        plain_ms = device_ms(plain, inner)
+        plain_ms = device_ms(run["plain"], inner)
         library_ms, eager_library_ms = _library_backward_ms(case, q, k, v, seg, dout, inner)
         pair = []
-        for fn, kernel_errs, is_dq in ((dq, errs[:1], True), (dkv, errs[1:], False)):
+        for fn, kernel_errs, is_dq in ((run["dq"], errs[:1], True), (run["dkv"], errs[1:], False)):
             bound_ms, bound_by = _bwd_bound(case, live, d, is_dq)
             pair.append({
-                "kernel": (dq_fn if is_dq else dkv_fn).__name__, "label": case["label"],
+                "kernel": (run["dq_fn"] if is_dq else run["dkv_fn"]).__name__,
+                "label": case["label"], "dtype": str(case["dtype"]).replace("torch.", ""),
                 "main_path": bool(case.get("main")), "max_abs_err": max(kernel_errs),
                 "rel_err": max(kernel_errs) / grad_scale, "ms": device_ms(fn, inner),
                 "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": cuda_ms(fn, inner),
                 "eager_library_ms": eager_library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "live_pairs": live,
+                "bound_by": bound_by, "live_pairs": live, **twin,
             })
         pair_ms = pair[0]["ms"] + pair[1]["ms"]
         # 14·D FLOPs per live pair: S, dP, dQ (6·D) and S, dP, dV, dK (8·D)
@@ -903,16 +1057,23 @@ def _backward_rows(gen) -> list:
                  "pair_ratio_to_library": pair_ms / library_ms}
         rate = (f", {stats['pair_tflops']:.1f} TFLOP/s, {stats['pair_ratio_to_library']:.2f}x "
                 f"sdpa backward")
-        if case["dtype"] == torch.bfloat16:
+        if case["dtype"] in TENSOR_CORE_DTYPES:
+            qp, kp, vp, doutp, lse, delta, extra, scale = run["kernels"]
             stats.update(_other_bwd_plans(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
-                                          extra, want, grad_scale, inner, d, scale))
+                                          extra, want, tol, inner, d, scale))
             rate += f", dq/dkv blocks {stats['blocks']}" + (
                 f" (at {stats['other_blocks']}: dq {stats['other_dq_ms']:.5f}, dkv "
                 f"{stats['other_dkv_ms']:.5f} ms)" if "other_blocks" in stats else
                 " (no other tile height at this head dim)")
+        if twin:
+            rate += (f"; bf16 on the same inputs: rel err {twin['bf16_twin_rel_err']:.3g} (fp16 "
+                     f"{max(errs) / grad_scale:.3g}, {twin['err_in_subnormal_steps']:.3g} "
+                     f"subnormal steps); exact zeros in dq/dk/dv "
+                     f"{[round(z, 4) for z in twin['grad_zero_share']]}")
         for row in pair:
             row.update(stats, pair_ms=pair_ms)
         rows += pair
+        del run
         log(f"backward {case['pair']} [{case['label']}]: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
             f"{errs[2]:.3g} (max |grad| {grad_scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
             f"{pair[0]['bound_ms']:.5f} by {pair[0]['bound_by']}), dkv {pair[1]['ms']:.5f} (bound "
@@ -924,13 +1085,13 @@ def _backward_rows(gen) -> list:
 
 
 def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
-                     want, scale: float, inner: int, d_true: int,
+                     want, tol: float, inner: int, d_true: int,
                      sm_scale: float = None) -> dict:
-    """A bf16 pair ("tri" or "rect", whose masks ``extra`` = (causal,
-    window, seg) holds) launched with the tile heights its plan did not
-    pick (the plans' ``block_m`` knob), straight through the library (no
-    launch is counted), held to the same tolerance, and timed: what the
-    plan's choice is worth. ``q`` ... ``dout`` are the kernels' (padded)
+    """A bf16 or fp16 pair ("tri" or "rect", whose masks ``extra`` =
+    (causal, window, seg) holds) launched with the tile heights its plan
+    did not pick (the plans' ``block_m`` knob), straight through the
+    library (no launch is counted), held to the same tolerance ``tol``, and
+    timed: what the plan's choice is worth. ``q`` ... ``dout`` are the kernels' (padded)
     inputs, ``d_true`` the head dim ``want`` has, ``sm_scale`` the softmax
     scale (None: 1/√D). A head dim with one tile height (256) has no other
     plan: only the picked heights come back."""
@@ -951,7 +1112,7 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     other = [plans(192 - mine.block)[i] for i, mine in enumerate(picked)]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = flash_bwd._lib()
+    lib, dtype = flash_bwd._lib(q.dtype), flash_fwd._DTYPES[q.dtype]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
               delta.data_ptr())
     seg = () if pair == "tri" else (None if extra[2] is None else extra[2].data_ptr(),)
@@ -962,7 +1123,7 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     def run(kernel: str, outputs, rows: int, plan):
         # on the current stream, which a graph capture switches
         code = getattr(lib, f"flash_bwd_{kernel}_{pair}")(
-            *common, *seg, *outputs, 1, rows, s, d, h, h_kv, *masks, *scales, plan.block,
+            *common, *seg, *outputs, dtype, rows, s, d, h, h_kv, *masks, *scales, plan.block,
             plan.smem_bytes, plan.swizzle, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"flash_bwd_{kernel}_{pair} at block {plan.block}: error {code}")
@@ -977,9 +1138,9 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     run_dkv()
     torch.cuda.synchronize()
     errs = [err(w, g[..., :d_true]) for w, g in zip(want, (dq, dk, dv))]
-    if not max(errs) <= BF16_TOL * scale:
-        raise RuntimeError(f"the bf16 {pair} pair at blocks {[p.block for p in other]} "
-                           f"disagrees: dq/dk/dv err {errs}, max |grad| {scale}")
+    if not max(errs) <= tol:
+        raise RuntimeError(f"the {q.dtype} {pair} pair at blocks {[p.block for p in other]} "
+                           f"disagrees: dq/dk/dv err {errs}, tol {tol}")
     return {"blocks": [p.block for p in picked], "other_blocks": [p.block for p in other],
             "other_dq_ms": device_ms(run_dq, inner), "other_dkv_ms": device_ms(run_dkv, inner),
             "other_max_abs_err": max(errs)}
@@ -1043,8 +1204,8 @@ def _triad_rows(gen) -> list:
 
 def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want_lse,
                        inner: int, sm_scale: float = None) -> dict:
-    """A bf16 forward kernel (``case["kernel"]``; the general one with the
-    ``masks`` of attention_plain) launched with the q-tile height its plan
+    """A bf16 or fp16 forward kernel (``case["kernel"]``; the general one
+    with the ``masks`` of attention_plain) launched with the q-tile height its plan
     did not pick (the plans' ``block_m`` knob), straight through the
     library (no launch is counted), held to the same tolerances, and timed:
     what the plan's choice is worth. ``q``, ``k``, ``v`` are the kernel's
@@ -1070,7 +1231,7 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
     plan = plan_for(192 - picked)  # the other of 64 and 128
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device="cuda")
-    lib = flash_fwd._lib()
+    lib, dtype = flash_fwd._lib(q.dtype), flash_fwd._DTYPES[q.dtype]
     qscale = flash_fwd._qscale(d, sm_scale)
     seg = None if tri or masks["seg"] is None else masks["seg"].data_ptr()
 
@@ -1079,12 +1240,12 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
         stream = torch.cuda.current_stream().cuda_stream
         if tri:
             code = lib.flash_fwd_tri(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     lse.data_ptr(), 1, bh, sq, d, h, h_kv, qscale, plan.block_m,
-                                     plan.smem_bytes, plan.swizzle, stream)
+                                     lse.data_ptr(), dtype, bh, sq, d, h, h_kv, qscale,
+                                     plan.block_m, plan.smem_bytes, plan.swizzle, stream)
         else:
             code = lib.flash_fwd_rect(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, out.data_ptr(), lse.data_ptr(), 1,
-                bh, sq, sk, d, h, h_kv, int(masks["causal"]), masks["q_start"],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, out.data_ptr(), lse.data_ptr(),
+                dtype, bh, sq, sk, d, h, h_kv, int(masks["causal"]), masks["q_start"],
                 masks["k_start"], masks["window"] or 0, qscale, plan.block_m, plan.smem_bytes,
                 plan.swizzle, stream)
         if code != 0:
@@ -1100,64 +1261,93 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
             "other_max_abs_err": o_err}
 
 
-def phase_kernels() -> list:
+def _fwd_setup(case, q, k, v, seg) -> tuple:
+    """(kern, plain, plain_args) of a forward case on (q, k, v) in their
+    dtype: the case's kernel on the kernels' (padded) inputs, and
+    attention_plain at the case's own head dim."""
     from tpu_operator_torch.kernels import flash_fwd
-    from tpu_operator_torch.kernels.flash_fwd import attention_plain, keep_mask
+
+    h = case["q"][2]
+    h_kv = case.get("h_kv", h)
+    # a head dim the kernels do not take runs zero-padded, at its own scale
+    (qp, kp, vp), scale = _padded(case, q, k, v)
+    if case["kernel"] == "flash_fwd_tri":
+        plain_args = dict(causal=True, q_start=0, k_start=0, window=None, seg=None)
+
+        def kern():
+            return flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
+    else:
+        plain_args = dict(causal=case["causal"], q_start=case.get("q_start", 0),
+                          k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
+
+        def kern():
+            return flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, **plain_args, sm_scale=scale)
+
+    def plain():
+        return flash_fwd.attention_plain(q, k, v, h, h_kv, **plain_args)
+
+    return kern, plain, plain_args
+
+
+def _fwd_errors(kern, plain, d: int) -> tuple:
+    """(O, lse, O err, lse err) of a forward kernel against its plain version."""
+    out, lse = kern()
+    want, want_lse = plain()
+    torch.cuda.synchronize()
+    return want, want_lse, err(out[..., :d], want), err(lse, want_lse)
+
+
+def phase_kernels() -> list:
+    from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     results = []
-    for case in KERNEL_CASES + HEAD_DIM_KERNEL_CASES:
+    for case in KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES:
         q, k, v, seg = _case_inputs(case, gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
-        # a head dim the kernels do not take runs zero-padded, at its own scale
-        (qp, kp, vp), scale = _padded(case, q, k, v)
-        if case["kernel"] == "flash_fwd_tri":
-            def kern():
-                return flash_fwd.flash_fwd_tri(qp, kp, vp, h, h_kv, sm_scale=scale)
-            plain_args = dict(causal=True, q_start=0, k_start=0, window=None, seg=None)
-        else:
-            plain_args = dict(causal=case["causal"], q_start=case.get("q_start", 0),
-                              k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
-
-            def kern():
-                return flash_fwd.flash_fwd_rect(qp, kp, vp, h, h_kv, **plain_args, sm_scale=scale)
-
-        def plain():
-            return attention_plain(q, k, v, h, h_kv, **plain_args)
-
-        out, lse = kern()
-        out = out[..., :d]
-        want, want_lse = plain()
-        torch.cuda.synchronize()
-        o_err, lse_err = err(out, want), err(lse, want_lse)
-        o_tol = BF16_TOL if case["dtype"] == torch.bfloat16 else F32_TOL
+        kern, plain, plain_args = _fwd_setup(case, q, k, v, seg)
+        want, want_lse, o_err, lse_err = _fwd_errors(kern, plain, d)
+        o_tol = F32_TOL if case["dtype"] == torch.float32 else BF16_TOL
         if not (o_err <= o_tol and lse_err <= LSE_TOL):
             raise RuntimeError(f"{case['kernel']} [{case['label']}] disagrees with its plain "
                                f"version: O err {o_err} (tol {o_tol}), lse err {lse_err}")
+        twin = {}
+        if case["dtype"] == torch.float16:
+            # the same case in bf16, on these inputs rounded to bf16
+            _, _, twin_err, _ = _fwd_errors(*_fwd_setup(
+                case, *(x.to(torch.bfloat16) for x in (q, k, v)), seg)[:2], d)
+            twin = {"bf16_twin_err": twin_err}
+            if not o_err < twin_err:
+                raise RuntimeError(f"fp16 {case['kernel']} [{case['label']}]: O err {o_err} not "
+                                   f"below bf16's {twin_err} on the same inputs")
         mask = keep_mask(b * h, sq, case.get("sk", sq), h, **plain_args, device="cuda")
         live = int(mask.sum()) * (b * h // mask.shape[0])
         bound_ms, bound_by = _bound(case, live, d)
         inner = case.get("inner", 20)
         library = _library_call(case, q, k, v, seg)
         row = {
-            "kernel": case["kernel"], "label": case["label"], "main_path": bool(case.get("main")),
+            "kernel": case["kernel"], "label": case["label"],
+            "dtype": str(case["dtype"]).replace("torch.", ""), "main_path": bool(case.get("main")),
             "max_abs_err": o_err, "lse_err": lse_err,
             "ms": device_ms(kern, inner), "plain_ms": device_ms(plain, inner),
             "library_ms": device_ms(library, inner),
             "eager_ms": cuda_ms(kern, inner), "eager_plain_ms": cuda_ms(plain, inner),
             "eager_library_ms": cuda_ms(library, inner),
-            "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live,
+            "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live, **twin,
         }
         row["tflops"] = 4.0 * d * live / row["ms"] / 1e9
         row["ratio_to_library"] = row["ms"] / row["library_ms"]
         rate = f", {row['tflops']:.1f} TFLOP/s, {row['ratio_to_library']:.2f}x sdpa"
-        if case["dtype"] == torch.bfloat16:
+        if case["dtype"] in TENSOR_CORE_DTYPES:
+            (qp, kp, vp), scale = _padded(case, q, k, v)
             row.update(_other_tile_height(case, qp, kp, vp, h, h_kv, plain_args, want, want_lse,
                                           inner, scale))
             rate += f", {row['block_m']}-row q tiles" + (
                 f" (at {row['other_block_m']} rows: {row['other_ms']:.5f} ms)"
                 if "other_block_m" in row else " (no other tile height at this head dim)")
+        if twin:
+            rate += f"; bf16 on the same inputs: O err {twin['bf16_twin_err']:.3g}"
         results.append(row)
         log(f"kernel {row['kernel']} [{row['label']}]: O err {o_err:.3g}, lse err {lse_err:.3g}; "
             f"device ms: kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
@@ -2566,8 +2756,9 @@ def _replica_process(cache: str, cm_data: dict, spec: pathlib.Path) -> dict:
 
 def _cold_and_warm(tmp: str) -> tuple:
     """(a) a replica over an empty cache directory misses, builds flash_fwd
-    there and publishes its measured warm-up; (b) a second replica over
-    that directory and ConfigMap hits and writes no file."""
+    there (and no fp16 library: serving computes in f32) and publishes its
+    measured warm-up; (b) a second replica over that directory and
+    ConfigMap hits and writes no file."""
     from tpu_operator_torch.workloads import compilecache
     from tpu_operator_torch.workloads.matmul_bench import chip_generation
     from tpu_operator_torch.workloads.serving import ServingModelConfig
@@ -2582,6 +2773,7 @@ def _cold_and_warm(tmp: str) -> tuple:
             ServingModelConfig(use_flash_prefill=True)), compilecache.runtime_fingerprint())
     if not (miss["outcome"] == "miss" and miss["before"] == {} and miss["build_dir"] == cache
             and library.parent == pathlib.Path(cache) and library.name in miss["after"]
+            and not any("_f16-" in name for name in miss["after"])
             and record is not None
             and record["seconds"] == round(miss["warmup_seconds"], 4)):
         raise RuntimeError(f"replica miss: {miss}, record {record}")
@@ -3655,9 +3847,10 @@ def _dense_packed_attention():
         burnin._flash_ctx = real
 
 
-def _curve_against(name: str, cfg, ref_name: str, reference) -> dict:
+def _curve_against(name: str, cfg, ref_name: str, reference, phase: str = "head dims") -> dict:
     """run_burnin(steps=3) of ``cfg`` on the card (flash) with its exact
-    launches, held to ``reference()``'s curve within BF16_TOL relative."""
+    launches, held to ``reference()``'s curve within BF16_TOL relative;
+    logged under ``phase``."""
     from tpu_operator_torch.workloads.burnin import run_burnin
 
     steps = 3
@@ -3675,7 +3868,7 @@ def _curve_against(name: str, cfg, ref_name: str, reference) -> dict:
         raise RuntimeError(f"{name}: losses {got['losses']} differ from the {ref_name}'s "
                            f"{ref['losses']} by {rel} (relative, tol {BF16_TOL})")
     _free_card()
-    log(f"head dims {name}: run_burnin(steps={steps}) losses "
+    log(f"{phase} {name}: run_burnin(steps={steps}) losses "
         f"{[round(x, 5) for x in got['losses']]}, {ref_name} "
         f"{[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); launches per step "
         f"{ {k: v / steps for k, v in counts.items() if v} }")
@@ -3700,14 +3893,17 @@ def _forward_gap(cfg, reference_cfg, reference_ctx=contextlib.nullcontext) -> fl
             want = forward(params, x, reference_cfg).float()
     gap = float((got - want).norm() / want.norm())
     if not gap <= FORWARD_GAP_TOL:
-        raise RuntimeError(f"head dims: the forward output differs from the reference's by {gap} "
+        raise RuntimeError(f"{cfg}: the forward output differs from the reference's by {gap} "
                            f"(tol {FORWARD_GAP_TOL})")
     return gap
 
 
-def _gemma_trainer(out: dict, cfg, flash_losses: list) -> None:
-    """ResumableTrainer at Gemma-2B's widths: a fault, a resume, continuity,
-    re-executed losses bit for bit, the first losses the flash run's."""
+def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma-2b",
+                          phase: str = "head dims", key: str = "gemma_trainer") -> None:
+    """ResumableTrainer at ``cfg``'s widths (HEAD_DIM_TRAINER_RUN): a fault,
+    a resume, continuity, re-executed losses bit for bit, the first losses
+    the flash run's; recorded as ``out[key]`` and the path
+    ``f"{phase} {name} trainer"``."""
     from tpu_operator_torch.workloads.checkpoint import CheckpointStore
     from tpu_operator_torch.workloads.training import (
         ResumableTrainer,
@@ -3724,19 +3920,19 @@ def _gemma_trainer(out: dict, cfg, flash_losses: list) -> None:
         trainer.resume(1)
         try:
             trainer.run(total)
-            raise RuntimeError("gemma-2b trainer: the injected fault at step 5 did not fire")
+            raise RuntimeError(f"{name} trainer: the injected fault at step 5 did not fire")
         except TrainerError as e:
-            log(f"head dims gemma-2b trainer: {e} (at step {trainer.step}, checkpoint "
+            log(f"{phase} {name} trainer: {e} (at step {trainer.step}, checkpoint "
                 f"{trainer.checkpoint_step})")
         trainer.resume(1)
         trainer.run(total)
         torch.cuda.synchronize()
         counts = read_launches()
-        _trainer_launches(counts, cfg, len(trainer.history), "gemma-2b trainer")
+        _trainer_launches(counts, cfg, len(trainer.history), f"{name} trainer")
         report = verify_continuity(trainer.history, trainer.checkpoints, total)
         if not (trainer.done and report["ok"] and report["rewinds"] == 1
                 and report["max_lost_steps"] == 1):
-            raise RuntimeError(f"gemma-2b trainer: continuity {report}")
+            raise RuntimeError(f"{name} trainer: continuity {report}")
         first, reruns = {}, {}
         for h in trainer.history:
             if h["step"] in first:
@@ -3744,28 +3940,28 @@ def _gemma_trainer(out: dict, cfg, flash_losses: list) -> None:
             else:
                 first[h["step"]] = h["loss"]
         if sorted(reruns) != [4] or any(a != b for a, b in reruns.values()):
-            raise RuntimeError(f"gemma-2b trainer: re-executed losses differ: {reruns}")
+            raise RuntimeError(f"{name} trainer: re-executed losses differ: {reruns}")
         head = [first[s] for s in (1, 2, 3)]
         rel = _curve_rel(head, flash_losses)
         if not (rel <= GRAPH_REL_TOL and first[total] < first[1]):
-            raise RuntimeError(f"gemma-2b trainer: first losses {head} differ from run_burnin's "
+            raise RuntimeError(f"{name} trainer: first losses {head} differ from run_burnin's "
                                f"{flash_losses} by {rel} (tol {GRAPH_REL_TOL}), or the curve "
                                f"{first[1]} -> {first[total]} does not fall")
         step_s = trainer.step_times[1][1:]
-        out["paths"]["head dims gemma-2b trainer"] = counts
-        out["gemma_trainer"] = {
+        out["paths"][f"{phase} {name} trainer"] = counts
+        out[key] = {
             **{k: list(v) if isinstance(v, tuple) else v for k, v in HEAD_DIM_TRAINER_RUN.items()},
             "executed_steps": len(trainer.history), "continuity": report,
             "losses": trainer.history, "reruns": reruns, "head_rel_err": rel,
             "step_ms_median": 1e3 * statistics.median(step_s),
             "resume_ms": [1e3 * r.latency_s for r in trainer.resumes],
             "checkpoint_ms": [1e3 * s for s in saves]}
-    log(f"head dims gemma-2b trainer: {len(trainer.history)} executed steps of {total} (fault "
+    log(f"{phase} {name} trainer: {len(trainer.history)} executed steps of {total} (fault "
         f"at 5, resumed at {trainer.resumes[1].step}), continuity ok, lost "
         f"{report['max_lost_steps']}; re-executed losses equal {reruns}; first losses equal to "
         f"run_burnin's (rel {rel:.3g}); launches {counts}; step ms median "
-        f"{out['gemma_trainer']['step_ms_median']:.3f}; checkpoint ms "
-        f"{[round(x, 1) for x in out['gemma_trainer']['checkpoint_ms']]}")
+        f"{out[key]['step_ms_median']:.3f}; checkpoint ms "
+        f"{[round(x, 1) for x in out[key]['checkpoint_ms']]}")
 
 
 def _masked_dense(q, k, v, causal: bool, window=None, seg=None):
@@ -3868,7 +4064,7 @@ def phase_head_dims() -> dict:
         f"step ms eager {g['step_ms']:.3f}, replay {g['step_replay_ms']:.3f}, device "
         f"{g['step_device_ms']:.3f}, {g['step_graph_nodes']} device operations; forward output "
         f"{g['forward_gap']:.3g} from the dense path's (norm of the difference over its norm)")
-    _gemma_trainer(out, gemma, out["gemma"]["losses"])
+    _trainer_with_a_fault(out, gemma, out["gemma"]["losses"])
     _free_card()
     packed = dataclasses.replace(gemma, packed_segments=2)
 
@@ -3902,6 +4098,180 @@ def phase_head_dims() -> dict:
         f"{out['phi3']['forward_gap']:.3g}")
     out["seconds"] = time.perf_counter() - start
     log(f"head dims: phase 15 in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 16: float16 -----------------------------------------------------
+
+# (a) entry() widths in fp16 with flash attention: the triangle pairs, a GQA
+# group inside dK/dV, the general pairs, the mixture of experts
+FLOAT16_CONFIGS = {"plain": {}, "gqa": {"kv_heads": 2}, "packed": {"packed_segments": 2},
+                   "moe": {"moe_experts": 4}}
+# (b) Phi-3-mini's widths (PHI3_MINI: depth cut 32 -> 1, the padded head) as a
+# TPUJob's spec.workload.config that asks for float16
+PHI3_MINI_F16 = dict(PHI3_MINI, dtype="float16")
+
+
+@contextlib.contextmanager
+def _cotangents(seen: list, d: int):
+    """Record the output cotangent that reaches flash attention's backward
+    (its first ``d`` columns: a padded head's others are the pad's zeros)
+    as device tensors in ``seen``, without a host sync."""
+    from tpu_operator_torch.workloads import flashattention
+
+    real = flashattention._flash_bwd_impl
+
+    def spy(qb, kb, vb, out, lse, g, *args, **kwargs):
+        seen.append(g[..., :d].detach().float())
+        return real(qb, kb, vb, out, lse, g, *args, **kwargs)
+
+    flashattention._flash_bwd_impl = spy
+    try:
+        yield
+    finally:
+        flashattention._flash_bwd_impl = real
+
+
+def _dout_stats(cfg) -> dict:
+    """The seeded eager step's output cotangent at attention's backward in
+    the last layer: the share of exact zeros and of fp16 subnormals, its rms
+    and largest value, against the magnitude the loss reckons for the
+    cotangent entering the model's output, 2·rms(out − t)/N = 2·√loss/N with
+    N = batch·seq·d_model."""
+    from tpu_operator_torch.workloads.burnin import build_train_step
+
+    step, params, batch = build_train_step(cfg, "cuda")
+    seen: list = []
+    with _cotangents(seen, cfg.d_model // cfg.n_heads):
+        _, loss = step.eager(params, batch)
+    g = seen[0]  # the backward walks the layers from the last
+    n = cfg.batch * cfg.seq_len * cfg.d_model
+    tiny = 2.0 ** -14  # fp16's smallest normal
+    stats = {"zero_share": float((g == 0).float().mean()),
+             "subnormal_share": float(((g != 0) & (g.abs() < tiny)).float().mean()),
+             "rms": float(g.square().mean().sqrt()), "max_abs": float(g.abs().max()),
+             "loss": float(loss), "reckoned_output_cotangent": 2.0 * math.sqrt(float(loss)) / n,
+             "elements": n}
+    del step, params, batch, seen, g
+    return stats
+
+
+def _float16_at_entry_widths(out: dict, smi: str) -> None:
+    """(a): run_burnin(steps=3) in fp16 at entry() widths, each config with
+    its exact launches, held to the fp16 dense path (packed: the CPU plain
+    versions, as phase 6), then GRAPH_STEPS graphed steps against the eager
+    step, and the step's eager, replayed and device ms."""
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+
+    steps = 3
+    for name, over in FLOAT16_CONFIGS.items():
+        cfg = dataclasses.replace(ENTRY_CONFIG, dtype="float16", use_flash_attention=True, **over)
+        zero_launches()
+        got = run_burnin(steps=steps, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_launches()
+        expected = _expected_launches(counts, cfg, steps)
+        if counts != expected:
+            raise RuntimeError(f"float16 {name}: launches {counts}, expected {expected}")
+        if cfg.packed_segments:
+            ref_name, ref = "CPU plain versions", run_burnin(steps=steps, cfg=cfg, device="cpu")
+        else:
+            ref_name = "dense path"
+            ref = run_burnin(steps=steps, cfg=dataclasses.replace(cfg, use_flash_attention=False),
+                             device="cuda")
+        rel = _curve_rel(got["losses"], ref["losses"])
+        if not rel <= BF16_TOL:
+            raise RuntimeError(f"float16 {name}: losses {got['losses']} differ from the "
+                               f"{ref_name}'s {ref['losses']} by {rel} (relative, tol {BF16_TOL})")
+        step, params, batch = build_train_step(cfg, "cuda")
+        if params["l0/qkv"].dtype != torch.float32 or batch[0].dtype != torch.float16:
+            raise RuntimeError(f"float16 {name}: params {params['l0/qkv'].dtype}, batch "
+                               f"{batch[0].dtype}")
+        replays = _replays_vs_eager(step, params, batch)
+        times = _step_times(step, params, batch)
+        del step, params, batch
+        out["paths"][f"float16 {name}"] = counts
+        out["entry"][name] = {"losses": got["losses"], "reference": ref_name,
+                              "reference_losses": ref["losses"], "rel_err": rel,
+                              "replays": replays, **times}
+        log(f"float16 {name}: run_burnin(steps={steps}) losses "
+            f"{[round(x, 5) for x in got['losses']]}, {ref_name} "
+            f"{[round(x, 5) for x in ref['losses']]} (rel err {rel:.3g}); launches per step "
+            f"{ {k: v / steps for k, v in counts.items() if v} }; {GRAPH_STEPS} graphed steps vs "
+            f"eager: rel {replays['rel_err']:.3g}{' (bit for bit)' if replays['bitwise'] else ''}; "
+            f"step ms eager {times['step_ms']:.4f}, replay {times['step_replay_ms']:.4f}, device "
+            f"{times['step_device_ms']:.4f} [{smi}]")
+    cfg = dataclasses.replace(ENTRY_CONFIG, dtype="float16", use_flash_attention=True)
+    out["entry_dout"] = _dout_stats(cfg)
+    _free_card()
+
+
+def _float16_at_full_width(out: dict, smi: str) -> None:
+    """(b): Phi-3-mini's widths with dtype float16 through
+    training.trainer_config: flash against dense, the forward output, the
+    graphed steps, the elastic trainer with a fault, the packed run, and the
+    cotangent that reaches attention's backward."""
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    phi = trainer_config(PHI3_MINI_F16)
+    if phi.tdtype != torch.float16:
+        raise RuntimeError(f"float16: trainer_config gave {phi.tdtype}")
+    dense = dataclasses.replace(phi, use_flash_attention=False)
+    out["phi3"] = _curve_against("phi-3-mini", phi, "dense path",
+                                 lambda: run_burnin(steps=3, cfg=dense, device="cuda"),
+                                 phase="float16")
+    out["paths"]["float16 phi-3-mini"] = out["phi3"].pop("launches")
+    out["phi3"]["forward_gap"] = _forward_gap(phi, dense)
+    _free_card()
+    step, params, batch = build_train_step(phi, "cuda")
+    out["phi3"]["replays"] = _replays_vs_eager(step, params, batch)
+    out["phi3"].update(_step_times(step, params, batch))
+    del step, params, batch
+    _free_card()
+    p = out["phi3"]
+    log(f"float16 phi-3-mini: {GRAPH_STEPS} graphed steps vs eager: rel "
+        f"{p['replays']['rel_err']:.3g}{' (bit for bit)' if p['replays']['bitwise'] else ''}; "
+        f"step ms eager {p['step_ms']:.3f}, replay {p['step_replay_ms']:.3f}, device "
+        f"{p['step_device_ms']:.3f}, {p['step_graph_nodes']} device operations; forward output "
+        f"{p['forward_gap']:.3g} from the dense path's [{smi}]")
+    _trainer_with_a_fault(out, phi, p["losses"], name="phi-3-mini", phase="float16",
+                          key="phi3_trainer")
+    _free_card()
+    packed = dataclasses.replace(phi, packed_segments=2)
+
+    def packed_reference():
+        with _dense_packed_attention():
+            return run_burnin(steps=3, cfg=packed, device="cuda")
+
+    out["phi3_packed"] = _curve_against("phi-3-mini packed", packed,
+                                        "dense path under the documents' mask",
+                                        packed_reference, phase="float16")
+    out["paths"]["float16 phi-3-mini packed"] = out["phi3_packed"].pop("launches")
+    out["phi3_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
+    _free_card()
+    out["phi3_dout"] = _dout_stats(phi)
+    _free_card()
+
+
+def phase_float16(smi: str) -> dict:
+    """Phase 16 (see the module's docstring)."""
+    start = time.perf_counter()
+    out = {"paths": {}, "entry": {}}
+    _float16_at_entry_widths(out, smi)
+    _float16_at_full_width(out, smi)
+    for where, key in (("entry() widths", "entry_dout"), ("phi-3-mini", "phi3_dout")):
+        st = out[key]
+        log(f"float16 {where}: the cotangent at attention's backward: {st['zero_share']:.4g} "
+            f"exact zeros, {st['subnormal_share']:.4g} subnormal, rms {st['rms']:.4g}, max "
+            f"{st['max_abs']:.4g}; the loss {st['loss']:.6g} reckons 2·√loss/N = "
+            f"{st['reckoned_output_cotangent']:.4g} at the output (N = {st['elements']}) [{smi}]")
+    log(f"float16: forward output against the reference's (norm of the difference over its "
+        f"norm): phi-3-mini {out['phi3']['forward_gap']:.3g}, packed "
+        f"{out['phi3_packed']['forward_gap']:.3g}")
+    out["seconds"] = time.perf_counter() - start
+    log(f"float16: phase 16 in {out['seconds']:.1f} s")
     return out
 
 
@@ -3958,12 +4328,14 @@ def main(argv=None) -> int:
     results["agents"] = phase_agents()
     results["device_layer"] = phase_device_layer()
     results["head_dims"] = phase_head_dims()
+    results["float16"] = phase_float16(smi)
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
              **results["slice"]["paths"], **results["trainer"]["paths"],
              **results["replicas"]["paths"], **results["autotune"]["paths"],
-             **results["agents"]["paths"], **results["head_dims"]["paths"]}
+             **results["agents"]["paths"], **results["head_dims"]["paths"],
+             **results["float16"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}
@@ -3971,7 +4343,16 @@ def main(argv=None) -> int:
         for pair, prefix in (("tri", f"{kind}_d"), ("rect", f"{kind}_rect_d")):
             hgmma[f"flash_bwd_{kind}_{pair}"] = {
                 k: v for k, v in results["build"]["flash_bwd_hgmma"].items() if k.startswith(prefix)}
-    line = kernels_line(results["kernels"], paths, {k: {"hgmma": v} for k, v in hgmma.items()})
+    fwd16 = results["build"]["flash_fwd_f16_hgmma"]
+    hgmma16 = {"flash_fwd_tri": {k: v for k, v in fwd16.items() if not k.startswith("rect_")},
+               "flash_fwd_rect": {k: v for k, v in fwd16.items() if k.startswith("rect_")}}
+    for kind in ("dq", "dkv"):
+        for pair, prefix in (("tri", f"{kind}_d"), ("rect", f"{kind}_rect_d")):
+            hgmma16[f"flash_bwd_{kind}_{pair}"] = {
+                k: v for k, v in results["build"]["flash_bwd_f16_hgmma"].items()
+                if k.startswith(prefix)}
+    line = kernels_line(results["kernels"], paths,
+                        {k: {"hgmma": v, "hgmma_fp16": hgmma16[k]} for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

@@ -5,14 +5,16 @@ checkout of the repository, one ``nvcc`` at a time, in turns.
     python3 scripts/build_times.py OTHER_TREE [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
-``git archive``). For each library (``flash_fwd``, ``flash_bwd``), a process
+``git archive``). For each library (``flash_fwd``, ``flash_bwd``, and the
+fp16 builds of the same sources, ``flash_fwd_f16`` and ``flash_bwd_f16``,
+in a tree that has them), a process
 of its own imports ``tpu_operator_torch.kernels.build`` from one tree and
 builds that tree's library into an empty temporary directory
 (``build.bind_build_dir``), alone, so the seconds ``build.build`` reports are
 that one ``nvcc``'s. Trees run in the order other, this, this, other, so
 that drift over the run falls on both sides alike. Prints the card's name
 and power limit, one line per build, and as the last line one JSON object
-with every time.
+with every time (null where a tree has no such library).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-LIBRARIES = ("flash_fwd", "flash_bwd")
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16")
 
 _BUILD_ONE = """
 import json, sys
@@ -33,17 +35,19 @@ sys.path.insert(0, sys.argv[1])
 from tpu_operator_torch.kernels import build
 assert build.__file__.startswith(sys.argv[1]), build.__file__
 build.bind_build_dir(sys.argv[3])
-print(json.dumps(build.build([sys.argv[2]])[sys.argv[2]][1]))
+name = sys.argv[2]
+known = (build.KERNEL_DIR / f"{name}.cu").is_file() or name in getattr(build, "VARIANTS", {})
+print(json.dumps(build.build([name])[name][1] if known else None))
 """
 
 
-def build_seconds(tree: Path, name: str) -> float:
-    """Seconds of one ``nvcc`` of ``tree``'s ``<name>.cu`` into a fresh
-    directory."""
+def build_seconds(tree: Path, name: str):
+    """Seconds of one ``nvcc`` of ``tree``'s library ``name`` into a fresh
+    directory; None where the tree has no such library."""
     with tempfile.TemporaryDirectory() as tmp:
         out = subprocess.run([sys.executable, "-c", _BUILD_ONE, str(tree), name, tmp], cwd=tree,
                              capture_output=True, text=True, check=True, timeout=900)
-    return float(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def main(argv=None) -> int:
@@ -60,7 +64,8 @@ def main(argv=None) -> int:
         for name in LIBRARIES:
             seconds = build_seconds(trees[side], name)
             times[side][name].append(seconds)
-            print(f"{side} {name}.cu: {seconds:.2f} s", flush=True)
+            print(f"{side} {name}: " + ("none" if seconds is None else f"{seconds:.2f} s"),
+                  flush=True)
     result = {"device": smi, "times_s": times}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

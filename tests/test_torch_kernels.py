@@ -279,9 +279,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 8, torch.float32)
     with pytest.raises(ValueError):
         flash_fwd.flash_fwd_tri(qb, kb, vb, h, hk)          # head_dim 8
-    qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float16)
+    qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float64)
     with pytest.raises(ValueError):
-        flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, False)  # float16
+        flash_fwd.flash_fwd_rect(qb, kb, vb, h, hk, False)  # float64: no kernel takes it
     qb, kb, vb, h, hk = _qkv(14, 1, 16, 2, 16, torch.float32)
     with pytest.raises(ValueError):
         flash_fwd.flash_fwd_tri(qb, kb[:, :8].contiguous(), vb[:, :8].contiguous(), h, hk)

@@ -3,12 +3,16 @@
 Each ``<name>.cu`` beside this file compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which the
 wrappers load with ``ctypes``. No PyTorch header is included, so a build
-takes seconds, not minutes. Libraries go to ``_build/`` (ignored by git)
-or to the directory :func:`bind_build_dir` names (the node's compile
-cache), named by a hash of the source, every header (``*.cuh``) beside it
-and the flags, so an unchanged source is never rebuilt and a changed
-header rebuilds every library. Several sources build in parallel, one
-``nvcc`` each.
+takes seconds, not minutes. A name in ``VARIANTS`` is a second library of
+another source, compiled with extra defines: the fp16 flash kernels
+(``flash_fwd_f16``, ``flash_bwd_f16``), which the wrappers build only at
+their first fp16 call, so that bf16 and f32 callers never wait for them.
+Libraries go to ``_build/`` (ignored by git) or to the directory
+:func:`bind_build_dir` names (the node's compile cache), named by a hash
+of the source, every header (``*.cuh``) beside it, the flags and the
+defines, so an unchanged source is never rebuilt and a changed header
+rebuilds every library. Several libraries build in parallel, one ``nvcc``
+each.
 
 A failed build or load raises; nothing falls back to the plain versions.
 """
@@ -30,6 +34,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+# library name -> (the source it compiles, its extra nvcc defines)
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "flash_fwd_f16": ("flash_fwd", ("-DFLASH_ELEM_F16",)),
+    "flash_bwd_f16": ("flash_bwd", ("-DFLASH_ELEM_F16",)),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound_dir: Optional[Path] = None  # set by bind_build_dir
@@ -69,28 +79,37 @@ def nvcc_path() -> str:
     return found
 
 
-def kernel_digest(sources: Iterable[Path]) -> str:
+def kernel_digest(sources: Iterable[Path], defines: Tuple[str, ...] = ()) -> str:
     """sha256 (hex) over the given CUDA sources, each header in
-    ``KERNEL_DIR`` (a source may include any) and the flags: what a built
-    library depends on."""
+    ``KERNEL_DIR`` (a source may include any), the flags and the extra
+    ``defines``: what a built library depends on."""
     digest = hashlib.sha256()
     for source in sources:
         digest.update(source.name.encode() + source.read_bytes())
     for header in sorted(KERNEL_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return digest.hexdigest()
 
 
+def _recipe(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """(the source, the extra defines) of library ``name``: its
+    ``VARIANTS`` entry, else ``<name>.cu`` as it is."""
+    source, defines = VARIANTS.get(name, (name, ()))
+    return KERNEL_DIR / f"{source}.cu", defines
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``<name>.cu`` lives: named by
-    :func:`kernel_digest` of its source."""
-    digest = kernel_digest([KERNEL_DIR / f"{name}.cu"])
+    """Where library ``name`` lives: named by :func:`kernel_digest` of its
+    source and defines."""
+    source, defines = _recipe(name)
+    digest = kernel_digest([source], defines)
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
-    """Compile every named source whose library is missing, all at once.
+    """Compile every named library (a source, or a ``VARIANTS`` entry)
+    that is missing, all at once.
     Returns name -> (library path, build seconds; 0.0 when reused). The
     compiler's report (registers, shared memory, spills) lands beside the
     library as ``<library>.log``."""
@@ -103,7 +122,8 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
             out[name] = (lib, 0.0)
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")]
+        source, defines = _recipe(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, proc, time.perf_counter()))
     failures = []
@@ -112,7 +132,7 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
         seconds = time.perf_counter() - start
         lib.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
         out[name] = (lib, seconds)
@@ -122,7 +142,7 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``<name>.cu``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         path, _ = build([name])[name]

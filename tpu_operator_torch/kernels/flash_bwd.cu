@@ -22,13 +22,15 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16 (flash_bwd_{dq,dkv}_{tri,rect}_kernel<__nv_bfloat16, D, WG>): the
-// tensor-core design, on the forward's machinery (hopper.cuh), one body per
-// kernel (dq_tc_body / dkv_tc_body<D, WG, TRI>) for the triangle and the
-// general masks. At long
+// bf16 and fp16 (flash_bwd_{dq,dkv}_{tri,rect}_kernel<T, D, WG>, T
+// __nv_bfloat16 or __half): the tensor-core design, on the forward's
+// machinery (hopper.cuh), one body per kernel (dq_tc_body / dkv_tc_body<T,
+// D, WG, TRI>) for the triangle and the general masks and for both 16-bit
+// types. A library holds one of them, as flash_fwd.cu's do: built as is, bf16
+// and the f32 kernels; built with -DFLASH_ELEM_F16, fp16 alone. At long
 // context the pair is operations-bound (14 D FLOPs per live (q, k) pair over
-// O(S D) bytes), so every product runs on wgmma in bf16 with f32
-// accumulators, and the scores are the forward's: the raw bf16 q.k on the
+// O(S D) bytes), so every product runs on wgmma in T with f32
+// accumulators, and the scores are the forward's: the raw 16-bit q.k on the
 // tensor cores, P = exp2(fma(S, log2(e)/sqrt(d), -lse * log2(e))). Each CTA
 // has a producer warp that TMA-loads its own side's tiles once and feeds
 // the other side's 64-row tiles through a two-stage ring ("full" mbarriers
@@ -40,7 +42,7 @@
 //       B from shared memory, both K-major), masks keys after its rows on the
 //       tiles that cross the diagonal, forms P and dS in registers with its
 //       rows' lse and delta held in registers, and runs dQ += dS.K with dS
-//       packed to bf16 as the register A operand (the f32 accumulator layout
+//       packed to T as the register A operand (the f32 accumulator layout
 //       of S is wgmma's register layout of A) and the same K tile as an
 //       MN-major B operand (the transpose flag). dS never touches shared
 //       memory.
@@ -122,9 +124,10 @@
 // about 2 MB and runs a few tens of MFLOP, so by the roofline it is
 // bytes-bound, and in practice latency-bound (32-64 CTAs of one to two
 // tiles). At long context the work is O(S^2 D) over O(S D) bytes and turns
-// operations-bound, where the bf16 pair's wgmma counts.
+// operations-bound, where the 16-bit pairs' wgmma counts.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -165,8 +168,9 @@ struct Params {
   int rows;            // the grid's rows: bh (dQ) or bh_kv (dK/dV)
 };
 
-// The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
-// conversions are identities; they keep the bodies' rounding points visible.
+// The CUDA-core kernels run f32 only (bf16 and fp16 take the tensor cores),
+// so these conversions are identities; they keep the bodies' rounding
+// points visible.
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -514,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_rect_kernel(Params p) 
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 pairs on the tensor cores: wgmma + TMA (see the note on top).
+// The 16-bit pairs on the tensor cores: wgmma + TMA (see the note on top).
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;  // depth of the ring of 64-row tiles
@@ -552,10 +556,11 @@ constexpr int dkv_tc_smem_bytes() {
 // of 64 WG rows, reversed under a plain causal mask so that the heaviest
 // tiles launch first (with a window or none, every tile walks about as far).
 // TRI: the triangle; else the general masks of Params.
-template <int D, int WG, bool TRI>
+template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* qmap,
                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
                                            const CUtensorMap* domap) {
+  static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr uint32_t kQBytes = BM * D * 2;
@@ -700,8 +705,8 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
       const unsigned char* vs = v_s + st * kKVBytes;
       const int2* kid = reinterpret_cast<const int2*>(kid_s + st * kTile);
       wgmma_fence();
-      mma_rows_by_rows<D>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
-      mma_rows_by_rows<D>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
+      mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
+      mma_rows_by_rows<T, D>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
       wgmma_commit();
       wgmma_wait_all();
       hold(s);
@@ -736,8 +741,8 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
             ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
           }
           // the accumulator layout of dS is wgmma's register layout of A
-          dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
-          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+          dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+          dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
         }
       };
       if (masked) {
@@ -748,7 +753,7 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 
       hold(dsa);
       wgmma_fence();
-      mma_frag_by_tile<D>(dq, dsa, ks);  // dQ += dS.K, K MN-major
+      mma_frag_by_tile<T, D>(dq, dsa, ks);  // dQ += dS.K, K MN-major
       wgmma_commit();
       wgmma_wait_all();
       hold(dq);
@@ -758,15 +763,15 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
     if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
   }
 
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + static_cast<size_t>(bh) * p.s * D;
+  T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= p.s) continue;
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dqg + static_cast<size_t>(row) * D);
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * D);  // T pairs
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      out[4 * j + tq] = __floats2bfloat162_rn(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+      out[4 * j + tq] = pack2<T>(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -774,10 +779,11 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 // dK/dV on the tensor cores. blockIdx.x: kv row; blockIdx.y: key tile of 64
 // WG keys, in order (under a causal mask the first keys, the longest walks,
 // launch first). TRI: the triangle; else the general masks of Params.
-template <int D, int WG, bool TRI>
+template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* qmap,
                                             const CUtensorMap* kmap, const CUtensorMap* vmap,
                                             const CUtensorMap* domap) {
+  static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BN = 64 * WG;
   constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on D / CS columns
@@ -951,8 +957,8 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         // S^T and dP^T over all of D: at D = 256 both warpgroups of a key
         // slice form them, each for its own half of dK and dV
         wgmma_fence();
-        mma_rows_by_rows<D>(s, k_s, BN, kw * 64, qs);    // S^T = K.Q^T
-        mma_rows_by_rows<D>(dp, v_s, BN, kw * 64, dos);  // dP^T = V.dO^T
+        mma_rows_by_rows<T, D>(s, k_s, BN, kw * 64, qs);    // S^T = K.Q^T
+        mma_rows_by_rows<T, D>(dp, v_s, BN, kw * 64, dos);  // dP^T = V.dO^T
         wgmma_commit();
         wgmma_wait_all();
         hold(s);
@@ -988,10 +994,10 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
               ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
             }
             // the accumulator layout of P^T and dS^T is wgmma's register layout of A
-            pa[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
-            pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
-            dsa[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
-            dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+            pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
+            pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
+            dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+            dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
           }
         };
         if (masked) {
@@ -1003,8 +1009,8 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         hold(pa);
         hold(dsa);
         wgmma_fence();
-        mma_frag_by_tile<D, DC>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
-        mma_frag_by_tile<D, DC>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
+        mma_frag_by_tile<T, D, DC>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
+        mma_frag_by_tile<T, D, DC>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
         wgmma_commit();
         wgmma_wait_all();
         hold(dv);
@@ -1022,18 +1028,18 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
       const int kj = key + 8 * h;
       if (kj >= p.s) continue;
       const size_t at = kvoff + static_cast<size_t>(kj) * D + c0;
-      auto* dkr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + at);
-      auto* dvr = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + at);
+      auto* dkr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + at);  // T pairs
+      auto* dvr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + at);
 #pragma unroll
       for (int j = 0; j < DC / 8; ++j) {
-        dkr[4 * j + tq] = __floats2bfloat162_rn(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
-        dvr[4 * j + tq] = __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        dkr[4 * j + tq] = pack2<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+        dvr[4 * j + tq] = pack2<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-// The four tensor-core kernels: T is bf16; D the head dim; WG the consumer
+// The four tensor-core kernels: T is bf16 or fp16; D the head dim; WG the consumer
 // warpgroups, 64 rows (dQ) or keys (dK/dV) each.
 #define TC_MAPS                                                                       \
   const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap, \
@@ -1041,28 +1047,24 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
 
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_tri_kernel(Params p, TC_MAPS) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
-  dq_tc_body<D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+  dq_tc_body<T, D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_rect_kernel(Params p, TC_MAPS) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
-  dq_tc_body<D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+  dq_tc_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
     flash_bwd_dkv_tri_kernel(Params p, TC_MAPS) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
-  dkv_tc_body<D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+  dkv_tc_body<T, D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
     flash_bwd_dkv_rect_kernel(Params p, TC_MAPS) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core backward is bf16");
-  dkv_tc_body<D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+  dkv_tc_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
 }
 
 #undef TC_MAPS
@@ -1073,7 +1075,7 @@ constexpr bool is_dq(Kind k) { return k == kDqTri || k == kDqRect; }
 constexpr bool is_tri(Kind k) { return k == kDqTri || k == kDkvTri; }
 
 // rows: the grid's row count, bh for dQ and bh_kv for dK/dV.
-template <int D, int WG, Kind K>
+template <typename T, int D, int WG, Kind K>
 int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   constexpr bool kDq = is_dq(K), kTri = is_tri(K);
   constexpr int B = 64 * WG;  // the CTA's own side: q rows (dQ) or keys (dK/dV)
@@ -1087,20 +1089,21 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   // the CTA's own side comes in boxes of B rows, the ring's side in 64
   const int q_box = kDq ? B : kTile, kv_box = kDq ? kTile : B;
   CUtensorMap qmap, kmap, vmap, domap;
-  if (!encode_map<D>(&qmap, p.q, p.s, bh, q_box) || !encode_map<D>(&domap, p.dout, p.s, bh, q_box) ||
-      !encode_map<D>(&kmap, p.k, p.s, bh_kv, kv_box) ||
-      !encode_map<D>(&vmap, p.v, p.s, bh_kv, kv_box)) {
+  if (!encode_map<T, D>(&qmap, p.q, p.s, bh, q_box) ||
+      !encode_map<T, D>(&domap, p.dout, p.s, bh, q_box) ||
+      !encode_map<T, D>(&kmap, p.k, p.s, bh_kv, kv_box) ||
+      !encode_map<T, D>(&vmap, p.v, p.s, bh_kv, kv_box)) {
     return kNoTensorMap;
   }
   void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
   if constexpr (K == kDqTri) {
-    kernel = flash_bwd_dq_tri_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_bwd_dq_tri_kernel<T, D, WG>;
   } else if constexpr (K == kDqRect) {
-    kernel = flash_bwd_dq_rect_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_bwd_dq_rect_kernel<T, D, WG>;
   } else if constexpr (K == kDkvTri) {
-    kernel = flash_bwd_dkv_tri_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_bwd_dkv_tri_kernel<T, D, WG>;
   } else {
-    kernel = flash_bwd_dkv_rect_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_bwd_dkv_rect_kernel<T, D, WG>;
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1115,9 +1118,9 @@ template <int D, Kind K>
 int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cudaStream_t stream) {
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
-  if (block == 64) return launch_tc<D, 1, K>(p, rows, smem, stream);
+  if (block == 64) return launch_tc<Elem16, D, 1, K>(p, rows, smem, stream);
   if constexpr (D <= 128) {  // D 256: 64-row tiles only (see the note on top)
-    if (block == 128) return launch_tc<D, 2, K>(p, rows, smem, stream);
+    if (block == 128) return launch_tc<Elem16, D, 2, K>(p, rows, smem, stream);
   }
   return kUnsupported;
 }
@@ -1162,14 +1165,15 @@ bool valid(const Params& p, int rows) {
          p.heads % p.kv_heads == 0;
 }
 
-// bf16 on the tensor cores with the caller's plan; f32 on the CUDA cores,
-// whose plan is fixed (64, its shared memory, no swizzle).
+// The library's 16-bit type on the tensor cores with the caller's plan; f32
+// (the bf16 library only) on the CUDA cores, whose plan is fixed (its tile,
+// shared memory, no swizzle).
 template <Kind K>
 int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
              void* stream) {
   if (!valid(p, rows)) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == kElemCode) {
     switch (d) {
       case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, st);
       case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
@@ -1179,11 +1183,15 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
       default: return kUnsupported;
     }
   }
-  const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
-  if (dtype != 0 || block != f32_tile(d) || swizzle != 0 || smem != static_cast<int>(fixed)) {
+  if constexpr (!kWithF32) {
     return kUnsupported;
+  } else {
+    const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
+    if (dtype != 0 || block != f32_tile(d) || swizzle != 0 || smem != static_cast<int>(fixed)) {
+      return kUnsupported;
+    }
+    return dispatch_dim<float, K>(p, rows, d, st);
   }
-  return dispatch_dim<float, K>(p, rows, d, st);
 }
 
 // A window is a band of causal attention only, and one of s or more keys
@@ -1192,7 +1200,9 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on a launched kernel, a
+// dtype: 0 = float32, 1 = bfloat16 (the library built as is), 2 = float16
+// (the library built with -DFLASH_ELEM_F16); a library refuses the others.
+// Each returns 0 on a launched kernel, a
 // CUDA error code when the launch was refused, -1 for a shape, dtype, plan or
 // alignment these kernels do not take, -2 when no TMA tensor map could be
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)

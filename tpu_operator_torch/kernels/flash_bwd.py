@@ -11,9 +11,11 @@ The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_bwd_plain`, which
 computes all three gradients from ``out``; each wrapper returns its part.
 Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
-In bf16 both pairs run on the tensor cores (wgmma, TMA: q, k, v and dO
-need 16-byte-aligned bases) with the launch plans of :func:`tri_bwd_plan`
-and :func:`rect_bwd_plan`; f32 runs on the CUDA cores.
+In bf16 and fp16 both pairs run on the tensor cores (wgmma, TMA: q, k, v
+and dO need 16-byte-aligned bases) with the launch plans of
+:func:`tri_bwd_plan` and :func:`rect_bwd_plan`, the same for both 16-bit
+types; f32 runs on the CUDA cores. fp16 has a library of its own
+(``build.VARIANTS``), built at the first fp16 call.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
+    TENSOR_CORE_DTYPES,
     _check,
     _check_seg,
     _check_tma_bases,
@@ -53,12 +56,12 @@ def f32_tile(d: int) -> int:
 
 
 def kv_split(d: int) -> int:
-    """Consumer warpgroups of the bf16 dK/dV kernel per 64 keys: 2 at d 256,
+    """Consumer warpgroups of the 16-bit dK/dV kernel per 64 keys: 2 at d 256,
     each accumulating dK and dV for half the head dim (kv_split in
     flash_bwd.cu), else 1."""
     return 2 if d > 128 else 1
-TRI_BWD_STAGES = 2  # ring depth of the bf16 pairs (kStages in flash_bwd.cu)
-# the bf16 general pair's staged segment ids: per stage 64 int32 and their
+TRI_BWD_STAGES = 2  # ring depth of the 16-bit pairs (kStages in flash_bwd.cu)
+# the 16-bit general pair's staged segment ids: per stage 64 int32 and their
 # min and max (kSegBytes in flash_bwd.cu)
 SEG_BYTES = TRI_BWD_STAGES * (TILE + 2) * 4
 
@@ -125,9 +128,9 @@ class BwdPlan:
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (row, tile) that block (x, y) computes, as the kernel maps
-        it: bf16 dq walks its q tiles heaviest (last) first under a plain
+        it: 16-bit dq walks its q tiles heaviest (last) first under a plain
         causal mask and in order otherwise (every tile walks about as far),
-        bf16 dkv its key tiles in order (under a causal mask the first keys
+        16-bit dkv its key tiles in order (under a causal mask the first keys
         see the most rows)."""
         if not self.swizzle:
             return y, x
@@ -213,11 +216,12 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     """How ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri`` launch for bh q
     rows, bh_kv kv rows, s tokens and head dim d: (dq plan, dkv plan).
 
-    bf16 runs the tensor-core pair. A dq CTA owns 64 or 128 q rows (one or
-    two consumer warpgroups) of one (batch, head) row and walks 64-key
-    tiles; a dkv CTA owns 64 or 128 keys of one kv row and walks 64-row q
-    tiles of every GQA member. Each takes 128 once its grid fills one wave
-    of CTAs on the card's ``sms`` streaming multiprocessors, else 64, so
+    bf16 and fp16 run the tensor-core pair (one plan for both). A dq CTA
+    owns 64 or 128 q rows (one or two consumer warpgroups) of one (batch,
+    head) row and walks 64-key tiles; a dkv CTA owns 64 or 128 keys of one
+    kv row and walks 64-row q tiles of every GQA member. Each takes 128
+    once its grid fills one wave of CTAs on the card's ``sms`` streaming
+    multiprocessors, else 64, so
     that small grids keep more CTAs — or both take the height ``block_m``
     forces (64 or 128; threads, grids and shared memory follow from it);
     plus a producer warp (dq) or
@@ -271,10 +275,16 @@ def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None
         _check_seg(seg, qb.shape[0] // heads, qb.shape[1], kb.shape[1])
 
 
+def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernels with its C signatures declared
+    (built on its first call): ``flash_bwd_f16`` for fp16, else
+    ``flash_bwd``."""
+    return _load("flash_bwd_f16" if dtype == torch.float16 else "flash_bwd")
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (built on first call)."""
-    lib = build.load("flash_bwd")
+def _load(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tensors = [ptr] * 6  # q, k, v, dout, lse, delta
     shape = [i32] * 6    # dtype, rows, s, d, heads, kv_heads
@@ -300,7 +310,7 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(_lib(), name)(
+        code = getattr(_lib(qb.dtype), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
             *extra, _qscale(d, scale), scale, plan.block, plan.smem_bytes,
@@ -311,12 +321,12 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
 
 def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
            block_m: Optional[int] = None):
-    """Checks of a pair's inputs (bf16: TMA's 16-byte bases) and its (dq,
-    dkv) launch plans on this card at the tile height ``block_m`` (None:
-    the plan's): the triangle pair's, or with ``rect`` = (causal, window,
-    seg) the general pair's."""
+    """Checks of a pair's inputs (bf16 and fp16: TMA's 16-byte bases) and
+    its (dq, dkv) launch plans on this card at the tile height ``block_m``
+    (None: the plan's): the triangle pair's, or with ``rect`` = (causal,
+    window, seg) the general pair's."""
     _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
-    if qb.dtype == torch.bfloat16:
+    if qb.dtype in TENSOR_CORE_DTYPES:
         _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
     bh, s, d = qb.shape
     sms = _sm_count(qb.device.index)

@@ -12,22 +12,27 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16 (flash_fwd_{tri,rect}_kernel<__nv_bfloat16, D, WG>): the tensor-core
-// design. At long context attention is operations-bound (O(S^2 D) FLOPs
-// over O(S D) bytes), so both products run on wgmma in bf16 with f32
-// accumulators. A CTA owns BM = 64 * WG q rows (WG consumer warpgroups, one
+// bf16 and fp16 (flash_fwd_{tri,rect}_kernel<T, D, WG>, T __nv_bfloat16 or
+// __half): the tensor-core design, one body for both 16-bit types, which
+// differ only in wgmma's operand type, the tensor maps' data type and the
+// rounding of packed pairs (hopper.cuh). A library holds one of them: this
+// source built as is holds bf16 and the f32 kernels, built with
+// -DFLASH_ELEM_F16 it holds fp16 only (kernels/build.py builds that one at
+// the first fp16 call), so a bf16 caller never compiles the fp16 kernels.
+// At long context attention is operations-bound (O(S^2 D) FLOPs over O(S D)
+// bytes), so both products run on wgmma in T with f32 accumulators. A CTA owns BM = 64 * WG q rows (WG consumer warpgroups, one
 // per 64 rows) and one producer warp. The producer loads Q once and feeds K
 // and V tiles through a two-stage ring with TMA (3-D tensor maps (D, S,
 // rows), so a tile past S zero-fills instead of reading the next head),
 // each stage guarded by a "full" mbarrier (TMA bytes) and an "empty" one
 // (one arrival per consumer warp). Per k tile a consumer warpgroup runs
 // S = Q.K^T (A and B from shared memory, both K-major), masks, runs the
-// online softmax on the accumulator fragment, packs P to bf16 in registers
+// online softmax on the accumulator fragment, packs P to T in registers
 // and runs O += P.V with P as the register A operand (the f32 accumulator
-// layout of S is the bf16 A layout of P) and V as an MN-major B operand
+// layout of S is the 16-bit A layout of P) and V as an MN-major B operand
 // (the transpose flag), so P never touches shared memory. Scores are raw
 // q.k scaled in f32 after the product, as the backward kernels recompute
-// them; P is rounded to bf16 before P.V and the row sum is taken from the
+// them; P is rounded to T before P.V and the row sum is taken from the
 // unrounded P. Swizzle per D matches the TMA box to the wgmma descriptor:
 // 32B at D 16, 64B at D 32, 128B at D 64 and 128B over two 64-column boxes
 // at D 128, four at D 256. The tile height, grid, shared-memory bytes and
@@ -77,9 +82,10 @@
 // Bound on this card: at the main path's shapes (burn-in 128 x 128 scores
 // per head, serving prefill 8 x 64) every kernel is latency-bound (a few
 // MB moved, few CTAs of one or two tiles each); at long context attention
-// turns operations-bound, where the bf16 design's wgmma counts.
+// turns operations-bound, where the 16-bit design's wgmma counts.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -117,8 +123,9 @@ struct Params {
   int rows;           // bh
 };
 
-// The CUDA-core kernels run f32 only (bf16 takes the tensor cores), so these
-// conversions are identities; they keep the body's rounding points visible.
+// The CUDA-core kernels run f32 only (bf16 and fp16 take the tensor cores),
+// so these conversions are identities; they keep the body's rounding points
+// visible.
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -316,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_rect_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 triangle on the tensor cores: wgmma + TMA (see the note on top).
+// The 16-bit kernels on the tensor cores: wgmma + TMA (see the note on top).
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;        // K/V ring depth
@@ -333,14 +340,14 @@ constexpr int tc_smem_bytes() {
          (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
 }
 
-// The bf16 triangle forward on the tensor cores. blockIdx.x: (batch, head)
+// The 16-bit triangle forward on the tensor cores. blockIdx.x: (batch, head)
 // row; blockIdx.y: q tile, reversed so the heaviest tiles launch first.
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core triangle is bf16");
+  static_assert(kElem16<T>, "the tensor-core triangle is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr int BN = BM;  // square tiles: only the diagonal tile needs the mask
@@ -429,7 +436,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       const uint64_t da = make_desc(q_s + box * BM * G::kRowBytes + wg * 64 * G::kRowBytes + off,
                                     16, G::kAtom, G::kLayout);
       const uint64_t db = make_desc(ks + box * BN * G::kRowBytes + off, 16, G::kAtom, G::kLayout);
-      mma_scores<BN>(s, da, db, kk > 0);
+      mma_scores<T, BN>(s, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -478,8 +485,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
         rs0 += p00 + p01;
         rs1 += p10 + p11;
         // the accumulator layout of S is wgmma's register layout of A
-        pa[kk][2 * h] = pack_bf16(p00, p01);
-        pa[kk][2 * h + 1] = pack_bf16(p10, p11);
+        pa[kk][2 * h] = pack2<T>(p00, p01);
+        pa[kk][2 * h + 1] = pack2<T>(p10, p11);
       }
     }
     l0 = l0 * c0 + rs0;
@@ -500,7 +507,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t db = make_desc(vs + kk * 16 * G::kRowBytes, BN * G::kRowBytes, G::kAtom,
                                     G::kLayout);
-      mma_pv<D>(o, pa[kk], db);
+      mma_pv<T, D>(o, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -521,23 +528,23 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     const int row = r0 + 8 * half;
     if (row >= p.sq) continue;
     const float l = half ? l1 : l0;
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(row) * D);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D);  // T pairs
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      orow[4 * j + tq] = __floats2bfloat162_rn(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+      orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
     }
     if (tq == 0) p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
   }
 }
 
-// The bf16 general forward on the tensor cores (see the note on top).
+// The 16-bit general forward on the tensor cores (see the note on top).
 // blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order.
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core general forward is bf16");
+  static_assert(kElem16<T>, "the tensor-core general forward is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr int BN = kRingRows;
@@ -690,7 +697,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       const unsigned char* vs = v_s + st * kKVBytes;
       const int2* kid = reinterpret_cast<const int2*>(kid_s + st * BN);
       wgmma_fence();
-      mma_rows_by_rows<D>(s, q_s, BM, wg * 64, ks);  // S = Q.K^T
+      mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, ks);  // S = Q.K^T
       wgmma_commit();
       wgmma_wait_all();
       hold(s);
@@ -748,8 +755,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
             rs0 += p00 + p01;
             rs1 += p10 + p11;
             // the accumulator layout of S is wgmma's register layout of A
-            pa[kk][2 * h] = pack_bf16(p00, p01);
-            pa[kk][2 * h + 1] = pack_bf16(p10, p11);
+            pa[kk][2 * h] = pack2<T>(p00, p01);
+            pa[kk][2 * h + 1] = pack2<T>(p10, p11);
           }
         }
         l0 = l0 * c0 + rs0;
@@ -770,7 +777,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
       hold(pa);
       wgmma_fence();
-      mma_frag_by_tile<D>(o, pa, vs);  // O += P.V, V MN-major
+      mma_frag_by_tile<T, D>(o, pa, vs);  // O += P.V, V MN-major
       wgmma_commit();
       wgmma_wait_all();
       hold(o);
@@ -793,11 +800,10 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     // a row that saw no key: O = 0 (nothing was added) and lse = -inf
     const float l = half ? l1 : l0;
     const float denom = l > 0.f ? l : 1.f;
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(row) * D);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D);  // T pairs
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      orow[4 * j + tq] =
-          __floats2bfloat162_rn(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+      orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
     }
     if (tq == 0) {
       p.lse[static_cast<size_t>(bh) * p.sq + row] =
@@ -808,7 +814,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
 // TRI: the triangle (K/V tiles as tall as the q tile); else the general
 // kernel (64-key ring tiles).
-template <int D, int WG, bool TRI>
+template <typename T, int D, int WG, bool TRI>
 int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
   constexpr int BM = 64 * WG;
   const int q_tiles = (p.sq + BM - 1) / BM;
@@ -816,15 +822,16 @@ int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   const int bh_kv = bh / p.heads * p.kv_heads;
   const int kv_box = TRI ? BM : kRingRows;
-  if (!encode_map<D>(&qmap, p.q, p.sq, bh, BM) || !encode_map<D>(&kmap, p.k, p.sk, bh_kv, kv_box) ||
-      !encode_map<D>(&vmap, p.v, p.sk, bh_kv, kv_box)) {
+  if (!encode_map<T, D>(&qmap, p.q, p.sq, bh, BM) ||
+      !encode_map<T, D>(&kmap, p.k, p.sk, bh_kv, kv_box) ||
+      !encode_map<T, D>(&vmap, p.v, p.sk, bh_kv, kv_box)) {
     return kNoTensorMap;
   }
   void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap);
   if constexpr (TRI) {
-    kernel = flash_fwd_tri_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_fwd_tri_kernel<T, D, WG>;
   } else {
-    kernel = flash_fwd_rect_kernel<__nv_bfloat16, D, WG>;
+    kernel = flash_fwd_rect_kernel<T, D, WG>;
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -836,9 +843,9 @@ template <int D, bool TRI>
 int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cudaStream_t stream) {
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
-  if (block_m == 64) return launch_tc<D, 1, TRI>(p, bh, smem, stream);
+  if (block_m == 64) return launch_tc<Elem16, D, 1, TRI>(p, bh, smem, stream);
   if constexpr (D <= 128) {  // D 256: one warpgroup only (see the note on top)
-    if (block_m == 128) return launch_tc<D, 2, TRI>(p, bh, smem, stream);
+    if (block_m == 128) return launch_tc<Elem16, D, 2, TRI>(p, bh, smem, stream);
   }
   return kUnsupported;
 }
@@ -860,8 +867,9 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 on the tensor cores with the caller's plan; f32 on the CUDA cores,
-// whose plan is fixed (64, its shared memory, no swizzle).
+// The library's 16-bit type on the tensor cores with the caller's plan; f32
+// (the bf16 library only) on the CUDA cores, whose plan is fixed (64, its
+// shared memory, no swizzle).
 template <bool TRI>
 int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
              void* stream) {
@@ -870,7 +878,7 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == kElemCode) {
     switch (d) {
       case 16: return dispatch_tc<16, TRI>(p, bh, block_m, smem, swizzle, st);
       case 32: return dispatch_tc<32, TRI>(p, bh, block_m, smem, swizzle, st);
@@ -880,28 +888,35 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
       default: return kUnsupported;
     }
   }
-  if (dtype != 0 || block_m != kBM || swizzle != 0 || smem != static_cast<int>(smem_bytes(d))) {
+  if constexpr (!kWithF32) {
     return kUnsupported;
-  }
-  switch (d) {
-    case 16: return launch<16, TRI>(p, bh, st);
-    case 32: return launch<32, TRI>(p, bh, st);
-    case 64: return launch<64, TRI>(p, bh, st);
-    case 128: return launch<128, TRI>(p, bh, st);
-    case 256: return launch<256, TRI>(p, bh, st);
-    default: return kUnsupported;
+  } else {
+    if (dtype != 0 || block_m != kBM || swizzle != 0 ||
+        smem != static_cast<int>(smem_bytes(d))) {
+      return kUnsupported;
+    }
+    switch (d) {
+      case 16: return launch<16, TRI>(p, bh, st);
+      case 32: return launch<32, TRI>(p, bh, st);
+      case 64: return launch<64, TRI>(p, bh, st);
+      case 128: return launch<128, TRI>(p, bh, st);
+      case 256: return launch<256, TRI>(p, bh, st);
+      default: return kUnsupported;
+    }
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on a launched kernel, a
-// CUDA error code when the launch was refused, -1 for a shape, dtype, plan
-// or alignment these kernels do not take, -2 when no TMA tensor map could be
-// made. block_m, smem (bytes) and swizzle (bytes) are the caller's launch
-// plan (flash_fwd.py::tri_plan, rect_plan): bf16 runs the tensor-core kernel
-// at block_m 64 or 128; f32 runs the CUDA-core kernel, whose plan is fixed
-// (64, its shared memory, no swizzle).
+// dtype: 0 = float32, 1 = bfloat16 (the library built as is), 2 = float16
+// (the library built with -DFLASH_ELEM_F16); a library refuses the others.
+// Each returns 0 on a launched kernel, a CUDA error code when the launch was
+// refused, -1 for a shape, dtype, plan or alignment these kernels do not
+// take, -2 when no TMA tensor map could be made. block_m, smem (bytes) and
+// swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
+// rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
+// (64 only at D 256); f32 runs the CUDA-core kernel, whose plan is fixed (64,
+// its shared memory, no swizzle).
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,

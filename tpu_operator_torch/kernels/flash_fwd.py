@@ -9,9 +9,11 @@ logsumexp (B·H, Sq) in float32. A q row i reads kv row
 The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_plain`. Each
 wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
-In bf16 both kernels run on the tensor cores (wgmma, TMA: q, k, v and
-out need 16-byte-aligned bases) with the launch plans of
-:func:`tri_plan` and :func:`rect_plan`; f32 runs on the CUDA cores.
+In bf16 and fp16 both kernels run on the tensor cores (wgmma, TMA: q, k,
+v and out need 16-byte-aligned bases) with the launch plans of
+:func:`tri_plan` and :func:`rect_plan`, the same for both 16-bit types;
+f32 runs on the CUDA cores. fp16 has a library of its own
+(``build.VARIANTS``), built at the first fp16 call.
 
 The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 256); a caller
 with another head dim up to 256 zero-pads the head to
@@ -31,8 +33,13 @@ import torch
 
 from tpu_operator_torch.kernels import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims whose bf16 kernels take both tile heights (64 and 128 rows)
+# the kernels' dtypes and their codes in the C entries (f32 and bf16 in the
+# library flash_fwd, fp16 in flash_fwd_f16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the dtypes the tensor-core kernels take: 16 bits each, so one layout, one
+# plan and one TMA alignment serve both
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+# the head dims whose 16-bit kernels take both tile heights (64 and 128 rows)
 HEAD_DIMS = (16, 32, 64, 128)
 # every head dim the kernels take: D 256 in 64-row tiles only (its 128-row
 # tiles would not fit a block's shared memory or a thread's registers)
@@ -127,14 +134,14 @@ class TriPlan:
         return y, x
 
 
-TRI_STAGES = 2  # K/V ring depth of the bf16 kernel (kStages in flash_fwd.cu)
+TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
 # the q-tile heights (rows) a plan may take per (dtype, native head dim):
-# bf16 one or two consumer warpgroups, one only at D 256; f32 its CUDA-core
-# kernels' fixed 64 (the knob of the forward; the f32 backward at D 256
-# runs its fixed 32-row plan, flash_bwd.f32_tile)
+# bf16 and fp16 one or two consumer warpgroups, one only at D 256; f32 its
+# CUDA-core kernels' fixed 64 (the knob of the forward; the f32 backward at
+# D 256 runs its fixed 32-row plan, flash_bwd.f32_tile)
 TILE_HEIGHTS = {
-    **{(torch.bfloat16, d): (64, 128) for d in HEAD_DIMS},
-    (torch.bfloat16, 256): (64,),
+    **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
+    **{(t, 256): (64,) for t in TENSOR_CORE_DTYPES},
     **{(torch.float32, d): (64,) for d in NATIVE_HEAD_DIMS},
 }
 
@@ -174,8 +181,9 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
              block_m: Optional[int] = None) -> TriPlan:
     """How ``flash_fwd_tri`` launches for (bh rows, s tokens, head dim d).
 
-    bf16 runs the tensor-core kernel: q tiles of 128 rows (two consumer
-    warpgroups) once they fill one wave of CTAs on the card's ``sms``
+    bf16 and fp16 run the tensor-core kernel (one plan for both 16-bit
+    types): q tiles of 128 rows (two consumer warpgroups) once they fill
+    one wave of CTAs on the card's ``sms``
     streaming multiprocessors, else 64 rows (one warpgroup), so that small
     grids keep more CTAs — or the height ``block_m`` forces (64 or 128;
     threads, grid and shared memory follow from it); plus one producer warp; grid (bh, q tiles) with
@@ -197,8 +205,8 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64))
 
 
-RECT_TILE = 64  # keys of a ring tile of the bf16 general kernel (kRingRows in hopper.cuh)
-# the bf16 general kernel's staged segment ids: per stage 64 int32 and their
+RECT_TILE = 64  # keys of a ring tile of the 16-bit general kernel (kRingRows in hopper.cuh)
+# the 16-bit general kernel's staged segment ids: per stage 64 int32 and their
 # min and max (kSegBytes in flash_fwd.cu)
 SEG_BYTES = TRI_STAGES * (RECT_TILE + 2) * 4
 
@@ -240,7 +248,7 @@ class RectPlan:
         return range(lo // RECT_TILE, -(-hi // RECT_TILE)) if lo < hi else range(0)
 
     def kind(self, w0: int, k0: int, seg: Optional[torch.Tensor] = None) -> str:
-        """How the bf16 kernel's warpgroup of the 64 q rows from ``w0``
+        """How the 16-bit kernel's warpgroup of the 64 q rows from ``w0``
         treats the 64-key tile from ``k0`` (both local), after the
         reference's ``_dispatch_block``: "dead" — no live pair (outside its
         rows' band, or both sides one document each and different ones), no
@@ -271,7 +279,7 @@ class RectPlan:
     def visits(self, x: int, y: int,
                seg: Optional[torch.Tensor] = None) -> List[Tuple[int, int, str]]:
         """(64-row q slice, 64-key tile, kind) of every product block (x,
-        y) of the bf16 kernel computes, in its order: each warpgroup's slice
+        y) of the 16-bit kernel computes, in its order: each warpgroup's slice
         skips a dead tile."""
         tile = self.cta(x, y)[1]
         slices = [tile * self.block_m // 64 + w for w in range(self.block_m // 64)]
@@ -290,11 +298,11 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     """How ``flash_fwd_rect`` launches for bh rows of sq q rows against sk
     keys, head dim d, and the masks.
 
-    bf16 runs the tensor-core kernel: the triangle's one-wave rule for the
-    q-tile height (:func:`tri_plan`: 128 rows once the grid fills one wave
-    of CTAs on the card's ``sms`` streaming multiprocessors, else 64; or
-    the height ``block_m`` forces, as there), one
-    producer warp, grid (bh, q tiles) in natural order, K and V in 64-key
+    bf16 and fp16 run the tensor-core kernel: the triangle's one-wave rule
+    for the q-tile height (:func:`tri_plan`: 128 rows once the grid fills
+    one wave of CTAs on the card's ``sms`` streaming multiprocessors, else
+    64; or the height ``block_m`` forces, as there), one producer warp,
+    grid (bh, q tiles) in natural order, K and V in 64-key
     ring tiles; shared memory for the Q tile, ``TRI_STAGES`` K and V ring
     tiles, their staged segment ids (whether or not the call has ids, as
     ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
@@ -357,10 +365,16 @@ def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
         raise ValueError("segment ids must be a contiguous CUDA tensor")
 
 
+def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernels with its C signatures declared
+    (built on its first call): ``flash_fwd_f16`` for fp16, else
+    ``flash_fwd``."""
+    return _load("flash_fwd_f16" if dtype == torch.float16 else "flash_fwd")
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (built on first call)."""
-    lib = build.load("flash_fwd")
+def _load(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd_tri.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32,
                                   i32, i32, i32, ptr]
@@ -389,12 +403,13 @@ def _qscale(d: int, sm_scale: Optional[float]) -> float:
 def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] = None,
                   sm_scale: Optional[float] = None):
     """Plain-causal forward (sq == sk, no offsets, window or segments):
-    the port of ``_flash_fwd_tri_kernel``. bf16 runs on the tensor cores
-    (wgmma, TMA: q, k, v need 16-byte-aligned bases), f32 on the CUDA
+    the port of ``_flash_fwd_tri_kernel``. bf16 and fp16 run on the tensor
+    cores (wgmma, TMA: q, k, v need 16-byte-aligned bases), f32 on the CUDA
     cores; the launch follows :func:`tri_plan`, at the tile height
     ``block_m`` when given (checked on the CPU too, where it changes
     nothing). ``sm_scale`` is the softmax scale (default 1/√d; a padded
-    head passes its true head dim's)."""
+    head passes its true head dim's). fp16 runs bf16's design on fp16
+    operands."""
     check_block_m(qb.dtype, block_m, qb.shape[-1])
     if not qb.is_cuda:
         return attention_plain(qb, kb, vb, heads, kv_heads, causal=True, sm_scale=sm_scale)
@@ -404,12 +419,12 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
         raise ValueError(f"the triangle kernel needs sq == sk, got {s} and {kb.shape[1]}")
     out = torch.empty_like(qb)
     lse = torch.empty((bh, s), dtype=torch.float32, device=qb.device)
-    if qb.dtype == torch.bfloat16:
+    if qb.dtype in TENSOR_CORE_DTYPES:
         _check_tma_bases(q=qb, k=kb, v=vb, out=out)
     plan = tri_plan(qb.dtype, bh, s, d, _sm_count(qb.device.index), block_m)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _lib().flash_fwd_tri(
+        code = _lib(qb.dtype).flash_fwd_tri(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, _qscale(d, sm_scale),
             plan.block_m, plan.smem_bytes, plan.swizzle, stream,
@@ -424,9 +439,9 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
                    window: Optional[int] = None, seg: Optional[torch.Tensor] = None,
                    block_m: Optional[int] = None, sm_scale: Optional[float] = None):
     """General forward — causal or full, window, segment ids (B, S) int32,
-    global offsets, sq != sk: the port of ``_flash_fwd_kernel``. bf16 runs
-    on the tensor cores (wgmma, TMA: q, k, v need 16-byte-aligned bases),
-    f32 on the CUDA cores; the launch follows :func:`rect_plan`, at the
+    global offsets, sq != sk: the port of ``_flash_fwd_kernel``. bf16 and
+    fp16 run on the tensor cores (wgmma, TMA: q, k, v need 16-byte-aligned
+    bases), f32 on the CUDA cores; the launch follows :func:`rect_plan`, at the
     tile height ``block_m`` when given; ``sm_scale`` as
     :func:`flash_fwd_tri`'s."""
     check_block_m(qb.dtype, block_m, qb.shape[-1])
@@ -440,13 +455,13 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
         _check_seg(seg, bh // heads, sq, sk)
     out = torch.empty_like(qb)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qb.device)
-    if qb.dtype == torch.bfloat16:
+    if qb.dtype in TENSOR_CORE_DTYPES:
         _check_tma_bases(q=qb, k=kb, v=vb, out=out)
     plan = rect_plan(qb.dtype, bh, sq, sk, d, _sm_count(qb.device.index), causal, window,
                      q_start, k_start, block_m)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _lib().flash_fwd_rect(
+        code = _lib(qb.dtype).flash_fwd_rect(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
             None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, sq, sk, d, heads, kv_heads, int(causal),

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, wgmma shared-
 // memory descriptors and products, the segment-id ranges of a tile, and the
-// host-side tensor-map encoder.
+// host-side tensor-map encoder. The element type T of the products and the
+// maps is a template parameter: bf16 or fp16 (kElem16), each kernel source
+// instantiating one of them per library.
 //
-// Tile convention: a [rows][D] bf16 tile lives in shared memory as
+// Tile convention: a [rows][D] 16-bit tile lives in shared memory as
 // Geo<D>::kBoxes column boxes of [rows][kCols], each row kRowBytes long and
-// swizzled over that span, exactly as one TMA box of encode_map<D> lands. A
+// swizzled over that span, exactly as one TMA box of encode_map<T, D> lands. A
 // K-major wgmma operand (contracting over D) steps 32 bytes inside a box per
 // k16 step; an MN-major B operand (contracting over rows, the transpose
 // flag) steps 16 rows per k16 step and reaches the next 64-column boxes
@@ -19,11 +21,13 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace hopper {
 
@@ -32,7 +36,7 @@ constexpr int kSmemAlign = 1024;  // the 128B swizzle atom (8 rows x 128 bytes)
 // to the general forward and to both backward pairs
 constexpr int kRingRows = 64;
 
-// Tile geometry for head dim D: a [rows][D] bf16 tile is stored as kBoxes
+// Tile geometry for head dim D: a [rows][D] 16-bit tile is stored as kBoxes
 // column boxes of [rows][kCols], each row kRowBytes long and swizzled over
 // that span, exactly as one TMA box lands.
 template <int D>
@@ -140,36 +144,85 @@ __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&h);
+// The tensor-core kernels' element types: bf16 and fp16. Both are 16 bits,
+// so tiles, swizzles, TMA boxes and the register layouts of P and dS are the
+// same; only wgmma's operand type, the tensor map's data type and the
+// rounding of a packed pair differ.
+template <typename T>
+inline constexpr bool kHalf = std::is_same<T, __half>::value;
+template <typename T>
+inline constexpr bool kElem16 = kHalf<T> || std::is_same<T, __nv_bfloat16>::value;
+
+// The 16-bit element type a kernel library is built for, and its dtype code
+// (the wrappers' _DTYPES: 0 f32, 1 bf16, 2 fp16): built as is, bf16, beside
+// the f32 CUDA-core kernels; built with -DFLASH_ELEM_F16 (kernels/build.py's
+// fp16 libraries), fp16 alone, so a bf16 caller never compiles fp16 kernels.
+#ifdef FLASH_ELEM_F16
+using Elem16 = __half;
+constexpr int kElemCode = 2;
+#else
+using Elem16 = __nv_bfloat16;
+constexpr int kElemCode = 1;
+#endif
+constexpr bool kWithF32 = kElemCode == 1;
+
+// Two floats rounded to nearest even into a pair of T, as one 32-bit
+// register: a wgmma A fragment, or two neighbouring elements of a store.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  static_assert(kElem16<T>, "the tensor-core kernels take bf16 or fp16");
+  if constexpr (kHalf<T>) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
 }
 
-// d[0..32) += A(smem, K-major) . B(smem, K-major), m64n64k16, bf16 in, f32 out
+// One wgmma statement for element type T. TEXT(ty) spells the instruction
+// with its operand type ("bf16" or "f16"): the asm text is a literal, so
+// the type is chosen at compile time. The rest are the statement's operands.
+#define HOPPER_WGMMA(T, TEXT, ...)                                          \
+  do {                                                                      \
+    static_assert(kElem16<T>, "the tensor-core kernels take bf16 or fp16"); \
+    if constexpr (kHalf<T>) {                                               \
+      asm volatile(TEXT("f16") __VA_ARGS__);                                \
+    } else {                                                                \
+      asm volatile(TEXT("bf16") __VA_ARGS__);                               \
+    }                                                                       \
+  } while (0)
+
+// d[0..32) += A(smem, K-major) . B(smem, K-major), m64n64k16, T in, f32 out
+#define HOPPER_SS_N64(ty)                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                     \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {"                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_SS_N64,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+#undef HOPPER_SS_N64
 
-// d[0..64) += A(smem, K-major) . B(smem, K-major), m64n128k16, bf16 in, f32 out
+// d[0..64) += A(smem, K-major) . B(smem, K-major), m64n128k16, T in, f32 out
+#define HOPPER_SS_N128(ty)                                                           \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {"                      \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_SS_N128,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -180,55 +233,67 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+#undef HOPPER_SS_N128
 
-// d[0..8) += A(registers) . B(smem, MN-major), m64n16k16, bf16 in, f32 out
+// d[0..8) += A(registers) . B(smem, MN-major), m64n16k16, T in, f32 out
+#define HOPPER_RS_N16(ty)                                      \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                 \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7"                             \
+  "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_RS_N16,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+#undef HOPPER_RS_N16
 
-// d[0..16) += A(registers) . B(smem, MN-major), m64n32k16, bf16 in, f32 out
+// d[0..16) += A(registers) . B(smem, MN-major), m64n32k16, T in, f32 out
+#define HOPPER_RS_N32(ty)                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                           \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." ty "." ty " {"           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_RS_N32,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+#undef HOPPER_RS_N32
 
-// d[0..32) += A(registers) . B(smem, MN-major), m64n64k16, bf16 in, f32 out
+// d[0..32) += A(registers) . B(smem, MN-major), m64n64k16, T in, f32 out
+#define HOPPER_RS_N64(ty)                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                     \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {"                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_RS_N64,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+#undef HOPPER_RS_N64
 
-// d[0..64) += A(registers) . B(smem, MN-major), m64n128k16, bf16 in, f32 out
+// d[0..64) += A(registers) . B(smem, MN-major), m64n128k16, T in, f32 out
+#define HOPPER_RS_N128(ty)                                                           \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                       \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {"                      \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_RS_N128,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -239,21 +304,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+#undef HOPPER_RS_N128
 
-// d[0..128) += A(registers) . B(smem, MN-major), m64n256k16, bf16 in, f32 out
+// d[0..128) += A(registers) . B(smem, MN-major), m64n256k16, T in, f32 out
+#define HOPPER_RS_N256(ty)                                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                    \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." ty "." ty " {"                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "               \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "               \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "               \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "               \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "   \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+  HOPPER_WGMMA(T, HOPPER_RS_N256,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -272,25 +340,28 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+#undef HOPPER_RS_N256
 
-template <int N>
+#undef HOPPER_WGMMA
+
+template <typename T, int N>
 __device__ __forceinline__ void mma_scores(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
-  else wgmma_ss_n128(d, a, b, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<T>(d, a, b, scale_d);
+  else wgmma_ss_n128<T>(d, a, b, scale_d);
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
-  else wgmma_rs_n256(d, a, b);
+  if constexpr (N == 16) wgmma_rs_n16<T>(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32<T>(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64<T>(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128<T>(d, a, b);
+  else wgmma_rs_n256<T>(d, a, b);
 }
 
 // acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
 //     . B(smem, K-major: a [kRingRows][D] ring tile)^T, contracted over all of D
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigned char* a_tile,
                                                  int a_rows, int row, const unsigned char* b_tile) {
   using G = Geo<D>;
@@ -302,14 +373,14 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigne
                                   16, G::kAtom, G::kLayout);
     const uint64_t db = make_desc(b_tile + box * kRingRows * G::kRowBytes + off, 16, G::kAtom,
                                   G::kLayout);
-    wgmma_ss_n64(acc, da, db, kk > 0);
+    wgmma_ss_n64<T>(acc, da, db, kk > 0);
   }
 }
 
-// acc += A(registers: 64 x 64, bf16 fragments) . B(smem, MN-major: N columns
+// acc += A(registers: 64 x 64, T fragments) . B(smem, MN-major: N columns
 // of a [kRingRows][D] ring tile, from column box `box` on, contracted over
 // its rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128.
-template <int D, int N = D>
+template <typename T, int D, int N = D>
 __device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2], const uint32_t (&a)[4][4],
                                                  const unsigned char* b_tile, int box = 0) {
   using G = Geo<D>;
@@ -319,7 +390,7 @@ __device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2], const uint
     // a k16 step is 16 rows, two 8-row atoms; the next 64-column boxes are LBO apart
     const uint64_t db = make_desc(b + kk * 16 * G::kRowBytes, kRingRows * G::kRowBytes,
                                   G::kAtom, G::kLayout);
-    mma_pv<N>(acc, a[kk], db);
+    mma_pv<T, N>(acc, a[kk], db);
   }
 }
 
@@ -374,10 +445,11 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 3-D map over a contiguous (rows, s, D) bf16 tensor: boxes of
-// [box_rows][kCols] with the swizzle of Geo<D>; rows past s read as zero.
-template <int D>
+// A 3-D map over a contiguous (rows, s, D) tensor of T (bf16 or fp16): boxes
+// of [box_rows][kCols] with the swizzle of Geo<D>; rows past s read as zero.
+template <typename T, int D>
 bool encode_map(CUtensorMap* map, const void* base, int s, int rows, int box_rows) {
+  static_assert(kElem16<T>, "TMA maps are made for bf16 or fp16 tiles");
   using G = Geo<D>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
@@ -390,7 +462,9 @@ bool encode_map(CUtensorMap* map, const void* base, int s, int rows, int box_row
   const CUtensorMapSwizzle swizzle = G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+  const CUtensorMapDataType type =
+      kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

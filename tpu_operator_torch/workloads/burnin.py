@@ -57,7 +57,9 @@ from tpu_operator_torch.workloads.spmd import (
     world_size,
 )
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the compute dtypes a config may name (the reference's jnp.dtype(dtype));
+# weights stay float32 and are cast at use
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,10 +18,12 @@ PyTorch versions for CPU tensors (``kernels/flash_fwd.py``,
 and the FlashAttention-2 backward recomputes P from lse. ``block_q``/
 ``block_k`` keep only their role in the divisibility checks. The port's
 own tile knob is ``block_m``, the kernels' q-tile height (64 or 128 rows
-in bf16, 64 in f32), forward and backward alike: unset, it is the
-published autotune winner's (``autotune.tuned_flash_tile``), else the
-launch plans choose. The plain versions on the CPU have no tiles: there
-the value is checked and changes nothing.
+in bf16 and fp16, 64 in f32), forward and backward alike: unset, it is
+the published autotune winner's (``autotune.tuned_flash_tile``), else the
+launch plans choose. The sweep times bf16 only; an fp16 call takes the
+bf16 winner of its shape class, as the reference's dtype-blind
+``tuned_flash_blocks`` does. The plain versions on the CPU have no tiles:
+there the value is checked and changes nothing.
 
 Head dims: the kernels take 16, 32, 64, 128 and 256
 (``flash_fwd.NATIVE_HEAD_DIMS``); any other head dim up to 256 runs
@@ -166,7 +168,7 @@ def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads:
 
 def _tma_aligned(x: torch.Tensor) -> torch.Tensor:
     """x itself when it starts on a TMA_ALIGN-byte boundary, else a copy
-    in a fresh (aligned) allocation: the bf16 triangle pair reads dO by
+    in a fresh (aligned) allocation: the bf16 and fp16 pairs read dO by
     TMA, and a contiguous cotangent may be a view at any offset."""
     return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
 
@@ -202,8 +204,9 @@ def _resolve_block_m(block_m: Optional[int], dtype: torch.dtype, seq_len: int, h
                      head_dim: int, fwd_bwd: bool) -> Optional[int]:
     """An explicit ``block_m``, checked against ``dtype`` at ``head_dim``;
     unset, the published winner's for the shape class (the fwd+bwd family's
-    when a gradient will flow), when ``dtype``'s kernels take it at
-    ``head_dim`` (D 256 has no 128-row plan); else None."""
+    when a gradient will flow; swept in bf16, and taken by fp16 too, whose
+    plans are bf16's), when ``dtype``'s kernels take it at ``head_dim`` (D
+    256 has no 128-row plan); else None."""
     if block_m is not None:
         check_block_m(dtype, block_m, head_dim)
         return block_m
