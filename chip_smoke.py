@@ -11,14 +11,17 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 2. build — compiles every CUDA source of the ``KERNELS`` table
    (``flash_fwd.cu``, ``flash_bwd.cu``, ``triad.cu``) from the repository,
    and the two flash sources again for fp16 (``build.VARIANTS``:
-   ``flash_fwd_f16``, ``flash_bwd_f16``), one ``nvcc`` each, all five
-   started together; prints each library's ptxas report (registers,
+   ``flash_fwd_f16``, ``flash_bwd_f16``) and for head dim 512 in bf16 with
+   f32 and in fp16 (``flash_fwd_d512``, ``flash_bwd_d512``,
+   ``flash_fwd_f16_d512``, ``flash_bwd_f16_d512``), one ``nvcc`` each, all
+   nine started together; prints each library's ptxas report (registers,
    spills) and, from ``cuobjdump --dump-sass``, the ``HGMMA`` (tensor-core)
    instructions of every bf16 instantiation of both forward kernels (18:
    the triangle's 9 and the general kernel's 9, head dims 16-128 at one and
-   two warpgroups and 256 at one) and of both backward pairs (36), and of
-   the same 18 + 36 in fp16 (54), failing when one has none, spills
-   registers, or ptxas serialized its ``wgmma`` or ignored its
+   two warpgroups and 256 at one) and of both backward pairs (36), of
+   the same 18 + 36 in fp16 (54), and of the D 512 libraries' 6 each (one
+   warpgroup, ``HEAD_DIM_512_INSTANTIATIONS``), failing when one has none,
+   spills registers, or ptxas serialized its ``wgmma`` or ignored its
    ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
@@ -50,7 +53,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    bf16, whose error it must stay below, and one backward row whose dO is
    scaled by 2^-22 (Phi-3-mini's full-width cotangent, fp16 subnormals),
    held to the plain version within 2e-2 of max |grad| or the subnormal
-   steps a differently rounded dS can move (``FP16_SUBNORMAL_STEP``); then
+   steps a differently rounded dS can move (``FP16_SUBNORMAL_STEP``); rows
+   at head dim 512 (``HEAD_DIM_512_KERNEL_CASES``, ``HEAD_DIM_512_BWD_CASES``:
+   DeepSeek-V4-Flash's (1,8192,8,512) with one kv head, plain causal,
+   window 128 and packed, in bf16 and fp16; full attention at
+   (1,4096,8,512); f32 (2,128,4,512) and serving's f32 prefill chunk; ragged
+   lengths 100 and 1000 at GQA 2; the zero-padded route at 384), each
+   row naming the SDPA backend that answered its library call; then
    the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -254,7 +263,23 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    both widths the cotangent that reaches attention's backward (its share
    of exact zeros and of subnormals, rms and max) beside the magnitude the
    loss reckons, 2·√loss/N; the card's name and power limit on every
-   line of numbers.
+   line of numbers;
+17. head dim 512 — (a) DeepSeek-V4-Flash's attention widths as a TPUJob's
+   config (``DEEPSEEK_V4_FLASH``: d_model 4096, 8 heads of 512, 1 kv head,
+   d_ff 2048, seq 8192; cut from 64 heads, 43 layers and a 1M context)
+   through ``training.trainer_config``: phase 15 (a)'s bars (flash against
+   dense within 2e-2 relative and falling, the seeded forward output within
+   ``FORWARD_GAP_TOL``, exact launches, ``GRAPH_STEPS`` graphed steps
+   against the eager step, the elastic trainer with a fault at 5 and a
+   resume), ``packed_segments=2`` against the dense path under the
+   documents' mask, and ``dtype: float16`` against the fp16 dense path;
+   (b) f32 ``flash_attention`` gradients at (1,256,2,512) against autograd
+   through dense attention within 1e-4, plain causal and with a window of
+   128 and two segments; (c) serving at head dim 512
+   (``ServingModelConfig(head_dim=512, use_flash_prefill=True)``, f32):
+   phase 5's 16 requests with dense prefill's greedy tokens, 48
+   ``flash_fwd_rect`` launches; (d) the zero-padded route at 384 is phase
+   3's rows at its true scale; the phase's seconds.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -529,6 +554,11 @@ TENSOR_CORE_KERNELS = {
 }
 # and at head dim 256, one warpgroup only: per library, how many more
 HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
+# the head dim 512 libraries (kernels/build.py VARIANTS: both flash sources
+# built with -DFLASH_HEAD_DIM_512, bf16 beside f32, and fp16): one
+# warpgroup's instantiation of each tensor-core kernel, and no other
+HEAD_DIM_512_INSTANTIATIONS = {"flash_fwd_d512": 2, "flash_bwd_d512": 4,
+                               "flash_fwd_f16_d512": 2, "flash_bwd_f16_d512": 4}
 # the fp16 libraries (kernels/build.py VARIANTS: the same sources built with
 # -DFLASH_ELEM_F16) hold the same instantiations in fp16, and no other
 FLOAT16_TENSOR_CORE_KERNELS = {
@@ -554,7 +584,9 @@ def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
     sources = sorted({module for module, _, _ in KERNELS.values()})
-    libraries = sources + sorted(FLOAT16_TENSOR_CORE_KERNELS)  # the fp16 builds too
+    # the fp16 builds and the head dim 512 ones too
+    libraries = (sources + sorted(FLOAT16_TENSOR_CORE_KERNELS)
+                 + sorted(HEAD_DIM_512_INSTANTIATIONS))
     start = time.perf_counter()
     built = build.build(libraries)
     seconds = time.perf_counter() - start
@@ -581,6 +613,11 @@ def phase_build() -> dict:
               for name, (label_of, expected) in TENSOR_CORE_KERNELS.items()}
     tables.update({name: (label_of, expected, "fp16")
                    for name, (label_of, expected) in FLOAT16_TENSOR_CORE_KERNELS.items()})
+    for name, expected in HEAD_DIM_512_INSTANTIATIONS.items():
+        fp16, fwd = "_f16" in name, name.startswith("flash_fwd")
+        label_of = ((fwd_f16_label if fwd else bwd_f16_label) if fp16
+                    else (fwd_bf16_label if fwd else tri_bwd_bf16_label))
+        tables[name] = (label_of, expected, "fp16 d512" if fp16 else "bf16 d512")
     for name, (label_of, expected, dtype) in tables.items():
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
@@ -696,6 +733,20 @@ def _library_call(case, q, k, v, seg):
     qs, ks, vs = _heads_layout(case, q, k, v)
     kwargs = _sdpa_kwargs(case, seg, case["kernel"] == "flash_fwd_tri")
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, **kwargs)
+
+
+def sdpa_backend(case, q, k, v, seg, tri: bool, grad: bool = False) -> str:
+    """The backend F.scaled_dot_product_attention dispatches the case's
+    library call to (its flash backend stops at head dim 256); ``grad``:
+    with inputs that need gradients, as the backward rows' call has."""
+    from torch.nn.attention import SDPBackend
+
+    qs, ks, vs = (x.detach().requires_grad_(grad) for x in _heads_layout(case, q, k, v))
+    kwargs = _sdpa_kwargs(case, seg, tri)
+    choice = torch._fused_sdp_choice(qs, ks, vs, attn_mask=kwargs.get("attn_mask"),
+                                     is_causal=kwargs.get("is_causal", False),
+                                     enable_gqa=kwargs.get("enable_gqa", False))
+    return SDPBackend(choice).name.lower()
 
 
 def _library_backward_ms(case, q, k, v, seg, dout, inner: int) -> tuple:
@@ -942,6 +993,60 @@ FLOAT16_BWD_CASES = [
          dout_scale=SUBNORMAL_DOUT_SCALE),
 ]
 
+# phase 3's rows at head dim 512 (phase 17), after the fp16 rows: the six
+# kernels at DeepSeek-V4-Flash's attention (8 q heads of 512 on one kv head,
+# 8192 tokens; its sliding window of 128; packed) in bf16 and fp16, full
+# attention, f32 on the CUDA cores, serving's f32 prefill chunk, ragged
+# lengths at GQA 2, and the zero-padded route at 384 (at its own scale)
+DEEPSEEK_Q = (1, 8192, 8, 512)
+HEAD_DIM_512_KERNEL_CASES = [
+    dict(kernel=kernel, label=f"deepseek-v4-flash {name} {t} (1,8192,8,512) h_kv 1",
+         q=DEEPSEEK_Q, h_kv=1, dtype=dtype, inner=2, main=main, **extra)
+    for t, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
+    for kernel, name, main, extra in (
+        ("flash_fwd_tri", "plain", True, {}),
+        ("flash_fwd_rect", "window 128", False, dict(causal=True, window=128)),
+        ("flash_fwd_rect", "packed 2 segments", True, dict(causal=True, packed=2)),
+    )
+] + [
+    dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,512) full", q=(1, 4096, 8, 512),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,512)", q=(2, 128, 4, 512),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,512) full", q=(2, 128, 4, 512),
+         dtype=torch.float32, causal=False),
+    dict(kernel="flash_fwd_rect", label="serving d512 f32 q(1,8,2,512) kv 64 q_start=16",
+         q=(1, 8, 2, 512), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    dict(kernel="flash_fwd_tri", label="ragged bf16 (2,100,4,512) h_kv 2", q=(2, 100, 4, 512),
+         h_kv=2, dtype=torch.bfloat16),
+    dict(kernel="flash_fwd_rect", label="ragged bf16 (2,1000,4,512) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 512), h_kv=2, dtype=torch.bfloat16, causal=True, cut=333),
+    dict(kernel="flash_fwd_tri", label="bf16 (1,4096,8,384) padded to 512", q=(1, 4096, 8, 384),
+         dtype=torch.bfloat16, inner=2),
+]
+HEAD_DIM_512_BWD_CASES = [
+    dict(pair=pair, label=f"deepseek-v4-flash {name} {t} (1,8192,8,512) h_kv 1", q=DEEPSEEK_Q,
+         h_kv=1, dtype=dtype, inner=1, main=main, **extra)
+    for t, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
+    for pair, name, main, extra in (
+        ("tri", "plain", True, {}),
+        ("rect", "window 128", False, dict(causal=True, window=128)),
+        ("rect", "packed 2 segments", True, dict(causal=True, packed=2)),
+    )
+] + [
+    dict(pair="rect", label="bf16 (1,4096,8,512) full", q=(1, 4096, 8, 512),
+         dtype=torch.bfloat16, causal=False, inner=1),
+    dict(pair="tri", label="f32 (2,128,4,512)", q=(2, 128, 4, 512), dtype=torch.float32),
+    dict(pair="rect", label="f32 (2,128,4,512) window 33, segments cut 88", q=(2, 128, 4, 512),
+         dtype=torch.float32, causal=True, window=33, cut=88),
+    dict(pair="tri", label="ragged bf16 (2,100,4,512) h_kv 2", q=(2, 100, 4, 512), h_kv=2,
+         dtype=torch.bfloat16),
+    dict(pair="rect", label="ragged bf16 (2,1000,4,512) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 512), h_kv=2, dtype=torch.bfloat16, causal=True, cut=333),
+    dict(pair="tri", label="bf16 (1,4096,8,384) padded to 512", q=(1, 4096, 8, 384),
+         dtype=torch.bfloat16, inner=1),
+]
+
 
 def _bwd_setup(case, q, k, v, seg, dout) -> dict:
     """A backward case's launches on (q, k, v, dout) in their dtype: the
@@ -998,7 +1103,7 @@ def _backward_rows(gen) -> list:
     from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     rows = []
-    for case in BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES:
+    for case in BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES:
         q, k, v, seg = _case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda")
         dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
@@ -1039,6 +1144,7 @@ def _backward_rows(gen) -> list:
         inner = case.get("inner", 20)
         plain_ms = device_ms(run["plain"], inner)
         library_ms, eager_library_ms = _library_backward_ms(case, q, k, v, seg, dout, inner)
+        backend = sdpa_backend(case, q, k, v, seg, case["pair"] == "tri", grad=True)
         pair = []
         for fn, kernel_errs, is_dq in ((run["dq"], errs[:1], True), (run["dkv"], errs[1:], False)):
             bound_ms, bound_by = _bwd_bound(case, live, d, is_dq)
@@ -1049,7 +1155,7 @@ def _backward_rows(gen) -> list:
                 "rel_err": max(kernel_errs) / grad_scale, "ms": device_ms(fn, inner),
                 "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": cuda_ms(fn, inner),
                 "eager_library_ms": eager_library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "live_pairs": live, **twin,
+                "bound_by": bound_by, "live_pairs": live, "library_backend": backend, **twin,
             })
         pair_ms = pair[0]["ms"] + pair[1]["ms"]
         # 14·D FLOPs per live pair: S, dP, dQ (6·D) and S, dP, dV, dK (8·D)
@@ -1078,7 +1184,7 @@ def _backward_rows(gen) -> list:
             f"{errs[2]:.3g} (max |grad| {grad_scale:.3g}); device ms: dq {pair[0]['ms']:.5f} (bound "
             f"{pair[0]['bound_ms']:.5f} by {pair[0]['bound_by']}), dkv {pair[1]['ms']:.5f} (bound "
             f"{pair[1]['bound_ms']:.5f} by {pair[1]['bound_by']}), pair {pair_ms:.5f}, plain "
-            f"{plain_ms:.5f}, sdpa backward {library_ms:.5f}{rate}; eager ms: dq "
+            f"{plain_ms:.5f}, sdpa backward {library_ms:.5f} ({backend}){rate}; eager ms: dq "
             f"{pair[0]['eager_ms']:.4f}, dkv {pair[1]['eager_ms']:.4f}, sdpa backward "
             f"{eager_library_ms:.4f}")
     return rows
@@ -1112,7 +1218,7 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     other = [plans(192 - mine.block)[i] for i, mine in enumerate(picked)]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, dtype = flash_bwd._lib(q.dtype), flash_fwd._DTYPES[q.dtype]
+    lib, dtype = flash_bwd._lib(q.dtype, d), flash_fwd._DTYPES[q.dtype]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
               delta.data_ptr())
     seg = () if pair == "tri" else (None if extra[2] is None else extra[2].data_ptr(),)
@@ -1231,7 +1337,7 @@ def _other_tile_height(case, q, k, v, h: int, h_kv: int, masks: dict, want, want
     plan = plan_for(192 - picked)  # the other of 64 and 128
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device="cuda")
-    lib, dtype = flash_fwd._lib(q.dtype), flash_fwd._DTYPES[q.dtype]
+    lib, dtype = flash_fwd._lib(q.dtype, d), flash_fwd._DTYPES[q.dtype]
     qscale = flash_fwd._qscale(d, sm_scale)
     seg = None if tri or masks["seg"] is None else masks["seg"].data_ptr()
 
@@ -1302,7 +1408,8 @@ def phase_kernels() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     results = []
-    for case in KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES:
+    for case in (KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES
+                 + HEAD_DIM_512_KERNEL_CASES):
         q, k, v, seg = _case_inputs(case, gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
@@ -1334,7 +1441,9 @@ def phase_kernels() -> list:
             "library_ms": device_ms(library, inner),
             "eager_ms": cuda_ms(kern, inner), "eager_plain_ms": cuda_ms(plain, inner),
             "eager_library_ms": cuda_ms(library, inner),
-            "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live, **twin,
+            "bound_ms": bound_ms, "bound_by": bound_by, "live_pairs": live,
+            "library_backend": sdpa_backend(case, q, k, v, seg, case["kernel"] == "flash_fwd_tri"),
+            **twin,
         }
         row["tflops"] = 4.0 * d * live / row["ms"] / 1e9
         row["ratio_to_library"] = row["ms"] / row["library_ms"]
@@ -1351,7 +1460,8 @@ def phase_kernels() -> list:
         results.append(row)
         log(f"kernel {row['kernel']} [{row['label']}]: O err {o_err:.3g}, lse err {lse_err:.3g}; "
             f"device ms: kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
-            f"sdpa {row['library_ms']:.5f}, bound {bound_ms:.5f} by {bound_by}{rate}; eager ms: "
+            f"sdpa {row['library_ms']:.5f} ({row['library_backend']}), bound {bound_ms:.5f} by "
+            f"{bound_by}{rate}; eager ms: "
             f"kernel {row['eager_ms']:.4f}, plain {row['eager_plain_ms']:.4f}, "
             f"sdpa {row['eager_library_ms']:.4f}")
     results += _backward_rows(gen)
@@ -3825,6 +3935,40 @@ def _free_card() -> None:
 
 
 @contextlib.contextmanager
+def _seeded_once():
+    """The burn-in's seeded weights and batch drawn once per shape while the
+    block runs: a full-width phase draws them again for every run from the
+    same seeds (the flash run, its reference, the forward gap, the graphed
+    step, the trainer), ~2 s of host time a draw at DeepSeek-V4-Flash's
+    widths. The same seeds give the same arrays, and every caller copies
+    them before use (``weights._load``, ``.to`` the card), so only the time
+    changes. Also a decorator."""
+    from tpu_operator_torch.workloads import burnin, training
+
+    real_params, real_batch = burnin.seeded_params, burnin._seeded_batch
+    drawn = {}
+
+    def params(cfg):
+        key = ("params", cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.qkv_width, cfg.moe_experts)
+        if key not in drawn:
+            drawn[key] = real_params(cfg)
+        return dict(drawn[key])
+
+    def batch(cfg):
+        key = ("batch", cfg.batch, cfg.seq_len, cfg.d_model)
+        if key not in drawn:
+            drawn[key] = real_batch(cfg)
+        return drawn[key]
+
+    burnin.seeded_params, burnin._seeded_batch, training.seeded_params = params, batch, params
+    try:
+        yield
+    finally:
+        burnin.seeded_params, burnin._seeded_batch = real_params, real_batch
+        training.seeded_params = real_params
+
+
+@contextlib.contextmanager
 def _dense_packed_attention():
     """The burn-in's flash attention swapped for dense attention under the
     packed documents' mask (``ringattention.dense_attention``, plain
@@ -3976,17 +4120,18 @@ def _masked_dense(q, k, v, causal: bool, window=None, seg=None):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
 
 
-def _f32_grads_at_256(device: str = "cuda") -> dict:
+def _f32_grads_at(d: int, window: int, device: str = "cuda") -> dict:
     """autograd through flash_attention against autograd through dense
-    attention, f32, (1, 256, 2, 256): the triangle pair, and the general
+    attention, f32, (1, 256, 2, d): the triangle pair, and the general
     pair under a window and two segments."""
     from tpu_operator_torch.workloads.flashattention import flash_attention
 
     gen = torch.Generator(device=device).manual_seed(17)
-    q, k, v, w = (torch.randn((1, 256, 2, 256), generator=gen, device=device) for _ in range(4))
+    q, k, v, w = (torch.randn((1, 256, 2, d), generator=gen, device=device) for _ in range(4))
     seg = (torch.arange(256, device=device) >= 100).to(torch.int32)[None]
     out = {}
-    for name, kwargs in (("triangle", {}), ("window 40, segments", {"window": 40, "seg": seg})):
+    for name, kwargs in (("triangle", {}),
+                         (f"window {window}, segments", {"window": window, "seg": seg})):
         grads = {}
         for impl in ("flash", "dense"):
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -3998,21 +4143,22 @@ def _f32_grads_at_256(device: str = "cuda") -> dict:
             grads[impl] = torch.autograd.grad((got * w).sum(), leaves)
         worst = max(float((f - d).abs().max()) for f, d in zip(grads["flash"], grads["dense"]))
         if not worst <= F32_TOL:
-            raise RuntimeError(f"f32 flash gradients at head dim 256 ({name}) differ from dense "
+            raise RuntimeError(f"f32 flash gradients at head dim {d} ({name}) differ from dense "
                                f"by {worst} (tol {F32_TOL})")
         out[name] = worst
     return out
 
 
-def _serving_at_256(out: dict) -> None:
-    """The default serving geometry at head dim 256 (f32): flash prefill
-    (the general kernel) against dense prefill, phase 5's 16 requests."""
+def _serving_at(out: dict, head_dim: int, phase: str) -> None:
+    """The default serving geometry at ``head_dim`` (f32): flash prefill
+    (the general kernel) against dense prefill, phase 5's 16 requests;
+    recorded as the path ``f"{phase} serving d{head_dim}"``."""
     from tpu_operator_torch.workloads.serving import DecodeEngine, ServingModelConfig, make_requests
 
     requests = make_requests(16, seed=20260818, prompt_len=24, decode_max=32)
     runs = {}
     for name, flash in (("dense", False), ("flash", True)):
-        engine = DecodeEngine(ServingModelConfig(head_dim=256, use_flash_prefill=flash))
+        engine = DecodeEngine(ServingModelConfig(head_dim=head_dim, use_flash_prefill=flash))
         engine.warmup(24)
         batch = copy.deepcopy(requests)
         zero_launches()
@@ -4024,18 +4170,19 @@ def _serving_at_256(out: dict) -> None:
                       "launches": read_launches(), "report": engine.report()}
     flash, dense = runs["flash"], runs["dense"]
     if len(flash["tokens"]) != 16 or flash["tokens"] != dense["tokens"]:
-        raise RuntimeError("serving at head dim 256: flash-prefill greedy tokens differ from "
-                           "dense prefill")
+        raise RuntimeError(f"serving at head dim {head_dim}: flash-prefill greedy tokens differ "
+                           f"from dense prefill")
     expected = {k: REPLICA_LAUNCHES if k == "flash_fwd_rect" else 0 for k in flash["launches"]}
     if flash["launches"] != expected:
-        raise RuntimeError(f"serving at head dim 256: launches {flash['launches']}, expected "
-                           f"{expected}")
-    out["paths"]["head dims serving d256"] = flash["launches"]
+        raise RuntimeError(f"serving at head dim {head_dim}: launches {flash['launches']}, "
+                           f"expected {expected}")
+    out["paths"][f"{phase} serving d{head_dim}"] = flash["launches"]
     out["serving"] = {"report": flash["report"], "dense_report": dense["report"]}
-    log(f"head dims serving d256: 16 requests, tokens identical to dense prefill, launches "
+    log(f"{phase} serving d{head_dim}: 16 requests, tokens identical to dense prefill, launches "
         f"{flash['launches']}, {flash['report']['tokens_per_s']} tok/s")
 
 
+@_seeded_once()
 def phase_head_dims() -> dict:
     """Phase 15 (see the module's docstring)."""
     from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
@@ -4079,11 +4226,11 @@ def phase_head_dims() -> dict:
     out["gemma_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
     _free_card()
     # (b) f32 gradients at head dim 256
-    out["f32_grads_256"] = _f32_grads_at_256()
+    out["f32_grads_256"] = _f32_grads_at(256, 40)
     log(f"head dims f32 (1,256,2,256) flash_attention gradients vs dense, max abs err "
         f"{out['f32_grads_256']}")
     # (c) serving at head dim 256
-    _serving_at_256(out)
+    _serving_at(out, 256, "head dims")
     _free_card()
     # (d) the zero-padded route at Phi-3-mini's widths
     phi = trainer_config(PHI3_MINI)
@@ -4255,6 +4402,7 @@ def _float16_at_full_width(out: dict, smi: str) -> None:
     _free_card()
 
 
+@_seeded_once()
 def phase_float16(smi: str) -> dict:
     """Phase 16 (see the module's docstring)."""
     start = time.perf_counter()
@@ -4272,6 +4420,93 @@ def phase_float16(smi: str) -> dict:
         f"{out['phi3_packed']['forward_gap']:.3g}")
     out["seconds"] = time.perf_counter() - start
     log(f"float16: phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 17: head dim 512 ------------------------------------------------
+
+# DeepSeek-V4-Flash's attention widths (huggingface.co/deepseek-ai/
+# DeepSeek-V4-Flash config.json: hidden_size 4096, 64 attention heads of
+# head_dim 512 on num_key_value_heads 1, moe_intermediate_size 2048,
+# num_hidden_layers 43, sliding_window 128) as a TPUJob's
+# spec.workload.config. Cut to size: heads 64 -> 8, one card's share under
+# 8-way tensor parallelism (the burn-in's head dim is d_model // n_heads, so
+# 8 x 512 keeps the model's hidden size of 4096); depth 43 -> 2; the
+# burn-in's dense FFN at the shared expert's width, 2048; 8192 tokens of a
+# 1M context. The routed experts, CSA/HCA compression, mHC, MTP and the
+# low-rank q/o projections are not part of the reference's burn-in block.
+DEEPSEEK_V4_FLASH = {"d_model": 4096, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_len": 8192,
+                     "batch": 1, "n_layers": 2, "use_flash_attention": True}
+
+
+@_seeded_once()
+def phase_head_dim_512(smi: str) -> dict:
+    """Phase 17 (see the module's docstring)."""
+    from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    start = time.perf_counter()
+    out = {"paths": {}}
+    cfg = trainer_config(DEEPSEEK_V4_FLASH)
+    if cfg.d_model // cfg.n_heads != 512:
+        raise RuntimeError(f"deepseek-v4-flash config: head dim {cfg.d_model // cfg.n_heads}")
+    phase = "head dim 512"
+    # (a) flash against dense, the graphed step, the trainer, packed, fp16
+    dense = dataclasses.replace(cfg, use_flash_attention=False)
+    out["deepseek"] = _curve_against("deepseek-v4-flash", cfg, "dense path",
+                                     lambda: run_burnin(steps=3, cfg=dense, device="cuda"), phase)
+    out["paths"][f"{phase} deepseek-v4-flash"] = out["deepseek"].pop("launches")
+    out["deepseek"]["forward_gap"] = _forward_gap(cfg, dense)
+    _free_card()
+    step, params, batch = build_train_step(cfg, "cuda")
+    out["deepseek"]["replays"] = _replays_vs_eager(step, params, batch)
+    out["deepseek"].update(_step_times(step, params, batch))
+    del step, params, batch
+    _free_card()
+    g = out["deepseek"]
+    log(f"{phase} deepseek-v4-flash: {GRAPH_STEPS} graphed steps vs eager: rel "
+        f"{g['replays']['rel_err']:.3g}{' (bit for bit)' if g['replays']['bitwise'] else ''}; "
+        f"step ms eager {g['step_ms']:.3f}, replay {g['step_replay_ms']:.3f}, device "
+        f"{g['step_device_ms']:.3f}, {g['step_graph_nodes']} device operations; forward output "
+        f"{g['forward_gap']:.3g} from the dense path's [{smi}]")
+    _trainer_with_a_fault(out, cfg, g["losses"], name="deepseek-v4-flash", phase=phase,
+                          key="deepseek_trainer")
+    _free_card()
+    packed = dataclasses.replace(cfg, packed_segments=2)
+
+    def packed_reference():
+        with _dense_packed_attention():
+            return run_burnin(steps=3, cfg=packed, device="cuda")
+
+    out["deepseek_packed"] = _curve_against("deepseek-v4-flash packed", packed,
+                                            "dense path under the documents' mask",
+                                            packed_reference, phase)
+    out["paths"][f"{phase} deepseek-v4-flash packed"] = out["deepseek_packed"].pop("launches")
+    out["deepseek_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
+    _free_card()
+    f16 = trainer_config(dict(DEEPSEEK_V4_FLASH, dtype="float16"))
+    if f16.tdtype != torch.float16:
+        raise RuntimeError(f"head dim 512: trainer_config gave {f16.tdtype}")
+    f16_dense = dataclasses.replace(f16, use_flash_attention=False)
+    out["deepseek_f16"] = _curve_against("deepseek-v4-flash fp16", f16, "fp16 dense path",
+                                         lambda: run_burnin(steps=3, cfg=f16_dense,
+                                                            device="cuda"), phase)
+    out["paths"][f"{phase} deepseek-v4-flash fp16"] = out["deepseek_f16"].pop("launches")
+    out["deepseek_f16"]["forward_gap"] = _forward_gap(f16, f16_dense)
+    _free_card()
+    # (b) f32 gradients at head dim 512
+    out["f32_grads_512"] = _f32_grads_at(512, 128)
+    log(f"{phase} f32 (1,256,2,512) flash_attention gradients vs dense, max abs err "
+        f"{out['f32_grads_512']}")
+    # (c) serving at head dim 512
+    _serving_at(out, 512, phase)
+    _free_card()
+    log(f"{phase}: forward output against the reference's (norm of the difference over its "
+        f"norm): deepseek-v4-flash {g['forward_gap']:.3g}, packed "
+        f"{out['deepseek_packed']['forward_gap']:.3g}, fp16 "
+        f"{out['deepseek_f16']['forward_gap']:.3g} [{smi}]")
+    out["seconds"] = time.perf_counter() - start
+    log(f"{phase}: phase 17 in {out['seconds']:.1f} s")
     return out
 
 
@@ -4329,13 +4564,14 @@ def main(argv=None) -> int:
     results["device_layer"] = phase_device_layer()
     results["head_dims"] = phase_head_dims()
     results["float16"] = phase_float16(smi)
+    results["head_dim_512"] = phase_head_dim_512(smi)
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
              **results["slice"]["paths"], **results["trainer"]["paths"],
              **results["replicas"]["paths"], **results["autotune"]["paths"],
              **results["agents"]["paths"], **results["head_dims"]["paths"],
-             **results["float16"]["paths"]}
+             **results["float16"]["paths"], **results["head_dim_512"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}
@@ -4351,8 +4587,17 @@ def main(argv=None) -> int:
             hgmma16[f"flash_bwd_{kind}_{pair}"] = {
                 k: v for k, v in results["build"]["flash_bwd_f16_hgmma"].items()
                 if k.startswith(prefix)}
+    wide = {}  # the D 512 libraries' instantiations, bf16 and fp16 per kernel
+    for name in HEAD_DIM_512_INSTANTIATIONS:
+        fp16 = "_f16" in name
+        for label, count in results["build"][f"{name}_hgmma"].items():
+            pair = "rect" if label.startswith("rect_") or "_rect_" in label else "tri"
+            kind = (f"flash_fwd_{pair}" if name.startswith("flash_fwd")
+                    else f"flash_bwd_{label.split('_')[0]}_{pair}")
+            wide.setdefault(kind, {})[f"{'fp16' if fp16 else 'bf16'} {label}"] = count
     line = kernels_line(results["kernels"], paths,
-                        {k: {"hgmma": v, "hgmma_fp16": hgmma16[k]} for k, v in hgmma.items()})
+                        {k: {"hgmma": v, "hgmma_fp16": hgmma16[k], "hgmma_d512": wide.get(k, {})}
+                         for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

@@ -73,8 +73,14 @@ def test_fp16_plans_are_bf16s(bh, s, d, block_m):
 
 
 def test_fp16_libraries_are_variants_of_the_flash_sources():
-    assert build.VARIANTS == {"flash_fwd_f16": ("flash_fwd", ("-DFLASH_ELEM_F16",)),
-                              "flash_bwd_f16": ("flash_bwd", ("-DFLASH_ELEM_F16",))}
+    # the fp16 libraries, and the head dim 512 ones (bf16 + f32, fp16) beside them
+    assert build.VARIANTS == {
+        "flash_fwd_f16": ("flash_fwd", ("-DFLASH_ELEM_F16",)),
+        "flash_bwd_f16": ("flash_bwd", ("-DFLASH_ELEM_F16",)),
+        "flash_fwd_d512": ("flash_fwd", ("-DFLASH_HEAD_DIM_512",)),
+        "flash_bwd_d512": ("flash_bwd", ("-DFLASH_HEAD_DIM_512",)),
+        "flash_fwd_f16_d512": ("flash_fwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_512")),
+        "flash_bwd_f16_d512": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_512"))}
     for name in ("flash_fwd", "flash_bwd"):
         plain, f16 = build.library_path(name), build.library_path(f"{name}_f16")
         assert plain.name.startswith(f"lib{name}-") and f16.name.startswith(f"lib{name}_f16-")
@@ -99,10 +105,16 @@ def test_each_dtype_loads_its_library(monkeypatch):
     flash_bwd._load.cache_clear()
     try:
         for dtype in (F32, BF16, F16, F16, BF16):
-            flash_fwd._lib(dtype)
-            flash_bwd._lib(dtype)
+            flash_fwd._lib(dtype, 64)
+            flash_bwd._lib(dtype, 256)
         # one load per library, fp16's only for fp16
         assert loaded == ["flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16"]
+        for dtype in (F32, BF16, F16, BF16):
+            flash_fwd._lib(dtype, 512)
+            flash_bwd._lib(dtype, 512)
+        # and head dim 512's libraries (f32 in the bf16 one) only at 512
+        assert loaded[4:] == ["flash_fwd_d512", "flash_bwd_d512", "flash_fwd_f16_d512",
+                              "flash_bwd_f16_d512"]
     finally:
         flash_fwd._load.cache_clear()
         flash_bwd._load.cache_clear()
@@ -378,7 +390,7 @@ def test_each_library_refuses_the_other_dtypes(cuda):
                                  lse.data_ptr(), code, 2, 64, 64, h, hk, 0.18, plan.block_m,
                                  plan.smem_bytes, plan.swizzle, stream)
 
-    f16, bf16 = flash_fwd._lib(F16), flash_fwd._lib(BF16)
+    f16, bf16 = flash_fwd._lib(F16, 64), flash_fwd._lib(BF16, 64)
     assert f16 is not bf16
     assert [call(f16, code) for code in (0, 1, 3)] == [-1, -1, -1]
     assert call(bf16, 2) == -1

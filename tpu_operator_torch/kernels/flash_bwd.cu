@@ -105,17 +105,33 @@
 // left) and accumulates dK and dV for its 128 columns (m64n128k16 from the
 // Q and dO tiles' column boxes 0-1 or 2-3), 224 registers a thread inside
 // setmaxnreg's 232, as at D = 128 and WG = 2.
+// D = 512 (64-row own tiles only; its own library, built with
+// -DFLASH_HEAD_DIM_512, so a caller at D <= 256 never compiles it): a CTA's
+// own two tiles are 128 KiB, so the ring is one stage (stages<D>) of 32-row
+// tiles (ring_rows<D>: 64 KiB for K and V, or Q and dO), S and dP (S^T and
+// dP^T) are m64n32k16 products over all 512 columns (32 k16 steps), and two
+// CTAs share each own-side tile, its column halves on the grid's z
+// (col_split<D>: the gradients' N = 512 is past wgmma's 256). dQ: each CTA
+// is the D = 256 design on 256 columns of dQ (128 f32 a thread, one
+// m64n256k16 per 16 keys from the K tile's column boxes 0-3 or 4-7), S and
+// dP formed by both: 5/3 of the ideal tensor-core work (S, dP and dQ once
+// each). dK/dV: each CTA is the D = 256 design on its 256 columns, two
+// consumer warpgroups of 128 columns each under setmaxnreg (64 + 64 + 16 +
+// 16 + 8 + 8 registers of data a thread), every one of the four forming S^T
+// and dP^T: 2.5x the ideal (S, dP, dV, dK once each), and no exchange
+// between warpgroups or CTAs. Shared memory: dQ 197,656 bytes (general pair
+// 136 more), dK/dV 197,912 (136 more).
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
-// row, 64-key tile) for dK/dV (32-row tiles at D = 256: f32_tile), tiles on
+// row, 64-key tile) for dK/dV (32-row tiles at D = 256, 16 at 512: f32_tile), tiles on
 // the grid's x and rows on y and z (kMaxGridY a z slice), on the CUDA
 // cores; the TPU kernels' sequential grid axis is a loop inside the CTA (up
 // to the diagonal, the window band, or all; dK/dV over every GQA group
 // member). Tiles are staged through shared memory as f32, the score is
 // built as the CUDA-core forward builds it (q * scale * log2(e) in f32,
 // then an f32 FMA chain over d), each thread owns a 4 x 4 (2 x 2 at 32
-// rows) block of the score tile and the matching rows of D/16 columns of
+// rows, 1 x 1 at 16) block of the score tile and the matching rows of D/16 columns of
 // each accumulator, and
 // P and dS go through shared memory between the two. f32 stays here because
 // it must not round through TF32.
@@ -192,9 +208,10 @@ __device__ __forceinline__ bool attends(const Params& p, int qi, int kj, bool se
   return !segments || qseg == kseg;
 }
 
-// The CUDA-core kernels' tile: 64 q rows and keys, 32 at D = 256, where the
-// four [64][D + 1] f32 tiles alone would pass the 227 KB a block may use.
-__host__ __device__ constexpr int f32_tile(int d) { return d > 128 ? 32 : 64; }
+// The CUDA-core kernels' tile: 64 q rows and keys, 32 at D = 256 and 16 at
+// 512, where four [64][D + 1] (or [32][D + 1]) f32 tiles alone would pass
+// the 227 KB a block may use.
+__host__ __device__ constexpr int f32_tile(int d) { return d > 256 ? 16 : d > 128 ? 32 : 64; }
 
 // Rows [r0, r0 + TT) of a (s, D) matrix into a [TT][D + 1] f32 tile, times
 // mul; rows past s are zero.
@@ -534,28 +551,41 @@ __host__ __device__ constexpr int kv_split() { return D > 128 ? 2 : 1; }
 // the general pair's staged segment ids: kStages x (the ring tile's 64 ids,
 // then their min and max), int32
 constexpr int kSegBytes = kStages * (kTile + 2) * 4;
+// At D = 512 (see the note on top): one ring stage of 32-row tiles, and two
+// CTAs per own-side tile, each on a column half of the gradients.
+template <int D>
+__host__ __device__ constexpr int stages() { return D > 256 ? 1 : kStages; }
+template <int D>
+__host__ __device__ constexpr int ring_rows() { return D > 256 ? 32 : kTile; }
+template <int D>
+constexpr int seg_bytes() { return D > 256 ? (ring_rows<D>() + 2) * 4 : kSegBytes; }
+template <int D>
+__host__ __device__ constexpr int col_split() { return D > 256 ? 2 : 1; }
 
 template <int D, int WG, bool TRI>
 constexpr int dq_tc_smem_bytes() {
-  // alignment slack, Q and dO tiles (64 WG rows), kStages K and V tiles
-  // (64 keys), the keys' segment ids (general pair), full/empty/Q barriers
-  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + (TRI ? 0 : kSegBytes) +
-         8 * (2 * kStages + 1);
+  // alignment slack, Q and dO tiles (64 WG rows), stages<D> K and V tiles
+  // (ring_rows<D> keys), the keys' segment ids (general pair),
+  // full/empty/Q barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * stages<D>() * ring_rows<D>()) * D * 2 +
+         (TRI ? 0 : seg_bytes<D>()) + 8 * (2 * stages<D>() + 1);
 }
 
 template <int D, int WG, bool TRI>
 constexpr int dkv_tc_smem_bytes() {
-  // alignment slack, K and V tiles (64 WG keys), kStages Q and dO tiles
-  // (64 rows) with their rows' lse and delta (f32) and segment ids (general
-  // pair), full/empty/KV barriers
-  return kSmemAlign + (2 * 64 * WG + 2 * kStages * kTile) * D * 2 + 2 * kStages * kTile * 4 +
-         (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
+  // alignment slack, K and V tiles (64 WG keys), stages<D> Q and dO tiles
+  // (ring_rows<D> rows) with their rows' lse and delta (f32) and segment ids
+  // (general pair), full/empty/KV barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * stages<D>() * ring_rows<D>()) * D * 2 +
+         2 * stages<D>() * ring_rows<D>() * 4 + (TRI ? 0 : seg_bytes<D>()) +
+         8 * (2 * stages<D>() + 1);
 }
 
 // dQ on the tensor cores. blockIdx.x: (batch, head) row; blockIdx.y: q tile
 // of 64 WG rows, reversed under a plain causal mask so that the heaviest
-// tiles launch first (with a window or none, every tile walks about as far).
-// TRI: the triangle; else the general masks of Params.
+// tiles launch first (with a window or none, every tile walks about as far);
+// blockIdx.z: the column half of dQ at D = 512. TRI: the triangle; else the
+// general masks of Params.
 template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* qmap,
                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
@@ -563,8 +593,11 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
+  constexpr int KT = ring_rows<D>();      // keys of a ring tile
+  constexpr int ST = stages<D>();
+  constexpr int DC = D / col_split<D>();  // this CTA's columns of dQ
   constexpr uint32_t kQBytes = BM * D * 2;
-  constexpr uint32_t kKVBytes = kTile * D * 2;
+  constexpr uint32_t kKVBytes = KT * D * 2;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -572,24 +605,25 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
   unsigned char* q_s = base;
   unsigned char* do_s = q_s + kQBytes;
   unsigned char* k_s = do_s + kQBytes;            // stage st at k_s + st * kKVBytes
-  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
-  int* kid_s = reinterpret_cast<int*>(v_s + kStages * kKVBytes);  // general: [kStages][kTile]
-  int* krange_s = kid_s + kStages * kTile;                        // general: [kStages][min, max]
+  unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
+  int* kid_s = reinterpret_cast<int*>(v_s + ST * kKVBytes);  // general: [ST][KT]
+  int* krange_s = kid_s + ST * KT;                           // general: [ST][min, max]
   uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(kid_s)
                                                    : reinterpret_cast<unsigned char*>(
-                                                         krange_s + 2 * kStages));
-  uint64_t* empty = full + kStages;
-  uint64_t* q_full = empty + kStages;
+                                                         krange_s + 2 * ST));
+  uint64_t* empty = full + ST;
+  uint64_t* q_full = empty + ST;
 
   const bool causal = TRI || p.causal;
   const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
   const bool segments = !TRI && p.seg != nullptr;
   const int bh = blockIdx.x;
   const int q0 = (causal && window == 0 ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
   // the key tiles some row of the CTA can see: all of them, or up to the
   // diagonal, from the window's first key on
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
-  const int t_hi = ((causal ? min(p.s, q0 + BM) : p.s) + kTile - 1) / kTile;
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / KT : 0;
+  const int t_hi = ((causal ? min(p.s, q0 + BM) : p.s) + KT - 1) / KT;
   const int n_tiles = t_hi - t_lo;
   const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
@@ -597,7 +631,7 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < ST; ++st) {
       // the TMA bytes, then (segment ids) each id-staging lane's stores
       mbar_init(&full[st], segments ? 1 + 31 : 1);
       mbar_init(&empty[st], WG * 4);
@@ -620,24 +654,24 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
         tma_load_3d(do_s + b * BM * G::kRowBytes, domap, q_full, b * G::kCols, q0, bh);
       }
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        const int k0 = (t_lo + t) * kTile;
-        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int st = t % ST;
+        const int k0 = (t_lo + t) * KT;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(k_s + st * kKVBytes + b * kTile * G::kRowBytes, kmap, &full[st],
+          tma_load_3d(k_s + st * kKVBytes + b * KT * G::kRowBytes, kmap, &full[st],
                       b * G::kCols, k0, kv_row);
-          tma_load_3d(v_s + st * kKVBytes + b * kTile * G::kRowBytes, vmap, &full[st],
+          tma_load_3d(v_s + st * kKVBytes + b * KT * G::kRowBytes, vmap, &full[st],
                       b * G::kCols, k0, kv_row);
         }
       }
     } else if (segments) {
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
-        const int2 range = id_range(seg, (t_lo + t) * kTile, p.s, lane - 1, 31, 0xfffffffeu,
-                                    kid_s + st * kTile);
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+        const int2 range = id_range<KT>(seg, (t_lo + t) * KT, p.s, lane - 1, 31, 0xfffffffeu,
+                                        kid_s + st * KT);
         if (lane == 1) {
           krange_s[2 * st] = range.x;
           krange_s[2 * st + 1] = range.y;
@@ -670,28 +704,28 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
   // the segment ids of the warpgroup's rows: one id throughout when x == y
   const int2 qrange =
       segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-  float dq[D / 2], s[32], dp[32];
+  float dq[DC / 2], s[KT / 2], dp[KT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    const int k0 = (t_lo + t) * kTile;
-    mbar_wait(&full[st], (t / kStages) & 1);
+    const int st = t % ST;
+    const int k0 = (t_lo + t) * KT;
+    mbar_wait(&full[st], (t / ST) & 1);
     // whether some key of the tile is at or before some row and inside the
     // window, and whether some pair needs the element mask: a key after a
     // row, outside the window or past s
     bool sees = w0 < p.s;
-    bool masked = causal && k0 + kTile - 1 > w0;
+    bool masked = causal && k0 + KT - 1 > w0;
     if (causal) sees = sees && k0 <= w0 + 63;
     if (window > 0) {
-      sees = sees && w0 - (k0 + kTile - 1) < window;
+      sees = sees && w0 - (k0 + KT - 1) < window;
       masked = masked || w0 + 63 - k0 >= window;
     }
-    if (!TRI) masked = masked || k0 + kTile > p.s;
+    if (!TRI) masked = masked || k0 + KT > p.s;
     if (segments) {
       // both sides one document each: the fast path when it is the same
       // one, no live pair (and no products) when it is not
@@ -703,23 +737,23 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
     if (sees) {
       const unsigned char* ks = k_s + st * kKVBytes;
       const unsigned char* vs = v_s + st * kKVBytes;
-      const int2* kid = reinterpret_cast<const int2*>(kid_s + st * kTile);
+      const int2* kid = reinterpret_cast<const int2*>(kid_s + st * KT);
       wgmma_fence();
-      mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
-      mma_rows_by_rows<T, D>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
+      mma_rows_by_rows<T, D, KT>(s, q_s, BM, wg * 64, ks);    // S = Q.K^T
+      mma_rows_by_rows<T, D, KT>(dp, do_s, BM, wg * 64, vs);  // dP = dO.V^T
       wgmma_commit();
       wgmma_wait_all();
       hold(s);
       hold(dp);
 
-      uint32_t dsa[4][4];
+      uint32_t dsa[KT / 16][4];
       // dS from S and dP, with the element mask or (a fast tile) without:
       // two instantiations, as the reference's _dispatch_block emits two
       // branches, so that a fast tile issues no mask instruction
       auto form_ds = [&](auto mask) {
         constexpr bool kMask = decltype(mask)::value;
 #pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
           if (kMask && segments) kj = kid[4 * j + tq];
           float ds[4];
@@ -753,7 +787,7 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 
       hold(dsa);
       wgmma_fence();
-      mma_frag_by_tile<T, D>(dq, dsa, ks);  // dQ += dS.K, K MN-major
+      mma_frag_by_tile<T, D, DC, KT>(dq, dsa, ks, col0 / G::kCols);  // dQ += dS.K, K MN-major
       wgmma_commit();
       wgmma_wait_all();
       hold(dq);
@@ -768,9 +802,10 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= p.s) continue;
-    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * D);  // T pairs
+    // T pairs
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * D + col0);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       out[4 * j + tq] = pack2<T>(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
     }
   }
@@ -778,7 +813,8 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 
 // dK/dV on the tensor cores. blockIdx.x: kv row; blockIdx.y: key tile of 64
 // WG keys, in order (under a causal mask the first keys, the longest walks,
-// launch first). TRI: the triangle; else the general masks of Params.
+// launch first); blockIdx.z: the column half of dK and dV at D = 512. TRI:
+// the triangle; else the general masks of Params.
 template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* qmap,
                                             const CUtensorMap* kmap, const CUtensorMap* vmap,
@@ -788,26 +824,28 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
   constexpr int BN = 64 * WG;
   constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on D / CS columns
   constexpr int NC = WG * CS;        // consumer warpgroups
-  constexpr int DC = D / CS;         // a consumer's dK and dV columns
+  constexpr int DC = D / CS / col_split<D>();  // a consumer's dK and dV columns
+  constexpr int QT = ring_rows<D>();           // q rows of a ring tile
+  constexpr int ST = stages<D>();
   constexpr uint32_t kKVBytes = BN * D * 2;
-  constexpr uint32_t kQBytes = kTile * D * 2;
+  constexpr uint32_t kQBytes = QT * D * 2;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   unsigned char* k_s = base;
   unsigned char* v_s = k_s + kKVBytes;
-  unsigned char* q_s = v_s + kKVBytes;             // stage st at q_s + st * kQBytes
-  unsigned char* do_s = q_s + kStages * kQBytes;   // likewise
-  float* lse_s = reinterpret_cast<float*>(do_s + kStages * kQBytes);  // [kStages][kTile]
-  float* dl_s = lse_s + kStages * kTile;                              // likewise
-  int* qid_s = reinterpret_cast<int*>(dl_s + kStages * kTile);  // general: [kStages][kTile]
-  int* qrange_s = qid_s + kStages * kTile;                      // general: [kStages][min, max]
+  unsigned char* q_s = v_s + kKVBytes;        // stage st at q_s + st * kQBytes
+  unsigned char* do_s = q_s + ST * kQBytes;   // likewise
+  float* lse_s = reinterpret_cast<float*>(do_s + ST * kQBytes);  // [ST][QT]
+  float* dl_s = lse_s + ST * QT;                                 // likewise
+  int* qid_s = reinterpret_cast<int*>(dl_s + ST * QT);  // general: [ST][QT]
+  int* qrange_s = qid_s + ST * QT;                      // general: [ST][min, max]
   uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(qid_s)
                                                    : reinterpret_cast<unsigned char*>(
-                                                         qrange_s + 2 * kStages));
-  uint64_t* empty = full + kStages;
-  uint64_t* kv_full = empty + kStages;
+                                                         qrange_s + 2 * ST));
+  uint64_t* empty = full + ST;
+  uint64_t* kv_full = empty + ST;
 
   const bool causal = TRI || p.causal;
   const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
@@ -819,9 +857,9 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
   const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
   // the q tiles that can see some key of the CTA: all of them, or from the
   // diagonal down, to the last row inside the window of the last key
-  const int t_lo = causal ? k0 / kTile : 0;
+  const int t_lo = causal ? k0 / QT : 0;
   const int q_end = window > 0 ? min(p.s, min(k0 + BN, p.s) - 1 + window) : p.s;
-  const int per_member = (q_end + kTile - 1) / kTile - t_lo;
+  const int per_member = (q_end + QT - 1) / QT - t_lo;
   const int n_steps = group * per_member;
   const int* seg = segments ? p.seg + static_cast<size_t>(kv_row / p.kv_heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
@@ -829,7 +867,7 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < ST; ++st) {
       mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's staged values
       mbar_init(&empty[st], NC * 4);
     }
@@ -856,30 +894,30 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         }
       }
       for (int i = 0; i < n_steps; ++i) {
-        const int st = i % kStages;
+        const int st = i % ST;
         const int q_row = q_row0 + i / per_member;
-        const int q0 = (t_lo + i % per_member) * kTile;
-        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
+        const int q0 = (t_lo + i % per_member) * QT;
+        if (i >= ST) mbar_wait(&empty[st], ((i / ST) - 1) & 1);
         if (lane == 0) {
           mbar_expect_tx(&full[st], 2 * kQBytes);
 #pragma unroll
           for (int b = 0; b < G::kBoxes; ++b) {
-            tma_load_3d(q_s + st * kQBytes + b * kTile * G::kRowBytes, qmap, &full[st],
+            tma_load_3d(q_s + st * kQBytes + b * QT * G::kRowBytes, qmap, &full[st],
                         b * G::kCols, q0, q_row);
-            tma_load_3d(do_s + st * kQBytes + b * kTile * G::kRowBytes, domap, &full[st],
+            tma_load_3d(do_s + st * kQBytes + b * QT * G::kRowBytes, domap, &full[st],
                         b * G::kCols, q0, q_row);
           }
         }
         int lo = INT_MAX, hi = INT_MIN;  // (segment ids) the rows' range inside s
-        for (int c = lane; c < kTile; c += 32) {
+        for (int c = lane; c < QT; c += 32) {
           const int q = q0 + c;
           const size_t at = static_cast<size_t>(q_row) * p.s + q;
           const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
           const int id = segments && q < p.s ? seg[q] : 0;  // loaded beside lse and delta
-          lse_s[st * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
-          dl_s[st * kTile + c] = q < p.s ? p.delta[at] : 0.f;
+          lse_s[st * QT + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+          dl_s[st * QT + c] = q < p.s ? p.delta[at] : 0.f;
           if (segments) {
-            qid_s[st * kTile + c] = id;
+            qid_s[st * QT + c] = id;
             if (q < p.s) {
               lo = min(lo, id);
               hi = max(hi, id);
@@ -899,11 +937,13 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
   } else {
     if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
     // consumers: warpgroup wg owns keys w0 .. w0 + 63 and dK/dV columns c0 ..
-    // c0 + DC - 1 (all of them but at D = 256); this thread holds keys key
-    // and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
+    // c0 + DC - 1 (all of them but at D = 256 and 512); this thread holds
+    // keys key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a
+    // tile
     const int wg = warp / 4;
     const int kw = wg / CS;            // the 64-key slice
-    const int c0 = (wg % CS) * DC;     // the first column
+    // the first column: the CTA's column half (D = 512), then the warpgroup's share
+    const int c0 = (DC * CS < D ? static_cast<int>(blockIdx.z) * DC * CS : 0) + (wg % CS) * DC;
     const int box = c0 / G::kCols;     // ... as a column box of the Q and dO tiles
     const int tq = lane % 4;
     const int w0 = k0 + kw * 64;
@@ -918,27 +958,27 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
     // the segment ids of the warpgroup's keys: one id throughout when x == y
     const int2 krange =
         segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-    float dk[DC / 2], dv[DC / 2], s[32], dp[32];
+    float dk[DC / 2], dv[DC / 2], s[QT / 2], dp[QT / 2];
 #pragma unroll
     for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < QT / 2; ++i) s[i] = dp[i] = 0.f;
 
     mbar_wait(kv_full, 0);
     for (int i = 0; i < n_steps; ++i) {
-      const int st = i % kStages;
-      const int q0 = (t_lo + i % per_member) * kTile;
-      mbar_wait(&full[st], (i / kStages) & 1);
+      const int st = i % ST;
+      const int q0 = (t_lo + i % per_member) * QT;
+      mbar_wait(&full[st], (i / ST) & 1);
       // whether some row of the tile is at or after some key and inside the
       // window, and whether some pair needs the element mask: a row before a
       // key or outside the window (rows past s have P = 0 from their lse,
       // and keys past s are never written)
       bool sees = w0 < p.s;
       bool masked = causal && q0 < w0 + 63;
-      if (causal) sees = sees && q0 + kTile - 1 >= w0;
+      if (causal) sees = sees && q0 + QT - 1 >= w0;
       if (window > 0) {
         sees = sees && q0 - (w0 + 63) < window;
-        masked = masked || q0 + kTile - 1 - w0 >= window;
+        masked = masked || q0 + QT - 1 - w0 >= window;
       }
       if (segments) {
         // both sides one document each: the fast path when it is the same
@@ -951,25 +991,25 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
       if (sees) {
         const unsigned char* qs = q_s + st * kQBytes;
         const unsigned char* dos = do_s + st * kQBytes;
-        const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * kTile);
-        const float2* dl = reinterpret_cast<const float2*>(dl_s + st * kTile);
-        const int2* qid = reinterpret_cast<const int2*>(qid_s + st * kTile);
-        // S^T and dP^T over all of D: at D = 256 both warpgroups of a key
-        // slice form them, each for its own half of dK and dV
+        const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * QT);
+        const float2* dl = reinterpret_cast<const float2*>(dl_s + st * QT);
+        const int2* qid = reinterpret_cast<const int2*>(qid_s + st * QT);
+        // S^T and dP^T over all of D: at D = 256 and 512 both warpgroups of a
+        // key slice form them, each for its own share of dK and dV
         wgmma_fence();
-        mma_rows_by_rows<T, D>(s, k_s, BN, kw * 64, qs);    // S^T = K.Q^T
-        mma_rows_by_rows<T, D>(dp, v_s, BN, kw * 64, dos);  // dP^T = V.dO^T
+        mma_rows_by_rows<T, D, QT>(s, k_s, BN, kw * 64, qs);    // S^T = K.Q^T
+        mma_rows_by_rows<T, D, QT>(dp, v_s, BN, kw * 64, dos);  // dP^T = V.dO^T
         wgmma_commit();
         wgmma_wait_all();
         hold(s);
         hold(dp);
 
-        uint32_t pa[4][4], dsa[4][4];
+        uint32_t pa[QT / 16][4], dsa[QT / 16][4];
         // P^T and dS^T, with the element mask or (a fast tile) without, as in dQ
         auto form_p_ds = [&](auto mask) {
           constexpr bool kMask = decltype(mask)::value;
 #pragma unroll
-          for (int j = 0; j < kTile / 8; ++j) {
+          for (int j = 0; j < QT / 8; ++j) {
             const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
             int2 qj = make_int2(0, 0);                              // and their segment ids
             if (kMask && segments) qj = qid[4 * j + tq];
@@ -1009,8 +1049,8 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
         hold(pa);
         hold(dsa);
         wgmma_fence();
-        mma_frag_by_tile<T, D, DC>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
-        mma_frag_by_tile<T, D, DC>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
+        mma_frag_by_tile<T, D, DC, QT>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
+        mma_frag_by_tile<T, D, DC, QT>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
         wgmma_commit();
         wgmma_wait_all();
         hold(dv);
@@ -1086,8 +1126,8 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   }
   const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
   const int bh_kv = kDq ? rows / p.heads * p.kv_heads : rows;
-  // the CTA's own side comes in boxes of B rows, the ring's side in 64
-  const int q_box = kDq ? B : kTile, kv_box = kDq ? kTile : B;
+  // the CTA's own side comes in boxes of B rows, the ring's side in ring_rows<D>
+  const int q_box = kDq ? B : ring_rows<D>(), kv_box = kDq ? ring_rows<D>() : B;
   CUtensorMap qmap, kmap, vmap, domap;
   if (!encode_map<T, D>(&qmap, p.q, p.s, bh, q_box) ||
       !encode_map<T, D>(&domap, p.dout, p.s, bh, q_box) ||
@@ -1110,7 +1150,7 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   // dQ: one producer warp; dK/dV: a producer warpgroup (setmaxnreg beside
   // two consumer warpgroups)
   const int threads = kDq ? WG * 128 + 32 : (WG * kv_split<D>() + 1) * 128;
-  kernel<<<dim3(rows, tiles), threads, smem, stream>>>(p, qmap, kmap, vmap, domap);
+  kernel<<<dim3(rows, tiles, col_split<D>()), threads, smem, stream>>>(p, qmap, kmap, vmap, domap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1119,7 +1159,7 @@ int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
   if (block == 64) return launch_tc<Elem16, D, 1, K>(p, rows, smem, stream);
-  if constexpr (D <= 128) {  // D 256: 64-row tiles only (see the note on top)
+  if constexpr (D <= 128) {  // D 256 and 512: 64-row tiles only (see the note on top)
     if (block == 128) return launch_tc<Elem16, D, 2, K>(p, rows, smem, stream);
   }
   return kUnsupported;
@@ -1151,11 +1191,15 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
 template <typename T, Kind K>
 int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
   switch (d) {
+#ifdef FLASH_HEAD_DIM_512
+    case 512: return launch<T, 512, K>(p, rows, stream);
+#else
     case 16: return launch<T, 16, K>(p, rows, stream);
     case 32: return launch<T, 32, K>(p, rows, stream);
     case 64: return launch<T, 64, K>(p, rows, stream);
     case 128: return launch<T, 128, K>(p, rows, stream);
     case 256: return launch<T, 256, K>(p, rows, stream);
+#endif
     default: return kUnsupported;
   }
 }
@@ -1175,11 +1219,15 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kElemCode) {
     switch (d) {
+#ifdef FLASH_HEAD_DIM_512
+      case 512: return dispatch_tc<512, K>(p, rows, block, smem, swizzle, st);
+#else
       case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, st);
       case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
       case 64: return dispatch_tc<64, K>(p, rows, block, smem, swizzle, st);
       case 128: return dispatch_tc<128, K>(p, rows, block, smem, swizzle, st);
       case 256: return dispatch_tc<256, K>(p, rows, block, smem, swizzle, st);
+#endif
       default: return kUnsupported;
     }
   }
@@ -1207,7 +1255,8 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // alignment these kernels do not take, -2 when no TMA tensor map could be
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
-// tri_bwd_plan and rect_bwd_plan).
+// tri_bwd_plan and rect_bwd_plan). A library takes D 16-256, or (built with
+// -DFLASH_HEAD_DIM_512) D 512 alone.
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,

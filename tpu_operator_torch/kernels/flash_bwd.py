@@ -15,7 +15,11 @@ In bf16 and fp16 both pairs run on the tensor cores (wgmma, TMA: q, k, v
 and dO need 16-byte-aligned bases) with the launch plans of
 :func:`tri_bwd_plan` and :func:`rect_bwd_plan`, the same for both 16-bit
 types; f32 runs on the CUDA cores. fp16 has a library of its own
-(``build.VARIANTS``), built at the first fp16 call.
+(``build.VARIANTS``), built at the first fp16 call; so has head dim 512
+(``flash_bwd_d512``, ``flash_bwd_f16_d512``), built at the first call
+there. At 512 the ring's tiles are 32 rows (:func:`ring_rows`) in one
+stage, and two CTAs share each own-side tile, one per column half of the
+gradients (``flash_fwd.col_split``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from tpu_operator_torch.kernels.flash_fwd import (
     _check_seg,
     _check_tma_bases,
     _qscale,
+    col_split,
+    library_name,
+    ring_stages,
     _raise_on,
     _sm_count,
     _tile_height,
@@ -49,17 +56,27 @@ TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTi
 
 
 def f32_tile(d: int) -> int:
-    """The f32 CUDA-core pair's tile (q rows and keys): 64, or 32 at d 256,
-    where four [64][d + 1] f32 tiles alone would pass a block's shared
-    memory (f32_tile in flash_bwd.cu)."""
-    return 32 if d > 128 else TILE
+    """The f32 CUDA-core pair's tile (q rows and keys): 64, 32 at d 256 and
+    16 at d 512, where four [64][d + 1] (or [32][d + 1]) f32 tiles alone
+    would pass a block's shared memory (f32_tile in flash_bwd.cu)."""
+    return 16 if d > 256 else 32 if d > 128 else TILE
 
 
 def kv_split(d: int) -> int:
-    """Consumer warpgroups of the 16-bit dK/dV kernel per 64 keys: 2 at d 256,
-    each accumulating dK and dV for half the head dim (kv_split in
-    flash_bwd.cu), else 1."""
+    """Consumer warpgroups of the 16-bit dK/dV kernel per 64 keys: 2 at d 256
+    and 512, each accumulating dK and dV for half the CTA's columns
+    (kv_split in flash_bwd.cu), else 1."""
     return 2 if d > 128 else 1
+
+
+def ring_rows(d: int) -> int:
+    """Rows of the 16-bit pairs' ring tiles (dQ: keys, dK/dV: q rows):
+    ``TILE``, or 32 at d 512, where a 64-row tile pair beside the CTA's own
+    two tiles would pass a block's shared memory (ring_rows in
+    flash_bwd.cu)."""
+    return 32 if d > 256 else TILE
+
+
 TRI_BWD_STAGES = 2  # ring depth of the 16-bit pairs (kStages in flash_bwd.cu)
 # the 16-bit general pair's staged segment ids: per stage 64 int32 and their
 # min and max (kSegBytes in flash_bwd.cu)
@@ -115,7 +132,9 @@ class BwdPlan:
     shared memory in bytes and the TMA/wgmma swizzle span in bytes (0: the
     f32 CUDA-core kernel, which uses no TMA). ``causal`` and ``window``
     (None: no band) are the masks the walk follows; the triangle pair's
-    plan is causal with no window."""
+    plan is causal with no window. ``ring`` is the rows of a tile of the
+    other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
+    per own-side tile, each on a column slice of the gradients."""
 
     kernel: str
     block: int
@@ -125,6 +144,8 @@ class BwdPlan:
     swizzle: int
     causal: bool = True
     window: Optional[int] = None
+    ring: int = TILE
+    col_split: int = 1
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (row, tile) that block (x, y) computes, as the kernel maps
@@ -138,32 +159,37 @@ class BwdPlan:
         return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
 
     def sees(self, q: int, k: int) -> bool:
-        """Whether some key of 64-key tile k is inside the masks' band for
-        some row of 64-row q tile q (both tiles inside s)."""
+        """Whether some key of key tile k is inside the masks' band for some
+        row of q tile q (both tiles inside s): the own side's tiles are 64
+        rows, the ring's ``ring``."""
         if not self.causal:
             return True
-        q0, k0 = q * TILE, k * TILE
-        return k0 <= q0 + TILE - 1 and (self.window is None or q0 - (k0 + TILE - 1) < self.window)
+        q_rows, k_rows = (TILE, self.ring) if self.kernel == "dq" else (self.ring, TILE)
+        q0, k0 = q * q_rows, k * k_rows
+        return k0 <= q0 + q_rows - 1 and (
+            self.window is None or q0 - (k0 + k_rows - 1) < self.window)
 
     def walk(self, first: int, s: int) -> range:
-        """The 64-row tiles of the ring's side (dq: keys, dkv: q rows) that
-        the CTA whose own side starts at 64-row tile ``first`` walks."""
-        tiles = -(-s // TILE)
+        """The ``ring``-row tiles of the ring's side (dq: keys, dkv: q rows)
+        that the CTA whose own side starts at 64-row tile ``first`` walks."""
+        ring = self.ring
         start = first * TILE
         if self.kernel == "dq":
             hi = min(s, start + self.block) if self.causal else s
             lo = max(0, start - self.window + 1) if self.window is not None else 0
-            return range(lo // TILE, -(-hi // TILE))
+            return range(lo // ring, -(-hi // ring))
         if self.window is None:
-            return range(first if self.causal else 0, tiles)
-        return range(first, -(-min(s, min(start + self.block, s) - 1 + self.window) // TILE))
+            return range(start // ring if self.causal else 0, -(-s // ring))
+        end = min(s, min(start + self.block, s) - 1 + self.window)
+        return range(start // ring, -(-end // ring))
 
     def visits(self, x: int, y: int, s: int, group: int) -> List[Tuple[int, int, int]]:
-        """The (GQA member, 64-row q tile, 64-key tile) products block
-        (x, y) computes for s tokens, in the kernel's order: a 64-row (or
-        64-key) slice of the CTA skips a tile it cannot see (outside the
-        band, or all its rows or keys past s). dq has one member, 0.
-        Segment ids can skip more tiles."""
+        """The (GQA member, q tile, key tile) products block (x, y) computes
+        for s tokens, in the kernel's order (own-side tiles of 64 rows, the
+        ring's of ``ring``): a 64-row (or 64-key) slice of the CTA skips a
+        tile it cannot see (outside the band, or all its rows or keys past
+        s). dq has one member, 0. Segment ids can skip more tiles. Each of
+        ``col_split`` CTAs on the grid's z makes the same visits."""
         tiles = -(-s // TILE)
         first = self.cta(x, y)[1] * self.block // TILE
         slices = [t for t in range(first, first + self.block // TILE) if t < tiles]
@@ -179,11 +205,11 @@ class BwdPlan:
 
 
 def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
-               causal: bool, window: Optional[int], ids: int,
+               causal: bool, window: Optional[int], rect: bool,
                block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
-    """The (dq, dkv) plans of either pair; ``ids``: bytes of the general
-    pair's staged segment ids (0 for the triangle); ``block_m`` forces both
-    kernels' tile height (checked against ``dtype``)."""
+    """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
+    stages each ring tile's segment ids and their range; ``block_m`` forces
+    both kernels' tile height (checked against ``dtype``)."""
     check_block_m(dtype, block_m, d)
     if dtype == torch.float32:
         t = f32_tile(d)
@@ -194,19 +220,22 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
                       4 * (4 * t * (d + 1) + 2 * t * (t + 1) + 2 * t) + 4 * t, 0, causal, window)
         return dq, dkv
 
+    stages, ring = ring_stages(d), ring_rows(d)
+    ids = stages * (ring + 2) * 4 if rect else 0  # SEG_BYTES below d 512
+
     def plan(kernel: str, rows: int) -> BwdPlan:
         block = _tile_height(rows, s, sms, block_m, tile_heights(dtype, d))
-        smem = (1024 + (2 * block + 2 * TRI_BWD_STAGES * TILE) * d * 2 + ids
-                + 8 * (2 * TRI_BWD_STAGES + 1))
+        smem = (1024 + (2 * block + 2 * stages * ring) * d * 2 + ids
+                + 8 * (2 * stages + 1))
         if kernel == "dkv":
-            smem += 2 * TRI_BWD_STAGES * TILE * 4
+            smem += 2 * stages * ring * 4
         # consumer warpgroups of 64 rows (dkv at d 256: two per 64 keys,
         # kv_split), and the producer: one warp for dq, a whole warpgroup
         # for dkv (setmaxnreg hands its registers over)
         split = 1 if kernel == "dq" else kv_split(d)
         threads = 2 * block * split + (32 if kernel == "dq" else 128)
         return BwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64),
-                       causal, window)
+                       causal, window, ring, col_split(d))
 
     return plan("dq", bh), plan("dkv", bh_kv)
 
@@ -229,15 +258,17 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     K and V), ``TRI_BWD_STAGES`` pairs of the ring's 64-row tiles (dkv:
     with their f32 lse and delta), 1 KiB of alignment slack and five
     mbarriers. Swizzle: the span of a row of one TMA box (32 B at d 16,
-    64 B at d 32, 128 B at d 64, 128 and 256). At d 256 both take 64-row
-    tiles (``TILE_HEIGHTS``), and a dkv CTA has two consumer warpgroups,
-    each on half the head dim (:func:`kv_split`). f32 keeps the CUDA-core
-    kernels' fixed plans (``block_m`` 64 only; 32-row tiles at d 256,
-    :func:`f32_tile`; rows on the grid's y, which the kernels split into z
-    slices of 65,535); any other ``block_m`` raises ``ValueError``. The
-    kernels check the plan against their own layout and refuse one that
-    differs."""
-    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, 0, block_m)
+    64 B at d 32, 128 B at d 64, 128, 256 and 512). At d 256 and 512 both
+    take 64-row tiles (``TILE_HEIGHTS``), and a dkv CTA has two consumer
+    warpgroups, each on half its columns (:func:`kv_split`); at d 512 the
+    ring is one stage of 32-row tiles (:func:`ring_rows`) and two CTAs
+    share each own-side tile, one per column half (``col_split``, the
+    grid's z). f32 keeps the CUDA-core kernels' fixed plans (``block_m`` 64
+    only; 32-row tiles at d 256 and 16-row at 512, :func:`f32_tile`; rows
+    on the grid's y, which the kernels split into z slices of 65,535); any
+    other ``block_m`` raises ``ValueError``. The kernels check the plan
+    against their own layout and refuse one that differs."""
+    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, False, block_m)
 
 
 def band(causal: bool, window: Optional[int], s: int) -> Optional[int]:
@@ -252,12 +283,13 @@ def rect_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: 
     """How ``flash_bwd_dq_rect`` and ``flash_bwd_dkv_rect`` launch: the
     triangle pair's tile heights (or the one ``block_m`` forces), threads,
     grids and swizzle (:func:`tri_bwd_plan`), and shared memory for the ring tiles' segment
-    ids besides (``TRI_BWD_STAGES`` x 64 int32 and each stage's min and
-    max id), whether or not the call has ids. The walks follow the masks:
+    ids besides (per stage the ring tile's int32 ids and their min and max
+    id: ``SEG_BYTES`` below d 512), whether or not the call has ids. The
+    walks follow the masks:
     full attention walks every tile, a window (:func:`band`) its band, plain
     causal the triangle; only plain-causal dq launches heaviest first."""
-    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, causal, band(causal, window, s),
-                      SEG_BYTES, block_m)
+    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, causal, band(causal, window, s), True,
+                      block_m)
 
 
 def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None) -> None:
@@ -275,11 +307,11 @@ def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None
         _check_seg(seg, qb.shape[0] // heads, qb.shape[1], kb.shape[1])
 
 
-def _lib(dtype: torch.dtype) -> ctypes.CDLL:
-    """The library of ``dtype``'s kernels with its C signatures declared
-    (built on its first call): ``flash_bwd_f16`` for fp16, else
-    ``flash_bwd``."""
-    return _load("flash_bwd_f16" if dtype == torch.float16 else "flash_bwd")
+def _lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernels at head dim ``d`` with its C
+    signatures declared (built on its first call):
+    ``flash_fwd.library_name``."""
+    return _load(library_name("flash_bwd", dtype, d))
 
 
 @functools.cache
@@ -310,7 +342,7 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(_lib(qb.dtype), name)(
+        code = getattr(_lib(qb.dtype, d), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
             *extra, _qscale(d, scale), scale, plan.block, plan.smem_bytes,

@@ -44,6 +44,18 @@
 // thread, past WG = 2's cap, and the triangle's two-stage ring of 128-key
 // K and V tiles would need 328,744 bytes of shared memory; P.V is one
 // m64n256k16 wgmma per 16 keys.
+// D 512 (WG = 1 only; its own library, built with -DFLASH_HEAD_DIM_512, so a
+// caller at D <= 256 never compiles it): O for 64 rows would be 256 f32 a
+// thread, past the 255 a thread may hold, and P.V's N = 512 past wgmma's
+// 256. So two CTAs share a q tile, its column halves on the grid's z: each
+// is the D 256 design on 256 columns of O (128 f32 a thread), forms S over
+// all 512 columns (32 k16 steps), and runs P.V as one m64n256k16 per 16 keys
+// on its half of V (column boxes 0-3 or 4-7). S is formed twice per tile:
+// 1.5x the ideal tensor-core work (S and P.V once each), and no exchange
+// between the CTAs; only half 0 writes lse. The Q tile (64 KiB) and one
+// stage of 64-key K and V tiles (64 KiB each) take 197,656 bytes (the
+// general kernel 264 more), so the ring has one stage (stages<D>): the
+// producer refills K and V only after both of the tile's products.
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -103,7 +115,6 @@ constexpr int kBM = 64;         // q rows per CTA
 constexpr int kBN = 64;         // keys per k tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kRM = kBM / 16;   // score/output rows per thread
-constexpr int kRN = kBN / 16;   // score columns per thread
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kUnsupported = -1;
 constexpr int kNoTensorMap = -2;  // cuTensorMapEncodeTiled missing or refused the map
@@ -135,21 +146,28 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// The CUDA-core kernels' keys per k tile: 64, or 16 at D = 512, where two
+// [64][D + 1] f32 tiles beside Q's would pass the 227 KB a block may use.
+__host__ __device__ constexpr int f32_keys(int d) { return d > 256 ? 16 : kBN; }
+
 constexpr size_t smem_bytes(int d) {
-  // q tile, k tile, v tile ([rows][D + 1]), p tile ([kBM][kBN + 1]), k segment ids
-  return sizeof(float) * ((kBM + 2 * kBN) * (d + 1) + kBM * (kBN + 1)) + sizeof(int) * kBN;
+  // q tile, k tile, v tile ([rows][D + 1]), p tile ([kBM][keys + 1]), k segment ids
+  return sizeof(float) * ((kBM + 2 * f32_keys(d)) * (d + 1) + kBM * (f32_keys(d) + 1)) +
+         sizeof(int) * f32_keys(d);
 }
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void attend(const Params& p) {
+  constexpr int BN = f32_keys(D);
+  constexpr int RN = BN / 16;  // score columns per thread
   constexpr int LD = D + 1;   // odd stride: a column walk hits 16 different banks
-  constexpr int LP = kBN + 1;
+  constexpr int LP = BN + 1;
   constexpr int CN = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kBM * LD;
-  float* vs = ks + kBN * LD;
-  float* ps = vs + kBN * LD;
+  float* vs = ks + BN * LD;
+  float* ps = vs + BN * LD;
   int* kseg = reinterpret_cast<int*>(ps + kBM * LP);
 
   const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
@@ -186,8 +204,8 @@ __device__ __forceinline__ void attend(const Params& p) {
     k_hi = max(0, min(p.sk, p.q_start + q_end - p.k_start));
     if (p.window > 0) k_lo = max(0, p.q_start + q0 - p.window + 1 - p.k_start);
   }
-  const int t_lo = k_lo / kBN;
-  const int t_hi = (k_hi + kBN - 1) / kBN;
+  const int t_lo = k_lo / BN;
+  const int t_hi = (k_hi + BN - 1) / BN;
 
   float m[kRM], l[kRM], acc[kRM][CN];
   int qseg[kRM];
@@ -202,43 +220,43 @@ __device__ __forceinline__ void attend(const Params& p) {
   }
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBN;
+    const int k0 = t * BN;
     __syncthreads();  // the previous tile's k/v/p reads are done
-    for (int i = tid; i < kBN * D; i += kThreads) {
+    for (int i = tid; i < BN * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < p.sk;
       const size_t off = static_cast<size_t>(k0 + r) * D + c;
       ks[r * LD + c] = in ? to_f(kg[off]) : 0.f;
       vs[r * LD + c] = in ? to_f(vg[off]) : 0.f;
     }
-    if (segments && tid < kBN) {
+    if (segments && tid < BN) {
       kseg[tid] = (k0 + tid < p.sk) ? p.seg[static_cast<size_t>(b) * p.sk + k0 + tid] : 0;
     }
     __syncthreads();
 
-    float s[kRM][kRN];
+    float s[kRM][RN];
 #pragma unroll
     for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[kRM], kv[kRN];
+      float qv[kRM], kv[RN];
 #pragma unroll
       for (int i = 0; i < kRM; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < RN; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
 #pragma unroll
       for (int i = 0; i < kRM; ++i)
 #pragma unroll
-        for (int j = 0; j < kRN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < RN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int qi = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) {
+      for (int j = 0; j < RN; ++j) {
         const int kj = k0 + tx + 16 * j;
         bool keep = kj < p.sk;
         if (TRI) {
@@ -259,7 +277,7 @@ __device__ __forceinline__ void attend(const Params& p) {
     for (int i = 0; i < kRM; ++i) {
       float mx = s[i][0];
 #pragma unroll
-      for (int j = 1; j < kRN; ++j) mx = fmaxf(mx, s[i][j]);
+      for (int j = 1; j < RN; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
@@ -267,7 +285,7 @@ __device__ __forceinline__ void attend(const Params& p) {
       const float corr = (m[i] == -CUDART_INF_F) ? 0.f : exp2f(m[i] - safe);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) {
+      for (int j = 0; j < RN; ++j) {
         const float pj = (s[i][j] == -CUDART_INF_F) ? 0.f : exp2f(s[i][j] - safe);
         rs += pj;
         ps[(ty + 16 * i) * LP + tx + 16 * j] = round_to<T>(pj);
@@ -282,7 +300,7 @@ __device__ __forceinline__ void attend(const Params& p) {
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kBN; ++kk) {
+    for (int kk = 0; kk < BN; ++kk) {
       float pv[kRM], vv[CN];
 #pragma unroll
       for (int i = 0; i < kRM; ++i) pv[i] = ps[(ty + 16 * i) * LP + kk];
@@ -330,18 +348,27 @@ constexpr int kStages = 2;        // K/V ring depth
 // the general kernel's staged segment ids: kStages x (the ring tile's 64
 // ids, then their min and max), int32
 constexpr int kSegBytes = kStages * (kRingRows + 2) * 4;
+// At D = 512: one ring stage (see the note on top), and two CTAs per q
+// tile, each on a column half of O (256 columns: wgmma's widest N).
+template <int D>
+__host__ __device__ constexpr int stages() { return D > 256 ? 1 : kStages; }
+template <int D>
+constexpr int seg_bytes() { return D > 256 ? (kRingRows + 2) * 4 : kSegBytes; }
+template <int D>
+__host__ __device__ constexpr int col_split() { return D > 256 ? 2 : 1; }
 
 template <int D, int WG, bool TRI>
 constexpr int tc_smem_bytes() {
-  // alignment slack, Q tile (64 WG rows), kStages K and V tiles (the
+  // alignment slack, Q tile (64 WG rows), stages<D> K and V tiles (the
   // triangle's 64 WG keys, the general kernel's 64) with (general) their
   // keys' segment ids, full/empty/Q barriers
-  return kSmemAlign + (64 * WG + 2 * kStages * (TRI ? 64 * WG : kRingRows)) * D * 2 +
-         (TRI ? 0 : kSegBytes) + 8 * (2 * kStages + 1);
+  return kSmemAlign + (64 * WG + 2 * stages<D>() * (TRI ? 64 * WG : kRingRows)) * D * 2 +
+         (TRI ? 0 : seg_bytes<D>()) + 8 * (2 * stages<D>() + 1);
 }
 
 // The 16-bit triangle forward on the tensor cores. blockIdx.x: (batch, head)
-// row; blockIdx.y: q tile, reversed so the heaviest tiles launch first.
+// row; blockIdx.y: q tile, reversed so the heaviest tiles launch first;
+// blockIdx.z: the column half of O at D = 512.
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
@@ -351,6 +378,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr int BN = BM;  // square tiles: only the diagonal tile needs the mask
+  constexpr int ST = stages<D>();
+  constexpr int DC = D / col_split<D>();  // this CTA's columns of O
   constexpr uint32_t kQBytes = BM * D * 2;
   constexpr uint32_t kKVBytes = BN * D * 2;
 
@@ -359,20 +388,21 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   unsigned char* q_s = base;
   unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
-  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_full = empty + kStages;
+  unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * kKVBytes);
+  uint64_t* empty = full + ST;
+  uint64_t* q_full = empty + ST;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
   const int n_tiles = (min(p.sq, q0 + BM) + BN - 1) / BN;  // the tile on the diagonal is last
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < ST; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], WG * 4);
     }
@@ -391,8 +421,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
         tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
       }
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
@@ -412,10 +442,10 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   const int tq = lane % 4;
   const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   const float qscale = p.qscale;
-  float o[D / 2], s[BN / 2];
+  float o[DC / 2], s[BN / 2];
   uint32_t pa[BN / 16][4];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
@@ -423,10 +453,11 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
   mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    mbar_wait(&full[st], (t / kStages) & 1);
+    const int st = t % ST;
+    mbar_wait(&full[st], (t / ST) & 1);
     const unsigned char* ks = k_s + st * kKVBytes;
-    const unsigned char* vs = v_s + st * kKVBytes;
+    // V from the CTA's first column on (P.V on its column half at D 512)
+    const unsigned char* vs = v_s + st * kKVBytes + col0 / G::kCols * BN * G::kRowBytes;
 
     // S = Q.K^T: both K-major; a k16 step advances 32 bytes inside a box
     wgmma_fence();
@@ -492,7 +523,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     l0 = l0 * c0 + rs0;
     l1 = l1 * c1 + rs1;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       o[4 * j] *= c0;
       o[4 * j + 1] *= c0;
       o[4 * j + 2] *= c1;
@@ -507,7 +538,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t db = make_desc(vs + kk * 16 * G::kRowBytes, BN * G::kRowBytes, G::kAtom,
                                     G::kLayout);
-      mma_pv<T, D>(o, pa[kk], db);
+      mma_pv<T, DC>(o, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -528,17 +559,21 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     const int row = r0 + 8 * half;
     if (row >= p.sq) continue;
     const float l = half ? l1 : l0;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D);  // T pairs
+    // T pairs
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
     }
-    if (tq == 0) p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
+    if (tq == 0 && col0 == 0) {  // both column halves hold lse: half 0 writes it
+      p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
+    }
   }
 }
 
 // The 16-bit general forward on the tensor cores (see the note on top).
-// blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order.
+// blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order;
+// blockIdx.z: the column half of O at D = 512.
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
@@ -548,6 +583,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   using G = Geo<D>;
   constexpr int BM = 64 * WG;
   constexpr int BN = kRingRows;
+  constexpr int ST = stages<D>();
+  constexpr int DC = D / col_split<D>();  // this CTA's columns of O
   constexpr uint32_t kQBytes = BM * D * 2;
   constexpr uint32_t kKVBytes = BN * D * 2;
 
@@ -556,18 +593,19 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   unsigned char* q_s = base;
   unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
-  unsigned char* v_s = k_s + kStages * kKVBytes;  // likewise
-  int* kid_s = reinterpret_cast<int*>(v_s + kStages * kKVBytes);  // [kStages][BN]
-  int* krange_s = kid_s + kStages * BN;                           // [kStages][min, max]
-  uint64_t* full = reinterpret_cast<uint64_t*>(krange_s + 2 * kStages);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_full = empty + kStages;
+  unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
+  int* kid_s = reinterpret_cast<int*>(v_s + ST * kKVBytes);  // [ST][BN]
+  int* krange_s = kid_s + ST * BN;                           // [ST][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(krange_s + 2 * ST);
+  uint64_t* empty = full + ST;
+  uint64_t* q_full = empty + ST;
 
   const bool causal = p.causal != 0;
   const int window = p.window;  // > 0 only under a causal mask (the entry drops it otherwise)
   const bool segments = p.seg != nullptr;
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BM;
+  const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
   // the keys some row of the CTA can see, by global position: all of them,
   // or up to the last row's diagonal, from the first row's window on
   const int q_end = min(p.sq, q0 + BM);
@@ -581,7 +619,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < ST; ++st) {
       // the TMA bytes, then (segment ids) each id-staging lane's stores
       mbar_init(&full[st], segments ? 1 + 31 : 1);
       mbar_init(&empty[st], WG * 4);
@@ -606,8 +644,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       }
       const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
@@ -619,8 +657,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       }
     } else if (segments) {
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) - 1) & 1);
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
         const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
                                     kid_s + st * BN);
         if (lane == 1) {
@@ -655,10 +693,10 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   // the segment ids of the warpgroup's rows: one id throughout when x == y
   const int2 qrange =
       segments ? id_range(seg, w0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-  float o[D / 2], s[BN / 2];
+  float o[DC / 2], s[BN / 2];
   uint32_t pa[BN / 16][4];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
@@ -666,9 +704,9 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
   if (n_tiles > 0) mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
+    const int st = t % ST;
     const int k0 = (t_lo + t) * BN;
-    mbar_wait(&full[st], (t / kStages) & 1);
+    mbar_wait(&full[st], (t / ST) & 1);
     // global positions of the tile's first key and its last inside sk; some
     // pair is live when the rows' distances to the keys, which run from
     // qg0 - kg1 to qg1 - kg0, meet the band [0, window), and every pair is
@@ -762,7 +800,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
         l0 = l0 * c0 + rs0;
         l1 = l1 * c1 + rs1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DC / 8; ++j) {
           o[4 * j] *= c0;
           o[4 * j + 1] *= c0;
           o[4 * j + 2] *= c1;
@@ -777,7 +815,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
       hold(pa);
       wgmma_fence();
-      mma_frag_by_tile<T, D>(o, pa, vs);  // O += P.V, V MN-major
+      mma_frag_by_tile<T, D, DC>(o, pa, vs, col0 / G::kCols);  // O += P.V, V MN-major
       wgmma_commit();
       wgmma_wait_all();
       hold(o);
@@ -800,12 +838,13 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     // a row that saw no key: O = 0 (nothing was added) and lse = -inf
     const float l = half ? l1 : l0;
     const float denom = l > 0.f ? l : 1.f;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D);  // T pairs
+    // T pairs
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
     }
-    if (tq == 0) {
+    if (tq == 0 && col0 == 0) {
       p.lse[static_cast<size_t>(bh) * p.sq + row] =
           l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
     }
@@ -835,7 +874,7 @@ int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(bh, q_tiles), WG * 128 + 32, smem, stream>>>(p, qmap, kmap, vmap);
+  kernel<<<dim3(bh, q_tiles, col_split<D>()), WG * 128 + 32, smem, stream>>>(p, qmap, kmap, vmap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -844,7 +883,7 @@ int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
   if (block_m == 64) return launch_tc<Elem16, D, 1, TRI>(p, bh, smem, stream);
-  if constexpr (D <= 128) {  // D 256: one warpgroup only (see the note on top)
+  if constexpr (D <= 128) {  // D 256 and 512: one warpgroup only (see the note on top)
     if (block_m == 128) return launch_tc<Elem16, D, 2, TRI>(p, bh, smem, stream);
   }
   return kUnsupported;
@@ -880,11 +919,15 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kElemCode) {
     switch (d) {
+#ifdef FLASH_HEAD_DIM_512
+      case 512: return dispatch_tc<512, TRI>(p, bh, block_m, smem, swizzle, st);
+#else
       case 16: return dispatch_tc<16, TRI>(p, bh, block_m, smem, swizzle, st);
       case 32: return dispatch_tc<32, TRI>(p, bh, block_m, smem, swizzle, st);
       case 64: return dispatch_tc<64, TRI>(p, bh, block_m, smem, swizzle, st);
       case 128: return dispatch_tc<128, TRI>(p, bh, block_m, smem, swizzle, st);
       case 256: return dispatch_tc<256, TRI>(p, bh, block_m, smem, swizzle, st);
+#endif
       default: return kUnsupported;
     }
   }
@@ -896,11 +939,15 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
       return kUnsupported;
     }
     switch (d) {
+#ifdef FLASH_HEAD_DIM_512
+      case 512: return launch<512, TRI>(p, bh, st);
+#else
       case 16: return launch<16, TRI>(p, bh, st);
       case 32: return launch<32, TRI>(p, bh, st);
       case 64: return launch<64, TRI>(p, bh, st);
       case 128: return launch<128, TRI>(p, bh, st);
       case 256: return launch<256, TRI>(p, bh, st);
+#endif
       default: return kUnsupported;
     }
   }
@@ -915,8 +962,9 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
 // take, -2 when no TMA tensor map could be made. block_m, smem (bytes) and
 // swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
 // rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
-// (64 only at D 256); f32 runs the CUDA-core kernel, whose plan is fixed (64,
-// its shared memory, no swizzle).
+// (64 only at D 256 and 512); f32 runs the CUDA-core kernel, whose plan is
+// fixed (64, its shared memory, no swizzle). A library takes D 16-256, or
+// (built with -DFLASH_HEAD_DIM_512) D 512 alone.
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,

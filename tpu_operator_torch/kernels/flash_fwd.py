@@ -13,12 +13,15 @@ In bf16 and fp16 both kernels run on the tensor cores (wgmma, TMA: q, k,
 v and out need 16-byte-aligned bases) with the launch plans of
 :func:`tri_plan` and :func:`rect_plan`, the same for both 16-bit types;
 f32 runs on the CUDA cores. fp16 has a library of its own
-(``build.VARIANTS``), built at the first fp16 call.
+(``build.VARIANTS``), built at the first fp16 call; so has head dim 512
+(``flash_fwd_d512``, ``flash_fwd_f16_d512``), built at the first call
+there.
 
-The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 256); a caller
-with another head dim up to 256 zero-pads the head to
+The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 512); a caller
+with another head dim up to 512 zero-pads the head to
 :func:`padded_head_dim` and passes the true head dim's softmax scale as
-``sm_scale`` (``workloads/flashattention.py`` does both).
+``sm_scale`` (``workloads/flashattention.py`` does both). At 512 two CTAs
+share each q tile, one on each column half of O (:func:`col_split`).
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 # the head dims whose 16-bit kernels take both tile heights (64 and 128 rows)
 HEAD_DIMS = (16, 32, 64, 128)
-# every head dim the kernels take: D 256 in 64-row tiles only (its 128-row
-# tiles would not fit a block's shared memory or a thread's registers)
-NATIVE_HEAD_DIMS = HEAD_DIMS + (256,)
+# every head dim the kernels take: D 256 and 512 in 64-row tiles only (their
+# 128-row tiles would not fit a block's shared memory or a thread's registers)
+NATIVE_HEAD_DIMS = HEAD_DIMS + (256, 512)
 MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
 LOG2E = 1.4426950408889634
 TMA_ALIGN = 16  # bytes: base alignment a TMA tensor map needs
@@ -53,11 +56,35 @@ def padded_head_dim(d: int) -> int:
     """The smallest head dim in ``NATIVE_HEAD_DIMS`` that holds ``d``: a
     head of d columns runs zero-padded to it, which changes neither q·k,
     nor lse, nor rowsum(dO∘O). Raises ``ValueError`` above
-    ``MAX_HEAD_DIM``: wgmma's N stops at 256 (ROADMAP.md item 21)."""
+    ``MAX_HEAD_DIM``: a D 512 tile pair already fills a block's shared
+    memory (ROADMAP.md item 22)."""
     if isinstance(d, bool) or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be 1 to {MAX_HEAD_DIM}, got {d!r}: head dims above "
-                         f"{MAX_HEAD_DIM} are ROADMAP.md item 21")
+                         f"{MAX_HEAD_DIM} are ROADMAP.md item 22")
     return next(n for n in NATIVE_HEAD_DIMS if n >= d)
+
+
+def col_split(d: int) -> int:
+    """CTAs that share each tile of a 16-bit kernel at head dim ``d``, one
+    per column slice of its outputs, on the grid's z: 2 at d 512 (O, dQ,
+    dK and dV for 64 rows would pass a thread's registers, and wgmma's N
+    stops at 256), else 1 (col_split in flash_fwd.cu and flash_bwd.cu)."""
+    return 2 if d > 256 else 1
+
+
+def ring_stages(d: int) -> int:
+    """Ring depth of the 16-bit kernels at head dim ``d``: ``TRI_STAGES``,
+    or one stage at d 512, where the CTA's own tiles and a second stage
+    would pass a block's shared memory (stages in flash_fwd.cu and
+    flash_bwd.cu)."""
+    return 1 if d > 256 else TRI_STAGES
+
+
+def f32_keys(d: int) -> int:
+    """Keys per k tile of the f32 CUDA-core forward: 64, or 16 at d 512,
+    where two [64][d + 1] f32 tiles beside Q's would pass a block's shared
+    memory (f32_keys in flash_fwd.cu)."""
+    return 16 if d > 256 else 64
 
 
 def kv_row(i, heads: int, kv_heads: int):
@@ -117,14 +144,17 @@ def attention_plain(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
 class TriPlan:
     """Launch plan of the triangle kernel: ``block_m`` q rows per CTA and
     as many keys per k tile, ``threads`` per CTA, ``grid`` (x, y), dynamic
-    shared memory in bytes, and the TMA/wgmma swizzle span in bytes (0:
-    the f32 CUDA-core kernel, which uses no TMA)."""
+    shared memory in bytes, the TMA/wgmma swizzle span in bytes (0: the
+    f32 CUDA-core kernel, which uses no TMA), and ``col_split``, the
+    grid's z: the CTAs per q tile, each on a column slice of O
+    (:func:`col_split`)."""
 
     block_m: int
     threads: int
     grid: Tuple[int, int]
     smem_bytes: int
     swizzle: int
+    col_split: int = 1
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
@@ -136,12 +166,13 @@ class TriPlan:
 
 TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
 # the q-tile heights (rows) a plan may take per (dtype, native head dim):
-# bf16 and fp16 one or two consumer warpgroups, one only at D 256; f32 its
-# CUDA-core kernels' fixed 64 (the knob of the forward; the f32 backward at
-# D 256 runs its fixed 32-row plan, flash_bwd.f32_tile)
+# bf16 and fp16 one or two consumer warpgroups, one only at D 256 and 512;
+# f32 its CUDA-core kernels' fixed 64 (the knob of the forward; the f32
+# backward at D 256 and 512 runs its fixed 32- and 16-row plans,
+# flash_bwd.f32_tile)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
-    **{(t, 256): (64,) for t in TENSOR_CORE_DTYPES},
+    **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512)},
     **{(torch.float32, d): (64,) for d in NATIVE_HEAD_DIMS},
 }
 
@@ -190,19 +221,25 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     the q tiles walked heaviest first; shared memory for the Q tile and
     ``TRI_STAGES`` K and V tiles, 1 KiB of alignment slack and five
     mbarriers; the swizzle span of a row of one TMA box (32 B at d 16, 64 B
-    at d 32, 128 B at d 64, 128 and 256). At d 256 the tile is 64 rows
-    (``TILE_HEIGHTS``). f32 keeps the CUDA-core kernel's fixed plan
-    (``block_m`` 64 only; its grid's y runs over the bh rows, which the
-    kernel splits into z slices of 65,535). Any other ``block_m`` raises
+    at d 32, 128 B at d 64, 128, 256 and 512). At d 256 and 512 the tile is
+    64 rows (``TILE_HEIGHTS``); at 512 the ring has one stage
+    (:func:`ring_stages`) and two CTAs share each q tile, one per column
+    half of O (``col_split``, the grid's z). f32 keeps the CUDA-core
+    kernel's fixed plan (``block_m`` 64 only; 16-key tiles at d 512,
+    :func:`f32_keys`; its grid's y runs over the bh rows, which the kernel
+    splits into z slices of 65,535). Any other ``block_m`` raises
     ``ValueError``. The kernel checks the plan against its own layout and
     refuses one that differs."""
     check_block_m(dtype, block_m, d)
     if dtype == torch.float32:
-        smem = 4 * ((64 + 2 * 64) * (d + 1) + 64 * (64 + 1)) + 4 * 64
+        keys = f32_keys(d)
+        smem = 4 * ((64 + 2 * keys) * (d + 1) + 64 * (keys + 1)) + 4 * keys
         return TriPlan(64, 256, (-(-s // 64), bh), smem, 0)
     block = _tile_height(bh, s, sms, block_m, tile_heights(dtype, d))
-    smem = 1024 + (block + 2 * TRI_STAGES * block) * d * 2 + 8 * (2 * TRI_STAGES + 1)
-    return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64))
+    stages = ring_stages(d)
+    smem = 1024 + (block + 2 * stages * block) * d * 2 + 8 * (2 * stages + 1)
+    return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64),
+                   col_split(d))
 
 
 RECT_TILE = 64  # keys of a ring tile of the 16-bit general kernel (kRingRows in hopper.cuh)
@@ -229,6 +266,7 @@ class RectPlan:
     window: Optional[int]
     q_start: int
     k_start: int
+    col_split: int = 1
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
@@ -306,16 +344,18 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     ring tiles; shared memory for the Q tile, ``TRI_STAGES`` K and V ring
     tiles, their staged segment ids (whether or not the call has ids, as
     ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
-    triangle's swizzle. f32 keeps the CUDA-core kernel's fixed plan, the
-    triangle's. The kernel checks the plan against its own layout and
-    refuses one that differs."""
+    triangle's swizzle, and at d 512 its one stage and column halves. f32
+    keeps the CUDA-core kernel's fixed plan, the triangle's. The kernel
+    checks the plan against its own layout and refuses one that differs."""
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
     tri = tri_plan(dtype, bh, sq, d, sms, block_m)
     smem = tri.smem_bytes
     if dtype != torch.float32:
-        smem = (1024 + (tri.block_m + 2 * TRI_STAGES * RECT_TILE) * d * 2 + SEG_BYTES
-                + 8 * (2 * TRI_STAGES + 1))
-    return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks)
+        stages = ring_stages(d)
+        smem = (1024 + (tri.block_m + 2 * stages * RECT_TILE) * d * 2
+                + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
+    return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
+                    tri.col_split)
 
 
 @functools.cache
@@ -365,11 +405,19 @@ def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
         raise ValueError("segment ids must be a contiguous CUDA tensor")
 
 
-def _lib(dtype: torch.dtype) -> ctypes.CDLL:
-    """The library of ``dtype``'s kernels with its C signatures declared
-    (built on its first call): ``flash_fwd_f16`` for fp16, else
-    ``flash_fwd``."""
-    return _load("flash_fwd_f16" if dtype == torch.float16 else "flash_fwd")
+def library_name(source: str, dtype: torch.dtype, d: int) -> str:
+    """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
+    that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
+    ``_d512`` after either at d 512 (``build.VARIANTS``)."""
+    return (source + ("_f16" if dtype == torch.float16 else "")
+            + ("_d512" if d == 512 else ""))
+
+
+def _lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernels at head dim ``d`` with its C
+    signatures declared (built on its first call):
+    :func:`library_name`."""
+    return _load(library_name("flash_fwd", dtype, d))
 
 
 @functools.cache
@@ -424,7 +472,7 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
     plan = tri_plan(qb.dtype, bh, s, d, _sm_count(qb.device.index), block_m)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _lib(qb.dtype).flash_fwd_tri(
+        code = _lib(qb.dtype, d).flash_fwd_tri(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, s, d, heads, kv_heads, _qscale(d, sm_scale),
             plan.block_m, plan.smem_bytes, plan.swizzle, stream,
@@ -461,7 +509,7 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
                      q_start, k_start, block_m)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _lib(qb.dtype).flash_fwd_rect(
+        code = _lib(qb.dtype, d).flash_fwd_rect(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
             None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[qb.dtype], bh, sq, sk, d, heads, kv_heads, int(causal),

@@ -12,7 +12,11 @@
 // k16 step; an MN-major B operand (contracting over rows, the transpose
 // flag) steps 16 rows per k16 step and reaches the next 64-column boxes
 // (D = 128: one more, D = 256: three more) through the descriptor's leading
-// byte offset, the boxes lying evenly apart.
+// byte offset, the boxes lying evenly apart. At D = 512 a tile is eight
+// boxes: a K-major product's k16 steps cross all of them, and an MN-major B
+// operand of N = 256 (wgmma's widest) takes four from a given box on. A ring
+// tile is kRingRows rows, or 32 where a D = 512 tile of 64 would not fit
+// beside the CTA's own tiles (the R parameter of the helpers below).
 //
 // kernels/build.py hashes every .cuh here with each source, so a change to
 // this file rebuilds both libraries.
@@ -43,7 +47,7 @@ template <int D>
 struct Geo {
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span
-  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, 4 at D = 256, else 1
+  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, 4 at 256, 8 at 512, else 1
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // bytes of one 8-row swizzle atom
   // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
@@ -166,6 +170,11 @@ constexpr int kElemCode = 1;
 #endif
 constexpr bool kWithF32 = kElemCode == 1;
 
+// The head dims a library holds: built with -DFLASH_HEAD_DIM_512 (kernels/
+// build.py's *_d512 libraries), D 512 alone, in its 16-bit type and (bf16
+// library) f32; built without it, 16 to 256. So a caller at D <= 256 never
+// compiles the D 512 kernels (each source's dispatch switch reads the macro).
+
 // Two floats rounded to nearest even into a pair of T, as one 32-bit
 // register: a wgmma A fragment, or two neighbouring elements of a store.
 template <typename T>
@@ -192,6 +201,21 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
       asm volatile(TEXT("bf16") __VA_ARGS__);                               \
     }                                                                       \
   } while (0)
+
+// d[0..16) += A(smem, K-major) . B(smem, K-major), m64n32k16, T in, f32 out
+#define HOPPER_SS_N32(ty)                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                           \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." ty "." ty " {"           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  HOPPER_WGMMA(T, HOPPER_SS_N32,
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+#undef HOPPER_SS_N32
 
 // d[0..32) += A(smem, K-major) . B(smem, K-major), m64n64k16, T in, f32 out
 #define HOPPER_SS_N64(ty)                                                          \
@@ -360,36 +384,42 @@ __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4]
 }
 
 // acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
-//     . B(smem, K-major: a [kRingRows][D] ring tile)^T, contracted over all of D
-template <typename T, int D>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[32], const unsigned char* a_tile,
+//     . B(smem, K-major: an [R][D] ring tile)^T, contracted over all of D
+template <typename T, int D, int R = kRingRows>
+__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[R / 2], const unsigned char* a_tile,
                                                  int a_rows, int row, const unsigned char* b_tile) {
+  static_assert(R == kRingRows || R == 32, "ring tiles are 64 or 32 rows");
   using G = Geo<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes, 256 four
+    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes, 256 four, 512 eight
     const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
     const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
                                   16, G::kAtom, G::kLayout);
-    const uint64_t db = make_desc(b_tile + box * kRingRows * G::kRowBytes + off, 16, G::kAtom,
-                                  G::kLayout);
-    wgmma_ss_n64<T>(acc, da, db, kk > 0);
+    const uint64_t db = make_desc(b_tile + box * R * G::kRowBytes + off, 16, G::kAtom, G::kLayout);
+    if constexpr (R == 32) {
+      wgmma_ss_n32<T>(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n64<T>(acc, da, db, kk > 0);
+    }
   }
 }
 
-// acc += A(registers: 64 x 64, T fragments) . B(smem, MN-major: N columns
-// of a [kRingRows][D] ring tile, from column box `box` on, contracted over
-// its rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128.
-template <typename T, int D, int N = D>
-__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+// acc += A(registers: 64 x R, T fragments) . B(smem, MN-major: N columns
+// of an [R][D] ring tile, from column box `box` on, contracted over its
+// rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128,
+// and every kernel at D = 512 takes 256 or 128 (its CTA's column half).
+template <typename T, int D, int N = D, int R = kRingRows>
+__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2],
+                                                 const uint32_t (&a)[R / 16][4],
                                                  const unsigned char* b_tile, int box = 0) {
   using G = Geo<D>;
-  const unsigned char* b = b_tile + box * kRingRows * G::kRowBytes;
+  const unsigned char* b = b_tile + box * R * G::kRowBytes;
 #pragma unroll
-  for (int kk = 0; kk < kRingRows / 16; ++kk) {
+  for (int kk = 0; kk < R / 16; ++kk) {
     // a k16 step is 16 rows, two 8-row atoms; the next 64-column boxes are LBO apart
-    const uint64_t db = make_desc(b + kk * 16 * G::kRowBytes, kRingRows * G::kRowBytes,
-                                  G::kAtom, G::kLayout);
+    const uint64_t db = make_desc(b + kk * 16 * G::kRowBytes, R * G::kRowBytes, G::kAtom,
+                                  G::kLayout);
     mma_pv<T, N>(acc, a[kk], db);
   }
 }
@@ -400,15 +430,16 @@ __device__ __forceinline__ int2 warp_range(unsigned mask, int lo, int hi) {
   return make_int2(__reduce_min_sync(mask, lo), __reduce_max_sync(mask, hi));
 }
 
-// The min and max segment id of the kRingRows positions from t0 that lie
-// inside s (INT_MAX and INT_MIN when none does), read by the n lanes of
-// `mask`, lane index idx (0 .. n - 1) taking positions idx, idx + n, ...;
-// ids, when given, receives all kRingRows ids (0 past s). Segment ids never
-// come by TMA: a (B, s) int32 row breaks its 16-byte stride rule for most s.
+// The min and max segment id of the R positions from t0 that lie inside s
+// (INT_MAX and INT_MIN when none does), read by the n lanes of `mask`,
+// lane index idx (0 .. n - 1) taking positions idx, idx + n, ...; ids,
+// when given, receives all R ids (0 past s). Segment ids never come by
+// TMA: a (B, s) int32 row breaks its 16-byte stride rule for most s.
+template <int R = kRingRows>
 __device__ __forceinline__ int2 id_range(const int* seg, int t0, int s, int idx, int n,
                                          unsigned mask, int* ids) {
   int lo = INT_MAX, hi = INT_MIN;
-  for (int c = idx; c < kRingRows; c += n) {
+  for (int c = idx; c < R; c += n) {
     const int pos = t0 + c;
     const int id = pos < s ? seg[pos] : 0;
     if (ids != nullptr) ids[c] = id;
