@@ -11,18 +11,20 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 2. build — compiles every CUDA source of the ``KERNELS`` table
    (``flash_fwd.cu``, ``flash_bwd.cu``, ``triad.cu``) from the repository,
    and the two flash sources again for fp16 (``build.VARIANTS``:
-   ``flash_fwd_f16``, ``flash_bwd_f16``) and for head dim 512 in bf16 with
-   f32 and in fp16 (``flash_fwd_d512``, ``flash_bwd_d512``,
-   ``flash_fwd_f16_d512``, ``flash_bwd_f16_d512``), one ``nvcc`` each, all
-   nine started together; prints each library's ptxas report (registers,
+   ``flash_fwd_f16``, ``flash_bwd_f16``) and for head dims 512 and 576 in
+   bf16 with f32 and in fp16 (``flash_fwd_d512``, ``flash_bwd_d512``,
+   ``flash_fwd_f16_d512``, ``flash_bwd_f16_d512`` and the same four
+   ``*_d576``), one ``nvcc`` each, all thirteen started together; prints
+   each library's ptxas report (registers,
    spills) and, from ``cuobjdump --dump-sass``, the ``HGMMA`` (tensor-core)
    instructions of every bf16 instantiation of both forward kernels (18:
    the triangle's 9 and the general kernel's 9, head dims 16-128 at one and
    two warpgroups and 256 at one) and of both backward pairs (36), of
-   the same 18 + 36 in fp16 (54), and of the D 512 libraries' 6 each (one
-   warpgroup, ``HEAD_DIM_512_INSTANTIATIONS``), failing when one has none,
-   spills registers, or ptxas serialized its ``wgmma`` or ignored its
-   ``setmaxnreg``;
+   the same 18 + 36 in fp16 (54), and of the D 512 and D 576 libraries' 6
+   each (one warpgroup, ``HEAD_DIM_512_INSTANTIATIONS``,
+   ``HEAD_DIM_576_INSTANTIATIONS``), failing when one has none, when an
+   instantiation spills registers (a D 576 library's f32 kernels too), or
+   when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -55,11 +57,17 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    held to the plain version within 2e-2 of max |grad| or the subnormal
    steps a differently rounded dS can move (``FP16_SUBNORMAL_STEP``); rows
    at head dim 512 (``HEAD_DIM_512_KERNEL_CASES``, ``HEAD_DIM_512_BWD_CASES``:
-   DeepSeek-V4-Flash's (1,8192,8,512) with one kv head, plain causal,
-   window 128 and packed, in bf16 and fp16; full attention at
+   DeepSeek-V4-Flash's (1,8192,8,512) with one kv head, plain causal and
+   packed in bf16 and fp16, window 128 in bf16; full attention at
    (1,4096,8,512); f32 (2,128,4,512) and serving's f32 prefill chunk; ragged
-   lengths 100 and 1000 at GQA 2; the zero-padded route at 384), each
-   row naming the SDPA backend that answered its library call; then
+   lengths 100 and 1000 at GQA 2; the zero-padded route at 384); rows at
+   head dim 576 (``HEAD_DIM_576_KERNEL_CASES``, ``HEAD_DIM_576_BWD_CASES``:
+   sarvam-105b's absorbed-MLA attention (1,8192,8,576) with one kv head,
+   plain causal, window 128 and packed, in bf16 and fp16; full attention
+   at (1,4096,8,576); f32 (2,128,4,576) and serving's f32 prefill chunk;
+   ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
+   520), each row naming the SDPA backend that answered its library call;
+   then
    the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -226,9 +234,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 15. head dims — what a head dim other than 16-128 runs through: (a)
    Gemma-2B's widths as a TPUJob's ``spec.workload.config``
    (``GEMMA_2B``: d_model 2048, 8 heads, 1 kv head, head dim 256, d_ff
-   16384, seq 8192, batch 1; depth cut 18 -> 2) through
+   16384, seq 8192, batch 1; depth cut 18 -> 1) through
    ``training.trainer_config``: ``run_burnin(steps=3)`` with flash
-   attention (2 launches per step of each triangle kernel) held to the
+   attention (a launch per step of each triangle kernel) held to the
    dense path from the same params within 2e-2 relative, falling, and the
    seeded forward output to the dense path's within ``FORWARD_GAP_TOL``
    (as are (d)'s and the packed run's, whose loss curves cannot tell a
@@ -266,7 +274,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    line of numbers;
 17. head dim 512 — (a) DeepSeek-V4-Flash's attention widths as a TPUJob's
    config (``DEEPSEEK_V4_FLASH``: d_model 4096, 8 heads of 512, 1 kv head,
-   d_ff 2048, seq 8192; cut from 64 heads, 43 layers and a 1M context)
+   d_ff 2048, seq 8192, 1 layer; cut from 64 heads, 43 layers and a 1M
+   context)
    through ``training.trainer_config``: phase 15 (a)'s bars (flash against
    dense within 2e-2 relative and falling, the seeded forward output within
    ``FORWARD_GAP_TOL``, exact launches, ``GRAPH_STEPS`` graphed steps
@@ -279,7 +288,21 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (``ServingModelConfig(head_dim=512, use_flash_prefill=True)``, f32):
    phase 5's 16 requests with dense prefill's greedy tokens, 48
    ``flash_fwd_rect`` launches; (d) the zero-padded route at 384 is phase
-   3's rows at its true scale; the phase's seconds.
+   3's rows at its true scale; the phase's seconds;
+18. head dim 576 — (a) sarvam-105b's attention widths as a TPUJob's config
+   (``SARVAM_105B``: d_model 4608, 8 heads of 576 on 1 kv head, d_ff 2048,
+   seq 8192; cut from 64 heads, 32 layers and a 128K context; MLA's
+   absorbed attention shape through the burn-in's GQA block) through
+   ``training.trainer_config``: phase 17 (a)'s bars (flash against dense,
+   the seeded forward output, exact launches, the graphed steps, the
+   elastic trainer through a fault and a resume), ``packed_segments=2``
+   against the dense path under the documents' mask, and ``dtype:
+   float16`` against the fp16 dense path; (b) f32 ``flash_attention``
+   gradients at (1,256,2,576) against autograd through dense attention
+   within 1e-4, plain causal and with a window of 128 and two segments; (c)
+   serving at head dim 576 (f32): phase 5's 16 requests with dense
+   prefill's greedy tokens, 48 ``flash_fwd_rect`` launches; (d) the
+   phase's seconds.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -559,6 +582,11 @@ HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
 # warpgroup's instantiation of each tensor-core kernel, and no other
 HEAD_DIM_512_INSTANTIATIONS = {"flash_fwd_d512": 2, "flash_bwd_d512": 4,
                                "flash_fwd_f16_d512": 2, "flash_bwd_f16_d512": 4}
+# and the head dim 576 libraries (-DFLASH_HEAD_DIM_576), likewise; every
+# kernel of these (the f32 ones too) is held to 0 spill bytes
+HEAD_DIM_576_INSTANTIATIONS = {"flash_fwd_d576": 2, "flash_bwd_d576": 4,
+                               "flash_fwd_f16_d576": 2, "flash_bwd_f16_d576": 4}
+WIDE_INSTANTIATIONS = {**HEAD_DIM_512_INSTANTIATIONS, **HEAD_DIM_576_INSTANTIATIONS}
 # the fp16 libraries (kernels/build.py VARIANTS: the same sources built with
 # -DFLASH_ELEM_F16) hold the same instantiations in fp16, and no other
 FLOAT16_TENSOR_CORE_KERNELS = {
@@ -584,9 +612,9 @@ def phase_build() -> dict:
     from tpu_operator_torch.kernels import build
 
     sources = sorted({module for module, _, _ in KERNELS.values()})
-    # the fp16 builds and the head dim 512 ones too
+    # the fp16 builds and the head dim 512 and 576 ones too
     libraries = (sources + sorted(FLOAT16_TENSOR_CORE_KERNELS)
-                 + sorted(HEAD_DIM_512_INSTANTIATIONS))
+                 + sorted(WIDE_INSTANTIATIONS))
     start = time.perf_counter()
     built = build.build(libraries)
     seconds = time.perf_counter() - start
@@ -613,11 +641,11 @@ def phase_build() -> dict:
               for name, (label_of, expected) in TENSOR_CORE_KERNELS.items()}
     tables.update({name: (label_of, expected, "fp16")
                    for name, (label_of, expected) in FLOAT16_TENSOR_CORE_KERNELS.items()})
-    for name, expected in HEAD_DIM_512_INSTANTIATIONS.items():
+    for name, expected in WIDE_INSTANTIATIONS.items():
         fp16, fwd = "_f16" in name, name.startswith("flash_fwd")
         label_of = ((fwd_f16_label if fwd else bwd_f16_label) if fp16
                     else (fwd_bf16_label if fwd else tri_bwd_bf16_label))
-        tables[name] = (label_of, expected, "fp16 d512" if fp16 else "bf16 d512")
+        tables[name] = (label_of, expected, f"{'fp16' if fp16 else 'bf16'} {name[-4:]}")
     for name, (label_of, expected, dtype) in tables.items():
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
@@ -632,10 +660,12 @@ def phase_build() -> dict:
         if len(hgmma) != expected or not all(hgmma.values()):
             raise RuntimeError(f"{name}: a {dtype} kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
-        spilled = {k: v for k, v in ptxas.items() if v.get("spill_stores") or v.get("spill_loads")}
+        held = dict(ptxas)
+        if name in HEAD_DIM_576_INSTANTIATIONS:  # every kernel, the f32 ones too
+            held.update(per_function)
+        spilled = {k: v for k, v in held.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
-            raise RuntimeError(f"{name}: {dtype} tensor-core instantiations spill registers: "
-                               f"{spilled}")
+            raise RuntimeError(f"{name}: {dtype} instantiations spill registers: {spilled}")
         # ptxas serializes wgmma when registers run short, and ignores a
         # setmaxnreg it cannot place: either undoes the design
         labelled = [m for m in per_function if label_of(m)]
@@ -995,9 +1025,10 @@ FLOAT16_BWD_CASES = [
 
 # phase 3's rows at head dim 512 (phase 17), after the fp16 rows: the six
 # kernels at DeepSeek-V4-Flash's attention (8 q heads of 512 on one kv head,
-# 8192 tokens; its sliding window of 128; packed) in bf16 and fp16, full
-# attention, f32 on the CUDA cores, serving's f32 prefill chunk, ragged
-# lengths at GQA 2, and the zero-padded route at 384 (at its own scale)
+# 8192 tokens; its sliding window of 128, in bf16 only, for the run's time;
+# packed) in bf16 and fp16, full attention, f32 on the CUDA cores, serving's
+# f32 prefill chunk, ragged lengths at GQA 2, and the zero-padded route at
+# 384 (at its own scale)
 DEEPSEEK_Q = (1, 8192, 8, 512)
 HEAD_DIM_512_KERNEL_CASES = [
     dict(kernel=kernel, label=f"deepseek-v4-flash {name} {t} (1,8192,8,512) h_kv 1",
@@ -1007,7 +1038,7 @@ HEAD_DIM_512_KERNEL_CASES = [
         ("flash_fwd_tri", "plain", True, {}),
         ("flash_fwd_rect", "window 128", False, dict(causal=True, window=128)),
         ("flash_fwd_rect", "packed 2 segments", True, dict(causal=True, packed=2)),
-    )
+    ) if not (t == "fp16" and "window" in name)
 ] + [
     dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,512) full", q=(1, 4096, 8, 512),
          dtype=torch.bfloat16, causal=False, inner=2),
@@ -1032,7 +1063,7 @@ HEAD_DIM_512_BWD_CASES = [
         ("tri", "plain", True, {}),
         ("rect", "window 128", False, dict(causal=True, window=128)),
         ("rect", "packed 2 segments", True, dict(causal=True, packed=2)),
-    )
+    ) if not (t == "fp16" and "window" in name)
 ] + [
     dict(pair="rect", label="bf16 (1,4096,8,512) full", q=(1, 4096, 8, 512),
          dtype=torch.bfloat16, causal=False, inner=1),
@@ -1045,6 +1076,65 @@ HEAD_DIM_512_BWD_CASES = [
          q=(2, 1000, 4, 512), h_kv=2, dtype=torch.bfloat16, causal=True, cut=333),
     dict(pair="tri", label="bf16 (1,4096,8,384) padded to 512", q=(1, 4096, 8, 384),
          dtype=torch.bfloat16, inner=1),
+]
+
+# phase 3's rows at head dim 576 (phase 18), after the D 512 rows: the six
+# kernels at sarvam-105b's absorbed-MLA attention (8 q heads of 576 on one
+# shared latent kv head, 8192 tokens; a window of 128, as at D 512; packed)
+# in bf16 and fp16, full attention, f32 on the CUDA cores, serving's f32
+# prefill chunk, ragged lengths at GQA 2, and the zero-padded route at 544
+# and 520 (at their own scales)
+SARVAM_Q = (1, 8192, 8, 576)
+HEAD_DIM_576_KERNEL_CASES = [
+    dict(kernel=kernel, label=f"sarvam-105b {name} {t} (1,8192,8,576) h_kv 1",
+         q=SARVAM_Q, h_kv=1, dtype=dtype, inner=2, main=main, **extra)
+    for t, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
+    for kernel, name, main, extra in (
+        ("flash_fwd_tri", "plain", True, {}),
+        ("flash_fwd_rect", "window 128", False, dict(causal=True, window=128)),
+        ("flash_fwd_rect", "packed 2 segments", True, dict(causal=True, packed=2)),
+    )
+] + [
+    dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,576) full", q=(1, 4096, 8, 576),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,576)", q=(2, 128, 4, 576),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,576) full", q=(2, 128, 4, 576),
+         dtype=torch.float32, causal=False),
+    dict(kernel="flash_fwd_rect", label="serving d576 f32 q(1,8,2,576) kv 64 q_start=16",
+         q=(1, 8, 2, 576), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    dict(kernel="flash_fwd_tri", label="ragged bf16 (2,100,4,576) h_kv 2", q=(2, 100, 4, 576),
+         h_kv=2, dtype=torch.bfloat16),
+    dict(kernel="flash_fwd_rect", label="ragged bf16 (2,1000,4,576) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 576), h_kv=2, dtype=torch.bfloat16, causal=True, cut=333),
+    dict(kernel="flash_fwd_tri", label="bf16 (1,4096,8,544) padded to 576", q=(1, 4096, 8, 544),
+         dtype=torch.bfloat16, inner=2),
+    dict(kernel="flash_fwd_rect", label="bf16 (2,1000,4,520) h_kv 2, window 33, padded to 576",
+         q=(2, 1000, 4, 520), h_kv=2, dtype=torch.bfloat16, causal=True, window=33),
+]
+HEAD_DIM_576_BWD_CASES = [
+    dict(pair=pair, label=f"sarvam-105b {name} {t} (1,8192,8,576) h_kv 1", q=SARVAM_Q,
+         h_kv=1, dtype=dtype, inner=1, main=main, **extra)
+    for t, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
+    for pair, name, main, extra in (
+        ("tri", "plain", True, {}),
+        ("rect", "window 128", False, dict(causal=True, window=128)),
+        ("rect", "packed 2 segments", True, dict(causal=True, packed=2)),
+    )
+] + [
+    dict(pair="rect", label="bf16 (1,4096,8,576) full", q=(1, 4096, 8, 576),
+         dtype=torch.bfloat16, causal=False, inner=1),
+    dict(pair="tri", label="f32 (2,128,4,576)", q=(2, 128, 4, 576), dtype=torch.float32),
+    dict(pair="rect", label="f32 (2,128,4,576) window 33, segments cut 88", q=(2, 128, 4, 576),
+         dtype=torch.float32, causal=True, window=33, cut=88),
+    dict(pair="tri", label="ragged bf16 (2,100,4,576) h_kv 2", q=(2, 100, 4, 576), h_kv=2,
+         dtype=torch.bfloat16),
+    dict(pair="rect", label="ragged bf16 (2,1000,4,576) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 576), h_kv=2, dtype=torch.bfloat16, causal=True, cut=333),
+    dict(pair="tri", label="bf16 (1,4096,8,544) padded to 576", q=(1, 4096, 8, 544),
+         dtype=torch.bfloat16, inner=1),
+    dict(pair="rect", label="bf16 (2,1000,4,520) h_kv 2, window 33, padded to 576",
+         q=(2, 1000, 4, 520), h_kv=2, dtype=torch.bfloat16, causal=True, window=33),
 ]
 
 
@@ -1103,7 +1193,8 @@ def _backward_rows(gen) -> list:
     from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     rows = []
-    for case in BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES:
+    for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
+                 + HEAD_DIM_576_BWD_CASES):
         q, k, v, seg = _case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda")
         dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
@@ -1409,7 +1500,7 @@ def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     results = []
     for case in (KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES
-                 + HEAD_DIM_512_KERNEL_CASES):
+                 + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES):
         q, k, v, seg = _case_inputs(case, gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
@@ -3908,9 +3999,10 @@ def phase_device_layer() -> dict:
 
 # Gemma-2B's widths (huggingface.co/google/gemma-2b config.json: hidden 2048,
 # 8 heads, 1 KV head, head dim 256, intermediate 16384, 8192 context) as a
-# TPUJob's spec.workload.config, the burn-in's own block, depth cut 18 -> 2
+# TPUJob's spec.workload.config, the burn-in's own block, depth cut 18 -> 1,
+# for the run's time
 GEMMA_2B = {"d_model": 2048, "n_heads": 8, "kv_heads": 1, "d_ff": 16384, "seq_len": 8192,
-            "batch": 1, "n_layers": 2, "use_flash_attention": True}
+            "batch": 1, "n_layers": 1, "use_flash_attention": True}
 # Phi-3-mini's (huggingface.co/microsoft/Phi-3-mini-4k-instruct config.json:
 # hidden 3072, 32 heads, head dim 96, intermediate 8192, 4096 context), depth
 # cut 32 -> 1: the zero-padded route (96 -> 128)
@@ -4431,46 +4523,66 @@ def phase_float16(smi: str) -> dict:
 # num_hidden_layers 43, sliding_window 128) as a TPUJob's
 # spec.workload.config. Cut to size: heads 64 -> 8, one card's share under
 # 8-way tensor parallelism (the burn-in's head dim is d_model // n_heads, so
-# 8 x 512 keeps the model's hidden size of 4096); depth 43 -> 2; the
-# burn-in's dense FFN at the shared expert's width, 2048; 8192 tokens of a
-# 1M context. The routed experts, CSA/HCA compression, mHC, MTP and the
-# low-rank q/o projections are not part of the reference's burn-in block.
+# 8 x 512 keeps the model's hidden size of 4096); depth 43 -> 1, for the
+# run's time; the burn-in's dense FFN at the shared expert's width, 2048;
+# 8192 tokens of a 1M context. The routed experts, CSA/HCA
+# compression, mHC, MTP and the low-rank q/o projections are not part of
+# the reference's burn-in block.
 DEEPSEEK_V4_FLASH = {"d_model": 4096, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_len": 8192,
-                     "batch": 1, "n_layers": 2, "use_flash_attention": True}
+                     "batch": 1, "n_layers": 1, "use_flash_attention": True}
+
+
+# -- phase 18: head dim 576 ------------------------------------------------
+
+# sarvam-105b's attention widths (huggingface.co/sarvamai/sarvam-105b
+# config.json: head_dim 576, kv_lora_rank 512 + qk_rope_head_dim 64, over 64
+# query heads; moe_intermediate_size 2048; num_hidden_layers 32; a 131072
+# context) as a TPUJob's spec.workload.config. This runs MLA's absorbed
+# attention shape (every query head of 576 columns on one shared latent key
+# of 576 columns, its prefill and decode attention) through the burn-in's
+# GQA block: there are no latent projections and no rope split, and V is 576
+# wide too, since the reference's API takes one head dim for q, k and v.
+# Cut to size: heads 64 -> 8, one card's share under 8-way tensor
+# parallelism (the burn-in's head dim is d_model // n_heads, so d_model is
+# 8 x 576 = 4608); kv heads 1, the shared latent; depth 32 -> 2; the
+# burn-in's dense FFN at the experts' width, 2048; 8192 tokens of 131072.
+SARVAM_105B = {"d_model": 4608, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_len": 8192,
+               "batch": 1, "n_layers": 2, "use_flash_attention": True}
 
 
 @_seeded_once()
-def phase_head_dim_512(smi: str) -> dict:
-    """Phase 17 (see the module's docstring)."""
+def _wide_head_phase(smi: str, config: dict, name: str, key: str, d: int, number: int) -> dict:
+    """Phases 17 and 18 (see the module's docstring): ``config``'s widths
+    (the model ``name``, results under ``key``) at head dim ``d``, the f32
+    gradients at ``d`` under a window of 128 too, and serving at ``d``."""
     from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
     from tpu_operator_torch.workloads.training import trainer_config
 
     start = time.perf_counter()
     out = {"paths": {}}
-    cfg = trainer_config(DEEPSEEK_V4_FLASH)
-    if cfg.d_model // cfg.n_heads != 512:
-        raise RuntimeError(f"deepseek-v4-flash config: head dim {cfg.d_model // cfg.n_heads}")
-    phase = "head dim 512"
+    cfg = trainer_config(config)
+    if cfg.d_model // cfg.n_heads != d:
+        raise RuntimeError(f"{name} config: head dim {cfg.d_model // cfg.n_heads}, not {d}")
+    phase = f"head dim {d}"
     # (a) flash against dense, the graphed step, the trainer, packed, fp16
     dense = dataclasses.replace(cfg, use_flash_attention=False)
-    out["deepseek"] = _curve_against("deepseek-v4-flash", cfg, "dense path",
-                                     lambda: run_burnin(steps=3, cfg=dense, device="cuda"), phase)
-    out["paths"][f"{phase} deepseek-v4-flash"] = out["deepseek"].pop("launches")
-    out["deepseek"]["forward_gap"] = _forward_gap(cfg, dense)
+    out[key] = _curve_against(name, cfg, "dense path",
+                              lambda: run_burnin(steps=3, cfg=dense, device="cuda"), phase)
+    out["paths"][f"{phase} {name}"] = out[key].pop("launches")
+    out[key]["forward_gap"] = _forward_gap(cfg, dense)
     _free_card()
     step, params, batch = build_train_step(cfg, "cuda")
-    out["deepseek"]["replays"] = _replays_vs_eager(step, params, batch)
-    out["deepseek"].update(_step_times(step, params, batch))
+    out[key]["replays"] = _replays_vs_eager(step, params, batch)
+    out[key].update(_step_times(step, params, batch))
     del step, params, batch
     _free_card()
-    g = out["deepseek"]
-    log(f"{phase} deepseek-v4-flash: {GRAPH_STEPS} graphed steps vs eager: rel "
+    g = out[key]
+    log(f"{phase} {name}: {GRAPH_STEPS} graphed steps vs eager: rel "
         f"{g['replays']['rel_err']:.3g}{' (bit for bit)' if g['replays']['bitwise'] else ''}; "
         f"step ms eager {g['step_ms']:.3f}, replay {g['step_replay_ms']:.3f}, device "
         f"{g['step_device_ms']:.3f}, {g['step_graph_nodes']} device operations; forward output "
         f"{g['forward_gap']:.3g} from the dense path's [{smi}]")
-    _trainer_with_a_fault(out, cfg, g["losses"], name="deepseek-v4-flash", phase=phase,
-                          key="deepseek_trainer")
+    _trainer_with_a_fault(out, cfg, g["losses"], name=name, phase=phase, key=f"{key}_trainer")
     _free_card()
     packed = dataclasses.replace(cfg, packed_segments=2)
 
@@ -4478,36 +4590,46 @@ def phase_head_dim_512(smi: str) -> dict:
         with _dense_packed_attention():
             return run_burnin(steps=3, cfg=packed, device="cuda")
 
-    out["deepseek_packed"] = _curve_against("deepseek-v4-flash packed", packed,
-                                            "dense path under the documents' mask",
-                                            packed_reference, phase)
-    out["paths"][f"{phase} deepseek-v4-flash packed"] = out["deepseek_packed"].pop("launches")
-    out["deepseek_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
+    out[f"{key}_packed"] = _curve_against(f"{name} packed", packed,
+                                          "dense path under the documents' mask",
+                                          packed_reference, phase)
+    out["paths"][f"{phase} {name} packed"] = out[f"{key}_packed"].pop("launches")
+    out[f"{key}_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
     _free_card()
-    f16 = trainer_config(dict(DEEPSEEK_V4_FLASH, dtype="float16"))
+    f16 = trainer_config(dict(config, dtype="float16"))
     if f16.tdtype != torch.float16:
-        raise RuntimeError(f"head dim 512: trainer_config gave {f16.tdtype}")
+        raise RuntimeError(f"{phase}: trainer_config gave {f16.tdtype}")
     f16_dense = dataclasses.replace(f16, use_flash_attention=False)
-    out["deepseek_f16"] = _curve_against("deepseek-v4-flash fp16", f16, "fp16 dense path",
-                                         lambda: run_burnin(steps=3, cfg=f16_dense,
-                                                            device="cuda"), phase)
-    out["paths"][f"{phase} deepseek-v4-flash fp16"] = out["deepseek_f16"].pop("launches")
-    out["deepseek_f16"]["forward_gap"] = _forward_gap(f16, f16_dense)
+    out[f"{key}_f16"] = _curve_against(f"{name} fp16", f16, "fp16 dense path",
+                                       lambda: run_burnin(steps=3, cfg=f16_dense,
+                                                          device="cuda"), phase)
+    out["paths"][f"{phase} {name} fp16"] = out[f"{key}_f16"].pop("launches")
+    out[f"{key}_f16"]["forward_gap"] = _forward_gap(f16, f16_dense)
     _free_card()
-    # (b) f32 gradients at head dim 512
-    out["f32_grads_512"] = _f32_grads_at(512, 128)
-    log(f"{phase} f32 (1,256,2,512) flash_attention gradients vs dense, max abs err "
-        f"{out['f32_grads_512']}")
-    # (c) serving at head dim 512
-    _serving_at(out, 512, phase)
+    # (b) f32 gradients at the head dim
+    out[f"f32_grads_{d}"] = _f32_grads_at(d, 128)
+    log(f"{phase} f32 (1,256,2,{d}) flash_attention gradients vs dense, max abs err "
+        f"{out[f'f32_grads_{d}']}")
+    # (c) serving at the head dim
+    _serving_at(out, d, phase)
     _free_card()
     log(f"{phase}: forward output against the reference's (norm of the difference over its "
-        f"norm): deepseek-v4-flash {g['forward_gap']:.3g}, packed "
-        f"{out['deepseek_packed']['forward_gap']:.3g}, fp16 "
-        f"{out['deepseek_f16']['forward_gap']:.3g} [{smi}]")
+        f"norm): {name} {g['forward_gap']:.3g}, packed "
+        f"{out[f'{key}_packed']['forward_gap']:.3g}, fp16 "
+        f"{out[f'{key}_f16']['forward_gap']:.3g} [{smi}]")
     out["seconds"] = time.perf_counter() - start
-    log(f"{phase}: phase 17 in {out['seconds']:.1f} s")
+    log(f"{phase}: phase {number} in {out['seconds']:.1f} s")
     return out
+
+
+def phase_head_dim_512(smi: str) -> dict:
+    """Phase 17 (see the module's docstring)."""
+    return _wide_head_phase(smi, DEEPSEEK_V4_FLASH, "deepseek-v4-flash", "deepseek", 512, 17)
+
+
+def phase_head_dim_576(smi: str) -> dict:
+    """Phase 18 (see the module's docstring)."""
+    return _wide_head_phase(smi, SARVAM_105B, "sarvam-105b", "sarvam", 576, 18)
 
 
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
@@ -4565,13 +4687,15 @@ def main(argv=None) -> int:
     results["head_dims"] = phase_head_dims()
     results["float16"] = phase_float16(smi)
     results["head_dim_512"] = phase_head_dim_512(smi)
+    results["head_dim_576"] = phase_head_dim_576(smi)
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
              **results["slice"]["paths"], **results["trainer"]["paths"],
              **results["replicas"]["paths"], **results["autotune"]["paths"],
              **results["agents"]["paths"], **results["head_dims"]["paths"],
-             **results["float16"]["paths"], **results["head_dim_512"]["paths"]}
+             **results["float16"]["paths"], **results["head_dim_512"]["paths"],
+             **results["head_dim_576"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}
@@ -4587,16 +4711,18 @@ def main(argv=None) -> int:
             hgmma16[f"flash_bwd_{kind}_{pair}"] = {
                 k: v for k, v in results["build"]["flash_bwd_f16_hgmma"].items()
                 if k.startswith(prefix)}
-    wide = {}  # the D 512 libraries' instantiations, bf16 and fp16 per kernel
-    for name in HEAD_DIM_512_INSTANTIATIONS:
+    wide = {}  # the D 512 and 576 libraries' instantiations, bf16 and fp16 per kernel
+    for name in WIDE_INSTANTIATIONS:
         fp16 = "_f16" in name
         for label, count in results["build"][f"{name}_hgmma"].items():
             pair = "rect" if label.startswith("rect_") or "_rect_" in label else "tri"
             kind = (f"flash_fwd_{pair}" if name.startswith("flash_fwd")
                     else f"flash_bwd_{label.split('_')[0]}_{pair}")
-            wide.setdefault(kind, {})[f"{'fp16' if fp16 else 'bf16'} {label}"] = count
+            wide.setdefault((name[-4:], kind), {})[f"{'fp16' if fp16 else 'bf16'} {label}"] = count
     line = kernels_line(results["kernels"], paths,
-                        {k: {"hgmma": v, "hgmma_fp16": hgmma16[k], "hgmma_d512": wide.get(k, {})}
+                        {k: {"hgmma": v, "hgmma_fp16": hgmma16[k],
+                             "hgmma_d512": wide.get(("d512", k), {}),
+                             "hgmma_d576": wide.get(("d576", k), {})}
                          for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

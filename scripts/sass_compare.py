@@ -6,10 +6,11 @@ this tree and in another checkout of the repository.
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). Each tree builds its ``flash_fwd`` and ``flash_bwd``
-libraries (bf16 and f32) and their fp16 builds into an empty temporary
-directory, in a process of its own; ``cuobjdump --dump-sass`` lists each
-library's kernels, and every kernel found in both trees is compared
-instruction by instruction (addresses, encodings and comments dropped).
+libraries (bf16 and f32), their fp16 builds and the head dim 512 builds of
+all four into an empty temporary directory, in a process of its own;
+``cuobjdump --dump-sass`` lists each library's kernels, and every kernel
+found in both trees is compared instruction by instruction (addresses,
+encodings and comments dropped).
 Prints the card's name and power limit, one line per library, and as the
 last line one JSON object: per library the kernels that are the same, the
 ones that differ (with their instruction counts in the other tree and in
@@ -30,7 +31,8 @@ from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16")
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_fwd_d512",
+             "flash_bwd_d512", "flash_fwd_f16_d512", "flash_bwd_f16_d512")
 
 _BUILD = """
 import json, sys

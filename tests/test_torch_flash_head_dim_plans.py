@@ -12,7 +12,9 @@ head dim; the f32 backward pair takes 32-row tiles there. Head dim 512
 runs 64-row tiles, a one-stage ring (32-row tiles in the backward pairs)
 and two CTAs per tile on the grid's z, one per column half of the
 outputs; the f32 forward takes 16-key tiles there and the f32 backward
-16-row tiles. The CUDA-core
+16-row tiles. Head dim 576 (MLA's absorbed heads) runs the 512 design
+with three CTAs per tile, one per 192-column third, and dK/dV's two
+consumer warpgroups on two column boxes and one. The CUDA-core
 kernels put rows on the grid's y and split them into z slices of 65,535,
 so any number of (batch·head) rows launches at once. Card tolerances as
 ``tests/test_torch_kernels.py``: O f32 1e-4, bf16 2e-2, lse 1e-3;
@@ -131,8 +133,9 @@ def test_plan_constants_match_the_cuda_sources():
     assert ("__host__ __device__ constexpr int f32_tile(int d) { return d > 256 ? 16 : "
             "d > 128 ? 32 : 64; }") in bwd
     assert "constexpr int kv_split() { return D > 128 ? 2 : 1; }" in bwd
-    assert [flash_bwd.f32_tile(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [64, 64, 64, 64, 32, 16]
-    assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2]
+    assert [flash_bwd.f32_tile(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [
+        64, 64, 64, 64, 32, 16, 16]
+    assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2, 2]
     # every native head dim is dispatched in both libraries, both dtypes
     for src in (fwd, bwd):
         for d in flash_fwd.NATIVE_HEAD_DIMS:
@@ -146,16 +149,17 @@ def test_plan_constants_match_the_cuda_sources():
 
 @pytest.mark.parametrize("d, width", [(1, 16), (16, 16), (17, 32), (33, 64), (80, 128),
                                       (96, 128), (112, 128), (128, 128), (129, 256), (256, 256),
-                                      (257, 512), (384, 512), (512, 512)])
+                                      (257, 512), (384, 512), (512, 512), (513, 576),
+                                      (544, 576), (575, 576), (576, 576)])
 def test_padded_head_dim(d, width):
     assert flash_fwd.padded_head_dim(d) == width
     # the share of the products a padded head wastes
     assert 0 <= 1 - d / width < 1
 
 
-@pytest.mark.parametrize("d", [0, 513, 576, 1024, -1, True])
+@pytest.mark.parametrize("d", [0, 577, 640, 1024, -1, True])
 def test_head_dims_the_port_does_not_take_raise(d):
-    with pytest.raises(ValueError, match="ROADMAP.md item 22"):
+    with pytest.raises(ValueError, match="ROADMAP.md item 23"):
         flash_fwd.padded_head_dim(d)
 
 
@@ -266,7 +270,7 @@ def test_plans_at_head_dim_512_by_hand():
     assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
     assert f["dkv tri"].smem_bytes == 4 * (4 * 16 * 513 + 2 * 16 * 17 + 32) + 64 == 133_696
     # below 512 nothing of this changes
-    for d in flash_fwd.NATIVE_HEAD_DIMS[:-1]:
+    for d in (x for x in flash_fwd.NATIVE_HEAD_DIMS if x < 512):
         assert all(plan.col_split == 1 for plan in _all_plans(BF16, d, None).values()), d
         assert {plan.ring for k, plan in _all_plans(BF16, d, None).items() if "d" in k[:2]} == {64}
 
@@ -276,17 +280,17 @@ def test_plan_constants_at_512_match_the_cuda_sources():
     header = (KERNELS / "hopper.cuh").read_text()
     for src in (fwd, bwd):
         assert "constexpr int stages() { return D > 256 ? 1 : kStages; }" in src
-        assert "constexpr int col_split() { return D > 256 ? 2 : 1; }" in src
+        assert "constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }" in src
         # the D 512 library dispatches D 512 alone, the others 16-256
         assert src.count("#ifdef FLASH_HEAD_DIM_512") == 2
     assert "constexpr int ring_rows() { return D > 256 ? 32 : kTile; }" in bwd
     assert "constexpr int f32_keys(int d) { return d > 256 ? 16 : kBN; }" in fwd
     assert "m64n32k16" in header
     dims = flash_fwd.NATIVE_HEAD_DIMS
-    assert [flash_fwd.ring_stages(d) for d in dims] == [2, 2, 2, 2, 2, 1]
-    assert [flash_fwd.col_split(d) for d in dims] == [1, 1, 1, 1, 1, 2]
-    assert [flash_fwd.f32_keys(d) for d in dims] == [64, 64, 64, 64, 64, 16]
-    assert [flash_bwd.ring_rows(d) for d in dims] == [64, 64, 64, 64, 64, 32]
+    assert [flash_fwd.ring_stages(d) for d in dims] == [2, 2, 2, 2, 2, 1, 1]
+    assert [flash_fwd.col_split(d) for d in dims] == [1, 1, 1, 1, 1, 2, 3]
+    assert [flash_fwd.f32_keys(d) for d in dims] == [64, 64, 64, 64, 64, 16, 16]
+    assert [flash_bwd.ring_rows(d) for d in dims] == [64, 64, 64, 64, 64, 32, 32]
     assert flash_fwd.library_name("flash_fwd", BF16, 512) == "flash_fwd_d512"
     assert flash_fwd.library_name("flash_bwd", torch.float16, 512) == "flash_bwd_f16_d512"
     assert flash_fwd.library_name("flash_bwd", F32, 256) == "flash_bwd"
@@ -357,6 +361,205 @@ def test_phase_3_head_dim_512_rows():
         for dtype in (BF16, torch.float16):
             assert any(c.get("packed") and c["dtype"] == dtype and c["q"] == (1, 8192, 8, 512)
                        for c in rows), dtype
+
+
+@pytest.mark.parametrize("d", [576, 513, 544])
+def test_a_128_row_plan_at_head_dim_576_raises(d):
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd.check_block_m(BF16, 128, d)
+    with pytest.raises(ValueError):
+        flash_fwd.tri_plan(torch.float16, 8, 128, 576, H100_SMS, block_m=128)
+    with pytest.raises(ValueError):
+        flash_bwd.tri_bwd_plan(BF16, 8, 8, 128, 576, H100_SMS, block_m=128)
+    q = torch.zeros((2, 8, 576), dtype=BF16)
+    with pytest.raises(ValueError):  # the CPU path checks it too
+        flash_fwd.flash_fwd_tri(q, q, q, 2, 2, block_m=128)
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10**9])
+def test_the_one_wave_rule_never_picks_128_rows_at_576(sms):
+    for dtype in (BF16, torch.float16):
+        for name, plan in _all_plans(dtype, 576, None, sms=sms, bh=256, s=8192).items():
+            assert getattr(plan, "block_m", getattr(plan, "block", None)) == 64, name
+
+
+def test_an_autotuned_128_is_not_forced_on_head_dim_576(monkeypatch):
+    from tpu_operator_torch.workloads import autotune
+
+    monkeypatch.setattr(autotune, "tuned_flash_tile", lambda *a, **k: 128)
+    for d in (576, 544, 520, 513):
+        for dtype in (BF16, torch.float16, F32):
+            assert tfa._resolve_block_m(None, dtype, 8192, 8, d, True) is None, (dtype, d)
+            assert tfa._resolve_block_m(None, dtype, 8192, 8, d, False) is None, (dtype, d)
+    with pytest.raises(ValueError):
+        tfa._resolve_block_m(128, torch.float16, 8192, 8, 576, True)
+
+
+def test_plans_at_head_dim_576_by_hand():
+    """The kernels' layouts at D 576 (flash_fwd.cu tc_smem_bytes, smem_bytes;
+    flash_bwd.cu dq_tc_smem_bytes, dkv_tc_smem_bytes, dq_smem_bytes,
+    dkv_smem_bytes), reckoned by hand: one ring stage, 32-row ring tiles in
+    the backward pairs, three CTAs per tile, each of the four 16-bit
+    layouts at most a block's 232,448 bytes."""
+    row = 576 * 2  # bytes of a 16-bit row: nine 128-byte boxes
+    assert row == 9 * 128
+    for dtype in (BF16, torch.float16):
+        p = _all_plans(dtype, 576, None)
+        # 1 KiB slack + Q, K and V tiles of 64 rows + 3 mbarriers
+        assert p["fwd tri"].smem_bytes == 1024 + 3 * 64 * row + 24 == 222_232
+        assert p["fwd rect"].smem_bytes == 222_232 + 66 * 4 == 222_496  # + 64 key ids, min, max
+        # Q and dO (own, 64 rows) + one 32-row stage of K and V
+        assert p["dq tri"].smem_bytes == 1024 + (2 * 64 + 2 * 32) * row + 24 == 222_232
+        assert p["dq rect"].smem_bytes == 222_232 + 34 * 4 == 222_368
+        # K and V (own) + one 32-row stage of Q and dO with their f32 lse and delta
+        assert p["dkv tri"].smem_bytes == 222_232 + 2 * 32 * 4 == 222_488
+        assert p["dkv rect"].smem_bytes == 222_488 + 34 * 4 == 222_624
+        assert max(plan.smem_bytes for plan in p.values()) <= MAX_SMEM
+        assert [p[k].threads for k in ("fwd tri", "fwd rect", "dq tri", "dkv tri")] == [
+            160, 160, 160, 384]
+        assert {p[k].swizzle for k in p} == {128} and {p[k].col_split for k in p} == {3}
+        assert [p[k].ring for k in ("dq tri", "dkv tri", "dq rect", "dkv rect")] == [32] * 4
+    # 640 columns: Q, K and V tiles alone pass a block's shared memory
+    assert 3 * 64 * 640 * 2 == 245_760 > MAX_SMEM
+    f = _all_plans(F32, 576, None, bh=6, s=130)
+    assert f["fwd tri"].smem_bytes == 4 * ((64 + 32) * 577 + 64 * 17) + 64 == 225_984 <= MAX_SMEM
+    assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].grid) == (64, 1, (3, 6))
+    assert (f["dq tri"].block, f["dq tri"].grid) == (16, (9, 6))
+    assert f["dq tri"].smem_bytes == 4 * (4 * 16 * 577 + 16 * 17) + 64 == 148_864
+    assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
+    assert f["dkv tri"].smem_bytes == 4 * (4 * 16 * 577 + 2 * 16 * 17 + 32) + 64 == 150_080
+
+
+def _kv_columns(d: int):
+    """The dK and dV columns each consumer warpgroup of a 16-bit dK/dV CTA's
+    key slice owns, as flash_bwd.cu's dkv_tc_body splits them: the CTA's
+    columns in whole 64-column boxes, ``kv_split`` ways, the first owning
+    the most (DC)."""
+    cols = d // flash_fwd.col_split(d)
+    box = min(d, 64)
+    split = flash_bwd.kv_split(d)
+    first = -(-(cols // box) // split) * box
+    return (first,) * (split - 1) + (cols - (split - 1) * first,)
+
+
+def test_dkv_columns_are_whole_boxes():
+    """dK/dV's consumer warpgroups own whole 64-column boxes of the CTA's
+    columns: 128 and 64 of a 576-wide head's 192-column third (an MN-major
+    operand cannot start inside a box), halves at 256 and 512; the products
+    of each are as wide as the first's, and stay inside the CTA's columns."""
+    for d in flash_fwd.NATIVE_HEAD_DIMS:
+        cols = _kv_columns(d)
+        assert len(cols) == flash_bwd.kv_split(d)
+        assert sum(cols) == d // flash_fwd.col_split(d)
+        assert all(c % min(d, 64) == 0 and c <= 256 for c in cols), d
+        width = cols[0]  # every warpgroup's products (DC)
+        starts = [min(sum(cols[:w]), sum(cols) - width) for w in range(len(cols))]
+        assert all(0 <= a and a + width <= sum(cols) and a % min(d, 64) == 0 for a in starts)
+    assert _kv_columns(576) == (128, 64)
+    assert _kv_columns(512) == _kv_columns(256) == (128, 128)
+
+
+def test_plan_constants_at_576_match_the_cuda_sources():
+    fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
+    header = (KERNELS / "hopper.cuh").read_text()
+    for src in (fwd, bwd):
+        # the D 576 library dispatches D 576 alone
+        assert src.count("#elif defined(FLASH_HEAD_DIM_576)") == 2
+    for kind in ("dispatch_tc", "launch"):
+        assert len(re.findall(rf"case 576: return {kind}<", fwd)) == 1
+        assert len(re.findall(rf"case 576: return {kind}<", bwd)) == 1
+    # the CTA's columns in whole boxes, the first warpgroup owning the most;
+    # every warpgroup's products DC wide (the last one's a box early at 576)
+    assert "constexpr int DC = (DCTA / G::kCols + CS - 1) / CS * G::kCols;" in bwd
+    assert "constexpr bool kOverlap = CS * DC > DCTA;" in bwd
+    assert "const int first = kOverlap ? min(own, DCTA - DC) : own;" in bwd
+    assert "m64n192k16" in header and "else if constexpr (N == 192) wgmma_rs_n192<T>" in header
+    assert "9 at 576" in header
+    from tpu_operator_torch.kernels import build
+
+    for src in ("flash_fwd", "flash_bwd"):
+        assert build.VARIANTS[f"{src}_d576"] == (src, ("-DFLASH_HEAD_DIM_576",))
+        assert build.VARIANTS[f"{src}_f16_d576"] == (src, ("-DFLASH_ELEM_F16",
+                                                           "-DFLASH_HEAD_DIM_576"))
+        for dtype, name in ((BF16, f"{src}_d576"), (F32, f"{src}_d576"),
+                            (torch.float16, f"{src}_f16_d576")):
+            assert flash_fwd.library_name(src, dtype, 576) == name
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("s", [1, 31, 64, 100, 1000])
+@pytest.mark.parametrize("causal, window", [(True, None), (False, None), (True, 33),
+                                            (True, 128)])
+def test_every_live_tile_pair_at_576_is_covered_once_per_column_third(causal, window, s, group):
+    """The D 576 pairs' walks (64-row own tiles, 32-row ring tiles) on the
+    grid of three z slices: every live pair once in each column third, and
+    no dead one; the forwards' grids likewise."""
+    tri = causal and window is None
+    plans = (flash_bwd.tri_bwd_plan(BF16, 2 * group, 2, s, 576, H100_SMS) if tri else
+             flash_bwd.rect_bwd_plan(BF16, 2 * group, 2, s, 576, H100_SMS, causal, window))
+    for plan, rows, members, (q_rows, k_rows) in ((plans[0], 2 * group, 1, (64, 32)),
+                                                  (plans[1], 2, group, (32, 64))):
+        assert plan.col_split == 3
+        got = collections.Counter((z, plan.cta(x, y)[0], *v) for z in range(plan.col_split)
+                                  for x in range(plan.grid[0]) for y in range(plan.grid[1])
+                                  for v in plan.visits(x, y, s, members))
+        assert set(got.values()) == {1}
+        live = _live(s, causal, plan.window, q_rows, k_rows)
+        assert set(got) == {(z, row, m, q, k) for z in range(3) for row in range(rows)
+                            for m in range(members) for q, k in live}
+    fwd = flash_fwd.rect_plan(BF16, 2, s, s, 576, H100_SMS, causal, window)
+    assert fwd.col_split == 3 and fwd.grid == (2, -(-s // 64))
+    seen = collections.Counter((z, *fwd.cta(x, y), k) for z in range(3)
+                               for x in range(fwd.grid[0]) for y in range(fwd.grid[1])
+                               for _, k, _ in fwd.visits(x, y))
+    assert set(seen.values()) <= {1}
+    assert set(seen) == {(z, row, q, k) for z in range(3) for row in range(2)
+                         for q, k in _live(s, causal, fwd.window, 64, 64)}
+
+
+def test_phase_2_counts_the_head_dim_576_instantiations():
+    """chip_smoke's build phase expects the D 576 libraries to hold one
+    warpgroup's instantiation of each kernel, bf16 and fp16, and no other."""
+    import chip_smoke
+
+    assert chip_smoke.HEAD_DIM_576_INSTANTIATIONS == {
+        "flash_fwd_d576": 2, "flash_bwd_d576": 4, "flash_fwd_f16_d576": 2,
+        "flash_bwd_f16_d576": 4}
+    assert {chip_smoke.fwd_bf16_label(f"flash_fwd_{k}_kernelI13__nv_bfloat16Li576ELi1EE")
+            for k in ("tri", "rect")} == {"d576_wg1", "rect_d576_wg1"}
+    assert chip_smoke.bwd_f16_label(
+        "flash_bwd_dkv_tri_kernelI6__halfLi576ELi1EE") == "dkv_d576_wg1"
+
+
+def test_phase_3_head_dim_576_rows():
+    """chip_smoke's D 576 rows: all six kernels in bf16 and fp16, f32 rows,
+    sarvam-105b's (1,8192,8,576) with one kv head (plain, window 128,
+    packed), full attention at (1,4096,8,576), serving's f32 chunk, ragged
+    lengths at GQA 2, and the padded route at 544 and 520."""
+    import chip_smoke
+
+    fwd, bwd = chip_smoke.HEAD_DIM_576_KERNEL_CASES, chip_smoke.HEAD_DIM_576_BWD_CASES
+    assert {c["kernel"] for c in fwd} == {"flash_fwd_tri", "flash_fwd_rect"}
+    assert {c["pair"] for c in bwd} == {"tri", "rect"}
+    for rows in (fwd, bwd):
+        assert {c["dtype"] for c in rows} == {BF16, torch.float16, F32}
+        assert {c["q"][1] for c in rows} >= {100, 1000, 4096, 8192}
+        for case in rows:
+            d = case["q"][3]
+            assert flash_fwd.padded_head_dim(d) == 576, case["label"]
+            assert ("padded" in case["label"]) == (d != 576)
+        assert {c["q"][3] for c in rows} == {576, 544, 520}
+        for dtype in (BF16, torch.float16):
+            for extra in ({}, {"window": 128}, {"packed": 2}):
+                assert any(c["dtype"] == dtype and c["q"] == (1, 8192, 8, 576)
+                           and c.get("h_kv") == 1 and all(c.get(k) == v for k, v in extra.items())
+                           for c in rows), (dtype, extra)
+        assert any(c["q"] == (1, 4096, 8, 576) and c.get("causal") is False for c in rows)
+        assert any(c["q"] == (2, 128, 4, 576) and c["dtype"] == F32 for c in rows)
+        assert any(c["q"][:3] == (2, 100, 4) and c.get("h_kv") == 2 for c in rows)
+        assert any(c["q"][:3] == (2, 1000, 4) and c.get("h_kv") == 2 for c in rows)
+    assert any(c["q"] == (1, 8, 2, 576) and c.get("sk") == 64 and c["dtype"] == F32
+               and c.get("main") for c in fwd)
 
 
 # --------------------------------------------------------------- on the card
@@ -468,7 +671,7 @@ def test_rows_past_65535_launch_once(cuda, dtype):
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_every_head_dim_up_to_256_runs_a_kernel(cuda, dtype):
     """flash_attention at each head dim 1-256 on CUDA tensors launches the
-    triangle kernel once and matches dense attention; 257 raises."""
+    triangle kernel once and matches dense attention; 577 raises."""
     from tpu_operator_torch.workloads.ringattention import dense_attention
 
     tol = F32_TOL if dtype == F32 else BF16_TOL
@@ -482,8 +685,8 @@ def test_every_head_dim_up_to_256_runs_a_kernel(cuda, dtype):
         torch.cuda.synchronize()
         assert flash_fwd.flash_fwd_tri.launches == before + 1, d
         assert got.shape == q.shape and float((got.float() - want).abs().max()) <= tol, d
-    q = torch.zeros((1, 32, 2, 513), device="cuda", dtype=dtype)
-    with pytest.raises(ValueError, match="ROADMAP.md item 22"):
+    q = torch.zeros((1, 32, 2, 577), device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="ROADMAP.md item 23"):
         tfa.flash_attention(q, q, q, block_q=32, block_k=32)
 
 
@@ -591,3 +794,83 @@ def _windowed_dense(q, k, v, window, seg):
     keep = flash_fwd.keep_mask(b * h, s, s, h, True, window=window, seg=seg, device=q.device)
     scores = scores.masked_fill(~keep.expand(b * h, s, s).reshape(b, h, s, s), -math.inf)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, torch.float16, F32])
+@pytest.mark.parametrize("s, h, h_kv", [(1, 1, 1), (100, 4, 2), (200, 4, 1), (1000, 2, 2)])
+def test_head_dim_576_kernels_match_plain(cuda, dtype, s, h, h_kv):
+    """Both forward kernels and both backward pairs at D 576, every mask,
+    GQA groups of 1, 2 and 4, ragged lengths: each column third of O, lse
+    from third 0, and each 64-column box of every gradient (dK/dV's
+    warpgroups own two boxes and one of each third)."""
+    tol = F32_TOL if dtype == F32 else BF16_TOL
+    qb, kb, vb, h_, hk = _qkv(s + 576, 2, s, h, h_kv, 576, dtype)
+    rng = np.random.default_rng(s + 3)
+    dout = torch.from_numpy(rng.standard_normal(qb.shape).astype(np.float32)).to("cuda", dtype)
+    for name, (causal, window, kind) in dict(MASKS, triangle=(True, None, None)).items():
+        seg = _seg(kind, 2, s)
+        tri = name == "triangle"
+        if tri:
+            out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h_, hk)
+        else:
+            out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h_, hk, causal, window=window, seg=seg)
+        want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h_, hk, causal, window=window,
+                                                   seg=seg)
+        torch.cuda.synchronize()
+        for third in range(3):
+            cols = slice(192 * third, 192 * (third + 1))
+            assert _err(want[..., cols], out[..., cols]) <= tol, (name, third)
+        assert _err(want_lse, lse) <= LSE_TOL, name
+        delta = (dout.float() * out.float()).sum(-1)
+        pair, extra = ("tri", ()) if tri else ("rect", (causal, window, seg))
+        before = (getattr(flash_bwd, f"flash_bwd_dq_{pair}").launches,
+                  getattr(flash_bwd, f"flash_bwd_dkv_{pair}").launches)
+        dq = getattr(flash_bwd, f"flash_bwd_dq_{pair}")(qb, kb, vb, out, dout, lse, delta, h_, hk,
+                                                        *extra)
+        dk, dv = getattr(flash_bwd, f"flash_bwd_dkv_{pair}")(qb, kb, vb, out, dout, lse, delta,
+                                                             h_, hk, *extra)
+        want = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h_, hk, causal, window,
+                                             seg)
+        torch.cuda.synchronize()
+        assert (getattr(flash_bwd, f"flash_bwd_dq_{pair}").launches,
+                getattr(flash_bwd, f"flash_bwd_dkv_{pair}").launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+        scale = 1.0 if dtype == F32 else max(float(w.float().abs().max()) for w in want)
+        for grad, w, g in zip(("dq", "dk", "dv"), want, (dq, dk, dv)):
+            for box in range(9):
+                cols = slice(64 * box, 64 * (box + 1))
+                assert float((w[..., cols].float() - g[..., cols].float()).abs().max()) <= \
+                    tol * scale, (name, grad, box)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [513, 520, 544, 575, 576])
+def test_head_dims_past_512_gradients_match_dense(cuda, d):
+    """autograd through flash_attention against autograd through dense
+    attention, f32, (1, 256, 2, d): the padded route to 576 (513-575) and
+    the native 576, through the kernels (one launch of each of the pair),
+    plain causal and under a window of 128 with two segments."""
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+
+    rng = np.random.default_rng(d)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal((1, 256, 2, d)).astype(np.float32))
+                  .to("cuda") for _ in range(4))
+    seg = (torch.arange(256, device="cuda") >= 100).to(torch.int32)[None]
+    for kwargs, pair in (({}, "tri"), ({"window": 128, "segment_ids": seg}, "rect")):
+        grads = {}
+        before = (getattr(flash_bwd, f"flash_bwd_dq_{pair}").launches,
+                  getattr(flash_bwd, f"flash_bwd_dkv_{pair}").launches)
+        for name, attn in (("flash", tfa.flash_attention), ("dense", dense_attention)):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            if name == "dense" and kwargs:
+                group_out = _windowed_dense(*leaves, window=128, seg=seg)
+            else:
+                group_out = attn(*leaves, causal=True, **kwargs)
+            grads[name] = torch.autograd.grad((group_out * w).sum(), leaves)
+        torch.cuda.synchronize()
+        assert (getattr(flash_bwd, f"flash_bwd_dq_{pair}").launches,
+                getattr(flash_bwd, f"flash_bwd_dkv_{pair}").launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+        for got, want in zip(grads["flash"], grads["dense"]):
+            assert got.shape == want.shape and float((got - want).abs().max()) <= F32_TOL, pair

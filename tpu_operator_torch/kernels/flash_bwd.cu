@@ -121,10 +121,28 @@
 // and dP^T: 2.5x the ideal (S, dP, dV, dK once each), and no exchange
 // between warpgroups or CTAs. Shared memory: dQ 197,656 bytes (general pair
 // 136 more), dK/dV 197,912 (136 more).
+// D = 576 (MLA's absorbed heads; its own library, built with
+// -DFLASH_HEAD_DIM_576): the D = 512 design on 64-row own tiles of 72 KiB
+// and one stage of 32-row ring tiles (36 KiB), S and dP over all 576 columns
+// (36 k16 steps), but three CTAs share each own-side tile, its column thirds
+// on the grid's z (col_split<D>: two halves of 288 would pass wgmma's N).
+// dQ: 192 columns of dQ a CTA (96 f32 a thread, one m64n192k16 per 16 keys
+// from the K tile's column boxes 3c to 3c + 2): 7/3 of the ideal. dK/dV: a
+// CTA's 192 columns are three 64-column boxes, and an MN-major operand
+// cannot start inside a box (its 128-byte swizzle rows hold 64 columns), so
+// the two consumer warpgroups own two boxes and one, not 96 columns each.
+// Both run the same m64n128k16 products (128 columns: 64 + 64 f32 of dK and
+// dV a thread, as at D = 512): the second on boxes 3c + 1 and 3c + 2, of
+// which it writes only the last, since a wgmma on one warpgroup's path
+// alone is serialized by ptxas. Every one of the six forms S^T and dP^T:
+// 11/3 of the ideal (S, dP, dV, dK once each). Shared memory: dQ 222,232
+// bytes (general pair 136 more), dK/dV 222,488 (136 more), of the 232,448 a
+// block may use; 640 columns would pass it with the own tiles alone.
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
-// row, 64-key tile) for dK/dV (32-row tiles at D = 256, 16 at 512: f32_tile), tiles on
+// row, 64-key tile) for dK/dV (32-row tiles at D = 256, 16 at 512 and 576:
+// f32_tile), tiles on
 // the grid's x and rows on y and z (kMaxGridY a z slice), on the CUDA
 // cores; the TPU kernels' sequential grid axis is a loop inside the CTA (up
 // to the diagonal, the window band, or all; dK/dV over every GQA group
@@ -209,8 +227,8 @@ __device__ __forceinline__ bool attends(const Params& p, int qi, int kj, bool se
 }
 
 // The CUDA-core kernels' tile: 64 q rows and keys, 32 at D = 256 and 16 at
-// 512, where four [64][D + 1] (or [32][D + 1]) f32 tiles alone would pass
-// the 227 KB a block may use.
+// 512 and 576, where four [64][D + 1] (or [32][D + 1]) f32 tiles alone would
+// pass the 227 KB a block may use.
 __host__ __device__ constexpr int f32_tile(int d) { return d > 256 ? 16 : d > 128 ? 32 : 64; }
 
 // Rows [r0, r0 + TT) of a (s, D) matrix into a [TT][D + 1] f32 tile, times
@@ -545,14 +563,16 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 // dK/dV consumer warpgroups per 64 keys: at D = 256 dK and dV alone are 256
 // f32 a thread, past the 255 a thread may hold, so two warpgroups share the
-// keys and each accumulates dK and dV for its half of the head dim
+// keys and each accumulates dK and dV for its share of the CTA's columns
+// (halves at D = 256 and 512; two boxes and one at D = 576)
 template <int D>
 __host__ __device__ constexpr int kv_split() { return D > 128 ? 2 : 1; }
 // the general pair's staged segment ids: kStages x (the ring tile's 64 ids,
 // then their min and max), int32
 constexpr int kSegBytes = kStages * (kTile + 2) * 4;
 // At D = 512 (see the note on top): one ring stage of 32-row tiles, and two
-// CTAs per own-side tile, each on a column half of the gradients.
+// CTAs per own-side tile, each on a column half of the gradients; at D = 576
+// the same ring and three CTAs, each on a column third.
 template <int D>
 __host__ __device__ constexpr int stages() { return D > 256 ? 1 : kStages; }
 template <int D>
@@ -560,7 +580,7 @@ __host__ __device__ constexpr int ring_rows() { return D > 256 ? 32 : kTile; }
 template <int D>
 constexpr int seg_bytes() { return D > 256 ? (ring_rows<D>() + 2) * 4 : kSegBytes; }
 template <int D>
-__host__ __device__ constexpr int col_split() { return D > 256 ? 2 : 1; }
+__host__ __device__ constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }
 
 template <int D, int WG, bool TRI>
 constexpr int dq_tc_smem_bytes() {
@@ -584,8 +604,8 @@ constexpr int dkv_tc_smem_bytes() {
 // dQ on the tensor cores. blockIdx.x: (batch, head) row; blockIdx.y: q tile
 // of 64 WG rows, reversed under a plain causal mask so that the heaviest
 // tiles launch first (with a window or none, every tile walks about as far);
-// blockIdx.z: the column half of dQ at D = 512. TRI: the triangle; else the
-// general masks of Params.
+// blockIdx.z: the column slice of dQ at D = 512 (halves) and 576 (thirds).
+// TRI: the triangle; else the general masks of Params.
 template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* qmap,
                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
@@ -813,8 +833,9 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
 
 // dK/dV on the tensor cores. blockIdx.x: kv row; blockIdx.y: key tile of 64
 // WG keys, in order (under a causal mask the first keys, the longest walks,
-// launch first); blockIdx.z: the column half of dK and dV at D = 512. TRI:
-// the triangle; else the general masks of Params.
+// launch first); blockIdx.z: the column slice of dK and dV at D = 512
+// (halves) and 576 (thirds). TRI: the triangle; else the general masks of
+// Params.
 template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* qmap,
                                             const CUtensorMap* kmap, const CUtensorMap* vmap,
@@ -822,9 +843,18 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   using G = Geo<D>;
   constexpr int BN = 64 * WG;
-  constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on D / CS columns
+  constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on a share of the columns
   constexpr int NC = WG * CS;        // consumer warpgroups
-  constexpr int DC = D / CS / col_split<D>();  // a consumer's dK and dV columns
+  constexpr int DCTA = D / col_split<D>();  // the CTA's dK and dV columns
+  // a consumer's columns, in whole column boxes (an MN-major operand starts
+  // on a box): warpgroup w of a key slice owns DC from w DC on, the last
+  // one the rest. Every consumer's products are DC wide, so that all run
+  // the same wgmma (one on a divergent path is serialized): at D = 576
+  // (two boxes and one) the last one's products start a box early, inside
+  // the CTA's columns, and it writes only its own.
+  constexpr int DC = (DCTA / G::kCols + CS - 1) / CS * G::kCols;
+  constexpr bool kOverlap = CS * DC > DCTA;
+  static_assert(DCTA >= DC && DCTA > (CS - 1) * DC, "each consumer owns some of the columns");
   constexpr int QT = ring_rows<D>();           // q rows of a ring tile
   constexpr int ST = stages<D>();
   constexpr uint32_t kKVBytes = BN * D * 2;
@@ -936,14 +966,19 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
     }
   } else {
     if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
-    // consumers: warpgroup wg owns keys w0 .. w0 + 63 and dK/dV columns c0 ..
-    // c0 + DC - 1 (all of them but at D = 256 and 512); this thread holds
-    // keys key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a
-    // tile
+    // consumers: warpgroup wg owns keys w0 .. w0 + 63 and computes dK/dV
+    // columns c0 .. c0 + DC - 1 (all of them but at D = 256, 512 and 576),
+    // writing those from its own first column on; this thread holds keys key
+    // and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
     const int wg = warp / 4;
     const int kw = wg / CS;            // the 64-key slice
-    // the first column: the CTA's column half (D = 512), then the warpgroup's share
-    const int c0 = (DC * CS < D ? static_cast<int>(blockIdx.z) * DC * CS : 0) + (wg % CS) * DC;
+    const int own = (wg % CS) * DC;    // its first column inside the CTA's
+    // its products' first column inside the CTA's, and the 8-column groups
+    // of its accumulators before its own first column (D = 576's last: 8)
+    const int first = kOverlap ? min(own, DCTA - DC) : own;
+    const int skip = kOverlap ? (own - first) / 8 : 0;
+    // the first column: the CTA's column slice (D = 512 and 576), then the warpgroup's
+    const int c0 = (DCTA < D ? static_cast<int>(blockIdx.z) * DCTA : 0) + first;
     const int box = c0 / G::kCols;     // ... as a column box of the Q and dO tiles
     const int tq = lane % 4;
     const int w0 = k0 + kw * 64;
@@ -1072,6 +1107,7 @@ __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* 
       auto* dvr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + at);
 #pragma unroll
       for (int j = 0; j < DC / 8; ++j) {
+        if (kOverlap && j < skip) continue;  // a neighbour's columns
         dkr[4 * j + tq] = pack2<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
         dvr[4 * j + tq] = pack2<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
       }
@@ -1159,7 +1195,7 @@ int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
   if (block == 64) return launch_tc<Elem16, D, 1, K>(p, rows, smem, stream);
-  if constexpr (D <= 128) {  // D 256 and 512: 64-row tiles only (see the note on top)
+  if constexpr (D <= 128) {  // D 256, 512 and 576: 64-row tiles only (see the note on top)
     if (block == 128) return launch_tc<Elem16, D, 2, K>(p, rows, smem, stream);
   }
   return kUnsupported;
@@ -1193,6 +1229,8 @@ int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
   switch (d) {
 #ifdef FLASH_HEAD_DIM_512
     case 512: return launch<T, 512, K>(p, rows, stream);
+#elif defined(FLASH_HEAD_DIM_576)
+    case 576: return launch<T, 576, K>(p, rows, stream);
 #else
     case 16: return launch<T, 16, K>(p, rows, stream);
     case 32: return launch<T, 32, K>(p, rows, stream);
@@ -1221,6 +1259,8 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
       case 512: return dispatch_tc<512, K>(p, rows, block, smem, swizzle, st);
+#elif defined(FLASH_HEAD_DIM_576)
+      case 576: return dispatch_tc<576, K>(p, rows, block, smem, swizzle, st);
 #else
       case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, st);
       case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
@@ -1256,7 +1296,7 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
 // tri_bwd_plan and rect_bwd_plan). A library takes D 16-256, or (built with
-// -DFLASH_HEAD_DIM_512) D 512 alone.
+// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone.
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,

@@ -15,11 +15,12 @@ In bf16 and fp16 both pairs run on the tensor cores (wgmma, TMA: q, k, v
 and dO need 16-byte-aligned bases) with the launch plans of
 :func:`tri_bwd_plan` and :func:`rect_bwd_plan`, the same for both 16-bit
 types; f32 runs on the CUDA cores. fp16 has a library of its own
-(``build.VARIANTS``), built at the first fp16 call; so has head dim 512
-(``flash_bwd_d512``, ``flash_bwd_f16_d512``), built at the first call
-there. At 512 the ring's tiles are 32 rows (:func:`ring_rows`) in one
-stage, and two CTAs share each own-side tile, one per column half of the
-gradients (``flash_fwd.col_split``).
+(``build.VARIANTS``), built at the first fp16 call; so have head dims 512
+(``flash_bwd_d512``, ``flash_bwd_f16_d512``) and 576 (``flash_bwd_d576``,
+``flash_bwd_f16_d576``), each built at the first call there. At 512 and
+576 the ring's tiles are 32 rows (:func:`ring_rows`) in one stage, and two
+(512) or three (576) CTAs share each own-side tile, one per column slice
+of the gradients (``flash_fwd.col_split``).
 """
 
 from __future__ import annotations
@@ -57,24 +58,27 @@ TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTi
 
 def f32_tile(d: int) -> int:
     """The f32 CUDA-core pair's tile (q rows and keys): 64, 32 at d 256 and
-    16 at d 512, where four [64][d + 1] (or [32][d + 1]) f32 tiles alone
-    would pass a block's shared memory (f32_tile in flash_bwd.cu)."""
+    16 at d 512 and 576, where four [64][d + 1] (or [32][d + 1]) f32 tiles
+    alone would pass a block's shared memory (f32_tile in flash_bwd.cu)."""
     return 16 if d > 256 else 32 if d > 128 else TILE
 
 
 def kv_split(d: int) -> int:
-    """Consumer warpgroups of the 16-bit dK/dV kernel per 64 keys: 2 at d 256
-    and 512, each accumulating dK and dV for half the CTA's columns
-    (kv_split in flash_bwd.cu), else 1."""
+    """Consumer warpgroups of the 16-bit dK/dV kernel per 64 keys: 2 at d 256,
+    512 and 576, each accumulating dK and dV for a share of the CTA's
+    columns in whole 64-column boxes: halves at 256 and 512, two boxes and
+    one of a 576-wide head's 192-column thirds (kv_split, DC in
+    flash_bwd.cu), else 1."""
     return 2 if d > 128 else 1
 
 
 def ring_rows(d: int) -> int:
     """Rows of the 16-bit pairs' ring tiles (dQ: keys, dK/dV: q rows):
-    ``TILE``, or 32 at d 512, where a 64-row tile pair beside the CTA's own
-    two tiles would pass a block's shared memory (ring_rows in
+    ``TILE``, or 32 at d 512 and 576, where a 64-row tile pair beside the
+    CTA's own two tiles would pass a block's shared memory (ring_rows in
     flash_bwd.cu)."""
     return 32 if d > 256 else TILE
+
 
 
 TRI_BWD_STAGES = 2  # ring depth of the 16-bit pairs (kStages in flash_bwd.cu)
@@ -229,8 +233,8 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
                 + 8 * (2 * stages + 1))
         if kernel == "dkv":
             smem += 2 * stages * ring * 4
-        # consumer warpgroups of 64 rows (dkv at d 256: two per 64 keys,
-        # kv_split), and the producer: one warp for dq, a whole warpgroup
+        # consumer warpgroups of 64 rows (dkv at d 256 and wider: two per 64
+        # keys, kv_split), and the producer: one warp for dq, a whole warpgroup
         # for dkv (setmaxnreg hands its registers over)
         split = 1 if kernel == "dq" else kv_split(d)
         threads = 2 * block * split + (32 if kernel == "dq" else 128)
@@ -258,13 +262,14 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     K and V), ``TRI_BWD_STAGES`` pairs of the ring's 64-row tiles (dkv:
     with their f32 lse and delta), 1 KiB of alignment slack and five
     mbarriers. Swizzle: the span of a row of one TMA box (32 B at d 16,
-    64 B at d 32, 128 B at d 64, 128, 256 and 512). At d 256 and 512 both
+    64 B at d 32, 128 B at d 64 and wider). At d 256, 512 and 576 both
     take 64-row tiles (``TILE_HEIGHTS``), and a dkv CTA has two consumer
-    warpgroups, each on half its columns (:func:`kv_split`); at d 512 the
-    ring is one stage of 32-row tiles (:func:`ring_rows`) and two CTAs
-    share each own-side tile, one per column half (``col_split``, the
-    grid's z). f32 keeps the CUDA-core kernels' fixed plans (``block_m`` 64
-    only; 32-row tiles at d 256 and 16-row at 512, :func:`f32_tile`; rows
+    warpgroups, each on a share of its columns (:func:`kv_split`); at d
+    512 and 576 the ring is one stage of 32-row
+    tiles (:func:`ring_rows`) and two (512) or three (576) CTAs share each
+    own-side tile, one per column slice (``col_split``, the grid's z). f32
+    keeps the CUDA-core kernels' fixed plans (``block_m`` 64 only; 32-row
+    tiles at d 256 and 16-row at 512 and 576, :func:`f32_tile`; rows
     on the grid's y, which the kernels split into z slices of 65,535); any
     other ``block_m`` raises ``ValueError``. The kernels check the plan
     against their own layout and refuse one that differs."""

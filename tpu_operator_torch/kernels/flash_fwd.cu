@@ -35,9 +35,10 @@
 // them; P is rounded to T before P.V and the row sum is taken from the
 // unrounded P. Swizzle per D matches the TMA box to the wgmma descriptor:
 // 32B at D 16, 64B at D 32, 128B at D 64 and 128B over two 64-column boxes
-// at D 128, four at D 256. The tile height, grid, shared-memory bytes and
-// swizzle come from the caller's plan (flash_fwd.py::tri_plan, rect_plan),
-// which this file checks against its own layout. No setmaxnreg: with one
+// at D 128, four at D 256, eight at 512, nine at 576. The tile height,
+// grid, shared-memory bytes and swizzle come from the caller's plan
+// (flash_fwd.py::tri_plan, rect_plan), which this file checks against its
+// own layout. No setmaxnreg: with one
 // producer warp beside at most two warpgroups the register cap (168 a
 // thread at WG = 2, 255 at WG = 1) holds the O and S accumulators. At D 256
 // only WG = 1 is built: O (128 f32), S (32) and P (16) are 176 registers a
@@ -56,6 +57,16 @@
 // stage of 64-key K and V tiles (64 KiB each) take 197,656 bytes (the
 // general kernel 264 more), so the ring has one stage (stages<D>): the
 // producer refills K and V only after both of the tile's products.
+// D 576 (MLA's absorbed heads: WG = 1 only; its own library, built with
+// -DFLASH_HEAD_DIM_576): two halves of 288 columns would pass wgmma's N of
+// 256, so three CTAs share a q tile, its column thirds on the grid's z
+// (col_split<D>): each holds 192 columns of O (96 f32 a thread; column boxes
+// 3c to 3c + 2 of the nine), forms S over all 576 columns (36 k16 steps) and
+// runs P.V as one m64n192k16 per 16 keys. S is formed three times per tile:
+// 2x the ideal tensor-core work; only third 0 writes lse. Q, K and V tiles of
+// 64 rows (72 KiB each) and one stage take 222,232 bytes (the general kernel
+// 264 more). 640 columns would need 245,760 for the three tiles alone, past
+// the 232,448 a block may use: 576 is the widest head this design holds.
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -146,8 +157,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// The CUDA-core kernels' keys per k tile: 64, or 16 at D = 512, where two
-// [64][D + 1] f32 tiles beside Q's would pass the 227 KB a block may use.
+// The CUDA-core kernels' keys per k tile: 64, or 16 at D = 512 and 576, where
+// two [64][D + 1] f32 tiles beside Q's would pass the 227 KB a block may use
+// (at 576 the 16-key layout takes 225,984 bytes).
 __host__ __device__ constexpr int f32_keys(int d) { return d > 256 ? 16 : kBN; }
 
 constexpr size_t smem_bytes(int d) {
@@ -349,13 +361,14 @@ constexpr int kStages = 2;        // K/V ring depth
 // ids, then their min and max), int32
 constexpr int kSegBytes = kStages * (kRingRows + 2) * 4;
 // At D = 512: one ring stage (see the note on top), and two CTAs per q
-// tile, each on a column half of O (256 columns: wgmma's widest N).
+// tile, each on a column half of O (256 columns: wgmma's widest N); at
+// D = 576 one stage and three CTAs, each on a column third (192 columns).
 template <int D>
 __host__ __device__ constexpr int stages() { return D > 256 ? 1 : kStages; }
 template <int D>
 constexpr int seg_bytes() { return D > 256 ? (kRingRows + 2) * 4 : kSegBytes; }
 template <int D>
-__host__ __device__ constexpr int col_split() { return D > 256 ? 2 : 1; }
+__host__ __device__ constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }
 
 template <int D, int WG, bool TRI>
 constexpr int tc_smem_bytes() {
@@ -368,7 +381,7 @@ constexpr int tc_smem_bytes() {
 
 // The 16-bit triangle forward on the tensor cores. blockIdx.x: (batch, head)
 // row; blockIdx.y: q tile, reversed so the heaviest tiles launch first;
-// blockIdx.z: the column half of O at D = 512.
+// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
@@ -456,7 +469,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     const int st = t % ST;
     mbar_wait(&full[st], (t / ST) & 1);
     const unsigned char* ks = k_s + st * kKVBytes;
-    // V from the CTA's first column on (P.V on its column half at D 512)
+    // V from the CTA's first column on (P.V on its column slice at D 512 and 576)
     const unsigned char* vs = v_s + st * kKVBytes + col0 / G::kCols * BN * G::kRowBytes;
 
     // S = Q.K^T: both K-major; a k16 step advances 32 bytes inside a box
@@ -565,7 +578,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     for (int j = 0; j < DC / 8; ++j) {
       orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
     }
-    if (tq == 0 && col0 == 0) {  // both column halves hold lse: half 0 writes it
+    if (tq == 0 && col0 == 0) {  // every column slice holds lse: slice 0 writes it
       p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
     }
   }
@@ -573,7 +586,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 
 // The 16-bit general forward on the tensor cores (see the note on top).
 // blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order;
-// blockIdx.z: the column half of O at D = 512.
+// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
     flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
@@ -883,7 +896,7 @@ int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cud
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
   if (block_m == 64) return launch_tc<Elem16, D, 1, TRI>(p, bh, smem, stream);
-  if constexpr (D <= 128) {  // D 256 and 512: one warpgroup only (see the note on top)
+  if constexpr (D <= 128) {  // D 256, 512 and 576: one warpgroup only (see the note on top)
     if (block_m == 128) return launch_tc<Elem16, D, 2, TRI>(p, bh, smem, stream);
   }
   return kUnsupported;
@@ -921,6 +934,8 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
       case 512: return dispatch_tc<512, TRI>(p, bh, block_m, smem, swizzle, st);
+#elif defined(FLASH_HEAD_DIM_576)
+      case 576: return dispatch_tc<576, TRI>(p, bh, block_m, smem, swizzle, st);
 #else
       case 16: return dispatch_tc<16, TRI>(p, bh, block_m, smem, swizzle, st);
       case 32: return dispatch_tc<32, TRI>(p, bh, block_m, smem, swizzle, st);
@@ -941,6 +956,8 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
       case 512: return launch<512, TRI>(p, bh, st);
+#elif defined(FLASH_HEAD_DIM_576)
+      case 576: return launch<576, TRI>(p, bh, st);
 #else
       case 16: return launch<16, TRI>(p, bh, st);
       case 32: return launch<32, TRI>(p, bh, st);
@@ -962,9 +979,10 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
 // take, -2 when no TMA tensor map could be made. block_m, smem (bytes) and
 // swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
 // rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
-// (64 only at D 256 and 512); f32 runs the CUDA-core kernel, whose plan is
-// fixed (64, its shared memory, no swizzle). A library takes D 16-256, or
-// (built with -DFLASH_HEAD_DIM_512) D 512 alone.
+// (64 only at D 256, 512 and 576); f32 runs the CUDA-core kernel, whose plan
+// is fixed (64, its shared memory, no swizzle). A library takes D 16-256, or
+// (built with -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576)
+// D 576 alone.
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,

@@ -13,15 +13,18 @@ In bf16 and fp16 both kernels run on the tensor cores (wgmma, TMA: q, k,
 v and out need 16-byte-aligned bases) with the launch plans of
 :func:`tri_plan` and :func:`rect_plan`, the same for both 16-bit types;
 f32 runs on the CUDA cores. fp16 has a library of its own
-(``build.VARIANTS``), built at the first fp16 call; so has head dim 512
-(``flash_fwd_d512``, ``flash_fwd_f16_d512``), built at the first call
-there.
+(``build.VARIANTS``), built at the first fp16 call; so have head dims 512
+(``flash_fwd_d512``, ``flash_fwd_f16_d512``) and 576 (``flash_fwd_d576``,
+``flash_fwd_f16_d576``), each built at the first call there.
 
-The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 512); a caller
-with another head dim up to 512 zero-pads the head to
+The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 576); a caller
+with another head dim up to 576 zero-pads the head to
 :func:`padded_head_dim` and passes the true head dim's softmax scale as
 ``sm_scale`` (``workloads/flashattention.py`` does both). At 512 two CTAs
-share each q tile, one on each column half of O (:func:`col_split`).
+share each q tile, one on each column half of O, at 576 (MLA's absorbed
+heads) three, one on each column third (:func:`col_split`). Above 576
+raises: the three 64-row tiles of a 640-wide head alone would pass a
+block's shared memory (ROADMAP.md item 23).
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 # the head dims whose 16-bit kernels take both tile heights (64 and 128 rows)
 HEAD_DIMS = (16, 32, 64, 128)
-# every head dim the kernels take: D 256 and 512 in 64-row tiles only (their
-# 128-row tiles would not fit a block's shared memory or a thread's registers)
-NATIVE_HEAD_DIMS = HEAD_DIMS + (256, 512)
+# every head dim the kernels take: D 256, 512 and 576 in 64-row tiles only
+# (their 128-row tiles would not fit a block's shared memory or a thread's
+# registers)
+NATIVE_HEAD_DIMS = HEAD_DIMS + (256, 512, 576)
 MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
 LOG2E = 1.4426950408889634
 TMA_ALIGN = 16  # bytes: base alignment a TMA tensor map needs
@@ -56,11 +60,11 @@ def padded_head_dim(d: int) -> int:
     """The smallest head dim in ``NATIVE_HEAD_DIMS`` that holds ``d``: a
     head of d columns runs zero-padded to it, which changes neither q·k,
     nor lse, nor rowsum(dO∘O). Raises ``ValueError`` above
-    ``MAX_HEAD_DIM``: a D 512 tile pair already fills a block's shared
-    memory (ROADMAP.md item 22)."""
+    ``MAX_HEAD_DIM``: Q, K and V tiles of 64 rows at 640 columns alone
+    would pass a block's shared memory (ROADMAP.md item 23)."""
     if isinstance(d, bool) or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be 1 to {MAX_HEAD_DIM}, got {d!r}: head dims above "
-                         f"{MAX_HEAD_DIM} are ROADMAP.md item 22")
+                         f"{MAX_HEAD_DIM} are ROADMAP.md item 23")
     return next(n for n in NATIVE_HEAD_DIMS if n >= d)
 
 
@@ -68,22 +72,24 @@ def col_split(d: int) -> int:
     """CTAs that share each tile of a 16-bit kernel at head dim ``d``, one
     per column slice of its outputs, on the grid's z: 2 at d 512 (O, dQ,
     dK and dV for 64 rows would pass a thread's registers, and wgmma's N
-    stops at 256), else 1 (col_split in flash_fwd.cu and flash_bwd.cu)."""
-    return 2 if d > 256 else 1
+    stops at 256), 3 at d 576 (halves of 288 columns would pass that N;
+    thirds are 192 columns, three 64-column boxes), else 1 (col_split in
+    flash_fwd.cu and flash_bwd.cu)."""
+    return 3 if d > 512 else 2 if d > 256 else 1
 
 
 def ring_stages(d: int) -> int:
     """Ring depth of the 16-bit kernels at head dim ``d``: ``TRI_STAGES``,
-    or one stage at d 512, where the CTA's own tiles and a second stage
-    would pass a block's shared memory (stages in flash_fwd.cu and
+    or one stage at d 512 and 576, where the CTA's own tiles and a second
+    stage would pass a block's shared memory (stages in flash_fwd.cu and
     flash_bwd.cu)."""
     return 1 if d > 256 else TRI_STAGES
 
 
 def f32_keys(d: int) -> int:
-    """Keys per k tile of the f32 CUDA-core forward: 64, or 16 at d 512,
-    where two [64][d + 1] f32 tiles beside Q's would pass a block's shared
-    memory (f32_keys in flash_fwd.cu)."""
+    """Keys per k tile of the f32 CUDA-core forward: 64, or 16 at d 512 and
+    576, where two [64][d + 1] f32 tiles beside Q's would pass a block's
+    shared memory (f32_keys in flash_fwd.cu)."""
     return 16 if d > 256 else 64
 
 
@@ -166,13 +172,13 @@ class TriPlan:
 
 TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
 # the q-tile heights (rows) a plan may take per (dtype, native head dim):
-# bf16 and fp16 one or two consumer warpgroups, one only at D 256 and 512;
-# f32 its CUDA-core kernels' fixed 64 (the knob of the forward; the f32
-# backward at D 256 and 512 runs its fixed 32- and 16-row plans,
+# bf16 and fp16 one or two consumer warpgroups, one only at D 256, 512 and
+# 576; f32 its CUDA-core kernels' fixed 64 (the knob of the forward; the f32
+# backward at D 256, 512 and 576 runs its fixed 32- and 16-row plans,
 # flash_bwd.f32_tile)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
-    **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512)},
+    **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512, 576)},
     **{(torch.float32, d): (64,) for d in NATIVE_HEAD_DIMS},
 }
 
@@ -221,11 +227,12 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     the q tiles walked heaviest first; shared memory for the Q tile and
     ``TRI_STAGES`` K and V tiles, 1 KiB of alignment slack and five
     mbarriers; the swizzle span of a row of one TMA box (32 B at d 16, 64 B
-    at d 32, 128 B at d 64, 128, 256 and 512). At d 256 and 512 the tile is
-    64 rows (``TILE_HEIGHTS``); at 512 the ring has one stage
-    (:func:`ring_stages`) and two CTAs share each q tile, one per column
-    half of O (``col_split``, the grid's z). f32 keeps the CUDA-core
-    kernel's fixed plan (``block_m`` 64 only; 16-key tiles at d 512,
+    at d 32, 128 B at d 64 and wider). At d 256, 512 and 576 the tile is
+    64 rows (``TILE_HEIGHTS``); at 512 and 576 the ring has one stage
+    (:func:`ring_stages`) and two (512) or three (576) CTAs share each q
+    tile, one per column slice of O (``col_split``, the grid's z). f32
+    keeps the CUDA-core kernel's fixed plan (``block_m`` 64 only; 16-key
+    tiles at d 512 and 576,
     :func:`f32_keys`; its grid's y runs over the bh rows, which the kernel
     splits into z slices of 65,535). Any other ``block_m`` raises
     ``ValueError``. The kernel checks the plan against its own layout and
@@ -344,7 +351,8 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     ring tiles; shared memory for the Q tile, ``TRI_STAGES`` K and V ring
     tiles, their staged segment ids (whether or not the call has ids, as
     ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
-    triangle's swizzle, and at d 512 its one stage and column halves. f32
+    triangle's swizzle, and at d 512 and 576 its one stage and column
+    slices. f32
     keeps the CUDA-core kernel's fixed plan, the triangle's. The kernel
     checks the plan against its own layout and refuses one that differs."""
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
@@ -408,9 +416,10 @@ def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
 def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
-    ``_d512`` after either at d 512 (``build.VARIANTS``)."""
+    ``_d512`` or ``_d576`` after either at d 512 or 576
+    (``build.VARIANTS``)."""
     return (source + ("_f16" if dtype == torch.float16 else "")
-            + ("_d512" if d == 512 else ""))
+            + (f"_d{d}" if d in (512, 576) else ""))
 
 
 def _lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:

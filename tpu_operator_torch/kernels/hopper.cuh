@@ -14,9 +14,13 @@
 // (D = 128: one more, D = 256: three more) through the descriptor's leading
 // byte offset, the boxes lying evenly apart. At D = 512 a tile is eight
 // boxes: a K-major product's k16 steps cross all of them, and an MN-major B
-// operand of N = 256 (wgmma's widest) takes four from a given box on. A ring
-// tile is kRingRows rows, or 32 where a D = 512 tile of 64 would not fit
-// beside the CTA's own tiles (the R parameter of the helpers below).
+// operand of N = 256 (wgmma's widest) takes four from a given box on. At
+// D = 576 a tile is nine boxes (kBoxes need not be a power of two), and an
+// MN-major B operand takes whole boxes from a given one on: three (N = 192)
+// or two (128); an MN-major operand never starts inside a box, whose
+// 128-byte swizzle rows hold 64 columns. A ring tile is kRingRows rows, or 32
+// where a D = 512 or 576 tile of 64 would not fit beside the CTA's own tiles
+// (the R parameter of the helpers below).
 //
 // kernels/build.py hashes every .cuh here with each source, so a change to
 // this file rebuilds both libraries.
@@ -47,7 +51,7 @@ template <int D>
 struct Geo {
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = kCols * 2;  // 32, 64, 128: also the swizzle span
-  static constexpr int kBoxes = D / kCols;     // 2 at D = 128, 4 at 256, 8 at 512, else 1
+  static constexpr int kBoxes = D / kCols;     // 2 at D 128, 4 at 256, 8 at 512, 9 at 576, else 1
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // bytes of one 8-row swizzle atom
   // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
@@ -172,8 +176,10 @@ constexpr bool kWithF32 = kElemCode == 1;
 
 // The head dims a library holds: built with -DFLASH_HEAD_DIM_512 (kernels/
 // build.py's *_d512 libraries), D 512 alone, in its 16-bit type and (bf16
-// library) f32; built without it, 16 to 256. So a caller at D <= 256 never
-// compiles the D 512 kernels (each source's dispatch switch reads the macro).
+// library) f32; with -DFLASH_HEAD_DIM_576 (*_d576), D 576 alone; built with
+// neither, 16 to 256. So a caller at D <= 256 never compiles the wide
+// kernels, nor one at D 512 those of 576 (each source's dispatch switch
+// reads the macros).
 
 // Two floats rounded to nearest even into a pair of T, as one 32-bit
 // register: a wgmma A fragment, or two neighbouring elements of a store.
@@ -330,6 +336,36 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 #undef HOPPER_RS_N128
 
+// d[0..96) += A(registers) . B(smem, MN-major), m64n192k16, T in, f32 out
+#define HOPPER_RS_N192(ty)                                                                 \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                            \
+  "wgmma.mma_async.sync.aligned.m64n192k16.f32." ty "." ty " {"                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "       \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "       \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"         \
+  "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  HOPPER_WGMMA(T, HOPPER_RS_N192,
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef HOPPER_RS_N192
+
 // d[0..128) += A(registers) . B(smem, MN-major), m64n256k16, T in, f32 out
 #define HOPPER_RS_N256(ty)                                                                         \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                    \
@@ -380,8 +416,10 @@ __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t (&a)[4]
   else if constexpr (N == 32) wgmma_rs_n32<T>(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64<T>(d, a, b);
   else if constexpr (N == 128) wgmma_rs_n128<T>(d, a, b);
+  else if constexpr (N == 192) wgmma_rs_n192<T>(d, a, b);
   else wgmma_rs_n256<T>(d, a, b);
 }
+
 
 // acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
 //     . B(smem, K-major: an [R][D] ring tile)^T, contracted over all of D
@@ -392,7 +430,8 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[R / 2], const unsi
   using G = Geo<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes, 256 four, 512 eight
+    // a k16 step advances 32 bytes inside a box; D = 128 spans two boxes, 256 four, 512 eight,
+    // 576 nine
     const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
     const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
                                   16, G::kAtom, G::kLayout);
@@ -408,7 +447,8 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[R / 2], const unsi
 // acc += A(registers: 64 x R, T fragments) . B(smem, MN-major: N columns
 // of an [R][D] ring tile, from column box `box` on, contracted over its
 // rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128,
-// and every kernel at D = 512 takes 256 or 128 (its CTA's column half).
+// every kernel at D = 512 takes 256 or 128 (its CTA's column half), and at
+// D = 576 192 (its CTA's column third), or 128 (each of dK/dV's warpgroups).
 template <typename T, int D, int N = D, int R = kRingRows>
 __device__ __forceinline__ void mma_frag_by_tile(float (&acc)[N / 2],
                                                  const uint32_t (&a)[R / 16][4],

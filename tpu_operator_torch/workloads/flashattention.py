@@ -25,8 +25,9 @@ bf16 winner of its shape class, as the reference's dtype-blind
 ``tuned_flash_blocks`` does. The plain versions on the CPU have no tiles:
 there the value is checked and changes nothing.
 
-Head dims: the kernels take 16, 32, 64, 128, 256 and 512
-(``flash_fwd.NATIVE_HEAD_DIMS``); any other head dim up to 512 runs
+Head dims: the kernels take 16, 32, 64, 128, 256, 512 and 576
+(``flash_fwd.NATIVE_HEAD_DIMS``; 576 is MLA's absorbed head: a 512-wide
+latent and 64 rope columns); any other head dim up to 576 runs
 zero-padded to the next of those (:func:`_collapse_heads` writes the
 collapsed copy it makes anyway into a zero buffer that wide), with the
 true head dim's softmax scale passed down; the output and the gradients
@@ -34,8 +35,8 @@ leave as views of their first D columns. Zero columns change neither
 q·k, nor lse, nor Δ = rowsum(dO∘O), and the padded output columns are
 zero, so the result is the unpadded one. The padded products are wasted
 work: 33% at 96 → 128, 14% at 112 → 128, 60% at 80 → 128 (native 80,
-96 and 112 are ROADMAP.md item 20), 33% at 384 → 512. Above 512 raises
-(item 22).
+96 and 112 are ROADMAP.md item 20), 33% at 384 → 512, 6% at 544 → 576.
+Above 576 raises (item 23).
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ def _resolve_block_m(block_m: Optional[int], dtype: torch.dtype, seq_len: int, h
     unset, the published winner's for the shape class (the fwd+bwd family's
     when a gradient will flow; swept in bf16, and taken by fp16 too, whose
     plans are bf16's), when ``dtype``'s kernels take it at ``head_dim`` (D
-    256 and 512 have no 128-row plan); else None."""
+    256, 512 and 576 have no 128-row plan); else None."""
     if block_m is not None:
         check_block_m(dtype, block_m, head_dim)
         return block_m
@@ -233,8 +234,8 @@ def flash_attention(
     last ``window`` positions (causal only); ``segment_ids`` (B, S) int
     restricts attention to same-segment pairs. Unset blocks resolve
     through the published autotune winners (``tuned_flash_blocks``), an
-    unset ``block_m`` through ``tuned_flash_tile``. Any head dim up to 512
-    runs (zero-padded to the kernels' next native one); above 512 raises."""
+    unset ``block_m`` through ``tuned_flash_tile``. Any head dim up to 576
+    runs (zero-padded to the kernels' next native one); above 576 raises."""
     b, s, h, d = q.shape
     width, sm_scale = _head_dims(d)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
