@@ -14,7 +14,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``flash_fwd_f16``, ``flash_bwd_f16``) and for head dims 512 and 576 in
    bf16 with f32 and in fp16 (``flash_fwd_d512``, ``flash_bwd_d512``,
    ``flash_fwd_f16_d512``, ``flash_bwd_f16_d512`` and the same four
-   ``*_d576``), one ``nvcc`` each, all thirteen started together; prints
+   ``*_d576``) and the D-streaming kernels of head dims above 576
+   (``flash_fwd_wide``, ``flash_bwd_wide``, ``flash_fwd_f16_wide``,
+   ``flash_bwd_f16_wide``), one ``nvcc`` each, all seventeen started
+   together; prints
    each library's ptxas report (registers,
    spills) and, from ``cuobjdump --dump-sass``, the ``HGMMA`` (tensor-core)
    instructions of every bf16 instantiation of both forward kernels (18:
@@ -22,8 +25,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    two warpgroups and 256 at one) and of both backward pairs (36), of
    the same 18 + 36 in fp16 (54), and of the D 512 and D 576 libraries' 6
    each (one warpgroup, ``HEAD_DIM_512_INSTANTIATIONS``,
-   ``HEAD_DIM_576_INSTANTIATIONS``), failing when one has none, when an
-   instantiation spills registers (a D 576 library's f32 kernels too), or
+   ``HEAD_DIM_576_INSTANTIATIONS``) and the wide libraries' 4 each
+   (``WIDE_HEAD_INSTANTIATIONS``: both forwards and the triangle pair),
+   failing when one has none, when an instantiation spills registers (a D
+   576 or wide library's f32 kernels too), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
@@ -66,8 +71,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    plain causal, window 128 and packed, in bf16 and fp16; full attention
    at (1,4096,8,576); f32 (2,128,4,576) and serving's f32 prefill chunk;
    ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
-   520), each row naming the SDPA backend that answered its library call;
-   then
+   520); rows above 576 on the D-streaming kernels (``WIDE_KERNEL_CASES``,
+   ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
+   and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
+   (2,128,4,1024) and ragged (2,100,4,640) at GQA 2, both forwards and the
+   triangle pair; full attention at (1,4096,8,1024) and serving's f32
+   chunk at 1024, forward only; a (1,1024,4,2048) triangle forward), each
+   row naming the SDPA backend that answered its library call; then
    the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
    through the triangle kernel, against the port's dense path;
@@ -279,9 +289,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    through ``training.trainer_config``: phase 15 (a)'s bars (flash against
    dense within 2e-2 relative and falling, the seeded forward output within
    ``FORWARD_GAP_TOL``, exact launches, ``GRAPH_STEPS`` graphed steps
-   against the eager step, the elastic trainer with a fault at 5 and a
-   resume), ``packed_segments=2`` against the dense path under the
-   documents' mask, and ``dtype: float16`` against the fp16 dense path;
+   against the eager step, the elastic trainer with a fault and a resume,
+   shallower than phase 15's: ``WIDE_TRAINER_RUN``, a checkpoint every 2
+   steps and a fault at 4), ``packed_segments=2`` against the dense path
+   under the documents' mask, and ``dtype: float16`` against the fp16 dense path;
    (b) f32 ``flash_attention`` gradients at (1,256,2,512) against autograd
    through dense attention within 1e-4, plain causal and with a window of
    128 and two segments; (c) serving at head dim 512
@@ -302,7 +313,23 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    within 1e-4, plain causal and with a window of 128 and two segments; (c)
    serving at head dim 576 (f32): phase 5's 16 requests with dense
    prefill's greedy tokens, 48 ``flash_fwd_rect`` launches; (d) the
-   phase's seconds.
+   phase's seconds;
+19. head dim above 576 — (a) a burn-in configuration of the repo's own
+   (``WIDE_HEAD_1024``: d_model 8192, 8 heads of 1024 on 1 kv head, d_ff
+   2048, seq 8192, 1 layer; not a published model: no model in the catalog
+   has heads wider than 576) through ``training.trainer_config``, on the
+   D-streaming kernels: flash against the dense path within 2e-2 relative
+   and falling, the seeded forward output within ``FORWARD_GAP_TOL``, exact
+   launches, ``GRAPH_STEPS`` graphed steps bit for bit equal to the eager
+   step, the step's eager, replayed and device ms, the elastic trainer
+   through a fault and a resume (phase 17's); (b) the packed burn-in
+   and a gradient under a window or segment ids raise ``ValueError``
+   naming ROADMAP.md item 24 before any kernel launches (the general
+   backward pair is not built above 576); (c) f32 ``flash_attention``
+   gradients at (1,256,2,1024), plain causal, against autograd through
+   dense attention within 1e-4; (d) serving at head dim 1024 (f32): phase
+   5's 16 requests with dense prefill's greedy tokens, 48
+   ``flash_fwd_rect`` launches; (e) the phase's seconds.
 
 Launch counts are zeroed just before each main path and read just after.
 The line before last is ``{"kernels": [...]}`` (from the ``KERNELS``
@@ -555,6 +582,22 @@ def _bwd_label(mangled: str, elem: str):
     return f"{kind}{'_rect' if pair == 'rect' else ''}_d{d}_wg{wg}"
 
 
+def wide_label(mangled: str, elem: str = BF16_MANGLED):
+    """A label for a 16-bit instantiation of a D-streaming kernel
+    (``flash_fwd_wide_kernel<T, TRI>``, ``flash_bwd_{dq,dkv}_tri_wide_kernel<T>``):
+    ``wide_tri``, ``wide_rect``, ``dq_wide`` or ``dkv_wide``; else None."""
+    found = re.search(rf"flash_fwd_wide_kernelI{elem}Lb([01])E", mangled)
+    if found:
+        return "wide_tri" if found.group(1) == "1" else "wide_rect"
+    found = re.search(rf"flash_bwd_(dq|dkv)_tri_wide_kernelI{elem}E", mangled)
+    return f"{found.group(1)}_wide" if found else None
+
+
+def wide_f16_label(mangled: str):
+    """:func:`wide_label` for the fp16 instantiations."""
+    return wide_label(mangled, F16_MANGLED)
+
+
 def tri_bwd_bf16_label(mangled: str):
     """A label for a bf16 tensor-core instantiation of a backward pair:
     ``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for the triangle pair
@@ -586,6 +629,12 @@ HEAD_DIM_512_INSTANTIATIONS = {"flash_fwd_d512": 2, "flash_bwd_d512": 4,
 # kernel of these (the f32 ones too) is held to 0 spill bytes
 HEAD_DIM_576_INSTANTIATIONS = {"flash_fwd_d576": 2, "flash_bwd_d576": 4,
                                "flash_fwd_f16_d576": 2, "flash_bwd_f16_d576": 4}
+# and the D-streaming libraries of head dims above 576 (-DFLASH_HEAD_DIM_WIDE):
+# both forwards (the triangle and the general kernel) and the triangle pair,
+# in the library's 16-bit type; every kernel (the f32 ones too) held to 0
+# spill bytes
+WIDE_HEAD_INSTANTIATIONS = {"flash_fwd_wide": 2, "flash_bwd_wide": 2, "flash_fwd_f16_wide": 2,
+                            "flash_bwd_f16_wide": 2}
 WIDE_INSTANTIATIONS = {**HEAD_DIM_512_INSTANTIATIONS, **HEAD_DIM_576_INSTANTIATIONS}
 # the fp16 libraries (kernels/build.py VARIANTS: the same sources built with
 # -DFLASH_ELEM_F16) hold the same instantiations in fp16, and no other
@@ -614,7 +663,7 @@ def phase_build() -> dict:
     sources = sorted({module for module, _, _ in KERNELS.values()})
     # the fp16 builds and the head dim 512 and 576 ones too
     libraries = (sources + sorted(FLOAT16_TENSOR_CORE_KERNELS)
-                 + sorted(WIDE_INSTANTIATIONS))
+                 + sorted(WIDE_INSTANTIATIONS) + sorted(WIDE_HEAD_INSTANTIATIONS))
     start = time.perf_counter()
     built = build.build(libraries)
     seconds = time.perf_counter() - start
@@ -646,6 +695,10 @@ def phase_build() -> dict:
         label_of = ((fwd_f16_label if fwd else bwd_f16_label) if fp16
                     else (fwd_bf16_label if fwd else tri_bwd_bf16_label))
         tables[name] = (label_of, expected, f"{'fp16' if fp16 else 'bf16'} {name[-4:]}")
+    for name, expected in WIDE_HEAD_INSTANTIATIONS.items():
+        fp16 = "_f16" in name
+        tables[name] = (wide_f16_label if fp16 else wide_label, expected,
+                        f"{'fp16' if fp16 else 'bf16'} wide")
     for name, (label_of, expected, dtype) in tables.items():
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(built[name][0])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
@@ -661,7 +714,8 @@ def phase_build() -> dict:
             raise RuntimeError(f"{name}: a {dtype} kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
         held = dict(ptxas)
-        if name in HEAD_DIM_576_INSTANTIATIONS:  # every kernel, the f32 ones too
+        if name in HEAD_DIM_576_INSTANTIATIONS or name in WIDE_HEAD_INSTANTIATIONS:
+            # every kernel, the f32 ones too
             held.update(per_function)
         spilled = {k: v for k, v in held.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
@@ -1138,6 +1192,47 @@ HEAD_DIM_576_BWD_CASES = [
 ]
 
 
+# phase 3's rows above head dim 576 (phase 19), on the D-streaming kernels:
+# phase 19's (1,8192,8,1024) with one kv head in bf16 and fp16, 640 and the
+# zero-padded 700 (-> 704) in bf16, f32 on the CUDA cores (ragged at GQA 2);
+# the general forward alone at full attention and serving's f32 chunk (its
+# backward is ROADMAP.md item 24); one forward at head dim 2048
+WIDE_Q = (1, 8192, 8, 1024)
+WIDE_KERNEL_CASES = [
+    dict(kernel="flash_fwd_tri", label="head dim 1024 bf16 (1,8192,8,1024) h_kv 1", q=WIDE_Q,
+         h_kv=1, dtype=torch.bfloat16, inner=2, main=True),
+    dict(kernel="flash_fwd_tri", label="head dim 1024 fp16 (1,8192,8,1024) h_kv 1", q=WIDE_Q,
+         h_kv=1, dtype=torch.float16, inner=2),
+    dict(kernel="flash_fwd_tri", label="head dim 640 bf16 (1,8192,8,640) h_kv 1",
+         q=(1, 8192, 8, 640), h_kv=1, dtype=torch.bfloat16, inner=2),
+    dict(kernel="flash_fwd_tri", label="bf16 (1,4096,8,700) padded to 704", q=(1, 4096, 8, 700),
+         dtype=torch.bfloat16, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,1024)", q=(2, 128, 4, 1024),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_tri", label="ragged f32 (2,100,4,640) h_kv 2", q=(2, 100, 4, 640),
+         h_kv=2, dtype=torch.float32),
+    dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,1024) full", q=(1, 4096, 8, 1024),
+         dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_rect", label="serving d1024 f32 q(1,8,2,1024) kv 64 q_start=16",
+         q=(1, 8, 2, 1024), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    dict(kernel="flash_fwd_tri", label="head dim 2048 bf16 (1,1024,4,2048)",
+         q=(1, 1024, 4, 2048), dtype=torch.bfloat16, inner=2),
+]
+WIDE_BWD_CASES = [
+    dict(pair="tri", label="head dim 1024 bf16 (1,8192,8,1024) h_kv 1", q=WIDE_Q, h_kv=1,
+         dtype=torch.bfloat16, inner=1, main=True),
+    dict(pair="tri", label="head dim 1024 fp16 (1,8192,8,1024) h_kv 1", q=WIDE_Q, h_kv=1,
+         dtype=torch.float16, inner=1),
+    dict(pair="tri", label="head dim 640 bf16 (1,8192,8,640) h_kv 1", q=(1, 8192, 8, 640),
+         h_kv=1, dtype=torch.bfloat16, inner=1),
+    dict(pair="tri", label="bf16 (1,4096,8,700) padded to 704", q=(1, 4096, 8, 700),
+         dtype=torch.bfloat16, inner=1),
+    dict(pair="tri", label="f32 (2,128,4,1024)", q=(2, 128, 4, 1024), dtype=torch.float32),
+    dict(pair="tri", label="ragged f32 (2,100,4,640) h_kv 2", q=(2, 100, 4, 640), h_kv=2,
+         dtype=torch.float32),
+]
+
+
 def _bwd_setup(case, q, k, v, seg, dout) -> dict:
     """A backward case's launches on (q, k, v, dout) in their dtype: the
     forward kernel's out and lse on the kernels' (padded) inputs, delta,
@@ -1194,7 +1289,7 @@ def _backward_rows(gen) -> list:
 
     rows = []
     for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
-                 + HEAD_DIM_576_BWD_CASES):
+                 + HEAD_DIM_576_BWD_CASES + WIDE_BWD_CASES):
         q, k, v, seg = _case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda")
         dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
@@ -1500,7 +1595,7 @@ def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     results = []
     for case in (KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES
-                 + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES):
+                 + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES + WIDE_KERNEL_CASES):
         q, k, v, seg = _case_inputs(case, gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
@@ -4011,6 +4106,10 @@ PHI3_MINI = {"d_model": 3072, "n_heads": 32, "d_ff": 8192, "seq_len": 4096, "bat
 # the elastic trainer at Gemma-2B's widths: a checkpoint every 3 steps, a
 # fault at 5 (step 4 is lost and run again)
 HEAD_DIM_TRAINER_RUN = {"total_steps": 6, "checkpoint_every": 3, "fail_at_steps": (5,)}
+# and at the wide heads of phases 17-19, shallower for the run's time: a
+# checkpoint every 2 steps, a fault at 4 (step 3 is lost and run again), 5
+# executed steps in place of 7
+WIDE_TRAINER_RUN = {"total_steps": 4, "checkpoint_every": 2, "fail_at_steps": (4,)}
 # a flash forward output against its reference's, as the norm of the
 # difference over the reference's norm: ~2.5x the readings on the H100
 # (0.00259-0.00407) and ~3x below the padded route with the padded width's
@@ -4135,10 +4234,12 @@ def _forward_gap(cfg, reference_cfg, reference_ctx=contextlib.nullcontext) -> fl
 
 
 def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma-2b",
-                          phase: str = "head dims", key: str = "gemma_trainer") -> None:
-    """ResumableTrainer at ``cfg``'s widths (HEAD_DIM_TRAINER_RUN): a fault,
-    a resume, continuity, re-executed losses bit for bit, the first losses
-    the flash run's; recorded as ``out[key]`` and the path
+                          phase: str = "head dims", key: str = "gemma_trainer",
+                          run: dict = HEAD_DIM_TRAINER_RUN) -> None:
+    """ResumableTrainer at ``cfg``'s widths, as ``run`` sets it (total
+    steps, checkpoint interval, one fault): a fault, a resume, continuity,
+    the steps since the last checkpoint re-executed bit for bit, the first
+    3 losses the flash run's; recorded as ``out[key]`` and the path
     ``f"{phase} {name} trainer"``."""
     from tpu_operator_torch.workloads.checkpoint import CheckpointStore
     from tpu_operator_torch.workloads.training import (
@@ -4147,16 +4248,20 @@ def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma
         verify_continuity,
     )
 
-    total = HEAD_DIM_TRAINER_RUN["total_steps"]
+    total = run["total_steps"]
+    (fault,) = run["fail_at_steps"]
+    every = run["checkpoint_every"]
+    lost = list(range((fault - 1) // every * every + 1, fault))
+    if not lost or total < 4:
+        raise ValueError(f"{run}: no step is lost to the fault, or too few steps to compare")
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = ResumableTrainer(CheckpointStore(tmp), cfg, device="cuda",
-                                   **HEAD_DIM_TRAINER_RUN)
+        trainer = ResumableTrainer(CheckpointStore(tmp), cfg, device="cuda", **run)
         saves = _timed_checkpoints(trainer)
         zero_launches()
         trainer.resume(1)
         try:
             trainer.run(total)
-            raise RuntimeError(f"{name} trainer: the injected fault at step 5 did not fire")
+            raise RuntimeError(f"{name} trainer: the injected fault at step {fault} did not fire")
         except TrainerError as e:
             log(f"{phase} {name} trainer: {e} (at step {trainer.step}, checkpoint "
                 f"{trainer.checkpoint_step})")
@@ -4167,7 +4272,7 @@ def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma
         _trainer_launches(counts, cfg, len(trainer.history), f"{name} trainer")
         report = verify_continuity(trainer.history, trainer.checkpoints, total)
         if not (trainer.done and report["ok"] and report["rewinds"] == 1
-                and report["max_lost_steps"] == 1):
+                and report["max_lost_steps"] == len(lost)):
             raise RuntimeError(f"{name} trainer: continuity {report}")
         first, reruns = {}, {}
         for h in trainer.history:
@@ -4175,7 +4280,7 @@ def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma
                 reruns[h["step"]] = (first[h["step"]], h["loss"])
             else:
                 first[h["step"]] = h["loss"]
-        if sorted(reruns) != [4] or any(a != b for a, b in reruns.values()):
+        if sorted(reruns) != lost or any(a != b for a, b in reruns.values()):
             raise RuntimeError(f"{name} trainer: re-executed losses differ: {reruns}")
         head = [first[s] for s in (1, 2, 3)]
         rel = _curve_rel(head, flash_losses)
@@ -4186,14 +4291,14 @@ def _trainer_with_a_fault(out: dict, cfg, flash_losses: list, name: str = "gemma
         step_s = trainer.step_times[1][1:]
         out["paths"][f"{phase} {name} trainer"] = counts
         out[key] = {
-            **{k: list(v) if isinstance(v, tuple) else v for k, v in HEAD_DIM_TRAINER_RUN.items()},
+            **{k: list(v) if isinstance(v, tuple) else v for k, v in run.items()},
             "executed_steps": len(trainer.history), "continuity": report,
             "losses": trainer.history, "reruns": reruns, "head_rel_err": rel,
             "step_ms_median": 1e3 * statistics.median(step_s),
             "resume_ms": [1e3 * r.latency_s for r in trainer.resumes],
             "checkpoint_ms": [1e3 * s for s in saves]}
     log(f"{phase} {name} trainer: {len(trainer.history)} executed steps of {total} (fault "
-        f"at 5, resumed at {trainer.resumes[1].step}), continuity ok, lost "
+        f"at {fault}, resumed at {trainer.resumes[1].step}), continuity ok, lost "
         f"{report['max_lost_steps']}; re-executed losses equal {reruns}; first losses equal to "
         f"run_burnin's (rel {rel:.3g}); launches {counts}; step ms median "
         f"{out[key]['step_ms_median']:.3f}; checkpoint ms "
@@ -4212,18 +4317,20 @@ def _masked_dense(q, k, v, causal: bool, window=None, seg=None):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
 
 
-def _f32_grads_at(d: int, window: int, device: str = "cuda") -> dict:
+def _f32_grads_at(d: int, window, device: str = "cuda") -> dict:
     """autograd through flash_attention against autograd through dense
-    attention, f32, (1, 256, 2, d): the triangle pair, and the general
-    pair under a window and two segments."""
+    attention, f32, (1, 256, 2, d): the triangle pair, and (unless
+    ``window`` is None) the general pair under a window and two segments."""
     from tpu_operator_torch.workloads.flashattention import flash_attention
 
     gen = torch.Generator(device=device).manual_seed(17)
     q, k, v, w = (torch.randn((1, 256, 2, d), generator=gen, device=device) for _ in range(4))
     seg = (torch.arange(256, device=device) >= 100).to(torch.int32)[None]
     out = {}
-    for name, kwargs in (("triangle", {}),
-                         (f"window {window}, segments", {"window": window, "seg": seg})):
+    cases = [("triangle", {})]
+    if window is not None:
+        cases.append((f"window {window}, segments", {"window": window, "seg": seg}))
+    for name, kwargs in cases:
         grads = {}
         for impl in ("flash", "dense"):
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -4550,21 +4657,13 @@ SARVAM_105B = {"d_model": 4608, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_
                "batch": 1, "n_layers": 2, "use_flash_attention": True}
 
 
-@_seeded_once()
-def _wide_head_phase(smi: str, config: dict, name: str, key: str, d: int, number: int) -> dict:
-    """Phases 17 and 18 (see the module's docstring): ``config``'s widths
-    (the model ``name``, results under ``key``) at head dim ``d``, the f32
-    gradients at ``d`` under a window of 128 too, and serving at ``d``."""
+def _flash_against_dense(smi: str, out: dict, cfg, name: str, key: str, phase: str) -> dict:
+    """Section (a) of phases 17-19: ``cfg``'s run_burnin (flash) against
+    its dense path, the seeded forward output, ``GRAPH_STEPS`` graphed steps
+    against the eager step and the step's times; recorded as ``out[key]``
+    (returned) and the path ``f"{phase} {name}"``."""
     from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
-    from tpu_operator_torch.workloads.training import trainer_config
 
-    start = time.perf_counter()
-    out = {"paths": {}}
-    cfg = trainer_config(config)
-    if cfg.d_model // cfg.n_heads != d:
-        raise RuntimeError(f"{name} config: head dim {cfg.d_model // cfg.n_heads}, not {d}")
-    phase = f"head dim {d}"
-    # (a) flash against dense, the graphed step, the trainer, packed, fp16
     dense = dataclasses.replace(cfg, use_flash_attention=False)
     out[key] = _curve_against(name, cfg, "dense path",
                               lambda: run_burnin(steps=3, cfg=dense, device="cuda"), phase)
@@ -4582,7 +4681,28 @@ def _wide_head_phase(smi: str, config: dict, name: str, key: str, d: int, number
         f"step ms eager {g['step_ms']:.3f}, replay {g['step_replay_ms']:.3f}, device "
         f"{g['step_device_ms']:.3f}, {g['step_graph_nodes']} device operations; forward output "
         f"{g['forward_gap']:.3g} from the dense path's [{smi}]")
-    _trainer_with_a_fault(out, cfg, g["losses"], name=name, phase=phase, key=f"{key}_trainer")
+    return g
+
+
+@_seeded_once()
+def _wide_head_phase(smi: str, config: dict, name: str, key: str, d: int, number: int) -> dict:
+    """Phases 17 and 18 (see the module's docstring): ``config``'s widths
+    (the model ``name``, results under ``key``) at head dim ``d``, the f32
+    gradients at ``d`` under a window of 128 too, and serving at ``d``."""
+    from tpu_operator_torch.workloads.burnin import run_burnin
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    start = time.perf_counter()
+    out = {"paths": {}}
+    cfg = trainer_config(config)
+    if cfg.d_model // cfg.n_heads != d:
+        raise RuntimeError(f"{name} config: head dim {cfg.d_model // cfg.n_heads}, not {d}")
+    phase = f"head dim {d}"
+    # (a) flash against dense, the graphed step, the trainer (shallower
+    # than phase 15's, for the run's time), packed, fp16
+    g = _flash_against_dense(smi, out, cfg, name, key, phase)
+    _trainer_with_a_fault(out, cfg, g["losses"], name=name, phase=phase, key=f"{key}_trainer",
+                          run=WIDE_TRAINER_RUN)
     _free_card()
     packed = dataclasses.replace(cfg, packed_segments=2)
 
@@ -4630,6 +4750,90 @@ def phase_head_dim_512(smi: str) -> dict:
 def phase_head_dim_576(smi: str) -> dict:
     """Phase 18 (see the module's docstring)."""
     return _wide_head_phase(smi, SARVAM_105B, "sarvam-105b", "sarvam", 576, 18)
+
+
+# -- phase 19: head dims above 576 ------------------------------------------
+
+# A burn-in configuration of the repo's own, NOT a published model: no model
+# in the catalog has heads wider than 576 (the widest are the absorbed-MLA
+# heads of sarvam-105b, DeepSeek-V3 and Kimi-K2, phase 18's shape). It holds
+# the reference's "any head dim" contract (its flash_attention and burn-in
+# take any d_model // n_heads) at full sequence length on the D-streaming
+# kernels: 8 heads of 1024 on one kv head (d_model 8192), the burn-in's dense
+# FFN at 2048 (as phases 17 and 18), 8192 tokens, one layer.
+WIDE_HEAD_1024 = {"d_model": 8192, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_len": 8192,
+                  "batch": 1, "n_layers": 1, "use_flash_attention": True}
+
+
+def _general_pair_refused(cfg, d: int, device: str = "cuda") -> dict:
+    """Above 576 the general backward pair is not built (ROADMAP.md item
+    24): the packed burn-in (segment ids) and flash_attention gradients
+    under a window, segment ids or full attention each raise ValueError
+    naming the item, and no kernel launches."""
+    from tpu_operator_torch.workloads.burnin import run_burnin
+    from tpu_operator_torch.workloads.flashattention import flash_attention
+
+    q = torch.zeros((1, 128, 2, d), device=device, requires_grad=True)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=device)
+    attempts = {
+        "packed burn-in": lambda: run_burnin(
+            steps=1, cfg=dataclasses.replace(cfg, packed_segments=2), device=device),
+        "window 128": lambda: flash_attention(q, q, q, window=128),
+        "segments": lambda: flash_attention(q, q, q, segment_ids=seg),
+        "full attention": lambda: flash_attention(q, q, q, causal=False),
+    }
+    out = {}
+    for name, attempt in attempts.items():
+        zero_launches()
+        try:
+            attempt()
+        except ValueError as exc:
+            if "ROADMAP.md item 24" not in str(exc):
+                raise
+            out[name] = str(exc)
+        else:
+            raise RuntimeError(f"head dim {d}: {name} trained through the general backward pair")
+        launched = {k: v for k, v in read_launches().items() if v}
+        if launched:
+            raise RuntimeError(f"head dim {d}: {name} launched {launched} before refusing")
+    return out
+
+
+@_seeded_once()
+def phase_head_dim_wide(smi: str) -> dict:
+    """Phase 19 (see the module's docstring)."""
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    start = time.perf_counter()
+    out = {"paths": {}}
+    cfg = trainer_config(WIDE_HEAD_1024)
+    d = cfg.d_model // cfg.n_heads
+    if d != 1024:
+        raise RuntimeError(f"WIDE_HEAD_1024: head dim {d}, not 1024")
+    phase, name = "head dim 1024", "own burn-in config"
+    # (a) flash against dense, the graphed step bit for bit, its times, the
+    # trainer
+    g = _flash_against_dense(smi, out, cfg, name, "wide", phase)
+    if not g["replays"]["bitwise"]:
+        raise RuntimeError(f"{phase}: graphed steps {g['replays']['graphed_losses']} are not bit "
+                           f"for bit the eager step's {g['replays']['eager_losses']}")
+    _trainer_with_a_fault(out, cfg, g["losses"], name=name, phase=phase, key="wide_trainer",
+                          run=WIDE_TRAINER_RUN)
+    _free_card()
+    # (b) the general pair's training paths refuse before any launch
+    out["refused"] = _general_pair_refused(cfg, d)
+    log(f"{phase}: {sorted(out['refused'])} raise (ROADMAP.md item 24), no launch")
+    _free_card()
+    # (c) f32 gradients of the triangle at the head dim
+    out[f"f32_grads_{d}"] = _f32_grads_at(d, None)
+    log(f"{phase} f32 (1,256,2,{d}) flash_attention gradients vs dense, max abs err "
+        f"{out[f'f32_grads_{d}']}")
+    # (d) serving at the head dim
+    _serving_at(out, d, phase)
+    _free_card()
+    out["seconds"] = time.perf_counter() - start
+    log(f"{phase}: phase 19 in {out['seconds']:.1f} s")
+    return out
 
 
 def kernels_line(rows: list, paths: dict, extra: dict) -> dict:
@@ -4688,6 +4892,7 @@ def main(argv=None) -> int:
     results["float16"] = phase_float16(smi)
     results["head_dim_512"] = phase_head_dim_512(smi)
     results["head_dim_576"] = phase_head_dim_576(smi)
+    results["head_dim_wide"] = phase_head_dim_wide(smi)
     paths = {"burnin forward": results["burnin"]["launches"],
              "serving": results["serving"]["launches"], **results["train"]["paths"],
              **results["selftest"]["paths"], **results["sharded"]["paths"],
@@ -4695,7 +4900,7 @@ def main(argv=None) -> int:
              **results["replicas"]["paths"], **results["autotune"]["paths"],
              **results["agents"]["paths"], **results["head_dims"]["paths"],
              **results["float16"]["paths"], **results["head_dim_512"]["paths"],
-             **results["head_dim_576"]["paths"]}
+             **results["head_dim_576"]["paths"], **results["head_dim_wide"]["paths"]}
     fwd = results["build"]["flash_fwd_hgmma"]
     hgmma = {"flash_fwd_tri": {k: v for k, v in fwd.items() if not k.startswith("rect_")},
              "flash_fwd_rect": {k: v for k, v in fwd.items() if k.startswith("rect_")}}
@@ -4719,10 +4924,19 @@ def main(argv=None) -> int:
             kind = (f"flash_fwd_{pair}" if name.startswith("flash_fwd")
                     else f"flash_bwd_{label.split('_')[0]}_{pair}")
             wide.setdefault((name[-4:], kind), {})[f"{'fp16' if fp16 else 'bf16'} {label}"] = count
+    # the D-streaming libraries' instantiation of each kernel they hold
+    streamed = {"wide_tri": "flash_fwd_tri", "wide_rect": "flash_fwd_rect",
+                "dq_wide": "flash_bwd_dq_tri", "dkv_wide": "flash_bwd_dkv_tri"}
+    for name in WIDE_HEAD_INSTANTIATIONS:
+        fp16 = "_f16" in name
+        for label, count in results["build"][f"{name}_hgmma"].items():
+            wide.setdefault(("wide", streamed[label]), {})[
+                f"{'fp16' if fp16 else 'bf16'} {label}"] = count
     line = kernels_line(results["kernels"], paths,
                         {k: {"hgmma": v, "hgmma_fp16": hgmma16[k],
                              "hgmma_d512": wide.get(("d512", k), {}),
-                             "hgmma_d576": wide.get(("d576", k), {})}
+                             "hgmma_d576": wide.get(("d576", k), {}),
+                             "hgmma_wide": wide.get(("wide", k), {})}
                          for k, v in hgmma.items()})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

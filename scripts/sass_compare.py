@@ -6,8 +6,10 @@ this tree and in another checkout of the repository.
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). Each tree builds its ``flash_fwd`` and ``flash_bwd``
-libraries (bf16 and f32), their fp16 builds and the head dim 512 builds of
-all four into an empty temporary directory, in a process of its own;
+libraries (bf16 and f32), their fp16 builds and the head dim 512 and 576
+builds of all four into an empty temporary directory, in a process of its
+own (the D-streaming ``*_wide`` libraries of head dims above 576 are left
+out: an earlier tree may not have them);
 ``cuobjdump --dump-sass`` lists each library's kernels, and every kernel
 found in both trees is compared instruction by instruction (addresses,
 encodings and comments dropped).
@@ -32,7 +34,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_fwd_d512",
-             "flash_bwd_d512", "flash_fwd_f16_d512", "flash_bwd_f16_d512")
+             "flash_bwd_d512", "flash_fwd_f16_d512", "flash_bwd_f16_d512", "flash_fwd_d576",
+             "flash_bwd_d576", "flash_fwd_f16_d576", "flash_bwd_f16_d576")
 
 _BUILD = """
 import json, sys

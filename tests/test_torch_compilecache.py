@@ -291,7 +291,10 @@ def test_warm_start_over_the_real_engine(name):
     second = _real_engine(name)
     outcome, warm = _store(pkg, counting).warm_start(second, "v5e", "2x1x1")
     assert outcome == "hit" and counting.writes == 0
-    assert warm <= round(seconds * pkg.cc.WARM_FRACTION, 4) + 1e-9
+    # the hit replays the published record's seconds (already rounded to
+    # 4 places) at the warm fraction
+    record = _store(pkg, client).resolve("v5e", "2x1x1", pkg.cc.model_descriptor_hash(engine.cfg))
+    assert warm <= round(record["seconds"] * pkg.cc.WARM_FRACTION, 4) + 1e-9
     assert _store(pkg, client).warm_start(_real_engine(name), "", "2x1x1")[0] == "unkeyed"
 
 

@@ -159,7 +159,16 @@ def test_padded_head_dim(d, width):
 
 @pytest.mark.parametrize("d", [0, 577, 640, 1024, -1, True])
 def test_head_dims_the_port_does_not_take_raise(d):
-    with pytest.raises(ValueError, match="ROADMAP.md item 23"):
+    """0, -1 and a bool raise. The name is older than the D-streaming
+    route: the cases 577, 640 and 1024 raised until ROADMAP.md item 23 was
+    done, and now check the opposite: each pads to the next multiple of 64
+    and takes the D-streaming kernels, on 64-row tiles only."""
+    wide = {577: 640, 640: 640, 1024: 1024}
+    if d in wide and not isinstance(d, bool):
+        assert flash_fwd.padded_head_dim(d) == wide[d] and flash_fwd.is_wide(wide[d])
+        assert flash_fwd.tile_heights(BF16, d) == flash_fwd.tile_heights(F32, d) == (64,)
+        return
+    with pytest.raises(ValueError, match="head_dim must be a positive int"):
         flash_fwd.padded_head_dim(d)
 
 
@@ -671,7 +680,8 @@ def test_rows_past_65535_launch_once(cuda, dtype):
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_every_head_dim_up_to_256_runs_a_kernel(cuda, dtype):
     """flash_attention at each head dim 1-256 on CUDA tensors launches the
-    triangle kernel once and matches dense attention; 577 raises."""
+    triangle kernel once and matches dense attention; so does 577, on the
+    D-streaming kernel (padded to 640)."""
     from tpu_operator_torch.workloads.ringattention import dense_attention
 
     tol = F32_TOL if dtype == F32 else BF16_TOL
@@ -685,9 +695,14 @@ def test_every_head_dim_up_to_256_runs_a_kernel(cuda, dtype):
         torch.cuda.synchronize()
         assert flash_fwd.flash_fwd_tri.launches == before + 1, d
         assert got.shape == q.shape and float((got.float() - want).abs().max()) <= tol, d
-    q = torch.zeros((1, 32, 2, 577), device="cuda", dtype=dtype)
-    with pytest.raises(ValueError, match="ROADMAP.md item 23"):
-        tfa.flash_attention(q, q, q, block_q=32, block_k=32)
+    q, k, v = (torch.randn((1, 32, 2, 577), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    before = flash_fwd.flash_fwd_tri.launches
+    got = tfa.flash_attention(q, k, v, block_q=32, block_k=32)
+    want = dense_attention(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    assert flash_fwd.flash_fwd_tri.launches == before + 1
+    assert got.shape == q.shape and float((got.float() - want).abs().max()) <= tol
 
 
 @pytest.mark.cuda

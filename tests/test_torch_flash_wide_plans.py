@@ -1,0 +1,399 @@
+"""Launch plans of the D-streaming ("wide") flash kernels, which take every
+head dim above 576 (a multiple of 64; others zero-padded to one), and, on
+the card, those kernels against their plain versions. This file imports no
+JAX, so its card tests run on a machine with a card and no JAX:
+
+    python -m pytest tests/test_torch_flash_wide_plans.py --noconftest -q
+
+Above 576 the reductions over the head dim stream in 64 x 64 boxes, and the
+outputs split into column slabs, one CTA each on the grid's z: 256 columns
+of O and of dQ, 128 of dK and dV (bf16 and fp16); 256 of O and 128 of the
+gradients in f32. Only the triangle's backward pair is built there; the
+general pair raises (ROADMAP.md item 24). Card tolerances as
+``tests/test_torch_kernels.py``: O f32 1e-4, 16-bit 2e-2, lse 1e-3;
+gradients f32 1e-4 absolute, 16-bit 2e-2 of the largest |gradient|.
+"""
+
+import collections
+import math
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_operator_torch.kernels import build, flash_bwd, flash_fwd
+from tpu_operator_torch.workloads import flashattention as tfa
+
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+MAX_SMEM = 232_448  # bytes of shared memory a block may use on the H100
+H100_SMS = 132
+KERNELS = pathlib.Path(flash_fwd.__file__).parent
+F32_TOL, HALF_TOL, LSE_TOL = 1e-4, 2e-2, 1e-3
+WIDE_DIMS = [640, 704, 1024, 2048, 4096]
+
+
+def _wide_plans(dtype, d, bh=16, bh_kv=8, s=1000):
+    return {
+        "fwd tri": flash_fwd.tri_plan(dtype, bh, s, d, H100_SMS),
+        "fwd rect": flash_fwd.rect_plan(dtype, bh, s, s, d, H100_SMS, False),
+        **dict(zip(("dq tri", "dkv tri"), flash_bwd.tri_bwd_plan(dtype, bh, bh_kv, s, d,
+                                                                 H100_SMS))),
+    }
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_every_wide_plan_fits_a_block(dtype, d):
+    for name, plan in _wide_plans(dtype, d).items():
+        assert plan.smem_bytes <= MAX_SMEM, (name, plan)
+        assert plan.threads <= 1024 and plan.swizzle == (0 if dtype == F32 else 128), name
+        assert getattr(plan, "block_m", getattr(plan, "block", None)) == 64, name
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_the_slab_count_is_the_head_dim_over_the_slab(dtype, d):
+    for name, plan in _wide_plans(dtype, d).items():
+        assert plan.slab in (128, 256) and plan.slab % 64 == 0, name
+        assert plan.col_split == math.ceil(d / plan.slab), name
+        # the last slab starts at d - slab: the slabs cover every column, and
+        # each column is written by exactly one of them
+        starts = [min(z * plan.slab, d - plan.slab) for z in range(plan.col_split)]
+        owned = collections.Counter(c for z, s0 in enumerate(starts)
+                                    for c in range(max(s0, z * plan.slab), s0 + plan.slab))
+        assert set(owned) == set(range(d)) and set(owned.values()) == {1}, name
+        assert plan.stages == (0 if dtype == F32 else 4), name
+
+
+def test_wide_plans_by_hand():
+    """The layouts of flash_fwd.cu's wide_smem_bytes / f32_wide_smem_bytes
+    and flash_bwd.cu's dq_wide_smem_bytes, dkv_wide_smem_bytes and their
+    f32 twins, reckoned by hand."""
+    box = 64 * 64 * 2
+    p = _wide_plans(BF16, 1024)
+    # slack + 4 stages of a Q and a K box + 2 stages of a 4-box V slab + 2 x 66
+    # key ids + 12 barriers
+    assert p["fwd tri"].smem_bytes == p["fwd rect"].smem_bytes == (
+        1024 + 4 * 2 * box + 2 * 4 * box + 2 * 66 * 4 + 12 * 8) == 132_720
+    # slack + 4 stages of Q, dO, K and V boxes + 2 stages of a 4-box K slab + barriers
+    assert p["dq tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * 4 * box + 12 * 8 == 197_728
+    # ... + 2 stages of 2-box Q and dO slabs with 64 lse and 64 delta
+    assert p["dkv tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * (2 * 2 * box + 512) + 96 == 198_752
+    assert [p[k].threads for k in p] == [160] * 4
+    assert [p[k].col_split for k in p] == [4, 4, 4, 8]
+    assert p["fwd tri"].grid == (16, 16) and p["dq tri"].grid == (16, 16)
+    assert p["dkv tri"].grid == (8, 16)
+    f = _wide_plans(F32, 1024, bh=6, bh_kv=3, s=130)
+    assert f["fwd tri"].smem_bytes == 4 * (2 * 64 * 65 + 64 * 257 + 64 * 65) + 256 == 115_968
+    assert f["dq tri"].smem_bytes == 4 * (4 * 64 * 65 + 64 * 65 + 64 * 129) == 116_224
+    assert f["dkv tri"].smem_bytes == 4 * (4 * 64 * 65 + 2 * 64 * 65 + 2 * 64 * 129 + 128) == 166_400
+    assert (f["fwd tri"].grid, f["fwd tri"].col_split) == ((3, 6), 4)
+    assert (f["dq tri"].grid, f["dq tri"].col_split) == ((3, 6), 8)
+    assert (f["dkv tri"].grid, f["dkv tri"].col_split) == ((3, 3), 8)
+    assert {f[k].threads for k in f} == {256}
+
+
+def test_redundant_work_factors():
+    """Every slab's CTA forms the whole score tile: the forward does (n + 1)
+    / 2 of the ideal tensor-core work (S and P.V once each), dQ (2 n + 1) / 3
+    (S, dP and dQ), dK/dV (n + 1) / 2 (S, dP, dV, dK), n the slab count."""
+    def factors(d):
+        p = _wide_plans(BF16, d)
+        n_f, n_q, n_kv = p["fwd tri"].col_split, p["dq tri"].col_split, p["dkv tri"].col_split
+        return (n_f + 1) / 2, (2 * n_q + 1) / 3, (2 * n_kv + 2) / 4
+    assert factors(640) == (2.0, 7 / 3, 3.0)
+    assert factors(1024) == (2.5, 3.0, 4.5)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 100, 1000])
+@pytest.mark.parametrize("group", [1, 4])
+def test_the_wide_plans_visit_exactly_the_triangle(s, group):
+    """Every live (q tile, key tile) pair of the causal triangle once per
+    slab, no other, in the forward's grid and in both backward kernels'."""
+    d = 704
+    tiles = -(-s // 64)
+    live = {(q, k) for q in range(tiles) for k in range(q + 1)}
+    fwd = flash_fwd.tri_plan(BF16, 2 * group, s, d, H100_SMS)
+    seen = collections.Counter(
+        (z, *fwd.cta(x, y), k) for z in range(fwd.col_split) for x in range(fwd.grid[0])
+        for y in range(fwd.grid[1]) for k in range(fwd.cta(x, y)[1] + 1))
+    assert set(seen.values()) == {1}
+    assert set(seen) == {(z, row, q, k) for z in range(fwd.col_split) for row in range(2 * group)
+                         for q, k in live}
+    dq, dkv = flash_bwd.tri_bwd_plan(BF16, 2 * group, 2, s, d, H100_SMS)
+    for plan, rows, members in ((dq, 2 * group, 1), (dkv, 2, group)):
+        got = collections.Counter((z, plan.cta(x, y)[0], *v) for z in range(plan.col_split)
+                                  for x in range(plan.grid[0]) for y in range(plan.grid[1])
+                                  for v in plan.visits(x, y, s, members))
+        assert set(got.values()) == {1}
+        assert set(got) == {(z, row, m, q, k) for z in range(plan.col_split)
+                            for row in range(rows) for m in range(members) for q, k in live}
+    rect = flash_fwd.rect_plan(BF16, 2, s, s, d, H100_SMS, True)
+    walked = {(q, k) for x in range(rect.grid[0]) for y in range(rect.grid[1])
+              for q, k, _ in rect.visits(x, y)}
+    assert walked == live
+
+
+def test_the_general_pair_raises_above_576():
+    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
+        flash_bwd.rect_bwd_plan(BF16, 8, 8, 128, 640, H100_SMS, True, 33)
+    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
+        flash_bwd.rect_bwd_plan(F32, 8, 8, 128, 1024, H100_SMS, False)
+    with pytest.raises(ValueError, match="block_m"):  # 64-row tiles only
+        flash_fwd.tri_plan(BF16, 8, 128, 640, H100_SMS, block_m=128)
+    with pytest.raises(ValueError, match="block_m"):
+        flash_bwd.tri_bwd_plan(BF16, 8, 8, 128, 1024, H100_SMS, block_m=128)
+
+
+def test_an_autotuned_128_is_not_forced_above_576(monkeypatch):
+    from tpu_operator_torch.workloads import autotune
+
+    monkeypatch.setattr(autotune, "tuned_flash_tile", lambda *a, **k: 128)
+    for d in (577, 640, 700, 1024):
+        for dtype in (BF16, F16, F32):
+            assert tfa._resolve_block_m(None, dtype, 8192, 8, d, True) is None, (dtype, d)
+    monkeypatch.setattr(autotune, "tuned_flash_tile", lambda *a, **k: 64)
+    assert tfa._resolve_block_m(None, BF16, 8192, 8, 1024, False) == 64
+    with pytest.raises(ValueError, match="block_m"):
+        tfa._resolve_block_m(128, BF16, 8192, 8, 1024, True)
+
+
+def test_wide_plan_constants_match_the_cuda_sources():
+    fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
+    wide = (KERNELS / "flash_wide.cuh").read_text()
+    assert "constexpr int kWideBox = 64;" in wide
+    assert "__host__ __device__ constexpr bool wide_head_dim(int d) { return d > 576 && " \
+           "d % kWideBox == 0; }" in wide
+    assert f"constexpr int kWideSlab = {flash_fwd.WIDE_SLAB};" in fwd
+    assert f"constexpr int kWideRing = {flash_fwd.WIDE_RING};" in fwd
+    assert f"constexpr int kWideVStages = {flash_fwd.WIDE_V_STAGES};" in fwd
+    assert f"constexpr int kF32WideChunk = {flash_fwd.F32_WIDE_CHUNK};" in fwd
+    assert f"constexpr int kF32WideSlab = {flash_fwd.F32_WIDE_SLAB};" in fwd
+    assert f"constexpr int kWideDqSlab = {flash_bwd.WIDE_DQ_SLAB};" in bwd
+    assert f"constexpr int kWideDkvSlab = {flash_bwd.WIDE_DKV_SLAB};" in bwd
+    assert f"constexpr int kWideRing = {flash_bwd.WIDE_BWD_RING};" in bwd
+    assert f"constexpr int kWideSlabStages = {flash_bwd.WIDE_SLAB_STAGES};" in bwd
+    assert f"constexpr int kF32WideChunk = {flash_bwd.F32_WIDE_BWD_CHUNK};" in bwd
+    assert f"constexpr int kF32WideSlab = {flash_bwd.F32_WIDE_BWD_SLAB};" in bwd
+    # each source's wide build dispatches every dtype to the wide kernels alone
+    for src in (fwd, bwd):
+        assert src.count('#include "flash_wide.cuh"') == 1
+        assert re.search(r"#ifdef FLASH_HEAD_DIM_WIDE\n  return dispatch_wide<", src)
+    for src in ("flash_fwd", "flash_bwd"):
+        assert build.VARIANTS[f"{src}_wide"] == (src, ("-DFLASH_HEAD_DIM_WIDE",))
+        assert build.VARIANTS[f"{src}_f16_wide"] == (src, ("-DFLASH_ELEM_F16",
+                                                           "-DFLASH_HEAD_DIM_WIDE"))
+        for d in (640, 704, 1024, 4096):
+            for dtype, name in ((BF16, f"{src}_wide"), (F32, f"{src}_wide"),
+                                (F16, f"{src}_f16_wide")):
+                assert flash_fwd.library_name(src, dtype, d) == name
+        assert flash_fwd.library_name(src, BF16, 576) == f"{src}_d576"
+
+
+@pytest.mark.parametrize("d, width", [(577, 640), (640, 640), (641, 704), (700, 704),
+                                      (1000, 1024), (1024, 1024), (2048, 2048)])
+def test_padded_head_dims_above_576(d, width):
+    assert flash_fwd.padded_head_dim(d) == width and flash_fwd.is_wide(width)
+    assert tfa._head_dims(d) == (width, None if width == d else 1.0 / math.sqrt(d))
+
+
+# --------------------------------------------------------------- on the card
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, sq, sk, h, h_kv, d, dtype):
+    """Collapsed q (b·h, sq, width), k and v (b·h_kv, sk, width), zero-padded
+    from d to the kernels' width, and the softmax scale to pass."""
+    rng = np.random.default_rng(seed)
+    width = flash_fwd.padded_head_dim(d)
+
+    def make(rows, s):
+        x = torch.from_numpy(rng.standard_normal((rows, s, d)).astype(np.float32))
+        return torch.nn.functional.pad(x, (0, width - d)).to("cuda", dtype).contiguous()
+
+    scale = None if width == d else 1.0 / math.sqrt(d)
+    return make(b * h, sq), make(b * h_kv, sk), make(b * h_kv, sk), scale
+
+
+def _err(a, b):
+    a, b = a.float(), b.float()
+    assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+    inf = torch.isneginf(a)
+    return float((torch.where(inf, 0.0, a) - torch.where(inf, 0.0, b)).abs().max())
+
+
+def _tol(dtype):
+    return F32_TOL if dtype == F32 else HALF_TOL
+
+
+@pytest.mark.cuda
+def test_the_wide_libraries_build_without_spills(cuda):
+    """Each wide library's kernels: ptxas reports 0 spill bytes and no
+    serialized wgmma or ignored setmaxnreg."""
+    names = ["flash_fwd_wide", "flash_bwd_wide", "flash_fwd_f16_wide", "flash_bwd_f16_wide"]
+    built = build.build(names)
+    for name in names:
+        log = built[name][0].with_suffix(".log").read_text()
+        assert "Compiling entry function" in log, name
+        assert not re.findall(r"[1-9]\d* bytes spill (stores|loads)", log), (name, log)
+        assert "serialized" not in log and "setmaxnreg ignored" not in log, (name, log)
+
+
+CARD_SHAPES = [  # (b, s, h, h_kv, d)
+    (1, 200, 2, 1, 640), (2, 130, 4, 2, 1024), (1, 100, 2, 2, 700), (1, 64, 2, 1, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("b, s, h, h_kv, d", CARD_SHAPES)
+def test_wide_triangle_kernels_match_plain(cuda, dtype, b, s, h, h_kv, d):
+    """The triangle forward and the triangle pair above 576 against their
+    plain versions, one launch each."""
+    tol = _tol(dtype)
+    qb, kb, vb, scale = _qkv(d, b, s, s, h, h_kv, d, dtype)
+    before = [w.launches for w in (flash_fwd.flash_fwd_tri, flash_bwd.flash_bwd_dq_tri,
+                                   flash_bwd.flash_bwd_dkv_tri)]
+    out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, h, h_kv, sm_scale=scale)
+    want, want_lse = flash_fwd.attention_plain(qb, kb, vb, h, h_kv, True, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL
+    rng = np.random.default_rng(d + 1)
+    dout = torch.from_numpy(rng.standard_normal(qb.shape).astype(np.float32)).to("cuda", dtype)
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = flash_bwd.flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, h, h_kv, sm_scale=scale)
+    dk, dv = flash_bwd.flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, h, h_kv,
+                                         sm_scale=scale)
+    grads = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h, h_kv, True,
+                                          sm_scale=scale)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (flash_fwd.flash_fwd_tri, flash_bwd.flash_bwd_dq_tri,
+                                 flash_bwd.flash_bwd_dkv_tri)] == [c + 1 for c in before]
+    top = 1.0 if dtype == F32 else max(float(w.float().abs().max()) for w in grads)
+    for name, w, g in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+        assert float((w.float() - g.float()).abs().max()) <= tol * top, name
+
+
+GENERAL_MASKS = {  # (sq, sk, causal, window, q_start, k_start, segments)
+    "full": (130, 130, False, None, 0, 0, False),
+    "window 33": (130, 130, True, 33, 0, 0, False),
+    "causal, segments": (130, 130, True, None, 0, 0, True),
+    "full, segments": (130, 130, False, None, 0, 0, True),
+    "chunked prefill": (40, 200, True, None, 160, 0, False),
+    "ring hop": (100, 100, True, None, 100, 0, False),
+    "no key in reach": (64, 64, True, None, 0, 128, False),
+    "serving decode": (1, 64, True, None, 63, 0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("d", [640, 700, 1024])
+def test_wide_general_forward_matches_plain(cuda, dtype, d):
+    """The general forward above 576 under every mask, at offsets, sq != sk,
+    GQA 2, against the plain version."""
+    tol = _tol(dtype)
+    for name, (sq, sk, causal, window, q0, k0, segments) in GENERAL_MASKS.items():
+        qb, kb, vb, scale = _qkv(sq + sk, 2, sq, sk, 4, 2, d, dtype)
+        seg = ((torch.arange(sk, device="cuda") >= sk // 3).to(torch.int32).expand(2, sk)
+               .contiguous() if segments else None)
+        before = flash_fwd.flash_fwd_rect.launches
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, 4, 2, causal, q0, k0, window, seg,
+                                            sm_scale=scale)
+        want, want_lse = flash_fwd.attention_plain(qb, kb, vb, 4, 2, causal, q0, k0, window,
+                                                   seg, sm_scale=scale)
+        torch.cuda.synchronize()
+        assert flash_fwd.flash_fwd_rect.launches == before + 1
+        assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_flash_attention_above_576_against_dense(cuda, dtype):
+    """flash_attention at 700 (padded to 704) and 1024 through the kernels:
+    output and gradients against autograd through dense attention; a
+    gradient through the general pair raises before any launch."""
+    from tpu_operator_torch.workloads.ringattention import dense_attention
+
+    tol = _tol(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for d in (700, 1024):
+        q, k, v = (torch.randn((1, 128, 2, d), generator=gen, device="cuda").to(dtype)
+                   .requires_grad_() for _ in range(3))
+        got = tfa.flash_attention(q, k, v, block_q=64, block_k=64)
+        want = dense_attention(q.float(), k.float(), v.float(), causal=True)
+        g = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+        grads = torch.autograd.grad(got, (q, k, v), g)
+        wants = torch.autograd.grad(want, (q, k, v), g.float())
+        torch.cuda.synchronize()
+        assert float((got.detach().float() - want).abs().max()) <= tol, d
+        top = 1.0 if dtype == F32 else max(float(w.abs().max()) for w in wants)
+        for name, a, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert float((a.float() - w).abs().max()) <= tol * top, (d, name)
+        counts = [w.launches for w in (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
+                                       flash_bwd.flash_bwd_dkv_rect)]
+        for kwargs in ({"causal": False}, {"window": 16},
+                       {"segment_ids": torch.zeros((1, 128), dtype=torch.int32, device="cuda")}):
+            with pytest.raises(ValueError, match="ROADMAP.md item 24"):
+                tfa.flash_attention(q, k, v, block_q=64, block_k=64, **kwargs)
+        assert [w.launches for w in (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
+                                     flash_bwd.flash_bwd_dkv_rect)] == counts
+
+
+def test_phase_2_counts_the_wide_instantiations():
+    """chip_smoke's build phase expects each wide library to hold its 16-bit
+    instantiation of both forwards and of the triangle pair, and no other."""
+    import chip_smoke
+
+    assert chip_smoke.WIDE_HEAD_INSTANTIATIONS == {
+        "flash_fwd_wide": 2, "flash_bwd_wide": 2, "flash_fwd_f16_wide": 2,
+        "flash_bwd_f16_wide": 2}
+    prefix = "_ZN45_GLOBAL__N__febd979e_12_flash_fwd_cu_10a15fe6"
+    assert chip_smoke.wide_label(f"{prefix}21flash_fwd_wide_kernelI13__nv_bfloat16Lb1EEEv6Params"
+                                 ) == "wide_tri"
+    assert chip_smoke.wide_f16_label(f"{prefix}21flash_fwd_wide_kernelI6__halfLb0EEEv6Params"
+                                     ) == "wide_rect"
+    assert chip_smoke.wide_label("flash_bwd_dkv_tri_wide_kernelI13__nv_bfloat16EEv6Params"
+                                 ) == "dkv_wide"
+    assert chip_smoke.wide_f16_label("flash_bwd_dq_tri_wide_kernelI6__halfEEv6Params") == "dq_wide"
+    # the f32 kernels and the other dtype's instantiations are not counted
+    assert chip_smoke.wide_label("flash_fwd_wide_f32_kernelILb1EEv6Paramsi") is None
+    assert chip_smoke.wide_label("flash_bwd_dq_tri_wide_kernelI6__halfEEv6Params") is None
+    assert chip_smoke.wide_label("flash_fwd_tri_kernelI13__nv_bfloat16Li576ELi1EE") is None
+
+
+def test_phase_3_wide_rows():
+    """chip_smoke's rows above 576: phase 19's (1,8192,8,1024) with one kv
+    head in bf16 and fp16, 640 and the padded 700 in bf16, f32 at 1024 and
+    ragged 640 at GQA 2, for the forward and the triangle pair; the general
+    forward alone at full attention and serving's chunk; one 2048 row."""
+    import chip_smoke
+
+    fwd, bwd = chip_smoke.WIDE_KERNEL_CASES, chip_smoke.WIDE_BWD_CASES
+    assert {c["kernel"] for c in fwd} == {"flash_fwd_tri", "flash_fwd_rect"}
+    assert {c["pair"] for c in bwd} == {"tri"}
+    for rows in (fwd, bwd):
+        for case in rows:
+            d = case["q"][3]
+            assert flash_fwd.is_wide(flash_fwd.padded_head_dim(d)), case["label"]
+            assert ("padded" in case["label"]) == (d % 64 != 0)
+        for dtype in (BF16, F16):
+            assert any(c["dtype"] == dtype and c["q"] == (1, 8192, 8, 1024) and c.get("h_kv") == 1
+                       for c in rows), dtype
+        assert any(c["q"] == (1, 8192, 8, 640) and c["dtype"] == BF16 for c in rows)
+        assert any(c["q"] == (1, 4096, 8, 700) and c["dtype"] == BF16 for c in rows)
+        assert any(c["q"] == (2, 128, 4, 1024) and c["dtype"] == F32 for c in rows)
+        assert any(c["q"] == (2, 100, 4, 640) and c.get("h_kv") == 2 and c["dtype"] == F32
+                   for c in rows)
+    assert any(c["q"] == (1, 4096, 8, 1024) and c.get("causal") is False for c in fwd)
+    assert any(c["q"] == (1, 8, 2, 1024) and c.get("sk") == 64 and c["dtype"] == F32
+               and c.get("main") for c in fwd)
+    assert any(c["q"] == (1, 1024, 4, 2048) for c in fwd)
+    assert chip_smoke.WIDE_HEAD_1024["d_model"] // chip_smoke.WIDE_HEAD_1024["n_heads"] == 1024

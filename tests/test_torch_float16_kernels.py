@@ -73,8 +73,8 @@ def test_fp16_plans_are_bf16s(bh, s, d, block_m):
 
 
 def test_fp16_libraries_are_variants_of_the_flash_sources():
-    # the fp16 libraries, and the head dim 512 and 576 ones (bf16 + f32, fp16)
-    # beside them
+    # the fp16 libraries, and the head dim 512 and 576 ones and the
+    # D-streaming ones above 576 (bf16 + f32, fp16) beside them
     assert build.VARIANTS == {
         "flash_fwd_f16": ("flash_fwd", ("-DFLASH_ELEM_F16",)),
         "flash_bwd_f16": ("flash_bwd", ("-DFLASH_ELEM_F16",)),
@@ -85,7 +85,11 @@ def test_fp16_libraries_are_variants_of_the_flash_sources():
         "flash_fwd_d576": ("flash_fwd", ("-DFLASH_HEAD_DIM_576",)),
         "flash_bwd_d576": ("flash_bwd", ("-DFLASH_HEAD_DIM_576",)),
         "flash_fwd_f16_d576": ("flash_fwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_576")),
-        "flash_bwd_f16_d576": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_576"))}
+        "flash_bwd_f16_d576": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_576")),
+        "flash_fwd_wide": ("flash_fwd", ("-DFLASH_HEAD_DIM_WIDE",)),
+        "flash_bwd_wide": ("flash_bwd", ("-DFLASH_HEAD_DIM_WIDE",)),
+        "flash_fwd_f16_wide": ("flash_fwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_WIDE")),
+        "flash_bwd_f16_wide": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_WIDE"))}
     for name in ("flash_fwd", "flash_bwd"):
         plain, f16 = build.library_path(name), build.library_path(f"{name}_f16")
         assert plain.name.startswith(f"lib{name}-") and f16.name.startswith(f"lib{name}_f16-")

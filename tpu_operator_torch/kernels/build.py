@@ -7,9 +7,9 @@ takes seconds, not minutes. A name in ``VARIANTS`` is a second library of
 another source, compiled with extra defines: the fp16 flash kernels
 (``flash_fwd_f16``, ``flash_bwd_f16``), which the wrappers build only at
 their first fp16 call, so that bf16 and f32 callers never wait for them,
-the head dim 512 flash kernels (``*_d512``: bf16 and f32, or fp16) and
-those of head dim 576 (``*_d576``), each built only at the first call at
-its head dim.
+the head dim 512 flash kernels (``*_d512``: bf16 and f32, or fp16), those
+of head dim 576 (``*_d576``) and the D-streaming kernels of every head dim
+above 576 (``*_wide``), each built only at the first call at its head dim.
 Libraries go to ``_build/`` (ignored by git) or to the directory
 :func:`bind_build_dir` names (the node's compile cache), named by a hash
 of the source, every header (``*.cuh``) beside it, the flags and the
@@ -50,6 +50,10 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "flash_bwd_d576": ("flash_bwd", ("-DFLASH_HEAD_DIM_576",)),
     "flash_fwd_f16_d576": ("flash_fwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_576")),
     "flash_bwd_f16_d576": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_576")),
+    "flash_fwd_wide": ("flash_fwd", ("-DFLASH_HEAD_DIM_WIDE",)),
+    "flash_bwd_wide": ("flash_bwd", ("-DFLASH_HEAD_DIM_WIDE",)),
+    "flash_fwd_f16_wide": ("flash_fwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_WIDE")),
+    "flash_bwd_f16_wide": ("flash_bwd", ("-DFLASH_ELEM_F16", "-DFLASH_HEAD_DIM_WIDE")),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

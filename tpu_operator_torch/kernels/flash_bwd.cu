@@ -138,6 +138,27 @@
 // 11/3 of the ideal (S, dP, dV, dK once each). Shared memory: dQ 222,232
 // bytes (general pair 136 more), dK/dV 222,488 (136 more), of the 232,448 a
 // block may use; 640 columns would pass it with the own tiles alone.
+// Above 576 (the triangle pair only; its own library, built with
+// -DFLASH_HEAD_DIM_WIDE, the head dim a runtime multiple of 64, helpers in
+// flash_wide.cuh): the reductions over D stream. One consumer warpgroup and
+// a producer warp; per (q tile, key tile) pair the producer streams Q, dO,
+// K and V in 64 x 64 boxes through a four-stage ring (four boxes a stage),
+// and the consumer sums S and dP (S^T and dP^T) over the D / 64 chunks, one
+// chunk's wgmma in flight while the next is issued. The gradient products
+// take a slab of the other side from a two-stage slab ring: dQ (a CTA per
+// 64 q rows and 256-column slab of dQ, heaviest first) dQ += dS.K_slab on
+// m64n256k16; dK/dV (a CTA per 64 keys and 128-column slab, 64 + 64 f32 of
+// dK and dV a thread beside S^T, dP^T and the packed P^T and dS^T: 255
+// registers, no spill) dV += P^T.dO_slab and dK += dS^T.Q_slab on
+// m64n128k16, the rows' lse and delta staged beside the slabs by the
+// producer's lanes. The last slab starts at D - W so every CTA runs the same
+// products, and writes only the columns no earlier slab owns. Every slab
+// forms the whole S and dP: dQ (2 slabs + 1) / 3 and dK/dV (slabs + 1) / 2
+// of the ideal tensor-core work (3x and 4.5x at 1024). Shared memory: dQ
+// 197,728 bytes, dK/dV 198,752. f32 (flash_bwd_{dq,dkv}_tri_wide_f32_kernel):
+// dq_body's and dkv_body's arithmetic on 64-row tiles with 64-column
+// chunks and 128-column slabs. The general pair is not built above 576
+// (ROADMAP.md item 24): its entries refuse the call.
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
@@ -170,6 +191,9 @@
 #include <type_traits>
 
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, the tensor-map encoder
+#ifdef FLASH_HEAD_DIM_WIDE
+#include "flash_wide.cuh"  // the D-streaming kernels' boxes, slabs and maps
+#endif
 
 namespace {
 
@@ -1143,6 +1167,692 @@ __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
   dkv_tc_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
 }
 
+#ifdef FLASH_HEAD_DIM_WIDE
+// ---------------------------------------------------------------------------
+// Head dims above 576: the D-streaming triangle pair (see the note on top).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideDqSlab = 256;     // columns of dQ a 16-bit CTA holds
+constexpr int kWideDkvSlab = 128;    // columns of dK and of dV a 16-bit CTA holds
+constexpr int kWideRing = 4;         // stages of the chunk ring (four boxes a stage)
+constexpr int kWideSlabStages = 2;   // stages of the slab ring
+constexpr int kF32WideTile = 64;     // q rows and keys of an f32 tile
+constexpr int kF32WideChunk = 64;    // columns of an f32 chunk
+constexpr int kF32WideSlab = 128;    // columns of each gradient an f32 CTA holds
+
+constexpr int dq_wide_smem_bytes() {
+  // alignment slack, the chunk ring (Q, dO, K and V boxes), the K slab ring,
+  // the four barrier arrays
+  return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
+         kWideSlabStages * (kWideDqSlab / kWideBox) * kWideBoxBytes +
+         8 * (2 * kWideRing + 2 * kWideSlabStages);
+}
+
+constexpr int dkv_wide_smem_bytes() {
+  // alignment slack, the chunk ring (K, V, Q and dO boxes), the Q and dO slab
+  // ring with the slab rows' lse and delta (f32), the four barrier arrays
+  return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
+         kWideSlabStages * (2 * (kWideDkvSlab / kWideBox) * kWideBoxBytes + 2 * kTile * 4) +
+         8 * (2 * kWideRing + 2 * kWideSlabStages);
+}
+
+constexpr size_t dq_f32_wide_smem_bytes() {
+  // q (pre-scaled), dO, k and v chunks ([64][65]), the dS tile ([64][65]),
+  // the k slab ([64][slab + 1])
+  return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
+                          kF32WideTile * (kF32WideTile + 1) +
+                          kF32WideTile * (kF32WideSlab + 1));
+}
+
+constexpr size_t dkv_f32_wide_smem_bytes() {
+  // k, v, q and dO chunks, the P and dS tiles, the q and dO slabs, the rows'
+  // lse * log2(e) and delta
+  return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
+                          2 * kF32WideTile * (kF32WideTile + 1) +
+                          2 * kF32WideTile * (kF32WideSlab + 1) + 2 * kF32WideTile);
+}
+
+// Wait for stage `st` of a ring (its phase n / stages), as both roles do.
+__device__ __forceinline__ uint32_t ring_parity(int n, int stages) { return (n / stages) & 1; }
+
+// One chunk's two score products (S and dP, or S^T and dP^T) over a stage of
+// four boxes: acc_a (+)= box 0 . box 2^T, acc_b (+)= box 1 . box 3^T.
+template <typename T>
+__device__ __forceinline__ void chunk_products(float (&acc_a)[32], float (&acc_b)[32],
+                                               const unsigned char* stage, bool first) {
+  mma_box_by_box<T>(acc_a, stage, stage + 2 * kWideBoxBytes, first);
+  mma_box_by_box<T>(acc_b, stage + kWideBoxBytes, stage + 3 * kWideBoxBytes, first);
+}
+
+// The two score tiles of one (q tile, key tile) pair summed over the d / 64
+// chunks of stages full[i0 % R ..]: one chunk's products in flight while the
+// next is issued, each stage released (one arrival per warp) once its
+// products are done.
+template <typename T>
+__device__ __forceinline__ void stream_scores(float (&acc_a)[32], float (&acc_b)[32],
+                                              const unsigned char* ring, uint64_t* full,
+                                              uint64_t* empty, int i0, int nc, int lane) {
+  constexpr int R = kWideRing;
+  for (int c = 0; c < nc; ++c) {
+    const int i = i0 + c, st = i % R;
+    mbar_wait(&full[st], ring_parity(i, R));
+    hold(acc_a);
+    hold(acc_b);
+    wgmma_fence();
+    chunk_products<T>(acc_a, acc_b, ring + st * 4 * kWideBoxBytes, c == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    hold(acc_a);
+    hold(acc_b);
+    if (c > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % R]);
+    }
+  }
+  wgmma_wait<0>();
+  hold(acc_a);
+  hold(acc_b);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[(i0 + nc - 1) % R]);
+}
+
+// dQ at a head dim above 576 on the tensor cores. blockIdx.x: (batch, head)
+// row; blockIdx.y: 64-row q tile, heaviest first; blockIdx.z: the slab of dQ.
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dq_tri_wide_kernel(Params p, int d, TC_MAPS) {
+  static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
+  constexpr int W = kWideDqSlab, NB = W / kWideBox;
+  constexpr int R = kWideRing, SS = kWideSlabStages;
+  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes, kSlabBytes = NB * kWideBoxBytes;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* ring = base;                     // stage st: Q, dO, K and V boxes
+  unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB K boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(slab_s + SS * kSlabBytes);
+  uint64_t* empty = full + R;
+  uint64_t* sfull = empty + R;
+  uint64_t* sempty = sfull + SS;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int own0 = blockIdx.z * W;     // the first column this CTA writes
+  const int col0 = min(own0, d - W);   // the first column of its products
+  const int nc = d / kWideBox;
+  const int n_tiles = (min(p.s, q0 + 64) + 63) / 64;  // key tiles up to the diagonal
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);
+    }
+#pragma unroll
+    for (int st = 0; st < SS; ++st) {
+      mbar_init(&sfull[st], 1);
+      mbar_init(&sempty[st], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer warp: per key tile, the chunks of Q, dO, K and V, then the
+    // tile's K slab
+    if (lane == 0) {
+      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = t * 64;
+        for (int c = 0; c < nc; ++c) {
+          const int i = t * nc + c, st = i % R;
+          if (i >= R) mbar_wait(&empty[st], ring_parity(i - R, R));
+          unsigned char* stage = ring + st * kStageBytes;
+          mbar_expect_tx(&full[st], kStageBytes);
+          tma_load_3d(stage, &qmap, &full[st], c * kWideBox, q0, bh);
+          tma_load_3d(stage + kWideBoxBytes, &domap, &full[st], c * kWideBox, q0, bh);
+          tma_load_3d(stage + 2 * kWideBoxBytes, &kmap, &full[st], c * kWideBox, k0, kv_row);
+          tma_load_3d(stage + 3 * kWideBoxBytes, &vmap, &full[st], c * kWideBox, k0, kv_row);
+        }
+        const int ss = t % SS;
+        if (t >= SS) mbar_wait(&sempty[ss], ring_parity(t - SS, SS));
+        mbar_expect_tx(&sfull[ss], kSlabBytes);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(slab_s + ss * kSlabBytes + b * kWideBoxBytes, &kmap, &sfull[ss],
+                      col0 + b * kWideBox, k0, kv_row);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: one warpgroup owns q rows q0 .. q0 + 63; this thread holds rows
+  // r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
+  const int tq = lane % 4;
+  const int r0 = q0 + warp * 16 + lane / 4;
+  const float qscale = p.qscale, scale = p.scale;
+  float l2[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8; +inf keeps P = 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * p.s + row;
+    const float lse = row < p.s ? p.lse[at] : -CUDART_INF_F;
+    l2[h] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+    dl[h] = row < p.s ? p.delta[at] : 0.f;
+  }
+  float dq[W / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * 64;
+    stream_scores<T>(s, dp, ring, full, empty, t * nc, nc, lane);  // S = Q.K^T, dP = dO.V^T
+
+    // dS = P * (dP - delta) * scale, the keys after a row dropped on the
+    // diagonal tile (the last), rounded to T as the register A operand
+    const bool masked = t == n_tiles - 1;
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e / 2);
+        const int key = k0 + 8 * j + 2 * tq + e % 2;
+        float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
+        if (masked && key > row) pe = 0.f;
+        ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+      }
+      dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+      dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
+    }
+
+    const int ss = t % SS;
+    mbar_wait(&sfull[ss], ring_parity(t, SS));
+    hold(dsa);
+    hold(dq);
+    wgmma_fence();
+    mma_frag_by_slab<T, W>(dq, dsa, slab_s + ss * kSlabBytes);  // dQ += dS.K_slab, K MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dq);
+    hold(dsa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sempty[ss]);
+  }
+
+  T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= p.s) continue;
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * d + col0);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
+      out[4 * j + tq] = pack2<T>(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// dK/dV at a head dim above 576 on the tensor cores. blockIdx.x: kv row;
+// blockIdx.y: 64-key tile, in order; blockIdx.z: the slab of dK and dV. The
+// CTA walks, for every GQA group member, the q tiles from its diagonal down.
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dkv_tri_wide_kernel(Params p, int d, TC_MAPS) {
+  static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
+  constexpr int W = kWideDkvSlab, NB = W / kWideBox;
+  constexpr int R = kWideRing, SS = kWideSlabStages;
+  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes, kSlabBytes = NB * kWideBoxBytes;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* ring = base;                      // stage st: K, V, Q and dO boxes
+  unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB Q boxes, then NB dO boxes
+  float* lse_s = reinterpret_cast<float*>(slab_s + SS * 2 * kSlabBytes);  // [SS][64]
+  float* dl_s = lse_s + SS * kTile;                                        // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + SS * kTile);
+  uint64_t* empty = full + R;
+  uint64_t* sfull = empty + R;
+  uint64_t* sempty = sfull + SS;
+
+  const int kv_row = blockIdx.x;
+  const int k0 = blockIdx.y * 64;
+  const int own0 = blockIdx.z * W;
+  const int col0 = min(own0, d - W);
+  const int nc = d / kWideBox;
+  const int group = p.heads / p.kv_heads;
+  const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
+  const int t_lo = k0 / 64;
+  const int per_member = (p.s + 63) / 64 - t_lo;
+  const int n_steps = group * per_member;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);
+    }
+#pragma unroll
+    for (int st = 0; st < SS; ++st) {
+      mbar_init(&sfull[st], 1 + 32);  // the TMA bytes, then each lane's lse and delta
+      mbar_init(&sempty[st], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer warp: per (member, q tile) step, lane 0 streams the chunks of
+    // K, V, Q and dO, then loads the Q and dO slabs; every lane stages the
+    // tile's lse (base 2; +inf past s and for a row that saw no key) and delta
+    for (int i = 0; i < n_steps; ++i) {
+      const int q_row = q_row0 + i / per_member;
+      const int q0 = (t_lo + i % per_member) * 64;
+      const int ss = i % SS;
+      if (lane == 0) {
+        for (int c = 0; c < nc; ++c) {
+          const int j = i * nc + c, st = j % R;
+          if (j >= R) mbar_wait(&empty[st], ring_parity(j - R, R));
+          unsigned char* stage = ring + st * kStageBytes;
+          mbar_expect_tx(&full[st], kStageBytes);
+          tma_load_3d(stage, &kmap, &full[st], c * kWideBox, k0, kv_row);
+          tma_load_3d(stage + kWideBoxBytes, &vmap, &full[st], c * kWideBox, k0, kv_row);
+          tma_load_3d(stage + 2 * kWideBoxBytes, &qmap, &full[st], c * kWideBox, q0, q_row);
+          tma_load_3d(stage + 3 * kWideBoxBytes, &domap, &full[st], c * kWideBox, q0, q_row);
+        }
+      }
+      if (i >= SS) mbar_wait(&sempty[ss], ring_parity(i - SS, SS));
+      if (lane == 0) {
+        mbar_expect_tx(&sfull[ss], 2 * kSlabBytes);
+        unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(slab + b * kWideBoxBytes, &qmap, &sfull[ss], col0 + b * kWideBox, q0, q_row);
+          tma_load_3d(slab + kSlabBytes + b * kWideBoxBytes, &domap, &sfull[ss],
+                      col0 + b * kWideBox, q0, q_row);
+        }
+      }
+      for (int c = lane; c < kTile; c += 32) {
+        const int q = q0 + c;
+        const size_t at = static_cast<size_t>(q_row) * p.s + q;
+        const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
+        lse_s[ss * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+        dl_s[ss * kTile + c] = q < p.s ? p.delta[at] : 0.f;
+      }
+      mbar_arrive(&sfull[ss]);  // releases this lane's stores to the consumers
+    }
+    return;
+  }
+
+  // consumers: one warpgroup owns keys k0 .. k0 + 63; this thread holds keys
+  // key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
+  const int tq = lane % 4;
+  const int key = k0 + warp * 16 + lane / 4;
+  const float qscale = p.qscale, scale = p.scale;
+  float dk[W / 2], dv[W / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int q0 = (t_lo + i % per_member) * 64;
+    stream_scores<T>(s, dp, ring, full, empty, i * nc, nc, lane);  // S^T = K.Q^T, dP^T = V.dO^T
+
+    const int ss = i % SS;
+    mbar_wait(&sfull[ss], ring_parity(i, SS));
+    const float2* l2 = reinterpret_cast<const float2*>(lse_s + ss * kTile);
+    const float2* dl = reinterpret_cast<const float2*>(dl_s + ss * kTile);
+    // P^T and dS^T, the rows before a key dropped on the diagonal tile (the first)
+    const bool masked = q0 == k0;
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
+      float pe[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + 8 * j + 2 * tq + e % 2;
+        const int kk = key + 8 * (e / 2);
+        float v = exp2f(fmaf(s[4 * j + e], qscale, -(e % 2 ? lj.y : lj.x)));
+        if (masked && q < kk) v = 0.f;
+        pe[e] = v;
+        ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+      }
+      pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
+      dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+      dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
+    }
+
+    const unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
+    hold(pa);
+    hold(dsa);
+    hold(dv);
+    hold(dk);
+    wgmma_fence();
+    mma_frag_by_slab<T, W>(dv, pa, slab + kSlabBytes);  // dV += P^T.dO_slab, dO MN-major
+    mma_frag_by_slab<T, W>(dk, dsa, slab);              // dK += dS^T.Q_slab, Q MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dv);
+    hold(dk);
+    hold(pa);
+    hold(dsa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sempty[ss]);
+  }
+
+  const size_t kvoff = static_cast<size_t>(kv_row) * p.s * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = key + 8 * h;
+    if (kj >= p.s) continue;
+    const size_t at = kvoff + static_cast<size_t>(kj) * d + col0;
+    auto* dkr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + at);  // T pairs
+    auto* dvr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + at);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
+      dkr[4 * j + tq] = pack2<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+      dvr[4 * j + tq] = pack2<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+#ifndef FLASH_ELEM_F16  // the f32 kernels live in the bf16 library (kWithF32)
+// Rows [r0, r0 + TT) and columns [c0, c0 + n) of a (s, d) matrix into a
+// [TT][n + 1] f32 tile, times mul; rows past s and columns past d are zero.
+template <int TT, int N>
+__device__ __forceinline__ void stage_cols(float* dst, const float* src, int r0, int s, int d,
+                                           int c0, float mul) {
+  for (int i = threadIdx.x; i < TT * N; i += kThreads) {
+    const int r = i / N, c = i % N;
+    dst[r * (N + 1) + c] = (r0 + r < s && c0 + c < d)
+                               ? src[static_cast<size_t>(r0 + r) * d + c0 + c] * mul
+                               : 0.f;
+  }
+}
+
+// The f32 D-streaming dQ on the CUDA cores: dq_body's arithmetic, S and dP
+// summed over 64-column chunks and dQ in slabs of kF32WideSlab columns.
+// blockIdx.x: q tile x slabs + slab; y and z: bh rows (kMaxGridY a z slice).
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(Params p, int d) {
+  constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
+  constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + TT * LC;
+  float* ks = dos + TT * LC;
+  float* vs = ks + TT * LC;
+  float* dss = vs + TT * LC;
+  float* kslab = dss + TT * LP;
+
+  const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (bh >= p.rows) return;
+  const int n_slabs = wide_slabs(d, kF32WideSlab);
+  const int q0 = (blockIdx.x / n_slabs) * TT;
+  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.s * d;
+  const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(bh) * p.s * d;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+
+  float lse2[R], dlt[R], acc[R][CN];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const bool in = qi < p.s;
+    lse2[i] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
+    dlt[i] = in ? p.delta[static_cast<size_t>(bh) * p.s + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
+  }
+
+  const int t_hi = (min(q0 + TT, p.s) + TT - 1) / TT;  // key tiles up to the diagonal
+  for (int t = 0; t < t_hi; ++t) {
+    const int k0 = t * TT;
+    float sc[R][R], dp[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
+      __syncthreads();  // the previous chunk's (or tile's) reads are done
+      stage_cols<TT, kF32WideChunk>(qs, qg, q0, p.s, d, c0, p.qscale);
+      stage_cols<TT, kF32WideChunk>(dos, dog, q0, p.s, d, c0, 1.f);
+      stage_cols<TT, kF32WideChunk>(ks, kg, k0, p.s, d, c0, 1.f);
+      stage_cols<TT, kF32WideChunk>(vs, vg, k0, p.s, d, c0, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < kF32WideChunk; ++dd) {
+        float qv[R], dov[R], kv[R], vv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          qv[i] = qs[(ty + 16 * i) * LC + dd];
+          dov[i] = dos[(ty + 16 * i) * LC + dd];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          kv[j] = ks[(tx + 16 * j) * LC + dd];
+          vv[j] = vs[(tx + 16 * j) * LC + dd];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+    // the K slab, and dS (their buffers' last readers passed the chunk
+    // loop's barriers)
+    stage_cols<TT, kF32WideSlab>(kslab, kg, k0, p.s, d, col0, 1.f);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const bool live = qi < p.s && kj < p.s && lse2[i] != -CUDART_INF_F && kj <= qi;
+        const float pij = live ? exp2f(sc[i][j] - lse2[i]) : 0.f;
+        dss[(ty + 16 * i) * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[i]) * p.scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < TT; ++kk) {
+      float dsv[R], kv[CN];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * LP + kk];
+#pragma unroll
+      for (int c = 0; c < CN; ++c) kv[c] = kslab[kk * LS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
+    }
+  }
+
+  float* dqg = static_cast<float*>(p.dq) + static_cast<size_t>(bh) * p.s * d;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.s) continue;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      const int col = col0 + tx + 16 * c;
+      if (col < d) dqg[static_cast<size_t>(qi) * d + col] = acc[i][c];
+    }
+  }
+}
+
+// The f32 D-streaming dK/dV on the CUDA cores: dkv_body's arithmetic, S^T
+// and dP^T summed over 64-column chunks and dK and dV in slabs.
+// blockIdx.x: key tile x slabs + slab; y and z: kv rows.
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel(Params p, int d) {
+  constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
+  constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + TT * LC;
+  float* qs = vs + TT * LC;
+  float* dos = qs + TT * LC;
+  float* ps = dos + TT * LC;
+  float* dss = ps + TT * LP;
+  float* qslab = dss + TT * LP;
+  float* doslab = qslab + TT * LS;
+  float* lse2 = doslab + TT * LS;
+  float* dlt = lse2 + TT;
+
+  const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (kv_row >= p.rows) return;
+  const int n_slabs = wide_slabs(d, kF32WideSlab);
+  const int k0 = (blockIdx.x / n_slabs) * TT;
+  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int b = kv_row / p.kv_heads;
+  const int group = p.heads / p.kv_heads;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+
+  // accumulator rows of this thread: keys k0 + ty + 16 i
+  float dk[R][CN], dv[R][CN];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CN; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  const int t_lo = k0 / TT, t_hi = (p.s + TT - 1) / TT;  // q tiles from the diagonal down
+  for (int m = 0; m < group; ++m) {
+    const int q_row = b * p.heads + (kv_row % p.kv_heads) * group + m;
+    const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(q_row) * p.s * d;
+    const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(q_row) * p.s * d;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int q0 = t * TT;
+      float sc[R][R], dp[R][R];  // rows: q rows q0 + ty + 16 i; columns: keys k0 + tx + 16 j
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
+        __syncthreads();
+        stage_cols<TT, kF32WideChunk>(ks, kg, k0, p.s, d, c0, 1.f);
+        stage_cols<TT, kF32WideChunk>(vs, vg, k0, p.s, d, c0, 1.f);
+        stage_cols<TT, kF32WideChunk>(qs, qg, q0, p.s, d, c0, 1.f);
+        stage_cols<TT, kF32WideChunk>(dos, dog, q0, p.s, d, c0, 1.f);
+        __syncthreads();
+#pragma unroll 4
+        for (int dd = 0; dd < kF32WideChunk; ++dd) {
+          float qv[R], dov[R], kv[R], vv[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            // the same f32 product the forward folds into q
+            qv[i] = qs[(ty + 16 * i) * LC + dd] * p.qscale;
+            dov[i] = dos[(ty + 16 * i) * LC + dd];
+          }
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            kv[j] = ks[(tx + 16 * j) * LC + dd];
+            vv[j] = vs[(tx + 16 * j) * LC + dd];
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+              dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+            }
+        }
+      }
+      // the Q and dO slabs and the rows' lse and delta (their buffers' last
+      // readers passed the chunk loop's barriers)
+      stage_cols<TT, kF32WideSlab>(qslab, qg, q0, p.s, d, col0, 1.f);
+      stage_cols<TT, kF32WideSlab>(doslab, dog, q0, p.s, d, col0, 1.f);
+      if (tid < TT) {
+        const int qi = q0 + tid;
+        const bool in = qi < p.s;
+        lse2[tid] = in ? p.lse[static_cast<size_t>(q_row) * p.s + qi] * kLog2e : -CUDART_INF_F;
+        dlt[tid] = in ? p.delta[static_cast<size_t>(q_row) * p.s + qi] : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = ty + 16 * i;
+        const int qi = q0 + r;
+        const float l2 = lse2[r];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int kj = k0 + tx + 16 * j;
+          const bool live = qi < p.s && kj < p.s && l2 != -CUDART_INF_F && kj <= qi;
+          const float pij = live ? exp2f(sc[i][j] - l2) : 0.f;
+          ps[r * LP + tx + 16 * j] = pij;
+          dss[r * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[r]) * p.scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int r = 0; r < TT; ++r) {
+        float pv[R], dsv[R], dov[CN], qv[CN];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          pv[i] = ps[r * LP + ty + 16 * i];
+          dsv[i] = dss[r * LP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int c = 0; c < CN; ++c) {
+          dov[c] = doslab[r * LS + tx + 16 * c];
+          qv[c] = qslab[r * LS + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int c = 0; c < CN; ++c) {
+            dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
+            dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
+          }
+      }
+    }
+  }
+
+  float* dkg = static_cast<float*>(p.dk) + static_cast<size_t>(kv_row) * p.s * d;
+  float* dvg = static_cast<float*>(p.dv) + static_cast<size_t>(kv_row) * p.s * d;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= p.s) continue;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      const int col = col0 + tx + 16 * c;
+      if (col >= d) continue;
+      const size_t off = static_cast<size_t>(kj) * d + col;
+      dkg[off] = dk[i][c];
+      dvg[off] = dv[i][c];
+    }
+  }
+}
+#endif  // FLASH_ELEM_F16
+#endif  // FLASH_HEAD_DIM_WIDE
+
 #undef TC_MAPS
 
 enum Kind { kDqTri, kDqRect, kDkvTri, kDkvRect };
@@ -1247,6 +1957,67 @@ bool valid(const Params& p, int rows) {
          p.heads % p.kv_heads == 0;
 }
 
+#ifdef FLASH_HEAD_DIM_WIDE
+// The triangle pair at a head dim above 576 with the caller's plan: 64-row
+// tiles, the layout's shared memory, the 128-byte swizzle (16-bit) or none
+// (f32). The general pair is not built there (ROADMAP.md item 24).
+template <Kind K>
+int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
+                  cudaStream_t stream) {
+  if constexpr (!is_tri(K)) {
+    return kUnsupported;
+  } else {
+    constexpr bool kDq = is_dq(K);
+    if (!wide_head_dim(d) || block != 64) return kUnsupported;
+    const int tiles = (p.s + 63) / 64;
+    if (dtype == kElemCode) {
+      if (swizzle != WideGeo::kRowBytes || tiles > 65535 ||
+          smem != (kDq ? dq_wide_smem_bytes() : dkv_wide_smem_bytes())) {
+        return kUnsupported;
+      }
+      if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
+      const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
+      const int bh_kv = kDq ? rows / p.heads * p.kv_heads : rows;
+      CUtensorMap qmap, kmap, vmap, domap;
+      if (!encode_wide_map<Elem16>(&qmap, p.q, p.s, bh, d) ||
+          !encode_wide_map<Elem16>(&domap, p.dout, p.s, bh, d) ||
+          !encode_wide_map<Elem16>(&kmap, p.k, p.s, bh_kv, d) ||
+          !encode_wide_map<Elem16>(&vmap, p.v, p.s, bh_kv, d)) {
+        return kNoTensorMap;
+      }
+      void (*kernel)(Params, int, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
+      if constexpr (kDq) {
+        kernel = flash_bwd_dq_tri_wide_kernel<Elem16>;
+      } else {
+        kernel = flash_bwd_dkv_tri_wide_kernel<Elem16>;
+      }
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int slabs = wide_slabs(d, kDq ? kWideDqSlab : kWideDkvSlab);
+      kernel<<<dim3(rows, tiles, slabs), 128 + 32, smem, stream>>>(p, d, qmap, kmap, vmap, domap);
+      return static_cast<int>(cudaGetLastError());
+    }
+#ifdef FLASH_ELEM_F16
+    return kUnsupported;
+#else
+    {
+      const size_t fixed = kDq ? dq_f32_wide_smem_bytes() : dkv_f32_wide_smem_bytes();
+      if (dtype != 0 || swizzle != 0 || smem != static_cast<int>(fixed)) return kUnsupported;
+      void (*kernel)(Params, int) =
+          kDq ? flash_bwd_dq_tri_wide_f32_kernel : flash_bwd_dkv_tri_wide_f32_kernel;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(fixed));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid(tiles * wide_slabs(d, kF32WideSlab), rows < kMaxGridY ? rows : kMaxGridY,
+                      (rows + kMaxGridY - 1) / kMaxGridY);
+      kernel<<<grid, kThreads, fixed, stream>>>(p, d);
+      return static_cast<int>(cudaGetLastError());
+    }
+#endif
+  }
+}
+#endif  // FLASH_HEAD_DIM_WIDE
+
 // The library's 16-bit type on the tensor cores with the caller's plan; f32
 // (the bf16 library only) on the CUDA cores, whose plan is fixed (its tile,
 // shared memory, no swizzle).
@@ -1255,6 +2026,9 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
              void* stream) {
   if (!valid(p, rows)) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef FLASH_HEAD_DIM_WIDE
+  return dispatch_wide<K>(p, dtype, rows, d, block, smem, swizzle, st);
+#else
   if (dtype == kElemCode) {
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
@@ -1280,6 +2054,7 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
     }
     return dispatch_dim<float, K>(p, rows, d, st);
   }
+#endif  // FLASH_HEAD_DIM_WIDE
 }
 
 // A window is a band of causal attention only, and one of s or more keys
@@ -1296,7 +2071,9 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
 // tri_bwd_plan and rect_bwd_plan). A library takes D 16-256, or (built with
-// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone.
+// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone,
+// or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576, the triangle
+// pair only (flash_bwd.py::wide_bwd_plans).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,

@@ -20,7 +20,10 @@ types; f32 runs on the CUDA cores. fp16 has a library of its own
 ``flash_bwd_f16_d576``), each built at the first call there. At 512 and
 576 the ring's tiles are 32 rows (:func:`ring_rows`) in one stage, and two
 (512) or three (576) CTAs share each own-side tile, one per column slice
-of the gradients (``flash_fwd.col_split``).
+of the gradients (``flash_fwd.col_split``). Above 576 the triangle pair
+runs D-streaming kernels (``flash_bwd_wide``, ``flash_bwd_f16_wide``;
+:func:`wide_bwd_plans`); the general pair is not built there and its plan
+raises (ROADMAP.md item 24).
 """
 
 from __future__ import annotations
@@ -47,10 +50,13 @@ from tpu_operator_torch.kernels.flash_fwd import (
     _raise_on,
     _sm_count,
     _tile_height,
+    WIDE_BOX_BYTES,
     check_block_m,
+    is_wide,
     keep_mask,
     kv_row,
     tile_heights,
+    wide_slabs,
 )
 
 TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTile)
@@ -138,7 +144,10 @@ class BwdPlan:
     (None: no band) are the masks the walk follows; the triangle pair's
     plan is causal with no window. ``ring`` is the rows of a tile of the
     other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
-    per own-side tile, each on a column slice of the gradients."""
+    per own-side tile, each on a column slice of the gradients. Above 576
+    (:func:`wide_bwd_plans`) ``slab`` is the columns a CTA holds and
+    ``stages`` the depth of the ring the head dim's chunks stream through
+    (0 and 0 below)."""
 
     kernel: str
     block: int
@@ -150,6 +159,8 @@ class BwdPlan:
     window: Optional[int] = None
     ring: int = TILE
     col_split: int = 1
+    slab: int = 0
+    stages: int = 0
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (row, tile) that block (x, y) computes, as the kernel maps
@@ -208,13 +219,69 @@ class BwdPlan:
         return out
 
 
+# the D-streaming triangle pair's layout above 576 (flash_bwd.cu, built with
+# -DFLASH_HEAD_DIM_WIDE)
+WIDE_DQ_SLAB = 256     # columns of dQ a 16-bit CTA holds (kWideDqSlab)
+WIDE_DKV_SLAB = 128    # columns of dK and of dV a 16-bit CTA holds (kWideDkvSlab)
+WIDE_BWD_RING = 4      # stages of the chunk ring, four boxes each (kWideRing)
+WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
+F32_WIDE_BWD_CHUNK = 64  # columns of an f32 chunk (kF32WideChunk)
+F32_WIDE_BWD_SLAB = 128  # columns of each gradient an f32 CTA holds (kF32WideSlab)
+ITEM_24 = ("the general backward pair (full attention, a window, segment ids) is not "
+           "built above head dim 576: ROADMAP.md item 24")
+
+
+def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int,
+                   d: int) -> Tuple[BwdPlan, BwdPlan]:
+    """How the triangle pair launches at a head dim ``d`` above 576 (a
+    multiple of 64): (dq plan, dkv plan). Own-side tiles and ring tiles of
+    64 rows; ``col_split`` slabs of ``slab`` columns of the gradients on the
+    grid's z, each CTA forming the whole S and dP (S^T and dP^T) over the
+    head dim: dQ does (2 slabs + 1) / 3 and dK/dV (slabs + 1) / 2 times the
+    ideal tensor-core work. bf16 and fp16: one consumer warpgroup and a
+    producer warp that streams Q, dO, K and V in 64 x 64 boxes through a
+    ring of ``stages`` (four boxes a stage), and per tile the slab operand
+    of the gradient products (dQ: K's slab; dK/dV: Q's and dO's, with the
+    rows' lse and delta) through two more stages; dQ launches heaviest
+    first, dK/dV in order. f32: the CUDA-core pair with 64-row tiles,
+    64-column chunks through shared memory and ``F32_WIDE_BWD_SLAB``-column
+    slabs."""
+    tiles = -(-s // TILE)
+    if dtype == torch.float32:
+        chunk, slab = F32_WIDE_BWD_CHUNK, F32_WIDE_BWD_SLAB
+        slabs = wide_slabs(d, slab)
+        dq = BwdPlan("dq", TILE, 256, (tiles, bh),
+                     4 * (4 * TILE * (chunk + 1) + TILE * (TILE + 1) + TILE * (slab + 1)), 0,
+                     col_split=slabs, slab=slab)
+        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
+                      4 * (4 * TILE * (chunk + 1) + 2 * TILE * (TILE + 1) + 2 * TILE * (slab + 1)
+                           + 2 * TILE), 0, col_split=slabs, slab=slab)
+        return dq, dkv
+    ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
+    bars = 8 * (2 * WIDE_BWD_RING + 2 * stages)
+    dq = BwdPlan("dq", TILE, 160, (bh, tiles),
+                 1024 + ring + stages * (WIDE_DQ_SLAB // TILE) * WIDE_BOX_BYTES + bars, 128,
+                 col_split=wide_slabs(d, WIDE_DQ_SLAB), slab=WIDE_DQ_SLAB, stages=WIDE_BWD_RING)
+    dkv = BwdPlan("dkv", TILE, 160, (bh_kv, tiles),
+                  1024 + ring + stages * (2 * (WIDE_DKV_SLAB // TILE) * WIDE_BOX_BYTES + 2 * TILE * 4)
+                  + bars, 128, col_split=wide_slabs(d, WIDE_DKV_SLAB), slab=WIDE_DKV_SLAB,
+                  stages=WIDE_BWD_RING)
+    return dq, dkv
+
+
 def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
                causal: bool, window: Optional[int], rect: bool,
                block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
     stages each ring tile's segment ids and their range; ``block_m`` forces
-    both kernels' tile height (checked against ``dtype``)."""
+    both kernels' tile height (checked against ``dtype``). Above 576 the
+    triangle pair's plans are :func:`wide_bwd_plans`, and the general pair
+    raises ``ValueError`` (ROADMAP.md item 24)."""
     check_block_m(dtype, block_m, d)
+    if is_wide(d):
+        if rect:
+            raise ValueError(ITEM_24)
+        return wide_bwd_plans(dtype, bh, bh_kv, s, d)
     if dtype == torch.float32:
         t = f32_tile(d)
         tiles = -(-s // t)

@@ -67,6 +67,23 @@
 // 64 rows (72 KiB each) and one stage take 222,232 bytes (the general kernel
 // 264 more). 640 columns would need 245,760 for the three tiles alone, past
 // the 232,448 a block may use: 576 is the widest head this design holds.
+// Above 576 (flash_fwd_wide_kernel<T, TRI>; its own library, built with
+// -DFLASH_HEAD_DIM_WIDE, the head dim a runtime multiple of 64 and the
+// helpers in flash_wide.cuh): the reduction over D streams. A CTA owns 64 q
+// rows and one slab of kWideSlab = 256 columns of O (the grid's z; the last
+// slab starts at D - 256 so that every CTA runs the same m64n256k16 P.V, and
+// writes only the columns no earlier slab owns). Per 64-key tile the
+// producer warp loads the tile's V slab (four boxes) into a two-stage ring,
+// then streams Q and K in 64 x 64 boxes through a four-stage ring; the
+// consumer warpgroup sums S over the D / 64 chunks (one chunk's wgmma in
+// flight while the next is issued, each stage released once its products
+// are done), then runs the general kernel's tile rule, softmax and P.V.
+// Every slab's CTA forms the whole S: (slabs + 1) / 2 times the ideal
+// tensor-core work (2.5x at 1024), and Q, K and V are read from L2 once per
+// key tile per slab. 132,720 bytes of shared memory; the triangle is the
+// same body with its q tiles heaviest first. f32 (flash_fwd_wide_f32_kernel):
+// attend's arithmetic with q and k staged in 64-column chunks and O in
+// 256-column slabs (the slab and the q tile on the grid's x).
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -117,6 +134,9 @@
 #include <type_traits>
 
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, id ranges, the tensor-map encoder
+#ifdef FLASH_HEAD_DIM_WIDE
+#include "flash_wide.cuh"  // the D-streaming kernels' boxes, slabs and maps
+#endif
 
 namespace {
 
@@ -864,6 +884,535 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   }
 }
 
+#ifdef FLASH_HEAD_DIM_WIDE
+// ---------------------------------------------------------------------------
+// Head dims above 576: the D-streaming forward (see the note on top).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideSlab = 256;     // columns of O a 16-bit CTA holds (wgmma's widest N)
+constexpr int kWideRing = 4;       // stages of the Q/K chunk ring
+constexpr int kWideVStages = 2;    // stages of the V slab ring
+constexpr int kF32WideChunk = 64;  // columns of a Q/K chunk of the f32 kernel
+constexpr int kF32WideSlab = 256;  // columns of O an f32 CTA holds
+
+constexpr int wide_smem_bytes() {
+  // alignment slack, the Q/K chunk ring (two boxes a stage), the V slab ring
+  // (kWideSlab / 64 boxes a stage) with each slab's 64 keys' segment ids and
+  // their min and max, the four barrier arrays
+  return kSmemAlign + kWideRing * 2 * kWideBoxBytes +
+         kWideVStages * (kWideSlab / kWideBox) * kWideBoxBytes +
+         kWideVStages * (kRingRows + 2) * 4 + 8 * (2 * kWideRing + 2 * kWideVStages);
+}
+
+constexpr int f32_wide_smem_bytes() {
+  // q and k chunks ([64][chunk + 1]), the v slab ([64][slab + 1]), the p tile
+  // ([64][65]), the keys' segment ids
+  return sizeof(float) * (2 * kBM * (kF32WideChunk + 1) + kBN * (kF32WideSlab + 1) +
+                          kBM * (kBN + 1)) +
+         sizeof(int) * kBN;
+}
+
+// The 16-bit D-streaming forward on the tensor cores: the general kernel's
+// walk, tile rule and softmax, with S formed over d / 64 streamed chunks.
+// blockIdx.x: (batch, head) row; blockIdx.y: 64-row q tile (TRI: reversed,
+// heaviest first); blockIdx.z: the slab of O.
+template <typename T, bool TRI>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_fwd_wide_kernel(Params p, int d, const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap) {
+  static_assert(kElem16<T>, "the tensor-core wide forward is bf16 or fp16");
+  constexpr int BN = kRingRows;
+  constexpr int W = kWideSlab, NB = W / kWideBox;
+  constexpr int R = kWideRing, VS = kWideVStages;
+  constexpr uint32_t kSlabBytes = NB * kWideBoxBytes;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* qk_s = base;                                  // stage st: a Q box, a K box
+  unsigned char* v_s = qk_s + R * 2 * kWideBoxBytes;           // stage vs: NB V boxes
+  int* kid_s = reinterpret_cast<int*>(v_s + VS * kSlabBytes);  // [VS][BN]
+  int* krange_s = kid_s + VS * BN;                             // [VS][min, max]
+  uint64_t* qk_full = reinterpret_cast<uint64_t*>(krange_s + 2 * VS);
+  uint64_t* qk_empty = qk_full + R;
+  uint64_t* v_full = qk_empty + R;
+  uint64_t* v_empty = v_full + VS;
+
+  const bool causal = p.causal != 0;
+  const int window = p.window;  // > 0 only under a causal mask
+  const bool segments = !TRI && p.seg != nullptr;
+  const int bh = blockIdx.x;
+  const int q0 = (TRI ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int own0 = blockIdx.z * W;     // the first column this CTA writes
+  const int col0 = min(own0, d - W);   // the first column of its products
+  const int nc = d / kWideBox;         // chunks of the contraction over d
+  const int q_end = min(p.sq, q0 + 64);
+  const int k_hi = causal ? max(0, min(p.sk, p.q_start + q_end - p.k_start)) : p.sk;
+  const int k_lo = window > 0 ? max(0, p.q_start + q0 - window + 1 - p.k_start) : 0;
+  const int t_lo = k_lo / BN;
+  const int n_tiles = k_lo < k_hi ? (k_hi + BN - 1) / BN - t_lo : 0;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      mbar_init(&qk_full[st], 1);
+      mbar_init(&qk_empty[st], 4);
+    }
+#pragma unroll
+    for (int st = 0; st < VS; ++st) {
+      mbar_init(&v_full[st], segments ? 1 + 31 : 1);  // the TMA bytes, then each id lane
+      mbar_init(&v_empty[st], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer warp: per key tile, lane 0 loads the V slab, then streams the
+    // Q and K chunks; with segment ids, lanes 1-31 stage the tile's key ids
+    // and their range beside the V slab
+    if (lane == 0) {
+      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = (t_lo + t) * BN;
+        const int vs = t % VS;
+        if (t >= VS) mbar_wait(&v_empty[vs], ((t / VS) - 1) & 1);
+        mbar_expect_tx(&v_full[vs], kSlabBytes);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(v_s + vs * kSlabBytes + b * kWideBoxBytes, &vmap, &v_full[vs],
+                      col0 + b * kWideBox, k0, kv_row);
+        }
+        for (int c = 0; c < nc; ++c) {
+          const int i = t * nc + c, st = i % R;
+          if (i >= R) mbar_wait(&qk_empty[st], ((i / R) - 1) & 1);
+          unsigned char* stage = qk_s + st * 2 * kWideBoxBytes;
+          mbar_expect_tx(&qk_full[st], 2 * kWideBoxBytes);
+          tma_load_3d(stage, &qmap, &qk_full[st], c * kWideBox, q0, bh);
+          tma_load_3d(stage + kWideBoxBytes, &kmap, &qk_full[st], c * kWideBox, k0, kv_row);
+        }
+      }
+    } else if (segments) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int vs = t % VS;
+        if (t >= VS) mbar_wait(&v_empty[vs], ((t / VS) - 1) & 1);
+        const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
+                                    kid_s + vs * BN);
+        if (lane == 1) {
+          krange_s[2 * vs] = range.x;
+          krange_s[2 * vs + 1] = range.y;
+        }
+        mbar_arrive(&v_full[vs]);  // releases this lane's stores to the consumers
+      }
+    }
+    return;
+  }
+
+  // consumers: one warpgroup owns q rows q0 .. q0 + 63; this thread holds
+  // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
+  const int tq = lane % 4;
+  const int r0 = q0 + warp * 16 + lane / 4;
+  const float qscale = p.qscale;
+  const int win = window > 0 ? window : INT_MAX;
+  const int qg0 = p.q_start + q0, qg1 = p.q_start + min(q0 + 63, p.sq - 1);
+  int qk[2];
+  int qid[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    qk[h] = p.q_start + row - p.k_start;
+    if (segments && row < p.sq) qid[h] = seg[row];
+  }
+  const int2 qrange =
+      segments ? id_range(seg, q0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  float o[W / 2], s[BN / 2];
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.f, l1 = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int vs = t % VS;
+    const int k0 = (t_lo + t) * BN;
+    mbar_wait(&v_full[vs], (t / VS) & 1);
+    // the general kernel's tile rule (flash_fwd_rect_kernel)
+    const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
+    bool sees = q0 < p.sq;
+    bool masked = k0 + BN > p.sk;
+    if (causal) {
+      sees = sees && qg1 >= kg0;
+      masked = masked || qg0 < kg1;
+    }
+    if (window > 0) {
+      sees = sees && qg0 - kg1 < window;
+      masked = masked || qg1 - kg0 >= window;
+    }
+    if (segments) {
+      const int kmin = krange_s[2 * vs], kmax = krange_s[2 * vs + 1];
+      const bool uniform = qrange.x == qrange.y && kmin == kmax;
+      sees = sees && !(uniform && qrange.x != kmin);
+      masked = masked || !uniform;
+    }
+    if (sees) {
+      // S = Q.K^T over the d / 64 chunks, one chunk's products in flight
+      // while the next is issued; a chunk's stage is released once its
+      // products are done
+      for (int c = 0; c < nc; ++c) {
+        const int i = t * nc + c, st = i % R;
+        mbar_wait(&qk_full[st], (i / R) & 1);
+        const unsigned char* stage = qk_s + st * 2 * kWideBoxBytes;
+        hold(s);
+        wgmma_fence();
+        mma_box_by_box<T>(s, stage, stage + kWideBoxBytes, c == 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        hold(s);
+        if (c > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&qk_empty[(i - 1) % R]);
+        }
+      }
+      wgmma_wait<0>();
+      hold(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qk_empty[(t * nc + nc - 1) % R]);
+
+      const int2* kid = reinterpret_cast<const int2*>(kid_s + vs * BN);
+      auto softmax = [&](auto mask) {
+        constexpr bool kMask = decltype(mask)::value;
+        if constexpr (kMask) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            int2 kj = make_int2(0, 0);
+            if (segments) kj = kid[4 * j + tq];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * j + 2 * tq + e % 2;
+              const int dist = qk[e / 2] - key;
+              bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
+              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+              if (!live) s[4 * j + e] = -CUDART_INF_F;
+            }
+          }
+        }
+        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+        const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
+        const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
+        const float c0 = exp2f(m0 - safe0), c1 = exp2f(m1 - safe1);
+        m0 = mn0;
+        m1 = mn1;
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * kk + h;
+            const float p00 = exp2f(fmaf(s[4 * j], qscale, -safe0));
+            const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
+            const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
+            const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
+            rs0 += p00 + p01;
+            rs1 += p10 + p11;
+            pa[kk][2 * h] = pack2<T>(p00, p01);
+            pa[kk][2 * h + 1] = pack2<T>(p10, p11);
+          }
+        }
+        l0 = l0 * c0 + rs0;
+        l1 = l1 * c1 + rs1;
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          o[4 * j] *= c0;
+          o[4 * j + 1] *= c0;
+          o[4 * j + 2] *= c1;
+          o[4 * j + 3] *= c1;
+        }
+      };
+      if (masked) {
+        softmax(std::true_type{});
+      } else {
+        softmax(std::false_type{});
+      }
+
+      hold(pa);
+      hold(o);
+      wgmma_fence();
+      mma_frag_by_slab<T, W>(o, pa, v_s + vs * kSlabBytes);  // O += P.V_slab, V MN-major
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(o);
+      hold(pa);
+    } else {
+      // a dead tile: its chunks are released unread
+      for (int c = 0; c < nc; ++c) {
+        const int i = t * nc + c, st = i % R;
+        mbar_wait(&qk_full[st], (i / R) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&qk_empty[st]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&v_empty[vs]);  // this warp is done with the slab
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * d;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= p.sq) continue;
+    const float l = half ? l1 : l0;
+    const float denom = l > 0.f ? l : 1.f;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * d + col0);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
+      orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+    }
+    if (tq == 0 && blockIdx.z == 0) {
+      p.lse[static_cast<size_t>(bh) * p.sq + row] =
+          l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
+    }
+  }
+}
+
+// The f32 D-streaming forward on the CUDA cores: attend's arithmetic, with
+// the score tile summed over 64-column chunks of q and k and the output in
+// slabs of kF32WideSlab columns. blockIdx.x: q tile x slabs + slab; y and z:
+// bh rows (kMaxGridY a z slice).
+template <bool TRI>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_wide_f32_kernel(Params p, int d) {
+  constexpr int RN = kBN / 16;
+  constexpr int LC = kF32WideChunk + 1;
+  constexpr int LS = kF32WideSlab + 1;
+  constexpr int LP = kBN + 1;
+  constexpr int CN = kF32WideSlab / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;            // [kBM][LC]
+  float* ks = qs + kBM * LC;   // [kBN][LC]
+  float* vs = ks + kBN * LC;   // [kBN][LS]
+  float* ps = vs + kBN * LS;   // [kBM][LP]
+  int* kseg = reinterpret_cast<int*>(ps + kBM * LP);
+
+  const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (bh >= p.rows) return;
+  const int n_slabs = wide_slabs(d, kF32WideSlab);
+  const int q0 = (blockIdx.x / n_slabs) * kBM;
+  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int b = bh / p.heads;
+  const int kv_row = b * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.sq * d;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.sk * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.sk * d;
+  const bool segments = !TRI && p.seg != nullptr;
+
+  const int q_end = min(q0 + kBM, p.sq);
+  int k_lo = 0, k_hi = p.sk;
+  if (TRI) {
+    k_hi = min(p.sk, q_end);
+  } else if (p.causal) {
+    k_hi = max(0, min(p.sk, p.q_start + q_end - p.k_start));
+    if (p.window > 0) k_lo = max(0, p.q_start + q0 - p.window + 1 - p.k_start);
+  }
+  const int t_lo = k_lo / kBN;
+  const int t_hi = (k_hi + kBN - 1) / kBN;
+
+  float m[kRM], l[kRM], acc[kRM][CN];
+  int qseg[kRM];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
+    const int qi = q0 + ty + 16 * i;
+    qseg[i] = (segments && qi < p.sq) ? p.seg[static_cast<size_t>(b) * p.sk + qi] : 0;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * kBN;
+    float s[kRM][RN];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
+      __syncthreads();  // the previous chunk's (or tile's) reads are done
+      for (int i = tid; i < kBM * kF32WideChunk; i += kThreads) {
+        const int r = i / kF32WideChunk, c = i % kF32WideChunk;
+        // q pre-scaled in f32, as attend scales it
+        qs[r * LC + c] =
+            q0 + r < p.sq ? qg[static_cast<size_t>(q0 + r) * d + c0 + c] * p.qscale : 0.f;
+        ks[r * LC + c] = k0 + r < p.sk ? kg[static_cast<size_t>(k0 + r) * d + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < kF32WideChunk; ++dd) {
+        float qv[kRM], kv[RN];
+#pragma unroll
+        for (int i = 0; i < kRM; ++i) qv[i] = qs[(ty + 16 * i) * LC + dd];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) kv[j] = ks[(tx + 16 * j) * LC + dd];
+#pragma unroll
+        for (int i = 0; i < kRM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    // the V slab and the keys' ids (their buffers' last readers passed the
+    // chunk loop's barriers)
+    for (int i = tid; i < kBN * kF32WideSlab; i += kThreads) {
+      const int r = i / kF32WideSlab, c = i % kF32WideSlab;
+      const bool in = k0 + r < p.sk && col0 + c < d;
+      vs[r * LS + c] = in ? vg[static_cast<size_t>(k0 + r) * d + col0 + c] : 0.f;
+    }
+    if (segments && tid < kBN) {
+      kseg[tid] = (k0 + tid < p.sk) ? p.seg[static_cast<size_t>(b) * p.sk + k0 + tid] : 0;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        bool keep = kj < p.sk;
+        if (TRI) {
+          keep = keep && kj <= qi;
+        } else {
+          if (p.causal) {
+            const int dist = (p.q_start + qi) - (p.k_start + kj);
+            keep = keep && dist >= 0 && (p.window <= 0 || dist < p.window);
+          }
+          if (segments) keep = keep && qseg[i] == kseg[tx + 16 * j];
+        }
+        if (!keep) s[i][j] = -CUDART_INF_F;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < RN; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
+      const float corr = (m[i] == -CUDART_INF_F) ? 0.f : exp2f(m[i] - safe);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const float pj = (s[i][j] == -CUDART_INF_F) ? 0.f : exp2f(s[i][j] - safe);
+        rs += pj;
+        ps[(ty + 16 * i) * LP + tx + 16 * j] = pj;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CN; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBN; ++kk) {
+      float pv[kRM], vv[CN];
+#pragma unroll
+      for (int i = 0; i < kRM; ++i) pv[i] = ps[(ty + 16 * i) * LP + kk];
+#pragma unroll
+      for (int c = 0; c < CN; ++c) vv[c] = vs[kk * LS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+  float* og = static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.sq * d;
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.sq) continue;
+    const float denom = (l[i] == 0.f) ? 1.f : l[i];
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      const int col = col0 + tx + 16 * c;
+      if (col < d) og[static_cast<size_t>(qi) * d + col] = acc[i][c] / denom;
+    }
+    if (tx == 0 && col0 == 0) {
+      const bool live = l[i] > 0.f && m[i] != -CUDART_INF_F;
+      p.lse[static_cast<size_t>(bh) * p.sq + qi] = live ? m[i] * kLn2 + logf(l[i]) : -CUDART_INF_F;
+    }
+  }
+}
+
+// The library's 16-bit type on the tensor cores, or f32 on the CUDA cores, at
+// a head dim above 576, with the caller's plan: 64-row q tiles, the layout's
+// shared memory, the 128-byte swizzle (16-bit) or none (f32).
+template <bool TRI>
+int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
+                  cudaStream_t stream) {
+  if (!wide_head_dim(d) || block_m != 64) return kUnsupported;
+  if (dtype == kElemCode) {
+    if (swizzle != WideGeo::kRowBytes || smem != wide_smem_bytes()) return kUnsupported;
+    if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
+    const int q_tiles = (p.sq + 63) / 64;
+    if (q_tiles > 65535) return kUnsupported;
+    CUtensorMap qmap, kmap, vmap;
+    const int bh_kv = bh / p.heads * p.kv_heads;
+    if (!encode_wide_map<Elem16>(&qmap, p.q, p.sq, bh, d) ||
+        !encode_wide_map<Elem16>(&kmap, p.k, p.sk, bh_kv, d) ||
+        !encode_wide_map<Elem16>(&vmap, p.v, p.sk, bh_kv, d)) {
+      return kNoTensorMap;
+    }
+    auto kernel = flash_fwd_wide_kernel<Elem16, TRI>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(bh, q_tiles, wide_slabs(d, kWideSlab)), 128 + 32, smem, stream>>>(p, d, qmap,
+                                                                                  kmap, vmap);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (!kWithF32) {
+    return kUnsupported;
+  } else {
+    if (dtype != 0 || swizzle != 0 || smem != f32_wide_smem_bytes()) return kUnsupported;
+    auto kernel = flash_fwd_wide_f32_kernel<TRI>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((p.sq + kBM - 1) / kBM * wide_slabs(d, kF32WideSlab),
+                    bh < kMaxGridY ? bh : kMaxGridY, (bh + kMaxGridY - 1) / kMaxGridY);
+    kernel<<<grid, kThreads, smem, stream>>>(p, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+#endif  // FLASH_HEAD_DIM_WIDE
+
 // TRI: the triangle (K/V tiles as tall as the q tile); else the general
 // kernel (64-key ring tiles).
 template <typename T, int D, int WG, bool TRI>
@@ -930,6 +1479,9 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef FLASH_HEAD_DIM_WIDE
+  return dispatch_wide<TRI>(p, dtype, bh, d, block_m, smem, swizzle, st);
+#else
   if (dtype == kElemCode) {
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
@@ -968,6 +1520,7 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
       default: return kUnsupported;
     }
   }
+#endif  // FLASH_HEAD_DIM_WIDE
 }
 
 }  // namespace
@@ -979,10 +1532,11 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
 // take, -2 when no TMA tensor map could be made. block_m, smem (bytes) and
 // swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
 // rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
-// (64 only at D 256, 512 and 576); f32 runs the CUDA-core kernel, whose plan
-// is fixed (64, its shared memory, no swizzle). A library takes D 16-256, or
-// (built with -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576)
-// D 576 alone.
+// (64 only at D 256, 512, 576 and above); f32 runs the CUDA-core kernel, whose
+// plan is fixed (64, its shared memory, no swizzle). A library takes D
+// 16-256, or (built with -DFLASH_HEAD_DIM_512) D 512 alone, or
+// (-DFLASH_HEAD_DIM_576) D 576 alone, or (-DFLASH_HEAD_DIM_WIDE) every
+// multiple of 64 above 576 (flash_fwd.py::wide_plan).
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,

@@ -17,14 +17,18 @@ f32 runs on the CUDA cores. fp16 has a library of its own
 (``flash_fwd_d512``, ``flash_fwd_f16_d512``) and 576 (``flash_fwd_d576``,
 ``flash_fwd_f16_d576``), each built at the first call there.
 
-The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 576); a caller
-with another head dim up to 576 zero-pads the head to
-:func:`padded_head_dim` and passes the true head dim's softmax scale as
+The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 576) and every
+multiple of 64 above 576; a caller with another head dim zero-pads the head
+to :func:`padded_head_dim` and passes the true head dim's softmax scale as
 ``sm_scale`` (``workloads/flashattention.py`` does both). At 512 two CTAs
 share each q tile, one on each column half of O, at 576 (MLA's absorbed
-heads) three, one on each column third (:func:`col_split`). Above 576
-raises: the three 64-row tiles of a 640-wide head alone would pass a
-block's shared memory (ROADMAP.md item 23).
+heads) three, one on each column third (:func:`col_split`). Above 576 the
+D-streaming ("wide") kernels run (libraries ``flash_fwd_wide``,
+``flash_fwd_f16_wide``, built at the first call there): the three 64-row
+tiles of a 640-wide head alone would pass a block's shared memory, so the
+scores are summed over 64-column chunks that stream through a ring, and
+each CTA holds one slab of O (:func:`wide_plan`); the head dim is a
+runtime argument, so one build serves every width.
 """
 
 from __future__ import annotations
@@ -51,21 +55,28 @@ HEAD_DIMS = (16, 32, 64, 128)
 # (their 128-row tiles would not fit a block's shared memory or a thread's
 # registers)
 NATIVE_HEAD_DIMS = HEAD_DIMS + (256, 512, 576)
-MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
+MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]  # the widest head of the whole-row kernels
+WIDE_BOX = 64  # above MAX_HEAD_DIM: columns of a streamed chunk (kWideBox in flash_wide.cuh)
 LOG2E = 1.4426950408889634
 TMA_ALIGN = 16  # bytes: base alignment a TMA tensor map needs
 
 
 def padded_head_dim(d: int) -> int:
-    """The smallest head dim in ``NATIVE_HEAD_DIMS`` that holds ``d``: a
-    head of d columns runs zero-padded to it, which changes neither q·k,
-    nor lse, nor rowsum(dO∘O). Raises ``ValueError`` above
-    ``MAX_HEAD_DIM``: Q, K and V tiles of 64 rows at 640 columns alone
-    would pass a block's shared memory (ROADMAP.md item 23)."""
-    if isinstance(d, bool) or not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim must be 1 to {MAX_HEAD_DIM}, got {d!r}: head dims above "
-                         f"{MAX_HEAD_DIM} are ROADMAP.md item 23")
+    """The head dim the kernels run a head of ``d`` columns at, zero-padded,
+    which changes neither q·k, nor lse, nor rowsum(dO∘O): the smallest of
+    ``NATIVE_HEAD_DIMS`` that holds ``d``, or above ``MAX_HEAD_DIM`` the
+    next multiple of 64 (the wide kernels' chunk). Raises ``ValueError``
+    for ``d`` < 1 and for a bool."""
+    if isinstance(d, bool) or not d >= 1:
+        raise ValueError(f"head_dim must be a positive int, got {d!r}")
+    if d > MAX_HEAD_DIM:
+        return -(-int(d) // WIDE_BOX) * WIDE_BOX
     return next(n for n in NATIVE_HEAD_DIMS if n >= d)
+
+
+def is_wide(d: int) -> bool:
+    """Whether head dim ``d`` (padded) runs on the D-streaming kernels."""
+    return d > MAX_HEAD_DIM
 
 
 def col_split(d: int) -> int:
@@ -153,7 +164,10 @@ class TriPlan:
     shared memory in bytes, the TMA/wgmma swizzle span in bytes (0: the
     f32 CUDA-core kernel, which uses no TMA), and ``col_split``, the
     grid's z: the CTAs per q tile, each on a column slice of O
-    (:func:`col_split`)."""
+    (:func:`col_split`; the wide kernels' slabs). The wide kernels' plans
+    also state ``slab``, the columns of O a CTA holds, and ``stages``, the
+    depth of the ring the chunks of the head dim stream through (0 and 0
+    at head dims up to 576)."""
 
     block_m: int
     threads: int
@@ -161,6 +175,8 @@ class TriPlan:
     smem_bytes: int
     swizzle: int
     col_split: int = 1
+    slab: int = 0
+    stages: int = 0
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
@@ -185,13 +201,15 @@ TILE_HEIGHTS = {
 
 def tile_heights(dtype: torch.dtype, d: Optional[int] = None) -> Tuple[int, ...]:
     """The tile heights the kernels of ``dtype`` take at head dim ``d``
-    (padded to a native one); with no ``d``, at any head dim. A dtype no
-    kernel takes answers as bf16 does, so that its error is the dtype's."""
+    (padded to a native one; above 576 the wide kernels' 64 rows only); with
+    no ``d``, at any head dim. A dtype no kernel takes answers as bf16 does,
+    so that its error is the dtype's."""
     if dtype not in _DTYPES:
         dtype = torch.bfloat16
     if d is None:
         return tuple(sorted({h for (t, _), hs in TILE_HEIGHTS.items() if t == dtype for h in hs}))
-    return TILE_HEIGHTS[dtype, padded_head_dim(d)]
+    width = padded_head_dim(d)
+    return (64,) if is_wide(width) else TILE_HEIGHTS[dtype, width]
 
 
 def check_block_m(dtype: torch.dtype, block_m: Optional[int], d: Optional[int] = None) -> None:
@@ -238,6 +256,8 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     ``ValueError``. The kernel checks the plan against its own layout and
     refuses one that differs."""
     check_block_m(dtype, block_m, d)
+    if is_wide(d):
+        return wide_plan(dtype, bh, s, d)
     if dtype == torch.float32:
         keys = f32_keys(d)
         smem = 4 * ((64 + 2 * keys) * (d + 1) + 64 * (keys + 1)) + 4 * keys
@@ -247,6 +267,48 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     smem = 1024 + (block + 2 * stages * block) * d * 2 + 8 * (2 * stages + 1)
     return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64),
                    col_split(d))
+
+
+# the D-streaming forward's layout above MAX_HEAD_DIM (flash_fwd.cu, built
+# with -DFLASH_HEAD_DIM_WIDE)
+WIDE_SLAB = 256       # columns of O a 16-bit CTA holds: wgmma's widest N (kWideSlab)
+WIDE_RING = 4         # stages of the ring of Q and K chunks (kWideRing)
+WIDE_V_STAGES = 2     # stages of the ring of V slabs (kWideVStages)
+F32_WIDE_CHUNK = 64   # columns of an f32 CTA's q and k chunks (kF32WideChunk)
+F32_WIDE_SLAB = 256   # columns of O an f32 CTA holds (kF32WideSlab)
+WIDE_BOX_BYTES = WIDE_BOX * WIDE_BOX * 2  # a 64 x 64 box of 16-bit values (kWideBoxBytes)
+
+
+def wide_slabs(d: int, width: int) -> int:
+    """Column slabs of ``width`` over head dim ``d``: one CTA each on the
+    grid's z; the last starts at d - width, so that every CTA runs the same
+    product, and writes only the columns no earlier slab owns."""
+    return -(-d // width)
+
+
+def wide_plan(dtype: torch.dtype, bh: int, s: int, d: int) -> TriPlan:
+    """How both forwards launch at a head dim ``d`` above ``MAX_HEAD_DIM``
+    (a multiple of 64): q tiles of 64 rows, and ``col_split`` slabs of
+    ``slab`` columns of O on the grid's z, each CTA forming the whole score
+    tile: ``(slabs + 1) / 2`` times the ideal tensor-core work. bf16 and
+    fp16: one consumer warpgroup and a producer warp that streams Q and K
+    in 64 x 64 boxes through a ring of ``stages`` (``WIDE_RING``) and each
+    key tile's V slab through ``WIDE_V_STAGES`` more; shared memory for
+    both rings, the slabs' staged segment ids (the general kernel's; the
+    triangle's layout is the same), 1 KiB of alignment slack and the
+    barriers; grid (bh, q tiles), the triangle heaviest first; the 128-byte
+    swizzle. f32: the CUDA-core kernel with 64-column q and k chunks through
+    shared memory, ``F32_WIDE_SLAB``-column slabs (slab and q tile on the
+    grid's x), rows on y and z."""
+    tiles = -(-s // 64)
+    if dtype == torch.float32:
+        smem = 4 * (2 * 64 * (F32_WIDE_CHUNK + 1) + 64 * (F32_WIDE_SLAB + 1) + 64 * 65) + 4 * 64
+        return TriPlan(64, 256, (tiles, bh), smem, 0, wide_slabs(d, F32_WIDE_SLAB),
+                       F32_WIDE_SLAB, 0)
+    smem = (1024 + WIDE_RING * 2 * WIDE_BOX_BYTES
+            + WIDE_V_STAGES * (WIDE_SLAB // WIDE_BOX) * WIDE_BOX_BYTES
+            + WIDE_V_STAGES * (RECT_TILE + 2) * 4 + 8 * (2 * WIDE_RING + 2 * WIDE_V_STAGES))
+    return TriPlan(64, 160, (bh, tiles), smem, 128, wide_slabs(d, WIDE_SLAB), WIDE_SLAB, WIDE_RING)
 
 
 RECT_TILE = 64  # keys of a ring tile of the 16-bit general kernel (kRingRows in hopper.cuh)
@@ -274,6 +336,8 @@ class RectPlan:
     q_start: int
     k_start: int
     col_split: int = 1
+    slab: int = 0
+    stages: int = 0
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
@@ -358,12 +422,12 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
     tri = tri_plan(dtype, bh, sq, d, sms, block_m)
     smem = tri.smem_bytes
-    if dtype != torch.float32:
+    if dtype != torch.float32 and not is_wide(d):
         stages = ring_stages(d)
         smem = (1024 + (tri.block_m + 2 * stages * RECT_TILE) * d * 2
                 + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
     return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
-                    tri.col_split)
+                    tri.col_split, tri.slab, tri.stages)
 
 
 @functools.cache
@@ -386,8 +450,10 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
         raise ValueError(f"q/k/v must share a dtype in {list(_DTYPES)}: "
                          f"{qb.dtype}, {kb.dtype}, {vb.dtype}")
     d = qb.shape[2]
-    if d not in NATIVE_HEAD_DIMS or kb.shape[2] != d or vb.shape != kb.shape:
-        raise ValueError(f"head_dim must be one of {NATIVE_HEAD_DIMS} (pad others with "
+    native = d in NATIVE_HEAD_DIMS or (is_wide(d) and d % WIDE_BOX == 0)
+    if not native or kb.shape[2] != d or vb.shape != kb.shape:
+        raise ValueError(f"head_dim must be one of {NATIVE_HEAD_DIMS} or a multiple of "
+                         f"{WIDE_BOX} above {MAX_HEAD_DIM} (pad others with "
                          f"padded_head_dim) and match across q/k/v: "
                          f"{tuple(qb.shape)}, {tuple(kb.shape)}, {tuple(vb.shape)}")
     if heads % kv_heads or qb.shape[0] // heads * kv_heads != kb.shape[0]:
@@ -416,10 +482,10 @@ def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
 def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
-    ``_d512`` or ``_d576`` after either at d 512 or 576
+    ``_d512`` or ``_d576`` after either at d 512 or 576, ``_wide`` above 576
     (``build.VARIANTS``)."""
     return (source + ("_f16" if dtype == torch.float16 else "")
-            + (f"_d{d}" if d in (512, 576) else ""))
+            + ("_wide" if is_wide(d) else f"_d{d}" if d in (512, 576) else ""))
 
 
 def _lib(dtype: torch.dtype, d: int) -> ctypes.CDLL:

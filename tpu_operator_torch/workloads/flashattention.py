@@ -27,16 +27,19 @@ there the value is checked and changes nothing.
 
 Head dims: the kernels take 16, 32, 64, 128, 256, 512 and 576
 (``flash_fwd.NATIVE_HEAD_DIMS``; 576 is MLA's absorbed head: a 512-wide
-latent and 64 rope columns); any other head dim up to 576 runs
-zero-padded to the next of those (:func:`_collapse_heads` writes the
-collapsed copy it makes anyway into a zero buffer that wide), with the
-true head dim's softmax scale passed down; the output and the gradients
-leave as views of their first D columns. Zero columns change neither
-q·k, nor lse, nor Δ = rowsum(dO∘O), and the padded output columns are
-zero, so the result is the unpadded one. The padded products are wasted
-work: 33% at 96 → 128, 14% at 112 → 128, 60% at 80 → 128 (native 80,
-96 and 112 are ROADMAP.md item 20), 33% at 384 → 512, 6% at 544 → 576.
-Above 576 raises (item 23).
+latent and 64 rope columns) and every multiple of 64 above 576 (the
+D-streaming kernels); any other head dim runs zero-padded to the next of
+those (:func:`_collapse_heads` writes the collapsed copy it makes anyway
+into a zero buffer that wide), with the true head dim's softmax scale
+passed down; the output and the gradients leave as views of their first
+D columns. Zero columns change neither q·k, nor lse, nor Δ =
+rowsum(dO∘O), and the padded output columns are zero, so the result is
+the unpadded one. The padded products are wasted work: 33% at 96 → 128,
+14% at 112 → 128, 60% at 80 → 128 (native 80, 96 and 112 are ROADMAP.md
+item 20), 33% at 384 → 512, 6% at 544 → 576, 1% at 700 → 704. Above 576
+both forwards and the triangle's backward pair run; a gradient through
+the general pair (full attention, a window, segment ids) raises
+``ValueError`` before any kernel launches (ROADMAP.md item 24).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from typing import Optional
 import torch
 
 from tpu_operator_torch.kernels.flash_bwd import (
+    ITEM_24,
     flash_bwd_dkv_rect,
     flash_bwd_dkv_tri,
     flash_bwd_dq_rect,
@@ -58,6 +62,7 @@ from tpu_operator_torch.kernels.flash_fwd import (
     check_block_m,
     flash_fwd_rect,
     flash_fwd_tri,
+    is_wide,
     padded_head_dim,
     tile_heights,
 )
@@ -151,11 +156,16 @@ def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads:
                     sm_scale: Optional[float] = None):
     """(dq, dk, dv) over collapsed rows: the triangle pair for plain causal
     attention, the general pair otherwise — the reference's choice — at
-    the tile height ``block_m`` and the softmax scale ``sm_scale``."""
+    the tile height ``block_m`` and the softmax scale ``sm_scale``. Above
+    head dim 576 only the triangle pair exists: anything else raises
+    ``ValueError`` (ROADMAP.md item 24)."""
+    triangle = causal and window is None and seg is None and kb.shape[1] == qb.shape[1]
+    if is_wide(qb.shape[-1]) and not triangle:
+        raise ValueError(ITEM_24)
     # D_i = rowsum(dO ∘ O) in f32: plain tensor ops, as the reference
     # leaves it to XLA
     delta = (g.float() * out.float()).sum(-1)
-    if causal and window is None and seg is None and kb.shape[1] == qb.shape[1]:
+    if triangle:
         dq = _flash_dq_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
                                 sm_scale=sm_scale)
         dk, dv = _flash_dkv_triangle(qb, kb, vb, out, g, lse, delta, heads, kv_heads, block_m,
@@ -234,11 +244,15 @@ def flash_attention(
     last ``window`` positions (causal only); ``segment_ids`` (B, S) int
     restricts attention to same-segment pairs. Unset blocks resolve
     through the published autotune winners (``tuned_flash_blocks``), an
-    unset ``block_m`` through ``tuned_flash_tile``. Any head dim up to 576
-    runs (zero-padded to the kernels' next native one); above 576 raises."""
+    unset ``block_m`` through ``tuned_flash_tile``. Any head dim runs
+    (zero-padded to the kernels' next one); above 576 a gradient through
+    full attention, a window or segment ids raises ``ValueError`` here,
+    before any kernel launches (ROADMAP.md item 24)."""
     b, s, h, d = q.shape
     width, sm_scale = _head_dims(d)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if grad and is_wide(width) and not (causal and window is None and segment_ids is None):
+        raise ValueError(ITEM_24)
     block_m = _resolve_block_m(block_m, q.dtype, s, h, d, fwd_bwd=grad)
     if block_q is None or block_k is None:
         from tpu_operator_torch.workloads.autotune import tuned_flash_blocks
