@@ -25,8 +25,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    two warpgroups and 256 at one) and of both backward pairs (36), of
    the same 18 + 36 in fp16 (54), and of the D 512 and D 576 libraries' 6
    each (one warpgroup, ``HEAD_DIM_512_INSTANTIATIONS``,
-   ``HEAD_DIM_576_INSTANTIATIONS``) and the wide libraries' 4 each
-   (``WIDE_HEAD_INSTANTIATIONS``: both forwards and the triangle pair),
+   ``HEAD_DIM_576_INSTANTIATIONS``) and the wide libraries' 2 forward and 4
+   backward each (``WIDE_HEAD_INSTANTIATIONS``: both forwards, both pairs),
    failing when one has none, when an instantiation spills registers (a D
    576 or wide library's f32 kernels too), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
@@ -75,8 +75,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
    (2,128,4,1024) and ragged (2,100,4,640) at GQA 2, both forwards and the
-   triangle pair; full attention at (1,4096,8,1024) and serving's f32
-   chunk at 1024, forward only; a (1,1024,4,2048) triangle forward), each
+   triangle pair; the general forward at full attention (1,4096,8,1024) and
+   serving's f32 chunk at 1024; the general pair at phase 19's shape packed
+   in two documents (bf16 and fp16) and under a window of 128, at full
+   attention (1,4096,8,1024), at (2,1000,4,700) padded to 704 with GQA 2, a
+   window and segments, and in f32 at (2,128,4,1024) with a window and
+   segments and ragged (2,100,4,640) at GQA 2 with segments; a
+   (1,1024,4,2048) triangle forward), each
    row naming the SDPA backend that answered its library call; then
    the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
@@ -322,12 +327,14 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    and falling, the seeded forward output within ``FORWARD_GAP_TOL``, exact
    launches, ``GRAPH_STEPS`` graphed steps bit for bit equal to the eager
    step, the step's eager, replayed and device ms, the elastic trainer
-   through a fault and a resume (phase 17's); (b) the packed burn-in
-   and a gradient under a window or segment ids raise ``ValueError``
-   naming ROADMAP.md item 24 before any kernel launches (the general
-   backward pair is not built above 576); (c) f32 ``flash_attention``
-   gradients at (1,256,2,1024), plain causal, against autograd through
-   dense attention within 1e-4; (d) serving at head dim 1024 (f32): phase
+   through a fault and a resume (phase 17's); (b) ``packed_segments=2``
+   through the general pair: against the dense path under the documents'
+   mask within 2e-2 relative and falling, the forward output's gap,
+   exactly 3 launches of each general kernel and none of the triangle's,
+   ``GRAPH_STEPS`` graphed steps bit for bit; (c) f32 ``flash_attention``
+   gradients at (1,256,2,1024) against autograd through dense attention
+   within 1e-4: plain causal, a window of 128 with two segments, full
+   attention; (d) serving at head dim 1024 (f32): phase
    5's 16 requests with dense prefill's greedy tokens, 48
    ``flash_fwd_rect`` launches; (e) the phase's seconds.
 
@@ -584,13 +591,17 @@ def _bwd_label(mangled: str, elem: str):
 
 def wide_label(mangled: str, elem: str = BF16_MANGLED):
     """A label for a 16-bit instantiation of a D-streaming kernel
-    (``flash_fwd_wide_kernel<T, TRI>``, ``flash_bwd_{dq,dkv}_tri_wide_kernel<T>``):
-    ``wide_tri``, ``wide_rect``, ``dq_wide`` or ``dkv_wide``; else None."""
+    (``flash_fwd_wide_kernel<T, TRI>``,
+    ``flash_bwd_{dq,dkv}_{tri,rect}_wide_kernel<T>``): ``wide_tri``,
+    ``wide_rect``, ``dq_wide``, ``dkv_wide``, ``dq_rect_wide`` or
+    ``dkv_rect_wide``; else None."""
     found = re.search(rf"flash_fwd_wide_kernelI{elem}Lb([01])E", mangled)
     if found:
         return "wide_tri" if found.group(1) == "1" else "wide_rect"
-    found = re.search(rf"flash_bwd_(dq|dkv)_tri_wide_kernelI{elem}E", mangled)
-    return f"{found.group(1)}_wide" if found else None
+    found = re.search(rf"flash_bwd_(dq|dkv)_(tri|rect)_wide_kernelI{elem}E", mangled)
+    if not found:
+        return None
+    return f"{found.group(1)}{'_rect' if found.group(2) == 'rect' else ''}_wide"
 
 
 def wide_f16_label(mangled: str):
@@ -630,11 +641,11 @@ HEAD_DIM_512_INSTANTIATIONS = {"flash_fwd_d512": 2, "flash_bwd_d512": 4,
 HEAD_DIM_576_INSTANTIATIONS = {"flash_fwd_d576": 2, "flash_bwd_d576": 4,
                                "flash_fwd_f16_d576": 2, "flash_bwd_f16_d576": 4}
 # and the D-streaming libraries of head dims above 576 (-DFLASH_HEAD_DIM_WIDE):
-# both forwards (the triangle and the general kernel) and the triangle pair,
-# in the library's 16-bit type; every kernel (the f32 ones too) held to 0
-# spill bytes
-WIDE_HEAD_INSTANTIATIONS = {"flash_fwd_wide": 2, "flash_bwd_wide": 2, "flash_fwd_f16_wide": 2,
-                            "flash_bwd_f16_wide": 2}
+# both forwards (the triangle and the general kernel) and both backward
+# pairs, in the library's 16-bit type; every kernel (the f32 ones too) held
+# to 0 spill bytes
+WIDE_HEAD_INSTANTIATIONS = {"flash_fwd_wide": 2, "flash_bwd_wide": 4, "flash_fwd_f16_wide": 2,
+                            "flash_bwd_f16_wide": 4}
 WIDE_INSTANTIATIONS = {**HEAD_DIM_512_INSTANTIATIONS, **HEAD_DIM_576_INSTANTIATIONS}
 # the fp16 libraries (kernels/build.py VARIANTS: the same sources built with
 # -DFLASH_ELEM_F16) hold the same instantiations in fp16, and no other
@@ -1195,8 +1206,10 @@ HEAD_DIM_576_BWD_CASES = [
 # phase 3's rows above head dim 576 (phase 19), on the D-streaming kernels:
 # phase 19's (1,8192,8,1024) with one kv head in bf16 and fp16, 640 and the
 # zero-padded 700 (-> 704) in bf16, f32 on the CUDA cores (ragged at GQA 2);
-# the general forward alone at full attention and serving's f32 chunk (its
-# backward is ROADMAP.md item 24); one forward at head dim 2048
+# the general forward at full attention and serving's f32 chunk; the general
+# pair at phase 19's packed documents (bf16 and fp16), a window, full
+# attention, the padded 700 with a window and segments at GQA 2, and f32
+# (ragged at GQA 2); one forward at head dim 2048
 WIDE_Q = (1, 8192, 8, 1024)
 WIDE_KERNEL_CASES = [
     dict(kernel="flash_fwd_tri", label="head dim 1024 bf16 (1,8192,8,1024) h_kv 1", q=WIDE_Q,
@@ -1230,6 +1243,22 @@ WIDE_BWD_CASES = [
     dict(pair="tri", label="f32 (2,128,4,1024)", q=(2, 128, 4, 1024), dtype=torch.float32),
     dict(pair="tri", label="ragged f32 (2,100,4,640) h_kv 2", q=(2, 100, 4, 640), h_kv=2,
          dtype=torch.float32),
+] + [
+    dict(pair="rect", label=f"head dim 1024 packed 2 segments {t} (1,8192,8,1024) h_kv 1",
+         q=WIDE_Q, h_kv=1, dtype=dtype, causal=True, packed=2, inner=1, main=main)
+    for t, dtype, main in (("bf16", torch.bfloat16, True), ("fp16", torch.float16, False))
+] + [
+    dict(pair="rect", label="head dim 1024 window 128 bf16 (1,8192,8,1024) h_kv 1", q=WIDE_Q,
+         h_kv=1, dtype=torch.bfloat16, causal=True, window=128, inner=1),
+    dict(pair="rect", label="bf16 (1,4096,8,1024) full", q=(1, 4096, 8, 1024),
+         dtype=torch.bfloat16, causal=False, inner=1),
+    dict(pair="rect", label="bf16 (2,1000,4,700) h_kv 2, window 33, segments cut 333, padded "
+         "to 704", q=(2, 1000, 4, 700), h_kv=2, dtype=torch.bfloat16, causal=True, window=33,
+         cut=333),
+    dict(pair="rect", label="f32 (2,128,4,1024) window 33, segments cut 88", q=(2, 128, 4, 1024),
+         dtype=torch.float32, causal=True, window=33, cut=88),
+    dict(pair="rect", label="ragged f32 (2,100,4,640) h_kv 2, segments cut 37",
+         q=(2, 100, 4, 640), h_kv=2, dtype=torch.float32, causal=True, cut=37),
 ]
 
 
@@ -1839,16 +1868,17 @@ def _replays_vs_eager(step, params, batch) -> dict:
             "bitwise": graphed == eager}
 
 
-def _step_times(step, params, batch) -> dict:
+def _step_times(step, params, batch, inner: int = 10) -> dict:
     """A graphed train step's ms: eager (``step.eager`` as a caller pays
     it), replayed (the graphed step on its own params, as a loop calls it)
-    and device (the eager step captured: no host between launches); and
-    the device operations of one step."""
+    and device (the eager step captured: no host between launches), each
+    the median of 7 timings of ``inner`` calls; and the device operations
+    of one step."""
     static, _ = step(params, batch)
     static, _ = step(static, batch)  # captured by now
-    return {"step_ms": cuda_ms(lambda: step.eager(params, batch), inner=10),
-            "step_replay_ms": cuda_ms(lambda: step(static, batch), inner=10),
-            "step_device_ms": device_ms(lambda: step.eager(params, batch), inner=10),
+    return {"step_ms": cuda_ms(lambda: step.eager(params, batch), inner=inner),
+            "step_replay_ms": cuda_ms(lambda: step(static, batch), inner=inner),
+            "step_device_ms": device_ms(lambda: step.eager(params, batch), inner=inner),
             "step_graph_nodes": graph_nodes(lambda: step.eager(params, batch))}
 
 
@@ -4110,6 +4140,10 @@ HEAD_DIM_TRAINER_RUN = {"total_steps": 6, "checkpoint_every": 3, "fail_at_steps"
 # checkpoint every 2 steps, a fault at 4 (step 3 is lost and run again), 5
 # executed steps in place of 7
 WIDE_TRAINER_RUN = {"total_steps": 4, "checkpoint_every": 2, "fail_at_steps": (4,)}
+# calls per timing of a wide-head step (phases 17-19; the others take 10):
+# their steps take 48-113 ms of device time, so the median of 7 timings of 3
+# calls reads as steady as of 10, and the run sheds ~50 s
+WIDE_STEP_INNER = 3
 # a flash forward output against its reference's, as the norm of the
 # difference over the reference's norm: ~2.5x the readings on the H100
 # (0.00259-0.00407) and ~3x below the padded route with the padded width's
@@ -4317,10 +4351,11 @@ def _masked_dense(q, k, v, causal: bool, window=None, seg=None):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
 
 
-def _f32_grads_at(d: int, window, device: str = "cuda") -> dict:
+def _f32_grads_at(d: int, window, device: str = "cuda", full: bool = False) -> dict:
     """autograd through flash_attention against autograd through dense
-    attention, f32, (1, 256, 2, d): the triangle pair, and (unless
-    ``window`` is None) the general pair under a window and two segments."""
+    attention, f32, (1, 256, 2, d): the triangle pair, (unless ``window``
+    is None) the general pair under a window and two segments, and (with
+    ``full``) the general pair under full attention."""
     from tpu_operator_torch.workloads.flashattention import flash_attention
 
     gen = torch.Generator(device=device).manual_seed(17)
@@ -4330,15 +4365,18 @@ def _f32_grads_at(d: int, window, device: str = "cuda") -> dict:
     cases = [("triangle", {})]
     if window is not None:
         cases.append((f"window {window}, segments", {"window": window, "seg": seg}))
+    if full:
+        cases.append(("full attention", {"causal": False}))
     for name, kwargs in cases:
         grads = {}
+        causal = kwargs.pop("causal", True)
         for impl in ("flash", "dense"):
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
             if impl == "flash":
-                got = flash_attention(*leaves, causal=True, window=kwargs.get("window"),
+                got = flash_attention(*leaves, causal=causal, window=kwargs.get("window"),
                                       segment_ids=kwargs.get("seg"))
             else:
-                got = _masked_dense(*leaves, True, **kwargs)
+                got = _masked_dense(*leaves, causal, **kwargs)
             grads[impl] = torch.autograd.grad((got * w).sum(), leaves)
         worst = max(float((f - d).abs().max()) for f, d in zip(grads["flash"], grads["dense"]))
         if not worst <= F32_TOL:
@@ -4657,22 +4695,30 @@ SARVAM_105B = {"d_model": 4608, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "seq_
                "batch": 1, "n_layers": 2, "use_flash_attention": True}
 
 
-def _flash_against_dense(smi: str, out: dict, cfg, name: str, key: str, phase: str) -> dict:
+def _flash_against_dense(smi: str, out: dict, cfg, name: str, key: str, phase: str,
+                         packed: bool = False) -> dict:
     """Section (a) of phases 17-19: ``cfg``'s run_burnin (flash) against
-    its dense path, the seeded forward output, ``GRAPH_STEPS`` graphed steps
-    against the eager step and the step's times; recorded as ``out[key]``
-    (returned) and the path ``f"{phase} {name}"``."""
+    its dense path (``packed``: the dense path under the documents' mask,
+    ``_dense_packed_attention``), the seeded forward output, ``GRAPH_STEPS``
+    graphed steps against the eager step and the step's times; recorded as
+    ``out[key]`` (returned) and the path ``f"{phase} {name}"``."""
     from tpu_operator_torch.workloads.burnin import build_train_step, run_burnin
 
-    dense = dataclasses.replace(cfg, use_flash_attention=False)
-    out[key] = _curve_against(name, cfg, "dense path",
-                              lambda: run_burnin(steps=3, cfg=dense, device="cuda"), phase)
+    dense = cfg if packed else dataclasses.replace(cfg, use_flash_attention=False)
+    ctx = _dense_packed_attention if packed else contextlib.nullcontext
+
+    def reference():
+        with ctx():
+            return run_burnin(steps=3, cfg=dense, device="cuda")
+
+    out[key] = _curve_against(name, cfg, "dense path under the documents' mask" if packed
+                              else "dense path", reference, phase)
     out["paths"][f"{phase} {name}"] = out[key].pop("launches")
-    out[key]["forward_gap"] = _forward_gap(cfg, dense)
+    out[key]["forward_gap"] = _forward_gap(cfg, dense, ctx)
     _free_card()
     step, params, batch = build_train_step(cfg, "cuda")
     out[key]["replays"] = _replays_vs_eager(step, params, batch)
-    out[key].update(_step_times(step, params, batch))
+    out[key].update(_step_times(step, params, batch, WIDE_STEP_INNER))
     del step, params, batch
     _free_card()
     g = out[key]
@@ -4765,40 +4811,6 @@ WIDE_HEAD_1024 = {"d_model": 8192, "n_heads": 8, "kv_heads": 1, "d_ff": 2048, "s
                   "batch": 1, "n_layers": 1, "use_flash_attention": True}
 
 
-def _general_pair_refused(cfg, d: int, device: str = "cuda") -> dict:
-    """Above 576 the general backward pair is not built (ROADMAP.md item
-    24): the packed burn-in (segment ids) and flash_attention gradients
-    under a window, segment ids or full attention each raise ValueError
-    naming the item, and no kernel launches."""
-    from tpu_operator_torch.workloads.burnin import run_burnin
-    from tpu_operator_torch.workloads.flashattention import flash_attention
-
-    q = torch.zeros((1, 128, 2, d), device=device, requires_grad=True)
-    seg = torch.zeros((1, 128), dtype=torch.int32, device=device)
-    attempts = {
-        "packed burn-in": lambda: run_burnin(
-            steps=1, cfg=dataclasses.replace(cfg, packed_segments=2), device=device),
-        "window 128": lambda: flash_attention(q, q, q, window=128),
-        "segments": lambda: flash_attention(q, q, q, segment_ids=seg),
-        "full attention": lambda: flash_attention(q, q, q, causal=False),
-    }
-    out = {}
-    for name, attempt in attempts.items():
-        zero_launches()
-        try:
-            attempt()
-        except ValueError as exc:
-            if "ROADMAP.md item 24" not in str(exc):
-                raise
-            out[name] = str(exc)
-        else:
-            raise RuntimeError(f"head dim {d}: {name} trained through the general backward pair")
-        launched = {k: v for k, v in read_launches().items() if v}
-        if launched:
-            raise RuntimeError(f"head dim {d}: {name} launched {launched} before refusing")
-    return out
-
-
 @_seeded_once()
 def phase_head_dim_wide(smi: str) -> dict:
     """Phase 19 (see the module's docstring)."""
@@ -4820,12 +4832,20 @@ def phase_head_dim_wide(smi: str) -> dict:
     _trainer_with_a_fault(out, cfg, g["losses"], name=name, phase=phase, key="wide_trainer",
                           run=WIDE_TRAINER_RUN)
     _free_card()
-    # (b) the general pair's training paths refuse before any launch
-    out["refused"] = _general_pair_refused(cfg, d)
-    log(f"{phase}: {sorted(out['refused'])} raise (ROADMAP.md item 24), no launch")
+    # (b) packed documents through the general pair: against the dense path
+    # under the documents' mask, the graphed steps bit for bit
+    packed = _flash_against_dense(smi, out, dataclasses.replace(cfg, packed_segments=2),
+                                  f"{name} packed", "wide_packed", phase, packed=True)
+    if not packed["losses"][-1] < packed["losses"][0]:
+        raise RuntimeError(f"{phase} packed: losses {packed['losses']} do not fall")
+    if not packed["replays"]["bitwise"]:
+        raise RuntimeError(f"{phase} packed: graphed steps {packed['replays']['graphed_losses']} "
+                           f"are not bit for bit the eager step's "
+                           f"{packed['replays']['eager_losses']}")
     _free_card()
-    # (c) f32 gradients of the triangle at the head dim
-    out[f"f32_grads_{d}"] = _f32_grads_at(d, None)
+    # (c) f32 gradients at the head dim: the triangle, a window and
+    # segments, full attention
+    out[f"f32_grads_{d}"] = _f32_grads_at(d, 128, full=True)
     log(f"{phase} f32 (1,256,2,{d}) flash_attention gradients vs dense, max abs err "
         f"{out[f'f32_grads_{d}']}")
     # (d) serving at the head dim
@@ -4926,7 +4946,8 @@ def main(argv=None) -> int:
             wide.setdefault((name[-4:], kind), {})[f"{'fp16' if fp16 else 'bf16'} {label}"] = count
     # the D-streaming libraries' instantiation of each kernel they hold
     streamed = {"wide_tri": "flash_fwd_tri", "wide_rect": "flash_fwd_rect",
-                "dq_wide": "flash_bwd_dq_tri", "dkv_wide": "flash_bwd_dkv_tri"}
+                "dq_wide": "flash_bwd_dq_tri", "dkv_wide": "flash_bwd_dkv_tri",
+                "dq_rect_wide": "flash_bwd_dq_rect", "dkv_rect_wide": "flash_bwd_dkv_rect"}
     for name in WIDE_HEAD_INSTANTIATIONS:
         fp16 = "_f16" in name
         for label, count in results["build"][f"{name}_hgmma"].items():

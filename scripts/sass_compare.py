@@ -2,14 +2,14 @@
 """Whether the port's flash kernels compile to the same machine code in
 this tree and in another checkout of the repository.
 
-    python3 scripts/sass_compare.py OTHER_TREE [--json PATH]
+    python3 scripts/sass_compare.py OTHER_TREE [--wide] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). Each tree builds its ``flash_fwd`` and ``flash_bwd``
 libraries (bf16 and f32), their fp16 builds and the head dim 512 and 576
 builds of all four into an empty temporary directory, in a process of its
-own (the D-streaming ``*_wide`` libraries of head dims above 576 are left
-out: an earlier tree may not have them);
+own (the D-streaming ``*_wide`` libraries of head dims above 576 only with
+``--wide``: an earlier tree may not have them);
 ``cuobjdump --dump-sass`` lists each library's kernels, and every kernel
 found in both trees is compared instruction by instruction (addresses,
 encodings and comments dropped).
@@ -36,6 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_fwd_d512",
              "flash_bwd_d512", "flash_fwd_f16_d512", "flash_bwd_f16_d512", "flash_fwd_d576",
              "flash_bwd_d576", "flash_fwd_f16_d576", "flash_bwd_f16_d576")
+WIDE_LIBRARIES = ("flash_fwd_wide", "flash_bwd_wide", "flash_fwd_f16_wide", "flash_bwd_f16_wide")
 
 _BUILD = """
 import json, sys
@@ -64,10 +65,10 @@ def _kernels(sass: str) -> dict:
     return out
 
 
-def sass_by_library(tree: Path, tmp: str) -> dict:
-    """Library -> kernel -> instructions, for ``tree``'s libraries built
-    into ``tmp``."""
-    out = subprocess.run([sys.executable, "-c", _BUILD, str(tree), tmp, *LIBRARIES], cwd=tree,
+def sass_by_library(tree: Path, tmp: str, libraries=LIBRARIES) -> dict:
+    """Library -> kernel -> instructions, for ``tree``'s ``libraries``
+    built into ``tmp``."""
+    out = subprocess.run([sys.executable, "-c", _BUILD, str(tree), tmp, *libraries], cwd=tree,
                          capture_output=True, text=True, check=True, timeout=1200)
     paths = json.loads(out.stdout.strip().splitlines()[-1])
     sys.path.insert(0, str(ROOT))
@@ -89,15 +90,19 @@ def _short(mangled: str) -> str:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path, help="the other checkout")
+    parser.add_argument("--wide", action="store_true",
+                        help="also compare the D-streaming libraries of head dims above 576")
     parser.add_argument("--json", type=Path, default=None, help="also write the result here")
     args = parser.parse_args(argv)
+    libraries = LIBRARIES + (WIDE_LIBRARIES if args.wide else ())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
-        other, this = sass_by_library(args.other.resolve(), a), sass_by_library(ROOT, b)
+        other = sass_by_library(args.other.resolve(), a, libraries)
+        this = sass_by_library(ROOT, b, libraries)
     result = {"device": smi, "libraries": {}}
-    for name in LIBRARIES:
+    for name in libraries:
         mine = {_short(k): v for k, v in this[name].items()}
         theirs = {_short(k): v for k, v in other[name].items()}
         same = sorted(k for k in mine.keys() & theirs.keys() if mine[k] == theirs[k])

@@ -3,12 +3,11 @@
 
 The JAX package's ``flash_attention`` and ``flash_attention_with_lse``
 take any head dim. Above 576 the port's kernels stream the head dim
-(``kernels/flash_wide.cuh``): both forwards and the triangle's backward
-pair take every multiple of 64, and other head dims run zero-padded to the
-next one with the true head dim's softmax scale (``workloads/
-flashattention.py``). A gradient through the general backward pair (full
-attention, a window, segment ids) raises there, before any kernel
-launches (ROADMAP.md item 24), so those masks are held forward only. On
+(``kernels/flash_wide.cuh``): both forwards and both backward pairs take
+every multiple of 64, and other head dims run zero-padded to the next one
+with the true head dim's softmax scale (``workloads/flashattention.py``).
+The general pair's gradients against the JAX package are in
+``tests/test_torch_flash_head_dim_wide_general.py``. On
 the CPU the port's wrappers run the kernels' plain versions on the padded
 tensors, so these cases hold the padding, the scale passed down, the
 slices back and the routing; the CUDA kernels are held to the same plain
@@ -120,8 +119,8 @@ def test_16bit_triangle_output_and_gradients_match_reference(dtype, d):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_general_forward_matches_reference(dtype, d, mask):
-    """The general kernel's masks above 576, forward only (their gradient
-    is ROADMAP.md item 24)."""
+    """The general kernel's masks above 576, the forward without a gradient
+    (the gradients: ``test_torch_flash_head_dim_wide_general.py``)."""
     (q, k, v, _), seg, kwargs = _inputs(d, mask)
     jd, td = DTYPES[dtype]
     want = jfa.flash_attention(*(jnp.asarray(a, jd) for a in (q, k, v)),
@@ -246,26 +245,43 @@ def test_every_wrapper_gets_the_padded_columns_and_the_true_scale(monkeypatch, d
         assert all(abs(s - d ** -0.5) < 1e-12 for _, _, s in seen)
 
 
+def _masked_dense(q, k, v, causal, window=None, seg=None):
+    """Dense softmax attention (B, S, H, D) under the kernels' masks
+    (``keep_mask``), f32: autograd's reference."""
+    b, s, h, d = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    keep = flash_fwd.keep_mask(b * h, s, s, h, causal, window=window, seg=seg)
+    scores = scores.masked_fill(~keep.expand(b * h, s, s).reshape(b, h, s, s), float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+
 @pytest.mark.parametrize("d", [577, 640, 1024])
 @pytest.mark.parametrize("kwargs", [dict(causal=False), dict(window=16),
-                                    dict(segment_ids=np.zeros((1, 64), np.int32))],
+                                    dict(segment_ids=(np.arange(64)[None] >= 24).astype(np.int32))],
                          ids=["full", "window", "segments"])
 def test_the_general_backward_above_576_raises_before_any_launch(monkeypatch, d, kwargs):
-    """A gradient through the general pair above 576 raises ValueError
-    naming ROADMAP.md item 24 at the forward, before any wrapper runs; so
-    does the backward itself when reached with such masks."""
+    """A gradient through the general pair above 576 runs: the forward and
+    both gradients go through ``flash_fwd_rect``, ``flash_bwd_dq_rect`` and
+    ``flash_bwd_dkv_rect`` at the padded width and the true head dim's scale,
+    and match autograd through dense attention under the same masks (f32,
+    1e-4)."""
     seen = _spy_on_wrappers(monkeypatch)
-    q, k, v, _ = (torch.from_numpy(a).requires_grad_(True) for a in _arrays(5, 64, 2, 2, d))
+    arrays = _arrays(5, 64, 2, 2, d)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrays[:3])
+    w = torch.from_numpy(arrays[3])
     if "segment_ids" in kwargs:
         kwargs = dict(segment_ids=torch.from_numpy(kwargs["segment_ids"]))
-    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
-        tfa.flash_attention(q, k, v, block_q=32, block_k=32, **kwargs)
-    assert seen == []
+    out = tfa.flash_attention(q, k, v, block_q=32, block_k=32, **kwargs)
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
     width = flash_fwd.padded_head_dim(d)
-    qb = torch.zeros((2, 64, width))
-    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
-        tfa._flash_bwd_impl(qb, qb, qb, qb, torch.zeros((2, 64)), qb, False, 2, 2)
-    assert seen == []
-    with torch.no_grad():  # the forward alone runs
-        assert tfa.flash_attention(q, k, v, block_q=32, block_k=32, **kwargs).shape == q.shape
-    assert [n for n, _, _ in seen] == ["flash_fwd_rect"]
+    scale = None if width == d else 1.0 / d ** 0.5
+    assert [(n, wd) for n, wd, _ in seen] == [
+        (n, width) for n in ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")]
+    assert all(s == scale if scale is None else abs(s - scale) < 1e-12 for _, _, s in seen)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    want = _masked_dense(*leaves, kwargs.get("causal", True), kwargs.get("window"),
+                         kwargs.get("segment_ids"))
+    wants = torch.autograd.grad((want * w).sum(), leaves)
+    assert float((out.detach() - want.detach()).abs().max()) <= F32_TOL
+    for name, g, wg in zip(("dq", "dk", "dv"), grads, wants):
+        assert g.shape == wg.shape and float((g - wg).abs().max()) <= F32_TOL, name

@@ -8,8 +8,9 @@ JAX, so its card tests run on a machine with a card and no JAX:
 Above 576 the reductions over the head dim stream in 64 x 64 boxes, and the
 outputs split into column slabs, one CTA each on the grid's z: 256 columns
 of O and of dQ, 128 of dK and dV (bf16 and fp16); 256 of O and 128 of the
-gradients in f32. Only the triangle's backward pair is built there; the
-general pair raises (ROADMAP.md item 24). Card tolerances as
+gradients in f32. Both backward pairs are built there; the general pair
+stages its ring tiles' segment ids and skips a tile whose documents cannot
+meet its own tile's before the tile's chunks load. Card tolerances as
 ``tests/test_torch_kernels.py``: O f32 1e-4, 16-bit 2e-2, lse 1e-3;
 gradients f32 1e-4 absolute, 16-bit 2e-2 of the largest |gradient|.
 """
@@ -40,6 +41,8 @@ def _wide_plans(dtype, d, bh=16, bh_kv=8, s=1000):
         "fwd rect": flash_fwd.rect_plan(dtype, bh, s, s, d, H100_SMS, False),
         **dict(zip(("dq tri", "dkv tri"), flash_bwd.tri_bwd_plan(dtype, bh, bh_kv, s, d,
                                                                  H100_SMS))),
+        **dict(zip(("dq rect", "dkv rect"), flash_bwd.rect_bwd_plan(dtype, bh, bh_kv, s, d,
+                                                                    H100_SMS, True, 33))),
     }
 
 
@@ -81,17 +84,26 @@ def test_wide_plans_by_hand():
     assert p["dq tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * 4 * box + 12 * 8 == 197_728
     # ... + 2 stages of 2-box Q and dO slabs with 64 lse and 64 delta
     assert p["dkv tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * (2 * 2 * box + 512) + 96 == 198_752
-    assert [p[k].threads for k in p] == [160] * 4
-    assert [p[k].col_split for k in p] == [4, 4, 4, 8]
+    # the general pair: + 2 stages of the id ring (64 ids, their min and max)
+    # and its two barriers a stage
+    assert p["dq rect"].smem_bytes == 197_728 + 2 * (66 * 4 + 16) == 198_288
+    assert p["dkv rect"].smem_bytes == 198_752 + 2 * (66 * 4 + 16) == 199_312
+    assert [p[k].threads for k in p] == [160] * 6
+    assert [p[k].col_split for k in p] == [4, 4, 4, 8, 4, 8]
     assert p["fwd tri"].grid == (16, 16) and p["dq tri"].grid == (16, 16)
     assert p["dkv tri"].grid == (8, 16)
+    assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (8, 16)
     f = _wide_plans(F32, 1024, bh=6, bh_kv=3, s=130)
     assert f["fwd tri"].smem_bytes == 4 * (2 * 64 * 65 + 64 * 257 + 64 * 65) + 256 == 115_968
     assert f["dq tri"].smem_bytes == 4 * (4 * 64 * 65 + 64 * 65 + 64 * 129) == 116_224
     assert f["dkv tri"].smem_bytes == 4 * (4 * 64 * 65 + 2 * 64 * 65 + 2 * 64 * 129 + 128) == 166_400
+    # + a tile's 64 ids and two (min, max) ranges
+    assert f["dq rect"].smem_bytes == 116_224 + 4 * 68 == 116_496
+    assert f["dkv rect"].smem_bytes == 166_400 + 4 * 68 == 166_672
     assert (f["fwd tri"].grid, f["fwd tri"].col_split) == ((3, 6), 4)
     assert (f["dq tri"].grid, f["dq tri"].col_split) == ((3, 6), 8)
     assert (f["dkv tri"].grid, f["dkv tri"].col_split) == ((3, 3), 8)
+    assert (f["dq rect"].grid, f["dkv rect"].grid) == ((3, 6), (3, 3))
     assert {f[k].threads for k in f} == {256}
 
 
@@ -137,14 +149,69 @@ def test_the_wide_plans_visit_exactly_the_triangle(s, group):
 
 
 def test_the_general_pair_raises_above_576():
-    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
-        flash_bwd.rect_bwd_plan(BF16, 8, 8, 128, 640, H100_SMS, True, 33)
-    with pytest.raises(ValueError, match="ROADMAP.md item 24"):
-        flash_bwd.rect_bwd_plan(F32, 8, 8, 128, 1024, H100_SMS, False)
+    """The general pair's plans exist above 576 and carry their masks (a
+    window as ``band`` reads it); only a 128-row tile height raises."""
+    dq, dkv = flash_bwd.rect_bwd_plan(BF16, 8, 8, 128, 640, H100_SMS, True, 33)
+    assert (dq.causal, dq.window, dkv.causal, dkv.window) == (True, 33, True, 33)
+    assert dq.smem_bytes == flash_bwd.wide_bwd_plans(BF16, 8, 8, 128, 640, True, 33,
+                                                     rect=True)[0].smem_bytes
+    dq, dkv = flash_bwd.rect_bwd_plan(F32, 8, 8, 128, 1024, H100_SMS, False)
+    assert (dq.causal, dq.window, dkv.slab, dkv.swizzle) == (False, None, 128, 0)
+    dq, _ = flash_bwd.rect_bwd_plan(BF16, 8, 8, 128, 1024, H100_SMS, True, 128)
+    assert dq.window is None  # a window of s or more keys is none
     with pytest.raises(ValueError, match="block_m"):  # 64-row tiles only
         flash_fwd.tri_plan(BF16, 8, 128, 640, H100_SMS, block_m=128)
     with pytest.raises(ValueError, match="block_m"):
         flash_bwd.tri_bwd_plan(BF16, 8, 8, 128, 1024, H100_SMS, block_m=128)
+    with pytest.raises(ValueError, match="block_m"):
+        flash_bwd.rect_bwd_plan(BF16, 8, 8, 128, 1024, H100_SMS, False, block_m=128)
+
+
+def _docs(s, cuts):
+    """Segment ids of s positions split at ``cuts``."""
+    return [sum(i >= c for c in cuts) for i in range(s)]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s, causal, window, cuts", [
+    (300, False, None, None), (300, True, 70, None), (300, True, None, (128, 200)),
+    (300, False, None, (64, 200)), (1000, True, 100, (333, 640)), (63, False, None, (20,))])
+def test_the_wide_general_plans_visit_exactly_the_live_pairs(dtype, group, s, causal, window,
+                                                              cuts):
+    """The general pair's walks above 576 (dq: heaviest first only under a
+    plain causal mask): every (q tile, key tile) pair of the band whose
+    tiles do not hold two different documents each whole is visited once per
+    slab, and no other; those are every pair that holds a live (q, k) pair,
+    and, with two documents, no more."""
+    d, rows, kv_rows = 704, 2 * group, 2
+    tiles = -(-s // 64)
+    seg = None if cuts is None else torch.tensor(_docs(s, cuts), dtype=torch.int32)[None]
+
+    def tile_pairs(keep):
+        return {(q, k) for q in range(tiles) for k in range(tiles)
+                if bool(keep[q * 64:(q + 1) * 64, k * 64:(k + 1) * 64].any())}
+
+    ids = None if seg is None else seg[0].tolist()
+    live = tile_pairs(flash_fwd.keep_mask(1, s, s, 1, causal, window=window, seg=seg)[0])
+    band = tile_pairs(flash_fwd.keep_mask(1, s, s, 1, causal, window=window)[0])
+    walked = {(q, k) for q, k in band if ids is None or not flash_bwd.apart(
+        ids[q * 64:(q + 1) * 64], ids[k * 64:(k + 1) * 64])}
+    assert live <= walked and (len(cuts or ()) > 1 or live == walked)
+    dq, dkv = flash_bwd.rect_bwd_plan(dtype, rows, kv_rows, s, d, H100_SMS, causal, window)
+    for plan, n_rows, members in ((dq, rows, 1), (dkv, kv_rows, group)):
+        got = collections.Counter(
+            (z, plan.cta(x, y)[0], *v) for z in range(plan.col_split)
+            for x in range(plan.grid[0]) for y in range(plan.grid[1])
+            for v in plan.visits(x, y, s, members, ids))
+        assert set(got.values()) == {1}, plan.kernel
+        assert set(got) == {(z, row, m, q, k) for z in range(plan.col_split)
+                            for row in range(n_rows) for m in range(members)
+                            for q, k in walked}, plan.kernel
+    if tiles > 1:
+        heaviest_first = dq.cta(0, 0)[1] == tiles - 1
+        assert heaviest_first == (dtype != F32 and causal
+                                  and flash_bwd.band(causal, window, s) is None)
 
 
 def test_an_autotuned_128_is_not_forced_above_576(monkeypatch):
@@ -177,6 +244,16 @@ def test_wide_plan_constants_match_the_cuda_sources():
     assert f"constexpr int kWideSlabStages = {flash_bwd.WIDE_SLAB_STAGES};" in bwd
     assert f"constexpr int kF32WideChunk = {flash_bwd.F32_WIDE_BWD_CHUNK};" in bwd
     assert f"constexpr int kF32WideSlab = {flash_bwd.F32_WIDE_BWD_SLAB};" in bwd
+    assert ("constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);" in bwd
+            and flash_bwd.WIDE_ID_BYTES == flash_bwd.WIDE_SLAB_STAGES * ((64 + 2) * 4 + 2 * 8))
+    assert ("constexpr int kF32WideIdBytes = (kF32WideTile + 4) * 4;" in bwd
+            and flash_bwd.F32_WIDE_ID_BYTES == (64 + 4) * 4)
+    # the general pair's entries reach the wide kernels: no refusal left
+    for kernel in ("dq", "dkv"):
+        for pair in ("tri", "rect"):
+            assert f"flash_bwd_{kernel}_{pair}_wide_kernel<Elem16>;" in bwd
+            assert f"flash_bwd_{kernel}_{pair}_wide_f32_kernel" in bwd
+    assert "is_tri(K)) {\n    return kUnsupported" not in bwd
     # each source's wide build dispatches every dtype to the wide kernels alone
     for src in (fwd, bwd):
         assert src.count('#include "flash_wide.cuh"') == 1
@@ -314,47 +391,106 @@ def test_wide_general_forward_matches_plain(cuda, dtype, d):
         assert _err(want, out) <= tol and _err(want_lse, lse) <= LSE_TOL, name
 
 
+BWD_MASKS = {  # (causal, window, segment cuts or None)
+    "full": (False, None, None),
+    "window 33": (True, 33, None),
+    "causal, segments": (True, None, (64, 150)),
+    "full, segments": (False, None, (128,)),
+    "window 40, segments": (True, 40, (37,)),
+}
+GENERAL_SHAPES = [  # (b, s, h, h_kv, d): 640, 1024, the padded 700 -> 704, ragged
+    (1, 256, 2, 1, 640), (2, 130, 4, 2, 1024), (1, 200, 2, 2, 700), (2, 100, 4, 2, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("b, s, h, h_kv, d", GENERAL_SHAPES)
+def test_wide_general_pair_matches_plain(cuda, dtype, b, s, h, h_kv, d):
+    """The general backward pair above 576 under every mask (full, a window,
+    segment ids whose whole-document tiles the kernels skip, both), GQA,
+    ragged lengths and a padded head, against attention_bwd_plain on the
+    general forward's out and lse; one launch of each per mask."""
+    tol = _tol(dtype)
+    for name, (causal, window, cuts) in BWD_MASKS.items():
+        qb, kb, vb, scale = _qkv(s + d, b, s, s, h, h_kv, d, dtype)
+        seg = None if cuts is None else torch.tensor(
+            _docs(s, cuts), dtype=torch.int32, device="cuda").expand(b, s).contiguous()
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, h, h_kv, causal, window=window, seg=seg,
+                                            sm_scale=scale)
+        rng = np.random.default_rng(s + 1)
+        dout = torch.from_numpy(rng.standard_normal(qb.shape).astype(np.float32)).to("cuda", dtype)
+        delta = (dout.float() * out.float()).sum(-1)
+        before = [w.launches for w in (flash_bwd.flash_bwd_dq_rect, flash_bwd.flash_bwd_dkv_rect)]
+        masks = (h, h_kv, causal, window, seg)
+        dq = flash_bwd.flash_bwd_dq_rect(qb, kb, vb, out, dout, lse, delta, *masks,
+                                         sm_scale=scale)
+        dk, dv = flash_bwd.flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, *masks,
+                                              sm_scale=scale)
+        grads = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h, h_kv, causal,
+                                              window, seg, sm_scale=scale)
+        torch.cuda.synchronize()
+        assert [w.launches for w in (flash_bwd.flash_bwd_dq_rect,
+                                     flash_bwd.flash_bwd_dkv_rect)] == [c + 1 for c in before]
+        top = 1.0 if dtype == F32 else max(float(w.float().abs().max()) for w in grads)
+        for grad, w, g in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+            assert float((w.float() - g.float()).abs().max()) <= tol * top, (name, grad)
+
+
+def _masked_dense(q, k, v, causal, window=None, seg=None):
+    """Dense softmax attention (B, S, H, D) under the kernels' masks, f32."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    k, v = (x.repeat_interleave(group, dim=2) for x in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    keep = flash_fwd.keep_mask(b * h, s, s, h, causal, window=window, seg=seg, device=q.device)
+    scores = scores.masked_fill(~keep.expand(b * h, s, s).reshape(b, h, s, s), -math.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_flash_attention_above_576_against_dense(cuda, dtype):
     """flash_attention at 700 (padded to 704) and 1024 through the kernels:
-    output and gradients against autograd through dense attention; a
-    gradient through the general pair raises before any launch."""
-    from tpu_operator_torch.workloads.ringattention import dense_attention
-
+    output and gradients against autograd through dense attention, plain
+    causal through the triangle pair and under full attention, a window and
+    segment ids through the general pair, each with its own launches."""
     tol = _tol(dtype)
     gen = torch.Generator(device="cuda").manual_seed(7)
+    seg = (torch.arange(128, device="cuda") >= 48).to(torch.int32)[None]
+    cases = {"triangle": {}, "full": {"causal": False}, "window 16": {"window": 16},
+             "segments": {"segment_ids": seg}}
     for d in (700, 1024):
         q, k, v = (torch.randn((1, 128, 2, d), generator=gen, device="cuda").to(dtype)
                    .requires_grad_() for _ in range(3))
-        got = tfa.flash_attention(q, k, v, block_q=64, block_k=64)
-        want = dense_attention(q.float(), k.float(), v.float(), causal=True)
-        g = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
-        grads = torch.autograd.grad(got, (q, k, v), g)
-        wants = torch.autograd.grad(want, (q, k, v), g.float())
-        torch.cuda.synchronize()
-        assert float((got.detach().float() - want).abs().max()) <= tol, d
-        top = 1.0 if dtype == F32 else max(float(w.abs().max()) for w in wants)
-        for name, a, w in zip(("dq", "dk", "dv"), grads, wants):
-            assert float((a.float() - w).abs().max()) <= tol * top, (d, name)
-        counts = [w.launches for w in (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
-                                       flash_bwd.flash_bwd_dkv_rect)]
-        for kwargs in ({"causal": False}, {"window": 16},
-                       {"segment_ids": torch.zeros((1, 128), dtype=torch.int32, device="cuda")}):
-            with pytest.raises(ValueError, match="ROADMAP.md item 24"):
-                tfa.flash_attention(q, k, v, block_q=64, block_k=64, **kwargs)
-        assert [w.launches for w in (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
-                                     flash_bwd.flash_bwd_dkv_rect)] == counts
+        for name, kwargs in cases.items():
+            wrappers = ((flash_fwd.flash_fwd_tri, flash_bwd.flash_bwd_dq_tri,
+                         flash_bwd.flash_bwd_dkv_tri) if name == "triangle" else
+                        (flash_fwd.flash_fwd_rect, flash_bwd.flash_bwd_dq_rect,
+                         flash_bwd.flash_bwd_dkv_rect))
+            before = [w.launches for w in wrappers]
+            got = tfa.flash_attention(q, k, v, block_q=64, block_k=64, **kwargs)
+            want = _masked_dense(q.float(), k.float(), v.float(), kwargs.get("causal", True),
+                                 kwargs.get("window"), kwargs.get("segment_ids"))
+            g = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+            grads = torch.autograd.grad(got, (q, k, v), g)
+            wants = torch.autograd.grad(want, (q, k, v), g.float())
+            torch.cuda.synchronize()
+            assert [w.launches for w in wrappers] == [c + 1 for c in before], (d, name)
+            assert float((got.detach().float() - want).abs().max()) <= tol, (d, name)
+            top = 1.0 if dtype == F32 else max(float(w.abs().max()) for w in wants)
+            for grad, a, w in zip(("dq", "dk", "dv"), grads, wants):
+                assert float((a.float() - w).abs().max()) <= tol * top, (d, name, grad)
 
 
 def test_phase_2_counts_the_wide_instantiations():
     """chip_smoke's build phase expects each wide library to hold its 16-bit
-    instantiation of both forwards and of the triangle pair, and no other."""
+    instantiation of both forwards and of both backward pairs, and no
+    other."""
     import chip_smoke
 
     assert chip_smoke.WIDE_HEAD_INSTANTIATIONS == {
-        "flash_fwd_wide": 2, "flash_bwd_wide": 2, "flash_fwd_f16_wide": 2,
-        "flash_bwd_f16_wide": 2}
+        "flash_fwd_wide": 2, "flash_bwd_wide": 4, "flash_fwd_f16_wide": 2,
+        "flash_bwd_f16_wide": 4}
     prefix = "_ZN45_GLOBAL__N__febd979e_12_flash_fwd_cu_10a15fe6"
     assert chip_smoke.wide_label(f"{prefix}21flash_fwd_wide_kernelI13__nv_bfloat16Lb1EEEv6Params"
                                  ) == "wide_tri"
@@ -363,6 +499,11 @@ def test_phase_2_counts_the_wide_instantiations():
     assert chip_smoke.wide_label("flash_bwd_dkv_tri_wide_kernelI13__nv_bfloat16EEv6Params"
                                  ) == "dkv_wide"
     assert chip_smoke.wide_f16_label("flash_bwd_dq_tri_wide_kernelI6__halfEEv6Params") == "dq_wide"
+    assert chip_smoke.wide_label("flash_bwd_dq_rect_wide_kernelI13__nv_bfloat16EEv6Params"
+                                 ) == "dq_rect_wide"
+    assert chip_smoke.wide_f16_label("flash_bwd_dkv_rect_wide_kernelI6__halfEEv6Params"
+                                     ) == "dkv_rect_wide"
+    assert chip_smoke.wide_label("flash_bwd_dkv_rect_wide_f32_kernelE6Paramsi") is None
     # the f32 kernels and the other dtype's instantiations are not counted
     assert chip_smoke.wide_label("flash_fwd_wide_f32_kernelILb1EEv6Paramsi") is None
     assert chip_smoke.wide_label("flash_bwd_dq_tri_wide_kernelI6__halfEEv6Params") is None
@@ -373,13 +514,35 @@ def test_phase_3_wide_rows():
     """chip_smoke's rows above 576: phase 19's (1,8192,8,1024) with one kv
     head in bf16 and fp16, 640 and the padded 700 in bf16, f32 at 1024 and
     ragged 640 at GQA 2, for the forward and the triangle pair; the general
-    forward alone at full attention and serving's chunk; one 2048 row."""
+    forward at full attention and serving's chunk; the general pair at
+    phase 19's packed documents (bf16, the main path's, and fp16), a window
+    of 128, full attention, the padded 700 at GQA 2 with a window and
+    segments, f32 at 1024 and ragged 640; one 2048 row."""
     import chip_smoke
 
     fwd, bwd = chip_smoke.WIDE_KERNEL_CASES, chip_smoke.WIDE_BWD_CASES
+    tri = [c for c in bwd if c["pair"] == "tri"]
+    rect = [c for c in bwd if c["pair"] == "rect"]
     assert {c["kernel"] for c in fwd} == {"flash_fwd_tri", "flash_fwd_rect"}
-    assert {c["pair"] for c in bwd} == {"tri"}
-    for rows in (fwd, bwd):
+    assert {c["pair"] for c in bwd} == {"tri", "rect"}
+    for dtype, main in ((BF16, True), (F16, False)):
+        assert any(c["q"] == (1, 8192, 8, 1024) and c.get("h_kv") == 1 and c.get("packed") == 2
+                   and c["dtype"] == dtype and bool(c.get("main")) == main for c in rect), dtype
+    assert any(c["q"] == (1, 8192, 8, 1024) and c.get("window") == 128 and c["dtype"] == BF16
+               for c in rect)
+    assert any(c["q"] == (1, 4096, 8, 1024) and c.get("causal") is False and c["dtype"] == BF16
+               for c in rect)
+    assert any(c["q"] == (2, 1000, 4, 700) and c.get("h_kv") == 2 and c.get("window") == 33
+               and c.get("cut") is not None and c["dtype"] == BF16 for c in rect)
+    assert any(c["q"] == (2, 128, 4, 1024) and c.get("window") == 33 and c.get("cut") is not None
+               and c["dtype"] == F32 for c in rect)
+    assert any(c["q"] == (2, 100, 4, 640) and c.get("h_kv") == 2 and c.get("cut") is not None
+               and c["dtype"] == F32 for c in rect)
+    for case in rect:
+        d = case["q"][3]
+        assert flash_fwd.is_wide(flash_fwd.padded_head_dim(d)), case["label"]
+        assert ("padded" in case["label"]) == (d % 64 != 0)
+    for rows in (fwd, tri):
         for case in rows:
             d = case["q"][3]
             assert flash_fwd.is_wide(flash_fwd.padded_head_dim(d)), case["label"]

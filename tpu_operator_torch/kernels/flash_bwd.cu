@@ -138,7 +138,7 @@
 // 11/3 of the ideal (S, dP, dV, dK once each). Shared memory: dQ 222,232
 // bytes (general pair 136 more), dK/dV 222,488 (136 more), of the 232,448 a
 // block may use; 640 columns would pass it with the own tiles alone.
-// Above 576 (the triangle pair only; its own library, built with
+// Above 576 (both pairs; their own library, built with
 // -DFLASH_HEAD_DIM_WIDE, the head dim a runtime multiple of 64, helpers in
 // flash_wide.cuh): the reductions over D stream. One consumer warpgroup and
 // a producer warp; per (q tile, key tile) pair the producer streams Q, dO,
@@ -155,10 +155,19 @@
 // products, and writes only the columns no earlier slab owns. Every slab
 // forms the whole S and dP: dQ (2 slabs + 1) / 3 and dK/dV (slabs + 1) / 2
 // of the ideal tensor-core work (3x and 4.5x at 1024). Shared memory: dQ
-// 197,728 bytes, dK/dV 198,752. f32 (flash_bwd_{dq,dkv}_tri_wide_f32_kernel):
-// dq_body's and dkv_body's arithmetic on 64-row tiles with 64-column
-// chunks and 128-column slabs. The general pair is not built above 576
-// (ROADMAP.md item 24): its entries refuse the call.
+// 197,728 bytes, dK/dV 198,752. The general pair (dq_wide_body /
+// dkv_wide_body<T, TRI> with TRI false) walks the band as the D <= 576 pair
+// does and takes its tile rule, with the dead, fast or masked choice made
+// per tile by warp-uniform tests; a masked tile sends its dead pairs' scores
+// to -inf before P and dS are formed, so the registers past the triangle's
+// are a few ids. Its segment ids come through an id ring of their own (per
+// stage the ring tile's 64 ids and their range, 528 bytes and two barriers
+// more: dQ 198,288, dK/dV 199,312), which every lane of the producer warp
+// stages for every tile of the walk before lane 0 decides whether the
+// tile's chunks load: a dead pair would cost d / 64 chunk loads. f32
+// (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel): dq_body's and dkv_body's
+// arithmetic on 64-row tiles with 64-column chunks and 128-column slabs,
+// the general pair's ids staged by the CTA's first warp.
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
@@ -1169,7 +1178,7 @@ __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
 
 #ifdef FLASH_HEAD_DIM_WIDE
 // ---------------------------------------------------------------------------
-// Head dims above 576: the D-streaming triangle pair (see the note on top).
+// Head dims above 576: the D-streaming pairs (see the note on top).
 // ---------------------------------------------------------------------------
 
 constexpr int kWideDqSlab = 256;     // columns of dQ a 16-bit CTA holds
@@ -1180,40 +1189,58 @@ constexpr int kF32WideTile = 64;     // q rows and keys of an f32 tile
 constexpr int kF32WideChunk = 64;    // columns of an f32 chunk
 constexpr int kF32WideSlab = 128;    // columns of each gradient an f32 CTA holds
 
+// the general pair's id ring: per stage the ring tile's 64 segment ids and
+// their min and max (int32), and its two barriers
+constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);
+// and in f32: one tile's ids and two (min, max) ranges
+constexpr int kF32WideIdBytes = (kF32WideTile + 4) * 4;
+
+template <bool TRI>
 constexpr int dq_wide_smem_bytes() {
   // alignment slack, the chunk ring (Q, dO, K and V boxes), the K slab ring,
-  // the four barrier arrays
+  // the four barrier arrays (general: the id ring besides)
   return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
          kWideSlabStages * (kWideDqSlab / kWideBox) * kWideBoxBytes +
-         8 * (2 * kWideRing + 2 * kWideSlabStages);
+         8 * (2 * kWideRing + 2 * kWideSlabStages) + (TRI ? 0 : kWideIdBytes);
 }
 
+template <bool TRI>
 constexpr int dkv_wide_smem_bytes() {
   // alignment slack, the chunk ring (K, V, Q and dO boxes), the Q and dO slab
   // ring with the slab rows' lse and delta (f32), the four barrier arrays
+  // (general: the id ring besides)
   return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
          kWideSlabStages * (2 * (kWideDkvSlab / kWideBox) * kWideBoxBytes + 2 * kTile * 4) +
-         8 * (2 * kWideRing + 2 * kWideSlabStages);
+         8 * (2 * kWideRing + 2 * kWideSlabStages) + (TRI ? 0 : kWideIdBytes);
 }
 
+template <bool TRI>
 constexpr size_t dq_f32_wide_smem_bytes() {
   // q (pre-scaled), dO, k and v chunks ([64][65]), the dS tile ([64][65]),
-  // the k slab ([64][slab + 1])
+  // the k slab ([64][slab + 1]) (general: the ids)
   return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
                           kF32WideTile * (kF32WideTile + 1) +
-                          kF32WideTile * (kF32WideSlab + 1));
+                          kF32WideTile * (kF32WideSlab + 1)) + (TRI ? 0 : kF32WideIdBytes);
 }
 
+template <bool TRI>
 constexpr size_t dkv_f32_wide_smem_bytes() {
   // k, v, q and dO chunks, the P and dS tiles, the q and dO slabs, the rows'
-  // lse * log2(e) and delta
+  // lse * log2(e) and delta (general: the ids)
   return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
                           2 * kF32WideTile * (kF32WideTile + 1) +
-                          2 * kF32WideTile * (kF32WideSlab + 1) + 2 * kF32WideTile);
+                          2 * kF32WideTile * (kF32WideSlab + 1) + 2 * kF32WideTile) +
+         (TRI ? 0 : kF32WideIdBytes);
 }
 
 // Wait for stage `st` of a ring (its phase n / stages), as both roles do.
 __device__ __forceinline__ uint32_t ring_parity(int n, int stages) { return (n / stages) & 1; }
+
+// Whether two sides' segment-id ranges (id_range's min and max over their
+// positions inside s) are one document each, and whether they are two
+// different ones: then the pair of tiles holds no live pair.
+__device__ __forceinline__ bool one_doc(int2 a, int2 b) { return a.x == a.y && b.x == b.y; }
+__device__ __forceinline__ bool apart(int2 a, int2 b) { return one_doc(a, b) && a.x != b.x; }
 
 // One chunk's two score products (S and dP, or S^T and dP^T) over a stage of
 // four boxes: acc_a (+)= box 0 . box 2^T, acc_b (+)= box 1 . box 3^T.
@@ -1257,10 +1284,19 @@ __device__ __forceinline__ void stream_scores(float (&acc_a)[32], float (&acc_b)
 }
 
 // dQ at a head dim above 576 on the tensor cores. blockIdx.x: (batch, head)
-// row; blockIdx.y: 64-row q tile, heaviest first; blockIdx.z: the slab of dQ.
-template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
-    flash_bwd_dq_tri_wide_kernel(Params p, int d, TC_MAPS) {
+// row; blockIdx.y: 64-row q tile, heaviest first under a plain causal mask
+// (with a window or none, every tile walks about as far: in order);
+// blockIdx.z: the slab of dQ. TRI: the triangle; else the general masks of
+// Params. The general pair's segment ids come through a ring of their own
+// (SS stages of the key tile's 64 ids and their range), which every lane of
+// the producer warp stages for every key tile of the walk: a key tile whose
+// documents cannot meet the q tile's is skipped before its chunks load (each
+// dead pair would cost d / 64 chunk loads), the consumers reading the same
+// range to skip it too.
+template <typename T, bool TRI>
+__device__ __forceinline__ void dq_wide_body(const Params& p, int d, const CUtensorMap* qmap,
+                                             const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                             const CUtensorMap* domap) {
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   constexpr int W = kWideDqSlab, NB = W / kWideBox;
   constexpr int R = kWideRing, SS = kWideSlabStages;
@@ -1271,17 +1307,30 @@ __global__ void __launch_bounds__(128 + 32, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   unsigned char* ring = base;                     // stage st: Q, dO, K and V boxes
   unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB K boxes
-  uint64_t* full = reinterpret_cast<uint64_t*>(slab_s + SS * kSlabBytes);
+  int* kid_s = reinterpret_cast<int*>(slab_s + SS * kSlabBytes);  // general: [SS][64]
+  int* krange_s = kid_s + SS * kTile;                             // general: [SS][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(kid_s)
+                                                   : reinterpret_cast<unsigned char*>(
+                                                         krange_s + 2 * SS));
   uint64_t* empty = full + R;
   uint64_t* sfull = empty + R;
   uint64_t* sempty = sfull + SS;
+  uint64_t* ifull = sempty + SS;  // general: the id ring's
+  uint64_t* iempty = ifull + SS;
 
+  const bool causal = TRI || p.causal;
+  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const bool segments = !TRI && p.seg != nullptr;
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int q0 = (causal && window == 0 ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
   const int own0 = blockIdx.z * W;     // the first column this CTA writes
   const int col0 = min(own0, d - W);   // the first column of its products
   const int nc = d / kWideBox;
-  const int n_tiles = (min(p.s, q0 + 64) + 63) / 64;  // key tiles up to the diagonal
+  // the key tiles some row of the q tile can see: all of them, or up to the
+  // diagonal, from the window's first key on
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / 64 : 0;
+  const int n_tiles = ((causal ? min(p.s, q0 + 64) : p.s) + 63) / 64 - t_lo;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -1295,35 +1344,57 @@ __global__ void __launch_bounds__(128 + 32, 1)
     for (int st = 0; st < SS; ++st) {
       mbar_init(&sfull[st], 1);
       mbar_init(&sempty[st], 4);
+      if (!TRI) {
+        mbar_init(&ifull[st], 32);  // each staging lane's stores
+        mbar_init(&iempty[st], 4);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == 4) {
-    // producer warp: per key tile, the chunks of Q, dO, K and V, then the
-    // tile's K slab
-    if (lane == 0) {
+    // producer warp: per key tile (with segment ids, after every lane staged
+    // the tile's ids and lane 0 found the tile live), lane 0 streams the
+    // chunks of Q, dO, K and V, then loads the tile's K slab
+    if (lane == 0 || segments) {
       const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+      const int2 qrange =
+          segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+      int n = 0;  // key tiles loaded so far
       for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = t * 64;
-        for (int c = 0; c < nc; ++c) {
-          const int i = t * nc + c, st = i % R;
-          if (i >= R) mbar_wait(&empty[st], ring_parity(i - R, R));
-          unsigned char* stage = ring + st * kStageBytes;
-          mbar_expect_tx(&full[st], kStageBytes);
-          tma_load_3d(stage, &qmap, &full[st], c * kWideBox, q0, bh);
-          tma_load_3d(stage + kWideBoxBytes, &domap, &full[st], c * kWideBox, q0, bh);
-          tma_load_3d(stage + 2 * kWideBoxBytes, &kmap, &full[st], c * kWideBox, k0, kv_row);
-          tma_load_3d(stage + 3 * kWideBoxBytes, &vmap, &full[st], c * kWideBox, k0, kv_row);
+        const int k0 = (t_lo + t) * 64;
+        if (segments) {
+          const int is = t % SS;
+          if (t >= SS) mbar_wait(&iempty[is], ring_parity(t - SS, SS));
+          const int2 range = id_range(seg, k0, p.s, lane, 32, ~0u, kid_s + is * kTile);
+          if (lane == 0) {
+            krange_s[2 * is] = range.x;
+            krange_s[2 * is + 1] = range.y;
+          }
+          mbar_arrive(&ifull[is]);  // releases this lane's stores to the consumers
+          if (apart(qrange, range)) continue;
         }
-        const int ss = t % SS;
-        if (t >= SS) mbar_wait(&sempty[ss], ring_parity(t - SS, SS));
-        mbar_expect_tx(&sfull[ss], kSlabBytes);
-        for (int b = 0; b < NB; ++b) {
-          tma_load_3d(slab_s + ss * kSlabBytes + b * kWideBoxBytes, &kmap, &sfull[ss],
-                      col0 + b * kWideBox, k0, kv_row);
+        if (lane == 0) {
+          for (int c = 0; c < nc; ++c) {
+            const int i = n * nc + c, st = i % R;
+            if (i >= R) mbar_wait(&empty[st], ring_parity(i - R, R));
+            unsigned char* stage = ring + st * kStageBytes;
+            mbar_expect_tx(&full[st], kStageBytes);
+            tma_load_3d(stage, qmap, &full[st], c * kWideBox, q0, bh);
+            tma_load_3d(stage + kWideBoxBytes, domap, &full[st], c * kWideBox, q0, bh);
+            tma_load_3d(stage + 2 * kWideBoxBytes, kmap, &full[st], c * kWideBox, k0, kv_row);
+            tma_load_3d(stage + 3 * kWideBoxBytes, vmap, &full[st], c * kWideBox, k0, kv_row);
+          }
+          const int ss = n % SS;
+          if (n >= SS) mbar_wait(&sempty[ss], ring_parity(n - SS, SS));
+          mbar_expect_tx(&sfull[ss], kSlabBytes);
+          for (int b = 0; b < NB; ++b) {
+            tma_load_3d(slab_s + ss * kSlabBytes + b * kWideBoxBytes, kmap, &sfull[ss],
+                        col0 + b * kWideBox, k0, kv_row);
+          }
         }
+        ++n;
       }
     }
     return;
@@ -1335,6 +1406,7 @@ __global__ void __launch_bounds__(128 + 32, 1)
   const int r0 = q0 + warp * 16 + lane / 4;
   const float qscale = p.qscale, scale = p.scale;
   float l2[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8; +inf keeps P = 0
+  int qid[2] = {0, 0};  // (segment ids) theirs
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
@@ -1342,48 +1414,96 @@ __global__ void __launch_bounds__(128 + 32, 1)
     const float lse = row < p.s ? p.lse[at] : -CUDART_INF_F;
     l2[h] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
     dl[h] = row < p.s ? p.delta[at] : 0.f;
+    if (segments && row < p.s) qid[h] = seg[row];
   }
+  // the segment ids of the q tile: one id throughout when x == y
+  const int2 qrange =
+      segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
   float dq[W / 2], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
+  int n = 0;  // key tiles computed so far
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * 64;
-    stream_scores<T>(s, dp, ring, full, empty, t * nc, nc, lane);  // S = Q.K^T, dP = dO.V^T
-
-    // dS = P * (dP - delta) * scale, the keys after a row dropped on the
-    // diagonal tile (the last), rounded to T as the register A operand
-    const bool masked = t == n_tiles - 1;
-    uint32_t dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + 8 * (e / 2);
-        const int key = k0 + 8 * j + 2 * tq + e % 2;
-        float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
-        if (masked && key > row) pe = 0.f;
-        ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+    const int k0 = (t_lo + t) * 64;
+    const int is = t % SS;
+    // the general kernel's tile rule: whether the tile holds a live pair,
+    // and whether some pair needs the element mask (a key after a row,
+    // outside the window or past s, or in another document)
+    bool sees = true, masked;
+    if constexpr (TRI) {
+      masked = t == n_tiles - 1;  // the diagonal tile (the last)
+    } else {
+      masked = (causal && k0 + 63 > q0) || (window > 0 && q0 + 63 - k0 >= window) ||
+               k0 + 64 > p.s;
+      if (segments) {
+        mbar_wait(&ifull[is], ring_parity(t, SS));
+        const int2 krange = make_int2(krange_s[2 * is], krange_s[2 * is + 1]);
+        sees = !apart(qrange, krange);
+        masked = masked || !one_doc(qrange, krange);
       }
-      dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
-      dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
     }
+    if (sees) {
+      stream_scores<T>(s, dp, ring, full, empty, n * nc, nc, lane);  // S = Q.K^T, dP = dO.V^T
+      if constexpr (!TRI) {
+        if (masked) {
+          // a dead pair's score goes to -inf, so its P and dS below are 0
+          const int win = window > 0 ? window : INT_MAX;
+          const int2* kid = reinterpret_cast<const int2*>(kid_s + is * kTile);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
+            if (segments) kj = kid[4 * j + tq];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 8 * (e / 2);
+              const int key = k0 + 8 * j + 2 * tq + e % 2;
+              bool live = key < p.s && (!causal || (key <= row && row - key < win));
+              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+              if (!live) s[4 * j + e] = -CUDART_INF_F;
+            }
+          }
+        }
+      }
 
-    const int ss = t % SS;
-    mbar_wait(&sfull[ss], ring_parity(t, SS));
-    hold(dsa);
-    hold(dq);
-    wgmma_fence();
-    mma_frag_by_slab<T, W>(dq, dsa, slab_s + ss * kSlabBytes);  // dQ += dS.K_slab, K MN-major
-    wgmma_commit();
-    wgmma_wait<0>();
-    hold(dq);
-    hold(dsa);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&sempty[ss]);
+      // dS = P * (dP - delta) * scale, the keys after a row dropped on the
+      // triangle's diagonal tile, rounded to T as the register A operand
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * (e / 2);
+          const int key = k0 + 8 * j + 2 * tq + e % 2;
+          float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
+          if (TRI && masked && key > row) pe = 0.f;
+          ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
+        }
+        dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
+      }
+
+      const int ss = n % SS;
+      mbar_wait(&sfull[ss], ring_parity(n, SS));
+      hold(dsa);
+      hold(dq);
+      wgmma_fence();
+      mma_frag_by_slab<T, W>(dq, dsa, slab_s + ss * kSlabBytes);  // dQ += dS.K_slab, K MN-major
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dq);
+      hold(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sempty[ss]);
+      ++n;
+    }
+    if (segments) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&iempty[is]);  // this warp is done with the tile's ids
+    }
   }
 
   T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * d;
@@ -1402,10 +1522,15 @@ __global__ void __launch_bounds__(128 + 32, 1)
 
 // dK/dV at a head dim above 576 on the tensor cores. blockIdx.x: kv row;
 // blockIdx.y: 64-key tile, in order; blockIdx.z: the slab of dK and dV. The
-// CTA walks, for every GQA group member, the q tiles from its diagonal down.
-template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
-    flash_bwd_dkv_tri_wide_kernel(Params p, int d, TC_MAPS) {
+// CTA walks, for every GQA group member, the q tiles some row of which sees
+// one of its keys: from its diagonal down (causal; to the window's last row),
+// or all of them. The general pair's q-tile ids come through an id ring as
+// in dQ, so a q tile whose documents cannot meet the key tile's is skipped
+// before its chunks load.
+template <typename T, bool TRI>
+__device__ __forceinline__ void dkv_wide_body(const Params& p, int d, const CUtensorMap* qmap,
+                                              const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                              const CUtensorMap* domap) {
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
   constexpr int W = kWideDkvSlab, NB = W / kWideBox;
   constexpr int R = kWideRing, SS = kWideSlabStages;
@@ -1418,11 +1543,20 @@ __global__ void __launch_bounds__(128 + 32, 1)
   unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB Q boxes, then NB dO boxes
   float* lse_s = reinterpret_cast<float*>(slab_s + SS * 2 * kSlabBytes);  // [SS][64]
   float* dl_s = lse_s + SS * kTile;                                        // likewise
-  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + SS * kTile);
+  int* qid_s = reinterpret_cast<int*>(dl_s + SS * kTile);  // general: [SS][64]
+  int* qrange_s = qid_s + SS * kTile;                      // general: [SS][min, max]
+  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(qid_s)
+                                                   : reinterpret_cast<unsigned char*>(
+                                                         qrange_s + 2 * SS));
   uint64_t* empty = full + R;
   uint64_t* sfull = empty + R;
   uint64_t* sempty = sfull + SS;
+  uint64_t* ifull = sempty + SS;  // general: the id ring's
+  uint64_t* iempty = ifull + SS;
 
+  const bool causal = TRI || p.causal;
+  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const bool segments = !TRI && p.seg != nullptr;
   const int kv_row = blockIdx.x;
   const int k0 = blockIdx.y * 64;
   const int own0 = blockIdx.z * W;
@@ -1430,9 +1564,13 @@ __global__ void __launch_bounds__(128 + 32, 1)
   const int nc = d / kWideBox;
   const int group = p.heads / p.kv_heads;
   const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
-  const int t_lo = k0 / 64;
-  const int per_member = (p.s + 63) / 64 - t_lo;
+  // the q tiles that can see some key of the CTA: all of them, or from the
+  // diagonal down, to the last row inside the window of the last key
+  const int t_lo = causal ? k0 / 64 : 0;
+  const int q_end = window > 0 ? min(p.s, min(k0 + 64, p.s) - 1 + window) : p.s;
+  const int per_member = (q_end + 63) / 64 - t_lo;
   const int n_steps = group * per_member;
+  const int* seg = segments ? p.seg + static_cast<size_t>(kv_row / p.kv_heads) * p.s : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -1446,38 +1584,58 @@ __global__ void __launch_bounds__(128 + 32, 1)
     for (int st = 0; st < SS; ++st) {
       mbar_init(&sfull[st], 1 + 32);  // the TMA bytes, then each lane's lse and delta
       mbar_init(&sempty[st], 4);
+      if (!TRI) {
+        mbar_init(&ifull[st], 32);  // each staging lane's stores
+        mbar_init(&iempty[st], 4);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == 4) {
-    // producer warp: per (member, q tile) step, lane 0 streams the chunks of
-    // K, V, Q and dO, then loads the Q and dO slabs; every lane stages the
-    // tile's lse (base 2; +inf past s and for a row that saw no key) and delta
+    // producer warp: per (member, q tile) step (with segment ids, after
+    // every lane staged the tile's ids and found it live), lane 0 streams
+    // the chunks of K, V, Q and dO, then loads the Q and dO slabs; every
+    // lane stages the tile's lse (base 2; +inf past s and for a row that saw
+    // no key) and delta
+    const int2 krange =
+        segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+    int n = 0;  // steps loaded so far
     for (int i = 0; i < n_steps; ++i) {
       const int q_row = q_row0 + i / per_member;
       const int q0 = (t_lo + i % per_member) * 64;
-      const int ss = i % SS;
+      if (segments) {
+        const int is = i % SS;
+        if (i >= SS) mbar_wait(&iempty[is], ring_parity(i - SS, SS));
+        const int2 range = id_range(seg, q0, p.s, lane, 32, ~0u, qid_s + is * kTile);
+        if (lane == 0) {
+          qrange_s[2 * is] = range.x;
+          qrange_s[2 * is + 1] = range.y;
+        }
+        mbar_arrive(&ifull[is]);  // releases this lane's stores to the consumers
+        if (apart(krange, range)) continue;
+      }
+      const int ss = n % SS;
       if (lane == 0) {
         for (int c = 0; c < nc; ++c) {
-          const int j = i * nc + c, st = j % R;
+          const int j = n * nc + c, st = j % R;
           if (j >= R) mbar_wait(&empty[st], ring_parity(j - R, R));
           unsigned char* stage = ring + st * kStageBytes;
           mbar_expect_tx(&full[st], kStageBytes);
-          tma_load_3d(stage, &kmap, &full[st], c * kWideBox, k0, kv_row);
-          tma_load_3d(stage + kWideBoxBytes, &vmap, &full[st], c * kWideBox, k0, kv_row);
-          tma_load_3d(stage + 2 * kWideBoxBytes, &qmap, &full[st], c * kWideBox, q0, q_row);
-          tma_load_3d(stage + 3 * kWideBoxBytes, &domap, &full[st], c * kWideBox, q0, q_row);
+          tma_load_3d(stage, kmap, &full[st], c * kWideBox, k0, kv_row);
+          tma_load_3d(stage + kWideBoxBytes, vmap, &full[st], c * kWideBox, k0, kv_row);
+          tma_load_3d(stage + 2 * kWideBoxBytes, qmap, &full[st], c * kWideBox, q0, q_row);
+          tma_load_3d(stage + 3 * kWideBoxBytes, domap, &full[st], c * kWideBox, q0, q_row);
         }
       }
-      if (i >= SS) mbar_wait(&sempty[ss], ring_parity(i - SS, SS));
+      if (n >= SS) mbar_wait(&sempty[ss], ring_parity(n - SS, SS));
       if (lane == 0) {
         mbar_expect_tx(&sfull[ss], 2 * kSlabBytes);
         unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
         for (int b = 0; b < NB; ++b) {
-          tma_load_3d(slab + b * kWideBoxBytes, &qmap, &sfull[ss], col0 + b * kWideBox, q0, q_row);
-          tma_load_3d(slab + kSlabBytes + b * kWideBoxBytes, &domap, &sfull[ss],
+          tma_load_3d(slab + b * kWideBoxBytes, qmap, &sfull[ss], col0 + b * kWideBox, q0, q_row);
+          tma_load_3d(slab + kSlabBytes + b * kWideBoxBytes, domap, &sfull[ss],
                       col0 + b * kWideBox, q0, q_row);
         }
       }
@@ -1489,6 +1647,7 @@ __global__ void __launch_bounds__(128 + 32, 1)
         dl_s[ss * kTile + c] = q < p.s ? p.delta[at] : 0.f;
       }
       mbar_arrive(&sfull[ss]);  // releases this lane's stores to the consumers
+      ++n;
     }
     return;
   }
@@ -1498,58 +1657,110 @@ __global__ void __launch_bounds__(128 + 32, 1)
   const int tq = lane % 4;
   const int key = k0 + warp * 16 + lane / 4;
   const float qscale = p.qscale, scale = p.scale;
+  int kid[2] = {0, 0};  // (segment ids) those of keys key and key + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (segments && key + 8 * h < p.s) kid[h] = seg[key + 8 * h];
+  }
+  // the segment ids of the key tile: one id throughout when x == y
+  const int2 krange =
+      segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
   float dk[W / 2], dv[W / 2], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
+  int n = 0;  // steps computed so far
   for (int i = 0; i < n_steps; ++i) {
     const int q0 = (t_lo + i % per_member) * 64;
-    stream_scores<T>(s, dp, ring, full, empty, i * nc, nc, lane);  // S^T = K.Q^T, dP^T = V.dO^T
-
-    const int ss = i % SS;
-    mbar_wait(&sfull[ss], ring_parity(i, SS));
-    const float2* l2 = reinterpret_cast<const float2*>(lse_s + ss * kTile);
-    const float2* dl = reinterpret_cast<const float2*>(dl_s + ss * kTile);
-    // P^T and dS^T, the rows before a key dropped on the diagonal tile (the first)
-    const bool masked = q0 == k0;
-    uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
-      float pe[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + 8 * j + 2 * tq + e % 2;
-        const int kk = key + 8 * (e / 2);
-        float v = exp2f(fmaf(s[4 * j + e], qscale, -(e % 2 ? lj.y : lj.x)));
-        if (masked && q < kk) v = 0.f;
-        pe[e] = v;
-        ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+    const int is = i % SS;
+    // the tile rule, as in dQ: a row before a key or outside the window, or
+    // in another document (rows past s have P = 0 from their lse, and keys
+    // past s are never written)
+    bool sees = true, masked;
+    if constexpr (TRI) {
+      masked = q0 == k0;  // the diagonal tile (the first)
+    } else {
+      masked = (causal && q0 < k0 + 63) || (window > 0 && q0 + 63 - k0 >= window);
+      if (segments) {
+        mbar_wait(&ifull[is], ring_parity(i, SS));
+        const int2 qrange = make_int2(qrange_s[2 * is], qrange_s[2 * is + 1]);
+        sees = !apart(krange, qrange);
+        masked = masked || !one_doc(krange, qrange);
       }
-      pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
-      pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
-      dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
-      dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
     }
+    if (sees) {
+      stream_scores<T>(s, dp, ring, full, empty, n * nc, nc, lane);  // S^T = K.Q^T, dP^T = V.dO^T
+      if constexpr (!TRI) {
+        if (masked) {
+          // a dead pair's score goes to -inf, so its P and dS below are 0
+          const int win = window > 0 ? window : INT_MAX;
+          const int2* qid = reinterpret_cast<const int2*>(qid_s + is * kTile);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            int2 qj = make_int2(0, 0);  // the segment ids of rows 8 j + 2 tq (+1)
+            if (segments) qj = qid[4 * j + tq];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = q0 + 8 * j + 2 * tq + e % 2;
+              const int kk = key + 8 * (e / 2);
+              bool live = !causal || (q >= kk && q - kk < win);
+              if (segments) live = live && (e % 2 ? qj.y : qj.x) == kid[e / 2];
+              if (!live) s[4 * j + e] = -CUDART_INF_F;
+            }
+          }
+        }
+      }
 
-    const unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
-    hold(pa);
-    hold(dsa);
-    hold(dv);
-    hold(dk);
-    wgmma_fence();
-    mma_frag_by_slab<T, W>(dv, pa, slab + kSlabBytes);  // dV += P^T.dO_slab, dO MN-major
-    mma_frag_by_slab<T, W>(dk, dsa, slab);              // dK += dS^T.Q_slab, Q MN-major
-    wgmma_commit();
-    wgmma_wait<0>();
-    hold(dv);
-    hold(dk);
-    hold(pa);
-    hold(dsa);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&sempty[ss]);
+      const int ss = n % SS;
+      mbar_wait(&sfull[ss], ring_parity(n, SS));
+      const float2* l2 = reinterpret_cast<const float2*>(lse_s + ss * kTile);
+      const float2* dl = reinterpret_cast<const float2*>(dl_s + ss * kTile);
+      // P^T and dS^T, the rows before a key dropped on the triangle's
+      // diagonal tile
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
+        float pe[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * tq + e % 2;
+          const int kk = key + 8 * (e / 2);
+          float v = exp2f(fmaf(s[4 * j + e], qscale, -(e % 2 ? lj.y : lj.x)));
+          if (TRI && masked && q < kk) v = 0.f;
+          pe[e] = v;
+          ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+        }
+        pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
+        dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
+      }
+
+      const unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
+      hold(pa);
+      hold(dsa);
+      hold(dv);
+      hold(dk);
+      wgmma_fence();
+      mma_frag_by_slab<T, W>(dv, pa, slab + kSlabBytes);  // dV += P^T.dO_slab, dO MN-major
+      mma_frag_by_slab<T, W>(dk, dsa, slab);              // dK += dS^T.Q_slab, Q MN-major
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dv);
+      hold(dk);
+      hold(pa);
+      hold(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sempty[ss]);
+      ++n;
+    }
+    if (segments) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&iempty[is]);  // this warp is done with the tile's ids
+    }
   }
 
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * d;
@@ -1569,6 +1780,31 @@ __global__ void __launch_bounds__(128 + 32, 1)
   }
 }
 
+// The four 16-bit D-streaming kernels: the triangle pair and the general pair.
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dq_tri_wide_kernel(Params p, int d, TC_MAPS) {
+  dq_wide_body<T, true>(p, d, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dq_rect_wide_kernel(Params p, int d, TC_MAPS) {
+  dq_wide_body<T, false>(p, d, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dkv_tri_wide_kernel(Params p, int d, TC_MAPS) {
+  dkv_wide_body<T, true>(p, d, &qmap, &kmap, &vmap, &domap);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128 + 32, 1)
+    flash_bwd_dkv_rect_wide_kernel(Params p, int d, TC_MAPS) {
+  dkv_wide_body<T, false>(p, d, &qmap, &kmap, &vmap, &domap);
+}
+
 #ifndef FLASH_ELEM_F16  // the f32 kernels live in the bf16 library (kWithF32)
 // Rows [r0, r0 + TT) and columns [c0, c0 + n) of a (s, d) matrix into a
 // [TT][n + 1] f32 tile, times mul; rows past s and columns past d are zero.
@@ -1583,10 +1819,30 @@ __device__ __forceinline__ void stage_cols(float* dst, const float* src, int r0,
   }
 }
 
+// Stage the segment ids of the 64 positions from t0 (warp 0 of the CTA) and
+// their (min, max) at range[0..1], and make both visible to the CTA; the
+// first barrier keeps the last reader of the previous ones ahead of the
+// stores.
+__device__ __forceinline__ void stage_ids(const int* seg, int t0, int s, int* ids, int* range) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int2 r = id_range(seg, t0, s, threadIdx.x, 32, ~0u, ids);
+    if (threadIdx.x == 0) {
+      range[0] = r.x;
+      range[1] = r.y;
+    }
+  }
+  __syncthreads();
+}
+
 // The f32 D-streaming dQ on the CUDA cores: dq_body's arithmetic, S and dP
 // summed over 64-column chunks and dQ in slabs of kF32WideSlab columns.
 // blockIdx.x: q tile x slabs + slab; y and z: bh rows (kMaxGridY a z slice).
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(Params p, int d) {
+// TRI: the triangle; else the general masks, the key tiles of the band, a
+// key tile whose documents cannot meet the q tile's skipped before its
+// chunks load.
+template <bool TRI>
+__device__ __forceinline__ void dq_wide_f32_body(const Params& p, int d) {
   constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
   constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
   extern __shared__ float smem[];
@@ -1596,6 +1852,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(
   float* vs = ks + TT * LC;
   float* dss = vs + TT * LC;
   float* kslab = dss + TT * LP;
+  int* kseg = reinterpret_cast<int*>(kslab + TT * LS);  // general: the key tile's ids
+  int* ranges = kseg + TT;  // general: the q tile's and the key tile's (min, max)
 
   const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
   if (bh >= p.rows) return;
@@ -1610,21 +1868,35 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(
   const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(bh) * p.s * d;
   const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+  const bool segments = !TRI && p.seg != nullptr;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
 
   float lse2[R], dlt[R], acc[R][CN];
+  int qseg[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     const bool in = qi < p.s;
     lse2[i] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
     dlt[i] = in ? p.delta[static_cast<size_t>(bh) * p.s + qi] : 0.f;
+    qseg[i] = (segments && in) ? seg[qi] : 0;
 #pragma unroll
     for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
   }
+  if (segments) stage_ids(seg, q0, p.s, kseg, ranges);  // the q tile's range (its ids unused)
+  const int2 qrange = segments ? make_int2(ranges[0], ranges[1]) : make_int2(0, 1);
 
-  const int t_hi = (min(q0 + TT, p.s) + TT - 1) / TT;  // key tiles up to the diagonal
-  for (int t = 0; t < t_hi; ++t) {
+  // the key tiles any row of this q tile can see: up to the diagonal
+  // (causal), from the window's first key on
+  int t_lo = 0, t_hi = (p.s + TT - 1) / TT;
+  if (TRI || p.causal) t_hi = (min(q0 + TT, p.s) + TT - 1) / TT;
+  if (!TRI && p.causal && p.window > 0) t_lo = max(0, q0 - p.window + 1) / TT;
+  for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * TT;
+    if (segments) {
+      stage_ids(seg, k0, p.s, kseg, ranges + 2);
+      if (apart(qrange, make_int2(ranges[2], ranges[3]))) continue;
+    }
     float sc[R][R], dp[R][R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -1668,7 +1940,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool live = qi < p.s && kj < p.s && lse2[i] != -CUDART_INF_F && kj <= qi;
+        const bool live = qi < p.s && kj < p.s && lse2[i] != -CUDART_INF_F &&
+                          attends<TRI>(p, qi, kj, segments, qseg[i],
+                                       segments ? kseg[tx + 16 * j] : 0);
         const float pij = live ? exp2f(sc[i][j] - lse2[i]) : 0.f;
         dss[(ty + 16 * i) * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[i]) * p.scale;
       }
@@ -1704,8 +1978,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(
 
 // The f32 D-streaming dK/dV on the CUDA cores: dkv_body's arithmetic, S^T
 // and dP^T summed over 64-column chunks and dK and dV in slabs.
-// blockIdx.x: key tile x slabs + slab; y and z: kv rows.
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel(Params p, int d) {
+// blockIdx.x: key tile x slabs + slab; y and z: kv rows. TRI: the triangle;
+// else the general masks, as dQ's.
+template <bool TRI>
+__device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
   constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
   constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
   extern __shared__ float smem[];
@@ -1719,6 +1995,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel
   float* doslab = qslab + TT * LS;
   float* lse2 = doslab + TT * LS;
   float* dlt = lse2 + TT;
+  int* qseg = reinterpret_cast<int*>(dlt + TT);  // general: the q tile's ids
+  int* ranges = qseg + TT;  // general: the key tile's and the q tile's (min, max)
 
   const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
   if (kv_row >= p.rows) return;
@@ -1732,7 +2010,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel
   const int group = p.heads / p.kv_heads;
   const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+  const bool segments = !TRI && p.seg != nullptr;
+  const int* seg = segments ? p.seg + static_cast<size_t>(b) * p.s : nullptr;
 
+  // score columns of this thread: keys k0 + tx + 16 j
+  int kseg[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int kj = k0 + tx + 16 * j;
+    kseg[j] = (segments && kj < p.s) ? seg[kj] : 0;
+  }
+  if (segments) stage_ids(seg, k0, p.s, qseg, ranges);  // the key tile's range (ids unused)
+  const int2 krange = segments ? make_int2(ranges[0], ranges[1]) : make_int2(0, 1);
   // accumulator rows of this thread: keys k0 + ty + 16 i
   float dk[R][CN], dv[R][CN];
 #pragma unroll
@@ -1740,13 +2029,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel
 #pragma unroll
     for (int c = 0; c < CN; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  const int t_lo = k0 / TT, t_hi = (p.s + TT - 1) / TT;  // q tiles from the diagonal down
+  // the q tiles that can see any key of this tile: from the diagonal down
+  // (causal), to the last row inside the window of the last key
+  int t_lo = 0, t_hi = (p.s + TT - 1) / TT;
+  if (TRI || p.causal) t_lo = k0 / TT;
+  if (!TRI && p.causal && p.window > 0) {
+    t_hi = (min(p.s, min(k0 + TT, p.s) - 1 + p.window) + TT - 1) / TT;
+  }
   for (int m = 0; m < group; ++m) {
     const int q_row = b * p.heads + (kv_row % p.kv_heads) * group + m;
     const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(q_row) * p.s * d;
     const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(q_row) * p.s * d;
     for (int t = t_lo; t < t_hi; ++t) {
       const int q0 = t * TT;
+      if (segments) {
+        stage_ids(seg, q0, p.s, qseg, ranges + 2);
+        if (apart(krange, make_int2(ranges[2], ranges[3]))) continue;
+      }
       float sc[R][R], dp[R][R];  // rows: q rows q0 + ty + 16 i; columns: keys k0 + tx + 16 j
 #pragma unroll
       for (int i = 0; i < R; ++i)
@@ -1802,7 +2101,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int kj = k0 + tx + 16 * j;
-          const bool live = qi < p.s && kj < p.s && l2 != -CUDART_INF_F && kj <= qi;
+          const bool live = qi < p.s && kj < p.s && l2 != -CUDART_INF_F &&
+                            attends<TRI>(p, qi, kj, segments, segments ? qseg[r] : 0, kseg[j]);
           const float pij = live ? exp2f(sc[i][j] - l2) : 0.f;
           ps[r * LP + tx + 16 * j] = pij;
           dss[r * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[r]) * p.scale;
@@ -1849,6 +2149,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel
       dvg[off] = dv[i][c];
     }
   }
+}
+
+// The four f32 D-streaming kernels: the triangle pair and the general pair.
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(Params p, int d) {
+  dq_wide_f32_body<true>(p, d);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_rect_wide_f32_kernel(Params p, int d) {
+  dq_wide_f32_body<false>(p, d);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel(Params p, int d) {
+  dkv_wide_f32_body<true>(p, d);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_rect_wide_f32_kernel(Params p, int d) {
+  dkv_wide_f32_body<false>(p, d);
 }
 #endif  // FLASH_ELEM_F16
 #endif  // FLASH_HEAD_DIM_WIDE
@@ -1958,63 +2276,64 @@ bool valid(const Params& p, int rows) {
 }
 
 #ifdef FLASH_HEAD_DIM_WIDE
-// The triangle pair at a head dim above 576 with the caller's plan: 64-row
-// tiles, the layout's shared memory, the 128-byte swizzle (16-bit) or none
-// (f32). The general pair is not built there (ROADMAP.md item 24).
+// Either pair at a head dim above 576 with the caller's plan: 64-row tiles,
+// the layout's shared memory, the 128-byte swizzle (16-bit) or none (f32).
 template <Kind K>
 int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
                   cudaStream_t stream) {
-  if constexpr (!is_tri(K)) {
-    return kUnsupported;
-  } else {
-    constexpr bool kDq = is_dq(K);
-    if (!wide_head_dim(d) || block != 64) return kUnsupported;
-    const int tiles = (p.s + 63) / 64;
-    if (dtype == kElemCode) {
-      if (swizzle != WideGeo::kRowBytes || tiles > 65535 ||
-          smem != (kDq ? dq_wide_smem_bytes() : dkv_wide_smem_bytes())) {
-        return kUnsupported;
-      }
-      if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
-      const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
-      const int bh_kv = kDq ? rows / p.heads * p.kv_heads : rows;
-      CUtensorMap qmap, kmap, vmap, domap;
-      if (!encode_wide_map<Elem16>(&qmap, p.q, p.s, bh, d) ||
-          !encode_wide_map<Elem16>(&domap, p.dout, p.s, bh, d) ||
-          !encode_wide_map<Elem16>(&kmap, p.k, p.s, bh_kv, d) ||
-          !encode_wide_map<Elem16>(&vmap, p.v, p.s, bh_kv, d)) {
-        return kNoTensorMap;
-      }
-      void (*kernel)(Params, int, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
-      if constexpr (kDq) {
-        kernel = flash_bwd_dq_tri_wide_kernel<Elem16>;
-      } else {
-        kernel = flash_bwd_dkv_tri_wide_kernel<Elem16>;
-      }
-      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int slabs = wide_slabs(d, kDq ? kWideDqSlab : kWideDkvSlab);
-      kernel<<<dim3(rows, tiles, slabs), 128 + 32, smem, stream>>>(p, d, qmap, kmap, vmap, domap);
-      return static_cast<int>(cudaGetLastError());
+  constexpr bool kDq = is_dq(K), kTri = is_tri(K);
+  if (!wide_head_dim(d) || block != 64) return kUnsupported;
+  const int tiles = (p.s + 63) / 64;
+  if (dtype == kElemCode) {
+    if (swizzle != WideGeo::kRowBytes || tiles > 65535 ||
+        smem != (kDq ? dq_wide_smem_bytes<kTri>() : dkv_wide_smem_bytes<kTri>())) {
+      return kUnsupported;
     }
-#ifdef FLASH_ELEM_F16
-    return kUnsupported;
-#else
-    {
-      const size_t fixed = kDq ? dq_f32_wide_smem_bytes() : dkv_f32_wide_smem_bytes();
-      if (dtype != 0 || swizzle != 0 || smem != static_cast<int>(fixed)) return kUnsupported;
-      void (*kernel)(Params, int) =
-          kDq ? flash_bwd_dq_tri_wide_f32_kernel : flash_bwd_dkv_tri_wide_f32_kernel;
-      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(fixed));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid(tiles * wide_slabs(d, kF32WideSlab), rows < kMaxGridY ? rows : kMaxGridY,
-                      (rows + kMaxGridY - 1) / kMaxGridY);
-      kernel<<<grid, kThreads, fixed, stream>>>(p, d);
-      return static_cast<int>(cudaGetLastError());
+    if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
+    const int bh = kDq ? rows : rows / p.kv_heads * p.heads;
+    const int bh_kv = kDq ? rows / p.heads * p.kv_heads : rows;
+    CUtensorMap qmap, kmap, vmap, domap;
+    if (!encode_wide_map<Elem16>(&qmap, p.q, p.s, bh, d) ||
+        !encode_wide_map<Elem16>(&domap, p.dout, p.s, bh, d) ||
+        !encode_wide_map<Elem16>(&kmap, p.k, p.s, bh_kv, d) ||
+        !encode_wide_map<Elem16>(&vmap, p.v, p.s, bh_kv, d)) {
+      return kNoTensorMap;
     }
-#endif
+    void (*kernel)(Params, int, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
+    if constexpr (K == kDqTri) {
+      kernel = flash_bwd_dq_tri_wide_kernel<Elem16>;
+    } else if constexpr (K == kDqRect) {
+      kernel = flash_bwd_dq_rect_wide_kernel<Elem16>;
+    } else if constexpr (K == kDkvTri) {
+      kernel = flash_bwd_dkv_tri_wide_kernel<Elem16>;
+    } else {
+      kernel = flash_bwd_dkv_rect_wide_kernel<Elem16>;
+    }
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int slabs = wide_slabs(d, kDq ? kWideDqSlab : kWideDkvSlab);
+    kernel<<<dim3(rows, tiles, slabs), 128 + 32, smem, stream>>>(p, d, qmap, kmap, vmap, domap);
+    return static_cast<int>(cudaGetLastError());
   }
+#ifdef FLASH_ELEM_F16
+  return kUnsupported;
+#else
+  const size_t fixed =
+      kDq ? dq_f32_wide_smem_bytes<kTri>() : dkv_f32_wide_smem_bytes<kTri>();
+  if (dtype != 0 || swizzle != 0 || smem != static_cast<int>(fixed)) return kUnsupported;
+  void (*kernel)(Params, int) =
+      K == kDqTri    ? flash_bwd_dq_tri_wide_f32_kernel
+      : K == kDqRect ? flash_bwd_dq_rect_wide_f32_kernel
+      : K == kDkvTri ? flash_bwd_dkv_tri_wide_f32_kernel
+                     : flash_bwd_dkv_rect_wide_f32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(fixed));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(tiles * wide_slabs(d, kF32WideSlab), rows < kMaxGridY ? rows : kMaxGridY,
+                  (rows + kMaxGridY - 1) / kMaxGridY);
+  kernel<<<grid, kThreads, fixed, stream>>>(p, d);
+  return static_cast<int>(cudaGetLastError());
+#endif
 }
 #endif  // FLASH_HEAD_DIM_WIDE
 
@@ -2072,8 +2391,8 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
 // tri_bwd_plan and rect_bwd_plan). A library takes D 16-256, or (built with
 // -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone,
-// or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576, the triangle
-// pair only (flash_bwd.py::wide_bwd_plans).
+// or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576
+// (flash_bwd.py::wide_bwd_plans).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,

@@ -20,10 +20,9 @@ types; f32 runs on the CUDA cores. fp16 has a library of its own
 ``flash_bwd_f16_d576``), each built at the first call there. At 512 and
 576 the ring's tiles are 32 rows (:func:`ring_rows`) in one stage, and two
 (512) or three (576) CTAs share each own-side tile, one per column slice
-of the gradients (``flash_fwd.col_split``). Above 576 the triangle pair
-runs D-streaming kernels (``flash_bwd_wide``, ``flash_bwd_f16_wide``;
-:func:`wide_bwd_plans`); the general pair is not built there and its plan
-raises (ROADMAP.md item 24).
+of the gradients (``flash_fwd.col_split``). Above 576 both pairs run
+D-streaming kernels (``flash_bwd_wide``, ``flash_bwd_f16_wide``;
+:func:`wide_bwd_plans`).
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -198,28 +197,47 @@ class BwdPlan:
         end = min(s, min(start + self.block, s) - 1 + self.window)
         return range(start // ring, -(-end // ring))
 
-    def visits(self, x: int, y: int, s: int, group: int) -> List[Tuple[int, int, int]]:
+    def visits(self, x: int, y: int, s: int, group: int,
+               seg: Optional[Sequence[int]] = None) -> List[Tuple[int, int, int]]:
         """The (GQA member, q tile, key tile) products block (x, y) computes
         for s tokens, in the kernel's order (own-side tiles of 64 rows, the
         ring's of ``ring``): a 64-row (or 64-key) slice of the CTA skips a
         tile it cannot see (outside the band, or all its rows or keys past
-        s). dq has one member, 0. Segment ids can skip more tiles. Each of
+        s), and with the segment ids ``seg`` (the s ids of the block's batch
+        row) a tile whose positions inside s hold one document while its
+        slice's hold another (:func:`apart`; the f32 kernels at 576 and below
+        compute such a tile, masked to zero). dq has one member, 0. Each of
         ``col_split`` CTAs on the grid's z makes the same visits."""
         tiles = -(-s // TILE)
         first = self.cta(x, y)[1] * self.block // TILE
         slices = [t for t in range(first, first + self.block // TILE) if t < tiles]
+        q_rows, k_rows = (TILE, self.ring) if self.kernel == "dq" else (self.ring, TILE)
+
+        skips = seg is not None and (self.swizzle > 0 or self.slab > 0)
+
+        def live(q: int, k: int) -> bool:
+            return self.sees(q, k) and not (skips and apart(
+                seg[q * q_rows:min(s, (q + 1) * q_rows)], seg[k * k_rows:min(s, (k + 1) * k_rows)]))
+
         out = []
         if self.kernel == "dq":
             for k in self.walk(first, s):
-                out += [(0, q, k) for q in slices if self.sees(q, k)]
+                out += [(0, q, k) for q in slices if live(q, k)]
             return out
         for m in range(group):
             for q in self.walk(first, s):
-                out += [(m, q, k) for k in slices if self.sees(q, k)]
+                out += [(m, q, k) for k in slices if live(q, k)]
         return out
 
 
-# the D-streaming triangle pair's layout above 576 (flash_bwd.cu, built with
+def apart(a: Sequence[int], b: Sequence[int]) -> bool:
+    """Whether two tiles' segment ids (each tile's positions inside s) are
+    one document each, and different ones: the pair holds no live (q, k)
+    pair, and the kernels skip it (``apart`` in flash_bwd.cu)."""
+    return len(set(a)) == 1 and len(set(b)) == 1 and set(a) != set(b)
+
+
+# the D-streaming pairs' layout above 576 (flash_bwd.cu, built with
 # -DFLASH_HEAD_DIM_WIDE)
 WIDE_DQ_SLAB = 256     # columns of dQ a 16-bit CTA holds (kWideDqSlab)
 WIDE_DKV_SLAB = 128    # columns of dK and of dV a 16-bit CTA holds (kWideDkvSlab)
@@ -227,45 +245,56 @@ WIDE_BWD_RING = 4      # stages of the chunk ring, four boxes each (kWideRing)
 WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
 F32_WIDE_BWD_CHUNK = 64  # columns of an f32 chunk (kF32WideChunk)
 F32_WIDE_BWD_SLAB = 128  # columns of each gradient an f32 CTA holds (kF32WideSlab)
-ITEM_24 = ("the general backward pair (full attention, a window, segment ids) is not "
-           "built above head dim 576: ROADMAP.md item 24")
+# the general pair's id ring: per slab stage the ring tile's 64 ids, their min
+# and max, and two barriers (kWideIdBytes); f32: a tile's ids and two ranges
+# (kF32WideIdBytes)
+WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
+F32_WIDE_ID_BYTES = (TILE + 4) * 4
 
 
-def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int,
-                   d: int) -> Tuple[BwdPlan, BwdPlan]:
-    """How the triangle pair launches at a head dim ``d`` above 576 (a
-    multiple of 64): (dq plan, dkv plan). Own-side tiles and ring tiles of
-    64 rows; ``col_split`` slabs of ``slab`` columns of the gradients on the
-    grid's z, each CTA forming the whole S and dP (S^T and dP^T) over the
-    head dim: dQ does (2 slabs + 1) / 3 and dK/dV (slabs + 1) / 2 times the
-    ideal tensor-core work. bf16 and fp16: one consumer warpgroup and a
-    producer warp that streams Q, dO, K and V in 64 x 64 boxes through a
-    ring of ``stages`` (four boxes a stage), and per tile the slab operand
-    of the gradient products (dQ: K's slab; dK/dV: Q's and dO's, with the
-    rows' lse and delta) through two more stages; dQ launches heaviest
-    first, dK/dV in order. f32: the CUDA-core pair with 64-row tiles,
+def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
+                   causal: bool = True, window: Optional[int] = None,
+                   rect: bool = False) -> Tuple[BwdPlan, BwdPlan]:
+    """How either pair launches at a head dim ``d`` above 576 (a multiple
+    of 64): (dq plan, dkv plan); the triangle pair's by default, or with
+    ``rect`` the general pair's under ``causal`` and ``window`` (the band as
+    :func:`band` reads it), which stages its ring tiles' segment ids
+    (``WIDE_ID_BYTES``; f32 ``F32_WIDE_ID_BYTES``) whether or not the call
+    has ids. Own-side tiles and ring tiles of 64 rows; ``col_split`` slabs
+    of ``slab`` columns of the gradients on the grid's z, each CTA forming
+    the whole S and dP (S^T and dP^T) over the head dim: dQ does (2 slabs +
+    1) / 3 and dK/dV (slabs + 1) / 2 times the ideal tensor-core work. bf16
+    and fp16: one consumer warpgroup and a producer warp that streams Q,
+    dO, K and V in 64 x 64 boxes through a ring of ``stages`` (four boxes a
+    stage), and per tile the slab operand of the gradient products (dQ: K's
+    slab; dK/dV: Q's and dO's, with the rows' lse and delta) through two
+    more stages; dQ launches heaviest first under a plain causal mask, else
+    in order, dK/dV in order. f32: the CUDA-core pair with 64-row tiles,
     64-column chunks through shared memory and ``F32_WIDE_BWD_SLAB``-column
     slabs."""
     tiles = -(-s // TILE)
+    masks = dict(causal=causal, window=window) if rect else {}
     if dtype == torch.float32:
         chunk, slab = F32_WIDE_BWD_CHUNK, F32_WIDE_BWD_SLAB
-        slabs = wide_slabs(d, slab)
+        slabs, ids = wide_slabs(d, slab), F32_WIDE_ID_BYTES if rect else 0
         dq = BwdPlan("dq", TILE, 256, (tiles, bh),
-                     4 * (4 * TILE * (chunk + 1) + TILE * (TILE + 1) + TILE * (slab + 1)), 0,
-                     col_split=slabs, slab=slab)
+                     4 * (4 * TILE * (chunk + 1) + TILE * (TILE + 1) + TILE * (slab + 1)) + ids, 0,
+                     col_split=slabs, slab=slab, **masks)
         dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
                       4 * (4 * TILE * (chunk + 1) + 2 * TILE * (TILE + 1) + 2 * TILE * (slab + 1)
-                           + 2 * TILE), 0, col_split=slabs, slab=slab)
+                           + 2 * TILE) + ids, 0, col_split=slabs, slab=slab, **masks)
         return dq, dkv
     ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
-    bars = 8 * (2 * WIDE_BWD_RING + 2 * stages)
+    # the barriers, and the general pair's id ring
+    bars = 8 * (2 * WIDE_BWD_RING + 2 * stages) + (WIDE_ID_BYTES if rect else 0)
     dq = BwdPlan("dq", TILE, 160, (bh, tiles),
                  1024 + ring + stages * (WIDE_DQ_SLAB // TILE) * WIDE_BOX_BYTES + bars, 128,
-                 col_split=wide_slabs(d, WIDE_DQ_SLAB), slab=WIDE_DQ_SLAB, stages=WIDE_BWD_RING)
+                 col_split=wide_slabs(d, WIDE_DQ_SLAB), slab=WIDE_DQ_SLAB, stages=WIDE_BWD_RING,
+                 **masks)
     dkv = BwdPlan("dkv", TILE, 160, (bh_kv, tiles),
                   1024 + ring + stages * (2 * (WIDE_DKV_SLAB // TILE) * WIDE_BOX_BYTES + 2 * TILE * 4)
                   + bars, 128, col_split=wide_slabs(d, WIDE_DKV_SLAB), slab=WIDE_DKV_SLAB,
-                  stages=WIDE_BWD_RING)
+                  stages=WIDE_BWD_RING, **masks)
     return dq, dkv
 
 
@@ -274,14 +303,11 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
                block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
     stages each ring tile's segment ids and their range; ``block_m`` forces
-    both kernels' tile height (checked against ``dtype``). Above 576 the
-    triangle pair's plans are :func:`wide_bwd_plans`, and the general pair
-    raises ``ValueError`` (ROADMAP.md item 24)."""
+    both kernels' tile height (checked against ``dtype``). Above 576 both
+    pairs' plans are :func:`wide_bwd_plans`."""
     check_block_m(dtype, block_m, d)
     if is_wide(d):
-        if rect:
-            raise ValueError(ITEM_24)
-        return wide_bwd_plans(dtype, bh, bh_kv, s, d)
+        return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect)
     if dtype == torch.float32:
         t = f32_tile(d)
         tiles = -(-s // t)

@@ -37,9 +37,7 @@ rowsum(dO∘O), and the padded output columns are zero, so the result is
 the unpadded one. The padded products are wasted work: 33% at 96 → 128,
 14% at 112 → 128, 60% at 80 → 128 (native 80, 96 and 112 are ROADMAP.md
 item 20), 33% at 384 → 512, 6% at 544 → 576, 1% at 700 → 704. Above 576
-both forwards and the triangle's backward pair run; a gradient through
-the general pair (full attention, a window, segment ids) raises
-``ValueError`` before any kernel launches (ROADMAP.md item 24).
+both forwards and both backward pairs run on the D-streaming kernels.
 """
 
 from __future__ import annotations
@@ -50,7 +48,6 @@ from typing import Optional
 import torch
 
 from tpu_operator_torch.kernels.flash_bwd import (
-    ITEM_24,
     flash_bwd_dkv_rect,
     flash_bwd_dkv_tri,
     flash_bwd_dq_rect,
@@ -62,7 +59,6 @@ from tpu_operator_torch.kernels.flash_fwd import (
     check_block_m,
     flash_fwd_rect,
     flash_fwd_tri,
-    is_wide,
     padded_head_dim,
     tile_heights,
 )
@@ -156,12 +152,8 @@ def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads:
                     sm_scale: Optional[float] = None):
     """(dq, dk, dv) over collapsed rows: the triangle pair for plain causal
     attention, the general pair otherwise — the reference's choice — at
-    the tile height ``block_m`` and the softmax scale ``sm_scale``. Above
-    head dim 576 only the triangle pair exists: anything else raises
-    ``ValueError`` (ROADMAP.md item 24)."""
+    the tile height ``block_m`` and the softmax scale ``sm_scale``."""
     triangle = causal and window is None and seg is None and kb.shape[1] == qb.shape[1]
-    if is_wide(qb.shape[-1]) and not triangle:
-        raise ValueError(ITEM_24)
     # D_i = rowsum(dO ∘ O) in f32: plain tensor ops, as the reference
     # leaves it to XLA
     delta = (g.float() * out.float()).sum(-1)
@@ -245,14 +237,10 @@ def flash_attention(
     restricts attention to same-segment pairs. Unset blocks resolve
     through the published autotune winners (``tuned_flash_blocks``), an
     unset ``block_m`` through ``tuned_flash_tile``. Any head dim runs
-    (zero-padded to the kernels' next one); above 576 a gradient through
-    full attention, a window or segment ids raises ``ValueError`` here,
-    before any kernel launches (ROADMAP.md item 24)."""
+    (zero-padded to the kernels' next one), forward and backward."""
     b, s, h, d = q.shape
     width, sm_scale = _head_dims(d)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if grad and is_wide(width) and not (causal and window is None and segment_ids is None):
-        raise ValueError(ITEM_24)
     block_m = _resolve_block_m(block_m, q.dtype, s, h, d, fwd_bwd=grad)
     if block_q is None or block_k is None:
         from tpu_operator_torch.workloads.autotune import tuned_flash_blocks
