@@ -75,7 +75,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
    (2,128,4,1024) and ragged (2,100,4,640) at GQA 2, both forwards and the
-   triangle pair; the general forward at full attention (1,4096,8,1024) and
+   triangle pair; the f32 triangle pair at (1,2048,8,1024) with one kv head
+   and at (1,128,2,2048), two clusters a tile; the general forward at full attention (1,4096,8,1024) and
    serving's f32 chunk at 1024; the general pair at phase 19's shape packed
    in two documents (bf16 and fp16) and under a window of 128, at full
    attention (1,4096,8,1024), at (2,1000,4,700) padded to 704 with GQA 2, a
@@ -728,6 +729,11 @@ def phase_build() -> dict:
         if name in HEAD_DIM_576_INSTANTIATIONS or name in WIDE_HEAD_INSTANTIATIONS:
             # every kernel, the f32 ones too
             held.update(per_function)
+        if name in WIDE_HEAD_INSTANTIATIONS:
+            f32 = {re.sub(r".*(flash_\w+_f32_kernel(?:ILb[01])?).*", r"\1", k): v
+                   for k, v in per_function.items() if "_f32_kernel" in k}
+            log(f"  {name} f32 kernels: ptxas {f32}")
+            out[f"{name}_f32_ptxas"] = f32
         spilled = {k: v for k, v in held.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
             raise RuntimeError(f"{name}: {dtype} instantiations spill registers: {spilled}")
@@ -1243,6 +1249,10 @@ WIDE_BWD_CASES = [
     dict(pair="tri", label="f32 (2,128,4,1024)", q=(2, 128, 4, 1024), dtype=torch.float32),
     dict(pair="tri", label="ragged f32 (2,100,4,640) h_kv 2", q=(2, 100, 4, 640), h_kv=2,
          dtype=torch.float32),
+    dict(pair="tri", label="f32 (1,2048,8,1024) h_kv 1", q=(1, 2048, 8, 1024), h_kv=1,
+         dtype=torch.float32, inner=2),
+    dict(pair="tri", label="head dim 2048 f32 (1,128,2,2048)", q=(1, 128, 2, 2048),
+         dtype=torch.float32),
 ] + [
     dict(pair="rect", label=f"head dim 1024 packed 2 segments {t} (1,8192,8,1024) h_kv 1",
          q=WIDE_Q, h_kv=1, dtype=dtype, causal=True, packed=2, inner=1, main=main)
@@ -1314,7 +1324,10 @@ def _backward_rows(gen) -> list:
     case is also run in bf16 (its inputs rounded to bf16), and its relative
     error must stay below that twin's; not so where the gradients are fp16
     subnormals (``dout_scale``): there fp16 keeps fewer bits than bf16."""
-    from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
+    from tpu_operator_torch.kernels import flash_bwd
+    from tpu_operator_torch.kernels.flash_bwd import f32_wide_geometry
+    from tpu_operator_torch.kernels.flash_fwd import (TENSOR_CORE_DTYPES, is_wide, keep_mask,
+                                                      padded_head_dim)
 
     rows = []
     for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
@@ -1386,6 +1399,13 @@ def _backward_rows(gen) -> list:
                 f" (at {stats['other_blocks']}: dq {stats['other_dq_ms']:.5f}, dkv "
                 f"{stats['other_dkv_ms']:.5f} ms)" if "other_blocks" in stats else
                 " (no other tile height at this head dim)")
+        width = padded_head_dim(d)
+        if case["dtype"] == torch.float32 and is_wide(width):
+            # the f32 pair's thread-block clusters resident on the card at once
+            tri = case["pair"] == "tri"
+            stats["active_clusters"] = {k: flash_bwd.f32_wide_active_clusters(width, k, tri)
+                                        for k in ("dq", "dkv")}
+            rate += f", clusters of {f32_wide_geometry(width)[2]} resident {stats['active_clusters']}"
         if twin:
             rate += (f"; bf16 on the same inputs: rel err {twin['bf16_twin_rel_err']:.3g} (fp16 "
                      f"{max(errs) / grad_scale:.3g}, {twin['err_in_subnormal_steps']:.3g} "
@@ -4844,10 +4864,17 @@ def phase_head_dim_wide(smi: str) -> dict:
                            f"{packed['replays']['eager_losses']}")
     _free_card()
     # (c) f32 gradients at the head dim: the triangle, a window and
-    # segments, full attention
+    # segments, full attention; each pair's f32 kernels launched once per
+    # case (the triangle's once, the general pair's twice)
+    zero_launches()
     out[f"f32_grads_{d}"] = _f32_grads_at(d, 128, full=True)
+    out["paths"][f"{name} f32 grads"] = counts = read_launches()
     log(f"{phase} f32 (1,256,2,{d}) flash_attention gradients vs dense, max abs err "
-        f"{out[f'f32_grads_{d}']}")
+        f"{out[f'f32_grads_{d}']}; launches {counts}")
+    want = {"flash_bwd_dq_tri": 1, "flash_bwd_dkv_tri": 1, "flash_bwd_dq_rect": 2,
+            "flash_bwd_dkv_rect": 2}
+    if any(counts[k] != n for k, n in want.items()):
+        raise RuntimeError(f"{phase} f32 gradients: backward launches {counts}, want {want}")
     # (d) serving at the head dim
     _serving_at(out, d, phase)
     _free_card()

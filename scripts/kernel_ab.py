@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Device time of a family of kernels in this tree and in another checkout
+of the repository, on one card, in turns.
+
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|bwd_wide_f32 [--json PATH]
+
+OTHER_TREE is another checkout (for example an earlier commit unpacked with
+``git archive``). The families:
+
+- ``fwd_rect``: the general forward (``flash_fwd_rect``) at every bf16 case
+  of this tree's ``chip_smoke.KERNEL_CASES``, held to ``attention_plain``
+  (O 2e-2, lse 1e-3);
+- ``bwd_wide_f32``: the f32 D-streaming backward pair (head dims above 576)
+  at every f32 case of this tree's ``chip_smoke.WIDE_BWD_CASES``, its dQ, dK
+  and dV held to ``attention_bwd_plain`` (1e-4 absolute), each kernel timed.
+
+A process of its own imports ``tpu_operator_torch`` from one tree (building
+that tree's kernels there), checks each case on the same seeded inputs and
+times it with ``chip_smoke.device_ms`` (CUDA-graph replay, median of 7).
+The processes run in the order other, this, this, other, so that drift
+over the run falls on both sides alike. Prints the card's name and power
+limit, one line per case, and as the last line one JSON object with every
+time. A case that a tree's kernels get wrong is reported and not timed,
+and the script then exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SEED = 20260818
+
+
+def _smoke():
+    """This tree's chip_smoke.py, whatever tree ``tpu_operator_torch``
+    comes from (it imports the package only inside its functions)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _fwd_rect(smoke) -> dict:
+    """The bf16 general forward's cases: {label: {ok, errs, ms}}."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_fwd
+
+    results = {}
+    for case in smoke.KERNEL_CASES:
+        if case["kernel"] != "flash_fwd_rect" or case["dtype"] != torch.bfloat16:
+            continue
+        q, k, v, seg = smoke._case_inputs(case, torch.Generator(device="cuda").manual_seed(SEED))
+        _, _, h, _ = case["q"]
+        h_kv = case.get("h_kv", h)
+        masks = dict(causal=case["causal"], q_start=case.get("q_start", 0),
+                     k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
+
+        def kern():
+            return flash_fwd.flash_fwd_rect(q, k, v, h, h_kv, **masks)
+
+        out, lse = kern()
+        want, want_lse = flash_fwd.attention_plain(q, k, v, h, h_kv, **masks)
+        torch.cuda.synchronize()
+        errs = [smoke.err(out, want), smoke.err(lse, want_lse)]
+        ok = errs[0] <= smoke.BF16_TOL and errs[1] <= smoke.LSE_TOL
+        results[case["label"]] = {
+            "ok": ok, "errs": errs,
+            "ms": smoke.device_ms(kern, case.get("inner", 20)) if ok else None}
+    return results
+
+
+def _bwd_wide_f32(smoke) -> dict:
+    """The f32 D-streaming backward pair's cases: {label: {ok, errs,
+    dq_ms, dkv_ms}}."""
+    import torch
+
+    results = {}
+    for case in smoke.WIDE_BWD_CASES:
+        if case["dtype"] != torch.float32:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, seg = smoke._case_inputs(case, gen)
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        run = smoke._bwd_setup(case, q, k, v, seg, dout)
+        _, errs, _ = smoke._bwd_errors(run, case["q"][3])
+        ok = max(errs) <= smoke.F32_TOL
+        inner = case.get("inner", 20)
+        results[case["label"]] = {
+            "ok": ok, "errs": errs,
+            "dq_ms": smoke.device_ms(run["dq"], inner) if ok else None,
+            "dkv_ms": smoke.device_ms(run["dkv"], inner) if ok else None}
+        del run
+    return results
+
+
+# family: (its cases' runner, the timed keys of a case, the module that must
+# come from the tree under test)
+FAMILIES = {
+    "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
+    "bwd_wide_f32": (_bwd_wide_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
+}
+
+
+def _worker(tree: Path, family: str, out: Path) -> None:
+    sys.path.insert(0, str(tree))
+    import importlib
+
+    runner, _, module = FAMILIES[family]
+    mod = importlib.import_module(f"tpu_operator_torch.kernels.{module}")
+    if not Path(mod.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"{module} came from {mod.__file__}, not {tree}")
+    out.write_text(json.dumps(runner(_smoke())))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("other", type=Path, help="another checkout of the repository")
+    parser.add_argument("--family", choices=sorted(FAMILIES), required=True,
+                        help="the kernels to compare")
+    parser.add_argument("--json", type=Path, default=None, help="also write the result here")
+    parser.add_argument("--worker", type=Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--out", type=Path, default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker is not None:
+        _worker(args.worker.resolve(), args.family, args.out)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    keys = FAMILIES[args.family][1]
+    trees = {"other": args.other.resolve(), "this": ROOT}
+    runs = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, name in enumerate(("other", "this", "this", "other")):
+            out = Path(tmp) / f"{i}.json"
+            subprocess.run([sys.executable, str(Path(__file__).resolve()), str(trees[name]),
+                            "--family", args.family, "--worker", str(trees[name]),
+                            "--out", str(out)], check=True, timeout=1800)
+            runs[name].append(json.loads(out.read_text()))
+    summary, wrong = {}, []
+    for label in runs["this"][0]:
+        entry = {}
+        for name in ("other", "this"):
+            got = [r[label] for r in runs[name]]
+            if not all(g["ok"] for g in got):
+                wrong.append((name, label, got))
+            entry[name] = {key: [g[key] for g in got] for key in keys}
+            entry[name]["max_errs"] = [max(g["errs"][i] for g in got)
+                                       for i in range(len(got[0]["errs"]))]
+        if all(None not in entry[n][key] for n in ("other", "this") for key in keys):
+            total = {n: sum(statistics.median(entry[n][key]) for key in keys)
+                     for n in ("other", "this")}
+            entry["ms"] = total
+            entry["other_over_this"] = total["other"] / total["this"]
+        summary[label] = entry
+        print(f"{label}: " + "; ".join(f"{n} " + " ".join(f"{key} {entry[n][key]}" for key in keys)
+                                       for n in ("other", "this"))
+              + f"; other/this {entry.get('other_over_this')}", flush=True)
+    result = {"device": smi, "other": str(trees["other"]), "family": args.family,
+              "cases": summary, "wrong": wrong}
+    if args.json is not None:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 1 if wrong else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -67,7 +67,9 @@ def test_the_slab_count_is_the_head_dim_over_the_slab(dtype, d):
         owned = collections.Counter(c for z, s0 in enumerate(starts)
                                     for c in range(max(s0, z * plan.slab), s0 + plan.slab))
         assert set(owned) == set(range(d)) and set(owned.values()) == {1}, name
-        assert plan.stages == (0 if dtype == F32 else 4), name
+        # 16-bit: the chunk ring's 4 stages; f32: the backward pair's 2-stage
+        # slab ring, the forward none
+        assert plan.stages == (4 if dtype != F32 else 2 if name[0] == "d" else 0), name
 
 
 def test_wide_plans_by_hand():
@@ -95,16 +97,21 @@ def test_wide_plans_by_hand():
     assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (8, 16)
     f = _wide_plans(F32, 1024, bh=6, bh_kv=3, s=130)
     assert f["fwd tri"].smem_bytes == 4 * (2 * 64 * 65 + 64 * 257 + 64 * 65) + 256 == 115_968
-    assert f["dq tri"].smem_bytes == 4 * (4 * 64 * 65 + 64 * 65 + 64 * 129) == 116_224
-    assert f["dkv tri"].smem_bytes == 4 * (4 * 64 * 65 + 2 * 64 * 65 + 2 * 64 * 129 + 128) == 166_400
-    # + a tile's 64 ids and two (min, max) ranges
-    assert f["dq rect"].smem_bytes == 116_224 + 4 * 68 == 116_496
-    assert f["dkv rect"].smem_bytes == 166_400 + 4 * 68 == 166_672
+    # f32 backward: two resident 64 x 128 slabs, 2 stages of two streamed
+    # slabs, the exchange's partial S and dP (then P and dS) 64 x 64 tiles,
+    # and dQ's 64 rows' lse and delta; the general pair the same (every warp
+    # reads the segment ids' range itself)
+    assert f["dq tri"].smem_bytes == 4 * (2 * 64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64
+                                          + 2 * 64) == 229_888
+    assert f["dkv tri"].smem_bytes == 4 * (2 * 64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64) == 229_376
+    assert f["dq rect"].smem_bytes == 229_888 and f["dkv rect"].smem_bytes == 229_376
     assert (f["fwd tri"].grid, f["fwd tri"].col_split) == ((3, 6), 4)
     assert (f["dq tri"].grid, f["dq tri"].col_split) == ((3, 6), 8)
     assert (f["dkv tri"].grid, f["dkv tri"].col_split) == ((3, 3), 8)
     assert (f["dq rect"].grid, f["dkv rect"].grid) == ((3, 6), (3, 3))
     assert {f[k].threads for k in f} == {256}
+    # the eight slab CTAs of a tile are one cluster, forming S and dP once
+    assert {(f[k].cluster, f[k].redundancy, f[k].stages) for k in f if k[0] == "d"} == {(8, 1, 2)}
 
 
 def test_redundant_work_factors():
@@ -246,8 +253,13 @@ def test_wide_plan_constants_match_the_cuda_sources():
     assert f"constexpr int kF32WideSlab = {flash_bwd.F32_WIDE_BWD_SLAB};" in bwd
     assert ("constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);" in bwd
             and flash_bwd.WIDE_ID_BYTES == flash_bwd.WIDE_SLAB_STAGES * ((64 + 2) * 4 + 2 * 8))
-    assert ("constexpr int kF32WideIdBytes = (kF32WideTile + 4) * 4;" in bwd
-            and flash_bwd.F32_WIDE_ID_BYTES == (64 + 4) * 4)
+    assert f"constexpr int kF32WideStages = {flash_bwd.F32_WIDE_BWD_STAGES};" in bwd
+    assert f"constexpr int kF32WideCluster = {flash_bwd.F32_WIDE_BWD_CLUSTER};" in bwd
+    # the f32 pair's geometry and columns, as f32_wide_geometry and
+    # f32_wide_columns model them
+    assert "g((n + kF32WideCluster - 1) / kF32WideCluster),\n        c((n + g - 1) / g) {}" in bwd
+    assert "return c0 < cl0 ? c0 : c0 + (cl1 - cl0);" in bwd
+    assert "cudaLaunchAttributeClusterDimension" in bwd and "cudaLaunchKernelEx" in bwd
     # the general pair's entries reach the wide kernels: no refusal left
     for kernel in ("dq", "dkv"):
         for pair in ("tri", "rect"):
@@ -267,6 +279,34 @@ def test_wide_plan_constants_match_the_cuda_sources():
                                 (F16, f"{src}_f16_wide")):
                 assert flash_fwd.library_name(src, dtype, d) == name
         assert flash_fwd.library_name(src, BF16, 576) == f"{src}_d576"
+
+
+@pytest.mark.parametrize("d", list(range(640, 4097, 64)) + [577, 700, 1000, 1100, 2000])
+def test_the_f32_pair_forms_each_score_once_per_cluster(d):
+    """The f32 D-streaming pair at every head dim it takes (padded ones
+    through their width): the CTAs of each cluster sum every column of the
+    head dim into the partial S and dP exactly once, the tile's CTAs write
+    every column of the gradients exactly once, the cluster divides the
+    grid's x and stays within the portable 8, and S and dP are formed once
+    per tile pair up to 8 slabs (d 1024), g = ceil(slabs / 8) times above."""
+    width = flash_fwd.padded_head_dim(d)
+    n, g, c = flash_bwd.f32_wide_geometry(width)
+    written = collections.Counter()
+    for plan in flash_bwd.wide_bwd_plans(F32, 8, 4, 300, width) + flash_bwd.wide_bwd_plans(
+            F32, 8, 4, 300, width, True, 70, rect=True):
+        assert (plan.cluster, plan.col_split, plan.redundancy) == (c, g * c, g)
+        assert (plan.grid[0] * plan.col_split) % plan.cluster == 0 and 5 <= plan.cluster <= 8
+        assert plan.redundancy == (1 if n <= 8 else math.ceil(n / 8))
+        assert plan.smem_bytes <= MAX_SMEM
+    for first in range(0, g * c, c):
+        summed = collections.Counter()
+        for z in range(first, first + c):
+            own, cols = flash_bwd.f32_wide_columns(width, z)
+            written.update(own)
+            summed.update(cols)
+            assert set(own) <= set(cols) and (z < n) == bool(own)
+        assert set(summed) == set(range(width)) and set(summed.values()) == {1}, first
+    assert set(written) == set(range(width)) and set(written.values()) == {1}
 
 
 @pytest.mark.parametrize("d, width", [(577, 640), (640, 640), (641, 704), (700, 704),
@@ -398,8 +438,9 @@ BWD_MASKS = {  # (causal, window, segment cuts or None)
     "full, segments": (False, None, (128,)),
     "window 40, segments": (True, 40, (37,)),
 }
-GENERAL_SHAPES = [  # (b, s, h, h_kv, d): 640, 1024, the padded 700 -> 704, ragged
-    (1, 256, 2, 1, 640), (2, 130, 4, 2, 1024), (1, 200, 2, 2, 700), (2, 100, 4, 2, 640)]
+GENERAL_SHAPES = [  # (b, s, h, h_kv, d): 640, 1024, the padded 700 -> 704, ragged, 2048
+    (1, 256, 2, 1, 640), (2, 130, 4, 2, 1024), (1, 200, 2, 2, 700), (2, 100, 4, 2, 640),
+    (1, 128, 2, 1, 2048)]
 
 
 @pytest.mark.cuda
@@ -434,6 +475,32 @@ def test_wide_general_pair_matches_plain(cuda, dtype, b, s, h, h_kv, d):
         top = 1.0 if dtype == F32 else max(float(w.float().abs().max()) for w in grads)
         for grad, w, g in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
             assert float((w.float() - g.float()).abs().max()) <= tol * top, (name, grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["tri", "rect"])
+@pytest.mark.parametrize("d", [640, 1024, 2048])
+def test_f32_wide_pair_is_deterministic(cuda, pair, d):
+    """The f32 pair's clusters add their partial scores in a fixed order
+    and no atomics: two runs on the same inputs give the same bits."""
+    qb, kb, vb, _ = _qkv(d + 3, 2, 130, 130, 4, 2, d, F32)
+    if pair == "tri":
+        out, lse = flash_fwd.flash_fwd_tri(qb, kb, vb, 4, 2)
+        masks = ()
+    else:
+        seg = torch.tensor(_docs(130, (50,)), dtype=torch.int32, device="cuda").expand(2, 130)
+        masks = (True, 40, seg.contiguous())
+        out, lse = flash_fwd.flash_fwd_rect(qb, kb, vb, 4, 2, True, window=40, seg=masks[2])
+    dout = torch.randn(qb.shape, generator=torch.Generator(device="cuda").manual_seed(d),
+                       device="cuda")
+    delta = (dout * out).sum(-1)
+    dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{pair}")
+    dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{pair}")
+    runs = [(dq_fn(qb, kb, vb, out, dout, lse, delta, 4, 2, *masks),
+             *dkv_fn(qb, kb, vb, out, dout, lse, delta, 4, 2, *masks)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for grad, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), grad
 
 
 def _masked_dense(q, k, v, causal, window=None, seg=None):
@@ -556,6 +623,11 @@ def test_phase_3_wide_rows():
         assert any(c["q"] == (2, 100, 4, 640) and c.get("h_kv") == 2 and c["dtype"] == F32
                    for c in rows)
     assert any(c["q"] == (1, 4096, 8, 1024) and c.get("causal") is False for c in fwd)
+    # the f32 pair at phase 19's head layout past launch-bound sizes, and
+    # past 8 slabs (two clusters a tile)
+    assert any(c["q"] == (1, 2048, 8, 1024) and c.get("h_kv") == 1 and c["dtype"] == F32
+               for c in tri)
+    assert any(c["q"] == (1, 128, 2, 2048) and c["dtype"] == F32 for c in tri)
     assert any(c["q"] == (1, 8, 2, 1024) and c.get("sk") == 64 and c["dtype"] == F32
                and c.get("main") for c in fwd)
     assert any(c["q"] == (1, 1024, 4, 2048) for c in fwd)

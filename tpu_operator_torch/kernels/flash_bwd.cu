@@ -165,9 +165,39 @@
 // more: dQ 198,288, dK/dV 199,312), which every lane of the producer warp
 // stages for every tile of the walk before lane 0 decides whether the
 // tile's chunks load: a dead pair would cost d / 64 chunk loads. f32
-// (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel): dq_body's and dkv_body's
-// arithmetic on 64-row tiles with 64-column chunks and 128-column slabs,
-// the general pair's ids staged by the CTA's first warp.
+// (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel, dq_wide_f32_body /
+// dkv_wide_f32_body<TRI>): the CUDA cores (TF32 would not hold the 1e-4
+// bar), on 64-row tiles, a CTA of 256 threads per 128-column slab
+// of the gradients (the last one starting at d - 128), and the n slab CTAs
+// of a tile launched as one thread-block cluster (cudaLaunchKernelEx, the
+// grid's x tile x n + slab). Per (q tile, key tile) pair each CTA sums a
+// partial S and dP over the columns it owns (the write rule's: never the
+// last slab's overlap twice), and the cluster adds the partials through
+// distributed shared memory: CTA r sums rows [64 r / n, 64 (r + 1) / n) of
+// every CTA's partials in rank order (no atomics: the same bits every run),
+// forms P and dS there and stores them into every CTA (three cluster
+// barriers), and each CTA runs its own slab's gradient products. S and dP
+// are formed once per tile pair up to d 1024 (n <= 8, the portable cluster
+// size); above it the slabs form g = ceil(n / 8) clusters of c = ceil(n /
+// g) (the last CTAs past the n-th write nothing), each cluster also summing
+// the columns its slabs do not own in 64-column foreign chunks spread over
+// its CTAs: S and dP formed g times (2 at 2048, 4 at 4096). Own side
+// resident: dQ holds its Q slab (times qscale) and dO slab for the whole
+// walk and streams the key tile's K and V slabs, K's serving both the
+// partial S and dQ += dS.K; dK/dV holds K and V and streams Q and dO,
+// which serve S^T, dP^T, dV and dK. The streamed slabs (or a foreign
+// item's four chunks) come by 16-byte cp.async through two 64 KiB stages,
+// the next item loading under this one's products. Products are register
+// blocked: a thread holds 4 x 4 of S and dP and 4 x 8 of each gradient
+// slab, reads float4s of k-contiguous rows from tiles whose float4 columns
+// are XOR-swizzled by row (each load of a warp one wavefront): 16 loads
+// for 128 FMAs in the score loop, 3 for 32 (dQ) and 6 for 64 (dK/dV) in
+// the gradient loops. Shared memory: 229,888 bytes (dQ: its rows' lse and
+// delta too) and 229,376; one CTA per SM, so a cluster of n needs n SMs of
+// one GPC (cudaOccupancyMaxActiveClusters, checked at launch: none is an
+// error, kNoCluster). The walks, the band and the segment-id skip (every
+// warp reads the ids' range itself) depend only on the row and the tiles,
+// so the CTAs of a cluster meet at every barrier.
 //
 // f32 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
@@ -1186,14 +1216,14 @@ constexpr int kWideDkvSlab = 128;    // columns of dK and of dV a 16-bit CTA hol
 constexpr int kWideRing = 4;         // stages of the chunk ring (four boxes a stage)
 constexpr int kWideSlabStages = 2;   // stages of the slab ring
 constexpr int kF32WideTile = 64;     // q rows and keys of an f32 tile
-constexpr int kF32WideChunk = 64;    // columns of an f32 chunk
+constexpr int kF32WideChunk = 64;    // columns of an f32 foreign chunk
 constexpr int kF32WideSlab = 128;    // columns of each gradient an f32 CTA holds
+constexpr int kF32WideStages = 2;    // stages of the f32 streamed ring
+constexpr int kF32WideCluster = 8;   // the most CTAs of an f32 cluster (the portable limit)
 
 // the general pair's id ring: per stage the ring tile's 64 segment ids and
 // their min and max (int32), and its two barriers
 constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);
-// and in f32: one tile's ids and two (min, max) ranges
-constexpr int kF32WideIdBytes = (kF32WideTile + 4) * 4;
 
 template <bool TRI>
 constexpr int dq_wide_smem_bytes() {
@@ -1214,24 +1244,18 @@ constexpr int dkv_wide_smem_bytes() {
          8 * (2 * kWideRing + 2 * kWideSlabStages) + (TRI ? 0 : kWideIdBytes);
 }
 
-template <bool TRI>
-constexpr size_t dq_f32_wide_smem_bytes() {
-  // q (pre-scaled), dO, k and v chunks ([64][65]), the dS tile ([64][65]),
-  // the k slab ([64][slab + 1]) (general: the ids)
-  return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
-                          kF32WideTile * (kF32WideTile + 1) +
-                          kF32WideTile * (kF32WideSlab + 1)) + (TRI ? 0 : kF32WideIdBytes);
+// f32: the resident slabs (dQ: Q times qscale and dO; dK/dV: K and V), the
+// streamed ring, the exchange tiles (partial S and dP, then P and dS), and
+// for dQ its q tile's lse * log2(e) and delta; the same for both pairs
+constexpr int kF32SlabFloats = kF32WideTile * kF32WideSlab;
+constexpr int kF32StageFloats = 2 * kF32SlabFloats;  // two slabs, or four chunks
+constexpr int kF32TileFloats = kF32WideTile * kF32WideTile;
+template <bool DQ>
+constexpr int f32_wide_smem_bytes() {
+  return 4 * (2 * kF32SlabFloats + kF32WideStages * kF32StageFloats + 2 * kF32TileFloats +
+              (DQ ? 2 * kF32WideTile : 0));
 }
-
-template <bool TRI>
-constexpr size_t dkv_f32_wide_smem_bytes() {
-  // k, v, q and dO chunks, the P and dS tiles, the q and dO slabs, the rows'
-  // lse * log2(e) and delta (general: the ids)
-  return sizeof(float) * (4 * kF32WideTile * (kF32WideChunk + 1) +
-                          2 * kF32WideTile * (kF32WideTile + 1) +
-                          2 * kF32WideTile * (kF32WideSlab + 1) + 2 * kF32WideTile) +
-         (TRI ? 0 : kF32WideIdBytes);
-}
+static_assert(f32_wide_smem_bytes<true>() <= 232448, "past the shared memory a block may use");
 
 // Wait for stage `st` of a ring (its phase n / stages), as both roles do.
 __device__ __forceinline__ uint32_t ring_parity(int n, int stages) { return (n / stages) & 1; }
@@ -1806,63 +1830,278 @@ __global__ void __launch_bounds__(128 + 32, 1)
 }
 
 #ifndef FLASH_ELEM_F16  // the f32 kernels live in the bf16 library (kWithF32)
-// Rows [r0, r0 + TT) and columns [c0, c0 + n) of a (s, d) matrix into a
-// [TT][n + 1] f32 tile, times mul; rows past s and columns past d are zero.
-template <int TT, int N>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src, int r0, int s, int d,
-                                           int c0, float mul) {
-  for (int i = threadIdx.x; i < TT * N; i += kThreads) {
-    const int r = i / N, c = i % N;
-    dst[r * (N + 1) + c] = (r0 + r < s && c0 + c < d)
-                               ? src[static_cast<size_t>(r0 + r) * d + c0 + c] * mul
-                               : 0.f;
+// How the CTAs of one tile split the head dim d (flash_bwd.py::
+// f32_wide_geometry): n slabs of kF32WideSlab columns of the gradients, the
+// last one starting at d - kF32WideSlab, in g clusters of c CTAs (c at most
+// kF32WideCluster: one cluster when n <= 8); the grid holds g * c CTAs a tile,
+// and those past the n-th write no column.
+struct F32WideGeo {
+  int n, g, c;
+  __host__ __device__ explicit F32WideGeo(int d)
+      : n(wide_slabs(d, kF32WideSlab)),
+        g((n + kF32WideCluster - 1) / kF32WideCluster),
+        c((n + g - 1) / g) {}
+  __host__ __device__ int ctas() const { return g * c; }
+};
+
+// The columns of CTA z of a tile. It writes [own0, own1) (its slab's own
+// columns, none past the n-th slab) from the slab at g0, and sums into the
+// partial S and dP its own columns and every c-th of the 64-column chunks
+// its cluster owns none of (the foreign chunks: none when n <= 8), so the c
+// CTAs of a cluster sum each column of d once.
+struct F32WideCols {
+  int g0, own0, own1;  // the slab's first column and the columns it writes
+  int cl0, cl1;        // the columns the cluster's CTAs write
+  int rank, nf;        // the rank in the cluster and the count of foreign chunks
+  __device__ F32WideCols(const F32WideGeo& geo, int z, int d) {
+    rank = z % geo.c;
+    own0 = min(z * kF32WideSlab, d);
+    own1 = min(own0 + kF32WideSlab, d);
+    g0 = min(z * kF32WideSlab, d - kF32WideSlab);
+    cl0 = (z - rank) * kF32WideSlab;
+    cl1 = min(cl0 + geo.c * kF32WideSlab, d);
+    const int foreign = (d - (cl1 - cl0)) / kF32WideChunk;
+    nf = foreign > rank ? (foreign - rank - 1) / geo.c + 1 : 0;
+  }
+  __device__ bool owns() const { return own1 > own0; }
+  // per tile pair: the foreign chunks, then the main item (the slabs)
+  __device__ int items() const { return nf + (owns() ? 1 : 0); }
+  // the first column of the CTA's k-th foreign chunk
+  __device__ int foreign(int k, int c) const {
+    const int c0 = (rank + k * c) * kF32WideChunk;
+    return c0 < cl0 ? c0 : c0 + (cl1 - cl0);
+  }
+};
+
+// A [64][W] f32 tile in shared memory, float4 f of row r stored at float4
+// f ^ ((r >> 2) & 7) of the row: the rows 4t .. 4t + 3 read by a warp's
+// four (or eight) values of t in the score loop, and the eight float4s of
+// one row read in the gradient loop, fall in distinct banks.
+template <int W>
+__device__ __forceinline__ int swz(int r, int f) {
+  return r * W + ((f ^ ((r >> 2) & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float4 scale4(float4 v, float m) {
+  return make_float4(v.x * m, v.y * m, v.z * m, v.w * m);
+}
+
+// Rows [r0, r0 + 64) and columns [c0, c0 + W) of a (s, d) f32 matrix into a
+// swizzled [64][W] tile by 16-byte cp.async (rows past s zero-filled).
+template <int W>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int s, int d,
+                                          int c0) {
+  constexpr int F = W / 4;
+  // recomputed at every call: hoisted out of the walk, the addresses of all
+  // four tile shapes held 40-50 registers and spilled dK/dV (255 registers)
+  int tid = threadIdx.x;
+  asm volatile("" : "+r"(tid));
+#pragma unroll
+  for (int k = 0; k < kF32WideTile * F / kThreads; ++k) {
+    const int e = tid + k * kThreads;
+    const int r = e / F, f = e % F;
+    const bool in = r0 + r < s;
+    cp_async16(dst + swz<W>(r, f), src + static_cast<size_t>(in ? r0 + r : 0) * d + c0 + 4 * f,
+               in);
   }
 }
 
-// Stage the segment ids of the 64 positions from t0 (warp 0 of the CTA) and
-// their (min, max) at range[0..1], and make both visible to the CTA; the
-// first barrier keeps the last reader of the previous ones ahead of the
-// stores.
-__device__ __forceinline__ void stage_ids(const int* seg, int t0, int s, int* ids, int* range) {
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int2 r = id_range(seg, t0, s, threadIdx.x, 32, ~0u, ids);
-    if (threadIdx.x == 0) {
-      range[0] = r.x;
-      range[1] = r.y;
+// The partial S and dP of a thread's 4 x 4 block over the float4 columns
+// [f0, f1): sc[a][b] += A(4 ta + a) . B(4 tb + b) and dp[a][b] += C(4 ta + a)
+// . E(4 tb + b), each an f32 FMA chain in column order, rows of swizzled
+// [64][WA] (A, C) and [64][WB] (B, E) tiles. SA / SB: A's / B's values times
+// qscale first (q's share of the score, rounded as the forward rounds it).
+// 16 float4 loads a thread for 128 FMAs; a warp's four values of ta and
+// eight of tb read one wavefront each. B's and E's four rows stay in
+// registers while A's and C's stream through one row at a time.
+template <int WA, int WB, bool SA, bool SB>
+__device__ __forceinline__ void partial_scores(float (&sc)[4][4], float (&dp)[4][4],
+                                               const float* A, const float* C, const float* B,
+                                               const float* E, int ta, int tb, int f0, int f1,
+                                               float qscale) {
+  const float* a_row = A + 4 * ta * WA;
+  const float* c_row = C + 4 * ta * WA;
+  const float* b_row = B + 4 * tb * WB;
+  const float* e_row = E + 4 * tb * WB;
+  const int xa = ta & 7, xb = tb & 7;  // the rows' swizzle
+#pragma unroll 1
+  for (int f = f0; f < f1; ++f) {
+    float4 b[4], e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = ld4(b_row + j * WB + ((f ^ xb) << 2));
+      e[j] = ld4(e_row + j * WB + ((f ^ xb) << 2));
+      if (SB) b[j] = scale4(b[j], qscale);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 a = ld4(a_row + i * WA + ((f ^ xa) << 2));
+      const float4 c = ld4(c_row + i * WA + ((f ^ xa) << 2));
+      if (SA) a = scale4(a, qscale);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(a.x, b[j].x, sc[i][j]);
+        sc[i][j] = fmaf(a.y, b[j].y, sc[i][j]);
+        sc[i][j] = fmaf(a.z, b[j].z, sc[i][j]);
+        sc[i][j] = fmaf(a.w, b[j].w, sc[i][j]);
+        dp[i][j] = fmaf(c.x, e[j].x, dp[i][j]);
+        dp[i][j] = fmaf(c.y, e[j].y, dp[i][j]);
+        dp[i][j] = fmaf(c.z, e[j].z, dp[i][j]);
+        dp[i][j] = fmaf(c.w, e[j].w, dp[i][j]);
+      }
     }
   }
-  __syncthreads();
 }
 
-// The f32 D-streaming dQ on the CUDA cores: dq_body's arithmetic, S and dP
-// summed over 64-column chunks and dQ in slabs of kF32WideSlab columns.
-// blockIdx.x: q tile x slabs + slab; y and z: bh rows (kMaxGridY a z slice).
-// TRI: the triangle; else the general masks, the key tiles of the band, a
-// key tile whose documents cannot meet the q tile's skipped before its
-// chunks load.
+// The cluster's exchange of one tile pair: every CTA holds partial S and dP
+// over its columns (sc, dp: rows 4 ta + a, columns 4 tb + b of its thread's
+// block) and ends with the tile's dS (DQ: as dS^T[key][q row] in xs) or P
+// and dS (dK/dV: [q row][key] in xs and xs + 4096), summed over all of d, in
+// its own shared memory. The partials go to xs as X[4 tb + b][4 ta + a]
+// (X[key][q row] for dQ, X[q row][key] for dK/dV); CTA `rank` of c sums rows
+// [64 rank / c, 64 (rank + 1) / c) of every CTA's X in rank order (the same
+// bits every run), forms P and dS there (lse2 and dlt: the four elements'
+// rows' lse * log2(e) and delta; qi0 / kj0 and the steps: the first
+// element's q row and key), and stores them into every CTA's xs. Three
+// cluster barriers: the partials written; read (xs is reused); results in.
+template <bool TRI, bool DQ, typename Rows>
+__device__ __forceinline__ void exchange(const Params& p, float* xs, const float (&sc)[4][4],
+                                         const float (&dp)[4][4], int ta, int tb, int c,
+                                         int q0, int k0, const int* seg, Rows rows) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    st4(xs + (4 * tb + b) * kF32WideTile + 4 * ta,
+        make_float4(sc[0][b], sc[1][b], sc[2][b], sc[3][b]));
+    st4(xs + kF32TileFloats + (4 * tb + b) * kF32WideTile + 4 * ta,
+        make_float4(dp[0][b], dp[1][b], dp[2][b], dp[3][b]));
+  }
+  cluster_sync();
+  const int rank = static_cast<int>(cluster_rank());
+  const int a0 = kF32WideTile * rank / c, a1 = kF32WideTile * (rank + 1) / c;
+  const bool mine = static_cast<int>(threadIdx.x) < (a1 - a0) * (kF32WideTile / 4);
+  const int at = (a0 + threadIdx.x / (kF32WideTile / 4)) * kF32WideTile +
+                 4 * (threadIdx.x % (kF32WideTile / 4));  // the float4's offset in X
+  float4 pv = make_float4(0.f, 0.f, 0.f, 0.f), dsv = pv;
+  if (mine) {
+    float4 s4 = pv, d4 = pv;
+    for (int r = 0; r < c; ++r) {
+      const uint32_t x = cluster_addr(xs + at, r);
+      const float4 u = ld_cluster4(x), w = ld_cluster4(x + 4 * kF32TileFloats);
+      s4 = make_float4(s4.x + u.x, s4.y + u.y, s4.z + u.z, s4.w + u.w);
+      d4 = make_float4(d4.x + w.x, d4.y + w.y, d4.z + w.z, d4.w + w.w);
+    }
+    const int a = at / kF32WideTile, b0 = at % kF32WideTile;
+    const bool segments = !TRI && seg != nullptr;
+    float pe[4], de[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + (DQ ? b0 + e : a), kj = k0 + (DQ ? a : b0 + e);
+      const float2 ld = rows(DQ ? b0 + e : a);  // (lse * log2(e), delta) of row qi
+      const bool live =
+          qi < p.s && kj < p.s && ld.x != -CUDART_INF_F &&
+          attends<TRI>(p, qi, kj, segments, segments ? seg[qi] : 0, segments ? seg[kj] : 0);
+      pe[e] = live ? exp2f(comp(s4, e) - ld.x) : 0.f;
+      de[e] = pe[e] * (comp(d4, e) - ld.y) * p.scale;
+    }
+    pv = make_float4(pe[0], pe[1], pe[2], pe[3]);
+    dsv = make_float4(de[0], de[1], de[2], de[3]);
+  }
+  cluster_sync();
+  if (mine) {
+    for (int r = 0; r < c; ++r) {
+      const uint32_t x = cluster_addr(xs + at, r);
+      if (DQ) {
+        st_cluster4(x, dsv);
+      } else {
+        st_cluster4(x, pv);
+        st_cluster4(x + 4 * kF32TileFloats, dsv);
+      }
+    }
+  }
+  cluster_sync();
+}
+
+// acc[a][4 h + e] += sum over the 64 rows r of X[r][4 ta + a] * Y(r)[4 (tb +
+// 16 h) + e] (Y a swizzled [64][128] slab): a thread's 4 x 8 block of a
+// gradient slab. 3 float4 loads for 32 FMAs.
+__device__ __forceinline__ void slab_product(float (&acc)[4][8], const float* X, const float* Y,
+                                             int ta, int tb) {
+#pragma unroll 4
+  for (int r = 0; r < kF32WideTile; ++r) {
+    const float4 x = ld4(X + r * kF32WideTile + 4 * ta);
+    const float4 y0 = ld4(Y + swz<kF32WideSlab>(r, tb));
+    const float4 y1 = ld4(Y + swz<kF32WideSlab>(r, tb + 16));
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float xa = comp(x, a);
+      acc[a][0] = fmaf(xa, y0.x, acc[a][0]);
+      acc[a][1] = fmaf(xa, y0.y, acc[a][1]);
+      acc[a][2] = fmaf(xa, y0.z, acc[a][2]);
+      acc[a][3] = fmaf(xa, y0.w, acc[a][3]);
+      acc[a][4] = fmaf(xa, y1.x, acc[a][4]);
+      acc[a][5] = fmaf(xa, y1.y, acc[a][5]);
+      acc[a][6] = fmaf(xa, y1.z, acc[a][6]);
+      acc[a][7] = fmaf(xa, y1.w, acc[a][7]);
+    }
+  }
+}
+
+// Rows 4 ta + a of a thread's 4 x 8 block into a (s, d) f32 matrix from row
+// r0 and the slab at g0: its owned columns, rows inside s.
+__device__ __forceinline__ void store_block(float* dst, const float (&acc)[4][8], int r0, int s,
+                                            int d, const F32WideCols& cols, int ta, int tb) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + 4 * ta + a;
+    if (r >= s) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = cols.g0 + 4 * (tb + 16 * h);
+      if (col < cols.own0 || col >= cols.own1) continue;
+      st4(dst + static_cast<size_t>(r) * d + col,
+          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
+    }
+  }
+}
+
+// The thread's (ta, tb): a warp covers four consecutive ta and eight
+// consecutive tb, so each float4 load of the score loop is one wavefront.
+__device__ __forceinline__ int2 f32_wide_thread() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return make_int2((lane >> 3) | ((warp >> 1) << 2), (lane & 7) | ((warp & 1) << 3));
+}
+
+// The f32 D-streaming dQ on the CUDA cores, in clusters (see the note on
+// top). blockIdx.x: q tile x (g c) + z; y and z: bh rows (kMaxGridY a z
+// slice). A thread holds S and dP at q rows 4 ta + a and keys 4 tb + b, and
+// dQ at rows 4 ta + a, slab columns 4 (tb + 16 h) + e. TRI: the triangle;
+// else the general masks, the key tiles of the band, a key tile whose
+// documents cannot meet the q tile's skipped (by every CTA of the cluster:
+// the walk depends on the row, the tiles and the ids alone).
 template <bool TRI>
 __device__ __forceinline__ void dq_wide_f32_body(const Params& p, int d) {
-  constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
-  constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + TT * LC;
-  float* ks = dos + TT * LC;
-  float* vs = ks + TT * LC;
-  float* dss = vs + TT * LC;
-  float* kslab = dss + TT * LP;
-  int* kseg = reinterpret_cast<int*>(kslab + TT * LS);  // general: the key tile's ids
-  int* ranges = kseg + TT;  // general: the q tile's and the key tile's (min, max)
+  extern __shared__ float4 f32w_smem[];
+  float* qres = reinterpret_cast<float*>(f32w_smem);  // the Q slab times qscale
+  float* dores = qres + kF32SlabFloats;
+  float* ring = dores + kF32SlabFloats;  // per stage: K and V slabs, or Q, dO, K, V chunks
+  float* xs = ring + kF32WideStages * kF32StageFloats;
+  float* lse2s = xs + 2 * kF32TileFloats;
+  float* dlts = lse2s + kF32WideTile;
 
   const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
-  if (bh >= p.rows) return;
-  const int n_slabs = wide_slabs(d, kF32WideSlab);
-  const int q0 = (blockIdx.x / n_slabs) * TT;
-  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  if (bh >= p.rows) return;  // the whole cluster: it shares y and z
+  const F32WideGeo geo(d);
+  const F32WideCols cols(geo, blockIdx.x % geo.ctas(), d);
+  const int q0 = (blockIdx.x / geo.ctas()) * kF32WideTile;
+  const int2 th = f32_wide_thread();
+  const int ta = th.x, tb = th.y;
   const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
   const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.s * d;
   const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(bh) * p.s * d;
@@ -1870,288 +2109,254 @@ __device__ __forceinline__ void dq_wide_f32_body(const Params& p, int d) {
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
   const bool segments = !TRI && p.seg != nullptr;
   const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
-
-  float lse2[R], dlt[R], acc[R][CN];
-  int qseg[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    const bool in = qi < p.s;
-    lse2[i] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
-    dlt[i] = in ? p.delta[static_cast<size_t>(bh) * p.s + qi] : 0.f;
-    qseg[i] = (segments && in) ? seg[qi] : 0;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
-  }
-  if (segments) stage_ids(seg, q0, p.s, kseg, ranges);  // the q tile's range (its ids unused)
-  const int2 qrange = segments ? make_int2(ranges[0], ranges[1]) : make_int2(0, 1);
+  const int lane = threadIdx.x & 31;
 
   // the key tiles any row of this q tile can see: up to the diagonal
-  // (causal), from the window's first key on
-  int t_lo = 0, t_hi = (p.s + TT - 1) / TT;
-  if (TRI || p.causal) t_hi = (min(q0 + TT, p.s) + TT - 1) / TT;
-  if (!TRI && p.causal && p.window > 0) t_lo = max(0, q0 - p.window + 1) / TT;
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * TT;
-    if (segments) {
-      stage_ids(seg, k0, p.s, kseg, ranges + 2);
-      if (apart(qrange, make_int2(ranges[2], ranges[3]))) continue;
+  // (causal), from the window's first key on; every warp finds the next
+  // live one itself (the ids' range by warp reductions)
+  int t_lo = 0, t_hi = (p.s + kF32WideTile - 1) / kF32WideTile;
+  if (TRI || p.causal) t_hi = (min(q0 + kF32WideTile, p.s) + kF32WideTile - 1) / kF32WideTile;
+  if (!TRI && p.causal && p.window > 0) t_lo = max(0, q0 - p.window + 1) / kF32WideTile;
+  const int2 qrange = segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    while (segments && t < t_hi &&
+           apart(qrange, id_range(seg, t * kF32WideTile, p.s, lane, 32, ~0u, nullptr))) {
+      ++t;
     }
-    float sc[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      stage_cols<TT, kF32WideChunk>(qs, qg, q0, p.s, d, c0, p.qscale);
-      stage_cols<TT, kF32WideChunk>(dos, dog, q0, p.s, d, c0, 1.f);
-      stage_cols<TT, kF32WideChunk>(ks, kg, k0, p.s, d, c0, 1.f);
-      stage_cols<TT, kF32WideChunk>(vs, vg, k0, p.s, d, c0, 1.f);
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < kF32WideChunk; ++dd) {
-        float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          qv[i] = qs[(ty + 16 * i) * LC + dd];
-          dov[i] = dos[(ty + 16 * i) * LC + dd];
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          kv[j] = ks[(tx + 16 * j) * LC + dd];
-          vv[j] = vs[(tx + 16 * j) * LC + dd];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < R; ++j) {
-            sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-          }
-      }
+    return t;
+  };
+  const int items = cols.items();
+  auto fetch = [&](int t, int it, int st) {
+    float* dst = ring + st * kF32StageFloats;
+    const int k0 = t * kF32WideTile;
+    if (it < cols.nf) {
+      const int c0 = cols.foreign(it, geo.c);
+      load_tile<kF32WideChunk>(dst, qg, q0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + kF32TileFloats, dog, q0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + 2 * kF32TileFloats, kg, k0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + 3 * kF32TileFloats, vg, k0, p.s, d, c0);
+    } else {
+      load_tile<kF32WideSlab>(dst, kg, k0, p.s, d, cols.g0);
+      load_tile<kF32WideSlab>(dst + kF32SlabFloats, vg, k0, p.s, d, cols.g0);
     }
-    // the K slab, and dS (their buffers' last readers passed the chunk
-    // loop's barriers)
-    stage_cols<TT, kF32WideSlab>(kslab, kg, k0, p.s, d, col0, 1.f);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool live = qi < p.s && kj < p.s && lse2[i] != -CUDART_INF_F &&
-                          attends<TRI>(p, qi, kj, segments, qseg[i],
-                                       segments ? kseg[tx + 16 * j] : 0);
-        const float pij = live ? exp2f(sc[i][j] - lse2[i]) : 0.f;
-        dss[(ty + 16 * i) * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[i]) * p.scale;
-      }
-    }
-    __syncthreads();
+  };
 
-#pragma unroll 4
-    for (int kk = 0; kk < TT; ++kk) {
-      float dsv[R], kv[CN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) kv[c] = kslab[kk * LS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
+  int t = live_from(t_lo);
+  if (cols.owns()) {
+    load_tile<kF32WideSlab>(qres, qg, q0, p.s, d, cols.g0);
+    load_tile<kF32WideSlab>(dores, dog, q0, p.s, d, cols.g0);
   }
+  cp_async_commit();
+  if (t < t_hi && items > 0) fetch(t, 0, 0);
+  cp_async_commit();
+  if (threadIdx.x < kF32WideTile) {
+    const int qi = q0 + threadIdx.x;
+    const bool in = qi < p.s;
+    lse2s[threadIdx.x] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
+    dlts[threadIdx.x] = in ? p.delta[static_cast<size_t>(bh) * p.s + qi] : 0.f;
+  }
+  cp_async_wait<1>();  // the resident slabs
+  __syncthreads();
+  for (int e = threadIdx.x; e < kF32SlabFloats; e += kThreads) qres[e] *= p.qscale;
+  auto rows = [&](int r) { return make_float2(lse2s[r], dlts[r]); };
 
-  float* dqg = static_cast<float*>(p.dq) + static_cast<size_t>(bh) * p.s * d;
+  float acc[4][8];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.s) continue;
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < CN; ++c) {
-      const int col = col0 + tx + 16 * c;
-      if (col < d) dqg[static_cast<size_t>(qi) * d + col] = acc[i][c];
+    for (int j = 0; j < 8; ++j) acc[a][j] = 0.f;
+  int st = 0;  // the stage of the next item
+  while (t < t_hi) {
+    const int next = live_from(t + 1);
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sc[a][b] = dp[a][b] = 0.f;
+    const float* slabs = nullptr;  // the main item's stage
+    for (int it = 0; it < items; ++it) {
+      // the item after this one loads under this one's products
+      if (it + 1 < items) {
+        fetch(t, it + 1, st ^ 1);
+      } else if (next < t_hi) {
+        fetch(next, 0, st ^ 1);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* sp = ring + st * kF32StageFloats;
+      if (it < cols.nf) {
+        partial_scores<kF32WideChunk, kF32WideChunk, true, false>(
+            sc, dp, sp, sp + kF32TileFloats, sp + 2 * kF32TileFloats, sp + 3 * kF32TileFloats, ta,
+            tb, 0, kF32WideChunk / 4, p.qscale);
+        __syncthreads();  // the stage is free for the item after the next
+      } else {
+        partial_scores<kF32WideSlab, kF32WideSlab, false, false>(
+            sc, dp, qres, dores, sp, sp + kF32SlabFloats, ta, tb, (cols.own0 - cols.g0) / 4,
+            (cols.own1 - cols.g0) / 4, 1.f);
+        slabs = sp;
+      }
+      st ^= 1;
     }
+    exchange<TRI, true>(p, xs, sc, dp, ta, tb, geo.c, q0, t * kF32WideTile, seg, rows);
+    if (slabs != nullptr) slab_product(acc, xs, slabs, ta, tb);  // dQ += dS . K_slab
+    __syncthreads();  // the main stage and xs are free
+    t = next;
+  }
+  cp_async_wait<0>();
+  if (cols.owns()) {
+    store_block(static_cast<float*>(p.dq) + static_cast<size_t>(bh) * p.s * d, acc, q0, p.s, d,
+                cols, ta, tb);
   }
 }
 
-// The f32 D-streaming dK/dV on the CUDA cores: dkv_body's arithmetic, S^T
-// and dP^T summed over 64-column chunks and dK and dV in slabs.
-// blockIdx.x: key tile x slabs + slab; y and z: kv rows. TRI: the triangle;
-// else the general masks, as dQ's.
+// The f32 D-streaming dK/dV on the CUDA cores, in clusters (see the note on
+// top). blockIdx.x: key tile x (g c) + z; y and z: kv rows. A thread holds
+// S^T and dP^T at keys 4 ta + a and q rows 4 tb + b, and dK and dV at keys
+// 4 ta + a, slab columns 4 (tb + 16 h) + e; it walks every GQA member's q
+// tiles. TRI: the triangle; else the general masks, as dQ's.
 template <bool TRI>
 __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
-  constexpr int TT = kF32WideTile, R = TT / 16, LC = kF32WideChunk + 1, LP = TT + 1;
-  constexpr int LS = kF32WideSlab + 1, CN = kF32WideSlab / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + TT * LC;
-  float* qs = vs + TT * LC;
-  float* dos = qs + TT * LC;
-  float* ps = dos + TT * LC;
-  float* dss = ps + TT * LP;
-  float* qslab = dss + TT * LP;
-  float* doslab = qslab + TT * LS;
-  float* lse2 = doslab + TT * LS;
-  float* dlt = lse2 + TT;
-  int* qseg = reinterpret_cast<int*>(dlt + TT);  // general: the q tile's ids
-  int* ranges = qseg + TT;  // general: the key tile's and the q tile's (min, max)
+  extern __shared__ float4 f32w_smem[];
+  float* kres = reinterpret_cast<float*>(f32w_smem);  // the K and V slabs
+  float* vres = kres + kF32SlabFloats;
+  float* ring = vres + kF32SlabFloats;  // per stage: Q and dO slabs, or K, V, Q, dO chunks
+  float* xs = ring + kF32WideStages * kF32StageFloats;
 
   const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
-  if (kv_row >= p.rows) return;
-  const int n_slabs = wide_slabs(d, kF32WideSlab);
-  const int k0 = (blockIdx.x / n_slabs) * TT;
-  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  if (kv_row >= p.rows) return;  // the whole cluster
+  const F32WideGeo geo(d);
+  const F32WideCols cols(geo, blockIdx.x % geo.ctas(), d);
+  const int k0 = (blockIdx.x / geo.ctas()) * kF32WideTile;
+  const int2 th = f32_wide_thread();
+  const int ta = th.x, tb = th.y;
   const int b = kv_row / p.kv_heads;
   const int group = p.heads / p.kv_heads;
   const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
   const bool segments = !TRI && p.seg != nullptr;
   const int* seg = segments ? p.seg + static_cast<size_t>(b) * p.s : nullptr;
-
-  // score columns of this thread: keys k0 + tx + 16 j
-  int kseg[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int kj = k0 + tx + 16 * j;
-    kseg[j] = (segments && kj < p.s) ? seg[kj] : 0;
-  }
-  if (segments) stage_ids(seg, k0, p.s, qseg, ranges);  // the key tile's range (ids unused)
-  const int2 krange = segments ? make_int2(ranges[0], ranges[1]) : make_int2(0, 1);
-  // accumulator rows of this thread: keys k0 + ty + 16 i
-  float dk[R][CN], dv[R][CN];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CN; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const int lane = threadIdx.x & 31;
+  auto q_row = [&](int m) { return b * p.heads + (kv_row % p.kv_heads) * group + m; };
 
   // the q tiles that can see any key of this tile: from the diagonal down
-  // (causal), to the last row inside the window of the last key
-  int t_lo = 0, t_hi = (p.s + TT - 1) / TT;
-  if (TRI || p.causal) t_lo = k0 / TT;
+  // (causal), to the last row inside the window of the last key; walked
+  // for every member, a tile whose documents cannot meet the key tile's
+  // skipped
+  int t_lo = 0, t_hi = (p.s + kF32WideTile - 1) / kF32WideTile;
+  if (TRI || p.causal) t_lo = k0 / kF32WideTile;
   if (!TRI && p.causal && p.window > 0) {
-    t_hi = (min(p.s, min(k0 + TT, p.s) - 1 + p.window) + TT - 1) / TT;
+    t_hi = (min(p.s, min(k0 + kF32WideTile, p.s) - 1 + p.window) + kF32WideTile - 1) /
+           kF32WideTile;
   }
-  for (int m = 0; m < group; ++m) {
-    const int q_row = b * p.heads + (kv_row % p.kv_heads) * group + m;
-    const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(q_row) * p.s * d;
-    const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(q_row) * p.s * d;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int q0 = t * TT;
-      if (segments) {
-        stage_ids(seg, q0, p.s, qseg, ranges + 2);
-        if (apart(krange, make_int2(ranges[2], ranges[3]))) continue;
-      }
-      float sc[R][R], dp[R][R];  // rows: q rows q0 + ty + 16 i; columns: keys k0 + tx + 16 j
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) sc[i][j] = dp[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
-        __syncthreads();
-        stage_cols<TT, kF32WideChunk>(ks, kg, k0, p.s, d, c0, 1.f);
-        stage_cols<TT, kF32WideChunk>(vs, vg, k0, p.s, d, c0, 1.f);
-        stage_cols<TT, kF32WideChunk>(qs, qg, q0, p.s, d, c0, 1.f);
-        stage_cols<TT, kF32WideChunk>(dos, dog, q0, p.s, d, c0, 1.f);
-        __syncthreads();
-#pragma unroll 4
-        for (int dd = 0; dd < kF32WideChunk; ++dd) {
-          float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-          for (int i = 0; i < R; ++i) {
-            // the same f32 product the forward folds into q
-            qv[i] = qs[(ty + 16 * i) * LC + dd] * p.qscale;
-            dov[i] = dos[(ty + 16 * i) * LC + dd];
-          }
-#pragma unroll
-          for (int j = 0; j < R; ++j) {
-            kv[j] = ks[(tx + 16 * j) * LC + dd];
-            vv[j] = vs[(tx + 16 * j) * LC + dd];
-          }
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-              sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-              dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-            }
-        }
-      }
-      // the Q and dO slabs and the rows' lse and delta (their buffers' last
-      // readers passed the chunk loop's barriers)
-      stage_cols<TT, kF32WideSlab>(qslab, qg, q0, p.s, d, col0, 1.f);
-      stage_cols<TT, kF32WideSlab>(doslab, dog, q0, p.s, d, col0, 1.f);
-      if (tid < TT) {
-        const int qi = q0 + tid;
-        const bool in = qi < p.s;
-        lse2[tid] = in ? p.lse[static_cast<size_t>(q_row) * p.s + qi] * kLog2e : -CUDART_INF_F;
-        dlt[tid] = in ? p.delta[static_cast<size_t>(q_row) * p.s + qi] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = ty + 16 * i;
-        const int qi = q0 + r;
-        const float l2 = lse2[r];
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int kj = k0 + tx + 16 * j;
-          const bool live = qi < p.s && kj < p.s && l2 != -CUDART_INF_F &&
-                            attends<TRI>(p, qi, kj, segments, segments ? qseg[r] : 0, kseg[j]);
-          const float pij = live ? exp2f(sc[i][j] - l2) : 0.f;
-          ps[r * LP + tx + 16 * j] = pij;
-          dss[r * LP + tx + 16 * j] = pij * (dp[i][j] - dlt[r]) * p.scale;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < TT; ++r) {
-        float pv[R], dsv[R], dov[CN], qv[CN];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pv[i] = ps[r * LP + ty + 16 * i];
-          dsv[i] = dss[r * LP + ty + 16 * i];
-        }
-#pragma unroll
-        for (int c = 0; c < CN; ++c) {
-          dov[c] = doslab[r * LS + tx + 16 * c];
-          qv[c] = qslab[r * LS + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int c = 0; c < CN; ++c) {
-            dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-          }
+  const int2 krange = segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  // (m, t) to the first live (member, q tile) at or after it
+  auto advance = [&](int& m, int& t) {
+    while (m < group) {
+      if (t >= t_hi) {
+        ++m;
+        t = t_lo;
+      } else if (segments &&
+                 apart(krange, id_range(seg, t * kF32WideTile, p.s, lane, 32, ~0u, nullptr))) {
+        ++t;
+      } else {
+        return;
       }
     }
-  }
-
-  float* dkg = static_cast<float*>(p.dk) + static_cast<size_t>(kv_row) * p.s * d;
-  float* dvg = static_cast<float*>(p.dv) + static_cast<size_t>(kv_row) * p.s * d;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kj = k0 + ty + 16 * i;
-    if (kj >= p.s) continue;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) {
-      const int col = col0 + tx + 16 * c;
-      if (col >= d) continue;
-      const size_t off = static_cast<size_t>(kj) * d + col;
-      dkg[off] = dk[i][c];
-      dvg[off] = dv[i][c];
+  };
+  const int items = cols.items();
+  auto fetch = [&](int m, int t, int it, int st) {
+    float* dst = ring + st * kF32StageFloats;
+    const int q0 = t * kF32WideTile;
+    const size_t qoff = static_cast<size_t>(q_row(m)) * p.s * d;
+    const float* qg = static_cast<const float*>(p.q) + qoff;
+    const float* dog = static_cast<const float*>(p.dout) + qoff;
+    if (it < cols.nf) {
+      const int c0 = cols.foreign(it, geo.c);
+      load_tile<kF32WideChunk>(dst, kg, k0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + kF32TileFloats, vg, k0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + 2 * kF32TileFloats, qg, q0, p.s, d, c0);
+      load_tile<kF32WideChunk>(dst + 3 * kF32TileFloats, dog, q0, p.s, d, c0);
+    } else {
+      load_tile<kF32WideSlab>(dst, qg, q0, p.s, d, cols.g0);
+      load_tile<kF32WideSlab>(dst + kF32SlabFloats, dog, q0, p.s, d, cols.g0);
     }
+  };
+
+  int m = 0, t = t_lo;
+  advance(m, t);
+  if (cols.owns()) {
+    load_tile<kF32WideSlab>(kres, kg, k0, p.s, d, cols.g0);
+    load_tile<kF32WideSlab>(vres, vg, k0, p.s, d, cols.g0);
+  }
+  if (m < group && items > 0) fetch(m, t, 0, 0);
+  cp_async_commit();
+
+  float dk[4][8], dv[4][8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dk[a][j] = dv[a][j] = 0.f;
+  int st = 0;
+  while (m < group) {
+    int nm = m, nt = t + 1;
+    advance(nm, nt);
+    const size_t lrow = static_cast<size_t>(q_row(m)) * p.s;
+    const int q0 = t * kF32WideTile;
+    auto rows = [&](int r) {
+      const int qi = q0 + r;
+      return qi < p.s ? make_float2(p.lse[lrow + qi] * kLog2e, p.delta[lrow + qi])
+                      : make_float2(-CUDART_INF_F, 0.f);
+    };
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[a][c] = dp[a][c] = 0.f;
+    const float* slabs = nullptr;
+    for (int it = 0; it < items; ++it) {
+      if (it + 1 < items) {
+        fetch(m, t, it + 1, st ^ 1);
+      } else if (nm < group) {
+        fetch(nm, nt, 0, st ^ 1);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* sp = ring + st * kF32StageFloats;
+      if (it < cols.nf) {
+        partial_scores<kF32WideChunk, kF32WideChunk, false, true>(
+            sc, dp, sp, sp + kF32TileFloats, sp + 2 * kF32TileFloats, sp + 3 * kF32TileFloats, ta,
+            tb, 0, kF32WideChunk / 4, p.qscale);
+        __syncthreads();
+      } else {
+        partial_scores<kF32WideSlab, kF32WideSlab, false, true>(
+            sc, dp, kres, vres, sp, sp + kF32SlabFloats, ta, tb, (cols.own0 - cols.g0) / 4,
+            (cols.own1 - cols.g0) / 4, p.qscale);
+        slabs = sp;
+      }
+      st ^= 1;
+    }
+    exchange<TRI, false>(p, xs, sc, dp, ta, tb, geo.c, q0, k0, seg, rows);
+    if (slabs != nullptr) {
+      slab_product(dv, xs, slabs + kF32SlabFloats, ta, tb);   // dV += P^T . dO_slab
+      slab_product(dk, xs + kF32TileFloats, slabs, ta, tb);   // dK += dS^T . Q_slab
+    }
+    __syncthreads();
+    m = nm;
+    t = nt;
+  }
+  cp_async_wait<0>();
+  if (cols.owns()) {
+    store_block(static_cast<float*>(p.dk) + static_cast<size_t>(kv_row) * p.s * d, dk, k0, p.s,
+                d, cols, ta, tb);
+    store_block(static_cast<float*>(p.dv) + static_cast<size_t>(kv_row) * p.s * d, dv, k0, p.s,
+                d, cols, ta, tb);
   }
 }
 
-// The four f32 D-streaming kernels: the triangle pair and the general pair.
+// The four f32 D-streaming kernels: the triangle pair and the general pair,
+// each launched in clusters of F32WideGeo(d).c CTAs on the grid's x.
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(Params p, int d) {
   dq_wide_f32_body<true>(p, d);
 }
@@ -2275,6 +2480,82 @@ bool valid(const Params& p, int rows) {
          p.heads % p.kv_heads == 0;
 }
 
+#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+constexpr int kNoCluster = -3;  // no cluster of the plan's CTAs fits on the card
+
+using F32WideKernel = void (*)(Params, int);
+
+template <Kind K>
+F32WideKernel f32_wide_kernel() {
+  return K == kDqTri    ? flash_bwd_dq_tri_wide_f32_kernel
+         : K == kDqRect ? flash_bwd_dq_rect_wide_f32_kernel
+         : K == kDkvTri ? flash_bwd_dkv_tri_wide_f32_kernel
+                        : flash_bwd_dkv_rect_wide_f32_kernel;
+}
+
+// The f32 wide kernel K's launch at head dim d: grid (tiles x g c, rows, z
+// slices), clusters of c CTAs on x, 256 threads, the plan's shared memory.
+template <Kind K>
+cudaLaunchConfig_t f32_wide_config(int s, int rows, int d, int smem, cudaStream_t stream,
+                                   cudaLaunchAttribute* cluster) {
+  const F32WideGeo geo(d);
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = geo.c;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((s + kF32WideTile - 1) / kF32WideTile * geo.ctas(),
+                     rows < kMaxGridY ? rows : kMaxGridY, (rows + kMaxGridY - 1) / kMaxGridY);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of K's at head dim d the current card holds at once
+// (cudaOccupancyMaxActiveClusters at the plan's shared memory), asked once
+// per card (the first kCachedCards), kernel and cluster size; a negative
+// CUDA error code when the query fails.
+constexpr int kCachedCards = 16;
+
+template <Kind K>
+int f32_wide_clusters(int d) {
+  static int known[kCachedCards][kF32WideCluster + 1] = {};
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int* const slot = card < kCachedCards ? &known[card][F32WideGeo(d).c] : nullptr;
+  if (slot != nullptr && *slot != 0) return *slot;
+  constexpr int smem = f32_wide_smem_bytes<is_dq(K)>();
+  err = cudaFuncSetAttribute(f32_wide_kernel<K>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = f32_wide_config<K>(kF32WideTile, 1, d, smem, nullptr, &cluster);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, f32_wide_kernel<K>(), &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (slot != nullptr) *slot = n;
+  return n;
+}
+
+template <Kind K>
+int launch_f32_wide(const Params& p, int rows, int d, int smem, cudaStream_t stream) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      f32_wide_kernel<K>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int clusters = f32_wide_clusters<K>(d);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = f32_wide_config<K>(p.s, rows, d, smem, stream, &cluster);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, f32_wide_kernel<K>(), p, d);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+#endif
+
 #ifdef FLASH_HEAD_DIM_WIDE
 // Either pair at a head dim above 576 with the caller's plan: 64-row tiles,
 // the layout's shared memory, the 128-byte swizzle (16-bit) or none (f32).
@@ -2318,21 +2599,12 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
 #else
-  const size_t fixed =
-      kDq ? dq_f32_wide_smem_bytes<kTri>() : dkv_f32_wide_smem_bytes<kTri>();
-  if (dtype != 0 || swizzle != 0 || smem != static_cast<int>(fixed)) return kUnsupported;
-  void (*kernel)(Params, int) =
-      K == kDqTri    ? flash_bwd_dq_tri_wide_f32_kernel
-      : K == kDqRect ? flash_bwd_dq_rect_wide_f32_kernel
-      : K == kDkvTri ? flash_bwd_dkv_tri_wide_f32_kernel
-                     : flash_bwd_dkv_rect_wide_f32_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(fixed));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(tiles * wide_slabs(d, kF32WideSlab), rows < kMaxGridY ? rows : kMaxGridY,
-                  (rows + kMaxGridY - 1) / kMaxGridY);
-  kernel<<<grid, kThreads, fixed, stream>>>(p, d);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 0 || swizzle != 0 || smem != f32_wide_smem_bytes<kDq>()) return kUnsupported;
+  // cp.async and float4 stores move 16 bytes: 16-byte bases (rows are d * 4 bytes)
+  if (!tma_aligned({p.q, p.k, p.v, p.dout, kDq ? p.dq : p.dk, kDq ? p.dq : p.dv})) {
+    return kUnsupported;
+  }
+  return launch_f32_wide<K>(p, rows, d, smem, stream);
 #endif
 }
 #endif  // FLASH_HEAD_DIM_WIDE
@@ -2431,3 +2703,16 @@ extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, c
            s, heads, kv_heads, causal, band(causal, window, s), qscale, scale, bh_kv};
   return dispatch<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
 }
+
+#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+// How many clusters of an f32 D-streaming kernel (dq 1: dQ, 0: dK/dV; tri
+// 1: the triangle pair's, 0: the general pair's) at head dim d the card
+// holds at once: cudaOccupancyMaxActiveClusters at its plan's shared memory
+// and cluster size. -1 for a head dim these kernels do not take, minus a
+// CUDA error code when the query fails.
+extern "C" int flash_bwd_f32_wide_clusters(int dq, int tri, int d) {
+  if (!wide_head_dim(d)) return kUnsupported;
+  if (dq) return tri ? f32_wide_clusters<kDqTri>(d) : f32_wide_clusters<kDqRect>(d);
+  return tri ? f32_wide_clusters<kDkvTri>(d) : f32_wide_clusters<kDkvRect>(d);
+}
+#endif

@@ -144,9 +144,11 @@ class BwdPlan:
     plan is causal with no window. ``ring`` is the rows of a tile of the
     other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
     per own-side tile, each on a column slice of the gradients. Above 576
-    (:func:`wide_bwd_plans`) ``slab`` is the columns a CTA holds and
-    ``stages`` the depth of the ring the head dim's chunks stream through
-    (0 and 0 below)."""
+    (:func:`wide_bwd_plans`) ``slab`` is the columns a CTA holds,
+    ``stages`` the depth of the ring the head dim's chunks (f32: slabs)
+    stream through and ``cluster`` the CTAs of a thread-block cluster on
+    the grid's x (f32: those that share one tile pair's S and dP); below
+    576 ``slab`` and ``stages`` are 0, ``cluster`` 1."""
 
     kernel: str
     block: int
@@ -160,6 +162,14 @@ class BwdPlan:
     col_split: int = 1
     slab: int = 0
     stages: int = 0
+    cluster: int = 1
+
+    @property
+    def redundancy(self) -> int:
+        """How many times each tile pair's S and dP are formed: once per
+        cluster of a tile's CTAs, which share them (every CTA on its own
+        outside a cluster)."""
+        return self.col_split // self.cluster
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (row, tile) that block (x, y) computes, as the kernel maps
@@ -243,13 +253,43 @@ WIDE_DQ_SLAB = 256     # columns of dQ a 16-bit CTA holds (kWideDqSlab)
 WIDE_DKV_SLAB = 128    # columns of dK and of dV a 16-bit CTA holds (kWideDkvSlab)
 WIDE_BWD_RING = 4      # stages of the chunk ring, four boxes each (kWideRing)
 WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
-F32_WIDE_BWD_CHUNK = 64  # columns of an f32 chunk (kF32WideChunk)
-F32_WIDE_BWD_SLAB = 128  # columns of each gradient an f32 CTA holds (kF32WideSlab)
+F32_WIDE_BWD_CHUNK = 64   # columns of an f32 foreign chunk (kF32WideChunk)
+F32_WIDE_BWD_SLAB = 128   # columns of each gradient an f32 CTA holds (kF32WideSlab)
+F32_WIDE_BWD_STAGES = 2   # stages of the f32 streamed ring (kF32WideStages)
+F32_WIDE_BWD_CLUSTER = 8  # the most CTAs of an f32 cluster, the portable limit (kF32WideCluster)
 # the general pair's id ring: per slab stage the ring tile's 64 ids, their min
-# and max, and two barriers (kWideIdBytes); f32: a tile's ids and two ranges
-# (kF32WideIdBytes)
+# and max, and two barriers (kWideIdBytes)
 WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
-F32_WIDE_ID_BYTES = (TILE + 4) * 4
+
+
+def f32_wide_geometry(d: int) -> Tuple[int, int, int]:
+    """(n, g, c) of the f32 D-streaming pair at head dim ``d`` (flash_bwd.cu's
+    ``F32WideGeo``): n slabs of ``F32_WIDE_BWD_SLAB`` columns of the
+    gradients, the last starting at d - slab, in g clusters of c CTAs a
+    tile (c at most ``F32_WIDE_BWD_CLUSTER``: one cluster up to n = 8, d
+    1024); the grid holds g·c CTAs a tile, those past the n-th writing
+    nothing. Each cluster forms S and dP once, so they are formed g times
+    per tile pair."""
+    n = wide_slabs(d, F32_WIDE_BWD_SLAB)
+    g = -(-n // F32_WIDE_BWD_CLUSTER)
+    return n, g, -(-n // g)
+
+
+def f32_wide_columns(d: int, z: int) -> Tuple[range, List[int]]:
+    """The columns CTA ``z`` of a tile writes (its slab's own: the write
+    rule, none past the n-th slab) and the columns it sums into its partial
+    S and dP (flash_bwd.cu's ``F32WideCols``): its own, and every c-th of
+    the 64-column chunks its cluster writes none of, from its rank on; so
+    the CTAs of one cluster sum each column of ``d`` once."""
+    _, _, c = f32_wide_geometry(d)
+    slab, chunk = F32_WIDE_BWD_SLAB, F32_WIDE_BWD_CHUNK
+    rank = z % c
+    own = range(min(z * slab, d), min(z * slab + slab, d))
+    first = (z - rank) * slab
+    cluster = range(first, min(first + c * slab, d))
+    foreign = [c0 for c0 in range(0, d, chunk) if c0 not in cluster]
+    summed = list(own) + [col for c0 in foreign[rank::c] for col in range(c0, c0 + chunk)]
+    return own, summed
 
 
 def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
@@ -258,31 +298,35 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     """How either pair launches at a head dim ``d`` above 576 (a multiple
     of 64): (dq plan, dkv plan); the triangle pair's by default, or with
     ``rect`` the general pair's under ``causal`` and ``window`` (the band as
-    :func:`band` reads it), which stages its ring tiles' segment ids
-    (``WIDE_ID_BYTES``; f32 ``F32_WIDE_ID_BYTES``) whether or not the call
-    has ids. Own-side tiles and ring tiles of 64 rows; ``col_split`` slabs
-    of ``slab`` columns of the gradients on the grid's z, each CTA forming
-    the whole S and dP (S^T and dP^T) over the head dim: dQ does (2 slabs +
-    1) / 3 and dK/dV (slabs + 1) / 2 times the ideal tensor-core work. bf16
-    and fp16: one consumer warpgroup and a producer warp that streams Q,
+    :func:`band` reads it). Own-side tiles and ring tiles of 64 rows;
+    ``col_split`` CTAs a tile, each on a slab of ``slab`` columns of the
+    gradients. bf16 and fp16 (the general pair stages its ring tiles'
+    segment ids, ``WIDE_ID_BYTES``, whether or not the call has ids): the
+    slabs on the grid's z, each CTA forming the whole S and dP (S^T and
+    dP^T) over the head dim, so dQ does (2 slabs + 1) / 3 and dK/dV (slabs
+    + 1) / 2 times the ideal tensor-core work; one consumer warpgroup and a producer warp that streams Q,
     dO, K and V in 64 x 64 boxes through a ring of ``stages`` (four boxes a
     stage), and per tile the slab operand of the gradient products (dQ: K's
     slab; dK/dV: Q's and dO's, with the rows' lse and delta) through two
     more stages; dQ launches heaviest first under a plain causal mask, else
-    in order, dK/dV in order. f32: the CUDA-core pair with 64-row tiles,
-    64-column chunks through shared memory and ``F32_WIDE_BWD_SLAB``-column
-    slabs."""
+    in order, dK/dV in order; both form S and dP in every slab's CTA
+    (``redundancy`` = ``col_split``). f32: the CUDA-core pair with 64-row
+    tiles, ``F32_WIDE_BWD_SLAB``-column slabs and the slab CTAs of a tile
+    in thread-block clusters of ``cluster`` (:func:`f32_wide_geometry`),
+    which add their partial S and dP through distributed shared memory:
+    ``redundancy`` g, 1 up to d 1024. Per CTA: two resident slabs, the
+    ``stages`` of the streamed ring (two slabs, or four 64-column chunks,
+    each), the exchange's two 64 x 64 tiles, and dQ's rows' lse and delta;
+    the same for both pairs (the ids are read by every warp)."""
     tiles = -(-s // TILE)
     masks = dict(causal=causal, window=window) if rect else {}
     if dtype == torch.float32:
-        chunk, slab = F32_WIDE_BWD_CHUNK, F32_WIDE_BWD_SLAB
-        slabs, ids = wide_slabs(d, slab), F32_WIDE_ID_BYTES if rect else 0
-        dq = BwdPlan("dq", TILE, 256, (tiles, bh),
-                     4 * (4 * TILE * (chunk + 1) + TILE * (TILE + 1) + TILE * (slab + 1)) + ids, 0,
-                     col_split=slabs, slab=slab, **masks)
-        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
-                      4 * (4 * TILE * (chunk + 1) + 2 * TILE * (TILE + 1) + 2 * TILE * (slab + 1)
-                           + 2 * TILE) + ids, 0, col_split=slabs, slab=slab, **masks)
+        _, g, c = f32_wide_geometry(d)
+        slab, stages = F32_WIDE_BWD_SLAB, F32_WIDE_BWD_STAGES
+        base = 2 * TILE * slab + stages * 2 * TILE * slab + 2 * TILE * TILE
+        geometry = dict(col_split=g * c, slab=slab, stages=stages, cluster=c)
+        dq = BwdPlan("dq", TILE, 256, (tiles, bh), 4 * (base + 2 * TILE), 0, **geometry, **masks)
+        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv), 4 * base, 0, **geometry, **masks)
         return dq, dkv
     ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
     # the barriers, and the general pair's id ring
@@ -429,6 +473,21 @@ def _load(name: str) -> ctypes.CDLL:
                lib.flash_bwd_dkv_rect):
         fn.restype = i32
     return lib
+
+
+def f32_wide_active_clusters(d: int, kernel: str, tri: bool) -> int:
+    """How many clusters of the f32 D-streaming ``kernel`` ("dq" or "dkv";
+    the triangle pair's with ``tri``, else the general pair's) at head dim
+    ``d`` (a multiple of 64 above 576) the current card holds at once:
+    ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
+    cluster size. Raises where the query fails."""
+    fn = _lib(torch.float32, d).flash_bwd_f32_wide_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    n = fn(int(kernel == "dq"), int(tri), d)
+    if n <= 0:
+        raise RuntimeError(f"f32 wide {kernel} at head dim {d}: cluster occupancy query "
+                           f"returned {n}")
+    return n
 
 
 def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: int,

@@ -513,6 +513,9 @@ def _raise_on(code: int, name: str) -> None:
         raise ValueError(f"{name}: shape, dtype, plan or alignment not supported by the kernel")
     if code == -2:
         raise RuntimeError(f"{name}: no TMA tensor map (cuTensorMapEncodeTiled missing or refused)")
+    if code == -3:
+        raise RuntimeError(f"{name}: no thread-block cluster of the plan's size fits on the card "
+                           "at the plan's shared memory")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
