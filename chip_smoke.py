@@ -28,7 +28,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``HEAD_DIM_576_INSTANTIATIONS``) and the wide libraries' 2 forward and 4
    backward each (``WIDE_HEAD_INSTANTIATIONS``: both forwards, both pairs),
    failing when one has none, when an instantiation spills registers (a D
-   576 or wide library's f32 kernels too), or
+   576 or wide library's f32 kernels too: ``flash_fwd_wide`` must hold
+   the f32 forward's four cluster instantiations, the triangle and the
+   general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
@@ -71,7 +73,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    plain causal, window 128 and packed, in bf16 and fp16; full attention
    at (1,4096,8,576); f32 (2,128,4,576) and serving's f32 prefill chunk;
    ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
-   520); rows above 576 on the D-streaming kernels (``WIDE_KERNEL_CASES``,
+   520; the general f32 forward at (2,128,4,576) with a window of 33 and
+   segments); the f32 forwards at head dims 256 and above run in
+   thread-block clusters (each such row also logs its q tile height and
+   the clusters resident), with two rows past launch-bound sizes,
+   (1,2048,8,512) and (1,2048,8,1024) with one kv head; rows above 576
+   on the D-streaming kernels (``WIDE_KERNEL_CASES``,
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
    (2,128,4,1024) and ragged (2,100,4,640) at GQA 2, both forwards and the
@@ -610,6 +617,23 @@ def wide_f16_label(mangled: str):
     return wide_label(mangled, F16_MANGLED)
 
 
+# the f32 forward's cluster kernels in the flash_fwd_wide library: the triangle
+# and the general masks at 64- and 16-row q tiles
+F32_CLUSTER_INSTANTIATIONS = ("fwd_tri_64", "fwd_tri_16", "fwd_rect_64", "fwd_rect_16")
+
+
+def f32_label(mangled: str):
+    """A label for an f32 CUDA-core kernel of a wide library: the forward's
+    ``flash_fwd_f32_cluster_kernel<TRI, BM>`` as ``fwd_tri_<BM>`` or
+    ``fwd_rect_<BM>``, the backward pair's by name
+    (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``); else None."""
+    found = re.search(r"flash_fwd_f32_cluster_kernelILb([01])ELi(\d+)E", mangled)
+    if found:
+        return f"fwd_{'tri' if found.group(1) == '1' else 'rect'}_{found.group(2)}"
+    found = re.search(r"(flash_bwd_(?:dq|dkv)_(?:tri|rect)_wide_f32_kernel)", mangled)
+    return found.group(1) if found else None
+
+
 def tri_bwd_bf16_label(mangled: str):
     """A label for a bf16 tensor-core instantiation of a backward pair:
     ``dq_d<D>_wg<WG>`` or ``dkv_d<D>_wg<WG>`` for the triangle pair
@@ -730,10 +754,12 @@ def phase_build() -> dict:
             # every kernel, the f32 ones too
             held.update(per_function)
         if name in WIDE_HEAD_INSTANTIATIONS:
-            f32 = {re.sub(r".*(flash_\w+_f32_kernel(?:ILb[01])?).*", r"\1", k): v
-                   for k, v in per_function.items() if "_f32_kernel" in k}
+            f32 = {f32_label(k): v for k, v in per_function.items() if f32_label(k)}
             log(f"  {name} f32 kernels: ptxas {f32}")
             out[f"{name}_f32_ptxas"] = f32
+            if name == "flash_fwd_wide" and sorted(f32) != sorted(F32_CLUSTER_INSTANTIATIONS):
+                raise RuntimeError(f"{name}: f32 cluster kernels {sorted(f32)}, expected "
+                                   f"{sorted(F32_CLUSTER_INSTANTIATIONS)}")
         spilled = {k: v for k, v in held.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
             raise RuntimeError(f"{name}: {dtype} instantiations spill registers: {spilled}")
@@ -1119,6 +1145,9 @@ HEAD_DIM_512_KERNEL_CASES = [
          dtype=torch.float32, causal=False),
     dict(kernel="flash_fwd_rect", label="serving d512 f32 q(1,8,2,512) kv 64 q_start=16",
          q=(1, 8, 2, 512), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    # past launch-bound sizes: DeepSeek-V4-Flash's head layout in f32
+    dict(kernel="flash_fwd_tri", label="f32 (1,2048,8,512) h_kv 1", q=(1, 2048, 8, 512), h_kv=1,
+         dtype=torch.float32, inner=2),
     dict(kernel="flash_fwd_tri", label="ragged bf16 (2,100,4,512) h_kv 2", q=(2, 100, 4, 512),
          h_kv=2, dtype=torch.bfloat16),
     dict(kernel="flash_fwd_rect", label="ragged bf16 (2,1000,4,512) h_kv 2, segments cut 333",
@@ -1174,6 +1203,10 @@ HEAD_DIM_576_KERNEL_CASES = [
          dtype=torch.float32, causal=False),
     dict(kernel="flash_fwd_rect", label="serving d576 f32 q(1,8,2,576) kv 64 q_start=16",
          q=(1, 8, 2, 576), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    # the general f32 forward where the 5-CTA cluster and the overlapping last
+    # slab meet a window and a segment boundary
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,576) window 33, segments cut 88",
+         q=(2, 128, 4, 576), dtype=torch.float32, causal=True, window=33, cut=88),
     dict(kernel="flash_fwd_tri", label="ragged bf16 (2,100,4,576) h_kv 2", q=(2, 100, 4, 576),
          h_kv=2, dtype=torch.bfloat16),
     dict(kernel="flash_fwd_rect", label="ragged bf16 (2,1000,4,576) h_kv 2, segments cut 333",
@@ -1234,6 +1267,8 @@ WIDE_KERNEL_CASES = [
          dtype=torch.bfloat16, causal=False, inner=2),
     dict(kernel="flash_fwd_rect", label="serving d1024 f32 q(1,8,2,1024) kv 64 q_start=16",
          q=(1, 8, 2, 1024), sk=64, dtype=torch.float32, causal=True, q_start=16, main=True),
+    dict(kernel="flash_fwd_tri", label="f32 (1,2048,8,1024) h_kv 1", q=(1, 2048, 8, 1024),
+         h_kv=1, dtype=torch.float32, inner=2),
     dict(kernel="flash_fwd_tri", label="head dim 2048 bf16 (1,1024,4,2048)",
          q=(1, 1024, 4, 2048), dtype=torch.bfloat16, inner=2),
 ]
@@ -1325,9 +1360,8 @@ def _backward_rows(gen) -> list:
     error must stay below that twin's; not so where the gradients are fp16
     subnormals (``dout_scale``): there fp16 keeps fewer bits than bf16."""
     from tpu_operator_torch.kernels import flash_bwd
-    from tpu_operator_torch.kernels.flash_bwd import f32_wide_geometry
-    from tpu_operator_torch.kernels.flash_fwd import (TENSOR_CORE_DTYPES, is_wide, keep_mask,
-                                                      padded_head_dim)
+    from tpu_operator_torch.kernels.flash_fwd import (TENSOR_CORE_DTYPES, f32_wide_geometry,
+                                                      is_wide, keep_mask, padded_head_dim)
 
     rows = []
     for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
@@ -1639,6 +1673,7 @@ def _fwd_errors(kern, plain, d: int) -> tuple:
 
 
 def phase_kernels() -> list:
+    from tpu_operator_torch.kernels import flash_fwd
     from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
@@ -1690,6 +1725,15 @@ def phase_kernels() -> list:
             rate += f", {row['block_m']}-row q tiles" + (
                 f" (at {row['other_block_m']} rows: {row['other_ms']:.5f} ms)"
                 if "other_block_m" in row else " (no other tile height at this head dim)")
+        width = flash_fwd.padded_head_dim(d)
+        if case["dtype"] == torch.float32 and width >= flash_fwd.F32_CLUSTER_MIN_D:
+            # the f32 forward's thread-block clusters resident on the card at once
+            tri = case["kernel"] == "flash_fwd_tri"
+            rows_per_cta = flash_fwd.f32_rows(sq)
+            row["block_m"] = rows_per_cta
+            row["active_clusters"] = flash_fwd.f32_active_clusters(width, tri, rows_per_cta)
+            rate += (f", {rows_per_cta}-row q tiles, clusters of "
+                     f"{flash_fwd.f32_wide_geometry(width)[2]} resident {row['active_clusters']}")
         if twin:
             rate += f"; bf16 on the same inputs: O err {twin['bf16_twin_err']:.3g}"
         results.append(row)
@@ -4921,6 +4965,7 @@ def main(argv=None) -> int:
     parser.add_argument("--json", type=pathlib.Path, default=None,
                         help="also write the full results as JSON to this path")
     args = parser.parse_args(argv)
+    start = time.perf_counter()
     smi = phase_device()
     results = {"device": smi, "build": phase_build()}
     results["kernels"] = phase_kernels()
@@ -4980,12 +5025,20 @@ def main(argv=None) -> int:
         for label, count in results["build"][f"{name}_hgmma"].items():
             wide.setdefault(("wide", streamed[label]), {})[
                 f"{'fp16' if fp16 else 'bf16'} {label}"] = count
+    # the f32 forward at head dims 256 and above: the cluster kernels, by mask
+    f32_fwd = results["build"]["flash_fwd_wide_f32_ptxas"]
+    cluster = {f"flash_fwd_{pair}": {f"flash_fwd_f32_cluster_kernel<{pair == 'tri'}, {rows}>"
+                                     .lower(): f32_fwd[f"fwd_{pair}_{rows}"] for rows in (64, 16)}
+               for pair in ("tri", "rect")}
     line = kernels_line(results["kernels"], paths,
                         {k: {"hgmma": v, "hgmma_fp16": hgmma16[k],
                              "hgmma_d512": wide.get(("d512", k), {}),
                              "hgmma_d576": wide.get(("d576", k), {}),
-                             "hgmma_wide": wide.get(("wide", k), {})}
+                             "hgmma_wide": wide.get(("wide", k), {}),
+                             **({"f32_cluster_kernels": cluster[k]} if k in cluster else {})}
                          for k, v in hgmma.items()})
+    results["seconds"] = time.perf_counter() - start
+    log(f"chip_smoke: every phase in {results['seconds']:.1f} s")
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=1, default=str))

@@ -2,7 +2,7 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|bwd_wide_f32 [--json PATH]
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_wide_f32 [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). The families:
@@ -10,6 +10,10 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
 - ``fwd_rect``: the general forward (``flash_fwd_rect``) at every bf16 case
   of this tree's ``chip_smoke.KERNEL_CASES``, held to ``attention_plain``
   (O 2e-2, lse 1e-3);
+- ``fwd_f32``: both f32 forwards (``flash_fwd_tri``, ``flash_fwd_rect``) at
+  every f32 case of head dim 256 and above (padded) in this tree's
+  ``chip_smoke`` forward tables, held to ``attention_plain`` (O 1e-4, lse
+  1e-3);
 - ``bwd_wide_f32``: the f32 D-streaming backward pair (head dims above 576)
   at every f32 case of this tree's ``chip_smoke.WIDE_BWD_CASES``, its dQ, dK
   and dV held to ``attention_bwd_plain`` (1e-4 absolute), each kernel timed.
@@ -48,34 +52,42 @@ def _smoke():
     return module
 
 
+def _fwd(smoke, cases, tol: float) -> dict:
+    """Forward ``cases`` (rows of this tree's chip_smoke forward tables)
+    held to attention_plain (O ``tol``, lse ``LSE_TOL``): {label: {ok,
+    errs, ms}}."""
+    import torch
+
+    results = {}
+    for case in cases:
+        q, k, v, seg = smoke._case_inputs(case, torch.Generator(device="cuda").manual_seed(SEED))
+        kern, plain, _ = smoke._fwd_setup(case, q, k, v, seg)
+        _, _, o_err, lse_err = smoke._fwd_errors(kern, plain, case["q"][3])
+        ok = o_err <= tol and lse_err <= smoke.LSE_TOL
+        results[case["label"]] = {
+            "ok": ok, "errs": [o_err, lse_err],
+            "ms": smoke.device_ms(kern, case.get("inner", 20)) if ok else None}
+    return results
+
+
 def _fwd_rect(smoke) -> dict:
-    """The bf16 general forward's cases: {label: {ok, errs, ms}}."""
+    """The bf16 general forward's cases of ``KERNEL_CASES``."""
+    import torch
+
+    return _fwd(smoke, [c for c in smoke.KERNEL_CASES if c["kernel"] == "flash_fwd_rect"
+                        and c["dtype"] == torch.bfloat16], smoke.BF16_TOL)
+
+
+def _fwd_f32(smoke) -> dict:
+    """Both f32 forwards' cases at head dims 256 and above (padded)."""
     import torch
 
     from tpu_operator_torch.kernels import flash_fwd
 
-    results = {}
-    for case in smoke.KERNEL_CASES:
-        if case["kernel"] != "flash_fwd_rect" or case["dtype"] != torch.bfloat16:
-            continue
-        q, k, v, seg = smoke._case_inputs(case, torch.Generator(device="cuda").manual_seed(SEED))
-        _, _, h, _ = case["q"]
-        h_kv = case.get("h_kv", h)
-        masks = dict(causal=case["causal"], q_start=case.get("q_start", 0),
-                     k_start=case.get("k_start", 0), window=case.get("window"), seg=seg)
-
-        def kern():
-            return flash_fwd.flash_fwd_rect(q, k, v, h, h_kv, **masks)
-
-        out, lse = kern()
-        want, want_lse = flash_fwd.attention_plain(q, k, v, h, h_kv, **masks)
-        torch.cuda.synchronize()
-        errs = [smoke.err(out, want), smoke.err(lse, want_lse)]
-        ok = errs[0] <= smoke.BF16_TOL and errs[1] <= smoke.LSE_TOL
-        results[case["label"]] = {
-            "ok": ok, "errs": errs,
-            "ms": smoke.device_ms(kern, case.get("inner", 20)) if ok else None}
-    return results
+    tables = (smoke.KERNEL_CASES + smoke.HEAD_DIM_KERNEL_CASES + smoke.HEAD_DIM_512_KERNEL_CASES
+              + smoke.HEAD_DIM_576_KERNEL_CASES + smoke.WIDE_KERNEL_CASES)
+    return _fwd(smoke, [c for c in tables if c["dtype"] == torch.float32
+                        and flash_fwd.padded_head_dim(c["q"][3]) >= 256], smoke.F32_TOL)
 
 
 def _bwd_wide_f32(smoke) -> dict:
@@ -106,6 +118,7 @@ def _bwd_wide_f32(smoke) -> dict:
 # come from the tree under test)
 FAMILIES = {
     "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
+    "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
     "bwd_wide_f32": (_bwd_wide_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
 }
 

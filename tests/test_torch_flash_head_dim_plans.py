@@ -120,7 +120,11 @@ def test_plans_at_head_dim_256_by_hand():
         160, 160, 160, 384]  # dK/dV: two consumer warpgroups and the producer's
     assert {p[k].swizzle for k in p} == {128}
     f = _all_plans(F32, 256, None, bh=6, s=130)
-    assert f["fwd tri"].smem_bytes == 4 * ((64 + 128) * 257 + 64 * 65) + 256 == 214_272
+    # the f32 forward's cluster kernels: Q slab, two stages of K and V slabs,
+    # partial scores, P and the rows' statistics; two slab CTAs a cluster
+    assert f["fwd tri"].smem_bytes == 4 * (64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64
+                                           + 4 * 64) == 197_632
+    assert (f["fwd tri"].col_split, f["fwd tri"].cluster, f["fwd tri"].grid) == (2, 2, (3, 6))
     assert (f["dq tri"].block, f["dq tri"].grid) == (32, (5, 6))
     assert f["dq tri"].smem_bytes == 4 * (4 * 32 * 257 + 32 * 33) + 128 == 135_936
     assert (f["dkv tri"].block, f["dkv tri"].grid) == (32, (5, 3))
@@ -136,10 +140,13 @@ def test_plan_constants_match_the_cuda_sources():
     assert [flash_bwd.f32_tile(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [
         64, 64, 64, 64, 32, 16, 16]
     assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2, 2]
-    # every native head dim is dispatched in both libraries, both dtypes
+    # every native head dim is dispatched in both libraries, both dtypes (the
+    # f32 forward at 256 and above: the wide library's cluster kernels)
     for src in (fwd, bwd):
         for d in flash_fwd.NATIVE_HEAD_DIMS:
-            assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == 2, d
+            both = src is bwd or d < flash_fwd.F32_CLUSTER_MIN_D
+            assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == (
+                2 if both else 1), d
     # the CUDA-core kernels' rows: y and z slices of 65,535, no row cap
     for src in (fwd, bwd):
         assert "constexpr int kMaxGridY = 65535;" in src and "blockIdx.z * kMaxGridY" in src
@@ -272,8 +279,8 @@ def test_plans_at_head_dim_512_by_hand():
     assert [p[k].ring for k in ("dq tri", "dkv tri", "dq rect", "dkv rect")] == [32] * 4
     assert p["fwd tri"].grid == (16, 16) and p["dq tri"].grid == (16, 16)  # x, y; z = 2
     f = _all_plans(F32, 512, None, bh=6, s=130)
-    assert f["fwd tri"].smem_bytes == 4 * ((64 + 32) * 513 + 64 * 17) + 64 == 201_408
-    assert (f["fwd tri"].block_m, f["fwd tri"].col_split) == (64, 1)
+    assert f["fwd tri"].smem_bytes == f["fwd rect"].smem_bytes == 197_632
+    assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].cluster) == (64, 4, 4)
     assert (f["dq tri"].block, f["dq tri"].grid) == (16, (9, 6))
     assert f["dq tri"].smem_bytes == 4 * (4 * 16 * 513 + 16 * 17) + 64 == 132_480
     assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
@@ -290,19 +297,24 @@ def test_plan_constants_at_512_match_the_cuda_sources():
     for src in (fwd, bwd):
         assert "constexpr int stages() { return D > 256 ? 1 : kStages; }" in src
         assert "constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }" in src
-        # the D 512 library dispatches D 512 alone, the others 16-256
-        assert src.count("#ifdef FLASH_HEAD_DIM_512") == 2
+    # the D 512 library dispatches D 512 alone, the others 16-256 (the f32
+    # forward: 16-128, its cluster kernels from 256 on in the wide library)
+    assert bwd.count("#ifdef FLASH_HEAD_DIM_512") == 2 and fwd.count("#ifdef FLASH_HEAD_DIM_512") == 1
+    assert "#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)" in fwd
     assert "constexpr int ring_rows() { return D > 256 ? 32 : kTile; }" in bwd
-    assert "constexpr int f32_keys(int d) { return d > 256 ? 16 : kBN; }" in fwd
+    assert "f32_keys" not in fwd
     assert "m64n32k16" in header
     dims = flash_fwd.NATIVE_HEAD_DIMS
     assert [flash_fwd.ring_stages(d) for d in dims] == [2, 2, 2, 2, 2, 1, 1]
     assert [flash_fwd.col_split(d) for d in dims] == [1, 1, 1, 1, 1, 2, 3]
-    assert [flash_fwd.f32_keys(d) for d in dims] == [64, 64, 64, 64, 64, 16, 16]
+    # the f32 forward's slab CTAs a q tile (one cluster) at 256, 512 and 576
+    assert [flash_fwd.tri_plan(F32, 2, 100, d, H100_SMS).col_split for d in dims] == [
+        1, 1, 1, 1, 2, 4, 5]
     assert [flash_bwd.ring_rows(d) for d in dims] == [64, 64, 64, 64, 64, 32, 32]
     assert flash_fwd.library_name("flash_fwd", BF16, 512) == "flash_fwd_d512"
     assert flash_fwd.library_name("flash_bwd", torch.float16, 512) == "flash_bwd_f16_d512"
     assert flash_fwd.library_name("flash_bwd", F32, 256) == "flash_bwd"
+    assert flash_fwd.library_name("flash_fwd", F32, 256) == "flash_fwd_wide"
 
 
 def _live(s, causal, window, q_rows, k_rows):
@@ -431,8 +443,10 @@ def test_plans_at_head_dim_576_by_hand():
     # 640 columns: Q, K and V tiles alone pass a block's shared memory
     assert 3 * 64 * 640 * 2 == 245_760 > MAX_SMEM
     f = _all_plans(F32, 576, None, bh=6, s=130)
-    assert f["fwd tri"].smem_bytes == 4 * ((64 + 32) * 577 + 64 * 17) + 64 == 225_984 <= MAX_SMEM
-    assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].grid) == (64, 1, (3, 6))
+    assert f["fwd tri"].smem_bytes == 197_632 <= MAX_SMEM
+    # five 128-column slab CTAs a q tile in one cluster, the last from 448
+    assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].grid) == (64, 5, (3, 6))
+    assert f["fwd tri"].cluster == 5
     assert (f["dq tri"].block, f["dq tri"].grid) == (16, (9, 6))
     assert f["dq tri"].smem_bytes == 4 * (4 * 16 * 577 + 16 * 17) + 64 == 148_864
     assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
@@ -471,11 +485,12 @@ def test_dkv_columns_are_whole_boxes():
 def test_plan_constants_at_576_match_the_cuda_sources():
     fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
     header = (KERNELS / "hopper.cuh").read_text()
-    for src in (fwd, bwd):
-        # the D 576 library dispatches D 576 alone
-        assert src.count("#elif defined(FLASH_HEAD_DIM_576)") == 2
+    # the D 576 library dispatches D 576 alone (the f32 forward: none)
+    assert bwd.count("#elif defined(FLASH_HEAD_DIM_576)") == 2
+    assert fwd.count("#elif defined(FLASH_HEAD_DIM_576)") == 1
     for kind in ("dispatch_tc", "launch"):
-        assert len(re.findall(rf"case 576: return {kind}<", fwd)) == 1
+        # the f32 forward at 576: the wide library's cluster kernels
+        assert len(re.findall(rf"case 576: return {kind}<", fwd)) == (kind == "dispatch_tc")
         assert len(re.findall(rf"case 576: return {kind}<", bwd)) == 1
     # the CTA's columns in whole boxes, the first warpgroup owning the most;
     # every warpgroup's products DC wide (the last one's a box early at 576)
@@ -490,7 +505,8 @@ def test_plan_constants_at_576_match_the_cuda_sources():
         assert build.VARIANTS[f"{src}_d576"] == (src, ("-DFLASH_HEAD_DIM_576",))
         assert build.VARIANTS[f"{src}_f16_d576"] == (src, ("-DFLASH_ELEM_F16",
                                                            "-DFLASH_HEAD_DIM_576"))
-        for dtype, name in ((BF16, f"{src}_d576"), (F32, f"{src}_d576"),
+        f32 = "flash_fwd_wide" if src == "flash_fwd" else f"{src}_d576"
+        for dtype, name in ((BF16, f"{src}_d576"), (F32, f32),
                             (torch.float16, f"{src}_f16_d576")):
             assert flash_fwd.library_name(src, dtype, 576) == name
 

@@ -67,9 +67,9 @@ def test_the_slab_count_is_the_head_dim_over_the_slab(dtype, d):
         owned = collections.Counter(c for z, s0 in enumerate(starts)
                                     for c in range(max(s0, z * plan.slab), s0 + plan.slab))
         assert set(owned) == set(range(d)) and set(owned.values()) == {1}, name
-        # 16-bit: the chunk ring's 4 stages; f32: the backward pair's 2-stage
-        # slab ring, the forward none
-        assert plan.stages == (4 if dtype != F32 else 2 if name[0] == "d" else 0), name
+        # 16-bit: the chunk ring's 4 stages; f32: the 2-stage slab ring of
+        # the cluster kernels (forward and backward)
+        assert plan.stages == (4 if dtype != F32 else 2), name
 
 
 def test_wide_plans_by_hand():
@@ -96,7 +96,11 @@ def test_wide_plans_by_hand():
     assert p["dkv tri"].grid == (8, 16)
     assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (8, 16)
     f = _wide_plans(F32, 1024, bh=6, bh_kv=3, s=130)
-    assert f["fwd tri"].smem_bytes == 4 * (2 * 64 * 65 + 64 * 257 + 64 * 65) + 256 == 115_968
+    # f32 forward: the resident 64 x 128 Q slab, 2 stages of K and V slabs,
+    # the partial scores and P (64 x 64 each), a float4 of statistics a row
+    assert f["fwd tri"].smem_bytes == 4 * (64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64
+                                           + 4 * 64) == 197_632
+    assert f["fwd rect"].smem_bytes == 197_632
     # f32 backward: two resident 64 x 128 slabs, 2 stages of two streamed
     # slabs, the exchange's partial S and dP (then P and dS) 64 x 64 tiles,
     # and dQ's 64 rows' lse and delta; the general pair the same (every warp
@@ -105,7 +109,7 @@ def test_wide_plans_by_hand():
                                           + 2 * 64) == 229_888
     assert f["dkv tri"].smem_bytes == 4 * (2 * 64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64) == 229_376
     assert f["dq rect"].smem_bytes == 229_888 and f["dkv rect"].smem_bytes == 229_376
-    assert (f["fwd tri"].grid, f["fwd tri"].col_split) == ((3, 6), 4)
+    assert (f["fwd tri"].grid, f["fwd tri"].col_split, f["fwd tri"].cluster) == ((3, 6), 8, 8)
     assert (f["dq tri"].grid, f["dq tri"].col_split) == ((3, 6), 8)
     assert (f["dkv tri"].grid, f["dkv tri"].col_split) == ((3, 3), 8)
     assert (f["dq rect"].grid, f["dkv rect"].grid) == ((3, 6), (3, 3))
@@ -243,23 +247,27 @@ def test_wide_plan_constants_match_the_cuda_sources():
     assert f"constexpr int kWideSlab = {flash_fwd.WIDE_SLAB};" in fwd
     assert f"constexpr int kWideRing = {flash_fwd.WIDE_RING};" in fwd
     assert f"constexpr int kWideVStages = {flash_fwd.WIDE_V_STAGES};" in fwd
-    assert f"constexpr int kF32WideChunk = {flash_fwd.F32_WIDE_CHUNK};" in fwd
-    assert f"constexpr int kF32WideSlab = {flash_fwd.F32_WIDE_SLAB};" in fwd
     assert f"constexpr int kWideDqSlab = {flash_bwd.WIDE_DQ_SLAB};" in bwd
     assert f"constexpr int kWideDkvSlab = {flash_bwd.WIDE_DKV_SLAB};" in bwd
     assert f"constexpr int kWideRing = {flash_bwd.WIDE_BWD_RING};" in bwd
     assert f"constexpr int kWideSlabStages = {flash_bwd.WIDE_SLAB_STAGES};" in bwd
-    assert f"constexpr int kF32WideChunk = {flash_bwd.F32_WIDE_BWD_CHUNK};" in bwd
-    assert f"constexpr int kF32WideSlab = {flash_bwd.F32_WIDE_BWD_SLAB};" in bwd
     assert ("constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);" in bwd
             and flash_bwd.WIDE_ID_BYTES == flash_bwd.WIDE_SLAB_STAGES * ((64 + 2) * 4 + 2 * 8))
-    assert f"constexpr int kF32WideStages = {flash_bwd.F32_WIDE_BWD_STAGES};" in bwd
-    assert f"constexpr int kF32WideCluster = {flash_bwd.F32_WIDE_BWD_CLUSTER};" in bwd
-    # the f32 pair's geometry and columns, as f32_wide_geometry and
+    # the f32 cluster kernels' layout, shared by both sources (the forward
+    # at 256 and above, the backward pair above 576)
+    cluster = (KERNELS / "flash_cluster.cuh").read_text()
+    for name, value in (("Tile", flash_fwd.F32_TILE), ("Chunk", flash_fwd.F32_CHUNK),
+                        ("Slab", flash_fwd.F32_SLAB), ("Stages", flash_fwd.F32_STAGES),
+                        ("Cluster", flash_fwd.F32_CLUSTER)):
+        assert f"constexpr int kF32Wide{name} = {value};" in cluster, name
+        assert f"constexpr int kF32Wide{name} =" not in fwd + bwd, name
+    # the f32 kernels' geometry and columns, as f32_wide_geometry and
     # f32_wide_columns model them
-    assert "g((n + kF32WideCluster - 1) / kF32WideCluster),\n        c((n + g - 1) / g) {}" in bwd
-    assert "return c0 < cl0 ? c0 : c0 + (cl1 - cl0);" in bwd
-    assert "cudaLaunchAttributeClusterDimension" in bwd and "cudaLaunchKernelEx" in bwd
+    assert "g((n + kF32WideCluster - 1) / kF32WideCluster),\n        c((n + g - 1) / g) {}" in cluster
+    assert "return c0 < cl0 ? c0 : c0 + (cl1 - cl0);" in cluster
+    assert "cudaLaunchAttributeClusterDimension" in cluster and "cudaLaunchKernelEx" in cluster
+    for src in (fwd, bwd):
+        assert src.count('#include "flash_cluster.cuh"') == 1 and "launch_clusters(" in src
     # the general pair's entries reach the wide kernels: no refusal left
     for kernel in ("dq", "dkv"):
         for pair in ("tri", "rect"):
@@ -290,7 +298,7 @@ def test_the_f32_pair_forms_each_score_once_per_cluster(d):
     grid's x and stays within the portable 8, and S and dP are formed once
     per tile pair up to 8 slabs (d 1024), g = ceil(slabs / 8) times above."""
     width = flash_fwd.padded_head_dim(d)
-    n, g, c = flash_bwd.f32_wide_geometry(width)
+    n, g, c = flash_fwd.f32_wide_geometry(width)
     written = collections.Counter()
     for plan in flash_bwd.wide_bwd_plans(F32, 8, 4, 300, width) + flash_bwd.wide_bwd_plans(
             F32, 8, 4, 300, width, True, 70, rect=True):
@@ -301,7 +309,7 @@ def test_the_f32_pair_forms_each_score_once_per_cluster(d):
     for first in range(0, g * c, c):
         summed = collections.Counter()
         for z in range(first, first + c):
-            own, cols = flash_bwd.f32_wide_columns(width, z)
+            own, cols = flash_fwd.f32_wide_columns(width, z)
             written.update(own)
             summed.update(cols)
             assert set(own) <= set(cols) and (z < n) == bool(own)
@@ -572,7 +580,7 @@ def test_phase_2_counts_the_wide_instantiations():
                                      ) == "dkv_rect_wide"
     assert chip_smoke.wide_label("flash_bwd_dkv_rect_wide_f32_kernelE6Paramsi") is None
     # the f32 kernels and the other dtype's instantiations are not counted
-    assert chip_smoke.wide_label("flash_fwd_wide_f32_kernelILb1EEv6Paramsi") is None
+    assert chip_smoke.wide_label("flash_fwd_f32_cluster_kernelILb1ELi64EEv6Paramsi") is None
     assert chip_smoke.wide_label("flash_bwd_dq_tri_wide_kernelI6__halfEEv6Params") is None
     assert chip_smoke.wide_label("flash_fwd_tri_kernelI13__nv_bfloat16Li576ELi1EE") is None
 

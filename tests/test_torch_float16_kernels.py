@@ -121,9 +121,10 @@ def test_each_dtype_loads_its_library(monkeypatch):
         for dtype in (F32, BF16, F16, BF16):
             flash_fwd._lib(dtype, 512)
             flash_bwd._lib(dtype, 512)
-        # and head dim 512's libraries (f32 in the bf16 one) only at 512
-        assert loaded[4:] == ["flash_fwd_d512", "flash_bwd_d512", "flash_fwd_f16_d512",
-                              "flash_bwd_f16_d512"]
+        # and head dim 512's libraries (the f32 backward in the bf16 one, the
+        # f32 forward in the wide library's cluster kernels) only at 512
+        assert loaded[4:] == ["flash_fwd_wide", "flash_bwd_d512", "flash_fwd_d512",
+                              "flash_fwd_f16_d512", "flash_bwd_f16_d512"]
     finally:
         flash_fwd._load.cache_clear()
         flash_bwd._load.cache_clear()

@@ -232,6 +232,7 @@
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, the tensor-map encoder
 #ifdef FLASH_HEAD_DIM_WIDE
 #include "flash_wide.cuh"  // the D-streaming kernels' boxes, slabs and maps
+#include "flash_cluster.cuh"  // the f32 kernels' slabs, clusters and swizzled tiles
 #endif
 
 namespace {
@@ -1215,11 +1216,7 @@ constexpr int kWideDqSlab = 256;     // columns of dQ a 16-bit CTA holds
 constexpr int kWideDkvSlab = 128;    // columns of dK and of dV a 16-bit CTA holds
 constexpr int kWideRing = 4;         // stages of the chunk ring (four boxes a stage)
 constexpr int kWideSlabStages = 2;   // stages of the slab ring
-constexpr int kF32WideTile = 64;     // q rows and keys of an f32 tile
-constexpr int kF32WideChunk = 64;    // columns of an f32 foreign chunk
-constexpr int kF32WideSlab = 128;    // columns of each gradient an f32 CTA holds
-constexpr int kF32WideStages = 2;    // stages of the f32 streamed ring
-constexpr int kF32WideCluster = 8;   // the most CTAs of an f32 cluster (the portable limit)
+// the f32 pair's tiles, slabs and clusters: flash_cluster.cuh
 
 // the general pair's id ring: per stage the ring tile's 64 segment ids and
 // their min and max (int32), and its two barriers
@@ -1830,89 +1827,6 @@ __global__ void __launch_bounds__(128 + 32, 1)
 }
 
 #ifndef FLASH_ELEM_F16  // the f32 kernels live in the bf16 library (kWithF32)
-// How the CTAs of one tile split the head dim d (flash_bwd.py::
-// f32_wide_geometry): n slabs of kF32WideSlab columns of the gradients, the
-// last one starting at d - kF32WideSlab, in g clusters of c CTAs (c at most
-// kF32WideCluster: one cluster when n <= 8); the grid holds g * c CTAs a tile,
-// and those past the n-th write no column.
-struct F32WideGeo {
-  int n, g, c;
-  __host__ __device__ explicit F32WideGeo(int d)
-      : n(wide_slabs(d, kF32WideSlab)),
-        g((n + kF32WideCluster - 1) / kF32WideCluster),
-        c((n + g - 1) / g) {}
-  __host__ __device__ int ctas() const { return g * c; }
-};
-
-// The columns of CTA z of a tile. It writes [own0, own1) (its slab's own
-// columns, none past the n-th slab) from the slab at g0, and sums into the
-// partial S and dP its own columns and every c-th of the 64-column chunks
-// its cluster owns none of (the foreign chunks: none when n <= 8), so the c
-// CTAs of a cluster sum each column of d once.
-struct F32WideCols {
-  int g0, own0, own1;  // the slab's first column and the columns it writes
-  int cl0, cl1;        // the columns the cluster's CTAs write
-  int rank, nf;        // the rank in the cluster and the count of foreign chunks
-  __device__ F32WideCols(const F32WideGeo& geo, int z, int d) {
-    rank = z % geo.c;
-    own0 = min(z * kF32WideSlab, d);
-    own1 = min(own0 + kF32WideSlab, d);
-    g0 = min(z * kF32WideSlab, d - kF32WideSlab);
-    cl0 = (z - rank) * kF32WideSlab;
-    cl1 = min(cl0 + geo.c * kF32WideSlab, d);
-    const int foreign = (d - (cl1 - cl0)) / kF32WideChunk;
-    nf = foreign > rank ? (foreign - rank - 1) / geo.c + 1 : 0;
-  }
-  __device__ bool owns() const { return own1 > own0; }
-  // per tile pair: the foreign chunks, then the main item (the slabs)
-  __device__ int items() const { return nf + (owns() ? 1 : 0); }
-  // the first column of the CTA's k-th foreign chunk
-  __device__ int foreign(int k, int c) const {
-    const int c0 = (rank + k * c) * kF32WideChunk;
-    return c0 < cl0 ? c0 : c0 + (cl1 - cl0);
-  }
-};
-
-// A [64][W] f32 tile in shared memory, float4 f of row r stored at float4
-// f ^ ((r >> 2) & 7) of the row: the rows 4t .. 4t + 3 read by a warp's
-// four (or eight) values of t in the score loop, and the eight float4s of
-// one row read in the gradient loop, fall in distinct banks.
-template <int W>
-__device__ __forceinline__ int swz(int r, int f) {
-  return r * W + ((f ^ ((r >> 2) & 7)) << 2);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float4 scale4(float4 v, float m) {
-  return make_float4(v.x * m, v.y * m, v.z * m, v.w * m);
-}
-
-// Rows [r0, r0 + 64) and columns [c0, c0 + W) of a (s, d) f32 matrix into a
-// swizzled [64][W] tile by 16-byte cp.async (rows past s zero-filled).
-template <int W>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int s, int d,
-                                          int c0) {
-  constexpr int F = W / 4;
-  // recomputed at every call: hoisted out of the walk, the addresses of all
-  // four tile shapes held 40-50 registers and spilled dK/dV (255 registers)
-  int tid = threadIdx.x;
-  asm volatile("" : "+r"(tid));
-#pragma unroll
-  for (int k = 0; k < kF32WideTile * F / kThreads; ++k) {
-    const int e = tid + k * kThreads;
-    const int r = e / F, f = e % F;
-    const bool in = r0 + r < s;
-    cp_async16(dst + swz<W>(r, f), src + static_cast<size_t>(in ? r0 + r : 0) * d + c0 + 4 * f,
-               in);
-  }
-}
-
 // The partial S and dP of a thread's 4 x 4 block over the float4 columns
 // [f0, f1): sc[a][b] += A(4 ta + a) . B(4 tb + b) and dp[a][b] += C(4 ta + a)
 // . E(4 tb + b), each an f32 FMA chain in column order, rows of swizzled
@@ -2051,31 +1965,6 @@ __device__ __forceinline__ void slab_product(float (&acc)[4][8], const float* X,
       acc[a][7] = fmaf(xa, y1.w, acc[a][7]);
     }
   }
-}
-
-// Rows 4 ta + a of a thread's 4 x 8 block into a (s, d) f32 matrix from row
-// r0 and the slab at g0: its owned columns, rows inside s.
-__device__ __forceinline__ void store_block(float* dst, const float (&acc)[4][8], int r0, int s,
-                                            int d, const F32WideCols& cols, int ta, int tb) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + 4 * ta + a;
-    if (r >= s) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = cols.g0 + 4 * (tb + 16 * h);
-      if (col < cols.own0 || col >= cols.own1) continue;
-      st4(dst + static_cast<size_t>(r) * d + col,
-          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
-    }
-  }
-}
-
-// The thread's (ta, tb): a warp covers four consecutive ta and eight
-// consecutive tb, so each float4 load of the score loop is one wavefront.
-__device__ __forceinline__ int2 f32_wide_thread() {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return make_int2((lane >> 3) | ((warp >> 1) << 2), (lane & 7) | ((warp & 1) << 3));
 }
 
 // The f32 D-streaming dQ on the CUDA cores, in clusters (see the note on
@@ -2481,8 +2370,6 @@ bool valid(const Params& p, int rows) {
 }
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-constexpr int kNoCluster = -3;  // no cluster of the plan's CTAs fits on the card
-
 using F32WideKernel = void (*)(Params, int);
 
 template <Kind K>
@@ -2493,66 +2380,30 @@ F32WideKernel f32_wide_kernel() {
                         : flash_bwd_dkv_rect_wide_f32_kernel;
 }
 
-// The f32 wide kernel K's launch at head dim d: grid (tiles x g c, rows, z
-// slices), clusters of c CTAs on x, 256 threads, the plan's shared memory.
+// K's answers of cudaOccupancyMaxActiveClusters (flash_cluster.cuh)
 template <Kind K>
-cudaLaunchConfig_t f32_wide_config(int s, int rows, int d, int smem, cudaStream_t stream,
-                                   cudaLaunchAttribute* cluster) {
-  const F32WideGeo geo(d);
-  cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = geo.c;
-  cluster->val.clusterDim.y = 1;
-  cluster->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((s + kF32WideTile - 1) / kF32WideTile * geo.ctas(),
-                     rows < kMaxGridY ? rows : kMaxGridY, (rows + kMaxGridY - 1) / kMaxGridY);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  return cfg;
+ClusterCounts& f32_wide_counts() {
+  static ClusterCounts counts;
+  return counts;
 }
 
 // How many clusters of K's at head dim d the current card holds at once
-// (cudaOccupancyMaxActiveClusters at the plan's shared memory), asked once
-// per card (the first kCachedCards), kernel and cluster size; a negative
-// CUDA error code when the query fails.
-constexpr int kCachedCards = 16;
-
+// (at the plan's shared memory and cluster size); a negative CUDA error
+// code when the query fails.
 template <Kind K>
 int f32_wide_clusters(int d) {
-  static int known[kCachedCards][kF32WideCluster + 1] = {};
-  int card = 0;
-  cudaError_t err = cudaGetDevice(&card);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int* const slot = card < kCachedCards ? &known[card][F32WideGeo(d).c] : nullptr;
-  if (slot != nullptr && *slot != 0) return *slot;
-  constexpr int smem = f32_wide_smem_bytes<is_dq(K)>();
-  err = cudaFuncSetAttribute(f32_wide_kernel<K>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = f32_wide_config<K>(kF32WideTile, 1, d, smem, nullptr, &cluster);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, f32_wide_kernel<K>(), &cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (slot != nullptr) *slot = n;
-  return n;
+  return active_clusters(f32_wide_kernel<K>(), F32WideGeo(d).c, f32_wide_smem_bytes<is_dq(K)>(),
+                         f32_wide_counts<K>());
 }
 
+// The f32 wide kernel K at head dim d: grid (tiles x g c, rows, z slices),
+// clusters of c CTAs on x.
 template <Kind K>
 int launch_f32_wide(const Params& p, int rows, int d, int smem, cudaStream_t stream) {
-  const cudaError_t set = cudaFuncSetAttribute(
-      f32_wide_kernel<K>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int clusters = f32_wide_clusters<K>(d);
-  if (clusters < 0) return -clusters;
-  if (clusters == 0) return kNoCluster;
-  cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = f32_wide_config<K>(p.s, rows, d, smem, stream, &cluster);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, f32_wide_kernel<K>(), p, d);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  const F32WideGeo geo(d);
+  return launch_clusters(f32_wide_kernel<K>(),
+                         cluster_grid((p.s + kF32WideTile - 1) / kF32WideTile, geo.ctas(), rows),
+                         geo.c, smem, stream, f32_wide_counts<K>(), p, d);
 }
 #endif
 

@@ -49,8 +49,12 @@ from tpu_operator_torch.kernels.flash_fwd import (
     _raise_on,
     _sm_count,
     _tile_height,
+    F32_SLAB,
+    F32_STAGES,
     WIDE_BOX_BYTES,
+    apart,
     check_block_m,
+    f32_wide_geometry,
     is_wide,
     keep_mask,
     kv_row,
@@ -240,56 +244,17 @@ class BwdPlan:
         return out
 
 
-def apart(a: Sequence[int], b: Sequence[int]) -> bool:
-    """Whether two tiles' segment ids (each tile's positions inside s) are
-    one document each, and different ones: the pair holds no live (q, k)
-    pair, and the kernels skip it (``apart`` in flash_bwd.cu)."""
-    return len(set(a)) == 1 and len(set(b)) == 1 and set(a) != set(b)
-
-
 # the D-streaming pairs' layout above 576 (flash_bwd.cu, built with
 # -DFLASH_HEAD_DIM_WIDE)
 WIDE_DQ_SLAB = 256     # columns of dQ a 16-bit CTA holds (kWideDqSlab)
 WIDE_DKV_SLAB = 128    # columns of dK and of dV a 16-bit CTA holds (kWideDkvSlab)
 WIDE_BWD_RING = 4      # stages of the chunk ring, four boxes each (kWideRing)
 WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
-F32_WIDE_BWD_CHUNK = 64   # columns of an f32 foreign chunk (kF32WideChunk)
-F32_WIDE_BWD_SLAB = 128   # columns of each gradient an f32 CTA holds (kF32WideSlab)
-F32_WIDE_BWD_STAGES = 2   # stages of the f32 streamed ring (kF32WideStages)
-F32_WIDE_BWD_CLUSTER = 8  # the most CTAs of an f32 cluster, the portable limit (kF32WideCluster)
+# the f32 pair's tiles, slabs and clusters: flash_fwd.F32_* and f32_wide_geometry
+# (flash_cluster.cuh)
 # the general pair's id ring: per slab stage the ring tile's 64 ids, their min
 # and max, and two barriers (kWideIdBytes)
 WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
-
-
-def f32_wide_geometry(d: int) -> Tuple[int, int, int]:
-    """(n, g, c) of the f32 D-streaming pair at head dim ``d`` (flash_bwd.cu's
-    ``F32WideGeo``): n slabs of ``F32_WIDE_BWD_SLAB`` columns of the
-    gradients, the last starting at d - slab, in g clusters of c CTAs a
-    tile (c at most ``F32_WIDE_BWD_CLUSTER``: one cluster up to n = 8, d
-    1024); the grid holds g·c CTAs a tile, those past the n-th writing
-    nothing. Each cluster forms S and dP once, so they are formed g times
-    per tile pair."""
-    n = wide_slabs(d, F32_WIDE_BWD_SLAB)
-    g = -(-n // F32_WIDE_BWD_CLUSTER)
-    return n, g, -(-n // g)
-
-
-def f32_wide_columns(d: int, z: int) -> Tuple[range, List[int]]:
-    """The columns CTA ``z`` of a tile writes (its slab's own: the write
-    rule, none past the n-th slab) and the columns it sums into its partial
-    S and dP (flash_bwd.cu's ``F32WideCols``): its own, and every c-th of
-    the 64-column chunks its cluster writes none of, from its rank on; so
-    the CTAs of one cluster sum each column of ``d`` once."""
-    _, _, c = f32_wide_geometry(d)
-    slab, chunk = F32_WIDE_BWD_SLAB, F32_WIDE_BWD_CHUNK
-    rank = z % c
-    own = range(min(z * slab, d), min(z * slab + slab, d))
-    first = (z - rank) * slab
-    cluster = range(first, min(first + c * slab, d))
-    foreign = [c0 for c0 in range(0, d, chunk) if c0 not in cluster]
-    summed = list(own) + [col for c0 in foreign[rank::c] for col in range(c0, c0 + chunk)]
-    return own, summed
 
 
 def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
@@ -311,7 +276,7 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     more stages; dQ launches heaviest first under a plain causal mask, else
     in order, dK/dV in order; both form S and dP in every slab's CTA
     (``redundancy`` = ``col_split``). f32: the CUDA-core pair with 64-row
-    tiles, ``F32_WIDE_BWD_SLAB``-column slabs and the slab CTAs of a tile
+    tiles, ``F32_SLAB``-column slabs and the slab CTAs of a tile
     in thread-block clusters of ``cluster`` (:func:`f32_wide_geometry`),
     which add their partial S and dP through distributed shared memory:
     ``redundancy`` g, 1 up to d 1024. Per CTA: two resident slabs, the
@@ -322,7 +287,7 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     masks = dict(causal=causal, window=window) if rect else {}
     if dtype == torch.float32:
         _, g, c = f32_wide_geometry(d)
-        slab, stages = F32_WIDE_BWD_SLAB, F32_WIDE_BWD_STAGES
+        slab, stages = F32_SLAB, F32_STAGES
         base = 2 * TILE * slab + stages * 2 * TILE * slab + 2 * TILE * TILE
         geometry = dict(col_split=g * c, slab=slab, stages=stages, cluster=c)
         dq = BwdPlan("dq", TILE, 256, (tiles, bh), 4 * (base + 2 * TILE), 0, **geometry, **masks)

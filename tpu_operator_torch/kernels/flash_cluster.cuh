@@ -1,0 +1,221 @@
+// Building blocks of the f32 flash kernels that run in thread-block
+// clusters on the CUDA cores, shared by flash_fwd.cu (both forwards at head
+// dims 256 and above) and flash_bwd.cu (both backward pairs above 576) and
+// included by them only when built with -DFLASH_HEAD_DIM_WIDE
+// (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
+// ones, kWithF32).
+//
+// A head dim d splits into n = ceil(d / 128) slabs of kF32WideSlab columns,
+// the last one starting at d - 128 (it overlaps the one before it where 128
+// does not divide d). The n slab CTAs of a tile are one thread-block cluster
+// (cudaLaunchKernelEx with a cluster dimension on the grid's x) of up to
+// kF32WideCluster = 8, the portable size; above 8 slabs a tile has g =
+// ceil(n / 8) clusters of c = ceil(n / g) CTAs (those past the n-th write
+// nothing), each cluster also summing the columns its slabs do not own in
+// 64-column foreign chunks spread over its CTAs (F32WideCols). Each CTA sums
+// a partial score tile over the columns it owns, and the cluster adds the
+// partials through distributed shared memory in rank order (the same bits
+// every run). f32 tiles in shared memory are [rows][W] with their float4
+// columns XOR-swizzled by row (swz) and arrive by 16-byte cp.async
+// (load_tile); products are register blocked (f32_wide_thread: a warp
+// covers four row blocks and eight column blocks, so each float4 load is one
+// wavefront). The host side launches a cluster kernel after asking
+// cudaOccupancyMaxActiveClusters whether its cluster fits at its shared
+// memory (once per card, kernel and cluster size): none is kNoCluster.
+
+#pragma once
+
+#include "flash_wide.cuh"  // wide_slabs
+
+namespace hopper {
+
+constexpr int kF32WideTile = 64;     // q rows and keys of an f32 tile
+constexpr int kF32WideChunk = 64;    // columns of an f32 foreign chunk
+constexpr int kF32WideSlab = 128;    // columns of each output an f32 CTA holds
+constexpr int kF32WideStages = 2;    // stages of the f32 streamed ring
+constexpr int kF32WideCluster = 8;   // the most CTAs of an f32 cluster (the portable limit)
+constexpr int kF32Threads = 256;     // threads of an f32 cluster CTA
+constexpr int kNoCluster = -3;       // no cluster of the plan's CTAs fits on the card
+
+// How the CTAs of one tile split the head dim d (flash_fwd.py::
+// f32_wide_geometry): n slabs of kF32WideSlab columns, the last one starting
+// at d - kF32WideSlab, in g clusters of c CTAs (c at most kF32WideCluster:
+// one cluster when n <= 8); the grid holds g * c CTAs a tile, and those past
+// the n-th write no column.
+struct F32WideGeo {
+  int n, g, c;
+  __host__ __device__ explicit F32WideGeo(int d)
+      : n(wide_slabs(d, kF32WideSlab)),
+        g((n + kF32WideCluster - 1) / kF32WideCluster),
+        c((n + g - 1) / g) {}
+  __host__ __device__ int ctas() const { return g * c; }
+};
+
+// The columns of CTA z of a tile. It writes [own0, own1) (its slab's own
+// columns, none past the n-th slab) from the slab at g0, and sums into its
+// partial scores its own columns and every c-th of the 64-column chunks its
+// cluster owns none of (the foreign chunks: none when n <= 8), so the c
+// CTAs of a cluster sum each column of d once.
+struct F32WideCols {
+  int g0, own0, own1;  // the slab's first column and the columns it writes
+  int cl0, cl1;        // the columns the cluster's CTAs write
+  int rank, nf;        // the rank in the cluster and the count of foreign chunks
+  __device__ F32WideCols(const F32WideGeo& geo, int z, int d) {
+    rank = z % geo.c;
+    own0 = min(z * kF32WideSlab, d);
+    own1 = min(own0 + kF32WideSlab, d);
+    g0 = min(z * kF32WideSlab, d - kF32WideSlab);
+    cl0 = (z - rank) * kF32WideSlab;
+    cl1 = min(cl0 + geo.c * kF32WideSlab, d);
+    const int foreign = (d - (cl1 - cl0)) / kF32WideChunk;
+    nf = foreign > rank ? (foreign - rank - 1) / geo.c + 1 : 0;
+  }
+  __device__ bool owns() const { return own1 > own0; }
+  // per tile pair: the foreign chunks, then the main item (the slabs)
+  __device__ int items() const { return nf + (owns() ? 1 : 0); }
+  // the first column of the CTA's k-th foreign chunk
+  __device__ int foreign(int k, int c) const {
+    const int c0 = (rank + k * c) * kF32WideChunk;
+    return c0 < cl0 ? c0 : c0 + (cl1 - cl0);
+  }
+};
+
+// A [rows][W] f32 tile in shared memory, float4 f of row r stored at float4
+// f ^ ((r >> 2) & 7) of the row: the rows 4t .. 4t + 3 read by a warp's
+// four (or eight) values of t in the score loop, and the eight float4s of
+// one row read in the output loop, fall in distinct banks.
+template <int W>
+__device__ __forceinline__ int swz(int r, int f) {
+  return r * W + ((f ^ ((r >> 2) & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float4 scale4(float4 v, float m) {
+  return make_float4(v.x * m, v.y * m, v.z * m, v.w * m);
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + W) of an (s, d) f32 matrix into a
+// swizzled [R][W] tile by 16-byte cp.async (rows past s zero-filled).
+template <int W, int R = kF32WideTile>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int s, int d,
+                                          int c0) {
+  constexpr int F = W / 4;
+  static_assert(R * F % kF32Threads == 0, "every thread loads as many float4s");
+  // recomputed at every call: hoisted out of the walk, the addresses of all
+  // four tile shapes held 40-50 registers and spilled dK/dV (255 registers)
+  int tid = threadIdx.x;
+  asm volatile("" : "+r"(tid));
+#pragma unroll
+  for (int k = 0; k < R * F / kF32Threads; ++k) {
+    const int e = tid + k * kF32Threads;
+    const int r = e / F, f = e % F;
+    const bool in = r0 + r < s;
+    cp_async16(dst + swz<W>(r, f), src + static_cast<size_t>(in ? r0 + r : 0) * d + c0 + 4 * f,
+               in);
+  }
+}
+
+// The thread's (ta, tb) in a 64 x 64 tile: a warp covers four consecutive ta
+// and eight consecutive tb, so each float4 load of the score loop is one
+// wavefront.
+__device__ __forceinline__ int2 f32_wide_thread() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return make_int2((lane >> 3) | ((warp >> 1) << 2), (lane & 7) | ((warp & 1) << 3));
+}
+
+// Rows 4 ta + a of a thread's 4 x 8 block into a (s, d) f32 matrix from row
+// r0 and the slab at g0: its owned columns, rows inside s.
+__device__ __forceinline__ void store_block(float* dst, const float (&acc)[4][8], int r0, int s,
+                                            int d, const F32WideCols& cols, int ta, int tb) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + 4 * ta + a;
+    if (r >= s) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = cols.g0 + 4 * (tb + 16 * h);
+      if (col < cols.own0 || col >= cols.own1) continue;
+      st4(dst + static_cast<size_t>(r) * d + col,
+          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
+    }
+  }
+}
+
+// The grid of an f32 cluster kernel: `tiles` tiles x `ctas` CTAs on x, the
+// rows on y in z slices of 65,535.
+inline dim3 cluster_grid(int tiles, int ctas, int rows) {
+  constexpr int kMaxY = 65535;
+  return dim3(tiles * ctas, rows < kMaxY ? rows : kMaxY, (rows + kMaxY - 1) / kMaxY);
+}
+
+// A launch of `grid` in clusters of c CTAs on x, kF32Threads threads a CTA,
+// `smem` bytes of dynamic shared memory, on `stream`; `attr` holds the
+// cluster dimension.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int c, int smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// One kernel's answers of cudaOccupancyMaxActiveClusters, per card (the
+// first kCachedCards) and cluster size; 0 where not asked yet.
+constexpr int kCachedCards = 16;
+struct ClusterCounts {
+  int known[kCachedCards][kF32WideCluster + 1] = {};
+};
+
+// How many clusters of c CTAs of `kernel` at `smem` bytes the current card
+// holds at once, asked once per card and cluster size (`counts` keeps the
+// answers); minus a CUDA error code when the query fails.
+template <typename... Args>
+int active_clusters(void (*kernel)(Args...), int c, int smem, ClusterCounts& counts) {
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int* const slot = card < kCachedCards ? &counts.known[card][c] : nullptr;
+  if (slot != nullptr && *slot != 0) return *slot;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(c), c, smem, nullptr, &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (slot != nullptr) *slot = n;
+  return n;
+}
+
+// `kernel` over `grid` in clusters of c CTAs: 0, a CUDA error code, or
+// kNoCluster when no such cluster fits on the card at `smem` bytes.
+template <typename... Args, typename... Actual>
+int launch_clusters(void (*kernel)(Args...), dim3 grid, int c, int smem, cudaStream_t stream,
+                    ClusterCounts& counts, Actual... args) {
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int clusters = active_clusters(kernel, c, smem, counts);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, c, smem, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace hopper

@@ -81,9 +81,8 @@
 // Every slab's CTA forms the whole S: (slabs + 1) / 2 times the ideal
 // tensor-core work (2.5x at 1024), and Q, K and V are read from L2 once per
 // key tile per slab. 132,720 bytes of shared memory; the triangle is the
-// same body with its q tiles heaviest first. f32 (flash_fwd_wide_f32_kernel):
-// attend's arithmetic with q and k staged in 64-column chunks and O in
-// 256-column slabs (the slab and the q tile on the grid's x).
+// same body with its q tiles heaviest first. (f32 there: the cluster
+// kernels, below.)
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -108,16 +107,49 @@
 //     only issues TMA; consumers hold their own rows' ids and their
 //     warpgroup's id range in registers.
 //
-// f32 (attend<float, D, TRI>, the triangle and the general masks): one CTA
-// of 256 threads (16 x 16) per (bh row, 64-row q tile) on the CUDA cores,
-// q tiles on the grid's x and bh rows on y and z (kMaxGridY rows a z slice,
-// so any number of rows launches at once).
+// f32 up to D 128 (attend<float, D, TRI>, the triangle and the general
+// masks): one CTA of 256 threads (16 x 16) per (bh row, 64-row q tile) on
+// the CUDA cores, q tiles on the grid's x and bh rows on y and z (kMaxGridY
+// rows a z slice, so any number of rows launches at once).
 // The k loop visits only the tiles some row of the q tile can see. K and V
 // tiles are staged through shared memory as f32; each thread owns a 4 x 4
 // block of the score tile and the matching 4 x D/16 block of the output
 // accumulator, so the per-row rescale never leaves registers. P goes
 // through shared memory. f32 stays here because it must not round through
 // TF32 (serving prefill holds its greedy tokens to the reference's).
+//
+// f32 at D 256 and above (flash_fwd_f32_cluster_kernel<TRI, BM>, the
+// triangle and the general masks from one body, in the flash_fwd_wide
+// library: the head dim is a runtime multiple of 64; slabs, clusters and
+// tiles in flash_cluster.cuh): a CTA of 256 threads holds BM q rows (64, or
+// 16 for a call of at most 16, serving's prefill chunk) and one 128-column
+// slab of O, and the n = ceil(d / 128) slab CTAs of a q tile are one
+// thread-block cluster (2 at 256, 4 at 512, 5 at 576, 8 at 1024; above 8
+// slabs g = ceil(n / 8) clusters a tile, each also summing the columns its
+// slabs do not own in 64-column foreign chunks). A CTA keeps its own
+// columns of Q (times qscale, as attend scales q) resident and streams only
+// its own columns of each key tile's K and V (64 x 128 slabs) through two
+// cp.async stages, the next tile's loading under this one's products; so Q,
+// K and V are read once per q tile per cluster. Per tile pair each CTA sums
+// a partial S over the columns it owns (the last slab starts at d - 128 and
+// owns only the columns no earlier slab does), 4 x 4 register blocks over
+// float4 rows of XOR-swizzled tiles; CTA r of c adds rows [BM r / c, BM (r
+// + 1) / c) of every CTA's partials in rank order through distributed
+// shared memory (the same bits every run), applies the tile's mask (the
+// triangle's diagonal; the general kernel's causal band at the global
+// offsets, window, sk edge and segment ids) and runs the base-2 online
+// softmax for those rows (16 threads a row), then stores P and the rows'
+// correction and running sum into every CTA: two cluster barriers a tile
+// pair (partials and P live in separate buffers). Each CTA then runs O_slab
+// = O_slab * corr + P . V_slab on its columns, 4 x 8 register blocks (at BM
+// 16 the 256 threads split the columns of the score loop and the keys of
+// P.V four ways, added in order at the end). The walk (the key tiles of the
+// band, less a tile whose documents cannot meet the q tile's, which every
+// warp finds from the ids' range itself) depends only on the row and the
+// tiles, so every CTA of a cluster meets every barrier; an empty walk
+// leaves O = 0 and lse = -inf. 197,632 bytes of shared memory at BM 64
+// (160,000 at 16): one CTA an SM, so a cluster needs c SMs of one GPC
+// (cudaOccupancyMaxActiveClusters, checked at launch: none is kNoCluster).
 //
 // Bound on this card: at the main path's shapes (burn-in 128 x 128 scores
 // per head, serving prefill 8 x 64) every kernel is latency-bound (a few
@@ -136,6 +168,7 @@
 #include "hopper.cuh"  // TMA, mbarrier and wgmma helpers, id ranges, the tensor-map encoder
 #ifdef FLASH_HEAD_DIM_WIDE
 #include "flash_wide.cuh"  // the D-streaming kernels' boxes, slabs and maps
+#include "flash_cluster.cuh"  // the f32 kernels' slabs, clusters and swizzled tiles
 #endif
 
 namespace {
@@ -177,20 +210,15 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// The CUDA-core kernels' keys per k tile: 64, or 16 at D = 512 and 576, where
-// two [64][D + 1] f32 tiles beside Q's would pass the 227 KB a block may use
-// (at 576 the 16-key layout takes 225,984 bytes).
-__host__ __device__ constexpr int f32_keys(int d) { return d > 256 ? 16 : kBN; }
-
 constexpr size_t smem_bytes(int d) {
-  // q tile, k tile, v tile ([rows][D + 1]), p tile ([kBM][keys + 1]), k segment ids
-  return sizeof(float) * ((kBM + 2 * f32_keys(d)) * (d + 1) + kBM * (f32_keys(d) + 1)) +
-         sizeof(int) * f32_keys(d);
+  // q tile, k tile, v tile ([rows][D + 1]), p tile ([kBM][kBN + 1]), k segment ids
+  return sizeof(float) * ((kBM + 2 * kBN) * (d + 1) + kBM * (kBN + 1)) + sizeof(int) * kBN;
 }
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void attend(const Params& p) {
-  constexpr int BN = f32_keys(D);
+  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster kernels");
+  constexpr int BN = kBN;
   constexpr int RN = BN / 16;  // score columns per thread
   constexpr int LD = D + 1;   // odd stride: a column walk hits 16 different banks
   constexpr int LP = BN + 1;
@@ -892,8 +920,6 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
 constexpr int kWideSlab = 256;     // columns of O a 16-bit CTA holds (wgmma's widest N)
 constexpr int kWideRing = 4;       // stages of the Q/K chunk ring
 constexpr int kWideVStages = 2;    // stages of the V slab ring
-constexpr int kF32WideChunk = 64;  // columns of a Q/K chunk of the f32 kernel
-constexpr int kF32WideSlab = 256;  // columns of O an f32 CTA holds
 
 constexpr int wide_smem_bytes() {
   // alignment slack, the Q/K chunk ring (two boxes a stage), the V slab ring
@@ -902,14 +928,6 @@ constexpr int wide_smem_bytes() {
   return kSmemAlign + kWideRing * 2 * kWideBoxBytes +
          kWideVStages * (kWideSlab / kWideBox) * kWideBoxBytes +
          kWideVStages * (kRingRows + 2) * 4 + 8 * (2 * kWideRing + 2 * kWideVStages);
-}
-
-constexpr int f32_wide_smem_bytes() {
-  // q and k chunks ([64][chunk + 1]), the v slab ([64][slab + 1]), the p tile
-  // ([64][65]), the keys' segment ids
-  return sizeof(float) * (2 * kBM * (kF32WideChunk + 1) + kBN * (kF32WideSlab + 1) +
-                          kBM * (kBN + 1)) +
-         sizeof(int) * kBN;
 }
 
 // The 16-bit D-streaming forward on the tensor cores: the general kernel's
@@ -1196,40 +1214,248 @@ __global__ void __launch_bounds__(128 + 32, 1)
   }
 }
 
-// The f32 D-streaming forward on the CUDA cores: attend's arithmetic, with
-// the score tile summed over 64-column chunks of q and k and the output in
-// slabs of kF32WideSlab columns. blockIdx.x: q tile x slabs + slab; y and z:
-// bh rows (kMaxGridY a z slice).
+#ifndef FLASH_ELEM_F16  // the f32 kernels live in the bf16 library (kWithF32)
+// ---------------------------------------------------------------------------
+// f32 at head dims 256 and above: slab CTAs in a thread-block cluster (see
+// the note on top; slabs, clusters and tiles: flash_cluster.cuh).
+// ---------------------------------------------------------------------------
+
+// The q rows of an f32 cluster CTA: 64, or 16 for a call of at most 16 q
+// rows (serving's prefill chunk), chosen from sq (flash_fwd.py::f32_rows).
+__host__ __device__ constexpr int f32_rows(int sq) { return sq <= 16 ? 16 : kF32WideTile; }
+
+// The head dims the f32 cluster kernels take: 256 and above, whole 64-column
+// chunks.
+__host__ __device__ constexpr bool f32_cluster_head_dim(int d) {
+  return d >= 256 && d % kF32WideChunk == 0;
+}
+
+template <int BM>
+constexpr int f32_cluster_smem_bytes() {
+  // the Q slab times qscale ([BM][128]), two stages of the streamed ring (a K
+  // and a V slab, or a foreign Q and K chunk), the partial scores (64 / BM
+  // parts of [BM][64]: 64 x 64 floats), P ([BM][64]) and per q row its
+  // correction and running sum (a float4)
+  return 4 * (BM * kF32WideSlab + kF32WideStages * 2 * kF32WideTile * kF32WideSlab +
+              kF32WideTile * kF32WideTile + BM * kF32WideTile + 4 * BM);
+}
+static_assert(f32_cluster_smem_bytes<kF32WideTile>() <= 232448,
+              "past the shared memory a block may use");
+
+// The thread's (ta, tb, part): q rows 4 ta .. 4 ta + 3 and keys 4 tb .. 4 tb
+// + 3 of the score tile, q rows 4 ta .. and slab columns 4 (tb + 16 h) .. of
+// O, and its share of each reduction (at BM 16 one of four: a quarter of the
+// columns in the score loop, of the keys in P.V); a warp covers four ta and
+// eight tb, as f32_wide_thread.
+template <int BM>
+__device__ __forceinline__ int3 f32_cluster_thread() {
+  if constexpr (BM == kF32WideTile) {
+    const int2 t = f32_wide_thread();
+    return make_int3(t.x, t.y, 0);
+  } else {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    return make_int3(lane >> 3, (lane & 7) | ((warp & 1) << 3), warp >> 1);
+  }
+}
+
+// sc[i][j] += A(4 ta + i) . B(4 tb + j) over the float4 columns [f0, f1) of
+// swizzled [rows][WA] (A: q rows) and [64][WB] (B: keys) tiles, an f32 FMA
+// chain in column order; SA: A's values times qscale first (q's share of
+// the score, rounded as attend rounds it). 8 float4 loads for 64 FMAs; a
+// warp's four values of ta and eight of tb read one wavefront each.
+template <int WA, int WB, bool SA>
+__device__ __forceinline__ void partial_scores(float (&sc)[4][4], const float* A, const float* B,
+                                               int ta, int tb, int f0, int f1, float qscale) {
+  const float* a_row = A + 4 * ta * WA;
+  const float* b_row = B + 4 * tb * WB;
+  const int xa = ta & 7, xb = tb & 7;  // the rows' swizzle
+#pragma unroll 2
+  for (int f = f0; f < f1; ++f) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = ld4(b_row + j * WB + ((f ^ xb) << 2));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 a = ld4(a_row + i * WA + ((f ^ xa) << 2));
+      if (SA) a = scale4(a, qscale);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(a.x, b[j].x, sc[i][j]);
+        sc[i][j] = fmaf(a.y, b[j].y, sc[i][j]);
+        sc[i][j] = fmaf(a.z, b[j].z, sc[i][j]);
+        sc[i][j] = fmaf(a.w, b[j].w, sc[i][j]);
+      }
+    }
+  }
+}
+
+// Whether q row qi attends key kj (both local): the triangle's diagonal, or
+// the general masks (key < sk, the causal band at the global offsets, the
+// window, equal segment ids; seg: the batch row's ids or nullptr).
 template <bool TRI>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_wide_f32_kernel(Params p, int d) {
-  constexpr int RN = kBN / 16;
-  constexpr int LC = kF32WideChunk + 1;
-  constexpr int LS = kF32WideSlab + 1;
-  constexpr int LP = kBN + 1;
-  constexpr int CN = kF32WideSlab / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;            // [kBM][LC]
-  float* ks = qs + kBM * LC;   // [kBN][LC]
-  float* vs = ks + kBN * LC;   // [kBN][LS]
-  float* ps = vs + kBN * LS;   // [kBM][LP]
-  int* kseg = reinterpret_cast<int*>(ps + kBM * LP);
+__device__ __forceinline__ bool keeps(const Params& p, int qi, int kj, const int* seg) {
+  if (qi >= p.sq || kj >= p.sk) return false;
+  if (TRI) return kj <= qi;
+  if (p.causal) {
+    const int dist = (p.q_start + qi) - (p.k_start + kj);
+    if (dist < 0 || (p.window > 0 && dist >= p.window)) return false;
+  }
+  return seg == nullptr || seg[qi] == seg[kj];
+}
+
+// The cluster's exchange and softmax of one tile pair (q rows from q0, keys
+// from k0). Every CTA holds a partial S over its columns (sc, at the
+// thread's th; at BM 16 one of four parts), written to its xs as
+// X[part][row][key]. CTA `rank` of c owns the q rows [BM rank / c, BM (rank
+// + 1) / c), 16 threads a row and four keys a thread, one pass per 16 rows:
+// it adds every CTA's partials (and parts) in rank order (the same bits
+// every run), applies the tile's mask, runs the base-2 online softmax (m, l:
+// the pass's row's running max and sum, kept by its 16 threads across the
+// walk; the -inf guards keep a row that sees no key at O = 0) and stores P
+// into every CTA's ps ([row][key]) and the row's (correction, running sum)
+// into every CTA's stats. Two cluster barriers: the partials written; P and
+// the stats in. xs and ps are apart, so the next pair's partials never
+// overwrite what an owner still reads.
+template <bool TRI, int BM>
+__device__ __forceinline__ void softmax_exchange(const Params& p, float* xs, float* ps,
+                                                 float4* stats, const float (&sc)[4][4], int3 th,
+                                                 int c, int q0, int k0, const int* seg,
+                                                 float (&m)[2], float (&l)[2]) {
+  constexpr int kParts = kF32WideTile / BM;
+  constexpr int kPartFloats = BM * kF32WideTile;
+  float* part = xs + th.z * kPartFloats;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    st4(part + (4 * th.x + i) * kF32WideTile + 4 * th.y,
+        make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]));
+  }
+  cluster_sync();
+  const int rank = static_cast<int>(cluster_rank());
+  const int a0 = BM * rank / c, a1 = BM * (rank + 1) / c;
+  const int f = threadIdx.x & 15;  // the thread's keys 4 f .. 4 f + 3
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // at most 32 rows a CTA (c >= 2)
+    const int row = a0 + static_cast<int>(threadIdx.x >> 4) + 16 * j;
+    const bool mine = row < a1;
+    float s[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+    if (mine) {
+      float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < c; ++r) {
+        const uint32_t x = cluster_addr(xs + row * kF32WideTile + 4 * f, r);
+#pragma unroll
+        for (int pp = 0; pp < kParts; ++pp) {
+          const float4 u = ld_cluster4(x + 4 * pp * kPartFloats);
+          s4 = make_float4(s4.x + u.x, s4.y + u.y, s4.z + u.z, s4.w + u.w);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (keeps<TRI>(p, q0 + row, k0 + 4 * f + e, seg)) s[e] = comp(s4, e);
+      }
+    }
+    // the row's 16 threads are a half warp; every lane takes part
+    float mx = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[j], mx);
+    const float safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
+    const float corr = (m[j] == -CUDART_INF_F) ? 0.f : exp2f(m[j] - safe);
+    float pe[4], rs = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pe[e] = (s[e] == -CUDART_INF_F) ? 0.f : exp2f(s[e] - safe);
+      rs += pe[e];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    l[j] = l[j] * corr + rs;
+    m[j] = m_new;
+    if (mine) {
+      const float4 pv = make_float4(pe[0], pe[1], pe[2], pe[3]);
+      const float4 stat = make_float4(corr, l[j], 0.f, 0.f);
+      for (int r = 0; r < c; ++r) {
+        st_cluster4(cluster_addr(ps + row * kF32WideTile + 4 * f, r), pv);
+        if (f == 0) st_cluster4(cluster_addr(stats + row, r), stat);
+      }
+    }
+  }
+  cluster_sync();
+}
+
+// acc[i][4 h + e] += sum over the thread's keys r of P[4 ta + i][r] * V[r][4
+// (tb + 16 h) + e] (P [BM][64]; V a swizzled [64][128] slab): a thread's 4 x
+// 8 block of the O slab over all 64 keys, or at BM 16 over its part's 16.
+// 12 float4 loads for 128 FMAs.
+template <int BM>
+__device__ __forceinline__ void pv_product(float (&acc)[4][8], const float* P, const float* V,
+                                           int3 th) {
+  const float* p_rows = P + 4 * th.x * kF32WideTile;
+  const int r0 = th.z * BM;
+#pragma unroll 2
+  for (int r = r0; r < r0 + BM; r += 4) {
+    float4 pa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[i] = ld4(p_rows + i * kF32WideTile + r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 y0 = ld4(V + swz<kF32WideSlab>(r + k, th.y));
+      const float4 y1 = ld4(V + swz<kF32WideSlab>(r + k, th.y + 16));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = comp(pa[i], k);
+        acc[i][0] = fmaf(x, y0.x, acc[i][0]);
+        acc[i][1] = fmaf(x, y0.y, acc[i][1]);
+        acc[i][2] = fmaf(x, y0.z, acc[i][2]);
+        acc[i][3] = fmaf(x, y0.w, acc[i][3]);
+        acc[i][4] = fmaf(x, y1.x, acc[i][4]);
+        acc[i][5] = fmaf(x, y1.y, acc[i][5]);
+        acc[i][6] = fmaf(x, y1.z, acc[i][6]);
+        acc[i][7] = fmaf(x, y1.w, acc[i][7]);
+      }
+    }
+  }
+}
+
+// The f32 forward at a head dim d of 256 and above on the CUDA cores, in
+// clusters (see the note on top). blockIdx.x: q tile x (g c) + z (the
+// triangle's q tiles heaviest first); y and z: bh rows (kMaxGridY a z
+// slice). TRI: the triangle; else the general masks, the key tiles of the
+// band, a key tile whose documents cannot meet the q tile's skipped (by
+// every CTA of the cluster: the walk depends on the row, the tiles and the
+// ids alone, so the CTAs meet at every barrier).
+template <bool TRI, int BM>
+__device__ __forceinline__ void attend_cluster(const Params& p, int d) {
+  constexpr int kParts = kF32WideTile / BM;
+  constexpr int kSlabFloats = kF32WideTile * kF32WideSlab;
+  extern __shared__ float4 f32c_smem[];
+  float* qres = reinterpret_cast<float*>(f32c_smem);  // the Q slab times qscale
+  float* ring = qres + BM * kF32WideSlab;  // per stage: K and V slabs, or Q and K chunks
+  float* xs = ring + kF32WideStages * 2 * kSlabFloats;
+  float* ps = xs + kF32WideTile * kF32WideTile;
+  float4* stats = reinterpret_cast<float4*>(ps + BM * kF32WideTile);
 
   const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
-  if (bh >= p.rows) return;
-  const int n_slabs = wide_slabs(d, kF32WideSlab);
-  const int q0 = (blockIdx.x / n_slabs) * kBM;
-  const int col0 = (blockIdx.x % n_slabs) * kF32WideSlab;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  if (bh >= p.rows) return;  // the whole cluster: it shares y and z
+  const F32WideGeo geo(d);
+  const int z = blockIdx.x % geo.ctas();
+  const F32WideCols cols(geo, z, d);
+  const int tile = blockIdx.x / geo.ctas();
+  const int q0 = (TRI ? (p.sq + BM - 1) / BM - 1 - tile : tile) * BM;
+  const int3 th = f32_cluster_thread<BM>();
   const int b = bh / p.heads;
+  // grouped-query attention: q heads share kv heads in groups (_kv_row)
   const int kv_row = b * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
   const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.sq * d;
   const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.sk * d;
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.sk * d;
-  const bool segments = !TRI && p.seg != nullptr;
+  const int* seg = !TRI && p.seg != nullptr ? p.seg + static_cast<size_t>(b) * p.sk : nullptr;
+  const int lane = threadIdx.x & 31;
 
-  const int q_end = min(q0 + kBM, p.sq);
+  // the key tiles some row of this q tile can see by global position: all,
+  // or up to its last row's diagonal, from its first row's window on (maybe
+  // none); every warp finds the next live one itself (the ids' range by
+  // warp reductions)
+  const int q_end = min(q0 + BM, p.sq);
   int k_lo = 0, k_hi = p.sk;
   if (TRI) {
     k_hi = min(p.sk, q_end);
@@ -1237,149 +1463,195 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wide_f32_kernel(Params 
     k_hi = max(0, min(p.sk, p.q_start + q_end - p.k_start));
     if (p.window > 0) k_lo = max(0, p.q_start + q0 - p.window + 1 - p.k_start);
   }
-  const int t_lo = k_lo / kBN;
-  const int t_hi = (k_hi + kBN - 1) / kBN;
+  const int t_lo = k_lo / kF32WideTile;
+  const int t_hi = k_lo < k_hi ? (k_hi + kF32WideTile - 1) / kF32WideTile : t_lo;
+  const int2 qrange =
+      seg != nullptr ? id_range<BM>(seg, q0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    for (; seg != nullptr && t < t_hi; ++t) {
+      const int2 krange = id_range(seg, t * kF32WideTile, p.sk, lane, 32, ~0u, nullptr);
+      // a live pair unless both sides are one document each, different ones
+      if (!(qrange.x == qrange.y && krange.x == krange.y && qrange.x != krange.x)) break;
+    }
+    return t;
+  };
+  const int items = cols.items();
+  auto fetch = [&](int t, int it, int st) {
+    float* dst = ring + st * 2 * kSlabFloats;
+    const int k0 = t * kF32WideTile;
+    if (it < cols.nf) {
+      const int c0 = cols.foreign(it, geo.c);
+      load_tile<kF32WideChunk, BM>(dst, qg, q0, p.sq, d, c0);
+      load_tile<kF32WideChunk>(dst + kSlabFloats, kg, k0, p.sk, d, c0);
+    } else {
+      load_tile<kF32WideSlab>(dst, kg, k0, p.sk, d, cols.g0);
+      load_tile<kF32WideSlab>(dst + kSlabFloats, vg, k0, p.sk, d, cols.g0);
+    }
+  };
+  // the thread's share of a score loop over the float4 columns [f0, f1)
+  auto share = [&](int f0, int f1) {
+    return make_int2(f0 + (f1 - f0) * th.z / kParts, f0 + (f1 - f0) * (th.z + 1) / kParts);
+  };
 
-  float m[kRM], l[kRM], acc[kRM][CN];
-  int qseg[kRM];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
-    const int qi = q0 + ty + 16 * i;
-    qseg[i] = (segments && qi < p.sq) ? p.seg[static_cast<size_t>(b) * p.sk + qi] : 0;
-  }
+  int t = live_from(t_lo);
+  if (cols.owns()) load_tile<kF32WideSlab, BM>(qres, qg, q0, p.sq, d, cols.g0);
+  cp_async_commit();
+  if (t < t_hi && items > 0) fetch(t, 0, 0);
+  cp_async_commit();
+  for (int r = threadIdx.x; r < BM; r += kF32Threads) stats[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cp_async_wait<1>();  // the resident slab
+  __syncthreads();
+  // q pre-scaled in f32, as attend scales it (flashattention.py:750)
+  for (int e = threadIdx.x; e < BM * kF32WideSlab; e += kF32Threads) qres[e] *= p.qscale;
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBN;
-    float s[kRM][RN];
+  float acc[4][8], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kF32WideChunk) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      for (int i = tid; i < kBM * kF32WideChunk; i += kThreads) {
-        const int r = i / kF32WideChunk, c = i % kF32WideChunk;
-        // q pre-scaled in f32, as attend scales it
-        qs[r * LC + c] =
-            q0 + r < p.sq ? qg[static_cast<size_t>(q0 + r) * d + c0 + c] * p.qscale : 0.f;
-        ks[r * LC + c] = k0 + r < p.sk ? kg[static_cast<size_t>(k0 + r) * d + c0 + c] : 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  int st = 0;  // the stage of the next item
+  while (t < t_hi) {
+    const int next = live_from(t + 1);
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    const float* vslab = nullptr;  // the main item's V slab
+    for (int it = 0; it < items; ++it) {
+      // the item after this one loads under this one's products
+      if (it + 1 < items) {
+        fetch(t, it + 1, st ^ 1);
+      } else if (next < t_hi) {
+        fetch(next, 0, st ^ 1);
       }
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < kF32WideChunk; ++dd) {
-        float qv[kRM], kv[RN];
+      const float* sp = ring + st * 2 * kSlabFloats;
+      if (it < cols.nf) {
+        const int2 fs = share(0, kF32WideChunk / 4);
+        partial_scores<kF32WideChunk, kF32WideChunk, true>(sc, sp, sp + kSlabFloats, th.x, th.y,
+                                                           fs.x, fs.y, p.qscale);
+        __syncthreads();  // the stage is free for the item after the next
+      } else {
+        const int2 fs = share((cols.own0 - cols.g0) / 4, (cols.own1 - cols.g0) / 4);
+        partial_scores<kF32WideSlab, kF32WideSlab, false>(sc, qres, sp, th.x, th.y, fs.x, fs.y,
+                                                          1.f);
+        vslab = sp + kSlabFloats;
+      }
+      st ^= 1;
+    }
+    softmax_exchange<TRI, BM>(p, xs, ps, stats, sc, th, geo.c, q0, t * kF32WideTile, seg, m, l);
+    if (vslab != nullptr) {  // O = O * corr + P . V_slab
 #pragma unroll
-        for (int i = 0; i < kRM; ++i) qv[i] = qs[(ty + 16 * i) * LC + dd];
+      for (int i = 0; i < 4; ++i) {
+        const float corr = stats[4 * th.x + i].x;
 #pragma unroll
-        for (int j = 0; j < RN; ++j) kv[j] = ks[(tx + 16 * j) * LC + dd];
+        for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+      }
+      pv_product<BM>(acc, ps, vslab, th);
+    }
+    __syncthreads();  // the main stage is free
+    t = next;
+  }
+  cp_async_wait<0>();
+
+  // lse: the owners of the tile's first cluster
+  if (z < geo.c && (threadIdx.x & 15) == 0) {
+    const int rank = z;
 #pragma unroll
-        for (int i = 0; i < kRM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int j = 0; j < 2; ++j) {
+      const int row = BM * rank / geo.c + static_cast<int>(threadIdx.x >> 4) + 16 * j;
+      const int qi = q0 + row;
+      if (row < BM * (rank + 1) / geo.c && qi < p.sq) {
+        const bool live = l[j] > 0.f && m[j] != -CUDART_INF_F;
+        p.lse[static_cast<size_t>(bh) * p.sq + qi] =
+            live ? m[j] * kLn2 + logf(l[j]) : -CUDART_INF_F;
       }
     }
-    // the V slab and the keys' ids (their buffers' last readers passed the
-    // chunk loop's barriers)
-    for (int i = tid; i < kBN * kF32WideSlab; i += kThreads) {
-      const int r = i / kF32WideSlab, c = i % kF32WideSlab;
-      const bool in = k0 + r < p.sk && col0 + c < d;
-      vs[r * LS + c] = in ? vg[static_cast<size_t>(k0 + r) * d + col0 + c] : 0.f;
-    }
-    if (segments && tid < kBN) {
-      kseg[tid] = (k0 + tid < p.sk) ? p.seg[static_cast<size_t>(b) * p.sk + k0 + tid] : 0;
-    }
+  }
+  if (!cols.owns()) return;
+  if constexpr (kParts > 1) {
+    // the parts' sums of O through the free ring, added in part order
     __syncthreads();
-
+    if (th.z > 0) {
+      float* red = ring + (th.z - 1) * BM * kF32WideSlab;
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        bool keep = kj < p.sk;
-        if (TRI) {
-          keep = keep && kj <= qi;
-        } else {
-          if (p.causal) {
-            const int dist = (p.q_start + qi) - (p.k_start + kj);
-            keep = keep && dist >= 0 && (p.window <= 0 || dist < p.window);
-          }
-          if (segments) keep = keep && qseg[i] == kseg[tx + 16 * j];
+        for (int h = 0; h < 2; ++h) {
+          st4(red + (4 * th.x + i) * kF32WideSlab + 4 * (th.y + 16 * h),
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
         }
-        if (!keep) s[i][j] = -CUDART_INF_F;
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < RN; ++j) mx = fmaxf(mx, s[i][j]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
-      const float corr = (m[i] == -CUDART_INF_F) ? 0.f : exp2f(m[i] - safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float pj = (s[i][j] == -CUDART_INF_F) ? 0.f : exp2f(s[i][j] - safe);
-        rs += pj;
-        ps[(ty + 16 * i) * LP + tx + 16 * j] = pj;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) acc[i][c] *= corr;
     }
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBN; ++kk) {
-      float pv[kRM], vv[CN];
+    if (th.z > 0) return;
+    for (int pp = 1; pp < kParts; ++pp) {
+      const float* other = ring + (pp - 1) * BM * kF32WideSlab;
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) pv[i] = ps[(ty + 16 * i) * LP + kk];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < CN; ++c) vv[c] = vs[kk * LS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int h = 0; h < 2; ++h) {
+          const float4 u = ld4(other + (4 * th.x + i) * kF32WideSlab + 4 * (th.y + 16 * h));
+          acc[i][4 * h] += u.x;
+          acc[i][4 * h + 1] += u.y;
+          acc[i][4 * h + 2] += u.z;
+          acc[i][4 * h + 3] += u.w;
+        }
     }
   }
-
-  float* og = static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.sq * d;
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.sq) continue;
-    const float denom = (l[i] == 0.f) ? 1.f : l[i];
+  for (int i = 0; i < 4; ++i) {
+    const float sum = stats[4 * th.x + i].y;
+    const float denom = (sum == 0.f) ? 1.f : sum;
 #pragma unroll
-    for (int c = 0; c < CN; ++c) {
-      const int col = col0 + tx + 16 * c;
-      if (col < d) og[static_cast<size_t>(qi) * d + col] = acc[i][c] / denom;
-    }
-    if (tx == 0 && col0 == 0) {
-      const bool live = l[i] > 0.f && m[i] != -CUDART_INF_F;
-      p.lse[static_cast<size_t>(bh) * p.sq + qi] = live ? m[i] * kLn2 + logf(l[i]) : -CUDART_INF_F;
-    }
+    for (int j = 0; j < 8; ++j) acc[i][j] /= denom;
   }
+  store_block(static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.sq * d, acc, q0, p.sq, d,
+              cols, th.x, th.y);
 }
 
-// The library's 16-bit type on the tensor cores, or f32 on the CUDA cores, at
-// a head dim above 576, with the caller's plan: 64-row q tiles, the layout's
-// shared memory, the 128-byte swizzle (16-bit) or none (f32).
+// The f32 forward kernels at head dims 256 and above: the triangle (TRI) and
+// the general masks, each at 64- and 16-row q tiles, launched in clusters of
+// F32WideGeo(d).c CTAs on the grid's x.
+template <bool TRI, int BM>
+__global__ void __launch_bounds__(kF32Threads, 1) flash_fwd_f32_cluster_kernel(Params p, int d) {
+  attend_cluster<TRI, BM>(p, d);
+}
+
+// Each kernel's answers of cudaOccupancyMaxActiveClusters (flash_cluster.cuh).
+template <bool TRI, int BM>
+ClusterCounts& f32_cluster_counts() {
+  static ClusterCounts counts;
+  return counts;
+}
+
+template <bool TRI, int BM>
+int f32_cluster_clusters(int d) {
+  return active_clusters(flash_fwd_f32_cluster_kernel<TRI, BM>, F32WideGeo(d).c,
+                         f32_cluster_smem_bytes<BM>(), f32_cluster_counts<TRI, BM>());
+}
+
+template <bool TRI, int BM>
+int launch_f32_cluster(const Params& p, int bh, int d, int smem, cudaStream_t stream) {
+  if (smem != f32_cluster_smem_bytes<BM>()) return kUnsupported;
+  const F32WideGeo geo(d);
+  return launch_clusters(flash_fwd_f32_cluster_kernel<TRI, BM>,
+                         cluster_grid((p.sq + BM - 1) / BM, geo.ctas(), bh), geo.c, smem, stream,
+                         f32_cluster_counts<TRI, BM>(), p, d);
+}
+#endif  // FLASH_ELEM_F16
+
+// The library's 16-bit type on the tensor cores at a head dim above 576, with
+// the caller's plan (64-row q tiles, the layout's shared memory, the 128-byte
+// swizzle); or f32 on the CUDA cores at a head dim of 256 and above (the
+// plan's q rows, f32_rows(sq), and shared memory; no swizzle).
 template <bool TRI>
 int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
                   cudaStream_t stream) {
-  if (!wide_head_dim(d) || block_m != 64) return kUnsupported;
   if (dtype == kElemCode) {
+    if (!wide_head_dim(d) || block_m != 64) return kUnsupported;
     if (swizzle != WideGeo::kRowBytes || smem != wide_smem_bytes()) return kUnsupported;
     if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
     const int q_tiles = (p.sq + 63) / 64;
@@ -1398,18 +1670,17 @@ int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int sm
                                                                                   kmap, vmap);
     return static_cast<int>(cudaGetLastError());
   }
-  if constexpr (!kWithF32) {
+#ifdef FLASH_ELEM_F16
+  return kUnsupported;
+#else
+  if (dtype != 0 || swizzle != 0 || !f32_cluster_head_dim(d) || block_m != f32_rows(p.sq)) {
     return kUnsupported;
-  } else {
-    if (dtype != 0 || swizzle != 0 || smem != f32_wide_smem_bytes()) return kUnsupported;
-    auto kernel = flash_fwd_wide_f32_kernel<TRI>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((p.sq + kBM - 1) / kBM * wide_slabs(d, kF32WideSlab),
-                    bh < kMaxGridY ? bh : kMaxGridY, (bh + kMaxGridY - 1) / kMaxGridY);
-    kernel<<<grid, kThreads, smem, stream>>>(p, d);
-    return static_cast<int>(cudaGetLastError());
   }
+  // cp.async and float4 stores move 16 bytes: 16-byte bases (rows are d * 4 bytes)
+  if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;
+  return block_m == kF32WideTile ? launch_f32_cluster<TRI, kF32WideTile>(p, bh, d, smem, stream)
+                                 : launch_f32_cluster<TRI, 16>(p, bh, d, smem, stream);
+#endif
 }
 #endif  // FLASH_HEAD_DIM_WIDE
 
@@ -1505,17 +1776,13 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
         smem != static_cast<int>(smem_bytes(d))) {
       return kUnsupported;
     }
+    // D 16-128 here; 256 and above: the cluster kernels of the wide library
     switch (d) {
-#ifdef FLASH_HEAD_DIM_512
-      case 512: return launch<512, TRI>(p, bh, st);
-#elif defined(FLASH_HEAD_DIM_576)
-      case 576: return launch<576, TRI>(p, bh, st);
-#else
+#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
       case 16: return launch<16, TRI>(p, bh, st);
       case 32: return launch<32, TRI>(p, bh, st);
       case 64: return launch<64, TRI>(p, bh, st);
       case 128: return launch<128, TRI>(p, bh, st);
-      case 256: return launch<256, TRI>(p, bh, st);
 #endif
       default: return kUnsupported;
     }
@@ -1532,11 +1799,13 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
 // take, -2 when no TMA tensor map could be made. block_m, smem (bytes) and
 // swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
 // rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
-// (64 only at D 256, 512, 576 and above); f32 runs the CUDA-core kernel, whose
-// plan is fixed (64, its shared memory, no swizzle). A library takes D
-// 16-256, or (built with -DFLASH_HEAD_DIM_512) D 512 alone, or
-// (-DFLASH_HEAD_DIM_576) D 576 alone, or (-DFLASH_HEAD_DIM_WIDE) every
-// multiple of 64 above 576 (flash_fwd.py::wide_plan).
+// (64 only at D 256, 512, 576 and above); f32 runs the CUDA-core kernels,
+// whose plans are fixed (64, or at D 256 and above f32_rows(sq); their
+// shared memory; no swizzle). A library takes D 16-256 (f32: 16-128), or
+// (built with -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576)
+// D 576 alone (16-bit only), or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64
+// above 576 and, in f32, from 256 on (flash_fwd.py::wide_plan,
+// f32_cluster_plan).
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,
@@ -1557,3 +1826,22 @@ extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const
            causal && window > 0 ? window : 0, qscale, bh};
   return dispatch<false>(p, dtype, bh, d, block_m, smem, swizzle, stream);
 }
+
+#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+// How many clusters of an f32 forward kernel at head dim d (256 and above;
+// tri 1: the triangle, 0: the general kernel; block_m its q rows, 64 or 16)
+// the card holds at once: cudaOccupancyMaxActiveClusters at its plan's
+// shared memory and cluster size. -1 for a head dim or height these kernels
+// do not take, minus a CUDA error code when the query fails.
+extern "C" int flash_fwd_f32_clusters(int tri, int d, int block_m) {
+  if (!f32_cluster_head_dim(d)) return kUnsupported;
+  if (block_m == kF32WideTile) {
+    return tri ? f32_cluster_clusters<true, kF32WideTile>(d)
+               : f32_cluster_clusters<false, kF32WideTile>(d);
+  }
+  if (block_m == 16) {
+    return tri ? f32_cluster_clusters<true, 16>(d) : f32_cluster_clusters<false, 16>(d);
+  }
+  return kUnsupported;
+}
+#endif

@@ -28,7 +28,10 @@ D-streaming ("wide") kernels run (libraries ``flash_fwd_wide``,
 tiles of a 640-wide head alone would pass a block's shared memory, so the
 scores are summed over 64-column chunks that stream through a ring, and
 each CTA holds one slab of O (:func:`wide_plan`); the head dim is a
-runtime argument, so one build serves every width.
+runtime argument, so one build serves every width. f32 at head dims 256
+and above runs in that library too (:func:`f32_cluster_plan`): the
+128-column slab CTAs of a q tile form one thread-block cluster that adds
+their partial scores through distributed shared memory.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,13 +98,6 @@ def ring_stages(d: int) -> int:
     stage would pass a block's shared memory (stages in flash_fwd.cu and
     flash_bwd.cu)."""
     return 1 if d > 256 else TRI_STAGES
-
-
-def f32_keys(d: int) -> int:
-    """Keys per k tile of the f32 CUDA-core forward: 64, or 16 at d 512 and
-    576, where two [64][d + 1] f32 tiles beside Q's would pass a block's
-    shared memory (f32_keys in flash_fwd.cu)."""
-    return 16 if d > 256 else 64
 
 
 def kv_row(i, heads: int, kv_heads: int):
@@ -162,12 +158,15 @@ class TriPlan:
     """Launch plan of the triangle kernel: ``block_m`` q rows per CTA and
     as many keys per k tile, ``threads`` per CTA, ``grid`` (x, y), dynamic
     shared memory in bytes, the TMA/wgmma swizzle span in bytes (0: the
-    f32 CUDA-core kernel, which uses no TMA), and ``col_split``, the
-    grid's z: the CTAs per q tile, each on a column slice of O
-    (:func:`col_split`; the wide kernels' slabs). The wide kernels' plans
-    also state ``slab``, the columns of O a CTA holds, and ``stages``, the
-    depth of the ring the chunks of the head dim stream through (0 and 0
-    at head dims up to 576)."""
+    f32 CUDA-core kernels, which use no TMA), and ``col_split``, the
+    grid's z (the f32 cluster kernels: a factor of the grid's x): the CTAs
+    per q tile, each on a column slice of O (:func:`col_split`; the wide
+    and cluster kernels' slabs). The wide and cluster kernels' plans also
+    state ``slab``, the columns of O a CTA holds, and ``stages``, the depth
+    of the ring the chunks of the head dim (f32: the slabs) stream through
+    (0 and 0 at head dims up to 576), and the cluster kernels ``cluster``,
+    the CTAs of a thread-block cluster that share each tile pair's scores
+    (1 elsewhere)."""
 
     block_m: int
     threads: int
@@ -177,20 +176,25 @@ class TriPlan:
     col_split: int = 1
     slab: int = 0
     stages: int = 0
+    cluster: int = 1
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
-        maps it."""
+        maps it (the cluster kernels: each of the ``col_split`` CTAs of
+        tile x)."""
         if self.swizzle:
             return x, self.grid[1] - 1 - y  # heaviest q tiles first
+        if self.cluster > 1:
+            return y, self.grid[0] - 1 - x  # heaviest q tiles first
         return y, x
 
 
 TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
 # the q-tile heights (rows) a plan may take per (dtype, native head dim):
 # bf16 and fp16 one or two consumer warpgroups, one only at D 256, 512 and
-# 576; f32 its CUDA-core kernels' fixed 64 (the knob of the forward; the f32
-# backward at D 256, 512 and 576 runs its fixed 32- and 16-row plans,
+# 576; f32 its CUDA-core kernels' fixed 64 (the knob of the forward, which
+# at D 256 and above takes 16 rows for a call of at most 16, f32_rows; the
+# f32 backward at D 256, 512 and 576 runs its fixed 32- and 16-row plans,
 # flash_bwd.f32_tile)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
@@ -249,18 +253,19 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     64 rows (``TILE_HEIGHTS``); at 512 and 576 the ring has one stage
     (:func:`ring_stages`) and two (512) or three (576) CTAs share each q
     tile, one per column slice of O (``col_split``, the grid's z). f32
-    keeps the CUDA-core kernel's fixed plan (``block_m`` 64 only; 16-key
-    tiles at d 512 and 576,
-    :func:`f32_keys`; its grid's y runs over the bh rows, which the kernel
-    splits into z slices of 65,535). Any other ``block_m`` raises
-    ``ValueError``. The kernel checks the plan against its own layout and
-    refuses one that differs."""
+    keeps the CUDA-core kernel's fixed plan up to d 128 (``block_m`` 64
+    only; its grid's y runs over the bh rows, which the kernel splits into
+    z slices of 65,535), and at d 256 and above the cluster kernels'
+    (:func:`f32_cluster_plan`; ``block_m`` 64 is accepted and chooses
+    nothing). Any other ``block_m`` raises ``ValueError``. The kernel checks
+    the plan against its own layout and refuses one that differs."""
     check_block_m(dtype, block_m, d)
+    if dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
+        return f32_cluster_plan(bh, s, d)
     if is_wide(d):
         return wide_plan(dtype, bh, s, d)
     if dtype == torch.float32:
-        keys = f32_keys(d)
-        smem = 4 * ((64 + 2 * keys) * (d + 1) + 64 * (keys + 1)) + 4 * keys
+        smem = 4 * ((64 + 2 * 64) * (d + 1) + 64 * 65) + 4 * 64
         return TriPlan(64, 256, (-(-s // 64), bh), smem, 0)
     block = _tile_height(bh, s, sms, block_m, tile_heights(dtype, d))
     stages = ring_stages(d)
@@ -274,8 +279,6 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
 WIDE_SLAB = 256       # columns of O a 16-bit CTA holds: wgmma's widest N (kWideSlab)
 WIDE_RING = 4         # stages of the ring of Q and K chunks (kWideRing)
 WIDE_V_STAGES = 2     # stages of the ring of V slabs (kWideVStages)
-F32_WIDE_CHUNK = 64   # columns of an f32 CTA's q and k chunks (kF32WideChunk)
-F32_WIDE_SLAB = 256   # columns of O an f32 CTA holds (kF32WideSlab)
 WIDE_BOX_BYTES = WIDE_BOX * WIDE_BOX * 2  # a 64 x 64 box of 16-bit values (kWideBoxBytes)
 
 
@@ -287,28 +290,104 @@ def wide_slabs(d: int, width: int) -> int:
 
 
 def wide_plan(dtype: torch.dtype, bh: int, s: int, d: int) -> TriPlan:
-    """How both forwards launch at a head dim ``d`` above ``MAX_HEAD_DIM``
-    (a multiple of 64): q tiles of 64 rows, and ``col_split`` slabs of
-    ``slab`` columns of O on the grid's z, each CTA forming the whole score
-    tile: ``(slabs + 1) / 2`` times the ideal tensor-core work. bf16 and
-    fp16: one consumer warpgroup and a producer warp that streams Q and K
-    in 64 x 64 boxes through a ring of ``stages`` (``WIDE_RING``) and each
-    key tile's V slab through ``WIDE_V_STAGES`` more; shared memory for
-    both rings, the slabs' staged segment ids (the general kernel's; the
-    triangle's layout is the same), 1 KiB of alignment slack and the
-    barriers; grid (bh, q tiles), the triangle heaviest first; the 128-byte
-    swizzle. f32: the CUDA-core kernel with 64-column q and k chunks through
-    shared memory, ``F32_WIDE_SLAB``-column slabs (slab and q tile on the
-    grid's x), rows on y and z."""
+    """How both 16-bit forwards launch at a head dim ``d`` above
+    ``MAX_HEAD_DIM`` (a multiple of 64): q tiles of 64 rows, and
+    ``col_split`` slabs of ``slab`` columns of O on the grid's z, each CTA
+    forming the whole score tile: ``(slabs + 1) / 2`` times the ideal
+    tensor-core work; one consumer warpgroup and a producer warp that
+    streams Q and K in 64 x 64 boxes through a ring of ``stages``
+    (``WIDE_RING``) and each key tile's V slab through ``WIDE_V_STAGES``
+    more; shared memory for both rings, the slabs' staged segment ids (the
+    general kernel's; the triangle's layout is the same), 1 KiB of
+    alignment slack and the barriers; grid (bh, q tiles), the triangle
+    heaviest first; the 128-byte swizzle. (f32 there: :func:`f32_cluster_plan`.)"""
     tiles = -(-s // 64)
-    if dtype == torch.float32:
-        smem = 4 * (2 * 64 * (F32_WIDE_CHUNK + 1) + 64 * (F32_WIDE_SLAB + 1) + 64 * 65) + 4 * 64
-        return TriPlan(64, 256, (tiles, bh), smem, 0, wide_slabs(d, F32_WIDE_SLAB),
-                       F32_WIDE_SLAB, 0)
     smem = (1024 + WIDE_RING * 2 * WIDE_BOX_BYTES
             + WIDE_V_STAGES * (WIDE_SLAB // WIDE_BOX) * WIDE_BOX_BYTES
             + WIDE_V_STAGES * (RECT_TILE + 2) * 4 + 8 * (2 * WIDE_RING + 2 * WIDE_V_STAGES))
     return TriPlan(64, 160, (bh, tiles), smem, 128, wide_slabs(d, WIDE_SLAB), WIDE_SLAB, WIDE_RING)
+
+
+# the f32 cluster kernels' layout at head dims 256 and above (flash_cluster.cuh;
+# flash_fwd.cu built with -DFLASH_HEAD_DIM_WIDE, and the f32 backward pair's
+# above 576)
+F32_CLUSTER_MIN_D = 256  # the least head dim of the f32 forward's cluster kernels
+F32_TILE = 64        # q rows and keys of an f32 tile (kF32WideTile)
+F32_CHUNK = 64       # columns of an f32 foreign chunk (kF32WideChunk)
+F32_SLAB = 128       # columns of each output an f32 CTA holds (kF32WideSlab)
+F32_STAGES = 2       # stages of the f32 streamed ring (kF32WideStages)
+F32_CLUSTER = 8      # the most CTAs of an f32 cluster, the portable limit (kF32WideCluster)
+F32_SHORT_ROWS = 16  # the q rows of an f32 forward CTA for a call of at most 16
+
+
+def f32_wide_geometry(d: int) -> Tuple[int, int, int]:
+    """(n, g, c) of the f32 cluster kernels at head dim ``d``
+    (flash_cluster.cuh's ``F32WideGeo``): n slabs of ``F32_SLAB`` columns,
+    the last starting at d - slab, in g clusters of c CTAs a tile (c at most
+    ``F32_CLUSTER``: one cluster up to n = 8, d 1024); the grid holds g·c
+    CTAs a tile, those past the n-th writing nothing. Each cluster forms a
+    tile pair's scores once, so they are formed g times per tile pair."""
+    n = wide_slabs(d, F32_SLAB)
+    g = -(-n // F32_CLUSTER)
+    return n, g, -(-n // g)
+
+
+def f32_wide_columns(d: int, z: int) -> Tuple[range, List[int]]:
+    """The columns CTA ``z`` of a tile writes (its slab's own: the write
+    rule, none past the n-th slab) and the columns it sums into its partial
+    scores (flash_cluster.cuh's ``F32WideCols``): its own, and every c-th of
+    the 64-column chunks its cluster writes none of, from its rank on; so
+    the CTAs of one cluster sum each column of ``d`` once."""
+    _, _, c = f32_wide_geometry(d)
+    rank = z % c
+    own = range(min(z * F32_SLAB, d), min(z * F32_SLAB + F32_SLAB, d))
+    first = (z - rank) * F32_SLAB
+    cluster = range(first, min(first + c * F32_SLAB, d))
+    foreign = [c0 for c0 in range(0, d, F32_CHUNK) if c0 not in cluster]
+    summed = list(own) + [col for c0 in foreign[rank::c] for col in range(c0, c0 + F32_CHUNK)]
+    return own, summed
+
+
+def f32_rows(sq: int) -> int:
+    """The q rows of an f32 forward CTA at head dims 256 and above: 64, or
+    ``F32_SHORT_ROWS`` for a call of at most 16 q rows (serving's prefill
+    chunk, which would leave most of 64 rows dead); chosen from ``sq``, not
+    a knob (f32_rows in flash_fwd.cu)."""
+    return F32_SHORT_ROWS if sq <= F32_SHORT_ROWS else F32_TILE
+
+
+def f32_cluster_smem(block_m: int) -> int:
+    """Shared memory of an f32 forward cluster CTA of ``block_m`` q rows
+    (f32_cluster_smem_bytes in flash_fwd.cu): its Q slab, two stages of the
+    streamed K and V slabs, the partial scores (64 x 64), P (block_m x 64)
+    and a float4 of row statistics a q row."""
+    return 4 * (block_m * F32_SLAB + F32_STAGES * 2 * F32_TILE * F32_SLAB + F32_TILE * F32_TILE
+                + block_m * F32_TILE + 4 * block_m)
+
+
+def f32_cluster_plan(bh: int, sq: int, d: int) -> TriPlan:
+    """How both f32 forwards launch at a head dim ``d`` of 256 and above
+    (a multiple of 64): q tiles of :func:`f32_rows` rows, 256 threads a
+    CTA, one CTA per ``F32_SLAB``-column slab of O, the ``col_split`` CTAs
+    of a tile in thread-block clusters of ``cluster``
+    (:func:`f32_wide_geometry`); grid (q tiles, bh rows), ``col_split``
+    CTAs a q tile on x (the triangle's q tiles heaviest first), rows in z
+    slices of 65,535. Each CTA sums a partial score tile over the columns
+    it owns and the cluster adds them through distributed shared memory, so
+    a tile pair's scores are formed once up to d 1024; ``stages`` of the
+    streamed K and V slabs; shared memory :func:`f32_cluster_smem`."""
+    rows = f32_rows(sq)
+    _, g, c = f32_wide_geometry(d)
+    return TriPlan(rows, 256, (-(-sq // rows), bh), f32_cluster_smem(rows), 0, g * c, F32_SLAB,
+                   F32_STAGES, c)
+
+
+def apart(a: Sequence[int], b: Sequence[int]) -> bool:
+    """Whether two tiles' segment ids (each tile's positions inside s) are
+    one document each, and different ones: the pair holds no live (q, k)
+    pair, and the kernels skip it (``apart`` in flash_bwd.cu, the f32
+    forward's walk in flash_fwd.cu)."""
+    return len(set(a)) == 1 and len(set(b)) == 1 and set(a) != set(b)
 
 
 RECT_TILE = 64  # keys of a ring tile of the 16-bit general kernel (kRingRows in hopper.cuh)
@@ -338,6 +417,7 @@ class RectPlan:
     col_split: int = 1
     slab: int = 0
     stages: int = 0
+    cluster: int = 1
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
@@ -389,8 +469,20 @@ class RectPlan:
                seg: Optional[torch.Tensor] = None) -> List[Tuple[int, int, str]]:
         """(64-row q slice, 64-key tile, kind) of every product block (x,
         y) of the 16-bit kernel computes, in its order: each warpgroup's slice
-        skips a dead tile."""
+        skips a dead tile. The f32 cluster kernels (``cluster`` > 1): (q tile
+        of ``block_m`` rows, 64-key tile, "masked") of every tile pair each
+        of the tile's ``col_split`` CTAs walks, the same for all of them: the
+        walk, less a key tile whose documents cannot meet the q tile's
+        (:func:`apart`; ``seg`` one batch row's ids); every pair is masked
+        per element."""
         tile = self.cta(x, y)[1]
+        if self.cluster > 1:
+            ids = None if seg is None else seg.tolist()
+            q0 = tile * self.block_m
+            return [(tile, k, "masked") for k in self.walk(tile)
+                    if ids is None or not apart(ids[q0:min(q0 + self.block_m, self.sq)],
+                                                ids[k * RECT_TILE:min((k + 1) * RECT_TILE,
+                                                                      self.sk)])]
         slices = [tile * self.block_m // 64 + w for w in range(self.block_m // 64)]
         out = []
         for k in self.walk(tile):
@@ -417,8 +509,9 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
     triangle's swizzle, and at d 512 and 576 its one stage and column
     slices. f32
-    keeps the CUDA-core kernel's fixed plan, the triangle's. The kernel
-    checks the plan against its own layout and refuses one that differs."""
+    keeps the CUDA-core kernels' plans, the triangle's (at d 256 and above
+    its q tiles in natural order). The kernel checks the plan against its
+    own layout and refuses one that differs."""
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
     tri = tri_plan(dtype, bh, sq, d, sms, block_m)
     smem = tri.smem_bytes
@@ -427,7 +520,7 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
         smem = (1024 + (tri.block_m + 2 * stages * RECT_TILE) * d * 2
                 + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
     return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
-                    tri.col_split, tri.slab, tri.stages)
+                    tri.col_split, tri.slab, tri.stages, tri.cluster)
 
 
 @functools.cache
@@ -483,7 +576,10 @@ def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
     ``_d512`` or ``_d576`` after either at d 512 or 576, ``_wide`` above 576
-    (``build.VARIANTS``)."""
+    (``build.VARIANTS``); the f32 forward at d 256 and above:
+    ``flash_fwd_wide`` (its cluster kernels)."""
+    if source == "flash_fwd" and dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
+        return "flash_fwd_wide"
     return (source + ("_f16" if dtype == torch.float16 else "")
             + ("_wide" if is_wide(d) else f"_d{d}" if d in (512, 576) else ""))
 
@@ -506,6 +602,21 @@ def _load(name: str) -> ctypes.CDLL:
                                    i32, i32, i32, i32, i32, i32, f32, i32, i32, i32, ptr]
     lib.flash_fwd_rect.restype = i32
     return lib
+
+
+def f32_active_clusters(d: int, tri: bool, block_m: int) -> int:
+    """How many clusters of the f32 forward cluster kernel (the triangle's
+    with ``tri``, else the general one's) at head dim ``d`` (256 and above, a
+    multiple of 64) and ``block_m`` q rows the current card holds at once:
+    ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
+    cluster size. Raises where the query fails."""
+    fn = _lib(torch.float32, d).flash_fwd_f32_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    n = fn(int(tri), d, block_m)
+    if n <= 0:
+        raise RuntimeError(f"f32 forward at head dim {d}, {block_m} rows: cluster occupancy "
+                           f"query returned {n}")
+    return n
 
 
 def _raise_on(code: int, name: str) -> None:

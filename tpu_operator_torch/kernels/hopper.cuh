@@ -226,10 +226,11 @@ constexpr bool kWithF32 = kElemCode == 1;
 
 // The head dims a library holds: built with -DFLASH_HEAD_DIM_512 (kernels/
 // build.py's *_d512 libraries), D 512 alone, in its 16-bit type and (bf16
-// library) f32; with -DFLASH_HEAD_DIM_576 (*_d576), D 576 alone; built with
-// neither, 16 to 256. So a caller at D <= 256 never compiles the wide
-// kernels, nor one at D 512 those of 576 (each source's dispatch switch
-// reads the macros).
+// library) the f32 backward pair; with -DFLASH_HEAD_DIM_576 (*_d576), D 576
+// alone; built with neither, 16 to 256 (the f32 forward up to 128: from 256
+// on it runs in the flash_fwd_wide library's cluster kernels). So a caller
+// at D <= 256 never compiles the wide kernels, nor one at D 512 those of 576
+// (each source's dispatch switch reads the macros).
 
 // Two floats rounded to nearest even into a pair of T, as one 32-bit
 // register: a wgmma A fragment, or two neighbouring elements of a store.
