@@ -30,7 +30,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    failing when one has none, when an instantiation spills registers (a D
    576 or wide library's f32 kernels too: ``flash_fwd_wide`` must hold
    the f32 forward's four cluster instantiations, the triangle and the
-   general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``), or
+   general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``,
+   and ``flash_bwd_wide`` the backward pair's four cluster kernels and the
+   split dK/dV walk's sum, ``F32_BWD_CLUSTER_KERNELS``, each at most 255
+   registers; the D 512 and 576 libraries no f32 kernel), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
@@ -74,10 +77,14 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    at (1,4096,8,576); f32 (2,128,4,576) and serving's f32 prefill chunk;
    ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
    520; the general f32 forward at (2,128,4,576) with a window of 33 and
-   segments); the f32 forwards at head dims 256 and above run in
-   thread-block clusters (each such row also logs its q tile height and
-   the clusters resident), with two rows past launch-bound sizes,
-   (1,2048,8,512) and (1,2048,8,1024) with one kv head; rows above 576
+   segments); the f32 forwards and backward pairs at head dims 256 and
+   above run in thread-block clusters (each such row also logs its q tile
+   height or dK/dV's GQA split and the clusters resident; a backward row
+   runs each kernel twice for the same bits and, where the plan splits
+   the walk, times dK/dV at split 1 too, ``_f32_split_check``), with rows
+   past launch-bound sizes, the forward at (1,2048,8,512) and
+   (1,2048,8,1024) and the backward pair at (1,2048,8,256) and
+   (1,2048,8,512), each with one kv head; rows above 576
    on the D-streaming kernels (``WIDE_KERNEL_CASES``,
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
@@ -272,7 +279,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (the general pairs, not cut) held to the dense path under the
    documents' mask on the card; (b) f32 ``flash_attention`` gradients at
    (1,256,2,256) against autograd through dense attention within 1e-4,
-   plain causal and with a window and two segments; (c) serving at head
+   plain causal and with a window and two segments, each f32 cluster
+   kernel launched exactly once per case (``_f32_pair_launches``); (c) serving at head
    dim 256 (``ServingModelConfig(head_dim=256, use_flash_prefill=True)``,
    f32): phase 5's 16 requests with dense prefill's greedy tokens, 48
    ``flash_fwd_rect`` launches; (d) Phi-3-mini's widths (``PHI3_MINI``:
@@ -308,7 +316,7 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    under the documents' mask, and ``dtype: float16`` against the fp16 dense path;
    (b) f32 ``flash_attention`` gradients at (1,256,2,512) against autograd
    through dense attention within 1e-4, plain causal and with a window of
-   128 and two segments; (c) serving at head dim 512
+   128 and two segments, exact launches as phase 15's; (c) serving at head dim 512
    (``ServingModelConfig(head_dim=512, use_flash_prefill=True)``, f32):
    phase 5's 16 requests with dense prefill's greedy tokens, 48
    ``flash_fwd_rect`` launches; (d) the zero-padded route at 384 is phase
@@ -622,16 +630,32 @@ def wide_f16_label(mangled: str):
 F32_CLUSTER_INSTANTIATIONS = ("fwd_tri_64", "fwd_tri_16", "fwd_rect_64", "fwd_rect_16")
 
 
+# and the backward pair's at head dims 256 and above in flash_bwd_wide: dQ and
+# dK/dV under both masks, and the kernel that adds a split dK/dV walk's parts
+F32_BWD_CLUSTER_KERNELS = tuple(
+    f"flash_bwd_{kind}_{pair}_wide_f32_kernel" for kind in ("dq", "dkv") for pair in ("tri", "rect")
+) + ("flash_bwd_dkv_split_sum_kernel",)
+
+
 def f32_label(mangled: str):
     """A label for an f32 CUDA-core kernel of a wide library: the forward's
     ``flash_fwd_f32_cluster_kernel<TRI, BM>`` as ``fwd_tri_<BM>`` or
     ``fwd_rect_<BM>``, the backward pair's by name
-    (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``); else None."""
+    (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``,
+    ``flash_bwd_dkv_split_sum_kernel``); else None."""
     found = re.search(r"flash_fwd_f32_cluster_kernelILb([01])ELi(\d+)E", mangled)
     if found:
         return f"fwd_{'tri' if found.group(1) == '1' else 'rect'}_{found.group(2)}"
-    found = re.search(r"(flash_bwd_(?:dq|dkv)_(?:tri|rect)_wide_f32_kernel)", mangled)
+    found = re.search(r"(flash_bwd_(?:(?:dq|dkv)_(?:tri|rect)_wide_f32|dkv_split_sum)_kernel)",
+                      mangled)
     return found.group(1) if found else None
+
+
+def whole_row_f32(mangled: str) -> bool:
+    """Whether a kernel is an instantiation of the whole-row f32 CUDA-core
+    kernels (``flash_{fwd,bwd}_*_kernel<float, D>``), which only the base
+    libraries hold (D 16-128)."""
+    return re.search(r"flash_(?:fwd|bwd)_\w+_kernelIfLi\d+E", mangled) is not None
 
 
 def tri_bwd_bf16_label(mangled: str):
@@ -657,8 +681,9 @@ TENSOR_CORE_KERNELS = {
 # and at head dim 256, one warpgroup only: per library, how many more
 HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
 # the head dim 512 libraries (kernels/build.py VARIANTS: both flash sources
-# built with -DFLASH_HEAD_DIM_512, bf16 beside f32, and fp16): one
-# warpgroup's instantiation of each tensor-core kernel, and no other
+# built with -DFLASH_HEAD_DIM_512, bf16 and fp16; f32 at 512 runs in the wide
+# libraries' cluster kernels): one warpgroup's instantiation of each
+# tensor-core kernel, and no other
 HEAD_DIM_512_INSTANTIATIONS = {"flash_fwd_d512": 2, "flash_bwd_d512": 4,
                                "flash_fwd_f16_d512": 2, "flash_bwd_f16_d512": 4}
 # and the head dim 576 libraries (-DFLASH_HEAD_DIM_576), likewise; every
@@ -757,9 +782,21 @@ def phase_build() -> dict:
             f32 = {f32_label(k): v for k, v in per_function.items() if f32_label(k)}
             log(f"  {name} f32 kernels: ptxas {f32}")
             out[f"{name}_f32_ptxas"] = f32
-            if name == "flash_fwd_wide" and sorted(f32) != sorted(F32_CLUSTER_INSTANTIATIONS):
+            want = {"flash_fwd_wide": F32_CLUSTER_INSTANTIATIONS,
+                    "flash_bwd_wide": F32_BWD_CLUSTER_KERNELS}.get(name, ())
+            if sorted(f32) != sorted(want):
                 raise RuntimeError(f"{name}: f32 cluster kernels {sorted(f32)}, expected "
-                                   f"{sorted(F32_CLUSTER_INSTANTIATIONS)}")
+                                   f"{sorted(want)}")
+            # every f32 cluster kernel at most 255 registers a thread (one CTA an SM)
+            wide_regs = {k: v for k, v in f32.items() if (v.get("registers") or 256) > 255}
+            if wide_regs:
+                raise RuntimeError(f"{name}: f32 cluster kernels past 255 registers: {wide_regs}")
+        if name in WIDE_INSTANTIATIONS:
+            # f32 at 512 and 576 runs in the wide library: no f32 kernel here
+            stray = sorted(k for k in per_function if whole_row_f32(k))
+            if stray:
+                raise RuntimeError(f"{name}: holds f32 kernels {stray}; f32 at head dims 256 "
+                                   f"and above is the wide library's cluster pair")
         spilled = {k: v for k, v in held.items() if v.get("spill_stores") or v.get("spill_loads")}
         if spilled:
             raise RuntimeError(f"{name}: {dtype} instantiations spill registers: {spilled}")
@@ -1052,7 +1089,8 @@ BWD_CASES = [
 HEAD_DIM_BWD_CASES = [
     # head dim 256 (phase 15): Gemma-2B's train step at its context, plain
     # causal and packed, GQA group 8 (dK/dV: two warpgroups on the two
-    # halves of the head dim); full attention; f32 (32-row tiles)
+    # halves of the head dim); full attention; f32 (the cluster pair: two
+    # slab CTAs a tile), at (1,2048,8,256) with one kv head its GQA split
     dict(pair="tri", label="gemma-2b bf16 (1,8192,8,256) h_kv 1", q=(1, 8192, 8, 256),
          h_kv=1, dtype=torch.bfloat16, inner=1, main=True),
     dict(pair="rect", label="gemma-2b packed bf16 (1,8192,8,256) h_kv 1 2 segments",
@@ -1063,6 +1101,8 @@ HEAD_DIM_BWD_CASES = [
     dict(pair="tri", label="f32 (2,128,4,256)", q=(2, 128, 4, 256), dtype=torch.float32),
     dict(pair="rect", label="f32 (2,128,4,256) window 33, segments cut 88", q=(2, 128, 4, 256),
          dtype=torch.float32, causal=True, window=33, cut=88),
+    dict(pair="tri", label="f32 (1,2048,8,256) h_kv 1", q=(1, 2048, 8, 256), h_kv=1,
+         dtype=torch.float32, inner=2),
 ] + [
     # the zero-padded route: Phi-3-mini's train step (96 -> 128), 80 and 112
     dict(pair="tri", label="phi-3-mini bf16 (1,4096,32,96) padded to 128",
@@ -1170,6 +1210,9 @@ HEAD_DIM_512_BWD_CASES = [
     dict(pair="tri", label="f32 (2,128,4,512)", q=(2, 128, 4, 512), dtype=torch.float32),
     dict(pair="rect", label="f32 (2,128,4,512) window 33, segments cut 88", q=(2, 128, 4, 512),
          dtype=torch.float32, causal=True, window=33, cut=88),
+    # DeepSeek-V4-Flash's head layout in f32, where dK/dV's GQA walk splits
+    dict(pair="tri", label="f32 (1,2048,8,512) h_kv 1", q=(1, 2048, 8, 512), h_kv=1,
+         dtype=torch.float32, inner=2),
     dict(pair="tri", label="ragged bf16 (2,100,4,512) h_kv 2", q=(2, 100, 4, 512), h_kv=2,
          dtype=torch.bfloat16),
     dict(pair="rect", label="ragged bf16 (2,1000,4,512) h_kv 2, segments cut 333",
@@ -1360,8 +1403,9 @@ def _backward_rows(gen) -> list:
     error must stay below that twin's; not so where the gradients are fp16
     subnormals (``dout_scale``): there fp16 keeps fewer bits than bf16."""
     from tpu_operator_torch.kernels import flash_bwd
-    from tpu_operator_torch.kernels.flash_fwd import (TENSOR_CORE_DTYPES, f32_wide_geometry,
-                                                      is_wide, keep_mask, padded_head_dim)
+    from tpu_operator_torch.kernels.flash_fwd import (F32_CLUSTER_MIN_D, TENSOR_CORE_DTYPES,
+                                                      f32_wide_geometry, keep_mask,
+                                                      padded_head_dim)
 
     rows = []
     for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
@@ -1434,12 +1478,20 @@ def _backward_rows(gen) -> list:
                 f"{stats['other_dkv_ms']:.5f} ms)" if "other_blocks" in stats else
                 " (no other tile height at this head dim)")
         width = padded_head_dim(d)
-        if case["dtype"] == torch.float32 and is_wide(width):
-            # the f32 pair's thread-block clusters resident on the card at once
+        if case["dtype"] == torch.float32 and width >= F32_CLUSTER_MIN_D:
+            # the f32 pair's thread-block clusters resident on the card at once,
+            # dK/dV's GQA split, and the split's bits and worth
             tri = case["pair"] == "tri"
             stats["active_clusters"] = {k: flash_bwd.f32_wide_active_clusters(width, k, tri)
                                         for k in ("dq", "dkv")}
-            rate += f", clusters of {f32_wide_geometry(width)[2]} resident {stats['active_clusters']}"
+            qp, kp, vp, doutp, lse, delta, extra, scale = run["kernels"]
+            stats.update(_f32_split_check(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
+                                          extra, want, inner, d, stats["active_clusters"]["dkv"],
+                                          scale))
+            rate += (f", clusters of {f32_wide_geometry(width)[2]} resident "
+                     f"{stats['active_clusters']}, dkv split {stats['split']}")
+            if "split_1_dkv_ms" in stats:
+                rate += f" (at split 1: dkv {stats['split_1_dkv_ms']:.5f} ms)"
         if twin:
             rate += (f"; bf16 on the same inputs: rel err {twin['bf16_twin_rel_err']:.3g} (fp16 "
                      f"{max(errs) / grad_scale:.3g}, {twin['err_in_subnormal_steps']:.3g} "
@@ -1497,9 +1549,10 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
 
     def run(kernel: str, outputs, rows: int, plan):
         # on the current stream, which a graph capture switches
+        split = (None, 1) if kernel == "dkv" else ()
         code = getattr(lib, f"flash_bwd_{kernel}_{pair}")(
             *common, *seg, *outputs, dtype, rows, s, d, h, h_kv, *masks, *scales, plan.block,
-            plan.smem_bytes, plan.swizzle, torch.cuda.current_stream().cuda_stream)
+            plan.smem_bytes, plan.swizzle, *split, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"flash_bwd_{kernel}_{pair} at block {plan.block}: error {code}")
 
@@ -1519,6 +1572,87 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     return {"blocks": [p.block for p in picked], "other_blocks": [p.block for p in other],
             "other_dq_ms": device_ms(run_dq, inner), "other_dkv_ms": device_ms(run_dkv, inner),
             "other_max_abs_err": max(errs)}
+
+
+def f32_dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h_kv: int,
+                     extra: tuple = (), sm_scale: float = None) -> tuple:
+    """dK/dV of the f32 cluster pair (``pair`` "tri" or "rect", masks
+    ``extra`` = (causal, window, seg)) with its GQA walk in ``split`` parts,
+    through the library with a plan made by hand (the wrappers take the
+    card's split; no launch is counted): (run, dk, dv), ``run()`` launching
+    on the current stream into dk and dv and raising on a refused launch."""
+    from tpu_operator_torch.kernels import flash_bwd, flash_fwd
+
+    bh, s, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if pair == "tri":
+        _, plan = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms)
+    else:
+        _, plan = flash_bwd.rect_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, *extra[:2])
+    plan = dataclasses.replace(plan, grid=(plan.grid[0], k.shape[0] * split), split=split)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    shape = plan.workspace(s, d)
+    parts = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
+    lib = flash_bwd._lib(q.dtype, d)
+    seg = () if pair == "tri" else (None if extra[2] is None else extra[2].data_ptr(),)
+    masks = () if pair == "tri" else (int(extra[0]), 0 if extra[1] is None else int(extra[1]))
+    softmax = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+
+    def run():
+        code = getattr(lib, f"flash_bwd_dkv_{pair}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *seg, dk.data_ptr(), dv.data_ptr(), 0, k.shape[0], s, d, h, h_kv,
+            *masks, flash_fwd.LOG2E * softmax, softmax, plan.block, plan.smem_bytes,
+            plan.swizzle, None if parts is None else parts.data_ptr(), split,
+            torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"flash_bwd_dkv_{pair} at split {split}: error {code}")
+
+    return run, dk, dv
+
+
+def _f32_split_check(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
+                     want, inner: int, d_true: int, clusters: int,
+                     sm_scale: float = None) -> dict:
+    """The f32 cluster pair's dK/dV GQA split (``pair`` "tri" or "rect",
+    masks ``extra`` = (causal, window, seg)) at the plan's split for the
+    card's resident dK/dV ``clusters``: both kernels run twice through
+    their wrappers give the same bits (no atomics, the partials added in
+    part order); where the plan splits the walk, dK/dV at split 1 too
+    (:func:`f32_dkv_at_split`), held to ``want`` at ``F32_TOL`` and timed
+    beside it. ``q`` ... ``dout`` are the kernels' (padded) inputs,
+    ``d_true`` the head dim ``want`` has."""
+    from tpu_operator_torch.kernels import flash_bwd
+
+    bh, s, d = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if pair == "tri":
+        _, plan = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, clusters=clusters)
+    else:
+        _, plan = flash_bwd.rect_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, *extra[:2],
+                                          clusters=clusters)
+    dq_fn = getattr(flash_bwd, f"flash_bwd_dq_{pair}")
+    dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{pair}")
+    args = (q, k, v, None, dout, lse, delta, h, h_kv, *extra)
+    first = (dq_fn(*args, sm_scale=sm_scale), *dkv_fn(*args, sm_scale=sm_scale))
+    second = (dq_fn(*args, sm_scale=sm_scale), *dkv_fn(*args, sm_scale=sm_scale))
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    if not all(same):
+        raise RuntimeError(f"f32 {pair} pair at split {plan.split}: two runs differ in dq/dk/dv "
+                           f"{same}")
+    out = {"split": plan.split, "same_bits": True}
+    if plan.split == 1:
+        return out
+    run_dkv, dk, dv = f32_dkv_at_split(pair, 1, q, k, v, dout, lse, delta, h, h_kv, extra,
+                                       sm_scale)
+    run_dkv()
+    torch.cuda.synchronize()
+    errs = [err(w, g[..., :d_true]) for w, g in zip(want[1:], (dk, dv))]
+    if not max(errs) <= F32_TOL:
+        raise RuntimeError(f"f32 {pair} dK/dV at split 1 disagrees: dk/dv err {errs}")
+    out.update(split_1_dkv_ms=device_ms(run_dkv, inner), split_1_max_abs_err=max(errs))
+    return out
 
 
 TRIAD_ALPHA = 0.3  # not a power of two, so every product rounds
@@ -4450,6 +4584,18 @@ def _f32_grads_at(d: int, window, device: str = "cuda", full: bool = False) -> d
     return out
 
 
+def _f32_pair_launches(phase: str) -> dict:
+    """The launches since ``zero_launches`` of an ``_f32_grads_at`` run with
+    a window (the triangle pair and the general pair, one launch of each
+    kernel), raising on any other count."""
+    counts = read_launches()
+    want = {"flash_bwd_dq_tri": 1, "flash_bwd_dkv_tri": 1, "flash_bwd_dq_rect": 1,
+            "flash_bwd_dkv_rect": 1}
+    if any(counts[k] != n for k, n in want.items()):
+        raise RuntimeError(f"{phase} f32 gradients: backward launches {counts}, want {want}")
+    return counts
+
+
 def _serving_at(out: dict, head_dim: int, phase: str) -> None:
     """The default serving geometry at ``head_dim`` (f32): flash prefill
     (the general kernel) against dense prefill, phase 5's 16 requests;
@@ -4526,8 +4672,10 @@ def phase_head_dims() -> dict:
     out["paths"]["head dims gemma-2b packed"] = out["gemma_packed"].pop("launches")
     out["gemma_packed"]["forward_gap"] = _forward_gap(packed, packed, _dense_packed_attention)
     _free_card()
-    # (b) f32 gradients at head dim 256
+    # (b) f32 gradients at head dim 256: the cluster pairs, once per case
+    zero_launches()
     out["f32_grads_256"] = _f32_grads_at(256, 40)
+    out["paths"]["head dims f32 grads d256"] = _f32_pair_launches("head dims")
     log(f"head dims f32 (1,256,2,256) flash_attention gradients vs dense, max abs err "
         f"{out['f32_grads_256']}")
     # (c) serving at head dim 256
@@ -4836,8 +4984,10 @@ def _wide_head_phase(smi: str, config: dict, name: str, key: str, d: int, number
     out["paths"][f"{phase} {name} fp16"] = out[f"{key}_f16"].pop("launches")
     out[f"{key}_f16"]["forward_gap"] = _forward_gap(f16, f16_dense)
     _free_card()
-    # (b) f32 gradients at the head dim
+    # (b) f32 gradients at the head dim: the cluster pairs, once per case
+    zero_launches()
     out[f"f32_grads_{d}"] = _f32_grads_at(d, 128)
+    out["paths"][f"{phase} {name} f32 grads"] = _f32_pair_launches(phase)
     log(f"{phase} f32 (1,256,2,{d}) flash_attention gradients vs dense, max abs err "
         f"{out[f'f32_grads_{d}']}")
     # (c) serving at the head dim
@@ -5030,6 +5180,13 @@ def main(argv=None) -> int:
     cluster = {f"flash_fwd_{pair}": {f"flash_fwd_f32_cluster_kernel<{pair == 'tri'}, {rows}>"
                                      .lower(): f32_fwd[f"fwd_{pair}_{rows}"] for rows in (64, 16)}
                for pair in ("tri", "rect")}
+    # and the backward pairs' at head dims 256 and above (dK/dV with its split's sum)
+    f32_bwd = results["build"]["flash_bwd_wide_f32_ptxas"]
+    for kind in ("dq", "dkv"):
+        for pair in ("tri", "rect"):
+            names = [f"flash_bwd_{kind}_{pair}_wide_f32_kernel"] + (
+                ["flash_bwd_dkv_split_sum_kernel"] if kind == "dkv" else [])
+            cluster[f"flash_bwd_{kind}_{pair}"] = {k: f32_bwd[k] for k in names}
     line = kernels_line(results["kernels"], paths,
                         {k: {"hgmma": v, "hgmma_fp16": hgmma16[k],
                              "hgmma_d512": wide.get(("d512", k), {}),

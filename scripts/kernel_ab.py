@@ -2,7 +2,7 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_wide_f32 [--json PATH]
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_f32 [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). The families:
@@ -14,9 +14,10 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
   every f32 case of head dim 256 and above (padded) in this tree's
   ``chip_smoke`` forward tables, held to ``attention_plain`` (O 1e-4, lse
   1e-3);
-- ``bwd_wide_f32``: the f32 D-streaming backward pair (head dims above 576)
-  at every f32 case of this tree's ``chip_smoke.WIDE_BWD_CASES``, its dQ, dK
-  and dV held to ``attention_bwd_plain`` (1e-4 absolute), each kernel timed.
+- ``bwd_f32``: both f32 backward pairs (``flash_bwd_dq_*``,
+  ``flash_bwd_dkv_*``) at every f32 case of head dim 256 and above (padded)
+  in this tree's ``chip_smoke`` backward tables, dQ, dK and dV held to
+  ``attention_bwd_plain`` (1e-4 absolute), each kernel timed.
 
 A process of its own imports ``tpu_operator_torch`` from one tree (building
 that tree's kernels there), checks each case on the same seeded inputs and
@@ -90,14 +91,18 @@ def _fwd_f32(smoke) -> dict:
                         and flash_fwd.padded_head_dim(c["q"][3]) >= 256], smoke.F32_TOL)
 
 
-def _bwd_wide_f32(smoke) -> dict:
-    """The f32 D-streaming backward pair's cases: {label: {ok, errs,
-    dq_ms, dkv_ms}}."""
+def _bwd_f32(smoke) -> dict:
+    """Both f32 backward pairs' cases at head dims 256 and above (padded):
+    {label: {ok, errs, dq_ms, dkv_ms}}."""
     import torch
 
+    from tpu_operator_torch.kernels import flash_fwd
+
+    tables = (smoke.HEAD_DIM_BWD_CASES + smoke.HEAD_DIM_512_BWD_CASES
+              + smoke.HEAD_DIM_576_BWD_CASES + smoke.WIDE_BWD_CASES)
     results = {}
-    for case in smoke.WIDE_BWD_CASES:
-        if case["dtype"] != torch.float32:
+    for case in tables:
+        if case["dtype"] != torch.float32 or flash_fwd.padded_head_dim(case["q"][3]) < 256:
             continue
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, seg = smoke._case_inputs(case, gen)
@@ -119,7 +124,7 @@ def _bwd_wide_f32(smoke) -> dict:
 FAMILIES = {
     "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
     "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
-    "bwd_wide_f32": (_bwd_wide_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
+    "bwd_f32": (_bwd_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
 }
 
 

@@ -97,7 +97,9 @@ def test_plan_constants_match_the_cuda_sources():
     cluster = (KERNELS / "flash_cluster.cuh").read_text()
     assert "__host__ __device__ constexpr int f32_rows(int sq) { return sq <= 16 ? 16 : " \
            "kF32WideTile; }" in fwd
-    assert "return d >= 256 && d % kF32WideChunk == 0;" in fwd
+    # the cluster kernels' head dims, shared with the backward pair
+    assert "return d >= 256 && d % kF32WideChunk == 0;" in cluster
+    assert "constexpr bool f32_cluster_head_dim(int d)" not in fwd + bwd
     assert flash_fwd.F32_CLUSTER_MIN_D == 256 and flash_fwd.F32_SHORT_ROWS == 16
     # f32_cluster_smem_bytes<BM>, term by term as flash_fwd.f32_cluster_smem
     assert ("return 4 * (BM * kF32WideSlab + kF32WideStages * 2 * kF32WideTile * kF32WideSlab +\n"

@@ -8,11 +8,11 @@ its card tests run on a machine with a card and no JAX:
 Head dim 256 runs 64-row tiles only in bf16 (a 128-row plan's tiles pass
 a block's 232,448 bytes of shared memory, or a thread's registers); its
 dK/dV kernel has two consumer warpgroups per 64 keys, each on half the
-head dim; the f32 backward pair takes 32-row tiles there. Head dim 512
+head dim; f32 at 256 and above runs the slab-cluster kernels of the wide
+library, forward and backward. Head dim 512
 runs 64-row tiles, a one-stage ring (32-row tiles in the backward pairs)
 and two CTAs per tile on the grid's z, one per column half of the
-outputs; the f32 forward takes 16-key tiles there and the f32 backward
-16-row tiles. Head dim 576 (MLA's absorbed heads) runs the 512 design
+outputs. Head dim 576 (MLA's absorbed heads) runs the 512 design
 with three CTAs per tile, one per 192-column third, and dK/dV's two
 consumer warpgroups on two column boxes and one. The CUDA-core
 kernels put rows on the grid's y and split them into z slices of 65,535,
@@ -125,26 +125,30 @@ def test_plans_at_head_dim_256_by_hand():
     assert f["fwd tri"].smem_bytes == 4 * (64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64
                                            + 4 * 64) == 197_632
     assert (f["fwd tri"].col_split, f["fwd tri"].cluster, f["fwd tri"].grid) == (2, 2, (3, 6))
-    assert (f["dq tri"].block, f["dq tri"].grid) == (32, (5, 6))
-    assert f["dq tri"].smem_bytes == 4 * (4 * 32 * 257 + 32 * 33) + 128 == 135_936
-    assert (f["dkv tri"].block, f["dkv tri"].grid) == (32, (5, 3))
-    assert f["dkv tri"].smem_bytes == 4 * (4 * 32 * 257 + 2 * 32 * 33 + 64) + 128 == 140_416
+    # the f32 backward pair's cluster kernels: two resident slabs, two stages of
+    # two streamed slabs, the exchange's two 64 x 64 tiles (dQ: its rows' lse
+    # and delta too); two slab CTAs a cluster
+    assert (f["dq tri"].block, f["dq tri"].grid, f["dq tri"].cluster) == (64, (3, 6), 2)
+    assert f["dq tri"].smem_bytes == 4 * (2 * 64 * 128 + 2 * 2 * 64 * 128 + 2 * 64 * 64
+                                          + 2 * 64) == 229_888
+    assert (f["dkv tri"].block, f["dkv tri"].grid, f["dkv tri"].col_split) == (64, (3, 3), 2)
+    assert f["dkv tri"].smem_bytes == 229_888 - 4 * 2 * 64 == 229_376
 
 
 def test_plan_constants_match_the_cuda_sources():
     fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
     header = (KERNELS / "hopper.cuh").read_text()
-    assert ("__host__ __device__ constexpr int f32_tile(int d) { return d > 256 ? 16 : "
-            "d > 128 ? 32 : 64; }") in bwd
+    # the whole-row f32 pair: 64-row tiles up to 128 only (f32_tile is gone)
+    assert "f32_tile" not in bwd and not hasattr(flash_bwd, "f32_tile")
+    assert bwd.count('static_assert(D <= 128, "f32 at head dims 256 and above: the cluster '
+                     'pair (flash_bwd_wide)");') == 2
     assert "constexpr int kv_split() { return D > 128 ? 2 : 1; }" in bwd
-    assert [flash_bwd.f32_tile(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [
-        64, 64, 64, 64, 32, 16, 16]
     assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2, 2]
-    # every native head dim is dispatched in both libraries, both dtypes (the
-    # f32 forward at 256 and above: the wide library's cluster kernels)
+    # every native head dim is dispatched in both libraries, both dtypes (f32
+    # at 256 and above: the wide library's cluster kernels)
     for src in (fwd, bwd):
         for d in flash_fwd.NATIVE_HEAD_DIMS:
-            both = src is bwd or d < flash_fwd.F32_CLUSTER_MIN_D
+            both = d < flash_fwd.F32_CLUSTER_MIN_D
             assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == (
                 2 if both else 1), d
     # the CUDA-core kernels' rows: y and z slices of 65,535, no row cap
@@ -281,10 +285,11 @@ def test_plans_at_head_dim_512_by_hand():
     f = _all_plans(F32, 512, None, bh=6, s=130)
     assert f["fwd tri"].smem_bytes == f["fwd rect"].smem_bytes == 197_632
     assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].cluster) == (64, 4, 4)
-    assert (f["dq tri"].block, f["dq tri"].grid) == (16, (9, 6))
-    assert f["dq tri"].smem_bytes == 4 * (4 * 16 * 513 + 16 * 17) + 64 == 132_480
-    assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
-    assert f["dkv tri"].smem_bytes == 4 * (4 * 16 * 513 + 2 * 16 * 17 + 32) + 64 == 133_696
+    # the f32 backward pair: four slab CTAs a tile in one cluster
+    assert (f["dq tri"].block, f["dq tri"].grid, f["dq tri"].cluster) == (64, (3, 6), 4)
+    assert f["dq tri"].smem_bytes == 229_888
+    assert (f["dkv tri"].block, f["dkv tri"].grid, f["dkv tri"].col_split) == (64, (3, 3), 4)
+    assert f["dkv tri"].smem_bytes == 229_376
     # below 512 nothing of this changes
     for d in (x for x in flash_fwd.NATIVE_HEAD_DIMS if x < 512):
         assert all(plan.col_split == 1 for plan in _all_plans(BF16, d, None).values()), d
@@ -297,10 +302,11 @@ def test_plan_constants_at_512_match_the_cuda_sources():
     for src in (fwd, bwd):
         assert "constexpr int stages() { return D > 256 ? 1 : kStages; }" in src
         assert "constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }" in src
-    # the D 512 library dispatches D 512 alone, the others 16-256 (the f32
-    # forward: 16-128, its cluster kernels from 256 on in the wide library)
-    assert bwd.count("#ifdef FLASH_HEAD_DIM_512") == 2 and fwd.count("#ifdef FLASH_HEAD_DIM_512") == 1
-    assert "#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)" in fwd
+    # the D 512 library dispatches D 512 alone, the others 16-256 (f32: 16-128,
+    # its cluster kernels from 256 on in the wide libraries)
+    assert bwd.count("#ifdef FLASH_HEAD_DIM_512") == 1 and fwd.count("#ifdef FLASH_HEAD_DIM_512") == 1
+    for src in (fwd, bwd):
+        assert "#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)" in src
     assert "constexpr int ring_rows() { return D > 256 ? 32 : kTile; }" in bwd
     assert "f32_keys" not in fwd
     assert "m64n32k16" in header
@@ -313,7 +319,7 @@ def test_plan_constants_at_512_match_the_cuda_sources():
     assert [flash_bwd.ring_rows(d) for d in dims] == [64, 64, 64, 64, 64, 32, 32]
     assert flash_fwd.library_name("flash_fwd", BF16, 512) == "flash_fwd_d512"
     assert flash_fwd.library_name("flash_bwd", torch.float16, 512) == "flash_bwd_f16_d512"
-    assert flash_fwd.library_name("flash_bwd", F32, 256) == "flash_bwd"
+    assert flash_fwd.library_name("flash_bwd", F32, 256) == "flash_bwd_wide"
     assert flash_fwd.library_name("flash_fwd", F32, 256) == "flash_fwd_wide"
 
 
@@ -447,10 +453,11 @@ def test_plans_at_head_dim_576_by_hand():
     # five 128-column slab CTAs a q tile in one cluster, the last from 448
     assert (f["fwd tri"].block_m, f["fwd tri"].col_split, f["fwd tri"].grid) == (64, 5, (3, 6))
     assert f["fwd tri"].cluster == 5
-    assert (f["dq tri"].block, f["dq tri"].grid) == (16, (9, 6))
-    assert f["dq tri"].smem_bytes == 4 * (4 * 16 * 577 + 16 * 17) + 64 == 148_864
-    assert (f["dkv tri"].block, f["dkv tri"].grid) == (16, (9, 3))
-    assert f["dkv tri"].smem_bytes == 4 * (4 * 16 * 577 + 2 * 16 * 17 + 32) + 64 == 150_080
+    # the f32 backward pair: five slab CTAs a tile in one cluster, as the forward
+    assert (f["dq tri"].block, f["dq tri"].grid, f["dq tri"].cluster) == (64, (3, 6), 5)
+    assert f["dq tri"].smem_bytes == 229_888
+    assert (f["dkv tri"].block, f["dkv tri"].grid, f["dkv tri"].col_split) == (64, (3, 3), 5)
+    assert f["dkv tri"].smem_bytes == 229_376
 
 
 def _kv_columns(d: int):
@@ -485,13 +492,13 @@ def test_dkv_columns_are_whole_boxes():
 def test_plan_constants_at_576_match_the_cuda_sources():
     fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
     header = (KERNELS / "hopper.cuh").read_text()
-    # the D 576 library dispatches D 576 alone (the f32 forward: none)
-    assert bwd.count("#elif defined(FLASH_HEAD_DIM_576)") == 2
+    # the D 576 library dispatches D 576 alone (f32: none)
+    assert bwd.count("#elif defined(FLASH_HEAD_DIM_576)") == 1
     assert fwd.count("#elif defined(FLASH_HEAD_DIM_576)") == 1
     for kind in ("dispatch_tc", "launch"):
-        # the f32 forward at 576: the wide library's cluster kernels
-        assert len(re.findall(rf"case 576: return {kind}<", fwd)) == (kind == "dispatch_tc")
-        assert len(re.findall(rf"case 576: return {kind}<", bwd)) == 1
+        # f32 at 576: the wide libraries' cluster kernels
+        for src in (fwd, bwd):
+            assert len(re.findall(rf"case 576: return {kind}<", src)) == (kind == "dispatch_tc")
     # the CTA's columns in whole boxes, the first warpgroup owning the most;
     # every warpgroup's products DC wide (the last one's a box early at 576)
     assert "constexpr int DC = (DCTA / G::kCols + CS - 1) / CS * G::kCols;" in bwd
@@ -505,8 +512,7 @@ def test_plan_constants_at_576_match_the_cuda_sources():
         assert build.VARIANTS[f"{src}_d576"] == (src, ("-DFLASH_HEAD_DIM_576",))
         assert build.VARIANTS[f"{src}_f16_d576"] == (src, ("-DFLASH_ELEM_F16",
                                                            "-DFLASH_HEAD_DIM_576"))
-        f32 = "flash_fwd_wide" if src == "flash_fwd" else f"{src}_d576"
-        for dtype, name in ((BF16, f"{src}_d576"), (F32, f32),
+        for dtype, name in ((BF16, f"{src}_d576"), (F32, f"{src}_wide"),
                             (torch.float16, f"{src}_f16_d576")):
             assert flash_fwd.library_name(src, dtype, 576) == name
 

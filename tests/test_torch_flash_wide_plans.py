@@ -221,8 +221,8 @@ def test_the_wide_general_plans_visit_exactly_the_live_pairs(dtype, group, s, ca
                             for q, k in walked}, plan.kernel
     if tiles > 1:
         heaviest_first = dq.cta(0, 0)[1] == tiles - 1
-        assert heaviest_first == (dtype != F32 and causal
-                                  and flash_bwd.band(causal, window, s) is None)
+        # f32 too since its clusters launch tile-major (cluster_slot)
+        assert heaviest_first == (causal and flash_bwd.band(causal, window, s) is None)
 
 
 def test_an_autotuned_128_is_not_forced_above_576(monkeypatch):
@@ -253,8 +253,8 @@ def test_wide_plan_constants_match_the_cuda_sources():
     assert f"constexpr int kWideSlabStages = {flash_bwd.WIDE_SLAB_STAGES};" in bwd
     assert ("constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);" in bwd
             and flash_bwd.WIDE_ID_BYTES == flash_bwd.WIDE_SLAB_STAGES * ((64 + 2) * 4 + 2 * 8))
-    # the f32 cluster kernels' layout, shared by both sources (the forward
-    # at 256 and above, the backward pair above 576)
+    # the f32 cluster kernels' layout, shared by both sources (both at head
+    # dims 256 and above)
     cluster = (KERNELS / "flash_cluster.cuh").read_text()
     for name, value in (("Tile", flash_fwd.F32_TILE), ("Chunk", flash_fwd.F32_CHUNK),
                         ("Slab", flash_fwd.F32_SLAB), ("Stages", flash_fwd.F32_STAGES),
@@ -287,6 +287,9 @@ def test_wide_plan_constants_match_the_cuda_sources():
                                 (F16, f"{src}_f16_wide")):
                 assert flash_fwd.library_name(src, dtype, d) == name
         assert flash_fwd.library_name(src, BF16, 576) == f"{src}_d576"
+        # f32 from 256 on: both sources' cluster kernels in the wide library
+        for d in (256, 512, 576):
+            assert flash_fwd.library_name(src, F32, d) == f"{src}_wide"
 
 
 @pytest.mark.parametrize("d", list(range(640, 4097, 64)) + [577, 700, 1000, 1100, 2000])

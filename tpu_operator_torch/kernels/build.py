@@ -7,9 +7,10 @@ takes seconds, not minutes. A name in ``VARIANTS`` is a second library of
 another source, compiled with extra defines: the fp16 flash kernels
 (``flash_fwd_f16``, ``flash_bwd_f16``), which the wrappers build only at
 their first fp16 call, so that bf16 and f32 callers never wait for them,
-the head dim 512 flash kernels (``*_d512``: bf16 and f32, or fp16), those
-of head dim 576 (``*_d576``) and the D-streaming kernels of every head dim
-above 576 (``*_wide``), each built only at the first call at its head dim.
+the head dim 512 flash kernels (``*_d512``: bf16, or fp16), those of head
+dim 576 (``*_d576``) and the D-streaming kernels of every head dim above 576
+(``*_wide``, which also hold f32's cluster kernels of both flash sources at
+head dims 256 and above), each built only at the first call at its head dim.
 Libraries go to ``_build/`` (ignored by git) or to the directory
 :func:`bind_build_dir` names (the node's compile cache), named by a hash
 of the source, every header (``*.cuh``) beside it, the flags and the

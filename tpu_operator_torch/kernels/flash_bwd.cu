@@ -164,19 +164,22 @@
 // stage the ring tile's 64 ids and their range, 528 bytes and two barriers
 // more: dQ 198,288, dK/dV 199,312), which every lane of the producer warp
 // stages for every tile of the walk before lane 0 decides whether the
-// tile's chunks load: a dead pair would cost d / 64 chunk loads. f32
-// (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel, dq_wide_f32_body /
-// dkv_wide_f32_body<TRI>): the CUDA cores (TF32 would not hold the 1e-4
+// tile's chunks load: a dead pair would cost d / 64 chunk loads.
+// f32 at head dims 256 and above (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel,
+// dq_wide_f32_body / dkv_wide_f32_body<TRI>, also in the wide library:
+// f32_cluster_head_dim): the CUDA cores (TF32 would not hold the 1e-4
 // bar), on 64-row tiles, a CTA of 256 threads per 128-column slab
-// of the gradients (the last one starting at d - 128), and the n slab CTAs
-// of a tile launched as one thread-block cluster (cudaLaunchKernelEx, the
-// grid's x tile x n + slab). Per (q tile, key tile) pair each CTA sums a
-// partial S and dP over the columns it owns (the write rule's: never the
-// last slab's overlap twice), and the cluster adds the partials through
-// distributed shared memory: CTA r sums rows [64 r / n, 64 (r + 1) / n) of
-// every CTA's partials in rank order (no atomics: the same bits every run),
-// forms P and dS there and stores them into every CTA (three cluster
-// barriers), and each CTA runs its own slab's gradient products. S and dP
+// of the gradients (the last one starting at d - 128: at 576 it starts at
+// 448 and owns 512-575), and the n slab CTAs of a tile launched as one
+// thread-block cluster (cudaLaunchKernelEx, the grid's x tile x n + slab; 2
+// at 256, 4 at 512, 5 at 576, 8 at 1024). Per (q tile, key tile) pair each
+// CTA sums a partial S and dP over the columns it owns (the write rule's:
+// never the last slab's overlap twice), and the cluster adds the partials
+// through distributed shared memory: CTA r sums rows [64 r / n, 64 (r + 1) /
+// n) of every CTA's partials in rank order (no atomics: the same bits every
+// run; 32 rows a CTA at n = 2, two passes of its 256 threads), forms P and
+// dS there and stores them into every CTA (three cluster barriers), and
+// each CTA runs its own slab's gradient products. S and dP
 // are formed once per tile pair up to d 1024 (n <= 8, the portable cluster
 // size); above it the slabs form g = ceil(n / 8) clusters of c = ceil(n /
 // g) (the last CTAs past the n-th write nothing), each cluster also summing
@@ -197,20 +200,29 @@
 // one GPC (cudaOccupancyMaxActiveClusters, checked at launch: none is an
 // error, kNoCluster). The walks, the band and the segment-id skip (every
 // warp reads the ids' range itself) depend only on the row and the tiles,
-// so the CTAs of a cluster meet at every barrier.
+// so the CTAs of a cluster meet at every barrier. The clusters launch
+// tile-major, the longest walks first (cluster_slot: dK/dV's key tile 0 of
+// every row, dQ's last q tile under a plain causal mask), as a
+// longest-first schedule wants: in row order a split dK/dV left the last
+// part's key tile 0 to start a third of the way into the launch. dK/dV's walk over a GQA
+// group can set the launch's pace (at one kv head key tile 0's cluster walks
+// group x q tiles pairs while the grid holds a wave of clusters), so it
+// splits in sp parts, a divisor of the group chosen by the plan
+// (flash_bwd.py::gqa_split): part j's clusters walk members [j group / sp,
+// (j + 1) group / sp) and write f32 partial dK and dV, which
+// flash_bwd_dkv_split_sum_kernel adds in part order (no atomics: the same
+// bits every run); sp = 1 writes dK and dV straight.
 //
-// f32 (dq_body / dkv_body<T, D, TRI>): one CTA
+// f32 up to D 128 (dq_body / dkv_body<T, D, TRI>): one CTA
 // of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
-// row, 64-key tile) for dK/dV (32-row tiles at D = 256, 16 at 512 and 576:
-// f32_tile), tiles on
+// row, 64-key tile) for dK/dV, tiles on
 // the grid's x and rows on y and z (kMaxGridY a z slice), on the CUDA
 // cores; the TPU kernels' sequential grid axis is a loop inside the CTA (up
 // to the diagonal, the window band, or all; dK/dV over every GQA group
 // member). Tiles are staged through shared memory as f32, the score is
 // built as the CUDA-core forward builds it (q * scale * log2(e) in f32,
-// then an f32 FMA chain over d), each thread owns a 4 x 4 (2 x 2 at 32
-// rows, 1 x 1 at 16) block of the score tile and the matching rows of D/16 columns of
-// each accumulator, and
+// then an f32 FMA chain over d), each thread owns a 4 x 4 block of the
+// score tile and the matching rows of D/16 columns of each accumulator, and
 // P and dS go through shared memory between the two. f32 stays here because
 // it must not round through TF32.
 //
@@ -239,7 +251,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kTile = 64;       // q rows and keys per tile (the f32 kernels: f32_tile)
+constexpr int kTile = 64;       // q rows and keys per tile
 static_assert(kTile == kRingRows, "the tensor-core tiles are the ring's (hopper.cuh)");
 constexpr int kThreads = 256;   // 16 x 16
 constexpr float kLog2e = 1.4426950408889634f;
@@ -290,16 +302,11 @@ __device__ __forceinline__ bool attends(const Params& p, int qi, int kj, bool se
   return !segments || qseg == kseg;
 }
 
-// The CUDA-core kernels' tile: 64 q rows and keys, 32 at D = 256 and 16 at
-// 512 and 576, where four [64][D + 1] (or [32][D + 1]) f32 tiles alone would
-// pass the 227 KB a block may use.
-__host__ __device__ constexpr int f32_tile(int d) { return d > 256 ? 16 : d > 128 ? 32 : 64; }
-
-// Rows [r0, r0 + TT) of a (s, D) matrix into a [TT][D + 1] f32 tile, times
-// mul; rows past s are zero.
-template <typename T, int D, int TT>
+// Rows [r0, r0 + kTile) of a (s, D) matrix into a [kTile][D + 1] f32 tile,
+// times mul; rows past s are zero.
+template <typename T, int D>
 __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int s, float mul) {
-  for (int i = threadIdx.x; i < TT * D; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
         (r0 + r < s) ? to_f(src[static_cast<size_t>(r0 + r) * D + c]) * mul : 0.f;
@@ -307,46 +314,45 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int s, f
 }
 
 constexpr size_t dq_smem_bytes(int d) {
-  // q (pre-scaled), dO, k, v tiles ([t][d + 1]), dS tile ([t][t + 1]), key
-  // segment ids, at the tile t = f32_tile(d)
-  return sizeof(float) * (4 * f32_tile(d) * (d + 1) + f32_tile(d) * (f32_tile(d) + 1)) +
-         sizeof(int) * f32_tile(d);
+  // q (pre-scaled), dO, k, v tiles ([64][d + 1]), dS tile ([64][65]), key
+  // segment ids
+  return sizeof(float) * (4 * kTile * (d + 1) + kTile * (kTile + 1)) + sizeof(int) * kTile;
 }
 
 constexpr size_t dkv_smem_bytes(int d) {
   // k, v, q, dO tiles, P and dS tiles, per-row lse*log2e, delta, segment ids
-  return sizeof(float) * (4 * f32_tile(d) * (d + 1) + 2 * f32_tile(d) * (f32_tile(d) + 1) +
-                          2 * f32_tile(d)) +
-         sizeof(int) * f32_tile(d);
+  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * (kTile + 1) + 2 * kTile) +
+         sizeof(int) * kTile;
 }
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dq_body(const Params& p) {
-  constexpr int TT = f32_tile(D), R = TT / 16, LP = TT + 1;  // tile, per thread, P/dS stride
+  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster pair (flash_bwd_wide)");
+  constexpr int R = kTile / 16, LP = kTile + 1;  // rows a thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dQ columns per thread
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + TT * LD;
-  float* ks = dos + TT * LD;
-  float* vs = ks + TT * LD;
-  float* dss = vs + TT * LD;
-  int* kseg = reinterpret_cast<int*>(dss + TT * LP);
+  float* dos = qs + kTile * LD;
+  float* ks = dos + kTile * LD;
+  float* vs = ks + kTile * LD;
+  float* dss = vs + kTile * LD;
+  int* kseg = reinterpret_cast<int*>(dss + kTile * LP);
 
   const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
   if (bh >= p.rows) return;  // past the last row in the last z slice
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * TT;
+  const int q0 = blockIdx.x * kTile;
   const int b = bh / p.heads;
   const int kv_row = b * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
   const size_t qoff = static_cast<size_t>(bh) * p.s * D;
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * D;
   const bool segments = !TRI && p.seg != nullptr;
 
-  stage<T, D, TT>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, p.qscale);
-  stage<T, D, TT>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
+  stage<T, D>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, p.qscale);
+  stage<T, D>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
 
   float lse2[R], dlt[R], acc[R][CN];
   int qseg[R];
@@ -362,17 +368,17 @@ __device__ __forceinline__ void dq_body(const Params& p) {
   }
 
   // the keys any row of this q tile can see
-  const int q_end = min(q0 + TT, p.s);
+  const int q_end = min(q0 + kTile, p.s);
   int k_lo = 0, k_hi = p.s;
   if (TRI || p.causal) k_hi = q_end;
   if (!TRI && p.causal && p.window > 0) k_lo = max(0, q0 - p.window + 1);
 
-  for (int t = k_lo / TT; t < (k_hi + TT - 1) / TT; ++t) {
-    const int k0 = t * TT;
+  for (int t = k_lo / kTile; t < (k_hi + kTile - 1) / kTile; ++t) {
+    const int k0 = t * kTile;
     __syncthreads();  // the previous tile's k/dS reads are done
-    stage<T, D, TT>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
-    stage<T, D, TT>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
-    if (segments && tid < TT) {
+    stage<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
+    stage<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
+    if (segments && tid < kTile) {
       kseg[tid] = (k0 + tid < p.s) ? p.seg[static_cast<size_t>(b) * p.s + k0 + tid] : 0;
     }
     __syncthreads();
@@ -419,7 +425,7 @@ __device__ __forceinline__ void dq_body(const Params& p) {
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < TT; ++kk) {
+    for (int kk = 0; kk < kTile; ++kk) {
       float dsv[R], kv[CN];
 #pragma unroll
       for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * LP + kk];
@@ -444,33 +450,34 @@ __device__ __forceinline__ void dq_body(const Params& p) {
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dkv_body(const Params& p) {
-  constexpr int TT = f32_tile(D), R = TT / 16, LP = TT + 1;  // tile, per thread, P/dS stride
+  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster pair (flash_bwd_wide)");
+  constexpr int R = kTile / 16, LP = kTile + 1;  // rows a thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dK/dV columns per thread
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + TT * LD;
-  float* qs = vs + TT * LD;
-  float* dos = qs + TT * LD;
-  float* ps = dos + TT * LD;
-  float* dss = ps + TT * LP;
-  float* lse2 = dss + TT * LP;
-  float* dlt = lse2 + TT;
-  int* qseg = reinterpret_cast<int*>(dlt + TT);
+  float* vs = ks + kTile * LD;
+  float* qs = vs + kTile * LD;
+  float* dos = qs + kTile * LD;
+  float* ps = dos + kTile * LD;
+  float* dss = ps + kTile * LP;
+  float* lse2 = dss + kTile * LP;
+  float* dlt = lse2 + kTile;
+  int* qseg = reinterpret_cast<int*>(dlt + kTile);
 
   const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
   if (kv_row >= p.rows) return;  // past the last row in the last z slice
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * TT;
+  const int k0 = blockIdx.x * kTile;
   const int b = kv_row / p.kv_heads;
   const int group = p.heads / p.kv_heads;
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * D;
   const bool segments = !TRI && p.seg != nullptr;
 
-  stage<T, D, TT>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
-  stage<T, D, TT>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
+  stage<T, D>(ks, static_cast<const T*>(p.k) + kvoff, k0, p.s, 1.f);
+  stage<T, D>(vs, static_cast<const T*>(p.v) + kvoff, k0, p.s, 1.f);
 
   // score columns of this thread: keys k0 + tx + 16 j
   int kseg[R];
@@ -487,23 +494,23 @@ __device__ __forceinline__ void dkv_body(const Params& p) {
     for (int c = 0; c < CN; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   // the queries that can see any key of this tile
-  const int k_end = min(k0 + TT, p.s);
+  const int k_end = min(k0 + kTile, p.s);
   int q_lo = 0, q_hi = p.s;
   if (TRI || p.causal) q_lo = k0;
   if (!TRI && p.causal && p.window > 0) q_hi = min(p.s, k_end - 1 + p.window);
-  const int t_lo = q_lo / TT;
-  const int t_hi = (q_hi + TT - 1) / TT;
+  const int t_lo = q_lo / kTile;
+  const int t_hi = (q_hi + kTile - 1) / kTile;
 
   for (int m = 0; m < group; ++m) {
     // the q head of group member m (flashattention.py q_index)
     const int q_row = b * p.heads + (kv_row % p.kv_heads) * group + m;
     const size_t qoff = static_cast<size_t>(q_row) * p.s * D;
     for (int t = t_lo; t < t_hi; ++t) {
-      const int q0 = t * TT;
+      const int q0 = t * kTile;
       __syncthreads();  // the previous tile's q/dO/P/dS reads are done
-      stage<T, D, TT>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, 1.f);
-      stage<T, D, TT>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
-      if (tid < TT) {
+      stage<T, D>(qs, static_cast<const T*>(p.q) + qoff, q0, p.s, 1.f);
+      stage<T, D>(dos, static_cast<const T*>(p.dout) + qoff, q0, p.s, 1.f);
+      if (tid < kTile) {
         const int qi = q0 + tid;
         const bool in = qi < p.s;
         lse2[tid] = in ? p.lse[static_cast<size_t>(q_row) * p.s + qi] * kLog2e : -CUDART_INF_F;
@@ -558,7 +565,7 @@ __device__ __forceinline__ void dkv_body(const Params& p) {
       __syncthreads();
 
 #pragma unroll 4
-      for (int r = 0; r < TT; ++r) {
+      for (int r = 0; r < kTile; ++r) {
         float pv[R], dsv[R], dov[CN], qv[CN];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -1881,10 +1888,10 @@ __device__ __forceinline__ void partial_scores(float (&sc)[4][4], float (&dp)[4]
 // its own shared memory. The partials go to xs as X[4 tb + b][4 ta + a]
 // (X[key][q row] for dQ, X[q row][key] for dK/dV); CTA `rank` of c sums rows
 // [64 rank / c, 64 (rank + 1) / c) of every CTA's X in rank order (the same
-// bits every run), forms P and dS there (lse2 and dlt: the four elements'
-// rows' lse * log2(e) and delta; qi0 / kj0 and the steps: the first
-// element's q row and key), and stores them into every CTA's xs. Three
-// cluster barriers: the partials written; read (xs is reused); results in.
+// bits every run), a float4 of a row a thread and two passes where the rows
+// pass 16 (c = 2, at d 256), forms P and dS there (`rows`: a row's lse *
+// log2(e) and delta), and stores them into every CTA's xs. Three cluster
+// barriers: the partials written; read (xs is reused); results in.
 template <bool TRI, bool DQ, typename Rows>
 __device__ __forceinline__ void exchange(const Params& p, float* xs, const float (&sc)[4][4],
                                          const float (&dp)[4][4], int ta, int tb, int c,
@@ -1899,12 +1906,17 @@ __device__ __forceinline__ void exchange(const Params& p, float* xs, const float
   cluster_sync();
   const int rank = static_cast<int>(cluster_rank());
   const int a0 = kF32WideTile * rank / c, a1 = kF32WideTile * (rank + 1) / c;
-  const bool mine = static_cast<int>(threadIdx.x) < (a1 - a0) * (kF32WideTile / 4);
-  const int at = (a0 + threadIdx.x / (kF32WideTile / 4)) * kF32WideTile +
-                 4 * (threadIdx.x % (kF32WideTile / 4));  // the float4's offset in X
-  float4 pv = make_float4(0.f, 0.f, 0.f, 0.f), dsv = pv;
-  if (mine) {
-    float4 s4 = pv, d4 = pv;
+  constexpr int kRowF4 = kF32WideTile / 4;           // float4s of a row
+  const int owned = (a1 - a0) * kRowF4;              // the rank's float4s: at most 2 a thread
+  const bool segments = !TRI && seg != nullptr;
+  float4 pv[2], dsv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = static_cast<int>(threadIdx.x) + kThreads * j;
+    pv[j] = dsv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i >= owned) continue;
+    const int at = (a0 + i / kRowF4) * kF32WideTile + 4 * (i % kRowF4);  // its offset in X
+    float4 s4 = pv[j], d4 = pv[j];
     for (int r = 0; r < c; ++r) {
       const uint32_t x = cluster_addr(xs + at, r);
       const float4 u = ld_cluster4(x), w = ld_cluster4(x + 4 * kF32TileFloats);
@@ -1912,7 +1924,6 @@ __device__ __forceinline__ void exchange(const Params& p, float* xs, const float
       d4 = make_float4(d4.x + w.x, d4.y + w.y, d4.z + w.z, d4.w + w.w);
     }
     const int a = at / kF32WideTile, b0 = at % kF32WideTile;
-    const bool segments = !TRI && seg != nullptr;
     float pe[4], de[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -1924,22 +1935,41 @@ __device__ __forceinline__ void exchange(const Params& p, float* xs, const float
       pe[e] = live ? exp2f(comp(s4, e) - ld.x) : 0.f;
       de[e] = pe[e] * (comp(d4, e) - ld.y) * p.scale;
     }
-    pv = make_float4(pe[0], pe[1], pe[2], pe[3]);
-    dsv = make_float4(de[0], de[1], de[2], de[3]);
+    pv[j] = make_float4(pe[0], pe[1], pe[2], pe[3]);
+    dsv[j] = make_float4(de[0], de[1], de[2], de[3]);
   }
   cluster_sync();
-  if (mine) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = static_cast<int>(threadIdx.x) + kThreads * j;
+    if (i >= owned) continue;
+    const int at = (a0 + i / kRowF4) * kF32WideTile + 4 * (i % kRowF4);
     for (int r = 0; r < c; ++r) {
       const uint32_t x = cluster_addr(xs + at, r);
       if (DQ) {
-        st_cluster4(x, dsv);
+        st_cluster4(x, dsv[j]);
       } else {
-        st_cluster4(x, pv);
-        st_cluster4(x + 4 * kF32TileFloats, dsv);
+        st_cluster4(x, pv[j]);
+        st_cluster4(x + 4 * kF32TileFloats, dsv[j]);
       }
     }
   }
   cluster_sync();
+}
+
+// The (row, tile) that the cluster of this block walks, of `rows` rows and
+// `tiles` 64-row tiles: the launch's n-th cluster (its tile on x, its row on
+// y and z) takes tile n / rows of row n % rows, so the clusters start
+// tile-major, the longest walks first (dK/dV's key tile 0; with
+// `heaviest_last`, dQ's last q tile under a plain causal mask); x -1 past
+// the last cluster (the last z slice).
+__device__ __forceinline__ int2 cluster_slot(int rows, int tiles, int ctas, bool heaviest_last) {
+  const long long n = blockIdx.x / ctas + static_cast<long long>(tiles) *
+                                               (static_cast<long long>(blockIdx.z) * kMaxGridY +
+                                                blockIdx.y);
+  if (n >= static_cast<long long>(tiles) * rows) return make_int2(-1, 0);
+  const int rank = static_cast<int>(n / rows);
+  return make_int2(static_cast<int>(n % rows), heaviest_last ? tiles - 1 - rank : rank);
 }
 
 // acc[a][4 h + e] += sum over the 64 rows r of X[r][4 ta + a] * Y(r)[4 (tb +
@@ -1969,7 +1999,8 @@ __device__ __forceinline__ void slab_product(float (&acc)[4][8], const float* X,
 
 // The f32 D-streaming dQ on the CUDA cores, in clusters (see the note on
 // top). blockIdx.x: q tile x (g c) + z; y and z: bh rows (kMaxGridY a z
-// slice). A thread holds S and dP at q rows 4 ta + a and keys 4 tb + b, and
+// slice), walked tile-major (cluster_slot; a plain causal mask's last q
+// tile first). A thread holds S and dP at q rows 4 ta + a and keys 4 tb + b, and
 // dQ at rows 4 ta + a, slab columns 4 (tb + 16 h) + e. TRI: the triangle;
 // else the general masks, the key tiles of the band, a key tile whose
 // documents cannot meet the q tile's skipped (by every CTA of the cluster:
@@ -1984,11 +2015,13 @@ __device__ __forceinline__ void dq_wide_f32_body(const Params& p, int d) {
   float* lse2s = xs + 2 * kF32TileFloats;
   float* dlts = lse2s + kF32WideTile;
 
-  const int bh = blockIdx.z * kMaxGridY + blockIdx.y;
-  if (bh >= p.rows) return;  // the whole cluster: it shares y and z
   const F32WideGeo geo(d);
+  const int2 slot = cluster_slot(p.rows, (p.s + kF32WideTile - 1) / kF32WideTile, geo.ctas(),
+                                 TRI || (p.causal && p.window <= 0));
+  if (slot.x < 0) return;  // the whole cluster: it shares x / (g c), y and z
+  const int bh = slot.x;
   const F32WideCols cols(geo, blockIdx.x % geo.ctas(), d);
-  const int q0 = (blockIdx.x / geo.ctas()) * kF32WideTile;
+  const int q0 = slot.y * kF32WideTile;
   const int2 th = f32_wide_thread();
   const int ta = th.x, tb = th.y;
   const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
@@ -2100,27 +2133,35 @@ __device__ __forceinline__ void dq_wide_f32_body(const Params& p, int d) {
 }
 
 // The f32 D-streaming dK/dV on the CUDA cores, in clusters (see the note on
-// top). blockIdx.x: key tile x (g c) + z; y and z: kv rows. A thread holds
-// S^T and dP^T at keys 4 ta + a and q rows 4 tb + b, and dK and dV at keys
-// 4 ta + a, slab columns 4 (tb + 16 h) + e; it walks every GQA member's q
-// tiles. TRI: the triangle; else the general masks, as dQ's.
+// top). blockIdx.x: key tile x (g c) + z; y and z: part x kv rows + kv row,
+// sp parts of the GQA group, walked tile-major (cluster_slot: every row's
+// key tile 0 first). A thread holds S^T and dP^T at keys 4 ta + a
+// and q rows 4 tb + b, and dK and dV at keys 4 ta + a, slab columns 4 (tb +
+// 16 h) + e; it walks the q tiles of its part's group / sp members in turn
+// and writes its sums at row part x rows + kv row of p.dk and p.dv (sp 1:
+// dK and dV; above: the partials flash_bwd_dkv_split_sum_kernel adds). TRI:
+// the triangle; else the general masks, as dQ's.
 template <bool TRI>
-__device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
+__device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d, int sp) {
   extern __shared__ float4 f32w_smem[];
   float* kres = reinterpret_cast<float*>(f32w_smem);  // the K and V slabs
   float* vres = kres + kF32SlabFloats;
   float* ring = vres + kF32SlabFloats;  // per stage: Q and dO slabs, or K, V, Q, dO chunks
   float* xs = ring + kF32WideStages * kF32StageFloats;
 
-  const int kv_row = blockIdx.z * kMaxGridY + blockIdx.y;
-  if (kv_row >= p.rows) return;  // the whole cluster
   const F32WideGeo geo(d);
+  const int2 slot =
+      cluster_slot(p.rows * sp, (p.s + kF32WideTile - 1) / kF32WideTile, geo.ctas(), false);
+  if (slot.x < 0) return;  // the whole cluster
+  const int row = slot.x;  // part x kv rows + kv row
+  const int kv_row = row % p.rows;
   const F32WideCols cols(geo, blockIdx.x % geo.ctas(), d);
-  const int k0 = (blockIdx.x / geo.ctas()) * kF32WideTile;
+  const int k0 = slot.y * kF32WideTile;
   const int2 th = f32_wide_thread();
   const int ta = th.x, tb = th.y;
   const int b = kv_row / p.kv_heads;
   const int group = p.heads / p.kv_heads;
+  const int m_end = (row / p.rows + 1) * (group / sp);  // past the part's last member
   const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
   const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
   const bool segments = !TRI && p.seg != nullptr;
@@ -2141,7 +2182,7 @@ __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
   const int2 krange = segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
   // (m, t) to the first live (member, q tile) at or after it
   auto advance = [&](int& m, int& t) {
-    while (m < group) {
+    while (m < m_end) {
       if (t >= t_hi) {
         ++m;
         t = t_lo;
@@ -2172,13 +2213,13 @@ __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
     }
   };
 
-  int m = 0, t = t_lo;
+  int m = m_end - group / sp, t = t_lo;
   advance(m, t);
   if (cols.owns()) {
     load_tile<kF32WideSlab>(kres, kg, k0, p.s, d, cols.g0);
     load_tile<kF32WideSlab>(vres, vg, k0, p.s, d, cols.g0);
   }
-  if (m < group && items > 0) fetch(m, t, 0, 0);
+  if (m < m_end && items > 0) fetch(m, t, 0, 0);
   cp_async_commit();
 
   float dk[4][8], dv[4][8];
@@ -2187,7 +2228,7 @@ __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) dk[a][j] = dv[a][j] = 0.f;
   int st = 0;
-  while (m < group) {
+  while (m < m_end) {
     int nm = m, nt = t + 1;
     advance(nm, nt);
     const size_t lrow = static_cast<size_t>(q_row(m)) * p.s;
@@ -2206,7 +2247,7 @@ __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
     for (int it = 0; it < items; ++it) {
       if (it + 1 < items) {
         fetch(m, t, it + 1, st ^ 1);
-      } else if (nm < group) {
+      } else if (nm < m_end) {
         fetch(nm, nt, 0, st ^ 1);
       }
       cp_async_commit();
@@ -2237,15 +2278,16 @@ __device__ __forceinline__ void dkv_wide_f32_body(const Params& p, int d) {
   }
   cp_async_wait<0>();
   if (cols.owns()) {
-    store_block(static_cast<float*>(p.dk) + static_cast<size_t>(kv_row) * p.s * d, dk, k0, p.s,
-                d, cols, ta, tb);
-    store_block(static_cast<float*>(p.dv) + static_cast<size_t>(kv_row) * p.s * d, dv, k0, p.s,
-                d, cols, ta, tb);
+    store_block(static_cast<float*>(p.dk) + static_cast<size_t>(row) * p.s * d, dk, k0, p.s, d,
+                cols, ta, tb);
+    store_block(static_cast<float*>(p.dv) + static_cast<size_t>(row) * p.s * d, dv, k0, p.s, d,
+                cols, ta, tb);
   }
 }
 
-// The four f32 D-streaming kernels: the triangle pair and the general pair,
-// each launched in clusters of F32WideGeo(d).c CTAs on the grid's x.
+// The four f32 cluster kernels: the triangle pair and the general pair, each
+// launched in clusters of F32WideGeo(d).c CTAs on the grid's x; dK/dV's
+// GQA walk in sp parts.
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tri_wide_f32_kernel(Params p, int d) {
   dq_wide_f32_body<true>(p, d);
 }
@@ -2254,13 +2296,36 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_rect_wide_f32_kernel
   dq_wide_f32_body<false>(p, d);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_tri_wide_f32_kernel(Params p, int d) {
-  dkv_wide_f32_body<true>(p, d);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_tri_wide_f32_kernel(Params p, int d, int sp) {
+  dkv_wide_f32_body<true>(p, d, sp);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_rect_wide_f32_kernel(Params p, int d) {
-  dkv_wide_f32_body<false>(p, d);
+    flash_bwd_dkv_rect_wide_f32_kernel(Params p, int d, int sp) {
+  dkv_wide_f32_body<false>(p, d, sp);
+}
+
+// dK and dV from the sp partials of a split GQA walk (parts: dK's sp x n4
+// float4s, then dV's): each float4 of dK, then of dV, the sum of its parts
+// in part order, so two runs give the same bits. Bound by bytes: 2 sp reads
+// and 2 writes of n4 float4s, each once, over HBM (or L2, where the
+// partials still sit).
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ parts, float4* __restrict__ dk,
+                                   float4* __restrict__ dv, size_t n4, int sp) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < 2 * n4;
+       i += static_cast<size_t>(gridDim.x) * kThreads) {
+    const bool is_v = i >= n4;
+    const size_t e = is_v ? i - n4 : i;
+    const float4* src = parts + (is_v ? static_cast<size_t>(sp) * n4 : 0) + e;
+    float4 acc = src[0];
+    for (int j = 1; j < sp; ++j) {
+      const float4 u = src[static_cast<size_t>(j) * n4];
+      acc = make_float4(acc.x + u.x, acc.y + u.y, acc.z + u.z, acc.w + u.w);
+    }
+    (is_v ? dv : dk)[e] = acc;
+  }
 }
 #endif  // FLASH_ELEM_F16
 #endif  // FLASH_HEAD_DIM_WIDE
@@ -2339,8 +2404,7 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int tile = f32_tile(D);
-  const dim3 grid((p.s + tile - 1) / tile, rows < kMaxGridY ? rows : kMaxGridY,
+  const dim3 grid((p.s + kTile - 1) / kTile, rows < kMaxGridY ? rows : kMaxGridY,
                   (rows + kMaxGridY - 1) / kMaxGridY);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -2348,17 +2412,13 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
 
 template <typename T, Kind K>
 int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
+  // D 16-128 here; 256 and above: the cluster pair of the wide library
   switch (d) {
-#ifdef FLASH_HEAD_DIM_512
-    case 512: return launch<T, 512, K>(p, rows, stream);
-#elif defined(FLASH_HEAD_DIM_576)
-    case 576: return launch<T, 576, K>(p, rows, stream);
-#else
+#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
     case 16: return launch<T, 16, K>(p, rows, stream);
     case 32: return launch<T, 32, K>(p, rows, stream);
     case 64: return launch<T, 64, K>(p, rows, stream);
     case 128: return launch<T, 128, K>(p, rows, stream);
-    case 256: return launch<T, 256, K>(p, rows, stream);
 #endif
     default: return kUnsupported;
   }
@@ -2370,14 +2430,18 @@ bool valid(const Params& p, int rows) {
 }
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-using F32WideKernel = void (*)(Params, int);
-
+// The f32 cluster kernel of K (dK/dV's take the split besides d).
 template <Kind K>
-F32WideKernel f32_wide_kernel() {
-  return K == kDqTri    ? flash_bwd_dq_tri_wide_f32_kernel
-         : K == kDqRect ? flash_bwd_dq_rect_wide_f32_kernel
-         : K == kDkvTri ? flash_bwd_dkv_tri_wide_f32_kernel
-                        : flash_bwd_dkv_rect_wide_f32_kernel;
+auto f32_wide_kernel() {
+  if constexpr (K == kDqTri) {
+    return flash_bwd_dq_tri_wide_f32_kernel;
+  } else if constexpr (K == kDqRect) {
+    return flash_bwd_dq_rect_wide_f32_kernel;
+  } else if constexpr (K == kDkvTri) {
+    return flash_bwd_dkv_tri_wide_f32_kernel;
+  } else {
+    return flash_bwd_dkv_rect_wide_f32_kernel;
+  }
 }
 
 // K's answers of cudaOccupancyMaxActiveClusters (flash_cluster.cuh)
@@ -2396,28 +2460,49 @@ int f32_wide_clusters(int d) {
                          f32_wide_counts<K>());
 }
 
-// The f32 wide kernel K at head dim d: grid (tiles x g c, rows, z slices),
-// clusters of c CTAs on x.
+// The f32 cluster kernel K at head dim d: grid (tiles x g c, rows, z
+// slices), clusters of c CTAs on x; dK/dV's rows are split x rows, one
+// walk part each.
 template <Kind K>
-int launch_f32_wide(const Params& p, int rows, int d, int smem, cudaStream_t stream) {
+int launch_f32_wide(const Params& p, int rows, int d, int smem, int split, cudaStream_t stream) {
   const F32WideGeo geo(d);
-  return launch_clusters(f32_wide_kernel<K>(),
-                         cluster_grid((p.s + kF32WideTile - 1) / kF32WideTile, geo.ctas(), rows),
-                         geo.c, smem, stream, f32_wide_counts<K>(), p, d);
+  const int tiles = (p.s + kF32WideTile - 1) / kF32WideTile;
+  if constexpr (is_dq(K)) {
+    return launch_clusters(f32_wide_kernel<K>(), cluster_grid(tiles, geo.ctas(), rows), geo.c,
+                           smem, stream, f32_wide_counts<K>(), p, d);
+  } else {
+    return launch_clusters(f32_wide_kernel<K>(), cluster_grid(tiles, geo.ctas(), rows * split),
+                           geo.c, smem, stream, f32_wide_counts<K>(), p, d, split);
+  }
+}
+
+// dK and dV (n floats each) from a split walk's partials: one float4 a
+// thread, a grid of at most kSplitSumBlocks CTAs striding over the rest.
+constexpr size_t kSplitSumBlocks = 8192;
+int launch_split_sum(const float* partials, void* dk, void* dv, size_t n, int split,
+                     cudaStream_t stream) {
+  const size_t n4 = n / 4;
+  const size_t want = (2 * n4 + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(want < kSplitSumBlocks ? want : kSplitSumBlocks);
+  flash_bwd_dkv_split_sum_kernel<<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(partials), static_cast<float4*>(dk),
+      static_cast<float4*>(dv), n4, split);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 
 #ifdef FLASH_HEAD_DIM_WIDE
-// Either pair at a head dim above 576 with the caller's plan: 64-row tiles,
-// the layout's shared memory, the 128-byte swizzle (16-bit) or none (f32).
+// Either pair in the wide library with the caller's plan: 64-row tiles, the
+// layout's shared memory, the 128-byte swizzle (16-bit, above 576) or none
+// (f32, 256 and above: the cluster pair; dK/dV's GQA walk in `split` parts).
 template <Kind K>
 int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
-                  cudaStream_t stream) {
+                  int split, cudaStream_t stream) {
   constexpr bool kDq = is_dq(K), kTri = is_tri(K);
-  if (!wide_head_dim(d) || block != 64) return kUnsupported;
+  if (block != 64) return kUnsupported;
   const int tiles = (p.s + 63) / 64;
   if (dtype == kElemCode) {
-    if (swizzle != WideGeo::kRowBytes || tiles > 65535 ||
+    if (!wide_head_dim(d) || split != 1 || swizzle != WideGeo::kRowBytes || tiles > 65535 ||
         smem != (kDq ? dq_wide_smem_bytes<kTri>() : dkv_wide_smem_bytes<kTri>())) {
       return kUnsupported;
     }
@@ -2450,27 +2535,33 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
 #else
-  if (dtype != 0 || swizzle != 0 || smem != f32_wide_smem_bytes<kDq>()) return kUnsupported;
+  if (dtype != 0 || swizzle != 0 || !f32_cluster_head_dim(d) ||
+      smem != f32_wide_smem_bytes<kDq>() ||
+      (kDq ? split != 1 : (p.heads / p.kv_heads) % split != 0)) {
+    return kUnsupported;
+  }
   // cp.async and float4 stores move 16 bytes: 16-byte bases (rows are d * 4 bytes)
   if (!tma_aligned({p.q, p.k, p.v, p.dout, kDq ? p.dq : p.dk, kDq ? p.dq : p.dv})) {
     return kUnsupported;
   }
-  return launch_f32_wide<K>(p, rows, d, smem, stream);
+  return launch_f32_wide<K>(p, rows, d, smem, split, stream);
 #endif
 }
 #endif  // FLASH_HEAD_DIM_WIDE
 
 // The library's 16-bit type on the tensor cores with the caller's plan; f32
 // (the bf16 library only) on the CUDA cores, whose plan is fixed (its tile,
-// shared memory, no swizzle).
+// shared memory, no swizzle): up to 128 in the base library, 256 and above
+// in the wide one. `split` > 1 (dK/dV's GQA walk in parts) only there.
 template <Kind K>
 int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
-             void* stream) {
-  if (!valid(p, rows)) return kUnsupported;
+             int split, void* stream) {
+  if (!valid(p, rows) || split < 1) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #ifdef FLASH_HEAD_DIM_WIDE
-  return dispatch_wide<K>(p, dtype, rows, d, block, smem, swizzle, st);
+  return dispatch_wide<K>(p, dtype, rows, d, block, smem, swizzle, split, st);
 #else
+  if (split != 1) return kUnsupported;
   if (dtype == kElemCode) {
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
@@ -2491,12 +2582,38 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
     return kUnsupported;
   } else {
     const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
-    if (dtype != 0 || block != f32_tile(d) || swizzle != 0 || smem != static_cast<int>(fixed)) {
+    if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed)) {
       return kUnsupported;
     }
     return dispatch_dim<float, K>(p, rows, d, st);
   }
 #endif  // FLASH_HEAD_DIM_WIDE
+}
+
+// dK/dV with its GQA walk in `split` parts: 1 writes dk and dv straight;
+// above 1 (the f32 cluster pair only) part j's CTAs sum their group / split
+// members into partials (dK's split x rows x s x d floats, then dV's), which
+// flash_bwd_dkv_split_sum_kernel adds into dk and dv in part order.
+template <Kind K>
+int dispatch_dkv(Params p, int dtype, int rows, int d, int block, int smem, int swizzle,
+                 float* partials, int split, void* stream) {
+  if (split == 1) return dispatch<K>(p, dtype, rows, d, block, smem, swizzle, 1, stream);
+#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+  if (split < 1 || rows <= 0 || p.s <= 0 || !f32_cluster_head_dim(d) ||
+      !tma_aligned({partials, p.dk, p.dv}) || partials == nullptr) {
+    return kUnsupported;
+  }
+  void* const dk = p.dk;
+  void* const dv = p.dv;
+  const size_t n = static_cast<size_t>(rows) * p.s * d;
+  p.dk = partials;
+  p.dv = partials + static_cast<size_t>(split) * n;
+  const int code = dispatch<K>(p, dtype, rows, d, block, smem, swizzle, split, stream);
+  if (code != 0) return code;
+  return launch_split_sum(partials, dk, dv, n, split, static_cast<cudaStream_t>(stream));
+#else
+  return kUnsupported;
+#endif
 }
 
 // A window is a band of causal attention only, and one of s or more keys
@@ -2512,9 +2629,12 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // alignment these kernels do not take, -2 when no TMA tensor map could be
 // made. bh counts q rows (batch x heads), bh_kv kv rows. block, smem (bytes)
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
-// tri_bwd_plan and rect_bwd_plan). A library takes D 16-256, or (built with
-// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone,
-// or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576
+// tri_bwd_plan and rect_bwd_plan); the dK/dV entries take its split too
+// (BwdPlan.split: 1, or above 1 with partials, 2 x split x bh_kv x s x d
+// floats of scratch: the f32 cluster pair only). A library takes D 16-256
+// (f32: 16-128), or (built with -DFLASH_HEAD_DIM_512) D 512 alone, or
+// (-DFLASH_HEAD_DIM_576) D 576 alone, both 16-bit only, or
+// (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576 and f32 from 256 on
 // (flash_bwd.py::wide_bwd_plans).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
@@ -2522,17 +2642,17 @@ extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, con
                                 int block, int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr,
            s, heads, kv_heads, 1, 0, qscale, scale, bh};
-  return dispatch<kDqTri>(p, dtype, bh, d, block, smem, swizzle, stream);
+  return dispatch<kDqTri>(p, dtype, bh, d, block, smem, swizzle, 1, stream);
 }
 
 extern "C" int flash_bwd_dkv_tri(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dk, void* dv,
                                  int dtype, int bh_kv, int s, int d, int heads, int kv_heads,
                                  float qscale, float scale, int block, int smem, int swizzle,
-                                 void* stream) {
+                                 float* partials, int split, void* stream) {
   Params p{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
            s, heads, kv_heads, 1, 0, qscale, scale, bh_kv};
-  return dispatch<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
+  return dispatch_dkv<kDkvTri>(p, dtype, bh_kv, d, block, smem, swizzle, partials, split, stream);
 }
 
 extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, const void* dout,
@@ -2542,27 +2662,29 @@ extern "C" int flash_bwd_dq_rect(const void* q, const void* k, const void* v, co
                                  int smem, int swizzle, void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr,
            s, heads, kv_heads, causal, band(causal, window, s), qscale, scale, bh};
-  return dispatch<kDqRect>(p, dtype, bh, d, block, smem, swizzle, stream);
+  return dispatch<kDqRect>(p, dtype, bh, d, block, smem, swizzle, 1, stream);
 }
 
 extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, const void* dout,
                                   const float* lse, const float* delta, const int* seg, void* dk,
                                   void* dv, int dtype, int bh_kv, int s, int d, int heads,
                                   int kv_heads, int causal, int window, float qscale, float scale,
-                                  int block, int smem, int swizzle, void* stream) {
+                                  int block, int smem, int swizzle, float* partials, int split,
+                                  void* stream) {
   Params p{q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
            s, heads, kv_heads, causal, band(causal, window, s), qscale, scale, bh_kv};
-  return dispatch<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, stream);
+  return dispatch_dkv<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, partials, split,
+                                stream);
 }
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-// How many clusters of an f32 D-streaming kernel (dq 1: dQ, 0: dK/dV; tri
-// 1: the triangle pair's, 0: the general pair's) at head dim d the card
-// holds at once: cudaOccupancyMaxActiveClusters at its plan's shared memory
-// and cluster size. -1 for a head dim these kernels do not take, minus a
-// CUDA error code when the query fails.
+// How many clusters of an f32 cluster kernel (dq 1: dQ, 0: dK/dV; tri 1: the
+// triangle pair's, 0: the general pair's) at head dim d (256 and above) the
+// card holds at once: cudaOccupancyMaxActiveClusters at its plan's shared
+// memory and cluster size. -1 for a head dim these kernels do not take,
+// minus a CUDA error code when the query fails.
 extern "C" int flash_bwd_f32_wide_clusters(int dq, int tri, int d) {
-  if (!wide_head_dim(d)) return kUnsupported;
+  if (!f32_cluster_head_dim(d)) return kUnsupported;
   if (dq) return tri ? f32_wide_clusters<kDqTri>(d) : f32_wide_clusters<kDqRect>(d);
   return tri ? f32_wide_clusters<kDkvTri>(d) : f32_wide_clusters<kDkvRect>(d);
 }

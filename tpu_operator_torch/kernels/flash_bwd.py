@@ -14,7 +14,9 @@ Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
 In bf16 and fp16 both pairs run on the tensor cores (wgmma, TMA: q, k, v
 and dO need 16-byte-aligned bases) with the launch plans of
 :func:`tri_bwd_plan` and :func:`rect_bwd_plan`, the same for both 16-bit
-types; f32 runs on the CUDA cores. fp16 has a library of its own
+types; f32 runs on the CUDA cores, at head dims 256 and above in the
+thread-block cluster kernels of ``flash_bwd_wide`` (16-byte-aligned bases
+too; :func:`wide_bwd_plans`). fp16 has a library of its own
 (``build.VARIANTS``), built at the first fp16 call; so have head dims 512
 (``flash_bwd_d512``, ``flash_bwd_f16_d512``) and 576 (``flash_bwd_d576``,
 ``flash_bwd_f16_d576``), each built at the first call there. At 512 and
@@ -38,6 +40,7 @@ import torch
 from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
+    F32_CLUSTER_MIN_D,
     TENSOR_CORE_DTYPES,
     _check,
     _check_seg,
@@ -63,13 +66,6 @@ from tpu_operator_torch.kernels.flash_fwd import (
 )
 
 TILE = 64  # rows of a ring tile, keys of a dQ tile, q rows of a dK/dV tile (kTile)
-
-
-def f32_tile(d: int) -> int:
-    """The f32 CUDA-core pair's tile (q rows and keys): 64, 32 at d 256 and
-    16 at d 512 and 576, where four [64][d + 1] (or [32][d + 1]) f32 tiles
-    alone would pass a block's shared memory (f32_tile in flash_bwd.cu)."""
-    return 16 if d > 256 else 32 if d > 128 else TILE
 
 
 def kv_split(d: int) -> int:
@@ -147,12 +143,16 @@ class BwdPlan:
     (None: no band) are the masks the walk follows; the triangle pair's
     plan is causal with no window. ``ring`` is the rows of a tile of the
     other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
-    per own-side tile, each on a column slice of the gradients. Above 576
-    (:func:`wide_bwd_plans`) ``slab`` is the columns a CTA holds,
-    ``stages`` the depth of the ring the head dim's chunks (f32: slabs)
-    stream through and ``cluster`` the CTAs of a thread-block cluster on
-    the grid's x (f32: those that share one tile pair's S and dP); below
-    576 ``slab`` and ``stages`` are 0, ``cluster`` 1."""
+    per own-side tile, each on a column slice of the gradients. Above 576,
+    and in f32 from 256 on (:func:`wide_bwd_plans`), ``slab`` is the
+    columns a CTA holds, ``stages`` the depth of the ring the head dim's
+    chunks (f32: slabs) stream through and ``cluster`` the CTAs of a
+    thread-block cluster on the grid's x (f32: those that share one tile
+    pair's S and dP); elsewhere ``slab`` and ``stages`` are 0, ``cluster``
+    1. ``split`` (f32 dkv only, else 1) is the parts of the GQA walk
+    (:func:`gqa_split`): the grid's y holds split x kv rows, part j walking
+    members [j·group/split, (j+1)·group/split) into partial sums
+    (:meth:`workspace`) that a second kernel adds."""
 
     kernel: str
     block: int
@@ -167,6 +167,7 @@ class BwdPlan:
     slab: int = 0
     stages: int = 0
     cluster: int = 1
+    split: int = 1
 
     @property
     def redundancy(self) -> int:
@@ -175,16 +176,29 @@ class BwdPlan:
         outside a cluster)."""
         return self.col_split // self.cluster
 
-    def cta(self, x: int, y: int) -> Tuple[int, int]:
-        """The (row, tile) that block (x, y) computes, as the kernel maps
-        it: 16-bit dq walks its q tiles heaviest (last) first under a plain
-        causal mask and in order otherwise (every tile walks about as far),
-        16-bit dkv its key tiles in order (under a causal mask the first keys
-        see the most rows)."""
-        if not self.swizzle:
-            return y, x
+    def _slot(self, x: int, y: int) -> Tuple[int, int]:
+        """The (grid row, tile) block (x, y) computes, as the kernel maps
+        it: dq walks its q tiles heaviest (last) first under a plain causal
+        mask and in order otherwise (every tile walks about as far), dkv its
+        key tiles in order (under a causal mask the first keys see the most
+        rows). 16-bit: rows on x, tiles on y; f32 up to d 128: tiles on x,
+        rows on y; the f32 clusters: the launch's n-th cluster (n = x +
+        tiles·y) takes tile rank n // rows of row n % rows, tile-major
+        (flash_bwd.cu's cluster_slot)."""
         heaviest_last = self.kernel == "dq" and self.causal and self.window is None
-        return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
+        if self.swizzle:
+            return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
+        if not self.slab:
+            return y, x
+        tiles, rows = self.grid
+        rank, row = divmod(x + tiles * y, rows)
+        return row, (tiles - 1 - rank if heaviest_last else rank)
+
+    def cta(self, x: int, y: int) -> Tuple[int, int]:
+        """The (row, tile) that block (x, y) computes (:meth:`_slot`); a
+        split dkv's grid row is part x kv rows + kv row."""
+        row, tile = self._slot(x, y)
+        return (row if self.split == 1 else row % (self.grid[1] // self.split)), tile
 
     def sees(self, q: int, k: int) -> bool:
         """Whether some key of key tile k is inside the masks' band for some
@@ -220,7 +234,8 @@ class BwdPlan:
         s), and with the segment ids ``seg`` (the s ids of the block's batch
         row) a tile whose positions inside s hold one document while its
         slice's hold another (:func:`apart`; the f32 kernels at 576 and below
-        compute such a tile, masked to zero). dq has one member, 0. Each of
+        compute such a tile, masked to zero). dq has one member, 0; a split
+        dkv walks its part's group / ``split`` members. Each of
         ``col_split`` CTAs on the grid's z makes the same visits."""
         tiles = -(-s // TILE)
         first = self.cta(x, y)[1] * self.block // TILE
@@ -238,10 +253,36 @@ class BwdPlan:
             for k in self.walk(first, s):
                 out += [(0, q, k) for q in slices if live(q, k)]
             return out
-        for m in range(group):
+        share = group // self.split
+        part = 0 if self.split == 1 else self._slot(x, y)[0] // (self.grid[1] // self.split)
+        for m in range(part * share, (part + 1) * share):
             for q in self.walk(first, s):
                 out += [(m, q, k) for k in slices if live(q, k)]
         return out
+
+    def workspace(self, s: int, d: int) -> Optional[Tuple[int, ...]]:
+        """The f32 partials a split dkv writes, (2, split, kv rows, s, d):
+        dK's parts, then dV's; None at split 1 (dK and dV written
+        straight)."""
+        if self.split == 1:
+            return None
+        return (2, self.split, self.grid[1] // self.split, s, d)
+
+
+def gqa_split(plan: BwdPlan, s: int, group: int, rows: int, clusters: int) -> int:
+    """The parts the f32 dK/dV walk over a GQA group splits in: the smallest
+    divisor sp of ``group`` that minimises max(H, ⌈P / R⌉) in tile pairs,
+    H the heaviest cluster's walk (the longest key tile's band of q tiles,
+    times group / sp members), P the launch's tile pairs (``rows`` kv rows,
+    every key tile's band, every member) and R the card's resident
+    ``clusters``: a split that shortens the longest walk until the card's
+    clusters, not one walk, set the pace. 1 at GQA 1, and where P / R
+    already passes H."""
+    walks = [len(plan.walk(t, s)) for t in range(-(-s // TILE))]
+    heaviest = max(walks) * group
+    floor = -(-rows * group * sum(walks) // clusters)
+    paces = {sp: max(heaviest // sp, floor) for sp in range(1, group + 1) if group % sp == 0}
+    return min(paces, key=lambda sp: (paces[sp], sp))
 
 
 # the D-streaming pairs' layout above 576 (flash_bwd.cu, built with
@@ -259,9 +300,11 @@ WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
 
 def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
                    causal: bool = True, window: Optional[int] = None,
-                   rect: bool = False) -> Tuple[BwdPlan, BwdPlan]:
-    """How either pair launches at a head dim ``d`` above 576 (a multiple
-    of 64): (dq plan, dkv plan); the triangle pair's by default, or with
+                   rect: bool = False,
+                   clusters: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
+    """How either pair launches at a head dim ``d`` above 576, and in f32 at
+    256 and above (a multiple of 64): (dq plan, dkv plan); the triangle
+    pair's by default, or with
     ``rect`` the general pair's under ``causal`` and ``window`` (the band as
     :func:`band` reads it). Own-side tiles and ring tiles of 64 rows;
     ``col_split`` CTAs a tile, each on a slab of ``slab`` columns of the
@@ -279,10 +322,14 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     tiles, ``F32_SLAB``-column slabs and the slab CTAs of a tile
     in thread-block clusters of ``cluster`` (:func:`f32_wide_geometry`),
     which add their partial S and dP through distributed shared memory:
-    ``redundancy`` g, 1 up to d 1024. Per CTA: two resident slabs, the
-    ``stages`` of the streamed ring (two slabs, or four 64-column chunks,
-    each), the exchange's two 64 x 64 tiles, and dQ's rows' lse and delta;
-    the same for both pairs (the ids are read by every warp)."""
+    ``redundancy`` g, 1 up to d 1024 (c = 2 at 256, 4 at 512, 5 at 576);
+    the clusters launch tile-major, the longest walks first
+    (:meth:`BwdPlan.cta`). Per CTA: two resident slabs, the ``stages`` of
+    the streamed ring (two slabs, or four 64-column chunks, each), the
+    exchange's two 64 x 64 tiles, and dQ's rows' lse and delta; the same
+    for both pairs (the ids are read by every warp). dK/dV's GQA walk
+    splits in :func:`gqa_split` parts given the card's resident dK/dV
+    ``clusters`` (None: no split)."""
     tiles = -(-s // TILE)
     masks = dict(causal=causal, window=window) if rect else {}
     if dtype == torch.float32:
@@ -292,6 +339,9 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
         geometry = dict(col_split=g * c, slab=slab, stages=stages, cluster=c)
         dq = BwdPlan("dq", TILE, 256, (tiles, bh), 4 * (base + 2 * TILE), 0, **geometry, **masks)
         dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv), 4 * base, 0, **geometry, **masks)
+        if clusters is not None:
+            sp = gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters)
+            dkv = dataclasses.replace(dkv, grid=(tiles, bh_kv * sp), split=sp)
         return dq, dkv
     ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
     # the barriers, and the general pair's id ring
@@ -309,21 +359,24 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
 
 def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
                causal: bool, window: Optional[int], rect: bool,
-               block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
+               block_m: Optional[int] = None,
+               clusters: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
     stages each ring tile's segment ids and their range; ``block_m`` forces
-    both kernels' tile height (checked against ``dtype``). Above 576 both
-    pairs' plans are :func:`wide_bwd_plans`."""
+    both kernels' tile height (checked against ``dtype``). Above 576, and
+    in f32 from 256 on, both pairs' plans are :func:`wide_bwd_plans`
+    (``clusters``: the card's resident f32 dK/dV clusters, which size its
+    GQA split)."""
     check_block_m(dtype, block_m, d)
-    if is_wide(d):
-        return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect)
+    if is_wide(d) or (dtype == torch.float32 and d >= F32_CLUSTER_MIN_D):
+        return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect, clusters)
     if dtype == torch.float32:
-        t = f32_tile(d)
-        tiles = -(-s // t)
-        dq = BwdPlan("dq", t, 256, (tiles, bh),
-                     4 * (4 * t * (d + 1) + t * (t + 1)) + 4 * t, 0, causal, window)
-        dkv = BwdPlan("dkv", t, 256, (tiles, bh_kv),
-                      4 * (4 * t * (d + 1) + 2 * t * (t + 1) + 2 * t) + 4 * t, 0, causal, window)
+        tiles = -(-s // TILE)
+        dq = BwdPlan("dq", TILE, 256, (tiles, bh),
+                     4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0, causal, window)
+        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv),
+                      4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0,
+                      causal, window)
         return dq, dkv
 
     stages, ring = ring_stages(d), ring_rows(d)
@@ -347,7 +400,8 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
 
 
 def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
-                 sms: int, block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
+                 sms: int, block_m: Optional[int] = None,
+                 clusters: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """How ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri`` launch for bh q
     rows, bh_kv kv rows, s tokens and head dim d: (dq plan, dkv plan).
 
@@ -370,12 +424,14 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     512 and 576 the ring is one stage of 32-row
     tiles (:func:`ring_rows`) and two (512) or three (576) CTAs share each
     own-side tile, one per column slice (``col_split``, the grid's z). f32
-    keeps the CUDA-core kernels' fixed plans (``block_m`` 64 only; 32-row
-    tiles at d 256 and 16-row at 512 and 576, :func:`f32_tile`; rows
-    on the grid's y, which the kernels split into z slices of 65,535); any
-    other ``block_m`` raises ``ValueError``. The kernels check the plan
-    against their own layout and refuse one that differs."""
-    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, False, block_m)
+    keeps the CUDA-core kernels' fixed plans (``block_m`` 64 only; 64-row
+    tiles; rows on the grid's y, which the kernels split into z slices of
+    65,535): up to d 128 one CTA a tile, at 256 and above the slab CTAs of
+    a tile in one thread-block cluster (:func:`wide_bwd_plans`, dK/dV's GQA
+    walk split by the card's resident ``clusters``); any other ``block_m``
+    raises ``ValueError``. The kernels check the plan against their own
+    layout and refuse one that differs."""
+    return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, False, block_m, clusters)
 
 
 def band(causal: bool, window: Optional[int], s: int) -> Optional[int]:
@@ -386,7 +442,8 @@ def band(causal: bool, window: Optional[int], s: int) -> Optional[int]:
 
 def rect_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
                   causal: bool, window: Optional[int] = None,
-                  block_m: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
+                  block_m: Optional[int] = None,
+                  clusters: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """How ``flash_bwd_dq_rect`` and ``flash_bwd_dkv_rect`` launch: the
     triangle pair's tile heights (or the one ``block_m`` forces), threads,
     grids and swizzle (:func:`tri_bwd_plan`), and shared memory for the ring tiles' segment
@@ -394,9 +451,10 @@ def rect_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: 
     id: ``SEG_BYTES`` below d 512), whether or not the call has ids. The
     walks follow the masks:
     full attention walks every tile, a window (:func:`band`) its band, plain
-    causal the triangle; only plain-causal dq launches heaviest first."""
+    causal the triangle; only plain-causal 16-bit dq launches heaviest
+    first. ``clusters`` as :func:`tri_bwd_plan`'s."""
     return _bwd_plans(dtype, bh, bh_kv, s, d, sms, causal, band(causal, window, s), True,
-                      block_m)
+                      block_m, clusters)
 
 
 def _check_bwd(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, seg=None) -> None:
@@ -431,9 +489,11 @@ def _load(name: str) -> ctypes.CDLL:
     masks = [i32, i32]   # causal, window
     scales = [f32, f32]  # qscale, scale
     lib.flash_bwd_dq_tri.argtypes = tensors + [ptr] + shape + scales + plan + [ptr]
-    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + scales + plan + [ptr]
+    split = [ptr, i32]   # dK/dV: the partials and the walk's parts
+    lib.flash_bwd_dkv_tri.argtypes = tensors + [ptr, ptr] + shape + scales + plan + split + [ptr]
     lib.flash_bwd_dq_rect.argtypes = tensors + [ptr, ptr] + shape + masks + scales + plan + [ptr]
-    lib.flash_bwd_dkv_rect.argtypes = tensors + [ptr] * 3 + shape + masks + scales + plan + [ptr]
+    lib.flash_bwd_dkv_rect.argtypes = (tensors + [ptr] * 3 + shape + masks + scales + plan + split
+                                       + [ptr])
     for fn in (lib.flash_bwd_dq_tri, lib.flash_bwd_dkv_tri, lib.flash_bwd_dq_rect,
                lib.flash_bwd_dkv_rect):
         fn.restype = i32
@@ -441,9 +501,9 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def f32_wide_active_clusters(d: int, kernel: str, tri: bool) -> int:
-    """How many clusters of the f32 D-streaming ``kernel`` ("dq" or "dkv";
-    the triangle pair's with ``tri``, else the general pair's) at head dim
-    ``d`` (a multiple of 64 above 576) the current card holds at once:
+    """How many clusters of the f32 cluster ``kernel`` ("dq" or "dkv"; the
+    triangle pair's with ``tri``, else the general pair's) at head dim
+    ``d`` (256 and above, a multiple of 64) the current card holds at once:
     ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
     cluster size. Raises where the query fails."""
     fn = _lib(torch.float32, d).flash_bwd_f32_wide_clusters
@@ -459,34 +519,47 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
             kv_heads: int, plan: BwdPlan, extra=(), sm_scale: Optional[float] = None) -> None:
     """Launch ``name`` with ``plan`` on the current stream; ``extra`` sits
     between the shape arguments and the two scales (the rect kernels'
-    causal/window); ``sm_scale`` is the softmax scale (default 1/√d)."""
+    causal/window); ``sm_scale`` is the softmax scale (default 1/√d). dK/dV
+    passes its plan's split and, above 1, fresh partials
+    (:meth:`BwdPlan.workspace`)."""
     _, s, d = qb.shape
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    split = ()
+    if plan.kernel == "dkv":
+        shape = plan.workspace(s, d)
+        parts = None if shape is None else torch.empty(shape, dtype=torch.float32,
+                                                       device=qb.device)
+        split = (None if parts is None else parts.data_ptr(), plan.split)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(_lib(qb.dtype, d), name)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *outputs, _DTYPES[qb.dtype], rows, s, d, heads, kv_heads,
             *extra, _qscale(d, scale), scale, plan.block, plan.smem_bytes,
-            plan.swizzle, stream,
+            plan.swizzle, *split, stream,
         )
     _raise_on(code, name)
 
 
 def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
-           block_m: Optional[int] = None):
-    """Checks of a pair's inputs (bf16 and fp16: TMA's 16-byte bases) and
-    its (dq, dkv) launch plans on this card at the tile height ``block_m``
-    (None: the plan's): the triangle pair's, or with ``rect`` = (causal,
-    window, seg) the general pair's."""
+           block_m: Optional[int] = None, dkv: bool = False):
+    """Checks of a pair's inputs (bf16 and fp16, and f32 at d 256 and above:
+    16-byte bases, for TMA or the cluster kernels' cp.async) and its (dq,
+    dkv) launch plans on this card at the tile height ``block_m`` (None: the
+    plan's): the triangle pair's, or with ``rect`` = (causal, window, seg)
+    the general pair's. ``dkv``: for a dK/dV launch, whose f32 cluster plan
+    splits its GQA walk by the card's resident clusters."""
     _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
-    if qb.dtype in TENSOR_CORE_DTYPES:
-        _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
     bh, s, d = qb.shape
+    cluster = qb.dtype == torch.float32 and d >= F32_CLUSTER_MIN_D
+    if qb.dtype in TENSOR_CORE_DTYPES or cluster:
+        _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
+    clusters = f32_wide_active_clusters(d, "dkv", rect is None) if cluster and dkv else None
     sms = _sm_count(qb.device.index)
     if rect is None:
-        return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, block_m)
-    return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1], block_m)
+        return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, block_m, clusters)
+    return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1], block_m,
+                         clusters)
 
 
 def flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,
@@ -516,7 +589,7 @@ def flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     if not qb.is_cuda:
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, True,
                                    sm_scale=sm_scale)[1:]
-    _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, block_m=block_m)
+    _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, block_m=block_m, dkv=True)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_tri", qb, kb, vb, dout, lse, delta, (dk.data_ptr(), dv.data_ptr()),
             kb.shape[0], heads, kv_heads, plan, sm_scale=sm_scale)
@@ -557,7 +630,7 @@ def flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: 
         return attention_bwd_plain(qb, kb, vb, out, lse, dout, heads, kv_heads, causal,
                                    window, seg, sm_scale)[1:]
     _, plan = _plans(qb, kb, vb, dout, lse, delta, heads, kv_heads, (causal, window, seg),
-                     block_m)
+                     block_m, dkv=True)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
     _launch("flash_bwd_dkv_rect", qb, kb, vb, dout, lse, delta,
             (None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr()),

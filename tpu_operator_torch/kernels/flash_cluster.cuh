@@ -1,7 +1,8 @@
 // Building blocks of the f32 flash kernels that run in thread-block
-// clusters on the CUDA cores, shared by flash_fwd.cu (both forwards at head
-// dims 256 and above) and flash_bwd.cu (both backward pairs above 576) and
-// included by them only when built with -DFLASH_HEAD_DIM_WIDE
+// clusters on the CUDA cores, shared by flash_fwd.cu (both forwards) and
+// flash_bwd.cu (both backward pairs), each at head dims 256 and above
+// (f32_cluster_head_dim), and included by them only when built with
+// -DFLASH_HEAD_DIM_WIDE
 // (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
 // ones, kWithF32).
 //
@@ -36,6 +37,12 @@ constexpr int kF32WideStages = 2;    // stages of the f32 streamed ring
 constexpr int kF32WideCluster = 8;   // the most CTAs of an f32 cluster (the portable limit)
 constexpr int kF32Threads = 256;     // threads of an f32 cluster CTA
 constexpr int kNoCluster = -3;       // no cluster of the plan's CTAs fits on the card
+
+// The head dims the f32 cluster kernels take: 256 and above, whole 64-column
+// chunks (2 slab CTAs at 256, 4 at 512, 5 at 576, the last one from 448).
+__host__ __device__ constexpr bool f32_cluster_head_dim(int d) {
+  return d >= 256 && d % kF32WideChunk == 0;
+}
 
 // How the CTAs of one tile split the head dim d (flash_fwd.py::
 // f32_wide_geometry): n slabs of kF32WideSlab columns, the last one starting

@@ -1224,12 +1224,6 @@ __global__ void __launch_bounds__(128 + 32, 1)
 // rows (serving's prefill chunk), chosen from sq (flash_fwd.py::f32_rows).
 __host__ __device__ constexpr int f32_rows(int sq) { return sq <= 16 ? 16 : kF32WideTile; }
 
-// The head dims the f32 cluster kernels take: 256 and above, whole 64-column
-// chunks.
-__host__ __device__ constexpr bool f32_cluster_head_dim(int d) {
-  return d >= 256 && d % kF32WideChunk == 0;
-}
-
 template <int BM>
 constexpr int f32_cluster_smem_bytes() {
   // the Q slab times qscale ([BM][128]), two stages of the streamed ring (a K

@@ -194,8 +194,7 @@ TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
 # bf16 and fp16 one or two consumer warpgroups, one only at D 256, 512 and
 # 576; f32 its CUDA-core kernels' fixed 64 (the knob of the forward, which
 # at D 256 and above takes 16 rows for a call of at most 16, f32_rows; the
-# f32 backward at D 256, 512 and 576 runs its fixed 32- and 16-row plans,
-# flash_bwd.f32_tile)
+# f32 backward takes 64 rows at every head dim)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
     **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512, 576)},
@@ -309,9 +308,8 @@ def wide_plan(dtype: torch.dtype, bh: int, s: int, d: int) -> TriPlan:
 
 
 # the f32 cluster kernels' layout at head dims 256 and above (flash_cluster.cuh;
-# flash_fwd.cu built with -DFLASH_HEAD_DIM_WIDE, and the f32 backward pair's
-# above 576)
-F32_CLUSTER_MIN_D = 256  # the least head dim of the f32 forward's cluster kernels
+# both sources built with -DFLASH_HEAD_DIM_WIDE)
+F32_CLUSTER_MIN_D = 256  # the least head dim of the f32 cluster kernels (f32_cluster_head_dim)
 F32_TILE = 64        # q rows and keys of an f32 tile (kF32WideTile)
 F32_CHUNK = 64       # columns of an f32 foreign chunk (kF32WideChunk)
 F32_SLAB = 128       # columns of each output an f32 CTA holds (kF32WideSlab)
@@ -555,11 +553,13 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
 
 def _check_tma_bases(**tensors) -> None:
     """Raise unless each named tensor starts on a TMA_ALIGN-byte boundary,
-    as a TMA tensor map's base must."""
+    as a TMA tensor map's base must, and the f32 cluster kernels' 16-byte
+    cp.async copies."""
     for name, t in tensors.items():
         if t.data_ptr() % TMA_ALIGN:
-            raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for TMA, "
-                             f"got address {t.data_ptr():#x}")
+            raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for the "
+                             f"kernels' 16-byte copies (TMA, cp.async), got address "
+                             f"{t.data_ptr():#x}")
 
 
 def _check_seg(seg, batch: int, sq: int, sk: int) -> None:
@@ -576,10 +576,10 @@ def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
     ``_d512`` or ``_d576`` after either at d 512 or 576, ``_wide`` above 576
-    (``build.VARIANTS``); the f32 forward at d 256 and above:
-    ``flash_fwd_wide`` (its cluster kernels)."""
-    if source == "flash_fwd" and dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
-        return "flash_fwd_wide"
+    (``build.VARIANTS``); f32 at d 256 and above: ``<source>_wide`` (both
+    sources' cluster kernels)."""
+    if dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
+        return source + "_wide"
     return (source + ("_f16" if dtype == torch.float16 else "")
             + ("_wide" if is_wide(d) else f"_d{d}" if d in (512, 576) else ""))
 
