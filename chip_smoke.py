@@ -33,7 +33,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``,
    and ``flash_bwd_wide`` the backward pair's four cluster kernels and the
    split dK/dV walk's sum, ``F32_BWD_CLUSTER_KERNELS``, each at most 255
-   registers; the D 512 and 576 libraries no f32 kernel), or
+   registers; the D 512 and 576 libraries no f32 kernel; ``flash_bwd`` and
+   ``flash_bwd_f16`` one split sum of their 16-bit type each,
+   ``SPLIT_SUM_LIBRARIES``, at 0 spill bytes), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
@@ -81,7 +83,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    above run in thread-block clusters (each such row also logs its q tile
    height or dK/dV's GQA split and the clusters resident; a backward row
    runs each kernel twice for the same bits and, where the plan splits
-   the walk, times dK/dV at split 1 too, ``_f32_split_check``), with rows
+   the walk, times dK/dV at split 1 too, ``_split_check``; every bf16 and
+   fp16 backward row up to head dim 256 does the same at its plan's split
+   of dK/dV's GQA walk, from the card's resident dK/dV CTAs), with rows
    past launch-bound sizes, the forward at (1,2048,8,512) and
    (1,2048,8,1024) and the backward pair at (1,2048,8,256) and
    (1,2048,8,512), each with one kv head; rows above 576
@@ -648,7 +652,21 @@ def f32_label(mangled: str):
         return f"fwd_{'tri' if found.group(1) == '1' else 'rect'}_{found.group(2)}"
     found = re.search(r"(flash_bwd_(?:(?:dq|dkv)_(?:tri|rect)_wide_f32|dkv_split_sum)_kernel)",
                       mangled)
-    return found.group(1) if found else None
+    return found.group(1) if found and split_sum_label(mangled) in (None, "f32") else None
+
+
+# the split dK/dV walk's sum in the 16-bit libraries up to head dim 256 (its
+# output type's), beside the f32 one of flash_bwd_wide
+SPLIT_SUM_LIBRARIES = {"flash_bwd": "bf16", "flash_bwd_f16": "fp16"}
+
+
+def split_sum_label(mangled: str):
+    """The output type of an instantiation of
+    ``flash_bwd_dkv_split_sum_kernel<O>``: "f32", "bf16" or "fp16"; else
+    None."""
+    found = re.search(r"flash_bwd_dkv_split_sum_kernelI(f|13__nv_bfloat16|6__half)E", mangled)
+    return {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}[found.group(1)] \
+        if found else None
 
 
 def whole_row_f32(mangled: str) -> bool:
@@ -775,6 +793,16 @@ def phase_build() -> dict:
             raise RuntimeError(f"{name}: a {dtype} kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
         held = dict(ptxas)
+        if name in SPLIT_SUM_LIBRARIES:
+            # the 16-bit dK/dV's split sum, held to 0 spills with the rest
+            sums = {k: v for k, v in per_function.items()
+                    if split_sum_label(k) == SPLIT_SUM_LIBRARIES[name]}
+            if len(sums) != 1:
+                raise RuntimeError(f"{name}: {len(sums)} {SPLIT_SUM_LIBRARIES[name]} split sums, "
+                                   f"expected 1: {sorted(sums)}")
+            held.update(sums)
+            out[f"{name}_split_sum_ptxas"] = next(iter(sums.values()))
+            log(f"  {name} split sum: ptxas {out[f'{name}_split_sum_ptxas']}")
         if name in HEAD_DIM_576_INSTANTIATIONS or name in WIDE_HEAD_INSTANTIATIONS:
             # every kernel, the f32 ones too
             held.update(per_function)
@@ -1478,6 +1506,14 @@ def _backward_rows(gen) -> list:
                 f"{stats['other_dkv_ms']:.5f} ms)" if "other_blocks" in stats else
                 " (no other tile height at this head dim)")
         width = padded_head_dim(d)
+        if case["dtype"] in TENSOR_CORE_DTYPES and width <= 256:
+            # dK/dV's GQA split at the card's resident CTAs, and the split's bits and worth
+            qp, kp, vp, doutp, lse, delta, extra, scale = run["kernels"]
+            stats.update(_split_check(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
+                                      extra, want, inner, d, None, scale, tol))
+            rate += f", dkv split {stats['split']}"
+            if "split_1_dkv_ms" in stats:
+                rate += f" (at split 1: dkv {stats['split_1_dkv_ms']:.5f} ms)"
         if case["dtype"] == torch.float32 and width >= F32_CLUSTER_MIN_D:
             # the f32 pair's thread-block clusters resident on the card at once,
             # dK/dV's GQA split, and the split's bits and worth
@@ -1485,9 +1521,9 @@ def _backward_rows(gen) -> list:
             stats["active_clusters"] = {k: flash_bwd.f32_wide_active_clusters(width, k, tri)
                                         for k in ("dq", "dkv")}
             qp, kp, vp, doutp, lse, delta, extra, scale = run["kernels"]
-            stats.update(_f32_split_check(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
-                                          extra, want, inner, d, stats["active_clusters"]["dkv"],
-                                          scale))
+            stats.update(_split_check(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
+                                      extra, want, inner, d, stats["active_clusters"]["dkv"],
+                                      scale))
             rate += (f", clusters of {f32_wide_geometry(width)[2]} resident "
                      f"{stats['active_clusters']}, dkv split {stats['split']}")
             if "split_1_dkv_ms" in stats:
@@ -1574,13 +1610,14 @@ def _other_bwd_plans(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
             "other_max_abs_err": max(errs)}
 
 
-def f32_dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h_kv: int,
-                     extra: tuple = (), sm_scale: float = None) -> tuple:
-    """dK/dV of the f32 cluster pair (``pair`` "tri" or "rect", masks
-    ``extra`` = (causal, window, seg)) with its GQA walk in ``split`` parts,
-    through the library with a plan made by hand (the wrappers take the
-    card's split; no launch is counted): (run, dk, dv), ``run()`` launching
-    on the current stream into dk and dv and raising on a refused launch."""
+def dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h_kv: int,
+                 extra: tuple = (), sm_scale: float = None) -> tuple:
+    """dK/dV (``pair`` "tri" or "rect", masks ``extra`` = (causal, window,
+    seg)) of the f32 cluster pair, or of the 16-bit pair up to head dim
+    256, with its GQA walk in ``split`` parts, through the library with a
+    plan made by hand (the wrappers take the card's split; no launch is
+    counted): (run, dk, dv), ``run()`` launching on the current stream into
+    dk and dv and raising on a refused launch."""
     from tpu_operator_torch.kernels import flash_bwd, flash_fwd
 
     bh, s, d = q.shape
@@ -1589,7 +1626,7 @@ def f32_dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h
         _, plan = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms)
     else:
         _, plan = flash_bwd.rect_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, *extra[:2])
-    plan = dataclasses.replace(plan, grid=(plan.grid[0], k.shape[0] * split), split=split)
+    plan = plan.with_split(split)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     shape = plan.workspace(s, d)
     parts = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -1601,7 +1638,8 @@ def f32_dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h
     def run():
         code = getattr(lib, f"flash_bwd_dkv_{pair}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *seg, dk.data_ptr(), dv.data_ptr(), 0, k.shape[0], s, d, h, h_kv,
+            delta.data_ptr(), *seg, dk.data_ptr(), dv.data_ptr(),
+            flash_fwd._DTYPES[q.dtype], k.shape[0], s, d, h, h_kv,
             *masks, flash_fwd.LOG2E * softmax, softmax, plan.block, plan.smem_bytes,
             plan.swizzle, None if parts is None else parts.data_ptr(), split,
             torch.cuda.current_stream().cuda_stream)
@@ -1611,21 +1649,30 @@ def f32_dkv_at_split(pair: str, split: int, q, k, v, dout, lse, delta, h: int, h
     return run, dk, dv
 
 
-def _f32_split_check(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
-                     want, inner: int, d_true: int, clusters: int,
-                     sm_scale: float = None) -> dict:
-    """The f32 cluster pair's dK/dV GQA split (``pair`` "tri" or "rect",
-    masks ``extra`` = (causal, window, seg)) at the plan's split for the
-    card's resident dK/dV ``clusters``: both kernels run twice through
-    their wrappers give the same bits (no atomics, the partials added in
-    part order); where the plan splits the walk, dK/dV at split 1 too
-    (:func:`f32_dkv_at_split`), held to ``want`` at ``F32_TOL`` and timed
-    beside it. ``q`` ... ``dout`` are the kernels' (padded) inputs,
-    ``d_true`` the head dim ``want`` has."""
+# the name the f32 cluster pair's card tests call it by
+f32_dkv_at_split = dkv_at_split
+
+
+def _split_check(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, extra: tuple,
+                 want, inner: int, d_true: int, clusters, sm_scale: float = None,
+                 tol: float = F32_TOL) -> dict:
+    """dK/dV's GQA split (``pair`` "tri" or "rect", masks ``extra`` =
+    (causal, window, seg)) at the plan's split for the card's resident
+    dK/dV ``clusters`` (the f32 cluster pair; None: the 16-bit pair's
+    resident CTAs, ``flash_bwd.dkv_resident_ctas``): both kernels run twice
+    through their wrappers give the same bits (no atomics, the partials
+    added in part order); where the plan splits the walk, dK/dV at split 1
+    too (:func:`dkv_at_split`), held to ``want`` at ``tol`` and timed beside
+    it. ``q`` ... ``dout`` are the kernels' (padded) inputs, ``d_true`` the
+    head dim ``want`` has."""
     from tpu_operator_torch.kernels import flash_bwd
 
     bh, s, d = q.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if clusters is None:
+        unsplit = (flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms) if pair == "tri"
+                   else flash_bwd.rect_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, *extra[:2]))
+        clusters = flash_bwd.dkv_resident_ctas(q.dtype, d, pair == "tri", unsplit[1])
     if pair == "tri":
         _, plan = flash_bwd.tri_bwd_plan(q.dtype, bh, k.shape[0], s, d, sms, clusters=clusters)
     else:
@@ -1639,18 +1686,17 @@ def _f32_split_check(pair: str, q, k, v, dout, lse, delta, h: int, h_kv: int, ex
     torch.cuda.synchronize()
     same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
     if not all(same):
-        raise RuntimeError(f"f32 {pair} pair at split {plan.split}: two runs differ in dq/dk/dv "
-                           f"{same}")
-    out = {"split": plan.split, "same_bits": True}
+        raise RuntimeError(f"{q.dtype} {pair} pair at split {plan.split}: two runs differ in "
+                           f"dq/dk/dv {same}")
+    out = {"split": plan.split, "same_bits": True, "resident": clusters}
     if plan.split == 1:
         return out
-    run_dkv, dk, dv = f32_dkv_at_split(pair, 1, q, k, v, dout, lse, delta, h, h_kv, extra,
-                                       sm_scale)
+    run_dkv, dk, dv = dkv_at_split(pair, 1, q, k, v, dout, lse, delta, h, h_kv, extra, sm_scale)
     run_dkv()
     torch.cuda.synchronize()
     errs = [err(w, g[..., :d_true]) for w, g in zip(want[1:], (dk, dv))]
-    if not max(errs) <= F32_TOL:
-        raise RuntimeError(f"f32 {pair} dK/dV at split 1 disagrees: dk/dv err {errs}")
+    if not max(errs) <= tol:
+        raise RuntimeError(f"{q.dtype} {pair} dK/dV at split 1 disagrees: dk/dv err {errs}")
     out.update(split_1_dkv_ms=device_ms(run_dkv, inner), split_1_max_abs_err=max(errs))
     return out
 
@@ -5187,8 +5233,13 @@ def main(argv=None) -> int:
             names = [f"flash_bwd_{kind}_{pair}_wide_f32_kernel"] + (
                 ["flash_bwd_dkv_split_sum_kernel"] if kind == "dkv" else [])
             cluster[f"flash_bwd_{kind}_{pair}"] = {k: f32_bwd[k] for k in names}
+    # the 16-bit dK/dV's split sums (up to head dim 256), one per library
+    split_sums = {"flash_bwd_dkv_split_sum_kernel<" + ("__nv_bfloat16>" if lib == "flash_bwd"
+                                                       else "__half>"):
+                  results["build"][f"{lib}_split_sum_ptxas"] for lib in SPLIT_SUM_LIBRARIES}
     line = kernels_line(results["kernels"], paths,
                         {k: {"hgmma": v, "hgmma_fp16": hgmma16[k],
+                             **({"split_sum_kernels": split_sums} if "_dkv_" in k else {}),
                              "hgmma_d512": wide.get(("d512", k), {}),
                              "hgmma_d576": wide.get(("d576", k), {}),
                              "hgmma_wide": wide.get(("wide", k), {}),

@@ -2,7 +2,8 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_f32 [--json PATH]
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_f32|bwd_16
+        [--match REGEX] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). The families:
@@ -17,7 +18,14 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
 - ``bwd_f32``: both f32 backward pairs (``flash_bwd_dq_*``,
   ``flash_bwd_dkv_*``) at every f32 case of head dim 256 and above (padded)
   in this tree's ``chip_smoke`` backward tables, dQ, dK and dV held to
-  ``attention_bwd_plain`` (1e-4 absolute), each kernel timed.
+  ``attention_bwd_plain`` (1e-4 absolute), each kernel timed;
+- ``bwd_16``: both bf16 and fp16 backward pairs at every 16-bit case of
+  head dim 256 and below (padded) in this tree's ``chip_smoke`` backward
+  tables (``BWD_CASES``, ``HEAD_DIM_BWD_CASES``, ``FLOAT16_BWD_CASES``),
+  held to ``attention_bwd_plain`` at phase 3's bars (2e-2 of max |grad|;
+  fp16 subnormal rows also by its subnormal steps), dQ and dK/dV timed.
+
+``--match`` keeps the cases whose label the regular expression finds.
 
 A process of its own imports ``tpu_operator_torch`` from one tree (building
 that tree's kernels there), checks each case on the same seeded inputs and
@@ -34,6 +42,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -119,16 +128,49 @@ def _bwd_f32(smoke) -> dict:
     return results
 
 
+def _bwd_16(smoke) -> dict:
+    """Both 16-bit backward pairs' cases at head dims up to 256 (padded),
+    held as phase 3 holds them: {label: {ok, errs, dq_ms, dkv_ms}}."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_fwd
+
+    tables = smoke.BWD_CASES + smoke.HEAD_DIM_BWD_CASES + smoke.FLOAT16_BWD_CASES
+    results = {}
+    for case in tables:
+        if case["dtype"] == torch.float32 or flash_fwd.padded_head_dim(case["q"][3]) > 256:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, seg = smoke._case_inputs(case, gen)
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
+        run = smoke._bwd_setup(case, q, k, v, seg, dout)
+        _, errs, grad_scale = smoke._bwd_errors(run, case["q"][3])
+        tol = smoke.BF16_TOL * grad_scale
+        if case["dtype"] == torch.float16:
+            tol = max(tol, smoke.FP16_SUBNORMAL_STEP * (1.0 + max(
+                float(x.float().abs().max()) for x in (q, k))))
+        ok = max(errs) <= tol
+        inner = case.get("inner", 20)
+        results[case["label"] + f" {case['pair']}"] = {
+            "ok": ok, "errs": errs,
+            "dq_ms": smoke.device_ms(run["dq"], inner) if ok else None,
+            "dkv_ms": smoke.device_ms(run["dkv"], inner) if ok else None}
+        del run
+    return results
+
+
 # family: (its cases' runner, the timed keys of a case, the module that must
 # come from the tree under test)
 FAMILIES = {
     "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
     "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
     "bwd_f32": (_bwd_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
+    "bwd_16": (_bwd_16, ("dq_ms", "dkv_ms"), "flash_bwd"),
 }
 
 
-def _worker(tree: Path, family: str, out: Path) -> None:
+def _worker(tree: Path, family: str, out: Path, match: str) -> None:
     sys.path.insert(0, str(tree))
     import importlib
 
@@ -136,7 +178,15 @@ def _worker(tree: Path, family: str, out: Path) -> None:
     mod = importlib.import_module(f"tpu_operator_torch.kernels.{module}")
     if not Path(mod.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"{module} came from {mod.__file__}, not {tree}")
-    out.write_text(json.dumps(runner(_smoke())))
+    smoke = _smoke()
+    if match:
+        # keep only the matching rows of every case table
+        for name in dir(smoke):
+            table = getattr(smoke, name)
+            if name.endswith("_CASES") and isinstance(table, list):
+                setattr(smoke, name, [c for c in table if not isinstance(c, dict)
+                                      or "label" not in c or re.search(match, c["label"])])
+    out.write_text(json.dumps(runner(smoke)))
 
 
 def main(argv=None) -> int:
@@ -144,12 +194,14 @@ def main(argv=None) -> int:
     parser.add_argument("other", type=Path, help="another checkout of the repository")
     parser.add_argument("--family", choices=sorted(FAMILIES), required=True,
                         help="the kernels to compare")
+    parser.add_argument("--match", default="", help="time only the cases whose label this "
+                        "regular expression finds")
     parser.add_argument("--json", type=Path, default=None, help="also write the result here")
     parser.add_argument("--worker", type=Path, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--out", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker is not None:
-        _worker(args.worker.resolve(), args.family, args.out)
+        _worker(args.worker.resolve(), args.family, args.out, args.match)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -161,8 +213,8 @@ def main(argv=None) -> int:
         for i, name in enumerate(("other", "this", "this", "other")):
             out = Path(tmp) / f"{i}.json"
             subprocess.run([sys.executable, str(Path(__file__).resolve()), str(trees[name]),
-                            "--family", args.family, "--worker", str(trees[name]),
-                            "--out", str(out)], check=True, timeout=1800)
+                            "--family", args.family, "--match", args.match, "--worker",
+                            str(trees[name]), "--out", str(out)], check=True, timeout=1800)
             runs[name].append(json.loads(out.read_text()))
     summary, wrong = {}, []
     for label in runs["this"][0]:

@@ -17,8 +17,11 @@ Prints the card's name and power limit, one line per library, and as the
 last line one JSON object: per library the kernels that are the same, the
 ones that differ (with their instruction counts in the other tree and in
 this one, and how many of this tree's instructions the other tree lacks
-as a multiset: 0 where the two only order them differently), and the ones
-only one tree has.
+as a multiset: 0 where the two only order them differently), the ones
+only one tree has, and among those the renamed ones: a kernel only this
+tree has whose instructions are exactly those of one only the other tree
+has (a template argument or a parameter type changes the mangled name, not
+the code).
 """
 
 from __future__ import annotations
@@ -109,12 +112,21 @@ def main(argv=None) -> int:
         differ = {k: [len(theirs[k]), len(mine[k]),
                       sum((Counter(mine[k]) - Counter(theirs[k])).values())]
                   for k in sorted(mine.keys() & theirs.keys()) if mine[k] != theirs[k]}
-        result["libraries"][name] = {"same": len(same), "differ": differ,
-                                     "only_this": sorted(mine.keys() - theirs.keys()),
-                                     "only_other": sorted(theirs.keys() - mine.keys())}
-        print(f"{name}: {len(same)} kernels the same, {len(differ)} differ, "
-              f"{len(mine.keys() - theirs.keys())} only here, "
-              f"{len(theirs.keys() - mine.keys())} only in the other tree", flush=True)
+        only_this = sorted(mine.keys() - theirs.keys())
+        only_other = sorted(theirs.keys() - mine.keys())
+        renamed = {}
+        for new in only_this:
+            old = next((o for o in only_other if o not in renamed.values()
+                        and theirs[o] == mine[new]), None)
+            if old is not None:
+                renamed[new] = old
+        result["libraries"][name] = {
+            "same": len(same), "differ": differ, "renamed": renamed,
+            "only_this": [k for k in only_this if k not in renamed],
+            "only_other": [k for k in only_other if k not in renamed.values()]}
+        print(f"{name}: {len(same)} kernels the same, {len(differ)} differ, {len(renamed)} "
+              f"renamed with the same instructions, {len(only_this) - len(renamed)} only here, "
+              f"{len(only_other) - len(renamed)} only in the other tree", flush=True)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(result, indent=1))

@@ -114,8 +114,9 @@ def test_plans_at_head_dim_256_by_hand():
     assert p["fwd rect"].smem_bytes == 1024 + (64 + 4 * 64) * 512 + 528 + 40 == 165_432
     assert p["dq tri"].smem_bytes == 1024 + (128 + 4 * 64) * 512 + 40 == 197_672
     assert p["dq rect"].smem_bytes == 197_672 + 528 == 198_200
-    assert p["dkv tri"].smem_bytes == 197_672 + 1024 == 198_696  # + f32 lse and delta
-    assert p["dkv rect"].smem_bytes == 198_696 + 528 == 199_224
+    # + f32 lse and delta, and the consumers' exchange of P^T and dS^T (16 KiB)
+    assert p["dkv tri"].smem_bytes == 197_672 + 1024 + 16_384 == 215_080
+    assert p["dkv rect"].smem_bytes == 215_080 + 528 == 215_608
     assert [p[k].threads for k in ("fwd tri", "fwd rect", "dq tri", "dkv tri")] == [
         160, 160, 160, 384]  # dK/dV: two consumer warpgroups and the producer's
     assert {p[k].swizzle for k in p} == {128}

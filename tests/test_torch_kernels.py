@@ -1135,3 +1135,31 @@ def test_gang_telemetry_steps_replay_on_the_card(cuda):
 
     report, replays = step_telemetry("worker-0", cuda)
     assert (report.steps, replays) == (4, 3) and report.step_p50_s > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 256])
+def test_one_head_at_an_unaligned_base_runs_forward_and_backward(cuda, dtype, d):
+    """q, k and v of one head at a native head dim, each a view 4 bytes
+    into its storage (the collapse is then no copy): flash_attention runs
+    forward and backward through the kernels and matches the plain
+    versions on aligned copies (f32 1e-4, 16-bit 2e-2 of max |gradient|)."""
+    dt = {"float16": torch.float16}.get(dtype) or DTYPES[dtype]
+    off = 4 // (torch.finfo(dt).bits // 8)
+    rng = np.random.default_rng(17)
+    n = 128 * d
+    bases = [torch.from_numpy(rng.standard_normal(n + off).astype(np.float32)).to("cuda", dt)
+             .requires_grad_(True) for _ in range(3)]
+    q, k, v = (b[off:].view(1, 128, 1, d) for b in bases)
+    assert all(x.data_ptr() % flash_fwd.TMA_ALIGN for x in (q, k, v))
+    g = torch.from_numpy(rng.standard_normal((1, 128, 1, d)).astype(np.float32)).to("cuda", dt)
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(g)
+    qb, kb, vb = (x.detach().reshape(1, 128, d).clone() for x in (q, k, v))
+    want, lse = flash_fwd.attention_plain(qb, kb, vb, 1, 1, causal=True)
+    grads = flash_bwd.attention_bwd_plain(qb, kb, vb, want, lse, g.reshape(1, 128, d), 1, 1, True)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert _err(want, out.detach().reshape(1, 128, d)) <= tol, dtype
+    _check_grads(grads, [b.grad[off:].view(1, 128, d) for b in bases], dtype, (dtype, d))

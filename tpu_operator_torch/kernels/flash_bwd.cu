@@ -25,9 +25,10 @@
 // bf16 and fp16 (flash_bwd_{dq,dkv}_{tri,rect}_kernel<T, D, WG>, T
 // __nv_bfloat16 or __half): the tensor-core design, on the forward's
 // machinery (hopper.cuh), one body per kernel (dq_tc_body / dkv_tc_body<T,
-// D, WG, TRI>) for the triangle and the general masks and for both 16-bit
-// types. A library holds one of them, as flash_fwd.cu's do: built as is, bf16
-// and the f32 kernels; built with -DFLASH_ELEM_F16, fp16 alone. At long
+// D, WG, TRI>; dK/dV at D 512 and 576: dkv_slice_body) for the triangle and
+// the general masks and for both 16-bit types. A library holds one of them,
+// as flash_fwd.cu's do: built as is, bf16 and the f32 kernels; built with
+// -DFLASH_ELEM_F16, fp16 alone. At long
 // context the pair is operations-bound (14 D FLOPs per live (q, k) pair over
 // O(S D) bytes), so every product runs on wgmma in T with f32
 // accumulators, and the scores are the forward's: the raw 16-bit q.k on the
@@ -98,13 +99,34 @@
 // 128 + 32 + 32 f32 and 16 packed registers beside its producer warp, under
 // the 255 of a one-warpgroup CTA, with one m64n256k16 wgmma per 16 keys for
 // dQ += dS.K. dK and dV alone would be 256 f32 a thread, so two consumer
-// warpgroups share a CTA's 64 keys and split the head dim (kv_split): each
-// forms S^T and dP^T over all 256 columns (the same products twice, so the
-// CTA runs six products a tile where one warpgroup would run four: 50% more
-// tensor-core work, and no exchange through shared memory, which has 33 KB
-// left) and accumulates dK and dV for its 128 columns (m64n128k16 from the
-// Q and dO tiles' column boxes 0-1 or 2-3), 224 registers a thread inside
-// setmaxnreg's 232, as at D = 128 and WG = 2.
+// warpgroups share a CTA's 64 keys and split the head dim (kv_split), each
+// accumulating dK and dV for its 128 columns (m64n128k16 from the Q and dO
+// tiles' column boxes 0-1 or 2-3). S^T and dP^T are formed once a tile:
+// warpgroup w forms them over all 256 columns for q rows 32 w .. 32 w + 31
+// of the ring tile (m64n32k16, half a tile's rows: its descriptors start 32
+// rows into each box, whole swizzle atoms), turns them into its half of P^T
+// and dS^T, and the two hand their halves to each other through 16 KiB of
+// shared memory (kXchBytes: both warpgroups' thread i hold the same keys, so
+// each thread stores its four A-fragment registers a k16 step and reads the
+// whole tile's back; a named barrier before the stores, that the other has
+// read the last ones, and one after) for dV += P^T.dO and dK += dS^T.Q over
+// all 64 rows: four tile products a tile where forming both in both
+// warpgroups ran six. 192 registers of data a thread inside setmaxnreg's
+// 232.
+// The 16-bit dK/dV up to D 256 (dkv_tc_body) splits its walk over a GQA
+// group in sp parts (flash_bwd.py::gqa_split, from the card's resident CTAs:
+// at one kv head a key tile's CTA walks group x q tiles steps, and the first
+// key tiles' walks set the launch's pace), the parts on the grid's x (sp x
+// kv rows), so every part's key tile 0 launches first; part j walks members
+// [j group / sp, (j + 1) group / sp) into f32 partials that
+// flash_bwd_dkv_split_sum_kernel<T> adds in part order and rounds to T once
+// (no atomics: the same bits every run; sp = 1 writes dK and dV straight).
+// Under segment ids every warp of it, the producer's and the consumers',
+// reduces each q tile's 64 ids to their range itself (id_range: two loads a
+// lane, two warp reductions; a table built before the launch cost two
+// kernel launches a call) and passes over a tile whose one document is not
+// the CTA's keys' one: no TMA, no ring stage, no barrier (it was loaded and
+// then dropped).
 // D = 512 (64-row own tiles only; its own library, built with
 // -DFLASH_HEAD_DIM_512, so a caller at D <= 256 never compiles it): a CTA's
 // own two tiles are 128 KiB, so the ring is one stage (stages<D>) of 32-row
@@ -115,11 +137,11 @@
 // is the D = 256 design on 256 columns of dQ (128 f32 a thread, one
 // m64n256k16 per 16 keys from the K tile's column boxes 0-3 or 4-7), S and
 // dP formed by both: 5/3 of the ideal tensor-core work (S, dP and dQ once
-// each). dK/dV: each CTA is the D = 256 design on its 256 columns, two
+// each). dK/dV (dkv_slice_body): each CTA holds its 256 columns in two
 // consumer warpgroups of 128 columns each under setmaxnreg (64 + 64 + 16 +
 // 16 + 8 + 8 registers of data a thread), every one of the four forming S^T
-// and dP^T: 2.5x the ideal (S, dP, dV, dK once each), and no exchange
-// between warpgroups or CTAs. Shared memory: dQ 197,656 bytes (general pair
+// and dP^T over all 512 columns: 2.5x the ideal (S, dP, dV, dK once each),
+// and no exchange between warpgroups or CTAs. Shared memory: dQ 197,656 bytes (general pair
 // 136 more), dK/dV 197,912 (136 more).
 // D = 576 (MLA's absorbed heads; its own library, built with
 // -DFLASH_HEAD_DIM_576): the D = 512 design on 64-row own tiles of 72 KiB
@@ -662,15 +684,35 @@ constexpr int dq_tc_smem_bytes() {
          (TRI ? 0 : seg_bytes<D>()) + 8 * (2 * stages<D>() + 1);
 }
 
+// The dK/dV consumers' exchange at D = 256 (dkv_tc_body): per consumer
+// warpgroup the P^T and dS^T A fragments of its 32 q rows of the ring tile,
+// 16 bytes (one k16 step) a thread, as [warpgroup][P^T, dS^T][k16 step][thread]
+constexpr int kXchBytes = 2 * 2 * 2 * 128 * 16;
+static_assert(kXchBytes == 2 * 2 * kTile * (kTile / 2) * 2, "P^T and dS^T of a tile, 16-bit");
+template <int D>
+__host__ __device__ constexpr int xch_bytes() {
+  return kv_split<D>() > 1 && col_split<D>() == 1 ? kXchBytes : 0;
+}
+
 template <int D, int WG, bool TRI>
 constexpr int dkv_tc_smem_bytes() {
   // alignment slack, K and V tiles (64 WG keys), stages<D> Q and dO tiles
-  // (ring_rows<D> rows) with their rows' lse and delta (f32) and segment ids
-  // (general pair), full/empty/KV barriers
-  return kSmemAlign + (2 * 64 * WG + 2 * stages<D>() * ring_rows<D>()) * D * 2 +
+  // (ring_rows<D> rows), the exchange (D = 256), the rows' lse and delta
+  // (f32) and segment ids (general pair), full/empty/KV barriers
+  return kSmemAlign + (2 * 64 * WG + 2 * stages<D>() * ring_rows<D>()) * D * 2 + xch_bytes<D>() +
          2 * stages<D>() * ring_rows<D>() * 4 + (TRI ? 0 : seg_bytes<D>()) +
          8 * (2 * stages<D>() + 1);
 }
+static_assert(dkv_tc_smem_bytes<256, 1, false>() <= 232448,
+              "past the shared memory a block may use");
+
+// A barrier of the `count` consumer threads that reach it (named barrier
+// `id`, 1-15: 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+constexpr int kXchFree = 1;  // the other warpgroup has read the last exchange
+constexpr int kXchFull = 2;  // both warpgroups have written this one
 
 // dQ on the tensor cores. blockIdx.x: (batch, head) row; blockIdx.y: q tile
 // of 64 WG rows, reversed under a plain causal mask so that the heaviest
@@ -902,16 +944,359 @@ __device__ __forceinline__ void dq_tc_body(const Params& p, const CUtensorMap* q
   }
 }
 
-// dK/dV on the tensor cores. blockIdx.x: kv row; blockIdx.y: key tile of 64
-// WG keys, in order (under a causal mask the first keys, the longest walks,
-// launch first); blockIdx.z: the column slice of dK and dV at D = 512
-// (halves) and 576 (thirds). TRI: the triangle; else the general masks of
-// Params.
+// dK/dV on the tensor cores at D <= 256 (D 512 and 576: dkv_slice_body).
+// blockIdx.x: part x kv rows + kv row, the GQA walk in sp = gridDim.x /
+// rows parts (part j walks members [j group / sp, (j + 1) group / sp) and,
+// at sp > 1, writes f32 partials that flash_bwd_dkv_split_sum_kernel adds in
+// part order); blockIdx.y: key tile of 64 WG keys, so every part's key tile
+// 0 (under a causal mask the longest walks) launches first. With segment
+// ids, the producer and the consumers each reduce a q tile's ids to their
+// range and pass over a tile whose one document is not the CTA's keys' one:
+// no TMA, no ring stage, no barrier. At D = 256 each consumer
+// warpgroup forms S^T and dP^T for its half of the tile's q rows over all of
+// D and hands its P^T and dS^T halves to the other through shared memory
+// (two named barriers a tile), so S^T and dP^T are formed once. TRI: the
+// triangle; else the general masks of Params.
 template <typename T, int D, int WG, bool TRI>
 __device__ __forceinline__ void dkv_tc_body(const Params& p, const CUtensorMap* qmap,
                                             const CUtensorMap* kmap, const CUtensorMap* vmap,
                                             const CUtensorMap* domap) {
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
+  static_assert(col_split<D>() == 1, "D 512 and 576: dkv_slice_body");
+  using G = Geo<D>;
+  constexpr int BN = 64 * WG;
+  constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on a share of the columns
+  constexpr int NC = WG * CS;        // consumer warpgroups
+  constexpr int DC = D / CS;         // a consumer's columns of dK and dV
+  constexpr int QH = kTile / CS;     // the q rows of a ring tile whose S^T and dP^T it forms
+  constexpr int ST = kStages;
+  constexpr uint32_t kKVBytes = BN * D * 2;
+  constexpr uint32_t kQBytes = kTile * D * 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  unsigned char* k_s = base;
+  unsigned char* v_s = k_s + kKVBytes;
+  unsigned char* q_s = v_s + kKVBytes;        // stage st at q_s + st * kQBytes
+  unsigned char* do_s = q_s + ST * kQBytes;   // likewise
+  unsigned char* xch_s = do_s + ST * kQBytes;  // D = 256: the exchange, kXchBytes
+  float* lse_s = reinterpret_cast<float*>(xch_s + xch_bytes<D>());  // [ST][64]
+  float* dl_s = lse_s + ST * kTile;                                // likewise
+  int* qid_s = reinterpret_cast<int*>(dl_s + ST * kTile);  // general: [ST][64], kSegBytes in all
+  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(qid_s)
+                                                   : reinterpret_cast<unsigned char*>(qid_s) +
+                                                         kSegBytes);
+  uint64_t* empty = full + ST;
+  uint64_t* kv_full = empty + ST;
+
+  const bool causal = TRI || p.causal;
+  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const bool segments = !TRI && p.seg != nullptr;
+  const int kv_row = blockIdx.x % p.rows;
+  const int part = blockIdx.x / p.rows;
+  const int k0 = blockIdx.y * BN;
+  const int group = p.heads / p.kv_heads;
+  const int share = group / (gridDim.x / p.rows);  // the part's GQA members
+  // the q head of group member m is q_row0 + m (flashattention.py q_index)
+  const int q_row0 =
+      (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group + part * share;
+  // the q tiles that can see some key of the CTA: all of them, or from the
+  // diagonal down, to the last row inside the window of the last key
+  const int t_lo = causal ? k0 / kTile : 0;
+  const int q_end = window > 0 ? min(p.s, min(k0 + BN, p.s) - 1 + window) : p.s;
+  const int per_member = (q_end + kTile - 1) / kTile - t_lo;
+  const int n_steps = share * per_member;
+  const int* seg = segments ? p.seg + static_cast<size_t>(kv_row / p.kv_heads) * p.s : nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // (segment ids; every lane of a warp calls these) the id range of the
+  // CTA's keys (read once the K and V copies are under way), a lane's two
+  // ids of q tile t (a position past s reads the last id inside s, which
+  // lies in the same tile) and the warp's range of them: a q tile that
+  // holds one document while the keys hold one other has no live (q, k)
+  // pair, and it is never loaded
+  int2 keys = make_int2(0, 0);
+  auto key_range = [&] { return id_range<BN>(seg, k0, p.s, lane, 32, ~0u, nullptr); };
+  auto tile_ids = [&](int t) {
+    return make_int2(seg[min(t * kTile + lane, p.s - 1)], seg[min(t * kTile + lane + 32, p.s - 1)]);
+  };
+  auto range_of = [&](int2 ids) {
+    return warp_range(~0u, min(ids.x, ids.y), max(ids.x, ids.y));
+  };
+  auto dead = [&](int2 r) { return r.x == r.y && keys.x == keys.y && r.x != keys.x; };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the TMA bytes, then each producer lane's staged values
+      mbar_init(&empty[st], NC * 4);
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {
+    // the producer warpgroup: beside two consumer warpgroups it hands
+    // registers to them (dK and dV at D = 128 need more than the 168 a
+    // thread of 384 gets, and at D = 256 each consumer's half does); its
+    // first warp loads K and V once, then per live (member, q tile) Q and
+    // dO by TMA and the tile's lse (base 2; +inf past s), delta and segment
+    // ids by plain loads
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs>();
+    if (warp == NC * 4) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * kKVBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(k_s + b * BN * G::kRowBytes, kmap, kv_full, b * G::kCols, k0, kv_row);
+          tma_load_3d(v_s + b * BN * G::kRowBytes, vmap, kv_full, b * G::kCols, k0, kv_row);
+        }
+      }
+      bool keyed = false;  // (segment ids) the keys' range, read at the first tile that needs it
+      int n = 0;  // ring tiles loaded
+      for (int i = 0; i < n_steps; ++i) {
+        const int t = t_lo + i % per_member;
+        // a q tile whose positions overlap the keys' holds a live pair: no
+        // test, so a causal walk's first tile loads with no id read before it
+        if (segments && (t * kTile >= k0 + BN || (t + 1) * kTile <= k0)) {
+          if (!keyed) keys = key_range();
+          keyed = true;
+          if (dead(range_of(tile_ids(t)))) continue;
+        }
+        const int st = n % ST;
+        const int q_row = q_row0 + i / per_member;
+        const int q0 = t * kTile;
+        if (n >= ST) mbar_wait(&empty[st], ((n / ST) - 1) & 1);
+        ++n;
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * kQBytes);
+#pragma unroll
+          for (int b = 0; b < G::kBoxes; ++b) {
+            tma_load_3d(q_s + st * kQBytes + b * kTile * G::kRowBytes, qmap, &full[st],
+                        b * G::kCols, q0, q_row);
+            tma_load_3d(do_s + st * kQBytes + b * kTile * G::kRowBytes, domap, &full[st],
+                        b * G::kCols, q0, q_row);
+          }
+        }
+        for (int c = lane; c < kTile; c += 32) {
+          const int q = q0 + c;
+          const size_t at = static_cast<size_t>(q_row) * p.s + q;
+          const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
+          lse_s[st * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+          dl_s[st * kTile + c] = q < p.s ? p.delta[at] : 0.f;
+          if (segments) qid_s[st * kTile + c] = q < p.s ? seg[q] : 0;
+        }
+        mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
+      }
+    }
+  } else {
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns keys w0 .. w0 + 63 and computes dK/dV
+    // columns c0 .. c0 + DC - 1 (all of them but at D = 256), and at D = 256
+    // S^T and dP^T for q rows r0 .. r0 + QH - 1 of each tile; this thread
+    // holds keys key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1)
+    const int wg = warp / 4;
+    const int kw = wg / CS;          // the 64-key slice
+    const int half = wg % CS;        // its share of the slice
+    const int c0 = half * DC;
+    const int r0 = half * QH;
+    const int box = c0 / G::kCols;   // c0 as a column box of the Q and dO tiles
+    const int tq = lane % 4;
+    const int w0 = k0 + kw * 64;
+    const int key = w0 + (warp % 4) * 16 + lane / 4;
+    const float qscale = p.qscale, scale = p.scale;
+    const int win = window > 0 ? window : INT_MAX;
+    int kid[2] = {0, 0};  // the segment ids of keys key and key + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (segments && key + 8 * h < p.s) kid[h] = seg[key + 8 * h];
+    }
+    // the segment ids of the warpgroup's keys: one id throughout when x == y
+    const int2 krange =
+        segments ? id_range(seg, w0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+    float dk[DC / 2], dv[DC / 2], s[QH / 2], dp[QH / 2];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < QH / 2; ++i) s[i] = dp[i] = 0.f;
+
+    // (segment ids) the next step's ids, loaded under this step's work
+    int2 ids = make_int2(0, 0);
+    if (segments) {
+      keys = key_range();
+      if (n_steps > 0) ids = tile_ids(t_lo);
+    }
+    mbar_wait(kv_full, 0);
+    int n = 0;  // ring tiles consumed
+    for (int i = 0; i < n_steps; ++i) {
+      const int t = t_lo + i % per_member;
+      const int2 qr = segments ? range_of(ids) : make_int2(0, 0);
+      if (segments && i + 1 < n_steps) ids = tile_ids(t_lo + (i + 1) % per_member);
+      if (segments && dead(qr)) continue;
+      const int st = n % ST;
+      const int q0 = t * kTile;
+      mbar_wait(&full[st], (n / ST) & 1);
+      ++n;
+      // whether some row of the tile is at or after some key and inside the
+      // window, and whether some pair needs the element mask: a row before a
+      // key or outside the window (rows past s have P = 0 from their lse,
+      // and keys past s are never written). Every test is the same for both
+      // warpgroups of a key slice, which meet at the exchange.
+      bool sees = w0 < p.s;
+      bool masked = causal && q0 < w0 + 63;
+      if (causal) sees = sees && q0 + kTile - 1 >= w0;
+      if (window > 0) {
+        sees = sees && q0 - (w0 + 63) < window;
+        masked = masked || q0 + kTile - 1 - w0 >= window;
+      }
+      if (segments) {
+        // both sides one document each: the fast path when it is the same
+        // one, no live pair (and no products) when it is not
+        const bool uniform = krange.x == krange.y && qr.x == qr.y;
+        sees = sees && !(uniform && krange.x != qr.x);
+        masked = masked || !uniform;
+      }
+      if (sees) {
+        const unsigned char* qs = q_s + st * kQBytes;
+        const unsigned char* dos = do_s + st * kQBytes;
+        const float2* l2 = reinterpret_cast<const float2*>(lse_s + st * kTile);
+        const float2* dl = reinterpret_cast<const float2*>(dl_s + st * kTile);
+        const int2* qid = reinterpret_cast<const int2*>(qid_s + st * kTile);
+        // S^T = K.Q^T and dP^T = V.dO^T over all of D for the warpgroup's q rows
+        wgmma_fence();
+        mma_rows_by_ring_rows<T, D, QH>(s, k_s, BN, kw * 64, qs, r0);
+        mma_rows_by_ring_rows<T, D, QH>(dp, v_s, BN, kw * 64, dos, r0);
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(s);
+        hold(dp);
+
+        // P^T and dS^T of the tile's 64 q rows as wgmma A fragments; the
+        // warpgroup forms steps 0 .. QH / 16 - 1 (its q rows) here
+        uint32_t pa[kTile / 16][4], dsa[kTile / 16][4];
+        // with the element mask or (a fast tile) without, as in dQ
+        auto form_p_ds = [&](auto mask) {
+          constexpr bool kMask = decltype(mask)::value;
+#pragma unroll
+          for (int j = 0; j < QH / 8; ++j) {
+            const int c = (r0 + 8 * j) / 2 + tq;  // rows r0 + 8 j + 2 tq (+1), as pairs
+            const float2 lj = l2[c], dj = dl[c];
+            int2 qj = make_int2(0, 0);  // and their segment ids
+            if (kMask && segments) qj = qid[c];
+            float pe[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = q0 + 2 * c + e % 2;
+              const int kk = key + 8 * (e / 2);
+              const float lse2 = e % 2 ? lj.y : lj.x;
+              float v = exp2f(fmaf(s[4 * j + e], qscale, -lse2));
+              if constexpr (kMask) {
+                bool live;
+                if constexpr (TRI) {
+                  live = q >= kk;
+                } else {
+                  live = !causal || (q >= kk && q - kk < win);
+                  if (segments) live = live && (e % 2 ? qj.y : qj.x) == kid[e / 2];
+                }
+                if (!live) v = 0.f;
+              }
+              pe[e] = v;
+              ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
+            }
+            // the accumulator layout of P^T and dS^T is wgmma's register layout of A
+            pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
+            pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
+            dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
+            dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
+          }
+        };
+        if (masked) {
+          form_p_ds(std::true_type{});
+        } else {
+          form_p_ds(std::false_type{});
+        }
+
+        if constexpr (CS > 1) {
+          // hand the warpgroup's k16 steps to the other and take all of the
+          // tile's, both warpgroups' thread i holding the same keys
+          constexpr int KS = QH / 16;
+          const int me = threadIdx.x % 128;
+          uint4* xch = reinterpret_cast<uint4*>(xch_s);  // [CS][P^T, dS^T][KS][128]
+          uint4* mine = xch + half * 2 * KS * 128;
+          named_sync(kXchFree, NC * 128);
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            mine[k * 128 + me] = make_uint4(pa[k][0], pa[k][1], pa[k][2], pa[k][3]);
+            mine[(KS + k) * 128 + me] = make_uint4(dsa[k][0], dsa[k][1], dsa[k][2], dsa[k][3]);
+          }
+          named_sync(kXchFull, NC * 128);
+#pragma unroll
+          for (int k = 0; k < kTile / 16; ++k) {
+            const uint4* from = xch + (k / KS) * 2 * KS * 128 + (k % KS) * 128 + me;
+            const uint4 a = from[0], b = from[KS * 128];
+            pa[k][0] = a.x, pa[k][1] = a.y, pa[k][2] = a.z, pa[k][3] = a.w;
+            dsa[k][0] = b.x, dsa[k][1] = b.y, dsa[k][2] = b.z, dsa[k][3] = b.w;
+          }
+        }
+
+        hold(pa);
+        hold(dsa);
+        wgmma_fence();
+        mma_frag_by_tile<T, D, DC>(dv, pa, dos, box);  // dV += P^T.dO, dO MN-major
+        mma_frag_by_tile<T, D, DC>(dk, dsa, qs, box);  // dK += dS^T.Q, Q MN-major
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(dv);
+        hold(dk);
+        hold(pa);
+        hold(dsa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+
+    // dK and dV's row blockIdx.x: the kv row, or (sp > 1) part x kv rows +
+    // kv row of the f32 partials, dK's [sp][rows][s][D], then dV's
+    const size_t row = blockIdx.x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = key + 8 * h;
+      if (kj >= p.s) continue;
+      const size_t at = (row * p.s + kj) * D + c0;
+      if (gridDim.x == p.rows) {  // one part: T pairs
+        auto* dkr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + at);
+        auto* dvr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + at);
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          dkr[4 * j + tq] = pack2<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+          dvr[4 * j + tq] = pack2<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        }
+      } else {
+        auto* dkr = reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at);
+        auto* dvr = reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at);
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          dkr[4 * j + tq] = make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+          dvr[4 * j + tq] = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dK/dV on the tensor cores at D = 512 and 576 (D <= 256: dkv_tc_body).
+// blockIdx.x: kv row; blockIdx.y: key tile of 64 WG keys, in order (under a
+// causal mask the first keys, the longest walks, launch first); blockIdx.z:
+// the column slice of dK and dV, halves (512) or thirds (576). TRI: the
+// triangle; else the general masks of Params.
+template <typename T, int D, int WG, bool TRI>
+__device__ __forceinline__ void dkv_slice_body(const Params& p, const CUtensorMap* qmap,
+                                               const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                               const CUtensorMap* domap) {
+  static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
+  static_assert(col_split<D>() > 1, "D <= 256: dkv_tc_body");
   using G = Geo<D>;
   constexpr int BN = 64 * WG;
   constexpr int CS = kv_split<D>();  // warpgroups per 64 keys, each on a share of the columns
@@ -1205,13 +1590,21 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_bwd_dq_rect_kernel(Par
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
     flash_bwd_dkv_tri_kernel(Params p, TC_MAPS) {
-  dkv_tc_body<T, D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+  if constexpr (col_split<D>() > 1) {
+    dkv_slice_body<T, D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+  } else {
+    dkv_tc_body<T, D, WG, true>(p, &qmap, &kmap, &vmap, &domap);
+  }
 }
 
 template <typename T, int D, int WG>
 __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
     flash_bwd_dkv_rect_kernel(Params p, TC_MAPS) {
-  dkv_tc_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+  if constexpr (col_split<D>() > 1) {
+    dkv_slice_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+  } else {
+    dkv_tc_body<T, D, WG, false>(p, &qmap, &kmap, &vmap, &domap);
+  }
 }
 
 #ifdef FLASH_HEAD_DIM_WIDE
@@ -2305,15 +2698,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_rect_wide_f32_kernel(Params p, int d, int sp) {
   dkv_wide_f32_body<false>(p, d, sp);
 }
+#endif  // FLASH_ELEM_F16
+#endif  // FLASH_HEAD_DIM_WIDE
 
-// dK and dV from the sp partials of a split GQA walk (parts: dK's sp x n4
-// float4s, then dV's): each float4 of dK, then of dV, the sum of its parts
-// in part order, so two runs give the same bits. Bound by bytes: 2 sp reads
-// and 2 writes of n4 float4s, each once, over HBM (or L2, where the
-// partials still sit).
+// dK and dV (of type O: f32 for the f32 cluster pair, the library's 16-bit
+// type for the tensor-core pair up to D 256) from the sp partials of a split
+// GQA walk (parts: dK's sp x n4 float4s, then dV's): each float4 of dK, then
+// of dV, the sum of its parts in part order, rounded to O once, so two runs
+// give the same bits. Bound by bytes: 2 sp reads of n4 float4s and 2 writes
+// of n4 O quads, each once, over HBM (or L2, where the partials still sit).
+template <typename O>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ parts, float4* __restrict__ dk,
-                                   float4* __restrict__ dv, size_t n4, int sp) {
+    flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ parts, O* __restrict__ dk,
+                                   O* __restrict__ dv, size_t n4, int sp) {
   for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < 2 * n4;
        i += static_cast<size_t>(gridDim.x) * kThreads) {
     const bool is_v = i >= n4;
@@ -2324,11 +2721,14 @@ __global__ void __launch_bounds__(kThreads)
       const float4 u = src[static_cast<size_t>(j) * n4];
       acc = make_float4(acc.x + u.x, acc.y + u.y, acc.z + u.z, acc.w + u.w);
     }
-    (is_v ? dv : dk)[e] = acc;
+    if constexpr (std::is_same<O, float>::value) {
+      reinterpret_cast<float4*>(is_v ? dv : dk)[e] = acc;
+    } else {
+      reinterpret_cast<uint2*>(is_v ? dv : dk)[e] =
+          make_uint2(pack2<O>(acc.x, acc.y), pack2<O>(acc.z, acc.w));
+    }
   }
 }
-#endif  // FLASH_ELEM_F16
-#endif  // FLASH_HEAD_DIM_WIDE
 
 #undef TC_MAPS
 
@@ -2337,9 +2737,10 @@ enum Kind { kDqTri, kDqRect, kDkvTri, kDkvRect };
 constexpr bool is_dq(Kind k) { return k == kDqTri || k == kDqRect; }
 constexpr bool is_tri(Kind k) { return k == kDqTri || k == kDkvTri; }
 
-// rows: the grid's row count, bh for dQ and bh_kv for dK/dV.
+// rows: the grid's row count, bh for dQ and bh_kv for dK/dV; dK/dV's split
+// parts of its GQA walk multiply them on the grid's x.
 template <typename T, int D, int WG, Kind K>
-int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
+int launch_tc(const Params& p, int rows, int smem, int split, cudaStream_t stream) {
   constexpr bool kDq = is_dq(K), kTri = is_tri(K);
   constexpr int B = 64 * WG;  // the CTA's own side: q rows (dQ) or keys (dK/dV)
   const int tiles = (p.s + B - 1) / B;
@@ -2373,17 +2774,20 @@ int launch_tc(const Params& p, int rows, int smem, cudaStream_t stream) {
   // dQ: one producer warp; dK/dV: a producer warpgroup (setmaxnreg beside
   // two consumer warpgroups)
   const int threads = kDq ? WG * 128 + 32 : (WG * kv_split<D>() + 1) * 128;
-  kernel<<<dim3(rows, tiles, col_split<D>()), threads, smem, stream>>>(p, qmap, kmap, vmap, domap);
+  kernel<<<dim3(rows * split, tiles, col_split<D>()), threads, smem, stream>>>(p, qmap, kmap, vmap,
+                                                                              domap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, Kind K>
-int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, cudaStream_t stream) {
+int dispatch_tc(const Params& p, int rows, int block, int smem, int swizzle, int split,
+                cudaStream_t stream) {
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
+  if (split != 1 && (is_dq(K) || col_split<D>() > 1)) return kUnsupported;  // dK/dV to D 256
   if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
-  if (block == 64) return launch_tc<Elem16, D, 1, K>(p, rows, smem, stream);
+  if (block == 64) return launch_tc<Elem16, D, 1, K>(p, rows, smem, split, stream);
   if constexpr (D <= 128) {  // D 256, 512 and 576: 64-row tiles only (see the note on top)
-    if (block == 128) return launch_tc<Elem16, D, 2, K>(p, rows, smem, stream);
+    if (block == 128) return launch_tc<Elem16, D, 2, K>(p, rows, smem, split, stream);
   }
   return kUnsupported;
 }
@@ -2476,7 +2880,23 @@ int launch_f32_wide(const Params& p, int rows, int d, int smem, int split, cudaS
   }
 }
 
-// dK and dV (n floats each) from a split walk's partials: one float4 a
+#endif
+
+// The libraries that split dK/dV's GQA walk, and the gradients' type there:
+// the wide bf16 one (the f32 cluster pair) and the base ones (the 16-bit
+// pair up to D 256).
+#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+#define FLASH_BWD_SPLITS
+using SplitOut = float;
+bool split_takes(int dtype, int d) { return dtype == 0 && f32_cluster_head_dim(d); }
+#elif !defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
+#define FLASH_BWD_SPLITS
+using SplitOut = Elem16;
+bool split_takes(int dtype, int d) { return dtype == kElemCode && d <= 256; }
+#endif
+
+#ifdef FLASH_BWD_SPLITS
+// dK and dV (n elements each) from a split walk's partials: one float4 a
 // thread, a grid of at most kSplitSumBlocks CTAs striding over the rest.
 constexpr size_t kSplitSumBlocks = 8192;
 int launch_split_sum(const float* partials, void* dk, void* dv, size_t n, int split,
@@ -2484,9 +2904,9 @@ int launch_split_sum(const float* partials, void* dk, void* dv, size_t n, int sp
   const size_t n4 = n / 4;
   const size_t want = (2 * n4 + kThreads - 1) / kThreads;
   const unsigned blocks = static_cast<unsigned>(want < kSplitSumBlocks ? want : kSplitSumBlocks);
-  flash_bwd_dkv_split_sum_kernel<<<blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(partials), static_cast<float4*>(dk),
-      static_cast<float4*>(dv), n4, split);
+  flash_bwd_dkv_split_sum_kernel<SplitOut><<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(partials), static_cast<SplitOut*>(dk),
+      static_cast<SplitOut*>(dv), n4, split);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -2552,7 +2972,8 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
 // The library's 16-bit type on the tensor cores with the caller's plan; f32
 // (the bf16 library only) on the CUDA cores, whose plan is fixed (its tile,
 // shared memory, no swizzle): up to 128 in the base library, 256 and above
-// in the wide one. `split` > 1 (dK/dV's GQA walk in parts) only there.
+// in the wide one. `split` > 1 (dK/dV's GQA walk in parts) in the wide
+// library's f32 pair and the base libraries' 16-bit one.
 template <Kind K>
 int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
              int split, void* stream) {
@@ -2561,19 +2982,18 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
 #ifdef FLASH_HEAD_DIM_WIDE
   return dispatch_wide<K>(p, dtype, rows, d, block, smem, swizzle, split, st);
 #else
-  if (split != 1) return kUnsupported;
   if (dtype == kElemCode) {
     switch (d) {
 #ifdef FLASH_HEAD_DIM_512
-      case 512: return dispatch_tc<512, K>(p, rows, block, smem, swizzle, st);
+      case 512: return dispatch_tc<512, K>(p, rows, block, smem, swizzle, split, st);
 #elif defined(FLASH_HEAD_DIM_576)
-      case 576: return dispatch_tc<576, K>(p, rows, block, smem, swizzle, st);
+      case 576: return dispatch_tc<576, K>(p, rows, block, smem, swizzle, split, st);
 #else
-      case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, st);
-      case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, st);
-      case 64: return dispatch_tc<64, K>(p, rows, block, smem, swizzle, st);
-      case 128: return dispatch_tc<128, K>(p, rows, block, smem, swizzle, st);
-      case 256: return dispatch_tc<256, K>(p, rows, block, smem, swizzle, st);
+      case 16: return dispatch_tc<16, K>(p, rows, block, smem, swizzle, split, st);
+      case 32: return dispatch_tc<32, K>(p, rows, block, smem, swizzle, split, st);
+      case 64: return dispatch_tc<64, K>(p, rows, block, smem, swizzle, split, st);
+      case 128: return dispatch_tc<128, K>(p, rows, block, smem, swizzle, split, st);
+      case 256: return dispatch_tc<256, K>(p, rows, block, smem, swizzle, split, st);
 #endif
       default: return kUnsupported;
     }
@@ -2582,7 +3002,8 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
     return kUnsupported;
   } else {
     const size_t fixed = is_dq(K) ? dq_smem_bytes(d) : dkv_smem_bytes(d);
-    if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed)) {
+    if (dtype != 0 || block != kTile || swizzle != 0 || smem != static_cast<int>(fixed) ||
+        split != 1) {
       return kUnsupported;
     }
     return dispatch_dim<float, K>(p, rows, d, st);
@@ -2591,16 +3012,17 @@ int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, i
 }
 
 // dK/dV with its GQA walk in `split` parts: 1 writes dk and dv straight;
-// above 1 (the f32 cluster pair only) part j's CTAs sum their group / split
-// members into partials (dK's split x rows x s x d floats, then dV's), which
+// above 1 (the f32 cluster pair, and the 16-bit pair up to D 256: split_takes)
+// part j's CTAs sum their group / split members into f32 partials (dK's
+// split x rows x s x d floats, then dV's), which
 // flash_bwd_dkv_split_sum_kernel adds into dk and dv in part order.
 template <Kind K>
 int dispatch_dkv(Params p, int dtype, int rows, int d, int block, int smem, int swizzle,
                  float* partials, int split, void* stream) {
   if (split == 1) return dispatch<K>(p, dtype, rows, d, block, smem, swizzle, 1, stream);
-#if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-  if (split < 1 || rows <= 0 || p.s <= 0 || !f32_cluster_head_dim(d) ||
-      !tma_aligned({partials, p.dk, p.dv}) || partials == nullptr) {
+#ifdef FLASH_BWD_SPLITS
+  if (split < 1 || !valid(p, rows) || (p.heads / p.kv_heads) % split != 0 ||
+      !split_takes(dtype, d) || !tma_aligned({partials, p.dk, p.dv}) || partials == nullptr) {
     return kUnsupported;
   }
   void* const dk = p.dk;
@@ -2631,7 +3053,8 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
 // tri_bwd_plan and rect_bwd_plan); the dK/dV entries take its split too
 // (BwdPlan.split: 1, or above 1 with partials, 2 x split x bh_kv x s x d
-// floats of scratch: the f32 cluster pair only). A library takes D 16-256
+// floats of scratch: the f32 cluster pair, and the 16-bit pair up to D
+// 256). A library takes D 16-256
 // (f32: 16-128), or (built with -DFLASH_HEAD_DIM_512) D 512 alone, or
 // (-DFLASH_HEAD_DIM_576) D 576 alone, both 16-bit only, or
 // (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576 and f32 from 256 on
@@ -2676,6 +3099,53 @@ extern "C" int flash_bwd_dkv_rect(const void* q, const void* k, const void* v, c
   return dispatch_dkv<kDkvRect>(p, dtype, bh_kv, d, block, smem, swizzle, partials, split,
                                 stream);
 }
+
+#if !defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
+namespace {
+// CTAs of the library's 16-bit dK/dV kernel at (D, WG) an SM holds at once.
+template <int D, int WG>
+int dkv_ctas_per_sm(bool tri, int smem) {
+  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap) =
+      tri ? flash_bwd_dkv_tri_kernel<Elem16, D, WG> : flash_bwd_dkv_rect_kernel<Elem16, D, WG>;
+  if (smem != (tri ? dkv_tc_smem_bytes<D, WG, true>() : dkv_tc_smem_bytes<D, WG, false>())) {
+    return kUnsupported;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                         (WG * kv_split<D>() + 1) * 128, smem);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <int D>
+int dkv_ctas_per_sm_at(bool tri, int block, int smem) {
+  if (block == 64) return dkv_ctas_per_sm<D, 1>(tri, smem);
+  if constexpr (D <= 128) {
+    if (block == 128) return dkv_ctas_per_sm<D, 2>(tri, smem);
+  }
+  return kUnsupported;
+}
+}  // namespace
+
+// How many CTAs of the 16-bit dK/dV kernel (tri 1: the triangle pair's, 0:
+// the general pair's) at head dim d (16-256) and the plan's block and shared
+// memory an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
+// shared memory, registers, threads), which sizes its GQA split. -1 for a
+// plan these kernels do not take, minus a CUDA error code when the query
+// fails.
+extern "C" int flash_bwd_dkv_ctas_per_sm(int tri, int d, int block, int smem) {
+  switch (d) {
+    case 16: return dkv_ctas_per_sm_at<16>(tri, block, smem);
+    case 32: return dkv_ctas_per_sm_at<32>(tri, block, smem);
+    case 64: return dkv_ctas_per_sm_at<64>(tri, block, smem);
+    case 128: return dkv_ctas_per_sm_at<128>(tri, block, smem);
+    case 256: return dkv_ctas_per_sm_at<256>(tri, block, smem);
+    default: return kUnsupported;
+  }
+}
+#endif
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
 // How many clusters of an f32 cluster kernel (dq 1: dQ, 0: dK/dV; tri 1: the

@@ -90,6 +90,10 @@ TRI_BWD_STAGES = 2  # ring depth of the 16-bit pairs (kStages in flash_bwd.cu)
 # the 16-bit general pair's staged segment ids: per stage 64 int32 and their
 # min and max (kSegBytes in flash_bwd.cu)
 SEG_BYTES = TRI_BWD_STAGES * (TILE + 2) * 4
+# the 16-bit dK/dV kernel at d 256: each of its two consumer warpgroups forms
+# P^T and dS^T for 32 of a ring tile's 64 q rows and hands both, packed to
+# 16 bits, to the other through shared memory (kXchBytes in flash_bwd.cu)
+DKV_EXCHANGE_BYTES = 2 * 2 * TILE * (TILE // 2) * 2
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -149,10 +153,11 @@ class BwdPlan:
     chunks (f32: slabs) stream through and ``cluster`` the CTAs of a
     thread-block cluster on the grid's x (f32: those that share one tile
     pair's S and dP); elsewhere ``slab`` and ``stages`` are 0, ``cluster``
-    1. ``split`` (f32 dkv only, else 1) is the parts of the GQA walk
-    (:func:`gqa_split`): the grid's y holds split x kv rows, part j walking
-    members [j·group/split, (j+1)·group/split) into partial sums
-    (:meth:`workspace`) that a second kernel adds."""
+    1. ``split`` (dkv in f32 from d 256 and in bf16 and fp16 up to 256, else
+    1) is the parts of the GQA walk (:func:`gqa_split`): the grid's rows
+    (f32: y; 16-bit: x) hold split x kv rows, part j walking members
+    [j·group/split, (j+1)·group/split) into f32 partial sums
+    (:meth:`workspace`) that a second kernel adds in part order."""
 
     kernel: str
     block: int
@@ -168,6 +173,12 @@ class BwdPlan:
     stages: int = 0
     cluster: int = 1
     split: int = 1
+
+    @property
+    def _rows_axis(self) -> int:
+        """The grid axis of the (batch, head) or kv rows: x for the 16-bit
+        kernels, y for the f32 ones."""
+        return 0 if self.swizzle else 1
 
     @property
     def redundancy(self) -> int:
@@ -198,7 +209,21 @@ class BwdPlan:
         """The (row, tile) that block (x, y) computes (:meth:`_slot`); a
         split dkv's grid row is part x kv rows + kv row."""
         row, tile = self._slot(x, y)
-        return (row if self.split == 1 else row % (self.grid[1] // self.split)), tile
+        return (row if self.split == 1 else row % self._kv_rows()), tile
+
+    def _kv_rows(self) -> int:
+        return self.grid[self._rows_axis] // self.split
+
+    def with_split(self, split: int) -> "BwdPlan":
+        """This dkv plan with its GQA walk in ``split`` parts (the grid's
+        rows times ``split``), as a card whose rule chose it plans."""
+        grid = list(self.grid)
+        grid[self._rows_axis] = self._kv_rows() * split
+        return dataclasses.replace(self, grid=tuple(grid), split=split)
+
+    def _part(self, x: int, y: int) -> int:
+        """The walk part block (x, y) computes: 0 unless split."""
+        return self._slot(x, y)[0] // self._kv_rows()
 
     def sees(self, q: int, k: int) -> bool:
         """Whether some key of key tile k is inside the masks' band for some
@@ -254,11 +279,29 @@ class BwdPlan:
                 out += [(0, q, k) for q in slices if live(q, k)]
             return out
         share = group // self.split
-        part = 0 if self.split == 1 else self._slot(x, y)[0] // (self.grid[1] // self.split)
+        part = self._part(x, y)
         for m in range(part * share, (part + 1) * share):
             for q in self.walk(first, s):
                 out += [(m, q, k) for k in slices if live(q, k)]
         return out
+
+    def loads(self, x: int, y: int, s: int, group: int,
+              seg: Optional[Sequence[int]] = None) -> List[Tuple[int, int]]:
+        """The (GQA member, q tile) ring tiles that 16-bit dkv block (x, y)
+        loads for s tokens, in the kernel's order: its part's members'
+        walks, less, with the segment ids ``seg`` (the s ids of the block's
+        batch row), each q tile whose positions inside s hold one document
+        while all of the CTA's keys hold another (:func:`apart`, which every
+        warp of the kernel decides from the ids' range): such a tile gets no
+        TMA, no ring stage and no barrier round trip. Every live (member, q tile) of
+        :meth:`visits` is among them."""
+        first = self.cta(x, y)[1] * self.block // TILE
+        keys = seg[first * TILE:min(s, first * TILE + self.block)] if seg is not None else None
+        share = group // self.split
+        part = self._part(x, y)
+        return [(m, q) for m in range(part * share, (part + 1) * share)
+                for q in self.walk(first, s)
+                if keys is None or not apart(seg[q * self.ring:min(s, (q + 1) * self.ring)], keys)]
 
     def workspace(self, s: int, d: int) -> Optional[Tuple[int, ...]]:
         """The f32 partials a split dkv writes, (2, split, kv rows, s, d):
@@ -266,19 +309,22 @@ class BwdPlan:
         straight)."""
         if self.split == 1:
             return None
-        return (2, self.split, self.grid[1] // self.split, s, d)
+        return (2, self.split, self._kv_rows(), s, d)
 
 
 def gqa_split(plan: BwdPlan, s: int, group: int, rows: int, clusters: int) -> int:
-    """The parts the f32 dK/dV walk over a GQA group splits in: the smallest
-    divisor sp of ``group`` that minimises max(H, ⌈P / R⌉) in tile pairs,
-    H the heaviest cluster's walk (the longest key tile's band of q tiles,
-    times group / sp members), P the launch's tile pairs (``rows`` kv rows,
-    every key tile's band, every member) and R the card's resident
-    ``clusters``: a split that shortens the longest walk until the card's
-    clusters, not one walk, set the pace. 1 at GQA 1, and where P / R
-    already passes H."""
-    walks = [len(plan.walk(t, s)) for t in range(-(-s // TILE))]
+    """The parts the dK/dV walk over a GQA group splits in (the f32 cluster
+    pair, and the 16-bit pair up to head dim 256): the smallest divisor sp
+    of ``group`` that minimises max(H, ⌈P / R⌉) in tile pairs, H the
+    heaviest CTA's (f32: cluster's) walk (the longest key tile's band of q
+    tiles, times group / sp members), P the launch's tile pairs (``rows`` kv
+    rows, every key tile's band, every member) and R the card's resident
+    ``clusters`` (16-bit: CTAs, a cluster of one): a split that shortens the
+    longest walk until the card's CTAs, not one walk, set the pace. 1 at GQA
+    1, and where P / R already passes H. The rule reads the mask's walk and
+    no device data (a plan is made inside CUDA-graph capture too), so under
+    segment ids it plans the walk as if no tile were dead."""
+    walks = [len(plan.walk(t, s)) for t in range(0, -(-s // TILE), plan.block // TILE)]
     heaviest = max(walks) * group
     floor = -(-rows * group * sum(walks) // clusters)
     paces = {sp: max(heaviest // sp, floor) for sp in range(1, group + 1) if group % sp == 0}
@@ -340,8 +386,7 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
         dq = BwdPlan("dq", TILE, 256, (tiles, bh), 4 * (base + 2 * TILE), 0, **geometry, **masks)
         dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv), 4 * base, 0, **geometry, **masks)
         if clusters is not None:
-            sp = gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters)
-            dkv = dataclasses.replace(dkv, grid=(tiles, bh_kv * sp), split=sp)
+            dkv = dkv.with_split(gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters))
         return dq, dkv
     ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
     # the barriers, and the general pair's id ring
@@ -364,9 +409,9 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
     """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
     stages each ring tile's segment ids and their range; ``block_m`` forces
     both kernels' tile height (checked against ``dtype``). Above 576, and
-    in f32 from 256 on, both pairs' plans are :func:`wide_bwd_plans`
-    (``clusters``: the card's resident f32 dK/dV clusters, which size its
-    GQA split)."""
+    in f32 from 256 on, both pairs' plans are :func:`wide_bwd_plans`.
+    ``clusters``: the card's resident dK/dV clusters (f32) or CTAs (bf16
+    and fp16 up to d 256), which size dK/dV's GQA split (None: no split)."""
     check_block_m(dtype, block_m, d)
     if is_wide(d) or (dtype == torch.float32 and d >= F32_CLUSTER_MIN_D):
         return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect, clusters)
@@ -388,6 +433,8 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
                 + 8 * (2 * stages + 1))
         if kernel == "dkv":
             smem += 2 * stages * ring * 4
+            if kv_split(d) > 1 and col_split(d) == 1:
+                smem += DKV_EXCHANGE_BYTES
         # consumer warpgroups of 64 rows (dkv at d 256 and wider: two per 64
         # keys, kv_split), and the producer: one warp for dq, a whole warpgroup
         # for dkv (setmaxnreg hands its registers over)
@@ -396,7 +443,10 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
         return BwdPlan(kernel, block, threads, (rows, -(-s // block)), smem, 2 * min(d, 64),
                        causal, window, ring, col_split(d))
 
-    return plan("dq", bh), plan("dkv", bh_kv)
+    dkv = plan("dkv", bh_kv)
+    if clusters is not None and col_split(d) == 1:
+        dkv = dkv.with_split(gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters))
+    return plan("dq", bh), dkv
 
 
 def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
@@ -429,8 +479,12 @@ def tri_bwd_plan(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     65,535): up to d 128 one CTA a tile, at 256 and above the slab CTAs of
     a tile in one thread-block cluster (:func:`wide_bwd_plans`, dK/dV's GQA
     walk split by the card's resident ``clusters``); any other ``block_m``
-    raises ``ValueError``. The kernels check the plan against their own
-    layout and refuse one that differs."""
+    raises ``ValueError``. bf16 and fp16 up to d 256 split dK/dV's GQA walk
+    likewise, given the card's resident dK/dV CTAs as ``clusters`` (the
+    split's parts on the grid's x), and at d 256 a dK/dV CTA holds
+    ``DKV_EXCHANGE_BYTES`` more for its warpgroups' exchange of P^T and
+    dS^T. The kernels check the plan against their own layout and refuse
+    one that differs."""
     return _bwd_plans(dtype, bh, bh_kv, s, d, sms, True, None, False, block_m, clusters)
 
 
@@ -500,6 +554,29 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _ctas_per_sm(dtype: torch.dtype, d: int, tri: bool, block: int, smem: int,
+                 device: int) -> int:
+    fn = _lib(dtype, d).flash_bwd_dkv_ctas_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    with torch.cuda.device(device):
+        n = fn(int(tri), d, block, smem)
+    if n <= 0:
+        raise RuntimeError(f"{dtype} dK/dV at head dim {d}, block {block}: occupancy query "
+                           f"returned {n}")
+    return n
+
+
+def dkv_resident_ctas(dtype: torch.dtype, d: int, tri: bool, plan: BwdPlan,
+                      device: int = 0) -> int:
+    """How many CTAs of the 16-bit dK/dV kernel (the triangle pair's with
+    ``tri``) at head dim ``d`` (up to 256) and ``plan``'s tile height and
+    shared memory the card ``device`` holds at once: its SMs times
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (shared memory,
+    registers and threads). Raises where the query fails."""
+    return _sm_count(device) * _ctas_per_sm(dtype, d, tri, plan.block, plan.smem_bytes, device)
+
+
 def f32_wide_active_clusters(d: int, kernel: str, tri: bool) -> int:
     """How many clusters of the f32 cluster ``kernel`` ("dq" or "dkv"; the
     triangle pair's with ``tri``, else the general pair's) at head dim
@@ -521,7 +598,7 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
     between the shape arguments and the two scales (the rect kernels'
     causal/window); ``sm_scale`` is the softmax scale (default 1/√d). dK/dV
     passes its plan's split and, above 1, fresh partials
-    (:meth:`BwdPlan.workspace`)."""
+    (:meth:`BwdPlan.workspace`), which the library adds into ``outputs``."""
     _, s, d = qb.shape
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     split = ()
@@ -552,14 +629,24 @@ def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
     _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
     bh, s, d = qb.shape
     cluster = qb.dtype == torch.float32 and d >= F32_CLUSTER_MIN_D
-    if qb.dtype in TENSOR_CORE_DTYPES or cluster:
+    tensor_cores = qb.dtype in TENSOR_CORE_DTYPES
+    if tensor_cores or cluster:
         _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
-    clusters = f32_wide_active_clusters(d, "dkv", rect is None) if cluster and dkv else None
     sms = _sm_count(qb.device.index)
-    if rect is None:
-        return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, block_m, clusters)
-    return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1], block_m,
-                         clusters)
+
+    def plans(clusters=None):
+        if rect is None:
+            return tri_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, block_m, clusters)
+        return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1], block_m,
+                             clusters)
+
+    if dkv and cluster:
+        return plans(f32_wide_active_clusters(d, "dkv", rect is None))
+    if dkv and tensor_cores and col_split(d) == 1 and not is_wide(d):
+        # the split's R: the unsplit kernel's resident CTAs (a split changes
+        # the grid, not the kernel)
+        return plans(dkv_resident_ctas(qb.dtype, d, rect is None, plans()[1], qb.device.index))
+    return plans()
 
 
 def flash_bwd_dq_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: int,

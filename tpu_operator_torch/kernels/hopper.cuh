@@ -495,6 +495,34 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&acc)[R / 2], const unsi
   }
 }
 
+// acc = A(smem, K-major: 64 rows of an [a_rows][D] tile from row `row` on)
+//     . B(smem, K-major: rows b_row .. b_row + N - 1 of a [kRingRows][D] ring
+// tile)^T, contracted over all of D: N = 64 the whole tile, 32 half of it
+// (b_row a multiple of 8: whole swizzle atoms, so the descriptor's start
+// keeps the 1024-byte alignment of its box's)
+template <typename T, int D, int N>
+__device__ __forceinline__ void mma_rows_by_ring_rows(float (&acc)[N / 2],
+                                                      const unsigned char* a_tile, int a_rows,
+                                                      int row, const unsigned char* b_tile,
+                                                      int b_row) {
+  static_assert(N == kRingRows || N == kRingRows / 2, "a ring tile or half of one");
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
+    const uint64_t da = make_desc(a_tile + box * a_rows * G::kRowBytes + row * G::kRowBytes + off,
+                                  16, G::kAtom, G::kLayout);
+    const uint64_t db = make_desc(
+        b_tile + box * kRingRows * G::kRowBytes + b_row * G::kRowBytes + off, 16, G::kAtom,
+        G::kLayout);
+    if constexpr (N == kRingRows) {
+      wgmma_ss_n64<T>(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n32<T>(acc, da, db, kk > 0);
+    }
+  }
+}
+
 // acc += A(registers: 64 x R, T fragments) . B(smem, MN-major: N columns
 // of an [R][D] ring tile, from column box `box` on, contracted over its
 // rows). N = D takes every column; the dK/dV kernel at D = 256 takes 128,

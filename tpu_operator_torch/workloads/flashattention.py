@@ -65,10 +65,20 @@ from tpu_operator_torch.kernels.flash_fwd import (
 from tpu_operator_torch.kernels.flash_fwd import kv_row as _kv_row  # noqa: F401  (reference name)
 
 
+def _tma_aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself when it starts on a TMA_ALIGN-byte boundary, else a copy
+    in a fresh (aligned) allocation: the kernels read q, k, v and dO by TMA
+    (f32 from 256 on by 16-byte cp.async), and a contiguous tensor may be a
+    view at any offset."""
+    return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
+
+
 def _collapse_heads(q, k, v, width: Optional[int] = None):
     """Validate the GQA head layout and collapse (B, S, H, D) tensors to
     contiguous (B·H, S, width) rows, the head zero-padded from D to
-    ``width`` (default D) in the same copy; returns (qb, kb, vb, h, h_kv)."""
+    ``width`` (default D) in the same copy; returns (qb, kb, vb, h, h_kv).
+    A collapse that is already contiguous (one head at a native D) is the
+    caller's own storage, copied when its base is not on TMA_ALIGN bytes."""
     b, _, h, d = q.shape
     h_kv = k.shape[2]
     if h % h_kv:
@@ -81,7 +91,7 @@ def _collapse_heads(q, k, v, width: Optional[int] = None):
         x = x.transpose(1, 2)
         if width != d:  # one copy either way: the pad's
             x = torch.nn.functional.pad(x, (0, width - d))
-        return x.reshape(b * x.shape[1], x.shape[2], width).contiguous()
+        return _tma_aligned(x.reshape(b * x.shape[1], x.shape[2], width).contiguous())
 
     return bh(q), bh(k), bh(v), h, h_kv
 
@@ -168,13 +178,6 @@ def _flash_bwd_impl(qb, kb, vb, out, lse, g, causal: bool, heads: int, kv_heads:
     dk, dv = flash_bwd_dkv_rect(qb, kb, vb, out, g, lse, delta, heads, kv_heads, causal,
                                 window, seg, block_m, sm_scale=sm_scale)
     return dq, dk, dv
-
-
-def _tma_aligned(x: torch.Tensor) -> torch.Tensor:
-    """x itself when it starts on a TMA_ALIGN-byte boundary, else a copy
-    in a fresh (aligned) allocation: the bf16 and fp16 pairs read dO by
-    TMA, and a contiguous cotangent may be a view at any offset."""
-    return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
 
 
 class _FlashCore(torch.autograd.Function):
