@@ -37,6 +37,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ``flash_bwd_f16`` one split sum of their 16-bit type each,
    ``SPLIT_SUM_LIBRARIES``, at 0 spill bytes), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
+   the D 256 forwards must be the 128-row CTAs' instantiations
+   (``HEAD_DIM_256_FORWARDS``) in both 16-bit libraries;
 3. kernels — each hand-written kernel against its plain PyTorch version
    at the shapes the main paths give it (and at validator and timing
    shapes): the forward kernels against ``attention_plain``, the backward
@@ -55,10 +57,11 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    chunked prefill (global offsets, sq != sk), and the slice component's
    shapes (phase 9); at head dim 256 (Gemma-2B's (1,8192,8,256) with one kv
    head, plain causal and packed, the forwards and both pairs; full
-   attention at (1,4096,8,256); f32 (2,128,4,256) and serving's f32 prefill
-   chunk) and on the zero-padded route (Phi-3-mini's (1,4096,32,96), and
+   attention at (1,4096,8,256) in bf16 and fp16; packed in three
+   documents out of order, ids 0, 1, 0; f32 (2,128,4,256) and serving's f32
+   prefill chunk) and on the zero-padded route (Phi-3-mini's (1,4096,32,96), and
    head dims 80 and 112, each run at 128 with its own scale and held to the
-   plain version at its own head dim); bf16 rows at head dim 256 have one
+   plain version at its own head dim); 16-bit rows at head dim 256 have one
    tile height only, so they time no other; fp16 rows of all six flash
    kernels (``FLOAT16_KERNEL_CASES``, ``FLOAT16_BWD_CASES``) at the burn-in's
    (8,128,4,64) plain and packed, (1,4096,8,128), Phi-3-mini's padded
@@ -696,8 +699,11 @@ TENSOR_CORE_KERNELS = {
     "flash_fwd": (fwd_bf16_label, 16),      # both kernels: d 16/32/64/128 x 1/2 warpgroups
     "flash_bwd": (tri_bwd_bf16_label, 32),  # dq and dkv of both pairs, the same 8 each
 }
-# and at head dim 256, one warpgroup only: per library, how many more
+# and at head dim 256: per library, how many more (the backward pairs one
+# warpgroup's; the forwards the 128-row CTA's, two consumer warpgroups
+# under setmaxnreg, labelled so in both 16-bit libraries)
 HEAD_DIM_256_INSTANTIATIONS = {"flash_fwd": 2, "flash_bwd": 4}
+HEAD_DIM_256_FORWARDS = ("d256_wg2", "rect_d256_wg2")
 # the head dim 512 libraries (kernels/build.py VARIANTS: both flash sources
 # built with -DFLASH_HEAD_DIM_512, bf16 and fp16; f32 at 512 runs in the wide
 # libraries' cluster kernels): one warpgroup's instantiation of each
@@ -792,6 +798,11 @@ def phase_build() -> dict:
         if len(hgmma) != expected or not all(hgmma.values()):
             raise RuntimeError(f"{name}: a {dtype} kernel is not on the tensor cores: "
                                f"HGMMA {hgmma} (expected {expected} instantiations)")
+        if name in ("flash_fwd", "flash_fwd_f16"):
+            at_256 = sorted(label for label in hgmma if "d256_" in label)
+            if at_256 != sorted(HEAD_DIM_256_FORWARDS):
+                raise RuntimeError(f"{name}: the D 256 forwards are {at_256}, expected the "
+                                   f"128-row CTAs {sorted(HEAD_DIM_256_FORWARDS)}")
         held = dict(ptxas)
         if name in SPLIT_SUM_LIBRARIES:
             # the 16-bit dK/dV's split sum, held to 0 spills with the rest
@@ -867,6 +878,10 @@ def _case_inputs(case, gen):
         from tpu_operator_torch.workloads.burnin import _packed_ids
 
         seg = _packed_ids(b, sk, case["packed"], "cuda")
+    if case.get("docs"):
+        # documents out of order: equal runs of the sequence holding these ids
+        docs = torch.tensor(case["docs"], dtype=torch.int32, device="cuda")
+        seg = docs[torch.arange(sk, device="cuda") * len(docs) // sk].expand(b, sk).contiguous()
     return q, k, v, seg
 
 
@@ -878,7 +893,7 @@ def _bound(case, live_pairs: int, d: int) -> tuple:
     sk, h_kv = case.get("sk", sq), case.get("h_kv", h)
     item = torch.tensor([], dtype=case["dtype"]).element_size()
     nbytes = item * (2 * b * h * sq * d + 2 * b * h_kv * sk * d) + 4 * b * h * sq
-    if case.get("cut") is not None or case.get("packed"):
+    if case.get("cut") is not None or case.get("packed") or case.get("docs"):
         nbytes += 4 * b * sk
     flops = 4.0 * d * live_pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -971,7 +986,7 @@ def _bwd_bound(case, live_pairs: int, d: int, dq: bool) -> tuple:
     item = torch.tensor([], dtype=case["dtype"]).element_size()
     q_side, kv_side = b * h * s * d, b * h_kv * s * d
     nbytes = item * (3 * q_side + 2 * kv_side if dq else 2 * q_side + 4 * kv_side) + 8 * b * h * s
-    if case.get("cut") is not None or case.get("packed"):
+    if case.get("cut") is not None or case.get("packed") or case.get("docs"):
         nbytes += 4 * b * s
     flops = (6.0 if dq else 8.0) * d * live_pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1052,6 +1067,13 @@ HEAD_DIM_KERNEL_CASES = [
          main=True),
     dict(kernel="flash_fwd_rect", label="bf16 (1,4096,8,256) full", q=(1, 4096, 8, 256),
          dtype=torch.bfloat16, causal=False, inner=2),
+    dict(kernel="flash_fwd_rect", label="fp16 (1,4096,8,256) full", q=(1, 4096, 8, 256),
+         dtype=torch.float16, causal=False, inner=2),
+    # documents out of order (ids 0, 1, 0): the CTA-level dead-tile skip may
+    # pass over no tile a later document shares with an earlier one
+    dict(kernel="flash_fwd_rect", label="packed bf16 (1,8192,8,256) h_kv 1 documents 0,1,0",
+         q=(1, 8192, 8, 256), h_kv=1, dtype=torch.bfloat16, causal=True, docs=(0, 1, 0),
+         inner=2),
     dict(kernel="flash_fwd_tri", label="f32 (2,128,4,256)", q=(2, 128, 4, 256),
          dtype=torch.float32),
     dict(kernel="flash_fwd_rect", label="f32 (2,128,4,256) full", q=(2, 128, 4, 256),

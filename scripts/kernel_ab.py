@@ -2,7 +2,7 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_f32|bwd_f32|bwd_16
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_16|fwd_f32|bwd_f32|bwd_16
         [--match REGEX] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
@@ -11,6 +11,11 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
 - ``fwd_rect``: the general forward (``flash_fwd_rect``) at every bf16 case
   of this tree's ``chip_smoke.KERNEL_CASES``, held to ``attention_plain``
   (O 2e-2, lse 1e-3);
+- ``fwd_16``: both 16-bit forwards (``flash_fwd_tri``, ``flash_fwd_rect``)
+  at every bf16 and fp16 case of head dim 256 and below (padded) in this
+  tree's ``chip_smoke`` forward tables (``KERNEL_CASES``,
+  ``HEAD_DIM_KERNEL_CASES``, ``FLOAT16_KERNEL_CASES``), held to
+  ``attention_plain`` at phase 3's bars (O 2e-2, lse 1e-3);
 - ``fwd_f32``: both f32 forwards (``flash_fwd_tri``, ``flash_fwd_rect``) at
   every f32 case of head dim 256 and above (padded) in this tree's
   ``chip_smoke`` forward tables, held to ``attention_plain`` (O 1e-4, lse
@@ -86,6 +91,17 @@ def _fwd_rect(smoke) -> dict:
 
     return _fwd(smoke, [c for c in smoke.KERNEL_CASES if c["kernel"] == "flash_fwd_rect"
                         and c["dtype"] == torch.bfloat16], smoke.BF16_TOL)
+
+
+def _fwd_16(smoke) -> dict:
+    """Both 16-bit forwards' cases at head dims up to 256 (padded)."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_fwd
+
+    tables = smoke.KERNEL_CASES + smoke.HEAD_DIM_KERNEL_CASES + smoke.FLOAT16_KERNEL_CASES
+    return _fwd(smoke, [c for c in tables if c["dtype"] != torch.float32
+                        and flash_fwd.padded_head_dim(c["q"][3]) <= 256], smoke.BF16_TOL)
 
 
 def _fwd_f32(smoke) -> dict:
@@ -164,6 +180,7 @@ def _bwd_16(smoke) -> dict:
 # come from the tree under test)
 FAMILIES = {
     "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
+    "fwd_16": (_fwd_16, ("ms",), "flash_fwd"),
     "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
     "bwd_f32": (_bwd_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
     "bwd_16": (_bwd_16, ("dq_ms", "dkv_ms"), "flash_bwd"),

@@ -5,10 +5,11 @@ its card tests run on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_flash_head_dim_plans.py --noconftest -q
 
-Head dim 256 runs 64-row tiles only in bf16 (a 128-row plan's tiles pass
-a block's 232,448 bytes of shared memory, or a thread's registers); its
-dK/dV kernel has two consumer warpgroups per 64 keys, each on half the
-head dim; f32 at 256 and above runs the slab-cluster kernels of the wide
+Head dim 256 takes ``block_m`` 64 only in bf16: the backward pairs run
+64-row tiles (a 128-row plan's tiles pass a block's 232,448 bytes of shared
+memory, or a thread's registers), the forwards 128-row CTAs of two consumer
+warpgroups and a producer warpgroup whatever ``block_m`` says; its dK/dV
+kernel has two consumer warpgroups per 64 keys, each on half the head dim; f32 at 256 and above runs the slab-cluster kernels of the wide
 library, forward and backward. Head dim 512
 runs 64-row tiles, a one-stage ring (32-row tiles in the backward pairs)
 and two CTAs per tile on the grid's z, one per column half of the
@@ -89,8 +90,11 @@ def test_a_128_row_plan_at_head_dim_256_raises(d):
 
 @pytest.mark.parametrize("sms", [1, H100_SMS, 10**9])
 def test_the_one_wave_rule_never_picks_128_rows_at_256(sms):
+    """No rule picks a height at 256: the backward pairs take 64 rows, the
+    forwards' CTAs 128 (two consumer warpgroups), at any card size."""
     for name, plan in _all_plans(BF16, 256, None, sms=sms, bh=256, s=8192).items():
-        assert getattr(plan, "block_m", getattr(plan, "block", None)) == 64, name
+        want = 128 if name.startswith("fwd") else 64
+        assert getattr(plan, "block_m", getattr(plan, "block", None)) == want, name
 
 
 def test_an_autotuned_128_is_not_forced_on_head_dim_256(monkeypatch):
@@ -109,16 +113,18 @@ def test_plans_at_head_dim_256_by_hand():
     flash_bwd.cu dq_tc_smem_bytes, dkv_tc_smem_bytes, dq_smem_bytes,
     dkv_smem_bytes)."""
     p = _all_plans(BF16, 256, None)
-    # 1 KiB slack + tiles of 256 bf16 columns (512 bytes a row) + ids + 5 mbarriers
-    assert p["fwd tri"].smem_bytes == 1024 + (64 + 4 * 64) * 512 + 40 == 164_904
-    assert p["fwd rect"].smem_bytes == 1024 + (64 + 4 * 64) * 512 + 528 + 40 == 165_432
+    # 1 KiB slack + tiles of 256 bf16 columns (512 bytes a row) + ids + mbarriers:
+    # the forwards' 128-row Q tile, two stages of 64-key K and V tiles, the
+    # staged ids (64 int32 a stage) and 9 mbarriers (K and V full and empty)
+    assert p["fwd tri"].smem_bytes == 1024 + (128 + 4 * 64) * 512 + 72 == 197_704
+    assert p["fwd rect"].smem_bytes == 1024 + (128 + 4 * 64) * 512 + 512 + 72 == 198_216
     assert p["dq tri"].smem_bytes == 1024 + (128 + 4 * 64) * 512 + 40 == 197_672
     assert p["dq rect"].smem_bytes == 197_672 + 528 == 198_200
     # + f32 lse and delta, and the consumers' exchange of P^T and dS^T (16 KiB)
     assert p["dkv tri"].smem_bytes == 197_672 + 1024 + 16_384 == 215_080
     assert p["dkv rect"].smem_bytes == 215_080 + 528 == 215_608
     assert [p[k].threads for k in ("fwd tri", "fwd rect", "dq tri", "dkv tri")] == [
-        160, 160, 160, 384]  # dK/dV: two consumer warpgroups and the producer's
+        384, 384, 160, 384]  # forwards, dK/dV: two consumer warpgroups and the producer's
     assert {p[k].swizzle for k in p} == {128}
     f = _all_plans(F32, 256, None, bh=6, s=130)
     # the f32 forward's cluster kernels: Q slab, two stages of K and V slabs,
@@ -203,19 +209,21 @@ def test_rows_past_65535_are_each_computed_once(rows):
 
 
 def test_phase_2_counts_the_head_dim_256_instantiations():
-    """chip_smoke's build phase expects one warpgroup's instantiation of
-    each kernel at D 256 beside the 16 and 32 of D 16-128."""
+    """chip_smoke's build phase expects one instantiation of each kernel at
+    D 256 beside the 16 and 32 of D 16-128: the backward pairs' one
+    warpgroup's, the forwards' two consumer warpgroups' (128-row CTAs)."""
     import chip_smoke
 
     assert chip_smoke.HEAD_DIM_256_INSTANTIATIONS == {"flash_fwd": 2, "flash_bwd": 4}
-    labels = {chip_smoke.fwd_bf16_label(f"flash_fwd_{k}_kernelI13__nv_bfloat16Li256ELi1EE")
+    labels = {chip_smoke.fwd_bf16_label(f"flash_fwd_{k}_kernelI13__nv_bfloat16Li256ELi2EE")
               for k in ("tri", "rect")}
-    assert labels == {"d256_wg1", "rect_d256_wg1"}
+    assert labels == set(chip_smoke.HEAD_DIM_256_FORWARDS) == {"d256_wg2", "rect_d256_wg2"}
 
 
 def test_phase_3_head_dim_rows_plan_as_phase_15_runs_them():
-    """chip_smoke's head-dim rows: bf16 at D 256 in 64-row tiles, the padded
-    route at 128, every row's head dim up to 256, the six kernels covered."""
+    """chip_smoke's head-dim rows: bf16 at D 256 in 64-row tiles (the
+    forwards' CTAs 128 rows), the padded route at 128, every row's head dim
+    up to 256, the six kernels covered."""
     import chip_smoke
 
     fwd, bwd = chip_smoke.HEAD_DIM_KERNEL_CASES, chip_smoke.HEAD_DIM_BWD_CASES
@@ -230,7 +238,8 @@ def test_phase_3_head_dim_rows_plan_as_phase_15_runs_them():
             plan = flash_fwd.tri_plan(BF16, b * h, s, width, H100_SMS)
             dq, dkv = flash_bwd.tri_bwd_plan(BF16, b * h, b * case.get("h_kv", h), s, width,
                                              H100_SMS)
-            assert plan.block_m == dq.block == dkv.block == 64 and dkv.threads == 384
+            assert plan.block_m == 128 and dq.block == dkv.block == 64
+            assert plan.threads == dkv.threads == 384
     assert {c["label"] for c in fwd if c.get("main")} >= {
         "gemma-2b bf16 (1,8192,8,256) h_kv 1", "phi-3-mini bf16 (1,4096,32,96) padded to 128"}
 

@@ -38,13 +38,32 @@
 // at D 128, four at D 256, eight at 512, nine at 576. The tile height,
 // grid, shared-memory bytes and swizzle come from the caller's plan
 // (flash_fwd.py::tri_plan, rect_plan), which this file checks against its
-// own layout. No setmaxnreg: with one
+// own layout. No setmaxnreg up to D 128: with one
 // producer warp beside at most two warpgroups the register cap (168 a
-// thread at WG = 2, 255 at WG = 1) holds the O and S accumulators. At D 256
-// only WG = 1 is built: O (128 f32), S (32) and P (16) are 176 registers a
-// thread, past WG = 2's cap, and the triangle's two-stage ring of 128-key
-// K and V tiles would need 328,744 bytes of shared memory; P.V is one
-// m64n256k16 wgmma per 16 keys.
+// thread at WG = 2, 255 at WG = 1) holds the O and S accumulators.
+// D 256 (rows_body, both masks; WG = 2): a CTA owns 128 q rows, two
+// consumer warpgroups of 64 that share every K and V tile, so a tile's
+// copy feeds twice the products of a 64-row CTA (the copies, from L2, set
+// the pace of a 64-row CTA at this width). O (128 f32), S (32) and P (16)
+// are 176 registers a thread, past the 168 of 384 threads, so a producer
+// warpgroup gives its registers up (setmaxnreg, 40) and the consumers take
+// them (232). Both masks walk 64-key ring tiles (two stages of 128-key
+// tiles would pass a block's shared memory): the triangle's q tile meets
+// the causal mask in its last two, each one warpgroup's diagonal. K and V
+// have barriers of their own a stage: a warpgroup issues tile j's S, then
+// tile j - 1's P.V (one m64n256k16 wgmma per 16 keys), and runs tile j's
+// softmax under that P.V (one wgmma group in flight), rescaling O and
+// rounding P once it is done; S releases K, P.V its V. Every wgmma is
+// issued on the warpgroup's one path (a wgmma whose registers a divergent
+// path may touch is serialized by ptxas, C7518), so a tile none of a
+// warpgroup's rows sees is multiplied and masked whole. The warpgroups
+// issue as they come: taking turns (named barriers) measured no gain. With
+// segment ids every warp reduces each tile's ids itself: a tile whose one
+// document is not the one of all 128 rows is never copied. The shared-
+// memory reads of S on m64n64k16 (32 FLOP a byte: the SM's tensor rate
+// over its shared-memory rate) and the TMA writes bound a step near 65%
+// of the tensor cores' rate. 197,704 bytes of shared memory (the general
+// kernel 512 more: the staged ids).
 // D 512 (WG = 1 only; its own library, built with -DFLASH_HEAD_DIM_512, so a
 // caller at D <= 256 never compiles it): O for 64 rows would be 256 f32 a
 // thread, past the 255 a thread may hold, and P.V's N = 512 past wgmma's
@@ -427,225 +446,47 @@ constexpr int tc_smem_bytes() {
          (TRI ? 0 : seg_bytes<D>()) + 8 * (2 * stages<D>() + 1);
 }
 
-// The 16-bit triangle forward on the tensor cores. blockIdx.x: (batch, head)
-// row; blockIdx.y: q tile, reversed so the heaviest tiles launch first;
-// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
-template <typename T, int D, int WG>
-__global__ void __launch_bounds__(WG * 128 + 32, 1)
-    flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
-                         const __grid_constant__ CUtensorMap kmap,
-                         const __grid_constant__ CUtensorMap vmap) {
-  static_assert(kElem16<T>, "the tensor-core triangle is bf16 or fp16");
-  using G = Geo<D>;
-  constexpr int BM = 64 * WG;
-  constexpr int BN = BM;  // square tiles: only the diagonal tile needs the mask
-  constexpr int ST = stages<D>();
-  constexpr int DC = D / col_split<D>();  // this CTA's columns of O
-  constexpr uint32_t kQBytes = BM * D * 2;
-  constexpr uint32_t kKVBytes = BN * D * 2;
+// D = 256: 128-row CTAs (see the note on top), both masks from one body.
+constexpr int kRowsHeadDim = 256;
+constexpr int kRowsBM = 128;          // q rows a CTA: two consumer warpgroups of 64
+constexpr int kRowsThreads = 3 * 128;  // and a producer warpgroup
+// registers a thread after setmaxnreg (2 x 128 x 232 + 128 x 40 <= 65,536):
+// O (128 f32), S (32) and P (16) are past the 168 a thread of 384 gets
+constexpr int kRowsProducerRegs = 40;
+constexpr int kRowsConsumerRegs = 232;
+// mbarriers a ring stage: K full and empty, V full and empty (S reads a
+// tile's K, P.V its V one tile later: each is released once its product is done)
+constexpr int kRowsStageBarriers = 4;
 
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
-  unsigned char* q_s = base;
-  unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
-  unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * kKVBytes);
-  uint64_t* empty = full + ST;
-  uint64_t* q_full = empty + ST;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
-  const int n_tiles = (min(p.sq, q0 + BM) + BN - 1) / BN;  // the tile on the diagonal is last
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int st = 0; st < ST; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], WG * 4);
-    }
-    mbar_init(q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp == WG * 4) {
-    // producer warp: Q once, then K and V tile by tile through the ring
-    if (lane == 0) {
-      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
-      mbar_expect_tx(q_full, kQBytes);
-#pragma unroll
-      for (int b = 0; b < G::kBoxes; ++b) {
-        tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
-      }
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % ST;
-        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * kKVBytes);
-#pragma unroll
-        for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
-                      b * G::kCols, t * BN, kv_row);
-          tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
-                      b * G::kCols, t * BN, kv_row);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread holds
-  // rows r0 and r0 + 8 of its warp's 16, at columns 8 j + 2 tq (+1)
-  const int wg = warp / 4;
-  const int tq = lane % 4;
-  const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-  const float qscale = p.qscale;
-  float o[DC / 2], s[BN / 2];
-  uint32_t pa[BN / 16][4];
-#pragma unroll
-  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
-  float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
-
-  mbar_wait(q_full, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % ST;
-    mbar_wait(&full[st], (t / ST) & 1);
-    const unsigned char* ks = k_s + st * kKVBytes;
-    // V from the CTA's first column on (P.V on its column slice at D 512 and 576)
-    const unsigned char* vs = v_s + st * kKVBytes + col0 / G::kCols * BN * G::kRowBytes;
-
-    // S = Q.K^T: both K-major; a k16 step advances 32 bytes inside a box
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
-      const uint64_t da = make_desc(q_s + box * BM * G::kRowBytes + wg * 64 * G::kRowBytes + off,
-                                    16, G::kAtom, G::kLayout);
-      const uint64_t db = make_desc(ks + box * BN * G::kRowBytes + off, 16, G::kAtom, G::kLayout);
-      mma_scores<T, BN>(s, da, db, kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    hold(s);
-
-    if (t == n_tiles - 1) {  // the diagonal tile: drop keys after the row
-      const int k0 = t * BN;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = k0 + 8 * j + 2 * tq + c;
-          if (key > r0) s[4 * j + c] = -CUDART_INF_F;
-          if (key > r0 + 8) s[4 * j + 2 + c] = -CUDART_INF_F;
-        }
-      }
-    }
-
-    // online softmax in base 2; every row sees key 0 in its first tile and
-    // key k0 in its diagonal one, so the running max is finite from tile 0
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * kk + h;
-        const float p00 = exp2f(fmaf(s[4 * j], qscale, -mn0));
-        const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -mn0));
-        const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -mn1));
-        const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -mn1));
-        rs0 += p00 + p01;
-        rs1 += p10 + p11;
-        // the accumulator layout of S is wgmma's register layout of A
-        pa[kk][2 * h] = pack2<T>(p00, p01);
-        pa[kk][2 * h + 1] = pack2<T>(p10, p11);
-      }
-    }
-    l0 = l0 * c0 + rs0;
-    l1 = l1 * c1 + rs1;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      o[4 * j] *= c0;
-      o[4 * j + 1] *= c0;
-      o[4 * j + 2] *= c1;
-      o[4 * j + 3] *= c1;
-    }
-
-    // O += P.V: P from registers, V MN-major (transposed); a k16 step is
-    // 16 keys, two 8-row atoms; the second 64-column box (D = 128) is LBO away
-    hold(pa);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t db = make_desc(vs + kk * 16 * G::kRowBytes, BN * G::kRowBytes, G::kAtom,
-                                    G::kLayout);
-      mma_pv<T, DC>(o, pa[kk], db);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    hold(o);
-    hold(pa);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + 8 * half;
-    if (row >= p.sq) continue;
-    const float l = half ? l1 : l0;
-    // T pairs
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
-    }
-    if (tq == 0 && col0 == 0) {  // every column slice holds lse: slice 0 writes it
-      p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
-    }
-  }
+template <bool TRI>
+constexpr int rows_smem_bytes() {
+  // alignment slack, the Q tile (128 rows), kStages 64-key K and V tiles
+  // with (general) their keys' segment ids, the stages' barriers and Q's
+  return kSmemAlign + (kRowsBM + 2 * kStages * kRingRows) * kRowsHeadDim * 2 +
+         (TRI ? 0 : kStages * kRingRows * 4) + 8 * (kRowsStageBarriers * kStages + 1);
 }
+static_assert(rows_smem_bytes<false>() <= 232448, "past the shared memory a block may use");
 
-// The 16-bit general forward on the tensor cores (see the note on top).
-// blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order;
-// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
-template <typename T, int D, int WG>
-__global__ void __launch_bounds__(WG * 128 + 32, 1)
-    flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
-                          const __grid_constant__ CUtensorMap kmap,
-                          const __grid_constant__ CUtensorMap vmap) {
-  static_assert(kElem16<T>, "the tensor-core general forward is bf16 or fp16");
+// The 16-bit forward at D = 256 on the tensor cores. blockIdx.x: (batch,
+// head) row; blockIdx.y: q tile of 128 rows (TRI: the triangle, reversed so
+// that the heaviest tiles launch first; else the general masks of Params,
+// in order). Both consumer warpgroups read every K and V ring tile the CTA
+// copies and mask a tile as the general kernel's warpgroups do (fast or
+// masked for its 64 rows; one none of them sees, masked whole). Per tile a
+// warpgroup issues S = Q.K^T and then the last tile's O += P.V, and runs
+// this tile's softmax under that P.V. With segment ids every warp reduces
+// each tile's ids to their range itself (the next tile's read under this
+// one): a tile whose one document is not the one of all the CTA's rows
+// holds no live pair, and it is neither copied nor multiplied.
+template <typename T, bool TRI>
+__device__ __forceinline__ void rows_body(const Params& p, const CUtensorMap* qmap,
+                                          const CUtensorMap* kmap, const CUtensorMap* vmap) {
+  constexpr int D = kRowsHeadDim;
   using G = Geo<D>;
-  constexpr int BM = 64 * WG;
+  constexpr int BM = kRowsBM;
   constexpr int BN = kRingRows;
-  constexpr int ST = stages<D>();
-  constexpr int DC = D / col_split<D>();  // this CTA's columns of O
+  constexpr int ST = kStages;
+  constexpr int NW = BM / 16;  // consumer warps
   constexpr uint32_t kQBytes = BM * D * 2;
   constexpr uint32_t kKVBytes = BN * D * 2;
 
@@ -653,84 +494,114 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   unsigned char* q_s = base;
-  unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
+  unsigned char* k_s = q_s + kQBytes;        // stage st at k_s + st * kKVBytes
   unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
-  int* kid_s = reinterpret_cast<int*>(v_s + ST * kKVBytes);  // [ST][BN]
-  int* krange_s = kid_s + ST * BN;                           // [ST][min, max]
-  uint64_t* full = reinterpret_cast<uint64_t*>(krange_s + 2 * ST);
-  uint64_t* empty = full + ST;
-  uint64_t* q_full = empty + ST;
+  int* kid_s = reinterpret_cast<int*>(v_s + ST * kKVBytes);  // general: [ST][BN]
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(kid_s + (TRI ? 0 : ST * BN));
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+  uint64_t* q_full = v_empty + ST;
 
-  const bool causal = p.causal != 0;
-  const int window = p.window;  // > 0 only under a causal mask (the entry drops it otherwise)
-  const bool segments = p.seg != nullptr;
+  const bool causal = TRI || p.causal != 0;
+  const int window = TRI ? 0 : p.window;  // > 0 only under a causal mask
+  const bool segments = !TRI && p.seg != nullptr;
+  const int q_start = TRI ? 0 : p.q_start, k_start = TRI ? 0 : p.k_start;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BM;
-  const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
+  const int q0 = (TRI ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
   // the keys some row of the CTA can see, by global position: all of them,
   // or up to the last row's diagonal, from the first row's window on
   const int q_end = min(p.sq, q0 + BM);
-  const int k_hi = causal ? max(0, min(p.sk, p.q_start + q_end - p.k_start)) : p.sk;
-  const int k_lo = window > 0 ? max(0, p.q_start + q0 - window + 1 - p.k_start) : 0;
+  const int k_hi = causal ? max(0, min(p.sk, q_start + q_end - k_start)) : p.sk;
+  const int k_lo = window > 0 ? max(0, q_start + q0 - window + 1 - k_start) : 0;
   const int t_lo = k_lo / BN;
   const int n_tiles = k_lo < k_hi ? (k_hi + BN - 1) / BN - t_lo : 0;
   const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // (segment ids; every lane of a warp calls these) a lane's two ids of
+  // walk tile t (a position past sk reads the last id inside sk, which lies
+  // in the same tile) and the warp's range of them; the range of the CTA's
+  // rows' ids; a tile whose one document is not the rows' one document
+  auto tile_ids = [&](int t) {
+    const int k0 = (t_lo + t) * BN;
+    return make_int2(seg[min(k0 + lane, p.sk - 1)], seg[min(k0 + lane + 32, p.sk - 1)]);
+  };
+  auto range_of = [&](int2 ids) {
+    return warp_range(~0u, min(ids.x, ids.y), max(ids.x, ids.y));
+  };
+  int2 rows = make_int2(0, 1);
+  auto apart = [&](int2 keys) { return rows.x == rows.y && keys.x == keys.y && keys.x != rows.x; };
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < ST; ++st) {
-      // the TMA bytes, then (segment ids) each id-staging lane's stores
-      mbar_init(&full[st], segments ? 1 + 31 : 1);
-      mbar_init(&empty[st], WG * 4);
+      // K: the TMA bytes, then (segment ids) each producer lane's staged ids
+      mbar_init(&k_full[st], segments ? 1 + 32 : 1);
+      mbar_init(&k_empty[st], NW);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&v_empty[st], NW);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == WG * 4) {
-    // producer warp: lane 0 loads Q once (none for an empty walk, so that
-    // no TMA is in flight when the CTA exits), then K and V tile by tile
-    // through the ring; with segment ids, lanes 1-31 stage each tile's key
-    // ids and their range beside it
-    if (lane == 0) {
-      if (n_tiles > 0) {
-        mbar_expect_tx(q_full, kQBytes);
+  if (warp >= NW) {
+    // the producer warpgroup hands its registers to the consumers; its
+    // first warp's lane 0 loads Q once (none for an empty walk, so that no
+    // TMA is in flight when the CTA exits), then each tile's K and V, each
+    // as soon as its stage is free; with segment ids the warp passes over a
+    // tile apart from the rows, and stages a copied tile's ids beside its K
+    reg_dealloc<kRowsProducerRegs>();
+    if (warp > NW) return;
+    if (segments) rows = id_range<BM>(seg, q0, p.sq, lane, 32, ~0u, nullptr);
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+      for (int b = 0; b < G::kBoxes; ++b) {
+        tma_load_3d(q_s + b * BM * G::kRowBytes, qmap, q_full, b * G::kCols, q0, bh);
+      }
+    }
+    const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+    int2 ids = make_int2(0, 0);
+    if (segments && n_tiles > 0) ids = tile_ids(0);
+    int n = 0;  // ring tiles copied
+    for (int t = 0; t < n_tiles; ++t) {
+      const int2 cur = ids;
+      if (segments && t + 1 < n_tiles) ids = tile_ids(t + 1);
+      if (segments && apart(range_of(cur))) continue;
+      const int st = n % ST;
+      const uint32_t freed = ((n / ST) - 1) & 1;
+      const int k0 = (t_lo + t) * BN;
+      if (n >= ST) mbar_wait(&k_empty[st], freed);
+      if (lane == 0) {
+        mbar_expect_tx(&k_full[st], kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+          tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, kmap, &k_full[st],
+                      b * G::kCols, k0, kv_row);
         }
       }
-      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % ST;
-        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * kKVBytes);
+      if (segments) {
+        kid_s[st * BN + lane] = cur.x;
+        kid_s[st * BN + lane + 32] = cur.y;
+        mbar_arrive(&k_full[st]);  // releases this lane's ids to the consumers
+      }
+      if (n >= ST) mbar_wait(&v_empty[st], freed);
+      if (lane == 0) {
+        mbar_expect_tx(&v_full[st], kKVBytes);
 #pragma unroll
         for (int b = 0; b < G::kBoxes; ++b) {
-          tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
-                      b * G::kCols, (t_lo + t) * BN, kv_row);
-          tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
-                      b * G::kCols, (t_lo + t) * BN, kv_row);
+          tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, vmap, &v_full[st],
+                      b * G::kCols, k0, kv_row);
         }
       }
-    } else if (segments) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % ST;
-        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
-        const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
-                                    kid_s + st * BN);
-        if (lane == 1) {
-          krange_s[2 * st] = range.x;
-          krange_s[2 * st + 1] = range.y;
-        }
-        mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
-      }
+      ++n;
     }
     return;
   }
+  reg_alloc<kRowsConsumerRegs>();
 
   // consumers: warpgroup wg owns q rows w0 .. w0 + 63; this thread holds
   // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
@@ -741,38 +612,82 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   const float qscale = p.qscale;
   const int win = window > 0 ? window : INT_MAX;
   // the global positions of the warpgroup's first row and its last inside sq
-  const int qg0 = p.q_start + w0, qg1 = p.q_start + min(w0 + 63, p.sq - 1);
+  const int qg0 = q_start + w0, qg1 = q_start + min(w0 + 63, p.sq - 1);
   int qk[2];            // rows r0, r0 + 8 as (global position - k_start): key j is
                         // qk - j positions before the row
   int qid[2] = {0, 0};  // their segment ids
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
-    qk[h] = p.q_start + row - p.k_start;
+    qk[h] = q_start + row - k_start;
     if (segments && row < p.sq) qid[h] = seg[row];
   }
-  // the segment ids of the warpgroup's rows: one id throughout when x == y
-  const int2 qrange =
-      segments ? id_range(seg, w0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-  float o[DC / 2], s[BN / 2];
+  // the segment ids of the CTA's rows and of the warpgroup's (one id
+  // throughout when x == y)
+  int2 qrange = make_int2(0, 1);
+  if (segments) {
+    rows = id_range<BM>(seg, q0, p.sq, lane, 32, ~0u, nullptr);
+    qrange = id_range(seg, w0, p.sq, lane, 32, ~0u, nullptr);
+  }
+  float o[D / 2], s[BN / 2];
   uint32_t pa[BN / 16][4];
 #pragma unroll
-  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
   float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
 
-  if (n_tiles > 0) mbar_wait(q_full, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % ST;
+  // the tile's S = Q.K^T, issued; the last tile's O += P.V (V from its
+  // stage, MN-major), issued; a warp's release of a stage. Every wgmma and
+  // every wait lies on the warpgroup's one path (ptxas serializes a wgmma
+  // whose registers a divergent path may touch, C7518), so a tile that holds
+  // no live pair of the warpgroup's rows is multiplied too, its scores
+  // masked to -inf
+  auto issue_s = [&](int st) {
+    wgmma_fence();
+    mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, k_s + st * kKVBytes);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int st) {
+    hold(pa);
+    wgmma_fence();
+    mma_frag_by_tile<T, D>(o, pa, v_s + st * kKVBytes);
+    wgmma_commit();
+  };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);  // this warp is done with the stage
+  };
+  // the next tile of the walk from t on that the CTA copies (n_tiles:
+  // none), its ids' range in keys; ids holds tile t's ids on entry
+  int2 ids = make_int2(0, 0), keys = make_int2(0, 0);
+  if (segments && n_tiles > 0) ids = tile_ids(0);
+  auto next_tile = [&](int t) {
+    for (; t < n_tiles; ++t) {
+      if (!segments) break;
+      const int2 cur = ids;
+      if (t + 1 < n_tiles) ids = tile_ids(t + 1);
+      keys = range_of(cur);
+      if (!apart(keys)) break;  // else never copied
+    }
+    return t;
+  };
+
+  // the online softmax in base 2 on tile t's S (stage st), while the last
+  // P.V runs: the element mask or (a fast tile) none, as the general
+  // kernel's; the running max, O's and the row sums' rescale (c0, c1), the
+  // tile's row sums, P in place of S. A row may see no key yet (a later
+  // document, a band edge, or none at all): its max stays -inf, and `safe`
+  // keeps exp2 at 0 for its masked scores and its rescale
+  float c0 = 1.f, c1 = 1.f, rs0 = 0.f, rs1 = 0.f;
+  auto softmax = [&](int t, int st) {
     const int k0 = (t_lo + t) * BN;
-    mbar_wait(&full[st], (t / ST) & 1);
     // global positions of the tile's first key and its last inside sk; some
     // pair is live when the rows' distances to the keys, which run from
     // qg0 - kg1 to qg1 - kg0, meet the band [0, window), and every pair is
     // when they lie inside it and every key is inside sk
-    const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
+    const int kg0 = k_start + k0, kg1 = k_start + min(k0 + BN - 1, p.sk - 1);
     bool sees = w0 < p.sq;
     bool masked = k0 + BN > p.sk;  // a zero-filled key past sk would score
     if (causal) {
@@ -784,106 +699,129 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
       masked = masked || qg1 - kg0 >= window;
     }
     if (segments) {
-      // both sides one document each: the fast path when it is the same
-      // one, no live pair (and no products) when it is not
-      const int kmin = krange_s[2 * st], kmax = krange_s[2 * st + 1];
-      const bool uniform = qrange.x == qrange.y && kmin == kmax;
-      sees = sees && !(uniform && qrange.x != kmin);
+      // both sides one document each: the fast path when it is the same one
+      const bool uniform = qrange.x == qrange.y && keys.x == keys.y;
+      sees = sees && !(uniform && qrange.x != keys.x);
       masked = masked || !uniform;
     }
-    if (sees) {
-      const unsigned char* ks = k_s + st * kKVBytes;
-      const unsigned char* vs = v_s + st * kKVBytes;
-      const int2* kid = reinterpret_cast<const int2*>(kid_s + st * BN);
-      wgmma_fence();
-      mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, ks);  // S = Q.K^T
-      wgmma_commit();
-      wgmma_wait_all();
-      hold(s);
-
-      // the online softmax in base 2 and P, with the element mask or (a fast
-      // tile) without: two instantiations, as the reference's
-      // _dispatch_block emits two branches, so that a fast tile issues no
-      // mask instruction. A row may see no key yet (a later document, a
-      // band edge, or none at all): its max stays -inf, and `safe` keeps
-      // exp2 at 0 for its masked scores and its rescale
-      auto softmax = [&](auto mask) {
-        constexpr bool kMask = decltype(mask)::value;
-        if constexpr (kMask) {
-#pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
-            if (segments) kj = kid[4 * j + tq];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = k0 + 8 * j + 2 * tq + e % 2;
-              const int dist = qk[e / 2] - key;
-              bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
-              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
-              if (!live) s[4 * j + e] = -CUDART_INF_F;
-            }
-          }
-        }
-        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+    auto body = [&](auto mask) {
+      constexpr bool kMask = decltype(mask)::value;
+      if constexpr (kMask) {
+        const int2* kid = reinterpret_cast<const int2*>(kid_s + st * BN);
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
-          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-        }
+          int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
+          if (segments) kj = kid[4 * j + tq];
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
-        const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
-        const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
-        const float c0 = exp2f(m0 - safe0), c1 = exp2f(m1 - safe1);
-        m0 = mn0;
-        m1 = mn1;
-        float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = 2 * kk + h;
-            const float p00 = exp2f(fmaf(s[4 * j], qscale, -safe0));
-            const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
-            const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
-            const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
-            rs0 += p00 + p01;
-            rs1 += p10 + p11;
-            // the accumulator layout of S is wgmma's register layout of A
-            pa[kk][2 * h] = pack2<T>(p00, p01);
-            pa[kk][2 * h + 1] = pack2<T>(p10, p11);
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * tq + e % 2;
+            const int dist = qk[e / 2] - key;
+            bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
+            if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+            if (!live) s[4 * j + e] = -CUDART_INF_F;
           }
         }
-        l0 = l0 * c0 + rs0;
-        l1 = l1 * c1 + rs1;
-#pragma unroll
-        for (int j = 0; j < DC / 8; ++j) {
-          o[4 * j] *= c0;
-          o[4 * j + 1] *= c0;
-          o[4 * j + 2] *= c1;
-          o[4 * j + 3] *= c1;
-        }
-      };
-      if (masked) {
-        softmax(std::true_type{});
-      } else {
-        softmax(std::false_type{});
       }
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+      const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
+      const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
+      c0 = exp2f(m0 - safe0);
+      c1 = exp2f(m1 - safe1);
+      m0 = mn0;
+      m1 = mn1;
+      rs0 = rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        s[4 * j] = exp2f(fmaf(s[4 * j], qscale, -safe0));
+        s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
+        s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
+        s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
+        rs0 += s[4 * j] + s[4 * j + 1];
+        rs1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+    };
+    // a tile the warpgroup does not see takes the mask, which kills every score
+    if (masked || !sees) {
+      body(std::true_type{});
+    } else {
+      body(std::false_type{});
+    }
+  };
+  // once the last P.V is done: O and the row sums rescaled, P rounded to T
+  // (the accumulator layout of S is wgmma's register layout of A)
+  auto rescale = [&]() {
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * kk + h;
+        pa[kk][2 * h] = pack2<T>(s[4 * j], s[4 * j + 1]);
+        pa[kk][2 * h + 1] = pack2<T>(s[4 * j + 2], s[4 * j + 3]);
+      }
+    }
+  };
 
-      hold(pa);
-      wgmma_fence();
-      mma_frag_by_tile<T, D, DC>(o, pa, vs, col0 / G::kCols);  // O += P.V, V MN-major
-      wgmma_commit();
-      wgmma_wait_all();
+  // per copied tile: its S and the last tile's P.V issued together, its
+  // softmax under that P.V; the first tile has no P.V before it, the last
+  // one's runs after the walk
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  int t = next_tile(0);
+  if (t < n_tiles) {
+    int n = 1;  // ring tiles consumed
+    int st = 0;
+    uint32_t phase = 0;
+    mbar_wait(&k_full[0], 0);
+    issue_s(0);
+    wgmma_wait<0>();
+    hold(s);
+    softmax(t, 0);
+    release(&k_empty[0]);  // S and the tile's ids are read
+    rescale();
+    for (t = next_tile(t + 1); t < n_tiles; t = next_tile(t + 1)) {
+      const int last = st;
+      st = n % ST;
+      phase = (n / ST) & 1;
+      ++n;
+      mbar_wait(&k_full[st], phase);
+      mbar_wait(&v_full[last], (n - 2) / ST & 1);
+      issue_s(st);
+      issue_pv(last);
+      wgmma_wait<1>();  // S is done; the last P.V may still run
+      hold(s);
+      softmax(t, st);
+      release(&k_empty[st]);
+      wgmma_wait<0>();
       hold(o);
       hold(pa);
+      release(&v_empty[last]);
+      rescale();
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    mbar_wait(&v_full[st], phase);
+    issue_pv(st);
+    wgmma_wait<0>();
+    hold(o);
+    hold(pa);
+    release(&v_empty[st]);
   }
 
 #pragma unroll
@@ -899,15 +837,509 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
     // a row that saw no key: O = 0 (nothing was added) and lse = -inf
     const float l = half ? l1 : l0;
     const float denom = l > 0.f ? l : 1.f;
-    // T pairs
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D);  // T pairs
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
     }
-    if (tq == 0 && col0 == 0) {
+    if (tq == 0) {
       p.lse[static_cast<size_t>(bh) * p.sq + row] =
           l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
+    }
+  }
+}
+
+// The 16-bit triangle forward on the tensor cores. blockIdx.x: (batch, head)
+// row; blockIdx.y: q tile, reversed so the heaviest tiles launch first;
+// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(D == kRowsHeadDim ? kRowsThreads : WG * 128 + 32, 1)
+    flash_fwd_tri_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap) {
+  static_assert(kElem16<T>, "the tensor-core triangle is bf16 or fp16");
+  if constexpr (D == kRowsHeadDim) {
+    static_assert(WG == 2, "D 256: two consumer warpgroups of 64 rows");
+    rows_body<T, true>(p, &qmap, &kmap, &vmap);
+  } else {
+    using G = Geo<D>;
+    constexpr int BM = 64 * WG;
+    constexpr int BN = BM;  // square tiles: only the diagonal tile needs the mask
+    constexpr int ST = stages<D>();
+    constexpr int DC = D / col_split<D>();  // this CTA's columns of O
+    constexpr uint32_t kQBytes = BM * D * 2;
+    constexpr uint32_t kKVBytes = BN * D * 2;
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+    unsigned char* q_s = base;
+    unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
+    unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
+    uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * kKVBytes);
+    uint64_t* empty = full + ST;
+    uint64_t* q_full = empty + ST;
+
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+    const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
+    const int n_tiles = (min(p.sq, q0 + BM) + BN - 1) / BN;  // the tile on the diagonal is last
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int st = 0; st < ST; ++st) {
+        mbar_init(&full[st], 1);
+        mbar_init(&empty[st], WG * 4);
+      }
+      mbar_init(q_full, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == WG * 4) {
+      // producer warp: Q once, then K and V tile by tile through the ring
+      if (lane == 0) {
+        const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+        mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+        }
+        for (int t = 0; t < n_tiles; ++t) {
+          const int st = t % ST;
+          if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+          mbar_expect_tx(&full[st], 2 * kKVBytes);
+#pragma unroll
+          for (int b = 0; b < G::kBoxes; ++b) {
+            tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
+                        b * G::kCols, t * BN, kv_row);
+            tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
+                        b * G::kCols, t * BN, kv_row);
+          }
+        }
+      }
+      return;
+    }
+
+    // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread holds
+    // rows r0 and r0 + 8 of its warp's 16, at columns 8 j + 2 tq (+1)
+    const int wg = warp / 4;
+    const int tq = lane % 4;
+    const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+    const float qscale = p.qscale;
+    float o[DC / 2], s[BN / 2];
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
+    float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % ST;
+      mbar_wait(&full[st], (t / ST) & 1);
+      const unsigned char* ks = k_s + st * kKVBytes;
+      // V from the CTA's first column on (P.V on its column slice at D 512 and 576)
+      const unsigned char* vs = v_s + st * kKVBytes + col0 / G::kCols * BN * G::kRowBytes;
+
+      // S = Q.K^T: both K-major; a k16 step advances 32 bytes inside a box
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk * 16 / G::kCols, off = (kk * 16 % G::kCols) * 2;
+        const uint64_t da = make_desc(q_s + box * BM * G::kRowBytes + wg * 64 * G::kRowBytes + off,
+                                      16, G::kAtom, G::kLayout);
+        const uint64_t db = make_desc(ks + box * BN * G::kRowBytes + off, 16, G::kAtom, G::kLayout);
+        mma_scores<T, BN>(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(s);
+
+      if (t == n_tiles - 1) {  // the diagonal tile: drop keys after the row
+        const int k0 = t * BN;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + 8 * j + 2 * tq + c;
+            if (key > r0) s[4 * j + c] = -CUDART_INF_F;
+            if (key > r0 + 8) s[4 * j + 2 + c] = -CUDART_INF_F;
+          }
+        }
+      }
+
+      // online softmax in base 2; every row sees key 0 in its first tile and
+      // key k0 in its diagonal one, so the running max is finite from tile 0
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * kk + h;
+          const float p00 = exp2f(fmaf(s[4 * j], qscale, -mn0));
+          const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -mn0));
+          const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -mn1));
+          const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -mn1));
+          rs0 += p00 + p01;
+          rs1 += p10 + p11;
+          // the accumulator layout of S is wgmma's register layout of A
+          pa[kk][2 * h] = pack2<T>(p00, p01);
+          pa[kk][2 * h + 1] = pack2<T>(p10, p11);
+        }
+      }
+      l0 = l0 * c0 + rs0;
+      l1 = l1 * c1 + rs1;
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+
+      // O += P.V: P from registers, V MN-major (transposed); a k16 step is
+      // 16 keys, two 8-row atoms; the second 64-column box (D = 128) is LBO away
+      hold(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db = make_desc(vs + kk * 16 * G::kRowBytes, BN * G::kRowBytes, G::kAtom,
+                                      G::kLayout);
+        mma_pv<T, DC>(o, pa[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(o);
+      hold(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= p.sq) continue;
+      const float l = half ? l1 : l0;
+      // T pairs
+      uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+      }
+      if (tq == 0 && col0 == 0) {  // every column slice holds lse: slice 0 writes it
+        p.lse[static_cast<size_t>(bh) * p.sq + row] = (half ? m1 : m0) * kLn2 + logf(l);
+      }
+    }
+  }
+}
+
+// The 16-bit general forward on the tensor cores (see the note on top).
+// blockIdx.x: (batch, head) row; blockIdx.y: q tile of 64 WG rows, in order;
+// blockIdx.z: the column slice of O at D = 512 (halves) and 576 (thirds).
+template <typename T, int D, int WG>
+__global__ void __launch_bounds__(D == kRowsHeadDim ? kRowsThreads : WG * 128 + 32, 1)
+    flash_fwd_rect_kernel(Params p, const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap) {
+  static_assert(kElem16<T>, "the tensor-core general forward is bf16 or fp16");
+  if constexpr (D == kRowsHeadDim) {
+    static_assert(WG == 2, "D 256: two consumer warpgroups of 64 rows");
+    rows_body<T, false>(p, &qmap, &kmap, &vmap);
+  } else {
+    using G = Geo<D>;
+    constexpr int BM = 64 * WG;
+    constexpr int BN = kRingRows;
+    constexpr int ST = stages<D>();
+    constexpr int DC = D / col_split<D>();  // this CTA's columns of O
+    constexpr uint32_t kQBytes = BM * D * 2;
+    constexpr uint32_t kKVBytes = BN * D * 2;
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+    unsigned char* q_s = base;
+    unsigned char* k_s = q_s + kQBytes;             // stage st at k_s + st * kKVBytes
+    unsigned char* v_s = k_s + ST * kKVBytes;  // likewise
+    int* kid_s = reinterpret_cast<int*>(v_s + ST * kKVBytes);  // [ST][BN]
+    int* krange_s = kid_s + ST * BN;                           // [ST][min, max]
+    uint64_t* full = reinterpret_cast<uint64_t*>(krange_s + 2 * ST);
+    uint64_t* empty = full + ST;
+    uint64_t* q_full = empty + ST;
+
+    const bool causal = p.causal != 0;
+    const int window = p.window;  // > 0 only under a causal mask (the entry drops it otherwise)
+    const bool segments = p.seg != nullptr;
+    const int bh = blockIdx.x;
+    const int q0 = blockIdx.y * BM;
+    const int col0 = DC < D ? static_cast<int>(blockIdx.z) * DC : 0;  // the CTA's first column
+    // the keys some row of the CTA can see, by global position: all of them,
+    // or up to the last row's diagonal, from the first row's window on
+    const int q_end = min(p.sq, q0 + BM);
+    const int k_hi = causal ? max(0, min(p.sk, p.q_start + q_end - p.k_start)) : p.sk;
+    const int k_lo = window > 0 ? max(0, p.q_start + q0 - window + 1 - p.k_start) : 0;
+    const int t_lo = k_lo / BN;
+    const int n_tiles = k_lo < k_hi ? (k_hi + BN - 1) / BN - t_lo : 0;
+    const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int st = 0; st < ST; ++st) {
+        // the TMA bytes, then (segment ids) each id-staging lane's stores
+        mbar_init(&full[st], segments ? 1 + 31 : 1);
+        mbar_init(&empty[st], WG * 4);
+      }
+      mbar_init(q_full, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == WG * 4) {
+      // producer warp: lane 0 loads Q once (none for an empty walk, so that
+      // no TMA is in flight when the CTA exits), then K and V tile by tile
+      // through the ring; with segment ids, lanes 1-31 stage each tile's key
+      // ids and their range beside it
+      if (lane == 0) {
+        if (n_tiles > 0) {
+          mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+          for (int b = 0; b < G::kBoxes; ++b) {
+            tma_load_3d(q_s + b * BM * G::kRowBytes, &qmap, q_full, b * G::kCols, q0, bh);
+          }
+        }
+        const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+        for (int t = 0; t < n_tiles; ++t) {
+          const int st = t % ST;
+          if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+          mbar_expect_tx(&full[st], 2 * kKVBytes);
+#pragma unroll
+          for (int b = 0; b < G::kBoxes; ++b) {
+            tma_load_3d(k_s + st * kKVBytes + b * BN * G::kRowBytes, &kmap, &full[st],
+                        b * G::kCols, (t_lo + t) * BN, kv_row);
+            tma_load_3d(v_s + st * kKVBytes + b * BN * G::kRowBytes, &vmap, &full[st],
+                        b * G::kCols, (t_lo + t) * BN, kv_row);
+          }
+        }
+      } else if (segments) {
+        for (int t = 0; t < n_tiles; ++t) {
+          const int st = t % ST;
+          if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+          const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
+                                      kid_s + st * BN);
+          if (lane == 1) {
+            krange_s[2 * st] = range.x;
+            krange_s[2 * st + 1] = range.y;
+          }
+          mbar_arrive(&full[st]);  // releases this lane's stores to the consumers
+        }
+      }
+      return;
+    }
+
+    // consumers: warpgroup wg owns q rows w0 .. w0 + 63; this thread holds
+    // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
+    const int wg = warp / 4;
+    const int tq = lane % 4;
+    const int w0 = q0 + wg * 64;
+    const int r0 = w0 + (warp % 4) * 16 + lane / 4;
+    const float qscale = p.qscale;
+    const int win = window > 0 ? window : INT_MAX;
+    // the global positions of the warpgroup's first row and its last inside sq
+    const int qg0 = p.q_start + w0, qg1 = p.q_start + min(w0 + 63, p.sq - 1);
+    int qk[2];            // rows r0, r0 + 8 as (global position - k_start): key j is
+                          // qk - j positions before the row
+    int qid[2] = {0, 0};  // their segment ids
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      qk[h] = p.q_start + row - p.k_start;
+      if (segments && row < p.sq) qid[h] = seg[row];
+    }
+    // the segment ids of the warpgroup's rows: one id throughout when x == y
+    const int2 qrange =
+        segments ? id_range(seg, w0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+    float o[DC / 2], s[BN / 2];
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, scaled (base-2) units
+    float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % ST;
+      const int k0 = (t_lo + t) * BN;
+      mbar_wait(&full[st], (t / ST) & 1);
+      // global positions of the tile's first key and its last inside sk; some
+      // pair is live when the rows' distances to the keys, which run from
+      // qg0 - kg1 to qg1 - kg0, meet the band [0, window), and every pair is
+      // when they lie inside it and every key is inside sk
+      const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
+      bool sees = w0 < p.sq;
+      bool masked = k0 + BN > p.sk;  // a zero-filled key past sk would score
+      if (causal) {
+        sees = sees && qg1 >= kg0;
+        masked = masked || qg0 < kg1;
+      }
+      if (window > 0) {
+        sees = sees && qg0 - kg1 < window;
+        masked = masked || qg1 - kg0 >= window;
+      }
+      if (segments) {
+        // both sides one document each: the fast path when it is the same
+        // one, no live pair (and no products) when it is not
+        const int kmin = krange_s[2 * st], kmax = krange_s[2 * st + 1];
+        const bool uniform = qrange.x == qrange.y && kmin == kmax;
+        sees = sees && !(uniform && qrange.x != kmin);
+        masked = masked || !uniform;
+      }
+      if (sees) {
+        const unsigned char* ks = k_s + st * kKVBytes;
+        const unsigned char* vs = v_s + st * kKVBytes;
+        const int2* kid = reinterpret_cast<const int2*>(kid_s + st * BN);
+        wgmma_fence();
+        mma_rows_by_rows<T, D>(s, q_s, BM, wg * 64, ks);  // S = Q.K^T
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(s);
+
+        // the online softmax in base 2 and P, with the element mask or (a fast
+        // tile) without: two instantiations, as the reference's
+        // _dispatch_block emits two branches, so that a fast tile issues no
+        // mask instruction. A row may see no key yet (a later document, a
+        // band edge, or none at all): its max stays -inf, and `safe` keeps
+        // exp2 at 0 for its masked scores and its rescale
+        auto softmax = [&](auto mask) {
+          constexpr bool kMask = decltype(mask)::value;
+          if constexpr (kMask) {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
+              if (segments) kj = kid[4 * j + tq];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = k0 + 8 * j + 2 * tq + e % 2;
+                const int dist = qk[e / 2] - key;
+                bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
+                if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
+                if (!live) s[4 * j + e] = -CUDART_INF_F;
+              }
+            }
+          }
+          float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+          }
+          const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
+          const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
+          const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
+          const float c0 = exp2f(m0 - safe0), c1 = exp2f(m1 - safe1);
+          m0 = mn0;
+          m1 = mn1;
+          float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int j = 2 * kk + h;
+              const float p00 = exp2f(fmaf(s[4 * j], qscale, -safe0));
+              const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
+              const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
+              const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
+              rs0 += p00 + p01;
+              rs1 += p10 + p11;
+              // the accumulator layout of S is wgmma's register layout of A
+              pa[kk][2 * h] = pack2<T>(p00, p01);
+              pa[kk][2 * h + 1] = pack2<T>(p10, p11);
+            }
+          }
+          l0 = l0 * c0 + rs0;
+          l1 = l1 * c1 + rs1;
+#pragma unroll
+          for (int j = 0; j < DC / 8; ++j) {
+            o[4 * j] *= c0;
+            o[4 * j + 1] *= c0;
+            o[4 * j + 2] *= c1;
+            o[4 * j + 3] *= c1;
+          }
+        };
+        if (masked) {
+          softmax(std::true_type{});
+        } else {
+          softmax(std::false_type{});
+        }
+
+        hold(pa);
+        wgmma_fence();
+        mma_frag_by_tile<T, D, DC>(o, pa, vs, col0 / G::kCols);  // O += P.V, V MN-major
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(o);
+        hold(pa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= p.sq) continue;
+      // a row that saw no key: O = 0 (nothing was added) and lse = -inf
+      const float l = half ? l1 : l0;
+      const float denom = l > 0.f ? l : 1.f;
+      // T pairs
+      uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D + col0);
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+      }
+      if (tq == 0 && col0 == 0) {
+        p.lse[static_cast<size_t>(bh) * p.sq + row] =
+            l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
+      }
     }
   }
 }
@@ -1705,15 +2137,47 @@ int launch_tc(const Params& p, int bh, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// D = 256: the 128-row CTAs (their plan's block_m is the CTA's 128 rows;
+// the K and V ring tiles are 64 keys under both masks).
+template <bool TRI>
+int launch_rows(const Params& p, int bh, int block_m, int smem, cudaStream_t stream) {
+  constexpr int D = kRowsHeadDim;
+  const int q_tiles = (p.sq + kRowsBM - 1) / kRowsBM;
+  if (block_m != kRowsBM || smem != rows_smem_bytes<TRI>() || q_tiles > 65535) {
+    return kUnsupported;
+  }
+  CUtensorMap qmap, kmap, vmap;
+  const int bh_kv = bh / p.heads * p.kv_heads;
+  if (!encode_map<Elem16, D>(&qmap, p.q, p.sq, bh, kRowsBM) ||
+      !encode_map<Elem16, D>(&kmap, p.k, p.sk, bh_kv, kRingRows) ||
+      !encode_map<Elem16, D>(&vmap, p.v, p.sk, bh_kv, kRingRows)) {
+    return kNoTensorMap;
+  }
+  void (*kernel)(Params, CUtensorMap, CUtensorMap, CUtensorMap);
+  if constexpr (TRI) {
+    kernel = flash_fwd_tri_kernel<Elem16, D, 2>;
+  } else {
+    kernel = flash_fwd_rect_kernel<Elem16, D, 2>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(bh, q_tiles, 1), kRowsThreads, smem, stream>>>(p, qmap, kmap, vmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool TRI>
 int dispatch_tc(const Params& p, int bh, int block_m, int smem, int swizzle, cudaStream_t stream) {
   if (swizzle != Geo<D>::kRowBytes) return kUnsupported;
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
-  if (block_m == 64) return launch_tc<Elem16, D, 1, TRI>(p, bh, smem, stream);
-  if constexpr (D <= 128) {  // D 256, 512 and 576: one warpgroup only (see the note on top)
-    if (block_m == 128) return launch_tc<Elem16, D, 2, TRI>(p, bh, smem, stream);
+  if constexpr (D == kRowsHeadDim) {
+    return launch_rows<TRI>(p, bh, block_m, smem, stream);
+  } else {
+    if (block_m == 64) return launch_tc<Elem16, D, 1, TRI>(p, bh, smem, stream);
+    if constexpr (D <= 128) {  // D 512 and 576: one warpgroup only (see the note on top)
+      if (block_m == 128) return launch_tc<Elem16, D, 2, TRI>(p, bh, smem, stream);
+    }
+    return kUnsupported;
   }
-  return kUnsupported;
 }
 
 template <int D, bool TRI>

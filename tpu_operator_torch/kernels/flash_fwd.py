@@ -20,10 +20,11 @@ f32 runs on the CUDA cores. fp16 has a library of its own
 The kernels take the head dims ``NATIVE_HEAD_DIMS`` (16 to 576) and every
 multiple of 64 above 576; a caller with another head dim zero-pads the head
 to :func:`padded_head_dim` and passes the true head dim's softmax scale as
-``sm_scale`` (``workloads/flashattention.py`` does both). At 512 two CTAs
-share each q tile, one on each column half of O, at 576 (MLA's absorbed
-heads) three, one on each column third (:func:`col_split`). Above 576 the
-D-streaming ("wide") kernels run (libraries ``flash_fwd_wide``,
+``sm_scale`` (``workloads/flashattention.py`` does both). At 256 the 16-bit
+forwards run 128-row CTAs of two consumer warpgroups that share each K and
+V tile (:func:`rows_smem`). At 512 two CTAs share each q tile, one on each
+column half of O, at 576 (MLA's absorbed heads) three, one on each
+column third (:func:`col_split`). Above 576 the D-streaming ("wide") kernels run (libraries ``flash_fwd_wide``,
 ``flash_fwd_f16_wide``, built at the first call there): the three 64-row
 tiles of a 640-wide head alone would pass a block's shared memory, so the
 scores are summed over 64-column chunks that stream through a ring, and
@@ -54,9 +55,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 # the head dims whose 16-bit kernels take both tile heights (64 and 128 rows)
 HEAD_DIMS = (16, 32, 64, 128)
-# every head dim the kernels take: D 256, 512 and 576 in 64-row tiles only
-# (their 128-row tiles would not fit a block's shared memory or a thread's
-# registers)
+# every head dim the kernels take: D 256, 512 and 576 with the knob's 64
+# rows only (their 128-row tiles would not fit a block's shared memory or a
+# thread's registers; the D 256 forwards run 128-row CTAs of their own)
 NATIVE_HEAD_DIMS = HEAD_DIMS + (256, 512, 576)
 MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]  # the widest head of the whole-row kernels
 WIDE_BOX = 64  # above MAX_HEAD_DIM: columns of a streamed chunk (kWideBox in flash_wide.cuh)
@@ -190,11 +191,19 @@ class TriPlan:
 
 
 TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
+# D 256's 16-bit forwards (rows_body in flash_fwd.cu): 128-row CTAs of two
+# consumer warpgroups and a producer warpgroup, 64-key K and V ring tiles
+# under both masks
+ROWS_HEAD_DIM = 256  # kRowsHeadDim
+ROWS_BM = 128        # kRowsBM
+ROWS_THREADS = 384   # kRowsThreads
 # the q-tile heights (rows) a plan may take per (dtype, native head dim):
 # bf16 and fp16 one or two consumer warpgroups, one only at D 256, 512 and
-# 576; f32 its CUDA-core kernels' fixed 64 (the knob of the forward, which
-# at D 256 and above takes 16 rows for a call of at most 16, f32_rows; the
-# f32 backward takes 64 rows at every head dim)
+# 576 (at D 256 the backward pairs' height: the forwards' CTAs hold 128
+# rows whatever the knob says, ROWS_BM); f32 its CUDA-core kernels' fixed
+# 64 (the knob of the forward, which at D 256 and above takes 16 rows for a
+# call of at most 16, f32_rows; the f32 backward takes 64 rows at every
+# head dim)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
     **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512, 576)},
@@ -248,9 +257,12 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     the q tiles walked heaviest first; shared memory for the Q tile and
     ``TRI_STAGES`` K and V tiles, 1 KiB of alignment slack and five
     mbarriers; the swizzle span of a row of one TMA box (32 B at d 16, 64 B
-    at d 32, 128 B at d 64 and wider). At d 256, 512 and 576 the tile is
-    64 rows (``TILE_HEIGHTS``); at 512 and 576 the ring has one stage
-    (:func:`ring_stages`) and two (512) or three (576) CTAs share each q
+    at d 32, 128 B at d 64 and wider). At d 256 a CTA holds ``ROWS_BM``
+    rows, two consumer warpgroups and a producer warpgroup
+    (``ROWS_THREADS``), and walks 64-key K and V tiles; ``block_m`` 64 is
+    accepted and chooses nothing; shared memory :func:`rows_smem`. At d
+    512 and 576 the tile is 64 rows (``TILE_HEIGHTS``), the ring has one
+    stage (:func:`ring_stages`) and two (512) or three (576) CTAs share each q
     tile, one per column slice of O (``col_split``, the grid's z). f32
     keeps the CUDA-core kernel's fixed plan up to d 128 (``block_m`` 64
     only; its grid's y runs over the bh rows, which the kernel splits into
@@ -266,11 +278,23 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     if dtype == torch.float32:
         smem = 4 * ((64 + 2 * 64) * (d + 1) + 64 * 65) + 4 * 64
         return TriPlan(64, 256, (-(-s // 64), bh), smem, 0)
+    if d == ROWS_HEAD_DIM:
+        return TriPlan(ROWS_BM, ROWS_THREADS, (bh, -(-s // ROWS_BM)), rows_smem(True), 128)
     block = _tile_height(bh, s, sms, block_m, tile_heights(dtype, d))
     stages = ring_stages(d)
     smem = 1024 + (block + 2 * stages * block) * d * 2 + 8 * (2 * stages + 1)
     return TriPlan(block, 128 * (block // 64) + 32, (bh, -(-s // block)), smem, 2 * min(d, 64),
                    col_split(d))
+
+
+def rows_smem(tri: bool) -> int:
+    """Shared memory of a D 256 forward CTA (rows_smem_bytes in
+    flash_fwd.cu): 1 KiB of alignment slack, the 128-row Q tile,
+    ``TRI_STAGES`` 64-key K and V tiles, the general kernel's staged segment
+    ids (64 int32 a stage) and nine mbarriers (K and V full and empty a
+    stage, and Q's)."""
+    return (1024 + (ROWS_BM + 2 * TRI_STAGES * RECT_TILE) * ROWS_HEAD_DIM * 2
+            + (0 if tri else TRI_STAGES * RECT_TILE * 4) + 8 * (4 * TRI_STAGES + 1))
 
 
 # the D-streaming forward's layout above MAX_HEAD_DIM (flash_fwd.cu, built
@@ -399,7 +423,9 @@ class RectPlan:
     """Launch plan of the general kernel (fields as :class:`TriPlan`'s),
     with the masks its walk and its tile rule read: sq q rows at global
     offset ``q_start`` against sk keys at ``k_start``, ``causal``, and
-    ``window`` (None: no band; a band of causal attention only)."""
+    ``window`` (None: no band; a band of causal attention only); ``skips``:
+    the CTA copies no key tile of another document than its rows' one
+    (:meth:`loads`; the 16-bit kernel at D 256, the f32 cluster kernels)."""
 
     block_m: int
     threads: int
@@ -416,11 +442,26 @@ class RectPlan:
     slab: int = 0
     stages: int = 0
     cluster: int = 1
+    skips: bool = False
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
         maps it: natural order, bh rows on x for the tensor-core kernel."""
         return (x, y) if self.swizzle else (y, x)
+
+    def loads(self, tile: int, seg: Optional[torch.Tensor] = None) -> List[int]:
+        """The 64-key tiles the CTA of q tile ``tile`` copies, in order: its
+        walk, less (``skips``: the 16-bit CTAs at D 256 and the f32 cluster
+        kernels) a tile whose keys hold one document and the CTA's q rows
+        one other (:func:`apart`), which no warp copies or multiplies.
+        ``seg`` is one batch row's ids."""
+        walk = list(self.walk(tile))
+        if not self.skips or seg is None:
+            return walk
+        ids = seg.tolist()
+        rows = ids[tile * self.block_m:min((tile + 1) * self.block_m, self.sq)]
+        return [k for k in walk
+                if not apart(rows, ids[k * RECT_TILE:min((k + 1) * RECT_TILE, self.sk)])]
 
     def walk(self, tile: int) -> range:
         """The 64-key tiles the CTA of q tile ``tile`` walks: the keys some
@@ -466,28 +507,24 @@ class RectPlan:
     def visits(self, x: int, y: int,
                seg: Optional[torch.Tensor] = None) -> List[Tuple[int, int, str]]:
         """(64-row q slice, 64-key tile, kind) of every product block (x,
-        y) of the 16-bit kernel computes, in its order: each warpgroup's slice
-        skips a dead tile. The f32 cluster kernels (``cluster`` > 1): (q tile
-        of ``block_m`` rows, 64-key tile, "masked") of every tile pair each
-        of the tile's ``col_split`` CTAs walks, the same for all of them: the
-        walk, less a key tile whose documents cannot meet the q tile's
-        (:func:`apart`; ``seg`` one batch row's ids); every pair is masked
-        per element."""
+        y) of the 16-bit kernel computes, in its order: over the tiles it
+        copies (:meth:`loads`), each warpgroup's slice skips a dead tile (at
+        D 256 it multiplies it, masked whole, so that every product lies on
+        the warpgroup's one path). The f32 cluster kernels (``cluster`` >
+        1): (q tile of ``block_m`` rows, 64-key tile, "masked") of every
+        tile pair each of the tile's ``col_split`` CTAs copies
+        (:meth:`loads`), the same for all of them; every pair is masked per
+        element."""
         tile = self.cta(x, y)[1]
         if self.cluster > 1:
-            ids = None if seg is None else seg.tolist()
-            q0 = tile * self.block_m
-            return [(tile, k, "masked") for k in self.walk(tile)
-                    if ids is None or not apart(ids[q0:min(q0 + self.block_m, self.sq)],
-                                                ids[k * RECT_TILE:min((k + 1) * RECT_TILE,
-                                                                      self.sk)])]
+            return [(tile, k, "masked") for k in self.loads(tile, seg)]
         slices = [tile * self.block_m // 64 + w for w in range(self.block_m // 64)]
         out = []
-        for k in self.walk(tile):
+        for k in self.loads(tile, seg):
             for q in slices:
                 kind = self.kind(q * 64, k * RECT_TILE, seg)
-                if kind != "dead":
-                    out.append((q, k, kind))
+                if kind != "dead" or self.skips:
+                    out.append((q, k, "masked" if kind == "dead" else kind))
         return out
 
 
@@ -506,19 +543,24 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     tiles, their staged segment ids (whether or not the call has ids, as
     ``SEG_BYTES``), 1 KiB of alignment slack and five mbarriers; the
     triangle's swizzle, and at d 512 and 576 its one stage and column
-    slices. f32
+    slices; at d 256 the triangle's 128-row CTAs (:func:`rows_smem`), which
+    copy no key tile whose one document is not their rows' one (``skips``,
+    :meth:`RectPlan.loads`). f32
     keeps the CUDA-core kernels' plans, the triangle's (at d 256 and above
     its q tiles in natural order). The kernel checks the plan against its
     own layout and refuses one that differs."""
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
     tri = tri_plan(dtype, bh, sq, d, sms, block_m)
     smem = tri.smem_bytes
-    if dtype != torch.float32 and not is_wide(d):
+    if dtype != torch.float32 and d == ROWS_HEAD_DIM:
+        smem = rows_smem(False)
+    elif dtype != torch.float32 and not is_wide(d):
         stages = ring_stages(d)
         smem = (1024 + (tri.block_m + 2 * stages * RECT_TILE) * d * 2
                 + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
     return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
-                    tri.col_split, tri.slab, tri.stages, tri.cluster)
+                    tri.col_split, tri.slab, tri.stages, tri.cluster,
+                    skips=tri.cluster > 1 or (dtype != torch.float32 and d == ROWS_HEAD_DIM))
 
 
 @functools.cache

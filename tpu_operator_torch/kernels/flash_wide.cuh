@@ -25,12 +25,6 @@ constexpr int kWideBox = 64;                            // rows and columns of a
 constexpr uint32_t kWideBoxBytes = kWideBox * kWideBox * 2;  // 8 KiB of 16-bit values
 using WideGeo = Geo<kWideBox>;                          // 128-byte rows, 128B swizzle
 
-// Wait until at most N of this warp's committed wgmma groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // acc (+)= A(smem, K-major: a 64 x 64 box) . B(smem, K-major: a 64 x 64 box)^T,
 // the contraction over the box's 64 columns as four k16 steps; `first`
 // starts acc from zero.
