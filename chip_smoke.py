@@ -33,8 +33,11 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``,
    and ``flash_bwd_wide`` the backward pair's four cluster kernels and the
    split dK/dV walk's sum, ``F32_BWD_CLUSTER_KERNELS``, each at most 255
-   registers; the D 512 and 576 libraries no f32 kernel; ``flash_bwd`` and
-   ``flash_bwd_f16`` one split sum of their 16-bit type each,
+   registers, and its eight kernels at head dims 32-128 at slab widths 64
+   and 128, ``F32_BWD_TILE_KERNELS``, dQ's at 64 at most 128; the D 512
+   and 576 libraries no f32 kernel; ``flash_bwd`` the whole-row f32 pair at
+   head dim 16 alone and ``flash_bwd_f16`` no f32 kernel, and one split sum
+   of their 16-bit type each,
    ``SPLIT_SUM_LIBRARIES``, at 0 spill bytes), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
    the D 256 forwards must be the 128-row CTAs' instantiations
@@ -83,15 +86,19 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
    520; the general f32 forward at (2,128,4,576) with a window of 33 and
    segments); the f32 forwards and backward pairs at head dims 256 and
-   above run in thread-block clusters (each such row also logs its q tile
-   height or dK/dV's GQA split and the clusters resident; a backward row
+   above run in thread-block clusters, the f32 backward pairs at 32-128 a
+   CTA a tile (each such row also logs its q tile height or dK/dV's GQA
+   split, its slab width and the clusters, or CTAs, resident; a backward row
    runs each kernel twice for the same bits and, where the plan splits
    the walk, times dK/dV at split 1 too, ``_split_check``; every bf16 and
    fp16 backward row up to head dim 256 does the same at its plan's split
    of dK/dV's GQA walk, from the card's resident dK/dV CTAs), with rows
    past launch-bound sizes, the forward at (1,2048,8,512) and
    (1,2048,8,1024) and the backward pair at (1,2048,8,256) and
-   (1,2048,8,512), each with one kv head; rows above 576
+   (1,2048,8,512), each with one kv head; the f32 pairs up to 128 at
+   (2,128,4,16) (the whole-row pair), (2,128,4,32) full, the entry() widths' (8,128,4,64),
+   (1,2048,8,{64,128}) with one kv head and the ragged general pair at
+   (2,1000,4,128) with GQA 2 and segments cut at 333; rows above 576
    on the D-streaming kernels (``WIDE_KERNEL_CASES``,
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
@@ -124,7 +131,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    params (the packed one of the same run on the CPU, where attention
    takes the plain versions: the dense path has no segment ids); an f32
    gradient check of ``flash_attention`` against autograd through dense
-   attention; ``GRAPH_STEPS`` calls of the train step (a CUDA graph replay:
+   attention; an f32 TPUJob's trainer at ``entry()`` widths
+   (``trainer_config`` with dtype float32, ``F32_TPUJOB_CONFIGS``: plain
+   and packed in two documents) through ``run_burnin(steps=3)``, within
+   1e-4 relative of the f32 dense path (packed: the CPU plain versions),
+   with exactly the f32 pair's launches and split sums per step
+   (``_f32_tpujob``); ``GRAPH_STEPS`` calls of the train step (a CUDA graph replay:
    the first call eager, then captured) against its eager step from the
    same params, within ``GRAPH_REL_TOL``; the step's eager, replayed and
    device ms and device operations;
@@ -637,11 +649,16 @@ def wide_f16_label(mangled: str):
 F32_CLUSTER_INSTANTIATIONS = ("fwd_tri_64", "fwd_tri_16", "fwd_rect_64", "fwd_rect_16")
 
 
-# and the backward pair's at head dims 256 and above in flash_bwd_wide: dQ and
+# and the backward pair's in flash_bwd_wide: at head dims 256 and above dQ and
 # dK/dV under both masks, and the kernel that adds a split dK/dV walk's parts
 F32_BWD_CLUSTER_KERNELS = tuple(
     f"flash_bwd_{kind}_{pair}_wide_f32_kernel" for kind in ("dq", "dkv") for pair in ("tri", "rect")
 ) + ("flash_bwd_dkv_split_sum_kernel",)
+# and at 32-128, one CTA a tile, at the slab widths 64 (d 32, 64) and 128; at 16
+# the base library's whole-row pair (whole_row_f32)
+F32_BWD_TILE_KERNELS = tuple(
+    f"flash_bwd_{kind}_{pair}_tile_f32_kernel<{width}>" for kind in ("dq", "dkv")
+    for pair in ("tri", "rect") for width in (64, 128))
 
 
 def f32_label(mangled: str):
@@ -649,10 +666,15 @@ def f32_label(mangled: str):
     ``flash_fwd_f32_cluster_kernel<TRI, BM>`` as ``fwd_tri_<BM>`` or
     ``fwd_rect_<BM>``, the backward pair's by name
     (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``,
-    ``flash_bwd_dkv_split_sum_kernel``); else None."""
+    ``flash_bwd_dkv_split_sum_kernel``) and up to head dim 128 with its slab
+    width (``flash_bwd_{dq,dkv}_{tri,rect}_tile_f32_kernel<W>``); else
+    None."""
     found = re.search(r"flash_fwd_f32_cluster_kernelILb([01])ELi(\d+)E", mangled)
     if found:
         return f"fwd_{'tri' if found.group(1) == '1' else 'rect'}_{found.group(2)}"
+    found = re.search(r"(flash_bwd_(?:dq|dkv)_(?:tri|rect)_tile_f32_kernel)ILi(\d+)E", mangled)
+    if found:
+        return f"{found.group(1)}<{found.group(2)}>"
     found = re.search(r"(flash_bwd_(?:(?:dq|dkv)_(?:tri|rect)_wide_f32|dkv_split_sum)_kernel)",
                       mangled)
     return found.group(1) if found and split_sum_label(mangled) in (None, "f32") else None
@@ -822,14 +844,25 @@ def phase_build() -> dict:
             log(f"  {name} f32 kernels: ptxas {f32}")
             out[f"{name}_f32_ptxas"] = f32
             want = {"flash_fwd_wide": F32_CLUSTER_INSTANTIATIONS,
-                    "flash_bwd_wide": F32_BWD_CLUSTER_KERNELS}.get(name, ())
+                    "flash_bwd_wide": F32_BWD_CLUSTER_KERNELS + F32_BWD_TILE_KERNELS}.get(name, ())
             if sorted(f32) != sorted(want):
                 raise RuntimeError(f"{name}: f32 cluster kernels {sorted(f32)}, expected "
                                    f"{sorted(want)}")
-            # every f32 cluster kernel at most 255 registers a thread (one CTA an SM)
-            wide_regs = {k: v for k, v in f32.items() if (v.get("registers") or 256) > 255}
+            # every f32 kernel at most 255 registers a thread (one CTA an SM),
+            # dQ's at a 64-column slab 128 (two CTAs an SM)
+            wide_regs = {k: v for k, v in f32.items() if (v.get("registers") or 256) > (
+                128 if k.startswith("flash_bwd_dq_") and k.endswith("tile_f32_kernel<64>")
+                else 255)}
             if wide_regs:
-                raise RuntimeError(f"{name}: f32 cluster kernels past 255 registers: {wide_regs}")
+                raise RuntimeError(f"{name}: f32 kernels past their registers: {wide_regs}")
+        if name in ("flash_bwd", "flash_bwd_f16"):
+            # the f32 pair lives in flash_bwd_wide from head dim 32 on; flash_bwd
+            # keeps the whole-row pair at 16 alone
+            kept = sorted(k for k in per_function if whole_row_f32(k))
+            want_kept = 4 if name == "flash_bwd" else 0
+            if len(kept) != want_kept or not all("IfLi16E" in k for k in kept):
+                raise RuntimeError(f"{name}: holds f32 kernels {kept}; expected the whole-row "
+                                   f"pair at head dim 16 alone ({want_kept} kernels)")
         if name in WIDE_INSTANTIATIONS:
             # f32 at 512 and 576 runs in the wide library: no f32 kernel here
             stray = sorted(k for k in per_function if whole_row_f32(k))
@@ -1109,6 +1142,18 @@ BWD_CASES = [
     dict(pair="tri", label="autotune sweep bf16 (1,8192,8,128)", q=(1, 8192, 8, 128),
          dtype=torch.bfloat16, inner=2),
 ] + [
+    # the f32 pair up to head dim 128 (one CTA a tile): an f32 TPUJob at entry()
+    # widths, and with one kv head at 2048 tokens, where dK/dV's GQA split decides
+    dict(pair="tri", label="entry widths f32 (8,128,4,64)", q=(8, 128, 4, 64),
+         dtype=torch.float32),
+    dict(pair="tri", label="f32 (2,128,4,16)", q=(2, 128, 4, 16), dtype=torch.float32),
+    dict(pair="rect", label="f32 (2,128,4,32) full", q=(2, 128, 4, 32), dtype=torch.float32,
+         causal=False),
+    dict(pair="tri", label="f32 (1,2048,8,64) h_kv 1", q=(1, 2048, 8, 64), h_kv=1,
+         dtype=torch.float32, inner=2),
+    dict(pair="tri", label="f32 (1,2048,8,128) h_kv 1", q=(1, 2048, 8, 128), h_kv=1,
+         dtype=torch.float32, inner=2),
+] + [
     # the general pair: the packed burn-in train step (main path), a
     # segment boundary inside a tile, full attention, the window band
     dict(pair="rect", label="burnin packed bf16 (8,128,4,64) 2 segments", q=(8, 128, 4, 64),
@@ -1117,6 +1162,8 @@ BWD_CASES = [
          dtype=torch.bfloat16, causal=True, cut=88),
     dict(pair="rect", label="f32 (2,128,4,64) full", q=(2, 128, 4, 64), dtype=torch.float32,
          causal=False),
+    dict(pair="rect", label="ragged f32 (2,1000,4,128) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 128), h_kv=2, dtype=torch.float32, causal=True, cut=333),
 ] + [
     dict(pair="rect", label=f"bf16 (1,512,4,128) {name}", q=(1, 512, 4, 128),
          dtype=torch.bfloat16, **extra)
@@ -1453,9 +1500,9 @@ def _backward_rows(gen) -> list:
     error must stay below that twin's; not so where the gradients are fp16
     subnormals (``dout_scale``): there fp16 keeps fewer bits than bf16."""
     from tpu_operator_torch.kernels import flash_bwd
-    from tpu_operator_torch.kernels.flash_fwd import (F32_CLUSTER_MIN_D, TENSOR_CORE_DTYPES,
-                                                      f32_wide_geometry, keep_mask,
-                                                      padded_head_dim)
+    from tpu_operator_torch.kernels.flash_fwd import (F32_CLUSTER_MIN_D, F32_SLAB,
+                                                      TENSOR_CORE_DTYPES, f32_wide_geometry,
+                                                      keep_mask, padded_head_dim)
 
     rows = []
     for case in (BWD_CASES + HEAD_DIM_BWD_CASES + FLOAT16_BWD_CASES + HEAD_DIM_512_BWD_CASES
@@ -1536,9 +1583,10 @@ def _backward_rows(gen) -> list:
             rate += f", dkv split {stats['split']}"
             if "split_1_dkv_ms" in stats:
                 rate += f" (at split 1: dkv {stats['split_1_dkv_ms']:.5f} ms)"
-        if case["dtype"] == torch.float32 and width >= F32_CLUSTER_MIN_D:
-            # the f32 pair's thread-block clusters resident on the card at once,
-            # dK/dV's GQA split, and the split's bits and worth
+        if case["dtype"] == torch.float32 and width != flash_bwd.F32_WHOLE_ROW_D:
+            # the f32 pair's thread-block clusters (at head dims 32-128: CTAs, a
+            # cluster of one) resident on the card at once, dK/dV's GQA split,
+            # and the split's bits and worth
             tri = case["pair"] == "tri"
             stats["active_clusters"] = {k: flash_bwd.f32_wide_active_clusters(width, k, tri)
                                         for k in ("dq", "dkv")}
@@ -1546,8 +1594,10 @@ def _backward_rows(gen) -> list:
             stats.update(_split_check(case["pair"], qp, kp, vp, doutp, lse, delta, h, h_kv,
                                       extra, want, inner, d, stats["active_clusters"]["dkv"],
                                       scale))
-            rate += (f", clusters of {f32_wide_geometry(width)[2]} resident "
-                     f"{stats['active_clusters']}, dkv split {stats['split']}")
+            stats["slab"] = (flash_bwd.f32_tile_width(width) if width < F32_CLUSTER_MIN_D
+                             else F32_SLAB)
+            rate += (f", clusters of {f32_wide_geometry(width)[2]} on {stats['slab']}-column "
+                     f"slabs resident {stats['active_clusters']}, dkv split {stats['split']}")
             if "split_1_dkv_ms" in stats:
                 rate += f" (at split 1: dkv {stats['split_1_dkv_ms']:.5f} ms)"
         if twin:
@@ -2218,6 +2268,7 @@ def phase_train() -> dict:
     out["grad_check_max_abs_err"] = _flash_grad_check()
     log(f"train: f32 flash_attention gradients vs dense, max abs err "
         f"{out['grad_check_max_abs_err']:.3g}")
+    _f32_tpujob(out)
     run = _run_row(lambda: flash_attention_bench(device="cuda"))
     bench = out["flash_attention_bench"] = run["rates"]
     out["flash_attention_bench_peak_mib"] = run["peak_mib"]
@@ -2229,6 +2280,70 @@ def phase_train() -> dict:
         f"{out['flash_fwd_bwd_4096']['device_ms']:.5f}, eager ms "
         f"{out['flash_fwd_bwd_4096']['eager_ms']:.5f}")
     return out
+
+
+# an f32 TPUJob at entry() widths (head dim 64): the f32 backward pair's first
+# end-to-end path, plain (the triangle pair) and packed in two documents (the
+# general pair)
+F32_TPUJOB_CONFIGS = {"plain": {}, "packed": {"packed_segments": 2}}
+
+
+def _f32_tpujob(out: dict) -> None:
+    """An f32 TPUJob's trainer at entry() widths: ``trainer_config`` with
+    ``dtype`` float32 through ``run_burnin(steps=3)`` (its losses finite and
+    falling), plain and packed. Each step's loss within F32_TOL relative of
+    the f32 dense path (packed: of the CPU plain versions, as the packed
+    run above), and exactly the f32 pair's launches: each kernel of the
+    step's pair once per layer and step, the split sum once more per dK/dV
+    launch where the plan splits its GQA walk, no other kernel (none of the
+    16-bit libraries is loaded by it)."""
+    from tpu_operator_torch.entry import ENTRY_CONFIG
+    from tpu_operator_torch.kernels import flash_bwd
+    from tpu_operator_torch.workloads.burnin import run_burnin
+    from tpu_operator_torch.workloads.training import trainer_config
+
+    steps = 3
+    widths = {f.name: getattr(ENTRY_CONFIG, f.name) for f in dataclasses.fields(ENTRY_CONFIG)
+              if f.name in ("d_model", "n_heads", "kv_heads", "d_ff", "seq_len", "batch",
+                            "n_layers")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, over in F32_TPUJOB_CONFIGS.items():
+        cfg = trainer_config({**widths, "dtype": "float32", "use_flash_attention": True, **over})
+        pair = "rect" if cfg.packed_segments else "tri"
+        dkv_fn = getattr(flash_bwd, f"flash_bwd_dkv_{pair}")
+        zero_launches()
+        sums_before = dkv_fn.split_sums
+        got = run_burnin(steps=steps, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts, sums = read_launches(), dkv_fn.split_sums - sums_before
+        expected = _expected_launches(counts, cfg, steps)
+        h, h_kv, d = cfg.n_heads, cfg.resolved_kv_heads, cfg.d_model // cfg.n_heads
+        planner = flash_bwd.tri_bwd_plan if pair == "tri" else (
+            lambda *a, clusters: flash_bwd.rect_bwd_plan(*a, True, clusters=clusters))
+        _, plan = planner(torch.float32, cfg.batch * h, cfg.batch * h_kv, cfg.seq_len, d, sms,
+                          clusters=flash_bwd.f32_wide_active_clusters(d, "dkv", pair == "tri"))
+        want_sums = cfg.n_layers * steps * (plan.split > 1)
+        if counts != expected or sums != want_sums:
+            raise RuntimeError(f"f32 TPUJob {name}: launches {counts}, split sums {sums}, "
+                               f"expected {expected} and {want_sums}")
+        if cfg.packed_segments:
+            ref_name, ref = "CPU plain versions", run_burnin(steps=steps, cfg=cfg, device="cpu")
+        else:
+            ref_name = "f32 dense path"
+            ref = run_burnin(steps=steps, cfg=dataclasses.replace(cfg, use_flash_attention=False),
+                             device="cuda")
+        rel = _curve_rel(got["losses"], ref["losses"])
+        if not rel <= F32_TOL:
+            raise RuntimeError(f"f32 TPUJob {name}: losses {got['losses']} differ from the "
+                               f"{ref_name}'s {ref['losses']} by {rel} (relative, tol {F32_TOL})")
+        out["paths"][f"train f32 TPUJob {name}"] = counts
+        out["configs"][f"f32 TPUJob {name}"] = {
+            "losses": got["losses"], "reference": ref_name, "reference_losses": ref["losses"],
+            "rel_err": rel, "split": plan.split, "split_sums": sums}
+        log(f"train f32 TPUJob {name} (head dim {d}): run_burnin(steps={steps}) losses "
+            f"{got['losses']}, {ref_name} {ref['losses']} (rel err {rel:.3g}); launches per step "
+            f"{ {k: v / steps for k, v in counts.items() if v} }, dK/dV split {plan.split}, "
+            f"split sums {sums}")
 
 
 def _flash_fwd_bwd_ms() -> dict:
@@ -5248,11 +5363,13 @@ def main(argv=None) -> int:
     cluster = {f"flash_fwd_{pair}": {f"flash_fwd_f32_cluster_kernel<{pair == 'tri'}, {rows}>"
                                      .lower(): f32_fwd[f"fwd_{pair}_{rows}"] for rows in (64, 16)}
                for pair in ("tri", "rect")}
-    # and the backward pairs' at head dims 256 and above (dK/dV with its split's sum)
+    # and the backward pairs' (up to head dim 128 one CTA a tile, at 256 and above
+    # in clusters; dK/dV with its split's sum)
     f32_bwd = results["build"]["flash_bwd_wide_f32_ptxas"]
     for kind in ("dq", "dkv"):
         for pair in ("tri", "rect"):
-            names = [f"flash_bwd_{kind}_{pair}_wide_f32_kernel"] + (
+            names = [f"flash_bwd_{kind}_{pair}_wide_f32_kernel"] + [
+                f"flash_bwd_{kind}_{pair}_tile_f32_kernel<{width}>" for width in (64, 128)] + (
                 ["flash_bwd_dkv_split_sum_kernel"] if kind == "dkv" else [])
             cluster[f"flash_bwd_{kind}_{pair}"] = {k: f32_bwd[k] for k in names}
     # the 16-bit dK/dV's split sums (up to head dim 256), one per library

@@ -21,8 +21,11 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
   ``chip_smoke`` forward tables, held to ``attention_plain`` (O 1e-4, lse
   1e-3);
 - ``bwd_f32``: both f32 backward pairs (``flash_bwd_dq_*``,
-  ``flash_bwd_dkv_*``) at every f32 case of head dim 256 and above (padded)
-  in this tree's ``chip_smoke`` backward tables, dQ, dK and dV held to
+  ``flash_bwd_dkv_*``) at every f32 case in this tree's ``chip_smoke``
+  backward tables (``BWD_CASES``, ``HEAD_DIM_BWD_CASES``,
+  ``HEAD_DIM_512_BWD_CASES``, ``HEAD_DIM_576_BWD_CASES``,
+  ``WIDE_BWD_CASES``): head dims up to 128 (padded; the pair at one CTA a
+  tile) and from 256 on (the cluster pair), dQ, dK and dV held to
   ``attention_bwd_plain`` (1e-4 absolute), each kernel timed;
 - ``bwd_16``: both bf16 and fp16 backward pairs at every 16-bit case of
   head dim 256 and below (padded) in this tree's ``chip_smoke`` backward
@@ -117,17 +120,15 @@ def _fwd_f32(smoke) -> dict:
 
 
 def _bwd_f32(smoke) -> dict:
-    """Both f32 backward pairs' cases at head dims 256 and above (padded):
-    {label: {ok, errs, dq_ms, dkv_ms}}."""
+    """Both f32 backward pairs' cases at every head dim: {label: {ok, errs,
+    dq_ms, dkv_ms}}."""
     import torch
 
-    from tpu_operator_torch.kernels import flash_fwd
-
-    tables = (smoke.HEAD_DIM_BWD_CASES + smoke.HEAD_DIM_512_BWD_CASES
+    tables = (smoke.BWD_CASES + smoke.HEAD_DIM_BWD_CASES + smoke.HEAD_DIM_512_BWD_CASES
               + smoke.HEAD_DIM_576_BWD_CASES + smoke.WIDE_BWD_CASES)
     results = {}
     for case in tables:
-        if case["dtype"] != torch.float32 or flash_fwd.padded_head_dim(case["q"][3]) < 256:
+        if case["dtype"] != torch.float32:
             continue
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, seg = smoke._case_inputs(case, gen)

@@ -133,17 +133,27 @@ def test_shared_memory_by_hand_at_the_widest_tiles():
     assert (dq.block, dq.smem_bytes, dkv.block, dkv.smem_bytes) == (64, 99_368, 64, 100_392)
 
 
-# f32 tiles of 4 x 64 rows x (d + 1) floats, dS 64 x 65 (dkv: P too, and
-# 64 lse and delta), 64 segment ids
+# f32 on the CUDA cores. At d 16 the whole-row pair: tiles of 4 x 64 rows x
+# (d + 1) floats, dS 64 x 65 (dkv: P too, and 64 lse and delta), 64 segment
+# ids. From 32 one CTA a tile (the cluster pair at c = 1): six tiles of 64 rows
+# of the slab (64 columns at d 32 and 64, 128 at 128: two resident, two ring
+# stages of two) and the score tiles (dq: dS^T; dkv: P^T and dS^T)
 @pytest.mark.parametrize("d, dq_smem, dkv_smem", [
-    (16, 34_304, 51_456), (32, 50_688, 67_840), (64, 83_456, 100_608), (128, 148_992, 166_144),
+    (16, 34_304, 51_456), (32, 114_688, 131_072), (64, 114_688, 131_072),
+    (128, 212_992, 229_376),
 ])
 def test_f32_keeps_the_cuda_core_plans(d, dq_smem, dkv_smem):
     dq, dkv = flash_bwd.tri_bwd_plan(F32, 8, 4, 130, d, H100_SMS)
     assert (dq.block, dq.threads, dq.swizzle, dq.grid, dq.smem_bytes) == (64, 256, 0, (3, 8), dq_smem)
     assert (dkv.block, dkv.threads, dkv.swizzle, dkv.grid, dkv.smem_bytes) == (
         64, 256, 0, (3, 4), dkv_smem)
-    assert dq.cta(2, 5) == dkv.cta(2, 5) == (5, 2) and dkv_smem <= MAX_SMEM
+    if d == 16:  # tiles on x, rows on y
+        assert dq.cta(2, 5) == dkv.cta(2, 5) == (5, 2)
+    else:
+        # tile-major launch: block (x, y) is the launch's n = x + 3 y-th, tile n // rows
+        # of row n % rows; dq's last q tile first
+        assert dq.cta(2, 5) == (1, 0) and dkv.cta(2, 3) == (3, 2)
+    assert dkv_smem <= MAX_SMEM
 
 
 def test_plan_constants_match_the_cuda_source():

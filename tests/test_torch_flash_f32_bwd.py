@@ -1,15 +1,19 @@
-"""The f32 flash backward pair at head dims 256, 512 and 576: the slab CTAs
+"""The f32 flash backward pair: at head dims 256, 512 and 576 the slab CTAs
 of a tile in one thread-block cluster that add their partial S and dP
 through distributed shared memory (``flash_bwd.cu``'s
 ``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``, ``kernels/flash_cluster.cuh``),
-and dK/dV's GQA walk split in parts whose partial sums a second kernel adds
+at 32-128 the same pair at one CTA a tile on a slab as wide as the head
+(``flash_bwd_{dq,dkv}_{tri,rect}_tile_f32_kernel<W>``; 16 keeps the
+whole-row pair, which that design did not beat there), and dK/dV's GQA walk
+split in parts whose partial sums a second kernel adds
 (``flash_bwd_dkv_split_sum_kernel``). On the CPU: both pairs' plans at these
 head dims and at the padded widths that map there (slabs, clusters, tiles,
 grids, shared memory, the library), the walks against the plain version's
 mask (a window, segments, GQA, a split walk), the split rule
-(``flash_bwd.gqa_split``) on stubbed resident-cluster counts, and the
-constants against the CUDA sources. This file imports no JAX, so its card
-tests run on a machine with a card and no JAX:
+(``flash_bwd.gqa_split``) on stubbed resident-cluster counts, the constants
+against the CUDA sources, and the plain version against the JAX package's
+flash backward (the one test that imports JAX, inside it). The card tests
+run on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_flash_f32_bwd.py --noconftest -q -m cuda
 
@@ -41,6 +45,16 @@ NATIVE = [256, 512, 576]
 HEAD_DIMS = NATIVE + [129, 200, 255, 257, 320, 384, 511, 513, 544, 575]
 # (n, g, c): slabs, clusters a tile and CTAs a cluster
 GEOMETRY = {256: (2, 1, 2), 512: (4, 1, 4), 576: (5, 1, 5)}
+# 32-128: one CTA a tile on a slab of the head's width (16: the whole-row pair)
+TILE_DIMS = [32, 64, 128]
+# the widths of the tile pair and the padded ones that map there: (d, width, slab)
+TILE_HEAD_DIMS = [(32, 32, 64), (64, 64, 64), (96, 128, 128), (128, 128, 128),
+                  (17, 32, 64), (33, 64, 64), (80, 128, 128), (112, 128, 128)]
+# the tile pair's shared memory: two resident tiles and two ring stages of two
+# tiles of the slab's width, and the score tiles (dQ: dS^T; dK/dV: P^T and dS^T)
+TILE_SMEM = {64: (114_688, 131_072), 128: (212_992, 229_376)}
+# the widths the split, walk and card tests run at
+SPLIT_DIMS = [64, 128] + NATIVE
 
 
 def _pairs(d, bh=8, bh_kv=4, s=130, clusters=None):
@@ -73,17 +87,58 @@ def test_the_pair_plans_at_every_head_dim(d):
         assert dkv.smem_bytes == 229_888 - 4 * 2 * 64 == 229_376
 
 
-def test_below_256_f32_keeps_the_whole_row_pair():
-    """f32 at 16-128: one CTA of 64 rows a tile in the base library; 16-bit
-    at 256, 512 and 576 keeps its libraries."""
-    for d in (16, 32, 64, 128):
-        dq, dkv = flash_bwd.tri_bwd_plan(F32, 8, 4, 130, d, H100_SMS, clusters=30)
-        assert (dq.block, dq.cluster, dq.col_split, dkv.split) == (64, 1, 1, 1), d
-        assert flash_fwd.library_name("flash_bwd", F32, d) == "flash_bwd"
+@pytest.mark.parametrize("d, width, slab", TILE_HEAD_DIMS + [(16, 16, 0), (1, 16, 0)])
+def test_below_256_f32_keeps_the_whole_row_pair(d, width, slab):
+    """f32 at 32-128 (and the heads padded there): a CTA holds a tile's
+    whole rows of the head, as the cluster pair at c = 1 on one slab as wide
+    as the head (64 columns at d 32 and 64, 128 at 128): 64-row tiles, 256
+    threads, no swizzle, one CTA a tile (no cluster, no slab CTAs), two ring
+    stages, grid (tiles, rows), the wide library; dK/dV's split from
+    gqa_split at the card's resident CTAs. At 16 (and the heads padded
+    there) the whole-row pair stays: one CTA of 64 rows a tile in the base
+    library, no split. 16-bit at 256, 512 and 576 keeps its libraries."""
+    assert flash_fwd.padded_head_dim(d) == width
+    if width == flash_bwd.F32_WHOLE_ROW_D:
+        dq, dkv = flash_bwd.tri_bwd_plan(F32, 8, 4, 130, width, H100_SMS, clusters=30)
+        assert (dq.block, dq.cluster, dq.col_split, dkv.split) == (64, 1, 1, 1)
+        assert (dq.slab, dkv.slab) == (0, 0)
+        assert flash_fwd.library_name("flash_bwd", F32, width) == "flash_bwd"
+        return
+    assert flash_bwd.f32_tile_width(width) == slab
+    assert flash_fwd.library_name("flash_bwd", F32, width) == "flash_bwd_wide"
+    assert flash_fwd.library_name("flash_fwd", F32, width) == "flash_fwd"
+    for pair, (dq, dkv) in _pairs(width, 8, 1, 2048, clusters=264).items():
+        for plan, rows in ((dq, 8), (dkv, 1)):
+            assert (plan.block, plan.threads, plan.swizzle, plan.ring) == (64, 256, 0, 64), pair
+            assert (plan.col_split, plan.cluster, plan.slab, plan.stages) == (1, 1, slab, 2)
+            assert plan.redundancy == 1
+        assert dq.grid == (32, 8) and dq.split == 1
+        assert dkv.split == flash_bwd.gqa_split(_split(dkv, 1), 2048, 8, 1, 264)
+        assert dkv.grid == (32, dkv.split) and dkv.workspace(2048, width) == (
+            None if dkv.split == 1 else (2, dkv.split, 1, 2048, width))
+        assert (dq.smem_bytes, dkv.smem_bytes) == TILE_SMEM[slab]
+        assert (dq.smem_bytes, dkv.smem_bytes) == (flash_bwd.f32_tile_smem(width, "dq"),
+                                                   flash_bwd.f32_tile_smem(width, "dkv"))
     for d, name in ((256, "flash_bwd"), (512, "flash_bwd_d512"), (576, "flash_bwd_d576")):
         assert flash_fwd.library_name("flash_bwd", torch.bfloat16, d) == name
         assert flash_fwd.library_name("flash_bwd", torch.float16, d) == name.replace(
             "flash_bwd", "flash_bwd_f16")
+
+
+@pytest.mark.parametrize("slab", [64, 128])
+def test_the_tile_pair_shared_memory_by_hand(slab):
+    """At a 64-column slab dQ holds 114,688 bytes (resident tiles 32 KiB,
+    the ring 64 KiB, its dS^T tile 16 KiB), so two dQ CTAs and their 1 KiB
+    reserves fit an SM's 228 KiB; dK/dV holds P^T and dS^T side by side,
+    131,072 (one CTA an SM). At 128 dQ holds 212,992 and dK/dV 229,376."""
+    f = 4 * 64 * slab
+    scores = 4 * 64 * 64
+    dq, dkv = TILE_SMEM[slab]
+    assert dq == 2 * f + 2 * 2 * f + scores
+    assert dkv == dq + scores
+    if slab == 64:
+        assert 2 * (dq + 1024) <= 228 * 1024 < 2 * (dkv + 1024)
+    assert max(dq, dkv) <= MAX_SMEM
 
 
 @pytest.mark.parametrize("c", [2, 4, 5])
@@ -119,6 +174,11 @@ PREDICTED = {
     (8, 1, 2048, 256, 66): (256, 64, 4),
     (8, 1, 2048, 1024, 15): (256, 282, 1),
     (8, 4, 100, 640, 22): (4, 2, 2),
+    # up to 128 the resident CTAs: 132 SMs at one CTA each (d 128) or two (64)
+    (8, 1, 2048, 128, 132): (256, 32, 8),
+    (8, 1, 2048, 64, 264): (256, 16, 8),
+    (32, 32, 128, 64, 264): (2, 1, 1),
+    (8, 2, 1000, 128, 132): (64, 9, 4),
 }
 
 
@@ -145,7 +205,7 @@ def test_the_split_rule_on_stubbed_clusters(key):
 
 
 @pytest.mark.parametrize("clusters", [1, 15, 30, 66, 10_000])
-@pytest.mark.parametrize("d", NATIVE)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 def test_the_split_divides_the_group_and_is_1_at_gqa_1(d, clusters):
     """At GQA 1 nothing splits; the split always divides the group, also
     under the general masks (the band's walk); dQ never splits."""
@@ -172,14 +232,14 @@ def _split(plan, sp):
     return dataclasses.replace(plan, grid=(plan.grid[0], rows * sp), split=sp)
 
 
-@pytest.mark.parametrize("d", NATIVE)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 @pytest.mark.parametrize("group, split", [(1, 1), (2, 1), (2, 2), (4, 2), (4, 4)])
 @pytest.mark.parametrize("s, causal, window, cuts", [
     (1, True, None, None), (63, True, None, None), (130, True, None, None),
     (130, False, None, None), (130, True, 33, (88,)), (300, True, 70, None),
     (300, True, None, (128, 200)), (300, False, None, (64, 200)), (100, True, 33, (37,))])
 def test_the_walks_visit_exactly_the_live_pairs(d, group, split, s, causal, window, cuts):
-    """Both kernels' walks at 256-576 (64-row tiles both sides; dQ in
+    """Both kernels' walks at 64-576 (64-row tiles both sides; dQ in
     order, dK/dV over the members of its part): every (q tile, key tile)
     pair of the band whose tiles do not hold two different documents each
     whole is visited once per slab CTA and GQA member, and no other; those
@@ -237,9 +297,11 @@ def test_a_split_part_walks_its_own_members():
 
 def test_plan_constants_match_the_cuda_sources():
     """The cluster pair's head dims are the forward's (one helper in the
-    shared header); the whole-row f32 pair runs 16-128 only; the dK/dV
-    entries and kernels take the split and the partials; the 16-bit wide
-    kernels keep their gate above 576."""
+    shared header); the f32 pair at 16-128 is the tile kernels' (the
+    whole-row f32 kernels, their layouts and dispatch are gone), with the
+    plans' slab widths, shared memory and CTAs an SM; the dK/dV entries and
+    kernels take the split and the partials, at every f32 head dim; the
+    16-bit wide kernels keep their gate above 576."""
     bwd = (KERNELS / "flash_bwd.cu").read_text()
     fwd = (KERNELS / "flash_fwd.cu").read_text()
     cluster = (KERNELS / "flash_cluster.cuh").read_text()
@@ -247,16 +309,33 @@ def test_plan_constants_match_the_cuda_sources():
            "&& d % kF32WideChunk == 0;\n}" in cluster
     assert "f32_cluster_head_dim(int d)" not in fwd + bwd
     assert flash_fwd.F32_CLUSTER_MIN_D == 256
-    assert "!f32_cluster_head_dim(d) ||" in bwd and "if (!f32_cluster_head_dim(d)) return " \
+    assert "!f32_bwd_head_dim(d) ||" in bwd and "if (!f32_cluster_head_dim(d)) return " \
            "kUnsupported;" in bwd
+    assert "bool f32_bwd_head_dim(int d) { return f32_tile_head_dim(d) || " \
+           "f32_cluster_head_dim(d); }" in bwd
+    assert "return d == 32 || d == 64 || d == 128;" in bwd
+    assert flash_bwd.F32_TILE_HEAD_DIMS == (32, 64, 128) and flash_bwd.F32_WHOLE_ROW_D == 16
     assert "if (!wide_head_dim(d) || split != 1 || swizzle != WideGeo::kRowBytes" in bwd
-    # no whole-row f32 instantiation above 128, no f32_tile
-    for d in (256, 512, 576):
-        assert not re.search(rf"case {d}: return launch<", bwd), d
-    assert "f32_tile" not in bwd and not hasattr(flash_bwd, "f32_tile")
+    # the whole-row f32 pair at head dim 16 alone (the base bf16 library)
+    assert bwd.count('static_assert(D == 16, "f32 at head dims 32 and above: flash_bwd_wide\'s '
+                     'pair");') == 2
+    assert "  if (d == 16) return launch<T, 16, K>(p, rows, stream);\n#endif\n  return kUnsupported;" \
+        in bwd
+    assert not re.search(r"case \d+: return launch<", bwd) and not re.search(r"\bf32_tile\(", bwd)
+    assert not hasattr(flash_bwd, "f32_tile")
+    # the tile pair's layout: slabs of 64 up to d 64 (two dQ CTAs an SM), 128 at 128
+    assert "if (d <= 64) return launch_f32_tile<K, 64>(p, rows, d, smem, split, stream);" in bwd
+    assert "if (d == 128) return launch_f32_tile<K, kF32WideSlab>(" in bwd
+    assert ("constexpr int f32_tile_ctas(int w, bool dq) { return dq && w < kF32WideSlab ? 2 "
+            ": 1; }") in bwd
+    assert ("return 4 * ((2 + 2 * kF32WideStages) * kF32WideTile * W + (DQ ? 1 : 2) * "
+            "kF32TileFloats);") in bwd
+    assert [flash_bwd.f32_tile_width(d) for d in TILE_DIMS] == [64, 64, flash_fwd.F32_SLAB]
     # the split: the dK/dV kernels and entries, the sum in part order
+    assert "bool split_takes(int dtype, int d) { return dtype == 0 && f32_bwd_head_dim(d); }" in bwd
     for pair in ("tri", "rect"):
         assert f"flash_bwd_dkv_{pair}_wide_f32_kernel(Params p, int d, int sp)" in bwd
+        assert f"flash_bwd_dkv_{pair}_tile_f32_kernel(Params p, int d, int sp)" in bwd
         sig = bwd[bwd.index(f'extern "C" int flash_bwd_dkv_{pair}('):]
         assert "float* partials, int split" in sig[:sig.index("{")]
     assert "flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ parts" in bwd
@@ -267,10 +346,13 @@ def test_plan_constants_match_the_cuda_sources():
 
 
 def test_phase_2_and_3_cover_the_cluster_pair():
-    """chip_smoke's build phase expects the backward cluster kernels and the
-    split's sum in flash_bwd_wide and no f32 kernel in the D 512 and 576
-    libraries; phase 3 has the f32 pair at 256, 512 and 576 under both
-    masks and the (1,2048,8,{256,512}) rows with one kv head."""
+    """chip_smoke's build phase expects the backward cluster kernels, the
+    tile kernels at both slab widths and the split's sum in flash_bwd_wide
+    and no f32 kernel in the base, D 512 and 576 libraries; phase 3 has the
+    f32 pair at 64, 128, 256, 512 and 576 under both masks, the
+    (1,2048,8,{64,128,256,512}) triangle rows with one kv head, the ragged
+    general pair at (2,1000,4,128) with GQA 2 and a cut inside a tile, and
+    the entry() widths' (8,128,4,64) triangle."""
     import chip_smoke
 
     assert sorted(chip_smoke.F32_BWD_CLUSTER_KERNELS) == sorted(
@@ -278,6 +360,23 @@ def test_phase_2_and_3_cover_the_cluster_pair():
         + ["flash_bwd_dkv_split_sum_kernel"])
     for name in chip_smoke.F32_BWD_CLUSTER_KERNELS:
         assert chip_smoke.f32_label(f"_ZN12_GLOBAL__N_1{len(name)}{name}E6Paramsii") == name
+    assert len(chip_smoke.F32_BWD_TILE_KERNELS) == 8
+    for kind in ("dq", "dkv"):
+        for pair in ("tri", "rect"):
+            for width in (64, 128):
+                name = f"flash_bwd_{kind}_{pair}_tile_f32_kernel"
+                mangled = f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{width}EEEv6Paramsi"
+                label = chip_smoke.f32_label(mangled)
+                assert label == f"{name}<{width}>" and label in chip_smoke.F32_BWD_TILE_KERNELS
+                assert not chip_smoke.whole_row_f32(mangled)
+    tile_rows = [c for c in chip_smoke.BWD_CASES if c["dtype"] == F32]
+    for d in (64, 128):
+        assert {c["pair"] for c in tile_rows if c["q"][3] == d} == {"tri", "rect"}, d
+        assert any(c["q"] == (1, 2048, 8, d) and c.get("h_kv") == 1 and c["pair"] == "tri"
+                   for c in tile_rows), d
+    assert any(c["q"] == (2, 1000, 4, 128) and c.get("h_kv") == 2 and c["pair"] == "rect"
+               and c.get("cut") % 64 for c in tile_rows)
+    assert any(c["q"] == (8, 128, 4, 64) and c["pair"] == "tri" for c in tile_rows)
     assert chip_smoke.whole_row_f32("_ZN12_GLOBAL__N_123flash_bwd_dq_tri_kernelIfLi512EEEv6Params")
     assert not chip_smoke.whole_row_f32("flash_bwd_dq_tri_kernelI13__nv_bfloat16Li512ELi1EE")
     assert not chip_smoke.whole_row_f32("flash_bwd_dkv_tri_wide_f32_kernelE6Paramsii")
@@ -289,6 +388,77 @@ def test_phase_2_and_3_cover_the_cluster_pair():
     for d in (256, 512):
         assert any(c["q"] == (1, 2048, 8, d) and c.get("h_kv") == 1 and c["pair"] == "tri"
                    for c in f32), d
+
+
+@pytest.mark.parametrize("b, s, h, h_kv, d, cut, block", [
+    (1, 256, 8, 1, 128, None, 64), (2, 100, 4, 2, 64, 37, 50)])
+def test_the_plain_backward_matches_the_jax_flash_backward(b, s, h, h_kv, d, cut, block):
+    """attention_bwd_plain in f32, the version the pair is held to on the
+    card, against the JAX package's flash backward (``jax.grad`` through its
+    ``flash_attention``, whose Pallas kernels run in interpret mode on the
+    CPU, as its own tests run them) on the same numpy inputs: dQ, dK and dV
+    within 1e-4. The triangle at (1,256,8,128) with one kv head (the (1,2048,
+    8,128) row's GQA group), and the causal masks with two documents, cut at
+    37, at a ragged (2,100,4,64) with two kv heads."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_operator.workloads import flashattention as jfa
+
+    rng = np.random.default_rng(d + s)
+    q, k, v, w = (rng.standard_normal(shape).astype(np.float32)
+                  for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d), (b, s, h, d)))
+    seg = None if cut is None else np.repeat((np.arange(s) >= cut).astype(np.int32)[None], b, 0)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=True, block_q=block, block_k=block,
+                                  segment_ids=None if seg is None else jnp.asarray(seg))
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+
+    def rows(x):  # (B, S, H, D) -> the kernels' (B·H, S, D)
+        return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).reshape(
+            -1, s, d)
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        qb, kb, vb, dout = rows(q), rows(k), rows(v), rows(w)
+        tseg = None if seg is None else torch.from_numpy(seg)
+        out, lse = flash_fwd.attention_plain(qb, kb, vb, h, h_kv, causal=True, seg=tseg)
+        got = flash_bwd.attention_bwd_plain(qb, kb, vb, out, lse, dout, h, h_kv, True, seg=tseg)
+    finally:
+        torch.set_num_threads(before)
+    for grad, wj, g in zip(("dq", "dk", "dv"), want, got):
+        wt = rows(np.asarray(wj))
+        assert wt.shape == g.shape and g.dtype == F32, grad
+        assert float((wt - g).abs().max()) <= F32_TOL, grad
+
+
+def test_kernel_ab_times_every_f32_backward_row():
+    """``scripts/kernel_ab.py --family bwd_f32`` (parent against change on
+    one card) takes every f32 row of phase 3's backward tables, the rows up
+    to head dim 128 among them, and times both kernels of each."""
+    import importlib.util
+    import inspect
+
+    import chip_smoke
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", pathlib.Path(chip_smoke.__file__).parent / "scripts" / "kernel_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    assert ab.FAMILIES["bwd_f32"][1:] == (("dq_ms", "dkv_ms"), "flash_bwd")
+    body = inspect.getsource(ab._bwd_f32)
+    tables = ("BWD_CASES", "HEAD_DIM_BWD_CASES", "HEAD_DIM_512_BWD_CASES",
+              "HEAD_DIM_576_BWD_CASES", "WIDE_BWD_CASES")
+    assert all(f"smoke.{name}" in body for name in tables)
+    assert "padded_head_dim" not in body  # no width left out
+    rows = [c for name in tables for c in getattr(chip_smoke, name) if c["dtype"] == F32]
+    labels = [c["label"] for c in rows]
+    assert len(labels) == len(set(labels))
+    assert {flash_fwd.padded_head_dim(c["q"][3]) for c in rows} >= set(TILE_DIMS)
 
 
 # --------------------------------------------------------------- on the card
@@ -333,23 +503,36 @@ def _masks(kind, b, s):
 
 @pytest.mark.cuda
 def test_the_cluster_pair_builds_without_spills(cuda):
-    """flash_bwd_wide holds the four f32 cluster kernels and the split's
-    sum, each at most 255 registers and 0 spill bytes, and each places a
-    cluster at 256, 512 and 576; the D 512 and 576 libraries hold no f32
-    kernel."""
+    """flash_bwd_wide holds the four f32 cluster kernels, the eight tile
+    kernels (four at each slab width) and the split's sum, each at most 255
+    registers (dQ at a 64-column slab 128: two CTAs an SM) and 0 spill
+    bytes, and each places a cluster at 256, 512 and 576 and its resident
+    CTAs at 32-128 (two dQ CTAs an SM at 32 and 64); the D 512 and 576
+    libraries hold no f32 kernel, the base one the whole-row pair at 16
+    alone."""
     import chip_smoke
 
-    built = build.build(["flash_bwd_wide", "flash_bwd_d512", "flash_bwd_d576"])
+    built = build.build(["flash_bwd_wide", "flash_bwd", "flash_bwd_d512", "flash_bwd_d576"])
     report = chip_smoke.ptxas_by_function(
         built["flash_bwd_wide"][0].with_suffix(".log").read_text())
     found = {chip_smoke.f32_label(k): v for k, v in report.items() if chip_smoke.f32_label(k)}
-    assert sorted(found) == sorted(chip_smoke.F32_BWD_CLUSTER_KERNELS), found
+    assert sorted(found) == sorted(chip_smoke.F32_BWD_CLUSTER_KERNELS
+                                   + chip_smoke.F32_BWD_TILE_KERNELS), found
     for name, stats in found.items():
         assert stats["spill_stores"] == 0 and stats["spill_loads"] == 0, (name, stats)
-        assert stats["registers"] <= 255, (name, stats)
-    for name in ("flash_bwd_d512", "flash_bwd_d576"):
+        two = name.startswith("flash_bwd_dq_") and name.endswith("_tile_f32_kernel<64>")
+        assert stats["registers"] <= (128 if two else 255), (name, stats)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in TILE_DIMS:
+        for kernel in ("dq", "dkv"):
+            for tri in (True, False):
+                assert flash_bwd.f32_wide_active_clusters(d, kernel, tri) == sms * (
+                    2 if d <= 64 and kernel == "dq" else 1), (d, kernel, tri)
+    for name in ("flash_bwd", "flash_bwd_d512", "flash_bwd_d576"):
         kernels = chip_smoke.ptxas_by_function(built[name][0].with_suffix(".log").read_text())
-        assert not [k for k in kernels if chip_smoke.whole_row_f32(k)], name
+        kept = [k for k in kernels if chip_smoke.whole_row_f32(k)]
+        assert len(kept) == (4 if name == "flash_bwd" else 0), name
+        assert all("IfLi16E" in k for k in kept), kept
     for d in NATIVE:
         for kernel in ("dq", "dkv"):
             for tri in (True, False):
@@ -360,7 +543,7 @@ CARD_ROWS = [(b, s, h, h_kv) for s in (1, 63, 100, 130) for b, h, h_kv in ((2, 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", NATIVE + [200, 544])
+@pytest.mark.parametrize("d", [16] + TILE_DIMS + [96] + NATIVE + [200, 544])
 @pytest.mark.parametrize("b, s, h, h_kv", CARD_ROWS)
 def test_the_pair_matches_plain(cuda, b, s, h, h_kv, d):
     """Both pairs, the triangle and the general masks (full attention; a
@@ -387,23 +570,23 @@ def test_the_pair_matches_plain(cuda, b, s, h, h_kv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", NATIVE)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 @pytest.mark.parametrize("pair", ["tri", "rect"])
 def test_a_split_walk_matches_plain_and_repeats_its_bits(cuda, pair, d):
-    """dK/dV at GQA 4 with its walk in 1, 2 and 4 parts (hand-made plans
+    """dK/dV at GQA 8 with its walk in 1, 2, 4 and 8 parts (hand-made plans
     through the library, ``chip_smoke.f32_dkv_at_split``): each within 1e-4
-    of attention_bwd_plain, and two runs at split 1 and at split 2 give the
-    same bits; a split that does not divide the group is refused."""
+    of attention_bwd_plain, and two runs at each split give the same bits; a
+    split that does not divide the group is refused."""
     import chip_smoke
 
-    b, s, h, h_kv = 2, 130, 4, 1
+    b, s, h, h_kv = 2, 130, 8, 1
     masks = None if pair == "tri" else _masks("window, segments", b, s)
     qb, kb, vb, out, dout, lse, delta, scale = _inputs(d + 7, b, s, h, h_kv, d, masks)
     extra = () if masks is None else masks
     want = flash_bwd.attention_bwd_plain(
         qb, kb, vb, out, lse, dout, h, h_kv, True, None if masks is None else masks[1],
         None if masks is None else masks[2], scale)
-    for split in (1, 2, 4):
+    for split in (1, 2, 4, 8):
         run, dk, dv = chip_smoke.f32_dkv_at_split(pair, split, qb, kb, vb, dout, lse, delta, h,
                                                   h_kv, extra, scale)
         run()
@@ -411,10 +594,9 @@ def test_a_split_walk_matches_plain_and_repeats_its_bits(cuda, pair, d):
         torch.cuda.synchronize()
         for grad, w, g in zip(("dk", "dv"), want[1:], first):
             assert float((w - g).abs().max()) <= F32_TOL, (split, grad)
-        if split <= 2:
-            run()
-            torch.cuda.synchronize()
-            assert torch.equal(first[0], dk) and torch.equal(first[1], dv), split
+        run()
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], dk) and torch.equal(first[1], dv), split
     run, _, _ = chip_smoke.f32_dkv_at_split(pair, 3, qb, kb, vb, dout, lse, delta, h, h_kv,
                                             extra, scale)
     with pytest.raises(RuntimeError, match="at split 3: error -1"):
@@ -422,7 +604,7 @@ def test_a_split_walk_matches_plain_and_repeats_its_bits(cuda, pair, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", NATIVE)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 def test_two_runs_give_the_same_bits(cuda, d):
     """Both pairs through their wrappers (at the card's split) twice on the
     same inputs: the same bits."""
@@ -440,7 +622,7 @@ def test_two_runs_give_the_same_bits(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", NATIVE)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 def test_a_misaligned_base_is_refused(cuda, d):
     """The cluster kernels move 16 bytes at a time: a q, k, v or dO base 4
     bytes off raises ValueError naming it, and nothing launches."""

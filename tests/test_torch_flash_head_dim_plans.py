@@ -145,23 +145,29 @@ def test_plans_at_head_dim_256_by_hand():
 def test_plan_constants_match_the_cuda_sources():
     fwd, bwd = (KERNELS / "flash_fwd.cu").read_text(), (KERNELS / "flash_bwd.cu").read_text()
     header = (KERNELS / "hopper.cuh").read_text()
-    # the whole-row f32 pair: 64-row tiles up to 128 only (f32_tile is gone)
-    assert "f32_tile" not in bwd and not hasattr(flash_bwd, "f32_tile")
-    assert bwd.count('static_assert(D <= 128, "f32 at head dims 256 and above: the cluster '
-                     'pair (flash_bwd_wide)");') == 2
+    # the whole-row f32 pair runs head dim 16 alone (f32_tile is gone): f32 from
+    # 32 runs the wide library's tile kernels
+    assert not re.search(r"\bf32_tile\(", bwd) and not hasattr(flash_bwd, "f32_tile")
+    assert "f32 at head dims 256 and above: the cluster pair" not in bwd
+    assert [bwd.count(f"__global__ void __launch_bounds__(kThreads, f32_tile_ctas(W, {dq}))")
+            for dq in ("true", "false")] == [2, 2]
     assert "constexpr int kv_split() { return D > 128 ? 2 : 1; }" in bwd
     assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2, 2]
-    # every native head dim is dispatched in both libraries, both dtypes (f32
-    # at 256 and above: the wide library's cluster kernels)
+    # every native head dim is dispatched in both libraries: the forward in both
+    # dtypes (f32 at 256 and above: the wide library's cluster kernels), the
+    # backward in its 16-bit type (f32: the wide library's at every head dim)
     for src in (fwd, bwd):
         for d in flash_fwd.NATIVE_HEAD_DIMS:
-            both = d < flash_fwd.F32_CLUSTER_MIN_D
+            both = d < flash_fwd.F32_CLUSTER_MIN_D and src is fwd
             assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == (
                 2 if both else 1), d
-    # the CUDA-core kernels' rows: y and z slices of 65,535, no row cap
+    # the CUDA-core kernels' rows: y and z slices of 65,535, no row cap (the
+    # backward's f32 kernels walk them tile-major, cluster_slot)
     for src in (fwd, bwd):
-        assert "constexpr int kMaxGridY = 65535;" in src and "blockIdx.z * kMaxGridY" in src
+        assert "constexpr int kMaxGridY = 65535;" in src
         assert "65535 &&" not in src and "<= 65535" not in src
+    assert "blockIdx.z * kMaxGridY" in fwd
+    assert "(static_cast<long long>(blockIdx.z) * kMaxGridY +" in bwd
     assert "m64n256k16" in header
 
 
@@ -312,11 +318,12 @@ def test_plan_constants_at_512_match_the_cuda_sources():
     for src in (fwd, bwd):
         assert "constexpr int stages() { return D > 256 ? 1 : kStages; }" in src
         assert "constexpr int col_split() { return D > 512 ? 3 : D > 256 ? 2 : 1; }" in src
-    # the D 512 library dispatches D 512 alone, the others 16-256 (f32: 16-128,
-    # its cluster kernels from 256 on in the wide libraries)
+    # the D 512 library dispatches D 512 alone, the others 16-256 (the forward's
+    # f32 16-128, its cluster kernels from 256 on in the wide libraries; the
+    # backward's f32 in the wide library at every head dim)
     assert bwd.count("#ifdef FLASH_HEAD_DIM_512") == 1 and fwd.count("#ifdef FLASH_HEAD_DIM_512") == 1
-    for src in (fwd, bwd):
-        assert "#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)" in src
+    assert "#if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)" in fwd
+    assert "#elif defined(FLASH_HEAD_DIM_576)\n      case 576: return dispatch_tc<576, K>" in bwd
     assert "constexpr int ring_rows() { return D > 256 ? 32 : kTile; }" in bwd
     assert "f32_keys" not in fwd
     assert "m64n32k16" in header

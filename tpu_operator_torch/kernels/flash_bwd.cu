@@ -18,7 +18,8 @@
 // As the reference does, P is rounded to dO's dtype before dV, and dS to
 // the input dtype before dQ and dK; every sum is f32. Both kernels of a pair
 // are deterministic: no atomics, every gradient element is written once by
-// one thread, and a GQA group's q heads sum inside one CTA.
+// one thread, and a GQA group's q heads sum inside one CTA, or in parts that
+// a second kernel adds in part order.
 //
 // Two designs, chosen by dtype:
 //
@@ -27,8 +28,9 @@
 // machinery (hopper.cuh), one body per kernel (dq_tc_body / dkv_tc_body<T,
 // D, WG, TRI>; dK/dV at D 512 and 576: dkv_slice_body) for the triangle and
 // the general masks and for both 16-bit types. A library holds one of them,
-// as flash_fwd.cu's do: built as is, bf16 and the f32 kernels; built with
-// -DFLASH_ELEM_F16, fp16 alone. At long
+// as flash_fwd.cu's do: built as is, bf16 and the f32 pair at D 16; built
+// with -DFLASH_ELEM_F16, fp16. f32 at every other head dim lives in the
+// bf16 wide library. At long
 // context the pair is operations-bound (14 D FLOPs per live (q, k) pair over
 // O(S D) bytes), so every product runs on wgmma in T with f32
 // accumulators, and the scores are the forward's: the raw 16-bit q.k on the
@@ -235,18 +237,37 @@
 // flash_bwd_dkv_split_sum_kernel adds in part order (no atomics: the same
 // bits every run); sp = 1 writes dK and dV straight.
 //
-// f32 up to D 128 (dq_body / dkv_body<T, D, TRI>): one CTA
-// of 256 threads (16 x 16) per (bh row, 64-row q tile) for dQ and per (kv
-// row, 64-key tile) for dK/dV, tiles on
-// the grid's x and rows on y and z (kMaxGridY a z slice), on the CUDA
-// cores; the TPU kernels' sequential grid axis is a loop inside the CTA (up
-// to the diagonal, the window band, or all; dK/dV over every GQA group
-// member). Tiles are staged through shared memory as f32, the score is
-// built as the CUDA-core forward builds it (q * scale * log2(e) in f32,
-// then an f32 FMA chain over d), each thread owns a 4 x 4 block of the
-// score tile and the matching rows of D/16 columns of each accumulator, and
-// P and dS go through shared memory between the two. f32 stays here because
-// it must not round through TF32.
+// f32 at D 32, 64 and 128 (flash_bwd_{dq,dkv}_{tri,rect}_tile_f32_kernel<W>,
+// dq_tile_f32_body / dkv_tile_f32_body<TRI, W>, in the wide library too):
+// the cluster pair at c = 1. A tile's head is one slab of W columns (W 64 at
+// d 32 and 64, d 32 zero-filled past d as the slab loads; W 128 at d 128),
+// so S and dP are whole in the CTA and no exchange, no
+// cluster and no distributed shared memory is needed: each thread forms P
+// and dS on its own 4 x 4 block from its rows' lse and delta in registers
+// and stores them transposed for the gradient products. Kept from the
+// cluster pair: swizzled float4 tiles by 16-byte cp.async through a
+// two-stage ring (the next tile loads under this one), the 4 x 4 score
+// blocks and 4 x (W / 16) gradient blocks, dK/dV's GQA walk in sp parts
+// summed in part order, the segment-id skip, tiles launched longest walk
+// first. Per tile pair two barriers. Shared memory: dQ at W 64 114,688
+// bytes, two CTAs an SM (__launch_bounds__(256, 2): at most 128 registers a
+// thread, so S and dP are formed one after the other, tile_scores); dK/dV at
+// W 64 131,072, dQ at W 128 212,992, dK/dV 229,376, one CTA an SM. f32
+// stays on the CUDA cores because it must not round through TF32.
+//
+// f32 at D 16 (dq_body / dkv_body<T, 16, TRI>, the base bf16 library): the
+// whole-row pair, kept because the tile pair on a 64-column slab read slower
+// there (0.03172 against 0.02473 ms a (2,128,4,16) triangle pair on an H100
+// 80GB HBM3 at 700 W, scripts/kernel_ab.py). One CTA of 256 threads (16 x
+// 16) per (bh row, 64-row q tile) for dQ and per (kv row, 64-key tile) for
+// dK/dV, tiles on the grid's x and rows on y and z (kMaxGridY a z slice);
+// the TPU kernels' sequential grid
+// axis is a loop inside the CTA (up to the diagonal, the window band, or
+// all; dK/dV over every GQA group member). Tiles are staged through shared
+// memory as f32, the score is built as the CUDA-core forward builds it (q *
+// scale * log2(e) in f32, then an f32 FMA chain over d), each thread owns a
+// 4 x 4 block of the score tile and the matching rows of D/16 columns of
+// each accumulator, and P and dS go through shared memory between the two.
 //
 // Bound on this card: at the burn-in shape (S 128, D 64) each launch moves
 // about 2 MB and runs a few tens of MFLOP, so by the roofline it is
@@ -349,7 +370,7 @@ constexpr size_t dkv_smem_bytes(int d) {
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dq_body(const Params& p) {
-  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster pair (flash_bwd_wide)");
+  static_assert(D == 16, "f32 at head dims 32 and above: flash_bwd_wide's pair");
   constexpr int R = kTile / 16, LP = kTile + 1;  // rows a thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dQ columns per thread
@@ -472,7 +493,7 @@ __device__ __forceinline__ void dq_body(const Params& p) {
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void dkv_body(const Params& p) {
-  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster pair (flash_bwd_wide)");
+  static_assert(D == 16, "f32 at head dims 32 and above: flash_bwd_wide's pair");
   constexpr int R = kTile / 16, LP = kTile + 1;  // rows a thread, P/dS stride
   constexpr int LD = D + 1;
   constexpr int CN = D / 16;  // dK/dV columns per thread
@@ -2366,26 +2387,29 @@ __device__ __forceinline__ int2 cluster_slot(int rows, int tiles, int ctas, bool
 }
 
 // acc[a][4 h + e] += sum over the 64 rows r of X[r][4 ta + a] * Y(r)[4 (tb +
-// 16 h) + e] (Y a swizzled [64][128] slab): a thread's 4 x 8 block of a
-// gradient slab. 3 float4 loads for 32 FMAs.
-__device__ __forceinline__ void slab_product(float (&acc)[4][8], const float* X, const float* Y,
-                                             int ta, int tb) {
+// 16 h) + e] (Y a swizzled [64][W] slab, h < W / 64): a thread's 4 x (W /
+// 16) block of a gradient slab. At W 128 3 float4 loads for 32 FMAs, at 64 2
+// for 16.
+template <int W = kF32WideSlab>
+__device__ __forceinline__ void slab_product(float (&acc)[4][W / 16], const float* X,
+                                             const float* Y, int ta, int tb) {
+  constexpr int H = W / 64;
 #pragma unroll 4
   for (int r = 0; r < kF32WideTile; ++r) {
     const float4 x = ld4(X + r * kF32WideTile + 4 * ta);
-    const float4 y0 = ld4(Y + swz<kF32WideSlab>(r, tb));
-    const float4 y1 = ld4(Y + swz<kF32WideSlab>(r, tb + 16));
+    float4 y[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) y[h] = ld4(Y + swz<W>(r, tb + 16 * h));
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const float xa = comp(x, a);
-      acc[a][0] = fmaf(xa, y0.x, acc[a][0]);
-      acc[a][1] = fmaf(xa, y0.y, acc[a][1]);
-      acc[a][2] = fmaf(xa, y0.z, acc[a][2]);
-      acc[a][3] = fmaf(xa, y0.w, acc[a][3]);
-      acc[a][4] = fmaf(xa, y1.x, acc[a][4]);
-      acc[a][5] = fmaf(xa, y1.y, acc[a][5]);
-      acc[a][6] = fmaf(xa, y1.z, acc[a][6]);
-      acc[a][7] = fmaf(xa, y1.w, acc[a][7]);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        acc[a][4 * h] = fmaf(xa, y[h].x, acc[a][4 * h]);
+        acc[a][4 * h + 1] = fmaf(xa, y[h].y, acc[a][4 * h + 1]);
+        acc[a][4 * h + 2] = fmaf(xa, y[h].z, acc[a][4 * h + 2]);
+        acc[a][4 * h + 3] = fmaf(xa, y[h].w, acc[a][4 * h + 3]);
+      }
     }
   }
 }
@@ -2698,6 +2722,401 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_rect_wide_f32_kernel(Params p, int d, int sp) {
   dkv_wide_f32_body<false>(p, d, sp);
 }
+
+// f32 at head dims 32, 64 and 128: one CTA a tile (the cluster pair at c =
+// 1, with no exchange), its head whole in one slab of W columns: W 64 at d
+// 32 and 64 (d 32 zero-filled past d inside the slab, which changes neither
+// q.k, nor dO.V, nor delta), W 128 at d 128. d 16 keeps the whole-row pair
+// of the base library (dq_body / dkv_body), which this design did not beat
+// there (see the note on top).
+__host__ __device__ constexpr bool f32_tile_head_dim(int d) {
+  return d == 32 || d == 64 || d == 128;
+}
+// CTAs an SM holds: dQ at W 64 two (its shared memory under half the SM's,
+// registers at most 128 a thread), else one. dK/dV at W 64 held one score
+// tile for P^T and then dS^T to fit two an SM: four barriers a tile pair,
+// and 24% slower at (1,2048,8,64) than one CTA an SM with two tiles.
+constexpr int f32_tile_ctas(int w, bool dq) { return dq && w < kF32WideSlab ? 2 : 1; }
+// The resident tiles (dQ: Q times qscale and dO; dK/dV: K and V), the
+// ring's two stages of two tiles (K and V; Q and dO), and the score tiles
+// (dQ: dS^T; dK/dV: P^T and dS^T).
+template <int W, bool DQ>
+constexpr int f32_tile_smem_bytes() {
+  return 4 * ((2 + 2 * kF32WideStages) * kF32WideTile * W + (DQ ? 1 : 2) * kF32TileFloats);
+}
+static_assert(2 * (f32_tile_smem_bytes<64, true>() + 1024) <= 233472, "two dQ CTAs an SM at W 64");
+static_assert(f32_tile_smem_bytes<128, false>() <= 232448,
+              "past the shared memory a block may use");
+
+// Rows [r0, r0 + 64) and columns [0, W) of an (s, d) f32 matrix into a
+// swizzled [64][W] tile by 16-byte cp.async, zero past row s and past
+// column d.
+template <int W>
+__device__ __forceinline__ void load_head(float* dst, const float* src, int r0, int s, int d) {
+  constexpr int F = W / 4;
+  static_assert(kF32WideTile * F % kThreads == 0, "every thread loads as many float4s");
+  int tid = threadIdx.x;  // recomputed at every call, as load_tile's
+  asm volatile("" : "+r"(tid));
+#pragma unroll
+  for (int k = 0; k < kF32WideTile * F / kThreads; ++k) {
+    const int e = tid + k * kThreads;
+    const int r = e / F, f = e % F;
+    const bool in = r0 + r < s && 4 * f < d;
+    cp_async16(dst + swz<W>(r, f), src + (in ? static_cast<size_t>(r0 + r) * d + 4 * f : 0), in);
+  }
+}
+
+// A thread's 4 x (W / 16) block of a gradient (rows r0 + 4 ta + a, columns
+// 4 (tb + 16 h) + e) into an (s, d) f32 matrix: rows inside s, columns
+// inside d.
+template <int W>
+__device__ __forceinline__ void store_head(float* dst, const float (&acc)[4][W / 16], int r0,
+                                           int s, int d, int ta, int tb) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + 4 * ta + a;
+    if (r >= s) continue;
+#pragma unroll
+    for (int h = 0; h < W / 64; ++h) {
+      const int col = 4 * (tb + 16 * h);
+      if (col >= d) continue;
+      st4(dst + static_cast<size_t>(r) * d + col,
+          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
+    }
+  }
+}
+
+// acc[i][j] += A(4 ta + i) . B(4 tb + j) over the float4 columns [0, f1) of
+// swizzled [64][W] tiles, an f32 FMA chain in column order (SB: B's values
+// times qscale first, q's share of the score): S, or dP, of a thread's 4 x 4
+// block. partial_scores' loop for one product at a time: B's four float4s
+// and A's one in registers, not eight and two, so that dQ at a
+// 64-column slab keeps to 128 registers (two CTAs an SM).
+template <int W, bool SB>
+__device__ __forceinline__ void tile_scores(float (&acc)[4][4], const float* A, const float* B,
+                                            int ta, int tb, int f1, float qscale) {
+  const float* a_row = A + 4 * ta * W;
+  const float* b_row = B + 4 * tb * W;
+  const int xa = ta & 7, xb = tb & 7;  // the rows' swizzle
+#pragma unroll 1
+  for (int f = 0; f < f1; ++f) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = ld4(b_row + j * W + ((f ^ xb) << 2));
+      if (SB) b[j] = scale4(b[j], qscale);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = ld4(a_row + i * W + ((f ^ xa) << 2));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// X[4 tb + b][4 ta + a] = v[a][b] in a [64][64] score tile: a thread's 4 x 4
+// block stored transposed (dQ: dS^T[key][q row]; dK/dV: P^T and dS^T as
+// [q row][key]), as slab_product reads it.
+__device__ __forceinline__ void store_scores(float* xs, const float (&v)[4][4], int ta, int tb) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    st4(xs + (4 * tb + b) * kF32WideTile + 4 * ta, make_float4(v[0][b], v[1][b], v[2][b], v[3][b]));
+  }
+}
+
+// The f32 dQ at head dims up to 128 on the CUDA cores, a CTA a 64-row q tile
+// (see the note on top). blockIdx.x: q tile; y and z: bh rows (kMaxGridY a
+// z slice), walked tile-major (cluster_slot; a plain causal mask's last q
+// tile first). A thread holds S and dP at q rows 4 ta + a and keys 4 tb + b,
+// forms P and dS there from its rows' lse and delta (held in registers),
+// and holds dQ at rows 4 ta + a, columns 4 (tb + 16 h) + e. Per key tile: one
+// barrier before the scores (the tile's K and V landed, the last tile's dS^T
+// and stage read: the next tile's K and V then load under this one) and one
+// before dQ += dS . K. TRI: the triangle; else the general masks, the key
+// tiles of the band, a key tile whose documents cannot meet the q tile's
+// skipped.
+template <bool TRI, int W>
+__device__ __forceinline__ void dq_tile_f32_body(const Params& p, int d) {
+  constexpr int kSlab = kF32WideTile * W;
+  extern __shared__ float4 f32w_smem[];
+  float* qres = reinterpret_cast<float*>(f32w_smem);  // the Q tile times qscale
+  float* dores = qres + kSlab;
+  float* ring = dores + kSlab;  // per stage: the K and V tiles
+  float* xs = ring + kF32WideStages * 2 * kSlab;  // dS^T
+
+  const int tiles = (p.s + kF32WideTile - 1) / kF32WideTile;
+  const int2 slot = cluster_slot(p.rows, tiles, 1, TRI || (p.causal && p.window <= 0));
+  if (slot.x < 0) return;
+  const int bh = slot.x;
+  const int q0 = slot.y * kF32WideTile;
+  const int2 th = f32_wide_thread();
+  const int ta = th.x, tb = th.y;
+  const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.s * d;
+  const float* dog = static_cast<const float*>(p.dout) + static_cast<size_t>(bh) * p.s * d;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+  const bool segments = !TRI && p.seg != nullptr;
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
+  const int lane = threadIdx.x & 31;
+
+  int t_lo = 0, t_hi = tiles;
+  if (TRI || p.causal) t_hi = (min(q0 + kF32WideTile, p.s) + kF32WideTile - 1) / kF32WideTile;
+  if (!TRI && p.causal && p.window > 0) t_lo = max(0, q0 - p.window + 1) / kF32WideTile;
+  const int2 qrange = segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    while (segments && t < t_hi &&
+           apart(qrange, id_range(seg, t * kF32WideTile, p.s, lane, 32, ~0u, nullptr))) {
+      ++t;
+    }
+    return t;
+  };
+  auto fetch = [&](int t, int st) {
+    float* dst = ring + st * 2 * kSlab;
+    load_head<W>(dst, kg, t * kF32WideTile, p.s, d);
+    load_head<W>(dst + kSlab, vg, t * kF32WideTile, p.s, d);
+  };
+
+  int t = live_from(t_lo);
+  load_head<W>(qres, qg, q0, p.s, d);
+  load_head<W>(dores, dog, q0, p.s, d);
+  if (t < t_hi) fetch(t, 0);
+  cp_async_commit();
+  // the thread's rows: lse * log2(e), delta and segment ids
+  float l2[4], dl[4];
+  int qseg[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = q0 + 4 * ta + a;
+    const bool in = qi < p.s;
+    l2[a] = in ? p.lse[static_cast<size_t>(bh) * p.s + qi] * kLog2e : -CUDART_INF_F;
+    dl[a] = in ? p.delta[static_cast<size_t>(bh) * p.s + qi] : 0.f;
+    qseg[a] = segments && in ? seg[qi] : 0;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < kSlab; e += kThreads) qres[e] *= p.qscale;
+
+  float acc[4][W / 16];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j) acc[a][j] = 0.f;
+  int st = 0;  // the stage of tile t
+  while (t < t_hi) {
+    const int next = live_from(t + 1);
+    const int k0 = t * kF32WideTile;
+    int kseg[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int kj = k0 + 4 * tb + b;
+      kseg[b] = segments && kj < p.s ? seg[kj] : 0;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile t's K and V in; the last tile's dS^T and stage read
+    if (next < t_hi) fetch(next, st ^ 1);
+    cp_async_commit();
+    const float* kv = ring + st * 2 * kSlab;
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sc[a][b] = dp[a][b] = 0.f;
+    tile_scores<W, false>(sc, qres, kv, ta, tb, d / 4, 1.f);
+    tile_scores<W, false>(dp, dores, kv + kSlab, ta, tb, d / 4, 1.f);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int qi = q0 + 4 * ta + a;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int kj = k0 + 4 * tb + b;
+        const bool live = qi < p.s && kj < p.s && l2[a] != -CUDART_INF_F &&
+                          attends<TRI>(p, qi, kj, segments, qseg[a], kseg[b]);
+        const float pe = live ? exp2f(sc[a][b] - l2[a]) : 0.f;
+        dp[a][b] = pe * (dp[a][b] - dl[a]) * p.scale;
+      }
+    }
+    store_scores(xs, dp, ta, tb);
+    __syncthreads();
+    slab_product<W>(acc, xs, kv, ta, tb);  // dQ += dS . K
+    st ^= 1;
+    t = next;
+  }
+  cp_async_wait<0>();
+  store_head<W>(static_cast<float*>(p.dq) + static_cast<size_t>(bh) * p.s * d, acc, q0, p.s, d,
+                ta, tb);
+}
+
+// The f32 dK/dV at head dims up to 128 on the CUDA cores, a CTA a 64-key
+// tile (see the note on top). blockIdx.x: key tile; y and z: part x kv rows
+// + kv row, sp parts of the GQA group, walked tile-major (cluster_slot:
+// every row's key tile 0 first). A thread holds S^T and dP^T at keys 4 ta +
+// a and q rows 4 tb + c (each q tile's rows' lse and delta loaded into
+// registers before its barrier), and dK and dV at keys 4 ta + a, columns 4
+// (tb + 16 h) + e; it walks the q tiles of its part's group / sp members
+// and writes its sums at row part x rows + kv row of p.dk and p.dv (sp 1:
+// dK and dV; above: the partials flash_bwd_dkv_split_sum_kernel adds). TRI:
+// the triangle; else the general masks, as dQ's.
+template <bool TRI, int W>
+__device__ __forceinline__ void dkv_tile_f32_body(const Params& p, int d, int sp) {
+  constexpr int kSlab = kF32WideTile * W;
+  extern __shared__ float4 f32w_smem[];
+  float* kres = reinterpret_cast<float*>(f32w_smem);  // the K and V tiles
+  float* vres = kres + kSlab;
+  float* ring = vres + kSlab;  // per stage: the Q and dO tiles
+  float* xs = ring + kF32WideStages * 2 * kSlab;  // P^T and dS^T
+
+  const int tiles = (p.s + kF32WideTile - 1) / kF32WideTile;
+  const int2 slot = cluster_slot(p.rows * sp, tiles, 1, false);
+  if (slot.x < 0) return;
+  const int row = slot.x;  // part x kv rows + kv row
+  const int kv_row = row % p.rows;
+  const int k0 = slot.y * kF32WideTile;
+  const int2 th = f32_wide_thread();
+  const int ta = th.x, tb = th.y;
+  const int b = kv_row / p.kv_heads;
+  const int group = p.heads / p.kv_heads;
+  const int m_end = (row / p.rows + 1) * (group / sp);  // past the part's last member
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.s * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.s * d;
+  const bool segments = !TRI && p.seg != nullptr;
+  const int* seg = segments ? p.seg + static_cast<size_t>(b) * p.s : nullptr;
+  const int lane = threadIdx.x & 31;
+  auto q_row = [&](int m) { return b * p.heads + (kv_row % p.kv_heads) * group + m; };
+
+  int t_lo = 0, t_hi = tiles;
+  if (TRI || p.causal) t_lo = k0 / kF32WideTile;
+  if (!TRI && p.causal && p.window > 0) {
+    t_hi = (min(p.s, min(k0 + kF32WideTile, p.s) - 1 + p.window) + kF32WideTile - 1) /
+           kF32WideTile;
+  }
+  const int2 krange = segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto advance = [&](int& m, int& t) {  // (m, t) to the first live (member, q tile) from it
+    while (m < m_end) {
+      if (t >= t_hi) {
+        ++m;
+        t = t_lo;
+      } else if (segments &&
+                 apart(krange, id_range(seg, t * kF32WideTile, p.s, lane, 32, ~0u, nullptr))) {
+        ++t;
+      } else {
+        return;
+      }
+    }
+  };
+  auto fetch = [&](int m, int t, int st) {
+    float* dst = ring + st * 2 * kSlab;
+    const size_t qoff = static_cast<size_t>(q_row(m)) * p.s * d;
+    load_head<W>(dst, static_cast<const float*>(p.q) + qoff, t * kF32WideTile, p.s, d);
+    load_head<W>(dst + kSlab, static_cast<const float*>(p.dout) + qoff, t * kF32WideTile, p.s, d);
+  };
+
+  int m = m_end - group / sp, t = t_lo;
+  advance(m, t);
+  load_head<W>(kres, kg, k0, p.s, d);
+  load_head<W>(vres, vg, k0, p.s, d);
+  if (m < m_end) fetch(m, t, 0);
+  cp_async_commit();
+
+  float dk[4][W / 16], dv[4][W / 16];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j) dk[a][j] = dv[a][j] = 0.f;
+  int st = 0;
+  while (m < m_end) {
+    int nm = m, nt = t + 1;
+    advance(nm, nt);
+    const size_t lrow = static_cast<size_t>(q_row(m)) * p.s;
+    const int q0 = t * kF32WideTile;
+    float l2[4], dl[4];  // q rows 4 tb + c: lse * log2(e) and delta
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qi = q0 + 4 * tb + c;
+      const bool in = qi < p.s;
+      l2[c] = in ? p.lse[lrow + qi] * kLog2e : -CUDART_INF_F;
+      dl[c] = in ? p.delta[lrow + qi] : 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's Q and dO in; the last tile's scores and stage read
+    if (nm < m_end) fetch(nm, nt, st ^ 1);
+    cp_async_commit();
+    const float* qd = ring + st * 2 * kSlab;
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[a][c] = dp[a][c] = 0.f;
+    tile_scores<W, true>(sc, kres, qd, ta, tb, d / 4, p.qscale);
+    tile_scores<W, false>(dp, vres, qd + kSlab, ta, tb, d / 4, 1.f);
+    int qseg[4], kseg[4];  // the q rows' and the keys' segment ids
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qi = q0 + 4 * tb + c, kj = k0 + 4 * ta + c;
+      qseg[c] = segments && qi < p.s ? seg[qi] : 0;
+      kseg[c] = segments && kj < p.s ? seg[kj] : 0;
+    }
+    // P^T and dS^T in place of S^T and dP^T
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kj = k0 + 4 * ta + a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = q0 + 4 * tb + c;
+        const bool live = qi < p.s && kj < p.s && l2[c] != -CUDART_INF_F &&
+                          attends<TRI>(p, qi, kj, segments, qseg[c], kseg[a]);
+        sc[a][c] = live ? exp2f(sc[a][c] - l2[c]) : 0.f;
+        dp[a][c] = sc[a][c] * (dp[a][c] - dl[c]) * p.scale;
+      }
+    }
+    store_scores(xs, sc, ta, tb);
+    store_scores(xs + kF32TileFloats, dp, ta, tb);
+    __syncthreads();
+    slab_product<W>(dv, xs, qd + kSlab, ta, tb);                   // dV += P^T . dO
+    slab_product<W>(dk, xs + kF32TileFloats, qd, ta, tb);          // dK += dS^T . Q
+    st ^= 1;
+    m = nm;
+    t = nt;
+  }
+  cp_async_wait<0>();
+  store_head<W>(static_cast<float*>(p.dk) + static_cast<size_t>(row) * p.s * d, dk, k0, p.s, d,
+                ta, tb);
+  store_head<W>(static_cast<float*>(p.dv) + static_cast<size_t>(row) * p.s * d, dv, k0, p.s, d,
+                ta, tb);
+}
+
+// The four f32 kernels at head dims up to 128, at slab width W (64 or 128):
+// the triangle pair and the general pair, one CTA a tile; dK/dV's GQA walk
+// in sp parts.
+template <int W>
+__global__ void __launch_bounds__(kThreads, f32_tile_ctas(W, true))
+    flash_bwd_dq_tri_tile_f32_kernel(Params p, int d) {
+  dq_tile_f32_body<true, W>(p, d);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, f32_tile_ctas(W, true))
+    flash_bwd_dq_rect_tile_f32_kernel(Params p, int d) {
+  dq_tile_f32_body<false, W>(p, d);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, f32_tile_ctas(W, false))
+    flash_bwd_dkv_tri_tile_f32_kernel(Params p, int d, int sp) {
+  dkv_tile_f32_body<true, W>(p, d, sp);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, f32_tile_ctas(W, false))
+    flash_bwd_dkv_rect_tile_f32_kernel(Params p, int d, int sp) {
+  dkv_tile_f32_body<false, W>(p, d, sp);
+}
 #endif  // FLASH_ELEM_F16
 #endif  // FLASH_HEAD_DIM_WIDE
 
@@ -2816,16 +3235,11 @@ int launch(const Params& p, int rows, cudaStream_t stream) {
 
 template <typename T, Kind K>
 int dispatch_dim(const Params& p, int rows, int d, cudaStream_t stream) {
-  // D 16-128 here; 256 and above: the cluster pair of the wide library
-  switch (d) {
+  // D 16 here (the whole-row pair is faster there); 32 and above: flash_bwd_wide's pair
 #if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
-    case 16: return launch<T, 16, K>(p, rows, stream);
-    case 32: return launch<T, 32, K>(p, rows, stream);
-    case 64: return launch<T, 64, K>(p, rows, stream);
-    case 128: return launch<T, 128, K>(p, rows, stream);
+  if (d == 16) return launch<T, 16, K>(p, rows, stream);
 #endif
-    default: return kUnsupported;
-  }
+  return kUnsupported;
 }
 
 bool valid(const Params& p, int rows) {
@@ -2834,6 +3248,10 @@ bool valid(const Params& p, int rows) {
 }
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
+// The head dims of the f32 pair (the wide library's): 32-128 a CTA a tile,
+// 256 and above in clusters.
+bool f32_bwd_head_dim(int d) { return f32_tile_head_dim(d) || f32_cluster_head_dim(d); }
+
 // The f32 cluster kernel of K (dK/dV's take the split besides d).
 template <Kind K>
 auto f32_wide_kernel() {
@@ -2880,6 +3298,65 @@ int launch_f32_wide(const Params& p, int rows, int d, int smem, int split, cudaS
   }
 }
 
+// The f32 kernel of K at head dims up to 128 and slab width W.
+template <Kind K, int W>
+auto f32_tile_kernel() {
+  if constexpr (K == kDqTri) {
+    return flash_bwd_dq_tri_tile_f32_kernel<W>;
+  } else if constexpr (K == kDqRect) {
+    return flash_bwd_dq_rect_tile_f32_kernel<W>;
+  } else if constexpr (K == kDkvTri) {
+    return flash_bwd_dkv_tri_tile_f32_kernel<W>;
+  } else {
+    return flash_bwd_dkv_rect_tile_f32_kernel<W>;
+  }
+}
+
+// How many CTAs of K's f32 kernel at head dim d (32-128) the current card
+// holds at once (its SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at the plan's shared memory), asked once per card; a negative CUDA error
+// code when the query fails.
+template <Kind K, int W>
+int f32_tile_resident() {
+  static int known[kCachedCards] = {};
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (card < kCachedCards && known[card] != 0) return known[card];
+  constexpr int smem = f32_tile_smem_bytes<W, is_dq(K)>();
+  const auto kernel = f32_tile_kernel<K, W>();
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (card < kCachedCards) known[card] = sms * per_sm;
+  return sms * per_sm;
+}
+
+// The f32 kernel K at head dim d up to 128 on slabs of W: grid (tiles,
+// rows, z slices), one CTA a tile; dK/dV's rows are split x rows, one walk
+// part each.
+template <Kind K, int W>
+int launch_f32_tile(const Params& p, int rows, int d, int smem, int split, cudaStream_t stream) {
+  if (smem != f32_tile_smem_bytes<W, is_dq(K)>()) return kUnsupported;
+  const auto kernel = f32_tile_kernel<K, W>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (p.s + kF32WideTile - 1) / kF32WideTile;
+  if constexpr (is_dq(K)) {
+    kernel<<<cluster_grid(tiles, 1, rows), kThreads, smem, stream>>>(p, d);
+  } else {
+    kernel<<<cluster_grid(tiles, 1, rows * split), kThreads, smem, stream>>>(p, d, split);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 #endif
 
 // The libraries that split dK/dV's GQA walk, and the gradients' type there:
@@ -2888,7 +3365,7 @@ int launch_f32_wide(const Params& p, int rows, int d, int smem, int split, cudaS
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
 #define FLASH_BWD_SPLITS
 using SplitOut = float;
-bool split_takes(int dtype, int d) { return dtype == 0 && f32_cluster_head_dim(d); }
+bool split_takes(int dtype, int d) { return dtype == 0 && f32_bwd_head_dim(d); }
 #elif !defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
 #define FLASH_BWD_SPLITS
 using SplitOut = Elem16;
@@ -2955,8 +3432,7 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
 #else
-  if (dtype != 0 || swizzle != 0 || !f32_cluster_head_dim(d) ||
-      smem != f32_wide_smem_bytes<kDq>() ||
+  if (dtype != 0 || swizzle != 0 || !f32_bwd_head_dim(d) ||
       (kDq ? split != 1 : (p.heads / p.kv_heads) % split != 0)) {
     return kUnsupported;
   }
@@ -2964,16 +3440,20 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
   if (!tma_aligned({p.q, p.k, p.v, p.dout, kDq ? p.dq : p.dk, kDq ? p.dq : p.dv})) {
     return kUnsupported;
   }
+  if (d <= 64) return launch_f32_tile<K, 64>(p, rows, d, smem, split, stream);
+  if (d == 128) return launch_f32_tile<K, kF32WideSlab>(p, rows, d, smem, split, stream);
+  if (smem != f32_wide_smem_bytes<kDq>()) return kUnsupported;
   return launch_f32_wide<K>(p, rows, d, smem, split, stream);
 #endif
 }
 #endif  // FLASH_HEAD_DIM_WIDE
 
 // The library's 16-bit type on the tensor cores with the caller's plan; f32
-// (the bf16 library only) on the CUDA cores, whose plan is fixed (its tile,
-// shared memory, no swizzle): up to 128 in the base library, 256 and above
-// in the wide one. `split` > 1 (dK/dV's GQA walk in parts) in the wide
-// library's f32 pair and the base libraries' 16-bit one.
+// on the CUDA cores: D 16 in the base bf16 library, whose whole-row plan is
+// fixed (its tile, shared memory, no swizzle), every other head dim in the
+// wide bf16 library (32-128: a CTA a tile; 256 and above: slab clusters).
+// `split` > 1 (dK/dV's GQA walk in parts) in the wide library's f32 pair
+// and the base libraries' 16-bit one.
 template <Kind K>
 int dispatch(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
              int split, void* stream) {
@@ -3053,12 +3533,11 @@ int band(int causal, int window, int s) { return causal && window > 0 && window 
 // and swizzle (bytes) are the caller's launch plan (flash_bwd.py::
 // tri_bwd_plan and rect_bwd_plan); the dK/dV entries take its split too
 // (BwdPlan.split: 1, or above 1 with partials, 2 x split x bh_kv x s x d
-// floats of scratch: the f32 cluster pair, and the 16-bit pair up to D
-// 256). A library takes D 16-256
-// (f32: 16-128), or (built with -DFLASH_HEAD_DIM_512) D 512 alone, or
-// (-DFLASH_HEAD_DIM_576) D 576 alone, both 16-bit only, or
-// (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576 and f32 from 256 on
-// (flash_bwd.py::wide_bwd_plans).
+// floats of scratch: the f32 pair, and the 16-bit pair up to D 256). A
+// library takes D 16-256 (f32: 16 alone), or (built with
+// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone,
+// both 16-bit only, or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above
+// 576 and f32 at 32, 64, 128 and from 256 on (flash_bwd.py::wide_bwd_plans).
 extern "C" int flash_bwd_dq_tri(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int dtype, int bh,
                                 int s, int d, int heads, int kv_heads, float qscale, float scale,
@@ -3148,12 +3627,26 @@ extern "C" int flash_bwd_dkv_ctas_per_sm(int tri, int d, int block, int smem) {
 #endif
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-// How many clusters of an f32 cluster kernel (dq 1: dQ, 0: dK/dV; tri 1: the
-// triangle pair's, 0: the general pair's) at head dim d (256 and above) the
-// card holds at once: cudaOccupancyMaxActiveClusters at its plan's shared
-// memory and cluster size. -1 for a head dim these kernels do not take,
+// How many clusters of an f32 kernel (dq 1: dQ, 0: dK/dV; tri 1: the
+// triangle pair's, 0: the general pair's) at head dim d the card holds at
+// once: at 256 and above cudaOccupancyMaxActiveClusters at its plan's shared
+// memory and cluster size; at 32-128 (a CTA a tile, a cluster of one) its
+// SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor. -1 for a head dim
+// these kernels do not take,
 // minus a CUDA error code when the query fails.
 extern "C" int flash_bwd_f32_wide_clusters(int dq, int tri, int d) {
+  if (f32_tile_head_dim(d)) {  // 32-128, a CTA a tile: its resident CTAs, each a cluster of one
+    if (d <= 64) {
+      if (dq) return tri ? f32_tile_resident<kDqTri, 64>() : f32_tile_resident<kDqRect, 64>();
+      return tri ? f32_tile_resident<kDkvTri, 64>() : f32_tile_resident<kDkvRect, 64>();
+    }
+    if (dq) {
+      return tri ? f32_tile_resident<kDqTri, kF32WideSlab>()
+                 : f32_tile_resident<kDqRect, kF32WideSlab>();
+    }
+    return tri ? f32_tile_resident<kDkvTri, kF32WideSlab>()
+               : f32_tile_resident<kDkvRect, kF32WideSlab>();
+  }
   if (!f32_cluster_head_dim(d)) return kUnsupported;
   if (dq) return tri ? f32_wide_clusters<kDqTri>(d) : f32_wide_clusters<kDqRect>(d);
   return tri ? f32_wide_clusters<kDkvTri>(d) : f32_wide_clusters<kDkvRect>(d);

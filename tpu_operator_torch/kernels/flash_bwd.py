@@ -10,13 +10,16 @@ does.
 The device of the tensors chooses the code: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs :func:`attention_bwd_plain`, which
 computes all three gradients from ``out``; each wrapper returns its part.
-Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``.
+Each wrapper counts the kernel launches it makes in ``<wrapper>.launches``,
+and each dK/dV wrapper the second kernel a split GQA walk launches
+(``flash_bwd_dkv_split_sum_kernel``) in ``<wrapper>.split_sums``.
 In bf16 and fp16 both pairs run on the tensor cores (wgmma, TMA: q, k, v
 and dO need 16-byte-aligned bases) with the launch plans of
 :func:`tri_bwd_plan` and :func:`rect_bwd_plan`, the same for both 16-bit
-types; f32 runs on the CUDA cores, at head dims 256 and above in the
-thread-block cluster kernels of ``flash_bwd_wide`` (16-byte-aligned bases
-too; :func:`wide_bwd_plans`). fp16 has a library of its own
+types; f32 runs on the CUDA cores, in ``flash_bwd_wide`` (16-byte-aligned
+bases too; :func:`wide_bwd_plans`) one CTA a tile at head dims 32-128 and
+thread-block clusters of slab CTAs at 256 and above, and at 16 the
+whole-row pair in the base library. fp16 has a library of its own
 (``build.VARIANTS``), built at the first fp16 call; so have head dims 512
 (``flash_bwd_d512``, ``flash_bwd_f16_d512``) and 576 (``flash_bwd_d576``,
 ``flash_bwd_f16_d576``), each built at the first call there. At 512 and
@@ -40,7 +43,6 @@ import torch
 from tpu_operator_torch.kernels import build
 from tpu_operator_torch.kernels.flash_fwd import (
     _DTYPES,
-    F32_CLUSTER_MIN_D,
     TENSOR_CORE_DTYPES,
     _check,
     _check_seg,
@@ -143,18 +145,18 @@ class BwdPlan:
     "dkv"; a CTA owns ``block`` q rows (dq) or keys (dkv) of one (batch,
     head) or kv row, with ``threads`` per CTA, ``grid`` (x, y), dynamic
     shared memory in bytes and the TMA/wgmma swizzle span in bytes (0: the
-    f32 CUDA-core kernel, which uses no TMA). ``causal`` and ``window``
+    f32 CUDA-core kernels, which use no TMA). ``causal`` and ``window``
     (None: no band) are the masks the walk follows; the triangle pair's
     plan is causal with no window. ``ring`` is the rows of a tile of the
     other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
     per own-side tile, each on a column slice of the gradients. Above 576,
-    and in f32 from 256 on (:func:`wide_bwd_plans`), ``slab`` is the
-    columns a CTA holds, ``stages`` the depth of the ring the head dim's
-    chunks (f32: slabs) stream through and ``cluster`` the CTAs of a
-    thread-block cluster on the grid's x (f32: those that share one tile
-    pair's S and dP); elsewhere ``slab`` and ``stages`` are 0, ``cluster``
-    1. ``split`` (dkv in f32 from d 256 and in bf16 and fp16 up to 256, else
-    1) is the parts of the GQA walk (:func:`gqa_split`): the grid's rows
+    and in f32 (:func:`wide_bwd_plans`), ``slab`` is the columns a CTA
+    holds, ``stages`` the depth of the ring the head dim's chunks (f32:
+    slabs) stream through and ``cluster`` the CTAs of a thread-block cluster
+    on the grid's x (f32: those that share one tile pair's S and dP, 1 up
+    to d 128); elsewhere ``slab`` and ``stages`` are 0, ``cluster`` 1.
+    ``split`` (dkv in f32 and in bf16 and fp16 up to 256, else 1) is the
+    parts of the GQA walk (:func:`gqa_split`): the grid's rows
     (f32: y; 16-bit: x) hold split x kv rows, part j walking members
     [j·group/split, (j+1)·group/split) into f32 partial sums
     (:meth:`workspace`) that a second kernel adds in part order."""
@@ -192,10 +194,11 @@ class BwdPlan:
         it: dq walks its q tiles heaviest (last) first under a plain causal
         mask and in order otherwise (every tile walks about as far), dkv its
         key tiles in order (under a causal mask the first keys see the most
-        rows). 16-bit: rows on x, tiles on y; f32 up to d 128: tiles on x,
-        rows on y; the f32 clusters: the launch's n-th cluster (n = x +
-        tiles·y) takes tile rank n // rows of row n % rows, tile-major
-        (flash_bwd.cu's cluster_slot)."""
+        rows). 16-bit: rows on x, tiles on y; f32 at d 16: tiles on x, rows
+        on y; other f32 (a cluster of c CTAs a tile, one at head dims up to
+        128): the launch's n-th cluster (n = x + tiles·y) takes tile rank
+        n // rows of row n % rows, tile-major (flash_bwd.cu's
+        cluster_slot)."""
         heaviest_last = self.kernel == "dq" and self.causal and self.window is None
         if self.swizzle:
             return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
@@ -258,8 +261,8 @@ class BwdPlan:
         tile it cannot see (outside the band, or all its rows or keys past
         s), and with the segment ids ``seg`` (the s ids of the block's batch
         row) a tile whose positions inside s hold one document while its
-        slice's hold another (:func:`apart`; the f32 kernels at 576 and below
-        compute such a tile, masked to zero). dq has one member, 0; a split
+        slice's hold another (:func:`apart`; the whole-row f32 pair at d 16
+        computes such a tile, masked to zero). dq has one member, 0; a split
         dkv walks its part's group / ``split`` members. Each of
         ``col_split`` CTAs on the grid's z makes the same visits."""
         tiles = -(-s // TILE)
@@ -342,6 +345,28 @@ WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
 # the general pair's id ring: per slab stage the ring tile's 64 ids, their min
 # and max, and two barriers (kWideIdBytes)
 WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
+# the f32 pair at head dims 32-128, one CTA a tile (f32_tile_head_dim in
+# flash_bwd.cu); at 16 the base library's whole-row pair, which the tile pair
+# did not beat there
+F32_TILE_HEAD_DIMS = (32, 64, 128)
+F32_WHOLE_ROW_D = 16
+
+
+def f32_tile_width(d: int) -> int:
+    """The slab of the f32 pair at head dim ``d`` of 32-128: the whole head
+    in one CTA, 64 columns at d 32 and 64 (32 zero-filled past d inside the
+    slab) and 128 at d 128."""
+    return 64 if d <= 64 else F32_SLAB
+
+
+def f32_tile_smem(d: int, kernel: str) -> int:
+    """Shared memory of the f32 ``kernel`` ("dq" or "dkv") at head dim ``d``
+    up to 128 (flash_bwd.cu's f32_tile_smem_bytes): its two resident tiles
+    of the slab's width (dQ: Q and dO; dK/dV: K and V), the ring's two
+    stages of two (K and V; Q and dO), and the score tiles: dQ's dS^T
+    (at a 64-column slab two dQ CTAs share an SM), dK/dV's P^T and dS^T."""
+    scores = 1 if kernel == "dq" else 2
+    return 4 * ((2 + 2 * F32_STAGES) * TILE * f32_tile_width(d) + scores * TILE * TILE)
 
 
 def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
@@ -349,7 +374,8 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
                    rect: bool = False,
                    clusters: Optional[int] = None) -> Tuple[BwdPlan, BwdPlan]:
     """How either pair launches at a head dim ``d`` above 576, and in f32 at
-    256 and above (a multiple of 64): (dq plan, dkv plan); the triangle
+    32, 64, 128 and from 256 on (a multiple of 64): (dq plan, dkv plan);
+    the triangle
     pair's by default, or with
     ``rect`` the general pair's under ``causal`` and ``window`` (the band as
     :func:`band` reads it). Own-side tiles and ring tiles of 64 rows;
@@ -373,18 +399,25 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     (:meth:`BwdPlan.cta`). Per CTA: two resident slabs, the ``stages`` of
     the streamed ring (two slabs, or four 64-column chunks, each), the
     exchange's two 64 x 64 tiles, and dQ's rows' lse and delta; the same
-    for both pairs (the ids are read by every warp). dK/dV's GQA walk
-    splits in :func:`gqa_split` parts given the card's resident dK/dV
-    ``clusters`` (None: no split)."""
+    for both pairs (the ids are read by every warp). f32 at d 32-128: that
+    pair at c = 1, one CTA a tile (``col_split``, ``cluster`` and
+    ``redundancy`` 1), on a slab as wide as the head (:func:`f32_tile_width`)
+    with no exchange, and shared memory :func:`f32_tile_smem`. dK/dV's GQA
+    walk splits in :func:`gqa_split` parts given the card's resident dK/dV
+    ``clusters`` (f32 at d 32-128: CTAs; None: no split)."""
     tiles = -(-s // TILE)
     masks = dict(causal=causal, window=window) if rect else {}
     if dtype == torch.float32:
-        _, g, c = f32_wide_geometry(d)
-        slab, stages = F32_SLAB, F32_STAGES
-        base = 2 * TILE * slab + stages * 2 * TILE * slab + 2 * TILE * TILE
-        geometry = dict(col_split=g * c, slab=slab, stages=stages, cluster=c)
-        dq = BwdPlan("dq", TILE, 256, (tiles, bh), 4 * (base + 2 * TILE), 0, **geometry, **masks)
-        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv), 4 * base, 0, **geometry, **masks)
+        if d in F32_TILE_HEAD_DIMS:
+            geometry = dict(col_split=1, slab=f32_tile_width(d), stages=F32_STAGES, cluster=1)
+            smem = {kernel: f32_tile_smem(d, kernel) for kernel in ("dq", "dkv")}
+        else:
+            _, g, c = f32_wide_geometry(d)
+            base = 2 * TILE * F32_SLAB + F32_STAGES * 2 * TILE * F32_SLAB + 2 * TILE * TILE
+            geometry = dict(col_split=g * c, slab=F32_SLAB, stages=F32_STAGES, cluster=c)
+            smem = {"dq": 4 * (base + 2 * TILE), "dkv": 4 * base}
+        dq = BwdPlan("dq", TILE, 256, (tiles, bh), smem["dq"], 0, **geometry, **masks)
+        dkv = BwdPlan("dkv", TILE, 256, (tiles, bh_kv), smem["dkv"], 0, **geometry, **masks)
         if clusters is not None:
             dkv = dkv.with_split(gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters))
         return dq, dkv
@@ -409,13 +442,13 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
     """The (dq, dkv) plans of either pair; ``rect``: the general pair, which
     stages each ring tile's segment ids and their range; ``block_m`` forces
     both kernels' tile height (checked against ``dtype``). Above 576, and
-    in f32 from 256 on, both pairs' plans are :func:`wide_bwd_plans`.
+    in f32 from 32 on, both pairs' plans are :func:`wide_bwd_plans`; f32 at
+    16 keeps the whole-row pair's fixed plans (64-row tiles, one CTA a tile
+    on the grid's x, rows on y, no split).
     ``clusters``: the card's resident dK/dV clusters (f32) or CTAs (bf16
     and fp16 up to d 256), which size dK/dV's GQA split (None: no split)."""
     check_block_m(dtype, block_m, d)
-    if is_wide(d) or (dtype == torch.float32 and d >= F32_CLUSTER_MIN_D):
-        return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect, clusters)
-    if dtype == torch.float32:
+    if dtype == torch.float32 and d == F32_WHOLE_ROW_D:
         tiles = -(-s // TILE)
         dq = BwdPlan("dq", TILE, 256, (tiles, bh),
                      4 * (4 * TILE * (d + 1) + TILE * (TILE + 1)) + 4 * TILE, 0, causal, window)
@@ -423,6 +456,8 @@ def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int
                       4 * (4 * TILE * (d + 1) + 2 * TILE * (TILE + 1) + 2 * TILE) + 4 * TILE, 0,
                       causal, window)
         return dq, dkv
+    if is_wide(d) or dtype == torch.float32:
+        return wide_bwd_plans(dtype, bh, bh_kv, s, d, causal, window, rect, clusters)
 
     stages, ring = ring_stages(d), ring_rows(d)
     ids = stages * (ring + 2) * 4 if rect else 0  # SEG_BYTES below d 512
@@ -578,11 +613,13 @@ def dkv_resident_ctas(dtype: torch.dtype, d: int, tri: bool, plan: BwdPlan,
 
 
 def f32_wide_active_clusters(d: int, kernel: str, tri: bool) -> int:
-    """How many clusters of the f32 cluster ``kernel`` ("dq" or "dkv"; the
-    triangle pair's with ``tri``, else the general pair's) at head dim
-    ``d`` (256 and above, a multiple of 64) the current card holds at once:
+    """How many clusters of the f32 ``kernel`` ("dq" or "dkv"; the triangle
+    pair's with ``tri``, else the general pair's) at head dim ``d`` the
+    current card holds at once: at 256 and above (a multiple of 64)
     ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
-    cluster size. Raises where the query fails."""
+    cluster size; at 32, 64 and 128 (one CTA a tile, a cluster of one)
+    its SMs times ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``. Raises
+    where the query fails."""
     fn = _lib(torch.float32, d).flash_bwd_f32_wide_clusters
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     n = fn(int(kernel == "dq"), int(tri), d)
@@ -620,17 +657,18 @@ def _launch(name: str, qb, kb, vb, dout, lse, delta, outputs, rows: int, heads: 
 
 def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
            block_m: Optional[int] = None, dkv: bool = False):
-    """Checks of a pair's inputs (bf16 and fp16, and f32 at d 256 and above:
-    16-byte bases, for TMA or the cluster kernels' cp.async) and its (dq,
-    dkv) launch plans on this card at the tile height ``block_m`` (None: the
-    plan's): the triangle pair's, or with ``rect`` = (causal, window, seg)
-    the general pair's. ``dkv``: for a dK/dV launch, whose f32 cluster plan
-    splits its GQA walk by the card's resident clusters."""
+    """Checks of a pair's inputs (16-byte bases, for TMA or the f32
+    kernels' cp.async, but at f32's whole-row d 16) and its (dq, dkv)
+    launch plans on this card at the tile height ``block_m`` (None: the
+    plan's): the triangle pair's, or with
+    ``rect`` = (causal, window, seg) the general pair's. ``dkv``: for a
+    dK/dV launch, whose plan splits its GQA walk by the card's resident
+    clusters (f32) or CTAs (16-bit up to d 256)."""
     _check_bwd(qb, kb, vb, dout, lse, delta, heads, kv_heads, None if rect is None else rect[2])
     bh, s, d = qb.shape
-    cluster = qb.dtype == torch.float32 and d >= F32_CLUSTER_MIN_D
+    f32_tiles = qb.dtype == torch.float32 and d != F32_WHOLE_ROW_D  # 16-byte cp.async copies
     tensor_cores = qb.dtype in TENSOR_CORE_DTYPES
-    if tensor_cores or cluster:
+    if tensor_cores or f32_tiles:
         _check_tma_bases(q=qb, k=kb, v=vb, dout=dout)
     sms = _sm_count(qb.device.index)
 
@@ -640,7 +678,7 @@ def _plans(qb, kb, vb, dout, lse, delta, heads: int, kv_heads: int, rect=None,
         return rect_bwd_plan(qb.dtype, bh, kb.shape[0], s, d, sms, rect[0], rect[1], block_m,
                              clusters)
 
-    if dkv and cluster:
+    if dkv and f32_tiles:
         return plans(f32_wide_active_clusters(d, "dkv", rect is None))
     if dkv and tensor_cores and col_split(d) == 1 and not is_wide(d):
         # the split's R: the unsplit kernel's resident CTAs (a split changes
@@ -681,6 +719,7 @@ def flash_bwd_dkv_tri(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: i
     _launch("flash_bwd_dkv_tri", qb, kb, vb, dout, lse, delta, (dk.data_ptr(), dv.data_ptr()),
             kb.shape[0], heads, kv_heads, plan, sm_scale=sm_scale)
     flash_bwd_dkv_tri.launches += 1
+    flash_bwd_dkv_tri.split_sums += plan.split > 1
     return dk, dv
 
 
@@ -724,6 +763,7 @@ def flash_bwd_dkv_rect(qb, kb, vb, out, dout, lse, delta, heads: int, kv_heads: 
             kb.shape[0], heads, kv_heads, plan, (int(causal), 0 if window is None else int(window)),
             sm_scale)
     flash_bwd_dkv_rect.launches += 1
+    flash_bwd_dkv_rect.split_sums += plan.split > 1
     return dk, dv
 
 
@@ -731,3 +771,5 @@ flash_bwd_dq_tri.launches = 0
 flash_bwd_dkv_tri.launches = 0
 flash_bwd_dq_rect.launches = 0
 flash_bwd_dkv_rect.launches = 0
+flash_bwd_dkv_tri.split_sums = 0
+flash_bwd_dkv_rect.split_sums = 0

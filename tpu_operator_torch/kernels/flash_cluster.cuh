@@ -1,7 +1,8 @@
 // Building blocks of the f32 flash kernels that run in thread-block
 // clusters on the CUDA cores, shared by flash_fwd.cu (both forwards) and
 // flash_bwd.cu (both backward pairs), each at head dims 256 and above
-// (f32_cluster_head_dim), and included by them only when built with
+// (f32_cluster_head_dim; flash_bwd.cu's pair up to 128 runs on the same
+// tiles, one CTA a tile), and included by them only when built with
 // -DFLASH_HEAD_DIM_WIDE
 // (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
 // ones, kWithF32).

@@ -619,8 +619,10 @@ def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
     ``_d512`` or ``_d576`` after either at d 512 or 576, ``_wide`` above 576
     (``build.VARIANTS``); f32 at d 256 and above: ``<source>_wide`` (both
-    sources' cluster kernels)."""
-    if dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
+    sources' cluster kernels), and ``flash_bwd``'s f32 at 32-128 too (its
+    pair at one CTA a tile); ``flash_bwd``'s f32 at 16 stays in the base
+    library (the whole-row pair)."""
+    if dtype == torch.float32 and (d >= F32_CLUSTER_MIN_D or (source == "flash_bwd" and d > 16)):
         return source + "_wide"
     return (source + ("_f16" if dtype == torch.float16 else "")
             + ("_wide" if is_wide(d) else f"_d{d}" if d in (512, 576) else ""))

@@ -65,27 +65,50 @@ def _side_stream_call(fn: Callable[[], torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def _counter(key) -> Tuple[Callable, str]:
+    """(wrapper, attribute) of a count: a wrapper keys its ``launches``,
+    (wrapper, "split_sums") a dK/dV wrapper's split sums."""
+    return key if isinstance(key, tuple) else (key, "launches")
+
+
+def _counts() -> Dict[object, int]:
+    """Every count a capture takes back and a replay adds: each wrapper's
+    launches, and the split sums of the dK/dV wrappers."""
+    out = {}
+    for w in launch_counters():
+        out[w] = w.launches
+        if hasattr(w, "split_sums"):
+            out[(w, "split_sums")] = w.split_sums
+    return out
+
+
+def _add(key, n: int) -> None:
+    wrapper, attr = _counter(key)
+    setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
 def _captured(fn: Callable[[], torch.Tensor]) -> Tuple["torch.cuda.CUDAGraph", torch.Tensor,
-                                                         Dict[Callable, int]]:
+                                                         Dict[object, int]]:
     """``fn`` captured into a new graph: (graph, the tensor it returns, the
-    launches one replay makes by wrapper). A capture runs nothing, so the
-    launches it counted are taken back, also when it fails."""
-    before = {w: w.launches for w in launch_counters()}
+    launches one replay makes by wrapper, and by (wrapper, "split_sums")
+    the split sums). A capture runs nothing, so the launches it counted are
+    taken back, also when it fails."""
+    before = _counts()
     graph = torch.cuda.CUDAGraph()
     try:
         with capture(graph):
             output = fn()
     finally:
-        recorded = {w: w.launches - n for w, n in before.items()}
-        for wrapper, n in recorded.items():
-            wrapper.launches -= n  # recorded, not launched
-    return graph, output, {w: n for w, n in recorded.items() if n}
+        recorded = {key: getattr(*_counter(key)) - n for key, n in before.items()}
+        for key, n in recorded.items():
+            _add(key, -n)  # recorded, not launched
+    return graph, output, {key: n for key, n in recorded.items() if n}
 
 
-def _replayed(graph, output: torch.Tensor, held: Dict[Callable, int]) -> torch.Tensor:
+def _replayed(graph, output: torch.Tensor, held: Dict[object, int]) -> torch.Tensor:
     graph.replay()
-    for wrapper, n in held.items():
-        wrapper.launches += n
+    for key, n in held.items():
+        _add(key, n)
     return output
 
 
@@ -116,7 +139,7 @@ class GraphedCall:
         self.fn = fn
         self.graph = None
         self.output = None
-        self.held: Dict[Callable, int] = {}  # wrapper -> launches in one replay
+        self.held: Dict[object, int] = {}  # wrapper -> launches in one replay (_captured)
         self._warm = False
 
     def __call__(self) -> torch.Tensor:
