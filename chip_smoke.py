@@ -31,12 +31,16 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    576 or wide library's f32 kernels too: ``flash_fwd_wide`` must hold
    the f32 forward's four cluster instantiations, the triangle and the
    general masks at 64- and 16-row q tiles, ``F32_CLUSTER_INSTANTIATIONS``,
+   and its twelve tile kernels at head dims 32-128 (slab widths 32, 64 and
+   128, 64- and 16-row q tiles, ``F32_FWD_TILE_KERNELS``; at 32 and 64
+   columns at most 128 registers),
    and ``flash_bwd_wide`` the backward pair's four cluster kernels and the
    split dK/dV walk's sum, ``F32_BWD_CLUSTER_KERNELS``, each at most 255
    registers, and its eight kernels at head dims 32-128 at slab widths 64
    and 128, ``F32_BWD_TILE_KERNELS``, dQ's at 64 at most 128; the D 512
-   and 576 libraries no f32 kernel; ``flash_bwd`` the whole-row f32 pair at
-   head dim 16 alone and ``flash_bwd_f16`` no f32 kernel, and one split sum
+   and 576 libraries no f32 kernel; ``flash_fwd`` and ``flash_bwd`` the
+   whole-row f32 kernels at head dim 16 alone and ``flash_fwd_f16`` and
+   ``flash_bwd_f16`` no f32 kernel, and the backward's one split sum
    of their 16-bit type each,
    ``SPLIT_SUM_LIBRARIES``, at 0 spill bytes), or
    when ptxas serialized its ``wgmma`` or ignored its ``setmaxnreg``;
@@ -86,8 +90,8 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    ragged lengths 100 and 1000 at GQA 2; the zero-padded route at 544 and
    520; the general f32 forward at (2,128,4,576) with a window of 33 and
    segments); the f32 forwards and backward pairs at head dims 256 and
-   above run in thread-block clusters, the f32 backward pairs at 32-128 a
-   CTA a tile (each such row also logs its q tile height or dK/dV's GQA
+   above run in thread-block clusters, at 32-128 a CTA a tile (each such
+   row also logs its q tile height or dK/dV's GQA
    split, its slab width and the clusters, or CTAs, resident; a backward row
    runs each kernel twice for the same bits and, where the plan splits
    the walk, times dK/dV at split 1 too, ``_split_check``; every bf16 and
@@ -98,7 +102,15 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (1,2048,8,512), each with one kv head; the f32 pairs up to 128 at
    (2,128,4,16) (the whole-row pair), (2,128,4,32) full, the entry() widths' (8,128,4,64),
    (1,2048,8,{64,128}) with one kv head and the ragged general pair at
-   (2,1000,4,128) with GQA 2 and segments cut at 333; rows above 576
+   (2,1000,4,128) with GQA 2 and segments cut at 333; the f32 forwards up
+   to 128 (``F32_TILE_KERNEL_CASES``, their inputs from a generator of their
+   own, ``F32_TILE_SEED``, so that no other row's inputs moved with them;
+   and ``KERNEL_CASES``' older f32 rows): the triangle at (2,128,4,{16,64,128}) (16: the whole-row
+   kernel), the entry() widths' (8,128,4,64) and (1,2048,8,{64,128}) with
+   one kv head, the general kernel at the entry() widths packed in two
+   documents, (2,128,4,64) full and with a window of 33 and segments cut at
+   88, the ragged (2,1000,4,128) with GQA 2 and segments cut at 333 and
+   serving's chunk at head dim 64 (16-row q tiles); rows above 576
    on the D-streaming kernels (``WIDE_KERNEL_CASES``,
    ``WIDE_BWD_CASES``: phase 19's (1,8192,8,1024) with one kv head in bf16
    and fp16, (1,8192,8,640) and the zero-padded (1,4096,8,700) in bf16, f32
@@ -647,6 +659,12 @@ def wide_f16_label(mangled: str):
 # the f32 forward's cluster kernels in the flash_fwd_wide library: the triangle
 # and the general masks at 64- and 16-row q tiles
 F32_CLUSTER_INSTANTIATIONS = ("fwd_tri_64", "fwd_tri_16", "fwd_rect_64", "fwd_rect_16")
+# and at head dims 32-128, one CTA a tile, at slab widths 32, 64 and 128 (the
+# head dim) and 64- and 16-row q tiles; at 16 the base library's whole-row
+# kernels (whole_row_f32)
+F32_FWD_TILE_KERNELS = tuple(
+    f"flash_fwd_{pair}_tile_f32_kernel<{width}, {rows}>" for pair in ("tri", "rect")
+    for width in (32, 64, 128) for rows in (64, 16))
 
 
 # and the backward pair's in flash_bwd_wide: at head dims 256 and above dQ and
@@ -664,14 +682,18 @@ F32_BWD_TILE_KERNELS = tuple(
 def f32_label(mangled: str):
     """A label for an f32 CUDA-core kernel of a wide library: the forward's
     ``flash_fwd_f32_cluster_kernel<TRI, BM>`` as ``fwd_tri_<BM>`` or
-    ``fwd_rect_<BM>``, the backward pair's by name
-    (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``,
+    ``fwd_rect_<BM>`` and up to head dim 128 with its slab width and q rows
+    (``flash_fwd_{tri,rect}_tile_f32_kernel<W, BM>``), the backward pair's by
+    name (``flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel``,
     ``flash_bwd_dkv_split_sum_kernel``) and up to head dim 128 with its slab
     width (``flash_bwd_{dq,dkv}_{tri,rect}_tile_f32_kernel<W>``); else
     None."""
     found = re.search(r"flash_fwd_f32_cluster_kernelILb([01])ELi(\d+)E", mangled)
     if found:
         return f"fwd_{'tri' if found.group(1) == '1' else 'rect'}_{found.group(2)}"
+    found = re.search(r"(flash_fwd_(?:tri|rect)_tile_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    if found:
+        return f"{found.group(1)}<{found.group(2)}, {found.group(3)}>"
     found = re.search(r"(flash_bwd_(?:dq|dkv)_(?:tri|rect)_tile_f32_kernel)ILi(\d+)E", mangled)
     if found:
         return f"{found.group(1)}<{found.group(2)}>"
@@ -697,7 +719,7 @@ def split_sum_label(mangled: str):
 def whole_row_f32(mangled: str) -> bool:
     """Whether a kernel is an instantiation of the whole-row f32 CUDA-core
     kernels (``flash_{fwd,bwd}_*_kernel<float, D>``), which only the base
-    libraries hold (D 16-128)."""
+    libraries hold (D 16)."""
     return re.search(r"flash_(?:fwd|bwd)_\w+_kernelIfLi\d+E", mangled) is not None
 
 
@@ -843,26 +865,29 @@ def phase_build() -> dict:
             f32 = {f32_label(k): v for k, v in per_function.items() if f32_label(k)}
             log(f"  {name} f32 kernels: ptxas {f32}")
             out[f"{name}_f32_ptxas"] = f32
-            want = {"flash_fwd_wide": F32_CLUSTER_INSTANTIATIONS,
+            want = {"flash_fwd_wide": F32_CLUSTER_INSTANTIATIONS + F32_FWD_TILE_KERNELS,
                     "flash_bwd_wide": F32_BWD_CLUSTER_KERNELS + F32_BWD_TILE_KERNELS}.get(name, ())
             if sorted(f32) != sorted(want):
                 raise RuntimeError(f"{name}: f32 cluster kernels {sorted(f32)}, expected "
                                    f"{sorted(want)}")
             # every f32 kernel at most 255 registers a thread (one CTA an SM),
-            # dQ's at a 64-column slab 128 (two CTAs an SM)
+            # the backward's dQ and both forwards at a 64-column slab 128 (two
+            # CTAs an SM)
             wide_regs = {k: v for k, v in f32.items() if (v.get("registers") or 256) > (
-                128 if k.startswith("flash_bwd_dq_") and k.endswith("tile_f32_kernel<64>")
+                128 if (k.startswith("flash_bwd_dq_") and k.endswith("tile_f32_kernel<64>"))
+                or k.startswith(tuple(f"flash_fwd_{p}_tile_f32_kernel<{w}," for p in ("tri", "rect")
+                                      for w in (32, 64)))
                 else 255)}
             if wide_regs:
                 raise RuntimeError(f"{name}: f32 kernels past their registers: {wide_regs}")
-        if name in ("flash_bwd", "flash_bwd_f16"):
-            # the f32 pair lives in flash_bwd_wide from head dim 32 on; flash_bwd
-            # keeps the whole-row pair at 16 alone
+        if name in ("flash_fwd", "flash_fwd_f16", "flash_bwd", "flash_bwd_f16"):
+            # f32 lives in the wide libraries from head dim 32 on; flash_fwd
+            # and flash_bwd keep the whole-row kernels at 16 alone
             kept = sorted(k for k in per_function if whole_row_f32(k))
-            want_kept = 4 if name == "flash_bwd" else 0
+            want_kept = {"flash_fwd": 2, "flash_bwd": 4}.get(name, 0)
             if len(kept) != want_kept or not all("IfLi16E" in k for k in kept):
                 raise RuntimeError(f"{name}: holds f32 kernels {kept}; expected the whole-row "
-                                   f"pair at head dim 16 alone ({want_kept} kernels)")
+                                   f"kernels at head dim 16 alone ({want_kept} kernels)")
         if name in WIDE_INSTANTIATIONS:
             # f32 at 512 and 576 runs in the wide library: no f32 kernel here
             stray = sorted(k for k in per_function if whole_row_f32(k))
@@ -1122,6 +1147,40 @@ HEAD_DIM_KERNEL_CASES = [
          dtype=torch.bfloat16),
     dict(kernel="flash_fwd_rect", label="bf16 (1,512,4,112) full, padded to 128",
          q=(1, 512, 4, 112), dtype=torch.bfloat16, causal=False),
+]
+
+
+# phase 3's f32 forward rows up to head dim 128 beside KERNEL_CASES' (the tile
+# kernels, one CTA a tile; D 16 the whole-row kernel). Their inputs come from a
+# generator of their own (F32_TILE_SEED), so every other row of phase 3 keeps
+# the inputs it had before them.
+F32_TILE_SEED = 20260829
+F32_TILE_KERNEL_CASES = [
+    # the triangle at an f32 TPUJob's entry() widths, D 128, D 16, and with one
+    # kv head at 2048 tokens
+    dict(kernel="flash_fwd_tri", label="entry widths f32 (8,128,4,64)", q=(8, 128, 4, 64),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,128)", q=(2, 128, 4, 128),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_tri", label="f32 (2,128,4,16)", q=(2, 128, 4, 16),
+         dtype=torch.float32),
+    dict(kernel="flash_fwd_tri", label="f32 (1,2048,8,64) h_kv 1", q=(1, 2048, 8, 64), h_kv=1,
+         dtype=torch.float32, inner=2),
+    dict(kernel="flash_fwd_tri", label="f32 (1,2048,8,128) h_kv 1", q=(1, 2048, 8, 128), h_kv=1,
+         dtype=torch.float32, inner=2),
+    # the general masks: the packed f32 TPUJob at entry() widths, full
+    # attention, a window with a segment cut, a ragged length with GQA,
+    # serving's chunk at head dim 64 (16-row tiles)
+    dict(kernel="flash_fwd_rect", label="entry widths packed f32 (8,128,4,64) 2 segments",
+         q=(8, 128, 4, 64), dtype=torch.float32, causal=True, packed=2),
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,64) full", q=(2, 128, 4, 64),
+         dtype=torch.float32, causal=False),
+    dict(kernel="flash_fwd_rect", label="f32 (2,128,4,64) window 33, segments cut 88",
+         q=(2, 128, 4, 64), dtype=torch.float32, causal=True, window=33, cut=88),
+    dict(kernel="flash_fwd_rect", label="ragged f32 (2,1000,4,128) h_kv 2, segments cut 333",
+         q=(2, 1000, 4, 128), h_kv=2, dtype=torch.float32, causal=True, cut=333),
+    dict(kernel="flash_fwd_rect", label="serving d64 f32 q(1,8,2,64) kv 64 q_start=16",
+         q=(1, 8, 2, 64), sk=64, dtype=torch.float32, causal=True, q_start=16),
 ]
 
 
@@ -1929,10 +1988,12 @@ def phase_kernels() -> list:
     from tpu_operator_torch.kernels.flash_fwd import TENSOR_CORE_DTYPES, keep_mask
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
+    tile_gen = torch.Generator(device="cuda").manual_seed(F32_TILE_SEED)
     results = []
     for case in (KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES
-                 + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES + WIDE_KERNEL_CASES):
-        q, k, v, seg = _case_inputs(case, gen)
+                 + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES + WIDE_KERNEL_CASES
+                 + F32_TILE_KERNEL_CASES):
+        q, k, v, seg = _case_inputs(case, tile_gen if case in F32_TILE_KERNEL_CASES else gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
         kern, plain, plain_args = _fwd_setup(case, q, k, v, seg)
@@ -1978,14 +2039,18 @@ def phase_kernels() -> list:
                 f" (at {row['other_block_m']} rows: {row['other_ms']:.5f} ms)"
                 if "other_block_m" in row else " (no other tile height at this head dim)")
         width = flash_fwd.padded_head_dim(d)
-        if case["dtype"] == torch.float32 and width >= flash_fwd.F32_CLUSTER_MIN_D:
-            # the f32 forward's thread-block clusters resident on the card at once
+        if case["dtype"] == torch.float32 and width > flash_fwd.F32_WHOLE_ROW_D:
+            # the f32 forward's thread-block clusters (at 32-128: CTAs, a
+            # cluster of one) resident on the card at once
             tri = case["kernel"] == "flash_fwd_tri"
             rows_per_cta = flash_fwd.f32_rows(sq)
             row["block_m"] = rows_per_cta
             row["active_clusters"] = flash_fwd.f32_active_clusters(width, tri, rows_per_cta)
+            row["slab"] = (flash_fwd.f32_tile_fwd_width(width)
+                           if width < flash_fwd.F32_CLUSTER_MIN_D else flash_fwd.F32_SLAB)
             rate += (f", {rows_per_cta}-row q tiles, clusters of "
-                     f"{flash_fwd.f32_wide_geometry(width)[2]} resident {row['active_clusters']}")
+                     f"{flash_fwd.f32_wide_geometry(width)[2]} on {row['slab']}-column slabs "
+                     f"resident {row['active_clusters']}")
         if twin:
             rate += f"; bf16 on the same inputs: O err {twin['bf16_twin_err']:.3g}"
         results.append(row)
@@ -5358,11 +5423,14 @@ def main(argv=None) -> int:
         for label, count in results["build"][f"{name}_hgmma"].items():
             wide.setdefault(("wide", streamed[label]), {})[
                 f"{'fp16' if fp16 else 'bf16'} {label}"] = count
-    # the f32 forward at head dims 256 and above: the cluster kernels, by mask
+    # the f32 forward at head dims 256 and above: the cluster kernels, by mask;
+    # at 32-128 the tile kernels
     f32_fwd = results["build"]["flash_fwd_wide_f32_ptxas"]
-    cluster = {f"flash_fwd_{pair}": {f"flash_fwd_f32_cluster_kernel<{pair == 'tri'}, {rows}>"
-                                     .lower(): f32_fwd[f"fwd_{pair}_{rows}"] for rows in (64, 16)}
-               for pair in ("tri", "rect")}
+    cluster = {f"flash_fwd_{pair}": {
+        **{f"flash_fwd_f32_cluster_kernel<{pair == 'tri'}, {rows}>".lower():
+           f32_fwd[f"fwd_{pair}_{rows}"] for rows in (64, 16)},
+        **{k: f32_fwd[k] for k in F32_FWD_TILE_KERNELS if k.startswith(f"flash_fwd_{pair}_")}}
+        for pair in ("tri", "rect")}
     # and the backward pairs' (up to head dim 128 one CTA a tile, at 256 and above
     # in clusters; dK/dV with its split's sum)
     f32_bwd = results["build"]["flash_bwd_wide_f32_ptxas"]

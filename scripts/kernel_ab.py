@@ -17,9 +17,12 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
   ``HEAD_DIM_KERNEL_CASES``, ``FLOAT16_KERNEL_CASES``), held to
   ``attention_plain`` at phase 3's bars (O 2e-2, lse 1e-3);
 - ``fwd_f32``: both f32 forwards (``flash_fwd_tri``, ``flash_fwd_rect``) at
-  every f32 case of head dim 256 and above (padded) in this tree's
-  ``chip_smoke`` forward tables, held to ``attention_plain`` (O 1e-4, lse
-  1e-3);
+  every f32 case in this tree's ``chip_smoke`` forward tables
+  (``KERNEL_CASES``, ``HEAD_DIM_KERNEL_CASES``,
+  ``HEAD_DIM_512_KERNEL_CASES``, ``HEAD_DIM_576_KERNEL_CASES``,
+  ``WIDE_KERNEL_CASES``, ``F32_TILE_KERNEL_CASES``): head dim 16 (the whole-row kernels), 32-128
+  (padded; the tile kernels, one CTA a tile) and from 256 on (the cluster
+  kernels), held to ``attention_plain`` (O 1e-4, lse 1e-3);
 - ``bwd_f32``: both f32 backward pairs (``flash_bwd_dq_*``,
   ``flash_bwd_dkv_*``) at every f32 case in this tree's ``chip_smoke``
   backward tables (``BWD_CASES``, ``HEAD_DIM_BWD_CASES``,
@@ -108,15 +111,13 @@ def _fwd_16(smoke) -> dict:
 
 
 def _fwd_f32(smoke) -> dict:
-    """Both f32 forwards' cases at head dims 256 and above (padded)."""
+    """Both f32 forwards' cases at every head dim."""
     import torch
 
-    from tpu_operator_torch.kernels import flash_fwd
-
     tables = (smoke.KERNEL_CASES + smoke.HEAD_DIM_KERNEL_CASES + smoke.HEAD_DIM_512_KERNEL_CASES
-              + smoke.HEAD_DIM_576_KERNEL_CASES + smoke.WIDE_KERNEL_CASES)
-    return _fwd(smoke, [c for c in tables if c["dtype"] == torch.float32
-                        and flash_fwd.padded_head_dim(c["q"][3]) >= 256], smoke.F32_TOL)
+              + smoke.HEAD_DIM_576_KERNEL_CASES + smoke.WIDE_KERNEL_CASES
+              + smoke.F32_TILE_KERNEL_CASES)
+    return _fwd(smoke, [c for c in tables if c["dtype"] == torch.float32], smoke.F32_TOL)
 
 
 def _bwd_f32(smoke) -> dict:

@@ -106,7 +106,7 @@ def test_below_256_f32_keeps_the_whole_row_pair(d, width, slab):
         return
     assert flash_bwd.f32_tile_width(width) == slab
     assert flash_fwd.library_name("flash_bwd", F32, width) == "flash_bwd_wide"
-    assert flash_fwd.library_name("flash_fwd", F32, width) == "flash_fwd"
+    assert flash_fwd.library_name("flash_fwd", F32, width) == "flash_fwd_wide"  # its tile forward
     for pair, (dq, dkv) in _pairs(width, 8, 1, 2048, clusters=264).items():
         for plan, rows in ((dq, 8), (dkv, 1)):
             assert (plan.block, plan.threads, plan.swizzle, plan.ring) == (64, 256, 0, 64), pair

@@ -73,11 +73,14 @@ def test_the_cluster_sizes_of_the_native_head_dims():
         assert flash_fwd.f32_wide_geometry(d) == want, d
     own, summed = flash_fwd.f32_wide_columns(576, 4)
     assert own == range(512, 576) and summed == list(range(512, 576))
-    # below 256 f32 keeps attend's one-CTA plan
+    # below 256 one CTA a q tile: attend's plan at 16 (the base library), the
+    # tile kernels' at 32-128 (the wide library, one slab as wide as the head)
     for d in (16, 32, 64, 128):
         plan = flash_fwd.tri_plan(F32, 6, 130, d, H100_SMS)
         assert (plan.col_split, plan.cluster, plan.block_m) == (1, 1, 64), d
-        assert flash_fwd.library_name("flash_fwd", F32, d) == "flash_fwd"
+        assert plan.slab == (0 if d == 16 else d), d
+        assert flash_fwd.library_name("flash_fwd", F32, d) == (
+            "flash_fwd" if d == 16 else "flash_fwd_wide"), d
 
 
 def test_block_m_stays_a_check_and_chooses_nothing():
@@ -114,10 +117,11 @@ def test_plan_constants_match_the_cuda_sources():
     assert "launch_clusters(flash_fwd_f32_cluster_kernel<TRI, BM>," in fwd
     assert "launch_f32_cluster<TRI, kF32WideTile>" in fwd and "launch_f32_cluster<TRI, 16>" in fwd
     # the old f32 forwards are gone: no 16-key tiles, no 256-column slabs, and
-    # attend takes f32 up to 128 only
+    # attend takes f32 at 16 only
     for gone in ("f32_keys", "flash_fwd_wide_f32_kernel", "kF32WideSlab = 256"):
         assert gone not in fwd, gone
-    assert 'static_assert(D <= 128, "f32 at head dims 256 and above: the cluster kernels");' in fwd
+    assert ('static_assert(D == 16, "f32 at head dims 32 and above: flash_fwd_wide\'s tile and '
+            'cluster kernels");') in fwd
     for d in (256, 512, 576):
         assert not re.search(rf"case {d}: return launch<", fwd), d
     assert not hasattr(flash_fwd, "f32_keys") and not hasattr(flash_fwd, "F32_WIDE_SLAB")

@@ -97,12 +97,16 @@ def test_swizzle_span_per_head_dim(d, swizzle):
     assert flash_fwd.tri_plan(BF16, 2, 64, d, H100_SMS).swizzle == swizzle
 
 
-# f32 tiles of (64 + 2 x 64) rows x (d + 1) floats, P 64 x 65, 64 segment ids
-@pytest.mark.parametrize("d, smem", [(16, 29952), (32, 42240), (64, 66816), (128, 115968)])
-def test_f32_keeps_the_cuda_core_plan(d, smem):
+# f32 at d 16 (the whole-row kernel): tiles of (64 + 2 x 64) rows x (d + 1)
+# floats, P 64 x 65, 64 segment ids, q tiles in natural order; from d 32 the
+# tile kernels: Q [64][W], two stages of K and V [64][W], P 64 x 68 (W the
+# head dim), tile-major, heaviest q tiles first
+@pytest.mark.parametrize("d, smem, tile", [(16, 29952, 2), (32, 58368, 0), (64, 99328, 0),
+                                           (128, 181248, 0)])
+def test_f32_keeps_the_cuda_core_plan(d, smem, tile):
     plan = flash_fwd.tri_plan(F32, 6, 130, d, H100_SMS)
     assert (plan.block_m, plan.threads, plan.swizzle) == (64, 256, 0)
-    assert plan.grid == (3, 6) and plan.cta(2, 5) == (5, 2)
+    assert plan.grid == (3, 6) and plan.cta(2, 5) == (5, tile)
     assert plan.smem_bytes == smem <= MAX_SMEM
 
 

@@ -153,21 +153,23 @@ def test_plan_constants_match_the_cuda_sources():
             for dq in ("true", "false")] == [2, 2]
     assert "constexpr int kv_split() { return D > 128 ? 2 : 1; }" in bwd
     assert [flash_bwd.kv_split(d) for d in flash_fwd.NATIVE_HEAD_DIMS] == [1, 1, 1, 1, 2, 2, 2]
-    # every native head dim is dispatched in both libraries: the forward in both
-    # dtypes (f32 at 256 and above: the wide library's cluster kernels), the
-    # backward in its 16-bit type (f32: the wide library's at every head dim)
+    # every native head dim is dispatched in both libraries in their 16-bit
+    # type; f32 in the base forward library at 16 alone (from 32 on: the wide
+    # library's tile and cluster kernels), the backward's f32 in the wide
+    # library's at every head dim but 16
     for src in (fwd, bwd):
         for d in flash_fwd.NATIVE_HEAD_DIMS:
-            both = d < flash_fwd.F32_CLUSTER_MIN_D and src is fwd
-            assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == (
-                2 if both else 1), d
+            assert len(re.findall(rf"case {d}: return (?:dispatch_tc|launch)<", src)) == 1, d
+    assert "    if (d == 16) return launch<16, TRI>(p, bh, st);\n#endif\n    return kUnsupported;" \
+        in fwd
     # the CUDA-core kernels' rows: y and z slices of 65,535, no row cap (the
     # backward's f32 kernels walk them tile-major, cluster_slot)
     for src in (fwd, bwd):
         assert "constexpr int kMaxGridY = 65535;" in src
         assert "65535 &&" not in src and "<= 65535" not in src
     assert "blockIdx.z * kMaxGridY" in fwd
-    assert "(static_cast<long long>(blockIdx.z) * kMaxGridY +" in bwd
+    cluster = (KERNELS / "flash_cluster.cuh").read_text()  # cluster_slot, both sources' walk
+    assert "(static_cast<long long>(blockIdx.z) * kMaxY +" in cluster
     assert "m64n256k16" in header
 
 

@@ -116,17 +116,18 @@ def test_each_dtype_loads_its_library(monkeypatch):
         for dtype in (F32, BF16, F16, F16, BF16):
             flash_fwd._lib(dtype, 64)
             flash_bwd._lib(dtype, 256)
-        # one load per library, fp16's only for fp16 (the f32 backward at 256
-        # in the wide library's cluster kernels)
-        assert loaded == ["flash_fwd", "flash_bwd_wide", "flash_bwd", "flash_fwd_f16",
-                          "flash_bwd_f16"]
+        # one load per library, fp16's only for fp16 (the f32 forward at 64 in
+        # the wide library's tile kernels, the f32 backward at 256 in its
+        # cluster kernels)
+        assert loaded == ["flash_fwd_wide", "flash_bwd_wide", "flash_fwd", "flash_bwd",
+                          "flash_fwd_f16", "flash_bwd_f16"]
         for dtype in (F32, BF16, F16, BF16):
             flash_fwd._lib(dtype, 512)
             flash_bwd._lib(dtype, 512)
         # and head dim 512's libraries only at 512, 16-bit only (f32 both ways
-        # in the wide libraries' cluster kernels)
-        assert loaded[5:] == ["flash_fwd_wide", "flash_fwd_d512", "flash_bwd_d512",
-                              "flash_fwd_f16_d512", "flash_bwd_f16_d512"]
+        # in the wide libraries' cluster kernels, loaded already)
+        assert loaded[6:] == ["flash_fwd_d512", "flash_bwd_d512", "flash_fwd_f16_d512",
+                              "flash_bwd_f16_d512"]
     finally:
         flash_fwd._load.cache_clear()
         flash_bwd._load.cache_clear()

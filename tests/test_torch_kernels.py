@@ -267,11 +267,14 @@ def test_tensor_core_general_kernel_rejects_a_misaligned_base(cuda):
 
 @pytest.mark.cuda
 def test_f32_general_kernel_stays_on_the_cuda_cores(cuda):
+    """f32 at head dim 64 runs the CUDA-core tile kernel: no swizzle, 256
+    threads, 64-row q tiles, or 16 for a call of at most 16 rows
+    (serving's chunk, f32_rows)."""
     for causal, window, q_start, sq, sk in ((False, None, 0, 100, 100), (True, 33, 0, 100, 100),
                                             (True, None, 16, 8, 64)):
         plan = _rect_fwd_check(59, 2, sq, 4, 64, 2, causal, q_start, window=window, sk=sk,
                                dtype=torch.float32)
-        assert (plan.block_m, plan.threads, plan.swizzle) == (64, 256, 0)
+        assert (plan.block_m, plan.threads, plan.swizzle) == (flash_fwd.f32_rows(sq), 256, 0)
 
 
 @pytest.mark.cuda

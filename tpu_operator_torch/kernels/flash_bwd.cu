@@ -2371,21 +2371,6 @@ __device__ __forceinline__ void exchange(const Params& p, float* xs, const float
   cluster_sync();
 }
 
-// The (row, tile) that the cluster of this block walks, of `rows` rows and
-// `tiles` 64-row tiles: the launch's n-th cluster (its tile on x, its row on
-// y and z) takes tile n / rows of row n % rows, so the clusters start
-// tile-major, the longest walks first (dK/dV's key tile 0; with
-// `heaviest_last`, dQ's last q tile under a plain causal mask); x -1 past
-// the last cluster (the last z slice).
-__device__ __forceinline__ int2 cluster_slot(int rows, int tiles, int ctas, bool heaviest_last) {
-  const long long n = blockIdx.x / ctas + static_cast<long long>(tiles) *
-                                               (static_cast<long long>(blockIdx.z) * kMaxGridY +
-                                                blockIdx.y);
-  if (n >= static_cast<long long>(tiles) * rows) return make_int2(-1, 0);
-  const int rank = static_cast<int>(n / rows);
-  return make_int2(static_cast<int>(n % rows), heaviest_last ? tiles - 1 - rank : rank);
-}
-
 // acc[a][4 h + e] += sum over the 64 rows r of X[r][4 ta + a] * Y(r)[4 (tb +
 // 16 h) + e] (Y a swizzled [64][W] slab, h < W / 64): a thread's 4 x (W /
 // 16) block of a gradient slab. At W 128 3 float4 loads for 32 FMAs, at 64 2
@@ -2747,78 +2732,6 @@ constexpr int f32_tile_smem_bytes() {
 static_assert(2 * (f32_tile_smem_bytes<64, true>() + 1024) <= 233472, "two dQ CTAs an SM at W 64");
 static_assert(f32_tile_smem_bytes<128, false>() <= 232448,
               "past the shared memory a block may use");
-
-// Rows [r0, r0 + 64) and columns [0, W) of an (s, d) f32 matrix into a
-// swizzled [64][W] tile by 16-byte cp.async, zero past row s and past
-// column d.
-template <int W>
-__device__ __forceinline__ void load_head(float* dst, const float* src, int r0, int s, int d) {
-  constexpr int F = W / 4;
-  static_assert(kF32WideTile * F % kThreads == 0, "every thread loads as many float4s");
-  int tid = threadIdx.x;  // recomputed at every call, as load_tile's
-  asm volatile("" : "+r"(tid));
-#pragma unroll
-  for (int k = 0; k < kF32WideTile * F / kThreads; ++k) {
-    const int e = tid + k * kThreads;
-    const int r = e / F, f = e % F;
-    const bool in = r0 + r < s && 4 * f < d;
-    cp_async16(dst + swz<W>(r, f), src + (in ? static_cast<size_t>(r0 + r) * d + 4 * f : 0), in);
-  }
-}
-
-// A thread's 4 x (W / 16) block of a gradient (rows r0 + 4 ta + a, columns
-// 4 (tb + 16 h) + e) into an (s, d) f32 matrix: rows inside s, columns
-// inside d.
-template <int W>
-__device__ __forceinline__ void store_head(float* dst, const float (&acc)[4][W / 16], int r0,
-                                           int s, int d, int ta, int tb) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + 4 * ta + a;
-    if (r >= s) continue;
-#pragma unroll
-    for (int h = 0; h < W / 64; ++h) {
-      const int col = 4 * (tb + 16 * h);
-      if (col >= d) continue;
-      st4(dst + static_cast<size_t>(r) * d + col,
-          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
-    }
-  }
-}
-
-// acc[i][j] += A(4 ta + i) . B(4 tb + j) over the float4 columns [0, f1) of
-// swizzled [64][W] tiles, an f32 FMA chain in column order (SB: B's values
-// times qscale first, q's share of the score): S, or dP, of a thread's 4 x 4
-// block. partial_scores' loop for one product at a time: B's four float4s
-// and A's one in registers, not eight and two, so that dQ at a
-// 64-column slab keeps to 128 registers (two CTAs an SM).
-template <int W, bool SB>
-__device__ __forceinline__ void tile_scores(float (&acc)[4][4], const float* A, const float* B,
-                                            int ta, int tb, int f1, float qscale) {
-  const float* a_row = A + 4 * ta * W;
-  const float* b_row = B + 4 * tb * W;
-  const int xa = ta & 7, xb = tb & 7;  // the rows' swizzle
-#pragma unroll 1
-  for (int f = 0; f < f1; ++f) {
-    float4 b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = ld4(b_row + j * W + ((f ^ xb) << 2));
-      if (SB) b[j] = scale4(b[j], qscale);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 a = ld4(a_row + i * W + ((f ^ xa) << 2));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-      }
-    }
-  }
-}
 
 // X[4 tb + b][4 ta + a] = v[a][b] in a [64][64] score tile: a thread's 4 x 4
 // block stored transposed (dQ: dS^T[key][q row]; dK/dV: P^T and dS^T as

@@ -56,9 +56,12 @@ from tpu_operator_torch.kernels.flash_fwd import (
     _tile_height,
     F32_SLAB,
     F32_STAGES,
+    F32_TILE_HEAD_DIMS,
+    F32_WHOLE_ROW_D,
     WIDE_BOX_BYTES,
     apart,
     check_block_m,
+    f32_tile_width,
     f32_wide_geometry,
     is_wide,
     keep_mask,
@@ -345,18 +348,9 @@ WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
 # the general pair's id ring: per slab stage the ring tile's 64 ids, their min
 # and max, and two barriers (kWideIdBytes)
 WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
-# the f32 pair at head dims 32-128, one CTA a tile (f32_tile_head_dim in
-# flash_bwd.cu); at 16 the base library's whole-row pair, which the tile pair
-# did not beat there
-F32_TILE_HEAD_DIMS = (32, 64, 128)
-F32_WHOLE_ROW_D = 16
-
-
-def f32_tile_width(d: int) -> int:
-    """The slab of the f32 pair at head dim ``d`` of 32-128: the whole head
-    in one CTA, 64 columns at d 32 and 64 (32 zero-filled past d inside the
-    slab) and 128 at d 128."""
-    return 64 if d <= 64 else F32_SLAB
+# the f32 pair at head dims 32-128, one CTA a tile on a slab as wide as the
+# head, and at 16 the base library's whole-row pair: flash_fwd.F32_TILE_HEAD_DIMS,
+# F32_WHOLE_ROW_D and f32_tile_width, the forward's too
 
 
 def f32_tile_smem(d: int, kernel: str) -> int:

@@ -1,8 +1,9 @@
 // Building blocks of the f32 flash kernels that run in thread-block
 // clusters on the CUDA cores, shared by flash_fwd.cu (both forwards) and
 // flash_bwd.cu (both backward pairs), each at head dims 256 and above
-// (f32_cluster_head_dim; flash_bwd.cu's pair up to 128 runs on the same
-// tiles, one CTA a tile), and included by them only when built with
+// (f32_cluster_head_dim; at 32, 64 and 128 both sources run the same tiles,
+// one CTA a tile, on a slab as wide as the head: load_head, store_head,
+// tile_scores), and included by them only when built with
 // -DFLASH_HEAD_DIM_WIDE
 // (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
 // ones, kWithF32).
@@ -129,6 +130,91 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, 
   }
 }
 
+// Rows [r0, r0 + R) and columns [0, W) of an (s, d) f32 matrix into a
+// swizzled [R][W] tile by 16-byte cp.async, zero past row s and past column
+// d: a head whole in one slab (the tile kernels at head dims up to 128).
+// Fewer float4s than threads (16 rows of 32 columns): the first R W / 4
+// threads load one each.
+template <int W, int R = kF32WideTile>
+__device__ __forceinline__ void load_head(float* dst, const float* src, int r0, int s, int d) {
+  constexpr int F = W / 4;
+  static_assert(R * F % kF32Threads == 0 || kF32Threads % (R * F) == 0,
+                "every loading thread loads as many float4s");
+  int tid = threadIdx.x;  // recomputed at every call, as load_tile's
+  asm volatile("" : "+r"(tid));
+  if constexpr (R * F < kF32Threads) {
+    if (tid >= R * F) return;
+  }
+#pragma unroll
+  for (int k = 0; k < (R * F + kF32Threads - 1) / kF32Threads; ++k) {
+    const int e = tid + k * kF32Threads;
+    const int r = e / F, f = e % F;
+    const bool in = r0 + r < s && 4 * f < d;
+    cp_async16(dst + swz<W>(r, f), src + (in ? static_cast<size_t>(r0 + r) * d + 4 * f : 0), in);
+  }
+}
+
+// A thread's RM x (W / 16) block of an output (rows r0 + RM ta + a, columns
+// 4 (tb + 16 h) + e; at W 32 columns 2 tb + e) into an (s, d) f32 matrix:
+// rows inside s, columns inside d.
+template <int W, int RM = 4>
+__device__ __forceinline__ void store_head(float* dst, const float (&acc)[RM][W / 16], int r0,
+                                           int s, int d, int ta, int tb) {
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int r = r0 + RM * ta + a;
+    if (r >= s) continue;
+    if constexpr (W == 32) {
+      if (2 * tb < d) {
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * d + 2 * tb) =
+            make_float2(acc[a][0], acc[a][1]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < W / 64; ++h) {
+        const int col = 4 * (tb + 16 * h);
+        if (col >= d) continue;
+        st4(dst + static_cast<size_t>(r) * d + col,
+            make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
+      }
+    }
+  }
+}
+
+// acc[i][j] += A(RM ta + i) . B(4 tb + j) over the float4 columns [0, f1) of
+// swizzled [rows][W] tiles, an f32 FMA chain in column order (SB: B's values
+// times qscale first, q's share of the score): S, or dP, of a thread's RM x 4
+// block. partial_scores' loop for one product at a time: B's four float4s
+// and A's one in registers, not eight and two, so that the backward's dQ at a
+// 64-column slab keeps to 128 registers (two CTAs an SM).
+template <int W, bool SB, int RM = 4>
+__device__ __forceinline__ void tile_scores(float (&acc)[RM][4], const float* A, const float* B,
+                                            int ta, int tb, int f1, float qscale) {
+  const float* a_row = A + RM * ta * W;
+  const float* b_row = B + 4 * tb * W;
+  const int xa = (RM == 4 ? ta : RM * ta >> 2) & 7, xb = tb & 7;  // the rows' swizzle
+#pragma unroll 1
+  for (int f = 0; f < f1; ++f) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = ld4(b_row + j * W + ((f ^ xb) << 2));
+      if (SB) b[j] = scale4(b[j], qscale);
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float4 a = ld4(a_row + i * W + ((f ^ xa) << 2));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
 // The thread's (ta, tb) in a 64 x 64 tile: a warp covers four consecutive ta
 // and eight consecutive tb, so each float4 load of the score loop is one
 // wavefront.
@@ -153,6 +239,23 @@ __device__ __forceinline__ void store_block(float* dst, const float (&acc)[4][8]
           make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]));
     }
   }
+}
+
+// The (row, tile) that the cluster of this block walks, of `rows` rows and
+// `tiles` 64-row tiles (the forward's: q tiles of its plan's height): the
+// launch's n-th cluster (its tile on x, its row on y and z, as cluster_grid
+// lays them out) takes tile n / rows of row n % rows, so the clusters start
+// tile-major, the longest walks first (dK/dV's key tile 0; with
+// `heaviest_last`, the last q tile of dQ under a plain causal mask and of
+// the triangle forward); x -1 past the last cluster (the last z slice).
+__device__ __forceinline__ int2 cluster_slot(int rows, int tiles, int ctas, bool heaviest_last) {
+  constexpr int kMaxY = 65535;  // rows a z slice, as cluster_grid lays them out
+  const long long n = blockIdx.x / ctas + static_cast<long long>(tiles) *
+                                               (static_cast<long long>(blockIdx.z) * kMaxY +
+                                                blockIdx.y);
+  if (n >= static_cast<long long>(tiles) * rows) return make_int2(-1, 0);
+  const int rank = static_cast<int>(n / rows);
+  return make_int2(static_cast<int>(n % rows), heaviest_last ? tiles - 1 - rank : rank);
 }
 
 // The grid of an f32 cluster kernel: `tiles` tiles x `ctas` CTAs on x, the

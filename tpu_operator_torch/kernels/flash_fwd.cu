@@ -126,16 +126,36 @@
 //     only issues TMA; consumers hold their own rows' ids and their
 //     warpgroup's id range in registers.
 //
-// f32 up to D 128 (attend<float, D, TRI>, the triangle and the general
-// masks): one CTA of 256 threads (16 x 16) per (bh row, 64-row q tile) on
-// the CUDA cores, q tiles on the grid's x and bh rows on y and z (kMaxGridY
-// rows a z slice, so any number of rows launches at once).
-// The k loop visits only the tiles some row of the q tile can see. K and V
-// tiles are staged through shared memory as f32; each thread owns a 4 x 4
-// block of the score tile and the matching 4 x D/16 block of the output
-// accumulator, so the per-row rescale never leaves registers. P goes
-// through shared memory. f32 stays here because it must not round through
-// TF32 (serving prefill holds its greedy tokens to the reference's).
+// f32 at D 32, 64 and 128 (flash_fwd_{tri,rect}_tile_f32_kernel<W, BM>,
+// attend_tile<TRI, W, BM>, in the flash_fwd_wide library beside the cluster
+// kernels below): their design at one CTA a tile. A CTA of 256 threads holds
+// BM q rows (64, or 16 for a call of at most 16, as the cluster kernels) and
+// the whole head in one slab of W columns (W = d: 32, 64 or 128; O at W 32
+// as a 4 x 2 block of float2 columns), so S is whole in the CTA: no
+// exchange, no cluster. Q stays resident times qscale (rounded
+// as attend rounds it); K and V stream as XOR-swizzled [64][W] tiles by
+// 16-byte cp.async through two stages, the next key tile loading under this
+// one's products. Thread (ty, tx) forms a 4 x 4 block of S (BM 16: 1 x 4)
+// over float4 rows, an FMA chain in column order (attend's bits), runs the
+// base-2 online softmax for its rows with the row's 16 threads in one half
+// warp (shuffles), writes P to shared memory and holds O as a 4 x (W / 16)
+// register block at the same rows, O += P.V over float4 rows of V: two
+// barriers a key tile. Under segment ids every warp skips a key tile whose
+// documents cannot meet the q tile's; the CTAs launch tile-major, a plain
+// causal mask's heaviest q tiles first (cluster_slot, as the backward pairs').
+// Shared memory 58,368 bytes at W 32 and 99,328 at W 64 (at least two CTAs
+// an SM under __launch_bounds__(256, 2)), 181,248 at W 128 (one); at BM 16
+// 39,168, 73,984 and 143,616.
+//
+// f32 at D 16 (attend<float, 16, TRI>, the base bf16 library, where serving's
+// prefill chunk runs it): the first port's whole-row design, one CTA of 256
+// threads (16 x 16) per (bh row, 64-row q tile), q tiles on the grid's x
+// and bh rows on y and z (kMaxGridY rows a z slice). K and V tiles are
+// staged element by element through shared memory as f32; each thread owns
+// a 4 x 4 block of the score tile and the matching 4 x 1 block of the
+// output, and P goes through shared memory. f32 stays on the CUDA cores
+// everywhere because it must not round through TF32 (serving prefill holds
+// its greedy tokens to the reference's).
 //
 // f32 at D 256 and above (flash_fwd_f32_cluster_kernel<TRI, BM>, the
 // triangle and the general masks from one body, in the flash_fwd_wide
@@ -236,7 +256,7 @@ constexpr size_t smem_bytes(int d) {
 
 template <typename T, int D, bool TRI>
 __device__ __forceinline__ void attend(const Params& p) {
-  static_assert(D <= 128, "f32 at head dims 256 and above: the cluster kernels");
+  static_assert(D == 16, "f32 at head dims 32 and above: flash_fwd_wide's tile and cluster kernels");
   constexpr int BN = kBN;
   constexpr int RN = BN / 16;  // score columns per thread
   constexpr int LD = D + 1;   // odd stride: a column walk hits 16 different banks
@@ -2067,12 +2087,356 @@ int launch_f32_cluster(const Params& p, int bh, int d, int smem, cudaStream_t st
                          cluster_grid((p.sq + BM - 1) / BM, geo.ctas(), bh), geo.c, smem, stream,
                          f32_cluster_counts<TRI, BM>(), p, d);
 }
+
+// ---------------------------------------------------------------------------
+// f32 at head dims 32, 64 and 128: the cluster forward at one CTA a tile (see
+// the note on top).
+// ---------------------------------------------------------------------------
+
+// The head dims of the f32 tile forward (flash_fwd.py::F32_TILE_HEAD_DIMS);
+// 16 keeps attend in the base library.
+__host__ __device__ constexpr bool f32_tile_head_dim(int d) {
+  return d == 32 || d == 64 || d == 128;
+}
+// P's row stride: the two rows a warp reads at once in P.V fall 16 banks apart
+constexpr int kF32TilePStride = kF32WideTile + 4;
+// CTAs an SM: two or more at a 32- or 64-column slab (at most 128 registers a
+// thread), else one
+constexpr int f32_tile_ctas(int w) { return w < kF32WideSlab ? 2 : 1; }
+template <int W, int BM>
+constexpr int f32_tile_smem_bytes() {
+  // Q times qscale ([BM][W]), two stages of a K and a V tile ([64][W]), P
+  // ([BM][kF32TilePStride])
+  return 4 * (BM * W + kF32WideStages * 2 * kF32WideTile * W + BM * kF32TilePStride);
+}
+static_assert(2 * (f32_tile_smem_bytes<64, kF32WideTile>() + 1024) <= 233472,
+              "two CTAs an SM at a 64-column slab");
+static_assert(f32_tile_smem_bytes<kF32WideSlab, kF32WideTile>() <= 232448,
+              "past the shared memory a block may use");
+
+// acc[i][4 h + e] += sum over the 64 keys r, in order, of P[RM ty + i][r] *
+// V[r][4 (tx + 16 h) + e] (at W 32: acc[i][e] over V[r][2 tx + e]; P
+// [BM][kF32TilePStride]; V a swizzled [64][W] tile): a thread's RM x (W /
+// 16) block of O. A 4-key step at RM 4 takes 4 + 4 W / 64 float4 loads for
+// W FMAs (8 for 64 at W 64, 12 for 128 at 128; at W 32 four float4s and
+// four float2s for 32).
+template <int W, int RM>
+__device__ __forceinline__ void pv_rows(float (&acc)[RM][W / 16], const float* P, const float* V,
+                                        int ty, int tx) {
+  constexpr int H = W / 64;  // float4 columns of O a thread holds (W 32: one float2)
+  const float* p_rows = P + RM * ty * kF32TilePStride;
+#pragma unroll 2
+  for (int r = 0; r < kF32WideTile; r += 4) {
+    float4 pa[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) pa[i] = ld4(p_rows + i * kF32TilePStride + r);
+    if constexpr (W == 32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(V + swz<W>(r + k, tx >> 1) + 2 * (tx & 1));
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float x = comp(pa[i], k);
+          acc[i][0] = fmaf(x, y.x, acc[i][0]);
+          acc[i][1] = fmaf(x, y.y, acc[i][1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float4 y[H];
+#pragma unroll
+        for (int h = 0; h < H; ++h) y[h] = ld4(V + swz<W>(r + k, tx + 16 * h));
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float x = comp(pa[i], k);
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            acc[i][4 * h] = fmaf(x, y[h].x, acc[i][4 * h]);
+            acc[i][4 * h + 1] = fmaf(x, y[h].y, acc[i][4 * h + 1]);
+            acc[i][4 * h + 2] = fmaf(x, y[h].z, acc[i][4 * h + 2]);
+            acc[i][4 * h + 3] = fmaf(x, y[h].w, acc[i][4 * h + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The f32 forward at head dims 32, 64 and 128 on the CUDA cores, a CTA a
+// q tile of BM rows (64, or 16 for a call of at most 16) whose head is one
+// slab of W columns (see the note on top). blockIdx.x: q tile; y and z: bh
+// rows (kMaxGridY a z slice), walked tile-major (cluster_slot; a plain causal
+// mask's last q tile first).
+// Thread (ty, tx) = (threadIdx.x / 16, threadIdx.x % 16) holds S at q rows
+// RM ty + i and keys 4 tx + j, and O at the same rows, columns 4 (tx + 16 h)
+// + e: a row's 16 threads are a half warp, so its max and sum are shuffles
+// and its correction never leaves registers. Per key tile: one barrier
+// before the scores (the tile's K and V landed, the last tile's P and stage
+// read: the next tile's K and V then load under this one), one before O +=
+// P.V. TRI: the triangle; else the general masks, the key tiles of the band
+// by global position, a key tile whose documents cannot meet the q tile's
+// skipped by every warp.
+template <bool TRI, int W, int BM>
+__device__ __forceinline__ void attend_tile(const Params& p, int d) {
+  constexpr int RM = BM / 16;  // q rows a thread
+  constexpr int kSlab = kF32WideTile * W;
+  extern __shared__ float4 f32t_smem[];
+  float* qres = reinterpret_cast<float*>(f32t_smem);  // the Q tile times qscale
+  float* ring = qres + BM * W;                         // per stage: the K and V tiles
+  float* ps = ring + kF32WideStages * 2 * kSlab;       // P
+
+  // tile-major, the longest walks first (a plain causal mask's last q tile)
+  const int2 slot =
+      cluster_slot(p.rows, (p.sq + BM - 1) / BM, 1, TRI || (p.causal && p.window <= 0));
+  if (slot.x < 0) return;  // past the last CTA in the last z slice
+  const int bh = slot.x;
+  const int q0 = slot.y * BM;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int b = bh / p.heads;
+  // grouped-query attention: q heads share kv heads in groups (_kv_row)
+  const int kv_row = b * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const float* qg = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.sq * d;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<size_t>(kv_row) * p.sk * d;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<size_t>(kv_row) * p.sk * d;
+  const int* seg = !TRI && p.seg != nullptr ? p.seg + static_cast<size_t>(b) * p.sk : nullptr;
+  const int lane = threadIdx.x & 31;
+
+  // the key tiles some row of this q tile can see by global position (maybe
+  // none), less those whose documents cannot meet the q tile's, which every
+  // warp finds from the ids' range itself (attend_cluster's walk)
+  const int q_end = min(q0 + BM, p.sq);
+  int k_lo = 0, k_hi = p.sk;
+  if (TRI) {
+    k_hi = min(p.sk, q_end);
+  } else if (p.causal) {
+    k_hi = max(0, min(p.sk, p.q_start + q_end - p.k_start));
+    if (p.window > 0) k_lo = max(0, p.q_start + q0 - p.window + 1 - p.k_start);
+  }
+  const int t_lo = k_lo / kF32WideTile;
+  const int t_hi = k_lo < k_hi ? (k_hi + kF32WideTile - 1) / kF32WideTile : t_lo;
+  const int2 qrange =
+      seg != nullptr ? id_range<BM>(seg, q0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    for (; seg != nullptr && t < t_hi; ++t) {
+      const int2 krange = id_range(seg, t * kF32WideTile, p.sk, lane, 32, ~0u, nullptr);
+      // a live pair unless both sides are one document each, different ones
+      if (!(qrange.x == qrange.y && krange.x == krange.y && qrange.x != krange.x)) break;
+    }
+    return t;
+  };
+  auto fetch = [&](int t, int st) {
+    float* dst = ring + st * 2 * kSlab;
+    load_head<W>(dst, kg, t * kF32WideTile, p.sk, d);
+    load_head<W>(dst + kSlab, vg, t * kF32WideTile, p.sk, d);
+  };
+
+  int t = live_from(t_lo);
+  load_head<W, BM>(qres, qg, q0, p.sq, d);
+  if (t < t_hi) fetch(t, 0);
+  cp_async_commit();
+  float m[RM], l[RM], acc[RM][W / 16];
+  int qseg[RM];  // the thread's rows' segment ids
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) acc[i][c] = 0.f;
+    const int qi = q0 + RM * ty + i;
+    qseg[i] = seg != nullptr && qi < p.sq ? seg[qi] : 0;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // q pre-scaled in f32, as attend scales it (flashattention.py:750)
+  for (int e = threadIdx.x; e < BM * W; e += kF32Threads) qres[e] *= p.qscale;
+
+  int st = 0;  // the stage of tile t
+  while (t < t_hi) {
+    const int next = live_from(t + 1);
+    const int k0 = t * kF32WideTile;
+    int kseg[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + 4 * tx + j;
+      kseg[j] = seg != nullptr && kj < p.sk ? seg[kj] : 0;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile t's K and V in; the last tile's P and stage read
+    if (next < t_hi) fetch(next, st ^ 1);
+    cp_async_commit();
+    const float* kv = ring + st * 2 * kSlab;
+    float sc[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    tile_scores<W, false, RM>(sc, qres, kv, ty, tx, d / 4, 1.f);
+
+    // the mask, then the online softmax in base 2 (attend's; the -inf guards
+    // keep a row that sees no key at O = 0); P into ps, O rescaled
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + RM * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + 4 * tx + j;
+        bool keep = qi < p.sq && kj < p.sk;
+        if (TRI) {
+          keep = keep && kj <= qi;
+        } else {
+          if (p.causal) {
+            const int dist = (p.q_start + qi) - (p.k_start + kj);
+            keep = keep && dist >= 0 && (p.window <= 0 || dist < p.window);
+          }
+          if (seg != nullptr) keep = keep && qseg[i] == kseg[j];
+        }
+        if (!keep) sc[i][j] = -CUDART_INF_F;
+      }
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
+      const float corr = (m[i] == -CUDART_INF_F) ? 0.f : exp2f(m[i] - safe);
+      float pe[4], rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pe[j] = (sc[i][j] == -CUDART_INF_F) ? 0.f : exp2f(sc[i][j] - safe);
+        rs += pe[j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+      st4(ps + (RM * ty + i) * kF32TilePStride + 4 * tx, make_float4(pe[0], pe[1], pe[2], pe[3]));
+#pragma unroll
+      for (int c = 0; c < W / 16; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();  // P in
+    pv_rows<W, RM>(acc, ps, kv + kSlab, ty, tx);  // O += P . V
+    st ^= 1;
+    t = next;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const float denom = (l[i] == 0.f) ? 1.f : l[i];
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) acc[i][c] /= denom;
+    const int qi = q0 + RM * ty + i;
+    if (tx == 0 && qi < p.sq) {
+      const bool live = l[i] > 0.f && m[i] != -CUDART_INF_F;
+      p.lse[static_cast<size_t>(bh) * p.sq + qi] = live ? m[i] * kLn2 + logf(l[i]) : -CUDART_INF_F;
+    }
+  }
+  store_head<W, RM>(static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.sq * d, acc, q0, p.sq,
+                    d, ty, tx);
+}
+
+// The f32 forward kernels at head dims 32, 64 and 128: the triangle and the
+// general masks at slab width W (the head dim) and BM q rows (64 or 16), one
+// CTA a q tile.
+template <int W, int BM>
+__global__ void __launch_bounds__(kF32Threads, f32_tile_ctas(W))
+    flash_fwd_tri_tile_f32_kernel(Params p, int d) {
+  attend_tile<true, W, BM>(p, d);
+}
+
+template <int W, int BM>
+__global__ void __launch_bounds__(kF32Threads, f32_tile_ctas(W))
+    flash_fwd_rect_tile_f32_kernel(Params p, int d) {
+  attend_tile<false, W, BM>(p, d);
+}
+
+template <bool TRI, int W, int BM>
+auto f32_tile_kernel() {
+  if constexpr (TRI) {
+    return flash_fwd_tri_tile_f32_kernel<W, BM>;
+  } else {
+    return flash_fwd_rect_tile_f32_kernel<W, BM>;
+  }
+}
+
+// How many CTAs of the tile kernel the current card holds at once (its SMs
+// times cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's shared
+// memory), asked once per card; a negative CUDA error code when the query
+// fails.
+template <bool TRI, int W, int BM>
+int f32_tile_resident() {
+  static int known[kCachedCards] = {};
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (card < kCachedCards && known[card] != 0) return known[card];
+  constexpr int smem = f32_tile_smem_bytes<W, BM>();
+  const auto kernel = f32_tile_kernel<TRI, W, BM>();
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kF32Threads, smem);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (card < kCachedCards) known[card] = sms * per_sm;
+  return sms * per_sm;
+}
+
+// The tile kernel at slab width W and BM q rows: grid (q tiles, rows, z
+// slices), one CTA a tile.
+template <bool TRI, int W, int BM>
+int launch_f32_tile(const Params& p, int bh, int d, int smem, cudaStream_t stream) {
+  if (smem != f32_tile_smem_bytes<W, BM>()) return kUnsupported;
+  const auto kernel = f32_tile_kernel<TRI, W, BM>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<cluster_grid((p.sq + BM - 1) / BM, 1, bh), kF32Threads, smem, stream>>>(p, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile kernel of the plan: its slab f32_tile_width(d), block_m q rows (64
+// or 16).
+template <bool TRI>
+int dispatch_f32_tile(const Params& p, int bh, int d, int block_m, int smem,
+                      cudaStream_t stream) {
+  if (d <= 32) {
+    return block_m == kF32WideTile ? launch_f32_tile<TRI, 32, kF32WideTile>(p, bh, d, smem, stream)
+                                   : launch_f32_tile<TRI, 32, 16>(p, bh, d, smem, stream);
+  }
+  if (d <= 64) {
+    return block_m == kF32WideTile ? launch_f32_tile<TRI, 64, kF32WideTile>(p, bh, d, smem, stream)
+                                   : launch_f32_tile<TRI, 64, 16>(p, bh, d, smem, stream);
+  }
+  return block_m == kF32WideTile
+             ? launch_f32_tile<TRI, kF32WideSlab, kF32WideTile>(p, bh, d, smem, stream)
+             : launch_f32_tile<TRI, kF32WideSlab, 16>(p, bh, d, smem, stream);
+}
+
+template <bool TRI>
+int f32_tile_resident_at(int d, int block_m) {
+  if (d <= 32) {
+    return block_m == kF32WideTile ? f32_tile_resident<TRI, 32, kF32WideTile>()
+                                   : f32_tile_resident<TRI, 32, 16>();
+  }
+  if (d <= 64) {
+    return block_m == kF32WideTile ? f32_tile_resident<TRI, 64, kF32WideTile>()
+                                   : f32_tile_resident<TRI, 64, 16>();
+  }
+  return block_m == kF32WideTile ? f32_tile_resident<TRI, kF32WideSlab, kF32WideTile>()
+                                 : f32_tile_resident<TRI, kF32WideSlab, 16>();
+}
 #endif  // FLASH_ELEM_F16
 
 // The library's 16-bit type on the tensor cores at a head dim above 576, with
 // the caller's plan (64-row q tiles, the layout's shared memory, the 128-byte
-// swizzle); or f32 on the CUDA cores at a head dim of 256 and above (the
-// plan's q rows, f32_rows(sq), and shared memory; no swizzle).
+// swizzle); or f32 on the CUDA cores at head dims 32, 64 and 128 (the tile
+// kernels) and from 256 on (the cluster kernels), with the plan's q rows,
+// f32_rows(sq), and shared memory; no swizzle.
 template <bool TRI>
 int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
                   cudaStream_t stream) {
@@ -2099,11 +2463,11 @@ int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int sm
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
 #else
-  if (dtype != 0 || swizzle != 0 || !f32_cluster_head_dim(d) || block_m != f32_rows(p.sq)) {
-    return kUnsupported;
-  }
+  if (dtype != 0 || swizzle != 0 || block_m != f32_rows(p.sq)) return kUnsupported;
   // cp.async and float4 stores move 16 bytes: 16-byte bases (rows are d * 4 bytes)
   if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;
+  if (f32_tile_head_dim(d)) return dispatch_f32_tile<TRI>(p, bh, d, block_m, smem, stream);
+  if (!f32_cluster_head_dim(d)) return kUnsupported;
   return block_m == kF32WideTile ? launch_f32_cluster<TRI, kF32WideTile>(p, bh, d, smem, stream)
                                  : launch_f32_cluster<TRI, 16>(p, bh, d, smem, stream);
 #endif
@@ -2198,8 +2562,8 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
 }
 
 // The library's 16-bit type on the tensor cores with the caller's plan; f32
-// (the bf16 library only) on the CUDA cores, whose plan is fixed (64, its
-// shared memory, no swizzle).
+// at D 16 (the bf16 library only) on the CUDA cores, whose plan is fixed (64,
+// its shared memory, no swizzle).
 template <bool TRI>
 int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, int swizzle,
              void* stream) {
@@ -2234,16 +2598,11 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
         smem != static_cast<int>(smem_bytes(d))) {
       return kUnsupported;
     }
-    // D 16-128 here; 256 and above: the cluster kernels of the wide library
-    switch (d) {
+    // D 16 here; 32 and above: the tile and cluster kernels of the wide library
 #if !defined(FLASH_HEAD_DIM_512) && !defined(FLASH_HEAD_DIM_576)
-      case 16: return launch<16, TRI>(p, bh, st);
-      case 32: return launch<32, TRI>(p, bh, st);
-      case 64: return launch<64, TRI>(p, bh, st);
-      case 128: return launch<128, TRI>(p, bh, st);
+    if (d == 16) return launch<16, TRI>(p, bh, st);
 #endif
-      default: return kUnsupported;
-    }
+    return kUnsupported;
   }
 #endif  // FLASH_HEAD_DIM_WIDE
 }
@@ -2258,12 +2617,12 @@ int dispatch(const Params& p, int dtype, int bh, int d, int block_m, int smem, i
 // swizzle (bytes) are the caller's launch plan (flash_fwd.py::tri_plan,
 // rect_plan): bf16 and fp16 run the tensor-core kernels at block_m 64 or 128
 // (64 only at D 256, 512, 576 and above); f32 runs the CUDA-core kernels,
-// whose plans are fixed (64, or at D 256 and above f32_rows(sq); their
-// shared memory; no swizzle). A library takes D 16-256 (f32: 16-128), or
-// (built with -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576)
-// D 576 alone (16-bit only), or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64
-// above 576 and, in f32, from 256 on (flash_fwd.py::wide_plan,
-// f32_cluster_plan).
+// whose plans are fixed (64 at D 16, else f32_rows(sq); their shared memory;
+// no swizzle). A library takes D 16-256 (f32: 16), or (built with
+// -DFLASH_HEAD_DIM_512) D 512 alone, or (-DFLASH_HEAD_DIM_576) D 576 alone
+// (16-bit only), or (-DFLASH_HEAD_DIM_WIDE) every multiple of 64 above 576
+// and, in f32, 32, 64, 128 and from 256 on (flash_fwd.py::wide_plan,
+// f32_tile_plan, f32_cluster_plan).
 extern "C" int flash_fwd_tri(const void* q, const void* k, const void* v, void* o, float* lse,
                              int dtype, int bh, int s, int d, int heads, int kv_heads,
                              float qscale, int block_m, int smem, int swizzle,
@@ -2286,20 +2645,23 @@ extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const
 }
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
-// How many clusters of an f32 forward kernel at head dim d (256 and above;
-// tri 1: the triangle, 0: the general kernel; block_m its q rows, 64 or 16)
-// the card holds at once: cudaOccupancyMaxActiveClusters at its plan's
-// shared memory and cluster size. -1 for a head dim or height these kernels
-// do not take, minus a CUDA error code when the query fails.
+// How many clusters of an f32 forward kernel at head dim d (tri 1: the
+// triangle, 0: the general kernel; block_m its q rows, 64 or 16) the card
+// holds at once: at 256 and above cudaOccupancyMaxActiveClusters at its
+// plan's shared memory and cluster size; at 32, 64 and 128 (a CTA a tile, a
+// cluster of one) its SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+// -1 for a head dim or height these kernels do not take, minus a CUDA error
+// code when the query fails.
 extern "C" int flash_fwd_f32_clusters(int tri, int d, int block_m) {
+  if (block_m != kF32WideTile && block_m != 16) return kUnsupported;
+  if (f32_tile_head_dim(d)) {  // a CTA a tile: its resident CTAs, each a cluster of one
+    return tri ? f32_tile_resident_at<true>(d, block_m) : f32_tile_resident_at<false>(d, block_m);
+  }
   if (!f32_cluster_head_dim(d)) return kUnsupported;
   if (block_m == kF32WideTile) {
     return tri ? f32_cluster_clusters<true, kF32WideTile>(d)
                : f32_cluster_clusters<false, kF32WideTile>(d);
   }
-  if (block_m == 16) {
-    return tri ? f32_cluster_clusters<true, 16>(d) : f32_cluster_clusters<false, 16>(d);
-  }
-  return kUnsupported;
+  return tri ? f32_cluster_clusters<true, 16>(d) : f32_cluster_clusters<false, 16>(d);
 }
 #endif

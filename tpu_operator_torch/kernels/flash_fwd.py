@@ -32,7 +32,10 @@ each CTA holds one slab of O (:func:`wide_plan`); the head dim is a
 runtime argument, so one build serves every width. f32 at head dims 256
 and above runs in that library too (:func:`f32_cluster_plan`): the
 128-column slab CTAs of a q tile form one thread-block cluster that adds
-their partial scores through distributed shared memory.
+their partial scores through distributed shared memory; and f32 at 32, 64
+and 128 (:func:`f32_tile_plan`): the same design at one CTA a tile, the
+head whole in one slab. f32 at 16 keeps the first port's whole-row kernels
+in ``flash_fwd`` (``F32_WHOLE_ROW_D``).
 """
 
 from __future__ import annotations
@@ -182,12 +185,26 @@ class TriPlan:
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
         maps it (the cluster kernels: each of the ``col_split`` CTAs of
-        tile x)."""
+        tile x; the f32 tile kernels tile-major, :func:`tile_major`)."""
         if self.swizzle:
             return x, self.grid[1] - 1 - y  # heaviest q tiles first
         if self.cluster > 1:
             return y, self.grid[0] - 1 - x  # heaviest q tiles first
+        if self.slab:
+            return tile_major(x, y, *self.grid, heaviest_first=True)
         return y, x
+
+
+def tile_major(x: int, y: int, tiles: int, rows: int,
+               heaviest_first: bool) -> Tuple[int, int]:
+    """The (row, tile) that block (x, y) of a grid (tiles, rows) walks when
+    its CTAs run tile-major (``cluster_slot`` in flash_cluster.cuh, at one
+    CTA a tile): the n-th block takes tile n // rows of row n % rows, the
+    last tile first with ``heaviest_first`` (a plain causal mask's
+    longest walk)."""
+    n = x + tiles * y
+    rank = n // rows
+    return n % rows, (tiles - 1 - rank if heaviest_first else rank)
 
 
 TRI_STAGES = 2  # K/V ring depth of the 16-bit kernel (kStages in flash_fwd.cu)
@@ -201,9 +218,8 @@ ROWS_THREADS = 384   # kRowsThreads
 # bf16 and fp16 one or two consumer warpgroups, one only at D 256, 512 and
 # 576 (at D 256 the backward pairs' height: the forwards' CTAs hold 128
 # rows whatever the knob says, ROWS_BM); f32 its CUDA-core kernels' fixed
-# 64 (the knob of the forward, which at D 256 and above takes 16 rows for a
-# call of at most 16, f32_rows; the f32 backward takes 64 rows at every
-# head dim)
+# 64 (the knob of the forward, which from D 32 on takes 16 rows for a call
+# of at most 16, f32_rows; the f32 backward takes 64 rows at every head dim)
 TILE_HEIGHTS = {
     **{(t, d): (64, 128) for t in TENSOR_CORE_DTYPES for d in HEAD_DIMS},
     **{(t, d): (64,) for t in TENSOR_CORE_DTYPES for d in (256, 512, 576)},
@@ -264,13 +280,17 @@ def tri_plan(dtype: torch.dtype, bh: int, s: int, d: int, sms: int,
     512 and 576 the tile is 64 rows (``TILE_HEIGHTS``), the ring has one
     stage (:func:`ring_stages`) and two (512) or three (576) CTAs share each q
     tile, one per column slice of O (``col_split``, the grid's z). f32
-    keeps the CUDA-core kernel's fixed plan up to d 128 (``block_m`` 64
-    only; its grid's y runs over the bh rows, which the kernel splits into
-    z slices of 65,535), and at d 256 and above the cluster kernels'
-    (:func:`f32_cluster_plan`; ``block_m`` 64 is accepted and chooses
-    nothing). Any other ``block_m`` raises ``ValueError``. The kernel checks
-    the plan against its own layout and refuses one that differs."""
+    keeps the whole-row kernel's fixed plan at d 16 (``block_m`` 64 only;
+    its grid's y runs over the bh rows, which the kernel splits into z
+    slices of 65,535), the tile kernels' at 32, 64 and 128
+    (:func:`f32_tile_plan`) and the cluster kernels' at 256 and above
+    (:func:`f32_cluster_plan`); at those ``block_m`` 64 is accepted and
+    chooses nothing. Any other ``block_m`` raises ``ValueError``. The
+    kernel checks the plan against its own layout and refuses one that
+    differs."""
     check_block_m(dtype, block_m, d)
+    if dtype == torch.float32 and d in F32_TILE_HEAD_DIMS:
+        return f32_tile_plan(bh, s, d)
     if dtype == torch.float32 and d >= F32_CLUSTER_MIN_D:
         return f32_cluster_plan(bh, s, d)
     if is_wide(d):
@@ -404,6 +424,54 @@ def f32_cluster_plan(bh: int, sq: int, d: int) -> TriPlan:
                    F32_STAGES, c)
 
 
+# the f32 tile kernels at head dims 32, 64 and 128 (f32_tile_head_dim in
+# flash_fwd.cu, flash_bwd.cu): one CTA a tile, the head whole in one slab; at
+# 16 both sources keep the first port's whole-row kernels in the base
+# libraries, which the tile designs did not beat there
+F32_TILE_HEAD_DIMS = (32, 64, 128)
+F32_WHOLE_ROW_D = 16
+F32_TILE_P_STRIDE = F32_TILE + 4  # floats a row of the tile forward's P (kF32TilePStride)
+
+
+def f32_tile_width(d: int) -> int:
+    """The slab of the f32 tile kernels at head dim ``d`` of 32-128: the
+    whole head in one CTA, 64 columns at d 32 and 64 (32 zero-filled past d
+    inside the slab) and 128 at d 128."""
+    return 64 if d <= 64 else F32_SLAB
+
+
+def f32_tile_fwd_width(d: int) -> int:
+    """The slab of the f32 tile forward at head dim ``d`` of 32-128: the
+    whole head, 32 columns at d 32 (the backward's 64, :func:`f32_tile_width`:
+    a 32-column O block would leave half its threads without columns of dQ,
+    dK and dV to hold), 64 at 64, 128 at 128."""
+    return 32 if d <= 32 else f32_tile_width(d)
+
+
+def f32_tile_fwd_smem(d: int, block_m: int) -> int:
+    """Shared memory of an f32 tile forward CTA of ``block_m`` q rows at
+    head dim ``d`` of 32-128 (f32_tile_smem_bytes in flash_fwd.cu): its Q
+    tile, two stages of a K and a V tile, and P (``block_m`` rows of
+    ``F32_TILE_P_STRIDE``). Two or more CTAs share an SM at a 32- or
+    64-column slab."""
+    width = f32_tile_fwd_width(d)
+    return 4 * (block_m * width + F32_STAGES * 2 * F32_TILE * width + block_m * F32_TILE_P_STRIDE)
+
+
+def f32_tile_plan(bh: int, sq: int, d: int) -> TriPlan:
+    """How both f32 forwards launch at head dim ``d`` of 32, 64 or 128: the
+    cluster kernels' design at one CTA a tile (``col_split`` and
+    ``cluster`` 1) on a slab as wide as the head (:func:`f32_tile_fwd_width`),
+    q tiles of :func:`f32_rows` rows, 256 threads; grid (q tiles, bh rows),
+    rows in z slices of 65,535, walked tile-major (:func:`tile_major`: the
+    triangle's and a plain causal mask's heaviest q tiles first);
+    ``stages`` of the streamed K and V tiles; shared memory
+    :func:`f32_tile_fwd_smem`."""
+    rows = f32_rows(sq)
+    return TriPlan(rows, 256, (-(-sq // rows), bh), f32_tile_fwd_smem(d, rows), 0, 1,
+                   f32_tile_fwd_width(d), F32_STAGES, 1)
+
+
 def apart(a: Sequence[int], b: Sequence[int]) -> bool:
     """Whether two tiles' segment ids (each tile's positions inside s) are
     one document each, and different ones: the pair holds no live (q, k)
@@ -425,7 +493,8 @@ class RectPlan:
     offset ``q_start`` against sk keys at ``k_start``, ``causal``, and
     ``window`` (None: no band; a band of causal attention only); ``skips``:
     the CTA copies no key tile of another document than its rows' one
-    (:meth:`loads`; the 16-bit kernel at D 256, the f32 cluster kernels)."""
+    (:meth:`loads`; the 16-bit kernel at D 256, the f32 tile and cluster
+    kernels)."""
 
     block_m: int
     threads: int
@@ -446,14 +515,20 @@ class RectPlan:
 
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
-        maps it: natural order, bh rows on x for the tensor-core kernel."""
-        return (x, y) if self.swizzle else (y, x)
+        maps it: natural order, bh rows on x for the tensor-core kernel; the
+        f32 tile kernels tile-major (:func:`tile_major`), a plain causal
+        mask's last q tile first."""
+        if self.swizzle:
+            return x, y
+        if self.slab and self.cluster == 1:
+            return tile_major(x, y, *self.grid, heaviest_first=self.causal and not self.window)
+        return y, x
 
     def loads(self, tile: int, seg: Optional[torch.Tensor] = None) -> List[int]:
         """The 64-key tiles the CTA of q tile ``tile`` copies, in order: its
-        walk, less (``skips``: the 16-bit CTAs at D 256 and the f32 cluster
-        kernels) a tile whose keys hold one document and the CTA's q rows
-        one other (:func:`apart`), which no warp copies or multiplies.
+        walk, less (``skips``: the 16-bit CTAs at D 256 and the f32 tile and
+        cluster kernels) a tile whose keys hold one document and the CTA's q
+        rows one other (:func:`apart`), which no warp copies or multiplies.
         ``seg`` is one batch row's ids."""
         walk = list(self.walk(tile))
         if not self.skips or seg is None:
@@ -510,13 +585,13 @@ class RectPlan:
         y) of the 16-bit kernel computes, in its order: over the tiles it
         copies (:meth:`loads`), each warpgroup's slice skips a dead tile (at
         D 256 it multiplies it, masked whole, so that every product lies on
-        the warpgroup's one path). The f32 cluster kernels (``cluster`` >
-        1): (q tile of ``block_m`` rows, 64-key tile, "masked") of every
-        tile pair each of the tile's ``col_split`` CTAs copies
-        (:meth:`loads`), the same for all of them; every pair is masked per
-        element."""
+        the warpgroup's one path). The f32 tile and cluster kernels
+        (``slab`` without a swizzle): (q tile of ``block_m`` rows, 64-key
+        tile, "masked") of every tile pair each of the tile's ``col_split``
+        CTAs copies (:meth:`loads`), the same for all of them; every pair is
+        masked per element."""
         tile = self.cta(x, y)[1]
-        if self.cluster > 1:
+        if self.slab and not self.swizzle:
             return [(tile, k, "masked") for k in self.loads(tile, seg)]
         slices = [tile * self.block_m // 64 + w for w in range(self.block_m // 64)]
         out = []
@@ -546,9 +621,10 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     slices; at d 256 the triangle's 128-row CTAs (:func:`rows_smem`), which
     copy no key tile whose one document is not their rows' one (``skips``,
     :meth:`RectPlan.loads`). f32
-    keeps the CUDA-core kernels' plans, the triangle's (at d 256 and above
-    its q tiles in natural order). The kernel checks the plan against its
-    own layout and refuses one that differs."""
+    keeps the CUDA-core kernels' plans, the triangle's (from d 32 its q
+    tiles in natural order, and no key tile of another document copied:
+    ``skips``). The kernel checks the plan against its own layout and
+    refuses one that differs."""
     masks = (sq, sk, causal, window if causal and window else None, q_start, k_start)
     tri = tri_plan(dtype, bh, sq, d, sms, block_m)
     smem = tri.smem_bytes
@@ -560,7 +636,8 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
                 + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
     return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
                     tri.col_split, tri.slab, tri.stages, tri.cluster,
-                    skips=tri.cluster > 1 or (dtype != torch.float32 and d == ROWS_HEAD_DIM))
+                    skips=bool(tri.slab and not tri.swizzle)
+                    or (dtype != torch.float32 and d == ROWS_HEAD_DIM))
 
 
 @functools.cache
@@ -595,8 +672,8 @@ def _check(qb, kb, vb, heads: int, kv_heads: int) -> None:
 
 def _check_tma_bases(**tensors) -> None:
     """Raise unless each named tensor starts on a TMA_ALIGN-byte boundary,
-    as a TMA tensor map's base must, and the f32 cluster kernels' 16-byte
-    cp.async copies."""
+    as a TMA tensor map's base must, and the f32 tile and cluster kernels'
+    16-byte cp.async copies (every f32 head dim but ``F32_WHOLE_ROW_D``)."""
     for name, t in tensors.items():
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary for the "
@@ -618,11 +695,11 @@ def library_name(source: str, dtype: torch.dtype, d: int) -> str:
     """The library of ``source``'s kernels (``flash_fwd`` or ``flash_bwd``)
     that holds ``dtype`` at head dim ``d``: ``<source>_f16`` for fp16, and
     ``_d512`` or ``_d576`` after either at d 512 or 576, ``_wide`` above 576
-    (``build.VARIANTS``); f32 at d 256 and above: ``<source>_wide`` (both
-    sources' cluster kernels), and ``flash_bwd``'s f32 at 32-128 too (its
-    pair at one CTA a tile); ``flash_bwd``'s f32 at 16 stays in the base
-    library (the whole-row pair)."""
-    if dtype == torch.float32 and (d >= F32_CLUSTER_MIN_D or (source == "flash_bwd" and d > 16)):
+    (``build.VARIANTS``); f32 from d 32 on: ``<source>_wide`` (both
+    sources' tile kernels at 32-128 and cluster kernels from 256); f32 at
+    ``F32_WHOLE_ROW_D`` stays in the base library (the whole-row kernels),
+    which a serving replica builds cold."""
+    if dtype == torch.float32 and d > F32_WHOLE_ROW_D:
         return source + "_wide"
     return (source + ("_f16" if dtype == torch.float16 else "")
             + ("_wide" if is_wide(d) else f"_d{d}" if d in (512, 576) else ""))
@@ -649,11 +726,13 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def f32_active_clusters(d: int, tri: bool, block_m: int) -> int:
-    """How many clusters of the f32 forward cluster kernel (the triangle's
-    with ``tri``, else the general one's) at head dim ``d`` (256 and above, a
-    multiple of 64) and ``block_m`` q rows the current card holds at once:
-    ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
-    cluster size. Raises where the query fails."""
+    """How many clusters of the f32 forward kernel (the triangle's with
+    ``tri``, else the general one's) at head dim ``d`` and ``block_m`` q
+    rows the current card holds at once: at 256 and above (a multiple of
+    64) ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
+    cluster size; at 32, 64 and 128 (one CTA a tile, a cluster of one) its
+    SMs times ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``. Raises
+    where the query fails."""
     fn = _lib(torch.float32, d).flash_fwd_f32_clusters
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     n = fn(int(tri), d, block_m)
@@ -686,7 +765,8 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
     """Plain-causal forward (sq == sk, no offsets, window or segments):
     the port of ``_flash_fwd_tri_kernel``. bf16 and fp16 run on the tensor
     cores (wgmma, TMA: q, k, v need 16-byte-aligned bases), f32 on the CUDA
-    cores; the launch follows :func:`tri_plan`, at the tile height
+    cores (from head dim 32 by 16-byte cp.async: 16-byte-aligned bases too;
+    a misaligned one raises ``ValueError`` naming it); the launch follows :func:`tri_plan`, at the tile height
     ``block_m`` when given (checked on the CPU too, where it changes
     nothing). ``sm_scale`` is the softmax scale (default 1/√d; a padded
     head passes its true head dim's). fp16 runs bf16's design on fp16
@@ -700,7 +780,7 @@ def flash_fwd_tri(qb, kb, vb, heads: int, kv_heads: int, block_m: Optional[int] 
         raise ValueError(f"the triangle kernel needs sq == sk, got {s} and {kb.shape[1]}")
     out = torch.empty_like(qb)
     lse = torch.empty((bh, s), dtype=torch.float32, device=qb.device)
-    if qb.dtype in TENSOR_CORE_DTYPES:
+    if qb.dtype in TENSOR_CORE_DTYPES or d > F32_WHOLE_ROW_D:
         _check_tma_bases(q=qb, k=kb, v=vb, out=out)
     plan = tri_plan(qb.dtype, bh, s, d, _sm_count(qb.device.index), block_m)
     with torch.cuda.device(qb.device):
@@ -722,7 +802,8 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
     """General forward — causal or full, window, segment ids (B, S) int32,
     global offsets, sq != sk: the port of ``_flash_fwd_kernel``. bf16 and
     fp16 run on the tensor cores (wgmma, TMA: q, k, v need 16-byte-aligned
-    bases), f32 on the CUDA cores; the launch follows :func:`rect_plan`, at the
+    bases), f32 on the CUDA cores (16-byte-aligned bases from head dim 32,
+    as :func:`flash_fwd_tri`'s); the launch follows :func:`rect_plan`, at the
     tile height ``block_m`` when given; ``sm_scale`` as
     :func:`flash_fwd_tri`'s."""
     check_block_m(qb.dtype, block_m, qb.shape[-1])
@@ -736,7 +817,7 @@ def flash_fwd_rect(qb, kb, vb, heads: int, kv_heads: int, causal: bool,
         _check_seg(seg, bh // heads, sq, sk)
     out = torch.empty_like(qb)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qb.device)
-    if qb.dtype in TENSOR_CORE_DTYPES:
+    if qb.dtype in TENSOR_CORE_DTYPES or d > F32_WHOLE_ROW_D:
         _check_tma_bases(q=qb, k=kb, v=vb, out=out)
     plan = rect_plan(qb.dtype, bh, sq, sk, d, _sm_count(qb.device.index), causal, window,
                      q_start, k_start, block_m)
