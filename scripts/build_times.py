@@ -2,12 +2,13 @@
 """Compile time of the port's CUDA libraries in this tree and in another
 checkout of the repository, one ``nvcc`` at a time, in turns.
 
-    python3 scripts/build_times.py OTHER_TREE [--json PATH]
+    python3 scripts/build_times.py OTHER_TREE [--libraries NAME ...] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
 ``git archive``). For each library (``flash_fwd``, ``flash_bwd``, and the
 fp16 builds of the same sources, ``flash_fwd_f16`` and ``flash_bwd_f16``,
-in a tree that has them), a process
+in a tree that has them; or the ``--libraries`` named, such as
+``flash_bwd_wide``), a process
 of its own imports ``tpu_operator_torch.kernels.build`` from one tree and
 builds that tree's library into an empty temporary directory
 (``build.bind_build_dir``), alone, so the seconds ``build.build`` reports are
@@ -53,15 +54,17 @@ def build_seconds(tree: Path, name: str):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path, help="the other checkout")
+    parser.add_argument("--libraries", nargs="+", default=list(LIBRARIES),
+                        help="the libraries to build (default: %(default)s)")
     parser.add_argument("--json", type=Path, default=None, help="also write the times here")
     args = parser.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     trees = {"other": args.other.resolve(), "this": ROOT}
-    times = {side: {name: [] for name in LIBRARIES} for side in trees}
+    times = {side: {name: [] for name in args.libraries} for side in trees}
     for side in ("other", "this", "this", "other"):
-        for name in LIBRARIES:
+        for name in args.libraries:
             seconds = build_seconds(trees[side], name)
             times[side][name].append(seconds)
             print(f"{side} {name}: " + ("none" if seconds is None else f"{seconds:.2f} s"),

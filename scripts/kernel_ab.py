@@ -2,7 +2,7 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_16|fwd_f32|bwd_f32|bwd_16
+    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_16|fwd_f32|bwd_f32|bwd_16|bwd_wide
         [--match REGEX] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
@@ -34,7 +34,10 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
   head dim 256 and below (padded) in this tree's ``chip_smoke`` backward
   tables (``BWD_CASES``, ``HEAD_DIM_BWD_CASES``, ``FLOAT16_BWD_CASES``),
   held to ``attention_bwd_plain`` at phase 3's bars (2e-2 of max |grad|;
-  fp16 subnormal rows also by its subnormal steps), dQ and dK/dV timed.
+  fp16 subnormal rows also by its subnormal steps), dQ and dK/dV timed;
+- ``bwd_wide``: both bf16 and fp16 backward pairs at every 16-bit case above
+  head dim 576 (padded) in this tree's ``chip_smoke`` (``WIDE_BWD_CASES``,
+  ``WIDE_CLUSTER_BWD_CASES``), held and timed as ``bwd_16``'s.
 
 ``--match`` keeps the cases whose label the regular expression finds.
 
@@ -135,7 +138,7 @@ def _bwd_f32(smoke) -> dict:
         q, k, v, seg = smoke._case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda")
         run = smoke._bwd_setup(case, q, k, v, seg, dout)
-        _, errs, _ = smoke._bwd_errors(run, case["q"][3])
+        _, errs, _, _ = smoke._bwd_errors(run, case["q"][3])
         ok = max(errs) <= smoke.F32_TOL
         inner = case.get("inner", 20)
         results[case["label"]] = {
@@ -146,24 +149,19 @@ def _bwd_f32(smoke) -> dict:
     return results
 
 
-def _bwd_16(smoke) -> dict:
-    """Both 16-bit backward pairs' cases at head dims up to 256 (padded),
-    held as phase 3 holds them: {label: {ok, errs, dq_ms, dkv_ms}}."""
+def _bwd_half(smoke, cases) -> dict:
+    """Backward ``cases`` of a 16-bit type, held as phase 3 holds them:
+    {label pair: {ok, errs, dq_ms, dkv_ms}}."""
     import torch
 
-    from tpu_operator_torch.kernels import flash_fwd
-
-    tables = smoke.BWD_CASES + smoke.HEAD_DIM_BWD_CASES + smoke.FLOAT16_BWD_CASES
     results = {}
-    for case in tables:
-        if case["dtype"] == torch.float32 or flash_fwd.padded_head_dim(case["q"][3]) > 256:
-            continue
+    for case in cases:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, seg = smoke._case_inputs(case, gen)
         dout = torch.randn(q.shape, generator=gen, device="cuda")
         dout = (dout * case.get("dout_scale", 1.0)).to(case["dtype"])
         run = smoke._bwd_setup(case, q, k, v, seg, dout)
-        _, errs, grad_scale = smoke._bwd_errors(run, case["q"][3])
+        _, errs, grad_scale, _ = smoke._bwd_errors(run, case["q"][3])
         tol = smoke.BF16_TOL * grad_scale
         if case["dtype"] == torch.float16:
             tol = max(tol, smoke.FP16_SUBNORMAL_STEP * (1.0 + max(
@@ -178,6 +176,25 @@ def _bwd_16(smoke) -> dict:
     return results
 
 
+def _bwd_16(smoke) -> dict:
+    """Both 16-bit backward pairs' cases at head dims up to 256 (padded)."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_fwd
+
+    tables = smoke.BWD_CASES + smoke.HEAD_DIM_BWD_CASES + smoke.FLOAT16_BWD_CASES
+    return _bwd_half(smoke, [c for c in tables if c["dtype"] != torch.float32
+                             and flash_fwd.padded_head_dim(c["q"][3]) <= 256])
+
+
+def _bwd_wide(smoke) -> dict:
+    """Both 16-bit backward pairs' cases above head dim 576 (padded)."""
+    import torch
+
+    tables = smoke.WIDE_BWD_CASES + smoke.WIDE_CLUSTER_BWD_CASES
+    return _bwd_half(smoke, [c for c in tables if c["dtype"] != torch.float32])
+
+
 # family: (its cases' runner, the timed keys of a case, the module that must
 # come from the tree under test)
 FAMILIES = {
@@ -186,6 +203,7 @@ FAMILIES = {
     "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
     "bwd_f32": (_bwd_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
     "bwd_16": (_bwd_16, ("dq_ms", "dkv_ms"), "flash_bwd"),
+    "bwd_wide": (_bwd_wide, ("dq_ms", "dkv_ms"), "flash_bwd"),
 }
 
 

@@ -126,7 +126,7 @@ def test_plan_constants_match_the_cuda_sources():
         assert not re.search(rf"case {d}: return launch<", fwd), d
     assert not hasattr(flash_fwd, "f32_keys") and not hasattr(flash_fwd, "F32_WIDE_SLAB")
     # the shared helpers live once, in the header both sources include
-    for helper in ("struct F32WideGeo", "struct F32WideCols", "void load_tile(",
+    for helper in ("struct SlabGeo", "struct SlabCols", "void load_tile(",
                    "int active_clusters(", "int launch_clusters("):
         assert helper in cluster and helper not in fwd + bwd, helper
 

@@ -74,27 +74,29 @@ def test_the_slab_count_is_the_head_dim_over_the_slab(dtype, d):
 
 def test_wide_plans_by_hand():
     """The layouts of flash_fwd.cu's wide_smem_bytes / f32_wide_smem_bytes
-    and flash_bwd.cu's dq_wide_smem_bytes, dkv_wide_smem_bytes and their
-    f32 twins, reckoned by hand."""
+    and flash_bwd.cu's wide16_smem_bytes / f32_wide_smem_bytes, reckoned by
+    hand."""
     box = 64 * 64 * 2
     p = _wide_plans(BF16, 1024)
     # slack + 4 stages of a Q and a K box + 2 stages of a 4-box V slab + 2 x 66
     # key ids + 12 barriers
     assert p["fwd tri"].smem_bytes == p["fwd rect"].smem_bytes == (
         1024 + 4 * 2 * box + 2 * 4 * box + 2 * 66 * 4 + 12 * 8) == 132_720
-    # slack + 4 stages of Q, dO, K and V boxes + 2 stages of a 4-box K slab + barriers
-    assert p["dq tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * 4 * box + 12 * 8 == 197_728
-    # ... + 2 stages of 2-box Q and dO slabs with 64 lse and 64 delta
-    assert p["dkv tri"].smem_bytes == 1024 + 4 * 4 * box + 2 * (2 * 2 * box + 512) + 96 == 198_752
-    # the general pair: + 2 stages of the id ring (64 ids, their min and max)
-    # and its two barriers a stage
-    assert p["dq rect"].smem_bytes == 197_728 + 2 * (66 * 4 + 16) == 198_288
-    assert p["dkv rect"].smem_bytes == 198_752 + 2 * (66 * 4 + 16) == 199_312
-    assert [p[k].threads for k in p] == [160] * 6
+    # the backward pair in slab clusters: slack + the resident own slab (dQ:
+    # 4 Q and 4 dO boxes) + 4 stages of 4 streamed boxes + the exchange's two
+    # 64 x 64 f32 tiles + 64 (lse, delta) and 2 x 64 ids + 5 barriers
+    assert p["dq tri"].smem_bytes == (1024 + 8 * box + 4 * 4 * box + 2 * 64 * 64 * 4 + 64 * 16
+                                      + 5 * 8) == 231_464
+    # ... dK/dV: 2 K and 2 V boxes resident
+    assert p["dkv tri"].smem_bytes == 231_464 - 4 * box == 198_696
+    # the general pair the same (every warp reads the segment ids' range itself)
+    assert p["dq rect"].smem_bytes == 231_464 and p["dkv rect"].smem_bytes == 198_696
+    assert [p[k].threads for k in p] == [160, 160, 128, 128, 128, 128]
     assert [p[k].col_split for k in p] == [4, 4, 4, 8, 4, 8]
+    assert [p[k].cluster for k in p] == [1, 1, 4, 8, 4, 8]
     assert p["fwd tri"].grid == (16, 16) and p["dq tri"].grid == (16, 16)
-    assert p["dkv tri"].grid == (8, 16)
-    assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (8, 16)
+    assert p["dkv tri"].grid == (16, 8)
+    assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (16, 8)
     f = _wide_plans(F32, 1024, bh=6, bh_kv=3, s=130)
     # f32 forward: the resident 64 x 128 Q slab, 2 stages of K and V slabs,
     # the partial scores and P (64 x 64 each), a float4 of statistics a row
@@ -119,15 +121,20 @@ def test_wide_plans_by_hand():
 
 
 def test_redundant_work_factors():
-    """Every slab's CTA forms the whole score tile: the forward does (n + 1)
-    / 2 of the ideal tensor-core work (S and P.V once each), dQ (2 n + 1) / 3
-    (S, dP and dQ), dK/dV (n + 1) / 2 (S, dP, dV, dK), n the slab count."""
+    """The forward's every slab CTA forms the whole score tile: (n + 1) / 2 of
+    the ideal tensor-core work (S and P.V once each), n the slab count. The
+    backward pair's clusters form S and dP once per cluster: dQ (2 g + n) /
+    (n + 2) (S, dP and dQ: S and dP g times, each CTA's dQ on its slab), dK/dV
+    (2 g + 2 n) / (2 n + 2) (S, dP, dV, dK), g the clusters a tile: the ideal
+    up to 8 slabs."""
     def factors(d):
         p = _wide_plans(BF16, d)
         n_f, n_q, n_kv = p["fwd tri"].col_split, p["dq tri"].col_split, p["dkv tri"].col_split
-        return (n_f + 1) / 2, (2 * n_q + 1) / 3, (2 * n_kv + 2) / 4
-    assert factors(640) == (2.0, 7 / 3, 3.0)
-    assert factors(1024) == (2.5, 3.0, 4.5)
+        g_q, g_kv = p["dq tri"].redundancy, p["dkv tri"].redundancy
+        return (n_f + 1) / 2, (2 * g_q + n_q) / (n_q + 2), (2 * g_kv + 2 * n_kv) / (2 * n_kv + 2)
+    assert factors(640) == (2.0, 1.0, 1.0)
+    assert factors(1024) == (2.5, 1.0, 1.0)
+    assert factors(4096)[1:] == ((2 * 2 + 16) / 18, (2 * 4 + 64) / 66)
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 100, 1000])
@@ -250,9 +257,9 @@ def test_wide_plan_constants_match_the_cuda_sources():
     assert f"constexpr int kWideDqSlab = {flash_bwd.WIDE_DQ_SLAB};" in bwd
     assert f"constexpr int kWideDkvSlab = {flash_bwd.WIDE_DKV_SLAB};" in bwd
     assert f"constexpr int kWideRing = {flash_bwd.WIDE_BWD_RING};" in bwd
-    assert f"constexpr int kWideSlabStages = {flash_bwd.WIDE_SLAB_STAGES};" in bwd
-    assert ("constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);" in bwd
-            and flash_bwd.WIDE_ID_BYTES == flash_bwd.WIDE_SLAB_STAGES * ((64 + 2) * 4 + 2 * 8))
+    assert f"constexpr int kWideThreads = {flash_bwd.WIDE_THREADS};" in bwd
+    assert ("constexpr int kWideXchBytes = 2 * kTile * kTile * 4;" in bwd
+            and flash_bwd.WIDE_XCH_BYTES == 2 * 64 * 64 * 4)
     # the f32 cluster kernels' layout, shared by both sources (both at head
     # dims 256 and above)
     cluster = (KERNELS / "flash_cluster.cuh").read_text()

@@ -164,31 +164,33 @@
 // block may use; 640 columns would pass it with the own tiles alone.
 // Above 576 (both pairs; their own library, built with
 // -DFLASH_HEAD_DIM_WIDE, the head dim a runtime multiple of 64, helpers in
-// flash_wide.cuh): the reductions over D stream. One consumer warpgroup and
-// a producer warp; per (q tile, key tile) pair the producer streams Q, dO,
-// K and V in 64 x 64 boxes through a four-stage ring (four boxes a stage),
-// and the consumer sums S and dP (S^T and dP^T) over the D / 64 chunks, one
-// chunk's wgmma in flight while the next is issued. The gradient products
-// take a slab of the other side from a two-stage slab ring: dQ (a CTA per
-// 64 q rows and 256-column slab of dQ, heaviest first) dQ += dS.K_slab on
-// m64n256k16; dK/dV (a CTA per 64 keys and 128-column slab, 64 + 64 f32 of
-// dK and dV a thread beside S^T, dP^T and the packed P^T and dS^T: 255
-// registers, no spill) dV += P^T.dO_slab and dK += dS^T.Q_slab on
-// m64n128k16, the rows' lse and delta staged beside the slabs by the
-// producer's lanes. The last slab starts at D - W so every CTA runs the same
-// products, and writes only the columns no earlier slab owns. Every slab
-// forms the whole S and dP: dQ (2 slabs + 1) / 3 and dK/dV (slabs + 1) / 2
-// of the ideal tensor-core work (3x and 4.5x at 1024). Shared memory: dQ
-// 197,728 bytes, dK/dV 198,752. The general pair (dq_wide_body /
-// dkv_wide_body<T, TRI> with TRI false) walks the band as the D <= 576 pair
-// does and takes its tile rule, with the dead, fast or masked choice made
-// per tile by warp-uniform tests; a masked tile sends its dead pairs' scores
-// to -inf before P and dS are formed, so the registers past the triangle's
-// are a few ids. Its segment ids come through an id ring of their own (per
-// stage the ring tile's 64 ids and their range, 528 bytes and two barriers
-// more: dQ 198,288, dK/dV 199,312), which every lane of the producer warp
-// stages for every tile of the walk before lane 0 decides whether the
-// tile's chunks load: a dead pair would cost d / 64 chunk loads.
+// flash_wide.cuh and flash_cluster.cuh): the slab CTAs of a 64-row tile are
+// one thread-block cluster (SlabGeo: n = ceil(d / W) slabs of W columns,
+// dQ's 256 on m64n256 halves, dK/dV's 128; up to 8 a cluster, above that g
+// clusters a tile that also sum the 64-column foreign chunks their slabs do
+// not own, SlabCols). One warpgroup a CTA: its own columns of its own side
+// stay resident (dQ: Q and dO; dK/dV: K and V), the other side's own
+// columns stream by TMA through a ring of four 32 KiB stages (thread 0
+// issues each item once its stage's last reader is done; every warp walks
+// the loads with it), and per tile pair it sums a partial S and dP (S^T and
+// dP^T) over its own 64 x 64 boxes on wgmma. The cluster's exchange
+// (exchange16) adds the n partials in rank order through distributed shared
+// memory (CTA r sums rows [64 r / n, 64 (r + 1) / n) of every CTA's f32
+// partials: the same bits every run), forms P and dS once at the forward's
+// scale and rounding, and stores them, rounded to T, into every CTA's 16-bit
+// tiles in the 128-byte swizzle wgmma reads (laid over the f32 rows that
+// only the same rank reads: one CTA barrier between its reads and its
+// stores). Two cluster barriers a tile pair: the partials written; the
+// tiles written (so the partials read). Each CTA then runs its gradient
+// products with both operands in shared memory (dQ += dS . K on its slab's
+// two halves, dV += P^T . dO and dK += dS^T . Q), under the next tile pair's
+// loads. A CTA loads only its own columns, so a cluster reads each chunk of
+// a tile pair once, and S and dP are formed once per tile pair up to 8
+// slabs. The walks, the band, the masks and the segment-id skip depend only
+// on the row, the tiles and the ids, so every CTA of a cluster meets every
+// barrier; a masked tile's dead scores go to -inf before P and dS. The
+// clusters launch tile-major, the longest walks first (cluster_slot).
+// Shared memory: dQ 231,464 bytes, dK/dV 198,696, both masks alike.
 // f32 at head dims 256 and above (flash_bwd_{dq,dkv}_{tri,rect}_wide_f32_kernel,
 // dq_wide_f32_body / dkv_wide_f32_body<TRI>, also in the wide library:
 // f32_cluster_head_dim): the CUDA cores (TF32 would not hold the 1e-4
@@ -1635,32 +1637,27 @@ __global__ void __launch_bounds__((WG * kv_split<D>() + 1) * 128, 1)
 
 constexpr int kWideDqSlab = 256;     // columns of dQ a 16-bit CTA holds
 constexpr int kWideDkvSlab = 128;    // columns of dK and of dV a 16-bit CTA holds
-constexpr int kWideRing = 4;         // stages of the chunk ring (four boxes a stage)
-constexpr int kWideSlabStages = 2;   // stages of the slab ring
+constexpr int kWideRing = 4;         // stages of the streamed ring, four boxes each
+constexpr int kWideThreads = 128;    // one warpgroup a 16-bit CTA
+// the exchange: partial S and dP (64 x 64 f32 each), the 16-bit P and dS over them
+constexpr int kWideXchBytes = 2 * kTile * kTile * 4;
+// float4s of the exchange a thread sums at the fewest CTAs a tile (3: 22 rows)
+constexpr int kWideXchItems = 3;
+static_assert(kWideXchItems * kWideThreads >= (kTile + 2) / 3 * (kTile / 4),
+              "a rank's rows of the exchange in kWideXchItems passes");
 // the f32 pair's tiles, slabs and clusters: flash_cluster.cuh
 
-// the general pair's id ring: per stage the ring tile's 64 segment ids and
-// their min and max (int32), and its two barriers
-constexpr int kWideIdBytes = kWideSlabStages * ((kTile + 2) * 4 + 2 * 8);
-
-template <bool TRI>
-constexpr int dq_wide_smem_bytes() {
-  // alignment slack, the chunk ring (Q, dO, K and V boxes), the K slab ring,
-  // the four barrier arrays (general: the id ring besides)
-  return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
-         kWideSlabStages * (kWideDqSlab / kWideBox) * kWideBoxBytes +
-         8 * (2 * kWideRing + 2 * kWideSlabStages) + (TRI ? 0 : kWideIdBytes);
+template <bool DQ>
+constexpr int wide16_smem_bytes() {
+  // alignment slack, the resident own boxes (dQ: Q and dO, dK/dV: K and V,
+  // one slab each), the ring, the exchange, the tile's 64 (lse * log2(e),
+  // delta) and the 64 segment ids of each side, the ring's barriers and the
+  // resident boxes' one
+  return kSmemAlign + 2 * ((DQ ? kWideDqSlab : kWideDkvSlab) / kWideBox) * kWideBoxBytes +
+         kWideRing * 4 * kWideBoxBytes + kWideXchBytes + kTile * (8 + 2 * 4) +
+         8 * (kWideRing + 1);
 }
-
-template <bool TRI>
-constexpr int dkv_wide_smem_bytes() {
-  // alignment slack, the chunk ring (K, V, Q and dO boxes), the Q and dO slab
-  // ring with the slab rows' lse and delta (f32), the four barrier arrays
-  // (general: the id ring besides)
-  return kSmemAlign + kWideRing * 4 * kWideBoxBytes +
-         kWideSlabStages * (2 * (kWideDkvSlab / kWideBox) * kWideBoxBytes + 2 * kTile * 4) +
-         8 * (2 * kWideRing + 2 * kWideSlabStages) + (TRI ? 0 : kWideIdBytes);
-}
+static_assert(wide16_smem_bytes<true>() <= 232448, "past the shared memory a block may use");
 
 // f32: the resident slabs (dQ: Q times qscale and dO; dK/dV: K and V), the
 // streamed ring, the exchange tiles (partial S and dP, then P and dS), and
@@ -1684,565 +1681,628 @@ __device__ __forceinline__ uint32_t ring_parity(int n, int stages) { return (n /
 __device__ __forceinline__ bool one_doc(int2 a, int2 b) { return a.x == a.y && b.x == b.y; }
 __device__ __forceinline__ bool apart(int2 a, int2 b) { return one_doc(a, b) && a.x != b.x; }
 
-// One chunk's two score products (S and dP, or S^T and dP^T) over a stage of
-// four boxes: acc_a (+)= box 0 . box 2^T, acc_b (+)= box 1 . box 3^T.
-template <typename T>
-__device__ __forceinline__ void chunk_products(float (&acc_a)[32], float (&acc_b)[32],
-                                               const unsigned char* stage, bool first) {
-  mma_box_by_box<T>(acc_a, stage, stage + 2 * kWideBoxBytes, first);
-  mma_box_by_box<T>(acc_b, stage + kWideBoxBytes, stage + 3 * kWideBoxBytes, first);
+// The float offset of X[a][4 f .. 4 f + 3] in an f32 tile of the 16-bit
+// exchange: two halves of 32 columns, row a of a half at 32 a floats, its
+// eight float4s swizzled by a & 7 as a 128-byte TMA box swizzles a 16-bit
+// row. A 16-bit [64][64] tile over the first half (tile16_at) then puts row
+// a over X's row a alone, which only the rank that owns row a reads.
+__device__ __forceinline__ int xs_at(int a, int f) {
+  return (f >> 3) * (kTile * 32) + a * 32 + (((f & 7) ^ (a & 7)) << 2);
 }
 
-// The two score tiles of one (q tile, key tile) pair summed over the d / 64
-// chunks of stages full[i0 % R ..]: one chunk's products in flight while the
-// next is issued, each stage released (one arrival per warp) once its
-// products are done.
-template <typename T>
-__device__ __forceinline__ void stream_scores(float (&acc_a)[32], float (&acc_b)[32],
-                                              const unsigned char* ring, uint64_t* full,
-                                              uint64_t* empty, int i0, int nc, int lane) {
-  constexpr int R = kWideRing;
-  for (int c = 0; c < nc; ++c) {
-    const int i = i0 + c, st = i % R;
-    mbar_wait(&full[st], ring_parity(i, R));
-    hold(acc_a);
-    hold(acc_b);
-    wgmma_fence();
-    chunk_products<T>(acc_a, acc_b, ring + st * 4 * kWideBoxBytes, c == 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-    hold(acc_a);
-    hold(acc_b);
-    if (c > 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(i - 1) % R]);
+// The byte offset of elements (a, 4 f .. 4 f + 3) of a 16-bit [64][64] tile
+// in a TMA box's 128-byte swizzle, as wgmma reads a K-major operand.
+__device__ __forceinline__ int tile16_at(int a, int f) {
+  return a * 128 + (((f >> 1) ^ (a & 7)) << 4) + ((f & 1) << 3);
+}
+
+__device__ __forceinline__ float4 add4(float4 x, float4 y) {
+  return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+}
+
+// A warpgroup's m64n64 accumulator (rows 16 w + lane / 4 and 8 more,
+// columns 8 j + 2 (lane % 4) and the next) into an exchange tile (xs_at).
+__device__ __forceinline__ void store_partial(float* xs, const float (&acc)[32], int warp,
+                                              int lane) {
+  const int r = warp * 16 + lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // columns 8 j + 2 tq (+1): float4 2 j + tq / 2, its floats 2 (tq % 2) (+1)
+      *reinterpret_cast<float2*>(xs + xs_at(r + 8 * h, 2 * j + tq / 2) + 2 * (tq % 2)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-  wgmma_wait<0>();
-  hold(acc_a);
-  hold(acc_b);
-  __syncwarp();
-  if (lane == 0) mbar_arrive(&empty[(i0 + nc - 1) % R]);
 }
 
-// dQ at a head dim above 576 on the tensor cores. blockIdx.x: (batch, head)
-// row; blockIdx.y: 64-row q tile, heaviest first under a plain causal mask
-// (with a window or none, every tile walks about as far: in order);
-// blockIdx.z: the slab of dQ. TRI: the triangle; else the general masks of
-// Params. The general pair's segment ids come through a ring of their own
-// (SS stages of the key tile's 64 ids and their range), which every lane of
-// the producer warp stages for every key tile of the walk: a key tile whose
-// documents cannot meet the q tile's is skipped before its chunks load (each
-// dead pair would cost d / 64 chunk loads), the consumers reading the same
-// range to skip it too.
+// The cluster's exchange of one tile pair in the 16-bit pair above 576.
+// Every CTA holds its partial S and dP (dK/dV: S^T and dP^T) over its own
+// columns in the two f32 tiles at xs (xs_at). CTA `rank` of c sums rows [64
+// rank / c, 64 (rank + 1) / c) of every CTA's partials in rank order (the
+// same bits every run), `form`s P and dS of each float4 there (the rows' or
+// columns' lse and delta, the masks), rounded to T, and stores them into
+// every CTA's 16-bit tiles: P over the first f32 tile, dS over the second
+// (DQ: dS over the first, no P). Two cluster barriers (the partials written;
+// the tiles written, so the partials read) and one of the CTA between a
+// rank's reads and its stores, whose rows lie over the f32 rows it reads.
+template <typename T, bool DQ, typename Form>
+__device__ __forceinline__ void exchange16(unsigned char* xs_bytes, int c, Form form) {
+  float* xs = reinterpret_cast<float*>(xs_bytes);
+  cluster_sync();
+  const int rank = static_cast<int>(cluster_rank());
+  const int a0 = kTile * rank / c, a1 = kTile * (rank + 1) / c;
+  const int owned = (a1 - a0) * (kTile / 4);
+  uint2 pv[kWideXchItems], dv[kWideXchItems];
+#pragma unroll
+  for (int k = 0; k < kWideXchItems; ++k) {
+    const int i = static_cast<int>(threadIdx.x) + kWideThreads * k;
+    pv[k] = dv[k] = make_uint2(0u, 0u);
+    if (i >= owned) continue;
+    const int a = a0 + i / (kTile / 4), f = i % (kTile / 4);
+    const int at = xs_at(a, f);
+    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f), d4 = s4;
+#pragma unroll
+    for (int r = 0; r < kF32WideCluster; ++r) {
+      if (r < c) s4 = add4(s4, ld_cluster4(cluster_addr(xs + at, r)));
+    }
+#pragma unroll
+    for (int r = 0; r < kF32WideCluster; ++r) {
+      if (r < c) d4 = add4(d4, ld_cluster4(cluster_addr(xs + kTile * kTile + at, r)));
+    }
+    form(a, f, s4, d4, pv[k], dv[k]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kWideXchItems; ++k) {
+    const int i = static_cast<int>(threadIdx.x) + kWideThreads * k;
+    if (i >= owned) continue;
+    const int at = tile16_at(a0 + i / (kTile / 4), i % (kTile / 4));
+    for (int r = 0; r < c; ++r) {
+      const uint32_t x = cluster_addr(xs_bytes + at, r);
+      if (DQ) {
+        st_cluster2(x, dv[k]);
+      } else {
+        st_cluster2(x, pv[k]);
+        st_cluster2(x + kTile * kTile * 4, dv[k]);
+      }
+    }
+  }
+  fence_proxy_async();
+  cluster_sync();
+}
+
+// The walk of a tile pair's items in a 16-bit CTA above 576: nf foreign
+// chunks (SlabCols), then the halves of its slab (two boxes each: dQ's
+// 256 columns two halves, dK/dV's 128 one) from the half of its first own
+// box b_own on. Stage layouts: a foreign chunk's four boxes are the own
+// side's two (dQ: Q, dO; dK/dV: K, V), then the streamed side's (dQ: K, V;
+// dK/dV: Q, dO); half h of the slab is the streamed side's boxes 2 h and 2 h
+// + 1 of its first tensor, then of its second (only the own boxes load).
+// The resident boxes are the own side's slab, its first tensor's NB boxes
+// then its second's.
+template <int W>
+struct WideItems {
+  static constexpr int NB = W / kWideBox;  // boxes of a slab
+  int nf, b_own, h0, ni;
+  __device__ explicit WideItems(const SlabCols<W>& cols)
+      : nf(cols.nf),
+        b_own((cols.own0 - cols.g0) / kWideBox),
+        h0(b_own / 2),
+        ni(cols.nf + (cols.owns() ? NB / 2 - b_own / 2 : 0)) {}
+  // the half of the slab that item `it` holds (it >= nf), and its first box
+  __device__ int half(int it) const { return h0 + it - nf; }
+  __device__ int first_box(int it) const { return max(2 * half(it), b_own); }
+};
+
+// TMA of item `it` into `stage` on barrier `bar`: the own side's rows o0 of
+// row orow (maps oa, ob) and the streamed side's rows s0 of row srow (sa,
+// sb), columns from the CTA's slab or foreign chunk.
+template <int W>
+__device__ __forceinline__ void load_item(unsigned char* stage, uint64_t* bar, int it,
+                                          const WideItems<W>& items, const SlabCols<W>& cols,
+                                          int c, const CUtensorMap* oa, const CUtensorMap* ob,
+                                          int o0, int orow, const CUtensorMap* sa,
+                                          const CUtensorMap* sb, int s0, int srow) {
+  if (it < items.nf) {
+    const int c0 = cols.foreign(it, c);
+    mbar_expect_tx(bar, 4 * kWideBoxBytes);
+    tma_load_3d(stage, oa, bar, c0, o0, orow);
+    tma_load_3d(stage + kWideBoxBytes, ob, bar, c0, o0, orow);
+    tma_load_3d(stage + 2 * kWideBoxBytes, sa, bar, c0, s0, srow);
+    tma_load_3d(stage + 3 * kWideBoxBytes, sb, bar, c0, s0, srow);
+    return;
+  }
+  const int h = items.half(it), lo = items.first_box(it);
+  mbar_expect_tx(bar, 2 * (2 * h + 2 - lo) * kWideBoxBytes);
+  for (int b = lo; b < 2 * h + 2; ++b) {
+    const int col = cols.g0 + b * kWideBox;
+    tma_load_3d(stage + (b - 2 * h) * kWideBoxBytes, sa, bar, col, s0, srow);
+    tma_load_3d(stage + (b - 2 * h + 2) * kWideBoxBytes, sb, bar, col, s0, srow);
+  }
+}
+
+// The partial score products of item `it` in `stage`: s (+)= first tensor's
+// boxes . the streamed first tensor's^T, dp (+)= the second's (a foreign
+// chunk's boxes 0 . 2^T and 1 . 3^T; a half's own boxes against the resident
+// ones); `first` starts both from zero.
+template <typename T, int W>
+__device__ __forceinline__ void item_products(float (&s)[32], float (&dp)[32],
+                                              const unsigned char* res,
+                                              const unsigned char* stage, int it,
+                                              const WideItems<W>& items, bool first) {
+  constexpr int NB = W / kWideBox;
+  const bool foreign = it < items.nf;
+  const int h = items.half(it);
+  const int lo = foreign ? 0 : items.first_box(it) - 2 * h;
+  for (int b = lo; b < (foreign ? 1 : 2); ++b) {
+    const unsigned char* as = foreign ? stage : res + (2 * h + b) * kWideBoxBytes;
+    const unsigned char* bs = foreign ? stage + 2 * kWideBoxBytes : stage + b * kWideBoxBytes;
+    const unsigned char* ap =
+        foreign ? stage + kWideBoxBytes : res + (NB + 2 * h + b) * kWideBoxBytes;
+    const unsigned char* bp =
+        foreign ? stage + 3 * kWideBoxBytes : stage + (b + 2) * kWideBoxBytes;
+    mma_box_by_box<T>(s, as, bs, first && b == lo);
+    mma_box_by_box<T>(dp, ap, bp, first && b == lo);
+  }
+}
+
+// dQ at a head dim above 576 on the tensor cores, in clusters (see the note
+// on top). blockIdx.x: q tile x (g c) + z; y and z: bh rows, walked
+// tile-major (cluster_slot; a plain causal mask's last q tile first). The
+// CTA keeps its own columns of Q and dO resident and streams the key tiles'
+// own columns of K and V; per key tile the cluster forms dS once (exchange16)
+// and each CTA runs dQ += dS . K on its slab's two halves (m64n128k16 each).
+// TRI: the triangle; else the general masks, a key tile whose documents
+// cannot meet the q tile's skipped by every CTA of the cluster (the walk
+// depends on the row, the tiles and the ids alone).
 template <typename T, bool TRI>
 __device__ __forceinline__ void dq_wide_body(const Params& p, int d, const CUtensorMap* qmap,
                                              const CUtensorMap* kmap, const CUtensorMap* vmap,
                                              const CUtensorMap* domap) {
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
-  constexpr int W = kWideDqSlab, NB = W / kWideBox;
-  constexpr int R = kWideRing, SS = kWideSlabStages;
-  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes, kSlabBytes = NB * kWideBoxBytes;
-
+  constexpr int W = kWideDqSlab, NB = W / kWideBox, R = kWideRing;
+  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
-  unsigned char* ring = base;                     // stage st: Q, dO, K and V boxes
-  unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB K boxes
-  int* kid_s = reinterpret_cast<int*>(slab_s + SS * kSlabBytes);  // general: [SS][64]
-  int* krange_s = kid_s + SS * kTile;                             // general: [SS][min, max]
-  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(kid_s)
-                                                   : reinterpret_cast<unsigned char*>(
-                                                         krange_s + 2 * SS));
-  uint64_t* empty = full + R;
-  uint64_t* sfull = empty + R;
-  uint64_t* sempty = sfull + SS;
-  uint64_t* ifull = sempty + SS;  // general: the id ring's
-  uint64_t* iempty = ifull + SS;
+  unsigned char* res = base;                            // Q's own boxes of the slab, then dO's
+  unsigned char* ring = res + 2 * NB * kWideBoxBytes;   // stage st: an item's four boxes
+  unsigned char* xs = ring + R * kStageBytes;           // the exchange
+  float2* stats = reinterpret_cast<float2*>(xs + kWideXchBytes);  // rows' (lse log2 e, delta)
+  int* ids_q = reinterpret_cast<int*>(stats + kTile);             // the rows' segment ids
+  int* ids_k = ids_q + kTile;                                     // the key tile's
+  uint64_t* full = reinterpret_cast<uint64_t*>(ids_k + kTile);
+  uint64_t* res_full = full + R;
 
+  const SlabGeo<W> geo(d);
+  const int tiles = (p.s + kTile - 1) / kTile;
+  const int2 slot =
+      cluster_slot(p.rows, tiles, geo.ctas(), TRI || (p.causal && p.window <= 0));
+  if (slot.x < 0) return;  // the whole cluster
+  const int bh = slot.x, q0 = slot.y * kTile;
+  const SlabCols<W> cols(geo, blockIdx.x % geo.ctas(), d);
+  const WideItems<W> items(cols);
   const bool causal = TRI || p.causal;
   const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
   const bool segments = !TRI && p.seg != nullptr;
-  const int bh = blockIdx.x;
-  const int q0 = (causal && window == 0 ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
-  const int own0 = blockIdx.z * W;     // the first column this CTA writes
-  const int col0 = min(own0, d - W);   // the first column of its products
-  const int nc = d / kWideBox;
-  // the key tiles some row of the q tile can see: all of them, or up to the
-  // diagonal, from the window's first key on
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / 64 : 0;
-  const int n_tiles = ((causal ? min(p.s, q0 + 64) : p.s) + 63) / 64 - t_lo;
   const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.s : nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // the key tiles some row of the q tile can see: all of them, or up to the
+  // diagonal, from the window's first key on; every warp finds the next live
+  // one itself
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+  const int t_hi = causal ? (min(p.s, q0 + kTile) + kTile - 1) / kTile : tiles;
+  const int2 qrange = segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    while (segments && t < t_hi &&
+           apart(qrange, id_range(seg, t * kTile, p.s, lane, 32, ~0u, nullptr))) {
+      ++t;
+    }
+    return t;
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < R; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 4);
-    }
-#pragma unroll
-    for (int st = 0; st < SS; ++st) {
-      mbar_init(&sfull[st], 1);
-      mbar_init(&sempty[st], 4);
-      if (!TRI) {
-        mbar_init(&ifull[st], 32);  // each staging lane's stores
-        mbar_init(&iempty[st], 4);
-      }
-    }
+    for (int st = 0; st < R; ++st) mbar_init(&full[st], 1);
+    mbar_init(res_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < kTile) {
+    const int qi = q0 + threadIdx.x;
+    float l2 = CUDART_INF_F, dl = 0.f;  // +inf keeps P = 0
+    int id = 0;
+    if (qi < p.s) {
+      const size_t at = static_cast<size_t>(bh) * p.s + qi;
+      const float lse = p.lse[at];
+      l2 = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+      dl = p.delta[at];
+      if (segments) id = seg[qi];
+    }
+    stats[threadIdx.x] = make_float2(l2, dl);
+    ids_q[threadIdx.x] = id;
   }
   __syncthreads();
 
-  if (warp == 4) {
-    // producer warp: per key tile (with segment ids, after every lane staged
-    // the tile's ids and lane 0 found the tile live), lane 0 streams the
-    // chunks of Q, dO, K and V, then loads the tile's K slab
-    if (lane == 0 || segments) {
-      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
-      const int2 qrange =
-          segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-      int n = 0;  // key tiles loaded so far
-      for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = (t_lo + t) * 64;
-        if (segments) {
-          const int is = t % SS;
-          if (t >= SS) mbar_wait(&iempty[is], ring_parity(t - SS, SS));
-          const int2 range = id_range(seg, k0, p.s, lane, 32, ~0u, kid_s + is * kTile);
-          if (lane == 0) {
-            krange_s[2 * is] = range.x;
-            krange_s[2 * is + 1] = range.y;
-          }
-          mbar_arrive(&ifull[is]);  // releases this lane's stores to the consumers
-          if (apart(qrange, range)) continue;
-        }
-        if (lane == 0) {
-          for (int c = 0; c < nc; ++c) {
-            const int i = n * nc + c, st = i % R;
-            if (i >= R) mbar_wait(&empty[st], ring_parity(i - R, R));
-            unsigned char* stage = ring + st * kStageBytes;
-            mbar_expect_tx(&full[st], kStageBytes);
-            tma_load_3d(stage, qmap, &full[st], c * kWideBox, q0, bh);
-            tma_load_3d(stage + kWideBoxBytes, domap, &full[st], c * kWideBox, q0, bh);
-            tma_load_3d(stage + 2 * kWideBoxBytes, kmap, &full[st], c * kWideBox, k0, kv_row);
-            tma_load_3d(stage + 3 * kWideBoxBytes, vmap, &full[st], c * kWideBox, k0, kv_row);
-          }
-          const int ss = n % SS;
-          if (n >= SS) mbar_wait(&sempty[ss], ring_parity(n - SS, SS));
-          mbar_expect_tx(&sfull[ss], kSlabBytes);
-          for (int b = 0; b < NB; ++b) {
-            tma_load_3d(slab_s + ss * kSlabBytes + b * kWideBoxBytes, kmap, &sfull[ss],
-                        col0 + b * kWideBox, k0, kv_row);
-          }
-        }
-        ++n;
+  // thread 0 loads the resident boxes, then the items of the walk in order,
+  // each once its stage's last reader is done (issue's bound); every warp
+  // walks the loads with it (a walk in warp 0 alone, its id reductions on a
+  // path of one warp, made ptxas serialize the general pair's wgmma)
+  int t = live_from(t_lo);
+  int pt = t, pit = 0, pidx = 0;
+  auto issue = [&](int limit) {
+    while (pidx < limit && pt < t_hi) {
+      if (threadIdx.x == 0) {
+        load_item<W>(ring + (pidx % R) * kStageBytes, &full[pidx % R], pit, items, cols, geo.c,
+                     qmap, domap, q0, bh, kmap, vmap, pt * kTile, kv_row);
+      }
+      ++pidx;
+      if (++pit == items.ni) {
+        pit = 0;
+        pt = live_from(pt + 1);
       }
     }
-    return;
+  };
+  if (threadIdx.x == 0 && cols.owns()) {
+    mbar_expect_tx(res_full, 2 * (NB - items.b_own) * kWideBoxBytes);
+    for (int b = items.b_own; b < NB; ++b) {
+      const int col = cols.g0 + b * kWideBox;
+      tma_load_3d(res + b * kWideBoxBytes, qmap, res_full, col, q0, bh);
+      tma_load_3d(res + (NB + b) * kWideBoxBytes, domap, res_full, col, q0, bh);
+    }
   }
+  if (items.ni > 0) issue(R);
+  if (cols.owns()) mbar_wait(res_full, 0);
 
-  // consumers: one warpgroup owns q rows q0 .. q0 + 63; this thread holds rows
-  // r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
-  const int tq = lane % 4;
-  const int r0 = q0 + warp * 16 + lane / 4;
   const float qscale = p.qscale, scale = p.scale;
-  float l2[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8; +inf keeps P = 0
-  int qid[2] = {0, 0};  // (segment ids) theirs
+  const int win = window > 0 ? window : INT_MAX;
+  float dq0[W / 4], dq1[W / 4], s[32], dp[32];  // dQ's two 128-column halves
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 8 * h;
-    const size_t at = static_cast<size_t>(bh) * p.s + row;
-    const float lse = row < p.s ? p.lse[at] : -CUDART_INF_F;
-    l2[h] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
-    dl[h] = row < p.s ? p.delta[at] : 0.f;
-    if (segments && row < p.s) qid[h] = seg[row];
-  }
-  // the segment ids of the q tile: one id throughout when x == y
-  const int2 qrange =
-      segments ? id_range(seg, q0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-  float dq[W / 2], s[32], dp[32];
-#pragma unroll
-  for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < W / 4; ++i) dq0[i] = dq1[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
-  int n = 0;  // key tiles computed so far
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = (t_lo + t) * 64;
-    const int is = t % SS;
-    // the general kernel's tile rule: whether the tile holds a live pair,
-    // and whether some pair needs the element mask (a key after a row,
-    // outside the window or past s, or in another document)
-    bool sees = true, masked;
+  int idx = 0;  // items consumed so far
+  while (t < t_hi) {
+    const int k0 = t * kTile;
+    if (segments && threadIdx.x < kTile) {
+      ids_k[threadIdx.x] = k0 + threadIdx.x < p.s ? seg[k0 + threadIdx.x] : 0;
+    }
+    // the tile rule: whether some pair needs the element mask (a key after a
+    // row, outside the window or past s, or in another document)
+    bool masked;
     if constexpr (TRI) {
-      masked = t == n_tiles - 1;  // the diagonal tile (the last)
+      masked = k0 == q0;  // the diagonal tile
     } else {
-      masked = (causal && k0 + 63 > q0) || (window > 0 && q0 + 63 - k0 >= window) ||
-               k0 + 64 > p.s;
+      masked = (causal && k0 + kTile - 1 > q0) || (window > 0 && q0 + kTile - 1 - k0 >= window) ||
+               k0 + kTile > p.s;
       if (segments) {
-        mbar_wait(&ifull[is], ring_parity(t, SS));
-        const int2 krange = make_int2(krange_s[2 * is], krange_s[2 * is + 1]);
-        sees = !apart(qrange, krange);
-        masked = masked || !one_doc(qrange, krange);
+        masked = masked || !one_doc(qrange, id_range(seg, k0, p.s, lane, 32, ~0u, nullptr));
       }
     }
-    if (sees) {
-      stream_scores<T>(s, dp, ring, full, empty, n * nc, nc, lane);  // S = Q.K^T, dP = dO.V^T
-      if constexpr (!TRI) {
-        if (masked) {
-          // a dead pair's score goes to -inf, so its P and dS below are 0
-          const int win = window > 0 ? window : INT_MAX;
-          const int2* kid = reinterpret_cast<const int2*>(kid_s + is * kTile);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            int2 kj = make_int2(0, 0);  // the segment ids of keys 8 j + 2 tq (+1)
-            if (segments) kj = kid[4 * j + tq];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int row = r0 + 8 * (e / 2);
-              const int key = k0 + 8 * j + 2 * tq + e % 2;
-              bool live = key < p.s && (!causal || (key <= row && row - key < win));
-              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
-              if (!live) s[4 * j + e] = -CUDART_INF_F;
-            }
-          }
-        }
-      }
-
-      // dS = P * (dP - delta) * scale, the keys after a row dropped on the
-      // triangle's diagonal tile, rounded to T as the register A operand
-      uint32_t dsa[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = r0 + 8 * (e / 2);
-          const int key = k0 + 8 * j + 2 * tq + e % 2;
-          float pe = exp2f(fmaf(s[4 * j + e], qscale, -l2[e / 2]));
-          if (TRI && masked && key > row) pe = 0.f;
-          ds[e] = pe * (dp[4 * j + e] - dl[e / 2]) * scale;
-        }
-        dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
-        dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
-      }
-
-      const int ss = n % SS;
-      mbar_wait(&sfull[ss], ring_parity(n, SS));
-      hold(dsa);
-      hold(dq);
+    // the partial S and dP over the CTA's columns, item by item
+    const unsigned char* halves[2] = {ring, ring};  // the stages of the slab's halves
+    const int first_main = idx + items.nf;
+    for (int it = 0; it < items.ni; ++it, ++idx) {
+      const int st = idx % R;
+      const unsigned char* stage = ring + st * kStageBytes;
+      mbar_wait(&full[st], ring_parity(idx, R));
+      hold(s);
+      hold(dp);
       wgmma_fence();
-      mma_frag_by_slab<T, W>(dq, dsa, slab_s + ss * kSlabBytes);  // dQ += dS.K_slab, K MN-major
+      item_products<T, W>(s, dp, res, stage, it, items, it == 0);
       wgmma_commit();
       wgmma_wait<0>();
-      hold(dq);
-      hold(dsa);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&sempty[ss]);
-      ++n;
+      hold(s);
+      hold(dp);
+      hold(dq0);
+      hold(dq1);
+      if (it >= items.nf) halves[items.half(it)] = stage;
+      // every warp's products are done: this item's stage is free unless it
+      // holds a half of the slab, which dQ += dS . K reads after the exchange
+      __syncthreads();
+      issue(min(idx + 1, first_main) + R);
     }
-    if (segments) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&iempty[is]);  // this warp is done with the tile's ids
-    }
+    store_partial(reinterpret_cast<float*>(xs), s, warp, lane);
+    store_partial(reinterpret_cast<float*>(xs) + kTile * kTile, dp, warp, lane);
+    // dS = P * (dP - delta) * scale, the masks as the tile rule says
+    auto form = [&](int a, int f, float4 s4, float4 d4, uint2&, uint2& ds) {
+      const int qi = q0 + a;
+      const float2 rs = stats[a];
+      const int qid = ids_q[a];
+      float de[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + 4 * f + e;
+        float sv = comp(s4, e);
+        if (!TRI && masked) {
+          bool live = kj < p.s && (!causal || (kj <= qi && qi - kj < win));
+          if (segments) live = live && ids_k[4 * f + e] == qid;
+          if (!live) sv = -CUDART_INF_F;
+        }
+        float pe = exp2f(fmaf(sv, qscale, -rs.x));
+        if (TRI && masked && kj > qi) pe = 0.f;
+        de[e] = pe * (comp(d4, e) - rs.y) * scale;
+      }
+      ds = make_uint2(pack2<T>(de[0], de[1]), pack2<T>(de[2], de[3]));
+    };
+    exchange16<T, true>(xs, geo.c, form);
+    hold(dq0);
+    hold(dq1);
+    wgmma_fence();
+    mma_tile_by_slab<T, W / 2>(dq0, xs, halves[0]);  // dQ += dS . K, K's boxes MN-major
+    mma_tile_by_slab<T, W / 2>(dq1, xs, halves[1]);
+    wgmma_commit();
+    t = live_from(t + 1);
   }
+  wgmma_wait<0>();
+  hold(dq0);
+  hold(dq1);
 
+  if (!cols.owns()) return;
   T* dqg = static_cast<T*>(p.dq) + static_cast<size_t>(bh) * p.s * d;
+  const int r0 = q0 + warp * 16 + lane / 4, tq = lane % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= p.s) continue;
-    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * d + col0);
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * d + cols.g0);
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
-      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
-      out[4 * j + tq] = pack2<T>(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+      const int col = cols.g0 + 8 * j;
+      if (col < cols.own0 || col >= cols.own1) continue;  // another slab's columns
+      const float* acc = j < W / 16 ? dq0 : dq1;
+      const int jj = j % (W / 16);
+      out[4 * j + tq] = pack2<T>(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
     }
   }
 }
 
-// dK/dV at a head dim above 576 on the tensor cores. blockIdx.x: kv row;
-// blockIdx.y: 64-key tile, in order; blockIdx.z: the slab of dK and dV. The
-// CTA walks, for every GQA group member, the q tiles some row of which sees
-// one of its keys: from its diagonal down (causal; to the window's last row),
-// or all of them. The general pair's q-tile ids come through an id ring as
-// in dQ, so a q tile whose documents cannot meet the key tile's is skipped
-// before its chunks load.
+// dK/dV at a head dim above 576 on the tensor cores, in clusters (see the
+// note on top). blockIdx.x: key tile x (g c) + z; y and z: kv rows, walked
+// tile-major (cluster_slot: every row's key tile 0 first). The CTA keeps its
+// own columns of K and V resident and walks, for every GQA group member, the
+// q tiles some row of which sees one of its keys, streaming their own
+// columns of Q and dO; per q tile the cluster forms P^T and dS^T once
+// (exchange16) and each CTA runs dV += P^T . dO and dK += dS^T . Q on its
+// slab (m64n128k16). TRI: the triangle; else the general masks, as dQ's.
 template <typename T, bool TRI>
 __device__ __forceinline__ void dkv_wide_body(const Params& p, int d, const CUtensorMap* qmap,
                                               const CUtensorMap* kmap, const CUtensorMap* vmap,
                                               const CUtensorMap* domap) {
   static_assert(kElem16<T>, "the tensor-core backward is bf16 or fp16");
-  constexpr int W = kWideDkvSlab, NB = W / kWideBox;
-  constexpr int R = kWideRing, SS = kWideSlabStages;
-  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes, kSlabBytes = NB * kWideBoxBytes;
-
+  constexpr int W = kWideDkvSlab, NB = W / kWideBox, R = kWideRing;
+  constexpr uint32_t kStageBytes = 4 * kWideBoxBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
-  unsigned char* ring = base;                      // stage st: K, V, Q and dO boxes
-  unsigned char* slab_s = ring + R * kStageBytes;  // stage ss: NB Q boxes, then NB dO boxes
-  float* lse_s = reinterpret_cast<float*>(slab_s + SS * 2 * kSlabBytes);  // [SS][64]
-  float* dl_s = lse_s + SS * kTile;                                        // likewise
-  int* qid_s = reinterpret_cast<int*>(dl_s + SS * kTile);  // general: [SS][64]
-  int* qrange_s = qid_s + SS * kTile;                      // general: [SS][min, max]
-  uint64_t* full = reinterpret_cast<uint64_t*>(TRI ? reinterpret_cast<unsigned char*>(qid_s)
-                                                   : reinterpret_cast<unsigned char*>(
-                                                         qrange_s + 2 * SS));
-  uint64_t* empty = full + R;
-  uint64_t* sfull = empty + R;
-  uint64_t* sempty = sfull + SS;
-  uint64_t* ifull = sempty + SS;  // general: the id ring's
-  uint64_t* iempty = ifull + SS;
+  unsigned char* res = base;                            // K's own boxes of the slab, then V's
+  unsigned char* ring = res + 2 * NB * kWideBoxBytes;   // stage st: an item's four boxes
+  unsigned char* xs = ring + R * kStageBytes;           // the exchange
+  float2* stats = reinterpret_cast<float2*>(xs + kWideXchBytes);  // q rows' (lse log2 e, delta)
+  int* ids_q = reinterpret_cast<int*>(stats + kTile);             // the q tile's segment ids
+  int* ids_k = ids_q + kTile;                                     // the keys'
+  uint64_t* full = reinterpret_cast<uint64_t*>(ids_k + kTile);
+  uint64_t* res_full = full + R;
 
+  const SlabGeo<W> geo(d);
+  const int tiles = (p.s + kTile - 1) / kTile;
+  const int2 slot = cluster_slot(p.rows, tiles, geo.ctas(), false);
+  if (slot.x < 0) return;  // the whole cluster
+  const int kv_row = slot.x, k0 = slot.y * kTile;
+  const SlabCols<W> cols(geo, blockIdx.x % geo.ctas(), d);
+  const WideItems<W> items(cols);
   const bool causal = TRI || p.causal;
-  const int window = TRI ? 0 : p.window;  // > 0: the band (the entry drops one >= s)
+  const int window = TRI ? 0 : p.window;
   const bool segments = !TRI && p.seg != nullptr;
-  const int kv_row = blockIdx.x;
-  const int k0 = blockIdx.y * 64;
-  const int own0 = blockIdx.z * W;
-  const int col0 = min(own0, d - W);
-  const int nc = d / kWideBox;
   const int group = p.heads / p.kv_heads;
-  const int q_row0 = (kv_row / p.kv_heads) * p.heads + (kv_row % p.kv_heads) * group;
-  // the q tiles that can see some key of the CTA: all of them, or from the
-  // diagonal down, to the last row inside the window of the last key
-  const int t_lo = causal ? k0 / 64 : 0;
-  const int q_end = window > 0 ? min(p.s, min(k0 + 64, p.s) - 1 + window) : p.s;
-  const int per_member = (q_end + 63) / 64 - t_lo;
-  const int n_steps = group * per_member;
-  const int* seg = segments ? p.seg + static_cast<size_t>(kv_row / p.kv_heads) * p.s : nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int b = kv_row / p.kv_heads;
+  const int* seg = segments ? p.seg + static_cast<size_t>(b) * p.s : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto q_row = [&](int m) { return b * p.heads + (kv_row % p.kv_heads) * group + m; };
+
+  // the q tiles that can see any key of this tile: from the diagonal down
+  // (causal), to the last row inside the window of the last key; walked for
+  // every member, a tile whose documents cannot meet the key tile's skipped
+  const int t_lo = causal ? k0 / kTile : 0;
+  const int t_hi =
+      window > 0 ? (min(p.s, min(k0 + kTile, p.s) - 1 + window) + kTile - 1) / kTile : tiles;
+  const int2 krange = segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  // (m, t) to the first live (member, q tile) at or after it
+  auto advance = [&](int& m, int& t) {
+    while (m < group) {
+      if (t >= t_hi) {
+        ++m;
+        t = t_lo;
+      } else if (segments &&
+                 apart(krange, id_range(seg, t * kTile, p.s, lane, 32, ~0u, nullptr))) {
+        ++t;
+      } else {
+        return;
+      }
+    }
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < R; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 4);
-    }
-#pragma unroll
-    for (int st = 0; st < SS; ++st) {
-      mbar_init(&sfull[st], 1 + 32);  // the TMA bytes, then each lane's lse and delta
-      mbar_init(&sempty[st], 4);
-      if (!TRI) {
-        mbar_init(&ifull[st], 32);  // each staging lane's stores
-        mbar_init(&iempty[st], 4);
-      }
-    }
+    for (int st = 0; st < R; ++st) mbar_init(&full[st], 1);
+    mbar_init(res_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < kTile) {
+    const int kj = k0 + threadIdx.x;
+    ids_k[threadIdx.x] = segments && kj < p.s ? seg[kj] : 0;
   }
   __syncthreads();
 
-  if (warp == 4) {
-    // producer warp: per (member, q tile) step (with segment ids, after
-    // every lane staged the tile's ids and found it live), lane 0 streams
-    // the chunks of K, V, Q and dO, then loads the Q and dO slabs; every
-    // lane stages the tile's lse (base 2; +inf past s and for a row that saw
-    // no key) and delta
-    const int2 krange =
-        segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
-    int n = 0;  // steps loaded so far
-    for (int i = 0; i < n_steps; ++i) {
-      const int q_row = q_row0 + i / per_member;
-      const int q0 = (t_lo + i % per_member) * 64;
-      if (segments) {
-        const int is = i % SS;
-        if (i >= SS) mbar_wait(&iempty[is], ring_parity(i - SS, SS));
-        const int2 range = id_range(seg, q0, p.s, lane, 32, ~0u, qid_s + is * kTile);
-        if (lane == 0) {
-          qrange_s[2 * is] = range.x;
-          qrange_s[2 * is + 1] = range.y;
-        }
-        mbar_arrive(&ifull[is]);  // releases this lane's stores to the consumers
-        if (apart(krange, range)) continue;
+  int m = 0, t = t_lo;
+  advance(m, t);
+  int pm = m, pt = t, pit = 0, pidx = 0;  // the next item to load (thread 0's)
+  auto issue = [&](int limit) {
+    while (pidx < limit && pm < group) {
+      if (threadIdx.x == 0) {
+        load_item<W>(ring + (pidx % R) * kStageBytes, &full[pidx % R], pit, items, cols, geo.c,
+                     kmap, vmap, k0, kv_row, qmap, domap, pt * kTile, q_row(pm));
       }
-      const int ss = n % SS;
-      if (lane == 0) {
-        for (int c = 0; c < nc; ++c) {
-          const int j = n * nc + c, st = j % R;
-          if (j >= R) mbar_wait(&empty[st], ring_parity(j - R, R));
-          unsigned char* stage = ring + st * kStageBytes;
-          mbar_expect_tx(&full[st], kStageBytes);
-          tma_load_3d(stage, kmap, &full[st], c * kWideBox, k0, kv_row);
-          tma_load_3d(stage + kWideBoxBytes, vmap, &full[st], c * kWideBox, k0, kv_row);
-          tma_load_3d(stage + 2 * kWideBoxBytes, qmap, &full[st], c * kWideBox, q0, q_row);
-          tma_load_3d(stage + 3 * kWideBoxBytes, domap, &full[st], c * kWideBox, q0, q_row);
-        }
+      ++pidx;
+      if (++pit == items.ni) {
+        pit = 0;
+        ++pt;
+        advance(pm, pt);
       }
-      if (n >= SS) mbar_wait(&sempty[ss], ring_parity(n - SS, SS));
-      if (lane == 0) {
-        mbar_expect_tx(&sfull[ss], 2 * kSlabBytes);
-        unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
-        for (int b = 0; b < NB; ++b) {
-          tma_load_3d(slab + b * kWideBoxBytes, qmap, &sfull[ss], col0 + b * kWideBox, q0, q_row);
-          tma_load_3d(slab + kSlabBytes + b * kWideBoxBytes, domap, &sfull[ss],
-                      col0 + b * kWideBox, q0, q_row);
-        }
-      }
-      for (int c = lane; c < kTile; c += 32) {
-        const int q = q0 + c;
-        const size_t at = static_cast<size_t>(q_row) * p.s + q;
-        const float lse = q < p.s ? p.lse[at] : -CUDART_INF_F;
-        lse_s[ss * kTile + c] = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
-        dl_s[ss * kTile + c] = q < p.s ? p.delta[at] : 0.f;
-      }
-      mbar_arrive(&sfull[ss]);  // releases this lane's stores to the consumers
-      ++n;
     }
-    return;
+  };
+  if (threadIdx.x == 0 && cols.owns()) {
+    mbar_expect_tx(res_full, 2 * (NB - items.b_own) * kWideBoxBytes);
+    for (int bb = items.b_own; bb < NB; ++bb) {
+      const int col = cols.g0 + bb * kWideBox;
+      tma_load_3d(res + bb * kWideBoxBytes, kmap, res_full, col, k0, kv_row);
+      tma_load_3d(res + (NB + bb) * kWideBoxBytes, vmap, res_full, col, k0, kv_row);
+    }
   }
+  if (items.ni > 0) issue(R);
+  if (cols.owns()) mbar_wait(res_full, 0);
 
-  // consumers: one warpgroup owns keys k0 .. k0 + 63; this thread holds keys
-  // key and key + 8 (accumulator rows) at q rows 8 j + 2 tq (+1) of a tile
-  const int tq = lane % 4;
-  const int key = k0 + warp * 16 + lane / 4;
   const float qscale = p.qscale, scale = p.scale;
-  int kid[2] = {0, 0};  // (segment ids) those of keys key and key + 8
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (segments && key + 8 * h < p.s) kid[h] = seg[key + 8 * h];
-  }
-  // the segment ids of the key tile: one id throughout when x == y
-  const int2 krange =
-      segments ? id_range(seg, k0, p.s, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  const int win = window > 0 ? window : INT_MAX;
   float dk[W / 2], dv[W / 2], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
-  int n = 0;  // steps computed so far
-  for (int i = 0; i < n_steps; ++i) {
-    const int q0 = (t_lo + i % per_member) * 64;
-    const int is = i % SS;
+  int idx = 0;  // items consumed so far
+  while (m < group) {
+    const int q0 = t * kTile;
+    if (threadIdx.x < kTile) {
+      const int qi = q0 + threadIdx.x;
+      float l2 = CUDART_INF_F, dl = 0.f;  // +inf past s and for a row that saw no key
+      int id = 0;
+      if (qi < p.s) {
+        const size_t at = static_cast<size_t>(q_row(m)) * p.s + qi;
+        const float lse = p.lse[at];
+        l2 = lse == -CUDART_INF_F ? CUDART_INF_F : lse * kLog2e;
+        dl = p.delta[at];
+        if (segments) id = seg[qi];
+      }
+      stats[threadIdx.x] = make_float2(l2, dl);
+      ids_q[threadIdx.x] = id;
+    }
     // the tile rule, as in dQ: a row before a key or outside the window, or
     // in another document (rows past s have P = 0 from their lse, and keys
     // past s are never written)
-    bool sees = true, masked;
+    bool masked;
     if constexpr (TRI) {
-      masked = q0 == k0;  // the diagonal tile (the first)
+      masked = q0 == k0;  // the diagonal tile
     } else {
-      masked = (causal && q0 < k0 + 63) || (window > 0 && q0 + 63 - k0 >= window);
+      masked = (causal && q0 < k0 + kTile - 1) || (window > 0 && q0 + kTile - 1 - k0 >= window);
       if (segments) {
-        mbar_wait(&ifull[is], ring_parity(i, SS));
-        const int2 qrange = make_int2(qrange_s[2 * is], qrange_s[2 * is + 1]);
-        sees = !apart(krange, qrange);
-        masked = masked || !one_doc(krange, qrange);
+        masked = masked || !one_doc(krange, id_range(seg, q0, p.s, lane, 32, ~0u, nullptr));
       }
     }
-    if (sees) {
-      stream_scores<T>(s, dp, ring, full, empty, n * nc, nc, lane);  // S^T = K.Q^T, dP^T = V.dO^T
-      if constexpr (!TRI) {
-        if (masked) {
-          // a dead pair's score goes to -inf, so its P and dS below are 0
-          const int win = window > 0 ? window : INT_MAX;
-          const int2* qid = reinterpret_cast<const int2*>(qid_s + is * kTile);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            int2 qj = make_int2(0, 0);  // the segment ids of rows 8 j + 2 tq (+1)
-            if (segments) qj = qid[4 * j + tq];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int q = q0 + 8 * j + 2 * tq + e % 2;
-              const int kk = key + 8 * (e / 2);
-              bool live = !causal || (q >= kk && q - kk < win);
-              if (segments) live = live && (e % 2 ? qj.y : qj.x) == kid[e / 2];
-              if (!live) s[4 * j + e] = -CUDART_INF_F;
-            }
-          }
-        }
-      }
-
-      const int ss = n % SS;
-      mbar_wait(&sfull[ss], ring_parity(n, SS));
-      const float2* l2 = reinterpret_cast<const float2*>(lse_s + ss * kTile);
-      const float2* dl = reinterpret_cast<const float2*>(dl_s + ss * kTile);
-      // P^T and dS^T, the rows before a key dropped on the triangle's
-      // diagonal tile
-      uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 lj = l2[4 * j + tq], dj = dl[4 * j + tq];  // rows 8 j + 2 tq (+1)
-        float pe[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = q0 + 8 * j + 2 * tq + e % 2;
-          const int kk = key + 8 * (e / 2);
-          float v = exp2f(fmaf(s[4 * j + e], qscale, -(e % 2 ? lj.y : lj.x)));
-          if (TRI && masked && q < kk) v = 0.f;
-          pe[e] = v;
-          ds[e] = v * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x)) * scale;
-        }
-        pa[j / 2][2 * (j % 2)] = pack2<T>(pe[0], pe[1]);
-        pa[j / 2][2 * (j % 2) + 1] = pack2<T>(pe[2], pe[3]);
-        dsa[j / 2][2 * (j % 2)] = pack2<T>(ds[0], ds[1]);
-        dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(ds[2], ds[3]);
-      }
-
-      const unsigned char* slab = slab_s + ss * 2 * kSlabBytes;
-      hold(pa);
-      hold(dsa);
-      hold(dv);
-      hold(dk);
+    const unsigned char* slab = ring;  // the stage of the Q and dO slab
+    const int first_main = idx + items.nf;
+    for (int it = 0; it < items.ni; ++it, ++idx) {
+      const int st = idx % R;
+      const unsigned char* stage = ring + st * kStageBytes;
+      mbar_wait(&full[st], ring_parity(idx, R));
+      hold(s);
+      hold(dp);
       wgmma_fence();
-      mma_frag_by_slab<T, W>(dv, pa, slab + kSlabBytes);  // dV += P^T.dO_slab, dO MN-major
-      mma_frag_by_slab<T, W>(dk, dsa, slab);              // dK += dS^T.Q_slab, Q MN-major
+      item_products<T, W>(s, dp, res, stage, it, items, it == 0);
       wgmma_commit();
       wgmma_wait<0>();
-      hold(dv);
+      hold(s);
+      hold(dp);
       hold(dk);
-      hold(pa);
-      hold(dsa);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&sempty[ss]);
-      ++n;
+      hold(dv);
+      if (it >= items.nf) slab = stage;
+      __syncthreads();  // every warp's products are done (see dQ)
+      issue(min(idx + 1, first_main) + R);
     }
-    if (segments) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&iempty[is]);  // this warp is done with the tile's ids
-    }
+    store_partial(reinterpret_cast<float*>(xs), s, warp, lane);
+    store_partial(reinterpret_cast<float*>(xs) + kTile * kTile, dp, warp, lane);
+    // P^T and dS^T, the rows before a key dropped on the triangle's diagonal tile
+    auto form = [&](int a, int f, float4 s4, float4 d4, uint2& pt4, uint2& ds) {
+      const int kj = k0 + a;
+      const int kid = ids_k[a];
+      float pe[4], de[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * f + e, qi = q0 + c;
+        const float2 rs = stats[c];
+        float sv = comp(s4, e);
+        if (!TRI && masked) {
+          bool live = !causal || (qi >= kj && qi - kj < win);
+          if (segments) live = live && ids_q[c] == kid;
+          if (!live) sv = -CUDART_INF_F;
+        }
+        float v = exp2f(fmaf(sv, qscale, -rs.x));
+        if (TRI && masked && qi < kj) v = 0.f;
+        pe[e] = v;
+        de[e] = v * (comp(d4, e) - rs.y) * scale;
+      }
+      pt4 = make_uint2(pack2<T>(pe[0], pe[1]), pack2<T>(pe[2], pe[3]));
+      ds = make_uint2(pack2<T>(de[0], de[1]), pack2<T>(de[2], de[3]));
+    };
+    exchange16<T, false>(xs, geo.c, form);
+    hold(dk);
+    hold(dv);
+    wgmma_fence();
+    mma_tile_by_slab<T, W>(dv, xs, slab + 2 * kWideBoxBytes);              // dV += P^T . dO
+    mma_tile_by_slab<T, W>(dk, xs + kTile * kTile * 4, slab);              // dK += dS^T . Q
+    wgmma_commit();
+    ++t;
+    advance(m, t);
   }
+  wgmma_wait<0>();
+  hold(dk);
+  hold(dv);
 
+  if (!cols.owns()) return;
   const size_t kvoff = static_cast<size_t>(kv_row) * p.s * d;
+  const int key = k0 + warp * 16 + lane / 4, tq = lane % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kj = key + 8 * h;
     if (kj >= p.s) continue;
-    const size_t at = kvoff + static_cast<size_t>(kj) * d + col0;
+    const size_t at = kvoff + static_cast<size_t>(kj) * d + cols.g0;
     auto* dkr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + at);  // T pairs
     auto* dvr = reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + at);
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
-      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
+      const int col = cols.g0 + 8 * j;
+      if (col < cols.own0 || col >= cols.own1) continue;  // another slab's columns
       dkr[4 * j + tq] = pack2<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
       dvr[4 * j + tq] = pack2<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// The four 16-bit D-streaming kernels: the triangle pair and the general pair.
+// The four 16-bit D-streaming kernels: the triangle pair and the general pair,
+// each launched in clusters of SlabGeo(d).c CTAs on the grid's x.
 template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_bwd_dq_tri_wide_kernel(Params p, int d, TC_MAPS) {
   dq_wide_body<T, true>(p, d, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_bwd_dq_rect_wide_kernel(Params p, int d, TC_MAPS) {
   dq_wide_body<T, false>(p, d, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_bwd_dkv_tri_wide_kernel(Params p, int d, TC_MAPS) {
   dkv_wide_body<T, true>(p, d, &qmap, &kmap, &vmap, &domap);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128 + 32, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_bwd_dkv_rect_wide_kernel(Params p, int d, TC_MAPS) {
   dkv_wide_body<T, false>(p, d, &qmap, &kmap, &vmap, &domap);
 }
@@ -3204,10 +3264,10 @@ int launch_f32_wide(const Params& p, int rows, int d, int smem, int split, cudaS
   const int tiles = (p.s + kF32WideTile - 1) / kF32WideTile;
   if constexpr (is_dq(K)) {
     return launch_clusters(f32_wide_kernel<K>(), cluster_grid(tiles, geo.ctas(), rows), geo.c,
-                           smem, stream, f32_wide_counts<K>(), p, d);
+                           kF32Threads, smem, stream, f32_wide_counts<K>(), p, d);
   } else {
     return launch_clusters(f32_wide_kernel<K>(), cluster_grid(tiles, geo.ctas(), rows * split),
-                           geo.c, smem, stream, f32_wide_counts<K>(), p, d, split);
+                           geo.c, kF32Threads, smem, stream, f32_wide_counts<K>(), p, d, split);
   }
 }
 
@@ -3302,18 +3362,48 @@ int launch_split_sum(const float* partials, void* dk, void* dv, size_t n, int sp
 #endif
 
 #ifdef FLASH_HEAD_DIM_WIDE
+// The 16-bit cluster kernel of K above 576.
+template <Kind K>
+auto wide16_kernel() {
+  if constexpr (K == kDqTri) {
+    return flash_bwd_dq_tri_wide_kernel<Elem16>;
+  } else if constexpr (K == kDqRect) {
+    return flash_bwd_dq_rect_wide_kernel<Elem16>;
+  } else if constexpr (K == kDkvTri) {
+    return flash_bwd_dkv_tri_wide_kernel<Elem16>;
+  } else {
+    return flash_bwd_dkv_rect_wide_kernel<Elem16>;
+  }
+}
+
+// K's answers of cudaOccupancyMaxActiveClusters (flash_cluster.cuh)
+template <Kind K>
+ClusterCounts& wide16_counts() {
+  static ClusterCounts counts;
+  return counts;
+}
+
+// How many clusters of the 16-bit kernel K at head dim d the current card
+// holds at once; a negative CUDA error code when the query fails.
+template <Kind K>
+int wide16_clusters(int d) {
+  constexpr bool kDq = is_dq(K);
+  return active_clusters(wide16_kernel<K>(), SlabGeo<kDq ? kWideDqSlab : kWideDkvSlab>(d).c,
+                         wide16_smem_bytes<kDq>(), wide16_counts<K>(), kWideThreads);
+}
+
 // Either pair in the wide library with the caller's plan: 64-row tiles, the
 // layout's shared memory, the 128-byte swizzle (16-bit, above 576) or none
 // (f32, 256 and above: the cluster pair; dK/dV's GQA walk in `split` parts).
 template <Kind K>
 int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int smem, int swizzle,
                   int split, cudaStream_t stream) {
-  constexpr bool kDq = is_dq(K), kTri = is_tri(K);
+  constexpr bool kDq = is_dq(K);
   if (block != 64) return kUnsupported;
-  const int tiles = (p.s + 63) / 64;
+  const int tiles = (p.s + kTile - 1) / kTile;
   if (dtype == kElemCode) {
-    if (!wide_head_dim(d) || split != 1 || swizzle != WideGeo::kRowBytes || tiles > 65535 ||
-        smem != (kDq ? dq_wide_smem_bytes<kTri>() : dkv_wide_smem_bytes<kTri>())) {
+    if (!wide_head_dim(d) || split != 1 || swizzle != WideGeo::kRowBytes ||
+        smem != wide16_smem_bytes<kDq>()) {
       return kUnsupported;
     }
     if (!tma_aligned({p.q, p.k, p.v, p.dout})) return kUnsupported;  // TMA needs 16-byte bases
@@ -3326,21 +3416,10 @@ int dispatch_wide(const Params& p, int dtype, int rows, int d, int block, int sm
         !encode_wide_map<Elem16>(&vmap, p.v, p.s, bh_kv, d)) {
       return kNoTensorMap;
     }
-    void (*kernel)(Params, int, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap);
-    if constexpr (K == kDqTri) {
-      kernel = flash_bwd_dq_tri_wide_kernel<Elem16>;
-    } else if constexpr (K == kDqRect) {
-      kernel = flash_bwd_dq_rect_wide_kernel<Elem16>;
-    } else if constexpr (K == kDkvTri) {
-      kernel = flash_bwd_dkv_tri_wide_kernel<Elem16>;
-    } else {
-      kernel = flash_bwd_dkv_rect_wide_kernel<Elem16>;
-    }
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int slabs = wide_slabs(d, kDq ? kWideDqSlab : kWideDkvSlab);
-    kernel<<<dim3(rows, tiles, slabs), 128 + 32, smem, stream>>>(p, d, qmap, kmap, vmap, domap);
-    return static_cast<int>(cudaGetLastError());
+    const SlabGeo<kDq ? kWideDqSlab : kWideDkvSlab> geo(d);
+    return launch_clusters(wide16_kernel<K>(), cluster_grid(tiles, geo.ctas(), rows), geo.c,
+                           kWideThreads, smem, stream, wide16_counts<K>(), p, d, qmap, kmap, vmap,
+                           domap);
   }
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
@@ -3536,6 +3615,19 @@ extern "C" int flash_bwd_dkv_ctas_per_sm(int tri, int d, int block, int smem) {
     case 256: return dkv_ctas_per_sm_at<256>(tri, block, smem);
     default: return kUnsupported;
   }
+}
+#endif
+
+#ifdef FLASH_HEAD_DIM_WIDE
+// How many clusters of the library's 16-bit kernel (dq 1: dQ, 0: dK/dV; tri
+// 1: the triangle pair's, 0: the general pair's) at head dim d (above 576,
+// a multiple of 64) the card holds at once: cudaOccupancyMaxActiveClusters
+// at its plan's shared memory and cluster size. -1 for a head dim these
+// kernels do not take, minus a CUDA error code when the query fails.
+extern "C" int flash_bwd_wide16_clusters(int dq, int tri, int d) {
+  if (!wide_head_dim(d)) return kUnsupported;
+  if (dq) return tri ? wide16_clusters<kDqTri>(d) : wide16_clusters<kDqRect>(d);
+  return tri ? wide16_clusters<kDkvTri>(d) : wide16_clusters<kDkvRect>(d);
 }
 #endif
 

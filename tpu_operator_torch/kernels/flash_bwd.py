@@ -154,10 +154,11 @@ class BwdPlan:
     other side (:func:`ring_rows`), ``col_split`` the grid's z: the CTAs
     per own-side tile, each on a column slice of the gradients. Above 576,
     and in f32 (:func:`wide_bwd_plans`), ``slab`` is the columns a CTA
-    holds, ``stages`` the depth of the ring the head dim's chunks (f32:
-    slabs) stream through and ``cluster`` the CTAs of a thread-block cluster
-    on the grid's x (f32: those that share one tile pair's S and dP, 1 up
-    to d 128); elsewhere ``slab`` and ``stages`` are 0, ``cluster`` 1.
+    holds, ``stages`` the depth of the ring the other side (16-bit: in 64 x
+    64 boxes; f32: in slabs) streams through and ``cluster`` the CTAs of a
+    thread-block cluster on the grid's x, those that share one tile pair's
+    S and dP (f32: 1 up to d 128); elsewhere ``slab`` and ``stages`` are 0,
+    ``cluster`` 1.
     ``split`` (dkv in f32 and in bf16 and fp16 up to 256, else 1) is the
     parts of the GQA walk (:func:`gqa_split`): the grid's rows
     (f32: y; 16-bit: x) hold split x kv rows, part j walking members
@@ -182,8 +183,9 @@ class BwdPlan:
     @property
     def _rows_axis(self) -> int:
         """The grid axis of the (batch, head) or kv rows: x for the 16-bit
-        kernels, y for the f32 ones."""
-        return 0 if self.swizzle else 1
+        kernels up to d 576, y for the f32 ones and every slab kernel (the
+        16-bit pair above 576 too)."""
+        return 0 if self.swizzle and not self.slab else 1
 
     @property
     def redundancy(self) -> int:
@@ -197,13 +199,13 @@ class BwdPlan:
         it: dq walks its q tiles heaviest (last) first under a plain causal
         mask and in order otherwise (every tile walks about as far), dkv its
         key tiles in order (under a causal mask the first keys see the most
-        rows). 16-bit: rows on x, tiles on y; f32 at d 16: tiles on x, rows
-        on y; other f32 (a cluster of c CTAs a tile, one at head dims up to
-        128): the launch's n-th cluster (n = x + tiles·y) takes tile rank
-        n // rows of row n % rows, tile-major (flash_bwd.cu's
-        cluster_slot)."""
+        rows). 16-bit up to d 576: rows on x, tiles on y; f32 at d 16: tiles
+        on x, rows on y; other f32 and 16-bit above 576 (a cluster of c CTAs
+        a tile, one at f32 head dims up to 128): the launch's n-th cluster
+        (n = x + tiles·y) takes tile rank n // rows of row n % rows,
+        tile-major (flash_bwd.cu's cluster_slot)."""
         heaviest_last = self.kernel == "dq" and self.causal and self.window is None
-        if self.swizzle:
+        if self.swizzle and not self.slab:
             return (x, self.grid[1] - 1 - y) if heaviest_last else (x, y)
         if not self.slab:
             return y, x
@@ -341,13 +343,13 @@ def gqa_split(plan: BwdPlan, s: int, group: int, rows: int, clusters: int) -> in
 # -DFLASH_HEAD_DIM_WIDE)
 WIDE_DQ_SLAB = 256     # columns of dQ a 16-bit CTA holds (kWideDqSlab)
 WIDE_DKV_SLAB = 128    # columns of dK and of dV a 16-bit CTA holds (kWideDkvSlab)
-WIDE_BWD_RING = 4      # stages of the chunk ring, four boxes each (kWideRing)
-WIDE_SLAB_STAGES = 2   # stages of the slab ring (kWideSlabStages)
+WIDE_BWD_RING = 4      # stages of the streamed ring, four boxes each (kWideRing)
+WIDE_THREADS = 128     # one warpgroup a 16-bit CTA (kWideThreads)
+# the exchange: a tile pair's partial S and dP, 64 x 64 f32 each, with the
+# 16-bit P and dS over them (kWideXchBytes)
+WIDE_XCH_BYTES = 2 * TILE * TILE * 4
 # the f32 pair's tiles, slabs and clusters: flash_fwd.F32_* and f32_wide_geometry
 # (flash_cluster.cuh)
-# the general pair's id ring: per slab stage the ring tile's 64 ids, their min
-# and max, and two barriers (kWideIdBytes)
-WIDE_ID_BYTES = WIDE_SLAB_STAGES * ((TILE + 2) * 4 + 2 * 8)
 # the f32 pair at head dims 32-128, one CTA a tile on a slab as wide as the
 # head, and at 16 the base library's whole-row pair: flash_fwd.F32_TILE_HEAD_DIMS,
 # F32_WHOLE_ROW_D and f32_tile_width, the forward's too
@@ -374,17 +376,20 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
     ``rect`` the general pair's under ``causal`` and ``window`` (the band as
     :func:`band` reads it). Own-side tiles and ring tiles of 64 rows;
     ``col_split`` CTAs a tile, each on a slab of ``slab`` columns of the
-    gradients. bf16 and fp16 (the general pair stages its ring tiles'
-    segment ids, ``WIDE_ID_BYTES``, whether or not the call has ids): the
-    slabs on the grid's z, each CTA forming the whole S and dP (S^T and
-    dP^T) over the head dim, so dQ does (2 slabs + 1) / 3 and dK/dV (slabs
-    + 1) / 2 times the ideal tensor-core work; one consumer warpgroup and a producer warp that streams Q,
-    dO, K and V in 64 x 64 boxes through a ring of ``stages`` (four boxes a
-    stage), and per tile the slab operand of the gradient products (dQ: K's
-    slab; dK/dV: Q's and dO's, with the rows' lse and delta) through two
-    more stages; dQ launches heaviest first under a plain causal mask, else
-    in order, dK/dV in order; both form S and dP in every slab's CTA
-    (``redundancy`` = ``col_split``). f32: the CUDA-core pair with 64-row
+    gradients, in thread-block clusters of ``cluster`` on the grid's x
+    (:func:`f32_wide_geometry` at the slab's width), which add their partial
+    S and dP through distributed shared memory, so each cluster forms a
+    tile pair's scores once (``redundancy`` g: 1 up to 8 slabs). bf16 and
+    fp16: slabs of 256 columns of dQ (3 CTAs a tile at 640 and 704, 4 at
+    1024) and 128 of dK and dV (5, 6, 8); one warpgroup a CTA (``threads``
+    128) that keeps its own columns of its own side resident (dQ: Q and dO;
+    dK/dV: K and V) and streams the other side's own columns (dQ: K and V;
+    dK/dV: Q and dO) by TMA through a ring of ``stages`` of four 64 x 64
+    boxes; per tile pair the cluster's exchange forms P and dS once in
+    shared memory, and each CTA runs its gradient products on wgmma with
+    both operands there; the same shared memory for both masks (every warp
+    reads the segment ids' range itself). Both pairs launch tile-major, the
+    longest walks first (:meth:`BwdPlan.cta`). f32: the CUDA-core pair with 64-row
     tiles, ``F32_SLAB``-column slabs and the slab CTAs of a tile
     in thread-block clusters of ``cluster`` (:func:`f32_wide_geometry`),
     which add their partial S and dP through distributed shared memory:
@@ -415,18 +420,19 @@ def wide_bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int,
         if clusters is not None:
             dkv = dkv.with_split(gqa_split(dkv, s, bh // bh_kv, bh_kv, clusters))
         return dq, dkv
-    ring, stages = WIDE_BWD_RING * 4 * WIDE_BOX_BYTES, WIDE_SLAB_STAGES
-    # the barriers, and the general pair's id ring
-    bars = 8 * (2 * WIDE_BWD_RING + 2 * stages) + (WIDE_ID_BYTES if rect else 0)
-    dq = BwdPlan("dq", TILE, 160, (bh, tiles),
-                 1024 + ring + stages * (WIDE_DQ_SLAB // TILE) * WIDE_BOX_BYTES + bars, 128,
-                 col_split=wide_slabs(d, WIDE_DQ_SLAB), slab=WIDE_DQ_SLAB, stages=WIDE_BWD_RING,
-                 **masks)
-    dkv = BwdPlan("dkv", TILE, 160, (bh_kv, tiles),
-                  1024 + ring + stages * (2 * (WIDE_DKV_SLAB // TILE) * WIDE_BOX_BYTES + 2 * TILE * 4)
-                  + bars, 128, col_split=wide_slabs(d, WIDE_DKV_SLAB), slab=WIDE_DKV_SLAB,
-                  stages=WIDE_BWD_RING, **masks)
-    return dq, dkv
+    # 16-bit: the resident slab of the own side's two tensors, the ring, the
+    # exchange, the tile's 64 (lse, delta) pairs and both sides' 64 segment
+    # ids, the ring's barriers and the resident slab's
+    fixed = (1024 + WIDE_BWD_RING * 4 * WIDE_BOX_BYTES + WIDE_XCH_BYTES + TILE * (8 + 2 * 4)
+             + 8 * (WIDE_BWD_RING + 1))
+
+    def plan(kernel: str, rows: int, slab: int) -> BwdPlan:
+        _, g, c = f32_wide_geometry(d, slab)
+        return BwdPlan(kernel, TILE, WIDE_THREADS, (tiles, rows),
+                       fixed + 2 * (slab // TILE) * WIDE_BOX_BYTES, 128, col_split=g * c,
+                       slab=slab, stages=WIDE_BWD_RING, cluster=c, **masks)
+
+    return plan("dq", bh, WIDE_DQ_SLAB), plan("dkv", bh_kv, WIDE_DKV_SLAB)
 
 
 def _bwd_plans(dtype: torch.dtype, bh: int, bh_kv: int, s: int, d: int, sms: int,
@@ -619,6 +625,21 @@ def f32_wide_active_clusters(d: int, kernel: str, tri: bool) -> int:
     n = fn(int(kernel == "dq"), int(tri), d)
     if n <= 0:
         raise RuntimeError(f"f32 wide {kernel} at head dim {d}: cluster occupancy query "
+                           f"returned {n}")
+    return n
+
+
+def wide16_active_clusters(dtype: torch.dtype, d: int, kernel: str, tri: bool) -> int:
+    """How many clusters of the bf16 or fp16 ``kernel`` ("dq" or "dkv"; the
+    triangle pair's with ``tri``) at head dim ``d`` above 576 (a multiple of
+    64) the current card holds at once: ``cudaOccupancyMaxActiveClusters``
+    at its plan's shared memory and cluster size. Raises where the query
+    fails."""
+    fn = _lib(dtype, d).flash_bwd_wide16_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    n = fn(int(kernel == "dq"), int(tri), d)
+    if n <= 0:
+        raise RuntimeError(f"{dtype} wide {kernel} at head dim {d}: cluster occupancy query "
                            f"returned {n}")
     return n
 

@@ -6,7 +6,10 @@
 // tile_scores), and included by them only when built with
 // -DFLASH_HEAD_DIM_WIDE
 // (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
-// ones, kWithF32).
+// ones, kWithF32). The slab geometry, the cluster walk and the launch
+// (SlabGeo, SlabCols, cluster_slot, launch_clusters) also serve
+// flash_bwd.cu's 16-bit pair above 576, on the tensor cores at its own slab
+// widths.
 //
 // A head dim d splits into n = ceil(d / 128) slabs of kF32WideSlab columns,
 // the last one starting at d - 128 (it overlaps the one before it where 128
@@ -47,35 +50,39 @@ __host__ __device__ constexpr bool f32_cluster_head_dim(int d) {
 }
 
 // How the CTAs of one tile split the head dim d (flash_fwd.py::
-// f32_wide_geometry): n slabs of kF32WideSlab columns, the last one starting
-// at d - kF32WideSlab, in g clusters of c CTAs (c at most kF32WideCluster:
-// one cluster when n <= 8); the grid holds g * c CTAs a tile, and those past
-// the n-th write no column.
-struct F32WideGeo {
+// f32_wide_geometry): n slabs of W columns (kF32WideSlab for the f32
+// kernels, kWideDqSlab or kWideDkvSlab for flash_bwd.cu's 16-bit pair above
+// 576), the last one starting at d - W, in g clusters of c CTAs (c at most
+// kF32WideCluster: one cluster when n <= 8); the grid holds g * c CTAs a
+// tile, and those past the n-th write no column.
+template <int W>
+struct SlabGeo {
   int n, g, c;
-  __host__ __device__ explicit F32WideGeo(int d)
-      : n(wide_slabs(d, kF32WideSlab)),
+  __host__ __device__ explicit SlabGeo(int d)
+      : n(wide_slabs(d, W)),
         g((n + kF32WideCluster - 1) / kF32WideCluster),
         c((n + g - 1) / g) {}
   __host__ __device__ int ctas() const { return g * c; }
 };
+using F32WideGeo = SlabGeo<kF32WideSlab>;  // the f32 kernels' slabs
 
 // The columns of CTA z of a tile. It writes [own0, own1) (its slab's own
 // columns, none past the n-th slab) from the slab at g0, and sums into its
 // partial scores its own columns and every c-th of the 64-column chunks its
 // cluster owns none of (the foreign chunks: none when n <= 8), so the c
 // CTAs of a cluster sum each column of d once.
-struct F32WideCols {
+template <int W>
+struct SlabCols {
   int g0, own0, own1;  // the slab's first column and the columns it writes
   int cl0, cl1;        // the columns the cluster's CTAs write
   int rank, nf;        // the rank in the cluster and the count of foreign chunks
-  __device__ F32WideCols(const F32WideGeo& geo, int z, int d) {
+  __device__ SlabCols(const SlabGeo<W>& geo, int z, int d) {
     rank = z % geo.c;
-    own0 = min(z * kF32WideSlab, d);
-    own1 = min(own0 + kF32WideSlab, d);
-    g0 = min(z * kF32WideSlab, d - kF32WideSlab);
-    cl0 = (z - rank) * kF32WideSlab;
-    cl1 = min(cl0 + geo.c * kF32WideSlab, d);
+    own0 = min(z * W, d);
+    own1 = min(own0 + W, d);
+    g0 = min(z * W, d - W);
+    cl0 = (z - rank) * W;
+    cl1 = min(cl0 + geo.c * W, d);
     const int foreign = (d - (cl1 - cl0)) / kF32WideChunk;
     nf = foreign > rank ? (foreign - rank - 1) / geo.c + 1 : 0;
   }
@@ -88,6 +95,7 @@ struct F32WideCols {
     return c0 < cl0 ? c0 : c0 + (cl1 - cl0);
   }
 };
+using F32WideCols = SlabCols<kF32WideSlab>;
 
 // A [rows][W] f32 tile in shared memory, float4 f of row r stored at float4
 // f ^ ((r >> 2) & 7) of the row: the rows 4t .. 4t + 3 read by a warp's
@@ -265,18 +273,18 @@ inline dim3 cluster_grid(int tiles, int ctas, int rows) {
   return dim3(tiles * ctas, rows < kMaxY ? rows : kMaxY, (rows + kMaxY - 1) / kMaxY);
 }
 
-// A launch of `grid` in clusters of c CTAs on x, kF32Threads threads a CTA,
-// `smem` bytes of dynamic shared memory, on `stream`; `attr` holds the
-// cluster dimension.
-inline cudaLaunchConfig_t cluster_config(dim3 grid, int c, int smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+// A launch of `grid` in clusters of c CTAs on x, `threads` a CTA, `smem`
+// bytes of dynamic shared memory, on `stream`; `attr` holds the cluster
+// dimension.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int c, int threads, int smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = c;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kF32Threads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -291,11 +299,13 @@ struct ClusterCounts {
   int known[kCachedCards][kF32WideCluster + 1] = {};
 };
 
-// How many clusters of c CTAs of `kernel` at `smem` bytes the current card
-// holds at once, asked once per card and cluster size (`counts` keeps the
-// answers); minus a CUDA error code when the query fails.
+// How many clusters of c CTAs of `kernel` (`threads` a CTA, kF32Threads
+// unless given) at `smem` bytes the current card holds at once, asked once
+// per card and cluster size (`counts` keeps the answers); minus a CUDA error
+// code when the query fails.
 template <typename... Args>
-int active_clusters(void (*kernel)(Args...), int c, int smem, ClusterCounts& counts) {
+int active_clusters(void (*kernel)(Args...), int c, int smem, ClusterCounts& counts,
+                    int threads = kF32Threads) {
   int card = 0;
   cudaError_t err = cudaGetDevice(&card);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -304,7 +314,7 @@ int active_clusters(void (*kernel)(Args...), int c, int smem, ClusterCounts& cou
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(dim3(c), c, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(c), c, threads, smem, nullptr, &attr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -312,19 +322,19 @@ int active_clusters(void (*kernel)(Args...), int c, int smem, ClusterCounts& cou
   return n;
 }
 
-// `kernel` over `grid` in clusters of c CTAs: 0, a CUDA error code, or
-// kNoCluster when no such cluster fits on the card at `smem` bytes.
+// `kernel` over `grid` in clusters of c CTAs of `threads`: 0, a CUDA error
+// code, or kNoCluster when no such cluster fits on the card at `smem` bytes.
 template <typename... Args, typename... Actual>
-int launch_clusters(void (*kernel)(Args...), dim3 grid, int c, int smem, cudaStream_t stream,
-                    ClusterCounts& counts, Actual... args) {
+int launch_clusters(void (*kernel)(Args...), dim3 grid, int c, int threads, int smem,
+                    cudaStream_t stream, ClusterCounts& counts, Actual... args) {
   const cudaError_t set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int clusters = active_clusters(kernel, c, smem, counts);
+  const int clusters = active_clusters(kernel, c, smem, counts, threads);
   if (clusters < 0) return -clusters;
   if (clusters == 0) return kNoCluster;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(grid, c, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(grid, c, threads, smem, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

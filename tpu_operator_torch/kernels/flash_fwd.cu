@@ -2084,8 +2084,8 @@ int launch_f32_cluster(const Params& p, int bh, int d, int smem, cudaStream_t st
   if (smem != f32_cluster_smem_bytes<BM>()) return kUnsupported;
   const F32WideGeo geo(d);
   return launch_clusters(flash_fwd_f32_cluster_kernel<TRI, BM>,
-                         cluster_grid((p.sq + BM - 1) / BM, geo.ctas(), bh), geo.c, smem, stream,
-                         f32_cluster_counts<TRI, BM>(), p, d);
+                         cluster_grid((p.sq + BM - 1) / BM, geo.ctas(), bh), geo.c, kF32Threads,
+                         smem, stream, f32_cluster_counts<TRI, BM>(), p, d);
 }
 
 // ---------------------------------------------------------------------------

@@ -362,29 +362,31 @@ F32_CLUSTER = 8      # the most CTAs of an f32 cluster, the portable limit (kF32
 F32_SHORT_ROWS = 16  # the q rows of an f32 forward CTA for a call of at most 16
 
 
-def f32_wide_geometry(d: int) -> Tuple[int, int, int]:
+def f32_wide_geometry(d: int, slab: int = F32_SLAB) -> Tuple[int, int, int]:
     """(n, g, c) of the f32 cluster kernels at head dim ``d``
-    (flash_cluster.cuh's ``F32WideGeo``): n slabs of ``F32_SLAB`` columns,
-    the last starting at d - slab, in g clusters of c CTAs a tile (c at most
-    ``F32_CLUSTER``: one cluster up to n = 8, d 1024); the grid holds g·c
-    CTAs a tile, those past the n-th writing nothing. Each cluster forms a
-    tile pair's scores once, so they are formed g times per tile pair."""
-    n = wide_slabs(d, F32_SLAB)
+    (flash_cluster.cuh's ``SlabGeo``): n slabs of ``slab`` columns
+    (``F32_SLAB``; the 16-bit backward pair above 576 takes its own), the
+    last starting at d - slab, in g clusters of c CTAs a tile (c at most
+    ``F32_CLUSTER``: one cluster up to n = 8, d 1024 in f32); the grid holds
+    g·c CTAs a tile, those past the n-th writing nothing. Each cluster forms
+    a tile pair's scores once, so they are formed g times per tile pair."""
+    n = wide_slabs(d, slab)
     g = -(-n // F32_CLUSTER)
     return n, g, -(-n // g)
 
 
-def f32_wide_columns(d: int, z: int) -> Tuple[range, List[int]]:
+def f32_wide_columns(d: int, z: int, slab: int = F32_SLAB) -> Tuple[range, List[int]]:
     """The columns CTA ``z`` of a tile writes (its slab's own: the write
     rule, none past the n-th slab) and the columns it sums into its partial
-    scores (flash_cluster.cuh's ``F32WideCols``): its own, and every c-th of
+    scores (flash_cluster.cuh's ``SlabCols``): its own, and every c-th of
     the 64-column chunks its cluster writes none of, from its rank on; so
-    the CTAs of one cluster sum each column of ``d`` once."""
-    _, _, c = f32_wide_geometry(d)
+    the CTAs of one cluster sum each column of ``d`` once. ``slab`` as
+    :func:`f32_wide_geometry`'s."""
+    _, _, c = f32_wide_geometry(d, slab)
     rank = z % c
-    own = range(min(z * F32_SLAB, d), min(z * F32_SLAB + F32_SLAB, d))
-    first = (z - rank) * F32_SLAB
-    cluster = range(first, min(first + c * F32_SLAB, d))
+    own = range(min(z * slab, d), min(z * slab + slab, d))
+    first = (z - rank) * slab
+    cluster = range(first, min(first + c * slab, d))
     foreign = [c0 for c0 in range(0, d, F32_CHUNK) if c0 not in cluster]
     summed = list(own) + [col for c0 in foreign[rank::c] for col in range(c0, c0 + F32_CHUNK)]
     return own, summed

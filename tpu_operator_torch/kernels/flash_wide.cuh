@@ -54,6 +54,27 @@ __device__ __forceinline__ void mma_frag_by_slab(float (&acc)[N / 2], const uint
   }
 }
 
+// acc += A(smem, K-major: a 64 x 64 box, rows M, contracted over its 64
+// columns) . B(smem, MN-major: a slab of N / 64 boxes of 64 rows side by
+// side, contracted over its 64 rows): the backward's gradient products above
+// 576 with P^T, dS^T or dS formed in shared memory by the cluster's exchange.
+template <typename T, int N>
+__device__ __forceinline__ void mma_tile_by_slab(float (&acc)[N / 2], const unsigned char* tile,
+                                                 const unsigned char* slab) {
+  static_assert(N == 128 || N == 256, "a slab of two or four boxes");
+#pragma unroll
+  for (int kk = 0; kk < kWideBox / 16; ++kk) {
+    const uint64_t da = make_desc(tile + kk * 32, 16, WideGeo::kAtom, WideGeo::kLayout);
+    const uint64_t db = make_desc(slab + kk * 16 * WideGeo::kRowBytes, kWideBoxBytes,
+                                  WideGeo::kAtom, WideGeo::kLayout);
+    if constexpr (N == 128) {
+      wgmma_ss_t_n128<T>(acc, da, db, 1);
+    } else {
+      wgmma_ss_t_n256<T>(acc, da, db, 1);
+    }
+  }
+}
+
 // A 3-D map over a contiguous (rows, s, d) tensor of T with d a runtime
 // multiple of 64: boxes of 64 rows x 64 columns, 128B swizzle; rows past s
 // read as zero.
