@@ -125,7 +125,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
    (1,1024,4,2048) triangle forward; ``WIDE_CLUSTER_BWD_CASES``, from a
    generator of their own: the bf16 triangle pair at (1,1024,4,2048), two
    clusters a tile, and at (1,4096,8,1024) with 8 kv heads, each 16-bit row
-   above 576 with its clusters resident), each
+   above 576 with its clusters resident; ``WIDE_CLUSTER_FWD_CASES``, from a
+   generator of their own: the bf16 general forward at phase 19's packed
+   step's shapes, (1,8192,8,1024) with one kv head in two documents and
+   under a window of 128; each 16-bit forward above 576 with its slab
+   clusters and how many the card holds at once, held to the same bits in
+   two runs), each
    row naming the SDPA backend that answered its library call; then
    the validator payload ``run_flash_attention_check()``;
 4. burn-in — the flagship forward (``entry(use_flash_attention=True)``)
@@ -1520,6 +1525,19 @@ WIDE_CLUSTER_BWD_CASES = [
          inner=1),
 ]
 
+# and the general forward at phase 19's packed step's shapes ((1,8192,8,1024)
+# with one kv head, two documents, and under a window of 128), from a
+# generator of their own (WIDE_CLUSTER_FWD_SEED), so every other row of phase
+# 3 keeps the inputs it had before them
+WIDE_CLUSTER_FWD_SEED = 20261020
+WIDE_CLUSTER_FWD_CASES = [
+    dict(kernel="flash_fwd_rect",
+         label="head dim 1024 packed 2 segments bf16 (1,8192,8,1024) h_kv 1", q=WIDE_Q, h_kv=1,
+         dtype=torch.bfloat16, causal=True, packed=2, inner=2),
+    dict(kernel="flash_fwd_rect", label="head dim 1024 window 128 bf16 (1,8192,8,1024) h_kv 1",
+         q=WIDE_Q, h_kv=1, dtype=torch.bfloat16, causal=True, window=128, inner=2),
+]
+
 
 def _bwd_setup(case, q, k, v, seg, dout) -> dict:
     """A backward case's launches on (q, k, v, dout) in their dtype: the
@@ -2060,11 +2078,15 @@ def phase_kernels() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(20260818)
     tile_gen = torch.Generator(device="cuda").manual_seed(F32_TILE_SEED)
+    cluster_gen = torch.Generator(device="cuda").manual_seed(WIDE_CLUSTER_FWD_SEED)
     results = []
     for case in (KERNEL_CASES + HEAD_DIM_KERNEL_CASES + FLOAT16_KERNEL_CASES
                  + HEAD_DIM_512_KERNEL_CASES + HEAD_DIM_576_KERNEL_CASES + WIDE_KERNEL_CASES
-                 + F32_TILE_KERNEL_CASES):
-        q, k, v, seg = _case_inputs(case, tile_gen if case in F32_TILE_KERNEL_CASES else gen)
+                 + WIDE_CLUSTER_FWD_CASES + F32_TILE_KERNEL_CASES):
+        rows_gen = tile_gen if case in F32_TILE_KERNEL_CASES else gen
+        if case in WIDE_CLUSTER_FWD_CASES:
+            rows_gen = cluster_gen
+        q, k, v, seg = _case_inputs(case, rows_gen)
         b, sq, h, d = case["q"]
         h_kv = case.get("h_kv", h)
         kern, plain, plain_args = _fwd_setup(case, q, k, v, seg)
@@ -2110,6 +2132,19 @@ def phase_kernels() -> list:
                 f" (at {row['other_block_m']} rows: {row['other_ms']:.5f} ms)"
                 if "other_block_m" in row else " (no other tile height at this head dim)")
         width = flash_fwd.padded_head_dim(d)
+        if case["dtype"] in TENSOR_CORE_DTYPES and flash_fwd.is_wide(width):
+            # the slab clusters of the 16-bit forward above 576 resident on the card at once
+            row["clusters"] = flash_fwd.f32_wide_geometry(width, flash_fwd.WIDE_SLAB)[2]
+            row["active_clusters"] = flash_fwd.wide_active_clusters(
+                case["dtype"], width, case["kernel"] == "flash_fwd_tri")
+            rate += f", clusters of {row['clusters']} resident {row['active_clusters']}"
+            # every rank adds the partials in rank order: two runs give the same bits
+            (out_a, lse_a), (out_b, lse_b) = kern(), kern()
+            torch.cuda.synchronize()
+            if not (torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)):
+                raise RuntimeError(f"{case['kernel']} [{case['label']}]: two runs differ")
+            del out_a, lse_a, out_b, lse_b
+            rate += ", two runs bit for bit"
         if case["dtype"] == torch.float32 and width > flash_fwd.F32_WHOLE_ROW_D:
             # the f32 forward's thread-block clusters (at 32-128: CTAs, a
             # cluster of one) resident on the card at once

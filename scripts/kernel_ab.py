@@ -2,7 +2,8 @@
 """Device time of a family of kernels in this tree and in another checkout
 of the repository, on one card, in turns.
 
-    python3 scripts/kernel_ab.py OTHER_TREE --family fwd_rect|fwd_16|fwd_f32|bwd_f32|bwd_16|bwd_wide
+    python3 scripts/kernel_ab.py OTHER_TREE
+        --family fwd_rect|fwd_16|fwd_wide|fwd_f32|bwd_f32|bwd_16|bwd_wide
         [--match REGEX] [--json PATH]
 
 OTHER_TREE is another checkout (for example an earlier commit unpacked with
@@ -16,6 +17,10 @@ OTHER_TREE is another checkout (for example an earlier commit unpacked with
   tree's ``chip_smoke`` forward tables (``KERNEL_CASES``,
   ``HEAD_DIM_KERNEL_CASES``, ``FLOAT16_KERNEL_CASES``), held to
   ``attention_plain`` at phase 3's bars (O 2e-2, lse 1e-3);
+- ``fwd_wide``: both 16-bit forwards (``flash_fwd_tri``, ``flash_fwd_rect``)
+  at every bf16 and fp16 case above head dim 576 (padded) in this tree's
+  ``chip_smoke`` (``WIDE_KERNEL_CASES``, ``WIDE_CLUSTER_FWD_CASES``), held
+  as ``fwd_16``'s;
 - ``fwd_f32``: both f32 forwards (``flash_fwd_tri``, ``flash_fwd_rect``) at
   every f32 case in this tree's ``chip_smoke`` forward tables
   (``KERNEL_CASES``, ``HEAD_DIM_KERNEL_CASES``,
@@ -113,6 +118,14 @@ def _fwd_16(smoke) -> dict:
                         and flash_fwd.padded_head_dim(c["q"][3]) <= 256], smoke.BF16_TOL)
 
 
+def _fwd_wide(smoke) -> dict:
+    """Both 16-bit forwards' cases above head dim 576 (padded)."""
+    import torch
+
+    tables = smoke.WIDE_KERNEL_CASES + smoke.WIDE_CLUSTER_FWD_CASES
+    return _fwd(smoke, [c for c in tables if c["dtype"] != torch.float32], smoke.BF16_TOL)
+
+
 def _fwd_f32(smoke) -> dict:
     """Both f32 forwards' cases at every head dim."""
     import torch
@@ -200,6 +213,7 @@ def _bwd_wide(smoke) -> dict:
 FAMILIES = {
     "fwd_rect": (_fwd_rect, ("ms",), "flash_fwd"),
     "fwd_16": (_fwd_16, ("ms",), "flash_fwd"),
+    "fwd_wide": (_fwd_wide, ("ms",), "flash_fwd"),
     "fwd_f32": (_fwd_f32, ("ms",), "flash_fwd"),
     "bwd_f32": (_bwd_f32, ("dq_ms", "dkv_ms"), "flash_bwd"),
     "bwd_16": (_bwd_16, ("dq_ms", "dkv_ms"), "flash_bwd"),

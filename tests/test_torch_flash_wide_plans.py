@@ -67,9 +67,10 @@ def test_the_slab_count_is_the_head_dim_over_the_slab(dtype, d):
         owned = collections.Counter(c for z, s0 in enumerate(starts)
                                     for c in range(max(s0, z * plan.slab), s0 + plan.slab))
         assert set(owned) == set(range(d)) and set(owned.values()) == {1}, name
-        # 16-bit: the chunk ring's 4 stages; f32: the 2-stage slab ring of
-        # the cluster kernels (forward and backward)
-        assert plan.stages == (4 if dtype != F32 else 2), name
+        # 16-bit: the backward's ring of 4 stages, the forward's K and V rings
+        # of 2; f32: the 2-stage slab ring of the cluster kernels (forward and
+        # backward)
+        assert plan.stages == (4 if dtype != F32 and name[0] == "d" else 2), name
 
 
 def test_wide_plans_by_hand():
@@ -78,10 +79,14 @@ def test_wide_plans_by_hand():
     hand."""
     box = 64 * 64 * 2
     p = _wide_plans(BF16, 1024)
-    # slack + 4 stages of a Q and a K box + 2 stages of a 4-box V slab + 2 x 66
-    # key ids + 12 barriers
+    # the forward in slab clusters: slack + the resident own Q slab (4 boxes) +
+    # 2 stages of 4 K boxes + 2 stages of 4 V boxes + two 64 x 64 f32 partial
+    # S buffers + two 16-bit P tiles with 64 (correction, sum) pairs each + 5
+    # barriers; the general kernel the same (every warp reads the segment ids
+    # itself)
     assert p["fwd tri"].smem_bytes == p["fwd rect"].smem_bytes == (
-        1024 + 4 * 2 * box + 2 * 4 * box + 2 * 66 * 4 + 12 * 8) == 132_720
+        1024 + 4 * box + 2 * 4 * box + 2 * 4 * box + 2 * 64 * 64 * 4 + 2 * (box + 64 * 8)
+        + 5 * 8) == 215_080
     # the backward pair in slab clusters: slack + the resident own slab (dQ:
     # 4 Q and 4 dO boxes) + 4 stages of 4 streamed boxes + the exchange's two
     # 64 x 64 f32 tiles + 64 (lse, delta) and 2 x 64 ids + 5 barriers
@@ -91,9 +96,10 @@ def test_wide_plans_by_hand():
     assert p["dkv tri"].smem_bytes == 231_464 - 4 * box == 198_696
     # the general pair the same (every warp reads the segment ids' range itself)
     assert p["dq rect"].smem_bytes == 231_464 and p["dkv rect"].smem_bytes == 198_696
-    assert [p[k].threads for k in p] == [160, 160, 128, 128, 128, 128]
+    assert [p[k].threads for k in p] == [128, 128, 128, 128, 128, 128]
     assert [p[k].col_split for k in p] == [4, 4, 4, 8, 4, 8]
-    assert [p[k].cluster for k in p] == [1, 1, 4, 8, 4, 8]
+    assert [p[k].cluster for k in p] == [4, 4, 4, 8, 4, 8]
+    assert (p["fwd tri"].stages, p["fwd tri"].slab) == (2, 256)
     assert p["fwd tri"].grid == (16, 16) and p["dq tri"].grid == (16, 16)
     assert p["dkv tri"].grid == (16, 8)
     assert p["dq rect"].grid == (16, 16) and p["dkv rect"].grid == (16, 8)
@@ -121,20 +127,24 @@ def test_wide_plans_by_hand():
 
 
 def test_redundant_work_factors():
-    """The forward's every slab CTA forms the whole score tile: (n + 1) / 2 of
-    the ideal tensor-core work (S and P.V once each), n the slab count. The
-    backward pair's clusters form S and dP once per cluster: dQ (2 g + n) /
-    (n + 2) (S, dP and dQ: S and dP g times, each CTA's dQ on its slab), dK/dV
-    (2 g + 2 n) / (2 n + 2) (S, dP, dV, dK), g the clusters a tile: the ideal
-    up to 8 slabs."""
+    """Every kernel's clusters form the score tiles once per cluster, in
+    units of one slab's product: the forward (g n + n) / 2 n = (g + 1) / 2 of
+    the ideal tensor-core work (S g times over the whole head, each CTA's P.V
+    on its slab); dQ (2 g + n) / (n + 2) (S, dP and dQ: S and dP g times,
+    each CTA's dQ on its slab), dK/dV (2 g + 2 n) / (2 n + 2) (S, dP, dV,
+    dK); n the slab count, g the clusters a tile: the ideal up to 8 slabs
+    (before the forward's clusters every forward slab CTA formed the whole
+    S: (n + 1) / 2, 2.5 at 1024)."""
     def factors(d):
         p = _wide_plans(BF16, d)
-        n_f, n_q, n_kv = p["fwd tri"].col_split, p["dq tri"].col_split, p["dkv tri"].col_split
+        n_q, n_kv = p["dq tri"].col_split, p["dkv tri"].col_split
+        g_f = p["fwd tri"].col_split // p["fwd tri"].cluster
         g_q, g_kv = p["dq tri"].redundancy, p["dkv tri"].redundancy
-        return (n_f + 1) / 2, (2 * g_q + n_q) / (n_q + 2), (2 * g_kv + 2 * n_kv) / (2 * n_kv + 2)
-    assert factors(640) == (2.0, 1.0, 1.0)
-    assert factors(1024) == (2.5, 1.0, 1.0)
-    assert factors(4096)[1:] == ((2 * 2 + 16) / 18, (2 * 4 + 64) / 66)
+        return (g_f + 1) / 2, (2 * g_q + n_q) / (n_q + 2), (2 * g_kv + 2 * n_kv) / (2 * n_kv + 2)
+    assert factors(640) == (1.0, 1.0, 1.0)
+    assert factors(1024) == (1.0, 1.0, 1.0)
+    assert factors(2048) == (1.0, 1.0, (2 * 2 + 32) / 34)
+    assert factors(4096) == (1.5, (2 * 2 + 16) / 18, (2 * 4 + 64) / 66)
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 100, 1000])
@@ -253,7 +263,12 @@ def test_wide_plan_constants_match_the_cuda_sources():
            "d % kWideBox == 0; }" in wide
     assert f"constexpr int kWideSlab = {flash_fwd.WIDE_SLAB};" in fwd
     assert f"constexpr int kWideRing = {flash_fwd.WIDE_RING};" in fwd
-    assert f"constexpr int kWideVStages = {flash_fwd.WIDE_V_STAGES};" in fwd
+    assert f"constexpr int kWideThreads = {flash_fwd.WIDE_THREADS};" in fwd
+    assert "constexpr int kWidePartFloats = kRingRows * kRingRows;" in fwd
+    assert flash_fwd.WIDE_PART_BYTES == 64 * 64 * 4
+    assert ("return kSmemAlign + (1 + 2 * kWideRing) * (kWideSlab / kWideBox) * kWideBoxBytes +\n"
+            "         2 * kWidePartFloats * 4 + 2 * (kWideBoxBytes + kRingRows * 8) + "
+            "8 * (2 * kWideRing + 1);") in fwd
     assert f"constexpr int kWideDqSlab = {flash_bwd.WIDE_DQ_SLAB};" in bwd
     assert f"constexpr int kWideDkvSlab = {flash_bwd.WIDE_DKV_SLAB};" in bwd
     assert f"constexpr int kWideRing = {flash_bwd.WIDE_BWD_RING};" in bwd

@@ -1675,12 +1675,6 @@ static_assert(f32_wide_smem_bytes<true>() <= 232448, "past the shared memory a b
 // Wait for stage `st` of a ring (its phase n / stages), as both roles do.
 __device__ __forceinline__ uint32_t ring_parity(int n, int stages) { return (n / stages) & 1; }
 
-// Whether two sides' segment-id ranges (id_range's min and max over their
-// positions inside s) are one document each, and whether they are two
-// different ones: then the pair of tiles holds no live pair.
-__device__ __forceinline__ bool one_doc(int2 a, int2 b) { return a.x == a.y && b.x == b.y; }
-__device__ __forceinline__ bool apart(int2 a, int2 b) { return one_doc(a, b) && a.x != b.x; }
-
 // The float offset of X[a][4 f .. 4 f + 3] in an f32 tile of the 16-bit
 // exchange: two halves of 32 columns, row a of a half at 32 a floats, its
 // eight float4s swizzled by a & 7 as a 128-byte TMA box swizzles a 16-bit
@@ -1688,16 +1682,6 @@ __device__ __forceinline__ bool apart(int2 a, int2 b) { return one_doc(a, b) && 
 // a over X's row a alone, which only the rank that owns row a reads.
 __device__ __forceinline__ int xs_at(int a, int f) {
   return (f >> 3) * (kTile * 32) + a * 32 + (((f & 7) ^ (a & 7)) << 2);
-}
-
-// The byte offset of elements (a, 4 f .. 4 f + 3) of a 16-bit [64][64] tile
-// in a TMA box's 128-byte swizzle, as wgmma reads a K-major operand.
-__device__ __forceinline__ int tile16_at(int a, int f) {
-  return a * 128 + (((f >> 1) ^ (a & 7)) << 4) + ((f & 1) << 3);
-}
-
-__device__ __forceinline__ float4 add4(float4 x, float4 y) {
-  return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
 }
 
 // A warpgroup's m64n64 accumulator (rows 16 w + lane / 4 and 8 more,

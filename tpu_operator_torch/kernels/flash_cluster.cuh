@@ -8,8 +8,8 @@
 // (kernels/build.py's *_wide libraries; the f32 kernels live in the bf16
 // ones, kWithF32). The slab geometry, the cluster walk and the launch
 // (SlabGeo, SlabCols, cluster_slot, launch_clusters) also serve
-// flash_bwd.cu's 16-bit pair above 576, on the tensor cores at its own slab
-// widths.
+// flash_bwd.cu's 16-bit pair and flash_fwd.cu's 16-bit forwards above 576,
+// on the tensor cores at their own slab widths.
 //
 // A head dim d splits into n = ceil(d / 128) slabs of kF32WideSlab columns,
 // the last one starting at d - 128 (it overlaps the one before it where 128
@@ -115,6 +115,9 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 }
 __device__ __forceinline__ float4 scale4(float4 v, float m) {
   return make_float4(v.x * m, v.y * m, v.z * m, v.w * m);
+}
+__device__ __forceinline__ float4 add4(float4 x, float4 y) {
+  return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
 }
 
 // Rows [r0, r0 + R) and columns [c0, c0 + W) of an (s, d) f32 matrix into a

@@ -88,20 +88,37 @@
 // the 232,448 a block may use: 576 is the widest head this design holds.
 // Above 576 (flash_fwd_wide_kernel<T, TRI>; its own library, built with
 // -DFLASH_HEAD_DIM_WIDE, the head dim a runtime multiple of 64 and the
-// helpers in flash_wide.cuh): the reduction over D streams. A CTA owns 64 q
-// rows and one slab of kWideSlab = 256 columns of O (the grid's z; the last
+// helpers in flash_wide.cuh and flash_cluster.cuh): a CTA is one warpgroup
+// that owns 64 q rows and one slab of kWideSlab = 256 columns of O (the last
 // slab starts at D - 256 so that every CTA runs the same m64n256k16 P.V, and
-// writes only the columns no earlier slab owns). Per 64-key tile the
-// producer warp loads the tile's V slab (four boxes) into a two-stage ring,
-// then streams Q and K in 64 x 64 boxes through a four-stage ring; the
-// consumer warpgroup sums S over the D / 64 chunks (one chunk's wgmma in
-// flight while the next is issued, each stage released once its products
-// are done), then runs the general kernel's tile rule, softmax and P.V.
-// Every slab's CTA forms the whole S: (slabs + 1) / 2 times the ideal
-// tensor-core work (2.5x at 1024), and Q, K and V are read from L2 once per
-// key tile per slab. 132,720 bytes of shared memory; the triangle is the
-// same body with its q tiles heaviest first. (f32 there: the cluster
-// kernels, below.)
+// writes only the columns no earlier slab owns), and the slab CTAs of a q
+// tile are one thread-block cluster (SlabGeo: 3 CTAs at 640 and 704, 4 at
+// 1024, 8 at 2048; above 8 slabs g = ceil(n / 8) clusters a q tile, each
+// also summing the 64-column chunks none of its CTAs owns, SlabCols). A CTA
+// keeps its own columns of the q tile's Q resident (TMA, once) and streams
+// only its own columns of each key tile's K and V in 64 x 64 boxes through a
+// two-stage K ring and a two-stage V ring (a foreign chunk is a Q and a K box
+// in a K stage); thread 0 issues the TMA and every warp walks the loads with
+// it. Per key tile each CTA forms a partial S over its columns on wgmma and
+// stores it in f32; CTA `rank` owns rows [64 rank / c, 64 (rank + 1) / c) of
+// the tile pair: it reads those rows of every CTA's partial through
+// distributed shared memory, adds them in rank order (the same bits every
+// run), runs the tile rule's mask and the online softmax there, and stores P
+// (rounded to T, in the 128-byte swizzle wgmma reads) and each row's
+// (correction, running sum) into every CTA; each CTA then rescales O and runs
+// O += P.V on its slab, both operands in shared memory. One cluster barrier a
+// tile pair, X(n): partial n and P of tile n - 1 written; partials and P
+// tiles are double-buffered, and the next tile's partial S is formed under
+// the barrier's latency. (An all-gather, every CTA reading all c partials
+// and running the whole softmax with P in registers, moved c x 16 KiB a CTA
+// and tile pair and ran slower, PERF.md §6.) The walk (the band, the sk
+// edge, the segment-id skip) depends on the row, the tiles and the ids
+// alone, so every CTA of a cluster meets every barrier; an empty walk meets
+// none (O = 0, lse = -inf). S is formed once per cluster (g times a tile
+// pair), Q, K and V are read from L2 once per slab; 215,080 bytes of shared
+// memory, one CTA an SM; the clusters launch tile-major, a plain causal
+// mask's heaviest q tiles first (cluster_slot). The triangle is the same
+// body. (f32 there: the cluster kernels, below.)
 //   triangle: K/V tiles of BN = BM keys, so only the diagonal tile needs the
 //     mask; q tiles launch heaviest first (blockIdx.y reversed, (batch,
 //     head) rows on x); every row sees key 0, so its running max is finite
@@ -1370,298 +1387,394 @@ __global__ void __launch_bounds__(D == kRowsHeadDim ? kRowsThreads : WG * 128 + 
 // ---------------------------------------------------------------------------
 
 constexpr int kWideSlab = 256;     // columns of O a 16-bit CTA holds (wgmma's widest N)
-constexpr int kWideRing = 4;       // stages of the Q/K chunk ring
-constexpr int kWideVStages = 2;    // stages of the V slab ring
+constexpr int kWideRing = 2;       // stages of the K ring and of the V ring, a slab's boxes each
+constexpr int kWideThreads = 128;  // one warpgroup a 16-bit CTA
+constexpr int kWidePartFloats = kRingRows * kRingRows;  // a partial S: 64 x 64 f32
+// float4s of the partials a thread sums at the fewest CTAs a q tile (3: 22 rows)
+constexpr int kWideXchItems = 3;
+static_assert(kWideXchItems * kWideThreads >= (kRingRows + 2) / 3 * (kRingRows / 4),
+              "a rank's rows of the exchange in kWideXchItems passes");
 
 constexpr int wide_smem_bytes() {
-  // alignment slack, the Q/K chunk ring (two boxes a stage), the V slab ring
-  // (kWideSlab / 64 boxes a stage) with each slab's 64 keys' segment ids and
-  // their min and max, the four barrier arrays
-  return kSmemAlign + kWideRing * 2 * kWideBoxBytes +
-         kWideVStages * (kWideSlab / kWideBox) * kWideBoxBytes +
-         kWideVStages * (kRingRows + 2) * 4 + 8 * (2 * kWideRing + 2 * kWideVStages);
+  // alignment slack, the resident own boxes of Q (a slab's), the K ring and
+  // the V ring (a slab's boxes a stage each), two f32 partial S, two 16-bit
+  // P tiles with their rows' (correction, running sum), and the barriers
+  return kSmemAlign + (1 + 2 * kWideRing) * (kWideSlab / kWideBox) * kWideBoxBytes +
+         2 * kWidePartFloats * 4 + 2 * (kWideBoxBytes + kRingRows * 8) + 8 * (2 * kWideRing + 1);
+}
+static_assert(wide_smem_bytes() <= 232448, "past the shared memory a block may use");
+
+// The float offset of X[a][4 f .. 4 f + 3] in an f32 partial S: row a at 64 a
+// floats, the float4s of each half of it swizzled by a & 7, so that a warp's
+// stores of its accumulator (eight rows, two float4s each) and the 16 lanes
+// that read a row are each one wavefront.
+__device__ __forceinline__ int part_at(int a, int f) {
+  return a * kRingRows + ((f & 8) | ((f & 7) ^ (a & 7))) * 4;
 }
 
-// The 16-bit D-streaming forward on the tensor cores: the general kernel's
-// walk, tile rule and softmax, with S formed over d / 64 streamed chunks.
-// blockIdx.x: (batch, head) row; blockIdx.y: 64-row q tile (TRI: reversed,
-// heaviest first); blockIdx.z: the slab of O.
+// The 16-bit D-streaming forward on the tensor cores, in clusters (see the
+// note on top). blockIdx.x: q tile x (g c) + z; y and z: bh rows, walked
+// tile-major (cluster_slot; a plain causal mask's last q tile first). The
+// CTA keeps its own columns of the q tile's Q resident and streams its own
+// columns of each live key tile's K and V; per key tile it forms a partial S
+// over those columns (and, above 8 slabs, its foreign chunks). CTA `rank`
+// owns rows [64 rank / c, 64 (rank + 1) / c) of the tile pair: it adds every
+// CTA's partial of its rows in rank order (the same bits every run), runs
+// the mask and the online softmax there and stores P (rounded to T) and each
+// row's (correction, running sum) into every CTA; each CTA then rescales O
+// and runs O += P.V on its slab with both operands in shared memory. One
+// cluster barrier a tile pair, X(n): partial n and P of tile n - 1 written.
+// The partial S of tile n + 1 is formed under the barrier's latency, a tile
+// ahead of the exchange. TRI: the triangle; else the general masks, a key
+// tile whose documents cannot meet the q tile's skipped by every CTA of the
+// cluster (the walk depends on the row, the tiles and the ids alone).
 template <typename T, bool TRI>
-__global__ void __launch_bounds__(128 + 32, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_fwd_wide_kernel(Params p, int d, const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap) {
   static_assert(kElem16<T>, "the tensor-core wide forward is bf16 or fp16");
   constexpr int BN = kRingRows;
-  constexpr int W = kWideSlab, NB = W / kWideBox;
-  constexpr int R = kWideRing, VS = kWideVStages;
+  constexpr int W = kWideSlab, NB = W / kWideBox, R = kWideRing;
   constexpr uint32_t kSlabBytes = NB * kWideBoxBytes;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
-  unsigned char* qk_s = base;                                  // stage st: a Q box, a K box
-  unsigned char* v_s = qk_s + R * 2 * kWideBoxBytes;           // stage vs: NB V boxes
-  int* kid_s = reinterpret_cast<int*>(v_s + VS * kSlabBytes);  // [VS][BN]
-  int* krange_s = kid_s + VS * BN;                             // [VS][min, max]
-  uint64_t* qk_full = reinterpret_cast<uint64_t*>(krange_s + 2 * VS);
-  uint64_t* qk_empty = qk_full + R;
-  uint64_t* v_full = qk_empty + R;
-  uint64_t* v_empty = v_full + VS;
+  unsigned char* q_s = base;                  // Q's own boxes of the slab
+  unsigned char* k_s = q_s + kSlabBytes;      // K stage st: an item's boxes
+  unsigned char* v_s = k_s + R * kSlabBytes;  // V stage st: a key tile's own boxes of the slab
+  float* xs = reinterpret_cast<float*>(v_s + R * kSlabBytes);  // partial S n % 2 (part_at)
+  unsigned char* pt = reinterpret_cast<unsigned char*>(xs + 2 * kWidePartFloats);  // P n % 2
+  float2* stats = reinterpret_cast<float2*>(pt + 2 * kWideBoxBytes);  // [2][64] (correction, sum)
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(stats + 2 * BN);
+  uint64_t* v_full = k_full + R;
+  uint64_t* q_full = v_full + R;
 
+  const SlabGeo<W> geo(d);
   const bool causal = p.causal != 0;
   const int window = p.window;  // > 0 only under a causal mask
+  const int2 slot =
+      cluster_slot(p.rows, (p.sq + BN - 1) / BN, geo.ctas(), TRI || (causal && window <= 0));
+  if (slot.x < 0) return;  // the whole cluster
+  const int bh = slot.x, q0 = slot.y * BN;
+  const SlabCols<W> cols(geo, blockIdx.x % geo.ctas(), d);
+  const int b_own = (cols.own0 - cols.g0) / kWideBox;  // the slab's first own box (NB: none)
+  const int ni = cols.items();  // a key tile's items: the foreign chunks, then the own boxes
   const bool segments = !TRI && p.seg != nullptr;
-  const int bh = blockIdx.x;
-  const int q0 = (TRI ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
-  const int own0 = blockIdx.z * W;     // the first column this CTA writes
-  const int col0 = min(own0, d - W);   // the first column of its products
-  const int nc = d / kWideBox;         // chunks of the contraction over d
-  const int q_end = min(p.sq, q0 + 64);
+  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
+  const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+
+  // the key tiles some row of the q tile can see by global position: all of
+  // them, or up to its last row's diagonal, from its first row's window on;
+  // every warp finds the next live one itself
+  const int q_end = min(p.sq, q0 + BN);
   const int k_hi = causal ? max(0, min(p.sk, p.q_start + q_end - p.k_start)) : p.sk;
   const int k_lo = window > 0 ? max(0, p.q_start + q0 - window + 1 - p.k_start) : 0;
-  const int t_lo = k_lo / BN;
-  const int n_tiles = k_lo < k_hi ? (k_hi + BN - 1) / BN - t_lo : 0;
-  const int* seg = segments ? p.seg + static_cast<size_t>(bh / p.heads) * p.sk : nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int t_hi = k_lo < k_hi ? (k_hi + BN - 1) / BN : 0;
+  const int2 qrange =
+      segments ? id_range(seg, q0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  auto live_from = [&](int t) {
+    while (segments && t < t_hi &&
+           apart(qrange, id_range(seg, t * BN, p.sk, lane, 32, ~0u, nullptr))) {
+      ++t;
+    }
+    return t;
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < R; ++st) {
-      mbar_init(&qk_full[st], 1);
-      mbar_init(&qk_empty[st], 4);
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
     }
-#pragma unroll
-    for (int st = 0; st < VS; ++st) {
-      mbar_init(&v_full[st], segments ? 1 + 31 : 1);  // the TMA bytes, then each id lane
-      mbar_init(&v_empty[st], 4);
-    }
+    mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // P.V before the first tile: a zero P (tile 1) at correction 1
+  for (int i = threadIdx.x; i < kWideBoxBytes / 16; i += kWideThreads) {
+    reinterpret_cast<uint4*>(pt + kWideBoxBytes)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x < BN) stats[BN + threadIdx.x] = make_float2(1.f, 0.f);
   __syncthreads();
 
-  if (warp == 4) {
-    // producer warp: per key tile, lane 0 loads the V slab, then streams the
-    // Q and K chunks; with segment ids, lanes 1-31 stage the tile's key ids
-    // and their range beside the V slab
-    if (lane == 0) {
-      const int kv_row = (bh / p.heads) * p.kv_heads + (bh % p.heads) / (p.heads / p.kv_heads);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = (t_lo + t) * BN;
-        const int vs = t % VS;
-        if (t >= VS) mbar_wait(&v_empty[vs], ((t / VS) - 1) & 1);
-        mbar_expect_tx(&v_full[vs], kSlabBytes);
-        for (int b = 0; b < NB; ++b) {
-          tma_load_3d(v_s + vs * kSlabBytes + b * kWideBoxBytes, &vmap, &v_full[vs],
-                      col0 + b * kWideBox, k0, kv_row);
-        }
-        for (int c = 0; c < nc; ++c) {
-          const int i = t * nc + c, st = i % R;
-          if (i >= R) mbar_wait(&qk_empty[st], ((i / R) - 1) & 1);
-          unsigned char* stage = qk_s + st * 2 * kWideBoxBytes;
-          mbar_expect_tx(&qk_full[st], 2 * kWideBoxBytes);
-          tma_load_3d(stage, &qmap, &qk_full[st], c * kWideBox, q0, bh);
-          tma_load_3d(stage + kWideBoxBytes, &kmap, &qk_full[st], c * kWideBox, k0, kv_row);
+  // thread 0 loads the resident Q boxes, then the K items of the walk in
+  // order, each once its stage's reader is done; every warp walks the loads
+  // with it (a walk in one warp alone puts its id reductions on a path of one
+  // warp, where ptxas serializes the wgmma)
+  int t = live_from(k_lo / BN);
+  int pt_tile = t, pit = 0, pidx = 0;
+  auto issue = [&](int limit) {
+    while (pidx < limit && pt_tile < t_hi) {
+      if (threadIdx.x == 0) {
+        unsigned char* stage = k_s + (pidx % R) * kSlabBytes;
+        uint64_t* bar = &k_full[pidx % R];
+        if (pit < cols.nf) {  // a foreign chunk: its Q box, then its K box
+          const int c0 = cols.foreign(pit, geo.c);
+          mbar_expect_tx(bar, 2 * kWideBoxBytes);
+          tma_load_3d(stage, &qmap, bar, c0, q0, bh);
+          tma_load_3d(stage + kWideBoxBytes, &kmap, bar, c0, pt_tile * BN, kv_row);
+        } else {  // the own boxes of K, where the slab puts them
+          mbar_expect_tx(bar, (NB - b_own) * kWideBoxBytes);
+          for (int b = b_own; b < NB; ++b) {
+            tma_load_3d(stage + b * kWideBoxBytes, &kmap, bar, cols.g0 + b * kWideBox,
+                        pt_tile * BN, kv_row);
+          }
         }
       }
-    } else if (segments) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int vs = t % VS;
-        if (t >= VS) mbar_wait(&v_empty[vs], ((t / VS) - 1) & 1);
-        const int2 range = id_range(seg, (t_lo + t) * BN, p.sk, lane - 1, 31, 0xfffffffeu,
-                                    kid_s + vs * BN);
-        if (lane == 1) {
-          krange_s[2 * vs] = range.x;
-          krange_s[2 * vs + 1] = range.y;
-        }
-        mbar_arrive(&v_full[vs]);  // releases this lane's stores to the consumers
+      ++pidx;
+      if (++pit == ni) {
+        pit = 0;
+        pt_tile = live_from(pt_tile + 1);
       }
     }
-    return;
+  };
+  if (t < t_hi) {
+    if (threadIdx.x == 0 && cols.owns()) {
+      mbar_expect_tx(q_full, (NB - b_own) * kWideBoxBytes);
+      for (int b = b_own; b < NB; ++b) {
+        tma_load_3d(q_s + b * kWideBoxBytes, &qmap, q_full, cols.g0 + b * kWideBox, q0, bh);
+      }
+    }
+    issue(R);
+    if (cols.owns()) mbar_wait(q_full, 0);
   }
 
-  // consumers: one warpgroup owns q rows q0 .. q0 + 63; this thread holds
-  // rows r0 and r0 + 8 of its warp's 16, at keys 8 j + 2 tq (+1) of a tile
-  const int tq = lane % 4;
-  const int r0 = q0 + warp * 16 + lane / 4;
   const float qscale = p.qscale;
   const int win = window > 0 ? window : INT_MAX;
-  const int qg0 = p.q_start + q0, qg1 = p.q_start + min(q0 + 63, p.sq - 1);
-  int qk[2];
-  int qid[2] = {0, 0};
+  const int qg0 = p.q_start + q0, qg1 = p.q_start + min(q0 + BN - 1, p.sq - 1);
+  // the rows this rank owns, [a0, a1): float4 i = tid + 128 k of them (k <
+  // kWideXchItems) at row a0 + i / 16, keys 4 (i % 16) ..; a row's 16 float4s
+  // lie in 16 consecutive lanes, which hold its running max and sum
+  const int a0 = BN * cols.rank / geo.c, a1 = BN * (cols.rank + 1) / geo.c;
+  const int owned = (a1 - a0) * (BN / 4);
+  float m[kWideXchItems], l[kWideXchItems];
+  int qid[kWideXchItems];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 8 * h;
-    qk[h] = p.q_start + row - p.k_start;
-    if (segments && row < p.sq) qid[h] = seg[row];
+  for (int k = 0; k < kWideXchItems; ++k) {
+    m[k] = -CUDART_INF_F;
+    l[k] = 0.f;
+    const int row = q0 + a0 + (static_cast<int>(threadIdx.x) + kWideThreads * k) / (BN / 4);
+    qid[k] = segments && row < p.sq ? seg[row] : 0;
   }
-  const int2 qrange =
-      segments ? id_range(seg, q0, p.sq, lane, 32, ~0u, nullptr) : make_int2(0, 1);
+  // O at rows 16 w + lane / 4 and 8 more, the slab's columns 8 j + 2 tq (+1)
   float o[W / 2], s[BN / 2];
-  uint32_t pa[BN / 16][4];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-  float l0 = 0.f, l1 = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int vs = t % VS;
-    const int k0 = (t_lo + t) * BN;
-    mbar_wait(&v_full[vs], (t / VS) & 1);
-    // the general kernel's tile rule (flash_fwd_rect_kernel)
-    const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
-    bool sees = q0 < p.sq;
-    bool masked = k0 + BN > p.sk;
-    if (causal) {
-      sees = sees && qg1 >= kg0;
-      masked = masked || qg0 < kg1;
-    }
-    if (window > 0) {
-      sees = sees && qg0 - kg1 < window;
-      masked = masked || qg1 - kg0 >= window;
-    }
-    if (segments) {
-      const int kmin = krange_s[2 * vs], kmax = krange_s[2 * vs + 1];
-      const bool uniform = qrange.x == qrange.y && kmin == kmax;
-      sees = sees && !(uniform && qrange.x != kmin);
-      masked = masked || !uniform;
-    }
-    if (sees) {
-      // S = Q.K^T over the d / 64 chunks, one chunk's products in flight
-      // while the next is issued; a chunk's stage is released once its
-      // products are done
-      for (int c = 0; c < nc; ++c) {
-        const int i = t * nc + c, st = i % R;
-        mbar_wait(&qk_full[st], (i / R) & 1);
-        const unsigned char* stage = qk_s + st * 2 * kWideBoxBytes;
-        hold(s);
-        wgmma_fence();
-        mma_box_by_box<T>(s, stage, stage + kWideBoxBytes, c == 0);
-        wgmma_commit();
-        wgmma_wait<1>();
-        hold(s);
-        if (c > 0) {
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&qk_empty[(i - 1) % R]);
-        }
+  int idx = 0;  // K items consumed so far
+  // the partial S of key tile `tile` (none past t_hi) over the CTA's columns,
+  // item by item; every warp's products (and the last P.V) are done before
+  // a stage is loaded again
+  auto partial_s = [&](int tile) {
+    for (int it = 0; it < (tile < t_hi ? ni : 0); ++it, ++idx) {
+      const int st = idx % R;
+      const unsigned char* stage = k_s + st * kSlabBytes;
+      mbar_wait(&k_full[st], (idx / R) & 1);
+      const bool foreign = it < cols.nf;
+      const int lo = foreign ? 0 : b_own, hi = foreign ? 1 : NB;
+      hold(s);
+      wgmma_fence();
+      for (int b = lo; b < hi; ++b) {
+        mma_box_by_box<T>(s, foreign ? stage : q_s + b * kWideBoxBytes,
+                          foreign ? stage + kWideBoxBytes : stage + b * kWideBoxBytes,
+                          it == 0 && b == lo);
       }
+      wgmma_commit();
       wgmma_wait<0>();
       hold(s);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&qk_empty[(t * nc + nc - 1) % R]);
-
-      const int2* kid = reinterpret_cast<const int2*>(kid_s + vs * BN);
-      auto softmax = [&](auto mask) {
-        constexpr bool kMask = decltype(mask)::value;
-        if constexpr (kMask) {
+      hold(o);
+      __syncthreads();
+      issue(idx + 1 + R);
+    }
+  };
+  // the n-th key tile's own V boxes into stage n % R
+  auto load_v = [&](int tile, int n) {
+    if (tile < t_hi && threadIdx.x == 0 && cols.owns()) {
+      const int vs = n % R;
+      mbar_expect_tx(&v_full[vs], (NB - b_own) * kWideBoxBytes);
+      for (int b = b_own; b < NB; ++b) {
+        tma_load_3d(v_s + vs * kSlabBytes + b * kWideBoxBytes, &vmap, &v_full[vs],
+                    cols.g0 + b * kWideBox, tile * BN, kv_row);
+      }
+    }
+  };
+  // S into partial n % 2
+  auto store_partial = [&](int n) {
+    float* xn = xs + (n & 1) * kWidePartFloats;
+    const int r = warp * 16 + lane / 4;
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            int2 kj = make_int2(0, 0);
-            if (segments) kj = kid[4 * j + tq];
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(xn + part_at(r + 8 * h, 2 * j + tq / 2) + 2 * (tq % 2)) =
+            make_float2(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+      }
+    }
+  };
+
+  // tile n is t, tile n + 1 is t1 (its partial S in s). Buffers: partial n
+  // is written before X(n) and read by the owners after it, and partial n + 2
+  // is written after X(n + 1), which no CTA passes before every owner has
+  // read partial n; P n is written after X(n), read after X(n + 1), and P n +
+  // 2 is written after X(n + 2), before which every CTA's P.V of tile n is
+  // done.
+  partial_s(t);
+  load_v(t, 0);
+  if (t < t_hi) {
+    store_partial(0);
+    cluster_arrive();  // X(0)
+  }
+  int t1 = t < t_hi ? live_from(t + 1) : t_hi;
+  partial_s(t1);
+  int n = 0;
+  for (bool go = t < t_hi; go;) {
+    cluster_wait();  // X(n)
+    if (t1 < t_hi) store_partial(n + 1);
+    // O rescaled by its rows' corrections of tile n - 1, then O += P.V of it
+    // under this rank's part of the exchange (at the first tile the zero P
+    // against the resident Q, finite in every column this CTA writes)
+    const int pn = (n + 1) & 1;
+    if (n > 0 && cols.owns()) mbar_wait(&v_full[(n - 1) % R], ((n - 1) / R) & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float c = stats[pn * BN + warp * 16 + lane / 4 + 8 * h].x;
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        o[4 * j + 2 * h] *= c;
+        o[4 * j + 2 * h + 1] *= c;
+      }
+    }
+    hold(o);
+    fence_proxy_async_cta();  // P's stores, seen through X(n), before wgmma reads them
+    wgmma_fence();
+    mma_tile_by_slab<T, W>(o, pt + pn * kWideBoxBytes,
+                           n > 0 ? v_s + ((n - 1) % R) * kSlabBytes : q_s);
+    wgmma_commit();
+    const bool live = t < t_hi;
+    if (live) {
+      // the general kernel's tile rule (flash_fwd_rect_kernel): whether some
+      // pair needs the element mask (a key past sk, after a row, outside the
+      // window or in another document)
+      const int k0 = t * BN;
+      const int kg0 = p.k_start + k0, kg1 = p.k_start + min(k0 + BN - 1, p.sk - 1);
+      bool masked = k0 + BN > p.sk;
+      if (causal) masked = masked || qg0 < kg1;
+      if (window > 0) masked = masked || qg1 - kg0 >= window;
+      if (segments) {
+        masked = masked || !one_doc(qrange, id_range(seg, k0, p.sk, lane, 32, ~0u, nullptr));
+      }
+      // this rank's rows of tile n: S as every rank's partial in rank order,
+      // the mask, the online softmax; P and the rows' (correction, running
+      // sum) into every CTA, each float4's as soon as it is formed (no
+      // accumulator register is written while the P.V runs: ptxas would
+      // serialize every wgmma, C7515)
+      const float* xn = xs + (n & 1) * kWidePartFloats;
+      unsigned char* ptn = pt + (n & 1) * kWideBoxBytes;
+      float2* stn = stats + (n & 1) * BN;
+#pragma unroll
+      for (int k = 0; k < kWideXchItems; ++k) {
+        const int i = static_cast<int>(threadIdx.x) + kWideThreads * k;
+        const bool mine = i < owned;
+        const int a = a0 + (mine ? i / (BN / 4) : 0), f = i % (BN / 4);
+        float sv[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+        if (mine) {
+          float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int r = 0; r < kF32WideCluster; ++r) {
+            if (r < geo.c) x4 = add4(x4, ld_cluster4(cluster_addr(xn + part_at(a, f), r)));
+          }
+          sv[0] = x4.x;
+          sv[1] = x4.y;
+          sv[2] = x4.z;
+          sv[3] = x4.w;
+          if (masked) {
+            const int qk = p.q_start + q0 + a - p.k_start;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int key = k0 + 8 * j + 2 * tq + e % 2;
-              const int dist = qk[e / 2] - key;
-              bool live = key < p.sk && (!causal || (dist >= 0 && dist < win));
-              if (segments) live = live && (e % 2 ? kj.y : kj.x) == qid[e / 2];
-              if (!live) s[4 * j + e] = -CUDART_INF_F;
+              const int key = k0 + 4 * f + e;
+              const int dist = qk - key;
+              bool keep = key < p.sk && (!causal || (dist >= 0 && dist < win));
+              if (segments && keep) keep = seg[key] == qid[k];
+              if (!keep) sv[e] = -CUDART_INF_F;
             }
           }
         }
-        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+        float mx = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        for (int off = 1; off < BN / 4; off <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        // a row that saw no key yet keeps max -inf: `safe` keeps exp2 at 0
+        const float mn = fmaxf(m[k], mx * qscale);
+        const float safe = mn == -CUDART_INF_F ? 0.f : mn;
+        const float corr = exp2f(m[k] - safe);
+        m[k] = mn;
+        float pe[4], rs = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pe[e] = exp2f(fmaf(sv[e], qscale, -safe));
+          rs += pe[e];
         }
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0 * qscale), mn1 = fmaxf(m1, mx1 * qscale);
-        const float safe0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
-        const float safe1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
-        const float c0 = exp2f(m0 - safe0), c1 = exp2f(m1 - safe1);
-        m0 = mn0;
-        m1 = mn1;
-        float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = 2 * kk + h;
-            const float p00 = exp2f(fmaf(s[4 * j], qscale, -safe0));
-            const float p01 = exp2f(fmaf(s[4 * j + 1], qscale, -safe0));
-            const float p10 = exp2f(fmaf(s[4 * j + 2], qscale, -safe1));
-            const float p11 = exp2f(fmaf(s[4 * j + 3], qscale, -safe1));
-            rs0 += p00 + p01;
-            rs1 += p10 + p11;
-            pa[kk][2 * h] = pack2<T>(p00, p01);
-            pa[kk][2 * h + 1] = pack2<T>(p10, p11);
+        for (int off = 1; off < BN / 4; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[k] = l[k] * corr + rs;
+        if (mine) {
+          const uint2 pv = make_uint2(pack2<T>(pe[0], pe[1]), pack2<T>(pe[2], pe[3]));
+          const uint2 sl = make_uint2(__float_as_uint(corr), __float_as_uint(l[k]));
+          for (int r = 0; r < geo.c; ++r) {
+            st_cluster2(cluster_addr(ptn + tile16_at(a, f), r), pv);
+            if (f == 0) st_cluster2(cluster_addr(stn + a, r), sl);
           }
         }
-        l0 = l0 * c0 + rs0;
-        l1 = l1 * c1 + rs1;
-#pragma unroll
-        for (int j = 0; j < W / 8; ++j) {
-          o[4 * j] *= c0;
-          o[4 * j + 1] *= c0;
-          o[4 * j + 2] *= c1;
-          o[4 * j + 3] *= c1;
-        }
-      };
-      if (masked) {
-        softmax(std::true_type{});
-      } else {
-        softmax(std::false_type{});
-      }
-
-      hold(pa);
-      hold(o);
-      wgmma_fence();
-      mma_frag_by_slab<T, W>(o, pa, v_s + vs * kSlabBytes);  // O += P.V_slab, V MN-major
-      wgmma_commit();
-      wgmma_wait<0>();
-      hold(o);
-      hold(pa);
-    } else {
-      // a dead tile: its chunks are released unread
-      for (int c = 0; c < nc; ++c) {
-        const int i = t * nc + c, st = i % R;
-        mbar_wait(&qk_full[st], (i / R) & 1);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&qk_empty[st]);
       }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&v_empty[vs]);  // this warp is done with the slab
+    wgmma_wait<0>();
+    hold(o);
+    if (!live) break;
+    cluster_arrive();  // X(n + 1)
+    // under the barrier: the partial S two tiles on, then tile n + 1's V
+    // (its stage's last P.V, of tile n - 1, done in every warp)
+    const int t2 = t1 < t_hi ? live_from(t1 + 1) : t_hi;
+    partial_s(t2);
+    if (t2 >= t_hi) __syncthreads();
+    load_v(t1, n + 1);
+    t = t1;
+    t1 = t2;
+    ++n;
   }
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
+  // the rows' sums: the last tile's statistics (none after an empty walk,
+  // whose rows get O = 0 and lse = -inf); no barrier after the walk, since
+  // every access to another CTA's shared memory came before the last X
+  const float2* last = stats + ((n + 1) & 1) * BN;
   T* og = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * d;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = r0 + 8 * half;
-    if (row >= p.sq) continue;
-    const float l = half ? l1 : l0;
-    const float denom = l > 0.f ? l : 1.f;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * d + col0);
+    const int a = warp * 16 + lane / 4 + 8 * half;
+    const int row = q0 + a;
+    if (row >= p.sq || !cols.owns()) continue;
+    const float lr = n > 0 ? last[a].y : 0.f;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * d + cols.g0);
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
-      if (col0 + 8 * j < own0) continue;  // an earlier slab's columns
-      orow[4 * j + tq] = pack2<T>(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+      if (cols.g0 + 8 * j < cols.own0) continue;  // an earlier slab's columns
+      orow[4 * j + tq] =
+          lr > 0.f ? pack2<T>(o[4 * j + 2 * half] / lr, o[4 * j + 2 * half + 1] / lr) : 0u;
     }
-    if (tq == 0 && blockIdx.z == 0) {
-      p.lse[static_cast<size_t>(bh) * p.sq + row] =
-          l > 0.f ? (half ? m1 : m0) * kLn2 + logf(l) : -CUDART_INF_F;
+  }
+  if (blockIdx.x % geo.ctas() < geo.c) {  // the first cluster's owners write lse
+#pragma unroll
+    for (int k = 0; k < kWideXchItems; ++k) {
+      const int i = static_cast<int>(threadIdx.x) + kWideThreads * k;
+      const int row = q0 + a0 + i / (BN / 4);
+      if (i < owned && i % (BN / 4) == 0 && row < p.sq) {
+        p.lse[static_cast<size_t>(bh) * p.sq + row] =
+            l[k] > 0.f ? m[k] * kLn2 + logf(l[k]) : -CUDART_INF_F;
+      }
     }
   }
 }
@@ -2432,9 +2545,27 @@ int f32_tile_resident_at(int d, int block_m) {
 }
 #endif  // FLASH_ELEM_F16
 
+// The clusters of the 16-bit wide forward resident on each card, per mask
+// and cluster size (asked once: active_clusters).
+template <bool TRI>
+ClusterCounts& wide_counts() {
+  static ClusterCounts counts;
+  return counts;
+}
+
+// How many clusters of the library's 16-bit wide forward at head dim d the
+// current card holds at once; a negative CUDA error code when the query
+// fails.
+template <bool TRI>
+int wide_clusters(int d) {
+  return active_clusters(flash_fwd_wide_kernel<Elem16, TRI>, SlabGeo<kWideSlab>(d).c,
+                         wide_smem_bytes(), wide_counts<TRI>(), kWideThreads);
+}
+
 // The library's 16-bit type on the tensor cores at a head dim above 576, with
 // the caller's plan (64-row q tiles, the layout's shared memory, the 128-byte
-// swizzle); or f32 on the CUDA cores at head dims 32, 64 and 128 (the tile
+// swizzle; the slab CTAs of a q tile in one cluster, kNoCluster where none
+// fits); or f32 on the CUDA cores at head dims 32, 64 and 128 (the tile
 // kernels) and from 256 on (the cluster kernels), with the plan's q rows,
 // f32_rows(sq), and shared memory; no swizzle.
 template <bool TRI>
@@ -2444,8 +2575,6 @@ int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int sm
     if (!wide_head_dim(d) || block_m != 64) return kUnsupported;
     if (swizzle != WideGeo::kRowBytes || smem != wide_smem_bytes()) return kUnsupported;
     if (!tma_aligned({p.q, p.k, p.v, p.o})) return kUnsupported;  // TMA needs 16-byte bases
-    const int q_tiles = (p.sq + 63) / 64;
-    if (q_tiles > 65535) return kUnsupported;
     CUtensorMap qmap, kmap, vmap;
     const int bh_kv = bh / p.heads * p.kv_heads;
     if (!encode_wide_map<Elem16>(&qmap, p.q, p.sq, bh, d) ||
@@ -2453,12 +2582,10 @@ int dispatch_wide(const Params& p, int dtype, int bh, int d, int block_m, int sm
         !encode_wide_map<Elem16>(&vmap, p.v, p.sk, bh_kv, d)) {
       return kNoTensorMap;
     }
-    auto kernel = flash_fwd_wide_kernel<Elem16, TRI>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(bh, q_tiles, wide_slabs(d, kWideSlab)), 128 + 32, smem, stream>>>(p, d, qmap,
-                                                                                  kmap, vmap);
-    return static_cast<int>(cudaGetLastError());
+    const SlabGeo<kWideSlab> geo(d);
+    return launch_clusters(flash_fwd_wide_kernel<Elem16, TRI>,
+                           cluster_grid((p.sq + 63) / 64, geo.ctas(), bh), geo.c, kWideThreads,
+                           smem, stream, wide_counts<TRI>(), p, d, qmap, kmap, vmap);
   }
 #ifdef FLASH_ELEM_F16
   return kUnsupported;
@@ -2643,6 +2770,18 @@ extern "C" int flash_fwd_rect(const void* q, const void* k, const void* v, const
            causal && window > 0 ? window : 0, qscale, bh};
   return dispatch<false>(p, dtype, bh, d, block_m, smem, swizzle, stream);
 }
+
+#ifdef FLASH_HEAD_DIM_WIDE
+// How many clusters of the library's 16-bit wide forward (tri 1: the
+// triangle's, 0: the general kernel's) at head dim d (above 576, a multiple
+// of 64) the card holds at once: cudaOccupancyMaxActiveClusters at its
+// plan's shared memory and cluster size. -1 for a head dim it does not take,
+// minus a CUDA error code when the query fails.
+extern "C" int flash_fwd_wide16_clusters(int tri, int d) {
+  if (!wide_head_dim(d)) return kUnsupported;
+  return tri ? wide_clusters<true>(d) : wide_clusters<false>(d);
+}
+#endif
 
 #if defined(FLASH_HEAD_DIM_WIDE) && !defined(FLASH_ELEM_F16)
 // How many clusters of an f32 forward kernel at head dim d (tri 1: the

@@ -26,9 +26,12 @@ V tile (:func:`rows_smem`). At 512 two CTAs share each q tile, one on each
 column half of O, at 576 (MLA's absorbed heads) three, one on each
 column third (:func:`col_split`). Above 576 the D-streaming ("wide") kernels run (libraries ``flash_fwd_wide``,
 ``flash_fwd_f16_wide``, built at the first call there): the three 64-row
-tiles of a 640-wide head alone would pass a block's shared memory, so the
-scores are summed over 64-column chunks that stream through a ring, and
-each CTA holds one slab of O (:func:`wide_plan`); the head dim is a
+tiles of a 640-wide head alone would pass a block's shared memory, so
+each CTA holds one 256-column slab of O and the slab CTAs of a q tile form
+one thread-block cluster: each keeps its own columns of Q resident, streams
+only its own columns of K and V, and the cluster adds the partial scores
+over those columns through distributed shared memory, each CTA the rows it
+owns, and hands P back to every CTA (:func:`wide_plan`); the head dim is a
 runtime argument, so one build serves every width. f32 at head dims 256
 and above runs in that library too (:func:`f32_cluster_plan`): the
 128-column slab CTAs of a q tile form one thread-block cluster that adds
@@ -185,7 +188,10 @@ class TriPlan:
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
         maps it (the cluster kernels: each of the ``col_split`` CTAs of
-        tile x; the f32 tile kernels tile-major, :func:`tile_major`)."""
+        tile x; the f32 tile kernels and the 16-bit clusters above 576
+        tile-major, :func:`tile_major`)."""
+        if self.swizzle and self.slab:  # the 16-bit wide kernels' clusters, tile-major
+            return tile_major(x, y, *self.grid, heaviest_first=True)
         if self.swizzle:
             return x, self.grid[1] - 1 - y  # heaviest q tiles first
         if self.cluster > 1:
@@ -320,9 +326,11 @@ def rows_smem(tri: bool) -> int:
 # the D-streaming forward's layout above MAX_HEAD_DIM (flash_fwd.cu, built
 # with -DFLASH_HEAD_DIM_WIDE)
 WIDE_SLAB = 256       # columns of O a 16-bit CTA holds: wgmma's widest N (kWideSlab)
-WIDE_RING = 4         # stages of the ring of Q and K chunks (kWideRing)
-WIDE_V_STAGES = 2     # stages of the ring of V slabs (kWideVStages)
+WIDE_RING = 2         # stages of the K ring and of the V ring, a slab's boxes each (kWideRing)
+WIDE_THREADS = 128    # one warpgroup a 16-bit CTA (kWideThreads)
 WIDE_BOX_BYTES = WIDE_BOX * WIDE_BOX * 2  # a 64 x 64 box of 16-bit values (kWideBoxBytes)
+WIDE_PART_BYTES = 64 * 64 * 4  # a partial S, 64 x 64 f32 (kWidePartFloats floats)
+WIDE_XCH_ITEMS = 3  # float4s of the partials an owner thread sums (kWideXchItems)
 
 
 def wide_slabs(d: int, width: int) -> int:
@@ -334,21 +342,34 @@ def wide_slabs(d: int, width: int) -> int:
 
 def wide_plan(dtype: torch.dtype, bh: int, s: int, d: int) -> TriPlan:
     """How both 16-bit forwards launch at a head dim ``d`` above
-    ``MAX_HEAD_DIM`` (a multiple of 64): q tiles of 64 rows, and
-    ``col_split`` slabs of ``slab`` columns of O on the grid's z, each CTA
-    forming the whole score tile: ``(slabs + 1) / 2`` times the ideal
-    tensor-core work; one consumer warpgroup and a producer warp that
-    streams Q and K in 64 x 64 boxes through a ring of ``stages``
-    (``WIDE_RING``) and each key tile's V slab through ``WIDE_V_STAGES``
-    more; shared memory for both rings, the slabs' staged segment ids (the
-    general kernel's; the triangle's layout is the same), 1 KiB of
-    alignment slack and the barriers; grid (bh, q tiles), the triangle
-    heaviest first; the 128-byte swizzle. (f32 there: :func:`f32_cluster_plan`.)"""
-    tiles = -(-s // 64)
-    smem = (1024 + WIDE_RING * 2 * WIDE_BOX_BYTES
-            + WIDE_V_STAGES * (WIDE_SLAB // WIDE_BOX) * WIDE_BOX_BYTES
-            + WIDE_V_STAGES * (RECT_TILE + 2) * 4 + 8 * (2 * WIDE_RING + 2 * WIDE_V_STAGES))
-    return TriPlan(64, 160, (bh, tiles), smem, 128, wide_slabs(d, WIDE_SLAB), WIDE_SLAB, WIDE_RING)
+    ``MAX_HEAD_DIM`` (a multiple of 64): q tiles of 64 rows, one warpgroup a
+    CTA (``WIDE_THREADS``), and ``col_split`` CTAs a q tile, one per slab of
+    ``slab`` (``WIDE_SLAB``) columns of O, in thread-block clusters of
+    ``cluster`` (:func:`f32_wide_geometry` at that slab: 3 CTAs at 640 and
+    704, 4 at 1024, 8 at 2048, above that g = ⌈n / 8⌉ clusters a q tile).
+    A CTA keeps its own columns of the q tile's Q resident and streams only
+    its own columns of K and V by TMA, in 64 x 64 boxes, through two rings
+    of ``stages`` (``WIDE_RING``) slabs; above 8 slabs each cluster also
+    sums the 64-column chunks none of its CTAs owns (a Q and a K box an
+    item, :func:`f32_wide_columns`). Per key tile each CTA forms a partial S
+    over its columns; CTA r of the cluster owns rows [64 r / c, 64 (r + 1) /
+    c): it adds every CTA's partial of them through distributed shared
+    memory in rank order, runs the online softmax there and stores P and
+    the rows' statistics into every CTA, which runs P·V on its slab. S is
+    formed once per cluster (a design in which every slab CTA formed the
+    whole S did ``(slabs + 1) / 2`` times the ideal tensor-core work).
+    Shared memory: 1 KiB of alignment slack, the resident Q slab, both
+    rings, two 64 x 64 f32 partial buffers, two 16-bit P tiles with their
+    rows' (correction, sum) and the barriers, the same for both masks (every
+    warp reads the segment ids itself). Grid (q tiles, bh) with
+    ``col_split`` CTAs a q tile on x, walked tile-major, the triangle's
+    heaviest q tiles first (:meth:`TriPlan.cta`); the 128-byte swizzle.
+    (f32 there: :func:`f32_cluster_plan`.)"""
+    _, g, c = f32_wide_geometry(d, WIDE_SLAB)
+    smem = (1024 + (1 + 2 * WIDE_RING) * (WIDE_SLAB // WIDE_BOX) * WIDE_BOX_BYTES
+            + 2 * WIDE_PART_BYTES + 2 * (WIDE_BOX_BYTES + 64 * 8) + 8 * (2 * WIDE_RING + 1))
+    return TriPlan(64, WIDE_THREADS, (-(-s // 64), bh), smem, 128, g * c, WIDE_SLAB, WIDE_RING,
+                   c)
 
 
 # the f32 cluster kernels' layout at head dims 256 and above (flash_cluster.cuh;
@@ -518,8 +539,10 @@ class RectPlan:
     def cta(self, x: int, y: int) -> Tuple[int, int]:
         """The (bh row, q tile) that block (x, y) computes, as the kernel
         maps it: natural order, bh rows on x for the tensor-core kernel; the
-        f32 tile kernels tile-major (:func:`tile_major`), a plain causal
-        mask's last q tile first."""
+        f32 tile kernels and the 16-bit clusters above 576 tile-major
+        (:func:`tile_major`), a plain causal mask's last q tile first."""
+        if self.swizzle and self.slab:
+            return tile_major(x, y, *self.grid, heaviest_first=self.causal and not self.window)
         if self.swizzle:
             return x, y
         if self.slab and self.cluster == 1:
@@ -622,7 +645,9 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
     triangle's swizzle, and at d 512 and 576 its one stage and column
     slices; at d 256 the triangle's 128-row CTAs (:func:`rows_smem`), which
     copy no key tile whose one document is not their rows' one (``skips``,
-    :meth:`RectPlan.loads`). f32
+    :meth:`RectPlan.loads`); above 576 the triangle's slab clusters
+    (:func:`wide_plan`), tile-major, a plain causal mask's last q tile first,
+    which likewise copy no such tile (``skips``). f32
     keeps the CUDA-core kernels' plans, the triangle's (from d 32 its q
     tiles in natural order, and no key tile of another document copied:
     ``skips``). The kernel checks the plan against its own layout and
@@ -638,8 +663,7 @@ def rect_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int, sms: int, c
                 + stages * (RECT_TILE + 2) * 4 + 8 * (2 * stages + 1))
     return RectPlan(tri.block_m, tri.threads, tri.grid, smem, tri.swizzle, *masks,
                     tri.col_split, tri.slab, tri.stages, tri.cluster,
-                    skips=bool(tri.slab and not tri.swizzle)
-                    or (dtype != torch.float32 and d == ROWS_HEAD_DIM))
+                    skips=bool(tri.slab) or (dtype != torch.float32 and d == ROWS_HEAD_DIM))
 
 
 @functools.cache
@@ -741,6 +765,21 @@ def f32_active_clusters(d: int, tri: bool, block_m: int) -> int:
     if n <= 0:
         raise RuntimeError(f"f32 forward at head dim {d}, {block_m} rows: cluster occupancy "
                            f"query returned {n}")
+    return n
+
+
+def wide_active_clusters(dtype: torch.dtype, d: int, tri: bool) -> int:
+    """How many clusters of the bf16 or fp16 wide forward (the triangle's
+    with ``tri``, else the general kernel's) at head dim ``d`` above 576 (a
+    multiple of 64) the current card holds at once:
+    ``cudaOccupancyMaxActiveClusters`` at its plan's shared memory and
+    cluster size, asked once per card. Raises where the query fails."""
+    fn = _lib(dtype, d).flash_fwd_wide16_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    n = fn(int(tri), d)
+    if n <= 0:
+        raise RuntimeError(f"{dtype} wide forward at head dim {d}: cluster occupancy query "
+                           f"returned {n}")
     return n
 
 

@@ -8,12 +8,13 @@
 // stream: a tensor is read in boxes of 64 rows x 64 columns (one TMA box,
 // 128-byte swizzle, 8 KiB in 16 bits), the head dim D (a multiple of 64) is a
 // runtime argument, and a score tile (S = Q.K^T or S^T = K.Q^T, dP or dP^T)
-// accumulates over the D / 64 column chunks in registers. An output that
-// spans D (O, dQ, dK, dV) is split into column slabs of W columns, one CTA
-// each on the grid's z; a slab is W / 64 boxes that lie side by side in
-// shared memory, read as one MN-major wgmma operand of N = W. The last slab
-// starts at D - W so that every slab runs the same product; it writes only
-// the columns no earlier slab owns.
+// accumulates over the 64-column chunks in registers. An output that spans
+// D (O, dQ, dK, dV) is split into column slabs of W columns, one CTA each,
+// the slab CTAs of a tile one thread-block cluster that adds their partial
+// scores through distributed shared memory (flash_cluster.cuh); a slab is
+// W / 64 boxes that lie side by side in shared memory, read as one MN-major
+// wgmma operand of N = W. The last slab starts at D - W so that every slab
+// runs the same product; it writes only the columns no earlier slab owns.
 
 #pragma once
 
@@ -97,8 +98,22 @@ bool encode_wide_map(CUtensorMap* map, const void* base, int s, int rows, int d)
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The byte offset of elements (a, 4 f .. 4 f + 3) of a 16-bit [64][64] tile
+// in a TMA box's 128-byte swizzle, as wgmma reads a K-major operand
+// (the 16-bit P and dS tiles both sources' cluster exchanges form).
+__device__ __forceinline__ int tile16_at(int a, int f) {
+  return a * 128 + (((f >> 1) ^ (a & 7)) << 4) + ((f & 1) << 3);
+}
+
 // The head dims the wide kernels take: above 576, whole boxes.
 __host__ __device__ constexpr bool wide_head_dim(int d) { return d > 576 && d % kWideBox == 0; }
+
+// Whether two sides' segment-id ranges (id_range's min and max over their
+// positions inside s) are one document each, and whether they are two
+// different ones: then the pair of tiles holds no live pair (both sources'
+// walks above 576 skip such a tile in every warp).
+__device__ __forceinline__ bool one_doc(int2 a, int2 b) { return a.x == a.y && b.x == b.y; }
+__device__ __forceinline__ bool apart(int2 a, int2 b) { return one_doc(a, b) && a.x != b.x; }
 
 // Column slabs of width w over a head dim d (the last one overlapping).
 __host__ __device__ constexpr int wide_slabs(int d, int w) { return (d + w - 1) / w; }

@@ -188,6 +188,17 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// The same barrier split in its two halves, so that work that touches no
+// shared memory another CTA reads or writes (the next tile's products) runs
+// under its latency: cluster_arrive releases this thread's shared-memory
+// writes and reads before it, cluster_wait returns once every thread of the
+// cluster has arrived and acquires theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ uint32_t cluster_addr(const void* ptr, uint32_t rank) {
   uint32_t out;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(ptr)), "r"(rank));
@@ -216,6 +227,12 @@ __device__ __forceinline__ void st_cluster2(uint32_t addr, uint2 v) {
 // hands on to other threads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+}
+// The same for this CTA's shared memory, on the reading side: shared-memory
+// stores that a barrier has made seen (local or from another CTA of the
+// cluster) before this thread's later reads of the async proxy.
+__device__ __forceinline__ void fence_proxy_async_cta() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The tensor-core kernels' element types: bf16 and fp16. Both are 16 bits,
